@@ -1,0 +1,410 @@
+"""Slot-based paged KV cache: block pool, allocator, and the paged
+attention/cache-write math for the serving decode step.
+
+Counterpart of deeperspeed_tpu/serving/kv_cache.py. Layout: one pool per
+cache side, stacked over layers —
+
+    k, v: (n_layer, num_blocks, block_size, n_kv_head, head_dim)
+
+A request's cache lives in whichever blocks the allocator hands it; the
+per-slot BLOCK TABLE (``(num_slots, blocks_per_slot)`` int) maps the
+request's logical block ``i`` to its physical block. Block 0 is the
+reserved NULL block: idle slots' tables and padded table entries point at
+it, so the decode step can scatter/gather unconditionally — garbage lands
+in (or comes from) block 0 and is masked out by the per-slot length.
+
+The pools are updated IN PLACE (the reference donates them to each jitted
+step and takes back new ones): prefill scatters whole ``block_size``
+pages into the allocated blocks, decode scatters each slot's single new
+(K, V) row at ``(block_table[len // bs], len % bs)``, and reads gather the
+slot's pages into a contiguous ``blocks_per_slot * block_size`` view per
+layer, with plain PyTorch indexing (the reference does this with XLA
+gathers, not a Pallas kernel).
+
+Prefix reuse: blocks are REFCOUNTED, and a ``PrefixCache`` (radix trie
+over token blocks) lets the scheduler map another request's
+already-prefilled prompt blocks into a new slot's table read-only. A
+shared block returns to the free list only when its last holder drops it.
+The partially filled boundary block of a matched prefix is never shared
+in place — admission copies its matched rows into a private block (the
+copy-on-write split) via the same gather/scatter page machinery.
+"""
+
+import itertools
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..models.generation import grouped_attention
+from ..models.gpt import GPTConfig
+from .config import ServingConfig
+
+NULL_BLOCK = 0
+
+
+class OutOfBlocks(Exception):
+    """Raised only for internal invariant violations — normal exhaustion
+    returns None from alloc() (backpressure, not an error)."""
+
+
+class BlockAllocator:
+    """Refcounted free-list allocator over the physical blocks of the KV
+    pool.
+
+    Block 0 (NULL_BLOCK) is never handed out. alloc() is all-or-nothing:
+    a request that cannot get every block it asked for gets none, and the
+    caller leaves it queued (backpressure) or preempts a victim.
+
+    Sharing: ``alloc`` hands out blocks at refcount 1; ``ref`` adds a
+    holder (a slot table mapping a cached prefix block, or the prefix
+    cache's own resident reference); ``free`` drops one holder and the
+    block returns to the free list only at refcount 0. Callers that never
+    call ``ref`` see the original exclusive-ownership semantics
+    unchanged. ``reclaim`` (set by PrefixCache) is consulted when alloc
+    falls short, so cache-only blocks are evicted before backpressure.
+    """
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved)")
+        self.num_blocks = num_blocks
+        # LIFO free list: recently freed (cache-warm) blocks reused first
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._refs: Dict[int, int] = {}
+        # hook: callable(n_short) -> blocks actually released; installed
+        # by PrefixCache so allocation pressure evicts idle cached
+        # prefixes instead of backpressuring live traffic
+        self.reclaim = None
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_allocated(self) -> int:
+        return len(self._refs)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(block, 0)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n blocks, or None when the pool cannot satisfy the request."""
+        if n < 0:
+            raise ValueError(f"cannot alloc {n} blocks")
+        if n > len(self._free) and self.reclaim is not None:
+            self.reclaim(n - len(self._free))
+        if n > len(self._free):
+            return None
+        blocks = [self._free.pop() for _ in range(n)]
+        for b in blocks:
+            self._refs[b] = 1
+        return blocks
+
+    def ref(self, block: int) -> None:
+        """Add a holder to an allocated block (shared-prefix mapping)."""
+        if block not in self._refs:
+            raise OutOfBlocks(
+                f"ref of unallocated block {block} "
+                f"(allocated={sorted(self._refs)})"
+            )
+        self._refs[block] += 1
+
+    def free(self, blocks: List[int]) -> None:
+        for b in blocks:
+            n = self._refs.get(b)
+            if n is None:
+                raise OutOfBlocks(
+                    f"double free / foreign free of block {b} "
+                    f"(allocated={sorted(self._refs)})"
+                )
+            if n > 1:
+                self._refs[b] = n - 1
+            else:
+                del self._refs[b]
+                self._free.append(b)
+
+
+def blocks_needed(n_tokens: int, block_size: int) -> int:
+    return math.ceil(n_tokens / block_size) if n_tokens > 0 else 0
+
+
+# ------------------------------------------------------------------ #
+# prefix-radix KV index
+# ------------------------------------------------------------------ #
+
+
+class _RadixNode:
+    """One cached block of prompt tokens. Full nodes (len(tokens) ==
+    block_size) may have children; a shorter node is a terminal partial
+    leaf — the CoW-source boundary block of some cached prompt."""
+
+    __slots__ = ("tokens", "block", "children", "parent", "last_used")
+
+    def __init__(self, tokens: Tuple[int, ...], block: int, parent):
+        self.tokens = tokens
+        self.block = block
+        self.children: List["_RadixNode"] = []
+        self.parent = parent
+        self.last_used = 0
+
+
+def _common_prefix(a: Sequence[int], b: Sequence[int]) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+class PrefixCache:
+    """Radix trie over token blocks: the fleet-wide index of prompt KV
+    already resident in the paged pool.
+
+    Each node is one physical block's worth of tokens; the cache holds
+    its own allocator reference on every indexed block, so a cached
+    prefix outlives the request that prefilled it. ``match`` returns the
+    longest cached prefix of a prompt as (full shared blocks, partial
+    boundary source); ``insert`` indexes a freshly prefilled prompt,
+    deduping against existing nodes. Under allocation pressure the
+    allocator calls ``_reclaim`` and the cache drops least-recently-used
+    leaves whose blocks no live slot shares — a block some slot still
+    maps is dereferenced but NOT released (refcounts make that safe by
+    construction).
+    """
+
+    def __init__(self, allocator: BlockAllocator, block_size: int):
+        self.allocator = allocator
+        self.block_size = block_size
+        self._root = _RadixNode((), NULL_BLOCK, None)
+        self._tick = itertools.count(1)
+        # observability: the bench's prefix_reuse block reads these
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.indexed_blocks = 0
+        allocator.reclaim = self._reclaim
+
+    def match(self, tokens: Sequence[int]
+              ) -> Tuple[int, List[int], Optional[Tuple[int, int]]]:
+        """Longest cached prefix of ``tokens``.
+
+        Returns ``(matched_len, full_blocks, partial)``: full_blocks map
+        read-only into the slot's table; ``partial`` is ``(block, rows)``
+        when the match ends mid-block — the CoW source whose matched rows
+        admission copies into a private block. matched_len is capped at
+        ``len(tokens) - 1``: at least one token must remain to prefill,
+        because that forward produces the request's first-token logits.
+        """
+        bs = self.block_size
+        limit = len(tokens) - 1
+        node = self._root
+        full: List[int] = []
+        matched = 0
+        partial: Optional[Tuple[int, int]] = None
+        now = next(self._tick)
+        while matched < limit:
+            remaining = limit - matched
+            # never look past the cap: a partial-node match must not
+            # count tokens beyond limit, or an identical prompt would
+            # "fully" match and leave nothing to prefill
+            want = tokens[matched:matched + min(bs, remaining)]
+            descend = None
+            best_rows, best_child = 0, None
+            for ch in node.children:
+                n = _common_prefix(ch.tokens, want)
+                if n == bs == len(ch.tokens) and remaining > bs:
+                    descend = ch
+                    break
+                if n > best_rows:
+                    best_rows, best_child = n, ch
+            if descend is not None:
+                descend.last_used = now
+                full.append(descend.block)
+                matched += bs
+                node = descend
+                continue
+            if best_rows > 0:
+                best_child.last_used = now
+                partial = (best_child.block, best_rows)
+                matched += best_rows
+            break
+        if matched > 0:
+            self.hits += 1
+        else:
+            self.misses += 1
+        return matched, full, partial
+
+    def insert(self, tokens: Sequence[int], blocks: Sequence[int]) -> int:
+        """Index a freshly prefilled prompt: ``tokens`` live in
+        ``blocks`` (logical page order). Takes a cache-resident ref on
+        every newly indexed block; existing nodes dedupe (the duplicate
+        physical copy stays private to its request). Returns the number
+        of blocks newly indexed."""
+        bs = self.block_size
+        node = self._root
+        pos = 0
+        new = 0
+        now = next(self._tick)
+        while pos < len(tokens):
+            chunk = tuple(tokens[pos:pos + bs])
+            existing = None
+            for ch in node.children:
+                if ch.tokens == chunk:
+                    existing = ch
+                    break
+            if existing is not None:
+                existing.last_used = now
+                node = existing
+                pos += len(chunk)
+                continue
+            block = blocks[pos // bs]
+            self.allocator.ref(block)
+            child = _RadixNode(chunk, block, node)
+            child.last_used = now
+            node.children.append(child)
+            new += 1
+            if len(chunk) < bs:
+                break  # partial boundary blocks are terminal
+            node = child
+            pos += bs
+        self.indexed_blocks += new
+        return new
+
+    def _reclaim(self, n_short: int) -> int:
+        """Evict least-recently-used leaves until ``n_short`` blocks hit
+        the free list. Dropping the cache ref on a block a live slot
+        still shares releases nothing (and counts for nothing) — only
+        cache-only blocks actually free capacity."""
+        freed = 0
+        while freed < n_short:
+            victim = None
+            stack = [self._root]
+            while stack:
+                nd = stack.pop()
+                stack.extend(nd.children)
+                if nd is self._root or nd.children:
+                    continue
+                if victim is None or nd.last_used < victim.last_used:
+                    victim = nd
+            if victim is None:
+                break
+            if self.allocator.refcount(victim.block) == 1:
+                freed += 1
+            self.allocator.free([victim.block])
+            victim.parent.children.remove(victim)
+            self.indexed_blocks -= 1
+            self.evictions += 1
+        return freed
+
+    def stats(self) -> Dict[str, int]:
+        lookups = self.hits + self.misses
+        return {
+            "lookups": lookups,
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+            "indexed_blocks": self.indexed_blocks,
+        }
+
+
+class PagedKVCache:
+    """The device-side block pool plus its host-side allocator.
+
+    ``k``/``v`` are allocated once on ``device`` and written in place by
+    the prefill writes and the decode step; this object owns them and the
+    block accounting.
+    """
+
+    def __init__(self, cfg: GPTConfig, scfg: ServingConfig, device):
+        self.cfg = cfg
+        self.scfg = scfg
+        self.device = torch.device(device)
+        nb = scfg.num_blocks
+        shape = (cfg.n_layer, nb, scfg.block_size,
+                 cfg.kv_heads, cfg.head_dim)
+        self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.allocator = BlockAllocator(nb)
+
+    def _index(self, page_to_block: Sequence[int]) -> torch.Tensor:
+        return torch.tensor(list(page_to_block), dtype=torch.long,
+                            device=self.device)
+
+    def write_prefill(self, k_dense, v_dense, blocks: List[int],
+                      length: int) -> None:
+        """Scatter a dense prefill cache (L, 1, bucket, Hkv, Dh) into the
+        allocated ``blocks``. ``bucket`` is a multiple of block_size;
+        pages beyond ``blocks`` (prompt padding) go to the null block."""
+        bs = self.scfg.block_size
+        if len(blocks) != blocks_needed(length, bs):
+            raise ValueError(f"{len(blocks)} blocks for {length} tokens of "
+                             f"block size {bs}")
+        n_pages = k_dense.shape[2] // bs
+        self.write_pages(k_dense, v_dense,
+                         list(blocks) + [NULL_BLOCK] * (n_pages
+                                                        - len(blocks)))
+
+    def write_pages(self, k_dense, v_dense,
+                    page_to_block: Sequence[int]) -> None:
+        """Scatter the pages of a dense (L, 1, bucket, Hkv, Dh) cache into
+        physical blocks: page ``i`` lands in ``page_to_block[i]``.
+        NULL_BLOCK entries discard the page (the null block's content is
+        never read unmasked); several pages may target it, and the last
+        writer wins. Re-scattering a matched boundary page into a private
+        block IS the CoW split."""
+        bs = self.scfg.block_size
+        L, _, bucket, Hkv, Dh = k_dense.shape
+        if bucket % bs or len(page_to_block) != bucket // bs:
+            raise ValueError(f"{len(page_to_block)} pages for a dense cache "
+                             f"of {bucket} rows at block size {bs}")
+        idx = self._index(page_to_block)
+        n = bucket // bs
+        self.k[:, idx] = k_dense.reshape(L, n, bs, Hkv, Dh).to(self.k.dtype)
+        self.v[:, idx] = v_dense.reshape(L, n, bs, Hkv, Dh).to(self.v.dtype)
+
+    def gather_pages(self, page_to_block: Sequence[int]):
+        """Gather pool pages into a new dense (L, 1, n_pages * bs, Hkv, Dh)
+        staging cache — the read half of prefix reuse. Pages mapped to
+        NULL_BLOCK come back as garbage rows; callers overwrite or mask
+        them."""
+        idx = self._index(page_to_block)
+        L, _, bs, Hkv, Dh = self.k.shape
+        n = idx.shape[0]
+        return (self.k[:, idx].reshape(L, 1, n * bs, Hkv, Dh),
+                self.v[:, idx].reshape(L, 1, n * bs, Hkv, Dh))
+
+
+def paged_attend(k_pool_l, v_pool_l, q, k_new, v_new, tables, lengths,
+                 write_block, write_off):
+    """One layer of single-token paged-cache attention for all slots.
+
+    k_pool_l/v_pool_l: (num_blocks, bs, Hkv, Dh) — this layer's pool,
+    written in place. q: (N, 1, H, Dh); k_new/v_new: (N, 1, Hkv, Dh) — the
+    new token's projections per slot. tables: (N, blocks_per_slot) int;
+    lengths: (N,) tokens already cached per slot; write_block/write_off:
+    (N,) physical block + in-block offset for the new row (idle slots
+    target (null block, 0), and the last writer wins there).
+
+    Returns ctx (N, 1, H, Dh). The math is models/generation's grouped
+    attention, as in the reference, so greedy serving outputs are
+    token-identical to make_generator's.
+    """
+    N = q.shape[0]
+    cdt = k_pool_l.dtype
+    k_pool_l[write_block, write_off] = k_new[:, 0].to(cdt)
+    v_pool_l[write_block, write_off] = v_new[:, 0].to(cdt)
+    # gather each slot's pages into a contiguous logical view
+    bs, Hkv, Dh = k_pool_l.shape[1], k_pool_l.shape[2], k_pool_l.shape[3]
+    view = tables.shape[1] * bs
+    k_c = k_pool_l[tables].reshape(N, view, Hkv, Dh)
+    v_c = v_pool_l[tables].reshape(N, view, Hkv, Dh)
+    # valid keys: logical positions 0..length inclusive (the row written
+    # above sits at position == length)
+    key_pos = torch.arange(view, device=q.device)
+    valid = key_pos[None, :] <= lengths[:, None]          # (N, view)
+    return grouped_attention(q, k_c, v_c, valid[:, None, :])

@@ -1,0 +1,393 @@
+"""Continuous-batching scheduler: admission, slot + block accounting,
+eviction, preemption, backpressure.
+
+Counterpart of deeperspeed_tpu/serving/scheduler.py: host-side Python
+only, the same policy and the same trace events.
+
+Policy (deliberately simple and deterministic — the decode step is where
+the hardware time goes, and a deterministic scheduler is what makes the
+greedy-parity test meaningful):
+
+  * FIFO admission with head-of-line blocking: the queue head is admitted
+    when a slot is free AND the allocator can cover its context plus one
+    decode write; otherwise admission stops (backpressure — the request
+    STAYS QUEUED, nothing crashes).
+  * Blocks are allocated incrementally: admission covers the prompt, and
+    each time a slot's next write would cross a block boundary the
+    scheduler allocates one more block. No request ever reserves
+    max_seq_len worth of cache up front.
+  * When the pool cannot cover a mid-decode extension, the MOST RECENTLY
+    admitted slot is preempted: its blocks are freed and the request goes
+    back to the FRONT of the queue carrying its generated tokens, so
+    re-admission prefills prompt+generated and continues exactly where it
+    left off (token-identical for greedy; sampling resumes with fresh
+    keys).
+  * Eviction on EOS, on exhausting max_new_tokens, and on
+    request_timeout_s (queued or running; partial output is kept).
+"""
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Callable, Deque, List, Optional, Tuple
+
+from ..monitor.tracer import trace_instant
+from ..utils.logging import logger
+from .config import ServingConfig
+from .kv_cache import NULL_BLOCK, BlockAllocator, PrefixCache, \
+    blocks_needed
+
+QUEUED = "queued"
+ACTIVE = "active"
+FINISHED = "finished"
+
+FINISH_LENGTH = "length"      # exhausted max_new_tokens
+FINISH_EOS = "eos"
+FINISH_TIMEOUT = "timeout"
+# router-layer outcomes (serving/router.py) — kept here so every finish
+# reason shares one namespace and one serving_finish_total label set
+FINISH_SHED = "shed"          # rejected at admission (overload)
+FINISH_RETRIED = "retried"    # attempt lost to a replica failure; requeued
+FINISH_FAILED = "failed"      # retry budget exhausted
+
+
+@dataclasses.dataclass
+class Request:
+    rid: str
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    arrival_t: float = 0.0
+    # per-request sampling seed: sampled tokens are a pure function of
+    # (seed, token index), so a retried request replays its exact stream
+    # on any replica; None = derive from (engine seed, rid) at submit
+    seed: Optional[int] = None
+    # -- runtime state --
+    state: str = QUEUED
+    generated: List[int] = dataclasses.field(default_factory=list)
+    slot: int = -1
+    cached_len: int = 0           # tokens whose KV is written to the pool
+    admissions: int = 0           # 1 + number of preemption re-admissions
+    # cost-ledger accounting: integral of (blocks held × seconds held),
+    # accrued at every block-count change point while the request holds
+    # a slot — the per-request share of the paged pool
+    kv_block_s: float = 0.0
+    kv_accrue_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    last_token_t: Optional[float] = None   # progress clock for timeouts
+    finish_t: Optional[float] = None
+    finish_reason: Optional[str] = None
+    # prefix reuse (set per admission, cleared on preemption): tokens
+    # matched in the radix cache, how many table entries are shared
+    # read-only blocks, and the CoW source (block, rows) when the match
+    # ends mid-block — the engine copies those rows at prefill time
+    prefix_matched: int = 0
+    prefix_shared_blocks: int = 0
+    prefix_src: Optional[Tuple[int, int]] = None
+
+    @property
+    def context(self) -> List[int]:
+        """Tokens to prefill on (re)admission: the original prompt plus
+        anything generated before a preemption."""
+        return self.prompt + self.generated
+
+    @property
+    def remaining(self) -> int:
+        return self.max_new_tokens - len(self.generated)
+
+    @property
+    def pending_token(self) -> int:
+        """The last generated token — fed to the next decode step, whose
+        KV row is not yet in the pool."""
+        return self.generated[-1]
+
+    @property
+    def output(self) -> List[int]:
+        return list(self.generated)
+
+
+class Scheduler:
+    """Owns the slot array, the per-slot block lists, and the queue."""
+
+    def __init__(self, scfg: ServingConfig, allocator: BlockAllocator,
+                 clock: Callable[[], float] = time.monotonic):
+        self.scfg = scfg
+        self.allocator = allocator
+        # radix prompt index: admissions match their longest cached
+        # prefix and share those blocks read-only (refcounted)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(allocator, scfg.block_size)
+            if scfg.prefix_caching else None)
+        self.clock = clock
+        self.queue: Deque[Request] = deque()
+        self.slots: List[Optional[Request]] = [None] * scfg.num_slots
+        self.slot_blocks: List[List[int]] = [[] for _ in range(scfg.num_slots)]
+        self._admit_seq = itertools.count()   # admission order, for victims
+        self._slot_admitted_at = [-1] * scfg.num_slots
+        self.finished: List[Request] = []
+
+    # ---------------------------------------------------------------- #
+    # queue / admission
+    # ---------------------------------------------------------------- #
+
+    def submit(self, req: Request) -> None:
+        if not req.prompt:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.rid}: max_new_tokens must be >= 1"
+            )
+        ctx_cap = len(req.prompt) + req.max_new_tokens
+        if ctx_cap > self.scfg.max_seq_len:
+            raise ValueError(
+                f"request {req.rid}: prompt ({len(req.prompt)}) + "
+                f"max_new_tokens ({req.max_new_tokens}) = {ctx_cap} exceeds "
+                f"max_seq_len ({self.scfg.max_seq_len})"
+            )
+        # worst-case footprint (full context + one decode-write of
+        # headroom) must fit an EMPTY pool, else the request could never
+        # admit and the engine would spin forever on backpressure
+        worst = blocks_needed(ctx_cap, self.scfg.block_size)
+        if worst > self.allocator.num_blocks - 1:
+            raise ValueError(
+                f"request {req.rid}: worst-case footprint ({worst} blocks "
+                f"of {self.scfg.block_size}) exceeds the pool "
+                f"({self.allocator.num_blocks - 1} usable blocks); raise "
+                f"num_blocks or lower max_new_tokens"
+            )
+        self.queue.append(req)
+
+    @property
+    def num_active(self) -> int:
+        return sum(r is not None for r in self.slots)
+
+    @property
+    def active(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.num_active > 0
+
+    def _match_prefix(self, req: Request):
+        """Longest cached prefix of the request's context, degraded to
+        no-match when the bucket table cannot shape a suffix prefill for
+        it (the engine would have to fall back to a full prefill, which
+        must then own every block)."""
+        if self.prefix_cache is None:
+            return 0, [], None
+        ctx = req.context
+        matched, full, partial = self.prefix_cache.match(ctx)
+        if matched and self.scfg.prefill_plan(len(ctx), matched) is None:
+            return 0, [], None
+        return matched, full, partial
+
+    def pop_admissible(self):
+        """(slot, request, blocks) for the queue head, or None when no
+        slot is free / the pool cannot cover its context + one decode
+        write (backpressure: the head stays queued).
+
+        With prefix caching on, the head is admitted by its longest
+        cached prefix: matched full blocks are ref'd and mapped into the
+        table read-only (table order == logical page order), and only
+        the remaining pages are allocated privately. The CoW source of a
+        mid-block match is ref'd too, released by the engine (or by
+        preemption/finish) once its rows are copied."""
+        if not self.queue:
+            return None
+        try:
+            slot = self.slots.index(None)
+        except ValueError:
+            return None
+        req = self.queue[0]
+        matched, full, partial = self._match_prefix(req)
+        # ref shared blocks BEFORE allocating: alloc may reclaim
+        # cache-only blocks, and a matched block must not be evictable
+        # between the match and the table mapping
+        for b in full:
+            self.allocator.ref(b)
+        if partial is not None:
+            self.allocator.ref(partial[0])
+        # +1: headroom for the first decode write, so a freshly admitted
+        # request cannot be preempted before its first step
+        need = blocks_needed(len(req.context) + 1, self.scfg.block_size)
+        private = self.allocator.alloc(need - len(full))
+        if private is None:
+            if full:
+                self.allocator.free(full)
+            if partial is not None:
+                self.allocator.free([partial[0]])
+            return None
+        blocks = full + private
+        self.queue.popleft()
+        req.state = ACTIVE
+        req.slot = slot
+        req.cached_len = len(req.context)
+        req.admissions += 1
+        req.kv_accrue_t = self.clock()
+        req.prefix_matched = matched
+        req.prefix_shared_blocks = len(full)
+        req.prefix_src = partial
+        self.slots[slot] = req
+        self.slot_blocks[slot] = blocks
+        self._slot_admitted_at[slot] = next(self._admit_seq)
+        trace_instant("serving/admit", lane="serving", rid=req.rid,
+                      slot=slot, ctx_len=req.cached_len,
+                      admissions=req.admissions)
+        if matched > 0:
+            trace_instant("kv/reuse", lane="serving", rid=req.rid,
+                          matched_tokens=matched,
+                          shared_blocks=len(full),
+                          ctx_len=len(req.context))
+        return slot, req, blocks
+
+    def release_prefix_src(self, req: Request) -> None:
+        """Drop the admission-time ref on the CoW source block; called
+        by the engine after the copy, and by preemption/finish when the
+        request leaves its slot with the copy still pending."""
+        if req.prefix_src is not None:
+            self.allocator.free([req.prefix_src[0]])
+            req.prefix_src = None
+
+    # ---------------------------------------------------------------- #
+    # decode-time capacity
+    # ---------------------------------------------------------------- #
+
+    def ensure_decode_capacity(self, tokens: int = 1) -> List[Request]:
+        """Grow each active slot's block list to cover its next
+        ``tokens`` writes (1 for plain decode; a speculative round asks
+        for draft_k + 1, capped at the slot's table capacity); preempt
+        most-recently-admitted slots when the pool runs dry. Returns the
+        preempted requests (already requeued)."""
+        cap = self.scfg.blocks_per_slot * self.scfg.block_size
+        preempted: List[Request] = []
+        for slot in range(self.scfg.num_slots):
+            while True:
+                req = self.slots[slot]
+                if req is None:
+                    break
+                need = blocks_needed(min(req.cached_len + tokens, cap),
+                                     self.scfg.block_size)
+                short = need - len(self.slot_blocks[slot])
+                if short <= 0:
+                    break
+                extra = self.allocator.alloc(short)
+                if extra is not None:
+                    self._accrue_kv(slot)
+                    self.slot_blocks[slot].extend(extra)
+                    break
+                victim = self._preempt_victim()
+                preempted.append(self._preempt(victim))
+                # if we preempted THIS slot, the inner while re-checks and
+                # finds it empty; otherwise retry the alloc
+        return preempted
+
+    def _preempt_victim(self) -> int:
+        victims = [s for s in range(self.scfg.num_slots)
+                   if self.slots[s] is not None]
+        assert victims, "ensure_decode_capacity with no active slots"
+        return max(victims, key=lambda s: self._slot_admitted_at[s])
+
+    def _preempt(self, slot: int) -> Request:
+        req = self.slots[slot]
+        logger.info(
+            "serving: preempting request %s from slot %d (%d blocks freed)",
+            req.rid, slot, len(self.slot_blocks[slot]),
+        )
+        trace_instant("serving/preempt", lane="serving", rid=req.rid,
+                      slot=slot, blocks_freed=len(self.slot_blocks[slot]))
+        self._accrue_kv(slot)
+        req.kv_accrue_t = None
+        self.release_prefix_src(req)
+        self._release_slot(slot)
+        req.state = QUEUED
+        req.slot = -1
+        req.cached_len = 0
+        req.prefix_matched = 0
+        req.prefix_shared_blocks = 0
+        self.queue.appendleft(req)
+        return req
+
+    # ---------------------------------------------------------------- #
+    # eviction
+    # ---------------------------------------------------------------- #
+
+    def _release_slot(self, slot: int) -> None:
+        self.allocator.free(self.slot_blocks[slot])
+        self.slot_blocks[slot] = []
+        self.slots[slot] = None
+        self._slot_admitted_at[slot] = -1
+
+    def _accrue_kv(self, slot: int) -> None:
+        """Charge the slot's request for the blocks it held since the
+        last change point (admission, block growth, preemption, finish).
+        Block-seconds, not blocks: the cost ledger's KV-occupancy axis."""
+        req = self.slots[slot]
+        if req is None or req.kv_accrue_t is None:
+            return
+        now = self.clock()
+        req.kv_block_s += ((now - req.kv_accrue_t)
+                           * len(self.slot_blocks[slot]))
+        req.kv_accrue_t = now
+
+    def finish(self, req: Request, reason: str,
+               now: Optional[float] = None) -> None:
+        if req.state == ACTIVE:
+            self._accrue_kv(req.slot)
+            req.kv_accrue_t = None
+            self.release_prefix_src(req)
+            self._release_slot(req.slot)
+        elif req.state == QUEUED:
+            self.queue.remove(req)
+        req.state = FINISHED
+        req.slot = -1
+        req.finish_reason = reason
+        req.finish_t = self.clock() if now is None else now
+        self.finished.append(req)
+        trace_instant("serving/finish", lane="serving", rid=req.rid,
+                      reason=reason, tokens=len(req.generated),
+                      admissions=req.admissions,
+                      kv_block_s=round(req.kv_block_s, 6))
+
+    def check_finished(self, req: Request,
+                       now: Optional[float] = None) -> bool:
+        """Finish ``req`` if its last generated token ends it."""
+        eos = self.scfg.eos_token_id
+        if eos is not None and req.generated and req.pending_token == eos:
+            self.finish(req, FINISH_EOS, now)
+            return True
+        if req.remaining <= 0:
+            self.finish(req, FINISH_LENGTH, now)
+            return True
+        return False
+
+    def expire_timeouts(self, now: float) -> List[Request]:
+        """Evict requests that made no progress for request_timeout_s.
+
+        Progress-based, not age-based: an ACTIVE request emitting tokens
+        at a steady clip never expires here no matter how long it runs —
+        wall-clock deadlines are the router layer's job
+        (serving/router.py). A queued request never progresses, so for it
+        this degenerates to time-since-arrival, which keeps the original
+        stuck-in-queue eviction semantics."""
+        timeout = self.scfg.request_timeout_s
+        if timeout is None:
+            return []
+        expired = [
+            r for r in list(self.queue) + self.active
+            if now - (r.last_token_t if r.last_token_t is not None
+                      else r.arrival_t) >= timeout
+        ]
+        for r in expired:
+            self.finish(r, FINISH_TIMEOUT, now)
+        return expired
+
+    # ---------------------------------------------------------------- #
+    # decode-step views
+    # ---------------------------------------------------------------- #
+
+    def slot_table_row(self, slot: int) -> List[int]:
+        blocks = self.slot_blocks[slot]
+        pad = self.scfg.blocks_per_slot - len(blocks)
+        assert pad >= 0, (slot, blocks)
+        return blocks + [NULL_BLOCK] * pad

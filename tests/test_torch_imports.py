@@ -1,0 +1,96 @@
+"""The PyTorch port stands alone: importing ``deeperspeed_tpu_torch``
+loads neither ``jax`` nor any module of ``deeperspeed_tpu`` (names are
+compared exactly, since the port's own name starts with
+``deeperspeed_tpu``), no source file of the port or chip_smoke.py imports
+them, and the serving entry point refuses to fall back to the CPU."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "deeperspeed_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deeperspeed_tpu"}
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_forbidden_name_matching_is_exact():
+    assert _forbidden("deeperspeed_tpu.serving")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("deeperspeed_tpu_torch.serving")
+    assert not _forbidden("jaxtyping_like")
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    code = (
+        "import json, sys\n"
+        "import deeperspeed_tpu_torch\n"
+        "import deeperspeed_tpu_torch.serving, deeperspeed_tpu_torch.models."
+        "convert, deeperspeed_tpu_torch.runtime.config_utils\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "deeperspeed_tpu_torch.serving.engine" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_sources_import_no_jax_and_no_reference_module():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = {str(f.relative_to(ROOT)): m for f in files for m in _imports(f)
+           if _forbidden(m)}
+    assert bad == {}
+
+
+def test_serving_engine_without_device_refuses_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the engine would take it")
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.serving import ServingEngine
+
+    cfg = gpt.GPTConfig(vocab_size=17, n_layer=1, n_head=2, d_model=8,
+                        dtype=torch.float32)
+    params = gpt.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, {"num_slots": 1, "num_blocks": 8,
+                                    "max_seq_len": 16})
+    with pytest.raises(RuntimeError):
+        gpt.init_params(0, cfg)      # the entry points default to CUDA
+    eng = ServingEngine(cfg, params, {"num_slots": 1, "num_blocks": 8,
+                                      "max_seq_len": 16}, device="cpu")
+    assert eng.device.type == "cpu" and eng.kv.k.device.type == "cpu"
+
+
+def test_chip_smoke_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
