@@ -1,9 +1,12 @@
-"""Carry GPT weights between the JAX reference and the port.
+"""Carry GPT weights, and Adam state, between the JAX reference and the
+port.
 
 The port keeps the reference's parameter layout (models/gpt.py): the same
 tree, per-layer tensors stacked on axis 0, matrices (in, out). So the
 conversion is a copy, leaf for leaf; nothing is transposed, and a
-transposition bug has nowhere to hide.
+transposition bug has nowhere to hide. The reference's ``AdamState``
+(step, exp_avg tree, exp_avg_sq tree) carries across the same way, so an
+optimizer step can be held against the reference from the same state.
 """
 
 from typing import Dict, Optional
@@ -11,6 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.adam import AdamState, tree_map
 from .gpt import GPTConfig, cast_params, param_shapes
 
 
@@ -68,3 +72,30 @@ def to_numpy_params(params: Dict) -> Dict:
 
     return {k: to_numpy_params(v) if isinstance(v, dict) else leaf(v)
             for k, v in params.items()}
+
+
+def _to_torch(a, device):
+    """A numpy-convertible leaf as a tensor; bf16 (which numpy cannot hold
+    natively) arrives through fp32 and is cast back."""
+    dtype = getattr(a, "dtype", None)
+    if dtype is not None and str(dtype) == "bfloat16":
+        return torch.tensor(np.asarray(a, np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def from_jax_adam_state(state, device) -> AdamState:
+    """The reference's ``AdamState`` (numpy or JAX leaves) -> the port's,
+    on ``device``, each moment keeping its storage dtype."""
+    return AdamState(
+        step=int(np.asarray(state.step)),
+        exp_avg=tree_map(lambda a: _to_torch(a, device), state.exp_avg),
+        exp_avg_sq=tree_map(lambda a: _to_torch(a, device),
+                            state.exp_avg_sq))
+
+
+def to_numpy_adam_state(state: AdamState) -> AdamState:
+    """The port's AdamState with numpy leaves (bf16 moments as fp32)."""
+    return AdamState(step=int(state.step),
+                     exp_avg=to_numpy_params(state.exp_avg),
+                     exp_avg_sq=to_numpy_params(state.exp_avg_sq))

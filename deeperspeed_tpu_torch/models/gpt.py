@@ -8,19 +8,29 @@ forward walks the layer axis with a Python loop where the reference scans.
 
 Supports GPT-2 (learned positions, serial residual) and GPT-NeoX (rotary,
 parallel attention+MLP residual) variants, with grouped-query attention.
-Not ported yet: the training loss, remat policies, tensor/sequence
-parallelism, MoE and the flash-attention kernels; attention here is the
-plain dense computation that the reference's ``attn_impl="xla"`` runs.
+``make_gpt`` gives the training loss (streaming or fused cross-entropy)
+with per-layer activation checkpointing: remat policy ``"full"``
+(``torch.utils.checkpoint``) or ``"matmuls"`` (selective checkpointing).
+Attention goes through the flash kernels (ops/flash_attention.py) or the
+plain dense computation, as ``attn_impl`` says (``causal_attention``).
+Not ported yet: the other remat policies, tensor/sequence parallelism and
+MoE (ROADMAP.md queue 1).
 """
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import fused_blocks
+from ..ops.flash_attention import FLASH_FWD_OP, flash_attention
+from ..ops.kernel_config import _is_hopper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,13 +49,20 @@ class GPTConfig:
     parallel_residual: bool = True  # NeoX parallel attn+mlp
     layernorm_eps: float = 1e-5
     tie_embeddings: bool = False
-    # training-only fields, kept so the reference's configs construct;
-    # validated as in the reference, unused by the forward here
+    # activation checkpointing of each layer in make_gpt's loss: 'full'
+    # replays the whole layer in the backward; 'matmuls' keeps every
+    # projection output and the flash o/lse and replays only the cheap
+    # elementwise work (see _remat_step). The reference's 'flash', 'dots'
+    # and 'dots_all' validate here and raise in make_gpt (not ported).
     remat: bool = True
     remat_policy: str = "full"
     dtype: Any = torch.bfloat16  # compute dtype for activations
-    # 'auto' | 'xla': both take the plain attention in the port so far
+    # 'auto' (flash kernel on a Hopper CUDA tensor, raising on a head dim or
+    # dtype it does not take; else dense) | 'pallas'
+    # (always the flash path) | 'pallas_interpret' (the flash path's plain
+    # version, CPU tensors) | 'xla' (dense); see causal_attention
     attn_impl: str = "auto"
+    # streaming cross-entropy chunk (pick_ce_chunk); 0 = one fused pass
     ce_chunk: int = 128
     # Mixture-of-Experts: not ported yet; non-zero moe_num_experts raises
     moe_num_experts: int = 0
@@ -102,7 +119,7 @@ class GPTConfig:
         return (self.n_head + 2 * self.kv_heads) * self.head_dim
 
 
-_ATTN_IMPLS = ("auto", "xla")
+_ATTN_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
 
 
 # ------------------------------------------------------------------ #
@@ -198,12 +215,20 @@ def init_params(seed, cfg: GPTConfig, device=None,
 
 
 def layer_slices(params: Dict, n_layer: int) -> List[Dict]:
-    """Views of the stacked ``params["layers"]`` tree, one dict per layer."""
+    """Views of the stacked ``params["layers"]`` tree, one dict per layer.
+    Each stacked leaf is split once with ``unbind``, so under autograd the
+    per-layer gradients are stacked back by one op (indexing layer by
+    layer would build a full-size zero gradient for every layer)."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+
     def pick(tree, i):
         return {k: pick(v, i) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
 
-    return [pick(params["layers"], i) for i in range(n_layer)]
+    parts = split(params["layers"])
+    return [pick(parts, i) for i in range(n_layer)]
 
 
 # ------------------------------------------------------------------ #
@@ -253,10 +278,9 @@ def rotary_embedding(x, positions, rotary_dims):
     return rotated
 
 
-def causal_attention(q, k, v):
+def dense_causal_attention(q, k, v):
     """Dense causal attention, (B, S, H, Dh); fp32 scores and softmax
-    (the reference's ``_xla_causal_attention``, which its
-    ``attn_impl="xla"`` selects; flash attention is not ported yet)."""
+    (the reference's ``_xla_causal_attention``)."""
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores / math.sqrt(dh)
@@ -265,6 +289,36 @@ def causal_attention(q, k, v):
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _auto_takes_flash(device: torch.device) -> bool:
+    return device.type == "cuda" and _is_hopper(device)
+
+
+def causal_attention(q, k, v, impl="auto"):
+    """Causal attention on (B, S, H, Dh), dispatched by ``impl``:
+
+    ``"auto"``: the flash kernel for every CUDA tensor on Hopper, at every
+    S (the reference's S > 256 cutoff was measured on a TPU); a head dim
+    or dtype the kernel does not take raises there rather than giving way
+    to dense attention, so such a model picks ``"xla"`` itself. Elsewhere
+    (a CPU tensor, another card) dense. Where the reference would pick its
+    super-tile kernel (S <= 256) the flash kernel takes the call.
+    ``"pallas"``: always the flash path (a CPU tensor takes its plain
+    version). ``"pallas_interpret"``: the flash path's plain version, the
+    counterpart of the reference's interpret-mode Pallas; CPU tensors
+    only. ``"xla"``: dense."""
+    if impl not in _ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {impl!r}; the PyTorch package "
+                         f"takes {_ATTN_IMPLS}")
+    if impl == "pallas_interpret" and q.device.type != "cpu":
+        raise ValueError("attn_impl 'pallas_interpret' is the CPU test path; "
+                         "use 'pallas' or 'auto' on a CUDA tensor")
+    flash = impl in ("pallas", "pallas_interpret") or (
+        impl == "auto" and _auto_takes_flash(q.device))
+    if flash:
+        return flash_attention(q, k, v, causal=True)
+    return dense_causal_attention(q, k, v)
 
 
 def expand_kv_heads(q, k, v):
@@ -366,13 +420,143 @@ def apply(cfg: GPTConfig, params, tokens):
 
     def attend(q, k, v):
         k, v = expand_kv_heads(q, k, v)
-        return causal_attention(q, k, v), None
+        return causal_attention(q, k, v, cfg.attn_impl), None
 
     for layer_params in layer_slices(params, cfg.n_layer):
         x, _ = decoder_block(cfg, x, layer_params, positions, attend)
     x = layer_norm(x, params["final_ln"]["scale"], params["final_ln"]["bias"],
                    cfg.layernorm_eps)
     return x @ head_weight(cfg, params)
+
+
+# ------------------------------------------------------------------ #
+# training: loss with activation checkpointing
+# ------------------------------------------------------------------ #
+
+
+def pick_ce_chunk(S: int, chunk: int) -> int:
+    """Streaming-CE chunk for sequence length S: the configured chunk when
+    it divides S, else the largest divisor of S not above it; 0 (one fused
+    pass) when chunking is off, S fits one chunk, or the divisor would
+    fall below 32. The reference's rule, unchanged."""
+    if not chunk or S <= chunk:
+        return 0
+    if S % chunk:
+        chunk = next(c for c in range(min(chunk, S), 0, -1) if S % c == 0)
+        if chunk < 32:
+            return 0
+    return chunk
+
+
+# ops whose outputs remat policy "matmuls" keeps: every projection (a 2-D
+# mm once matmul folds the batch) and the flash forward's o and lse.
+# Eager recomputation replays a layer from its start, so an op upstream
+# of a kept tensor still runs unless it is kept too; keeping the
+# projections themselves (not only the reference's post-rotary q/k/v and
+# pre-GeLU activations) is what leaves only layer norm, rotary, bias+GeLU
+# and the residual adds to replay, as the reference's policy does.
+_MATMULS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                  FLASH_FWD_OP)
+
+
+def _matmuls_policy(ctx, op, *args, **kwargs):
+    if op in _MATMULS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_UNPORTED = ("flash", "dots", "dots_all")
+
+
+def _remat_step(cfg: GPTConfig, fn):
+    """``fn(x, layer_params)`` wrapped as ``cfg.remat``/``remat_policy``
+    say: per-layer ``torch.utils.checkpoint`` ("full") or selective
+    checkpointing that keeps the outputs of ``_MATMULS_SAVED``
+    ("matmuls")."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy in _REMAT_UNPORTED:
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported to the PyTorch "
+            f"package yet (ROADMAP.md queue 1, item 'Training follow-ups'); "
+            f"use 'full' or 'matmuls'")
+    if cfg.remat_policy == "full":
+        return lambda x, lp: checkpoint(fn, x, lp, use_reentrant=False)
+    context = partial(create_selective_checkpoint_contexts, _matmuls_policy)
+    return lambda x, lp: checkpoint(fn, x, lp, use_reentrant=False,
+                                    context_fn=context)
+
+
+def _chunk_nll(xc, tc, w):
+    logits = (xc @ w).float()
+    tgt = logits.gather(-1, tc[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - tgt).sum()
+
+
+def make_gpt(cfg: GPTConfig):
+    """Returns (init_fn, apply_fn, loss_fn, specs), as the reference's
+    ``make_gpt``.
+
+    init_fn(seed, device=None, dtype=None) -> params (``init_params``)
+    apply_fn(params, tokens) -> logits (B, S, V) (no grad)
+    loss_fn(params, batch) -> mean next-token cross-entropy, fp32 scalar;
+    batch = tokens (B, S+1) or (inputs, targets) (B, S) each.
+    specs is None: the port has no tensor parallelism yet."""
+    _remat_step(cfg, None)  # raises now on a policy that is not ported
+
+    def attend(q, k, v):
+        k, v = expand_kv_heads(q, k, v)
+        return causal_attention(q, k, v, cfg.attn_impl), None
+
+    def layer(x, layer_params, positions):
+        return decoder_block(cfg, x, layer_params, positions, attend)[0]
+
+    def hidden_fn(params, tokens):
+        """tokens (B, S) int -> final-layernormed hidden states (B, S, D)."""
+        cdt = cfg.dtype
+        tokens = tokens.long()
+        S = tokens.shape[1]
+        x = F.embedding(tokens, params["embed"]["wte"].to(cdt))
+        positions = torch.arange(S, device=tokens.device)
+        if not cfg.rotary:
+            x = x + params["embed"]["wpe"][:S].to(cdt)
+        step = _remat_step(cfg, partial(layer, positions=positions))
+        for layer_params in layer_slices(params, cfg.n_layer):
+            x = step(x, layer_params)
+        return layer_norm(x, params["final_ln"]["scale"],
+                          params["final_ln"]["bias"], cfg.layernorm_eps)
+
+    def loss_fn(params, batch):
+        if isinstance(batch, (tuple, list)):
+            inputs, targets = batch
+        else:
+            inputs, targets = batch[:, :-1], batch[:, 1:]
+        targets = targets.long()
+        x = hidden_fn(params, inputs)
+        w = head_weight(cfg, params)
+        B, S, _ = x.shape
+        chunk = pick_ce_chunk(S, cfg.ce_chunk)
+        if chunk:
+            # stream the cross-entropy over sequence chunks: the (B, S, V)
+            # logits never exist at once; each chunk's logits are
+            # recomputed in the backward
+            total = x.new_zeros((), dtype=torch.float32)
+            for c0 in range(0, S, chunk):
+                total = total + checkpoint(
+                    _chunk_nll, x[:, c0:c0 + chunk],
+                    targets[:, c0:c0 + chunk], w, use_reentrant=False)
+            return total / (B * S)
+        logits = (x @ w).float()
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - tgt).mean()
+
+    def init_fn(seed, device=None, dtype=None):
+        return init_params(seed, cfg, device=device, dtype=dtype)
+
+    def apply_fn(params, tokens):
+        return apply(cfg, params, tokens)
+
+    return init_fn, apply_fn, loss_fn, None
 
 
 # convenience presets ------------------------------------------------- #

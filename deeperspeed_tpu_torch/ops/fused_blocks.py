@@ -1,4 +1,4 @@
-"""Fused elementwise blocks: LayerNorm and bias+GeLU forward.
+"""Fused elementwise blocks: LayerNorm and bias+GeLU, forward and backward.
 
 Counterpart of deeperspeed_tpu/ops/pallas/fused_blocks.py. The Pallas
 kernels there become hand-written CUDA kernels for Hopper in
@@ -7,26 +7,38 @@ kernels there become hand-written CUDA kernels for Hopper in
   ``ln_fwd``         replaces ``_ln_fwd_kernel`` (launched by
                      ``_ln_fwd_call``): y = LN(x) * w + b with fp32
                      statistics, plus the fp32 per-row mean and rstd.
+  ``ln_bwd``         replaces ``_ln_bwd_kernel`` (launched by
+                     ``_ln_vjp_bwd``): dx from the saved mean and rstd,
+                     and dw, db as fp32 sums over rows.
   ``bias_gelu_fwd``  replaces ``_bg_fwd_kernel`` (launched by ``_bg``):
                      y = gelu(x + b), tanh or erf form, in fp32, cast once.
+  ``bias_gelu_bwd``  replaces ``_bg_bwd_kernel`` (launched by
+                     ``_bg_vjp_bwd``): dx = g * gelu'(x + b) and db, the
+                     fp32 sum of dx over rows.
 
-Both are bound by device-memory bytes: on an H100 SXM (3.35 TB/s) their
-least time is (bytes read + bytes written) / 3.35 TB/s, e.g. bias+GeLU on
-(512, 8192) bf16 moves ~16.8 MB, ~5.0 us. The source file says how each
-design keeps intermediates out of device memory.
+All four are bound by device-memory bytes: on an H100 SXM (3.35 TB/s)
+their least time is (bytes read + bytes written) / 3.35 TB/s, e.g.
+bias+GeLU on (512, 8192) bf16 moves ~16.8 MB, ~5.0 us. The source file
+says how each design keeps intermediates out of device memory and how the
+backwards reduce over rows without atomics.
 
-Beside each kernel wrapper sits its plain PyTorch version (``ln_fwd_plain``,
-``bias_gelu_fwd_plain``), the math of the reference's ``_ln_ref`` and
-``_bg_ref``. A wrapper takes the plain version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises. Each wrapper
-counts its launches in a plain integer attribute (``ln_fwd.launches``,
-``bias_gelu_fwd.launches``), raised by one per launch and nowhere else.
+Beside each kernel wrapper sits its plain PyTorch version
+(``ln_fwd_plain``, ``ln_bwd_plain``, ``bias_gelu_fwd_plain``,
+``bias_gelu_bwd_plain``), the math of the reference's ``_ln_ref``,
+``_ln_dx``, ``_bg_ref`` and ``_gelu_grad_f32``. A wrapper takes the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises. Each wrapper counts its launches in a plain integer
+attribute (``ln_fwd.launches``, ...), raised by one per call that launches
+and nowhere else.
 
 The public ``layer_norm``/``bias_gelu`` are dispatchers, as in the
-reference: they consult ops/kernel_config.py and call the kernel wrapper
-or the plain math. The reference's ``_row_block`` geometry gate is a TPU
-VMEM rule and has no counterpart: the CUDA kernels take every (R, D).
-Backward kernels and the residual-add LayerNorm are not ported yet.
+reference: they consult ops/kernel_config.py and either run the wrappers
+inside an autograd Function (forward and backward both kernels on CUDA;
+both plain versions on the CPU under mode ``fused``) or the plain math,
+whose gradient autograd derives. The reference's ``_row_block`` geometry
+gate is a TPU VMEM rule and has no counterpart: the CUDA kernels take
+every (R, D) up to the shared-memory limit of the backwards. The
+residual-add LayerNorm is not ported yet.
 """
 
 import ctypes
@@ -36,7 +48,7 @@ import torch.nn.functional as F
 
 from ..monitor.tracer import trace_span
 from . import op_builder
-from .kernel_config import resolve as _resolve_kernels
+from .kernel_config import routes_to_wrapper
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,7 +60,16 @@ _SIGNATURES = {
     "ds_bias_gelu_fwd": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
                          ctypes.c_int),
+    "ds_bwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
+    "ds_ln_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "ds_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, _P], ctypes.c_int),
 }
+# the backwards keep fp32 column partials in shared memory (2 * D floats
+# for LN, F floats for bias+GeLU) within a block's 227 KB on Hopper
+_SMEM_FLOATS = 232448 // 4
 
 
 def _lib():
@@ -130,6 +151,57 @@ def ln_fwd(x, w, b, eps):
 ln_fwd.launches = 0
 
 
+def ln_bwd_plain(x, w, mean, rstd, g):
+    """Plain LayerNorm backward (the reference's ``_ln_dx``): returns
+    (dx in x's dtype, dw fp32, db fp32) for y = (x - mean) * rstd * w + b
+    and the cotangent g; mean and rstd are ``ln_fwd``'s fp32 rows."""
+    x32, g32 = x.float(), g.float()
+    xhat = (x32 - mean[:, None]) * rstd[:, None]
+    dy = g32 * w.float()
+    c1 = dy.mean(dim=-1, keepdim=True)
+    c2 = (dy * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd[:, None] * (dy - c1 - xhat * c2)
+    return dx.to(x.dtype), (g32 * xhat).sum(dim=0), g32.sum(dim=0)
+
+
+def ln_bwd(x, w, mean, rstd, g):
+    """LayerNorm backward kernel on x, g (R, D) fp32 or bf16, w (D,) fp32
+    and ln_fwd's fp32 mean, rstd (R,): returns (dx (R, D) in x's dtype,
+    dw (D,) fp32, db (D,) fp32). A CPU tensor takes ``ln_bwd_plain``."""
+    if x.device.type == "cpu":
+        return ln_bwd_plain(x, w, mean, rstd, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_bwd takes a CPU or CUDA tensor, got {x.device}")
+    if x.dim() != 2 or x.numel() == 0:
+        raise ValueError(f"ln_bwd takes a non-empty (R, D) x, got "
+                         f"{tuple(x.shape)}")
+    R, D = x.shape
+    if 2 * D > _SMEM_FLOATS:
+        raise ValueError(f"ln_bwd takes D <= {_SMEM_FLOATS // 2}, got {D}")
+    _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
+    _check_cuda(g, "g", x.device, (R, D), (x.dtype,))
+    _check_cuda(w, "w", x.device, (D,), (torch.float32,))
+    _check_cuda(mean, "mean", x.device, (R,), (torch.float32,))
+    _check_cuda(rstd, "rstd", x.device, (R,), (torch.float32,))
+    lib = _lib()
+    dx = torch.empty_like(x)
+    dw = torch.empty(D, dtype=torch.float32, device=x.device)
+    db = torch.empty(D, dtype=torch.float32, device=x.device)
+    part = torch.empty(2 * lib.ds_bwd_blocks(R) * D, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ds_ln_bwd(x.data_ptr(), w.data_ptr(), mean.data_ptr(),
+                            rstd.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                            dw.data_ptr(), db.data_ptr(), part.data_ptr(),
+                            R, D, _DTYPE_CODES[x.dtype], _stream(x.device))
+    _raise_on(err, "ln_bwd")
+    ln_bwd.launches += 1
+    return dx, dw, db
+
+
+ln_bwd.launches = 0
+
+
 # ------------------------------------------------------------------ #
 # bias + GeLU
 # ------------------------------------------------------------------ #
@@ -172,6 +244,107 @@ def bias_gelu_fwd(x, b, approximate):
 
 bias_gelu_fwd.launches = 0
 
+_SQRT_2_OVER_PI = 0.7978845608028654
+_GELU_C = 0.044715
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _gelu_grad_f32(u, approximate):
+    """d gelu(u) / du in fp32, the reference's ``_gelu_grad_f32``."""
+    if approximate:
+        t = torch.tanh(_SQRT_2_OVER_PI * (u + _GELU_C * u * u * u))
+        dinner = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * u * u)
+        return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * dinner
+    phi = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
+    return phi + u * torch.exp(-0.5 * u * u) * _INV_SQRT_2PI
+
+
+def bias_gelu_bwd_plain(x, b, g, approximate):
+    """Plain bias+GeLU backward (the reference's ``_bg_bwd_kernel``
+    math): returns (dx = g * gelu'(x + b) in x's dtype, db = the fp32 sum
+    of dx over rows)."""
+    u = x.float() + b.float()
+    dx = g.float() * _gelu_grad_f32(u, approximate)
+    return dx.to(x.dtype), dx.sum(dim=0)
+
+
+def bias_gelu_bwd(x, b, g, approximate):
+    """bias+GeLU backward kernel on x, g (R, F) fp32 or bf16 and b (F,) of
+    x's dtype or fp32: returns (dx (R, F) in x's dtype, db (F,) fp32). A
+    CPU tensor takes ``bias_gelu_bwd_plain``."""
+    if x.device.type == "cpu":
+        return bias_gelu_bwd_plain(x, b, g, approximate)
+    if x.device.type != "cuda":
+        raise ValueError(f"bias_gelu_bwd takes a CPU or CUDA tensor, got "
+                         f"{x.device}")
+    if x.dim() != 2 or x.numel() == 0:
+        raise ValueError(f"bias_gelu_bwd takes a non-empty (R, F) x, got "
+                         f"{tuple(x.shape)}")
+    R, Fd = x.shape
+    if Fd > _SMEM_FLOATS:
+        raise ValueError(f"bias_gelu_bwd takes F <= {_SMEM_FLOATS}, got {Fd}")
+    _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
+    _check_cuda(g, "g", x.device, (R, Fd), (x.dtype,))
+    _check_cuda(b, "b", x.device, (Fd,), {x.dtype, torch.float32})
+    lib = _lib()
+    dx = torch.empty_like(x)
+    db = torch.empty(Fd, dtype=torch.float32, device=x.device)
+    part = torch.empty(lib.ds_bwd_blocks(R) * Fd, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ds_bias_gelu_bwd(x.data_ptr(), b.data_ptr(), g.data_ptr(),
+                                   dx.data_ptr(), db.data_ptr(),
+                                   part.data_ptr(), R, Fd,
+                                   int(bool(approximate)),
+                                   _DTYPE_CODES[x.dtype],
+                                   _DTYPE_CODES[b.dtype], _stream(x.device))
+    _raise_on(err, "bias_gelu_bwd")
+    bias_gelu_bwd.launches += 1
+    return dx, db
+
+
+bias_gelu_bwd.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# autograd: the kernels' forward and backward as one differentiable op
+# ------------------------------------------------------------------ #
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """y = LN(x2) * w + b through ``ln_fwd``; the backward is ``ln_bwd``
+    from the saved fp32 mean and rstd. x2 (R, D), w and b (D,) fp32."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, eps):
+        y, mean, rstd = ln_fwd(x2, w, b, eps)
+        ctx.save_for_backward(x2, w, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, mean, rstd = ctx.saved_tensors
+        dx, dw, db = ln_bwd(x2, w, mean, rstd, g.contiguous())
+        return dx, dw, db, None
+
+
+class _BiasGeluFn(torch.autograd.Function):
+    """y = gelu(x2 + b) through ``bias_gelu_fwd``; the backward is
+    ``bias_gelu_bwd``, its db cast to b's dtype as the reference does."""
+
+    @staticmethod
+    def forward(ctx, x2, b, approximate):
+        ctx.approximate = approximate
+        ctx.save_for_backward(x2, b)
+        return bias_gelu_fwd(x2, b, approximate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, b = ctx.saved_tensors
+        dx, db = bias_gelu_bwd(x2, b, g.contiguous(), ctx.approximate)
+        return dx, db.to(b.dtype), None
+
 
 # ------------------------------------------------------------------ #
 # dispatchers (the public API models call)
@@ -184,22 +357,23 @@ def _trace_kernel(name, shape):
 
 def layer_norm(x, w, b, eps):
     """LN(x) * w + b over the last axis, fp32 statistics."""
-    if _resolve_kernels("fused_blocks", x.device):
+    if routes_to_wrapper("fused_blocks", x.device):
         shape = x.shape
         with _trace_kernel("fused_layer_norm", shape):
-            y, _, _ = ln_fwd(x.reshape(-1, shape[-1]).contiguous(),
-                             w.reshape(-1).float().contiguous(),
-                             b.reshape(-1).float().contiguous(), float(eps))
+            y = _LayerNormFn.apply(x.reshape(-1, shape[-1]).contiguous(),
+                                   w.reshape(-1).float(),
+                                   b.reshape(-1).float(), float(eps))
         return y.reshape(shape)
     return ln_fwd_plain(x, w, b, eps)[0]
 
 
 def bias_gelu(x, b, approximate):
     """gelu(x + b) in one pass; ``approximate`` picks tanh vs erf GeLU."""
-    if _resolve_kernels("fused_blocks", x.device):
+    if routes_to_wrapper("fused_blocks", x.device):
         shape = x.shape
         with _trace_kernel("fused_bias_gelu", shape):
-            y = bias_gelu_fwd(x.reshape(-1, shape[-1]).contiguous(),
-                              b.reshape(-1).contiguous(), bool(approximate))
+            y = _BiasGeluFn.apply(x.reshape(-1, shape[-1]).contiguous(),
+                                  b.reshape(-1).contiguous(),
+                                  bool(approximate))
         return y.reshape(shape)
     return bias_gelu_fwd_plain(x, b, approximate)

@@ -13,8 +13,10 @@ config block picks how the fused surfaces execute.
 
 Per-surface booleans (fused_blocks / fused_adam / supertile / fused_quant)
 narrow a mode to a subset of surfaces, as in the reference. Only
-``fused_blocks`` has kernels in the port so far; the other surfaces are
-accepted so the same config blocks parse.
+``fused_blocks`` has kernels in the port so far; a config that routes
+``fused_adam`` to its kernel on a CUDA device raises in ``ops/adam.py``
+(the kernel is not ported yet), and the other surfaces are accepted so the
+same config blocks parse.
 
 ``interpret`` is accepted for config compatibility, but only as False:
 there is no interpret mode for a CUDA kernel, and True raises.
@@ -120,3 +122,17 @@ def resolve(surface: str, device) -> bool:
     if st.mode == "fused":
         return True
     return _is_hopper(device)
+
+
+def routes_to_wrapper(surface: str, device) -> bool:
+    """Whether a dispatcher sends ``surface`` through its kernel wrapper
+    (and the wrapper's autograd Function) for a tensor on ``device``: on
+    CUDA exactly when ``resolve`` says so; on the CPU under mode ``fused``,
+    where each wrapper takes its plain version. That is the counterpart of
+    the reference running its Pallas kernels in interpret mode off the TPU,
+    and it lets the CPU tests drive the wrappers' forward and backward."""
+    if resolve(surface, device):
+        return True
+    st = _STATE
+    return (torch.device(device).type == "cpu" and st.mode == "fused"
+            and getattr(st, surface))

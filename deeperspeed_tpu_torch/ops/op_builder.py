@@ -6,7 +6,9 @@ library under ``build/kernels/`` at the root of the checkout (the
 directory beside this package; ``.gitignore`` lists it). The library's
 file name carries a hash of the source and the flags, so an edited source
 builds anew and an unchanged one loads from the cache. Nothing is built
-when a module is imported: the first kernel launch calls ``load``.
+when a module is imported: the first kernel launch calls ``load``, and
+``build_all`` builds several sources at once (one ``nvcc`` each, all
+started together) ahead of the first launch.
 
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
 as ``/usr/local/cuda/bin/nvcc``.
@@ -19,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -59,7 +62,9 @@ def library_path(name: str) -> Path:
 def _build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
-        build_info[name] = {"seconds": 0.0, "ptxas": "", "path": str(out)}
+        # a build earlier in this process keeps its record
+        if build_info.get(name, {}).get("path") != str(out):
+            build_info[name] = {"seconds": 0.0, "ptxas": "", "path": str(out)}
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -77,6 +82,16 @@ def _build(name: str) -> Path:
     build_info[name] = {"seconds": seconds, "ptxas": proc.stderr,
                         "path": str(out)}
     return out
+
+
+def build_all(names) -> None:
+    """Build ``csrc/<name>.cu`` for every name, the ``nvcc`` processes
+    running side by side; a source already built loads from the cache.
+    Raises the first build error."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for fut in [pool.submit(_build, n) for n in names]:
+            fut.result()
 
 
 def load(name: str,

@@ -1,0 +1,372 @@
+"""Master training config.
+
+Counterpart of deeperspeed_tpu/runtime/config.py (``TrainingConfig``):
+the same JSON keys and defaults, the same batch-triple derivation and
+assertion, the same precision selection (fp16 / bf16 / the fork's
+``fp16.type: bfloat16``, ``master_weights``, ``grad_accum_dtype``, loss
+scale keys), the same optimizer/scheduler/clipping/logging fields and the
+same error messages.
+
+The port does not run every subsystem of the reference yet. A block that
+turns one of them on raises ``ConfigError`` naming the ROADMAP.md item
+that ports it; nothing is ignored. The blocks the port runs: the batch
+triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
+``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``
+and ``checkpoint`` (tag validation only: save/load come with the
+checkpoint item).
+"""
+
+import copy
+
+from ..utils.logging import logger
+from . import constants as c
+from .config_utils import load_config
+
+
+class ConfigError(Exception):
+    pass
+
+
+def _unported(what: str, item: str) -> ConfigError:
+    return ConfigError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md "
+        f"queue 1, item '{item}'); remove it or use the JAX package")
+
+
+def _block_enabled(pd, key, enabled_key="enabled"):
+    """A presence-enabled block: on when present, unless {"enabled": false};
+    a non-dict value is a ConfigError, as in the reference."""
+    block = pd.get(key, None)
+    if block is None:
+        return False
+    if not isinstance(block, dict):
+        raise ConfigError(f'"{key}" must be a dict (or {{"enabled": false}})')
+    explicit = block.get(enabled_key)
+    return bool(explicit) if explicit is not None else True
+
+
+class TrainingConfig:
+    """The port's DeepSpeedConfig."""
+
+    def __init__(self, config, world_size=1):
+        # deep-copy so nothing here ever mutates caller data
+        self._param_dict = copy.deepcopy(load_config(config))
+        self.world_size = world_size
+        self._refuse_unported(self._param_dict)
+        self._initialize_params(self._param_dict)
+        self._set_batch_related_parameters()
+        self._do_sanity_check()
+
+    # ------------------------------------------------------------------ #
+
+    def _refuse_unported(self, pd):
+        zero = pd.get(c.ZERO_OPTIMIZATION, {})
+        if isinstance(zero, bool):
+            # legacy: "zero_optimization": true  => stage 1
+            zero = {c.ZERO_STAGE: 1 if zero else 0}
+        stage = zero.get(c.ZERO_STAGE, 0)
+        if not (0 <= stage <= c.MAX_STAGE_ZERO_OPTIMIZATION):
+            raise ValueError(f"ZeRO stage must be in [0, 3], got {stage}")
+        if stage > 0:
+            raise _unported(f"ZeRO stage {stage}", "ZeRO and data parallel")
+        for key in (c.ZERO_OFFLOAD_OPTIMIZER, c.ZERO_OFFLOAD_PARAM):
+            device = (zero.get(key) or {}).get(c.ZERO_OFFLOAD_DEVICE,
+                                               c.ZERO_OFFLOAD_DEVICE_NONE)
+            if device != c.ZERO_OFFLOAD_DEVICE_NONE:
+                raise _unported(f"zero_optimization.{key}",
+                                "Offload and ZeRO-Infinity")
+        if zero.get(c.ZERO_CPU_OFFLOAD):
+            raise _unported("zero_optimization.cpu_offload",
+                            "Offload and ZeRO-Infinity")
+
+        presence = (
+            (c.STREAMING, "Offload and ZeRO-Infinity"),
+            (c.MESH, "ZeRO and data parallel"),
+            (c.COMM, "runtime/comm/"),
+            (c.MONITOR, "Monitor"),
+            (c.DISTRIBUTED, "Resilience and multi-process runtime"),
+            (c.RESILIENCE, "Resilience and multi-process runtime"),
+            (c.LIFECYCLE, "Resilience and multi-process runtime"),
+            (c.DATAPIPE, "datapipe/"),
+            (c.AUTOTUNE, "Tooling"),
+        )
+        for key, item in presence:
+            if _block_enabled(pd, key):
+                raise _unported(f'the "{key}" block', item)
+        if pd.get(c.PROVENANCE) is not None:
+            raise _unported('the "provenance" block', "Tooling")
+
+        flag_blocks = (
+            (c.PROGRESSIVE_LAYER_DROP, c.PLD_ENABLED, "Tooling"),
+            (c.TENSORBOARD, c.TENSORBOARD_ENABLED, "Monitor"),
+            (c.FLOPS_PROFILER, "enabled", "Tooling"),
+            (c.ELASTICITY, "enabled", "Resilience and multi-process runtime"),
+        )
+        for key, flag, item in flag_blocks:
+            if (pd.get(key) or {}).get(flag, False):
+                raise _unported(f'the "{key}" block', item)
+        bs_sched = pd.get(c.BATCH_SCHEDULER, {})
+        if (bs_sched.get(c.BATCH_SCHEDULER_ENABLED, False)
+                if isinstance(bs_sched, dict) else bool(bs_sched)):
+            raise _unported('the "batch_scheduler" block', "Tooling")
+
+        present = (
+            (c.PIPELINE, "MoE, TP and pipeline"),
+            (c.SPARSE_ATTENTION, "BERT and sparse attention"),
+            (c.ACTIVATION_CHECKPOINTING, "Tooling"),
+            (c.AIO, "Offload and ZeRO-Infinity"),
+        )
+        for key, item in present:
+            if pd.get(key):
+                raise _unported(f'the "{key}" block', item)
+
+    def _initialize_params(self, pd):
+        self.train_batch_size = pd.get(c.TRAIN_BATCH_SIZE,
+                                       c.TRAIN_BATCH_SIZE_DEFAULT)
+        self.train_micro_batch_size_per_gpu = pd.get(
+            c.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+            c.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
+        self.gradient_accumulation_steps = pd.get(
+            c.GRADIENT_ACCUMULATION_STEPS,
+            c.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self.steps_per_print = pd.get(c.STEPS_PER_PRINT,
+                                      c.STEPS_PER_PRINT_DEFAULT)
+        self.dump_state = pd.get(c.DUMP_STATE, c.DUMP_STATE_DEFAULT)
+
+        self.gradient_clipping = pd.get(c.GRADIENT_CLIPPING,
+                                        c.GRADIENT_CLIPPING_DEFAULT)
+        self.prescale_gradients = pd.get(c.PRESCALE_GRADIENTS,
+                                         c.PRESCALE_GRADIENTS_DEFAULT)
+        self.gradient_predivide_factor = pd.get(
+            c.GRADIENT_PREDIVIDE_FACTOR, c.GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
+        self.sparse_gradients_enabled = pd.get(c.SPARSE_GRADIENTS,
+                                               c.SPARSE_GRADIENTS_DEFAULT)
+        self.fp32_allreduce = pd.get(c.FP32_ALLREDUCE,
+                                     c.FP32_ALLREDUCE_DEFAULT)
+        self.allgather_size = pd.get(c.ALLGATHER_SIZE,
+                                     c.ALLGATHER_SIZE_DEFAULT)
+
+        # ---- precision ----
+        fp16_dict = pd.get(c.FP16, {})
+        bf16_dict = pd.get(c.BFLOAT16, {})
+        self.fp16_enabled = fp16_dict.get(c.FP16_ENABLED,
+                                          c.FP16_ENABLED_DEFAULT)
+        fp16_type = fp16_dict.get(c.FP16_TYPE, c.FP16_TYPE_DEFAULT)
+        bf16_enabled = bf16_dict.get(c.BFLOAT16_ENABLED,
+                                     c.BFLOAT16_ENABLED_DEFAULT)
+        if self.fp16_enabled and fp16_type in ("bfloat16", "bf16"):
+            self.precision = c.PRECISION_BF16
+        elif self.fp16_enabled:
+            self.precision = c.PRECISION_FP16
+        elif bf16_enabled:
+            self.precision = c.PRECISION_BF16
+        else:
+            self.precision = c.PRECISION_FP32
+        self.bfloat16_enabled = self.precision == c.PRECISION_BF16
+        # masterless bf16: no fp32 master copy, bf16-stored optimizer
+        # moments, bf16 grads. bf16-only — fp16 needs the master for
+        # loss-scale unscaling precision
+        self.master_weights = bool(
+            bf16_dict.get(c.BFLOAT16_MASTER_WEIGHTS,
+                          fp16_dict.get(c.BFLOAT16_MASTER_WEIGHTS,
+                                        c.BFLOAT16_MASTER_WEIGHTS_DEFAULT))
+        )
+        if not self.master_weights and self.precision == c.PRECISION_FP16:
+            raise ValueError(
+                "master_weights: false is not supported with fp16 — fp16 "
+                "must keep an fp32 master for loss-scale unscaling (use "
+                "bf16 for the masterless memory-lean mode)"
+            )
+
+        self.grad_accum_dtype = bf16_dict.get(
+            c.BFLOAT16_GRAD_ACCUM_DTYPE,
+            fp16_dict.get(c.BFLOAT16_GRAD_ACCUM_DTYPE,
+                          c.BFLOAT16_GRAD_ACCUM_DTYPE_DEFAULT)
+        )
+        if self.grad_accum_dtype not in (None, "fp32", "float32",
+                                         "bf16", "bfloat16"):
+            raise ValueError(
+                f"grad_accum_dtype must be fp32/bf16/None, got "
+                f"{self.grad_accum_dtype!r}"
+            )
+
+        self.loss_scale = fp16_dict.get(c.FP16_LOSS_SCALE,
+                                        c.FP16_LOSS_SCALE_DEFAULT)
+        self.initial_scale_power = fp16_dict.get(
+            c.FP16_INITIAL_SCALE_POWER, c.FP16_INITIAL_SCALE_POWER_DEFAULT)
+        self.loss_scale_window = fp16_dict.get(
+            c.FP16_LOSS_SCALE_WINDOW, c.FP16_LOSS_SCALE_WINDOW_DEFAULT)
+        self.hysteresis = fp16_dict.get(c.FP16_HYSTERESIS,
+                                        c.FP16_HYSTERESIS_DEFAULT)
+        self.min_loss_scale = fp16_dict.get(c.FP16_MIN_LOSS_SCALE,
+                                            c.FP16_MIN_LOSS_SCALE_DEFAULT)
+        # bf16 trains without loss scaling (static scale 1.0), like the fork
+        if (self.precision == c.PRECISION_BF16
+                and c.FP16_LOSS_SCALE not in fp16_dict):
+            self.loss_scale = 1.0
+
+        # ---- optimizer / scheduler ----
+        optimizer_dict = pd.get(c.OPTIMIZER, None)
+        self.optimizer_name = None
+        self.optimizer_params = None
+        self.optimizer_legacy_fusion = c.LEGACY_FUSION_DEFAULT
+        if optimizer_dict is not None:
+            self.optimizer_name = optimizer_dict.get(c.TYPE, None)
+            self.optimizer_params = optimizer_dict.get(c.OPTIMIZER_PARAMS, {})
+            self.optimizer_legacy_fusion = optimizer_dict.get(
+                c.LEGACY_FUSION, c.LEGACY_FUSION_DEFAULT)
+        scheduler_dict = pd.get(c.SCHEDULER, None)
+        self.scheduler_name = None
+        self.scheduler_params = None
+        if scheduler_dict is not None:
+            self.scheduler_name = scheduler_dict.get(c.TYPE, None)
+            self.scheduler_params = scheduler_dict.get(c.SCHEDULER_PARAMS, {})
+
+        self.zero_allow_untested_optimizer = pd.get(
+            c.ZERO_ALLOW_UNTESTED_OPTIMIZER,
+            c.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)
+        self.zero_enabled = False
+        self.zero_optimization_stage = 0
+
+        self.wall_clock_breakdown = pd.get(c.WALL_CLOCK_BREAKDOWN,
+                                           c.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = pd.get(c.MEMORY_BREAKDOWN,
+                                       c.MEMORY_BREAKDOWN_DEFAULT)
+
+        ckpt = pd.get(c.CHECKPOINT, {})
+        validation_mode = ckpt.get(c.CHECKPOINT_TAG_VALIDATION,
+                                   c.CHECKPOINT_TAG_VALIDATION_DEFAULT)
+        self.checkpoint_tag_validation_mode = str(validation_mode).capitalize()
+        if (self.checkpoint_tag_validation_mode
+                not in c.CHECKPOINT_TAG_VALIDATION_MODES):
+            raise ConfigError(
+                f"{c.CHECKPOINT_TAG_VALIDATION}: {validation_mode} invalid, "
+                f"must be one of {c.CHECKPOINT_TAG_VALIDATION_MODES}"
+            )
+        self.checkpoint_tag_validation_enabled = (
+            self.checkpoint_tag_validation_mode != "Ignore")
+        self.checkpoint_tag_validation_fail = (
+            self.checkpoint_tag_validation_mode == "Fail")
+        self.load_from_fp32_weights = pd.get(c.LOAD_FROM_FP32_WEIGHTS, True)
+
+        # ---- continuous-batching serving ----
+        self.serving_params = pd.get(c.SERVING, None)
+        self.serving_enabled = _block_enabled(pd, c.SERVING)
+        self._serving_config = None
+        if self.serving_enabled:
+            from ..serving.config import ServingConfig
+
+            try:
+                self._serving_config = ServingConfig.from_dict(
+                    self.serving_params)
+            except ValueError as e:
+                raise ConfigError(f'invalid "serving" block: {e}') from e
+
+        # ---- fused kernels ----
+        # validated eagerly so typos fail at load; applied process-globally
+        # at engine init (the consumers are free functions deep inside
+        # model code)
+        self.kernels_params = pd.get(c.KERNELS, None)
+        self.kernels_mode = c.KERNELS_MODE_DEFAULT
+        if self.kernels_params is not None:
+            from ..ops import kernel_config
+
+            try:
+                self.kernels_params = kernel_config.validate(
+                    self.kernels_params)
+            except ValueError as e:
+                raise ConfigError(f'invalid "kernels" block: {e}') from e
+            self.kernels_mode = self.kernels_params.get(
+                c.KERNELS_MODE, c.KERNELS_MODE_DEFAULT)
+
+        self.gradient_noise_scale = pd.get(c.GRADIENT_NOISE_SCALE, None)
+
+    def serving_config(self):
+        """The "serving" block as a ServingConfig (None when the block is
+        absent or disabled), validated at parse time."""
+        return self._serving_config
+
+    # ------------------------------------------------------------------ #
+
+    def _batch_assertion(self):
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        assert train > 0, f"Train batch size: {train} has to be greater than 0"
+        assert micro > 0, f"Micro batch size per gpu: {micro} has to be greater than 0"
+        assert gas > 0, f"Gradient accumulation steps: {gas} has to be greater than 0"
+        assert train == micro * gas * self.world_size, (
+            f"Check batch related parameters. train_batch_size is not equal "
+            f"to micro_batch_per_gpu * gradient_acc_step * world_size "
+            f"{train} != {micro} * {gas} * {self.world_size}"
+        )
+
+    def _set_batch_related_parameters(self):
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+
+        # all three parameters provided — just validate below
+        if all(x is not None for x in (train, micro, gas)):
+            pass
+        # global + micro -> derive gas
+        elif train is not None and micro is not None:
+            gas = train // (micro * self.world_size)
+            self.gradient_accumulation_steps = gas
+        # global + gas -> derive micro
+        elif train is not None and gas is not None:
+            micro = train // (self.world_size * gas)
+            self.train_micro_batch_size_per_gpu = micro
+        # only global -> gas 1, derive micro
+        elif train is not None:
+            self.gradient_accumulation_steps = 1
+            self.train_micro_batch_size_per_gpu = train // self.world_size
+        # micro (+ maybe gas) -> derive global
+        elif micro is not None:
+            if gas is None:
+                gas = 1
+                self.gradient_accumulation_steps = 1
+            self.train_batch_size = micro * gas * self.world_size
+        else:
+            raise ConfigError(
+                "Either train_batch_size or train_micro_batch_size_per_gpu "
+                "needs to be provided"
+            )
+        self._batch_assertion()
+
+    def _do_sanity_check(self):
+        if self.fp16_enabled and self.precision == c.PRECISION_FP16:
+            if self.loss_scale < 0:
+                raise ConfigError("loss_scale must be >= 0 (0 means dynamic)")
+
+    # ------------------------------------------------------------------ #
+
+    @property
+    def dynamic_loss_scale(self):
+        return self.loss_scale == 0
+
+    @property
+    def initial_dynamic_scale(self):
+        return 2**self.initial_scale_power
+
+    @property
+    def dynamic_loss_scale_args(self):
+        if not self.dynamic_loss_scale:
+            return None
+        return {
+            "init_scale": 2**self.initial_scale_power,
+            "scale_window": self.loss_scale_window,
+            "delayed_shift": self.hysteresis,
+            "min_scale": self.min_loss_scale,
+        }
+
+    def print(self, name="TrainingConfig"):
+        logger.info("%s:", name)
+        for key in sorted(self.__dict__):
+            if key == "_param_dict":
+                continue
+            logger.info("  %s = %s", key, self.__dict__[key])
+
+
+# Back-compat alias matching the reference class name
+DeepSpeedConfig = TrainingConfig

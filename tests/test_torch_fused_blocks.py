@@ -1,6 +1,6 @@
-"""The PyTorch port's fused LayerNorm and bias+GeLU against the JAX
-reference's Pallas kernels (run in interpret mode on the CPU), and the
-port's "kernels" selection switch.
+"""The PyTorch port's fused LayerNorm and bias+GeLU, forward and
+backward, against the JAX reference's Pallas kernels (run in interpret
+mode on the CPU), and the port's "kernels" selection switch.
 
 On the CPU the port's kernel wrappers take their plain PyTorch versions;
 the CUDA kernels themselves are held against those plain versions on the
@@ -84,15 +84,102 @@ def test_bias_gelu_matches_pallas_interpret(approximate, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+def _vjp_pair(jax_fn, torch_fn, jargs, targs, g):
+    """(reference grads via jax.vjp, port grads via autograd) of the same
+    cotangent; JAX under kernels mode fused (interpret-mode Pallas), the
+    port under mode fused (its wrappers' plain forward and backward inside
+    the dispatcher's autograd Function)."""
+    with jax_kc.override(mode="fused"):
+        _, vjp = jax.vjp(jax_fn, *jargs)
+        ref = vjp(jnp.asarray(g).astype(jargs[0].dtype))
+    leaves = [t.clone().requires_grad_() for t in targs]
+    with kc.override(mode="fused"):
+        out = torch_fn(*leaves)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves,
+                              torch.from_numpy(g).to(out.dtype))
+    return ref, got
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_layer_norm_grads_match_pallas_interpret(dtype, tol):
+    """ln_bwd_plain through the dispatcher's autograd against jax.vjp of
+    the Pallas LayerNorm; the reference's own gradient tolerance is 10x
+    its forward one (tests/test_fused_kernels.py)."""
+    rs = np.random.RandomState(6)
+    jx, tx = _pair(rs.randn(4, 32, 96) * 2 + 0.5, dtype)
+    jw, tw = _pair(rs.randn(96) * 0.1 + 1.0, "float32")
+    jb, tb = _pair(rs.randn(96) * 0.1, "float32")
+    g = rs.randn(4, 32, 96).astype(np.float32)
+    ref, got = _vjp_pair(lambda x, w, b: jax_fb.layer_norm(x, w, b, 1e-5),
+                         lambda x, w, b: fb.layer_norm(x, w, b, 1e-5),
+                         (jx, jw, jb), (tx, tw, tb), g)
+    for name, a, r in zip(("dx", "dw", "db"), got, ref):
+        assert a.dtype == (tx.dtype if name == "dx" else torch.float32)
+        np.testing.assert_allclose(_np(a), _np(r), atol=10 * tol,
+                                   rtol=10 * tol, err_msg=name)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_bias_gelu_grads_match_pallas_interpret(approximate, dtype, tol):
+    """bias_gelu_bwd_plain through the dispatcher's autograd against
+    jax.vjp of the Pallas bias+GeLU, tanh and erf forms; db comes back in
+    the bias's dtype, as in the reference."""
+    rs = np.random.RandomState(8)
+    jx, tx = _pair(rs.randn(8, 24, 64) * 2.0, dtype)
+    jb, tb = _pair(rs.randn(64), dtype)
+    g = rs.randn(8, 24, 64).astype(np.float32)
+    ref, got = _vjp_pair(lambda x, b: jax_fb.bias_gelu(x, b, approximate),
+                         lambda x, b: fb.bias_gelu(x, b, approximate),
+                         (jx, jb), (tx, tb), g)
+    assert got[0].dtype == got[1].dtype == tx.dtype
+    # db sums 192 rows of dx; in bf16 it is rounded once from fp32
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(_np(a), _np(r), atol=10 * tol,
+                                   rtol=10 * tol)
+
+
+def test_backward_plain_versions_match_the_kernel_math():
+    """ln_bwd_plain and bias_gelu_bwd_plain equal autograd through the
+    plain forwards (fp64 inputs, so the comparison is of the formulas)."""
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.randn(16, 40)).requires_grad_()
+    w = torch.from_numpy(rs.randn(40)).requires_grad_()
+    b = torch.from_numpy(rs.randn(40)).requires_grad_()
+    g = torch.from_numpy(rs.randn(16, 40))
+    x32 = x.detach()
+    mu = x32.mean(-1)
+    rstd = torch.rsqrt(((x32 - mu[:, None]) ** 2).mean(-1) + 1e-5)
+    y = (x - x.mean(-1, keepdim=True)) * torch.rsqrt(
+        ((x - x.mean(-1, keepdim=True)) ** 2).mean(-1, keepdim=True)
+        + 1e-5) * w + b
+    want = torch.autograd.grad(y, (x, w, b), g)
+    got = fb.ln_bwd_plain(x32, w.detach(), mu, rstd, g)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a.double(), r, atol=1e-5, rtol=1e-5)
+    for approximate in (True, False):
+        y = torch.nn.functional.gelu(x + b, approximate="tanh" if approximate
+                                     else "none")
+        want = torch.autograd.grad(y, (x, b), g)
+        got = fb.bias_gelu_bwd_plain(x32, b.detach(), g, approximate)
+        for a, r in zip(got, want):
+            torch.testing.assert_close(a.double(), r, atol=1e-5, rtol=1e-5)
+
+
 def test_cpu_wrappers_take_plain_version_and_count_no_launch():
-    before = (fb.ln_fwd.launches, fb.bias_gelu_fwd.launches)
+    before = (fb.ln_fwd.launches, fb.bias_gelu_fwd.launches,
+              fb.ln_bwd.launches, fb.bias_gelu_bwd.launches)
     x = torch.randn(16, 32)
     w, b = torch.ones(32), torch.zeros(32)
     y, mu, rs = fb.ln_fwd(x, w, b, 1e-5)
     torch.testing.assert_close(y, fb.layer_norm(x, w, b, 1e-5))
     assert mu.shape == rs.shape == (16,)
     fb.bias_gelu_fwd(x, b, True)
-    assert (fb.ln_fwd.launches, fb.bias_gelu_fwd.launches) == before
+    fb.ln_bwd(x, w, mu, rs, x)
+    fb.bias_gelu_bwd(x, b, x, False)
+    assert (fb.ln_fwd.launches, fb.bias_gelu_fwd.launches,
+            fb.ln_bwd.launches, fb.bias_gelu_bwd.launches) == before
 
 
 # ------------------------------------------------------------------ #

@@ -1,5 +1,5 @@
-"""The PyTorch port's GPT forward against the JAX reference's
-``make_gpt`` on the same fp32 weights, carried across by
+"""The PyTorch port's GPT forward and training loss against the JAX
+reference's ``make_gpt`` on the same fp32 weights, carried across by
 deeperspeed_tpu_torch/models/convert.py; plus the config surface, the
 init and the converter."""
 
@@ -15,6 +15,7 @@ from deeperspeed_tpu.models import gpt as jax_gpt
 from deeperspeed_tpu.ops import kernel_config as jax_kc
 from deeperspeed_tpu_torch.models import convert
 from deeperspeed_tpu_torch.models import gpt
+from deeperspeed_tpu_torch.ops import kernel_config as kc
 
 torch.set_num_threads(1)
 
@@ -88,7 +89,7 @@ def test_config_surface():
     with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
         gpt.GPTConfig(moe_num_experts=4)
     with pytest.raises(ValueError, match="not ported"):
-        gpt.GPTConfig(attn_impl="pallas")
+        gpt.GPTConfig(attn_impl="ring")
     with pytest.raises(ValueError, match="multiple of n_kv_head"):
         gpt.GPTConfig(n_head=4, n_kv_head=3)
     with pytest.raises(ValueError, match="remat_policy"):
@@ -129,3 +130,38 @@ def test_convert_round_trip_and_validation():
     del np_params["lm_head"]
     with pytest.raises(ValueError, match="missing"):
         convert.from_jax_params(np_params, tcfg, "cpu")
+
+
+@pytest.mark.parametrize("ce_chunk", [0, 16])
+def test_loss_and_grads_match_reference(ce_chunk):
+    """One forward+backward of make_gpt's loss, fused and streaming
+    cross-entropy, kernels fused on both sides (the reference's Pallas
+    kernels in interpret mode, the port's wrappers' plain versions): fp32
+    loss within 1e-5, grads within 1e-5 + 1e-4 relative."""
+    kw = dict(vocab_size=97, n_layer=2, n_head=4, d_model=64, max_seq=64,
+              ce_chunk=ce_chunk, remat=False, attn_impl="pallas_interpret")
+    jcfg = jax_gpt.GPTConfig(**kw, dtype=jnp.float32)
+    jinit, _, jloss, _ = jax_gpt.make_gpt(jcfg)
+    jparams = jinit(jax.random.PRNGKey(0))
+    tcfg = gpt.GPTConfig(**kw, dtype=torch.float32)
+    tparams = convert.from_jax_params(jax.tree.map(np.asarray, jparams),
+                                      tcfg, "cpu")
+    S = 64
+    batch = np.random.RandomState(11).randint(0, 97, (2, S + 1)).astype(
+        np.int32)
+    with jax_kc.override(mode="fused"), kc.override(mode="fused"):
+        jl, jg = jax.value_and_grad(jloss)(jparams, jnp.asarray(batch))
+        _, _, tloss, _ = gpt.make_gpt(tcfg)
+        leaves = {k: v.requires_grad_() for k, v in
+                  convert._flatten(tparams).items()}
+        tl = tloss(tparams, torch.from_numpy(batch))
+        tg = torch.autograd.grad(tl, list(leaves.values()))
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jflat = convert._flatten(jax.tree.map(np.asarray, jg))
+    for (k, _), g in zip(leaves.items(), tg):
+        np.testing.assert_allclose(g.numpy(), jflat[k], atol=1e-5,
+                                   rtol=1e-4, err_msg=k)
+    assert gpt.pick_ce_chunk(S, ce_chunk) == jax_gpt.pick_ce_chunk(S,
+                                                                   ce_chunk)
+    for s_, c_ in ((100, 64), (97, 32), (128, 0), (96, 128)):
+        assert gpt.pick_ce_chunk(s_, c_) == jax_gpt.pick_ce_chunk(s_, c_)

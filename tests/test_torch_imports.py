@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing ``deeperspeed_tpu_torch``
 loads neither ``jax`` nor any module of ``deeperspeed_tpu`` (names are
 compared exactly, since the port's own name starts with
-``deeperspeed_tpu``), no source file of the port or chip_smoke.py imports
-them, and the serving entry point refuses to fall back to the CPU."""
+``deeperspeed_tpu``), no source file of the port, chip_smoke.py or
+scripts/torch_first_step_probe.py imports them, and the serving and
+training entry points refuse to fall back to the CPU."""
 
 import ast
 import json
@@ -35,6 +36,11 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import deeperspeed_tpu_torch\n"
         "import deeperspeed_tpu_torch.serving, deeperspeed_tpu_torch.models."
         "convert, deeperspeed_tpu_torch.runtime.config_utils\n"
+        "import deeperspeed_tpu_torch.runtime.engine, deeperspeed_tpu_torch."
+        "runtime.config, deeperspeed_tpu_torch.runtime.lr_schedules\n"
+        "import deeperspeed_tpu_torch.runtime.dataloader, deeperspeed_tpu_"
+        "torch.runtime.fp16.loss_scaler, deeperspeed_tpu_torch.ops.adam\n"
+        "import deeperspeed_tpu_torch.ops.flash_attention\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -42,6 +48,8 @@ def test_import_loads_no_jax_and_no_reference_module():
                          timeout=120)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "deeperspeed_tpu_torch.serving.engine" in mods
+    assert "deeperspeed_tpu_torch.runtime.engine" in mods
+    assert "deeperspeed_tpu_torch.ops.flash_attention" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 
@@ -60,7 +68,8 @@ def _imports(path: Path):
 
 
 def test_sources_import_no_jax_and_no_reference_module():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_first_step_probe.py"]
     assert len(files) > 10
     bad = {str(f.relative_to(ROOT)): m for f in files for m in _imports(f)
            if _forbidden(m)}
@@ -84,6 +93,22 @@ def test_serving_engine_without_device_refuses_the_cpu():
     eng = ServingEngine(cfg, params, {"num_slots": 1, "num_blocks": 8,
                                       "max_seq_len": 16}, device="cpu")
     assert eng.device.type == "cpu" and eng.kv.k.device.type == "cpu"
+
+
+def test_training_engine_without_device_refuses_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the engine would take it")
+    import deeperspeed_tpu_torch as ds
+
+    cfg = {"train_batch_size": 1}
+    params = {"w": torch.ones(2)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ds.initialize(model=lambda p, b: p["w"].sum(),
+                      model_parameters=params, config=cfg)
+    eng, _, _, _ = ds.initialize(model=lambda p, b: p["w"].sum(),
+                                 model_parameters=params, config=cfg,
+                                 device="cpu")
+    assert eng.params["w"].device.type == "cpu"
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():
