@@ -60,6 +60,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    seventh step then runs under torch.profiler: wall and device time,
    the device's busy share, device time by kernel family and the top
    kernels.
+7. BERT kernels against their plain versions: the residual-add LayerNorm
+   pair (add_ln_fwd/add_ln_bwd) at (R, 1024) for R in ADD_LN_ROWS (the
+   BERT-large path's 8192 rows and ragged counts) and at (2048, 2048);
+   the super-tile attention pair at SUPERTILE_SHAPES (the BERT-large
+   shape (64, 16, 128, 64), then S in {8, 64, 200, 248} with Dh 64 and
+   128, including fp32 at S 248 / Dh 128, whose K and V exceed a block's
+   shared memory), causal and not; LN and erf bias+GeLU, forward and
+   backward, at the BERT widths (D 1024, F 4096 and the MLM head's
+   (4096, 1024)). bf16 and fp32, with the tolerances and relative L2
+   limits of phases 2-4; each new kernel, and the four block kernels at
+   the BERT shapes, timed at its path shape as in phases 2-4.
+8. BERT-large pretraining at full width and depth (24 layers, d_model
+   1024, 16 heads, vocab 30528, max_seq 128, post-LN, bf16, remat "full",
+   ce_chunk 64, dropout 0, random weights from a fixed seed) through
+   initialize -> Engine.train_batch with the keys of
+   configs/bert_large_zero2.json changed for one card (Lamb 2e-3, weight
+   decay 0.01, WarmupLR, bf16 with an fp32 master, clipping 1.0,
+   micro-batch 64, one accumulation step, ZeRO stage 0) plus
+   "kernels": {"mode": "auto"} and a BERT_WARMUP_STEPS warmup, on one
+   64 x 128 batch of data/corpus_tokens.npy with 15 % of positions
+   scored (the input there replaced by the mask id 103), for 6 steps.
+   The same gates as phase 6: kernel path against plain path on the
+   batch, finite and falling losses, no skipped step, grad norms finite
+   and > 0, and launches per step equal to what remat "full" implies.
+   One more step runs under torch.profiler.
 
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -85,9 +110,13 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 FUSED_SOURCE = "deeperspeed_tpu_torch/csrc/fused_blocks.cu"
 FLASH_SOURCE = "deeperspeed_tpu_torch/csrc/flash_attention.cu"
+SUPERTILE_SOURCE = "deeperspeed_tpu_torch/csrc/supertile_attention.cu"
 SOURCES = {"ln_fwd": FUSED_SOURCE, "bias_gelu_fwd": FUSED_SOURCE,
            "ln_bwd": FUSED_SOURCE, "bias_gelu_bwd": FUSED_SOURCE,
-           "flash_fwd": FLASH_SOURCE, "flash_bwd": FLASH_SOURCE}
+           "flash_fwd": FLASH_SOURCE, "flash_bwd": FLASH_SOURCE,
+           "add_ln_fwd": FUSED_SOURCE, "add_ln_bwd": FUSED_SOURCE,
+           "supertile_fwd": SUPERTILE_SOURCE,
+           "supertile_bwd": SUPERTILE_SOURCE}
 # the TPU kernel each one replaces (the kernel body); flash_fwd and
 # flash_bwd each replace the static and the streaming pair
 REPLACES = {
@@ -97,6 +126,10 @@ REPLACES = {
     "bias_gelu_bwd": "deeperspeed_tpu/ops/pallas/fused_blocks.py:285",
     "flash_fwd": "deeperspeed_tpu/ops/pallas/flash_static.py:127",
     "flash_bwd": "deeperspeed_tpu/ops/pallas/flash_static.py:201",
+    "add_ln_fwd": "deeperspeed_tpu/ops/pallas/fused_blocks.py:173",
+    "add_ln_bwd": "deeperspeed_tpu/ops/pallas/fused_blocks.py:184",
+    "supertile_fwd": "deeperspeed_tpu/ops/pallas/flash_static.py:406",
+    "supertile_bwd": "deeperspeed_tpu/ops/pallas/flash_static.py:428",
 }
 ALSO_REPLACES = {
     "flash_fwd": "deeperspeed_tpu/ops/pallas/flash_attention.py:131",
@@ -136,6 +169,21 @@ TRAIN_STEPS = 6
 # PERF.md). 100 lets the loss fall below its start by step 6; with 2 it
 # had not recovered by then.
 WARMUP_STEPS = 100
+# BERT-large (phases 7-8)
+BERT_ROWS = 64 * 128       # B * S of the BERT micro-batch
+BERT_HEAD_ROWS = 64 * 64   # the MLM head's rows: one 64-position CE chunk
+ADD_LN_ROWS = (37, 1000, BERT_ROWS)
+SUPERTILE_SHAPES = ((64, 16, 128, 64),) + tuple(
+    (2, 4, S, Dh) for S in (8, 64, 200, 248) for Dh in (64, 128))
+BERT_STEPS = 6
+# WarmupLR, as the reference's, gives lr 0 on the first two steps, then
+# warmup_max_lr * log(t + 1) / log(W + 1): with W = 4 the LR is at 43 %,
+# 68 %, 86 % and 100 % of 2e-3 on steps 3-6, so the four LAMB updates,
+# each moving every leaf by about lr of its norm, show in the loss by
+# step 6; the config's 10000 would keep them below 8 % of it.
+BERT_WARMUP_STEPS = 4
+BERT_MASK_ID = 103
+BERT_MASK_FRAC = 0.15
 
 
 def card_line() -> str:
@@ -478,6 +526,247 @@ def flash_phase(fa, gen):
     return results
 
 
+def bert_kernel_phase(fb, fs, gen):
+    """Phase 7: the add-LN and super-tile pairs against their plain
+    versions, and the LN and bias+GeLU kernels at the BERT widths; each
+    new kernel and each block kernel timed at its BERT path shape (bf16;
+    rows tagged "path": "bert")."""
+    results = {"add_ln_fwd": [], "add_ln_bwd": [], "supertile_fwd": [],
+               "supertile_bwd": [], "ln_fwd": [], "ln_bwd": [],
+               "bias_gelu_fwd": [], "bias_gelu_bwd": []}
+    for R, D in [(r, 1024) for r in ADD_LN_ROWS] + [(2048, 2048)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol, rel = TOL[dtype], REL_L2[dtype]
+            isz = torch.tensor([], dtype=dtype).element_size()
+            dname = dtype_name(dtype)
+            timed = R == BERT_ROWS and dtype == torch.bfloat16
+
+            def case():
+                return (randn_on(gen, (R, D), dtype, 2.0, 0.5),
+                        randn_on(gen, (R, D), dtype),
+                        randn_on(gen, (D,), torch.float32, 0.1, 1.0),
+                        randn_on(gen, (D,), torch.float32, 0.1), 1e-12)
+
+            x, r, w, b, eps = case()
+            y, mu, rs = fb.add_ln_fwd(x, r, w, b, eps)
+            torch.cuda.synchronize()
+            py, pmu, prs = fb.add_ln_fwd_plain(x, r, w, b, eps)
+            tag = f"{R}x{D} {dname}"
+            err, rel_err = check_close(f"add_ln_fwd {tag}", y, py, tol, rel)
+            check_close(f"add_ln_fwd mean {tag}", mu, pmu, 2e-5, rel)
+            check_close(f"add_ln_fwd rstd {tag}", rs, prs, 2e-5, rel)
+            fwd = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
+                   "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            g = randn_on(gen, (R, D), dtype)
+            got = fb.add_ln_bwd(x, r, w, pmu, prs, g)
+            torch.cuda.synchronize()
+            want = fb.add_ln_bwd_plain(x, r, w, pmu, prs, g)
+            err, rel_err = check_outputs(f"add_ln_bwd {tag}",
+                                         ("ds", "dw", "db"), got, want,
+                                         10 * tol, rel)
+            bwd = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
+                   "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            if timed:
+                bufs = copies(case, 2 * R * D * isz)
+                fwd.update(timings(fb.add_ln_fwd, fb.add_ln_fwd_plain, bufs))
+                fwd.update(path="bert", library=None, **bound(
+                    3 * R * D * isz + 2 * D * 4 + 2 * R * 4, 9 * R * D))
+
+                def bcase():
+                    x_, r_, w_, b_, e_ = case()
+                    _, m_, s_ = fb.add_ln_fwd_plain(x_, r_, w_, b_, e_)
+                    return x_, r_, w_, m_, s_, randn_on(gen, (R, D), dtype)
+
+                bbufs = copies(bcase, 3 * R * D * isz)
+                bwd.update(timings(fb.add_ln_bwd, fb.add_ln_bwd_plain,
+                                   bbufs))
+                bwd.update(path="bert", library=None, **bound(
+                    4 * R * D * isz + 8 * R + 12 * D, 15 * R * D))
+                del bufs, bbufs
+            results["add_ln_fwd"].append(fwd)
+            results["add_ln_bwd"].append(bwd)
+            del x, r, g, y, got, want
+
+    for si, shape in enumerate(SUPERTILE_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            ftol, gtol = FLASH_TOL[dtype]
+            rel = REL_L2[dtype]
+            dname = dtype_name(dtype)
+            scale = 1.0 / math.sqrt(shape[-1])
+            for causal in (False, True):
+                q, k, v, do = (randn_on(gen, shape, dtype) for _ in range(4))
+                o, lse = fs.supertile_fwd(q, k, v, scale, causal)
+                torch.cuda.synchronize()
+                po, plse = fs.supertile_fwd_plain(q, k, v, scale, causal)
+                tag = f"{tuple(shape)} {dname} causal={causal}"
+                err, rel_err = check_outputs(f"supertile_fwd {tag}",
+                                             ("o", "lse"), (o, lse),
+                                             (po, plse), ftol, rel)
+                fwd = {"shape": list(shape), "dtype": dname,
+                       "causal": causal, "max_abs_err": err, "tol": ftol,
+                       "rel_l2_err": rel_err, "rel_l2_tol": rel}
+                got = fs.supertile_bwd(q, k, v, po, plse, do, scale, causal)
+                torch.cuda.synchronize()
+                want = fs.supertile_bwd_plain(q, k, v, po, plse, do, scale,
+                                              causal)
+                err, rel_err = check_outputs(f"supertile_bwd {tag}",
+                                             ("dq", "dk", "dv"), got, want,
+                                             gtol, rel)
+                bwd = {"shape": list(shape), "dtype": dname,
+                       "causal": causal, "max_abs_err": err, "tol": gtol,
+                       "rel_l2_err": rel_err, "rel_l2_tol": rel}
+                del o, lse, got, want
+                if si == 0 and not causal and dtype == torch.bfloat16:
+                    def case():
+                        t = [randn_on(gen, shape, dtype) for _ in range(4)]
+                        o_, lse_ = fs.supertile_fwd_plain(*t[:3], scale,
+                                                          False)
+                        return t[:3] + [o_, lse_, t[3]]
+
+                    bufs = copies(case, flash_work(shape, False, dtype,
+                                                   False)[0])
+                    fwd_bufs = [(a[0], a[1], a[2], scale, False)
+                                for a in bufs]
+                    sdpa = torch.nn.functional.scaled_dot_product_attention
+                    fwd.update(timings(
+                        fs.supertile_fwd, fs.supertile_fwd_plain, fwd_bufs,
+                        lambda a, b, c, *_: sdpa(a, b, c), fwd_bufs,
+                        iters=10, replays=3))
+                    fwd.update(path="bert",
+                               library="F.scaled_dot_product_attention",
+                               **bound(*flash_work(shape, False, dtype,
+                                                   False), BF16_OPS_PER_S))
+                    bwd_bufs = [tuple(a) + (scale, False) for a in bufs]
+                    lib_bufs = [sdpa_backward_args(a[0], a[1], a[2], a[5],
+                                                   scale, False)
+                                for a in bufs]
+                    bwd.update(timings(fs.supertile_bwd,
+                                       fs.supertile_bwd_plain, bwd_bufs,
+                                       sdpa_backward, lib_bufs, iters=10,
+                                       replays=3))
+                    bwd.update(path="bert",
+                               library=("aten._scaled_dot_product_flash_"
+                                        "attention_backward"),
+                               **bound(*flash_work(shape, False, dtype,
+                                                   True), BF16_OPS_PER_S))
+                    del bufs, fwd_bufs, bwd_bufs, lib_bufs
+                results["supertile_fwd"].append(fwd)
+                results["supertile_bwd"].append(bwd)
+                del q, k, v, do, po, plse
+        torch.cuda.empty_cache()
+
+    # the block kernels at the BERT widths: LN on the embedding (8192 rows)
+    # and in the MLM head (4096 rows), erf bias+GeLU in the FFN (8192 x
+    # 4096) and the head (4096 x 1024); timed at the first of each
+    for R, D, timed in ((BERT_ROWS, 1024, True), (BERT_HEAD_ROWS, 1024,
+                                                  False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            tol, rel = TOL[dtype], REL_L2[dtype]
+            isz = torch.tensor([], dtype=dtype).element_size()
+            dname = dtype_name(dtype)
+            timed_here = timed and dtype == torch.bfloat16
+
+            def ln_case():
+                x_ = randn_on(gen, (R, D), dtype, 2.0, 0.5)
+                w_ = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
+                b_ = randn_on(gen, (D,), torch.float32, 0.1)
+                return x_, w_, b_, 1e-12
+
+            x, w, b, eps = ln_case()
+            y, mu, rs = fb.ln_fwd(x, w, b, eps)
+            torch.cuda.synchronize()
+            py, pmu, prs = fb.ln_fwd_plain(x, w, b, eps)
+            tag = f"{R}x{D} {dname}"
+            err, rel_err = check_close(f"ln_fwd {tag}", y, py, tol, rel)
+            row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
+                   "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            if timed_here:
+                bufs = copies(ln_case, R * D * isz)
+                lib_bufs = [(xx, (D,), ww.to(dtype), bb.to(dtype), e)
+                            for xx, ww, bb, e in bufs]
+                row.update(timings(fb.ln_fwd, fb.ln_fwd_plain, bufs,
+                                   torch.nn.functional.layer_norm, lib_bufs))
+                row.update(path="bert", **bound(
+                    2 * R * D * isz + 2 * D * 4 + 2 * R * 4, 8 * R * D))
+                del bufs, lib_bufs
+            results["ln_fwd"].append(row)
+            g = randn_on(gen, (R, D), dtype)
+            got = fb.ln_bwd(x, w, pmu, prs, g)
+            torch.cuda.synchronize()
+            want = fb.ln_bwd_plain(x, w, pmu, prs, g)
+            err, rel_err = check_outputs(f"ln_bwd {tag}", ("dx", "dw", "db"),
+                                         got, want, 10 * tol, rel)
+            row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
+                   "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            if timed_here:
+                def lnb_case():
+                    x_, w_, b_, e_ = ln_case()
+                    _, m_, s_ = fb.ln_fwd_plain(x_, w_, b_, e_)
+                    return x_, w_, m_, s_, randn_on(gen, (R, D), dtype)
+
+                bufs = copies(lnb_case, 2 * R * D * isz)
+                lib_bufs = [(gg, xx, (D,), m_[:, None], s_[:, None],
+                             ww.to(dtype), ww.to(dtype), [True, True, True])
+                            for xx, ww, m_, s_, gg in bufs]
+                row.update(timings(fb.ln_bwd, fb.ln_bwd_plain, bufs,
+                                   torch.ops.aten.native_layer_norm_backward,
+                                   lib_bufs))
+                row.update(path="bert",
+                           library="aten.native_layer_norm_backward",
+                           **bound(3 * R * D * isz + 8 * R + 12 * D,
+                                   13 * R * D))
+                del bufs, lib_bufs
+            results["ln_bwd"].append(row)
+
+            Fd = 4096 if timed else 1024
+            rows_bg = R
+
+            def bg_case():
+                return (randn_on(gen, (rows_bg, Fd), dtype, 2.0),
+                        randn_on(gen, (Fd,), dtype),
+                        randn_on(gen, (rows_bg, Fd), dtype), False)
+
+            h, hb, hg, approx = bg_case()
+            y = fb.bias_gelu_fwd(h, hb, approx)
+            torch.cuda.synchronize()
+            tag = f"{rows_bg}x{Fd} {dname} approx=False"
+            err, rel_err = check_close(f"bias_gelu_fwd {tag}", y,
+                                       fb.bias_gelu_fwd_plain(h, hb, approx),
+                                       tol, rel)
+            row = {"shape": [rows_bg, Fd], "dtype": dname,
+                   "approximate": False, "max_abs_err": err, "tol": tol,
+                   "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            if timed_here:
+                bufs = copies(lambda: bg_case()[:2] + (False,),
+                              rows_bg * Fd * isz)
+                row.update(timings(fb.bias_gelu_fwd, fb.bias_gelu_fwd_plain,
+                                   bufs))
+                row.update(path="bert", library=None, **bound(
+                    2 * rows_bg * Fd * isz + Fd * isz, 10 * rows_bg * Fd))
+                del bufs
+            results["bias_gelu_fwd"].append(row)
+            got = fb.bias_gelu_bwd(h, hb, hg, approx)
+            torch.cuda.synchronize()
+            want = fb.bias_gelu_bwd_plain(h, hb, hg, approx)
+            err, rel_err = check_outputs(f"bias_gelu_bwd {tag}", ("dx", "db"),
+                                         got, want, 10 * tol, rel)
+            row = {"shape": [rows_bg, Fd], "dtype": dname,
+                   "approximate": False, "max_abs_err": err,
+                   "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            if timed_here:
+                bufs = copies(bg_case, 2 * rows_bg * Fd * isz)
+                row.update(timings(fb.bias_gelu_bwd, fb.bias_gelu_bwd_plain,
+                                   bufs))
+                row.update(path="bert", library=None, **bound(
+                    3 * rows_bg * Fd * isz + Fd * (isz + 4),
+                    20 * rows_bg * Fd))
+                del bufs
+            results["bias_gelu_bwd"].append(row)
+            del x, g, h, hg, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
 def randomize_affine(params, gen):
     """Give the biases and layer-norm parameters random values (the init
     leaves them at 0 and 1), so the serving run exercises every input of
@@ -654,24 +943,23 @@ def training_config():
     return config
 
 
-def compare_paths(engine, cfg, tokens):
-    """Loss and grads of one micro-batch through the kernel path (kernels
-    auto, flash attention) and the plain path (kernels off, attn_impl
-    "xla") from the engine's params: relative loss difference, both grad
-    norms, and the cosine of the flattened grads."""
-    from deeperspeed_tpu_torch.models.gpt import make_gpt
+def compare_paths(engine, kernel_loss, plain_loss, batch, kernels_block):
+    """Loss and grads of one micro-batch through the kernel path
+    (``kernel_loss`` under ``kernels_block``) and the plain path
+    (``plain_loss``, kernels off) from the engine's params: relative loss
+    difference, both grad norms, and the cosine of the flattened grads."""
     from deeperspeed_tpu_torch.ops import kernel_config
     from deeperspeed_tpu_torch.ops.adam import tree_leaves
 
     leaves = tree_leaves(engine.params)
     out = {}
-    for name, c, mode in (("kernels", cfg, "auto"),
-                          ("plain", dataclasses.replace(cfg, attn_impl="xla"),
-                           "off")):
-        loss_fn = make_gpt(c)[2]
-        with kernel_config.override(mode=mode, fused_adam=False):
-            loss = loss_fn(engine.params, tokens)
-            grads = torch.autograd.grad(loss, leaves)
+    for name, loss_fn, block in (("kernels", kernel_loss, kernels_block),
+                                 ("plain", plain_loss, {"mode": "off"})):
+        with kernel_config.override(**block):
+            loss = loss_fn(engine.params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         out[name] = (float(loss.detach()), grads)
         del loss
     (lk, gk), (lp, gp) = out["kernels"], out["plain"]
@@ -694,6 +982,68 @@ def compare_paths(engine, cfg, tokens):
     return res
 
 
+def run_steps(engine, batch, counters, steps):
+    """``steps`` train_batch calls with every launch counter set to 0
+    just before and read just after: losses, grad norms, LRs, step times,
+    launches and the peak device memory of the run."""
+    losses, norms, lrs, step_s = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(steps):
+        lrs.append(engine.get_lr()[0])
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return {"losses": losses, "grad_norms": norms, "lrs": lrs,
+            "step_s": step_s, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def check_run(run, engine, expected, steps):
+    """The gates of a training run: launches per step as expected (every
+    kernel of the path launched), losses finite and the last below the
+    first, no skipped step, grad norms finite and > 0. Returns the
+    launches per step."""
+    per_step = {k: n / steps for k, n in run["launches"].items()}
+    if per_step != expected:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{expected} (launches {run['launches']} over "
+                             f"{steps} steps)")
+    losses, norms = run["losses"], run["grad_norms"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if engine.skipped_steps or not all(math.isfinite(n) and n > 0
+                                       for n in norms):
+        raise AssertionError(f"skipped {engine.skipped_steps} steps; grad "
+                             f"norms {norms}")
+    return per_step
+
+
+KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                   "supertile_fwd", "supertile_bwd", "ln_fwd", "ln_bwd",
+                   "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials")
+
+
+def kernel_family(name):
+    """The port's kernel a profiled CUDA kernel name belongs to (the
+    add-LN pair is the LN kernels' template with the residual flag set),
+    else "gemm" or "other"."""
+    fam = next((f for f in KERNEL_FAMILIES if f in name), None)
+    if fam in ("ln_fwd", "ln_bwd") and ", true>" in name:
+        return "add_" + fam
+    if fam is not None:
+        return fam
+    return ("gemm" if any(w in name.lower() for w in
+                          ("gemm", "nvjet", "cutlass", "sm90_xmma"))
+            else "other")
+
+
 def profile_training(engine, batch, top=10):
     """Where a training step's time goes, after the main run has been
     read: one more train_batch under torch.profiler. Reports wall time,
@@ -714,14 +1064,7 @@ def profile_training(engine, batch, top=10):
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     families = {}
     for e in kernels:
-        name = e.key
-        fam = next((f for f in ("flash_fwd", "flash_bwd_dkdv",
-                                "flash_bwd_dq", "ln_fwd", "ln_bwd",
-                                "bias_gelu_fwd", "bias_gelu_bwd",
-                                "sum_partials") if f in name),
-                   "gemm" if any(w in name.lower() for w in
-                                 ("gemm", "nvjet", "cutlass", "sm90_xmma"))
-                   else "other")
+        fam = kernel_family(e.key)
         families[fam] = families.get(fam, 0.0) + e.self_device_time_total
     device_us = sum(families.values())
     return {
@@ -737,12 +1080,11 @@ def profile_training(engine, batch, top=10):
 
 def training_phase(card):
     """GPT-NeoX-1.3B through initialize -> train_batch; see the module
-    docstring, phase 6. Returns the launch counts of the 6-step run."""
+    docstring, phase 6. Returns the launch counts of the 6-step run and
+    the launches per step."""
     import deeperspeed_tpu_torch as ds
     from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
                                                   make_gpt)
-    from deeperspeed_tpu_torch.ops import flash_attention as fa
-    from deeperspeed_tpu_torch.ops import fused_blocks as fb
     from deeperspeed_tpu_torch.ops import kernel_config
 
     cfg = get_preset("neox-1.3b", max_seq=1024, remat_policy="matmuls",
@@ -757,10 +1099,6 @@ def training_phase(card):
     rows = config["train_batch_size"]
     batch = np.asarray(corpus[: rows * (cfg.max_seq + 1)],
                        dtype=np.int64).reshape(rows, cfg.max_seq + 1)
-    counters = {"ln_fwd": fb.ln_fwd, "ln_bwd": fb.ln_bwd,
-                "bias_gelu_fwd": fb.bias_gelu_fwd,
-                "bias_gelu_bwd": fb.bias_gelu_bwd,
-                "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd}
 
     with kernel_config.override():
         engine, _, _, sched = ds.initialize(
@@ -768,67 +1106,170 @@ def training_phase(card):
         del params
         micro = config["train_micro_batch_size_per_gpu"]
         parity = compare_paths(
-            engine, cfg, torch.from_numpy(batch[:micro]).cuda())
+            engine, make_gpt(cfg)[2],
+            make_gpt(dataclasses.replace(cfg, attn_impl="xla"))[2],
+            torch.from_numpy(batch[:micro]).cuda(),
+            {"mode": "auto", "fused_adam": False})
         print("training parity: " + json.dumps(parity), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-
-        losses, norms, lrs, step_s = [], [], [], []
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        for _ in range(TRAIN_STEPS):
-            lrs.append(engine.get_lr()[0])
-            t0 = time.perf_counter()
-            loss = engine.train_batch(batch)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(loss))
-            norms.append(engine.get_global_grad_norm())
-        launches = {name: fn.launches for name, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
+        run = run_steps(engine, batch, kernel_counters(), TRAIN_STEPS)
 
     gas = config["gradient_accumulation_steps"]
     expected = {"flash_fwd": cfg.n_layer * gas, "flash_bwd": cfg.n_layer * gas,
                 "ln_fwd": gas, "ln_bwd": gas,
                 # the backward replays bias+GeLU from the kept pre-GeLU
                 "bias_gelu_fwd": 2 * cfg.n_layer * gas,
-                "bias_gelu_bwd": cfg.n_layer * gas}
-    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
-    step_ms = statistics.median(step_s[1:]) * 1e3
+                "bias_gelu_bwd": cfg.n_layer * gas,
+                "add_ln_fwd": 0, "add_ln_bwd": 0, "supertile_fwd": 0,
+                "supertile_bwd": 0}
+    per_step = {k: n / TRAIN_STEPS for k, n in run["launches"].items()}
+    step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = rows * cfg.max_seq
     report = {
         "model": "neox-1.3b", "dtype": "bfloat16", "card": card,
         "layers": cfg.n_layer, "d_model": cfg.d_model, "seq": cfg.max_seq,
         "remat_policy": cfg.remat_policy, "micro_batch": micro,
         "grad_accum": gas, "warmup_num_steps": WARMUP_STEPS,
-        "steps": TRAIN_STEPS, "losses": losses,
-        "grad_norms": norms, "lrs": lrs, "skipped_steps":
-            engine.skipped_steps, "step_s": step_s,
+        "steps": TRAIN_STEPS, **run, "skipped_steps": engine.skipped_steps,
         "step_ms_median_2_6": step_ms,
         "tokens_per_s": tokens / (step_ms / 1e3),
-        "peak_mem_gib": peak / 2**30, "launches": launches,
         "launches_per_step": per_step, "parity": parity,
     }
     print("training: " + json.dumps(report), flush=True)
-    if per_step != expected:
-        raise AssertionError(f"launches per step {per_step}, expected "
-                             f"{expected} (launches {launches} over "
-                             f"{TRAIN_STEPS} steps)")
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"losses not finite and falling: {losses}")
-    if engine.skipped_steps or not all(math.isfinite(n) and n > 0
-                                       for n in norms):
-        raise AssertionError(f"skipped {engine.skipped_steps} steps; grad "
-                             f"norms {norms}")
+    per_step = check_run(run, engine, expected, TRAIN_STEPS)
     with kernel_config.override(**config["kernels"]):
         print("training profile: " + json.dumps(profile_training(
             engine, batch)), flush=True)
     del engine, sched
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, per_step
+    return run["launches"], per_step
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by name: each counts its
+    launches."""
+    from deeperspeed_tpu_torch.ops import flash_attention as fa
+    from deeperspeed_tpu_torch.ops import flash_static as fs
+    from deeperspeed_tpu_torch.ops import fused_blocks as fb
+
+    return {"ln_fwd": fb.ln_fwd, "ln_bwd": fb.ln_bwd,
+            "bias_gelu_fwd": fb.bias_gelu_fwd,
+            "bias_gelu_bwd": fb.bias_gelu_bwd,
+            "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+            "add_ln_fwd": fb.add_ln_fwd, "add_ln_bwd": fb.add_ln_bwd,
+            "supertile_fwd": fs.supertile_fwd,
+            "supertile_bwd": fs.supertile_bwd}
+
+
+def bert_config():
+    """The keys of configs/bert_large_zero2.json changed for one card:
+    micro-batch 64 x 1 accumulation step (the file's 4096 / 48 has no whole
+    accumulation count on one card; 64 is the reference bench's
+    micro-batch at seq 128), ZeRO stage 0 (ZeRO-2 is not ported), the
+    kernels block, and the warmup of BERT_WARMUP_STEPS. Lamb routes no
+    Adam, so the block needs no "fused_adam": false."""
+    return {
+        "train_batch_size": 64,
+        "train_micro_batch_size_per_gpu": 64,
+        "gradient_accumulation_steps": 1,
+        "bf16": {"enabled": True},
+        "zero_optimization": {"stage": 0},
+        "optimizer": {"type": "Lamb",
+                      "params": {"lr": 2e-3, "weight_decay": 0.01}},
+        "scheduler": {"type": "WarmupLR",
+                      "params": {"warmup_max_lr": 2e-3,
+                                 "warmup_num_steps": BERT_WARMUP_STEPS}},
+        "gradient_clipping": 1.0,
+        "steps_per_print": 100,
+        "kernels": {"mode": "auto"},
+    }
+
+
+def bert_batch(rows, seq):
+    """One MLM batch: ids from data/corpus_tokens.npy, BERT_MASK_FRAC of
+    the positions scored (label = the original id, input = the mask id),
+    the rest labelled -100."""
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    ids = np.asarray(corpus[: rows * seq], dtype=np.int64).reshape(rows, seq)
+    scored = np.random.default_rng(SEED).random(ids.shape) < BERT_MASK_FRAC
+    return (np.where(scored, BERT_MASK_ID, ids),
+            np.where(scored, ids, -100))
+
+
+def bert_training_phase(card):
+    """BERT-large through initialize -> train_batch; see the module
+    docstring, phase 8. Returns the launch counts of the 6-step run and
+    the launches per step."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.bert import (BertConfig, init_params,
+                                                   make_bert)
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.lamb import FusedLamb
+
+    cfg = BertConfig(vocab_size=30528, n_layer=24, n_head=16, d_model=1024,
+                     max_seq=128, dtype=torch.bfloat16, remat=True,
+                     remat_policy="full", ce_chunk=64, mlm_gather_frac=0.0)
+    config = bert_config()
+    print(f"bert training: scheduler warmup_num_steps overridden 10000 -> "
+          f"{BERT_WARMUP_STEPS}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, cfg, device="cuda")
+    ids, labels = bert_batch(config["train_batch_size"], cfg.max_seq)
+    batch = (ids, labels)
+
+    with kernel_config.override():
+        engine, opt, _, sched = ds.initialize(
+            model=make_bert(cfg)[2], model_parameters=params, config=config)
+        del params
+        if not isinstance(opt, FusedLamb):
+            raise AssertionError(f"the Lamb config built {type(opt)}")
+        parity = compare_paths(
+            engine, make_bert(cfg)[2],
+            make_bert(dataclasses.replace(cfg, attn_impl="xla"))[2],
+            engine._place_batch(batch), config["kernels"])
+        print("bert training parity: " + json.dumps(parity), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = run_steps(engine, batch, kernel_counters(), BERT_STEPS)
+
+    L = cfg.n_layer
+    n_chunks = cfg.max_seq // cfg.ce_chunk
+    # remat "full" replays each layer (and each checkpointed CE chunk) in
+    # the backward: two forwards per layer and chunk, one backward
+    expected = {"add_ln_fwd": 2 * 2 * L, "add_ln_bwd": 2 * L,
+                "supertile_fwd": 2 * L, "supertile_bwd": L,
+                "bias_gelu_fwd": 2 * L + 2 * n_chunks,
+                "bias_gelu_bwd": L + n_chunks,
+                "ln_fwd": 1 + 2 * n_chunks, "ln_bwd": 1 + n_chunks,
+                "flash_fwd": 0, "flash_bwd": 0}
+    per_step = {k: n / BERT_STEPS for k, n in run["launches"].items()}
+    step_ms = statistics.median(run["step_s"][1:]) * 1e3
+    tokens = ids.size
+    report = {
+        "model": "bert-large", "dtype": "bfloat16", "card": card,
+        "layers": L, "d_model": cfg.d_model, "heads": cfg.n_head,
+        "vocab": cfg.vocab_size, "seq": cfg.max_seq,
+        "remat_policy": cfg.remat_policy, "micro_batch": ids.shape[0],
+        "grad_accum": 1, "optimizer": "Lamb",
+        "warmup_num_steps": BERT_WARMUP_STEPS,
+        "scored_positions": int((labels != -100).sum()),
+        "steps": BERT_STEPS, **run, "skipped_steps": engine.skipped_steps,
+        "step_ms_median_2_6": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "samples_per_s": ids.shape[0] / (step_ms / 1e3),
+        "launches_per_step": per_step, "parity": parity,
+    }
+    print("bert training: " + json.dumps(report), flush=True)
+    per_step = check_run(run, engine, expected, BERT_STEPS)
+    with kernel_config.override(**config["kernels"]):
+        print("bert training profile: " + json.dumps(profile_training(
+            engine, batch)), flush=True)
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"], per_step
 
 
 def main() -> int:
@@ -838,6 +1279,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from deeperspeed_tpu_torch.ops import flash_attention as fa
+    from deeperspeed_tpu_torch.ops import flash_static as fs
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
     from deeperspeed_tpu_torch.ops import op_builder
 
@@ -847,10 +1289,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
     t0 = time.perf_counter()
-    sources = ("fused_blocks", "flash_attention")
+    sources = ("fused_blocks", "flash_attention", "supertile_attention")
     op_builder.build_all(sources)
     fb._lib()
     fa._lib()
+    fs._lib()
     print(f"build: {', '.join(s_ + '.cu' for s_ in sources)} in "
           f"{time.perf_counter() - t0:.2f} s, side by side", flush=True)
     for name in sources:
@@ -866,6 +1309,8 @@ def main() -> int:
     cases = kernel_phase(fb, gen)
     cases.update(backward_phase(fb, gen))
     cases.update(flash_phase(fa, gen))
+    for name, rows in bert_kernel_phase(fb, fs, gen).items():
+        cases.setdefault(name, []).extend(rows)
     for name, rows in cases.items():
         for r in rows:
             if "ms" in r:
@@ -881,25 +1326,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     training, per_step = training_phase(card)
+    bert, bert_per_step = bert_training_phase(card)
 
+    # each path's counts were set to 0 just before it and read just after
+    paths = {"serving": serving, "gpt_training": training,
+             "bert_training": bert}
     kernels = []
     for name, rows in cases.items():
-        head = next(r for r in rows if "ms" in r and r["dtype"] == "bfloat16"
-                    and (r["shape"][0] == PATH_ROWS
+        # the timed row of the path the kernel was ported for: BERT's for
+        # the add-LN and super-tile pairs, GPT training's for the rest
+        bert_row = name.startswith(("add_ln", "supertile"))
+        head = next(r for r in rows if "ms" in r
+                    and r["dtype"] == "bfloat16"
+                    and (r.get("path") == "bert") == bert_row
+                    and (bert_row or r["shape"][0] == PATH_ROWS
                          or tuple(r["shape"]) == FLASH_SHAPES[0]))
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": training[name],
+            "replaces": REPLACES[name],
+            "launches": sum(by_path.values()),
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": head["dtype"],
-            "launches_per_step": per_step[name],
+            "launches_by_path": by_path,
+            "launches_per_step": {"gpt_training": per_step[name],
+                                  "bert_training": bert_per_step[name]},
         }
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
-        if name in serving:
-            entry["launches_serving"] = serving[name]
         kernels.append(entry)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

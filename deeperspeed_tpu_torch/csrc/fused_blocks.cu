@@ -1,5 +1,5 @@
-// Fused elementwise kernels for Hopper (sm_90a): LayerNorm and bias+GeLU,
-// forward and backward. Built by ops/op_builder.py with nvcc into a shared library that
+// Fused elementwise kernels for Hopper (sm_90a): LayerNorm, residual-add
+// LayerNorm and bias+GeLU, forward and backward. Built by ops/op_builder.py with nvcc into a shared library that
 // ops/fused_blocks.py loads with ctypes; every entry point below has a plain C
 // interface, launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -9,6 +9,16 @@
 // bias_gelu_fwd replaces _bg_fwd_kernel (same file, launched by _bg).
 // ln_bwd replaces _ln_bwd_kernel (launched by _ln_vjp_bwd) and
 // bias_gelu_bwd replaces _bg_bwd_kernel (launched by _bg_vjp_bwd).
+// add_ln_fwd replaces _aln_fwd_kernel (launched by _aln_fwd_call) and
+// add_ln_bwd replaces _aln_bwd_kernel (launched by _aln_vjp_bwd): the BERT
+// post-LN add&norm y = LN(x + r) * w + b. They are the LN kernels with the
+// residual added on load (the ln kernels' template flag kAdd): both inputs
+// are cast to fp32 before the add, where the reference rounds the sum, and
+// the backward recomputes s = x + r from x and r rather than storing s. Its
+// one output ds is the cotangent of both x and r. Add-LN moves 2 * R * D
+// input elements where LN moves R * D, and is bound by those bytes the same
+// way (at the BERT-large shape (8192, 1024) bf16: ~50 MB forward, ~15 us,
+// and ~67 MB backward, ~20 us at 3.35 TB/s).
 //
 // All four are bound by device-memory bytes, not arithmetic: LayerNorm reads x
 // once and writes y once (plus 8 bytes of statistics per row and the 2*D
@@ -95,31 +105,40 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
-template <typename T>
+// x[i], or x[i] + r[i] in fp32 when kAdd (the residual-add LayerNorm)
+template <bool kAdd, typename T>
+__device__ __forceinline__ float load_in(const T* __restrict__ x,
+                                         const T* __restrict__ r, long long i) {
+  if (kAdd) return to_f32(x[i]) + to_f32(r[i]);
+  return to_f32(x[i]);
+}
+
+template <typename T, bool kAdd>
 __global__ void __launch_bounds__(kLnThreads)
-    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ b, T* __restrict__ y,
-                  float* __restrict__ mean, float* __restrict__ rstd, int D,
-                  float eps) {
+    ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                  const float* __restrict__ w, const float* __restrict__ b,
+                  T* __restrict__ y, float* __restrict__ mean,
+                  float* __restrict__ rstd, int D, float eps) {
   __shared__ float red[33];
   const long long row = blockIdx.x;
   const T* xr = x + row * D;
+  const T* rr = kAdd ? r + row * D : nullptr;
   T* yr = y + row * D;
   const float inv_d = 1.f / static_cast<float>(D);
 
   float s = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) s += to_f32(xr[i]);
+  for (int i = threadIdx.x; i < D; i += blockDim.x) s += load_in<kAdd>(xr, rr, i);
   const float mu = block_sum(s, red) * inv_d;
 
   float ss = 0.f;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float d = to_f32(xr[i]) - mu;
+    const float d = load_in<kAdd>(xr, rr, i) - mu;
     ss += d * d;
   }
   const float rs = rsqrtf(block_sum(ss, red) * inv_d + eps);
 
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    yr[i] = from_f32<T>((to_f32(xr[i]) - mu) * rs * w[i] + b[i]);
+    yr[i] = from_f32<T>((load_in<kAdd>(xr, rr, i) - mu) * rs * w[i] + b[i]);
   }
   if (threadIdx.x == 0) {
     mean[row] = mu;
@@ -160,9 +179,11 @@ void launch_bias_gelu(const void* x, const void* b, void* y, long long n, int F,
 
 // dx = rs * (dy - mean(dy) - xhat * mean(dy * xhat)) with dy = g * w, as the
 // reference's _ln_dx; dw/db partials of sum(g * xhat) and sum(g) per block.
-template <typename T>
+// With kAdd the normalized input is s = x + r, recomputed here.
+template <typename T, bool kAdd>
 __global__ void __launch_bounds__(kLnThreads)
-    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+    ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                  const float* __restrict__ w,
                   const float* __restrict__ mean, const float* __restrict__ rstd,
                   const T* __restrict__ g, T* __restrict__ dx,
                   float* __restrict__ dw_part, float* __restrict__ db_part,
@@ -180,13 +201,14 @@ __global__ void __launch_bounds__(kLnThreads)
   // are reached by all of them
   for (long long row = blockIdx.x; row < R; row += gridDim.x) {
     const T* xr = x + row * D;
+    const T* rr = kAdd ? r + row * D : nullptr;
     const T* gr = g + row * D;
     T* dxr = dx + row * D;
     const float mu = mean[row];
     const float rs = rstd[row];
     float s1 = 0.f, s2 = 0.f;
     for (int i = threadIdx.x; i < D; i += blockDim.x) {
-      const float xh = (to_f32(xr[i]) - mu) * rs;
+      const float xh = (load_in<kAdd>(xr, rr, i) - mu) * rs;
       const float gi = to_f32(gr[i]);
       const float dy = gi * w[i];
       s1 += dy;
@@ -197,7 +219,7 @@ __global__ void __launch_bounds__(kLnThreads)
     const float c1 = block_sum(s1, red) * inv_d;
     const float c2 = block_sum(s2, red) * inv_d;
     for (int i = threadIdx.x; i < D; i += blockDim.x) {
-      const float xh = (to_f32(xr[i]) - mu) * rs;
+      const float xh = (load_in<kAdd>(xr, rr, i) - mu) * rs;
       const float dy = to_f32(gr[i]) * w[i];
       dxr[i] = from_f32<T>(rs * (dy - c1 - xh * c2));
     }
@@ -263,18 +285,18 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
-int launch_ln_bwd(const void* x, const void* w, const void* mean, const void* rstd,
-                  const void* g, void* dx, void* dw, void* db, void* part,
-                  long long R, int D, cudaStream_t s) {
+template <typename T, bool kAdd>
+int launch_ln_bwd(const void* x, const void* r, const void* w, const void* mean,
+                  const void* rstd, const void* g, void* dx, void* dw, void* db,
+                  void* part, long long R, int D, cudaStream_t s) {
   const int nb = bwd_blocks(R);
   const size_t smem = 2 * static_cast<size_t>(D) * sizeof(float);
-  cudaError_t err = allow_smem(ln_bwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(ln_bwd_kernel<T, kAdd>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* dw_part = static_cast<float*>(part);
   float* db_part = dw_part + static_cast<long long>(nb) * D;
-  ln_bwd_kernel<T><<<nb, kLnThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
+  ln_bwd_kernel<T, kAdd><<<nb, kLnThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const float*>(w),
       static_cast<const float*>(mean), static_cast<const float*>(rstd),
       static_cast<const T*>(g), static_cast<T*>(dx), dw_part, db_part, R, D);
   err = cudaGetLastError();
@@ -311,9 +333,10 @@ const char* ds_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, y: (R, D) of dtype; w, b: (D,) fp32; mean, rstd: (R,) fp32.
-int ds_ln_fwd(const void* x, const void* w, const void* b, void* y, void* mean,
-              void* rstd, long long R, int D, float eps, int dtype,
+// x, y (and r when given): (R, D) of dtype; w, b: (D,) fp32; mean, rstd:
+// (R,) fp32. r == nullptr is LayerNorm of x, else LayerNorm of x + r.
+int ds_ln_fwd(const void* x, const void* r, const void* w, const void* b, void* y,
+              void* mean, void* rstd, long long R, int D, float eps, int dtype,
               void* stream) {
   if (R <= 0 || R > 0x7fffffffLL || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -323,12 +346,25 @@ int ds_ln_fwd(const void* x, const void* w, const void* b, void* y, void* mean,
   float* mf = static_cast<float*>(mean);
   float* rf = static_cast<float*>(rstd);
   if (dtype == kDtypeF32) {
-    ln_fwd_kernel<float><<<grid, kLnThreads, 0, s>>>(
-        static_cast<const float*>(x), wf, bf, static_cast<float*>(y), mf, rf, D, eps);
+    const float* xf = static_cast<const float*>(x);
+    const float* rr = static_cast<const float*>(r);
+    float* yf = static_cast<float*>(y);
+    if (r) {
+      ln_fwd_kernel<float, true><<<grid, kLnThreads, 0, s>>>(xf, rr, wf, bf, yf, mf, rf, D, eps);
+    } else {
+      ln_fwd_kernel<float, false><<<grid, kLnThreads, 0, s>>>(xf, rr, wf, bf, yf, mf, rf, D, eps);
+    }
   } else if (dtype == kDtypeBF16) {
-    ln_fwd_kernel<__nv_bfloat16><<<grid, kLnThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, bf, static_cast<__nv_bfloat16*>(y),
-        mf, rf, D, eps);
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(r);
+    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
+    if (r) {
+      ln_fwd_kernel<__nv_bfloat16, true><<<grid, kLnThreads, 0, s>>>(xb, rb, wf, bf, yb, mf, rf,
+                                                                     D, eps);
+    } else {
+      ln_fwd_kernel<__nv_bfloat16, false><<<grid, kLnThreads, 0, s>>>(xb, rb, wf, bf, yb, mf,
+                                                                      rf, D, eps);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -358,18 +394,24 @@ int ds_bias_gelu_fwd(const void* x, const void* b, void* y, long long n, int F,
 // wrapper allocates (2 *) ds_bwd_blocks(R) * D fp32 values.
 int ds_bwd_blocks(long long R) { return R > 0 ? bwd_blocks(R) : 0; }
 
-// x, g, dx: (R, D) of dtype; w: (D,) fp32; mean, rstd: (R,) fp32 from ln_fwd;
-// dw, db: (D,) fp32; part: 2 * ds_bwd_blocks(R) * D fp32 scratch.
-int ds_ln_bwd(const void* x, const void* w, const void* mean, const void* rstd,
-              const void* g, void* dx, void* dw, void* db, void* part,
+// x, g, dx (and r when given): (R, D) of dtype; w: (D,) fp32; mean, rstd:
+// (R,) fp32 from ds_ln_fwd; dw, db: (D,) fp32; part: 2 * ds_bwd_blocks(R) * D
+// fp32 scratch. r == nullptr is the LayerNorm backward, else the residual-add
+// LayerNorm's, whose dx is the cotangent of both x and r.
+int ds_ln_bwd(const void* x, const void* r, const void* w, const void* mean,
+              const void* rstd, const void* g, void* dx, void* dw, void* db, void* part,
               long long R, int D, int dtype, void* stream) {
   if (R <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32) {
-    return launch_ln_bwd<float>(x, w, mean, rstd, g, dx, dw, db, part, R, D, s);
+    return r ? launch_ln_bwd<float, true>(x, r, w, mean, rstd, g, dx, dw, db, part, R, D, s)
+             : launch_ln_bwd<float, false>(x, r, w, mean, rstd, g, dx, dw, db, part, R, D, s);
   }
   if (dtype == kDtypeBF16) {
-    return launch_ln_bwd<__nv_bfloat16>(x, w, mean, rstd, g, dx, dw, db, part, R, D, s);
+    return r ? launch_ln_bwd<__nv_bfloat16, true>(x, r, w, mean, rstd, g, dx, dw, db, part, R,
+                                                  D, s)
+             : launch_ln_bwd<__nv_bfloat16, false>(x, r, w, mean, rstd, g, dx, dw, db, part,
+                                                   R, D, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,13 @@
-"""Carry GPT weights, and Adam state, between the JAX reference and the
-port.
+"""Carry GPT and BERT weights, and Adam and LAMB state, between the JAX
+reference and the port.
 
-The port keeps the reference's parameter layout (models/gpt.py): the same
-tree, per-layer tensors stacked on axis 0, matrices (in, out). So the
-conversion is a copy, leaf for leaf; nothing is transposed, and a
-transposition bug has nowhere to hide. The reference's ``AdamState``
-(step, exp_avg tree, exp_avg_sq tree) carries across the same way, so an
-optimizer step can be held against the reference from the same state.
+The port keeps the reference's parameter layout (models/gpt.py,
+models/bert.py): the same tree, per-layer tensors stacked on axis 0,
+matrices (in, out). So the conversion is a copy, leaf for leaf; nothing
+is transposed, and a transposition bug has nowhere to hide. The
+reference's ``AdamState`` and ``LambState`` (step, exp_avg tree,
+exp_avg_sq tree) carry across the same way, so an optimizer step can be
+held against the reference from the same state.
 """
 
 from typing import Dict, Optional
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 
 from ..ops.adam import AdamState, tree_map
+from ..ops.lamb import LambState
+from . import bert
 from .gpt import GPTConfig, cast_params, param_shapes
 
 
@@ -28,14 +31,10 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def from_jax_params(tree_of_numpy: Dict, cfg: GPTConfig, device,
-                    dtype: Optional[torch.dtype] = None) -> Dict:
-    """The reference's params pytree (numpy arrays, or anything
-    ``np.asarray`` takes) -> the port's params on ``device``. Keys and
-    shapes must match ``param_shapes(cfg)`` exactly. Leaves keep their
-    dtype (the reference's are fp32) unless ``dtype`` is given, which casts
-    them with ``gpt.cast_params`` (layer norms stay fp32)."""
-    want = _flatten(param_shapes(cfg))
+def _copy_tree(tree_of_numpy: Dict, shapes: Dict, device) -> Dict:
+    """The tree's leaves as tensors on ``device``, keys and shapes checked
+    against ``shapes`` exactly."""
+    want = _flatten(shapes)
     got = _flatten(tree_of_numpy)
     if set(want) != set(got):
         raise ValueError(
@@ -57,13 +56,33 @@ def from_jax_params(tree_of_numpy: Dict, cfg: GPTConfig, device,
             out[k] = torch.tensor(a, device=device)
         return out
 
-    params = walk(tree_of_numpy, "")
+    return walk(tree_of_numpy, "")
+
+
+def from_jax_params(tree_of_numpy: Dict, cfg: GPTConfig, device,
+                    dtype: Optional[torch.dtype] = None) -> Dict:
+    """The reference's GPT params pytree (numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's params on ``device``. Keys and
+    shapes must match ``param_shapes(cfg)`` exactly. Leaves keep their
+    dtype (the reference's are fp32) unless ``dtype`` is given, which casts
+    them with ``gpt.cast_params`` (layer norms stay fp32)."""
+    params = _copy_tree(tree_of_numpy, param_shapes(cfg), device)
     return cast_params(params, dtype) if dtype is not None else params
 
 
+def from_jax_bert_params(tree_of_numpy: Dict, cfg: "bert.BertConfig",
+                         device) -> Dict:
+    """The reference's BERT params pytree -> the port's on ``device``,
+    leaves keeping their dtype. Keys and shapes must match
+    ``bert.param_shapes(cfg)`` exactly, with the SQuAD head's ``qa``
+    leaves when the tree has them."""
+    shapes = bert.param_shapes(cfg, qa="qa" in tree_of_numpy)
+    return _copy_tree(tree_of_numpy, shapes, device)
+
+
 def to_numpy_params(params: Dict) -> Dict:
-    """The port's params -> the reference's pytree of numpy arrays (bf16
-    leaves come back as fp32, since numpy has no bf16)."""
+    """The port's params (GPT or BERT) -> the reference's pytree of numpy
+    arrays (bf16 leaves come back as fp32, since numpy has no bf16)."""
     def leaf(t):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -84,14 +103,16 @@ def _to_torch(a, device):
     return torch.tensor(np.asarray(a), device=device)
 
 
+def _moments(state, device):
+    return (int(np.asarray(state.step)),
+            tree_map(lambda a: _to_torch(a, device), state.exp_avg),
+            tree_map(lambda a: _to_torch(a, device), state.exp_avg_sq))
+
+
 def from_jax_adam_state(state, device) -> AdamState:
     """The reference's ``AdamState`` (numpy or JAX leaves) -> the port's,
     on ``device``, each moment keeping its storage dtype."""
-    return AdamState(
-        step=int(np.asarray(state.step)),
-        exp_avg=tree_map(lambda a: _to_torch(a, device), state.exp_avg),
-        exp_avg_sq=tree_map(lambda a: _to_torch(a, device),
-                            state.exp_avg_sq))
+    return AdamState(*_moments(state, device))
 
 
 def to_numpy_adam_state(state: AdamState) -> AdamState:
@@ -99,3 +120,12 @@ def to_numpy_adam_state(state: AdamState) -> AdamState:
     return AdamState(step=int(state.step),
                      exp_avg=to_numpy_params(state.exp_avg),
                      exp_avg_sq=to_numpy_params(state.exp_avg_sq))
+
+
+to_numpy_bert_params = to_numpy_params
+
+
+def from_jax_lamb_state(state, device) -> LambState:
+    """The reference's ``LambState`` (numpy or JAX leaves, fp32 moments)
+    -> the port's, on ``device``."""
+    return LambState(*_moments(state, device))

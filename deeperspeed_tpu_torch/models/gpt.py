@@ -30,7 +30,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops import fused_blocks
 from ..ops.flash_attention import FLASH_FWD_OP, flash_attention
+from ..ops.flash_static import SUPERTILE_FWD_OP
 from ..ops.kernel_config import _is_hopper
+from ..utils import hooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,34 +170,41 @@ def param_shapes(cfg: GPTConfig) -> Dict:
     return shapes
 
 
+def normal_drawer(seed, device):
+    """``norm(shape, std)`` drawing fp32 normals on ``device`` from
+    ``seed``: an int (seeds a ``torch.Generator`` on ``device``), a
+    ``torch.Generator`` on ``device`` (its stream continues from call to
+    call), or a numpy ``Generator`` / ``RandomState`` (draws on the host,
+    then copies)."""
+    if isinstance(seed, (np.random.Generator, np.random.RandomState)):
+        def norm(shape, s):
+            a = seed.standard_normal(shape).astype(np.float32) * np.float32(s)
+            return torch.from_numpy(a).to(device)
+        return norm
+    gen = seed
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def norm(shape, s):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32) * s
+    return norm
+
+
 def init_params(seed, cfg: GPTConfig, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict:
     """Initial params with the reference's shapes and std (N(0, 0.02),
     output projections N(0, 0.02 / sqrt(2 L)), layer-norm scales 1,
     biases 0), per-layer tensors stacked on axis 0, fp32.
 
-    ``seed``: an int (seeds a ``torch.Generator`` on ``device``), a
-    ``torch.Generator`` on ``device``, or a numpy ``Generator`` /
-    ``RandomState`` (draws on the host, then copies). ``device`` defaults
-    to CUDA. ``dtype`` casts the result with ``cast_params``. The draws
-    differ from the reference's ``jax.random`` ones; to hold the two
-    packages against each other, convert the reference's params with
-    models/convert.py."""
+    ``seed``: as ``normal_drawer`` takes it. ``device`` defaults to CUDA.
+    ``dtype`` casts the result with ``cast_params``. The draws differ from
+    the reference's ``jax.random`` ones; to hold the two packages against
+    each other, convert the reference's params with models/convert.py."""
     device = torch.device("cuda" if device is None else device)
     std = 0.02
     out_std = std / math.sqrt(2.0 * cfg.n_layer)
-    if isinstance(seed, (np.random.Generator, np.random.RandomState)):
-        def norm(shape, s):
-            a = seed.standard_normal(shape).astype(np.float32) * np.float32(s)
-            return torch.from_numpy(a).to(device)
-    else:
-        gen = seed
-        if not isinstance(gen, torch.Generator):
-            gen = torch.Generator(device=device).manual_seed(int(seed))
-
-        def norm(shape, s):
-            return torch.randn(shape, generator=gen, device=device,
-                               dtype=torch.float32) * s
+    norm = normal_drawer(seed, device)
 
     def init(path, shape):
         name = path.rsplit("/", 1)[-1]
@@ -298,12 +307,15 @@ def _auto_takes_flash(device: torch.device) -> bool:
 def causal_attention(q, k, v, impl="auto"):
     """Causal attention on (B, S, H, Dh), dispatched by ``impl``:
 
-    ``"auto"``: the flash kernel for every CUDA tensor on Hopper, at every
-    S (the reference's S > 256 cutoff was measured on a TPU); a head dim
-    or dtype the kernel does not take raises there rather than giving way
-    to dense attention, so such a model picks ``"xla"`` itself. Elsewhere
-    (a CPU tensor, another card) dense. Where the reference would pick its
-    super-tile kernel (S <= 256) the flash kernel takes the call.
+    ``"auto"``: ``flash_attention`` for every CUDA tensor on Hopper, at
+    every S (the reference's S > 256 cutoff was measured on a TPU). There
+    a sequence shorter than 256 that the super-tile gate admits takes the
+    super-tile kernel when the "kernels" config routes its ``supertile``
+    surface (ops/flash_static.py), as the reference's ``gpt.py`` sends
+    S < 256 to its super-tile kernel; every other call the flash kernel. A
+    head dim or dtype the kernel does not take raises there rather than
+    giving way to dense attention, so such a model picks ``"xla"`` itself.
+    Elsewhere (a CPU tensor, another card) dense.
     ``"pallas"``: always the flash path (a CPU tensor takes its plain
     version). ``"pallas_interpret"``: the flash path's plain version, the
     counterpart of the reference's interpret-mode Pallas; CPU tensors
@@ -449,14 +461,15 @@ def pick_ce_chunk(S: int, chunk: int) -> int:
 
 
 # ops whose outputs remat policy "matmuls" keeps: every projection (a 2-D
-# mm once matmul folds the batch) and the flash forward's o and lse.
+# mm once matmul folds the batch) and the attention forward's o and lse
+# (the flash or the super-tile kernel's).
 # Eager recomputation replays a layer from its start, so an op upstream
 # of a kept tensor still runs unless it is kept too; keeping the
 # projections themselves (not only the reference's post-rotary q/k/v and
 # pre-GeLU activations) is what leaves only layer norm, rotary, bias+GeLU
 # and the residual adds to replay, as the reference's policy does.
 _MATMULS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                  FLASH_FWD_OP)
+                  FLASH_FWD_OP, SUPERTILE_FWD_OP)
 
 
 def _matmuls_policy(ctx, op, *args, **kwargs):
@@ -521,8 +534,11 @@ def make_gpt(cfg: GPTConfig):
         if not cfg.rotary:
             x = x + params["embed"]["wpe"][:S].to(cdt)
         step = _remat_step(cfg, partial(layer, positions=positions))
-        for layer_params in layer_slices(params, cfg.n_layer):
+        for i, layer_params in enumerate(layer_slices(params, cfg.n_layer)):
             x = step(x, layer_params)
+            # the layer-output tap (utils/hooks.py): free unless a collector
+            # is active
+            x = hooks.record_layer_output("transformerlayer", x, i)
         return layer_norm(x, params["final_ln"]["scale"],
                           params["final_ln"]["bias"], cfg.layernorm_eps)
 

@@ -29,7 +29,12 @@ The two kernels are registered as ``torch.library`` custom ops
 (models/gpt.py, ``remat_policy="matmuls"``) sees the forward as one
 dispatcher op and can keep its o and lse instead of replaying the kernel.
 ``flash_attention_bhsd`` (head-major) and ``flash_attention``
-(B, S, H, Dh) are the entry points models call.
+(B, S, H, Dh) are the entry points models call. They route as the
+reference's ``flash_attention_bhsd`` does: a short sequence that the
+super-tile gate admits goes to the super-tile kernel
+(ops/flash_static.py) when the "kernels" config routes its ``supertile``
+surface for the device; everything else to the flash kernel here.
+``attention_dispatch`` states that decision for model code.
 """
 
 import ctypes
@@ -39,6 +44,7 @@ from typing import Tuple
 import torch
 
 from . import op_builder
+from .kernel_config import _is_hopper, routes_to_wrapper
 
 NEG_INF = -1e30  # the reference's masked score: finite, so no NaN appears
 HEAD_DIMS = (64, 96, 128)
@@ -255,8 +261,42 @@ _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 FLASH_FWD_OP = torch.ops.deeperspeed_tpu_torch.flash_fwd.default
 
 
+def _takes_supertile(shape, dtype, device) -> bool:
+    from .flash_static import supertile_geometry_ok
+
+    return (routes_to_wrapper("supertile", device)
+            and supertile_geometry_ok(*shape, dtype))
+
+
+def attention_dispatch(shape, dtype, causal, device) -> str:
+    """Which implementation a (B, H, S, Dh) attention call of ``dtype``
+    on ``device`` gets: ``"supertile"`` | ``"flash"`` | ``"xla"``.
+
+    "supertile": the "kernels" config routes the ``supertile`` surface for
+    the device (the CUDA kernel, or on the CPU under mode ``fused`` its
+    plain version, as the reference runs it in interpret mode) and the
+    shape gate holds. "flash": any other call on a Hopper CUDA device,
+    whatever S (the reference's S > 256 rule for its flash kernels was
+    measured on a TPU). "xla": dense attention, the caller's plain path.
+    ``causal`` does not change the decision; it is taken for the
+    reference's signature."""
+    device = torch.device(device)
+    if _takes_supertile(shape, dtype, device):
+        return "supertile"
+    if device.type == "cuda" and _is_hopper(device):
+        return "flash"
+    return "xla"
+
+
 def flash_attention_bhsd(q, k, v, causal=True, sm_scale=None):
-    """Head-major (B, H, S, Dh) flash attention, differentiable."""
+    """Head-major (B, H, S, Dh) flash attention, differentiable: the
+    super-tile kernel where ``attention_dispatch`` says "supertile", else
+    the flash kernel."""
+    if _takes_supertile(q.shape, q.dtype, q.device):
+        from .flash_static import flash_attention_supertile_bhsd
+
+        return flash_attention_supertile_bhsd(q, k, v, causal=causal,
+                                              sm_scale=sm_scale)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     o, _ = _flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),

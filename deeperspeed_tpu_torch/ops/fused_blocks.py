@@ -1,4 +1,5 @@
-"""Fused elementwise blocks: LayerNorm and bias+GeLU, forward and backward.
+"""Fused elementwise blocks: LayerNorm, residual-add LayerNorm and
+bias+GeLU, forward and backward.
 
 Counterpart of deeperspeed_tpu/ops/pallas/fused_blocks.py. The Pallas
 kernels there become hand-written CUDA kernels for Hopper in
@@ -15,30 +16,36 @@ kernels there become hand-written CUDA kernels for Hopper in
   ``bias_gelu_bwd``  replaces ``_bg_bwd_kernel`` (launched by
                      ``_bg_vjp_bwd``): dx = g * gelu'(x + b) and db, the
                      fp32 sum of dx over rows.
+  ``add_ln_fwd``     replaces ``_aln_fwd_kernel`` (launched by
+                     ``_aln_fwd_call``): y = LN(x + r) * w + b, the sum
+                     taken in fp32, plus its fp32 mean and rstd.
+  ``add_ln_bwd``     replaces ``_aln_bwd_kernel`` (launched by
+                     ``_aln_vjp_bwd``): ds, the cotangent of both x and r,
+                     recomputing x + r, and dw, db as fp32 sums over rows.
 
-All four are bound by device-memory bytes: on an H100 SXM (3.35 TB/s)
+All six are bound by device-memory bytes: on an H100 SXM (3.35 TB/s)
 their least time is (bytes read + bytes written) / 3.35 TB/s, e.g.
 bias+GeLU on (512, 8192) bf16 moves ~16.8 MB, ~5.0 us. The source file
 says how each design keeps intermediates out of device memory and how the
 backwards reduce over rows without atomics.
 
 Beside each kernel wrapper sits its plain PyTorch version
-(``ln_fwd_plain``, ``ln_bwd_plain``, ``bias_gelu_fwd_plain``,
-``bias_gelu_bwd_plain``), the math of the reference's ``_ln_ref``,
-``_ln_dx``, ``_bg_ref`` and ``_gelu_grad_f32``. A wrapper takes the plain
+(``ln_fwd_plain``, ``ln_bwd_plain``, ``add_ln_fwd_plain``,
+``add_ln_bwd_plain``, ``bias_gelu_fwd_plain``, ``bias_gelu_bwd_plain``),
+the math of the reference's ``_ln_ref``, ``_ln_dx``, ``_bg_ref`` and
+``_gelu_grad_f32``. A wrapper takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises. Each wrapper counts its launches in a plain integer
 attribute (``ln_fwd.launches``, ...), raised by one per call that launches
 and nowhere else.
 
-The public ``layer_norm``/``bias_gelu`` are dispatchers, as in the
+The public ``layer_norm``/``add_layer_norm``/``bias_gelu`` are dispatchers, as in the
 reference: they consult ops/kernel_config.py and either run the wrappers
 inside an autograd Function (forward and backward both kernels on CUDA;
 both plain versions on the CPU under mode ``fused``) or the plain math,
 whose gradient autograd derives. The reference's ``_row_block`` geometry
 gate is a TPU VMEM rule and has no counterpart: the CUDA kernels take
-every (R, D) up to the shared-memory limit of the backwards. The
-residual-add LayerNorm is not ported yet.
+every (R, D) up to the shared-memory limit of the backwards.
 """
 
 import ctypes
@@ -55,14 +62,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "ds_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "ds_ln_fwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, _P], ctypes.c_int),
+    "ds_ln_fwd": ([_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
+                  ctypes.c_int),
     "ds_bias_gelu_fwd": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
                          ctypes.c_int),
     "ds_bwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
-    "ds_ln_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "ds_ln_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+                  ctypes.c_int),
     "ds_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, _P], ctypes.c_int),
@@ -117,21 +126,18 @@ def ln_fwd_plain(x, w, b, eps):
     return y, mu[..., 0], rs[..., 0]
 
 
-def ln_fwd(x, w, b, eps):
-    """LayerNorm forward kernel on x (R, D) fp32 or bf16, w/b (D,) fp32:
-    returns (y (R, D) in x's dtype, mean (R,) fp32, rstd (R,) fp32).
-    A CPU tensor takes ``ln_fwd_plain``."""
-    if x.device.type == "cpu":
-        return ln_fwd_plain(x, w, b, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_fwd takes a CPU or CUDA tensor, got {x.device}")
+def _ln_fwd_launch(name, x, r, w, b, eps):
+    """Checks and launches ds_ln_fwd on x (and r) (R, D); returns (y,
+    mean, rstd)."""
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
-        raise ValueError(f"ln_fwd takes a non-empty (R, D) x, got "
+        raise ValueError(f"{name} takes a non-empty (R, D) x, got "
                          f"{tuple(x.shape)}")
     R, D = x.shape
     if R > 0x7FFFFFFF:
-        raise ValueError(f"ln_fwd takes at most 2**31 - 1 rows, got {R}")
+        raise ValueError(f"{name} takes at most 2**31 - 1 rows, got {R}")
     _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
+    if r is not None:
+        _check_cuda(r, "r", x.device, (R, D), (x.dtype,))
     _check_cuda(w, "w", x.device, (D,), (torch.float32,))
     _check_cuda(b, "b", x.device, (D,), (torch.float32,))
     y = torch.empty_like(x)
@@ -139,13 +145,31 @@ def ln_fwd(x, w, b, eps):
     rstd = torch.empty(R, dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.ds_ln_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                            R, D, float(eps), _DTYPE_CODES[x.dtype],
+        err = lib.ds_ln_fwd(x.data_ptr(),
+                            None if r is None else r.data_ptr(),
+                            w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                            mean.data_ptr(), rstd.data_ptr(), R, D,
+                            float(eps), _DTYPE_CODES[x.dtype],
                             _stream(x.device))
-    _raise_on(err, "ln_fwd")
-    ln_fwd.launches += 1
+    _raise_on(err, name)
     return y, mean, rstd
+
+
+def _not_cuda(name, t):
+    return ValueError(f"{name} takes a CPU or CUDA tensor, got {t.device}")
+
+
+def ln_fwd(x, w, b, eps):
+    """LayerNorm forward kernel on x (R, D) fp32 or bf16, w/b (D,) fp32:
+    returns (y (R, D) in x's dtype, mean (R,) fp32, rstd (R,) fp32).
+    A CPU tensor takes ``ln_fwd_plain``."""
+    if x.device.type == "cpu":
+        return ln_fwd_plain(x, w, b, eps)
+    if x.device.type != "cuda":
+        raise _not_cuda("ln_fwd", x)
+    out = _ln_fwd_launch("ln_fwd", x, None, w, b, eps)
+    ln_fwd.launches += 1
+    return out
 
 
 ln_fwd.launches = 0
@@ -164,21 +188,17 @@ def ln_bwd_plain(x, w, mean, rstd, g):
     return dx.to(x.dtype), (g32 * xhat).sum(dim=0), g32.sum(dim=0)
 
 
-def ln_bwd(x, w, mean, rstd, g):
-    """LayerNorm backward kernel on x, g (R, D) fp32 or bf16, w (D,) fp32
-    and ln_fwd's fp32 mean, rstd (R,): returns (dx (R, D) in x's dtype,
-    dw (D,) fp32, db (D,) fp32). A CPU tensor takes ``ln_bwd_plain``."""
-    if x.device.type == "cpu":
-        return ln_bwd_plain(x, w, mean, rstd, g)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_bwd takes a CPU or CUDA tensor, got {x.device}")
+def _ln_bwd_launch(name, x, r, w, mean, rstd, g):
+    """Checks and launches ds_ln_bwd; returns (dx, dw, db)."""
     if x.dim() != 2 or x.numel() == 0:
-        raise ValueError(f"ln_bwd takes a non-empty (R, D) x, got "
+        raise ValueError(f"{name} takes a non-empty (R, D) x, got "
                          f"{tuple(x.shape)}")
     R, D = x.shape
     if 2 * D > _SMEM_FLOATS:
-        raise ValueError(f"ln_bwd takes D <= {_SMEM_FLOATS // 2}, got {D}")
+        raise ValueError(f"{name} takes D <= {_SMEM_FLOATS // 2}, got {D}")
     _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
+    if r is not None:
+        _check_cuda(r, "r", x.device, (R, D), (x.dtype,))
     _check_cuda(g, "g", x.device, (R, D), (x.dtype,))
     _check_cuda(w, "w", x.device, (D,), (torch.float32,))
     _check_cuda(mean, "mean", x.device, (R,), (torch.float32,))
@@ -190,16 +210,86 @@ def ln_bwd(x, w, mean, rstd, g):
     part = torch.empty(2 * lib.ds_bwd_blocks(R) * D, dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.ds_ln_bwd(x.data_ptr(), w.data_ptr(), mean.data_ptr(),
-                            rstd.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                            dw.data_ptr(), db.data_ptr(), part.data_ptr(),
-                            R, D, _DTYPE_CODES[x.dtype], _stream(x.device))
-    _raise_on(err, "ln_bwd")
-    ln_bwd.launches += 1
+        err = lib.ds_ln_bwd(x.data_ptr(),
+                            None if r is None else r.data_ptr(),
+                            w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                            g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                            db.data_ptr(), part.data_ptr(), R, D,
+                            _DTYPE_CODES[x.dtype], _stream(x.device))
+    _raise_on(err, name)
     return dx, dw, db
 
 
+def ln_bwd(x, w, mean, rstd, g):
+    """LayerNorm backward kernel on x, g (R, D) fp32 or bf16, w (D,) fp32
+    and ln_fwd's fp32 mean, rstd (R,): returns (dx (R, D) in x's dtype,
+    dw (D,) fp32, db (D,) fp32). A CPU tensor takes ``ln_bwd_plain``."""
+    if x.device.type == "cpu":
+        return ln_bwd_plain(x, w, mean, rstd, g)
+    if x.device.type != "cuda":
+        raise _not_cuda("ln_bwd", x)
+    out = _ln_bwd_launch("ln_bwd", x, None, w, mean, rstd, g)
+    ln_bwd.launches += 1
+    return out
+
+
 ln_bwd.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# residual add + layer norm
+# ------------------------------------------------------------------ #
+
+
+def add_ln_fwd_plain(x, r, w, b, eps):
+    """Plain LN(x + r) * w + b: x and r cast to fp32 before the add (the
+    reference kernel's rounding); returns (y in x's dtype, fp32 mean, fp32
+    rstd)."""
+    y, mean, rstd = ln_fwd_plain(x.float() + r.float(), w, b, eps)
+    return y.to(x.dtype), mean, rstd
+
+
+def add_ln_fwd(x, r, w, b, eps):
+    """Residual-add LayerNorm forward kernel on x, r (R, D) of one dtype,
+    fp32 or bf16, and w, b (D,) fp32: returns (y (R, D) in x's dtype, mean
+    and rstd (R,) fp32 of x + r). A CPU tensor takes
+    ``add_ln_fwd_plain``."""
+    if x.device.type == "cpu":
+        return add_ln_fwd_plain(x, r, w, b, eps)
+    if x.device.type != "cuda":
+        raise _not_cuda("add_ln_fwd", x)
+    out = _ln_fwd_launch("add_ln_fwd", x, r, w, b, eps)
+    add_ln_fwd.launches += 1
+    return out
+
+
+add_ln_fwd.launches = 0
+
+
+def add_ln_bwd_plain(x, r, w, mean, rstd, g):
+    """Plain residual-add LayerNorm backward (the reference's
+    ``_aln_bwd_kernel``): s = x + r in fp32, then ``ln_bwd_plain``'s math;
+    returns (ds in x's dtype, dw fp32, db fp32). ds is the cotangent of
+    both x and r."""
+    ds, dw, db = ln_bwd_plain(x.float() + r.float(), w, mean, rstd, g)
+    return ds.to(x.dtype), dw, db
+
+
+def add_ln_bwd(x, r, w, mean, rstd, g):
+    """Residual-add LayerNorm backward kernel on x, r, g (R, D) of one
+    dtype, w (D,) fp32 and add_ln_fwd's fp32 mean, rstd (R,): returns
+    (ds (R, D) in x's dtype, dw (D,) fp32, db (D,) fp32). A CPU tensor
+    takes ``add_ln_bwd_plain``."""
+    if x.device.type == "cpu":
+        return add_ln_bwd_plain(x, r, w, mean, rstd, g)
+    if x.device.type != "cuda":
+        raise _not_cuda("add_ln_bwd", x)
+    out = _ln_bwd_launch("add_ln_bwd", x, r, w, mean, rstd, g)
+    add_ln_bwd.launches += 1
+    return out
+
+
+add_ln_bwd.launches = 0
 
 
 # ------------------------------------------------------------------ #
@@ -329,6 +419,24 @@ class _LayerNormFn(torch.autograd.Function):
         return dx, dw, db, None
 
 
+class _AddLayerNormFn(torch.autograd.Function):
+    """y = LN(x2 + r2) * w + b through ``add_ln_fwd``; the backward is
+    ``add_ln_bwd``, whose ds is returned for both x2 and r2 (the
+    reference's ``_aln_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x2, r2, w, b, eps):
+        y, mean, rstd = add_ln_fwd(x2, r2, w, b, eps)
+        ctx.save_for_backward(x2, r2, w, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, r2, w, mean, rstd = ctx.saved_tensors
+        ds, dw, db = add_ln_bwd(x2, r2, w, mean, rstd, g.contiguous())
+        return ds, ds, dw, db, None
+
+
 class _BiasGeluFn(torch.autograd.Function):
     """y = gelu(x2 + b) through ``bias_gelu_fwd``; the backward is
     ``bias_gelu_bwd``, its db cast to b's dtype as the reference does."""
@@ -365,6 +473,22 @@ def layer_norm(x, w, b, eps):
                                    b.reshape(-1).float(), float(eps))
         return y.reshape(shape)
     return ln_fwd_plain(x, w, b, eps)[0]
+
+
+def add_layer_norm(x, residual, w, b, eps):
+    """LN(x + residual) * w + b: the BERT post-LN add&norm in one pass.
+    The plain path adds in x's dtype, then normalizes (the reference's
+    ``_ln_ref(x + residual, ...)``); the kernel path adds in fp32."""
+    if (routes_to_wrapper("fused_blocks", x.device)
+            and x.shape == residual.shape and x.dtype == residual.dtype):
+        shape = x.shape
+        with _trace_kernel("fused_add_layer_norm", shape):
+            y = _AddLayerNormFn.apply(
+                x.reshape(-1, shape[-1]).contiguous(),
+                residual.reshape(-1, shape[-1]).contiguous(),
+                w.reshape(-1).float(), b.reshape(-1).float(), float(eps))
+        return y.reshape(shape)
+    return ln_fwd_plain(x + residual, w, b, eps)[0]
 
 
 def bias_gelu(x, b, approximate):

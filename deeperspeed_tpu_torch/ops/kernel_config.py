@@ -12,11 +12,13 @@ config block picks how the fused surfaces execute.
            plain PyTorch otherwise. This is the production setting.
 
 Per-surface booleans (fused_blocks / fused_adam / supertile / fused_quant)
-narrow a mode to a subset of surfaces, as in the reference. Only
-``fused_blocks`` has kernels in the port so far; a config that routes
-``fused_adam`` to its kernel on a CUDA device raises in ``ops/adam.py``
-(the kernel is not ported yet), and the other surfaces are accepted so the
-same config blocks parse.
+narrow a mode to a subset of surfaces, as in the reference. Two surfaces
+have kernels in the port so far: ``fused_blocks`` (LayerNorm,
+residual-add LayerNorm, bias+GeLU; ops/fused_blocks.py) and ``supertile``
+(short-sequence attention; ops/flash_static.py, routed by
+ops/flash_attention.py). A config that routes ``fused_adam`` to its kernel
+on a CUDA device raises in ``ops/adam.py`` (the kernel is not ported yet),
+and ``fused_quant`` is accepted so the same config blocks parse.
 
 ``interpret`` is accepted for config compatibility, but only as False:
 there is no interpret mode for a CUDA kernel, and True raises.

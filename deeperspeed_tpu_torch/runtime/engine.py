@@ -23,8 +23,9 @@ reference's ``keep`` select does; the port reads that flag on the host
 once per optimizer step.
 
 Not ported yet (ROADMAP.md): checkpoint save/load, ZeRO and the mesh,
-comm, monitor hooks, ``store_gradients``, layer-output hooks, the flops
-profiler, offload and the pipeline engine.
+comm, monitor hooks, ``store_gradients``, the switch that turns on the
+layer-output capture (the models' taps are ported, utils/hooks.py), the
+flops profiler, offload and the pipeline engine.
 """
 
 import inspect
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.adam import FusedAdam, tree_leaves, tree_map
+from ..ops.lamb import FusedLamb
 from ..ops import kernel_config
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -50,9 +52,9 @@ TRAIN_BATCH_TIMER = "train_batch"
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
 # known to the reference, not ported yet: name -> ROADMAP.md queue 1 item
 _UNPORTED_OPTIMIZERS = {
-    "lamb": "Training follow-ups",
     "sgd": "Training follow-ups",
     "cpuadam": "Offload and ZeRO-Infinity",
     "onebitadam": "runtime/comm/",
@@ -197,6 +199,13 @@ class Engine(ConfigAccessorsMixin):
                 # bf16 moments in masterless mode (fp32 exactly when a
                 # master exists or compute is fp32, like the grads)
                 state_dtype=self._grad_dtype)
+        if name == LAMB_OPTIMIZER:
+            # plain per-leaf update: the reference has no LAMB kernel, and
+            # no "kernels" surface routes it
+            return FusedLamb(
+                lr=lr, betas=betas, eps=eps, weight_decay=wd,
+                max_coeff=params.pop("max_coeff", 10.0),
+                min_coeff=params.pop("min_coeff", 0.01))
         if name in _UNPORTED_OPTIMIZERS:
             raise NotImplementedError(
                 f"optimizer '{name}' is not ported to the PyTorch package "

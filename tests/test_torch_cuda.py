@@ -203,3 +203,92 @@ def test_cuda_auto_attention_raises_on_what_the_flash_kernel_cannot_take():
             gpt.causal_attention(q, q, q, "auto")
         assert torch.isfinite(
             gpt.causal_attention(q, q, q, "xla").float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_add_ln_and_supertile_kernels_match_plain_versions():
+    """add_ln_fwd/add_ln_bwd at the BERT width and a ragged row count, and
+    the super-tile pair at S = 8, 128 and 248 with Dh 24, 64 and 128 (fp32
+    at S 248 / Dh 128 is the shape whose K and V exceed a block's shared
+    memory), causal and not, against their plain versions."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops import flash_static as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for R in (37, 512):
+            x, r, g = (torch.randn(R, 1024, generator=gen,
+                                   device="cuda").to(dtype) for _ in range(3))
+            w = torch.randn(1024, generator=gen, device="cuda") * 0.1 + 1
+            b = torch.randn(1024, generator=gen, device="cuda") * 0.1
+            got = fb.add_ln_fwd(x, r, w, b, 1e-12)
+            want = fb.add_ln_fwd_plain(x, r, w, b, 1e-12)
+            torch.testing.assert_close(got[0].float(), want[0].float(),
+                                       atol=tol, rtol=tol)
+            for a, p in zip(got[1:], want[1:]):
+                torch.testing.assert_close(a, p, atol=2e-5, rtol=2e-5)
+            got = fb.add_ln_bwd(x, r, w, want[1], want[2], g)
+            want = fb.add_ln_bwd_plain(x, r, w, want[1], want[2], g)
+            for a, p in zip(got, want):
+                torch.testing.assert_close(a.float(), p.float(),
+                                           atol=10 * tol, rtol=10 * tol)
+    for dtype, ftol, gtol in ((torch.float32, 2e-3, 5e-3),
+                              (torch.bfloat16, 2e-2, 5e-2)):
+        for shape in ((2, 3, 8, 64), (2, 4, 128, 64), (1, 2, 248, 128),
+                      (1, 3, 200, 24)):
+            for causal in (True, False):
+                scale = 1.0 / shape[-1] ** 0.5
+                q, k, v, do = (torch.randn(*shape, generator=gen,
+                                           device="cuda").to(dtype)
+                               for _ in range(4))
+                o, lse = fs.supertile_fwd(q, k, v, scale, causal)
+                po, plse = fs.supertile_fwd_plain(q, k, v, scale, causal)
+                torch.testing.assert_close(o.float(), po.float(), atol=ftol,
+                                           rtol=ftol)
+                torch.testing.assert_close(lse, plse, atol=ftol, rtol=ftol)
+                got = fs.supertile_bwd(q, k, v, po, plse, do, scale, causal)
+                want = fs.supertile_bwd_plain(q, k, v, po, plse, do, scale,
+                                              causal)
+                for a, p in zip(got, want):
+                    torch.testing.assert_close(a.float(), p.float(),
+                                               atol=gtol, rtol=gtol)
+    with pytest.raises(ValueError, match="S <"):
+        fs.supertile_fwd(*(torch.zeros(1, 1, 256, 64, device="cuda"),) * 3,
+                         1.0, False)
+
+
+@pytest.mark.cuda
+def test_cuda_auto_sends_a_maskless_bert_layer_to_the_supertile_kernel():
+    """kernels "auto" on Hopper: a maskless post-LN BERT layer at S = 128
+    launches the super-tile pair and the add-LN pair (never dense
+    attention), and its grads agree with the plain path's."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops import flash_static as fs
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.transformer import transformer as tr
+
+    if not kernel_config._is_hopper(torch.device("cuda")):
+        pytest.skip("auto routes to the kernels on Hopper only")
+    cfg = tr.DeepSpeedTransformerConfig(hidden_size=256, heads=4,
+                                        num_hidden_layers=2,
+                                        pre_layer_norm=False)
+    params = tr.init_transformer_params(0, cfg, device="cuda")
+    x = torch.randn(4, 128, 256, device="cuda")
+    out = {}
+    for mode in ("auto", "off"):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        counts = (fs.supertile_fwd.launches, fs.supertile_bwd.launches,
+                  fb.add_ln_fwd.launches, fb.add_ln_bwd.launches)
+        with kernel_config.override(mode=mode):
+            y = tr._transformer_forward(leaves, x, cfg)
+            grads = torch.autograd.grad(y.square().sum(),
+                                        list(leaves.values()))
+        moved = tuple(a - b for a, b in zip(
+            (fs.supertile_fwd.launches, fs.supertile_bwd.launches,
+             fb.add_ln_fwd.launches, fb.add_ln_bwd.launches), counts))
+        out[mode] = (y, grads, moved)
+    assert out["auto"][2] == (1, 1, 2, 2)
+    torch.testing.assert_close(out["auto"][0], out["off"][0], atol=2e-3,
+                               rtol=2e-3)
+    for a, p in zip(out["auto"][1], out["off"][1]):
+        torch.testing.assert_close(a, p, atol=5e-3, rtol=5e-3)
