@@ -70,7 +70,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    backward, at the BERT widths (D 1024, F 4096 and the MLM head's
    (4096, 1024)). bf16 and fp32, with the tolerances and relative L2
    limits of phases 2-4; each new kernel, and the four block kernels at
-   the BERT shapes, timed at its path shape as in phases 2-4.
+   the BERT shapes, timed at its path shape as in phases 2-4. At the
+   super-tile pair's path shape the flash pair, which GPT took below
+   S = 256 before the super-tile route, is held against the same plain
+   versions and timed beside it.
 8. BERT-large pretraining at full width and depth (24 layers, d_model
    1024, 16 heads, vocab 30528, max_seq 128, post-LN, bf16, remat "full",
    ce_chunk 64, dropout 0, random weights from a fixed seed) through
@@ -526,11 +529,12 @@ def flash_phase(fa, gen):
     return results
 
 
-def bert_kernel_phase(fb, fs, gen):
+def bert_kernel_phase(fb, fs, fa, gen):
     """Phase 7: the add-LN and super-tile pairs against their plain
     versions, and the LN and bias+GeLU kernels at the BERT widths; each
     new kernel and each block kernel timed at its BERT path shape (bf16;
-    rows tagged "path": "bert")."""
+    rows tagged "path": "bert"). At the super-tile pair's path shape the
+    flash pair is checked too and timed beside it ("flash_ms")."""
     results = {"add_ln_fwd": [], "add_ln_bwd": [], "supertile_fwd": [],
                "supertile_bwd": [], "ln_fwd": [], "ln_bwd": [],
                "bias_gelu_fwd": [], "bias_gelu_bwd": []}
@@ -649,6 +653,24 @@ def bert_kernel_phase(fb, fs, gen):
                                         "attention_backward"),
                                **bound(*flash_work(shape, False, dtype,
                                                    True), BF16_OPS_PER_S))
+                    # the flash pair, which took this shape before the
+                    # super-tile route existed (GPT below S = 256), held
+                    # against the same plain versions and timed beside it
+                    fo, flse = fa.flash_fwd(q, k, v, scale, False)
+                    torch.cuda.synchronize()
+                    check_outputs(f"flash_fwd {tag}", ("o", "lse"),
+                                  (fo, flse), (po, plse), ftol, rel)
+                    fgot = fa.flash_bwd(q, k, v, po, plse, do, scale, False)
+                    torch.cuda.synchronize()
+                    check_outputs(f"flash_bwd {tag}", ("dq", "dk", "dv"),
+                                  fgot, fs.supertile_bwd_plain(
+                                      q, k, v, po, plse, do, scale, False),
+                                  gtol, rel)
+                    del fo, flse, fgot
+                    fwd["flash_ms"], fwd["flash_eager_ms"] = time_ms(
+                        fa.flash_fwd, fwd_bufs, 10, 3)
+                    bwd["flash_ms"], bwd["flash_eager_ms"] = time_ms(
+                        fa.flash_bwd, bwd_bufs, 10, 3)
                     del bufs, fwd_bufs, bwd_bufs, lib_bufs
                 results["supertile_fwd"].append(fwd)
                 results["supertile_bwd"].append(bwd)
@@ -1309,7 +1331,7 @@ def main() -> int:
     cases = kernel_phase(fb, gen)
     cases.update(backward_phase(fb, gen))
     cases.update(flash_phase(fa, gen))
-    for name, rows in bert_kernel_phase(fb, fs, gen).items():
+    for name, rows in bert_kernel_phase(fb, fs, fa, gen).items():
         cases.setdefault(name, []).extend(rows)
     for name, rows in cases.items():
         for r in rows:

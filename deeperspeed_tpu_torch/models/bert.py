@@ -39,7 +39,8 @@ from ..ops.transformer import DeepSpeedTransformerConfig, init_transformer_param
 from ..ops.transformer.transformer import (_layer_norm, _seed_of,
                                            _transformer_forward, fold_seed)
 from ..utils import hooks
-from .gpt import layer_slices, normal_drawer, pick_ce_chunk
+from ..utils.init import normal_drawer
+from .gpt import layer_slices, pick_ce_chunk
 
 MODEL_AXIS = "model"
 
@@ -137,7 +138,7 @@ def init_params(seed, cfg: BertConfig, device=None):
     """Initial params with the reference's shapes and scales, fp32, per-
     layer tensors stacked on axis 0, on ``device`` (default CUDA). ``seed``:
     an int, a ``torch.Generator`` on ``device`` or a numpy generator (see
-    models/gpt.py ``normal_drawer``). The draws differ from the
+    utils/init.py ``normal_drawer``). The draws differ from the
     reference's; convert its params (models/convert.py) to compare."""
     device = torch.device("cuda" if device is None else device)
     if isinstance(seed, int):

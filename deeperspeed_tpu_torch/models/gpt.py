@@ -22,7 +22,6 @@ import math
 from functools import partial
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -33,6 +32,7 @@ from ..ops.flash_attention import FLASH_FWD_OP, flash_attention
 from ..ops.flash_static import SUPERTILE_FWD_OP
 from ..ops.kernel_config import _is_hopper
 from ..utils import hooks
+from ..utils.init import normal_drawer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,27 +168,6 @@ def param_shapes(cfg: GPTConfig) -> Dict:
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
-
-
-def normal_drawer(seed, device):
-    """``norm(shape, std)`` drawing fp32 normals on ``device`` from
-    ``seed``: an int (seeds a ``torch.Generator`` on ``device``), a
-    ``torch.Generator`` on ``device`` (its stream continues from call to
-    call), or a numpy ``Generator`` / ``RandomState`` (draws on the host,
-    then copies)."""
-    if isinstance(seed, (np.random.Generator, np.random.RandomState)):
-        def norm(shape, s):
-            a = seed.standard_normal(shape).astype(np.float32) * np.float32(s)
-            return torch.from_numpy(a).to(device)
-        return norm
-    gen = seed
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=device).manual_seed(int(seed))
-
-    def norm(shape, s):
-        return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32) * s
-    return norm
 
 
 def init_params(seed, cfg: GPTConfig, device=None,

@@ -261,14 +261,7 @@ _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 FLASH_FWD_OP = torch.ops.deeperspeed_tpu_torch.flash_fwd.default
 
 
-def _takes_supertile(shape, dtype, device) -> bool:
-    from .flash_static import supertile_geometry_ok
-
-    return (routes_to_wrapper("supertile", device)
-            and supertile_geometry_ok(*shape, dtype))
-
-
-def attention_dispatch(shape, dtype, causal, device) -> str:
+def attention_dispatch(shape, dtype, device) -> str:
     """Which implementation a (B, H, S, Dh) attention call of ``dtype``
     on ``device`` gets: ``"supertile"`` | ``"flash"`` | ``"xla"``.
 
@@ -278,10 +271,13 @@ def attention_dispatch(shape, dtype, causal, device) -> str:
     shape gate holds. "flash": any other call on a Hopper CUDA device,
     whatever S (the reference's S > 256 rule for its flash kernels was
     measured on a TPU). "xla": dense attention, the caller's plain path.
-    ``causal`` does not change the decision; it is taken for the
-    reference's signature."""
+    Causal or not does not change the decision, so unlike the reference's
+    it takes no ``causal``."""
+    from .flash_static import supertile_geometry_ok
+
     device = torch.device(device)
-    if _takes_supertile(shape, dtype, device):
+    if (routes_to_wrapper("supertile", device)
+            and supertile_geometry_ok(*shape, dtype)):
         return "supertile"
     if device.type == "cuda" and _is_hopper(device):
         return "flash"
@@ -292,7 +288,7 @@ def flash_attention_bhsd(q, k, v, causal=True, sm_scale=None):
     """Head-major (B, H, S, Dh) flash attention, differentiable: the
     super-tile kernel where ``attention_dispatch`` says "supertile", else
     the flash kernel."""
-    if _takes_supertile(q.shape, q.dtype, q.device):
+    if attention_dispatch(q.shape, q.dtype, q.device) == "supertile":
         from .flash_static import flash_attention_supertile_bhsd
 
         return flash_attention_supertile_bhsd(q, k, v, causal=causal,

@@ -478,9 +478,13 @@ def layer_norm(x, w, b, eps):
 def add_layer_norm(x, residual, w, b, eps):
     """LN(x + residual) * w + b: the BERT post-LN add&norm in one pass.
     The plain path adds in x's dtype, then normalizes (the reference's
-    ``_ln_ref(x + residual, ...)``); the kernel path adds in fp32."""
-    if (routes_to_wrapper("fused_blocks", x.device)
-            and x.shape == residual.shape and x.dtype == residual.dtype):
+    ``_ln_ref(x + residual, ...)``); the kernel path adds in fp32. On the
+    kernel path a residual that broadcasts against x is expanded first (its
+    gradient sums back over the broadcast axes), and x and residual of
+    different dtypes reach the wrapper, which raises on a CUDA tensor."""
+    if routes_to_wrapper("fused_blocks", x.device):
+        if x.shape != residual.shape:
+            x, residual = torch.broadcast_tensors(x, residual)
         shape = x.shape
         with _trace_kernel("fused_add_layer_norm", shape):
             y = _AddLayerNormFn.apply(

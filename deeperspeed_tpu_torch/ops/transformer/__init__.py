@@ -4,5 +4,4 @@ from .transformer import (
     DeepSpeedTransformerLayer,
     init_transformer_params,
     transformer_layer_fn,
-    clear_layer_fn_cache,
 )

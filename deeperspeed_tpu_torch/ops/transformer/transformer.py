@@ -32,7 +32,7 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ...models.gpt import normal_drawer
+from ...utils.init import normal_drawer
 from ..flash_attention import attention_dispatch, flash_attention
 from ..fused_blocks import add_layer_norm, bias_gelu, layer_norm
 
@@ -125,12 +125,6 @@ class DeepSpeedTransformerConfig(TransformerConfig):
         with open(json_file, "r", encoding="utf-8") as reader:
             return cls.from_dict(json.loads(reader.read()))
 
-    def _cache_key(self):
-        # layer_id is a per-instance stamp; identical configs share one
-        # layer function
-        return tuple(sorted((k, str(v)) for k, v in self.__dict__.items()
-                            if k != "layer_id"))
-
 
 # ------------------------------------------------------------------ #
 # init
@@ -142,10 +136,9 @@ def init_transformer_params(seed, config: DeepSpeedTransformerConfig,
     """One layer's params with the reference's shapes and scales (N(0,
     std), output projections N(0, std / sqrt(2 L)) when
     ``adjust_init_range``, biases 0, LN scales 1), fp32 on ``device``
-    (default CUDA). ``seed`` as models/gpt.py's ``normal_drawer`` takes
-    it. The draws
-    differ from the reference's ``jax.random`` ones; to hold the two
-    packages against each other, convert the reference's params
+    (default CUDA). ``seed`` as utils/init.py's ``normal_drawer`` takes
+    it. The draws differ from the reference's ``jax.random`` ones; to hold
+    the two packages against each other, convert the reference's params
     (models/convert.py)."""
     device = torch.device("cuda" if device is None else device)
     norm = normal_drawer(seed, device)
@@ -250,8 +243,7 @@ def _attention_core(q, k, v, config, attention_mask, drop_gen=None):
     needs_probs = attention_mask is not None or drop_gen is not None
     if impl == "auto":
         B, S, nh, dh = q.shape
-        route = attention_dispatch((B, nh, S, dh), q.dtype, causal=False,
-                                   device=q.device)
+        route = attention_dispatch((B, nh, S, dh), q.dtype, q.device)
         impl = "flash" if (not needs_probs and route != "xla") else "xla"
     if impl == "flash" and needs_probs:
         raise ValueError(
@@ -335,23 +327,10 @@ def _transformer_forward(params, x, config: DeepSpeedTransformerConfig,
     return full_layer(x)
 
 
-_LAYER_FN_CACHE = {}
-
-
 def transformer_layer_fn(config: DeepSpeedTransformerConfig):
-    """The layer function for a config, shared by every layer with an
-    equal config (the reference's jitted-function cache):
+    """The layer function for a config:
     ``fn(params, x, attention_mask=None, rng=None, pld_theta=None)``."""
-    key = config._cache_key()
-    fn = _LAYER_FN_CACHE.get(key)
-    if fn is None:
-        fn = partial(_transformer_forward, config=config)
-        _LAYER_FN_CACHE[key] = fn
-    return fn
-
-
-def clear_layer_fn_cache():
-    _LAYER_FN_CACHE.clear()
+    return partial(_transformer_forward, config=config)
 
 
 # --- reference-layer weights -> param dict -------------------------------

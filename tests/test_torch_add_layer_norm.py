@@ -110,3 +110,65 @@ def test_add_layer_norm_plain_path_is_the_reference_off_path():
     with kc.override(mode="off"):
         out = fb.add_layer_norm(tx, tr, tw, tb, 1e-5)
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-2, rtol=2e-2)
+
+
+def test_add_layer_norm_kernel_route_hands_mixed_dtypes_to_the_kernel_checks(
+        monkeypatch):
+    """On the kernel route the dispatcher never takes the plain path: a
+    bf16 x with an fp32 residual reaches the wrapper, whose CUDA launch
+    refuses it. The card is faked: the wrapper's CUDA branch (the launch's
+    checks) runs on CPU tensors, and no kernel is built."""
+    def no_build():
+        raise AssertionError("the checks must refuse before any build")
+
+    monkeypatch.setattr(fb, "_lib", no_build)
+    monkeypatch.setattr(fb, "add_ln_fwd", lambda x, r, w, b, eps:
+                        fb._ln_fwd_launch("add_ln_fwd", x, r, w, b, eps))
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(2, 8, 64).astype(np.float32))
+    w, b = torch.ones(64), torch.zeros(64)
+    with kc.override(mode="fused"):
+        with pytest.raises(ValueError, match="r has dtype"):
+            fb.add_layer_norm(x.bfloat16(), x, w, b, 1e-5)
+        with pytest.raises(ValueError, match="r has dtype"):
+            fb.add_layer_norm(x.bfloat16(), x[0], w, b, 1e-5)
+
+
+def test_add_layer_norm_broadcast_residual_takes_the_kernel_route(
+        monkeypatch):
+    """A residual that broadcasts against x goes through the wrapper,
+    expanded to x's shape; the output and the gradients to x, the residual
+    (summed back over the broadcast axis), w and b match the reference's,
+    which adds unfused there."""
+    seen = []
+    wrapper = fb.add_ln_fwd
+
+    def spy(x, r, w, b, eps):
+        seen.append(tuple(r.shape))
+        return wrapper(x, r, w, b, eps)
+
+    monkeypatch.setattr(fb, "add_ln_fwd", spy)
+    rs = np.random.RandomState(6)
+    shape, D = (3, 8, 64), 64
+    jx, tx = _pair(rs.randn(*shape), "float32")
+    jr, tr = _pair(rs.randn(8, D), "float32")
+    jw, tw = _pair(rs.randn(D) * 0.1 + 1.0, "float32")
+    jb, tb = _pair(rs.randn(D) * 0.1, "float32")
+    jg = rs.randn(*shape).astype(np.float32)
+
+    def f(x, r, w, b):
+        return jnp.sum(jax_fb.add_layer_norm(x, r, w, b, 1e-12) * jg)
+
+    with jax_kc.override(mode="fused"):
+        ref = jax_fb.add_layer_norm(jx, jr, jw, jb, 1e-12)
+        gref = jax.grad(f, argnums=(0, 1, 2, 3))(jx, jr, jw, jb)
+    leaves = [t.clone().requires_grad_() for t in (tx, tr, tw, tb)]
+    with kc.override(mode="fused"):
+        out = fb.add_layer_norm(*leaves, 1e-12)
+    assert seen == [(24, D)]
+    got = torch.autograd.grad((out * torch.from_numpy(jg)).sum(), leaves)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+    for a, leaf, r, name in zip(got, leaves, gref, ("dx", "dr", "dw", "db")):
+        assert a.shape == leaf.shape, name
+        np.testing.assert_allclose(_np(a), _np(r), atol=2e-4, rtol=2e-4,
+                                   err_msg=name)

@@ -57,6 +57,14 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         fb.bias_gelu_fwd(x, b.bfloat16(), True)     # fp32 x takes fp32 b
     with pytest.raises(ValueError, match="non-empty"):
         fb.bias_gelu_fwd(x[:0], b, True)
+    # x and residual of two dtypes: the add-LN dispatcher hands them to the
+    # wrapper, which raises, rather than adding them on the plain path
+    from deeperspeed_tpu_torch.ops import kernel_config
+    with pytest.raises(ValueError, match="r has dtype"):
+        fb.add_ln_fwd(x.bfloat16(), x, w, b, 1e-5)
+    with kernel_config.override(mode="fused"):
+        with pytest.raises(ValueError, match="r has dtype"):
+            fb.add_layer_norm(x.bfloat16(), x, w, b, 1e-5)
 
 
 @pytest.mark.cuda

@@ -121,25 +121,24 @@ def test_attention_dispatch_routing(monkeypatch):
     shape, long = (64, 16, 128, 64), (2, 16, 1024, 128)
     bf16 = torch.bfloat16
     with kc.override(mode="off"):
-        assert fa.attention_dispatch(shape, bf16, False, "cpu") == "xla"
+        assert fa.attention_dispatch(shape, bf16, "cpu") == "xla"
     with kc.override(mode="fused"):
-        assert fa.attention_dispatch(shape, bf16, False, "cpu") == "supertile"
-        assert fa.attention_dispatch(long, bf16, True, "cpu") == "xla"
+        assert fa.attention_dispatch(shape, bf16, "cpu") == "supertile"
+        assert fa.attention_dispatch(long, bf16, "cpu") == "xla"
         with kc.override(supertile=False):
-            assert fa.attention_dispatch(shape, bf16, False, "cpu") == "xla"
+            assert fa.attention_dispatch(shape, bf16, "cpu") == "xla"
     with kc.override(mode="auto"):
-        assert fa.attention_dispatch(shape, bf16, False, "cpu") == "xla"
+        assert fa.attention_dispatch(shape, bf16, "cpu") == "xla"
     monkeypatch.setattr(kc, "_is_hopper", lambda device: True)
     monkeypatch.setattr(fa, "_is_hopper", lambda device: True)
     with kc.override(mode="auto"):
-        assert fa.attention_dispatch(shape, bf16, False,
-                                     "cuda") == "supertile"
-        assert fa.attention_dispatch(long, bf16, True, "cuda") == "flash"
+        assert fa.attention_dispatch(shape, bf16, "cuda") == "supertile"
+        assert fa.attention_dispatch(long, bf16, "cuda") == "flash"
         # a shape the gate refuses still takes a kernel on Hopper
-        assert fa.attention_dispatch((2, 2, 204, 64), bf16, False,
+        assert fa.attention_dispatch((2, 2, 204, 64), bf16,
                                      "cuda") == "flash"
     with kc.override(mode="off"):
-        assert fa.attention_dispatch(shape, bf16, False, "cuda") == "flash"
+        assert fa.attention_dispatch(shape, bf16, "cuda") == "flash"
 
 
 def test_gpt_short_sequence_takes_the_supertile_path(monkeypatch):
