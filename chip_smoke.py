@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Card: print the card's name and power limit (nvidia-smi) and build the
    CUDA kernels from deeperspeed_tpu_torch/csrc into build/kernels/, one
-   nvcc per source, started together.
+   nvcc per source (four), started together.
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -47,19 +47,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    deeperspeed_tpu_torch.initialize -> Engine.train_batch with the keys
    of configs/neox_1.3b_single_chip.json (masterless bf16, Adam 2e-4
    with betas (0.9, 0.95), clipping 1.0, micro-batch 2 x 8 accumulation
-   steps) plus "kernels": {"mode": "auto", "fused_adam": false} and a
-   100-step warmup (WARMUP_STEPS), on one 16 x 1025 batch of
-   data/corpus_tokens.npy, for 6 steps. First, on one
+   steps) plus "kernels": {"mode": "auto"} (every Adam step one fused_adam
+   launch over the 16 bf16 leaves) and a 100-step warmup (WARMUP_STEPS),
+   on one 16 x 1025 batch of data/corpus_tokens.npy, for 6 steps; after
+   step 3, outside the step timings, Engine.save_checkpoint writes
+   build/smoke_ckpt. First, on one
    micro-batch, the kernel path's loss and grads are held against the
    plain path's (kernels off, attn_impl "xla"): losses within 0.5 %, grad
    norms within 5 %, cosine of the grads >= 0.99 (bf16 limits: the two
    paths round at different places). Then the counters are zeroed, the 6
    steps run, and the counters are read: every kernel launched, at the
    counts the remat policy implies. Losses must be finite and the last
-   below the first, no step skipped, every grad norm finite and > 0. A
-   seventh step then runs under torch.profiler: wall and device time,
-   the device's busy share, device time by kernel family and the top
-   kernels.
+   below the first, no step skipped, every grad norm finite and > 0. The
+   final params and moments are copied to the host (with a sha256
+   digest). A seventh step then runs under torch.profiler: wall and
+   device time, the device's busy share, device time by kernel family
+   and the top kernels.
 7. BERT kernels against their plain versions: the residual-add LayerNorm
    pair (add_ln_fwd/add_ln_bwd) at (R, 1024) for R in ADD_LN_ROWS (the
    BERT-large path's 8192 rows and ragged counts) and at (2048, 2048);
@@ -88,6 +91,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batch, finite and falling losses, no skipped step, grad norms finite
    and > 0, and launches per step equal to what remat "full" implies.
    One more step runs under torch.profiler.
+9. Fused Adam (run after phase 7, before serving) against its plain
+   version: small cases (a 0-d leaf, (7,), (1000,), (3, 50304), (2,
+   65541)) in each of the kernel's five dtype combinations, Adam and
+   AdamW, weight decay 0 and 0.01, bias correction off, 3 steps; then the
+   GPT-NeoX-1.3B leaf list (16 leaves, 1,414,647,808 parameters) as the
+   masterless path builds it (bf16 p, g, m, v) and as a master path does
+   (fp32 p, g, m, v with a bf16 cast output), 3 steps. fp32 outputs
+   within atol = rtol = 1e-6 (the reference's own test of its kernel),
+   bf16 ones within one ulp, every output within REL_L2; the elements
+   that differ at all are counted. Both GPT cases are timed beside the
+   bound (14 and 30 bytes a parameter over 3.35 TB/s), the plain version
+   and torch._fused_adam_ (whose eps sits outside the bias-corrected
+   sqrt, so it computes a slightly different function).
+10. Resume (run after phase 6): phase 6's engine is freed; a fresh one,
+   from weights of another seed, calls Engine.load_checkpoint on
+   build/smoke_ckpt; global_steps, the optimizer step and the LR
+   scheduler's state must be those of step 3. Steps 4-6 then run on the
+   same batch with the counters zeroed: the losses and grad norms, and
+   the final params and moments (torch.equal, and their digest), must
+   equal phase 6's bit for bit, and the launches per step phase 6's. The
+   checkpoint's bytes and the save and load seconds are printed, and the
+   directory is deleted.
 
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -114,12 +139,13 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 FUSED_SOURCE = "deeperspeed_tpu_torch/csrc/fused_blocks.cu"
 FLASH_SOURCE = "deeperspeed_tpu_torch/csrc/flash_attention.cu"
 SUPERTILE_SOURCE = "deeperspeed_tpu_torch/csrc/supertile_attention.cu"
+ADAM_SOURCE = "deeperspeed_tpu_torch/csrc/fused_adam.cu"
 SOURCES = {"ln_fwd": FUSED_SOURCE, "bias_gelu_fwd": FUSED_SOURCE,
            "ln_bwd": FUSED_SOURCE, "bias_gelu_bwd": FUSED_SOURCE,
            "flash_fwd": FLASH_SOURCE, "flash_bwd": FLASH_SOURCE,
            "add_ln_fwd": FUSED_SOURCE, "add_ln_bwd": FUSED_SOURCE,
            "supertile_fwd": SUPERTILE_SOURCE,
-           "supertile_bwd": SUPERTILE_SOURCE}
+           "supertile_bwd": SUPERTILE_SOURCE, "fused_adam": ADAM_SOURCE}
 # the TPU kernel each one replaces (the kernel body); flash_fwd and
 # flash_bwd each replace the static and the streaming pair
 REPLACES = {
@@ -133,6 +159,7 @@ REPLACES = {
     "add_ln_bwd": "deeperspeed_tpu/ops/pallas/fused_blocks.py:184",
     "supertile_fwd": "deeperspeed_tpu/ops/pallas/flash_static.py:406",
     "supertile_bwd": "deeperspeed_tpu/ops/pallas/flash_static.py:428",
+    "fused_adam": "deeperspeed_tpu/ops/pallas/fused_adam.py:101",
 }
 ALSO_REPLACES = {
     "flash_fwd": "deeperspeed_tpu/ops/pallas/flash_attention.py:131",
@@ -187,6 +214,18 @@ BERT_STEPS = 6
 BERT_WARMUP_STEPS = 4
 BERT_MASK_ID = 103
 BERT_MASK_FRAC = 0.15
+# fused Adam (phase 9): the reference's own element-wise tolerance for its
+# kernel (tests/test_fused_kernels.py) for fp32 storage, one ulp for bf16
+ADAM_TOL = 1e-6
+ADAM_STEPS = 3
+# small leaves: a 0-d one, counts that are no multiple of the kernel's
+# 8-element step, an LM-head-like row block, several 65536-element chunks
+ADAM_SMALL_SHAPES = ((), (7,), (1000,), (3, 50304), (2, 65536 + 5))
+# (adam_w_mode, weight decay, bias correction)
+ADAM_HYPER = ((True, 0.0, True), (True, 0.01, True), (False, 0.01, True),
+              (True, 0.01, False))
+CKPT_DIR = ROOT / "build" / "smoke_ckpt"
+SAVE_AFTER_STEP = 3
 
 
 def card_line() -> str:
@@ -789,6 +828,140 @@ def bert_kernel_phase(fb, fs, fa, gen):
     return results
 
 
+def bf16_ulps(got, want):
+    """Elementwise distance in bf16 ulps (sign-magnitude bits mapped to a
+    monotone integer line, so +0 and -0 are 0 apart)."""
+    def line(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (line(got) - line(want)).abs()
+
+
+def check_adam_outputs(name, got, want):
+    """Gates of one fused Adam case: fp32 outputs within atol = rtol =
+    ADAM_TOL, bf16 ones within one ulp, every output within REL_L2 of its
+    dtype. Returns (max abs error, max relative L2 error, elements that
+    differ at all, elements compared)."""
+    errs, rels, differ, total = [0.0], [0.0], 0, 0
+    for kind, a_list, b_list in zip(("p", "g", "m", "v", "cast"), got, want):
+        for i, (a, b) in enumerate(zip(a_list or (), b_list or ())):
+            tag = f"{name} {kind}[{i}] {dtype_name(a.dtype)}"
+            differ += int((a.view(-1) != b.view(-1)).sum())
+            total += a.numel()
+            if a.dtype == torch.bfloat16:
+                ulps = int(bf16_ulps(a, b).max()) if a.numel() else 0
+                if ulps > 1:
+                    raise AssertionError(f"{tag}: {ulps} bf16 ulps apart")
+                diff = a.float() - b.float()
+                rel = float(diff.norm() / b.float().norm().clamp_min(1e-30))
+                if not rel <= REL_L2[torch.bfloat16]:
+                    raise AssertionError(f"{tag}: relative L2 error {rel}")
+                errs.append(float(diff.abs().max()) if a.numel() else 0.0)
+                rels.append(rel)
+            else:
+                e, r = check_close(tag, a, b, ADAM_TOL, REL_L2[torch.float32])
+                errs.append(e)
+                rels.append(r)
+    return max(errs), max(rels), differ, total
+
+
+def adam_state(gen, shapes, pdt, mdt, vdt, cdt):
+    """(ps, gs, ms, vs, cs) on the card: params and grads N(0, 1), first
+    moments N(0, 0.1), second moments |N(0, 1e-3)|."""
+    def make(shape, dtype, scale=1.0, positive=False):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale
+        return (t.abs() if positive else t).to(dtype)
+
+    return ([make(s, pdt) for s in shapes], [make(s, pdt) for s in shapes],
+            [make(s, mdt, 0.1) for s in shapes],
+            [make(s, vdt, 1e-3, True) for s in shapes],
+            None if cdt is None else [torch.empty(s, dtype=cdt,
+                                                  device="cuda")
+                                      for s in shapes])
+
+
+def adam_case(fad, gen, name, shapes, combo, hyper):
+    """ADAM_STEPS steps of the kernel and of its plain version from the
+    same state; returns the row of the case and the kernel's state."""
+    adam_w, wd, bias_correction = hyper
+    got = adam_state(gen, shapes, *combo)
+    want = tuple(None if x is None else [t.clone() for t in x] for x in got)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=wd, adam_w=adam_w)
+    for step in range(1, ADAM_STEPS + 1):
+        scal = fad.adam_scalars(1e-3, step, 0.9, 0.95, bias_correction)
+        fad.fused_adam(*got, *scal, **kw)
+        fad.adam_plain(*want, *scal, **kw)
+    torch.cuda.synchronize()
+    err, rel, differ, total = check_adam_outputs(name, got, want)
+    dnames = [dtype_name(d) if d is not None else None for d in combo]
+    row = {"case": name, "shape": [sum(math.prod(x) for x in shapes)],
+           "leaves": len(shapes), "dtype": dnames[0], "dtypes": dnames,
+           "adam_w": adam_w, "weight_decay": wd,
+           "bias_correction": bias_correction, "steps": ADAM_STEPS,
+           "max_abs_err": err, "tol": ADAM_TOL, "rel_l2_err": rel,
+           "rel_l2_tol": REL_L2[combo[0]], "elements_differing": differ,
+           "elements": total}
+    del want
+    return row, got
+
+
+def library_adam(state, lr, steps):
+    """torch._fused_adam_ over the same lists (no weight decay, no cast;
+    its eps sits outside the bias-corrected sqrt, sqrt(v)/sqrt(bc2) +
+    eps, where the reference's is sqrt(v / bc2) + eps)."""
+    ps, gs, ms, vs, _ = state
+    torch._fused_adam_(ps, gs, ms, vs, [], steps, lr=lr, beta1=0.9,
+                       beta2=0.95, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                       maximize=False)
+
+
+def adam_phase(fad, gen):
+    """Phase 9: the fused Adam kernel against its plain version, small
+    cases in every dtype combination the engine builds, then the
+    GPT-NeoX-1.3B leaf list (16 leaves, 1,414,647,808 parameters) as the
+    masterless path builds it (bf16 p, g, m, v) and as a master path does
+    (fp32 p, g, m, v and a bf16 cast); both timed beside their bound,
+    the plain version and torch._fused_adam_."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset, param_shapes
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+    from deeperspeed_tpu_torch.ops.fused_adam import KERNEL_COMBOS
+
+    rows = []
+    for combo in KERNEL_COMBOS:
+        for hyper in ADAM_HYPER:
+            row, _ = adam_case(fad, gen, "small", ADAM_SMALL_SHAPES, combo,
+                               hyper)
+            rows.append(row)
+    shapes = [tuple(s) for s in tree_leaves(
+        param_shapes(get_preset("neox-1.3b")))]
+    n = sum(math.prod(x) for x in shapes)
+    if (len(shapes), n) != (16, 1414647808):
+        raise AssertionError(f"GPT-NeoX-1.3B leaf list: {len(shapes)} "
+                             f"leaves, {n} parameters")
+    for name, combo, per_param in (
+            ("gpt-masterless", KERNEL_COMBOS[0], 14),
+            ("gpt-master", KERNEL_COMBOS[3], 30)):
+        row, state = adam_case(fad, gen, name, shapes, combo,
+                               (True, 0.0, True))
+        scal = fad.adam_scalars(1e-3, ADAM_STEPS + 1, 0.9, 0.95, True)
+        kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.0, adam_w=True)
+        steps = [torch.full((), float(ADAM_STEPS), device="cuda")
+                 for _ in shapes]
+        row.update(timings(
+            lambda st: fad.fused_adam(*st, *scal, **kw),
+            lambda st: fad.adam_plain(*st, *scal, **kw), [(state,)],
+            lambda st: library_adam(st, 1e-3, steps), [(state,)],
+            iters=10, replays=3))
+        row.update(path="gpt" if name == "gpt-masterless" else "gpt-master",
+                   library="torch._fused_adam_",
+                   **bound(per_param * n, 14 * n))
+        rows.append(row)
+        del state, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"fused_adam": rows}
+
+
 def randomize_affine(params, gen):
     """Give the biases and layer-norm parameters random values (the init
     leaves them at 0 and 1), so the serving run exercises every input of
@@ -831,6 +1004,7 @@ def serving_phase(fb, card):
     new = 32
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fb.ln_fwd.launches = 0
     fb.bias_gelu_fwd.launches = 0
     t0 = time.perf_counter()
@@ -959,7 +1133,7 @@ def training_config():
                                  "total_num_steps": 100000}},
         "gradient_clipping": 1.0,
         "steps_per_print": 10,
-        "kernels": {"mode": "auto", "fused_adam": False},
+        "kernels": {"mode": "auto"},
     }
     config["scheduler"]["params"]["warmup_num_steps"] = WARMUP_STEPS
     return config
@@ -1004,10 +1178,11 @@ def compare_paths(engine, kernel_loss, plain_loss, batch, kernels_block):
     return res
 
 
-def run_steps(engine, batch, counters, steps):
+def run_steps(engine, batch, counters, steps, after_step=None):
     """``steps`` train_batch calls with every launch counter set to 0
     just before and read just after: losses, grad norms, LRs, step times,
-    launches and the peak device memory of the run."""
+    launches and the peak device memory of the run. ``after_step(i)``, if
+    given, runs after step i (1-based), outside the step's timing."""
     losses, norms, lrs, step_s = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1021,6 +1196,8 @@ def run_steps(engine, batch, counters, steps):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
         norms.append(engine.get_global_grad_norm())
+        if after_step is not None:
+            after_step(len(losses))
     launches = {name: fn.launches for name, fn in counters.items()}
     return {"losses": losses, "grad_norms": norms, "lrs": lrs,
             "step_s": step_s, "launches": launches,
@@ -1049,7 +1226,8 @@ def check_run(run, engine, expected, steps):
 
 KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "supertile_fwd", "supertile_bwd", "ln_fwd", "ln_bwd",
-                   "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials")
+                   "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials",
+                   "fused_adam")
 
 
 def kernel_family(name):
@@ -1130,12 +1308,19 @@ def training_phase(card):
         parity = compare_paths(
             engine, make_gpt(cfg)[2],
             make_gpt(dataclasses.replace(cfg, attn_impl="xla"))[2],
-            torch.from_numpy(batch[:micro]).cuda(),
-            {"mode": "auto", "fused_adam": False})
+            torch.from_numpy(batch[:micro]).cuda(), config["kernels"])
         print("training parity: " + json.dumps(parity), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-        run = run_steps(engine, batch, kernel_counters(), TRAIN_STEPS)
+        saved = {}
+
+        def save(step):
+            if step == SAVE_AFTER_STEP:
+                saved.update(save_checkpoint(engine, sched))
+
+        run = run_steps(engine, batch, kernel_counters(), TRAIN_STEPS,
+                        after_step=save)
+        final = host_state(engine)
 
     gas = config["gradient_accumulation_steps"]
     expected = {"flash_fwd": cfg.n_layer * gas, "flash_bwd": cfg.n_layer * gas,
@@ -1144,7 +1329,10 @@ def training_phase(card):
                 "bias_gelu_fwd": 2 * cfg.n_layer * gas,
                 "bias_gelu_bwd": cfg.n_layer * gas,
                 "add_ln_fwd": 0, "add_ln_bwd": 0, "supertile_fwd": 0,
-                "supertile_bwd": 0}
+                "supertile_bwd": 0,
+                # all 16 leaves are bf16 (one dtype combination): one
+                # launch per applied step
+                "fused_adam": 1}
     per_step = {k: n / TRAIN_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = rows * cfg.max_seq
@@ -1157,6 +1345,9 @@ def training_phase(card):
         "step_ms_median_2_6": step_ms,
         "tokens_per_s": tokens / (step_ms / 1e3),
         "launches_per_step": per_step, "parity": parity,
+        "checkpoint": {k: v for k, v in saved.items()
+                       if k != "scheduler"},
+        "final_digest": final["digest"],
     }
     print("training: " + json.dumps(report), flush=True)
     per_step = check_run(run, engine, expected, TRAIN_STEPS)
@@ -1166,7 +1357,120 @@ def training_phase(card):
     del engine, sched
     gc.collect()
     torch.cuda.empty_cache()
-    return run["launches"], per_step
+    after = {"losses": run["losses"][SAVE_AFTER_STEP:],
+             "grad_norms": run["grad_norms"][SAVE_AFTER_STEP:],
+             "final": final, "checkpoint": saved, "expected": expected}
+    return run["launches"], per_step, after
+
+
+def save_checkpoint(engine, sched):
+    """Save the engine into CKPT_DIR (a fresh directory): the tag, the
+    scheduler's state, the files' bytes and the seconds the save took."""
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(str(CKPT_DIR))
+    seconds = time.perf_counter() - t0
+    tag = (CKPT_DIR / "latest").read_text().strip()
+    nbytes = sum(f.stat().st_size for f in (CKPT_DIR / tag).iterdir())
+    return {"tag": tag, "global_steps": engine.global_steps,
+            "scheduler": sched.state_dict(), "bytes": nbytes,
+            "save_s": seconds}
+
+
+def host_state(engine):
+    """The engine's params and Adam moments copied to the host, with a
+    sha256 digest of their bytes."""
+    import hashlib
+
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    leaves = [t.detach().cpu() for tree in (engine.params,
+                                            engine.opt_state.exp_avg,
+                                            engine.opt_state.exp_avg_sq)
+              for t in tree_leaves(tree)]
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.contiguous().view(-1).view(torch.uint8).numpy())
+    return {"leaves": leaves, "digest": h.hexdigest()}
+
+
+def resume_phase(card, after):
+    """Phase 10: a fresh engine, from weights of another seed, loads the
+    checkpoint phase 6 saved after step 3 and runs steps 4-6 on the same
+    batch. Its losses, grad norms, final params and moments must equal
+    phase 6's bit for bit. Returns the launch counts of its 3 steps."""
+    import shutil
+
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
+                                                  make_gpt)
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    cfg = get_preset("neox-1.3b", max_seq=1024, remat_policy="matmuls",
+                     ce_chunk=0, dtype=torch.bfloat16)
+    config = training_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    rows = config["train_batch_size"]
+    batch = np.asarray(corpus[: rows * (cfg.max_seq + 1)],
+                       dtype=np.int64).reshape(rows, cfg.max_seq + 1)
+    saved = after["checkpoint"]
+    with kernel_config.override():
+        engine, _, _, sched = ds.initialize(
+            model=make_gpt(cfg)[2], model_parameters=params, config=config)
+        del params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, client = engine.load_checkpoint(str(CKPT_DIR))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state = {"path": path, "global_steps": engine.global_steps,
+                 "optimizer_step": engine.opt_state.step,
+                 "scheduler": sched.state_dict(), "client_state": client}
+        want = {"path": str(CKPT_DIR / saved["tag"]),
+                "global_steps": SAVE_AFTER_STEP,
+                "optimizer_step": SAVE_AFTER_STEP,
+                "scheduler": saved["scheduler"], "client_state": {}}
+        if state != want:
+            raise AssertionError(f"resumed state {state}, expected {want}")
+        steps = TRAIN_STEPS - SAVE_AFTER_STEP
+        run = run_steps(engine, batch, kernel_counters(), steps)
+        final = host_state(engine)
+    same = {"losses": run["losses"] == after["losses"],
+            "grad_norms": run["grad_norms"] == after["grad_norms"],
+            "params_and_moments": len(final["leaves"]) == len(
+                after["final"]["leaves"]) and all(
+                torch.equal(a, b) for a, b in zip(final["leaves"],
+                                                  after["final"]["leaves"])),
+            "digest": final["digest"] == after["final"]["digest"]}
+    report = {
+        "model": "neox-1.3b", "card": card, "resumed_from": state["path"],
+        "checkpoint_bytes": saved["bytes"], "save_s": saved["save_s"],
+        "load_s": load_s, "steps": steps, "losses": run["losses"],
+        "uninterrupted_losses": after["losses"],
+        "grad_norms": run["grad_norms"],
+        "uninterrupted_grad_norms": after["grad_norms"],
+        "digest": final["digest"], "bit_identical": same,
+        "launches": run["launches"],
+    }
+    print("resume: " + json.dumps(report), flush=True)
+    del engine, sched, final
+    after["final"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if not all(same.values()):
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one: {same}")
+    per_step = {k: n / steps for k, n in run["launches"].items()}
+    if per_step != after["expected"]:
+        raise AssertionError(f"resume launches per step {per_step}, "
+                             f"expected {after['expected']}")
+    return run["launches"]
 
 
 def kernel_counters():
@@ -1174,6 +1478,7 @@ def kernel_counters():
     launches."""
     from deeperspeed_tpu_torch.ops import flash_attention as fa
     from deeperspeed_tpu_torch.ops import flash_static as fs
+    from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
 
     return {"ln_fwd": fb.ln_fwd, "ln_bwd": fb.ln_bwd,
@@ -1182,7 +1487,8 @@ def kernel_counters():
             "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
             "add_ln_fwd": fb.add_ln_fwd, "add_ln_bwd": fb.add_ln_bwd,
             "supertile_fwd": fs.supertile_fwd,
-            "supertile_bwd": fs.supertile_bwd}
+            "supertile_bwd": fs.supertile_bwd,
+            "fused_adam": fad.fused_adam}
 
 
 def bert_config():
@@ -1190,8 +1496,8 @@ def bert_config():
     micro-batch 64 x 1 accumulation step (the file's 4096 / 48 has no whole
     accumulation count on one card; 64 is the reference bench's
     micro-batch at seq 128), ZeRO stage 0 (ZeRO-2 is not ported), the
-    kernels block, and the warmup of BERT_WARMUP_STEPS. Lamb routes no
-    Adam, so the block needs no "fused_adam": false."""
+    kernels block, and the warmup of BERT_WARMUP_STEPS. Lamb runs no
+    fused Adam: fused_adam launches 0 times on this path."""
     return {
         "train_batch_size": 64,
         "train_micro_batch_size_per_gpu": 64,
@@ -1265,7 +1571,7 @@ def bert_training_phase(card):
                 "bias_gelu_fwd": 2 * L + 2 * n_chunks,
                 "bias_gelu_bwd": L + n_chunks,
                 "ln_fwd": 1 + 2 * n_chunks, "ln_bwd": 1 + n_chunks,
-                "flash_fwd": 0, "flash_bwd": 0}
+                "flash_fwd": 0, "flash_bwd": 0, "fused_adam": 0}
     per_step = {k: n / BERT_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = ids.size
@@ -1302,6 +1608,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from deeperspeed_tpu_torch.ops import flash_attention as fa
     from deeperspeed_tpu_torch.ops import flash_static as fs
+    from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
     from deeperspeed_tpu_torch.ops import op_builder
 
@@ -1311,11 +1618,13 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
     t0 = time.perf_counter()
-    sources = ("fused_blocks", "flash_attention", "supertile_attention")
+    sources = ("fused_blocks", "flash_attention", "supertile_attention",
+               "fused_adam")
     op_builder.build_all(sources)
     fb._lib()
     fa._lib()
     fs._lib()
+    fad._lib()
     print(f"build: {', '.join(s_ + '.cu' for s_ in sources)} in "
           f"{time.perf_counter() - t0:.2f} s, side by side", flush=True)
     for name in sources:
@@ -1333,6 +1642,9 @@ def main() -> int:
     cases.update(flash_phase(fa, gen))
     for name, rows in bert_kernel_phase(fb, fs, fa, gen).items():
         cases.setdefault(name, []).extend(rows)
+    cases.update(adam_phase(fad, gen))
+    gc.collect()
+    torch.cuda.empty_cache()
     for name, rows in cases.items():
         for r in rows:
             if "ms" in r:
@@ -1343,16 +1655,21 @@ def main() -> int:
         worst_rel = max(rows, key=lambda r: r["rel_l2_err"] / r["rel_l2_tol"])
         print(f"kernel {name}: closest to its relative L2 limit: "
               + json.dumps(worst_rel), flush=True)
+        if name == "fused_adam":
+            print(f"kernel {name}: elements differing from the plain "
+                  f"version: {sum(r['elements_differing'] for r in rows)} "
+                  f"of {sum(r['elements'] for r in rows)}", flush=True)
 
     serving = serving_phase(fb, card)
     gc.collect()
     torch.cuda.empty_cache()
-    training, per_step = training_phase(card)
+    training, per_step, after = training_phase(card)
+    resume = resume_phase(card, after)
     bert, bert_per_step = bert_training_phase(card)
 
     # each path's counts were set to 0 just before it and read just after
     paths = {"serving": serving, "gpt_training": training,
-             "bert_training": bert}
+             "gpt_resume": resume, "bert_training": bert}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -1361,7 +1678,8 @@ def main() -> int:
         head = next(r for r in rows if "ms" in r
                     and r["dtype"] == "bfloat16"
                     and (r.get("path") == "bert") == bert_row
-                    and (bert_row or r["shape"][0] == PATH_ROWS
+                    and (bert_row or r.get("path") == "gpt"
+                         or r["shape"][0] == PATH_ROWS
                          or tuple(r["shape"]) == FLASH_SHAPES[0]))
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         entry = {
@@ -1378,6 +1696,11 @@ def main() -> int:
         }
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
+        if name == "fused_adam":
+            master = next(r for r in rows if r.get("path") == "gpt-master")
+            entry["master_path"] = {k: master[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "dtypes", "max_abs_err")}
         kernels.append(entry)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

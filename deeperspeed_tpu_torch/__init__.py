@@ -11,9 +11,12 @@ Ported so far: continuous-batching serving of the GPT family
 and KV-cache generation, training through ``initialize`` ->
 ``Engine.train_batch`` (``TrainingConfig``, Adam/AdamW, loss scaling,
 clipping, LR schedules, gradient accumulation), the ``"kernels"``
-selection switch, and the CUDA kernels for LayerNorm and bias+GeLU
-forward and backward (``csrc/fused_blocks.cu``) and flash attention
-forward and backward (``csrc/flash_attention.cu``).
+selection switch, the CUDA kernels for LayerNorm, residual-add LayerNorm
+and bias+GeLU forward and backward (``csrc/fused_blocks.cu``), flash and
+short-sequence attention forward and backward (``csrc/flash_attention.cu``,
+``csrc/supertile_attention.cu``) and the fused Adam update
+(``csrc/fused_adam.cu``), BERT pretraining, and checkpoints in the
+reference's file format (``Engine.save_checkpoint``/``load_checkpoint``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper takes its plain PyTorch version. This package

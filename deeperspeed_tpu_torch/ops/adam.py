@@ -1,26 +1,27 @@
 """Adam / AdamW over a params tree.
 
 Counterpart of deeperspeed_tpu/ops/adam.py (``FusedAdam``, ``AdamState``).
-The update is the reference's per-leaf math in plain PyTorch: every leaf
-is cast to fp32, updated, and written back in its storage dtype. Unlike
-the reference, which returns new arrays, the port updates the params and
-the moments IN PLACE (and returns them): at 1.3B parameters a second copy
-of params and moments would cost ~8 GB of device memory.
+Every leaf is cast to fp32, updated, and written back in its storage
+dtype. Unlike the reference, which returns new arrays, the port updates
+the params and the moments IN PLACE (and returns them): at 1.3B
+parameters a second copy of params and moments would cost ~8 GB of
+device memory.
 
-The fused one-pass kernel (the reference's ``fused_adam_leaf``, PERF.md
-kernel row 13) is not ported yet. A "kernels" config that routes the
-``fused_adam`` surface to it for a CUDA tensor (mode ``fused``, or
-``auto`` on Hopper) raises instead of silently taking the plain update;
-set ``"fused_adam": false`` in the block to run the plain update there.
+The "kernels" block's ``fused_adam`` surface routes the update to the
+fused kernel (ops/fused_adam.py, PERF.md kernel row 13): one launch per
+dtype combination over all leaves on CUDA (mode ``fused``, or ``auto`` on
+Hopper), the wrapper's plain version on the CPU under mode ``fused``.
+Otherwise each leaf takes the plain update, which is the same math.
 """
 
 from typing import Any, NamedTuple, Optional
 
-import numpy as np
 import torch
 
+from ..monitor.tracer import trace_span
 from ..utils.logging import logger
-from . import kernel_config
+from .fused_adam import adam_plain, adam_scalars, fused_adam, group_by_dtypes
+from .kernel_config import routes_to_wrapper
 
 
 class AdamState(NamedTuple):
@@ -41,13 +42,6 @@ def tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
-
-
-FUSED_ADAM_UNPORTED = (
-    "the fused Adam kernel (PERF.md kernel row 13, ROADMAP.md queue 2) is "
-    "not ported to the PyTorch package yet, and the \"kernels\" config "
-    "routes fused_adam to it on {device}; set \"fused_adam\": false in the "
-    "kernels block to take the plain update")
 
 
 class FusedAdam:
@@ -99,45 +93,33 @@ class FusedAdam:
                 p, dtype=self.state_dtype_sq), params),
         )
 
-    @staticmethod
-    def check_kernel_route(device) -> None:
-        """Raise where the "kernels" config sends this update to the
-        unported fused kernel."""
-        if kernel_config.resolve("fused_adam", device):
-            raise NotImplementedError(
-                FUSED_ADAM_UNPORTED.format(device=torch.device(device)))
-
     @torch.no_grad()
     def update(self, grads, state: AdamState, params,
-               lr: Optional[float] = None):
-        """One step: returns (params, new_state), both updated in place."""
-        leaves = tree_leaves(params)
-        if leaves:
-            self.check_kernel_route(leaves[0].device)
+               lr: Optional[float] = None, cast=None):
+        """One step: returns (params, new_state), both updated in place.
+        With ``cast`` (a tree like params, e.g. the compute-dtype params of
+        a master path) its leaves are given the new params in their own
+        dtype, in the same pass."""
         b1, b2 = self.betas
-        lr = np.float32(self.lr if lr is None else lr)
         step = state.step + 1
-        if self.bias_correction:
-            # fp32, as the reference computes them
-            bc1 = np.float32(1.0) - np.float32(b1) ** np.float32(step)
-            bc2 = np.float32(1.0) - np.float32(b2) ** np.float32(step)
+        lr, bc1, bc2 = adam_scalars(self.lr if lr is None else lr, step, b1,
+                                    b2, self.bias_correction)
+        ps = tree_leaves(params)
+        lists = (ps, tree_leaves(grads), tree_leaves(state.exp_avg),
+                 tree_leaves(state.exp_avg_sq),
+                 None if cast is None else tree_leaves(cast))
+        kw = dict(b1=b1, b2=b2, eps=self.eps, wd=self.weight_decay,
+                  adam_w=self.adam_w_mode)
+        if ps and routes_to_wrapper("fused_adam", ps[0].device):
+            with trace_span("kernels/fused_adam", lane="kernels",
+                            leaves=len(ps)):
+                for key, idx in group_by_dtypes(*lists).items():
+                    ps_, gs_, ms_, vs_, cs_ = (
+                        None if t is None else [t[i] for i in idx]
+                        for t in lists)
+                    fused_adam(ps_, gs_, ms_, vs_,
+                               None if key[-1] is None else cs_,
+                               lr, bc1, bc2, **kw)
         else:
-            bc1 = bc2 = np.float32(1.0)
-
-        def leaf(p, g, m, v):
-            g32 = g.float()
-            p32 = p.float()
-            if self.weight_decay and not self.adam_w_mode:
-                g32 = g32 + self.weight_decay * p32
-            m_ = b1 * m.float() + (1.0 - b1) * g32
-            v_ = b2 * v.float() + (1.0 - b2) * (g32 * g32)
-            denom = torch.sqrt(v_ / float(bc2)) + self.eps
-            upd = (m_ / float(bc1)) / denom
-            if self.weight_decay and self.adam_w_mode:
-                upd = upd + self.weight_decay * p32
-            p.copy_(p32 - float(lr) * upd)
-            m.copy_(m_)
-            v.copy_(v_)
-
-        tree_map(leaf, params, grads, state.exp_avg, state.exp_avg_sq)
+            adam_plain(*lists, lr, bc1, bc2, **kw)
         return params, AdamState(step, state.exp_avg, state.exp_avg_sq)

@@ -12,13 +12,14 @@ config block picks how the fused surfaces execute.
            plain PyTorch otherwise. This is the production setting.
 
 Per-surface booleans (fused_blocks / fused_adam / supertile / fused_quant)
-narrow a mode to a subset of surfaces, as in the reference. Two surfaces
+narrow a mode to a subset of surfaces, as in the reference. Three surfaces
 have kernels in the port so far: ``fused_blocks`` (LayerNorm,
-residual-add LayerNorm, bias+GeLU; ops/fused_blocks.py) and ``supertile``
+residual-add LayerNorm, bias+GeLU; ops/fused_blocks.py), ``supertile``
 (short-sequence attention; ops/flash_static.py, routed by
-ops/flash_attention.py). A config that routes ``fused_adam`` to its kernel
-on a CUDA device raises in ``ops/adam.py`` (the kernel is not ported yet),
-and ``fused_quant`` is accepted so the same config blocks parse.
+ops/flash_attention.py) and ``fused_adam`` (the multi-tensor Adam update;
+ops/fused_adam.py, routed by ops/adam.py). ``fused_quant`` is accepted so
+the same config blocks parse; its kernels come with the data-parallel
+reducer.
 
 ``interpret`` is accepted for config compatibility, but only as False:
 there is no interpret mode for a CUDA kernel, and True raises.

@@ -12,8 +12,8 @@ turns one of them on raises ``ConfigError`` naming the ROADMAP.md item
 that ports it; nothing is ignored. The blocks the port runs: the batch
 triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``
-and ``checkpoint`` (tag validation only: save/load come with the
-checkpoint item).
+and ``checkpoint`` (tag validation; ``sharded_io: true``, the orbax
+layout, raises until ZeRO and data parallel are ported).
 """
 
 import copy
@@ -112,7 +112,7 @@ class TrainingConfig:
 
         present = (
             (c.PIPELINE, "MoE, TP and pipeline"),
-            (c.SPARSE_ATTENTION, "BERT and sparse attention"),
+            (c.SPARSE_ATTENTION, "Sparse attention"),
             (c.ACTIVATION_CHECKPOINTING, "Tooling"),
             (c.AIO, "Offload and ZeRO-Infinity"),
         )
@@ -247,6 +247,9 @@ class TrainingConfig:
             self.checkpoint_tag_validation_mode != "Ignore")
         self.checkpoint_tag_validation_fail = (
             self.checkpoint_tag_validation_mode == "Fail")
+        if ckpt.get(c.CHECKPOINT_SHARDED_IO, c.CHECKPOINT_SHARDED_IO_DEFAULT):
+            raise _unported("checkpoint.sharded_io (the orbax per-shard "
+                            "layout)", "ZeRO and data parallel")
         self.load_from_fp32_weights = pd.get(c.LOAD_FROM_FP32_WEIGHTS, True)
 
         # ---- continuous-batching serving ----

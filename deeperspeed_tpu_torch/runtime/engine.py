@@ -22,28 +22,46 @@ An overflow (a non-finite gradient norm) skips the update, as the
 reference's ``keep`` select does; the port reads that flag on the host
 once per optimizer step.
 
-Not ported yet (ROADMAP.md): checkpoint save/load, ZeRO and the mesh,
-comm, monitor hooks, ``store_gradients``, the switch that turns on the
-layer-output capture (the models' taps are ported, utils/hooks.py), the
-flops profiler, offload and the pipeline engine.
+``save_checkpoint``/``load_checkpoint`` write and read the reference's
+legacy single-writer layout (a tag directory with the model-state and
+optimizer-state msgpack files, the ``latest`` pointer and the
+``zero_to_fp32`` stub), leaf for leaf what the JAX engine writes for the
+same model, so either engine resumes from the other's files. A load
+copies each leaf from the mapped file straight into the engine's own
+tensors.
+
+Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
+and the mesh, comm, monitor hooks, the resilience manager,
+``store_gradients``, the switch that turns on the layer-output capture
+(the models' taps are ported, utils/hooks.py), the flops profiler,
+offload and the pipeline engine.
 """
 
 import inspect
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..checkpoint import msgpack
+from ..checkpoint.serialization import (SHARDED_STATE_DIR, CheckpointEngine,
+                                        model_state_filename,
+                                        optim_state_filename, read_latest,
+                                        validate_tag_across_processes,
+                                        write_latest)
+from ..checkpoint.zero_to_fp32 import write_recovery_stub
 from ..ops.adam import FusedAdam, tree_leaves, tree_map
 from ..ops.lamb import FusedLamb
 from ..ops import kernel_config
-from ..utils.logging import log_dist
+from ..resilience.manifest import resolve_load_tag
+from ..utils.logging import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import lr_schedules
 from .accessors import ConfigAccessorsMixin
 from .config import TrainingConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
-from .fp16.loss_scaler import create_loss_scaler
+from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 
 FORWARD_MICRO_TIMER = "forward_microstep"
 BACKWARD_MICRO_TIMER = "backward_microstep"
@@ -122,8 +140,7 @@ class Engine(ConfigAccessorsMixin):
             num_workers=1, steps_per_output=config.steps_per_print)
 
         # the "kernels" block is process-global (the consumers are free
-        # functions deep inside model code); it must land before the
-        # optimizer checks its route
+        # functions deep inside model code)
         if config.kernels_params:
             kernel_config.configure(**config.kernels_params)
 
@@ -144,8 +161,6 @@ class Engine(ConfigAccessorsMixin):
         self.optimizer = optimizer or self._configure_basic_optimizer()
         self.lr_scheduler = lr_scheduler or self._configure_lr_scheduler()
         self._client_lr = _optimizer_base_lr(self.optimizer, config)
-        if isinstance(self.optimizer, FusedAdam):
-            self.optimizer.check_kernel_route(self.device)
 
         # the engine owns its state: copies, never aliases of the caller's
         with torch.no_grad():
@@ -346,12 +361,19 @@ class Engine(ConfigAccessorsMixin):
         if not overflow:
             with torch.no_grad():
                 target = self.master if self._use_master else self.params
-                _, self.opt_state = self.optimizer.update(
-                    tree_unflatten(target, grads), self.opt_state, target,
-                    lr)
-                if self._use_master:
-                    tree_map(lambda p, m: p.copy_(m), self.params,
-                             self.master)
+                grads = tree_unflatten(target, grads)
+                if isinstance(self.optimizer, FusedAdam):
+                    # the compute-dtype params are written in the update's
+                    # own pass (the fused kernel's cast output)
+                    _, self.opt_state = self.optimizer.update(
+                        grads, self.opt_state, target, lr,
+                        cast=self.params if self._use_master else None)
+                else:
+                    _, self.opt_state = self.optimizer.update(
+                        grads, self.opt_state, target, lr)
+                    if self._use_master:
+                        tree_map(lambda p, m: p.copy_(m), self.params,
+                                 self.master)
             self.optimizer_steps += 1
         else:
             self.skipped += 1
@@ -477,6 +499,160 @@ class Engine(ConfigAccessorsMixin):
     def module_state_dict(self):
         """The params (compute dtype) as a tree of detached tensors."""
         return tree_map(lambda p: p.detach(), self.params)
+
+    # ------------------------------------------------------------------ #
+    # checkpoints
+    # ------------------------------------------------------------------ #
+
+    def _host_checkpoint_payload(self, client_state=None):
+        """What a checkpoint stores, keyed by file name: the reference's
+        model-state and optimizer-state trees, with the same leaf names,
+        dtypes and nesting (step counters as int32 0-d arrays, the loss
+        scaler's fields as 0-d float32/int32). Tensors stay where they are;
+        ``save_tree`` copies each to the host as it writes it."""
+        st = self.opt_state
+        scaler = self.scaler_state
+        model_states = {
+            "module": self.params,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+            "micro_steps": self.micro_steps,
+            "dp_world_size": 1,
+            "mp_world_size": 1,
+            # rows per optimizer step: micro * dp (1) * gas
+            "global_rows": (self.train_micro_batch_size_per_gpu()
+                            * self.gradient_accumulation_steps()),
+            "process_count": 1,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler else {}),
+            "datapipe": {},
+            "client_state": client_state or {},
+        }
+        optim_states = {
+            "master": self.master if self.master is not None else {},
+            "opt_state": type(st)(np.asarray(st.step, np.int32), *st[1:]),
+            "scaler": {
+                "loss_scale": np.asarray(scaler.loss_scale, np.float32),
+                "good_steps": np.asarray(scaler.good_steps, np.int32),
+                "hysteresis": np.asarray(scaler.hysteresis, np.int32)},
+            "step": self.optimizer_steps,
+            "zero_stage": self.zero_stage,
+        }
+        return {model_state_filename(): model_states,
+                optim_state_filename(): optim_states}
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Write the engine's state under ``save_dir/tag`` (default tag
+        ``global_step<N>``), then repoint ``latest`` unless
+        ``save_latest`` is False. Returns True."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        tag = str(tag)
+        if self._config.checkpoint_tag_validation_enabled:
+            validate_tag_across_processes(
+                tag, self._config.checkpoint_tag_validation_fail)
+        ck = CheckpointEngine(save_dir, tag)
+        with torch.no_grad():
+            for fname, tree in self._host_checkpoint_payload(
+                    client_state).items():
+                ck.save(fname, tree)
+        if save_latest:
+            write_latest(save_dir, tag)
+        write_recovery_stub(ck.ckpt_dir)
+        log_dist(f"saved checkpoint {ck.ckpt_dir}", ranks=[0])
+        return True
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_only=False,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True):
+        """Restore a checkpoint written by either engine: ``tag`` or the
+        one ``latest`` names, or, when that one is missing, partial or
+        corrupt, the newest older valid tag. Returns (tag directory,
+        client_state), or (None, {}) when nothing is loadable.
+
+        Each leaf is copied into the engine's existing tensors, cast to
+        their dtype. Unlike the reference, a master path whose master was
+        not restored (``load_module_only``, or a file without one) takes
+        its fp32 master from the loaded module, so the next step trains
+        from the loaded weights."""
+        if tag is None:
+            tag = read_latest(load_dir)
+            if tag is None:
+                logger.warning("no 'latest' file in %s; nothing loaded",
+                               load_dir)
+                return None, {}
+        tag, _ = resolve_load_tag(load_dir, str(tag))
+        if tag is None:
+            return None, {}
+        ck = CheckpointEngine(load_dir, tag)
+        if os.path.isdir(ck.path(SHARDED_STATE_DIR)):
+            raise NotImplementedError(
+                f"{ck.ckpt_dir} holds the orbax sharded_state layout, which "
+                f"the PyTorch package does not read yet (ROADMAP.md queue "
+                f"1, item 'ZeRO and data parallel')")
+        if not ck.exists(model_state_filename()):
+            logger.warning("checkpoint %s not found", ck.ckpt_dir)
+            return None, {}
+        model_states = ck.load(model_state_filename(), unchunk=False)
+        master_loaded = False
+        with torch.no_grad():
+            _copy_into(self.params, model_states["module"], "module")
+            if (not load_module_only and load_optimizer_states
+                    and ck.exists(optim_state_filename())):
+                optim = ck.load(optim_state_filename(), unchunk=False)
+                if self.master is not None and optim.get("master"):
+                    _copy_into(self.master, optim["master"], "master")
+                    master_loaded = True
+                saved = optim["opt_state"]
+                for i, field in enumerate(self.opt_state._fields[1:], 1):
+                    _copy_into(self.opt_state[i], saved[field],
+                               f"opt_state/{field}")
+                self.opt_state = self.opt_state._replace(
+                    step=int(saved["step"]))
+                sc = optim["scaler"]
+                self.scaler_state = LossScaleState(
+                    float(sc["loss_scale"]), int(sc["good_steps"]),
+                    int(sc["hysteresis"]))
+                self.optimizer_steps = int(optim["step"])
+            if self.master is not None and not master_loaded:
+                tree_map(lambda m, p: m.copy_(p), self.master, self.params)
+        self.skipped = int(model_states.get("skipped_steps", 0))
+        self.global_steps = int(model_states.get("global_steps", 0))
+        self.global_samples = int(model_states.get("global_samples", 0))
+        self.micro_steps = int(model_states.get("micro_steps", 0))
+        if (load_lr_scheduler_states and self.lr_scheduler is not None
+                and model_states.get("lr_scheduler")):
+            self.lr_scheduler.load_state_dict(model_states["lr_scheduler"])
+        log_dist(f"loaded checkpoint {ck.ckpt_dir}", ranks=[0])
+        return ck.ckpt_dir, model_states.get("client_state", {})
+
+
+def _copy_into(dst, src, path):
+    """Copy a restored tree (numpy arrays, bf16 CPU tensors, or flax's
+    chunked dicts) into the tensors of ``dst`` leaf by leaf, casting to
+    each tensor's dtype; keys ``dst`` has and ``src`` lacks raise, keys
+    only ``src`` has are ignored (as flax's ``from_state_dict``)."""
+    if isinstance(dst, dict):
+        missing = [k for k in dst if k not in src]
+        if missing:
+            raise ValueError(f"checkpoint {path} lacks {missing}")
+        for k, v in dst.items():
+            _copy_into(v, src[k], f"{path}/{k}")
+        return
+    shape = msgpack.leaf_shape(src) if isinstance(src, dict) else tuple(
+        np.shape(src))
+    if shape != tuple(dst.shape):
+        raise ValueError(f"checkpoint {path} has shape {shape}, the engine "
+                         f"{tuple(dst.shape)}")
+    flat = dst.view(-1)
+    start = 0
+    for part in msgpack.chunked_parts(src):
+        t = part if isinstance(part, torch.Tensor) else torch.from_numpy(
+            np.asarray(part))
+        flat[start:start + t.numel()].copy_(t.reshape(-1))
+        start += t.numel()
 
 
 def _concat(parts):

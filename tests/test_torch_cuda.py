@@ -6,6 +6,8 @@ card. This file imports no JAX, so it runs on a GPU machine without it:
 Where ``torch.cuda.is_available()`` is false, each test skips with a
 reason."""
 
+import math
+
 import pytest
 import torch
 
@@ -174,23 +176,156 @@ def test_cuda_flash_kernels_match_plain_versions():
                      True)
 
 
+# leaf shapes of the fused Adam cases: a 0-d leaf, counts that are no
+# multiple of the kernel's 8-element step, a leaf of several 65536-element
+# chunks, and an LM-head-like (3, 50304)
+ADAM_SHAPES = ((), (7,), (1000,), (3, 50304), (2, 65536 + 5))
+ADAM_COMBOS = (
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, None),
+    (torch.bfloat16, torch.bfloat16, torch.float32, None),
+    (torch.float32, torch.float32, torch.float32, None),
+    (torch.float32, torch.float32, torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32, torch.float16),
+)
+
+
+def _adam_leaves(gen, shapes, pdt, mdt, vdt, cdt, unaligned=False):
+    """(ps, gs, ms, vs, cs) on the card; ``unaligned`` offsets every leaf
+    by one element, off the kernel's 16-byte vector path."""
+    def make(shape, dtype, positive=False):
+        n = math.prod(shape) + (1 if unaligned else 0)
+        t = torch.randn(n, generator=gen, device="cuda")
+        t = (t.abs() * 1e-3 if positive else t).to(dtype)
+        return (t[1:] if unaligned else t).view(shape)
+
+    ps = [make(s, pdt) for s in shapes]
+    return (ps, [make(s, pdt) for s in shapes],
+            [make(s, mdt) for s in shapes],
+            [make(s, vdt, positive=True) for s in shapes],
+            None if cdt is None else [torch.empty(s, dtype=cdt,
+                                                  device="cuda")
+                                      for s in shapes])
+
+
 @pytest.mark.cuda
-def test_cuda_fused_adam_route_raises_until_the_kernel_is_ported():
+def test_cuda_fused_adam_matches_its_plain_version_bit_for_bit():
+    """The kernel against its plain version over 3 steps, every dtype
+    combination the engine builds, Adam and AdamW, weight decay 0 and
+    0.01, bias correction on and off, aligned and unaligned leaves: both
+    round at the same places, so every output is equal."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops import fused_adam as fa_
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for combo in ADAM_COMBOS:
+        for adam_w, wd, bias_correction, unaligned in (
+                (True, 0.0, True, False), (True, 0.01, True, False),
+                (False, 0.01, True, True), (True, 0.01, False, False)):
+            got = _adam_leaves(gen, ADAM_SHAPES, *combo, unaligned)
+            want = tuple(None if x is None else [t.clone() for t in x]
+                         for x in got)
+            kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=wd, adam_w=adam_w)
+            before = fa_.fused_adam.launches
+            for step in (1, 2, 3):
+                scal = fa_.adam_scalars(1e-3, step, 0.9, 0.95,
+                                        bias_correction)
+                fa_.fused_adam(*got, *scal, **kw)
+                fa_.adam_plain(*want, *scal, **kw)
+            torch.cuda.synchronize()
+            assert fa_.fused_adam.launches == before + 3
+            for a_list, b_list in zip(got, want):
+                for a, b in zip(a_list or (), b_list or ()):
+                    assert torch.equal(a, b), (combo, adam_w, wd,
+                                               bias_correction, unaligned)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_rejects_what_the_kernel_does_not_take():
+    """fp16 storage, a list of two dtype combinations and a
+    non-contiguous leaf raise; more than 64 leaves take one launch per
+    64; under a "kernels" route the optimizer takes no plain path on the
+    card."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops import fused_adam as fa_
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import FusedAdam
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scal = fa_.adam_scalars(1e-3, 1, 0.9, 0.95, True)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.0, adam_w=True)
+    half = _adam_leaves(gen, [(8,)], *(torch.float16,) * 3, None)
+    with pytest.raises(ValueError, match="dtype combination"):
+        fa_.fused_adam(*half, *scal, **kw)
+    mixed = _adam_leaves(gen, [(8,), (8,)], *ADAM_COMBOS[0])
+    mixed[3][1] = mixed[3][1].float()
+    with pytest.raises(ValueError, match="leaf 1 exp_avg_sq has dtype"):
+        fa_.fused_adam(*mixed, *scal, **kw)
+    bent = _adam_leaves(gen, [(8, 8)], *ADAM_COMBOS[2])
+    bent[0][0] = bent[0][0].t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_.fused_adam(*bent, *scal, **kw)
+    many = _adam_leaves(gen, [(3,)] * 130, *ADAM_COMBOS[2])
+    before = fa_.fused_adam.launches
+    fa_.fused_adam(*many, *scal, **kw)
+    assert fa_.fused_adam.launches == before + 3
+    opt = FusedAdam(state_dtype=torch.float16, betas=(0.9, 0.95))
+    p = {"w": torch.ones(4, device="cuda", dtype=torch.float16)}
+    with kernel_config.override(mode="fused"):
+        with pytest.raises(ValueError, match="dtype combination"):
+            opt.update({"w": torch.ones_like(p["w"])}, opt.init(p), p)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_steps_through_the_fused_adam_kernel():
+    """Masterless bf16 and bf16 with an fp32 master: under "kernels"
+    mode fused each applied step is one fused_adam launch, and the params
+    and moments equal those of the same engine with the kernels off."""
     _needs_card()
     import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.ops import fused_adam as fa_
     from deeperspeed_tpu_torch.ops import kernel_config
 
-    conf = {"train_batch_size": 1, "kernels": {"mode": "fused"}}
-    with kernel_config.override():
-        with pytest.raises(NotImplementedError, match="row 13"):
-            ds.initialize(model=lambda p, b: p["w"].sum(),
-                          model_parameters={"w": torch.ones(4)}, config=conf)
-        conf["kernels"]["fused_adam"] = False
-        eng, _, _, _ = ds.initialize(model=lambda p, b: p["w"].sum(),
-                                     model_parameters={"w": torch.ones(4)},
-                                     config=conf)
-        eng.train_batch(torch.zeros(1))
-    assert eng.global_steps == 1
+    def loss(p, b):
+        return ((b.float() @ p["w"].float().t()) ** 2).mean() + \
+            p["b"].float().sum()
+
+    params = {"w": torch.randn(3, 17, generator=torch.Generator()
+                               .manual_seed(2)), "b": torch.ones(5)}
+    batch = torch.randn(4, 17, 2, generator=torch.Generator().manual_seed(3))
+    for bf16 in ({"enabled": True, "master_weights": False},
+                 {"enabled": True}):
+        conf = {"train_batch_size": 4, "bf16": bf16,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 1e-2, "weight_decay": 0.01,
+                                         "betas": [0.9, 0.95]}}}
+        engines = {}
+        for mode in ("fused", "off"):
+            with kernel_config.override():
+                eng, _, _, _ = ds.initialize(
+                    model=loss, model_parameters=params,
+                    config=dict(conf, kernels={"mode": mode}))
+                before = fa_.fused_adam.launches
+                for _ in range(3):
+                    eng.train_batch(batch[:, :, 0])
+                launched = fa_.fused_adam.launches - before
+            assert launched == (3 if mode == "fused" else 0), mode
+            engines[mode] = eng
+        a, b = engines["fused"], engines["off"]
+        for tree in ("params", "opt_state"):
+            for x, y in zip(_leaves(getattr(a, tree)),
+                            _leaves(getattr(b, tree))):
+                assert torch.equal(x, y), (bf16, tree)
+        if a.master is not None:
+            for x, y in zip(_leaves(a.master), _leaves(b.master)):
+                assert torch.equal(x, y)
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [t for x in tree[1:] for t in _leaves(x)]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 @pytest.mark.cuda

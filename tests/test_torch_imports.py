@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing ``deeperspeed_tpu_torch``
-loads neither ``jax`` nor any module of ``deeperspeed_tpu`` (names are
-compared exactly, since the port's own name starts with
-``deeperspeed_tpu``), no source file of the port, chip_smoke.py or
+loads neither ``jax``, ``flax``, ``msgpack`` nor any module of
+``deeperspeed_tpu`` (names are compared exactly, since the port's own
+name starts with ``deeperspeed_tpu``), no source file of the port, chip_smoke.py or
 scripts/torch_first_step_probe.py imports them, and the serving and
 training entry points refuse to fall back to the CPU."""
 
@@ -16,7 +16,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deeperspeed_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deeperspeed_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "deeperspeed_tpu"}
 
 
 def _forbidden(name: str) -> bool:
@@ -26,6 +27,8 @@ def _forbidden(name: str) -> bool:
 def test_forbidden_name_matching_is_exact():
     assert _forbidden("deeperspeed_tpu.serving")
     assert _forbidden("jax.numpy")
+    assert _forbidden("msgpack")
+    assert not _forbidden("deeperspeed_tpu_torch.checkpoint.msgpack")
     assert not _forbidden("deeperspeed_tpu_torch.serving")
     assert not _forbidden("jaxtyping_like")
 
@@ -40,7 +43,12 @@ def test_import_loads_no_jax_and_no_reference_module():
         "runtime.config, deeperspeed_tpu_torch.runtime.lr_schedules\n"
         "import deeperspeed_tpu_torch.runtime.dataloader, deeperspeed_tpu_"
         "torch.runtime.fp16.loss_scaler, deeperspeed_tpu_torch.ops.adam\n"
-        "import deeperspeed_tpu_torch.ops.flash_attention\n"
+        "import deeperspeed_tpu_torch.ops.flash_attention, deeperspeed_tpu_"
+        "torch.ops.fused_adam\n"
+        "import deeperspeed_tpu_torch.checkpoint.msgpack, deeperspeed_tpu_"
+        "torch.checkpoint.serialization\n"
+        "import deeperspeed_tpu_torch.checkpoint.zero_to_fp32, deeperspeed_"
+        "tpu_torch.resilience.manifest\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -50,6 +58,8 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert "deeperspeed_tpu_torch.serving.engine" in mods
     assert "deeperspeed_tpu_torch.runtime.engine" in mods
     assert "deeperspeed_tpu_torch.ops.flash_attention" in mods
+    assert "deeperspeed_tpu_torch.checkpoint.msgpack" in mods
+    assert "deeperspeed_tpu_torch.resilience.manifest" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 

@@ -49,7 +49,7 @@ BASE = {
                   "params": {"warmup_max_lr": 3e-3, "warmup_num_steps": 3,
                              "total_num_steps": 50}},
     "gradient_clipping": 0.5,
-    "kernels": {"mode": "fused", "fused_adam": False},
+    "kernels": {"mode": "fused"},
 }
 # fp32 on both sides. Adam's update m / (sqrt(v) + eps) normalizes the
 # gradient, so an ulp-level difference in a small gradient entry (the two
@@ -267,18 +267,6 @@ def test_fused_adam_second_moment_dtype_rule_matches_reference():
         t = adam.FusedAdam(betas=(0.9, b2), state_dtype=torch.bfloat16)
         assert str(jnp.dtype(j.state_dtype_sq)) == str(t.state_dtype_sq
                                                        ).split(".")[-1]
-
-
-def test_fused_adam_refuses_the_unported_kernel_route():
-    opt = adam.FusedAdam()
-    p = {"w": torch.ones(3)}
-    with kc.override(mode="fused"):
-        opt.check_kernel_route("cpu")  # the CPU never routes to a kernel
-        with pytest.raises(NotImplementedError, match="row 13"):
-            opt.check_kernel_route("cuda")
-        with kc.override(fused_adam=False):
-            opt.check_kernel_route("cuda")
-    opt.update({"w": torch.ones(3)}, opt.init(p), p)
 
 
 def test_dynamic_loss_scaler_matches_reference():
