@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Card: print the card's name and power limit (nvidia-smi) and build the
    CUDA kernels from deeperspeed_tpu_torch/csrc into build/kernels/, one
-   nvcc per source (four), started together.
+   nvcc per source (five), started together.
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -113,6 +113,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    equal phase 6's bit for bit, and the launches per step phase 6's. The
    checkpoint's bytes and the save and load seconds are printed, and the
    directory is deleted.
+11. Block-sparse attention kernels (run after phase 9) against their
+   plain versions: sparse_fwd and sparse_bwd at the path shape
+   (1, 16, 4096, 64) bf16 over SPARSE_LAYOUTS (the path's Fixed block-16
+   layout with 4 global patterns, Fixed unidirectional block 128 causal,
+   BigBird, BSLongformer and Variable at block 64, LocalSlidingWindow
+   unidirectional block 128 with 14 window blocks, Dense block 64), and
+   BigBird 64 and Fixed unidirectional 128 at S 8192; then small cases
+   (blocks 32 and 64 of one family, head dims 96 and 128, fp32, a key
+   mask dropping the last quarter of the keys, empty layout rows, which
+   must give o = 0 and lse = NEG_INF); then a wrong head count, a wrong
+   length and an unsupported block, each of which must raise. The
+   reference's flash tolerances (fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2) and
+   REL_L2 hold on every output. Every path-shape case is timed by
+   CUDA-graph replay beside its bound (operations counted over the (query,
+   key) pairs the layout keeps), the plain versions and
+   F.scaled_dot_product_attention with the expanded boolean mask (its
+   backward through autograd, launched eagerly).
+12. Sparse-attention training at full width (run last): the user's loss
+   of 24 BertSparseSelfAttention layers (BERT-large's attention
+   sub-layers: hidden 1024, 16 heads, max_seq_length 4096, bf16, weights
+   from a fixed seed) pre-LN with a residual, a final layer_norm and the
+   mean square against a fixed target, on one (2, 4096, 1024) batch drawn
+   from the seed, through initialize -> train_batch with micro-batch
+   1 x 2 accumulation steps, masterless bf16, Adam at a constant 1e-3,
+   clipping 1.0, "kernels": {"mode": "auto"} and the "sparse_attention"
+   block of upstream DeepSpeed's documented example (fixed mode, block
+   16), read back through TrainingConfig.get_sparse_attention; 6 steps.
+   The gates of phase 6 (kernel path against the plain path, impl "xla"
+   and kernels off, on one micro-batch; finite, falling losses; no
+   skipped step; grad norms finite and > 0) and launches per step of
+   exactly sparse_fwd 48, sparse_bwd 48, ln_fwd 50, ln_bwd 50 and
+   fused_adam ceil(194 leaves / 64) = 4. One more step runs under
+   torch.profiler, the sparse kernels a device-time family of their own.
 
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -140,12 +173,14 @@ FUSED_SOURCE = "deeperspeed_tpu_torch/csrc/fused_blocks.cu"
 FLASH_SOURCE = "deeperspeed_tpu_torch/csrc/flash_attention.cu"
 SUPERTILE_SOURCE = "deeperspeed_tpu_torch/csrc/supertile_attention.cu"
 ADAM_SOURCE = "deeperspeed_tpu_torch/csrc/fused_adam.cu"
+SPARSE_SOURCE = "deeperspeed_tpu_torch/csrc/sparse_attention.cu"
 SOURCES = {"ln_fwd": FUSED_SOURCE, "bias_gelu_fwd": FUSED_SOURCE,
            "ln_bwd": FUSED_SOURCE, "bias_gelu_bwd": FUSED_SOURCE,
            "flash_fwd": FLASH_SOURCE, "flash_bwd": FLASH_SOURCE,
            "add_ln_fwd": FUSED_SOURCE, "add_ln_bwd": FUSED_SOURCE,
            "supertile_fwd": SUPERTILE_SOURCE,
-           "supertile_bwd": SUPERTILE_SOURCE, "fused_adam": ADAM_SOURCE}
+           "supertile_bwd": SUPERTILE_SOURCE, "fused_adam": ADAM_SOURCE,
+           "sparse_fwd": SPARSE_SOURCE, "sparse_bwd": SPARSE_SOURCE}
 # the TPU kernel each one replaces (the kernel body); flash_fwd and
 # flash_bwd each replace the static and the streaming pair
 REPLACES = {
@@ -160,10 +195,14 @@ REPLACES = {
     "supertile_fwd": "deeperspeed_tpu/ops/pallas/flash_static.py:406",
     "supertile_bwd": "deeperspeed_tpu/ops/pallas/flash_static.py:428",
     "fused_adam": "deeperspeed_tpu/ops/pallas/fused_adam.py:101",
+    "sparse_fwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:273",
+    "sparse_bwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:464",
 }
 ALSO_REPLACES = {
     "flash_fwd": "deeperspeed_tpu/ops/pallas/flash_attention.py:131",
     "flash_bwd": "deeperspeed_tpu/ops/pallas/flash_attention.py:239,319",
+    "sparse_fwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:956",
+    "sparse_bwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:990",
 }
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the reference's flash tolerances: (forward, gradients)
@@ -226,6 +265,61 @@ ADAM_HYPER = ((True, 0.0, True), (True, 0.01, True), (False, 0.01, True),
               (True, 0.01, False))
 CKPT_DIR = ROOT / "build" / "smoke_ckpt"
 SAVE_AFTER_STEP = 3
+# block-sparse attention (phases 11-12) at BERT-large's attention width
+SPARSE_HEADS, SPARSE_DH, SPARSE_D = 16, 64, 1024
+SPARSE_SEQ = 4096
+SPARSE_LONG_SEQ = 8192
+# the fixed-mode keys of upstream DeepSpeed's documented "sparse_attention"
+# example (docs config-json, "Sparse Attention"); its keys of the other
+# modes are left out, since sparsity_config_from_dict passes every key to
+# the mode's class
+SPARSE_BLOCK = {"mode": "fixed", "block": 16,
+                "different_layout_per_head": True, "num_local_blocks": 4,
+                "num_global_blocks": 1, "attention": "bidirectional",
+                "horizontal_global_attention": False,
+                "num_different_global_patterns": 4}
+# (name, config factory, causal, also at SPARSE_LONG_SEQ): the path's
+# layout first, then the JAX bench's default (scripts/bert_sparse_bench.py
+# :140), each other family, and dense
+SPARSE_LAYOUTS = (
+    ("fixed-path", lambda sa: sa.sparsity_config_from_dict(
+        SPARSE_HEADS, SPARSE_BLOCK), False, False),
+    ("fixed-uni-128", lambda sa: sa.FixedSparsityConfig(
+        num_heads=SPARSE_HEADS, block=128, attention="unidirectional"),
+     True, True),
+    ("bigbird-64", lambda sa: sa.BigBirdSparsityConfig(
+        num_heads=SPARSE_HEADS, block=64), False, True),
+    ("bslongformer-64", lambda sa: sa.BSLongformerSparsityConfig(
+        num_heads=SPARSE_HEADS, block=64), False, False),
+    ("variable-64", lambda sa: sa.VariableSparsityConfig(
+        num_heads=SPARSE_HEADS, block=64), False, False),
+    ("local-uni-128", lambda sa: sa.LocalSlidingWindowSparsityConfig(
+        num_heads=SPARSE_HEADS, block=128, num_sliding_window_blocks=14),
+     True, False),
+    ("dense-64", lambda sa: sa.DenseSparsityConfig(
+        num_heads=SPARSE_HEADS, block=64), False, False),
+)
+# (name, config factory, S, Dh, causal, masked): blocks 32 and 64 of one
+# family, head dims 96 and 128, the path's layout and a causal window
+# under a key mask that drops the last quarter of the keys (the window
+# rows there then see no key)
+SPARSE_SMALL = (
+    ("bigbird-32", lambda sa: sa.BigBirdSparsityConfig(
+        num_heads=4, block=32), 1024, 128, False, False),
+    ("bigbird-64-uni", lambda sa: sa.BigBirdSparsityConfig(
+        num_heads=4, block=64, attention="unidirectional"), 1024, 128, True,
+     False),
+    ("fixed-16", lambda sa: sa.FixedSparsityConfig(num_heads=4, block=16),
+     512, 96, False, False),
+    ("fixed-path-masked", lambda sa: sa.sparsity_config_from_dict(
+        4, SPARSE_BLOCK), 1024, 64, False, True),
+    ("local-uni-128-masked", lambda sa: sa.LocalSlidingWindowSparsityConfig(
+        num_heads=4, block=128, num_sliding_window_blocks=3), 1024, 64, True,
+     True),
+)
+SPARSE_LAYERS = 24
+SPARSE_STEPS = 6
+SPARSE_LR = 1e-3
 
 
 def card_line() -> str:
@@ -962,6 +1056,203 @@ def adam_phase(fad, gen):
     return {"fused_adam": rows}
 
 
+def sparse_work(lut, B, Dh, dtype, backward):
+    """(bytes, operations) the sparse forward or backward must do on this
+    layout: each input read once, each output written once (a key mask,
+    where there is one, is not counted); the products over the (query,
+    key) pairs the filtered layout keeps, the lower triangle of each
+    diagonal block under causal."""
+    lay = lut.layout
+    blk = lut.block
+    H, nb, _ = lay.shape
+    S = nb * blk
+    active = int(lay.sum())
+    diag = int(lay[:, np.arange(nb), np.arange(nb)].sum()) if lut.causal \
+        else 0
+    pairs = B * ((active - diag) * blk * blk + diag * blk * (blk + 1) // 2)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    tensor = B * H * S * Dh * isz
+    rows = B * H * S * 4
+    if backward:  # q, k, v, o, do, lse in; dq, dk, dv out; 5 products
+        return 8 * tensor + rows, 5 * 2 * pairs * Dh
+    return 4 * tensor + rows, 2 * 2 * pairs * Dh
+
+
+def eager_ms(fn, args_list, iters=10):
+    """Device ms per call of ``fn`` launched one by one from Python, timed
+    with CUDA events: for a library call whose backward runs through
+    autograd, which a CUDA graph capture is not asked to hold."""
+    for args in args_list[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sparse_case(bs, gen, tag, lut, shape, dtype, kpm=None):
+    """sparse_fwd and sparse_bwd on one case against their plain versions:
+    (forward row, backward row, the case's tensors). lse is held on the
+    rows with a visible key; the others must be NEG_INF in both."""
+    ftol, gtol = FLASH_TOL[dtype]
+    rel = REL_L2[dtype]
+    scale = shape[-1] ** -0.5
+    dev = lut.on("cuda")
+    q, k, v, do = (randn_on(gen, shape, dtype) for _ in range(4))
+    o, lse = bs.sparse_fwd(q, k, v, dev, scale, lut.causal, kpm)
+    torch.cuda.synchronize()
+    po, plse = bs.sparse_fwd_plain(q, k, v, dev.layout, lut.block, scale,
+                                   lut.causal, kpm)
+    alive = plse > bs.NEG_INF / 2
+    if not bool((lse[~alive] == bs.NEG_INF).all()) or not bool(
+            (o.float()[~alive] == 0).all()):
+        raise AssertionError(f"sparse_fwd {tag}: a row with no visible key "
+                             f"is not zero with lse = NEG_INF")
+    err, rel_err = check_outputs(f"sparse_fwd {tag}", ("o", "lse"),
+                                 (o, lse[alive]), (po, plse[alive]), ftol,
+                                 rel)
+    meta = {"layout": tag, "shape": list(shape), "dtype": dtype_name(dtype),
+            "block": lut.block, "causal": lut.causal,
+            "masked": kpm is not None, "active_blocks": lut.active_blocks,
+            "empty_rows": int((~alive).sum())}
+    fwd = dict(meta, max_abs_err=err, tol=ftol, rel_l2_err=rel_err,
+               rel_l2_tol=rel)
+    got = bs.sparse_bwd(q, k, v, po, plse, do, dev, scale, lut.causal, kpm)
+    torch.cuda.synchronize()
+    want = bs.sparse_bwd_plain(q, k, v, po, plse, do, dev.layout, lut.block,
+                               scale, lut.causal, kpm)
+    err, rel_err = check_outputs(f"sparse_bwd {tag}", ("dq", "dk", "dv"),
+                                 got, want, gtol, rel)
+    bwd = dict(meta, max_abs_err=err, tol=gtol, rel_l2_err=rel_err,
+               rel_l2_tol=rel)
+    return fwd, bwd, (q, k, v, po, plse, do)
+
+
+def time_sparse(bs, sk, gen, lut, shape, dtype, fwd, bwd):
+    """Device ms of the pair, its plain versions and SDPA with the
+    expanded boolean mask (forward by CUDA-graph replay; its backward
+    through autograd, launched eagerly), beside each one's bound."""
+    B, _, S, Dh = shape
+    scale = Dh ** -0.5
+    dev = lut.on("cuda")
+    causal = lut.causal
+    mask = sk.dense_mask(dev.layout, lut.block, S, causal, "cuda")[None]
+
+    def case():
+        t = [randn_on(gen, shape, dtype) for _ in range(4)]
+        o_, lse_ = bs.sparse_fwd_plain(*t[:3], dev.layout, lut.block, scale,
+                                       causal)
+        return t[:3] + [o_, lse_, t[3]]
+
+    fwork = sparse_work(lut, B, Dh, dtype, False)
+    bwork = sparse_work(lut, B, Dh, dtype, True)
+    bufs = copies(case, fwork[0])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd.update(timings(
+        lambda q, k, v, *_: bs.sparse_fwd(q, k, v, dev, scale, causal),
+        lambda q, k, v, *_: bs.sparse_fwd_plain(q, k, v, dev.layout,
+                                                lut.block, scale, causal),
+        bufs, lambda q, k, v, *_: sdpa(q, k, v, attn_mask=mask, scale=scale),
+        bufs, iters=10, replays=3))
+    fwd.update(library="F.scaled_dot_product_attention(attn_mask=the "
+               "expanded layout)", **bound(*fwork, BF16_OPS_PER_S))
+    bwd.update(timings(
+        lambda q, k, v, o, lse, do: bs.sparse_bwd(q, k, v, o, lse, do, dev,
+                                                  scale, causal),
+        lambda q, k, v, o, lse, do: bs.sparse_bwd_plain(
+            q, k, v, o, lse, do, dev.layout, lut.block, scale, causal),
+        bufs, iters=10, replays=3))
+    lib_bufs = []
+    for q, k, v, _, _, do in bufs[:2]:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_bufs.append((sdpa(*leaves, attn_mask=mask, scale=scale), leaves,
+                         do))
+    bwd["library_ms"] = eager_ms(
+        lambda out, leaves, do: torch.autograd.grad(out, leaves, do,
+                                                    retain_graph=True),
+        lib_bufs)
+    bwd.update(library="the backward of F.scaled_dot_product_attention("
+               "attn_mask=the expanded layout) through autograd, launched "
+               "eagerly",
+               **bound(*bwork, BF16_OPS_PER_S))
+    del bufs, lib_bufs, mask
+
+
+def sparse_phase(bs, gen):
+    """Phase 11: the block-sparse pair against its plain versions at the
+    path shape (1, 16, 4096, 64) bf16 over SPARSE_LAYOUTS (two of them
+    also at S 8192), each timed; then the SPARSE_SMALL cases and an empty
+    layout row in bf16 and fp32; then the errors a wrong head count, a
+    wrong length and an unsupported block must raise. The path's layout
+    rows are tagged "path": "sparse"."""
+    from deeperspeed_tpu_torch.ops import sparse_attention as sa
+    from deeperspeed_tpu_torch.ops.sparse_attention import kernels as sk
+
+    results = {"sparse_fwd": [], "sparse_bwd": []}
+    for name, make, causal, long in SPARSE_LAYOUTS:
+        for S in (SPARSE_SEQ, SPARSE_LONG_SEQ) if long else (SPARSE_SEQ,):
+            cfg = make(sa)
+            lut = sk.SparseLut(cfg.make_layout(S), cfg.block, causal)
+            shape = (1, SPARSE_HEADS, S, SPARSE_DH)
+            fwd, bwd, _ = sparse_case(bs, gen, name, lut, shape,
+                                      torch.bfloat16)
+            fwd["density"] = bwd["density"] = sa.layout_density(lut.layout)
+            time_sparse(bs, sk, gen, lut, shape, torch.bfloat16, fwd, bwd)
+            if name == "fixed-path":
+                fwd["path"] = bwd["path"] = "sparse"
+            results["sparse_fwd"].append(fwd)
+            results["sparse_bwd"].append(bwd)
+            gc.collect()
+            torch.cuda.empty_cache()
+    empty = np.ones((4, 32, 32), np.int64)
+    empty[:, 3] = 0
+    empty[1, 10:20] = 0
+    small = [(name, make(sa).make_layout(S), make(sa).block, S, Dh, causal,
+              masked) for name, make, S, Dh, causal, masked in SPARSE_SMALL]
+    small.append(("empty-rows", empty, 16, 512, 64, False, False))
+    for name, layout, blk, S, Dh, causal, masked in small:
+        lut = sk.SparseLut(layout, blk, causal)
+        kpm = None
+        if masked:
+            kpm = torch.zeros(2, S, device="cuda")
+            kpm[:, 3 * S // 4:] = bs.NEG_INF
+        for dtype in (torch.bfloat16, torch.float32):
+            fwd, bwd, _ = sparse_case(bs, gen, name, lut,
+                                      (2, 4, S, Dh), dtype, kpm)
+            if name in ("empty-rows", "local-uni-128-masked") and \
+                    fwd["empty_rows"] == 0:
+                raise AssertionError(f"sparse {name}: no empty row to check")
+            results["sparse_fwd"].append(fwd)
+            results["sparse_bwd"].append(bwd)
+    layout = sa.sparsity_config_from_dict(4, SPARSE_BLOCK).make_layout(512)
+    attend = sa.make_block_sparse_attention(layout, 16)
+    errors = {}
+    for what, shape in (("head count", (1, 512, 8, 64)),
+                        ("length", (1, 256, 4, 64))):
+        x = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+        try:
+            attend(x, x, x)
+        except ValueError as e:
+            errors[what] = str(e)
+        else:
+            raise AssertionError(f"sparse attention took a wrong {what}")
+    x = torch.zeros(1, 4, 512, 64, device="cuda", dtype=torch.bfloat16)
+    block8 = sa.SparseSelfAttention(
+        sa.BigBirdSparsityConfig(num_heads=4, block=8), max_seq_length=512)
+    try:
+        block8(x, x, x)
+    except ValueError as e:
+        errors["block 8"] = str(e)
+    else:
+        raise AssertionError("sparse attention took block 8 on the card")
+    print("sparse errors raised: " + json.dumps(errors), flush=True)
+    return results
+
 def randomize_affine(params, gen):
     """Give the biases and layer-norm parameters random values (the init
     leaves them at 0 and 1), so the serving run exercises every input of
@@ -1225,7 +1516,8 @@ def check_run(run, engine, expected, steps):
 
 
 KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                   "supertile_fwd", "supertile_bwd", "ln_fwd", "ln_bwd",
+                   "supertile_fwd", "supertile_bwd", "sparse_fwd",
+                   "sparse_bwd_dkdv", "sparse_bwd_dq", "ln_fwd", "ln_bwd",
                    "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials",
                    "fused_adam")
 
@@ -1332,7 +1624,7 @@ def training_phase(card):
                 "supertile_bwd": 0,
                 # all 16 leaves are bf16 (one dtype combination): one
                 # launch per applied step
-                "fused_adam": 1}
+                "fused_adam": 1, "sparse_fwd": 0, "sparse_bwd": 0}
     per_step = {k: n / TRAIN_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = rows * cfg.max_seq
@@ -1480,6 +1772,7 @@ def kernel_counters():
     from deeperspeed_tpu_torch.ops import flash_static as fs
     from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
+    from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
 
     return {"ln_fwd": fb.ln_fwd, "ln_bwd": fb.ln_bwd,
             "bias_gelu_fwd": fb.bias_gelu_fwd,
@@ -1488,7 +1781,8 @@ def kernel_counters():
             "add_ln_fwd": fb.add_ln_fwd, "add_ln_bwd": fb.add_ln_bwd,
             "supertile_fwd": fs.supertile_fwd,
             "supertile_bwd": fs.supertile_bwd,
-            "fused_adam": fad.fused_adam}
+            "fused_adam": fad.fused_adam, "sparse_fwd": bs.sparse_fwd,
+            "sparse_bwd": bs.sparse_bwd}
 
 
 def bert_config():
@@ -1571,7 +1865,8 @@ def bert_training_phase(card):
                 "bias_gelu_fwd": 2 * L + 2 * n_chunks,
                 "bias_gelu_bwd": L + n_chunks,
                 "ln_fwd": 1 + 2 * n_chunks, "ln_bwd": 1 + n_chunks,
-                "flash_fwd": 0, "flash_bwd": 0, "fused_adam": 0}
+                "flash_fwd": 0, "flash_bwd": 0, "fused_adam": 0,
+                "sparse_fwd": 0, "sparse_bwd": 0}
     per_step = {k: n / BERT_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = ids.size
@@ -1600,6 +1895,130 @@ def bert_training_phase(card):
     return run["launches"], per_step
 
 
+def sparse_config():
+    """Phase 12's config: micro-batch 1 x 2 accumulation steps, masterless
+    bf16, Adam at a constant LR (no scheduler), clipping 1.0, the kernels
+    block, and the "sparse_attention" block of upstream DeepSpeed's
+    documented example (fixed mode)."""
+    return {
+        "train_batch_size": 2,
+        "train_micro_batch_size_per_gpu": 1,
+        "gradient_accumulation_steps": 2,
+        "bf16": {"enabled": True, "master_weights": False},
+        "zero_optimization": {"stage": 0},
+        "optimizer": {"type": "Adam",
+                      "params": {"lr": SPARSE_LR, "betas": [0.9, 0.95]}},
+        "gradient_clipping": 1.0,
+        "steps_per_print": 100,
+        "kernels": {"mode": "auto"},
+        "sparse_attention": SPARSE_BLOCK,
+    }
+
+
+def sparse_loss(sparsity, impl):
+    """The user's loss: SPARSE_LAYERS BertSparseSelfAttention layers (BERT-
+    large's attention sub-layers) pre-LN with a residual, h = h +
+    attn_i(layer_norm_i(h)), a final layer_norm, and the mean square of the
+    result against the batch's target. Returns (layer, loss_fn)."""
+    from deeperspeed_tpu_torch.ops.fused_blocks import layer_norm
+    from deeperspeed_tpu_torch.ops.sparse_attention import (
+        BertSparseSelfAttention)
+
+    attn = BertSparseSelfAttention(SPARSE_D, SPARSE_HEADS, sparsity,
+                                   max_seq_length=SPARSE_SEQ, impl=impl)
+
+    def loss_fn(params, batch):
+        x, target = batch
+        h = x.to(params["ln_f"]["w"].dtype)
+        for i in range(SPARSE_LAYERS):
+            lp = params[f"layer{i:02d}"]
+            h = h + attn.apply(lp["attn"], layer_norm(h, lp["ln"]["w"],
+                                                      lp["ln"]["b"], 1e-5))
+        y = layer_norm(h, params["ln_f"]["w"], params["ln_f"]["b"], 1e-5)
+        return (y.float() - target).square().mean()
+
+    return attn, loss_fn
+
+
+def sparse_training_phase(card):
+    """Phase 12: the user's sparse-attention loss at BERT-large's attention
+    width through initialize -> train_batch; see the module docstring.
+    Returns the launch counts of the 6-step run and the launches per
+    step."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.ops import fused_adam as fad
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+    from deeperspeed_tpu_torch.runtime.config import TrainingConfig
+
+    config = sparse_config()
+    sparsity = TrainingConfig(config).get_sparse_attention(SPARSE_HEADS)
+    attn, loss = sparse_loss(sparsity, "auto")
+    _, plain_loss = sparse_loss(sparsity, "xla")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    D = SPARSE_D
+    params = {f"layer{i:02d}": {
+        "ln": {"w": torch.ones(D, device="cuda"),
+               "b": torch.zeros(D, device="cuda")},
+        "attn": attn.init(gen, "cuda")} for i in range(SPARSE_LAYERS)}
+    params["ln_f"] = {"w": torch.ones(D, device="cuda"),
+                      "b": torch.zeros(D, device="cuda")}
+    rows = config["train_batch_size"]
+    batch = (torch.randn(rows, SPARSE_SEQ, D, generator=gen, device="cuda"),
+             torch.randn(rows, SPARSE_SEQ, D, generator=gen, device="cuda"))
+    n_leaves = len(tree_leaves(params))
+
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(model=loss, model_parameters=params,
+                                        config=config)
+        del params
+        parity = compare_paths(
+            engine, loss, plain_loss,
+            engine._place_batch(tuple(t[:1] for t in batch)),
+            config["kernels"])
+        print("sparse training parity: " + json.dumps(parity), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = run_steps(engine, batch, kernel_counters(), SPARSE_STEPS)
+
+    gas = config["gradient_accumulation_steps"]
+    per_launch = fad._lib().ds_fused_adam_max_leaves()
+    expected = {name: 0 for name in kernel_counters()}
+    # no remat: one forward and one backward per layer and micro-batch;
+    # pre-LN on every layer plus the final LN; every leaf bf16 (one dtype
+    # combination): one Adam launch per 64 leaves
+    expected.update(sparse_fwd=SPARSE_LAYERS * gas,
+                    sparse_bwd=SPARSE_LAYERS * gas,
+                    ln_fwd=(SPARSE_LAYERS + 1) * gas,
+                    ln_bwd=(SPARSE_LAYERS + 1) * gas,
+                    fused_adam=math.ceil(n_leaves / per_launch))
+    per_step = {k: n / SPARSE_STEPS for k, n in run["launches"].items()}
+    step_ms = statistics.median(run["step_s"][1:]) * 1e3
+    tokens = rows * SPARSE_SEQ
+    layout = sparsity.make_layout(SPARSE_SEQ)
+    report = {
+        "model": "bert-large attention x 24, block-sparse", "card": card,
+        "dtype": "bfloat16", "layers": SPARSE_LAYERS, "d_model": D,
+        "heads": SPARSE_HEADS, "seq": SPARSE_SEQ, "sparse_attention":
+        SPARSE_BLOCK, "layout_density": float(layout.mean()),
+        "active_blocks": int(layout.sum()), "leaves": n_leaves,
+        "micro_batch": config["train_micro_batch_size_per_gpu"],
+        "grad_accum": gas, "lr": SPARSE_LR, "steps": SPARSE_STEPS, **run,
+        "skipped_steps": engine.skipped_steps,
+        "step_ms_median_2_6": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "launches_per_step": per_step, "parity": parity,
+    }
+    print("sparse training: " + json.dumps(report), flush=True)
+    per_step = check_run(run, engine, expected, SPARSE_STEPS)
+    with kernel_config.override(**config["kernels"]):
+        print("sparse training profile: " + json.dumps(profile_training(
+            engine, batch)), flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"], per_step
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1611,6 +2030,7 @@ def main() -> int:
     from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
     from deeperspeed_tpu_torch.ops import op_builder
+    from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1619,12 +2039,13 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
     t0 = time.perf_counter()
     sources = ("fused_blocks", "flash_attention", "supertile_attention",
-               "fused_adam")
+               "fused_adam", "sparse_attention")
     op_builder.build_all(sources)
     fb._lib()
     fa._lib()
     fs._lib()
     fad._lib()
+    bs._lib()
     print(f"build: {', '.join(s_ + '.cu' for s_ in sources)} in "
           f"{time.perf_counter() - t0:.2f} s, side by side", flush=True)
     for name in sources:
@@ -1643,6 +2064,9 @@ def main() -> int:
     for name, rows in bert_kernel_phase(fb, fs, fa, gen).items():
         cases.setdefault(name, []).extend(rows)
     cases.update(adam_phase(fad, gen))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases.update(sparse_phase(bs, gen))
     gc.collect()
     torch.cuda.empty_cache()
     for name, rows in cases.items():
@@ -1666,21 +2090,27 @@ def main() -> int:
     training, per_step, after = training_phase(card)
     resume = resume_phase(card, after)
     bert, bert_per_step = bert_training_phase(card)
+    sparse, sparse_per_step = sparse_training_phase(card)
 
     # each path's counts were set to 0 just before it and read just after
     paths = {"serving": serving, "gpt_training": training,
-             "gpt_resume": resume, "bert_training": bert}
+             "gpt_resume": resume, "bert_training": bert,
+             "sparse_training": sparse}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
-        # the add-LN and super-tile pairs, GPT training's for the rest
+        # the add-LN and super-tile pairs, the sparse path's for the sparse
+        # pair, GPT training's for the rest
         bert_row = name.startswith(("add_ln", "supertile"))
-        head = next(r for r in rows if "ms" in r
-                    and r["dtype"] == "bfloat16"
-                    and (r.get("path") == "bert") == bert_row
-                    and (bert_row or r.get("path") == "gpt"
-                         or r["shape"][0] == PATH_ROWS
-                         or tuple(r["shape"]) == FLASH_SHAPES[0]))
+        if name.startswith("sparse"):
+            head = next(r for r in rows if r.get("path") == "sparse")
+        else:
+            head = next(r for r in rows if "ms" in r
+                        and r["dtype"] == "bfloat16"
+                        and (r.get("path") == "bert") == bert_row
+                        and (bert_row or r.get("path") == "gpt"
+                             or r["shape"][0] == PATH_ROWS
+                             or tuple(r["shape"]) == FLASH_SHAPES[0]))
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1692,7 +2122,8 @@ def main() -> int:
             "shape": head["shape"], "dtype": head["dtype"],
             "launches_by_path": by_path,
             "launches_per_step": {"gpt_training": per_step[name],
-                                  "bert_training": bert_per_step[name]},
+                                  "bert_training": bert_per_step[name],
+                                  "sparse_training": sparse_per_step[name]},
         }
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
@@ -1702,6 +2133,9 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "dtypes", "max_abs_err")}
         kernels.append(entry)
+    if sorted(k["name"] for k in kernels) != sorted(SOURCES):
+        raise AssertionError(f"kernels line has {[k['name'] for k in kernels]}"
+                             f", expected {sorted(SOURCES)}")
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -129,3 +129,22 @@ def from_jax_lamb_state(state, device) -> LambState:
     """The reference's ``LambState`` (numpy or JAX leaves, fp32 moments)
     -> the port's, on ``device``."""
     return LambState(*_moments(state, device))
+
+
+def sparse_attention_shapes(hidden_size: int) -> Dict:
+    """The params tree of one ``BertSparseSelfAttention`` of width D."""
+    D = hidden_size
+    return {name: {"w": (D, D), "b": (D,)}
+            for name in ("query", "key", "value")}
+
+
+def from_jax_sparse_attention_params(tree_of_numpy: Dict, hidden_size: int,
+                                     device) -> Dict:
+    """The reference's ``BertSparseSelfAttention`` params (numpy arrays)
+    -> the port's on ``device``, leaves keeping their dtype. Both keep
+    ``w`` as (in, out), so this is a copy; keys and shapes must match."""
+    return _copy_tree(tree_of_numpy, sparse_attention_shapes(hidden_size),
+                      device)
+
+
+to_numpy_sparse_attention_params = to_numpy_params

@@ -11,9 +11,10 @@ The port does not run every subsystem of the reference yet. A block that
 turns one of them on raises ``ConfigError`` naming the ROADMAP.md item
 that ports it; nothing is ignored. The blocks the port runs: the batch
 triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``
-and ``checkpoint`` (tag validation; ``sharded_io: true``, the orbax
-layout, raises until ZeRO and data parallel are ported).
+``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``,
+``sparse_attention`` (read by ``get_sparse_attention``, as in the
+reference) and ``checkpoint`` (tag validation; ``sharded_io: true``, the
+orbax layout, raises until ZeRO and data parallel are ported).
 """
 
 import copy
@@ -112,7 +113,6 @@ class TrainingConfig:
 
         present = (
             (c.PIPELINE, "MoE, TP and pipeline"),
-            (c.SPARSE_ATTENTION, "Sparse attention"),
             (c.ACTIVATION_CHECKPOINTING, "Tooling"),
             (c.AIO, "Offload and ZeRO-Infinity"),
         )
@@ -283,11 +283,25 @@ class TrainingConfig:
                 c.KERNELS_MODE, c.KERNELS_MODE_DEFAULT)
 
         self.gradient_noise_scale = pd.get(c.GRADIENT_NOISE_SCALE, None)
+        # read, not built: get_sparse_attention builds (and checks) it, as
+        # the reference does
+        self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
 
     def serving_config(self):
         """The "serving" block as a ServingConfig (None when the block is
         absent or disabled), validated at parse time."""
         return self._serving_config
+
+    def get_sparse_attention(self, num_heads: int):
+        """Build the configured SparsityConfig (DeepSpeed's
+        runtime/config.py:213 get_sparse_attention); None when the block is
+        absent. An unknown mode or a bad argument raises here, as in the
+        reference."""
+        if not self.sparse_attention:
+            return None
+        from ..ops.sparse_attention import sparsity_config_from_dict
+
+        return sparsity_config_from_dict(num_heads, self.sparse_attention)
 
     # ------------------------------------------------------------------ #
 

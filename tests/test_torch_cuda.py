@@ -435,3 +435,111 @@ def test_cuda_auto_sends_a_maskless_bert_layer_to_the_supertile_kernel():
                                rtol=2e-3)
     for a, p in zip(out["auto"][1], out["off"][1]):
         torch.testing.assert_close(a, p, atol=5e-3, rtol=5e-3)
+
+
+def _sparse_layout(H, nb, seed):
+    """A random block layout with one empty row per head and a dense
+    diagonal, so both walks meet short, long and empty rows."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    lay = (rs.random((H, nb, nb)) < 0.3).astype(np.int64)
+    lay[:, np.arange(nb), np.arange(nb)] = 1
+    lay[:, 1, :] = 0
+    return lay
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_kernels_match_plain_versions():
+    """sparse_fwd and sparse_bwd against their plain versions for every
+    sparsity block and head dim the kernels take, causal and not, with and
+    without a key mask (the last quarter of the keys dropped, a finite
+    bias elsewhere), fp32 and bf16 (the reference's flash tolerances:
+    fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2); an empty layout row gives zeros
+    and lse = NEG_INF; the backward repeats bit for bit."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    from deeperspeed_tpu_torch.ops.sparse_attention import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, H, S = 2, 3, 256
+    for block, Dh in ((16, 64), (32, 96), (64, 128), (128, 64)):
+        layout = _sparse_layout(H, S // block, block)
+        for dtype, ftol, gtol in ((torch.float32, 2e-3, 5e-3),
+                                  (torch.bfloat16, 2e-2, 5e-2)):
+            for causal in (False, True):
+                for masked in (False, True):
+                    lut = kernels.SparseLut(layout, block, causal).on("cuda")
+                    q, k, v, do = (torch.randn(B, H, S, Dh, generator=gen,
+                                               device="cuda").to(dtype)
+                                   for _ in range(4))
+                    kpm = None
+                    if masked:
+                        kpm = torch.zeros(B, S, device="cuda")
+                        kpm[:, 3 * S // 4:] = kernels.NEG_INF
+                        kpm[1, 5] = -2.5
+                    scale = Dh ** -0.5
+                    o, lse = bs.sparse_fwd(q, k, v, lut, scale, causal, kpm)
+                    po, plse = bs.sparse_fwd_plain(q, k, v, lut.layout,
+                                                   block, scale, causal, kpm)
+                    torch.testing.assert_close(o.float(), po.float(),
+                                               atol=ftol, rtol=ftol)
+                    torch.testing.assert_close(lse, plse, atol=ftol,
+                                               rtol=ftol)
+                    rows = slice(block, 2 * block)   # layout row 1 is empty
+                    assert float(o[:, :, rows].abs().max()) == 0.0
+                    assert bool((lse[:, :, rows] == kernels.NEG_INF).all())
+                    got = bs.sparse_bwd(q, k, v, po, plse, do, lut, scale,
+                                        causal, kpm)
+                    want = bs.sparse_bwd_plain(q, k, v, po, plse, do,
+                                               lut.layout, block, scale,
+                                               causal, kpm)
+                    for a, p in zip(got, want):
+                        assert bool(torch.isfinite(a).all())
+                        torch.testing.assert_close(a.float(), p.float(),
+                                                   atol=gtol, rtol=gtol)
+                    again = bs.sparse_bwd(q, k, v, po, plse, do, lut, scale,
+                                          causal, kpm)
+                    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_module_takes_the_kernels_or_raises():
+    """SparseSelfAttention "auto" on a CUDA tensor launches the pair, in
+    the forward and in the backward, and agrees with "pallas_interpret";
+    a block, head dim or dtype the kernels do not take raises."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops import sparse_attention as sa
+    from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qkv = [torch.randn(2, 4, 512, 64, generator=gen, device="cuda")
+           for _ in range(3)]
+    outs = {}
+    for impl in ("auto", "pallas_interpret"):
+        # a config each: BigBird's random blocks advance with every layout
+        # a config makes, so one config would give the two modules two
+        # layouts
+        cfg = sa.BigBirdSparsityConfig(num_heads=4, block=16)
+        mod = sa.SparseSelfAttention(cfg, max_seq_length=1024, impl=impl)
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        before = (bs.sparse_fwd.launches, bs.sparse_bwd.launches)
+        o = mod(*leaves)
+        grads = torch.autograd.grad(o.square().sum(), leaves)
+        after = (bs.sparse_fwd.launches, bs.sparse_bwd.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if impl == "auto"
+                         else before)
+        outs[impl] = (o.detach(),) + grads
+    for a, p in zip(outs["auto"], outs["pallas_interpret"]):
+        torch.testing.assert_close(a, p, atol=5e-3, rtol=5e-3)
+    cfg = sa.BigBirdSparsityConfig(num_heads=4, block=16)
+    x = torch.zeros(1, 4, 64, 64, device="cuda")
+    with pytest.raises(ValueError, match="sparsity blocks"):
+        sa.SparseSelfAttention(sa.BigBirdSparsityConfig(num_heads=4, block=8),
+                               max_seq_length=64)(x, x, x)
+    y = torch.zeros(1, 4, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.SparseSelfAttention(cfg, max_seq_length=64)(y, y, y)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sa.SparseSelfAttention(cfg, max_seq_length=64)(x.half(), x.half(),
+                                                       x.half())

@@ -49,6 +49,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "torch.checkpoint.serialization\n"
         "import deeperspeed_tpu_torch.checkpoint.zero_to_fp32, deeperspeed_"
         "tpu_torch.resilience.manifest\n"
+        "import deeperspeed_tpu_torch.ops.sparse_attention, deeperspeed_tpu_"
+        "torch.ops.sparse_attention.block_sparse\n"
+        "import deeperspeed_tpu_torch.ops.sparse_attention.kernels, "
+        "deeperspeed_tpu_torch.ops.sparse_attention.sparsity_config\n"
+        "import deeperspeed_tpu_torch.ops.sparse_attention.sparse_self_"
+        "attention, deeperspeed_tpu_torch.ops.sparse_attention.sparse_"
+        "attention_utils\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -60,6 +67,9 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert "deeperspeed_tpu_torch.ops.flash_attention" in mods
     assert "deeperspeed_tpu_torch.checkpoint.msgpack" in mods
     assert "deeperspeed_tpu_torch.resilience.manifest" in mods
+    for name in ("block_sparse", "kernels", "sparsity_config",
+                 "sparse_self_attention", "sparse_attention_utils"):
+        assert f"deeperspeed_tpu_torch.ops.sparse_attention.{name}" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 
