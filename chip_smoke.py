@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Card: print the card's name and power limit (nvidia-smi) and build the
    CUDA kernels from deeperspeed_tpu_torch/csrc into build/kernels/, one
-   nvcc per source (five), started together.
+   nvcc per source (six), started together.
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -83,7 +83,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    initialize -> Engine.train_batch with the keys of
    configs/bert_large_zero2.json changed for one card (Lamb 2e-3, weight
    decay 0.01, WarmupLR, bf16 with an fp32 master, clipping 1.0,
-   micro-batch 64, one accumulation step, ZeRO stage 0) plus
+   micro-batch 64, one accumulation step, the file's ZeRO stage 2, which
+   on one rank shards nothing) plus
    "kernels": {"mode": "auto"} and a BERT_WARMUP_STEPS warmup, on one
    64 x 128 batch of data/corpus_tokens.npy with 15 % of positions
    scored (the input there replaced by the mask id 103), for 6 steps.
@@ -130,7 +131,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    key) pairs the layout keeps), the plain versions and
    F.scaled_dot_product_attention with the expanded boolean mask (its
    backward through autograd, launched eagerly).
-12. Sparse-attention training at full width (run last): the user's loss
+12. Sparse-attention training at full width: the user's loss
    of 24 BertSparseSelfAttention layers (BERT-large's attention
    sub-layers: hidden 1024, 16 heads, max_seq_length 4096, bf16, weights
    from a fixed seed) pre-LN with a residual, a final layer_norm and the
@@ -146,6 +147,46 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    exactly sparse_fwd 48, sparse_bwd 48, ln_fwd 50, ln_bwd 50 and
    fused_adam ceil(194 leaves / 64) = 4. One more step runs under
    torch.profiler, the sparse kernels a device-time family of their own.
+
+13. The int8 wire-format kernels (run after phase 11) against their plain
+   versions, bit for bit (every element's bits; a NaN matches a NaN), at
+   the GPT-NeoX-125M bucket plan of configs/gpt_125m_comm.json at 2
+   ranks (25 MB buckets padded to 2 x 128): quantize_rows at (2, L/2),
+   fp32 and bf16 input, with and without the residual, and the second
+   phase's (1, L/2); dequant_sum_rows at (2, L/2) int8 and (2, L) fp16
+   mantissas with 2^e scales; dequant_rows at (2, L/2), divisor 2; R = 4
+   and 8 rows at the largest bucket; all-zero blocks, a block holding a
+   NaN (scale 1) and one holding an inf (scale inf); block 96 (the
+   strided path); shapes the kernels do not take must raise. Each kernel
+   is timed at the largest bucket, beside its byte bound (bytes over
+   3.35 TB/s) and its plain version; no single PyTorch call computes any
+   of the three.
+14. Data-parallel training on one card (run last): 2 ranks, spawned with
+   torch.multiprocessing, share cuda:0 and a gloo group through a
+   FileStore in a temporary directory (NCCL refuses two ranks on one
+   device, so the collectives cross host memory: the step time is no
+   measure of a multi-GPU node). Each trains GPT-NeoX-125M at full width
+   and depth (the neox-125m preset, max_seq 1024, remat "matmuls", bf16,
+   weights from a fixed seed) on data/corpus_tokens.npy through
+   initialize -> train_batch with the blocks of configs/gpt_125m_comm.json
+   (ZeRO 1, bf16 with an fp32 master, Adam 6e-4 with weight decay 0.1,
+   WarmupDecayLR, clipping 1.0, the int8 comm block with error feedback
+   and hierarchical "auto", which on one host is the flat schedule) cut
+   as PERF.md section 4 lists (no "monitor" block, 2 ranks x micro-batch
+   16 x 2 accumulation steps, warmup DP_WARMUP_STEPS) plus "kernels":
+   {"mode": "auto"}: 6 steps, then 6 more from the same seed with
+   "comm": {"mode": "fp32"}. Gates: on one micro-batch rank 0's kernel
+   path agrees with the plain path (phase 6's limits); after every step
+   both ranks' params are bit-identical; losses finite and falling, no
+   skipped step; the int8 losses within INT8_LOSS_RTOL of the fp32-comm
+   ones; launches per step and rank exactly those of phase 6's model at
+   this depth plus, per bucket, 2 quantize_rows, 1 dequant_sum_rows and
+   1 dequant_rows under int8 and none of the three under fp32 comm;
+   each rank's fp32 master and moments at most ZERO1_STATE_RATIO of a
+   ZeRO 0 engine's. It prints step time, tokens/s, peak memory per rank,
+   the buckets, the modeled wire bytes and the bytes staged through host
+   memory per step, and the reduction's share of the step. A rank that
+   raises fails the run. Every source is built before the spawn.
 
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -174,13 +215,17 @@ FLASH_SOURCE = "deeperspeed_tpu_torch/csrc/flash_attention.cu"
 SUPERTILE_SOURCE = "deeperspeed_tpu_torch/csrc/supertile_attention.cu"
 ADAM_SOURCE = "deeperspeed_tpu_torch/csrc/fused_adam.cu"
 SPARSE_SOURCE = "deeperspeed_tpu_torch/csrc/sparse_attention.cu"
+QUANT_SOURCE = "deeperspeed_tpu_torch/csrc/fused_quant.cu"
 SOURCES = {"ln_fwd": FUSED_SOURCE, "bias_gelu_fwd": FUSED_SOURCE,
            "ln_bwd": FUSED_SOURCE, "bias_gelu_bwd": FUSED_SOURCE,
            "flash_fwd": FLASH_SOURCE, "flash_bwd": FLASH_SOURCE,
            "add_ln_fwd": FUSED_SOURCE, "add_ln_bwd": FUSED_SOURCE,
            "supertile_fwd": SUPERTILE_SOURCE,
            "supertile_bwd": SUPERTILE_SOURCE, "fused_adam": ADAM_SOURCE,
-           "sparse_fwd": SPARSE_SOURCE, "sparse_bwd": SPARSE_SOURCE}
+           "sparse_fwd": SPARSE_SOURCE, "sparse_bwd": SPARSE_SOURCE,
+           "quantize_rows": QUANT_SOURCE, "dequant_sum_rows": QUANT_SOURCE,
+           "dequant_rows": QUANT_SOURCE}
+QUANT_KERNELS = ("quantize_rows", "dequant_sum_rows", "dequant_rows")
 # the TPU kernel each one replaces (the kernel body); flash_fwd and
 # flash_bwd each replace the static and the streaming pair
 REPLACES = {
@@ -197,12 +242,16 @@ REPLACES = {
     "fused_adam": "deeperspeed_tpu/ops/pallas/fused_adam.py:101",
     "sparse_fwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:273",
     "sparse_bwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:464",
+    "quantize_rows": "deeperspeed_tpu/ops/pallas/fused_quant.py:108",
+    "dequant_sum_rows": "deeperspeed_tpu/ops/pallas/fused_quant.py:174",
+    "dequant_rows": "deeperspeed_tpu/ops/pallas/fused_quant.py:211",
 }
 ALSO_REPLACES = {
     "flash_fwd": "deeperspeed_tpu/ops/pallas/flash_attention.py:131",
     "flash_bwd": "deeperspeed_tpu/ops/pallas/flash_attention.py:239,319",
     "sparse_fwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:956",
     "sparse_bwd": "deeperspeed_tpu/ops/sparse_attention/kernels.py:990",
+    "quantize_rows": "deeperspeed_tpu/ops/pallas/fused_quant.py:100",
 }
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the reference's flash tolerances: (forward, gradients)
@@ -1624,7 +1673,10 @@ def training_phase(card):
                 "supertile_bwd": 0,
                 # all 16 leaves are bf16 (one dtype combination): one
                 # launch per applied step
-                "fused_adam": 1, "sparse_fwd": 0, "sparse_bwd": 0}
+                "fused_adam": 1, "sparse_fwd": 0, "sparse_bwd": 0,
+                # one rank: no gradient reduction
+                "quantize_rows": 0, "dequant_sum_rows": 0,
+                "dequant_rows": 0}
     per_step = {k: n / TRAIN_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = rows * cfg.max_seq
@@ -1772,6 +1824,7 @@ def kernel_counters():
     from deeperspeed_tpu_torch.ops import flash_static as fs
     from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
+    from deeperspeed_tpu_torch.ops import fused_quant as fq
     from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
 
     return {"ln_fwd": fb.ln_fwd, "ln_bwd": fb.ln_bwd,
@@ -1782,22 +1835,25 @@ def kernel_counters():
             "supertile_fwd": fs.supertile_fwd,
             "supertile_bwd": fs.supertile_bwd,
             "fused_adam": fad.fused_adam, "sparse_fwd": bs.sparse_fwd,
-            "sparse_bwd": bs.sparse_bwd}
+            "sparse_bwd": bs.sparse_bwd, "quantize_rows": fq.quantize_rows,
+            "dequant_sum_rows": fq.dequant_sum_rows,
+            "dequant_rows": fq.dequant_rows}
 
 
 def bert_config():
     """The keys of configs/bert_large_zero2.json changed for one card:
     micro-batch 64 x 1 accumulation step (the file's 4096 / 48 has no whole
     accumulation count on one card; 64 is the reference bench's
-    micro-batch at seq 128), ZeRO stage 0 (ZeRO-2 is not ported), the
-    kernels block, and the warmup of BERT_WARMUP_STEPS. Lamb runs no
-    fused Adam: fused_adam launches 0 times on this path."""
+    micro-batch at seq 128), the kernels block, and the warmup of
+    BERT_WARMUP_STEPS. Its zero_optimization block runs as written: stage
+    2 on one rank, where the ZeRO size is 1 and no leaf is sharded. Lamb
+    runs no fused Adam: fused_adam launches 0 times on this path."""
     return {
         "train_batch_size": 64,
         "train_micro_batch_size_per_gpu": 64,
         "gradient_accumulation_steps": 1,
         "bf16": {"enabled": True},
-        "zero_optimization": {"stage": 0},
+        "zero_optimization": {"stage": 2},
         "optimizer": {"type": "Lamb",
                       "params": {"lr": 2e-3, "weight_decay": 0.01}},
         "scheduler": {"type": "WarmupLR",
@@ -1866,7 +1922,8 @@ def bert_training_phase(card):
                 "bias_gelu_bwd": L + n_chunks,
                 "ln_fwd": 1 + 2 * n_chunks, "ln_bwd": 1 + n_chunks,
                 "flash_fwd": 0, "flash_bwd": 0, "fused_adam": 0,
-                "sparse_fwd": 0, "sparse_bwd": 0}
+                "sparse_fwd": 0, "sparse_bwd": 0, "quantize_rows": 0,
+                "dequant_sum_rows": 0, "dequant_rows": 0}
     per_step = {k: n / BERT_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = ids.size
@@ -2018,6 +2075,418 @@ def sparse_training_phase(card):
     gc.collect()
     torch.cuda.empty_cache()
     return run["launches"], per_step
+# the int8 gradient wire (phases 13-14): configs/gpt_125m_comm.json, cut
+DP_RANKS = 2
+DP_MICRO = 16
+DP_GAS = 2
+DP_STEPS = 6
+DP_WARMUP_STEPS = 100
+# int8 against fp32 comm, 6 steps from one seed: the largest relative
+# loss difference allowed (error feedback keeps the int8 curve on the fp32
+# one; PERF.md states the measured gap)
+INT8_LOSS_RTOL = 1e-2
+# each rank's fp32 master + Adam moments against a ZeRO 0 engine's: about
+# half under ZeRO 1 on 2 ranks (leaves with no even dim stay replicated)
+ZERO1_STATE_RATIO = 0.55
+
+
+def bits_differing(got, want):
+    """Elements of two equal-shape tensors whose bits differ; a NaN matches
+    a NaN (its payload aside)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not got.is_floating_point():
+        return int((got != want).sum())
+    nan = torch.isnan(got.float()) & torch.isnan(want.float())
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    return int(((got.view(view) != want.view(view)) & ~nan).sum())
+
+
+def dp_bucket_lengths():
+    """The padded lengths of the GPT-NeoX-125M buckets the reducer plans
+    at 2 ranks with the comm block of configs/gpt_125m_comm.json."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset, param_shapes
+    from deeperspeed_tpu_torch.runtime.comm import CommConfig, bucketing
+
+    comm = CommConfig.from_dict(dp_config()["comm"])
+
+    def meta(t):
+        if isinstance(t, dict):
+            return {k: meta(v) for k, v in t.items()}
+        return torch.empty(t, device="meta")
+
+    plan = bucketing.build_plan(
+        meta(param_shapes(get_preset("neox-125m", max_seq=1024))),
+        comm.bucket_bytes, comm.block * DP_RANKS)
+    return [b.padded for b in plan.buckets]
+
+
+def quant_case(name, shape, dtype, got, want, extra=None):
+    diff = sum(bits_differing(g, w) for g, w in zip(got, want)
+               if w is not None)
+    if diff:
+        raise AssertionError(f"{name} {shape} {dtype_name(dtype)}: {diff} "
+                             f"elements differ from the plain version")
+    row = {"shape": list(shape), "dtype": dtype_name(dtype),
+           "max_abs_err": 0.0, "tol": 0.0, "rel_l2_err": 0.0,
+           "rel_l2_tol": 0.0, "elements_differing": 0}
+    row.update(extra or {})
+    return row
+
+
+def quant_phase(fq, gen):
+    """Phase 13: the three wire-format kernels against their plain
+    versions, bit for bit, at the reducer's bucket shapes for the
+    GPT-NeoX-125M plan; the path's shapes timed."""
+    lengths = dp_bucket_lengths()
+    block = dp_config()["comm"]["block"]
+    print(f"quant: GPT-NeoX-125M plan at {DP_RANKS} ranks: "
+          f"{len(lengths)} buckets, padded lengths {lengths}", flush=True)
+    cases = {k: [] for k in QUANT_KERNELS}
+
+    def values(R, C, dtype):
+        x = torch.randn((R, C), generator=gen, device="cuda")
+        x *= torch.exp(torch.randn((R, 1), generator=gen,
+                                   device="cuda") * 3)
+        x[0, :block] = 0.0              # an all-zero block
+        x[R - 1, 3 * block + 5] = 0.0
+        return x.to(dtype)
+
+    def quantize(x, res, extra=None):
+        cases["quantize_rows"].append(quant_case(
+            "quantize_rows", x.shape, x.dtype,
+            fq.quantize_rows(x, block, res),
+            fq.quantize_rows_plain(x, block, res),
+            dict(extra or {}, residual=res)))
+
+    for L in sorted(set(lengths)):
+        half = L // DP_RANKS
+        for dtype in (torch.float32, torch.bfloat16):
+            x = values(DP_RANKS, half, dtype)
+            for res in (True, False):
+                quantize(x, res)
+            quantize(values(1, half, dtype), True, {"phase": 2})
+        q, s, _ = fq.quantize_rows_plain(values(DP_RANKS, half,
+                                                torch.float32), block)
+        cases["dequant_sum_rows"].append(quant_case(
+            "dequant_sum_rows", q.shape, q.dtype,
+            [fq.dequant_sum_rows(q, s, block)],
+            [fq.dequant_sum_rows_plain(q, s, block)]))
+        cases["dequant_rows"].append(quant_case(
+            "dequant_rows", q.shape, q.dtype,
+            [fq.dequant_rows(q, s, block, DP_RANKS)],
+            [fq.dequant_rows_plain(q, s, block, DP_RANKS)]))
+        # the compressed wire: (2, L) fp16 mantissas, 2^e scales
+        m = (torch.rand((DP_RANKS, L), generator=gen, device="cuda") * 2
+             - 1).half()
+        e = torch.exp2(torch.randint(-30, 30, (DP_RANKS, L // block),
+                                     generator=gen, device="cuda").float())
+        cases["dequant_sum_rows"].append(quant_case(
+            "dequant_sum_rows", m.shape, m.dtype,
+            [fq.dequant_sum_rows(m, e, block)],
+            [fq.dequant_sum_rows_plain(m, e, block)]))
+    # R = 4 and 8 rows standing for ranks, at the largest bucket
+    L = max(lengths)
+    for R in (4, 8):
+        x = values(R, L // R // block * block, torch.float32)
+        quantize(x, True)
+        q, s, _ = fq.quantize_rows_plain(x, block)
+        cases["dequant_sum_rows"].append(quant_case(
+            "dequant_sum_rows", q.shape, q.dtype,
+            [fq.dequant_sum_rows(q, s, block)],
+            [fq.dequant_sum_rows_plain(q, s, block)]))
+        cases["dequant_rows"].append(quant_case(
+            "dequant_rows", q.shape, q.dtype,
+            [fq.dequant_rows(q, s, block, R)],
+            [fq.dequant_rows_plain(q, s, block, R)]))
+    # non-finite blocks: a NaN gives s = 1 and q = 0 there, an inf s = inf
+    x = values(DP_RANKS, 64 * block, torch.float32)
+    x[0, 2 * block + 1] = float("nan")
+    x[1, 5 * block + 2] = float("inf")
+    quantize(x, True, {"non_finite": True})
+    _, s, _ = fq.quantize_rows(x, block, True)
+    if not (float(s[0, 2]) == 1.0 and math.isinf(float(s[1, 5]))):
+        raise AssertionError(f"non-finite blocks: scales {s[0, 2]}, "
+                             f"{s[1, 5]}")
+    # another block than 128 takes the strided path
+    quantize(values(DP_RANKS, 64 * 96, torch.float32), True, {"block": 96})
+    for bad in (lambda: fq.quantize_rows(torch.ones(2, 100, device="cuda"),
+                                         block),
+                lambda: fq.dequant_rows(torch.ones(2, 128, device="cuda",
+                                                   dtype=torch.int8),
+                                        torch.ones(2, 2, device="cuda"),
+                                        block)):
+        try:
+            bad()
+        except ValueError:
+            continue
+        raise AssertionError("a shape the kernel does not take was accepted")
+
+    # timed at the path's largest bucket: (2, L/2) fp32 with the residual,
+    # the (2, L/2) int8 partial sum and the (2, L/2) rebuild
+    half = L // DP_RANKS
+    n = DP_RANKS * half
+    nb = n // block
+    x_bytes = 4 * n + n + 4 * nb + 4 * n
+    bufs = copies(lambda: (values(DP_RANKS, half, torch.float32), block,
+                           True), x_bytes)
+    row = dict(quant_case("quantize_rows", (DP_RANKS, half),
+                          torch.float32, [], []), path="comm",
+               **timings(fq.quantize_rows, fq.quantize_rows_plain, bufs),
+               **bound(x_bytes, 4 * n), residual=True)
+    cases["quantize_rows"].append(row)
+    qs = [fq.quantize_rows_plain(b[0], block, False)[:2] for b in bufs]
+    sum_bytes = n + 4 * nb + 4 * half
+    cases["dequant_sum_rows"].append(dict(
+        quant_case("dequant_sum_rows", (DP_RANKS, half), torch.int8,
+                   [], []), path="comm",
+        **timings(fq.dequant_sum_rows, fq.dequant_sum_rows_plain,
+                  [(q, s_, block) for q, s_ in qs]),
+        **bound(sum_bytes, 2 * n)))
+    deq_bytes = n + 4 * nb + 4 * n
+    cases["dequant_rows"].append(dict(
+        quant_case("dequant_rows", (DP_RANKS, half), torch.int8, [],
+                   []), path="comm",
+        **timings(fq.dequant_rows, fq.dequant_rows_plain,
+                  [(q, s_, block, float(DP_RANKS)) for q, s_ in qs]),
+        **bound(deq_bytes, 2 * n)))
+    for name, rows in cases.items():
+        print(f"quant: {name} equal to its plain version bit for bit in "
+              f"{len(rows)} cases", flush=True)
+    return cases
+
+
+def dp_config(comm=None):
+    """configs/gpt_125m_comm.json as written, with the cuts PERF.md §4
+    lists: no "monitor" block (not ported), 2 ranks x micro-batch 16 x 2
+    accumulation steps (the file's 512 / 16 would be 16 steps a rank),
+    a 100-step warmup (the file's 2000 keeps the LR below 21 % of its
+    peak for 6 steps), and the kernels block. ``comm`` replaces the comm
+    block."""
+    with open(ROOT / "configs" / "gpt_125m_comm.json") as f:
+        config = json.load(f)
+    del config["monitor"]
+    config["train_batch_size"] = DP_RANKS * DP_MICRO * DP_GAS
+    config["train_micro_batch_size_per_gpu"] = DP_MICRO
+    config["scheduler"]["params"]["warmup_num_steps"] = DP_WARMUP_STEPS
+    config["kernels"] = {"mode": "auto"}
+    if comm is not None:
+        config["comm"] = comm
+    return config
+
+
+def params_digest(params):
+    import hashlib
+
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().contiguous().view(torch.int16).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank, tmp):
+    """One rank of phase 14 (spawned): joins the gloo group, trains
+    GPT-NeoX-125M with the int8 comm block, then with fp32 comm, and
+    writes its report to ``tmp``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(tmp) / "store"), DP_RANKS)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=DP_RANKS)
+    try:
+        report = {"rank": rank}
+        for comm in ("int8", "fp32"):
+            report[comm] = dp_run(rank, None if comm == "int8"
+                                  else {"mode": "fp32"})
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_run(rank, comm):
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
+                                                  make_gpt)
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    cfg = get_preset("neox-125m", max_seq=1024, remat_policy="matmuls",
+                     ce_chunk=0, dtype=torch.bfloat16)
+    config = dp_config(comm)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    randomize_affine(params, gen)
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    rows = config["train_batch_size"]
+    batch = np.asarray(corpus[: rows * (cfg.max_seq + 1)],
+                       dtype=np.int64).reshape(rows, cfg.max_seq + 1)
+    out = {}
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(
+            model=make_gpt(cfg)[2], model_parameters=params, config=config)
+        zero0 = sum(12 * p.numel() for p in tree_leaves(params))
+        del params
+        if comm is None and rank == 0:
+            out["parity"] = compare_paths(
+                engine, make_gpt(cfg)[2],
+                make_gpt(dataclasses.replace(cfg, attn_impl="xla"))[2],
+                torch.from_numpy(batch[:DP_MICRO]).cuda(), config["kernels"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = (tree_leaves(engine.master)
+                 + tree_leaves(engine.opt_state.exp_avg)
+                 + tree_leaves(engine.opt_state.exp_avg_sq))
+        red = engine.comm
+        digests = []
+        staged0 = red.transport.staged_bytes
+        reduce_s = []
+        reduce = engine._reduce_grads
+
+        def timed_reduce(grads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads = reduce(grads)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+            return grads
+
+        engine._reduce_grads = timed_reduce
+        run = run_steps(engine, batch, kernel_counters(), DP_STEPS,
+                        after_step=lambda i: digests.append(params_digest(
+                            engine.params)))
+        out.update(run)
+        out.update(
+            digests=digests, reduce_s=reduce_s,
+            skipped_steps=engine.skipped_steps,
+            mode=red.cfg.mode, hier_k=red.hier_k or 0,
+            n_buckets=red.n_buckets,
+            bucket_padded=[b.padded for b in red.plan.buckets],
+            wire_bytes_per_step=red.total_wire_bytes(),
+            staged_bytes_per_step=(red.transport.staged_bytes - staged0)
+            / DP_STEPS,
+            state_bytes=sum(t.numel() * t.element_size() for t in state),
+            zero0_state_bytes=zero0,
+            replicated_leaves=sum(1 for sp in engine._specs
+                                  if not sp.sharded),
+            leaves=len(engine._specs),
+            tokens_per_step_per_rank=DP_MICRO * DP_GAS * cfg.max_seq,
+            n_layer=cfg.n_layer, d_model=cfg.d_model)
+    del engine, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_training_phase(card):
+    """Phase 14: 2 ranks on one card train GPT-NeoX-125M under the blocks
+    of configs/gpt_125m_comm.json (int8 comm, ZeRO 1), then with fp32
+    comm; see the module docstring. Returns the int8 run's launches (both
+    ranks) and its launches per step per rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(dp_rank, args=(tmp,), nprocs=DP_RANKS,
+                           start_method="spawn", join=True)
+        seconds = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(DP_RANKS)]
+    int8 = [r["int8"] for r in ranks]
+    fp32 = [r["fp32"] for r in ranks]
+    first = int8[0]
+    gas = DP_GAS
+    L = first["n_layer"]
+    nb = first["n_buckets"]
+    base = {"flash_fwd": L * gas, "flash_bwd": L * gas, "ln_fwd": gas,
+            "ln_bwd": gas, "bias_gelu_fwd": 2 * L * gas,
+            "bias_gelu_bwd": L * gas, "add_ln_fwd": 0, "add_ln_bwd": 0,
+            "supertile_fwd": 0, "supertile_bwd": 0,
+            # every leaf fp32 master with a bf16 cast: one combination
+            "fused_adam": 1, "sparse_fwd": 0, "sparse_bwd": 0}
+    # the flat int8 schedule with error feedback, per bucket: quantize the
+    # W chunks and the partial sum, one row sum, one rebuild
+    expected = dict(base, quantize_rows=2 * nb, dequant_sum_rows=nb,
+                    dequant_rows=nb)
+    expected_fp32 = dict(base, quantize_rows=0, dequant_sum_rows=0,
+                         dequant_rows=0)
+    report = {"card": card, "ranks": DP_RANKS, "micro_batch": DP_MICRO,
+              "grad_accum": gas, "steps": DP_STEPS,
+              "warmup_num_steps": DP_WARMUP_STEPS, "spawn_s": seconds,
+              "parity": first["parity"]}
+    for name, runs, want in (("int8", int8, expected),
+                             ("fp32", fp32, expected_fp32)):
+        for r, run in enumerate(runs):
+            per_step = {k: n / DP_STEPS for k, n in run["launches"].items()}
+            if per_step != want:
+                raise AssertionError(f"{name} rank {r}: launches per step "
+                                     f"{per_step}, expected {want}")
+            losses, norms = run["losses"], run["grad_norms"]
+            if (not all(math.isfinite(x) for x in losses)
+                    or losses[-1] >= losses[0]):
+                raise AssertionError(f"{name} rank {r}: losses not finite "
+                                     f"and falling: {losses}")
+            if run["skipped_steps"] or not all(
+                    math.isfinite(n_) and n_ > 0 for n_ in norms):
+                raise AssertionError(f"{name} rank {r}: skipped "
+                                     f"{run['skipped_steps']}; grad norms "
+                                     f"{norms}")
+            ratio = run["state_bytes"] / run["zero0_state_bytes"]
+            if not ratio <= ZERO1_STATE_RATIO:
+                raise AssertionError(f"{name} rank {r}: ZeRO 1 keeps "
+                                     f"{ratio:.3f} of ZeRO 0's state bytes")
+        if runs[0]["digests"] != runs[1]["digests"]:
+            raise AssertionError(f"{name}: the ranks' params differ after a "
+                                 f"step: {runs[0]['digests']} / "
+                                 f"{runs[1]['digests']}")
+        if runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        step_ms = statistics.median(runs[0]["step_s"][1:]) * 1e3
+        reduce_ms = statistics.median(runs[0]["reduce_s"][1:]) * 1e3
+        report[name] = {
+            "losses": runs[0]["losses"], "grad_norms": runs[0]["grad_norms"],
+            "lrs": runs[0]["lrs"],
+            "step_ms_median_2_6": [statistics.median(r_["step_s"][1:]) * 1e3
+                                   for r_ in runs],
+            "reduce_ms_median_2_6": reduce_ms,
+            "reduce_share": reduce_ms / step_ms,
+            "tokens_per_s": DP_RANKS * runs[0]["tokens_per_step_per_rank"]
+            / (step_ms / 1e3),
+            "peak_mem_gib": [r_["peak_mem_gib"] for r_ in runs],
+            "n_buckets": runs[0]["n_buckets"],
+            "bucket_padded": runs[0]["bucket_padded"],
+            "hier_k": runs[0]["hier_k"],
+            "wire_bytes_per_step": runs[0]["wire_bytes_per_step"],
+            "staged_bytes_per_step": runs[0]["staged_bytes_per_step"],
+            "state_bytes": [r_["state_bytes"] for r_ in runs],
+            "zero0_state_bytes": runs[0]["zero0_state_bytes"],
+            "replicated_leaves": runs[0]["replicated_leaves"],
+            "leaves": runs[0]["leaves"],
+            "launches_per_step_per_rank": {
+                k: n / DP_STEPS for k, n in runs[0]["launches"].items()
+                if k in QUANT_KERNELS or n},
+        }
+    gap = max(abs(a - b) / abs(b) for a, b in zip(report["int8"]["losses"],
+                                                  report["fp32"]["losses"]))
+    report["int8_vs_fp32_loss_rel_max"] = gap
+    print("dp training: " + json.dumps(report), flush=True)
+    if not gap <= INT8_LOSS_RTOL:
+        raise AssertionError(f"int8 losses {report['int8']['losses']} leave "
+                             f"the fp32-comm ones {report['fp32']['losses']}"
+                             f" by {gap:.3e} (limit {INT8_LOSS_RTOL})")
+    launches = {k: sum(r["launches"][k] for r in int8)
+                for k in int8[0]["launches"]}
+    per_step = {k: n / DP_STEPS for k, n in int8[0]["launches"].items()}
+    return launches, per_step
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2029,6 +2498,7 @@ def main() -> int:
     from deeperspeed_tpu_torch.ops import flash_static as fs
     from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
+    from deeperspeed_tpu_torch.ops import fused_quant as fq
     from deeperspeed_tpu_torch.ops import op_builder
     from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
 
@@ -2038,14 +2508,17 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
     t0 = time.perf_counter()
+    # every source is built here, before phase 14 spawns its ranks, so the
+    # ranks load the libraries and never race on build/kernels/
     sources = ("fused_blocks", "flash_attention", "supertile_attention",
-               "fused_adam", "sparse_attention")
+               "fused_adam", "sparse_attention", "fused_quant")
     op_builder.build_all(sources)
     fb._lib()
     fa._lib()
     fs._lib()
     fad._lib()
     bs._lib()
+    fq._lib()
     print(f"build: {', '.join(s_ + '.cu' for s_ in sources)} in "
           f"{time.perf_counter() - t0:.2f} s, side by side", flush=True)
     for name in sources:
@@ -2069,10 +2542,16 @@ def main() -> int:
     cases.update(sparse_phase(bs, gen))
     gc.collect()
     torch.cuda.empty_cache()
+    cases.update(quant_phase(fq, gen))
+    gc.collect()
+    torch.cuda.empty_cache()
     for name, rows in cases.items():
         for r in rows:
             if "ms" in r:
                 print(f"kernel {name}: " + json.dumps(r), flush=True)
+        if name in QUANT_KERNELS:
+            # held bit for bit: quant_case raised on any differing element
+            continue
         worst = max(rows, key=lambda r: r["max_abs_err"] / r["tol"])
         print(f"kernel {name}: {len(rows)} cases within tolerance; "
               f"closest to its limit: " + json.dumps(worst), flush=True)
@@ -2091,11 +2570,15 @@ def main() -> int:
     resume = resume_phase(card, after)
     bert, bert_per_step = bert_training_phase(card)
     sparse, sparse_per_step = sparse_training_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp, dp_per_step = dp_training_phase(card)
 
     # each path's counts were set to 0 just before it and read just after
+    # (phase 14's in each rank, summed over the ranks)
     paths = {"serving": serving, "gpt_training": training,
              "gpt_resume": resume, "bert_training": bert,
-             "sparse_training": sparse}
+             "sparse_training": sparse, "dp_training": dp}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -2104,6 +2587,8 @@ def main() -> int:
         bert_row = name.startswith(("add_ln", "supertile"))
         if name.startswith("sparse"):
             head = next(r for r in rows if r.get("path") == "sparse")
+        elif name in QUANT_KERNELS:
+            head = next(r for r in rows if r.get("path") == "comm")
         else:
             head = next(r for r in rows if "ms" in r
                         and r["dtype"] == "bfloat16"
@@ -2123,7 +2608,9 @@ def main() -> int:
             "launches_by_path": by_path,
             "launches_per_step": {"gpt_training": per_step[name],
                                   "bert_training": bert_per_step[name],
-                                  "sparse_training": sparse_per_step[name]},
+                                  "sparse_training": sparse_per_step[name],
+                                  "dp_training_per_rank":
+                                      dp_per_step[name]},
         }
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]

@@ -15,8 +15,13 @@ selection switch, the CUDA kernels for LayerNorm, residual-add LayerNorm
 and bias+GeLU forward and backward (``csrc/fused_blocks.cu``), flash and
 short-sequence attention forward and backward (``csrc/flash_attention.cu``,
 ``csrc/supertile_attention.cu``) and the fused Adam update
-(``csrc/fused_adam.cu``), BERT pretraining, and checkpoints in the
-reference's file format (``Engine.save_checkpoint``/``load_checkpoint``).
+(``csrc/fused_adam.cu``), BERT pretraining, checkpoints in the
+reference's file format (``Engine.save_checkpoint``/``load_checkpoint``),
+block-sparse attention (``csrc/sparse_attention.cu``), and data-parallel
+training over ``torch.distributed`` ranks: the ``"mesh"`` block
+(``sharding/``), ZeRO stages 1 and 2 (``runtime/zero/``) and the bucketed
+gradient reducer with its int8 wire-format kernels (``runtime/comm/``,
+``csrc/fused_quant.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper takes its plain PyTorch version. This package

@@ -12,9 +12,8 @@ place and fsync the directory. Loads map the file and decode views into
 the mapping, so a caller can copy each leaf where it belongs without a
 second host copy of the whole tree.
 
-Not ported: the orbax ``sharded_state`` layout (``checkpoint.sharded_io``)
-comes with ZeRO and data parallel (ROADMAP.md queue 1, item 6), and the
-cross-process tag check with the multi-process runtime (item 11).
+Not ported: the orbax ``sharded_state`` layout (``checkpoint.sharded_io``;
+ROADMAP.md queue 1, item 'Sharded checkpoints').
 """
 
 import mmap
@@ -130,16 +129,23 @@ def read_latest(load_dir: str) -> Optional[str]:
 
 
 def validate_tag_across_processes(tag: str, fail_on_mismatch: bool) -> bool:
-    """Cross-process checkpoint-tag consistency. One process: trivially
-    true. The multi-process check comes with the multi-process runtime."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "checkpoint tag validation across processes is not ported to "
-            "the PyTorch package yet (ROADMAP.md queue 1, item 'Resilience "
-            "and multi-process runtime')")
-    return True
+    """Cross-process checkpoint-tag consistency: every rank of the
+    initialized world must save under the same tag (one process: trivially
+    true). A mismatch raises when ``fail_on_mismatch``, else warns."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return True
+    tags = [None] * dist.get_world_size()
+    dist.all_gather_object(tags, str(tag))
+    ok = all(t == str(tag) for t in tags)
+    if not ok:
+        if fail_on_mismatch:
+            raise ValueError(f"checkpoint tag '{tag}' differs across "
+                             f"processes: {tags}")
+        logger.warning("checkpoint tag '%s' differs across processes: %s",
+                       tag, tags)
+    return ok
 
 
 class CheckpointEngine:
@@ -170,7 +176,7 @@ def consolidate_fp32_state(checkpoint_dir: str) -> Dict:
         raise NotImplementedError(
             f"{checkpoint_dir} holds the orbax sharded_state layout, which "
             f"the PyTorch package does not read yet (ROADMAP.md queue 1, "
-            f"item 'ZeRO and data parallel')")
+            f"item 'Sharded checkpoints')")
     for fname in sorted(os.listdir(checkpoint_dir)):
         if fname.startswith("zero_pp_rank_") and fname.endswith(".msgpack"):
             optim = load_tree(os.path.join(checkpoint_dir, fname))

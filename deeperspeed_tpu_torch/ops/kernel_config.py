@@ -12,14 +12,14 @@ config block picks how the fused surfaces execute.
            plain PyTorch otherwise. This is the production setting.
 
 Per-surface booleans (fused_blocks / fused_adam / supertile / fused_quant)
-narrow a mode to a subset of surfaces, as in the reference. Three surfaces
-have kernels in the port so far: ``fused_blocks`` (LayerNorm,
+narrow a mode to a subset of surfaces, as in the reference. All four
+surfaces have kernels in the port: ``fused_blocks`` (LayerNorm,
 residual-add LayerNorm, bias+GeLU; ops/fused_blocks.py), ``supertile``
 (short-sequence attention; ops/flash_static.py, routed by
-ops/flash_attention.py) and ``fused_adam`` (the multi-tensor Adam update;
-ops/fused_adam.py, routed by ops/adam.py). ``fused_quant`` is accepted so
-the same config blocks parse; its kernels come with the data-parallel
-reducer.
+ops/flash_attention.py), ``fused_adam`` (the multi-tensor Adam update;
+ops/fused_adam.py, routed by ops/adam.py) and ``fused_quant`` (the int8
+wire format of the gradient reducer; ops/fused_quant.py, routed by
+runtime/comm/reducer.py).
 
 ``interpret`` is accepted for config compatibility, but only as False:
 there is no interpret mode for a CUDA kernel, and True raises.

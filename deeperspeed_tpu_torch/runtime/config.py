@@ -13,15 +13,20 @@ that ports it; nothing is ignored. The blocks the port runs: the batch
 triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``,
 ``sparse_attention`` (read by ``get_sparse_attention``, as in the
-reference) and ``checkpoint`` (tag validation; ``sharded_io: true``, the
-orbax layout, raises until ZeRO and data parallel are ported).
+reference), ``zero_optimization`` stages 0-2 (``zero_config``), ``mesh``
+with dp and fsdp (``mesh_config``), ``comm`` (``comm_config``) and
+``checkpoint`` (tag validation; ``sharded_io: true``, the orbax layout,
+raises until sharded checkpoints are ported).
 """
 
 import copy
 
+from ..sharding.config import MeshConfig
 from ..utils.logging import logger
 from . import constants as c
+from .comm.config import CommConfig
 from .config_utils import load_config
+from .zero.config import ZeroConfig
 
 
 class ConfigError(Exception):
@@ -68,8 +73,8 @@ class TrainingConfig:
         stage = zero.get(c.ZERO_STAGE, 0)
         if not (0 <= stage <= c.MAX_STAGE_ZERO_OPTIMIZATION):
             raise ValueError(f"ZeRO stage must be in [0, 3], got {stage}")
-        if stage > 0:
-            raise _unported(f"ZeRO stage {stage}", "ZeRO and data parallel")
+        if stage == 3:
+            raise _unported("ZeRO stage 3", "Offload and ZeRO-Infinity")
         for key in (c.ZERO_OFFLOAD_OPTIMIZER, c.ZERO_OFFLOAD_PARAM):
             device = (zero.get(key) or {}).get(c.ZERO_OFFLOAD_DEVICE,
                                                c.ZERO_OFFLOAD_DEVICE_NONE)
@@ -82,8 +87,6 @@ class TrainingConfig:
 
         presence = (
             (c.STREAMING, "Offload and ZeRO-Infinity"),
-            (c.MESH, "ZeRO and data parallel"),
-            (c.COMM, "runtime/comm/"),
             (c.MONITOR, "Monitor"),
             (c.DISTRIBUTED, "Resilience and multi-process runtime"),
             (c.RESILIENCE, "Resilience and multi-process runtime"),
@@ -225,8 +228,48 @@ class TrainingConfig:
         self.zero_allow_untested_optimizer = pd.get(
             c.ZERO_ALLOW_UNTESTED_OPTIMIZER,
             c.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)
-        self.zero_enabled = False
-        self.zero_optimization_stage = 0
+        self.zero_config = ZeroConfig(pd)
+        self.zero_enabled = self.zero_config.enabled
+        self.zero_optimization_stage = self.zero_config.stage
+
+        # ---- comm (bucketed / quantized gradient collectives) ----
+        self.comm_params = pd.get(c.COMM, None)
+        if self.comm_params is not None and not isinstance(
+                self.comm_params, dict):
+            raise ConfigError('"comm" must be a dict of CommConfig '
+                              'overrides (or {"enabled": false})')
+        self.comm_enabled = _block_enabled(pd, c.COMM)
+        self._comm_config = None
+        if self.comm_enabled:
+            try:
+                self._comm_config = CommConfig.from_dict(
+                    dict(self.comm_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(f'invalid "comm" block: {e}') from e
+            if self._comm_config.overlap != "off":
+                raise _unported(
+                    f'comm "overlap": "{self._comm_config.overlap}" (the '
+                    f'backward-overlap schedule)', "runtime/comm/")
+
+        # ---- named mesh (dp x fsdp layout) ----
+        self.mesh_params = pd.get(c.MESH, None)
+        if self.mesh_params is not None and not isinstance(
+                self.mesh_params, dict):
+            raise ConfigError('"mesh" must be a dict of axis extents like '
+                              '{"dp": 2, "fsdp": 4} (or {"enabled": false})')
+        self.mesh_enabled = _block_enabled(pd, c.MESH)
+        self._mesh_config = None
+        if self.mesh_enabled:
+            try:
+                self._mesh_config = MeshConfig.from_dict(
+                    dict(self.mesh_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(f'invalid "mesh" block: {e}') from e
+            if self._mesh_config.tp != 1 or self._mesh_config.sp != 1:
+                raise _unported(
+                    f'mesh "tp": {self._mesh_config.tp}, "sp": '
+                    f'{self._mesh_config.sp} (tensor and sequence '
+                    f'parallelism)', "MoE, TP and pipeline")
 
         self.wall_clock_breakdown = pd.get(c.WALL_CLOCK_BREAKDOWN,
                                            c.WALL_CLOCK_BREAKDOWN_DEFAULT)
@@ -249,7 +292,7 @@ class TrainingConfig:
             self.checkpoint_tag_validation_mode == "Fail")
         if ckpt.get(c.CHECKPOINT_SHARDED_IO, c.CHECKPOINT_SHARDED_IO_DEFAULT):
             raise _unported("checkpoint.sharded_io (the orbax per-shard "
-                            "layout)", "ZeRO and data parallel")
+                            "layout)", "Sharded checkpoints")
         self.load_from_fp32_weights = pd.get(c.LOAD_FROM_FP32_WEIGHTS, True)
 
         # ---- continuous-batching serving ----
@@ -286,6 +329,16 @@ class TrainingConfig:
         # read, not built: get_sparse_attention builds (and checks) it, as
         # the reference does
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
+
+    def comm_config(self):
+        """The "comm" block as a CommConfig (None when absent or
+        disabled), validated at parse time."""
+        return self._comm_config
+
+    def mesh_config(self):
+        """The "mesh" block as a sharding.MeshConfig (None when absent or
+        disabled), validated at parse time."""
+        return self._mesh_config
 
     def serving_config(self):
         """The "serving" block as a ServingConfig (None when the block is

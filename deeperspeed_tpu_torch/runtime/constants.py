@@ -143,7 +143,7 @@ CHECKPOINT_TAG_VALIDATION = "tag_validation"
 CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
 CHECKPOINT_TAG_VALIDATION_MODES = ("Warn", "Ignore", "Fail")
 # orbax per-shard parallel IO in the reference; refused by the port until
-# ZeRO and data parallel are ported
+# sharded checkpoints are ported
 CHECKPOINT_SHARDED_IO = "sharded_io"
 CHECKPOINT_SHARDED_IO_DEFAULT = False
 

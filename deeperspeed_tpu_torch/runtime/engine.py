@@ -30,11 +30,24 @@ same model, so either engine resumes from the other's files. A load
 copies each leaf from the mapped file straight into the engine's own
 tensors.
 
+Data parallelism: with an initialized ``torch.distributed`` world each
+process is one rank of the engine's mesh (the ``"mesh"`` block, or every
+rank on the legacy ``data`` axis; world 1 without one). A global batch
+handed to ``train_batch`` is split over the ranks along its leading dim
+(rank r takes the r-th block of rows, as the reference's ``place_batch``
+shards it), each rank sums its local gradients over its micro-batches,
+and at the accumulation boundary the gradients are reduced once: by the
+comm ``GradReducer`` when a ``"comm"`` block is active, else by an fp32
+all-reduce mean per leaf. ZeRO stages 1 and 2 keep each rank's shard of
+the fp32 master and the Adam moments (runtime/zero/partition.py) as
+contiguous copies, update them (the fused Adam kernel over the shards),
+and all-gather the updated compute-dtype params.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
-and the mesh, comm, monitor hooks, the resilience manager,
-``store_gradients``, the switch that turns on the layer-output capture
-(the models' taps are ported, utils/hooks.py), the flops profiler,
-offload and the pipeline engine.
+stage 3 and offload, tensor and pipeline parallelism, the comm overlap
+schedule, monitor hooks, the resilience manager, ``store_gradients``,
+the switch that turns on the layer-output capture (the models' taps are
+ported, utils/hooks.py) and the flops profiler.
 """
 
 import inspect
@@ -55,13 +68,20 @@ from ..ops.adam import FusedAdam, tree_leaves, tree_map
 from ..ops.lamb import FusedLamb
 from ..ops import kernel_config
 from ..resilience.manifest import resolve_load_tag
+from ..sharding import mesh as mesh_lib
+from ..sharding import rules
+from ..sharding.config import MeshConfig
 from ..utils.logging import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import lr_schedules
 from .accessors import ConfigAccessorsMixin
+from .comm.collectives import Transport
+from .comm.reducer import GradReducer
 from .config import TrainingConfig
+from .config_utils import load_config
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, create_loss_scaler
+from .zero import partition
 
 FORWARD_MICRO_TIMER = "forward_microstep"
 BACKWARD_MICRO_TIMER = "backward_microstep"
@@ -104,6 +124,7 @@ class Engine(ConfigAccessorsMixin):
         collate_fn=None,
         device=None,
         rng: Optional[int] = None,
+        mesh=None,
     ):
         self._config = config
         self.loss_fn = model
@@ -131,7 +152,7 @@ class Engine(ConfigAccessorsMixin):
             torch.float32 if gad in ("fp32", "float32")
             else torch.bfloat16 if gad in ("bf16", "bfloat16")
             else self._grad_dtype)
-        self.zero_stage = 0
+        self._init_mesh(config, mesh)
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -162,6 +183,20 @@ class Engine(ConfigAccessorsMixin):
         self.lr_scheduler = lr_scheduler or self._configure_lr_scheduler()
         self._client_lr = _optimizer_base_lr(self.optimizer, config)
 
+        # ZeRO: the shard of each leaf this rank keeps of the fp32 master
+        # and the moments (replicated below stage 1, or where no dim
+        # divides the ZeRO size)
+        self.master_specs = partition.tree_specs(params, self.zero_stage,
+                                                 self.mesh, "master")
+        self._specs = tree_leaves(self.master_specs)
+        if (any(sp.sharded for sp in self._specs)
+                and not isinstance(self.optimizer, FusedAdam)):
+            raise NotImplementedError(
+                f"ZeRO stage {self.zero_stage} over {self._zero_size} ranks "
+                f"shards the optimizer state, which the port does only for "
+                f"Adam (LAMB's trust ratio needs whole-leaf norms); use stage "
+                f"0 or one rank")
+
         # the engine owns its state: copies, never aliases of the caller's
         with torch.no_grad():
             self.params = tree_map(
@@ -169,12 +204,38 @@ class Engine(ConfigAccessorsMixin):
                     self.device, self._compute_dtype, copy=True
                 ).requires_grad_(True), params)
             # the fp32 master starts from the caller's values, not from
-            # their compute-dtype cast
-            self.master = (tree_map(lambda p: torch.as_tensor(p).to(
-                self.device, torch.float32, copy=True), params)
+            # their compute-dtype cast; under ZeRO each rank keeps its shard
+            self.master = (tree_map(
+                lambda p, sp: partition.shard_of(torch.as_tensor(p).to(
+                    self.device, torch.float32, copy=True), sp,
+                    self._zero_index), params, self.master_specs)
                            if self._use_master else None)
-        self.opt_state = self.optimizer.init(
-            self.master if self._use_master else self.params)
+            # what the optimizer updates: the master (shards), or in
+            # masterless mode the params themselves (contiguous copies of
+            # the shards, gathered back into the params after each update)
+            self._opt_target = (self.master if self._use_master else tree_map(
+                lambda p, sp: partition.shard_of(p.detach(), sp,
+                                                 self._zero_index),
+                self.params, self.master_specs))
+            # where a master path's update writes the compute-dtype params:
+            # the params of replicated leaves, shard buffers of sharded ones
+            self._cast_target = (tree_map(
+                lambda p, sp: p if not sp.sharded else torch.empty(
+                    partition.shard_of(p.detach(), sp,
+                                       self._zero_index).shape,
+                    dtype=p.dtype, device=p.device),
+                self.params, self.master_specs)
+                                 if self._use_master else None)
+        self.opt_state = self.optimizer.init(self._opt_target)
+
+        # the gradient reduction at the accumulation boundary
+        self.comm = None
+        self._comm_state = None
+        if config.comm_config() is not None:
+            self.comm = GradReducer(config.comm_config(), self.mesh,
+                                    axis_name=self.batch_axes)
+            self.comm.build_plan(params)
+            self._comm_state = self.comm.init_state(self.device)
         self.scaler_state = self._loss_scaler.init()
         self.skipped = 0          # overflow-skipped optimizer steps
         self.optimizer_steps = 0  # applied optimizer steps
@@ -184,8 +245,34 @@ class Engine(ConfigAccessorsMixin):
             self.training_dataloader = self.deepspeed_io(
                 training_data, collate_fn=collate_fn)
         log_dist(f"engine ready: precision={config.precision} "
-                 f"device={self.device} master={self._use_master}",
-                 ranks=[0])
+                 f"device={self.device} master={self._use_master} "
+                 f"zero_stage={self.zero_stage} mesh={self.mesh.shape} "
+                 f"dp={self.data_parallel_size}", ranks=[0])
+
+    def _init_mesh(self, config, mesh):
+        """The mesh (the "mesh" block's, or every rank on the legacy data
+        axis), the data-parallel and ZeRO groups of this rank."""
+        if mesh is None:
+            mc = config.mesh_config()
+            mesh = (mesh_lib.from_config(mc) if mc is not None
+                    else mesh_lib.default_mesh())
+        self.mesh = mesh
+        self.batch_axes = rules.batch_axes(mesh)
+        self.data_parallel_size = rules.data_parallel_size(mesh)
+        self.dp_world_size = self.data_parallel_size
+        self.dp_rank = rules.batch_index(mesh)
+        if config.world_size != self.data_parallel_size:
+            raise ValueError(
+                f"the config's batch triple was derived for world size "
+                f"{config.world_size}, the mesh {mesh.shape} has "
+                f"{self.data_parallel_size} data-parallel ranks")
+        self._dp = Transport(mesh.group(self.batch_axes))
+        self.zero_stage = config.zero_optimization_stage
+        zaxis = rules.zero_axis(mesh)
+        self._zero_size = rules.zero_size(mesh)
+        self._zero_index = (mesh.axis_index((zaxis,)) if zaxis is not None
+                            else 0)
+        self._zero = Transport(mesh.group((zaxis,)) if zaxis else None)
 
     # ------------------------------------------------------------------ #
     # construction helpers
@@ -264,7 +351,11 @@ class Engine(ConfigAccessorsMixin):
 
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None,
                      shuffle=False):
-        batch_size = batch_size or self.train_micro_batch_size_per_gpu()
+        """A loader of global micro-batches (micro * data-parallel size
+        rows, as the reference's): every rank loads the same rows and
+        ``train_batch`` keeps its block of them."""
+        batch_size = batch_size or (self.train_micro_batch_size_per_gpu()
+                                    * self.data_parallel_size)
         return DeepSpeedDataLoader(dataset, batch_size=batch_size,
                                    collate_fn=collate_fn, shuffle=shuffle)
 
@@ -282,12 +373,17 @@ class Engine(ConfigAccessorsMixin):
     # ------------------------------------------------------------------ #
 
     def _place_batch(self, batch):
-        """A host batch (numpy arrays or tensors, or tuples/lists/dicts of
-        them) on the engine's device; integer arrays become int64."""
+        """This rank's rows of a global batch (numpy arrays or tensors, or
+        tuples/lists/dicts of them; the leading dim split over the
+        data-parallel ranks) on the engine's device; integer arrays
+        become int64."""
+        return self._to_device(rules.place_batch(self.mesh, batch))
+
+    def _to_device(self, batch):
         if isinstance(batch, dict):
-            return {k: self._place_batch(v) for k, v in batch.items()}
+            return {k: self._to_device(v) for k, v in batch.items()}
         if isinstance(batch, (tuple, list)):
-            return type(batch)(self._place_batch(v) for v in batch)
+            return type(batch)(self._to_device(v) for v in batch)
         if isinstance(batch, torch.Tensor):
             return batch.to(self.device)
         a = np.asarray(batch)
@@ -350,9 +446,36 @@ class Engine(ConfigAccessorsMixin):
             g.copy_(g.float() * coef)
         return gnorm, bool(torch.isfinite(gnorm))
 
+    @torch.no_grad()
+    def _reduce_grads(self, grads):
+        """The mean over the data-parallel ranks of each rank's local
+        (scaled, micro-batch-summed) grads, the same bits on every rank: the
+        comm GradReducer's buckets when a "comm" block is active, else an
+        fp32 all-reduce mean per leaf. Identity on one rank."""
+        if self.data_parallel_size == 1:
+            return grads
+        grads = [g.to(self._grad_dtype) for g in grads]
+        if self.comm is not None:
+            mean, self._comm_state = self.comm.reduce_dispatch(
+                tree_unflatten(self.params, grads), self._comm_state)
+            return tree_leaves(mean)
+        inv = torch.full((), float(self.data_parallel_size),
+                         dtype=torch.float32, device=self.device)
+        return [self._dp.all_reduce_sum(g.float()) / inv for g in grads]
+
+    def _mean_loss(self, loss):
+        """The mean over the data-parallel ranks of each rank's loss."""
+        if self.data_parallel_size == 1:
+            return loss
+        return self._dp.all_reduce_sum(loss.reshape(1))[0] / \
+            self.data_parallel_size
+
     def _apply_update(self, grads, lr, gas):
         """Unscale, clip and, unless the grads overflowed, step the
-        optimizer; returns the step's metrics."""
+        optimizer on this rank's shards, then all-gather the updated
+        params of the sharded leaves; returns the step's metrics. The norm
+        and the clip are taken on the full reduced grads, so every ZeRO
+        stage computes the same update."""
         grads = [g.to(self._grad_dtype) for g in grads]
         clip = float(self._config.gradient_clipping or 0.0)
         loss_scale = self.scaler_state.loss_scale
@@ -360,20 +483,30 @@ class Engine(ConfigAccessorsMixin):
         overflow = not finite
         if not overflow:
             with torch.no_grad():
-                target = self.master if self._use_master else self.params
-                grads = tree_unflatten(target, grads)
+                target = self._opt_target
+                grads = tree_unflatten(target, [
+                    partition.shard_of(g, sp, self._zero_index)
+                    for g, sp in zip(grads, self._specs)])
                 if isinstance(self.optimizer, FusedAdam):
-                    # the compute-dtype params are written in the update's
-                    # own pass (the fused kernel's cast output)
+                    # the compute-dtype params (or their shards) are
+                    # written in the update's own pass (the fused kernel's
+                    # cast output)
                     _, self.opt_state = self.optimizer.update(
                         grads, self.opt_state, target, lr,
-                        cast=self.params if self._use_master else None)
+                        cast=self._cast_target)
                 else:
                     _, self.opt_state = self.optimizer.update(
                         grads, self.opt_state, target, lr)
                     if self._use_master:
-                        tree_map(lambda p, m: p.copy_(m), self.params,
+                        tree_map(lambda c, m: c.copy_(m), self._cast_target,
                                  self.master)
+                del grads
+                updated = tree_leaves(self._cast_target if self._use_master
+                                      else target)
+                for p, u, sp in zip(tree_leaves(self.params), updated,
+                                    self._specs):
+                    if sp.sharded:
+                        partition.gather_into(p, u, sp, self._zero)
             self.optimizer_steps += 1
         else:
             self.skipped += 1
@@ -406,9 +539,10 @@ class Engine(ConfigAccessorsMixin):
         return loss
 
     def backward(self, loss=None, allreduce_gradients=True):
-        """Bank the gradients of the last ``forward()``'s loss. With one
-        device there is no reduction to route, so ``allreduce_gradients``
-        is accepted for API compatibility."""
+        """Bank the gradients of the last ``forward()``'s loss. The
+        reduction over the data-parallel ranks runs once, in ``step()`` at
+        the accumulation boundary, so ``allreduce_gradients`` is accepted
+        for API compatibility."""
         if self._stashed is None:
             raise RuntimeError("backward() requires a prior forward()")
         stashed, self._stashed = self._stashed, None
@@ -428,7 +562,8 @@ class Engine(ConfigAccessorsMixin):
         if wall:
             self.timers(STEP_MICRO_TIMER).safe_start()
         if self._acc_count >= self.gradient_accumulation_steps():
-            metrics = self._apply_update(self._grad_acc, self._current_lr(),
+            metrics = self._apply_update(self._reduce_grads(self._grad_acc),
+                                         self._current_lr(),
                                          float(self._acc_count))
             self._grad_acc = None
             self._acc_count = 0
@@ -464,11 +599,11 @@ class Engine(ConfigAccessorsMixin):
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             del loss
-        metrics = self._apply_update(self._grad_acc, self._current_lr(),
-                                     float(gas))
+        metrics = self._apply_update(self._reduce_grads(self._grad_acc),
+                                     self._current_lr(), float(gas))
         self._grad_acc = None
         self._acc_count = 0
-        metrics["loss"] = loss_sum / gas
+        metrics["loss"] = self._mean_loss(loss_sum / gas)
         self.micro_steps += gas
         self._after_optimizer_step(metrics)
         self.tput_timer.stop(global_step=True, sync_with=metrics["loss"])
@@ -504,11 +639,29 @@ class Engine(ConfigAccessorsMixin):
     # checkpoints
     # ------------------------------------------------------------------ #
 
+    def _full(self, tree):
+        """A tree like the params whose sharded leaves (ZeRO) are gathered
+        whole from every rank of the ZeRO group: collective, every rank
+        calls it."""
+        def leaf(t, sp):
+            if not sp.sharded:
+                return t
+            shape = list(t.shape)
+            shape[sp.dim] *= sp.size
+            full = torch.empty(shape, dtype=t.dtype, device=t.device)
+            partition.gather_into(full, t, sp, self._zero)
+            return full
+        return tree_map(leaf, tree, self.master_specs)
+
     def _host_checkpoint_payload(self, client_state=None):
         """What a checkpoint stores, keyed by file name: the reference's
         model-state and optimizer-state trees, with the same leaf names,
         dtypes and nesting (step counters as int32 0-d arrays, the loss
-        scaler's fields as 0-d float32/int32). Tensors stay where they are;
+        scaler's fields as 0-d float32/int32), the master and the moments
+        whole (gathered from the ZeRO shards), and with a comm block the
+        error-feedback residuals of every rank, (world, n) per bucket and
+        key, with their fingerprint and plan. Collective under data
+        parallelism: every rank builds it. Tensors stay where they are;
         ``save_tree`` copies each to the host as it writes it."""
         st = self.opt_state
         scaler = self.scaler_state
@@ -518,20 +671,23 @@ class Engine(ConfigAccessorsMixin):
             "global_samples": self.global_samples,
             "skipped_steps": self.skipped_steps,
             "micro_steps": self.micro_steps,
-            "dp_world_size": 1,
+            "dp_world_size": self.data_parallel_size,
             "mp_world_size": 1,
-            # rows per optimizer step: micro * dp (1) * gas
+            # rows per optimizer step: micro * dp * gas
             "global_rows": (self.train_micro_batch_size_per_gpu()
+                            * self.data_parallel_size
                             * self.gradient_accumulation_steps()),
-            "process_count": 1,
+            "process_count": self.mesh.size,
             "lr_scheduler": (self.lr_scheduler.state_dict()
                              if self.lr_scheduler else {}),
             "datapipe": {},
             "client_state": client_state or {},
         }
         optim_states = {
-            "master": self.master if self.master is not None else {},
-            "opt_state": type(st)(np.asarray(st.step, np.int32), *st[1:]),
+            "master": (self._full(self.master) if self.master is not None
+                       else {}),
+            "opt_state": type(st)(np.asarray(st.step, np.int32),
+                                  *(self._full(t) for t in st[1:])),
             "scaler": {
                 "loss_scale": np.asarray(scaler.loss_scale, np.float32),
                 "good_steps": np.asarray(scaler.good_steps, np.int32),
@@ -539,6 +695,15 @@ class Engine(ConfigAccessorsMixin):
             "step": self.optimizer_steps,
             "zero_stage": self.zero_stage,
         }
+        if self.comm is not None:
+            # error-feedback residuals: a quantized mode resumes bit for bit
+            # only with them
+            optim_states["comm"] = [
+                {k: self.comm.transport.all_gather(v)
+                 for k, v in res.items()} for res in self._comm_state]
+            optim_states["comm_fingerprint"] = repr(
+                self.comm.state_fingerprint())
+            optim_states["comm_plan"] = self.comm.plan_summary()
         return {model_state_filename(): model_states,
                 optim_state_filename(): optim_states}
 
@@ -546,7 +711,9 @@ class Engine(ConfigAccessorsMixin):
                         save_latest=True):
         """Write the engine's state under ``save_dir/tag`` (default tag
         ``global_step<N>``), then repoint ``latest`` unless
-        ``save_latest`` is False. Returns True."""
+        ``save_latest`` is False. Returns True. Under data parallelism
+        every rank calls it (the ZeRO shards and residuals are gathered);
+        rank 0 writes, and every rank returns once the files are there."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         tag = str(tag)
@@ -555,12 +722,15 @@ class Engine(ConfigAccessorsMixin):
                 tag, self._config.checkpoint_tag_validation_fail)
         ck = CheckpointEngine(save_dir, tag)
         with torch.no_grad():
-            for fname, tree in self._host_checkpoint_payload(
-                    client_state).items():
-                ck.save(fname, tree)
-        if save_latest:
-            write_latest(save_dir, tag)
-        write_recovery_stub(ck.ckpt_dir)
+            payload = self._host_checkpoint_payload(client_state)
+            if self.mesh.rank == 0:
+                for fname, tree in payload.items():
+                    ck.save(fname, tree)
+                if save_latest:
+                    write_latest(save_dir, tag)
+                write_recovery_stub(ck.ckpt_dir)
+        del payload
+        self._dp.barrier()
         log_dist(f"saved checkpoint {ck.ckpt_dir}", ranks=[0])
         return True
 
@@ -573,7 +743,10 @@ class Engine(ConfigAccessorsMixin):
         client_state), or (None, {}) when nothing is loadable.
 
         Each leaf is copied into the engine's existing tensors, cast to
-        their dtype. Unlike the reference, a master path whose master was
+        their dtype; under ZeRO each rank copies its shard of the master
+        and the moments, and with a comm block its row of the residuals
+        (dropped, with a warning, when their fingerprint is not the running
+        reducer's). Unlike the reference, a master path whose master was
         not restored (``load_module_only``, or a file without one) takes
         its fp32 master from the loaded module, so the next step trains
         from the loaded weights."""
@@ -591,24 +764,26 @@ class Engine(ConfigAccessorsMixin):
             raise NotImplementedError(
                 f"{ck.ckpt_dir} holds the orbax sharded_state layout, which "
                 f"the PyTorch package does not read yet (ROADMAP.md queue "
-                f"1, item 'ZeRO and data parallel')")
+                f"1, item 'Sharded checkpoints')")
         if not ck.exists(model_state_filename()):
             logger.warning("checkpoint %s not found", ck.ckpt_dir)
             return None, {}
         model_states = ck.load(model_state_filename(), unchunk=False)
         master_loaded = False
+        shard = (self.master_specs, self._zero_index)
         with torch.no_grad():
             _copy_into(self.params, model_states["module"], "module")
             if (not load_module_only and load_optimizer_states
                     and ck.exists(optim_state_filename())):
                 optim = ck.load(optim_state_filename(), unchunk=False)
                 if self.master is not None and optim.get("master"):
-                    _copy_into(self.master, optim["master"], "master")
+                    _copy_into(self.master, optim["master"], "master",
+                               *shard)
                     master_loaded = True
                 saved = optim["opt_state"]
                 for i, field in enumerate(self.opt_state._fields[1:], 1):
                     _copy_into(self.opt_state[i], saved[field],
-                               f"opt_state/{field}")
+                               f"opt_state/{field}", *shard)
                 self.opt_state = self.opt_state._replace(
                     step=int(saved["step"]))
                 sc = optim["scaler"]
@@ -616,8 +791,19 @@ class Engine(ConfigAccessorsMixin):
                     float(sc["loss_scale"]), int(sc["good_steps"]),
                     int(sc["hysteresis"]))
                 self.optimizer_steps = int(optim["step"])
+                if self.comm is not None:
+                    self._restore_comm_state(optim.get("comm"),
+                                             optim.get("comm_fingerprint"))
             if self.master is not None and not master_loaded:
-                tree_map(lambda m, p: m.copy_(p), self.master, self.params)
+                tree_map(lambda m, p, sp: m.copy_(partition.shard_of(
+                    p.detach(), sp, self._zero_index)), self.master,
+                    self.params, self.master_specs)
+            if self.master is None:
+                # masterless: the optimizer's shards of the loaded params
+                tree_map(lambda t, p, sp: t.copy_(partition.shard_of(
+                    p.detach(), sp, self._zero_index)) if sp.sharded
+                    else None, self._opt_target, self.params,
+                    self.master_specs)
         self.skipped = int(model_states.get("skipped_steps", 0))
         self.global_steps = int(model_states.get("global_steps", 0))
         self.global_samples = int(model_states.get("global_samples", 0))
@@ -628,21 +814,68 @@ class Engine(ConfigAccessorsMixin):
         log_dist(f"loaded checkpoint {ck.ckpt_dir}", ranks=[0])
         return ck.ckpt_dir, model_states.get("client_state", {})
 
+    def _restore_comm_state(self, saved, fingerprint):
+        """This rank's row of checkpointed error-feedback residuals. Rows
+        saved under another bucket layout, mode or world are useless, and
+        misapplied they corrupt the gradients: on a fingerprint mismatch
+        (or none saved) the residuals stay zero."""
+        if saved is None:
+            if any(self._comm_state):
+                logger.warning("checkpoint carries no comm residuals: error "
+                               "feedback restarts from zero")
+            return
+        if fingerprint != repr(self.comm.state_fingerprint()):
+            logger.warning(
+                "checkpointed comm residuals were saved under a different "
+                "bucket layout/mode/world (fingerprint mismatch): error "
+                "feedback restarts from zero")
+            return
+        if isinstance(saved, dict):  # msgpack keeps a list as index keys
+            saved = [saved[k] for k in sorted(saved, key=int)]
+        row = self.comm.rank
+        for res, rows in zip(self._comm_state, saved):
+            for k, t in res.items():
+                full = _host_tensor(rows[k])
+                t.copy_(full[row])
 
-def _copy_into(dst, src, path):
+
+def _host_tensor(src) -> torch.Tensor:
+    """A restored leaf (a numpy array, a CPU tensor, or flax's chunked dict)
+    as one CPU tensor."""
+    shape = msgpack.leaf_shape(src) if isinstance(src, dict) else tuple(
+        np.shape(src))
+    parts = [p if isinstance(p, torch.Tensor) else torch.from_numpy(
+        np.asarray(p)) for p in msgpack.chunked_parts(src)]
+    flat = parts[0].reshape(-1) if len(parts) == 1 else torch.cat(
+        [p.reshape(-1) for p in parts])
+    return flat.reshape(shape)
+
+
+def _copy_into(dst, src, path, specs=None, index=0):
     """Copy a restored tree (numpy arrays, bf16 CPU tensors, or flax's
     chunked dicts) into the tensors of ``dst`` leaf by leaf, casting to
     each tensor's dtype; keys ``dst`` has and ``src`` lacks raise, keys
-    only ``src`` has are ignored (as flax's ``from_state_dict``)."""
+    only ``src`` has are ignored (as flax's ``from_state_dict``). With
+    ``specs`` (ZeRO shard specs like ``dst``), a sharded leaf of ``dst``
+    takes shard ``index`` of the whole leaf in ``src``."""
     if isinstance(dst, dict):
         missing = [k for k in dst if k not in src]
         if missing:
             raise ValueError(f"checkpoint {path} lacks {missing}")
         for k, v in dst.items():
-            _copy_into(v, src[k], f"{path}/{k}")
+            _copy_into(v, src[k], f"{path}/{k}",
+                       None if specs is None else specs[k], index)
         return
     shape = msgpack.leaf_shape(src) if isinstance(src, dict) else tuple(
         np.shape(src))
+    if specs is not None and specs.sharded:
+        want = list(dst.shape)
+        want[specs.dim] *= specs.size
+        if shape != tuple(want):
+            raise ValueError(f"checkpoint {path} has shape {shape}, the "
+                             f"engine {tuple(want)}")
+        dst.copy_(partition.shard_of(_host_tensor(src), specs, index))
+        return
     if shape != tuple(dst.shape):
         raise ValueError(f"checkpoint {path} has shape {shape}, the engine "
                          f"{tuple(dst.shape)}")
@@ -720,6 +953,7 @@ def initialize(
     config_params=None,
     device: Optional[str] = None,
     rng: Optional[int] = None,
+    mesh=None,
 ):
     """Build an Engine, as the reference's ``initialize``.
 
@@ -727,7 +961,10 @@ def initialize(
     ``model`` is a loss callable ``loss_fn(params, batch[, rng])``;
     ``model_parameters`` is the initial params tree. ``device`` defaults
     to CUDA. ``rng`` seeds the generators handed to a loss that takes one
-    (default 0). One process drives one device (world size 1)."""
+    (default 0). Each process is one rank: the world size comes from an
+    initialized ``torch.distributed`` group (1 without one), laid out by
+    ``mesh`` (a ``sharding.Mesh``), else by the config's ``"mesh"`` block,
+    else every rank on the legacy ``data`` axis."""
     if model is None:
         raise ValueError("deepspeed.initialize requires a model")
     if config is None and config_params is not None:
@@ -748,11 +985,29 @@ def initialize(
             "'Offload and ZeRO-Infinity' and 'MoE, TP and pipeline')")
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
+    if mesh is None:
+        mesh = _mesh_from_raw_config(config)
     ds_config = (config if isinstance(config, TrainingConfig)
-                 else TrainingConfig(config, world_size=1))
+                 else TrainingConfig(
+                     config, world_size=rules.data_parallel_size(mesh)))
     engine = Engine(model=model, params=model_parameters, config=ds_config,
                     optimizer=optimizer, lr_scheduler=lr_scheduler,
                     training_data=training_data, collate_fn=collate_fn,
-                    device=device, rng=rng)
+                    device=device, rng=rng, mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
+
+
+def _mesh_from_raw_config(config):
+    """The mesh of a config's ``"mesh"`` block, or every rank on the legacy
+    data axis. Accepts what ``initialize`` accepts (a TrainingConfig, a
+    dict, a JSON path or string): the batch triple's world size is derived
+    from the mesh, so the block is read before the config is built."""
+    if isinstance(config, TrainingConfig):
+        mc = config.mesh_config()
+    else:
+        block = load_config(config).get("mesh")
+        mc = (MeshConfig.from_dict(block) if isinstance(block, dict)
+              and block.get("enabled") is not False else None)
+    return mesh_lib.from_config(mc) if mc is not None \
+        else mesh_lib.default_mesh()

@@ -428,13 +428,13 @@ def test_zero_to_fp32_cli_and_stub(tmp_path):
 
 
 def test_unported_layouts_raise_naming_their_roadmap_item(tmp_path):
-    with pytest.raises(pt_config.ConfigError, match="ZeRO and data parallel"):
+    with pytest.raises(pt_config.ConfigError, match="Sharded checkpoints"):
         pt_config.TrainingConfig(dict(BASE, checkpoint={"sharded_io": True}))
     pt_config.TrainingConfig(dict(BASE, checkpoint={"sharded_io": False}))
     (tmp_path / "t" / serialization.SHARDED_STATE_DIR).mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ZeRO and data parallel"):
+    with pytest.raises(NotImplementedError, match="Sharded checkpoints"):
         serialization.consolidate_fp32_state(str(tmp_path / "t"))
     (tmp_path / "latest").write_text("t")
-    with pytest.raises(NotImplementedError, match="ZeRO and data parallel"):
+    with pytest.raises(NotImplementedError, match="Sharded checkpoints"):
         _port_engine("fp32").load_checkpoint(str(tmp_path))
     assert serialization.validate_tag_across_processes("t", True)

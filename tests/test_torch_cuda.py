@@ -543,3 +543,63 @@ def test_cuda_sparse_module_takes_the_kernels_or_raises():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sa.SparseSelfAttention(cfg, max_seq_length=64)(x.half(), x.half(),
                                                        x.half())
+
+
+@pytest.mark.cuda
+def test_cuda_quant_kernels_match_plain_versions_bit_for_bit():
+    """quantize_rows (fp32 and bf16, with and without the residual, blocks
+    128 and 32), dequant_sum_rows (int8 and fp16 mantissas) and
+    dequant_rows against their plain versions on the card: equal bits,
+    all-zero and non-finite blocks included; a block that does not divide
+    the row raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    from deeperspeed_tpu_torch.ops import fused_quant as fq
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for block in (128, 32):
+        for R in (1, 2, 8):
+            x = torch.randn(R, 64 * block, generator=gen, device="cuda")
+            x[0, :block] = 0
+            x[R - 1, block + 3] = float("nan")
+            for dtype in (torch.float32, torch.bfloat16):
+                xi = x.to(dtype)
+                for res in (True, False):
+                    got = fq.quantize_rows(xi, block, res)
+                    want = fq.quantize_rows_plain(xi, block, res)
+                    for g, w in zip(got, want):
+                        if w is None:
+                            assert g is None
+                        else:
+                            assert torch.equal(g.nan_to_num(7.0),
+                                               w.nan_to_num(7.0))
+            q, s, _ = fq.quantize_rows_plain(x.nan_to_num(0.0), block, False)
+            assert torch.equal(fq.dequant_sum_rows(q, s, block),
+                               fq.dequant_sum_rows_plain(q, s, block))
+            assert torch.equal(fq.dequant_rows(q, s, block, R),
+                               fq.dequant_rows_plain(q, s, block, R))
+            m = x.nan_to_num(0.0).clamp(-1, 1).half()
+            e = torch.exp2(torch.randint(-8, 8, s.shape, generator=gen,
+                                         device="cuda").float())
+            assert torch.equal(fq.dequant_sum_rows(m, e, block),
+                               fq.dequant_sum_rows_plain(m, e, block))
+    with pytest.raises(ValueError, match="divide"):
+        fq.quantize_rows(torch.ones(2, 100, device="cuda"), 128)
+
+
+@pytest.mark.cuda
+def test_cuda_reducer_takes_the_quant_kernels():
+    """Under kernels auto on a Hopper card the reducer's wire math goes to
+    the kernel wrappers; with the fused_quant surface off, to the plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("kernels auto routes to the kernels on Hopper only")
+    from deeperspeed_tpu_torch.ops import fused_quant as fq
+    from deeperspeed_tpu_torch.ops import kernel_config as kc
+
+    with kc.override(mode="auto"):
+        assert fq.routing(torch.device("cuda", 0))
+    with kc.override(mode="auto", fused_quant=False):
+        assert not fq.routing(torch.device("cuda", 0))

@@ -56,6 +56,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import deeperspeed_tpu_torch.ops.sparse_attention.sparse_self_"
         "attention, deeperspeed_tpu_torch.ops.sparse_attention.sparse_"
         "attention_utils\n"
+        "import deeperspeed_tpu_torch.sharding, deeperspeed_tpu_torch.runtime."
+        "zero, deeperspeed_tpu_torch.runtime.comm\n"
+        "import deeperspeed_tpu_torch.distributed, deeperspeed_tpu_torch.ops."
+        "fused_quant\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -67,6 +71,12 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert "deeperspeed_tpu_torch.ops.flash_attention" in mods
     assert "deeperspeed_tpu_torch.checkpoint.msgpack" in mods
     assert "deeperspeed_tpu_torch.resilience.manifest" in mods
+    for name in ("sharding.mesh", "sharding.rules", "sharding.config",
+                 "runtime.zero.partition", "runtime.zero.config",
+                 "runtime.comm.reducer", "runtime.comm.bucketing",
+                 "runtime.comm.collectives", "runtime.comm.compressed",
+                 "distributed.topology", "ops.fused_quant"):
+        assert f"deeperspeed_tpu_torch.{name}" in mods
     for name in ("block_sparse", "kernels", "sparsity_config",
                  "sparse_self_attention", "sparse_attention_utils"):
         assert f"deeperspeed_tpu_torch.ops.sparse_attention.{name}" in mods
