@@ -21,8 +21,7 @@ All three are bound by device-memory bytes; csrc/fused_quant.cu says how
 each design meets that. ``pack_wire``/``unpack_wire`` put the fp32 scales
 as 4 trailing bytes per block into one int8 payload, so each collective
 phase ships one tensor; in torch they are bitcasts (``view``), not
-kernels. ``quantize_blocks``/``dequantize_blocks`` are the flat
-convenience API (any length, padded to whole blocks).
+kernels.
 
 Beside each wrapper sits its plain PyTorch version (``*_plain``), the
 reference's XLA route: the CPU path and the card check's reference. The
@@ -263,28 +262,6 @@ def dequant_rows(q: torch.Tensor, s: torch.Tensor, block: int,
 
 
 dequant_rows.launches = 0
-
-
-# ---------------------------------------------------------------------- #
-# flat convenience API (pads like the bucket plan)
-# ---------------------------------------------------------------------- #
-
-
-def quantize_blocks(x: torch.Tensor, block: int):
-    """Any-length (and bf16) input padded to whole blocks ->
-    ``((nb, block) int8, (nb,) fp32)``."""
-    flat = x.reshape(-1).float()
-    n = flat.shape[0]
-    nb = -(-n // block)
-    flat = torch.nn.functional.pad(flat, (0, nb * block - n))
-    q, s, _ = quantize_rows(flat.reshape(1, -1), block, want_residual=False)
-    return q.reshape(nb, block), s.reshape(-1)
-
-
-def dequantize_blocks(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    nb, block = q.shape
-    return dequant_rows(q.reshape(1, -1), s.reshape(1, -1),
-                        block).reshape(-1)
 
 
 # ---------------------------------------------------------------------- #

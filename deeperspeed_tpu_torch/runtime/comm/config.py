@@ -3,8 +3,8 @@
 Counterpart of deeperspeed_tpu/runtime/comm/config.py, this package's own
 copy: the same keys, defaults and errors. A ``"comm"`` block in the config
 builds a ``CommConfig``; block presence enables the reducer unless
-``{"enabled": false}``. Without it the engine reduces gradients with one
-fp32 all-reduce mean per leaf.
+``{"enabled": false}``. Without it the engine's reducer runs the fp32
+wire with these defaults.
 
 ::
 

@@ -66,25 +66,6 @@ def _div(t: torch.Tensor, divisor) -> torch.Tensor:
                           device=t.device)
 
 
-# ---------------------------------------------------------------------- #
-# blockwise int8 quantization (the reference's unfused chain)
-# ---------------------------------------------------------------------- #
-
-
-def quantize_int8_blocks(x: torch.Tensor, block: int):
-    """(n,) fp32 (n divisible by block) -> ((nb, block) int8, (nb,) fp32)."""
-    nb = x.shape[0] // block
-    xb = x.reshape(nb, block)
-    s = _div(torch.amax(xb.abs(), dim=1), 127.0)
-    s = torch.where(s > 0, s, torch.ones_like(s))
-    q = torch.clamp(torch.round(xb / s[:, None]), -127, 127).to(torch.int8)
-    return q, s
-
-
-def dequantize_int8_blocks(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    return (q.float() * s[:, None]).reshape(-1)
-
-
 def pairwise_slot_sum(x: torch.Tensor) -> torch.Tensor:
     """Graph-fixed pairwise tree sum over the leading axis: the grouping of
     adds depends only on ``x.shape[0]``. An odd remainder folds into slot 0
@@ -112,24 +93,18 @@ def _from_byte_planes(planes: torch.Tensor) -> torch.Tensor:
 
 
 class GradReducer:
-    """Bucketed gradient reduction over the batch axes of a mesh.
+    """Bucketed gradient reduction over the batch axes of a mesh
+    (``rules.batch_axes``).
 
     Built once per engine; owns the :class:`~.bucketing.BucketPlan` and
     the rank's error-feedback residuals (a list over buckets of dicts of
     (n,) fp32 tensors: this rank's row of the reference's (world, n)
     state)."""
 
-    def __init__(self, config: CommConfig, mesh, *, axis_name=None):
+    def __init__(self, config: CommConfig, mesh):
         self.cfg = config
         self.mesh = mesh
-        axes = (rules.batch_axes(mesh) if axis_name is None
-                else ((axis_name,) if isinstance(axis_name, str)
-                      else tuple(axis_name)))
-        missing = [a for a in axes if a not in mesh.shape]
-        if missing or not axes:
-            raise ValueError(
-                f"reduction axes {axes} not all in mesh {mesh.shape}")
-        self.axes = axes
+        axes = self.axes = rules.batch_axes(mesh)
         self.world = mesh.axis_size(axes)
         self.rank = mesh.axis_index(axes)
         self.transport = Transport(mesh.group(axes))

@@ -36,12 +36,12 @@ rank on the legacy ``data`` axis; world 1 without one). A global batch
 handed to ``train_batch`` is split over the ranks along its leading dim
 (rank r takes the r-th block of rows, as the reference's ``place_batch``
 shards it), each rank sums its local gradients over its micro-batches,
-and at the accumulation boundary the gradients are reduced once: by the
-comm ``GradReducer`` when a ``"comm"`` block is active, else by an fp32
-all-reduce mean per leaf. ZeRO stages 1 and 2 keep each rank's shard of
-the fp32 master and the Adam moments (runtime/zero/partition.py) as
-contiguous copies, update them (the fused Adam kernel over the shards),
-and all-gather the updated compute-dtype params.
+and at the accumulation boundary the comm ``GradReducer`` reduces them
+once, bucket by bucket, under the ``"comm"`` block's wire (fp32 without
+one). ZeRO stages 1 and 2 keep each rank's shard of the fp32 master and
+the Adam moments (runtime/zero/partition.py) as contiguous copies,
+update them (the fused Adam kernel over the shards), and all-gather the
+updated compute-dtype params.
 
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
 stage 3 and offload, tensor and pipeline parallelism, the comm overlap
@@ -70,15 +70,14 @@ from ..ops import kernel_config
 from ..resilience.manifest import resolve_load_tag
 from ..sharding import mesh as mesh_lib
 from ..sharding import rules
-from ..sharding.config import MeshConfig
 from ..utils.logging import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import lr_schedules
 from .accessors import ConfigAccessorsMixin
 from .comm.collectives import Transport
+from .comm.config import CommConfig
 from .comm.reducer import GradReducer
 from .config import TrainingConfig
-from .config_utils import load_config
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .zero import partition
@@ -124,7 +123,6 @@ class Engine(ConfigAccessorsMixin):
         collate_fn=None,
         device=None,
         rng: Optional[int] = None,
-        mesh=None,
     ):
         self._config = config
         self.loss_fn = model
@@ -152,7 +150,7 @@ class Engine(ConfigAccessorsMixin):
             torch.float32 if gad in ("fp32", "float32")
             else torch.bfloat16 if gad in ("bf16", "bfloat16")
             else self._grad_dtype)
-        self._init_mesh(config, mesh)
+        self._init_mesh(config)
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -186,8 +184,9 @@ class Engine(ConfigAccessorsMixin):
         # ZeRO: the shard of each leaf this rank keeps of the fp32 master
         # and the moments (replicated below stage 1, or where no dim
         # divides the ZeRO size)
-        self.master_specs = partition.tree_specs(params, self.zero_stage,
-                                                 self.mesh, "master")
+        self.master_specs = rules.zero_tree_specs(params, None,
+                                                  self.zero_stage, self.mesh,
+                                                  "master")
         self._specs = tree_leaves(self.master_specs)
         if (any(sp.sharded for sp in self._specs)
                 and not isinstance(self.optimizer, FusedAdam)):
@@ -228,14 +227,12 @@ class Engine(ConfigAccessorsMixin):
                                  if self._use_master else None)
         self.opt_state = self.optimizer.init(self._opt_target)
 
-        # the gradient reduction at the accumulation boundary
-        self.comm = None
-        self._comm_state = None
-        if config.comm_config() is not None:
-            self.comm = GradReducer(config.comm_config(), self.mesh,
-                                    axis_name=self.batch_axes)
-            self.comm.build_plan(params)
-            self._comm_state = self.comm.init_state(self.device)
+        # the gradient reduction at the accumulation boundary: the "comm"
+        # block's wire, else the fp32 mean over the same buckets
+        self.comm = GradReducer(config.comm_config()
+                                or CommConfig(mode="fp32"), self.mesh)
+        self.comm.build_plan(params)
+        self._comm_state = self.comm.init_state(self.device)
         self.scaler_state = self._loss_scaler.init()
         self.skipped = 0          # overflow-skipped optimizer steps
         self.optimizer_steps = 0  # applied optimizer steps
@@ -249,14 +246,12 @@ class Engine(ConfigAccessorsMixin):
                  f"zero_stage={self.zero_stage} mesh={self.mesh.shape} "
                  f"dp={self.data_parallel_size}", ranks=[0])
 
-    def _init_mesh(self, config, mesh):
+    def _init_mesh(self, config):
         """The mesh (the "mesh" block's, or every rank on the legacy data
         axis), the data-parallel and ZeRO groups of this rank."""
-        if mesh is None:
-            mc = config.mesh_config()
-            mesh = (mesh_lib.from_config(mc) if mc is not None
-                    else mesh_lib.default_mesh())
-        self.mesh = mesh
+        mc = config.mesh_config()
+        mesh = self.mesh = (mesh_lib.from_config(mc) if mc is not None
+                            else mesh_lib.default_mesh())
         self.batch_axes = rules.batch_axes(mesh)
         self.data_parallel_size = rules.data_parallel_size(mesh)
         self.dp_world_size = self.data_parallel_size
@@ -449,19 +444,14 @@ class Engine(ConfigAccessorsMixin):
     @torch.no_grad()
     def _reduce_grads(self, grads):
         """The mean over the data-parallel ranks of each rank's local
-        (scaled, micro-batch-summed) grads, the same bits on every rank: the
-        comm GradReducer's buckets when a "comm" block is active, else an
-        fp32 all-reduce mean per leaf. Identity on one rank."""
+        (scaled, micro-batch-summed) grads, the same bits on every rank,
+        bucket by bucket through the GradReducer. Identity on one rank."""
         if self.data_parallel_size == 1:
             return grads
         grads = [g.to(self._grad_dtype) for g in grads]
-        if self.comm is not None:
-            mean, self._comm_state = self.comm.reduce_dispatch(
-                tree_unflatten(self.params, grads), self._comm_state)
-            return tree_leaves(mean)
-        inv = torch.full((), float(self.data_parallel_size),
-                         dtype=torch.float32, device=self.device)
-        return [self._dp.all_reduce_sum(g.float()) / inv for g in grads]
+        mean, self._comm_state = self.comm.reduce_dispatch(
+            tree_unflatten(self.params, grads), self._comm_state)
+        return tree_leaves(mean)
 
     def _mean_loss(self, loss):
         """The mean over the data-parallel ranks of each rank's loss."""
@@ -695,7 +685,7 @@ class Engine(ConfigAccessorsMixin):
             "step": self.optimizer_steps,
             "zero_stage": self.zero_stage,
         }
-        if self.comm is not None:
+        if self._config.comm_config() is not None:
             # error-feedback residuals: a quantized mode resumes bit for bit
             # only with them
             optim_states["comm"] = [
@@ -791,7 +781,7 @@ class Engine(ConfigAccessorsMixin):
                     float(sc["loss_scale"]), int(sc["good_steps"]),
                     int(sc["hysteresis"]))
                 self.optimizer_steps = int(optim["step"])
-                if self.comm is not None:
+                if self._config.comm_config() is not None:
                     self._restore_comm_state(optim.get("comm"),
                                              optim.get("comm_fingerprint"))
             if self.master is not None and not master_loaded:
@@ -953,7 +943,6 @@ def initialize(
     config_params=None,
     device: Optional[str] = None,
     rng: Optional[int] = None,
-    mesh=None,
 ):
     """Build an Engine, as the reference's ``initialize``.
 
@@ -963,8 +952,10 @@ def initialize(
     to CUDA. ``rng`` seeds the generators handed to a loss that takes one
     (default 0). Each process is one rank: the world size comes from an
     initialized ``torch.distributed`` group (1 without one), laid out by
-    ``mesh`` (a ``sharding.Mesh``), else by the config's ``"mesh"`` block,
-    else every rank on the legacy ``data`` axis."""
+    the config's ``"mesh"`` block, else every rank on the legacy ``data``
+    axis. The port refuses tensor and sequence parallelism, so every rank
+    is a data-parallel rank and the batch triple is derived for the whole
+    world."""
     if model is None:
         raise ValueError("deepspeed.initialize requires a model")
     if config is None and config_params is not None:
@@ -985,29 +976,12 @@ def initialize(
             "'Offload and ZeRO-Infinity' and 'MoE, TP and pipeline')")
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
-    if mesh is None:
-        mesh = _mesh_from_raw_config(config)
     ds_config = (config if isinstance(config, TrainingConfig)
-                 else TrainingConfig(
-                     config, world_size=rules.data_parallel_size(mesh)))
+                 else TrainingConfig(config, world_size=mesh_lib.world_size()))
     engine = Engine(model=model, params=model_parameters, config=ds_config,
                     optimizer=optimizer, lr_scheduler=lr_scheduler,
                     training_data=training_data, collate_fn=collate_fn,
-                    device=device, rng=rng, mesh=mesh)
+                    device=device, rng=rng)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 
-
-def _mesh_from_raw_config(config):
-    """The mesh of a config's ``"mesh"`` block, or every rank on the legacy
-    data axis. Accepts what ``initialize`` accepts (a TrainingConfig, a
-    dict, a JSON path or string): the batch triple's world size is derived
-    from the mesh, so the block is read before the config is built."""
-    if isinstance(config, TrainingConfig):
-        mc = config.mesh_config()
-    else:
-        block = load_config(config).get("mesh")
-        mc = (MeshConfig.from_dict(block) if isinstance(block, dict)
-              and block.get("enabled") is not False else None)
-    return mesh_lib.from_config(mc) if mc is not None \
-        else mesh_lib.default_mesh()

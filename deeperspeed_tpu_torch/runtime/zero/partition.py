@@ -24,13 +24,7 @@ import torch
 
 from ...sharding import rules
 
-__all__ = ["tree_specs", "shard_of", "gather_into"]
-
-
-def tree_specs(params, stage: int, mesh, kind: str):
-    """Per-leaf :class:`~sharding.rules.ShardSpec` of ``kind`` ('param',
-    'master' or 'grad') at ``stage``."""
-    return rules.zero_tree_specs(params, None, stage, mesh, kind)
+__all__ = ["shard_of", "gather_into"]
 
 
 def shard_of(full: torch.Tensor, spec: rules.ShardSpec,

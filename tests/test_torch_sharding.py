@@ -181,9 +181,9 @@ def test_zero_specs_pick_the_reference_dims(size):
                             == jax_rules.choose_shard_dim(
                                 shape, jax.sharding.PartitionSpec(), size))
     # a leaf no dim of which divides the size stays replicated
-    specs = tree_leaves(partition.tree_specs(
+    specs = tree_leaves(pt_rules.zero_tree_specs(
         {"odd": torch.empty(13, device="meta"),
-         "w": torch.empty(3, 16, device="meta")}, 1, pmesh, "master"))
+         "w": torch.empty(3, 16, device="meta")}, None, 1, pmesh, "master"))
     assert [sp.dim for sp in specs] == [None, 1]
 
 

@@ -5,7 +5,7 @@ Inside the port the 6-step loss curves of ZeRO 0, 1 and 2 are
 bit-identical, losses, grad norms and params after every step: ZeRO only
 partitions an elementwise update, the norm and the clip are taken on the
 full reduced gradients, and the all-gather moves bits. That holds with no
-comm block (an fp32 all-reduce mean), with ``"comm": {"mode": "fp32"}``
+comm block (the reducer's fp32 wire), with ``"comm": {"mode": "fp32"}``
 and with int8, and both ranks hold the same params after every step.
 Each rank keeps about half of ZeRO 0's optimizer-state bytes. A ZeRO 1 +
 int8 run saved after step 3 resumes in a fresh engine from other
@@ -117,3 +117,28 @@ def test_world_one_zero_stages_match_stage_zero(zero):
         assert not any(sp.sharded for sp in eng._specs)
         losses[stage] = [float(eng.train_batch(b[:4])) for b in _batches()]
     assert losses[zero] == losses[0]
+
+
+def test_no_comm_block_reduces_as_the_fp32_wire(run):
+    """Without a "comm" block the engine reduces through the GradReducer's
+    fp32 wire: the same curve, bit for bit, as ``{"mode": "fp32"}`` with
+    much smaller buckets (the mean is elementwise, so the bucket layout
+    cannot change it)."""
+    for rank in run["ranks"]:
+        for zero in (0, 1, 2):
+            none, fp32 = rank[f"{zero}/None"], rank[f"{zero}/fp32"]
+            assert none["losses"] == fp32["losses"]
+            assert none["grad_norms"] == fp32["grad_norms"]
+            assert none["digests"] == fp32["digests"]
+
+
+def test_int8_first_step_grad_norm_tracks_fp32(run):
+    """Step 1 starts from the same params under both wires, so its grad
+    norms differ only by the int8 quantization error of the mean (1.6e-4
+    relative at this size, blocks of 32); a mean off by a factor, or wrong
+    in one bucket, would leave the bound of 1e-3."""
+    r0 = run["ranks"][0]
+    for zero in (0, 1, 2):
+        a = r0[f"{zero}/int8"]["grad_norms"][0]
+        b = r0[f"{zero}/fp32"]["grad_norms"][0]
+        assert abs(a - b) / b <= 1e-3
