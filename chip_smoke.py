@@ -7,7 +7,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Card: print the card's name and power limit (nvidia-smi) and build the
    CUDA kernels from deeperspeed_tpu_torch/csrc into build/kernels/, one
-   nvcc per source (six), started together.
+   nvcc per source (six), started together, printing ptxas's registers
+   and spills of every kernel. For each flash kernel (forward, dK/dV, dQ,
+   delta) at every head dim, bf16 and fp32, print its registers, static
+   and dynamic shared memory, local memory a thread and blocks an SM;
+   fail if a bf16 one uses local memory (spills), or unless cuobjdump
+   -sass finds HMMA/HGMMA instructions in each of the nine bf16 forward
+   and backward kernels (the tensor cores).
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -19,15 +25,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tolerances, tests/test_fused_kernels.py).
 4. Flash attention forward and backward against their plain versions at
    FLASH_SHAPES: the training shape (2, 16, 1024, 128), S = 2048 and 4096
-   (beyond the reference's whole-S kernel), ragged S = 640 and 1000, and
-   head dims 64 and 96; causal and not, bf16 and fp32; within the
-   reference's flash tolerances (fp32 2e-3 forward, 5e-3 gradients; bf16
-   2e-2 and 5e-2).
+   (beyond the reference's whole-S kernel), ragged S = 640 and 1000, head
+   dims 64 and 96, and phase 14's (16, 12, 1024, 64); then
+   FLASH_EDGE_SHAPES, S in {1, 17, 63, 65, 127, 129} (the kernels' tile
+   edges) at head dims 64, 96 and 128; causal and not, bf16 and fp32;
+   within the reference's flash tolerances (fp32 2e-3 forward, 5e-3
+   gradients; bf16 2e-2 and 5e-2). At the two FLASH_TIMED shapes (causal,
+   bf16) two launches of each kernel on the same inputs must give the
+   same bits, and both are timed.
    Beside those element-wise tolerances, every output of phases 2-4 must
    hold ||got - want|| <= REL_L2 * ||want|| (1e-4 fp32, 1e-2 bf16: a few
    bf16 ulps on the whole tensor), which the element-wise bounds alone
    would not catch at the training shapes, where they are about as large
-   as the values (a bf16 kernel that dropped a term could pass them).
+   as the values (a bf16 kernel that dropped a term could pass them). At
+   S = 1, where dQ and dK are zero in exact arithmetic, their L2 error is
+   taken relative to ||dV||.
    Phases 2-4 time each kernel at its training-path shape (bf16) with
    CUDA events over CUDA-graph replays, beside its plain version, its
    bound (the larger of bytes over 3.35 TB/s and operations over the
@@ -275,7 +287,14 @@ PATH_ROWS = 2048          # B * S of the training micro-batch
 # reference's whole-S kernel, ragged S, and the other head dims
 FLASH_SHAPES = ((2, 16, 1024, 128), (1, 4, 2048, 128), (1, 2, 4096, 128),
                 (1, 4, 640, 128), (1, 4, 1000, 128), (2, 12, 1024, 64),
-                (1, 8, 1024, 96))
+                (1, 8, 1024, 96), (16, 12, 1024, 64))
+# S at the kernels' tile edges (the tiles are 16, 32 and 64 rows), every
+# head dim
+FLASH_EDGE_SHAPES = tuple((1, 2, S, Dh) for S in (1, 17, 63, 65, 127, 129)
+                          for Dh in (64, 96, 128))
+# shapes timed (causal, bf16) and the path each is: GPT-NeoX-1.3B
+# training's micro-batch and phase 14's GPT-NeoX-125M one
+FLASH_TIMED = {(2, 16, 1024, 128): "gpt", (16, 12, 1024, 64): "dp"}
 # the training run's bf16 limits, kernel path against plain path
 LOSS_RTOL = 5e-3
 GNORM_RTOL = 5e-2
@@ -419,9 +438,10 @@ def copies(make, bytes_per_call):
     return [make() for _ in range(n)]
 
 
-def check_close(name, got, want, tol, rel):
+def check_close(name, got, want, tol, rel, norm=None):
     """Fails unless every element is within atol = rtol = ``tol`` and the
-    error's L2 norm is within ``rel`` of the reference's. Returns (max abs
+    error's L2 norm is within ``rel`` of the reference's (or of ``norm``,
+    where the reference is zero in exact arithmetic). Returns (max abs
     error, relative L2 error)."""
     diff = got.float() - want.float()
     err = diff.abs()
@@ -430,7 +450,9 @@ def check_close(name, got, want, tol, rel):
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements outside atol=rtol={tol}; "
             f"max abs err {float(err.max()):.3e}")
-    rel_err = float(diff.norm() / want.float().norm().clamp_min(1e-30))
+    if norm is None:
+        norm = want.float().norm()
+    rel_err = float(diff.norm() / norm.clamp_min(1e-30))
     if not rel_err <= rel:
         raise AssertionError(f"{name}: relative L2 error {rel_err:.3e} "
                              f"above {rel}")
@@ -645,72 +667,143 @@ def sdpa_backward(*args):
         *args[:-1], scale=args[-1])
 
 
+def flash_case(fa, gen, shape, dtype, causal):
+    """flash_fwd and flash_bwd against their plain versions at one case:
+    (forward row, backward row)."""
+    ftol, gtol = FLASH_TOL[dtype]
+    rel = REL_L2[dtype]
+    dname = dtype_name(dtype)
+    scale = 1.0 / math.sqrt(shape[-1])
+    q, k, v, do = (randn_on(gen, shape, dtype) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    tag = f"{tuple(shape)} {dname} causal={causal}"
+    err, rel_err = check_outputs(f"flash_fwd {tag}", ("o", "lse"), (o, lse),
+                                 (po, plse), ftol, rel)
+    fwd = {"shape": list(shape), "dtype": dname, "causal": causal,
+           "max_abs_err": err, "tol": ftol, "rel_l2_err": rel_err,
+           "rel_l2_tol": rel}
+    got = fa.flash_bwd(q, k, v, po, plse, do, scale, causal)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, po, plse, do, scale, causal)
+    # At S = 1 every row's softmax has one key, so dQ and dK are zero in
+    # exact arithmetic and both versions return fp32 rounding noise: their
+    # L2 error is taken relative to dV's norm, the case's gradient scale.
+    norms = [want[2].float().norm()] * 2 if shape[2] == 1 else [None] * 2
+    errs = [check_close(f"flash_bwd {tag} {n}", a, b, gtol, rel, norm)
+            for n, a, b, norm in zip(("dq", "dk", "dv"), got, want,
+                                     norms + [None])]
+    err, rel_err = max(e for e, _ in errs), max(r for _, r in errs)
+    bwd = {"shape": list(shape), "dtype": dname, "causal": causal,
+           "max_abs_err": err, "tol": gtol, "rel_l2_err": rel_err,
+           "rel_l2_tol": rel}
+    return fwd, bwd
+
+
+def time_flash(fa, gen, shape, fwd, bwd):
+    """Times the bf16 causal pair at ``shape`` (kernel, plain version, SDPA
+    and its backward) into the rows, adds the bound, and requires two
+    launches of each kernel on the same inputs to give the same bits."""
+    dtype = torch.bfloat16
+    scale = 1.0 / math.sqrt(shape[-1])
+
+    def case():
+        t = [randn_on(gen, shape, dtype) for _ in range(4)]
+        o_, lse_ = fa.flash_fwd_plain(*t[:3], scale, True)
+        return t[:3] + [o_, lse_, t[3]]
+
+    bufs = copies(case, flash_work(shape, True, dtype, False)[0])
+    fwd_bufs = [(a[0], a[1], a[2], scale, True) for a in bufs]
+    bwd_bufs = [tuple(a) + (scale, True) for a in bufs]
+    for name, fn, args in (("flash_fwd", fa.flash_fwd, fwd_bufs[0]),
+                           ("flash_bwd", fa.flash_bwd, bwd_bufs[0])):
+        first, second = fn(*args), fn(*args)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{name} {tuple(shape)}: two launches on the "
+                                 f"same inputs differ")
+        del first, second
+    fwd["bit_identical_relaunch"] = bwd["bit_identical_relaunch"] = True
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd.update(timings(fa.flash_fwd, fa.flash_fwd_plain, fwd_bufs,
+                       lambda a, b, c, *_: sdpa(a, b, c, is_causal=True),
+                       fwd_bufs, iters=10, replays=3))
+    fwd["library"] = "F.scaled_dot_product_attention"
+    fwd.update(bound(*flash_work(shape, True, dtype, False), BF16_OPS_PER_S))
+    lib_bufs = [sdpa_backward_args(a[0], a[1], a[2], a[5], scale, True)
+                for a in bufs]
+    bwd.update(timings(fa.flash_bwd, fa.flash_bwd_plain, bwd_bufs,
+                       sdpa_backward, lib_bufs, iters=10, replays=3))
+    bwd["library"] = "aten._scaled_dot_product_flash_attention_backward"
+    bwd.update(bound(*flash_work(shape, True, dtype, True), BF16_OPS_PER_S))
+
+
 def flash_phase(fa, gen):
     """flash_fwd and flash_bwd against their plain versions at every shape
-    in FLASH_SHAPES, causal and not, bf16 and fp32; the training shape
-    (the first) is timed causal in bf16."""
+    in FLASH_SHAPES and FLASH_EDGE_SHAPES, causal and not, bf16 and fp32;
+    the shapes in FLASH_TIMED are timed causal in bf16 and relaunched for
+    bit identity."""
     results = {"flash_fwd": [], "flash_bwd": []}
-    for si, shape in enumerate(FLASH_SHAPES):
+    for shape in FLASH_SHAPES + FLASH_EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            ftol, gtol = FLASH_TOL[dtype]
-            rel = REL_L2[dtype]
-            dname = dtype_name(dtype)
             for causal in (True, False):
-                scale = 1.0 / math.sqrt(shape[-1])
-                q, k, v, do = (randn_on(gen, shape, dtype) for _ in range(4))
-                o, lse = fa.flash_fwd(q, k, v, scale, causal)
-                torch.cuda.synchronize()
-                po, plse = fa.flash_fwd_plain(q, k, v, scale, causal)
-                tag = f"{tuple(shape)} {dname} causal={causal}"
-                err, rel_err = check_outputs(f"flash_fwd {tag}", ("o", "lse"),
-                                             (o, lse), (po, plse), ftol, rel)
-                fwd = {"shape": list(shape), "dtype": dname,
-                       "causal": causal, "max_abs_err": err, "tol": ftol,
-                       "rel_l2_err": rel_err, "rel_l2_tol": rel}
-                got = fa.flash_bwd(q, k, v, po, plse, do, scale, causal)
-                torch.cuda.synchronize()
-                want = fa.flash_bwd_plain(q, k, v, po, plse, do, scale,
-                                          causal)
-                err, rel_err = check_outputs(f"flash_bwd {tag}",
-                                             ("dq", "dk", "dv"), got, want,
-                                             gtol, rel)
-                bwd = {"shape": list(shape), "dtype": dname,
-                       "causal": causal, "max_abs_err": err, "tol": gtol,
-                       "rel_l2_err": rel_err, "rel_l2_tol": rel}
-                del o, lse, got, want
-                if si == 0 and causal and dtype == torch.bfloat16:
-                    def case():
-                        t = [randn_on(gen, shape, dtype) for _ in range(4)]
-                        o_, lse_ = fa.flash_fwd_plain(*t[:3], scale, True)
-                        return t[:3] + [o_, lse_, t[3]]
-
-                    fbytes = flash_work(shape, True, dtype, False)[0]
-                    bufs = copies(case, fbytes)
-                    fwd_bufs = [(a[0], a[1], a[2], scale, True) for a in bufs]
-                    sdpa = torch.nn.functional.scaled_dot_product_attention
-                    fwd.update(timings(
-                        fa.flash_fwd, fa.flash_fwd_plain, fwd_bufs,
-                        lambda a, b, c, *_: sdpa(a, b, c, is_causal=True),
-                        fwd_bufs, iters=10, replays=3))
-                    fwd["library"] = "F.scaled_dot_product_attention"
-                    fwd.update(bound(*flash_work(shape, True, dtype, False),
-                                     BF16_OPS_PER_S))
-                    bwd_bufs = [tuple(a) + (scale, True) for a in bufs]
-                    lib_bufs = [sdpa_backward_args(a[0], a[1], a[2], a[5],
-                                                   scale, True) for a in bufs]
-                    bwd.update(timings(fa.flash_bwd, fa.flash_bwd_plain,
-                                       bwd_bufs, sdpa_backward, lib_bufs,
-                                       iters=10, replays=3))
-                    bwd["library"] = ("aten._scaled_dot_product_flash_"
-                                      "attention_backward")
-                    bwd.update(bound(*flash_work(shape, True, dtype, True),
-                                     BF16_OPS_PER_S))
-                    del bufs, fwd_bufs, bwd_bufs, lib_bufs
+                fwd, bwd = flash_case(fa, gen, shape, dtype, causal)
+                if (causal and dtype == torch.bfloat16
+                        and shape in FLASH_TIMED):
+                    time_flash(fa, gen, shape, fwd, bwd)
+                    fwd["path"] = bwd["path"] = FLASH_TIMED[shape]
                 results["flash_fwd"].append(fwd)
                 results["flash_bwd"].append(bwd)
-                del q, k, v, do, po, plse
         torch.cuda.empty_cache()
     return results
+
+
+def sass_matrix_ops(library, nvcc):
+    """{kernel function name: count of HMMA / HGMMA instructions} from
+    ``cuobjdump -sass`` (beside ``nvcc``) of a built library."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
+
+
+def flash_build_report(fa, op_builder):
+    """Phase 1's record of the flash kernels: prints each instantiation's
+    registers, shared memory, local memory (spills) and blocks an SM, and
+    the matrix instructions in its SASS. Fails if a bf16 kernel spills or
+    if a bf16 forward or backward kernel has no tensor-core instruction."""
+    for name in fa.KERNELS:
+        for dh in fa.HEAD_DIMS:
+            for dtype in (torch.bfloat16, torch.float32):
+                info = fa.kernel_info(name, dh, dtype)
+                print(f"build: {name} Dh {dh} {dtype_name(dtype)}: "
+                      f"{info['registers']} registers, "
+                      f"{info['static_smem']} B static + "
+                      f"{info['dynamic_smem']} B dynamic shared memory, "
+                      f"{info['local_bytes']} B local a thread, "
+                      f"{info['threads']} threads, "
+                      f"{info['blocks_per_sm']} blocks an SM", flush=True)
+                if dtype == torch.bfloat16 and info["local_bytes"]:
+                    raise AssertionError(f"{name} Dh {dh} bf16 uses "
+                                         f"{info['local_bytes']} B of local "
+                                         f"memory a thread (spills)")
+    counts = sass_matrix_ops(op_builder.build_info["flash_attention"]["path"],
+                             op_builder.find_nvcc())
+    for fn, n in sorted(counts.items()):
+        print(f"build: SASS {fn}: {n} HMMA/HGMMA", flush=True)
+    mma = {fn: n for fn, n in counts.items() if "_mma_kernel" in fn}
+    want = len(fa.HEAD_DIMS) * 3  # forward, dK/dV and dQ at each head dim
+    if len(mma) != want or not all(mma.values()):
+        raise AssertionError(f"expected {want} bf16 tensor-core flash kernels "
+                             f"with HMMA/HGMMA in their SASS, got {mma}")
 
 
 def bert_kernel_phase(fb, fs, fa, gen):
@@ -1567,9 +1660,9 @@ def check_run(run, engine, expected, steps):
 
 
 KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                   "supertile_fwd", "supertile_bwd", "sparse_fwd",
-                   "sparse_bwd_dkdv", "sparse_bwd_dq", "ln_fwd", "ln_bwd",
-                   "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials",
+                   "flash_bwd_delta", "supertile_fwd", "supertile_bwd",
+                   "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "ln_fwd",
+                   "ln_bwd", "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials",
                    "fused_adam")
 
 
@@ -2552,6 +2645,8 @@ def main() -> int:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+
+    flash_build_report(fa, op_builder)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)

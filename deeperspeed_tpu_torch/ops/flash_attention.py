@@ -14,8 +14,12 @@ hand-written CUDA pair in ``csrc/flash_attention.cu`` that takes any S
   ``flash_fwd``  q, k, v (B, H, S, Dh) -> (o (B, H, S, Dh) in q's dtype,
                  lse (B, H, S) fp32).
   ``flash_bwd``  (q, k, v, o, lse, do) -> (dq, dk, dv); delta =
-                 rowsum(dO * O) is a plain torch reduction here, as the
-                 reference computes it in XLA outside both kernels.
+                 rowsum(dO * O), which the reference computes in XLA
+                 outside both kernels, is a small kernel of its own here
+                 (``flash_bwd_delta``) ahead of the dK/dV and dQ kernels.
+
+bf16 runs on the tensor cores (FlashAttention-2 on ``mma.sync``); fp32 on
+the CUDA cores, whose fp32 FMAs keep the port's fp32 tolerance.
 
 Beside each sits its plain PyTorch version (``flash_fwd_plain``,
 ``flash_bwd_plain``), used for a CPU tensor and as the kernels' yardstick
@@ -49,7 +53,7 @@ from .kernel_config import _is_hopper, routes_to_wrapper
 NEG_INF = -1e30  # the reference's masked score: finite, so no NaN appears
 HEAD_DIMS = (64, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BH = 65535  # grid.y of the CUDA launch
+_MAX_BH = 65535  # grid.y of the fp32 kernels' launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,7 +63,13 @@ _SIGNATURES = {
                       _P], _I),
     "ds_flash_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       ctypes.c_float, _I, _I, _P], _I),
+    "ds_flash_bwd_delta": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ds_flash_kernel_info": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
 }
+# the kernels ``kernel_info`` describes, by the index the library takes
+KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")
+_INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+              "threads", "blocks_per_sm")
 
 
 def _lib():
@@ -71,6 +81,18 @@ def _raise_on(err: int, name: str) -> None:
         msg = _lib().ds_flash_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def kernel_info(kernel: str, head_dim: int, dtype) -> dict:
+    """The compiled ``kernel`` (one of KERNELS) for ``head_dim`` and
+    ``dtype`` at its launch configuration: registers, static and dynamic
+    shared memory, local memory a thread (spills), threads and blocks an SM
+    (the CUDA occupancy calculator). Builds the library if needed."""
+    out = (_I * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_flash_kernel_info(KERNELS.index(kernel), head_dim,
+                                          _DTYPE_CODES[dtype], out),
+              f"{kernel} info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 def _scores(q, k, sm_scale, causal):
@@ -122,7 +144,8 @@ def flash_bwd_plain(q, k, v, o, lse, do, sm_scale, causal):
 
 
 def _check(name, tensors, like):
-    """Every tensor CUDA, contiguous, shaped and typed like ``like``."""
+    """Every tensor on ``like``'s device, contiguous, 16-byte aligned,
+    shaped and typed like ``like``."""
     if like.dim() != 4:
         raise ValueError(f"{name} takes (B, H, S, Dh) tensors, got "
                          f"{tuple(like.shape)}")
@@ -144,6 +167,9 @@ def _check(name, tensors, like):
                              f"beside {tuple(like.shape)} {like.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every tensor must start on a 16-byte "
+                             f"boundary (the kernels load 16 bytes a lane)")
     return B, H, S, Dh
 
 
@@ -178,10 +204,9 @@ flash_fwd.launches = 0
 
 
 def flash_bwd(q, k, v, o, lse, do, sm_scale, causal):
-    """Flash backward kernels (dK/dV, then dQ) on contiguous (B, H, S, Dh)
-    tensors of one dtype and ``flash_fwd``'s fp32 lse: returns (dq, dk,
-    dv). delta = rowsum(dO * O) is computed here in torch. A CPU tensor
-    takes ``flash_bwd_plain``."""
+    """Flash backward kernels (delta = rowsum(dO * O), dK/dV, then dQ) on
+    contiguous (B, H, S, Dh) tensors of one dtype and ``flash_fwd``'s fp32
+    lse: returns (dq, dk, dv). A CPU tensor takes ``flash_bwd_plain``."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, sm_scale, causal)
     if q.device.type != "cuda":
@@ -192,10 +217,14 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale, causal):
             or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
         raise ValueError(f"flash_bwd takes a contiguous fp32 lse of shape "
                          f"{(B, H, S)} on {q.device}")
-    delta = (do.float() * o.float()).sum(dim=-1)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _lib()
     with torch.cuda.device(q.device):
+        err = lib.ds_flash_bwd_delta(o.data_ptr(), do.data_ptr(),
+                                     delta.data_ptr(), B * H, S, Dh,
+                                     _DTYPE_CODES[q.dtype], _stream(q.device))
+        _raise_on(err, "flash_bwd_delta")
         err = lib.ds_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                do.data_ptr(), lse.data_ptr(),
                                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -148,32 +148,49 @@ def test_cuda_dispatchers_are_differentiable_through_the_kernels():
 
 @pytest.mark.cuda
 def test_cuda_flash_kernels_match_plain_versions():
-    """flash_fwd and flash_bwd against their plain versions at one small
-    ragged shape, causal and not, fp32 and bf16 (the reference's flash
-    tolerances: fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2)."""
+    """flash_fwd and flash_bwd against their plain versions at S on the
+    kernels' tile edges (1, 17, 63, 65, 127, 129) and a ragged 200, head
+    dims 64, 96 and 128, causal and not, fp32 and bf16 (the reference's
+    flash tolerances: fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2); a second launch
+    on the same inputs must give the same bits (the backward has no
+    atomics)."""
     _needs_card()
     from deeperspeed_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for dtype, ftol, gtol in ((torch.float32, 2e-3, 5e-3),
-                              (torch.bfloat16, 2e-2, 5e-2)):
-        for causal in (True, False):
-            q, k, v, do = (torch.randn(1, 3, 200, 64, generator=gen,
-                                       device="cuda").to(dtype)
-                           for _ in range(4))
-            o, lse = fa.flash_fwd(q, k, v, 0.125, causal)
-            po, plse = fa.flash_fwd_plain(q, k, v, 0.125, causal)
-            torch.testing.assert_close(o.float(), po.float(), atol=ftol,
-                                       rtol=ftol)
-            torch.testing.assert_close(lse, plse, atol=ftol, rtol=ftol)
-            got = fa.flash_bwd(q, k, v, po, plse, do, 0.125, causal)
-            want = fa.flash_bwd_plain(q, k, v, po, plse, do, 0.125, causal)
-            for a, p in zip(got, want):
-                torch.testing.assert_close(a.float(), p.float(), atol=gtol,
-                                           rtol=gtol)
+    for S in (1, 17, 63, 65, 127, 129, 200):
+        for Dh in (64, 96, 128):
+            scale = 1.0 / math.sqrt(Dh)
+            for dtype, ftol, gtol in ((torch.float32, 2e-3, 5e-3),
+                                      (torch.bfloat16, 2e-2, 5e-2)):
+                for causal in (True, False):
+                    q, k, v, do = (torch.randn(1, 3, S, Dh, generator=gen,
+                                               device="cuda").to(dtype)
+                                   for _ in range(4))
+                    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+                    po, plse = fa.flash_fwd_plain(q, k, v, scale, causal)
+                    torch.testing.assert_close(o.float(), po.float(),
+                                               atol=ftol, rtol=ftol)
+                    torch.testing.assert_close(lse, plse, atol=ftol,
+                                               rtol=ftol)
+                    got = fa.flash_bwd(q, k, v, po, plse, do, scale, causal)
+                    want = fa.flash_bwd_plain(q, k, v, po, plse, do, scale,
+                                              causal)
+                    for a, p in zip(got, want):
+                        torch.testing.assert_close(a.float(), p.float(),
+                                                   atol=gtol, rtol=gtol)
+                    again = (fa.flash_fwd(q, k, v, scale, causal)
+                             + fa.flash_bwd(q, k, v, po, plse, do, scale,
+                                            causal))
+                    for a, b in zip((o, lse) + got, again):
+                        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(*(torch.zeros(1, 1, 8, 32, device="cuda"),) * 3, 1.0,
                      True)
+    x = torch.zeros(1 * 1 * 8 * 64 + 1, device="cuda",
+                    dtype=torch.bfloat16)[1:].view(1, 1, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(x, x, x, 1.0, True)
 
 
 # leaf shapes of the fused Adam cases: a 0-d leaf, counts that are no
