@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and dynamic shared memory, local memory a thread and blocks an SM;
    fail if a bf16 one uses local memory (spills), or unless cuobjdump
    -sass finds HMMA/HGMMA instructions in each of the nine bf16 forward
-   and backward kernels (the tensor cores).
+   and backward kernels (the tensor cores). The same for the bf16
+   tensor-core kernels of the sparse backward (dQ, dK/dV and delta at
+   head dims 64, 96 and 128; HMMA in all six dQ and dK/dV ones) and of
+   the super-tile forward (at every padded head dim 16-128 and each S
+   class, S 64, 128 and 248: HMMA in all 24).
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -79,9 +83,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    pair (add_ln_fwd/add_ln_bwd) at (R, 1024) for R in ADD_LN_ROWS (the
    BERT-large path's 8192 rows and ragged counts) and at (2048, 2048);
    the super-tile attention pair at SUPERTILE_SHAPES (the BERT-large
-   shape (64, 16, 128, 64), then S in {8, 64, 200, 248} with Dh 64 and
-   128, including fp32 at S 248 / Dh 128, whose K and V exceed a block's
-   shared memory), causal and not; LN and erf bias+GeLU, forward and
+   shape (64, 16, 128, 64), then S in {8, 16, 64, 120, 136, 200, 248},
+   the forward's 16-row tile and its S classes' edges, with Dh 40, 64,
+   96 and 128, Dh 40 being no multiple of 16, including fp32 at S 248 /
+   Dh 128, whose K and V exceed a block's shared memory), causal and not,
+   and at the BERT shape two launches of supertile_fwd on the same inputs
+   must give the same bits; LN and erf bias+GeLU, forward and
    backward, at the BERT widths (D 1024, F 4096 and the MLM head's
    (4096, 1024)). bf16 and fp32, with the tolerances and relative L2
    limits of phases 2-4; each new kernel, and the four block kernels at
@@ -136,13 +143,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (blocks 32 and 64 of one family, head dims 96 and 128, fp32, a key
    mask dropping the last quarter of the keys, empty layout rows, which
    must give o = 0 and lse = NEG_INF); then a wrong head count, a wrong
-   length and an unsupported block, each of which must raise. The
+   length and an unsupported block, each of which must raise. At the
+   path's layout two launches of sparse_bwd on the same inputs must give
+   the same bits; the elements of sparse_bwd's outputs that differ from
+   the plain version at all are counted, bf16 and fp32. The
    reference's flash tolerances (fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2) and
    REL_L2 hold on every output. Every path-shape case is timed by
    CUDA-graph replay beside its bound (operations counted over the (query,
    key) pairs the layout keeps), the plain versions and
    F.scaled_dot_product_attention with the expanded boolean mask (its
-   backward through autograd, launched eagerly).
+   backward through autograd, launched eagerly); at the path's layout
+   sparse_bwd is also timed over one-tile groups, each warp walking its
+   list alone (one_tile_groups_ms), the yardstick of the shared groups.
 12. Sparse-attention training at full width: the user's loss
    of 24 BertSparseSelfAttention layers (BERT-large's attention
    sub-layers: hidden 1024, 16 heads, max_seq_length 4096, bf16, weights
@@ -312,8 +324,12 @@ WARMUP_STEPS = 100
 BERT_ROWS = 64 * 128       # B * S of the BERT micro-batch
 BERT_HEAD_ROWS = 64 * 64   # the MLM head's rows: one 64-position CE chunk
 ADD_LN_ROWS = (37, 1000, BERT_ROWS)
+# the BERT-large shape, then the forward's tile and S-class edges (16-row
+# query tiles; scores held in registers up to S 64 and 128, recomputed
+# above) at head dims that are and are not a multiple of 16
 SUPERTILE_SHAPES = ((64, 16, 128, 64),) + tuple(
-    (2, 4, S, Dh) for S in (8, 64, 200, 248) for Dh in (64, 128))
+    (2, 4, S, Dh) for S in (8, 16, 64, 120, 136, 200, 248)
+    for Dh in (40, 64, 96, 128))
 BERT_STEPS = 6
 # WarmupLR, as the reference's, gives lr 0 on the first two steps, then
 # warmup_max_lr * log(t + 1) / log(W + 1): with W = 4 the LR is at 43 %,
@@ -806,6 +822,55 @@ def flash_build_report(fa, op_builder):
                              f"with HMMA/HGMMA in their SASS, got {mma}")
 
 
+def report_kernel(name, info):
+    """Prints one compiled kernel's record; fails if it uses local memory
+    (spills)."""
+    print(f"build: {name}: {info['registers']} registers, "
+          f"{info['static_smem']} B static + {info['dynamic_smem']} B "
+          f"dynamic shared memory, {info['local_bytes']} B local a thread, "
+          f"{info['threads']} threads, {info['blocks_per_sm']} blocks an SM",
+          flush=True)
+    if info["local_bytes"]:
+        raise AssertionError(f"{name} uses {info['local_bytes']} B of local "
+                             f"memory a thread (spills)")
+
+
+def require_hmma(library, op_builder, marker, want):
+    """Fails unless ``want`` kernels whose name holds ``marker`` in the
+    built ``library`` each have HMMA/HGMMA instructions in their SASS."""
+    counts = sass_matrix_ops(op_builder.build_info[library]["path"],
+                             op_builder.find_nvcc())
+    mma = {fn: n for fn, n in counts.items() if marker in fn}
+    for fn, n in sorted(mma.items()):
+        print(f"build: SASS {fn}: {n} HMMA/HGMMA", flush=True)
+    if len(mma) != want or not all(mma.values()):
+        raise AssertionError(f"expected {want} {marker} kernels with "
+                             f"HMMA/HGMMA in their SASS, got {mma}")
+
+
+def tensor_core_build_report(bs, fs, op_builder):
+    """Phase 1's record of the sparse backward's and the super-tile
+    forward's bf16 kernels: every instantiation's registers, shared and
+    local memory and blocks an SM (no spills), and HMMA in the SASS of
+    each tensor-core kernel."""
+    for name in bs.KERNELS:
+        for dh in bs.HEAD_DIMS:
+            report_kernel(f"{name} Dh {dh} bf16", bs.kernel_info(name, dh))
+    for marker in ("sparse_bwd_dq_mma_kernel", "sparse_bwd_dkdv_mma_kernel"):
+        require_hmma("sparse_attention", op_builder, marker,
+                     len(bs.HEAD_DIMS))
+    # one instantiation for each head dim rounded up to 16 and each S
+    # class (the whole row's scores in registers up to S 64 and 128,
+    # recomputed above)
+    padded = range(16, fs.MAX_HEAD_DIM + 1, 16)
+    for dh in padded:
+        for S in (64, 128, 248):
+            report_kernel(f"supertile_fwd Dh {dh} S {S} bf16",
+                          fs.fwd_kernel_info(S, dh))
+    require_hmma("supertile_attention", op_builder,
+                 "supertile_fwd_mma_kernel", 3 * len(padded))
+
+
 def bert_kernel_phase(fb, fs, fa, gen):
     """Phase 7: the add-LN and super-tile pairs against their plain
     versions, and the LN and bias+GeLU kernels at the BERT widths; each
@@ -896,8 +961,17 @@ def bert_kernel_phase(fb, fs, fa, gen):
                 bwd = {"shape": list(shape), "dtype": dname,
                        "causal": causal, "max_abs_err": err, "tol": gtol,
                        "rel_l2_err": rel_err, "rel_l2_tol": rel}
-                del o, lse, got, want
+                del got, want
                 if si == 0 and not causal and dtype == torch.bfloat16:
+                    again = fs.supertile_fwd(q, k, v, scale, causal)
+                    if not (torch.equal(again[0], o)
+                            and torch.equal(again[1], lse)):
+                        raise AssertionError(f"supertile_fwd {tag}: two "
+                                             f"launches on the same inputs "
+                                             f"differ")
+                    fwd["bit_identical_relaunch"] = True
+                    del again
+
                     def case():
                         t = [randn_on(gen, shape, dtype) for _ in range(4)]
                         o_, lse_ = fs.supertile_fwd_plain(*t[:3], scale,
@@ -951,7 +1025,7 @@ def bert_kernel_phase(fb, fs, fa, gen):
                     del bufs, fwd_bufs, bwd_bufs, lib_bufs
                 results["supertile_fwd"].append(fwd)
                 results["supertile_bwd"].append(bwd)
-                del q, k, v, do, po, plse
+                del q, k, v, do, o, lse, po, plse
         torch.cuda.empty_cache()
 
     # the block kernels at the BERT widths: LN on the embedding (8192 rows)
@@ -1273,14 +1347,28 @@ def sparse_case(bs, gen, tag, lut, shape, dtype, kpm=None):
     err, rel_err = check_outputs(f"sparse_bwd {tag}", ("dq", "dk", "dv"),
                                  got, want, gtol, rel)
     bwd = dict(meta, max_abs_err=err, tol=gtol, rel_l2_err=rel_err,
-               rel_l2_tol=rel)
+               rel_l2_tol=rel,
+               elements_differing=sum(int((a != b).sum())
+                                      for a, b in zip(got, want)),
+               elements=sum(a.numel() for a in got))
     return fwd, bwd, (q, k, v, po, plse, do)
 
 
-def time_sparse(bs, sk, gen, lut, shape, dtype, fwd, bwd):
+def one_tile_groups(groups):
+    """A backward group table (rows of four tile ids, offset, length) with
+    every tile in a group of its own, longest list first."""
+    rows = [[t, -1, -1, -1, g[4], g[5]] for g in groups.tolist()
+            for t in g[:4] if t >= 0]
+    rows.sort(key=lambda r: -r[5])
+    return torch.tensor(rows, dtype=torch.int32, device=groups.device)
+
+
+def time_sparse(bs, sk, gen, lut, shape, dtype, fwd, bwd,
+                one_tile_walks=False):
     """Device ms of the pair, its plain versions and SDPA with the
     expanded boolean mask (forward by CUDA-graph replay; its backward
-    through autograd, launched eagerly), beside each one's bound."""
+    through autograd, launched eagerly), beside each one's bound; with
+    ``one_tile_walks`` also sparse_bwd over one-tile groups."""
     B, _, S, Dh = shape
     scale = Dh ** -0.5
     dev = lut.on("cuda")
@@ -1311,6 +1399,15 @@ def time_sparse(bs, sk, gen, lut, shape, dtype, fwd, bwd):
         lambda q, k, v, o, lse, do: bs.sparse_bwd_plain(
             q, k, v, o, lse, do, dev.layout, lut.block, scale, causal),
         bufs, iters=10, replays=3))
+    if one_tile_walks:
+        # the same kernels over groups of one tile each: every warp walks
+        # its list alone, sharing no gathered tile (the groups' yardstick)
+        solo = dev._replace(q_groups=one_tile_groups(dev.q_groups),
+                            kv_groups=one_tile_groups(dev.kv_groups))
+        bwd["one_tile_groups_ms"], _ = time_ms(
+            lambda q, k, v, o, lse, do: bs.sparse_bwd(q, k, v, o, lse, do,
+                                                      solo, scale, causal),
+            bufs, 10, 3)
     lib_bufs = []
     for q, k, v, _, _, do in bufs[:2]:
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1343,10 +1440,23 @@ def sparse_phase(bs, gen):
             cfg = make(sa)
             lut = sk.SparseLut(cfg.make_layout(S), cfg.block, causal)
             shape = (1, SPARSE_HEADS, S, SPARSE_DH)
-            fwd, bwd, _ = sparse_case(bs, gen, name, lut, shape,
-                                      torch.bfloat16)
+            fwd, bwd, tensors = sparse_case(bs, gen, name, lut, shape,
+                                            torch.bfloat16)
+            if name == "fixed-path":
+                dev = lut.on("cuda")
+                scale = SPARSE_DH ** -0.5
+                first, second = (bs.sparse_bwd(*tensors, dev, scale,
+                                               lut.causal)
+                                 for _ in range(2))
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    raise AssertionError(f"sparse_bwd {name}: two launches "
+                                         f"on the same inputs differ")
+                bwd["bit_identical_relaunch"] = True
+                del first, second
+            del tensors
             fwd["density"] = bwd["density"] = sa.layout_density(lut.layout)
-            time_sparse(bs, sk, gen, lut, shape, torch.bfloat16, fwd, bwd)
+            time_sparse(bs, sk, gen, lut, shape, torch.bfloat16, fwd, bwd,
+                        one_tile_walks=name == "fixed-path")
             if name == "fixed-path":
                 fwd["path"] = bwd["path"] = "sparse"
             results["sparse_fwd"].append(fwd)
@@ -1661,7 +1771,8 @@ def check_run(run, engine, expected, steps):
 
 KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "flash_bwd_delta", "supertile_fwd", "supertile_bwd",
-                   "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "ln_fwd",
+                   "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq",
+                   "sparse_bwd_delta", "ln_fwd",
                    "ln_bwd", "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials",
                    "fused_adam")
 
@@ -2647,6 +2758,7 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     flash_build_report(fa, op_builder)
+    tensor_core_build_report(bs, fs, op_builder)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)
@@ -2680,6 +2792,13 @@ def main() -> int:
             print(f"kernel {name}: elements differing from the plain "
                   f"version: {sum(r['elements_differing'] for r in rows)} "
                   f"of {sum(r['elements'] for r in rows)}", flush=True)
+        if name == "sparse_bwd":
+            for dt in ("bfloat16", "float32"):
+                sel = [r for r in rows if r["dtype"] == dt]
+                print(f"kernel {name}: {dt} elements differing from the "
+                      f"plain version: "
+                      f"{sum(r['elements_differing'] for r in sel)} of "
+                      f"{sum(r['elements'] for r in sel)}", flush=True)
 
     serving = serving_phase(fb, card)
     gc.collect()

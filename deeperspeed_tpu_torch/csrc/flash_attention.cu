@@ -26,7 +26,7 @@
 //    tiles of the other side (64 keys; 16 or 32 queries in the dK/dV
 //    kernel), which cp.async (16 bytes a thread) double-buffers so the
 //    next tile's loads fly under this tile's products. Tiles sit in shared memory as bf16 with an XOR swizzle of
-//    their 16-byte chunks (swz below), so every ldmatrix (.trans for the
+//    their 16-byte chunks (swz, tensor_core.cuh), so every ldmatrix (.trans for the
 //    operands read across the row) is free of bank conflicts.
 //  * the forward keeps Q's fragments in registers, runs the online
 //    softmax on the S accumulators (row max and sum over the 4 lanes of a
@@ -61,6 +61,8 @@
 
 #include <cstdint>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 // ------------------------------------------------------------------ //
@@ -73,11 +75,6 @@ constexpr int kTile = 64;        // rows of a query tile and of a key tile
 constexpr int kThreads = 256;    // a 16 x 16 grid of threads, 4 x 4 each
 constexpr int kPLd = kTile + 1;  // row stride of the (64, 64) P / dS tiles
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF: finite, no NaN
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -481,8 +478,6 @@ __global__ void __launch_bounds__(kThreads)
 // bf16 route: tensor cores (mma.sync m16n8k16), cp.async, ldmatrix
 // ------------------------------------------------------------------ //
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kBM = 16 * kMmaWarps;  // query rows of a forward / dQ block
@@ -492,118 +487,6 @@ constexpr int kBN = 64;              // key rows of a tile, and of a dK/dV block
 // alone take 128)
 template <int DH>
 constexpr int kBQ = DH == 128 ? 16 : 32;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// A row of Dh bf16 values is Dh / 8 chunks of 16 bytes. The physical chunk
-// of logical chunk c in row r is chosen so that the eight rows an
-// ldmatrix reads at one chunk (rows 8i .. 8i + 7) fall on eight distinct
-// 16-byte bank groups: with 8 or 16 chunks a row, c ^ (r & 7); with 12
-// (Dh 96, a row stride of 4 bank groups mod 8) the row's parity already
-// splits the rows in two halves, and c ^ ((r >> 1) & 3), which stays
-// inside c's group of four, spreads each half over four.
-template <int DH>
-__device__ __forceinline__ int swz(int r, int c) {
-  if constexpr ((DH / 8) % 8 == 0) {
-    return c ^ (r & 7);
-  } else {
-    static_assert(DH / 8 == 12, "Dh 64, 96 or 128");
-    return c ^ ((r >> 1) & 3);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special function unit (ex2.approx, denormal results flushed
-// to 0): the forward's exponentials
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two fp32 values rounded to bf16 (the reference's cast) in one register,
-// the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The fragment layouts of m16n8k16 (lane = 4 g + t): an accumulator holds
-// rows g and g + 8, columns 2t and 2t + 1 of a 16 x 8 tile; the A operand
-// the same rows, columns 2t, 2t + 1 and 2t + 8, 2t + 9 of a 16 x 16 tile.
-// So the accumulators of two adjacent 8-column tiles, packed to bf16, are
-// the A operand of the 16 x 16 tile they form (a_from_acc).
-__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&lo)[4],
-                                           const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// ldmatrix addresses for a tile of DH-wide swizzled rows starting at
-// ``tile``. A operand of the 16 x 16 block at rows r0.., chunks 2kk..:
-// matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-// (rows 8-15, k 8-15). The transposed B operand of a product that
-// contracts over the tile's rows (P V, dS K, P^T dO, dS^T Q) has the same
-// lane pattern, read with .trans: rows are the contracted index, chunks
-// 2kk.. two 8-column tiles of the output.
-template <int DH>
-__device__ __forceinline__ uint32_t a_addr(const bf16* tile, int r0, int kk, int lane) {
-  const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  return smem_u32(tile + r * DH + swz<DH>(r, 2 * kk + (lane >> 4)) * 8);
-}
-// B operand of two adjacent 8-column output tiles (rows n0.. and n0 + 8..
-// of the stored tile, which is B transposed: S = Q K^T reads K's rows)
-// over k chunks 2kk..: matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
-// (n 8-15, k 0-7), (n 8-15, k 8-15).
-template <int DH>
-__device__ __forceinline__ uint32_t b_addr(const bf16* tile, int n0, int kk, int lane) {
-  const int r = n0 + (lane & 7) + (lane >> 4) * 8;
-  return smem_u32(tile + r * DH + swz<DH>(r, 2 * kk + ((lane >> 3) & 1)) * 8);
-}
 
 // rows [r0, r0 + ROWS) of a (S, DH) bf16 matrix into a swizzled tile with
 // cp.async; rows at or past S are zero-filled
@@ -630,38 +513,6 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* __restr
   if (tid < ROWS) {
     const bool ok = r0 + tid < S;
     cp_async4(smem_u32(dst + tid), src + (ok ? r0 + tid : 0), ok);
-  }
-}
-
-// Write a warp's (16, DH) fp32 accumulator, rounded to bf16, through its
-// own 16 swizzled rows of ``stage`` (rows r0..) to rows g0.. of ``dst``
-// (rows at or past S dropped), 16 bytes a lane.
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* stage, int r0, const float (&acc)[DH / 8][4],
-                                           bf16* __restrict__ dst, int g0, int S, int lane) {
-  constexpr int CPR = DH / 8;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const int ra = r0 + g;
-    const int rb = r0 + g + 8;
-    *reinterpret_cast<uint32_t*>(stage + ra * DH + swz<DH>(ra, j) * 8 + 2 * t) =
-        pack_bf16(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(stage + rb * DH + swz<DH>(rb, j) * 8 + 2 * t) =
-        pack_bf16(acc[j][2], acc[j][3]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int it = 0; it < 16 * CPR / 32; ++it) {
-    const int i = lane + it * 32;
-    const int r = i / CPR;
-    const int c = i - r * CPR;
-    if (g0 + r < S) {
-      *reinterpret_cast<uint4*>(dst + static_cast<long long>(g0 + r) * DH + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + (r0 + r) * DH + swz<DH>(r0 + r, c) * 8);
-    }
   }
 }
 
@@ -813,7 +664,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
   // o = acc / l; the warp's own rows of the Q tile (read only by this warp,
   // and only into qf) stage it
-  store_rows<DH>(qs, w0, acc, o + base, q0 + w0, S, lane);
+  store_rows<DH>(qs, w0, acc, o + base, q0 + w0, S, DH, DH / 8, lane);
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -823,34 +674,12 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
-// delta = rowsum(dO * O) in fp32 over (rows, DH) row-major o and dout, 4
-// lanes a row, 16-byte loads
+// delta = rowsum(dO * O) in fp32 over (rows, DH) row-major o and dout
 template <typename T, int DH>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                           float* __restrict__ delta, long long rows) {
-  constexpr int EPV = 16 / static_cast<int>(sizeof(T));
-  constexpr int VPR = DH / EPV;
-  static_assert(VPR % 4 == 0, "whole vectors a lane");
-  const long long row = static_cast<long long>(blockIdx.x) * 64 + (threadIdx.x >> 2);
-  const int sub = threadIdx.x & 3;
-  float sum = 0.f;
-  if (row < rows) {
-    const uint4* ov = reinterpret_cast<const uint4*>(o + row * DH);
-    const uint4* dv = reinterpret_cast<const uint4*>(dout + row * DH);
-#pragma unroll
-    for (int c = sub; c < VPR; c += 4) {
-      const uint4 a = ov[c];
-      const uint4 b = dv[c];
-      const T* ae = reinterpret_cast<const T*>(&a);
-      const T* be = reinterpret_cast<const T*>(&b);
-#pragma unroll
-      for (int e = 0; e < EPV; ++e) sum = fmaf(to_f32(ae[e]), to_f32(be[e]), sum);
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  if (row < rows && sub == 0) delta[row] = sum;
+                          float* __restrict__ delta, long long rows) {
+  rowsum_dot<T, DH>(o, dout, delta, rows);
 }
 
 // dK and dV for one 64-row key tile (warp w: keys 16w..), looping over
@@ -983,8 +812,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
   // the warp's own rows of the K and V tiles (read only by this warp) stage
   // dK and dV
-  store_rows<DH>(ks, w0, dka, dk + base, k0 + w0, S, lane);
-  store_rows<DH>(vs, w0, dva, dv + base, k0 + w0, S, lane);
+  store_rows<DH>(ks, w0, dka, dk + base, k0 + w0, S, DH, DH / 8, lane);
+  store_rows<DH>(vs, w0, dva, dv + base, k0 + w0, S, DH, DH / 8, lane);
 }
 
 // dQ for one 64-row query tile (warp w: rows 16w..), looping over the key
@@ -1098,7 +927,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     __syncthreads();
   }
   // the warp's own rows of the Q tile (read only by this warp) stage dQ
-  store_rows<DH>(qs, w0, dqa, dq + base, q0 + w0, S, lane);
+  store_rows<DH>(qs, w0, dqa, dq + base, q0 + w0, S, DH, DH / 8, lane);
 }
 
 template <typename K>
@@ -1189,27 +1018,6 @@ int launch_delta(const void* o, const void* dout, void* delta, long long rows, c
   flash_bwd_delta_kernel<T, DH><<<static_cast<unsigned>((rows + 63) / 64), 256, 0, s>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows);
   return static_cast<int>(cudaGetLastError());
-}
-
-// One (registers, static smem, dynamic smem, local bytes a thread, threads,
-// blocks an SM) record of a compiled kernel at its launch configuration.
-template <typename K>
-int kernel_info(K kernel, size_t smem, int threads, int* out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.sharedSizeBytes);
-  out[2] = static_cast<int>(smem);
-  out[3] = static_cast<int>(attr.localSizeBytes);
-  out[4] = threads;
-  out[5] = blocks;
-  return 0;
 }
 
 template <int DH>

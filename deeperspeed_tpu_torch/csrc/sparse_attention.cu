@@ -20,11 +20,54 @@
 //
 // What bounds them: at the path shape (1, 16, 4096, 64) bf16 with the
 // Fixed block-16 layout (density 0.262) the forward does ~18 GFLOP on
-// ~34 MB, above the H100's ~295 FLOP/byte ridge, so operations bound it.
-// This first version is the simple, right one: CUDA-core fp32 FMAs over
-// shared-memory tiles, not the tensor cores (wgmma with TMA-fed tile rings
-// is later work), so it runs far above its bf16 tensor-core bound. The
-// design:
+// ~34 MB and the backward ~45 GFLOP on ~68 MB, above the H100's ~295
+// FLOP/byte ridge, so operations bound both.
+//
+// Semantics both routes keep:
+//  * causal: the host drops the blocks above the diagonal before it
+//    builds the tables; inside the diagonal blocks the kernels mask
+//    element by element.
+//  * the optional key mask (B, S) fp32 is an added bias on the scores; a
+//    key whose mask is <= NEG_INF / 2 counts as not visible. A row with no
+//    visible key writes o = 0 and lse = NEG_INF (-1e30, finite, as in the
+//    reference), and its backward gives zero gradients, not NaN.
+//  * rounding follows the reference: P is cast to the input dtype before
+//    P V (kernels.py:243-246) and before dV += P^T dO, dS before its two
+//    products (kernels.py:318, :368); sums of P and all accumulators stay
+//    fp32.
+//  * the backward stays deterministic: every output row is written by one
+//    warp, which sums its terms in one fixed order, with no atomics, so a
+//    relaunch repeats bit for bit. delta = rowsum(dO * O) is a kernel of
+//    its own (sparse_bwd_delta), launched first.
+//
+// sparse_bwd, bf16 (the training path): mma.sync.m16n8k16 bf16 -> fp32 on
+// the tensor cores, as flash_attention.cu's backward, with the helpers of
+// tensor_core.cuh:
+//  * one warp per 16-row tile (block 16 is exactly m16), four warps a
+//    block. The host groups tiles whose block lists are identical, up to
+//    four to a group (ops/sparse_attention/kernels.py, build_groups), and
+//    the four warps of a group share every gathered tile. In the path's
+//    Fixed layout the four query blocks of a local window share their
+//    list, and so do the key blocks of a window that no global row sees,
+//    and the global key blocks of one head.
+//  * each step gathers 64 rows of the other side through the group's list
+//    (kept in shared memory): 16-byte cp.async copies into swizzled bf16
+//    tiles, double-buffered, read by ldmatrix(.trans).
+//  * dQ (sparse_bwd_dq_mma): S = Q K^T and dP = dO V^T, then dQ += dS K
+//    with dS rounded to bf16 and packed from the accumulators into the A
+//    operand. dK/dV (sparse_bwd_dkdv_mma) computes S^T = K Q^T and
+//    dP^T = V dO^T, so P^T and dS^T are the A operands of dV += P^T dO and
+//    dK += dS^T Q without leaving registers. At Dh 128 a step is taken 32
+//    keys (16 queries in dK/dV) at a time: the dK and dV accumulators
+//    alone take 128 registers a thread there.
+//  * the groups run heaviest first: the host orders them by the length of
+//    their list, so a global key block, which every query block sees,
+//    starts in the first wave and not in the last.
+//
+// sparse_fwd, and sparse_bwd in fp32, keep the first port's CUDA-core
+// design (fp32 FMAs over fp32 shared-memory tiles with row stride Dh + 1;
+// TF32 tensor cores would keep ~10 mantissa bits, short of the port's
+// fp32 tolerance):
 //  * one 256-thread block per (batch*head, T-row tile of a q-block row),
 //    T = min(block, 64): a 128 block is two 64-row tiles. The block walks
 //    its row's active k-blocks in steps of 64 keys, gathered through the
@@ -32,31 +75,19 @@
 //    of a larger block per step), with the online-softmax state (m, l) and
 //    the accumulators in registers, fp32. Nothing of size S x S reaches
 //    device memory, and the work scales with the active blocks.
-//  * the dK/dV kernel is the mirror image: one block per T-key tile,
+//  * the fp32 dK/dV kernel is the mirror image: one block per T-key tile,
 //    walking the q-blocks that see it through the transposed table, 64
 //    queries a step.
-//  * causal: the host drops the blocks above the diagonal before it
-//    builds both tables; inside the diagonal blocks the kernels mask
-//    element by element.
-//  * the optional key mask (B, S) fp32 is an added bias on the scores; a
-//    key whose mask is <= NEG_INF / 2 counts as not visible. A row with no
-//    visible key writes o = 0 and lse = NEG_INF (-1e30, finite, as in the
-//    reference), and its backward gives zero gradients, not NaN.
-//  * rounding follows the reference: P is cast to the input dtype before
-//    P V (kernels.py:243-246) and dS before its two products; sums of P and
-//    all accumulators stay fp32.
-//  * the backward is two launches (dQ per query tile over the row table,
-//    dK/dV per key tile over the transposed table), so no block writes
-//    another block's output and no atomics are needed: a run repeats bit
-//    for bit. delta = rowsum(dO * O) comes in from the caller.
-// What this first design loses: a block-16 layout gives each thread block
-// only 16 query rows against 64-key steps, so each step's loads of K and V
-// (64 x Dh each) feed few FMAs; rows of one layout differ in length
-// (BigBird's global rows have 64 active blocks, its window rows 3-5) and
-// nothing balances them across SMs; tiles are fp32 in shared memory.
+// What that design loses (sparse_fwd is next in line for the tensor
+// cores): a block-16 layout gives each thread block only 16 query rows
+// against 64-key steps, so each step's loads of K and V (64 x Dh each)
+// feed few FMAs; rows of one layout differ in length and nothing balances
+// them across SMs; tiles are fp32 in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -67,11 +98,6 @@ constexpr int kThreads = 256;        // a 16 x 16 grid of threads
 constexpr int kCLd = kChunk + 1;     // row stride of the (T, 64) P / dS tiles
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 constexpr float kHalfNegInf = -5e29f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -556,6 +582,389 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// delta = rowsum(dO * O) in fp32 over (rows, DH) row-major o and dout
+template <typename T, int DH>
+__global__ void __launch_bounds__(256)
+    sparse_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ delta, long long rows) {
+  rowsum_dot<T, DH>(o, dout, delta, rows);
+}
+
+// ------------------------------------------------------------------ //
+// bf16 sparse_bwd: tensor cores (mma.sync m16n8k16), cp.async, ldmatrix
+// ------------------------------------------------------------------ //
+
+constexpr int kTcWarps = 4;               // 16-row tiles of a group
+constexpr int kTcThreads = 32 * kTcWarps;
+// a group: the tile ids of its warps (h * S / 16 + tile; -1: no tile),
+// then the offset and the length of its block list in the CSR ids
+constexpr int kGroupInts = kTcWarps + 2;
+
+// Position of row r (of kChunk) of step ci of a walk over a list of
+// ``len`` blocks of 2^lb rows whose block ids sit in shared memory; -1
+// past the end.
+__device__ __forceinline__ int step_pos(const int* ids_s, int len, int lb, int ci, int r) {
+  const int t = ci * kChunk + r;
+  const int e = t >> lb;
+  return e < len ? (ids_s[e] << lb) + (t & ((1 << lb) - 1)) : -1;
+}
+
+// rows pos(r), r < kChunk, of a (S, DH) bf16 matrix into a swizzled tile;
+// rows at -1 are zero-filled
+template <int DH>
+__device__ __forceinline__ void gather_async(bf16* dst, const bf16* __restrict__ src,
+                                             const int* ids_s, int len, int lb, int ci,
+                                             int tid) {
+  constexpr int CPR = DH / 8;
+#pragma unroll
+  for (int it = 0; it < kChunk * CPR / kTcThreads; ++it) {
+    const int i = tid + it * kTcThreads;
+    const int r = i / CPR;
+    const int c = i - r * CPR;
+    const int p = step_pos(ids_s, len, lb, ci, r);
+    cp_async16(chunk_addr<DH>(dst, r, c),
+               src + static_cast<long long>(p < 0 ? 0 : p) * DH + c * 8, p >= 0);
+  }
+}
+
+// the rows of the group's own tiles (row r: warp r / 16's tile) of a
+// (S, DH) bf16 matrix into a swizzled (kChunk, DH) tile; a warp with no
+// tile gets zeros
+template <int DH>
+__device__ __forceinline__ void own_rows_async(bf16* dst, const bf16* __restrict__ src,
+                                               const int* grp, int ntiles, int tid) {
+  constexpr int CPR = DH / 8;
+#pragma unroll
+  for (int it = 0; it < kChunk * CPR / kTcThreads; ++it) {
+    const int i = tid + it * kTcThreads;
+    const int r = i / CPR;
+    const int c = i - r * CPR;
+    const int tile = grp[r >> 4];
+    const int row = tile >= 0 ? (tile % ntiles) * 16 + (r & 15) : 0;
+    cp_async16(chunk_addr<DH>(dst, r, c), src + static_cast<long long>(row) * DH + c * 8,
+               tile >= 0);
+  }
+}
+
+template <int DH>
+constexpr size_t bwd_mma_smem() {  // own rows of two tensors; two stages of two
+  return 6 * kChunk * DH * sizeof(bf16) + 6 * kChunk * sizeof(float);
+}
+
+// dQ for the query tiles of one group (warp w: its tile's 16 rows), walking
+// the group's key blocks 64 keys a step: S = Q K^T, dP = dO V^T, then
+// dQ += dS K. Block x: group x / B of batch x % B.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    sparse_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const float* __restrict__ mask, const int* __restrict__ groups,
+                             const int* __restrict__ ids, bf16* __restrict__ dq, int B, int H,
+                             int S, int lb, float scale, bool causal) {
+  constexpr int KS = DH / 16;
+  constexpr int ND = DH / 8;
+  constexpr int KSUB = DH == 128 ? 32 : 64;  // keys a sub-step (registers at Dh 128)
+  constexpr int NN = KSUB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kChunk][DH], warp w: rows 16w..
+  bf16* dos = qs + kChunk * DH;                  // [kChunk][DH]
+  bf16* ks = dos + kChunk * DH;                  // [2][kChunk][DH]
+  bf16* vs = ks + 2 * kChunk * DH;               // [2][kChunk][DH]
+  int* kpos_s = reinterpret_cast<int*>(vs + 2 * kChunk * DH);  // [2][kChunk]
+  float* kb_s = reinterpret_cast<float*>(kpos_s + 2 * kChunk);  // [2][kChunk]
+  int* ids_s = reinterpret_cast<int*>(kb_s + 2 * kChunk);       // [len <= S / block]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int* grp = groups + static_cast<long long>(blockIdx.x / B) * kGroupInts;
+  const long long b = blockIdx.x % B;
+  const int ntiles = S >> 4;
+  const int tile = grp[warp];
+  const int off = grp[kTcWarps];
+  const int len = grp[kTcWarps + 1];
+  const long long bh = b * H + grp[0] / ntiles;
+  const long long base = bh * S * DH;
+  const float* mrow = mask ? mask + b * S : nullptr;
+  const int n_steps = ((len << lb) + kChunk - 1) / kChunk;
+
+  for (int i = tid; i < len; i += kTcThreads) ids_s[i] = ids[off + i];
+  own_rows_async<DH>(qs, q + base, grp, ntiles, tid);
+  own_rows_async<DH>(dos, dout + base, grp, ntiles, tid);
+  __syncthreads();  // ids_s
+
+  auto issue = [&](int ci, int st) {
+    gather_async<DH>(ks + st * kChunk * DH, k + base, ids_s, len, lb, ci, tid);
+    gather_async<DH>(vs + st * kChunk * DH, v + base, ids_s, len, lb, ci, tid);
+    if (tid < kChunk) {
+      const int p = step_pos(ids_s, len, lb, ci, tid);
+      kpos_s[st * kChunk + tid] = p;
+      if (mrow) cp_async4(smem_u32(kb_s + st * kChunk + tid), mrow + (p < 0 ? 0 : p), p >= 0);
+    }
+  };
+  if (n_steps > 0) issue(0, 0);
+  cp_async_commit();
+
+  // the thread's rows g and g + 8; a row with no visible key (lse NEG_INF)
+  // takes lse = +inf, so that every p of it is 0
+  const int q0 = tile >= 0 ? (tile % ntiles) * 16 : 0;
+  float lse_r[2], dl_r[2];
+  int row_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_r[i] = q0 + g + 8 * i;
+    const float l = tile >= 0 ? lse[bh * S + row_r[i]] : 0.f;
+    lse_r[i] = l > kHalfNegInf ? l : __int_as_float(0x7f800000);  // +inf
+    dl_r[i] = tile >= 0 ? delta[bh * S + row_r[i]] : 0.f;
+  }
+  float dqa[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+
+  for (int ci = 0; ci < n_steps; ++ci) {
+    const int st = ci & 1;
+    if (ci + 1 < n_steps) {
+      issue(ci + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (tile >= 0) {
+      const bf16* kst = ks + st * kChunk * DH;
+      const bf16* vst = vs + st * kChunk * DH;
+      const int* kp_s = kpos_s + st * kChunk;
+      const float* kbias_s = kb_s + st * kChunk;
+#pragma unroll 1
+      for (int sub = 0; sub < kChunk / KSUB; ++sub) {
+        const int c0 = sub * KSUB;
+        float s[NN][4], dp[NN][4];
+#pragma unroll
+        for (int j = 0; j < NN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t qa[4], da[4];
+          ldsm_x4(a_addr<DH>(qs, 16 * warp, kk, lane), qa);
+          ldsm_x4(a_addr<DH>(dos, 16 * warp, kk, lane), da);
+#pragma unroll
+          for (int np = 0; np < NN / 2; ++np) {
+            uint32_t bk[4];
+            ldsm_x4(b_addr<DH>(kst, c0 + 16 * np, kk, lane), bk);
+            mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+            ldsm_x4(b_addr<DH>(vst, c0 + 16 * np, kk, lane), bk);
+            mma_bf16(dp[2 * np], da, bk[0], bk[1]);
+            mma_bf16(dp[2 * np + 1], da, bk[2], bk[3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int c = c0 + 8 * j + 2 * t + (e & 1);
+            const int kp = kp_s[c];
+            const float kb = mrow ? kbias_s[c] : 0.f;
+            const bool vis = kp >= 0 && kb > kHalfNegInf && !(causal && kp > row_r[i]);
+            const float p = vis ? exp2f((s[j][e] * scale + kb - lse_r[i]) * kLog2e) : 0.f;
+            dp[j][e] = p * (dp[j][e] - dl_r[i]) * scale;
+          }
+        }
+        // dQ += dS K, K read across its rows (.trans)
+#pragma unroll
+        for (int kk = 0; kk < KSUB / 16; ++kk) {
+          uint32_t sa[4];
+          a_from_acc(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+          for (int d2 = 0; d2 < DH / 16; ++d2) {
+            uint32_t bk[4];
+            ldsm_x4_trans(a_addr<DH>(kst, c0 + 16 * kk, d2, lane), bk);
+            mma_bf16(dqa[2 * d2], sa, bk[0], bk[1]);
+            mma_bf16(dqa[2 * d2 + 1], sa, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it refills
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every copy has landed (with no step, the own rows)
+  // the warp's own rows of the Q tile (read only by this warp) stage dQ
+  if (tile >= 0) store_rows<DH>(qs, 16 * warp, dqa, dq + base, q0, S, DH, DH / 8, lane);
+}
+
+// dK and dV for the key tiles of one group (warp w: its tile's 16 keys),
+// walking the group's query blocks 64 queries a step. S^T = K Q^T and
+// dP^T = V dO^T come out with keys as rows, so P^T and dS^T are the A
+// operands of dV += P^T dO and dK += dS^T Q.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    sparse_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               const float* __restrict__ mask, const int* __restrict__ groups,
+                               const int* __restrict__ ids, bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int B, int H, int S, int lb, float scale,
+                               bool causal) {
+  constexpr int KS = DH / 16;
+  constexpr int ND = DH / 8;
+  constexpr int QSUB = DH == 128 ? 16 : 32;  // queries a sub-step (registers at Dh 128)
+  constexpr int NQ = QSUB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kChunk][DH], warp w: keys 16w..
+  bf16* vs = ks + kChunk * DH;                   // [kChunk][DH]
+  bf16* qs = vs + kChunk * DH;                   // [2][kChunk][DH]
+  bf16* dos = qs + 2 * kChunk * DH;              // [2][kChunk][DH]
+  int* qpos_s = reinterpret_cast<int*>(dos + 2 * kChunk * DH);  // [2][kChunk]
+  float* lse_s = reinterpret_cast<float*>(qpos_s + 2 * kChunk);  // [2][kChunk]
+  float* dl_s = lse_s + 2 * kChunk;                               // [2][kChunk]
+  int* ids_s = reinterpret_cast<int*>(dl_s + 2 * kChunk);        // [len <= S / block]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int* grp = groups + static_cast<long long>(blockIdx.x / B) * kGroupInts;
+  const long long b = blockIdx.x % B;
+  const int ntiles = S >> 4;
+  const int tile = grp[warp];
+  const int off = grp[kTcWarps];
+  const int len = grp[kTcWarps + 1];
+  const long long bh = b * H + grp[0] / ntiles;
+  const long long base = bh * S * DH;
+  const float* lse_bh = lse + bh * S;
+  const float* dl_bh = delta + bh * S;
+  const float* mrow = mask ? mask + b * S : nullptr;
+  const int n_steps = ((len << lb) + kChunk - 1) / kChunk;
+
+  for (int i = tid; i < len; i += kTcThreads) ids_s[i] = ids[off + i];
+  own_rows_async<DH>(ks, k + base, grp, ntiles, tid);
+  own_rows_async<DH>(vs, v + base, grp, ntiles, tid);
+  __syncthreads();  // ids_s
+
+  auto issue = [&](int ci, int st) {
+    gather_async<DH>(qs + st * kChunk * DH, q + base, ids_s, len, lb, ci, tid);
+    gather_async<DH>(dos + st * kChunk * DH, dout + base, ids_s, len, lb, ci, tid);
+    if (tid < kChunk) {
+      const int p = step_pos(ids_s, len, lb, ci, tid);
+      const int pc = p < 0 ? 0 : p;
+      qpos_s[st * kChunk + tid] = p;
+      cp_async4(smem_u32(lse_s + st * kChunk + tid), lse_bh + pc, p >= 0);
+      cp_async4(smem_u32(dl_s + st * kChunk + tid), dl_bh + pc, p >= 0);
+    }
+  };
+  if (n_steps > 0) issue(0, 0);
+  cp_async_commit();
+
+  // the thread's keys g and g + 8: position and added bias (-inf for a key
+  // the mask hides, so that every p of it is 0)
+  const int k0 = tile >= 0 ? (tile % ntiles) * 16 : 0;
+  int key_r[2];
+  float kb_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key_r[i] = k0 + g + 8 * i;
+    const float bias = mrow ? mrow[key_r[i]] : 0.f;
+    kb_r[i] = bias > kHalfNegInf ? bias : -__int_as_float(0x7f800000);  // -inf
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+  for (int ci = 0; ci < n_steps; ++ci) {
+    const int st = ci & 1;
+    if (ci + 1 < n_steps) {
+      issue(ci + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (tile >= 0) {
+      const bf16* qst = qs + st * kChunk * DH;
+      const bf16* dost = dos + st * kChunk * DH;
+      const int* qp_s = qpos_s + st * kChunk;
+      const float* ls = lse_s + st * kChunk;
+      const float* dls = dl_s + st * kChunk;
+#pragma unroll 1
+      for (int sub = 0; sub < kChunk / QSUB; ++sub) {
+        const int c0 = sub * QSUB;
+        float sT[NQ][4], dpT[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t ka[4], va[4];
+          ldsm_x4(a_addr<DH>(ks, 16 * warp, kk, lane), ka);
+          ldsm_x4(a_addr<DH>(vs, 16 * warp, kk, lane), va);
+#pragma unroll
+          for (int np = 0; np < NQ / 2; ++np) {
+            uint32_t bq[4];
+            ldsm_x4(b_addr<DH>(qst, c0 + 16 * np, kk, lane), bq);
+            mma_bf16(sT[2 * np], ka, bq[0], bq[1]);
+            mma_bf16(sT[2 * np + 1], ka, bq[2], bq[3]);
+            ldsm_x4(b_addr<DH>(dost, c0 + 16 * np, kk, lane), bq);
+            mma_bf16(dpT[2 * np], va, bq[0], bq[1]);
+            mma_bf16(dpT[2 * np + 1], va, bq[2], bq[3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int c = c0 + 8 * j + 2 * t + (e & 1);  // query of the step
+            const int qp = qp_s[c];
+            const float lr = ls[c];
+            const bool vis = qp >= 0 && lr > kHalfNegInf && !(causal && key_r[i] > qp);
+            const float p = vis ? exp2f((sT[j][e] * scale + kb_r[i] - lr) * kLog2e) : 0.f;
+            sT[j][e] = p;
+            dpT[j][e] = p * (dpT[j][e] - dls[c]) * scale;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < QSUB / 16; ++kk) {
+          uint32_t pa[4], da[4];
+          a_from_acc(pa, sT[2 * kk], sT[2 * kk + 1]);
+          a_from_acc(da, dpT[2 * kk], dpT[2 * kk + 1]);
+#pragma unroll
+          for (int d2 = 0; d2 < DH / 16; ++d2) {
+            uint32_t bq[4];
+            ldsm_x4_trans(a_addr<DH>(dost, c0 + 16 * kk, d2, lane), bq);
+            mma_bf16(dva[2 * d2], pa, bq[0], bq[1]);
+            mma_bf16(dva[2 * d2 + 1], pa, bq[2], bq[3]);
+            ldsm_x4_trans(a_addr<DH>(qst, c0 + 16 * kk, d2, lane), bq);
+            mma_bf16(dka[2 * d2], da, bq[0], bq[1]);
+            mma_bf16(dka[2 * d2 + 1], da, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every copy has landed (with no step, the own rows)
+  // the warp's own rows of the K and V tiles (read only by this warp) stage
+  // dK and dV
+  if (tile >= 0) {
+    store_rows<DH>(ks, 16 * warp, dka, dk + base, k0, S, DH, DH / 8, lane);
+    store_rows<DH>(vs, 16 * warp, dva, dv + base, k0, S, DH, DH / 8, lane);
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -568,18 +977,21 @@ struct Args {
   const void* v;
   const void* dout;
   const void* lse_in;
-  const void* delta;
+  void* delta;
   const float* mask;
   const int* offsets;
   const int* ids;
   const int* t_offsets;
   const int* t_ids;
+  const int* q_groups;   // bf16 backward: the dQ groups (kGroupInts each)
+  const int* kv_groups;  // and the dK/dV groups
   void* o;
   void* lse;
   void* dq;
   void* dk;
   void* dv;
   int BH, H, S, block;
+  int n_q_groups, n_kv_groups;
   float scale;
   bool causal;
   cudaStream_t stream;
@@ -622,37 +1034,129 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the tile height T = min(block, 64)
+// bf16 backward: dQ over the query groups, then dK/dV over the key groups
+template <int DH>
+int launch_bwd_mma(const Args& a) {
+  const int B = a.BH / a.H;
+  const int lb = a.block == 16 ? 4 : a.block == 32 ? 5 : a.block == 64 ? 6 : 7;
+  // a group's list in shared memory: at most S / block ids
+  const size_t smem = bwd_mma_smem<DH>() + (a.S >> lb) * sizeof(int);
+  cudaError_t err = allow_smem(sparse_bwd_dq_mma_kernel<DH>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.n_q_groups > 0) {
+    sparse_bwd_dq_mma_kernel<DH>
+        <<<static_cast<unsigned>(a.n_q_groups) * B, kTcThreads, smem, a.stream>>>(
+            static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+            static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+            static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta), a.mask,
+            a.q_groups, a.ids, static_cast<bf16*>(a.dq), B, a.H, a.S, lb, a.scale, a.causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = allow_smem(sparse_bwd_dkdv_mma_kernel<DH>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.n_kv_groups > 0) {
+    sparse_bwd_dkdv_mma_kernel<DH>
+        <<<static_cast<unsigned>(a.n_kv_groups) * B, kTcThreads, smem, a.stream>>>(
+            static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+            static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+            static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta), a.mask,
+            a.kv_groups, a.t_ids, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), B, a.H,
+            a.S, lb, a.scale, a.causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Tp, int DH>
+int launch_delta(const Args& a) {
+  const long long rows = static_cast<long long>(a.BH) * a.S;
+  sparse_bwd_delta_kernel<Tp, DH><<<static_cast<unsigned>((rows + 63) / 64), 256, 0, a.stream>>>(
+      static_cast<const Tp*>(a.o), static_cast<const Tp*>(a.dout),
+      static_cast<float*>(a.delta), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the CUDA-core kernels; the tile height T = min(block, 64)
+template <typename Tp, int DH, bool BWD, int T>
+int launch_cuda_core(const Args& a) {
+  if constexpr (BWD) {
+    return launch_bwd<Tp, DH, T>(a);
+  } else {
+    return launch_fwd<Tp, DH, T>(a);
+  }
+}
+
 template <typename Tp, int DH, bool BWD>
 int by_block(const Args& a) {
   switch (a.block) {
-    case 16: return BWD ? launch_bwd<Tp, DH, 16>(a) : launch_fwd<Tp, DH, 16>(a);
-    case 32: return BWD ? launch_bwd<Tp, DH, 32>(a) : launch_fwd<Tp, DH, 32>(a);
+    case 16: return launch_cuda_core<Tp, DH, BWD, 16>(a);
+    case 32: return launch_cuda_core<Tp, DH, BWD, 32>(a);
     case 64:
-    case 128: return BWD ? launch_bwd<Tp, DH, 64>(a) : launch_fwd<Tp, DH, 64>(a);
+    case 128: return launch_cuda_core<Tp, DH, BWD, 64>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the backward: delta, then the tensor-core kernels (bf16) or the
+// CUDA-core ones (fp32)
+template <typename Tp, int DH>
+int launch_backward(const Args& a) {
+  const int err = launch_delta<Tp, DH>(a);
+  if (err != 0) return err;
+  if constexpr (sizeof(Tp) == 2) {
+    return launch_bwd_mma<DH>(a);
+  } else {
+    return by_block<Tp, DH, true>(a);
   }
 }
 
 template <typename Tp, bool BWD>
 int by_head_dim(int dh, const Args& a) {
-  switch (dh) {
-    case 64: return by_block<Tp, 64, BWD>(a);
-    case 96: return by_block<Tp, 96, BWD>(a);
-    case 128: return by_block<Tp, 128, BWD>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (BWD) {
+    switch (dh) {
+      case 64: return launch_backward<Tp, 64>(a);
+      case 96: return launch_backward<Tp, 96>(a);
+      case 128: return launch_backward<Tp, 128>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (dh) {
+      case 64: return by_block<Tp, 64, false>(a);
+      case 96: return by_block<Tp, 96, false>(a);
+      case 128: return by_block<Tp, 128, false>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
 template <bool BWD>
 int dispatch(int dtype, int dh, const Args& a) {
-  if (a.BH <= 0 || a.BH > 65535 || a.H <= 0 || a.BH % a.H != 0 || a.block <= 0 ||
-      a.S <= 0 || a.S % a.block != 0) {
+  if (a.BH <= 0 || a.BH > 65535 || a.H <= 0 || a.BH % a.H != 0 ||
+      (a.block != 16 && a.block != 32 && a.block != 64 && a.block != 128) || a.S <= 0 ||
+      a.S % a.block != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (BWD && dtype == kDtypeBF16 &&
+      (a.n_q_groups < 0 || a.n_kv_groups < 0 ||
+       static_cast<long long>(a.n_q_groups) * (a.BH / a.H) > 0x7fffffffLL ||
+       static_cast<long long>(a.n_kv_groups) * (a.BH / a.H) > 0x7fffffffLL)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == kDtypeF32) return by_head_dim<float, BWD>(dh, a);
   if (dtype == kDtypeBF16) return by_head_dim<__nv_bfloat16, BWD>(dh, a);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DH>
+int info_dh(int which, int* out) {
+  switch (which) {
+    case 0:
+      return kernel_info(sparse_bwd_dq_mma_kernel<DH>, bwd_mma_smem<DH>(), kTcThreads, out);
+    case 1:
+      return kernel_info(sparse_bwd_dkdv_mma_kernel<DH>, bwd_mma_smem<DH>(), kTcThreads, out);
+    case 2: return kernel_info(sparse_bwd_delta_kernel<bf16, DH>, 0, 256, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -689,18 +1193,23 @@ int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* mask,
   return dispatch<false>(dtype, Dh, a);
 }
 
-// as ds_sparse_fwd, with dout (BH, S, Dh), lse and delta (BH, S) fp32 in,
-// the transposed table (col_offsets, col_rows) for dK/dV, and dq, dk, dv
-// (BH, S, Dh) out.
-int ds_sparse_bwd(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, const void* mask,
+// as ds_sparse_fwd, with o and dout (BH, S, Dh) and lse (BH, S) fp32 in;
+// delta (BH, S) fp32 out (rowsum(dout * o), written first); the
+// transposed table (col_offsets, col_rows) for dK/dV; for bf16 the dQ and
+// dK/dV group tables (n_*_groups rows of 6 int32: four tile ids, the offset
+// and the length of the group's list in row_cols / col_rows, heaviest
+// first); dq, dk, dv (BH, S, Dh) out.
+int ds_sparse_bwd(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* lse, void* delta, const void* mask,
                   const void* row_offsets, const void* row_cols, const void* col_offsets,
-                  const void* col_rows, void* dq, void* dk, void* dv, int BH, int H, int S,
-                  int block, int Dh, float scale, int causal, int dtype, void* stream) {
+                  const void* col_rows, const void* q_groups, const void* kv_groups, void* dq,
+                  void* dk, void* dv, int BH, int H, int S, int block, int Dh, int n_q_groups,
+                  int n_kv_groups, float scale, int causal, int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
+  a.o = const_cast<void*>(o);
   a.dout = dout;
   a.lse_in = lse;
   a.delta = delta;
@@ -709,6 +1218,8 @@ int ds_sparse_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.ids = static_cast<const int*>(row_cols);
   a.t_offsets = static_cast<const int*>(col_offsets);
   a.t_ids = static_cast<const int*>(col_rows);
+  a.q_groups = static_cast<const int*>(q_groups);
+  a.kv_groups = static_cast<const int*>(kv_groups);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
@@ -716,10 +1227,25 @@ int ds_sparse_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.H = H;
   a.S = S;
   a.block = block;
+  a.n_q_groups = n_q_groups;
+  a.n_kv_groups = n_kv_groups;
   a.scale = scale;
   a.causal = causal != 0;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<true>(dtype, Dh, a);
+}
+
+// which: 0 the bf16 dQ kernel, 1 the bf16 dK/dV kernel, 2 delta (bf16), at
+// head dim Dh and their launch configuration with an empty list. out: 6
+// ints (registers, static smem, dynamic smem, local bytes a thread,
+// threads, blocks an SM).
+int ds_sparse_kernel_info(int which, int Dh, int* out) {
+  switch (Dh) {
+    case 64: return info_dh<64>(which, out);
+    case 96: return info_dh<96>(which, out);
+    case 128: return info_dh<128>(which, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

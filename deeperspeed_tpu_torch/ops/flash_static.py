@@ -10,7 +10,10 @@ packing:
 
   ``supertile_fwd``  q, k, v (B, H, S, Dh) -> (o in q's dtype, lse
                      (B, H, S) fp32); replaces ``_st_fwd_kernel``
-                     (launched by ``_st_fwd``).
+                     (launched by ``_st_fwd``). bf16 runs on the tensor
+                     cores (``mma.sync``), one thread block per sequence
+                     with the scores of each 16-row query tile in
+                     registers; fp32 on the CUDA cores.
   ``supertile_bwd``  (q, k, v, o, lse, do) -> (dq, dk, dv) in one launch;
                      replaces ``_st_bwd_kernel`` (launched by
                      ``_st_vjp_bwd``). delta = rowsum(dO * O) is a plain
@@ -60,7 +63,10 @@ _SIGNATURES = {
                           _I, _P], _I),
     "ds_supertile_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           ctypes.c_float, _I, _I, _P], _I),
+    "ds_supertile_fwd_kernel_info": ([_I, _I, ctypes.POINTER(_I)], _I),
 }
+_INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+              "threads", "blocks_per_sm")
 
 
 def _lib():
@@ -72,6 +78,19 @@ def _raise_on(err: int, name: str) -> None:
         msg = _lib().ds_supertile_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def fwd_kernel_info(S: int, head_dim: int) -> dict:
+    """The compiled bf16 ``supertile_fwd`` kernel that a call at (S,
+    ``head_dim``) launches, at that launch configuration: registers,
+    static and dynamic shared memory, local memory a thread (spills),
+    threads and blocks an SM (the CUDA occupancy calculator). One
+    instantiation serves each head dim rounded up to 16 and each S class
+    (S <= 64, S <= 128 and above). Builds the library if needed."""
+    out = (_I * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_supertile_fwd_kernel_info(S, head_dim, out),
+              "supertile_fwd info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 def supertile_geometry_ok(B, H, S, Dh, dtype) -> bool:
@@ -111,6 +130,9 @@ def _check(name, tensors, like):
                              f"beside {tuple(like.shape)} {like.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every tensor must start on a 16-byte "
+                             f"boundary (the kernels load 16 bytes a lane)")
     return B, H, S, Dh
 
 

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
 library under ``build/kernels/`` at the root of the checkout (the
 directory beside this package; ``.gitignore`` lists it). The library's
-file name carries a hash of the source and the flags, so an edited source
-builds anew and an unchanged one loads from the cache. Nothing is built
+file name carries a hash of the source, of the local headers it includes
+(``#include "x.cuh"``, followed into the headers) and of the flags, so an
+edited source or header builds anew and an unchanged one loads from the
+cache. Nothing is built
 when a module is imported: the first kernel launch calls ``load``, and
 ``build_all`` builds several sources at once (one ``nvcc`` each, all
 started together) ahead of the first launch.
@@ -17,13 +19,14 @@ as ``/usr/local/cuda/bin/nvcc``.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -52,11 +55,30 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header, each once, in the order they are met."""
+    found: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo.extend(path.parent / m.group(1).decode()
+                    for m in _LOCAL_INCLUDE.finditer(path.read_bytes()))
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _build(name: str) -> Path:

@@ -13,11 +13,14 @@ VMEM holds K and V. The port has one hand-written CUDA pair in
                   ``kernels.SparseLut``, an optional (B, S) fp32 additive
                   key mask -> (o (B, H, S, Dh) in q's dtype, lse (B, H, S)
                   fp32).
-  ``sparse_bwd``  (q, k, v, o, lse, do, tables, mask) -> (dq, dk, dv): dQ
-                  over the row table and dK/dV over the transposed one, two
-                  launches; delta = rowsum(dO * O) is a plain torch
-                  reduction here, as the reference computes it outside its
-                  kernels.
+  ``sparse_bwd``  (q, k, v, o, lse, do, tables, mask) -> (dq, dk, dv):
+                  delta = rowsum(dO * O) (a kernel of its own, where the
+                  reference computes it outside its kernels), then dQ over
+                  the row table and dK/dV over the transposed one. bf16
+                  runs on the tensor cores over the lut's groups (16-row
+                  tiles with identical block lists, four a thread block,
+                  longest list first); fp32 on the first port's CUDA-core
+                  kernels, whose fp32 FMAs keep the port's fp32 tolerance.
 
 The kernels take sparsity blocks in ``BLOCKS``, head dims in
 ``HEAD_DIMS``, fp32 and bf16; a CUDA tensor of anything else raises.
@@ -48,7 +51,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import op_builder
-from .kernels import NEG_INF, DeviceLut, dense_mask
+from .kernels import GROUP_TILES, NEG_INF, DeviceLut, dense_mask
 
 HEAD_DIMS = (64, 96, 128)
 BLOCKS = (16, 32, 64, 128)
@@ -64,9 +67,14 @@ _SIGNATURES = {
     "ds_sparse_error_string": ([_I], ctypes.c_char_p),
     "ds_sparse_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _F, _I, _I, _P], _I),
-    "ds_sparse_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    "ds_sparse_bwd": ([_P] * 17 + [_I] * 7 + [_F, _I, _I, _P], _I),
+    "ds_sparse_kernel_info": ([_I, _I, ctypes.POINTER(_I)], _I),
 }
+# the bf16 backward's kernels ``kernel_info`` describes, by the index the
+# library takes
+KERNELS = ("sparse_bwd_dq", "sparse_bwd_dkdv", "sparse_bwd_delta")
+_INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+              "threads", "blocks_per_sm")
 
 
 def _lib():
@@ -78,6 +86,18 @@ def _raise_on(err: int, name: str) -> None:
         msg = _lib().ds_sparse_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def kernel_info(kernel: str, head_dim: int) -> dict:
+    """The compiled bf16 backward ``kernel`` (one of KERNELS) for
+    ``head_dim`` at its launch configuration (with an empty block list):
+    registers, static and dynamic shared memory, local memory a thread
+    (spills), threads and blocks an SM (the CUDA occupancy calculator).
+    Builds the library if needed."""
+    out = (_I * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_sparse_kernel_info(KERNELS.index(kernel), head_dim,
+                                           out), f"{kernel} info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 # ------------------------------------------------------------------ #
@@ -201,10 +221,13 @@ def _check(name, tensors, like, lut: DeviceLut, key_padding_mask):
                              f"beside {tuple(like.shape)} {like.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous")
-    for t in lut[1:5]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every tensor must start on a 16-byte "
+                             f"boundary (the kernels load 16 bytes a lane)")
+    for t in lut[1:7]:
         if t.device != like.device or t.dtype != torch.int32:
-            raise ValueError(f"{name}: the CSR tables must be int32 on "
-                             f"{like.device}")
+            raise ValueError(f"{name}: the CSR tables and groups must be "
+                             f"int32 on {like.device}")
     if key_padding_mask is not None and (
             key_padding_mask.device != like.device
             or key_padding_mask.dtype != torch.float32
@@ -255,10 +278,10 @@ sparse_fwd.launches = 0
 
 def sparse_bwd(q, k, v, o, lse, do, lut: DeviceLut, sm_scale, causal,
                key_padding_mask=None):
-    """Block-sparse backward kernels (dQ over the row table, then dK/dV
-    over the transposed one) on contiguous (B, H, S, Dh) tensors of one
-    dtype and ``sparse_fwd``'s fp32 lse: returns (dq, dk, dv). delta =
-    rowsum(dO * O) is computed here in torch. A CPU tensor takes
+    """Block-sparse backward kernels (delta = rowsum(dO * O), dQ over the
+    row table, then dK/dV over the transposed one; bf16 over the lut's
+    groups) on contiguous (B, H, S, Dh) tensors of one dtype and
+    ``sparse_fwd``'s fp32 lse: returns (dq, dk, dv). A CPU tensor takes
     ``sparse_bwd_plain``."""
     if q.device.type == "cpu":
         return sparse_bwd_plain(q, k, v, o, lse, do, lut.layout, lut.block,
@@ -272,18 +295,29 @@ def sparse_bwd(q, k, v, o, lse, do, lut: DeviceLut, sm_scale, causal,
             or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
         raise ValueError(f"sparse_bwd takes a contiguous fp32 lse of shape "
                          f"{(B, H, S)} on {q.device}")
-    delta = (do.float() * o.float()).sum(dim=-1)
+    for what, t in (("q_groups", lut.q_groups),
+                    ("kv_groups", lut.kv_groups)):
+        if (t.dim() != 2 or t.shape[1] != GROUP_TILES + 2
+                or not t.is_contiguous()):
+            raise ValueError(f"sparse_bwd: {what} must be a contiguous "
+                             f"(n, {GROUP_TILES + 2}) table")
+        if t.shape[0] * B > 0x7FFFFFFF:
+            raise ValueError(f"sparse_bwd: {t.shape[0]} groups x B = {B} "
+                             f"exceed the launch's grid")
+    # scratch for delta, written by the first kernel
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.ds_sparse_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(key_padding_mask),
-            _ptr(lut.row_offsets), _ptr(lut.row_cols),
-            _ptr(lut.col_offsets), _ptr(lut.col_rows), dq.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(key_padding_mask), _ptr(lut.row_offsets),
+            _ptr(lut.row_cols), _ptr(lut.col_offsets), _ptr(lut.col_rows),
+            _ptr(lut.q_groups), _ptr(lut.kv_groups), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B * H, H, S, lut.block, Dh,
-            float(sm_scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
-            _stream(q.device))
+            lut.q_groups.shape[0], lut.kv_groups.shape[0], float(sm_scale),
+            int(bool(causal)), _DTYPE_CODES[q.dtype], _stream(q.device))
     _raise_on(err, "sparse_bwd")
     sparse_bwd.launches += 1
     return dq, dk, dv
@@ -301,18 +335,19 @@ sparse_bwd.launches = 0
 def _sparse_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    layout: torch.Tensor, row_offsets: torch.Tensor,
                    row_cols: torch.Tensor, col_offsets: torch.Tensor,
-                   col_rows: torch.Tensor,
+                   col_rows: torch.Tensor, q_groups: torch.Tensor,
+                   kv_groups: torch.Tensor,
                    key_padding_mask: Optional[torch.Tensor], block: int,
                    sm_scale: float, causal: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     lut = DeviceLut(layout, row_offsets, row_cols, col_offsets, col_rows,
-                    block)
+                    q_groups, kv_groups, block)
     return sparse_fwd(q, k, v, lut, sm_scale, causal, key_padding_mask)
 
 
 @_sparse_fwd_op.register_fake
 def _(q, k, v, layout, row_offsets, row_cols, col_offsets, col_rows,
-      key_padding_mask, block, sm_scale, causal):
+      q_groups, kv_groups, key_padding_mask, block, sm_scale, causal):
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
@@ -321,28 +356,30 @@ def _sparse_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                    layout: torch.Tensor, row_offsets: torch.Tensor,
                    row_cols: torch.Tensor, col_offsets: torch.Tensor,
-                   col_rows: torch.Tensor,
+                   col_rows: torch.Tensor, q_groups: torch.Tensor,
+                   kv_groups: torch.Tensor,
                    key_padding_mask: Optional[torch.Tensor], block: int,
                    sm_scale: float, causal: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     lut = DeviceLut(layout, row_offsets, row_cols, col_offsets, col_rows,
-                    block)
+                    q_groups, kv_groups, block)
     return sparse_bwd(q, k, v, o, lse, do, lut, sm_scale, causal,
                       key_padding_mask)
 
 
 @_sparse_bwd_op.register_fake
 def _(q, k, v, o, lse, do, layout, row_offsets, row_cols, col_offsets,
-      col_rows, key_padding_mask, block, sm_scale, causal):
+      col_rows, q_groups, kv_groups, key_padding_mask, block, sm_scale,
+      causal):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _setup_context(ctx, inputs, output):
-    (q, k, v, layout, row_offsets, row_cols, col_offsets, col_rows, kpm,
-     block, sm_scale, causal) = inputs
+    (q, k, v, layout, row_offsets, row_cols, col_offsets, col_rows, q_groups,
+     kv_groups, kpm, block, sm_scale, causal) = inputs
     o, lse = output
     ctx.save_for_backward(q, k, v, o, lse, layout, row_offsets, row_cols,
-                          col_offsets, col_rows, kpm)
+                          col_offsets, col_rows, q_groups, kv_groups, kpm)
     ctx.block = block
     ctx.sm_scale = sm_scale
     ctx.causal = causal
@@ -350,11 +387,12 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, do, _dlse):
     (q, k, v, o, lse, layout, row_offsets, row_cols, col_offsets, col_rows,
-     kpm) = ctx.saved_tensors
+     q_groups, kv_groups, kpm) = ctx.saved_tensors
     dq, dk, dv = _sparse_bwd_op(q, k, v, o, lse, do.contiguous(), layout,
                                 row_offsets, row_cols, col_offsets, col_rows,
-                                kpm, ctx.block, ctx.sm_scale, ctx.causal)
-    return (dq, dk, dv) + (None,) * 9
+                                q_groups, kv_groups, kpm, ctx.block,
+                                ctx.sm_scale, ctx.causal)
+    return (dq, dk, dv) + (None,) * 11
 
 
 _sparse_fwd_op.register_autograd(_backward, setup_context=_setup_context)
@@ -394,6 +432,7 @@ def sparse_attention_bhsd(q, k, v, lut: DeviceLut, sm_scale: float,
                                     float(sm_scale), bool(causal), kpm)
     o, _ = _sparse_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
                           lut.layout, lut.row_offsets, lut.row_cols,
-                          lut.col_offsets, lut.col_rows, kpm, int(lut.block),
+                          lut.col_offsets, lut.col_rows, lut.q_groups,
+                          lut.kv_groups, kpm, int(lut.block),
                           float(sm_scale), bool(causal))
     return o

@@ -23,6 +23,11 @@ Here:
   ``build_csr_lut``: per head, the row offsets and active k-block ids of
       every q-block row, and the transposed table (the active q-blocks of
       every k-block) for dK/dV.
+  ``build_groups``: the bf16 backward's work list. One warp of the CUDA
+      kernel owns a 16-row tile; tiles of one head whose block lists are
+      identical are grouped four at a time, so that the four warps of a
+      thread block share every gathered tile, and the groups are ordered
+      longest list first.
   ``SparseLut``: those tables for one (layout, block, causal), copied to a
       device once and kept there, so a call does no host work and no sync.
   ``block_sparse_attention_xla``: the dense-mask reference with the
@@ -97,20 +102,63 @@ def build_csr_lut(layout: np.ndarray, causal: bool
     return row_offsets, row_cols, col_offsets, col_rows
 
 
+TILE_ROWS = 16    # rows of a warp's tile in the bf16 backward (mma's m16)
+GROUP_TILES = 4   # tiles of a group: the warps of one thread block
+
+
+def build_groups(lay: np.ndarray, block: int, offsets: np.ndarray,
+                 ids: np.ndarray) -> np.ndarray:
+    """The groups of the bf16 backward over the CSR table (``offsets``,
+    ``ids``) of the (H, nb, nb) bool ``lay`` (``_csr(lay)``; the transposed
+    layout and its table for dK/dV): (n, GROUP_TILES + 2) int32 rows of
+    GROUP_TILES tile ids (h * nb * block / 16 + the tile's index in its
+    head; -1 where a group has fewer tiles), then the offset and the length
+    of the group's block list in ``ids``. The 16-row tiles of one head
+    whose rows have identical lists are grouped in ascending order, every
+    tile exactly once; the groups run longest list first (a stable sort),
+    so the heaviest start in the first wave."""
+    if block % TILE_ROWS:
+        raise ValueError(f"groups take blocks that are a multiple of "
+                         f"{TILE_ROWS}, got {block}")
+    H, nb, _ = lay.shape
+    per = block // TILE_ROWS
+    ntiles = nb * per
+    rows = []
+    for h in range(H):
+        lists: Dict[bytes, list] = {}
+        for r in range(nb):
+            lo, hi = int(offsets[h * nb + r]), int(offsets[h * nb + r + 1])
+            entry = lists.setdefault(ids[lo:hi].tobytes(), [lo, hi - lo, []])
+            first = h * ntiles + r * per
+            entry[2].extend(range(first, first + per))
+        for lo, n, tiles in lists.values():
+            for i in range(0, len(tiles), GROUP_TILES):
+                chunk = tiles[i:i + GROUP_TILES]
+                rows.append(chunk + [-1] * (GROUP_TILES - len(chunk))
+                            + [lo, n])
+    groups = np.asarray(rows, np.int32).reshape(-1, GROUP_TILES + 2)
+    return groups[np.argsort(-groups[:, -1], kind="stable")]
+
+
 class DeviceLut(NamedTuple):
     """A ``SparseLut`` on one device: the filtered layout (H, nb, nb) bool
-    (the plain versions expand it) and the four CSR tables (int32)."""
+    (the plain versions expand it), the four CSR tables and the dQ and
+    dK/dV groups of the bf16 backward (``build_groups``), int32."""
     layout: torch.Tensor
     row_offsets: torch.Tensor
     row_cols: torch.Tensor
     col_offsets: torch.Tensor
     col_rows: torch.Tensor
+    q_groups: torch.Tensor
+    kv_groups: torch.Tensor
     block: int
 
 
 class SparseLut:
-    """The CSR tables of one (layout, block, causal), built on the host
-    once and copied to each device at its first call."""
+    """The CSR tables and the backward's groups of one (layout, block,
+    causal), built on the host once and copied to each device at its first
+    call. A block the kernels do not take gets no groups (the kernel
+    wrappers refuse it)."""
 
     def __init__(self, layout: np.ndarray, block: int, causal: bool):
         self.block = int(block)
@@ -118,6 +166,15 @@ class SparseLut:
         self.layout = causal_layout(layout, causal)
         self.active_blocks = int(self.layout.sum())
         self._tables = build_csr_lut(self.layout, False)
+        row_offsets, row_cols, col_offsets, col_rows = self._tables
+        if self.block % TILE_ROWS == 0:
+            self.groups = (
+                build_groups(self.layout, self.block, row_offsets, row_cols),
+                build_groups(self.layout.transpose(0, 2, 1), self.block,
+                             col_offsets, col_rows))
+        else:
+            empty = np.zeros((0, GROUP_TILES + 2), np.int32)
+            self.groups = (empty, empty)
         self._on: Dict[torch.device, DeviceLut] = {}
 
     def on(self, device) -> DeviceLut:
@@ -128,7 +185,8 @@ class SparseLut:
         if lut is None:
             lut = DeviceLut(
                 torch.from_numpy(self.layout).to(device),
-                *(torch.from_numpy(t).to(device) for t in self._tables),
+                *(torch.from_numpy(t).to(device)
+                  for t in self._tables + self.groups),
                 self.block)
             self._on[device] = lut
         return lut

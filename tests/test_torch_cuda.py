@@ -368,9 +368,11 @@ def test_cuda_auto_attention_raises_on_what_the_flash_kernel_cannot_take():
 @pytest.mark.cuda
 def test_cuda_add_ln_and_supertile_kernels_match_plain_versions():
     """add_ln_fwd/add_ln_bwd at the BERT width and a ragged row count, and
-    the super-tile pair at S = 8, 128 and 248 with Dh 24, 64 and 128 (fp32
-    at S 248 / Dh 128 is the shape whose K and V exceed a block's shared
-    memory), causal and not, against their plain versions."""
+    the super-tile pair at S = 8, 16, 120, 128, 136 and 248 (the bf16
+    forward's 16-row tiles and the edges of its S classes) with Dh 24, 40,
+    64, 96 and 128 (fp32 at S 248 / Dh 128 is the shape whose K and V
+    exceed a block's shared memory), causal and not, against their plain
+    versions; a second forward launch gives the same bits."""
     _needs_card()
     from deeperspeed_tpu_torch.ops import flash_static as fs
 
@@ -395,7 +397,8 @@ def test_cuda_add_ln_and_supertile_kernels_match_plain_versions():
     for dtype, ftol, gtol in ((torch.float32, 2e-3, 5e-3),
                               (torch.bfloat16, 2e-2, 5e-2)):
         for shape in ((2, 3, 8, 64), (2, 4, 128, 64), (1, 2, 248, 128),
-                      (1, 3, 200, 24)):
+                      (1, 3, 200, 24), (3, 2, 16, 40), (2, 3, 120, 96),
+                      (2, 2, 136, 40), (2, 2, 136, 128)):
             for causal in (True, False):
                 scale = 1.0 / shape[-1] ** 0.5
                 q, k, v, do = (torch.randn(*shape, generator=gen,
@@ -406,6 +409,8 @@ def test_cuda_add_ln_and_supertile_kernels_match_plain_versions():
                 torch.testing.assert_close(o.float(), po.float(), atol=ftol,
                                            rtol=ftol)
                 torch.testing.assert_close(lse, plse, atol=ftol, rtol=ftol)
+                again = fs.supertile_fwd(q, k, v, scale, causal)
+                assert torch.equal(again[0], o) and torch.equal(again[1], lse)
                 got = fs.supertile_bwd(q, k, v, po, plse, do, scale, causal)
                 want = fs.supertile_bwd_plain(q, k, v, po, plse, do, scale,
                                               causal)
@@ -455,13 +460,16 @@ def test_cuda_auto_sends_a_maskless_bert_layer_to_the_supertile_kernel():
 
 
 def _sparse_layout(H, nb, seed):
-    """A random block layout with one empty row per head and a dense
-    diagonal, so both walks meet short, long and empty rows."""
+    """A random block layout with one empty row per head, a dense diagonal
+    and a global column (key block 2, seen by every other row: the longest
+    dK/dV list, whose group runs first), so both walks meet short, long and
+    empty rows."""
     import numpy as np
 
     rs = np.random.default_rng(seed)
     lay = (rs.random((H, nb, nb)) < 0.3).astype(np.int64)
     lay[:, np.arange(nb), np.arange(nb)] = 1
+    lay[:, :, 2] = 1
     lay[:, 1, :] = 0
     return lay
 
@@ -472,15 +480,17 @@ def test_cuda_sparse_kernels_match_plain_versions():
     sparsity block and head dim the kernels take, causal and not, with and
     without a key mask (the last quarter of the keys dropped, a finite
     bias elsewhere), fp32 and bf16 (the reference's flash tolerances:
-    fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2); an empty layout row gives zeros
-    and lse = NEG_INF; the backward repeats bit for bit."""
+    fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2), over layouts with a long global
+    column; an empty layout row gives zeros and lse = NEG_INF; the
+    backward repeats bit for bit."""
     _needs_card()
     from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
     from deeperspeed_tpu_torch.ops.sparse_attention import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    B, H, S = 2, 3, 256
-    for block, Dh in ((16, 64), (32, 96), (64, 128), (128, 64)):
+    B, H, S = 2, 3, 512
+    for block, Dh in ((16, 64), (32, 96), (64, 128), (128, 64), (16, 128),
+                      (32, 64)):
         layout = _sparse_layout(H, S // block, block)
         for dtype, ftol, gtol in ((torch.float32, 2e-3, 5e-3),
                                   (torch.bfloat16, 2e-2, 5e-2)):
