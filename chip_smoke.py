@@ -15,9 +15,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    -sass finds HMMA/HGMMA instructions in each of the nine bf16 forward
    and backward kernels (the tensor cores). The same for the bf16
    tensor-core kernels of the sparse backward (dQ, dK/dV and delta at
-   head dims 64, 96 and 128; HMMA in all six dQ and dK/dV ones) and of
+   head dims 64, 96 and 128; HMMA in all six dQ and dK/dV ones), of
    the super-tile forward (at every padded head dim 16-128 and each S
-   class, S 64, 128 and 248: HMMA in all 24).
+   class, S 64, 128 and 248: HMMA in all 24) and of the super-tile
+   backward (every padded head dim at S 128, one block a sequence, and
+   S 248, four: HMMA in all 16; the dynamic shared memory and threads
+   must be what flash_static.bwd_plan says). The LN backwards' first
+   kernel (ln_bwd and add_ln_bwd, bf16 and fp32, at the model widths
+   768, 1024, 2048 and 6144) and their reduction get the same record and
+   must not spill.
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -25,8 +31,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (bf16), the reference's own tolerances for these kernels.
 3. Backward fused blocks against their plain versions: ln_bwd at
    (R, 2048) and bias_gelu_bwd (tanh and erf) at (R, 8192), R in
-   BWD_ROWS, within 10x the forward tolerances (the reference's gradient
-   tolerances, tests/test_fused_kernels.py).
+   BWD_ROWS, and ln_bwd at GPT-NeoX-20B's width, LN_WIDE_CASE (48,
+   6144), within 10x the forward tolerances (the reference's gradient
+   tolerances, tests/test_fused_kernels.py). At the path shape (2048,
+   2048) bf16 two launches of ln_bwd on the same inputs must give the
+   same bits.
 4. Flash attention forward and backward against their plain versions at
    FLASH_SHAPES: the training shape (2, 16, 1024, 128), S = 2048 and 4096
    (beyond the reference's whole-S kernel), ragged S = 640 and 1000, head
@@ -87,12 +96,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the forward's 16-row tile and its S classes' edges, with Dh 40, 64,
    96 and 128, Dh 40 being no multiple of 16, including fp32 at S 248 /
    Dh 128, whose K and V exceed a block's shared memory), causal and not,
-   and at the BERT shape two launches of supertile_fwd on the same inputs
-   must give the same bits; LN and erf bias+GeLU, forward and
-   backward, at the BERT widths (D 1024, F 4096 and the MLM head's
-   (4096, 1024)). bf16 and fp32, with the tolerances and relative L2
-   limits of phases 2-4; each new kernel, and the four block kernels at
-   the BERT shapes, timed at its path shape as in phases 2-4. At the
+   and at the BERT shape two launches of supertile_fwd, and of
+   supertile_bwd, on the same inputs must give the same bits; LN and erf
+   bias+GeLU, forward and backward, at the BERT widths (D 1024, F 4096
+   and the MLM head's (4096, 1024)), where two launches of add_ln_bwd and
+   of ln_bwd at (8192, 1024) bf16 must give the same bits too. bf16 and
+   fp32, with the tolerances and relative L2 limits of phases 2-4; each
+   new kernel, and the four block kernels at the BERT shapes, timed at
+   its path shape as in phases 2-4. At the
    super-tile pair's path shape the flash pair, which GPT took below
    S = 256 before the super-tile route, is held against the same plain
    versions and timed beside it.
@@ -294,6 +305,10 @@ L2_BYTES = 50 * 2**20
 CHECK_ROWS = (6, 8, 16, 48, 64, 128, 256, 512, 1024, 2048)
 TIMED_ROWS = (8, 512, 2048)
 BWD_ROWS = (8, 48, 512, 2048)
+LN_WIDE_CASE = (48, 6144)  # GPT-NeoX-20B's width, the widest a model runs
+# widths the LN backwards' kernels are built for and recorded at (phase 1):
+# GPT-NeoX-125M, BERT-large, GPT-NeoX-1.3B, GPT-NeoX-20B
+LN_WIDTHS = (768, 1024, 2048, 6144)
 PATH_ROWS = 2048          # B * S of the training micro-batch
 # (B, H, S, Dh): the training shape first (timed), then S beyond the
 # reference's whole-S kernel, ragged S, and the other head dims
@@ -608,6 +623,8 @@ def backward_phase(fb, gen):
             row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed:
+                row["bit_identical_relaunch"] = ln_bwd_relaunch(fb, "ln_bwd",
+                                                                args)
                 bufs = copies(ln_case, 2 * R * D * isz)
                 w = bufs[0][1]
                 # F.layer_norm's backward takes w in x's dtype
@@ -649,6 +666,22 @@ def backward_phase(fb, gen):
                                      20 * R * Fd))
                     del bufs
                 results["bias_gelu_bwd"].append(row)
+    R, D = LN_WIDE_CASE
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn_on(gen, (R, D), dtype, 2.0, 0.5)
+        w = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
+        _, mean, rstd = fb.ln_fwd_plain(x, w, w, 1e-5)
+        args = (x, w, mean, rstd, randn_on(gen, (R, D), dtype))
+        got = fb.ln_bwd(*args)
+        torch.cuda.synchronize()
+        tol, rel = 10 * TOL[dtype], REL_L2[dtype]
+        err, rel_err = check_outputs(f"ln_bwd {R}x{D} {dtype_name(dtype)}",
+                                     ("dx", "dw", "db"), got,
+                                     fb.ln_bwd_plain(*args), tol, rel)
+        results["ln_bwd"].append({
+            "shape": [R, D], "dtype": dtype_name(dtype), "max_abs_err": err,
+            "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel,
+            "route": fb.ln_bwd_plan(R, D, dtype)["route"]})
     return results
 
 
@@ -871,6 +904,58 @@ def tensor_core_build_report(bs, fs, op_builder):
                  "supertile_fwd_mma_kernel", 3 * len(padded))
 
 
+def backward_build_report(fb, fs, op_builder):
+    """Phase 1's record of the kernels PERF.md's rows 2, 4 and 12 run:
+    the bf16 super-tile backward at every padded head dim on both routes
+    (S 128: one block a sequence; S 248: four), each launch configuration
+    as flash_static.bwd_plan computes it and HMMA in every instantiation;
+    the LN backwards' first kernel at LN_WIDTHS (ln and add-LN, bf16 and
+    fp32, the route ln_bwd_plan picks) and their reduction. Fails on any
+    spill."""
+    padded = range(16, fs.MAX_HEAD_DIM + 1, 16)
+    for dh in padded:
+        for S in (128, 248):
+            info = fs.bwd_kernel_info(S, dh)
+            plan = fs.bwd_plan(S, dh, torch.bfloat16)
+            report_kernel(f"supertile_bwd Dh {dh} S {S} bf16 "
+                          f"({plan['route']})", info)
+            if (info["dynamic_smem"], info["threads"]) != (
+                    plan["smem_bytes"], plan["threads"]):
+                raise AssertionError(
+                    f"supertile_bwd Dh {dh} S {S}: the kernel launches with "
+                    f"{info['dynamic_smem']} B and {info['threads']} threads, "
+                    f"bwd_plan says {plan['smem_bytes']} B and "
+                    f"{plan['threads']}")
+    require_hmma("supertile_attention", op_builder,
+                 "supertile_bwd_mma_kernel", 2 * len(padded))
+    for D in LN_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = fb.ln_bwd_plan(1, D, dtype)
+            for add in (False, True):
+                info = fb.ln_bwd_kernel_info(D, dtype, add)
+                report_kernel(
+                    f"{'add_ln_bwd' if add else 'ln_bwd'} D {D} "
+                    f"{dtype_name(dtype)} ({plan['route']}, "
+                    f"{plan['warps_per_row']} warps a row)", info)
+                if info["dynamic_smem"] != plan["smem_bytes"]:
+                    raise AssertionError(
+                        f"ln_bwd D {D}: the kernel launches with "
+                        f"{info['dynamic_smem']} B, ln_bwd_plan says "
+                        f"{plan['smem_bytes']} B")
+    report_kernel("ln_bwd_reduce", fb.ln_bwd_reduce_info())
+
+
+def ln_bwd_relaunch(fb, name, args):
+    """Fails unless two launches of ``fb.<name>`` on ``args`` give the
+    same bits (dx, dw and db)."""
+    kernel = getattr(fb, name)
+    first, second = kernel(*args), kernel(*args)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name} {tuple(args[0].shape)}: two launches on "
+                             f"the same inputs differ")
+    return True
+
+
 def bert_kernel_phase(fb, fs, fa, gen):
     """Phase 7: the add-LN and super-tile pairs against their plain
     versions, and the LN and bias+GeLU kernels at the BERT widths; each
@@ -913,6 +998,8 @@ def bert_kernel_phase(fb, fs, fa, gen):
             bwd = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed:
+                bwd["bit_identical_relaunch"] = ln_bwd_relaunch(
+                    fb, "add_ln_bwd", (x, r, w, pmu, prs, g))
                 bufs = copies(case, 2 * R * D * isz)
                 fwd.update(timings(fb.add_ln_fwd, fb.add_ln_fwd_plain, bufs))
                 fwd.update(path="bert", library=None, **bound(
@@ -970,7 +1057,17 @@ def bert_kernel_phase(fb, fs, fa, gen):
                                              f"launches on the same inputs "
                                              f"differ")
                     fwd["bit_identical_relaunch"] = True
-                    del again
+                    again = fs.supertile_bwd(q, k, v, po, plse, do, scale,
+                                             causal)
+                    first = fs.supertile_bwd(q, k, v, po, plse, do, scale,
+                                             causal)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(first, again)):
+                        raise AssertionError(f"supertile_bwd {tag}: two "
+                                             f"launches on the same inputs "
+                                             f"differ")
+                    bwd["bit_identical_relaunch"] = True
+                    del again, first
 
                     def case():
                         t = [randn_on(gen, shape, dtype) for _ in range(4)]
@@ -1072,6 +1169,9 @@ def bert_kernel_phase(fb, fs, fa, gen):
             row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed_here:
+                row["bit_identical_relaunch"] = ln_bwd_relaunch(
+                    fb, "ln_bwd", (x, w, pmu, prs, g))
+
                 def lnb_case():
                     x_, w_, b_, e_ = ln_case()
                     _, m_, s_ = fb.ln_fwd_plain(x_, w_, b_, e_)
@@ -1779,10 +1879,12 @@ KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 
 def kernel_family(name):
     """The port's kernel a profiled CUDA kernel name belongs to (the
-    add-LN pair is the LN kernels' template with the residual flag set),
-    else "gemm" or "other"."""
+    add-LN pair is the LN kernels' templates with the residual flag set:
+    ln_fwd_kernel<T, true>, ln_bwd_kernel<T, true>, ln_bwd_rows_kernel<T,
+    true, ...> and ln_bwd_reduce_kernel<true>), else "gemm" or "other"."""
     fam = next((f for f in KERNEL_FAMILIES if f in name), None)
-    if fam in ("ln_fwd", "ln_bwd") and ", true>" in name:
+    if fam in ("ln_fwd", "ln_bwd") and any(
+            m in name for m in ("<true>", ", true>", ", true,")):
         return "add_" + fam
     if fam is not None:
         return fam
@@ -2759,6 +2861,7 @@ def main() -> int:
 
     flash_build_report(fa, op_builder)
     tensor_core_build_report(bs, fs, op_builder)
+    backward_build_report(fb, fs, op_builder)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)

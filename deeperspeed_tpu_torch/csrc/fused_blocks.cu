@@ -37,17 +37,51 @@
 // The backwards read x, the cotangent g and (LN) the fp32 mean/rstd that
 // ln_fwd wrote, and write dx once. Their weight/bias gradients are sums over
 // rows, and Hopper's blocks run in no order, so each block of the first
-// launch walks a strided set of rows and keeps its column partials in
-// shared memory (every column is owned by one thread, so no atomics and no
-// races); it writes one fp32 partial row per block, and a second launch
-// (sum_partials_kernel) adds those rows per column in a fixed order. The
-// result is deterministic from run to run. At most kBwdBlocks blocks (two
-// per SM) keep the partials small: (kBwdBlocks, D) fp32, ~4 MB at D = 2048,
-// against the 24 MB that ln_bwd moves at the (2048, 2048) bf16 training
-// shape.
+// launch walks a strided set of rows and keeps column partials of its own
+// (every column owned by one thread: no atomics, no races); it writes one
+// fp32 partial row per block, and a second launch adds those rows per
+// column in a fixed order. The result is the same bits from run to run.
+//
+// ln_bwd / add_ln_bwd (one template, kAdd) take the rows route wherever a
+// row is whole 16-byte vectors (D % 8 bf16, D % 4 fp32, aligned) of at most
+// 1024 of them (D 8192 bf16, 4096 fp32), which holds every width the
+// models use:
+//  * a team of WPR warps (WPR = 1, 2, 4, 8, the fewest whose lanes hold the
+//    row in NV = 2 vectors each, or 8 warps of 4 vectors) owns a row at a
+//    time; 16 / WPR teams a 512-thread block (8 / WPR of 256 threads at NV
+//    4), one block an SM, the grid persistent, rows strided over the teams.
+//    One block an SM halves the partial rows (below) against two smaller
+//    ones: at the GPT shape (2048, 2048) those cost a third of the
+//    kernel's own bytes at two 256-thread blocks an SM.
+//  * a lane reads its vectors of x (and r), g once, 16 bytes a load, into
+//    registers, and forms xhat and dy = g * w once, kept for dx; the next
+//    row's loads then go into the same registers and fly while this row's
+//    sums, barrier and dx run. w sits in shared memory.
+//    c1 = mean(dy) and c2 = mean(dy * xhat) are warp-shuffle sums, added
+//    across the team's warps through shared memory after one named barrier
+//    (bar.sync over the team's threads, slots alternating by row) when
+//    WPR > 1; no __syncthreads runs in the row loop. dx is written once,
+//    16 bytes a store.
+//  * the column partials of g * xhat and g stay in registers over the rows;
+//    at the end the block's teams add them in a fixed tree through shared
+//    memory (16-byte words, no bank conflicts) and write one partial row
+//    of each.
+//  * ln_bwd_reduce_kernel then sums the partial rows per column: 8 columns
+//    x 32 row groups a block, 2 * ceil(D / 8) blocks (512 at D 2048), the 32
+//    group sums added in a fixed tree. It replaces the two launches of
+//    sum_partials_kernel, whose D / 256 blocks each walked all partial rows
+//    in series (8 blocks at D 2048).
+// Other widths (unaligned rows, D not a multiple of the vector, or wider)
+// take the wide route: the first port's block-per-row kernel (ln_bwd_kernel,
+// partials in shared memory, x and g re-read from L1/L2 for dx) with the
+// same reduction. bias_gelu_bwd keeps sum_partials_kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -57,7 +91,8 @@ constexpr int kLnThreads = 256;
 constexpr int kEwThreads = 256;
 constexpr int kEwMaxBlocks = 132 * 32;  // 32 blocks per SM on the H100's 132
 constexpr int kBwdBlocks = 132 * 2;     // row-walking backward blocks
-constexpr int kSmemDefault = 48 * 1024;  // dynamic shared memory without opt-in
+constexpr int kSmemDefault = 48 * 1024;  // shared memory a block has without opt-in
+constexpr int kStaticSmemMax = 1152;     // the most static shared memory of a kernel here
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kGeluC = 0.044715f;
@@ -264,8 +299,8 @@ __global__ void __launch_bounds__(kEwThreads)
   }
 }
 
-// out[i] = sum over p of part[p, i], p in order: the second pass of both
-// backward reductions.
+// out[i] = sum over p of part[p, i], p in order: the second pass of
+// bias_gelu_bwd's reduction.
 __global__ void __launch_bounds__(kEwThreads)
     sum_partials_kernel(const float* __restrict__ part, int nparts, int D,
                         float* __restrict__ out) {
@@ -276,36 +311,389 @@ __global__ void __launch_bounds__(kEwThreads)
   out[i] = s;
 }
 
+// ------------------------------------------------------------------ //
+// LayerNorm backward, rows route
+// ------------------------------------------------------------------ //
+
+// a 16-byte vector of T as fp32 values, and back (rounded to nearest even)
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float (&f)[N]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&f)[N]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float (&f)[N]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      *reinterpret_cast<uint32_t*>(&h) = w[i];
+      const float2 p = __bfloat1622float2(h);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&f)[N]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// threads of a rows-route block: 16 warps at 2 vectors a lane (at most 128
+// registers a thread), 8 at 4; one block an SM either way, so the grid
+// writes one partial row per SM
+__host__ __device__ constexpr int rows_threads(int nv) { return nv <= 2 ? 512 : 256; }
+
+// a barrier over the nthreads threads of a team (named barrier id >= 1)
+__device__ __forceinline__ void team_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// a row's vectors of x (and r) and g, 16-byte loads; lanes past the row
+// load nothing
+template <typename T, bool kAdd, int NV, int TPR>
+__device__ __forceinline__ void load_row(const T* __restrict__ x, const T* __restrict__ r,
+                                         const T* __restrict__ g, long long off, int nvec, int tt,
+                                         uint4 (&xv)[NV], uint4 (&rv)[NV], uint4 (&gv)[NV]) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int j = v * TPR + tt;
+    if (j < nvec) {
+      xv[v] = __ldg(reinterpret_cast<const uint4*>(x + off) + j);
+      if (kAdd) rv[v] = __ldg(reinterpret_cast<const uint4*>(r + off) + j);
+      gv[v] = __ldg(reinterpret_cast<const uint4*>(g + off) + j);
+    }
+  }
+}
+
+// dx of rows strided over the grid's teams of WPR warps and one partial row
+// of dw and db per block (part: [2][gridDim.x][D]); see the file comment.
+template <typename T, bool kAdd, int WPR, int NV>
+__global__ void __launch_bounds__(rows_threads(NV), 1)
+    ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                       const float* __restrict__ w, const float* __restrict__ mean,
+                       const float* __restrict__ rstd, const T* __restrict__ g,
+                       T* __restrict__ dx, float* __restrict__ part, long long R, int D) {
+  using V = Vec<T>;
+  constexpr int VEC = V::N;
+  constexpr int TPR = 32 * WPR;
+  constexpr int NT = rows_threads(NV);
+  constexpr int TEAMS = NT / TPR;
+  extern __shared__ __align__(16) float smem[];  // w, then the teams' tree
+  float* w_s = smem;
+  float* cols = smem + (D + 3) / 4 * 4;
+  __shared__ float red[2][TEAMS][WPR][2];  // the team's warp sums, by row parity
+  const int team = threadIdx.x / TPR;
+  const int tt = threadIdx.x - team * TPR;
+  const int lane = threadIdx.x & 31;
+  const int nvec = D / VEC;
+  const float inv_d = 1.f / static_cast<float>(D);
+  const long long stride = static_cast<long long>(gridDim.x) * TEAMS;
+  long long row = static_cast<long long>(blockIdx.x) * TEAMS + team;
+  uint4 xv[NV], rv[NV], gv[NV];
+  float mu = 0.f, rs = 0.f;
+  if (row < R) {
+    load_row<T, kAdd, NV, TPR>(x, r, g, row * D, nvec, tt, xv, rv, gv);
+    mu = mean[row];
+    rs = rstd[row];
+  }
+  for (int i = threadIdx.x; i < D; i += NT) w_s[i] = w[i];
+  float dwp[NV][VEC], dbp[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dwp[v][e] = dbp[v][e] = 0.f;
+  }
+  __syncthreads();  // w_s
+  int parity = 0;
+  for (; row < R; row += stride) {
+    // xhat and dy = g * w of the lane's elements, kept for dx
+    float xh[NV][VEC], dy[NV][VEC];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = v * TPR + tt;
+      if (j < nvec) {
+        float gf[VEC];
+        V::unpack(xv[v], xh[v]);
+        if (kAdd) {
+          float rf[VEC];
+          V::unpack(rv[v], rf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) xh[v][e] += rf[e];
+        }
+        V::unpack(gv[v], gf);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          xh[v][e] = (xh[v][e] - mu) * rs;
+          dy[v][e] = gf[e] * w_s[j * VEC + e];
+          s1 += dy[v][e];
+          s2 += dy[v][e] * xh[v][e];
+          dwp[v][e] += gf[e] * xh[v][e];
+          dbp[v][e] += gf[e];
+        }
+      }
+    }
+    // the next row's loads, into the registers this row no longer needs:
+    // they fly while this row's sums, barrier and dx run
+    const long long next = row + stride;
+    float mu_n = 0.f, rs_n = 0.f;
+    if (next < R) {
+      load_row<T, kAdd, NV, TPR>(x, r, g, next * D, nvec, tt, xv, rv, gv);
+      mu_n = mean[next];
+      rs_n = rstd[next];
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if constexpr (WPR > 1) {
+      if (lane == 0) {
+        red[parity][team][tt >> 5][0] = s1;
+        red[parity][team][tt >> 5][1] = s2;
+      }
+      team_sync(1 + team, TPR);
+      s1 = s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < WPR; ++i) {
+        s1 += red[parity][team][i][0];
+        s2 += red[parity][team][i][1];
+      }
+      parity ^= 1;
+    }
+    const float c1 = s1 * inv_d;
+    const float c2 = s2 * inv_d;
+    const long long off = row * D;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = v * TPR + tt;
+      if (j < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dy[v][e] = rs * (dy[v][e] - c1 - xh[v][e] * c2);
+        reinterpret_cast<uint4*>(dx + off)[j] = V::pack(dy[v]);
+      }
+    }
+    mu = mu_n;
+    rs = rs_n;
+  }
+  // the teams' column partials, added in a fixed tree: teams [h, 2h) put
+  // theirs in slots [0, h), teams [0, h) add them. A slot holds a team's
+  // 2 NV VEC / 4 float4 words of each thread as [word][thread in the
+  // team], so a warp's words are consecutive (no bank conflicts) and the
+  // adding thread, the writer's counterpart, finds its own columns.
+  constexpr int WORDS = 2 * NV * VEC / 4;
+#pragma unroll
+  for (int half = TEAMS / 2; half >= 1; half >>= 1) {
+    if (team >= half && team < 2 * half) {
+      float4* slot =
+          reinterpret_cast<float4*>(cols) + static_cast<size_t>(team - half) * WORDS * TPR;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+#pragma unroll
+        for (int q = 0; q < VEC / 4; ++q) {
+          const int k = v * VEC / 4 + q;
+          slot[k * TPR + tt] = make_float4(dwp[v][4 * q], dwp[v][4 * q + 1], dwp[v][4 * q + 2],
+                                           dwp[v][4 * q + 3]);
+          slot[(WORDS / 2 + k) * TPR + tt] = make_float4(dbp[v][4 * q], dbp[v][4 * q + 1],
+                                                         dbp[v][4 * q + 2], dbp[v][4 * q + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    if (team < half) {
+      const float4* slot =
+          reinterpret_cast<const float4*>(cols) + static_cast<size_t>(team) * WORDS * TPR;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+#pragma unroll
+        for (int q = 0; q < VEC / 4; ++q) {
+          const int k = v * VEC / 4 + q;
+          const float4 a = slot[k * TPR + tt];
+          const float4 c = slot[(WORDS / 2 + k) * TPR + tt];
+          dwp[v][4 * q] += a.x;
+          dwp[v][4 * q + 1] += a.y;
+          dwp[v][4 * q + 2] += a.z;
+          dwp[v][4 * q + 3] += a.w;
+          dbp[v][4 * q] += c.x;
+          dbp[v][4 * q + 1] += c.y;
+          dbp[v][4 * q + 2] += c.z;
+          dbp[v][4 * q + 3] += c.w;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (team == 0) {
+    float* dw_row = part + static_cast<long long>(blockIdx.x) * D;
+    float* db_row = dw_row + static_cast<long long>(gridDim.x) * D;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = v * TPR + tt;
+      if (j < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          dw_row[j * VEC + e] = dwp[v][e];
+          db_row[j * VEC + e] = dbp[v][e];
+        }
+      }
+    }
+  }
+}
+
+constexpr int kRedCols = 8;   // columns of an ln_bwd_reduce_kernel block
+constexpr int kRedGroups = kEwThreads / kRedCols;  // its row groups
+
+// dw (blockIdx.y 0) or db (1) of the LN backwards from part ([2][nparts][D]):
+// thread (group p, column c) adds partial rows p, p + 32, ... of its column,
+// then a fixed tree adds the 32 group sums, so the bits do not depend on
+// which block ran first. kAdd changes nothing but the name, so that a
+// profile counts add_ln_bwd's reduction apart from ln_bwd's.
+template <bool kAdd>
+__global__ void __launch_bounds__(kEwThreads)
+    ln_bwd_reduce_kernel(const float* __restrict__ part, int nparts, int D,
+                         float* __restrict__ dw, float* __restrict__ db) {
+  __shared__ float red[kRedGroups][kRedCols + 1];
+  const int c = threadIdx.x % kRedCols;
+  const int p0 = threadIdx.x / kRedCols;
+  const int col = blockIdx.x * kRedCols + c;
+  const float* src = part + static_cast<long long>(blockIdx.y) * nparts * D;
+  float s = 0.f;
+  if (col < D) {
+#pragma unroll 4
+    for (int p = p0; p < nparts; p += kRedGroups) s += src[static_cast<long long>(p) * D + col];
+  }
+  red[p0][c] = s;
+  __syncthreads();
+#pragma unroll
+  for (int half = kRedGroups / 2; half > 0; half >>= 1) {
+    if (p0 < half) red[p0][c] += red[p0 + half][c];
+    __syncthreads();
+  }
+  if (p0 == 0 && col < D) (blockIdx.y == 0 ? dw : db)[col] = red[0][c];
+}
+
 int bwd_blocks(long long R) { return static_cast<int>(R < kBwdBlocks ? R : kBwdBlocks); }
 
+// Opts a kernel in to ``bytes`` of dynamic shared memory where the default
+// 48 KB might not hold them beside its static shared memory (at most 1152
+// bytes here), which counts against the same limit.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kSmemDefault)) return cudaSuccess;
+  if (bytes + kStaticSmemMax <= static_cast<size_t>(kSmemDefault)) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
+// the rows route's (warps a row, vectors a lane) pairs
+#define DS_LN_ROWS_CASES(CALL) \
+  CALL(1, 2)                   \
+  CALL(2, 2)                   \
+  CALL(4, 2)                   \
+  CALL(8, 2)                   \
+  CALL(8, 4)
+
+template <typename T, bool kAdd, int WPR, int NV>
+size_t ln_rows_smem(int D) {  // w (to a 16-byte boundary), then the teams' tree
+  const size_t teams = rows_threads(NV) / (32 * WPR);
+  return static_cast<size_t>((D + 3) / 4 * 4) * sizeof(float) +
+         teams / 2 * 2 * NV * Vec<T>::N * (32 * WPR) * sizeof(float);
+}
+
+template <typename T, bool kAdd, int WPR, int NV>
+cudaError_t launch_ln_bwd_rows(const T* x, const T* r, const float* w, const float* mean,
+                               const float* rstd, const T* g, T* dx, float* part, int nparts,
+                               long long R, int D, cudaStream_t s) {
+  const size_t smem = ln_rows_smem<T, kAdd, WPR, NV>(D);
+  cudaError_t err = allow_smem(ln_bwd_rows_kernel<T, kAdd, WPR, NV>, smem);
+  if (err != cudaSuccess) return err;
+  ln_bwd_rows_kernel<T, kAdd, WPR, NV><<<nparts, rows_threads(NV), smem, s>>>(
+      x, r, w, mean, rstd, g, dx, part, R, D);
+  return cudaGetLastError();
+}
+
+// wpr 0: the wide route, else the rows route with (wpr, nv); then the
+// reduction of the nparts partial rows into dw and db
 template <typename T, bool kAdd>
 int launch_ln_bwd(const void* x, const void* r, const void* w, const void* mean,
-                  const void* rstd, const void* g, void* dx, void* dw, void* db,
-                  void* part, long long R, int D, cudaStream_t s) {
-  const int nb = bwd_blocks(R);
-  const size_t smem = 2 * static_cast<size_t>(D) * sizeof(float);
-  cudaError_t err = allow_smem(ln_bwd_kernel<T, kAdd>, smem);
+                  const void* rstd, const void* g, void* dx, void* dw, void* db, void* part,
+                  int nparts, int wpr, int nv, long long R, int D, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(r);
+  const float* wf = static_cast<const float*>(w);
+  const float* mf = static_cast<const float*>(mean);
+  const float* sf = static_cast<const float*>(rstd);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  float* pf = static_cast<float*>(part);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (wpr == 0) {
+    const size_t smem = 2 * static_cast<size_t>(D) * sizeof(float);
+    err = allow_smem(ln_bwd_kernel<T, kAdd>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ln_bwd_kernel<T, kAdd><<<nparts, kLnThreads, smem, s>>>(
+        xt, rt, wf, mf, sf, gt, dxt, pf, pf + static_cast<long long>(nparts) * D, R, D);
+    err = cudaGetLastError();
+  }
+#define DS_LN_ROWS(WPR, NV)                                                                   \
+  else if (wpr == WPR && nv == NV) {                                                          \
+    err = launch_ln_bwd_rows<T, kAdd, WPR, NV>(xt, rt, wf, mf, sf, gt, dxt, pf, nparts, R, D, \
+                                               s);                                           \
+  }
+  DS_LN_ROWS_CASES(DS_LN_ROWS)
+#undef DS_LN_ROWS
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* dw_part = static_cast<float*>(part);
-  float* db_part = dw_part + static_cast<long long>(nb) * D;
-  ln_bwd_kernel<T, kAdd><<<nb, kLnThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const float*>(w),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const T*>(g), static_cast<T*>(dx), dw_part, db_part, R, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rb = (D + kEwThreads - 1) / kEwThreads;
-  sum_partials_kernel<<<rb, kEwThreads, 0, s>>>(dw_part, nb, D, static_cast<float*>(dw));
-  sum_partials_kernel<<<rb, kEwThreads, 0, s>>>(db_part, nb, D, static_cast<float*>(db));
+  const dim3 grid((D + kRedCols - 1) / kRedCols, 2);
+  ln_bwd_reduce_kernel<kAdd><<<grid, kEwThreads, 0, s>>>(pf, nparts, D, static_cast<float*>(dw),
+                                                         static_cast<float*>(db));
   return static_cast<int>(cudaGetLastError());
 }
+
+template <typename T, bool kAdd>
+int ln_bwd_info(int wpr, int nv, int D, int* out) {
+  if (wpr == 0) {
+    return kernel_info(ln_bwd_kernel<T, kAdd>, 2 * static_cast<size_t>(D) * sizeof(float),
+                       kLnThreads, out);
+  }
+#define DS_LN_INFO(WPR, NV)                                                              \
+  if (wpr == WPR && nv == NV) {                                                          \
+    return kernel_info(ln_bwd_rows_kernel<T, kAdd, WPR, NV>,                             \
+                       ln_rows_smem<T, kAdd, WPR, NV>(D), rows_threads(NV), out);        \
+  }
+  DS_LN_ROWS_CASES(DS_LN_INFO)
+#undef DS_LN_INFO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// whether (wpr, nv) is a rows-route pair that holds a row of D values of
+// itemsize bytes, or wpr == 0 (the wide route) with its partials in shared
+// memory
+bool ln_bwd_config_ok(int wpr, int nv, long long D, int itemsize) {
+  if (wpr == 0) return 2 * D * static_cast<long long>(sizeof(float)) <= 232448;
+  const int vec = 16 / itemsize;
+  bool known = false;
+#define DS_LN_KNOWN(WPR, NV) known = known || (wpr == WPR && nv == NV);
+  DS_LN_ROWS_CASES(DS_LN_KNOWN)
+#undef DS_LN_KNOWN
+  return known && D % vec == 0 && D / vec <= 32LL * wpr * nv;
+}
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 template <typename T, typename B>
 int launch_bias_gelu_bwd(const void* x, const void* b, const void* g, void* dx,
@@ -390,30 +778,57 @@ int ds_bias_gelu_fwd(const void* x, const void* b, void* y, long long n, int F,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Number of partial rows the two backwards write into their scratch: the
-// wrapper allocates (2 *) ds_bwd_blocks(R) * D fp32 values.
+// Number of partial rows bias_gelu_bwd writes into its scratch: the
+// wrapper allocates ds_bwd_blocks(R) * F fp32 values.
 int ds_bwd_blocks(long long R) { return R > 0 ? bwd_blocks(R) : 0; }
 
 // x, g, dx (and r when given): (R, D) of dtype; w: (D,) fp32; mean, rstd:
-// (R,) fp32 from ds_ln_fwd; dw, db: (D,) fp32; part: 2 * ds_bwd_blocks(R) * D
-// fp32 scratch. r == nullptr is the LayerNorm backward, else the residual-add
-// LayerNorm's, whose dx is the cotangent of both x and r.
+// (R,) fp32 from ds_ln_fwd; dw, db: (D,) fp32; part: 2 * nparts * D fp32
+// scratch. r == nullptr is the LayerNorm backward, else the residual-add
+// LayerNorm's, whose dx is the cotangent of both x and r. wpr, nv: the
+// rows route's warps a row and vectors a lane (ops/fused_blocks.py's
+// ln_bwd_plan), or wpr 0 for the wide route; nparts: the first launch's
+// blocks (each writes one partial row of dw and of db).
 int ds_ln_bwd(const void* x, const void* r, const void* w, const void* mean,
               const void* rstd, const void* g, void* dx, void* dw, void* db, void* part,
-              long long R, int D, int dtype, void* stream) {
-  if (R <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+              long long R, int D, int dtype, int wpr, int nv, int nparts, void* stream) {
+  if (R <= 0 || D <= 0 || nparts <= 0 || (dtype != kDtypeF32 && dtype != kDtypeBF16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int itemsize = dtype == kDtypeF32 ? 4 : 2;
+  if (!ln_bwd_config_ok(wpr, nv, D, itemsize)) return static_cast<int>(cudaErrorInvalidValue);
+  if (wpr != 0 &&
+      (misaligned(x) || misaligned(g) || misaligned(dx) || (r != nullptr && misaligned(r)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DS_LN_BWD(T, ADD) \
+  launch_ln_bwd<T, ADD>(x, r, w, mean, rstd, g, dx, dw, db, part, nparts, wpr, nv, R, D, s)
+  if (dtype == kDtypeF32) return r ? DS_LN_BWD(float, true) : DS_LN_BWD(float, false);
+  return r ? DS_LN_BWD(__nv_bfloat16, true) : DS_LN_BWD(__nv_bfloat16, false);
+#undef DS_LN_BWD
+}
+
+// The first kernel a ds_ln_bwd call with (wpr, nv) at width D launches
+// (add != 0: add_ln_bwd's), at its launch configuration: out gets 6 ints
+// (registers, static smem, dynamic smem, local bytes a thread, threads,
+// blocks an SM).
+int ds_ln_bwd_kernel_info(int wpr, int nv, int D, int dtype, int add, int* out) {
+  if (D <= 0 || (dtype != kDtypeF32 && dtype != kDtypeBF16) ||
+      !ln_bwd_config_ok(wpr, nv, D, dtype == kDtypeF32 ? 4 : 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == kDtypeF32) {
-    return r ? launch_ln_bwd<float, true>(x, r, w, mean, rstd, g, dx, dw, db, part, R, D, s)
-             : launch_ln_bwd<float, false>(x, r, w, mean, rstd, g, dx, dw, db, part, R, D, s);
+    return add ? ln_bwd_info<float, true>(wpr, nv, D, out)
+               : ln_bwd_info<float, false>(wpr, nv, D, out);
   }
-  if (dtype == kDtypeBF16) {
-    return r ? launch_ln_bwd<__nv_bfloat16, true>(x, r, w, mean, rstd, g, dx, dw, db, part, R,
-                                                  D, s)
-             : launch_ln_bwd<__nv_bfloat16, false>(x, r, w, mean, rstd, g, dx, dw, db, part,
-                                                   R, D, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return add ? ln_bwd_info<__nv_bfloat16, true>(wpr, nv, D, out)
+             : ln_bwd_info<__nv_bfloat16, false>(wpr, nv, D, out);
+}
+
+// ln_bwd_reduce_kernel's record, as ds_ln_bwd_kernel_info's
+int ds_ln_bwd_reduce_info(int* out) {
+  return kernel_info(ln_bwd_reduce_kernel<false>, 0, kEwThreads, out);
 }
 
 // x, g, dx: (R, F) of x_dtype; b: (F,) of b_dtype (fp32 or x_dtype);

@@ -19,7 +19,8 @@
 // What bounds them: at the BERT-large shape (64, 16, 128, 64) bf16 the
 // forward moves ~67 MB (q, k, v in, o out), ~20 us at 3.35 TB/s, and does
 // 4.3 GFLOP, ~4.3 us at the bf16 tensor-core rate, so bytes bound it; the
-// backward moves ~7 tensors of 16.8 MB, ~35 us.
+// backward moves 8 tensors of 16.8 MB (q, k, v, o, dO in; dq, dk, dv out),
+// ~40 us, and does 10.7 GFLOP, ~11 us on the tensor cores.
 //
 // supertile_fwd, bf16 (the training path): mma.sync.m16n8k16 bf16 -> fp32,
 // one block per sequence, so Q, K and V are read from device memory once:
@@ -48,10 +49,41 @@
 //    the warps' dependent products, not the bytes (PERF.md): it needs the
 //    two blocks an SM that 128 registers a thread allow.
 //
-// supertile_fwd, fp32, and supertile_bwd keep the first port's CUDA-core
-// kernels (fp32 FMAs over fp32 shared-memory tiles with row stride Dh + 1;
-// TF32 tensor cores would keep ~10 mantissa bits, short of the port's fp32
-// tolerance):
+// supertile_bwd, bf16 (the training path), on mma.sync.m16n8k16 as well,
+// in one launch, deterministic (no atomics) and with no scratch:
+//  * S <= 128: one block per sequence, one warp per 16 rows. The block
+//    reads the sequence's Q, K, V and dO once, by 16-byte cp.async copies,
+//    into swizzled bf16 tiles (64 KB at S 128, Dh 64), and O's rows into
+//    registers while they land: delta = rowsum(dO * O) is computed in the
+//    block, in fp32, so no torch op runs around the kernel.
+//  * phase 1: warp w owns keys 16w .. 16w + 15. Over 16-query units it
+//    computes S^T = K Q^T and dP^T = V dO^T (keys as rows), forms
+//    P^T = exp(S^T * scale - lse) with the forward's lse (no softmax max)
+//    and dS^T = P^T (dP^T - delta) * scale in registers, rounds both to
+//    bf16 as the reference does (flash_static.py:443-452) and feeds them as
+//    the A operands of dV += P^T dO and dK += dS^T Q; the same bf16 dS^T
+//    goes to a shared (S, 128) tile (32 KB at S 128).
+//  * phase 2, after one barrier: warp w owns queries 16w .. 16w + 15 and
+//    computes dQ = dS K from that tile (dS read with ldmatrix.trans). dQ
+//    never touches device memory before its one store.
+//  * S > 128: Q, K, V and dO of one sequence (up to 256 KB at Dh 128) do
+//    not fit a block's 227 KB, nor would the S x S dS, so the same launch
+//    runs four blocks a sequence: two own 128 keys each (phase 1 over
+//    every query, with the sequence's Q and dO resident, 194 KB at Dh
+//    128) and two own 128 queries each and recompute S and dP for their
+//    dQ (the flash pair's split, 7 products instead of 5), with the
+//    sequence's K and V resident. No second launch, no scratch.
+//  * causal units above the diagonal are skipped (measured faster than
+//    masking them, unlike in the forward, which must keep its unrolled
+//    rows branch-free; PERF.md); only units on the diagonal or the ragged
+//    edge are masked element by element.
+//  * dK, dV and dQ leave through the warp's own rows of a tile that no
+//    other warp reads then, as 16-byte stores.
+//
+// supertile_fwd, fp32, and supertile_bwd, fp32, keep the first port's
+// CUDA-core kernels (fp32 FMAs over fp32 shared-memory tiles with row
+// stride Dh + 1; TF32 tensor cores would keep ~10 mantissa bits, short of
+// the port's fp32 tolerance):
 //  * supertile_fwd, fp32: one 256-thread block per (sequence, 64-row query
 //    tile). The block keeps the query tile and the tile's whole score rows
 //    (64 x up to 256 fp32) resident in shared memory, so the softmax is a
@@ -72,8 +104,8 @@
 //  * rounding follows the reference: P is cast to V's dtype before P V
 //    (flash_static.py:418-421) and dS to q's dtype before its two products
 //    (flash_static.py:452); the row sum of P and all accumulators are fp32.
-//    delta = rowsum(dO * O) comes in from the caller, as the reference
-//    computes it in XLA outside the kernel.
+//    delta = rowsum(dO * O) comes from supertile_delta_f32_kernel, launched
+//    just before it by the same entry point.
 //  * head dims that are not a multiple of 16 are zero-padded in shared
 //    memory to 16 * NJ columns; only the first Dh are read and written.
 
@@ -437,6 +469,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// delta = rowsum(dO * O) in fp32 for the fp32 backward over (rows, Dh)
+// row-major o and dout: 4 lanes a row, 16-byte loads (Dh % 8 == 0)
+__global__ void __launch_bounds__(256)
+    supertile_delta_f32_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                               float* __restrict__ delta, long long rows, int Dh) {
+  const long long row = static_cast<long long>(blockIdx.x) * 64 + (threadIdx.x >> 2);
+  float sum = 0.f;
+  if (row < rows) {
+    const float4* ov = reinterpret_cast<const float4*>(o + row * Dh);
+    const float4* dv = reinterpret_cast<const float4*>(dout + row * Dh);
+    for (int c = threadIdx.x & 3; c < Dh / 4; c += 4) {
+      const float4 a = ov[c];
+      const float4 b = dv[c];
+      sum = fmaf(a.x, b.x, sum);
+      sum = fmaf(a.y, b.y, sum);
+      sum = fmaf(a.z, b.z, sum);
+      sum = fmaf(a.w, b.w, sum);
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (row < rows && (threadIdx.x & 3) == 0) delta[row] = sum;
+}
+
 // ------------------------------------------------------------------ //
 // bf16 supertile_fwd: tensor cores (mma.sync m16n8k16), cp.async, ldmatrix
 // ------------------------------------------------------------------ //
@@ -692,6 +748,370 @@ size_t fwd_mma_smem(int S, int W) {  // Q, K and V of one sequence
   return static_cast<size_t>(3) * tile_rows(S) * W * sizeof(bf16);
 }
 
+// ------------------------------------------------------------------ //
+// bf16 supertile_bwd: tensor cores (mma.sync m16n8k16), cp.async, ldmatrix
+// ------------------------------------------------------------------ //
+
+constexpr int kFusedMaxSeq = 128;  // up to this S one block owns a sequence
+constexpr int kDsWidth = 128;      // queries of a row of the shared dS^T tile
+constexpr int kChunk = 128;        // rows a block owns above kFusedMaxSeq
+constexpr int kBwdWarps = 8;
+
+__host__ __device__ constexpr int rows16(int S) { return (S + 15) / 16 * 16; }
+
+// delta = rowsum(dO * O) in fp32 for rows [0, n) of a tile of ``rows``
+// rows (tile row i is row i of ``o``, whose rows have Dh columns), 4 lanes a
+// row: load() reads O's rows from device memory into registers before the
+// tiles land, finish() adds the products with dO's swizzled tile and writes
+// dl[i] for every tile row (0 past n).
+template <int W, int PASSES>
+struct DeltaRows {
+  static constexpr int NCH = (W / 8 + 3) / 4;  // 16-byte chunks a lane
+  uint4 ov[PASSES][NCH];
+
+  __device__ __forceinline__ void load(const bf16* __restrict__ o, int n, int Dh, int tid,
+                                       int nthreads) {
+    const int dchunks = Dh / 8;
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int i = (tid >> 2) + p * (nthreads >> 2);
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const int c = (tid & 3) + 4 * j;
+        ov[p][j] = (i < n && c < dchunks)
+                       ? __ldg(reinterpret_cast<const uint4*>(o + static_cast<long long>(i) * Dh +
+                                                              c * 8))
+                       : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(const bf16* dos, float* dl, int n, int rows, int Dh,
+                                         int tid, int nthreads) const {
+    const int dchunks = Dh / 8;
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int i = (tid >> 2) + p * (nthreads >> 2);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const int c = (tid & 3) + 4 * j;
+        if (i < n && c < dchunks) {
+          const uint4 d = *reinterpret_cast<const uint4*>(dos + i * W + swz<W>(i, c) * 8);
+          const bf16* a = reinterpret_cast<const bf16*>(&ov[p][j]);
+          const bf16* b = reinterpret_cast<const bf16*>(&d);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sum = fmaf(to_f32(a[e]), to_f32(b[e]), sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if ((tid & 3) == 0 && i < rows) dl[i] = sum;
+    }
+  }
+};
+
+// lse * log2(e) of rows [0, rows) (row i is lse[i]; 0 at or past n), so that
+// p = exp2(s * scale * log2(e) - lse2)
+__device__ __forceinline__ void load_lse2(float* dst, const float* __restrict__ lse, int n,
+                                          int rows, int tid, int nthreads) {
+  for (int i = tid; i < rows; i += nthreads) dst[i] = i < n ? lse[i] * kLog2e : 0.f;
+}
+
+// One warp's phase 1: dV and dK of the 16 keys at tile row k0 of ks and vs
+// (sequence keys kg0 + k0 ..), over the 16-query units [qbeg, qend) of the
+// tiles qs and dos (tile row i is query i), whose lse2 and delta rows are
+// lse2[i] and dl[i]. S^T = K Q^T and dP^T = V dO^T come out with keys as
+// rows, so P^T and dS^T, rounded to bf16, are the A operands of
+// dV += P^T dO and dK += dS^T Q without leaving registers; the same bf16
+// dS^T goes to the swizzled (keys, kDsWidth) tile ds_t when it is given.
+// dV and dK are stored to rows kg0 + k0 .. of dv and dk through the warp's
+// own rows of vs (no other warp reads them).
+template <int W>
+__device__ __forceinline__ void dkdv_warp(const bf16* ks, bf16* vs, const bf16* qs,
+                                          const bf16* dos, const float* lse2, const float* dl,
+                                          bf16* ds_t, int k0, int kg0, int qbeg, int qend, int S,
+                                          int Dh, float scale, float scale_log2, bool causal,
+                                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                          int lane) {
+  constexpr int ND = W / 8;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kgs = kg0 + k0;  // the warp's first key
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+  for (int qu = qbeg; qu < qend; ++qu) {
+    const int q0 = 16 * qu;
+    float sT[2][4], dpT[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a_addr<W>(ks, k0, kk, lane), a);
+      ldsm_x4(b_addr<W>(qs, q0, kk, lane), b);
+      mma_bf16(sT[0], a, b[0], b[1]);
+      mma_bf16(sT[1], a, b[2], b[3]);
+      ldsm_x4(a_addr<W>(vs, k0, kk, lane), a);
+      ldsm_x4(b_addr<W>(dos, q0, kk, lane), b);
+      mma_bf16(dpT[0], a, b[0], b[1]);
+      mma_bf16(dpT[1], a, b[2], b[3]);
+    }
+    const bool edge = q0 + 16 > S || kgs + 16 > S || (causal && q0 < kgs + 15);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = q0 + 8 * j + 2 * t + (e & 1);
+        float p = fast_exp2(fmaf(sT[j][e], scale_log2, -lse2[qc]));
+        if (edge) {
+          const int kr = kgs + g + 8 * (e >> 1);
+          if (qc >= S || kr >= S || (causal && kr > qc)) p = 0.f;
+        }
+        sT[j][e] = p;
+        dpT[j][e] = p * (dpT[j][e] - dl[qc]) * scale;
+      }
+    }
+    uint32_t pa[4], da[4];
+    a_from_acc(pa, sT[0], sT[1]);
+    a_from_acc(da, dpT[0], dpT[1]);
+#pragma unroll
+    for (int dp = 0; dp < W / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(a_addr<W>(dos, q0, dp, lane), b);
+      mma_bf16(dva[2 * dp], pa, b[0], b[1]);
+      mma_bf16(dva[2 * dp + 1], pa, b[2], b[3]);
+      ldsm_x4_trans(a_addr<W>(qs, q0, dp, lane), b);
+      mma_bf16(dka[2 * dp], da, b[0], b[1]);
+      mma_bf16(dka[2 * dp + 1], da, b[2], b[3]);
+    }
+    if (ds_t != nullptr) {
+      // the A fragment's rows g, g + 8 and columns 2t, 2t + 8 (two bf16 each)
+      const int ra = k0 + g;
+      const int rb = ra + 8;
+      const int ca = 2 * qu;  // the 16-byte chunk of queries q0 .. q0 + 7
+      *reinterpret_cast<uint32_t*>(ds_t + ra * kDsWidth + swz<kDsWidth>(ra, ca) * 8 + 2 * t) =
+          da[0];
+      *reinterpret_cast<uint32_t*>(ds_t + rb * kDsWidth + swz<kDsWidth>(rb, ca) * 8 + 2 * t) =
+          da[1];
+      *reinterpret_cast<uint32_t*>(ds_t + ra * kDsWidth + swz<kDsWidth>(ra, ca + 1) * 8 +
+                                   2 * t) = da[2];
+      *reinterpret_cast<uint32_t*>(ds_t + rb * kDsWidth + swz<kDsWidth>(rb, ca + 1) * 8 +
+                                   2 * t) = da[3];
+    }
+  }
+  store_rows<W>(vs, k0, dva, dv, kgs, S, Dh, Dh / 8, lane);
+  store_rows<W>(vs, k0, dka, dk, kgs, S, Dh, Dh / 8, lane);
+}
+
+// One warp's dQ of the 16 queries at tile row q0 of qs (sequence queries
+// qg0 ..), over the key units [0, kend) of ks and vs (tile row i is key i),
+// recomputing S = Q K^T and dP = dO V^T; lse2 and dl hold the tile's query
+// rows. dS, rounded to bf16, is the A operand of dQ += dS K straight from
+// the accumulators. Stored to rows qg0 .. of dq through the warp's own rows
+// of qs.
+template <int W>
+__device__ __forceinline__ void dq_warp(bf16* qs, const bf16* dos, const bf16* ks,
+                                        const bf16* vs, const float* lse2, const float* dl,
+                                        int q0, int qg0, int kend, int S, int Dh, float scale,
+                                        float scale_log2, bool causal, bf16* __restrict__ dq,
+                                        int lane) {
+  constexpr int ND = W / 8;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float lr[2], dlr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lr[i] = lse2[q0 + g + 8 * i];
+    dlr[i] = dl[q0 + g + 8 * i];
+  }
+  float dqa[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+  for (int ku = 0; ku < kend; ++ku) {
+    const int k0 = 16 * ku;
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a_addr<W>(qs, q0, kk, lane), a);
+      ldsm_x4(b_addr<W>(ks, k0, kk, lane), b);
+      mma_bf16(s[0], a, b[0], b[1]);
+      mma_bf16(s[1], a, b[2], b[3]);
+      ldsm_x4(a_addr<W>(dos, q0, kk, lane), a);
+      ldsm_x4(b_addr<W>(vs, k0, kk, lane), b);
+      mma_bf16(dp[0], a, b[0], b[1]);
+      mma_bf16(dp[1], a, b[2], b[3]);
+    }
+    const bool edge = k0 + 16 > S || qg0 + 16 > S || (causal && k0 + 15 > qg0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = fast_exp2(fmaf(s[j][e], scale_log2, -lr[i]));
+        if (edge) {
+          const int c = k0 + 8 * j + 2 * t + (e & 1);
+          const int r = qg0 + g + 8 * i;
+          if (c >= S || r >= S || (causal && c > r)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dlr[i]) * scale;
+      }
+    }
+    uint32_t sa[4];
+    a_from_acc(sa, dp[0], dp[1]);
+#pragma unroll
+    for (int d2 = 0; d2 < W / 16; ++d2) {
+      uint32_t b[4];
+      ldsm_x4_trans(a_addr<W>(ks, k0, d2, lane), b);
+      mma_bf16(dqa[2 * d2], sa, b[0], b[1]);
+      mma_bf16(dqa[2 * d2 + 1], sa, b[2], b[3]);
+    }
+  }
+  store_rows<W>(qs, q0, dqa, dq, qg0, S, Dh, Dh / 8, lane);
+}
+
+// W: the head dim padded to a multiple of 16.
+//  * !kSplit (S <= kFusedMaxSeq): one block per sequence, one warp per 16
+//    rows of the R = rows16(S) rows. Shared memory: Q, K, V, dO (R, W)
+//    bf16 each, dS^T (R, kDsWidth) bf16, lse2 and delta (R) fp32. Phase 1
+//    (warp w: keys 16w..) writes dS^T; after a barrier, phase 2 (warp w:
+//    queries 16w..) computes dQ = dS K from it.
+//  * kSplit (S > kFusedMaxSeq): grid (BH, chunks, 2), 8 warps. blockIdx.z
+//    0: the block owns keys [128 c, 128 c + 128) (c = blockIdx.y), with K
+//    and V of those keys and the whole sequence's Q and dO resident, and
+//    runs phase 1 alone; 1: it owns those queries, with their Q and dO and
+//    the whole sequence's K and V resident, and computes their dQ.
+// Both leave delta to the block: O's rows are read while the tiles land.
+template <int W, bool kSplit>
+__global__ void __launch_bounds__(32 * kBwdWarps, W <= 64 ? 2 : 1)
+    supertile_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ o,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int S, int Dh, float scale, bool causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int R = rows16(S);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long bh = blockIdx.x;
+  const long long base = bh * S * Dh;
+  const float scale_log2 = scale * kLog2e;
+  lse += bh * S;
+
+  if constexpr (!kSplit) {
+    bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* ks = qs + R * W;
+    bf16* vs = ks + R * W;
+    bf16* dos = vs + R * W;
+    bf16* ds_t = dos + R * W;
+    float* lse2 = reinterpret_cast<float*>(ds_t + R * kDsWidth);
+    float* dl = lse2 + R;
+    load_seq_async<W>(ks, k + base, S, R, Dh, tid, nthreads);
+    load_seq_async<W>(qs, q + base, S, R, Dh, tid, nthreads);
+    load_seq_async<W>(vs, v + base, S, R, Dh, tid, nthreads);
+    load_seq_async<W>(dos, dout + base, S, R, Dh, tid, nthreads);
+    cp_async_commit();
+    load_lse2(lse2, lse, S, R, tid, nthreads);
+    DeltaRows<W, 2> delta;  // 2 passes of nthreads / 4 = R / 2 rows
+    delta.load(o + base, S, Dh, tid, nthreads);
+    cp_async_wait<0>();
+    __syncthreads();
+    delta.finish(dos, dl, S, R, Dh, tid, nthreads);
+    __syncthreads();
+    const int nu = R / 16;
+    dkdv_warp<W>(ks, vs, qs, dos, lse2, dl, ds_t, 16 * warp, 0, causal ? warp : 0, nu, S, Dh,
+                 scale, scale_log2, causal, dk + base, dv + base, lane);
+    __syncthreads();  // dS^T is complete
+    const int q0 = 16 * warp;
+    const int kend = causal ? warp + 1 : nu;
+    constexpr int ND = W / 8;
+    float dqa[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+    for (int ku = 0; ku < kend; ++ku) {
+      uint32_t sa[4];
+      // dS (queries q0.., keys 16ku..) read across dS^T's rows
+      ldsm_x4_trans(b_addr<kDsWidth>(ds_t, 16 * ku, warp, lane), sa);
+#pragma unroll
+      for (int d2 = 0; d2 < W / 16; ++d2) {
+        uint32_t b[4];
+        ldsm_x4_trans(a_addr<W>(ks, 16 * ku, d2, lane), b);
+        mma_bf16(dqa[2 * d2], sa, b[0], b[1]);
+        mma_bf16(dqa[2 * d2 + 1], sa, b[2], b[3]);
+      }
+    }
+    // Q's rows are read by no warp in phase 2: the warp's own stage dQ
+    store_rows<W>(qs, q0, dqa, dq + base, q0, S, Dh, Dh / 8, lane);
+  } else {
+    const int c0 = kChunk * blockIdx.y;  // the block's first key (or query)
+    const int own = min(kChunk, R - c0);  // rows of the block's own chunk
+    const bool keys = blockIdx.z == 0;
+    // resident tiles: the own chunk's K, V (or Q, dO), the whole sequence's
+    // Q, dO (or K, V)
+    bf16* own_a = reinterpret_cast<bf16*>(smem_raw);
+    bf16* own_b = own_a + kChunk * W;
+    bf16* all_a = own_b + kChunk * W;
+    bf16* all_b = all_a + R * W;
+    float* lse2 = reinterpret_cast<float*>(all_b + R * W);
+    float* dl = lse2 + R;
+    const long long cbase = base + static_cast<long long>(c0) * Dh;
+    load_seq_async<W>(own_a, (keys ? k : q) + cbase, S - c0, own, Dh, tid, nthreads);
+    load_seq_async<W>(own_b, (keys ? v : dout) + cbase, S - c0, own, Dh, tid, nthreads);
+    load_seq_async<W>(all_a, (keys ? q : k) + base, S, R, Dh, tid, nthreads);
+    load_seq_async<W>(all_b, (keys ? dout : v) + base, S, R, Dh, tid, nthreads);
+    cp_async_commit();
+    // the queries whose lse and delta the block needs: all, or its own
+    const int qr0 = keys ? 0 : c0;
+    const int qrows = keys ? R : own;
+    const int qvalid = min(S - qr0, qrows);
+    load_lse2(lse2, lse + qr0, qvalid, qrows, tid, nthreads);
+    DeltaRows<W, 4> delta;  // 4 passes of 64 rows cover R <= 256
+    delta.load(o + base + static_cast<long long>(qr0) * Dh, qvalid, Dh, tid, nthreads);
+    cp_async_wait<0>();
+    __syncthreads();
+    delta.finish(keys ? all_b : own_b, dl, qvalid, qrows, Dh, tid, nthreads);
+    __syncthreads();
+    const int r0 = 16 * warp;  // the warp's rows of the own chunk
+    if (r0 >= own) return;     // no barrier follows
+    if (keys) {
+      const int kgs = c0 + r0;
+      dkdv_warp<W>(own_a, own_b, all_a, all_b, lse2, dl, nullptr, r0, c0, causal ? kgs / 16 : 0,
+                   R / 16, S, Dh, scale, scale_log2, causal, dk + base, dv + base, lane);
+    } else {
+      const int qg0 = c0 + r0;
+      dq_warp<W>(own_a, own_b, all_a, all_b, lse2, dl, r0, qg0, causal ? qg0 / 16 + 1 : R / 16, S,
+                 Dh, scale, scale_log2, causal, dq + base, lane);
+    }
+  }
+}
+
+size_t bwd_mma_smem(int S, int W) {
+  const size_t R = static_cast<size_t>(rows16(S));
+  if (S <= kFusedMaxSeq) {  // Q, K, V, dO, dS^T (bf16); lse2, delta (fp32)
+    return (4 * R * W + R * kDsWidth) * sizeof(bf16) + 2 * R * sizeof(float);
+  }
+  return (2 * static_cast<size_t>(kChunk) + 2 * R) * W * sizeof(bf16) + 2 * R * sizeof(float);
+}
+
+// threads of a block: one warp per 16 rows of the sequence up to S 128,
+// else kBwdWarps
+int bwd_mma_threads(int S) { return S <= kFusedMaxSeq ? 2 * rows16(S) : 32 * kBwdWarps; }
+
 // warps of a block: one per 16 rows of the tiles, at most kMmaWarps
 int mma_warps(int S) {
   const int warps = tile_rows(S) / 16;
@@ -717,20 +1137,68 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NJ>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, void* dk, void* dv,
-               void* dq_acc, int BH, int S, int Dh, float scale, bool causal,
-               cudaStream_t s) {
+// fp32: delta, then the CUDA-core kernel. scratch: BH * S fp32 for delta,
+// then BH * S * Dh fp32 for dq above one key chunk (S > 64)
+template <int NJ>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                   void* scratch, int BH, int S, int Dh, float scale, bool causal,
+                   cudaStream_t s) {
   const size_t smem = bwd_smem<NJ>();
-  cudaError_t err = allow_smem(supertile_bwd_kernel<T, NJ>, smem);
+  cudaError_t err = allow_smem(supertile_bwd_kernel<float, NJ>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  supertile_bwd_kernel<T, NJ><<<BH, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<float*>(dq_acc), S, Dh, scale, causal);
+  const long long rows = static_cast<long long>(BH) * S;
+  float* delta = static_cast<float*>(scratch);
+  supertile_delta_f32_kernel<<<static_cast<unsigned>((rows + 63) / 64), 256, 0, s>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), delta, rows, Dh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  supertile_bwd_kernel<float, NJ><<<BH, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse), delta,
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+      S > kTile ? delta + rows : nullptr, S, Dh, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const void* lse, void* dq, void* dk, void* dv, int BH,
+                   int S, int Dh, float scale, bool causal, cudaStream_t s) {
+  const size_t smem = bwd_mma_smem(S, W);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* ob = static_cast<const bf16*>(o);
+  const bf16* db = static_cast<const bf16*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  bf16* dqb = static_cast<bf16*>(dq);
+  bf16* dkb = static_cast<bf16*>(dk);
+  bf16* dvb = static_cast<bf16*>(dv);
+  cudaError_t err;
+  if (S <= kFusedMaxSeq) {
+    err = allow_smem(supertile_bwd_mma_kernel<W, false>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    supertile_bwd_mma_kernel<W, false><<<BH, bwd_mma_threads(S), smem, s>>>(
+        qb, kb, vb, ob, db, lf, dqb, dkb, dvb, S, Dh, scale, causal);
+  } else {
+    err = allow_smem(supertile_bwd_mma_kernel<W, true>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(BH, (rows16(S) + kChunk - 1) / kChunk, 2);
+    supertile_bwd_mma_kernel<W, true><<<grid, bwd_mma_threads(S), smem, s>>>(
+        qb, kb, vb, ob, db, lf, dqb, dkb, dvb, S, Dh, scale, causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NJ>
+int bwd_mma_info(int S, int* out) {
+  constexpr int W = 16 * NJ;
+  const size_t smem = bwd_mma_smem(S, W);
+  if (S <= kFusedMaxSeq) {
+    return kernel_info(supertile_bwd_mma_kernel<W, false>, smem, bwd_mma_threads(S), out);
+  }
+  return kernel_info(supertile_bwd_mma_kernel<W, true>, smem, bwd_mma_threads(S), out);
 }
 
 template <int W, int NU>
@@ -798,13 +1266,24 @@ int dispatch_fwd_mma(const void* q, const void* k, const void* v, void* o, void*
 #undef DS_FWD
 }
 
-template <typename T>
-int dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                 void* dq_acc, int BH, int S, int Dh, float scale, bool causal,
-                 cudaStream_t s) {
+int dispatch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                     void* scratch, int BH, int S, int Dh, float scale, bool causal,
+                     cudaStream_t s) {
 #define DS_BWD(NJ) \
-  launch_bwd<T, NJ>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, BH, S, Dh, scale, causal, s)
+  launch_bwd_f32<NJ>(q, k, v, o, dout, lse, dq, dk, dv, scratch, BH, S, Dh, scale, causal, s)
+  switch ((Dh + 15) / 16) {
+    DS_SUPERTILE_NJ_CASES(DS_BWD)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DS_BWD
+}
+
+int dispatch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* dq, void* dk, void* dv, int BH,
+                     int S, int Dh, float scale, bool causal, cudaStream_t s) {
+#define DS_BWD(NJ) \
+  launch_bwd_mma<16 * NJ>(q, k, v, o, dout, lse, dq, dk, dv, BH, S, Dh, scale, causal, s)
   switch ((Dh + 15) / 16) {
     DS_SUPERTILE_NJ_CASES(DS_BWD)
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -838,25 +1317,37 @@ int ds_supertile_fwd(const void* q, const void* k, const void* v, void* o, void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// q, k, v, dout, dq, dk, dv: (BH, S, Dh) of dtype; lse, delta: (BH, S) fp32;
-// dq_acc: BH * S * Dh fp32 scratch when S > 64 (unused, may be null, else).
-int ds_supertile_bwd(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                     void* dq_acc, int BH, int S, int Dh, float scale, int causal, int dtype,
+// q, k, v, o, dout, dq, dk, dv: (BH, S, Dh) of dtype; lse: (BH, S) fp32
+// from ds_supertile_fwd. bf16 takes no scratch (may be null); fp32 takes
+// BH * S fp32 for delta, plus BH * S * Dh fp32 for dq when S > 64.
+int ds_supertile_bwd(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                     void* scratch, int BH, int S, int Dh, float scale, int causal, int dtype,
                      void* stream) {
-  if (bad_geometry(BH, S, Dh) || (S > kTile && dq_acc == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_geometry(BH, S, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32) {
-    return dispatch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, BH, S, Dh,
-                               scale, causal != 0, s);
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_bwd_f32(q, k, v, o, dout, lse, dq, dk, dv, scratch, BH, S, Dh, scale,
+                            causal != 0, s);
   }
   if (dtype == kDtypeBF16) {
-    return dispatch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, BH, S,
-                                       Dh, scale, causal != 0, s);
+    return dispatch_bwd_mma(q, k, v, o, dout, lse, dq, dk, dv, BH, S, Dh, scale, causal != 0,
+                            s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 backward kernel a (BH, S, Dh) call launches, at that S's launch
+// configuration: out gets 6 ints as ds_supertile_fwd_kernel_info's.
+int ds_supertile_bwd_kernel_info(int S, int Dh, int* out) {
+  if (bad_geometry(1, S, Dh)) return static_cast<int>(cudaErrorInvalidValue);
+#define DS_INFO(NJ) bwd_mma_info<NJ>(S, out)
+  switch ((Dh + 15) / 16) {
+    DS_SUPERTILE_NJ_CASES(DS_INFO)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DS_INFO
 }
 
 // The bf16 forward kernel a (BH, S, Dh) call launches, at that S's launch

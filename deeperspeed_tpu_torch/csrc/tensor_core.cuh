@@ -20,6 +20,8 @@
 
 #include <cstdint>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -216,28 +218,6 @@ __device__ __forceinline__ void rowsum_dot(const T* __restrict__ o, const T* __r
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
   if (row < rows && sub == 0) delta[row] = sum;
-}
-
-// One (registers, static smem, dynamic smem, local bytes a thread, threads,
-// blocks an SM) record of a compiled kernel at its launch configuration.
-template <typename K>
-int kernel_info(K kernel, size_t smem, int threads, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.sharedSizeBytes);
-  out[2] = static_cast<int>(smem);
-  out[3] = static_cast<int>(attr.localSizeBytes);
-  out[4] = threads;
-  out[5] = blocks;
-  return 0;
 }
 
 }  // namespace

@@ -16,9 +16,12 @@ packing:
                      registers; fp32 on the CUDA cores.
   ``supertile_bwd``  (q, k, v, o, lse, do) -> (dq, dk, dv) in one launch;
                      replaces ``_st_bwd_kernel`` (launched by
-                     ``_st_vjp_bwd``). delta = rowsum(dO * O) is a plain
-                     torch reduction here, as the reference computes it in
-                     XLA outside the kernel.
+                     ``_st_vjp_bwd``). bf16 runs on the tensor cores, one
+                     block per sequence up to S 128 (four above), with
+                     delta = rowsum(dO * O), which the reference computes
+                     in XLA outside the kernel, computed in the block: no
+                     torch op and no scratch around it. fp32 runs on the
+                     CUDA cores after a delta kernel of its own.
 
 Their plain versions (``supertile_fwd_plain``, ``supertile_bwd_plain``)
 are the flash pair's (ops/flash_attention.py): the two kernels compute one
@@ -53,7 +56,11 @@ from .flash_attention import flash_bwd_plain, flash_fwd_plain
 SUPERTILE_MAX_SEQ = 256  # exclusive: S < 256 takes the super-tile kernel
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64  # rows of a key chunk; the backward's dq scratch is needed above
+_TILE = 64  # the fp32 backward's key chunk: dq scratch above it
+SMEM_PER_BLOCK = 232448  # dynamic shared memory a block may have on Hopper
+_FUSED_MAX_SEQ = 128     # up to here a bf16 backward block owns a sequence
+_CHUNK = 128             # rows a bf16 backward block owns above it
+_DS_WIDTH = 128          # queries of a row of its shared dS^T tile
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +71,7 @@ _SIGNATURES = {
     "ds_supertile_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           ctypes.c_float, _I, _I, _P], _I),
     "ds_supertile_fwd_kernel_info": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "ds_supertile_bwd_kernel_info": ([_I, _I, ctypes.POINTER(_I)], _I),
 }
 _INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
               "threads", "blocks_per_sm")
@@ -91,6 +99,51 @@ def fwd_kernel_info(S: int, head_dim: int) -> dict:
     _raise_on(_lib().ds_supertile_fwd_kernel_info(S, head_dim, out),
               "supertile_fwd info")
     return dict(zip(_INFO_KEYS, out))
+
+
+def bwd_kernel_info(S: int, head_dim: int) -> dict:
+    """The compiled bf16 ``supertile_bwd`` kernel that a call at (S,
+    ``head_dim``) launches, at that launch configuration, as
+    ``fwd_kernel_info`` reports the forward's. One instantiation serves
+    each head dim rounded up to 16 and each route of ``bwd_plan``."""
+    out = (_I * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_supertile_bwd_kernel_info(S, head_dim, out),
+              "supertile_bwd info")
+    return dict(zip(_INFO_KEYS, out))
+
+
+def bwd_plan(S: int, head_dim: int, dtype) -> dict:
+    """How ``supertile_bwd`` runs a call at (S, ``head_dim``) of ``dtype``
+    inside the gate (the launch rule of csrc/supertile_attention.cu):
+
+      route            "fused": bf16 at S <= 128, one block a sequence,
+                       dS^T through shared memory; "split": bf16 above,
+                       four blocks a sequence (two own 128 keys, two own
+                       128 queries and recompute S for dQ); "cuda_cores":
+                       fp32.
+      blocks_per_seq   thread blocks a (batch, head) pair takes
+      threads          threads a block
+      smem_bytes       dynamic shared memory a block
+      scratch_floats   fp32 scratch the wrapper allocates a (batch, head)
+                       pair: none for bf16; delta, and dq above one key
+                       chunk, for fp32.
+    """
+    R = -(-S // 16) * 16          # rows: S rounded up to 16
+    W = -(-head_dim // 16) * 16   # the head dim zero-padded to 16
+    if dtype == torch.bfloat16:
+        if S <= _FUSED_MAX_SEQ:
+            return {"route": "fused", "blocks_per_seq": 1, "threads": 2 * R,
+                    "smem_bytes": (4 * R * W + R * _DS_WIDTH) * 2 + 2 * R * 4,
+                    "scratch_floats": 0}
+        return {"route": "split", "blocks_per_seq": 2 * -(-R // _CHUNK),
+                "threads": 256,
+                "smem_bytes": (2 * _CHUNK + 2 * R) * W * 2 + 2 * R * 4,
+                "scratch_floats": 0}
+    ld = W + 1  # the fp32 kernel's fp32 tiles: K, V, Q, dO; P, dS; lse, delta
+    return {"route": "cuda_cores", "blocks_per_seq": 1, "threads": 256,
+            "smem_bytes": (4 * _TILE * ld + 2 * _TILE * (_TILE + 1)
+                           + 2 * _TILE) * 4,
+            "scratch_floats": S + (S * head_dim if S > _TILE else 0)}
 
 
 def supertile_geometry_ok(B, H, S, Dh, dtype) -> bool:
@@ -169,7 +222,8 @@ supertile_fwd.launches = 0
 def supertile_bwd(q, k, v, o, lse, do, sm_scale, causal):
     """Super-tile backward kernel, one launch, on contiguous (B, H, S, Dh)
     tensors of one dtype and ``supertile_fwd``'s fp32 lse: returns (dq,
-    dk, dv). delta = rowsum(dO * O) is computed here in torch. A CPU
+    dk, dv). delta = rowsum(dO * O) is computed on the card (in the bf16
+    kernel's blocks; by a kernel of its own before the fp32 one). A CPU
     tensor takes ``supertile_bwd_plain``."""
     if q.device.type == "cpu":
         return supertile_bwd_plain(q, k, v, o, lse, do, sm_scale, causal)
@@ -181,18 +235,18 @@ def supertile_bwd(q, k, v, o, lse, do, sm_scale, causal):
             or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
         raise ValueError(f"supertile_bwd takes a contiguous fp32 lse of "
                          f"shape {(B, H, S)} on {q.device}")
-    delta = (do.float() * o.float()).sum(dim=-1)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # fp32 dq carried across key chunks: one block owns a sequence, so
-    # no two blocks touch the same rows
-    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              if S > _TILE else None)
+    # fp32 only: delta, then dq carried across key chunks (one block owns
+    # a sequence, so no two blocks touch the same rows)
+    floats = bwd_plan(S, Dh, q.dtype)["scratch_floats"]
+    scratch = (torch.empty(B * H * floats, dtype=torch.float32,
+                           device=q.device) if floats else None)
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.ds_supertile_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B * H, S, Dh, float(sm_scale), int(bool(causal)),
             _DTYPE_CODES[q.dtype], _stream(q.device))
     _raise_on(err, "supertile_bwd")

@@ -27,7 +27,9 @@ All six are bound by device-memory bytes: on an H100 SXM (3.35 TB/s)
 their least time is (bytes read + bytes written) / 3.35 TB/s, e.g.
 bias+GeLU on (512, 8192) bf16 moves ~16.8 MB, ~5.0 us. The source file
 says how each design keeps intermediates out of device memory and how the
-backwards reduce over rows without atomics.
+backwards reduce over rows without atomics. The LN backwards' launch
+(which route, how many warps a row, how many blocks and partial rows) is
+decided here, by ``ln_bwd_plan``, and handed to the kernel.
 
 Beside each kernel wrapper sits its plain PyTorch version
 (``ln_fwd_plain``, ``ln_bwd_plain``, ``add_ln_fwd_plain``,
@@ -49,6 +51,7 @@ every (R, D) up to the shared-memory limit of the backwards.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -70,15 +73,28 @@ _SIGNATURES = {
                          ctypes.c_int),
     "ds_bwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
     "ds_ln_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
                   ctypes.c_int),
+    "ds_ln_bwd_kernel_info": ([ctypes.c_int] * 5
+                              + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+    "ds_ln_bwd_reduce_info": ([ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
     "ds_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, _P], ctypes.c_int),
 }
-# the backwards keep fp32 column partials in shared memory (2 * D floats
-# for LN, F floats for bias+GeLU) within a block's 227 KB on Hopper
+# bias+GeLU's backward and the LN backwards' wide route keep fp32 column
+# partials in shared memory (F floats; 2 * D floats) within a block's 227 KB
+# on Hopper
 _SMEM_FLOATS = 232448 // 4
+H100_SMS = 132
+_LN_THREADS = 256
+# the LN backwards' rows route: (warps a row, 16-byte vectors a lane), the
+# fewest warps that hold the row first
+_LN_ROWS_PAIRS = ((1, 2), (2, 2), (4, 2), (8, 2), (8, 4))
+_LN_REDUCE_COLS = 8  # columns of a block of the partial-row reduction
+_INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+              "threads", "blocks_per_sm")
 
 
 def _lib():
@@ -188,6 +204,79 @@ def ln_bwd_plain(x, w, mean, rstd, g):
     return dx.to(x.dtype), (g32 * xhat).sum(dim=0), g32.sum(dim=0)
 
 
+def ln_bwd_plan(R, D, dtype, aligned=True, n_sm=H100_SMS) -> dict:
+    """How ``ln_bwd`` and ``add_ln_bwd`` run an (R, D) call of ``dtype``
+    (csrc/fused_blocks.cu says why):
+
+      route             "rows" where a row is whole 16-byte vectors
+                        (``aligned``: every row input starts on a 16-byte
+                        boundary) of at most 1024 of them, else "wide"
+      warps_per_row     the rows route's team of warps a row (0: wide)
+      vectors_per_lane  16-byte vectors a lane holds (0: wide)
+      threads           threads a block of the first launch: 512 (256 at
+                        4 vectors a lane, and wide)
+      teams_per_block   rows a block works on at once
+      blocks            the first launch's blocks, persistent over the
+                        rows: one an SM on the rows route (two on the
+                        wide one), never more than the rows need
+      partial_rows      fp32 partial rows of dw and of db it writes (one a
+                        block)
+      smem_bytes        its dynamic shared memory a block: on the rows
+                        route w, then half the teams' column partials for
+                        the block's tree
+      reduce_blocks     blocks of the second launch, which sums the partial
+                        rows per column (8 columns a block, dw and db)
+    """
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    pair = None
+    if aligned and D % vec == 0:
+        pair = next(((wpr, nv) for wpr, nv in _LN_ROWS_PAIRS
+                     if D // vec <= 32 * wpr * nv), None)
+    reduce_blocks = 2 * -(-D // _LN_REDUCE_COLS)
+    if pair is None:
+        blocks = min(R, 2 * n_sm)
+        return {"route": "wide", "warps_per_row": 0, "vectors_per_lane": 0,
+                "threads": _LN_THREADS, "teams_per_block": 1,
+                "blocks": blocks, "partial_rows": blocks,
+                "smem_bytes": 2 * D * 4, "reduce_blocks": reduce_blocks}
+    wpr, nv = pair
+    threads = 512 if nv <= 2 else 256
+    teams = threads // (32 * wpr)
+    blocks = min(-(-R // teams), n_sm)
+    tree = teams // 2 * 2 * nv * vec * 32 * wpr * 4
+    return {"route": "rows", "warps_per_row": wpr, "vectors_per_lane": nv,
+            "threads": threads, "teams_per_block": teams, "blocks": blocks,
+            "partial_rows": blocks, "smem_bytes": -(-D // 4) * 16 + tree,
+            "reduce_blocks": reduce_blocks}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ln_bwd_kernel_info(D: int, dtype, add: bool = False) -> dict:
+    """The compiled first kernel that an LN backward (``add``: the
+    residual-add one) at width D of ``dtype`` launches on aligned rows, at
+    its launch configuration: registers, static and dynamic shared memory,
+    local memory a thread (spills), threads and blocks an SM. Builds the
+    library if needed."""
+    plan = ln_bwd_plan(1, D, dtype)
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_ln_bwd_kernel_info(
+        plan["warps_per_row"], plan["vectors_per_lane"], D,
+        _DTYPE_CODES[dtype], int(add), out), "ln_bwd info")
+    return dict(zip(_INFO_KEYS, out))
+
+
+def ln_bwd_reduce_info() -> dict:
+    """``ln_bwd_kernel_info``'s record for the LN backwards' second
+    launch, the reduction of the partial rows."""
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_ln_bwd_reduce_info(out), "ln_bwd reduce info")
+    return dict(zip(_INFO_KEYS, out))
+
+
 def _ln_bwd_launch(name, x, r, w, mean, rstd, g):
     """Checks and launches ds_ln_bwd; returns (dx, dw, db)."""
     if x.dim() != 2 or x.numel() == 0:
@@ -207,7 +296,11 @@ def _ln_bwd_launch(name, x, r, w, mean, rstd, g):
     dx = torch.empty_like(x)
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
     db = torch.empty(D, dtype=torch.float32, device=x.device)
-    part = torch.empty(2 * lib.ds_bwd_blocks(R) * D, dtype=torch.float32,
+    rows = (x, g, dx) if r is None else (x, r, g, dx)
+    plan = ln_bwd_plan(R, D, x.dtype,
+                       aligned=all(t.data_ptr() % 16 == 0 for t in rows),
+                       n_sm=_sm_count(x.device.index))
+    part = torch.empty(2 * plan["partial_rows"] * D, dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ds_ln_bwd(x.data_ptr(),
@@ -215,7 +308,9 @@ def _ln_bwd_launch(name, x, r, w, mean, rstd, g):
                             w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                             g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
                             db.data_ptr(), part.data_ptr(), R, D,
-                            _DTYPE_CODES[x.dtype], _stream(x.device))
+                            _DTYPE_CODES[x.dtype], plan["warps_per_row"],
+                            plan["vectors_per_lane"], plan["blocks"],
+                            _stream(x.device))
     _raise_on(err, name)
     return dx, dw, db
 

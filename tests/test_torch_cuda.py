@@ -630,3 +630,91 @@ def test_cuda_reducer_takes_the_quant_kernels():
         assert fq.routing(torch.device("cuda", 0))
     with kc.override(mode="auto", fused_quant=False):
         assert not fq.routing(torch.device("cuda", 0))
+
+
+def _close(got, want, tol, rel):
+    """Element-wise within atol = rtol = ``tol`` and the error's L2 norm
+    within ``rel`` of the reference's (chip_smoke.py's two gates)."""
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    err = (got.float() - want.float()).norm()
+    assert float(err) <= rel * float(want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_cuda_supertile_bwd_routes_match_plain_version_and_relaunch():
+    """supertile_bwd, bf16 on the tensor cores and fp32 on the CUDA cores,
+    at S 120 (one block a sequence), 136 and 248 (four blocks a
+    sequence) with Dh 40 (no multiple of 16) and 128, causal and full,
+    against its plain version at the reference's gradient tolerance and
+    the relative L2 limit; a second launch gives the same bits."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops import flash_static as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, tol, rel in ((torch.bfloat16, 5e-2, 1e-2),
+                            (torch.float32, 5e-3, 1e-4)):
+        for S in (120, 136, 248):
+            for Dh in (40, 128):
+                for causal in (True, False):
+                    shape = (2, 3, S, Dh)
+                    scale = 1.0 / Dh ** 0.5
+                    q, k, v, do = (torch.randn(*shape, generator=gen,
+                                               device="cuda").to(dtype)
+                                   for _ in range(4))
+                    o, lse = fs.supertile_fwd_plain(q, k, v, scale, causal)
+                    before = fs.supertile_bwd.launches
+                    got = fs.supertile_bwd(q, k, v, o, lse, do, scale,
+                                           causal)
+                    assert fs.supertile_bwd.launches == before + 1
+                    want = fs.supertile_bwd_plain(q, k, v, o, lse, do,
+                                                  scale, causal)
+                    for a, p in zip(got, want):
+                        _close(a, p, tol, rel)
+                    again = fs.supertile_bwd(q, k, v, o, lse, do, scale,
+                                             causal)
+                    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ln_backwards_match_plain_versions_and_relaunch():
+    """ln_bwd and add_ln_bwd on both routes (rows: D 768, 1024, 2048 and
+    GPT-NeoX-20B's 6144; wide: D 1001, whose rows are no whole 16-byte
+    vectors, and unaligned rows) at ragged row counts, bf16 and fp32,
+    against their plain versions at the reference's gradient tolerances;
+    a second launch gives the same bits."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dtype, tol, rel in ((torch.bfloat16, 2e-1, 1e-2),
+                            (torch.float32, 2e-4, 1e-4)):
+        for R, D in ((37, 768), (1000, 1024), (333, 2048), (48, 6144),
+                     (37, 1001)):
+            x, r, g = (torch.randn(R, D, generator=gen,
+                                   device="cuda").to(dtype) for _ in range(3))
+            w = torch.randn(D, generator=gen, device="cuda") * 0.1 + 1
+            b = torch.randn(D, generator=gen, device="cuda") * 0.1
+            for add in (False, True):
+                if add:
+                    _, mean, rstd = fb.add_ln_fwd_plain(x, r, w, b, 1e-5)
+                    args = (x, r, w, mean, rstd, g)
+                    kernel, plain = fb.add_ln_bwd, fb.add_ln_bwd_plain
+                else:
+                    _, mean, rstd = fb.ln_fwd_plain(x, w, b, 1e-5)
+                    args = (x, w, mean, rstd, g)
+                    kernel, plain = fb.ln_bwd, fb.ln_bwd_plain
+                before = kernel.launches
+                got = kernel(*args)
+                assert kernel.launches == before + 1
+                for a, p in zip(got, plain(*args)):
+                    _close(a, p, tol, rel)
+                again = kernel(*args)
+                assert all(torch.equal(a, c) for a, c in zip(got, again))
+        # rows that start off a 16-byte boundary take the wide route
+        buf = torch.randn(65 * 1024 + 1, generator=gen,
+                          device="cuda").to(dtype)
+        x = buf[1:].view(65, 1024)
+        g = torch.randn(65, 1024, generator=gen, device="cuda").to(dtype)
+        w = torch.ones(1024, device="cuda")
+        _, mean, rstd = fb.ln_fwd_plain(x, w, w, 1e-5)
+        for a, p in zip(fb.ln_bwd(x, w, mean, rstd, g),
+                        fb.ln_bwd_plain(x, w, mean, rstd, g)):
+            _close(a, p, tol, rel)

@@ -244,3 +244,64 @@ def test_build_directory_is_relative_to_the_package():
     assert path.parent == op_builder.BUILD_DIR
     assert path == op_builder.library_path("fused_blocks")  # stable name
     assert "compute_90a" in " ".join(op_builder.NVCC_FLAGS)
+
+
+# ------------------------------------------------------------------ #
+# the LN backwards' launch rule
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_bwd_plan_covers_every_admitted_width(dtype):
+    """ln_bwd_plan for every width the LN backwards take (2 D fp32 within
+    a block's shared memory) at ragged and path row counts: the rows route
+    exactly where a row is whole 16-byte vectors, at most 1024 of them,
+    with the fewest warps a row whose lanes hold it; whole teams in a
+    512-thread block (256 at 4 vectors a lane); a block's shared memory
+    (rows: w and the teams' tree, half the teams' column partials) within
+    48 KB, 227 KB wide; one block an SM (rows; two wide), no more than the
+    rows need, one partial row each; every column in a block of the
+    reduction."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    for D in range(1, fb._SMEM_FLOATS // 2 + 1):
+        for R in (1, 37, 8192):
+            plan = fb.ln_bwd_plan(R, D, dtype)
+            nvec = D // vec
+            rows = D % vec == 0 and nvec <= 1024
+            assert plan["route"] == ("rows" if rows else "wide"), (D, plan)
+            assert plan["partial_rows"] == plan["blocks"] >= 1
+            assert plan["reduce_blocks"] * 8 >= 2 * D
+            if not rows:
+                assert plan["blocks"] == min(R, 264)
+                assert plan["smem_bytes"] == 8 * D <= 232448
+                continue
+            wpr, nv = plan["warps_per_row"], plan["vectors_per_lane"]
+            assert nvec <= 32 * wpr * nv
+            assert (wpr, nv) == next(p for p in fb._LN_ROWS_PAIRS
+                                     if nvec <= 32 * p[0] * p[1])
+            teams = plan["teams_per_block"]
+            assert teams * wpr * 32 == plan["threads"] == (512 if nv == 2
+                                                           else 256)
+            # w to a 16-byte boundary, then half the teams' partials, 2 x 4
+            # bytes a column of each thread
+            tree = teams // 2 * 32 * wpr * nv * vec * 8
+            assert plan["smem_bytes"] == -(-D // 4) * 16 + tree <= 48 * 1024
+            assert plan["blocks"] == min(-(-R // teams), 132)
+
+
+def test_ln_bwd_plan_at_the_model_widths():
+    """The widths the models run: GPT-NeoX-125M (768), BERT-large (1024),
+    GPT-NeoX-1.3B (2048) and GPT-NeoX-20B (6144) take the rows route;
+    rows off a 16-byte boundary, or of an odd width, take the wide one."""
+    bf16 = torch.bfloat16
+    want = {768: (2, 2, 8), 1024: (2, 2, 8), 2048: (4, 2, 4), 6144: (8, 4, 1)}
+    for D, (wpr, nv, teams) in want.items():
+        plan = fb.ln_bwd_plan(8192, D, bf16)
+        assert (plan["route"], plan["warps_per_row"], plan["vectors_per_lane"],
+                plan["teams_per_block"]) == ("rows", wpr, nv, teams)
+    assert fb.ln_bwd_plan(2048, 2048, bf16)["blocks"] == 132
+    assert fb.ln_bwd_plan(2048, 6144, bf16, n_sm=66)["blocks"] == 66
+    assert fb.ln_bwd_plan(2048, 2048, bf16, aligned=False)["route"] == "wide"
+    assert fb.ln_bwd_plan(2048, 2047, bf16)["route"] == "wide"
+    assert fb.ln_bwd_plan(2048, 2048, torch.float32)["warps_per_row"] == 8
+    assert fb.ln_bwd_plan(2048, 6144, torch.float32)["route"] == "wide"

@@ -30,13 +30,17 @@ def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
 
 def test_the_attention_sources_hash_their_shared_header():
     header = op_builder.CSRC_DIR / "tensor_core.cuh"
+    info = op_builder.CSRC_DIR / "kernel_info.cuh"
     for name in ("sparse_attention", "supertile_attention"):
         assert header in op_builder.sources(name)
+        assert info in op_builder.sources(name)  # through the header
+    assert op_builder.sources("fused_blocks") == [
+        op_builder.CSRC_DIR / "fused_blocks.cu", info]
     # a source with no local include keeps the name it always had: the
     # hash of its bytes and the flags
-    src = op_builder.CSRC_DIR / "fused_blocks.cu"
-    assert op_builder.sources("fused_blocks") == [src]
+    src = op_builder.CSRC_DIR / "fused_adam.cu"
+    assert op_builder.sources("fused_adam") == [src]
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(op_builder.NVCC_FLAGS).encode())
-    assert op_builder.library_path("fused_blocks").name == \
-        f"libfused_blocks_{digest.hexdigest()[:16]}.so"
+    assert op_builder.library_path("fused_adam").name == \
+        f"libfused_adam_{digest.hexdigest()[:16]}.so"

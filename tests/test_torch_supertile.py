@@ -167,3 +167,53 @@ def test_gpt_short_sequence_takes_the_supertile_path(monkeypatch):
     assert calls == [(2, 4, 64, 16)] * kw["n_layer"]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
                                rtol=1e-4)
+
+
+# every (S, Dh) the gate admits
+_ADMITTED = [(S, Dh) for S in range(8, fs.SUPERTILE_MAX_SEQ, 8)
+             for Dh in range(8, fs.MAX_HEAD_DIM + 1, 8)]
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024  # an H100 SM's shared memory
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_supertile_bwd_plan_fits_every_admitted_shape(dtype):
+    """The backward's launch rule for every shape the gate admits: a
+    block's shared memory within Hopper's 227 KB and whole warps, at most
+    256 threads. bf16: one block a sequence and a warp per 16 rows up to
+    S 128, four blocks above; no scratch; two blocks an SM at head dims up
+    to 64 (the BERT shape's). fp32: the CUDA-core kernel's fp32 scratch for
+    delta and, above one 64-key chunk, for dq."""
+    for S, Dh in _ADMITTED:
+        assert fs.supertile_geometry_ok(1, 1, S, Dh, dtype)
+        plan = fs.bwd_plan(S, Dh, dtype)
+        assert plan["smem_bytes"] <= fs.SMEM_PER_BLOCK, (S, Dh)
+        assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 256
+        if dtype == torch.float32:
+            assert plan["route"] == "cuda_cores"
+            assert plan["scratch_floats"] == S + (S * Dh if S > 64 else 0)
+            continue
+        assert plan["scratch_floats"] == 0
+        if S <= 128:
+            assert plan["route"] == "fused" and plan["blocks_per_seq"] == 1
+            assert plan["threads"] == 32 * -(-S // 16)
+        else:
+            assert plan["route"] == "split" and plan["blocks_per_seq"] == 4
+            assert plan["threads"] == 256
+        if Dh <= 64:
+            assert 2 * (plan["smem_bytes"] + _BLOCK_RESERVED) <= _SM_SMEM
+    bert = fs.bwd_plan(128, 64, torch.bfloat16)
+    assert (bert["route"], bert["smem_bytes"]) == ("fused", 99328)
+
+
+def test_supertile_bwd_cpu_takes_plain_version_and_counts_no_launch():
+    """On the CPU supertile_bwd is its plain version, launches nothing and
+    allocates no scratch; the flash pair's plain backward is the same
+    function."""
+    (_, _, _, _), (tq, tk, tv, tg) = _inputs((2, 3, 40, 24), 2)
+    o, lse = fs.supertile_fwd(tq, tk, tv, 0.2, True)
+    before = (fs.supertile_fwd.launches, fs.supertile_bwd.launches)
+    got = fs.supertile_bwd(tq, tk, tv, o, lse, tg, 0.2, True)
+    want = fa.flash_bwd_plain(tq, tk, tv, o, lse, tg, 0.2, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (fs.supertile_fwd.launches, fs.supertile_bwd.launches) == before
