@@ -14,8 +14,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    fail if a bf16 one uses local memory (spills), or unless cuobjdump
    -sass finds HMMA/HGMMA instructions in each of the nine bf16 forward
    and backward kernels (the tensor cores). The same for the bf16
-   tensor-core kernels of the sparse backward (dQ, dK/dV and delta at
-   head dims 64, 96 and 128; HMMA in all six dQ and dK/dV ones), of
+   tensor-core kernels of the sparse pair (the forward, dQ, dK/dV and
+   delta at head dims 64, 96 and 128; HMMA in all nine forward, dQ and
+   dK/dV ones; the forward's dynamic shared memory and threads at the
+   path's S and block must be what block_sparse.fwd_plan says), of
    the super-tile forward (at every padded head dim 16-128 and each S
    class, S 64, 128 and 248: HMMA in all 24) and of the super-tile
    backward (every padded head dim at S 128, one block a sequence, and
@@ -23,12 +25,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must be what flash_static.bwd_plan says). The LN backwards' first
    kernel (ln_bwd and add_ln_bwd, bf16 and fp32, at the model widths
    768, 1024, 2048 and 6144) and their reduction get the same record and
-   must not spill.
+   must not spill; so do the LN forwards' kernel (ln_fwd and add_ln_fwd
+   at those widths, bf16 and fp32, for 8 and 2048 rows), whose dynamic
+   shared memory and threads must be what fused_blocks.ln_fwd_plan says.
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
    give them, and ragged ones), within atol = rtol = 2e-5 (fp32) or 2e-2
-   (bf16), the reference's own tolerances for these kernels.
+   (bf16), the reference's own tolerances for these kernels, with the
+   LN statistics (mean, rstd) within 2e-5; then ln_fwd and add_ln_fwd at
+   LN_FWD_CASES (GPT-NeoX-20B's (48, 6144), the other model widths at
+   ragged rows, the widest row the rows route takes, and the wide
+   route's widths 1001 and 8200) and on rows off a 16-byte boundary. At
+   the path shape (2048, 2048) bf16 two launches of ln_fwd on the same
+   inputs must give the same bits.
 3. Backward fused blocks against their plain versions: ln_bwd at
    (R, 2048) and bias_gelu_bwd (tanh and erf) at (R, 8192), R in
    BWD_ROWS, and ln_bwd at GPT-NeoX-20B's width, LN_WIDE_CASE (48,
@@ -99,8 +109,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and at the BERT shape two launches of supertile_fwd, and of
    supertile_bwd, on the same inputs must give the same bits; LN and erf
    bias+GeLU, forward and backward, at the BERT widths (D 1024, F 4096
-   and the MLM head's (4096, 1024)), where two launches of add_ln_bwd and
-   of ln_bwd at (8192, 1024) bf16 must give the same bits too. bf16 and
+   and the MLM head's (4096, 1024)), where two launches of add_ln_fwd,
+   add_ln_bwd, ln_fwd and ln_bwd at (8192, 1024) bf16 must give the same
+   bits too. bf16 and
    fp32, with the tolerances and relative L2 limits of phases 2-4; each
    new kernel, and the four block kernels at the BERT shapes, timed at
    its path shape as in phases 2-4. At the
@@ -155,17 +166,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mask dropping the last quarter of the keys, empty layout rows, which
    must give o = 0 and lse = NEG_INF); then a wrong head count, a wrong
    length and an unsupported block, each of which must raise. At the
-   path's layout two launches of sparse_bwd on the same inputs must give
-   the same bits; the elements of sparse_bwd's outputs that differ from
-   the plain version at all are counted, bf16 and fp32. The
+   path's layout two launches of sparse_fwd, and of sparse_bwd, on the
+   same inputs must give the same bits; the elements of each kernel's
+   outputs that differ from the plain version at all are counted, bf16
+   and fp32. The
    reference's flash tolerances (fp32 2e-3 / 5e-3, bf16 2e-2 / 5e-2) and
    REL_L2 hold on every output. Every path-shape case is timed by
    CUDA-graph replay beside its bound (operations counted over the (query,
    key) pairs the layout keeps), the plain versions and
    F.scaled_dot_product_attention with the expanded boolean mask (its
    backward through autograd, launched eagerly); at the path's layout
-   sparse_bwd is also timed over one-tile groups, each warp walking its
-   list alone (one_tile_groups_ms), the yardstick of the shared groups.
+   both kernels are also timed over one-tile groups, each warp walking
+   its list alone (one_tile_groups_ms), the yardstick of the shared
+   groups.
 12. Sparse-attention training at full width: the user's loss
    of 24 BertSparseSelfAttention layers (BERT-large's attention
    sub-layers: hidden 1024, 16 heads, max_seq_length 4096, bf16, weights
@@ -306,6 +319,12 @@ CHECK_ROWS = (6, 8, 16, 48, 64, 128, 256, 512, 1024, 2048)
 TIMED_ROWS = (8, 512, 2048)
 BWD_ROWS = (8, 48, 512, 2048)
 LN_WIDE_CASE = (48, 6144)  # GPT-NeoX-20B's width, the widest a model runs
+# the LN forwards beside phase 2's (R, 2048): LN_WIDE_CASE, the other model
+# widths at ragged rows, the widest row the rows route takes (1024 bf16
+# vectors), and the wide route's widths, no whole 16-byte vectors (1001)
+# or wider than 1024 of them (8200 bf16)
+LN_FWD_CASES = (LN_WIDE_CASE, (37, 768), (1000, 1024), (333, 2048),
+                (5, 8192), (37, 1001), (7, 8200))
 # widths the LN backwards' kernels are built for and recorded at (phase 1):
 # GPT-NeoX-125M, BERT-large, GPT-NeoX-1.3B, GPT-NeoX-20B
 LN_WIDTHS = (768, 1024, 2048, 6144)
@@ -556,6 +575,9 @@ def kernel_phase(fb, gen):
             check_close(f"ln_fwd rstd {R}x{D} {dname}", rs, prs, 2e-5, rel)
             row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+            if R == PATH_ROWS and dtype == torch.bfloat16:
+                row["bit_identical_relaunch"] = relaunch_same_bits(
+                    fb, "ln_fwd", (x, w, b, 1e-5))
             if R in TIMED_ROWS:
                 bufs = copies(lambda: (randn((R, D), dtype), w, b, 1e-5),
                               R * D * isz)
@@ -592,6 +614,44 @@ def kernel_phase(fb, gen):
                                      10 * R * Fd))
                     del bufs
                 results["bias_gelu_fwd"].append(row)
+    for name, rows in ln_fwd_width_cases(fb, gen).items():
+        results.setdefault(name, []).extend(rows)
+    return results
+
+
+def ln_fwd_width_cases(fb, gen):
+    """ln_fwd and add_ln_fwd at LN_FWD_CASES and on rows that start off a
+    16-byte boundary (the wide route), bf16 and fp32, against their plain
+    versions: y within TOL, mean and rstd within 2e-5, every output within
+    REL_L2; each row records the route ln_fwd_plan took."""
+    results = {"ln_fwd": [], "add_ln_fwd": []}
+    cases = [(R, D, True) for R, D in LN_FWD_CASES] + [(65, 1024, False)]
+    for R, D, aligned in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol, rel = TOL[dtype], REL_L2[dtype]
+            if aligned:
+                x, r = (randn_on(gen, (R, D), dtype, 2.0, 0.5)
+                        for _ in range(2))
+            else:
+                x, r = (randn_on(gen, (R * D + 1,), dtype, 2.0, 0.5)[1:]
+                        .view(R, D) for _ in range(2))
+            w = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
+            b = randn_on(gen, (D,), torch.float32, 0.1)
+            route = fb.ln_fwd_plan(R, D, dtype, aligned=aligned)["route"]
+            for name, args in (("ln_fwd", (x, w, b, 1e-5)),
+                               ("add_ln_fwd", (x, r, w, b, 1e-5))):
+                got = getattr(fb, name)(*args)
+                torch.cuda.synchronize()
+                want = getattr(fb, f"{name}_plain")(*args)
+                tag = (f"{name} {R}x{D} {dtype_name(dtype)}"
+                       f"{'' if aligned else ' unaligned'}")
+                err, rel_err = check_close(tag, got[0], want[0], tol, rel)
+                check_outputs(f"{tag} stats", ("mean", "rstd"), got[1:],
+                              want[1:], 2e-5, rel)
+                results[name].append({
+                    "shape": [R, D], "dtype": dtype_name(dtype),
+                    "aligned": aligned, "route": route, "max_abs_err": err,
+                    "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel})
     return results
 
 
@@ -623,8 +683,8 @@ def backward_phase(fb, gen):
             row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed:
-                row["bit_identical_relaunch"] = ln_bwd_relaunch(fb, "ln_bwd",
-                                                                args)
+                row["bit_identical_relaunch"] = relaunch_same_bits(
+                    fb, "ln_bwd", args)
                 bufs = copies(ln_case, 2 * R * D * isz)
                 w = bufs[0][1]
                 # F.layer_norm's backward takes w in x's dtype
@@ -882,14 +942,29 @@ def require_hmma(library, op_builder, marker, want):
 
 
 def tensor_core_build_report(bs, fs, op_builder):
-    """Phase 1's record of the sparse backward's and the super-tile
-    forward's bf16 kernels: every instantiation's registers, shared and
-    local memory and blocks an SM (no spills), and HMMA in the SASS of
-    each tensor-core kernel."""
+    """Phase 1's record of the sparse pair's and the super-tile forward's
+    bf16 kernels: every instantiation's registers, shared and local memory
+    and blocks an SM (no spills), and HMMA in the SASS of each tensor-core
+    kernel; the sparse forward at the path's S and block, its dynamic
+    shared memory and threads those block_sparse.fwd_plan says."""
     for name in bs.KERNELS:
         for dh in bs.HEAD_DIMS:
-            report_kernel(f"{name} Dh {dh} bf16", bs.kernel_info(name, dh))
-    for marker in ("sparse_bwd_dq_mma_kernel", "sparse_bwd_dkdv_mma_kernel"):
+            if name != "sparse_fwd":
+                report_kernel(f"{name} Dh {dh} bf16", bs.kernel_info(name, dh))
+                continue
+            plan = bs.fwd_plan(SPARSE_SEQ, SPARSE_BLOCK["block"], dh)
+            info = bs.kernel_info(name, dh, plan["list_len"])
+            report_kernel(f"{name} Dh {dh} bf16 (S {SPARSE_SEQ}, block "
+                          f"{SPARSE_BLOCK['block']})", info)
+            if (info["dynamic_smem"], info["threads"]) != (
+                    plan["smem_bytes"], plan["threads"]):
+                raise AssertionError(
+                    f"sparse_fwd Dh {dh}: the kernel launches with "
+                    f"{info['dynamic_smem']} B and {info['threads']} threads, "
+                    f"fwd_plan says {plan['smem_bytes']} B and "
+                    f"{plan['threads']}")
+    for marker in ("sparse_bwd_dq_mma_kernel", "sparse_bwd_dkdv_mma_kernel",
+                   "sparse_fwd_mma_kernel"):
         require_hmma("sparse_attention", op_builder, marker,
                      len(bs.HEAD_DIMS))
     # one instantiation for each head dim rounded up to 16 and each S
@@ -945,9 +1020,34 @@ def backward_build_report(fb, fs, op_builder):
     report_kernel("ln_bwd_reduce", fb.ln_bwd_reduce_info())
 
 
-def ln_bwd_relaunch(fb, name, args):
+def ln_fwd_build_report(fb):
+    """Phase 1's record of the LN forwards (PERF.md's rows 1 and 3): the
+    kernel ln_fwd and add_ln_fwd launch at LN_WIDTHS, bf16 and fp32, for
+    8 rows (serving's decode) and the GPT training path's PATH_ROWS, the
+    route ln_fwd_plan picks; its dynamic shared memory and threads those
+    of the plan. Fails on any spill."""
+    for D in LN_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for R in (8, PATH_ROWS):
+                plan = fb.ln_fwd_plan(R, D, dtype)
+                for add in (False, True):
+                    info = fb.ln_fwd_kernel_info(D, dtype, add, R)
+                    report_kernel(
+                        f"{'add_ln_fwd' if add else 'ln_fwd'} D {D} R {R} "
+                        f"{dtype_name(dtype)} ({plan['route']}, "
+                        f"{plan['warps_per_row']} warps a row)", info)
+                    if (info["dynamic_smem"], info["threads"]) != (
+                            plan["smem_bytes"], plan["threads"]):
+                        raise AssertionError(
+                            f"ln_fwd D {D} R {R}: the kernel launches with "
+                            f"{info['dynamic_smem']} B and {info['threads']} "
+                            f"threads, ln_fwd_plan says {plan['smem_bytes']} "
+                            f"B and {plan['threads']}")
+
+
+def relaunch_same_bits(fb, name, args):
     """Fails unless two launches of ``fb.<name>`` on ``args`` give the
-    same bits (dx, dw and db)."""
+    same bits (every output: y, mean and rstd; dx, dw and db)."""
     kernel = getattr(fb, name)
     first, second = kernel(*args), kernel(*args)
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
@@ -998,7 +1098,9 @@ def bert_kernel_phase(fb, fs, fa, gen):
             bwd = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed:
-                bwd["bit_identical_relaunch"] = ln_bwd_relaunch(
+                fwd["bit_identical_relaunch"] = relaunch_same_bits(
+                    fb, "add_ln_fwd", (x, r, w, b, eps))
+                bwd["bit_identical_relaunch"] = relaunch_same_bits(
                     fb, "add_ln_bwd", (x, r, w, pmu, prs, g))
                 bufs = copies(case, 2 * R * D * isz)
                 fwd.update(timings(fb.add_ln_fwd, fb.add_ln_fwd_plain, bufs))
@@ -1148,9 +1250,13 @@ def bert_kernel_phase(fb, fs, fa, gen):
             py, pmu, prs = fb.ln_fwd_plain(x, w, b, eps)
             tag = f"{R}x{D} {dname}"
             err, rel_err = check_close(f"ln_fwd {tag}", y, py, tol, rel)
+            check_close(f"ln_fwd mean {tag}", mu, pmu, 2e-5, rel)
+            check_close(f"ln_fwd rstd {tag}", rs, prs, 2e-5, rel)
             row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed_here:
+                row["bit_identical_relaunch"] = relaunch_same_bits(
+                    fb, "ln_fwd", (x, w, b, eps))
                 bufs = copies(ln_case, R * D * isz)
                 lib_bufs = [(xx, (D,), ww.to(dtype), bb.to(dtype), e)
                             for xx, ww, bb, e in bufs]
@@ -1169,7 +1275,7 @@ def bert_kernel_phase(fb, fs, fa, gen):
             row = {"shape": [R, D], "dtype": dname, "max_abs_err": err,
                    "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed_here:
-                row["bit_identical_relaunch"] = ln_bwd_relaunch(
+                row["bit_identical_relaunch"] = relaunch_same_bits(
                     fb, "ln_bwd", (x, w, pmu, prs, g))
 
                 def lnb_case():
@@ -1415,8 +1521,11 @@ def eager_ms(fn, args_list, iters=10):
 
 def sparse_case(bs, gen, tag, lut, shape, dtype, kpm=None):
     """sparse_fwd and sparse_bwd on one case against their plain versions:
-    (forward row, backward row, the case's tensors). lse is held on the
-    rows with a visible key; the others must be NEG_INF in both."""
+    (forward row, backward row, the case's tensors: q, k, v, the plain o
+    and lse, do, then the kernel's o and lse). lse is held on the rows
+    with a visible key; the others must be NEG_INF in both. The elements
+    of each kernel's outputs that differ from the plain version at all
+    are counted."""
     ftol, gtol = FLASH_TOL[dtype]
     rel = REL_L2[dtype]
     scale = shape[-1] ** -0.5
@@ -1439,7 +1548,10 @@ def sparse_case(bs, gen, tag, lut, shape, dtype, kpm=None):
             "masked": kpm is not None, "active_blocks": lut.active_blocks,
             "empty_rows": int((~alive).sum())}
     fwd = dict(meta, max_abs_err=err, tol=ftol, rel_l2_err=rel_err,
-               rel_l2_tol=rel)
+               rel_l2_tol=rel,
+               elements_differing=int((o != po).sum())
+               + int((lse[alive] != plse[alive]).sum()),
+               elements=o.numel() + int(alive.sum()))
     got = bs.sparse_bwd(q, k, v, po, plse, do, dev, scale, lut.causal, kpm)
     torch.cuda.synchronize()
     want = bs.sparse_bwd_plain(q, k, v, po, plse, do, dev.layout, lut.block,
@@ -1451,7 +1563,7 @@ def sparse_case(bs, gen, tag, lut, shape, dtype, kpm=None):
                elements_differing=sum(int((a != b).sum())
                                       for a, b in zip(got, want)),
                elements=sum(a.numel() for a in got))
-    return fwd, bwd, (q, k, v, po, plse, do)
+    return fwd, bwd, (q, k, v, po, plse, do, o, lse)
 
 
 def one_tile_groups(groups):
@@ -1504,6 +1616,9 @@ def time_sparse(bs, sk, gen, lut, shape, dtype, fwd, bwd,
         # its list alone, sharing no gathered tile (the groups' yardstick)
         solo = dev._replace(q_groups=one_tile_groups(dev.q_groups),
                             kv_groups=one_tile_groups(dev.kv_groups))
+        fwd["one_tile_groups_ms"], _ = time_ms(
+            lambda q, k, v, *_: bs.sparse_fwd(q, k, v, solo, scale, causal),
+            bufs, 10, 3)
         bwd["one_tile_groups_ms"], _ = time_ms(
             lambda q, k, v, o, lse, do: bs.sparse_bwd(q, k, v, o, lse, do,
                                                       solo, scale, causal),
@@ -1545,14 +1660,21 @@ def sparse_phase(bs, gen):
             if name == "fixed-path":
                 dev = lut.on("cuda")
                 scale = SPARSE_DH ** -0.5
-                first, second = (bs.sparse_bwd(*tensors, dev, scale,
+                q, k, v, _, _, _, o, lse = tensors
+                again = bs.sparse_fwd(q, k, v, dev, scale, lut.causal)
+                if not (torch.equal(again[0], o)
+                        and torch.equal(again[1], lse)):
+                    raise AssertionError(f"sparse_fwd {name}: two launches "
+                                         f"on the same inputs differ")
+                fwd["bit_identical_relaunch"] = True
+                first, second = (bs.sparse_bwd(*tensors[:6], dev, scale,
                                                lut.causal)
                                  for _ in range(2))
                 if not all(torch.equal(a, b) for a, b in zip(first, second)):
                     raise AssertionError(f"sparse_bwd {name}: two launches "
                                          f"on the same inputs differ")
                 bwd["bit_identical_relaunch"] = True
-                del first, second
+                del first, second, again
             del tensors
             fwd["density"] = bwd["density"] = sa.layout_density(lut.layout)
             time_sparse(bs, sk, gen, lut, shape, torch.bfloat16, fwd, bwd,
@@ -2862,6 +2984,7 @@ def main() -> int:
     flash_build_report(fa, op_builder)
     tensor_core_build_report(bs, fs, op_builder)
     backward_build_report(fb, fs, op_builder)
+    ln_fwd_build_report(fb)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)
@@ -2895,7 +3018,7 @@ def main() -> int:
             print(f"kernel {name}: elements differing from the plain "
                   f"version: {sum(r['elements_differing'] for r in rows)} "
                   f"of {sum(r['elements'] for r in rows)}", flush=True)
-        if name == "sparse_bwd":
+        if name in ("sparse_fwd", "sparse_bwd"):
             for dt in ("bfloat16", "float32"):
                 sel = [r for r in rows if r["dtype"] == dt]
                 print(f"kernel {name}: {dt} elements differing from the "

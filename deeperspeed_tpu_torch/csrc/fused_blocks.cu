@@ -23,16 +23,36 @@
 // All four are bound by device-memory bytes, not arithmetic: LayerNorm reads x
 // once and writes y once (plus 8 bytes of statistics per row and the 2*D
 // fp32 weights), bias+GeLU reads x once and writes y once. Their least time
-// on an H100 SXM is those bytes over 3.35 TB/s. The designs keep every
-// intermediate out of device memory:
-//  * ln_fwd runs one 256-thread block per row. The block makes three passes
-//    over its row (mean, variance of x - mean, normalize); only the first
-//    pass reads device memory, the later ones hit L1/L2, since a row of
-//    D = 2048 bf16 values is 4 KB. Statistics are fp32 and biased, over the
-//    last axis, and the variance is mean((x - mu)^2), as in the reference.
+// on an H100 SXM is those bytes over 3.35 TB/s (ln_fwd at the GPT shape
+// (2048, 2048) bf16: ~16.8 MB, 5.0 us; add_ln_fwd at BERT-large's (8192,
+// 1024): ~50 MB, 15 us). The designs keep every intermediate out of device
+// memory:
+//  * ln_fwd / add_ln_fwd (one template, kAdd) take the rows route wherever
+//    a row is whole 16-byte vectors of at most 1024 of them, as the
+//    backward's rows route does (every width the models use; the pairs
+//    below): a team of WPR warps owns a row, each lane holding NV vectors
+//    of x (and r) in registers, 16 bytes a load, x + r formed in fp32 on
+//    the load. mean is a warp-shuffle sum, added across the team's warps
+//    after one named barrier (bar.sync over the team) when WPR > 1; the
+//    variance is mean((x - mu)^2) from the same registers, as the
+//    reference computes it, after a second such sum; y is written once, 16
+//    bytes a store, mean and rstd once a row. A lane's columns are the same
+//    on every row, so w and b sit in its registers from the start. The
+//    grid is persistent over the rows (at most two 256-thread blocks an SM,
+//    within a few per cent of the best of 1-8 blocks an SM of 64-512
+//    threads at each of the timed shapes),
+//    and the next row's loads are in flight while this row is reduced; a
+//    call of few rows (serving's 8 decode slots) runs one team a block, so
+//    that its rows spread over as many SMs. What is left at the path
+//    shapes is fixed cost: the launch and the first row's load latency,
+//    ~3 us. PR 2's kernel, one 256-thread block a row that makes three
+//    passes over it (the later two from L1/L2) with two block-wide sums of
+//    three __syncthreads each and 2-byte loads, stays the wide route:
+//    widths that are no whole vectors, wider ones, and rows off a 16-byte
+//    boundary. Statistics are fp32 and biased, over the last axis.
 //  * bias_gelu_fwd is one grid-stride elementwise pass in fp32, cast once.
-// Ragged edges need no masking beyond the loop bounds: a block owns a whole
-// row, and the grid-stride loop stops at n.
+// Ragged edges need no masking beyond the loop bounds: a team or a block
+// owns a whole row, and the grid-stride loop stops at n.
 //
 // The backwards read x, the cotangent g and (LN) the fp32 mean/rstd that
 // ln_fwd wrote, and write dx once. Their weight/bias gradients are sums over
@@ -588,6 +608,205 @@ __global__ void __launch_bounds__(kEwThreads)
   if (p0 == 0 && col < D) (blockIdx.y == 0 ? dw : db)[col] = red[0][c];
 }
 
+// the rows routes' (warps a row, vectors a lane) pairs, forward and backward
+#define DS_LN_ROWS_CASES(CALL) \
+  CALL(1, 2)                   \
+  CALL(2, 2)                   \
+  CALL(4, 2)                   \
+  CALL(8, 2)                   \
+  CALL(8, 4)
+
+// ------------------------------------------------------------------ //
+// LayerNorm forward, rows route
+// ------------------------------------------------------------------ //
+
+// the most threads a forward rows-route block takes (its launch bound)
+constexpr int kFwdRowsThreads = 256;
+
+// a row's vectors of x (and r, in rv[0..NR)), 16-byte loads; lanes past
+// the row load nothing
+template <typename T, bool kAdd, int NV, int NR, int TPR>
+__device__ __forceinline__ void load_in_row(const T* __restrict__ x, const T* __restrict__ r,
+                                            long long off, int nvec, int tt, uint4 (&xv)[NV],
+                                            uint4 (&rv)[NR]) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int j = v * TPR + tt;
+    if (j < nvec) {
+      xv[v] = __ldg(reinterpret_cast<const uint4*>(x + off) + j);
+      if constexpr (kAdd) rv[v] = __ldg(reinterpret_cast<const uint4*>(r + off) + j);
+    }
+  }
+}
+
+// the sum of v over a team of WPR warps, returned to each of its threads:
+// a warp shuffle, then (WPR > 1) the warps' sums through ``slot`` after a
+// named barrier over the team (bar.sync id 1 + team)
+template <int WPR>
+__device__ __forceinline__ float team_sum(float v, float* slot, int team, int tt) {
+  v = warp_sum(v);
+  if constexpr (WPR > 1) {
+    if ((tt & 31) == 0) slot[tt >> 5] = v;
+    team_sync(1 + team, 32 * WPR);
+    v = 0.f;
+#pragma unroll
+    for (int i = 0; i < WPR; ++i) v += slot[i];
+  }
+  return v;
+}
+
+// y = LN(x (+ r)) * w + b, mean and rstd of rows strided over the grid's
+// teams of WPR warps (blockDim.x / (32 WPR) teams a block); see the file
+// comment.
+template <typename T, bool kAdd, int WPR, int NV>
+__global__ void __launch_bounds__(kFwdRowsThreads, NV <= 2 ? 2 : 1)
+    ln_fwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                       const float* __restrict__ w, const float* __restrict__ b,
+                       T* __restrict__ y, float* __restrict__ mean, float* __restrict__ rstd,
+                       long long R, int D, float eps) {
+  using V = Vec<T>;
+  constexpr int VEC = V::N;
+  constexpr int TPR = 32 * WPR;
+  constexpr int NR = kAdd ? NV : 1;
+  constexpr int MAX_TEAMS = kFwdRowsThreads / TPR;
+  // the team's warp sums: [0] the mean's, [1] the variance's. Each slot is
+  // written again only after a barrier that every reader of its last
+  // value has passed (the other slot's), so two slots serve every row.
+  __shared__ float red[2][MAX_TEAMS][WPR];
+  const int teams = blockDim.x / TPR;
+  const int team = threadIdx.x / TPR;
+  const int tt = threadIdx.x - team * TPR;
+  const int nvec = D / VEC;
+  const float inv_d = 1.f / static_cast<float>(D);
+  const long long stride = static_cast<long long>(gridDim.x) * teams;
+  long long row = static_cast<long long>(blockIdx.x) * teams + team;
+  uint4 xv[NV], rv[NR];
+  if (row < R) load_in_row<T, kAdd, NV, NR, TPR>(x, r, row * D, nvec, tt, xv, rv);
+  // a lane's columns are the same on every row: w and b once, in registers
+  float wr[NV][VEC], br[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int j = v * TPR + tt;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      wr[v][e] = j < nvec ? w[j * VEC + e] : 0.f;
+      br[v][e] = j < nvec ? b[j * VEC + e] : 0.f;
+    }
+  }
+  for (; row < R; row += stride) {
+    float xf[NV][VEC];
+    float s = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = v * TPR + tt;
+      if (j < nvec) {
+        V::unpack(xv[v], xf[v]);
+        if constexpr (kAdd) {
+          float rf[VEC];
+          V::unpack(rv[v], rf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) xf[v][e] += rf[e];
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s += xf[v][e];
+      }
+    }
+    // the next row's loads, into the registers this row no longer needs:
+    // they fly while this row's sums, barriers and stores run
+    const long long next = row + stride;
+    if (next < R) load_in_row<T, kAdd, NV, NR, TPR>(x, r, next * D, nvec, tt, xv, rv);
+    const float mu = team_sum<WPR>(s, red[0][team], team, tt) * inv_d;
+    // the variance as mean((x - mu)^2), from the same registers
+    float ss = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (v * TPR + tt < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float d = xf[v][e] - mu;
+          ss += d * d;
+        }
+      }
+    }
+    const float rs = rsqrtf(team_sum<WPR>(ss, red[1][team], team, tt) * inv_d + eps);
+    const long long off = row * D;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = v * TPR + tt;
+      if (j < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) xf[v][e] = (xf[v][e] - mu) * rs * wr[v][e] + br[v][e];
+        reinterpret_cast<uint4*>(y + off)[j] = V::pack(xf[v]);
+      }
+    }
+    if (tt == 0) {
+      mean[row] = mu;
+      rstd[row] = rs;
+    }
+  }
+}
+
+// whether (wpr, nv) is a rows-route pair whose lanes hold a row of D
+// values of itemsize bytes
+bool rows_pair_ok(int wpr, int nv, long long D, int itemsize) {
+  const int vec = 16 / itemsize;
+  bool known = false;
+#define DS_LN_KNOWN(WPR, NV) known = known || (wpr == WPR && nv == NV);
+  DS_LN_ROWS_CASES(DS_LN_KNOWN)
+#undef DS_LN_KNOWN
+  return known && D % vec == 0 && D / vec <= 32LL * wpr * nv;
+}
+
+// whether (wpr, nv) is such a pair and ``threads`` a forward block of whole
+// teams, or wpr == 0 (the wide route)
+bool ln_fwd_config_ok(int wpr, int nv, int threads, long long D, int itemsize) {
+  if (wpr == 0) return true;
+  return rows_pair_ok(wpr, nv, D, itemsize) && threads > 0 && threads % (32 * wpr) == 0 &&
+         threads <= kFwdRowsThreads;
+}
+
+// wpr 0: the wide route (a 256-thread block a row), else the rows route
+// with (wpr, nv), ``threads`` a block and ``blocks`` blocks
+template <typename T, bool kAdd>
+int launch_ln_fwd(const void* x, const void* r, const void* w, const void* b, void* y,
+                  void* mean, void* rstd, long long R, int D, float eps, int wpr, int nv,
+                  int threads, int blocks, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(r);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  T* yt = static_cast<T*>(y);
+  float* mf = static_cast<float*>(mean);
+  float* sf = static_cast<float*>(rstd);
+  if (wpr == 0) {
+    ln_fwd_kernel<T, kAdd><<<static_cast<unsigned>(R), kLnThreads, 0, s>>>(xt, rt, wf, bf, yt,
+                                                                          mf, sf, D, eps);
+  }
+#define DS_LN_FWD(WPR, NV)                                                     \
+  else if (wpr == WPR && nv == NV) {                                           \
+    ln_fwd_rows_kernel<T, kAdd, WPR, NV><<<blocks, threads, 0, s>>>(xt, rt, wf, bf, yt, mf, \
+                                                                    sf, R, D, eps);        \
+  }
+  DS_LN_ROWS_CASES(DS_LN_FWD)
+#undef DS_LN_FWD
+  else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kAdd>
+int ln_fwd_info(int wpr, int nv, int threads, int* out) {
+  if (wpr == 0) return kernel_info(ln_fwd_kernel<T, kAdd>, 0, kLnThreads, out);
+#define DS_LN_FWD_INFO(WPR, NV)                                                     \
+  if (wpr == WPR && nv == NV) {                                                     \
+    return kernel_info(ln_fwd_rows_kernel<T, kAdd, WPR, NV>, 0, threads, out);      \
+  }
+  DS_LN_ROWS_CASES(DS_LN_FWD_INFO)
+#undef DS_LN_FWD_INFO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 int bwd_blocks(long long R) { return static_cast<int>(R < kBwdBlocks ? R : kBwdBlocks); }
 
 // Opts a kernel in to ``bytes`` of dynamic shared memory where the default
@@ -599,14 +818,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
-
-// the rows route's (warps a row, vectors a lane) pairs
-#define DS_LN_ROWS_CASES(CALL) \
-  CALL(1, 2)                   \
-  CALL(2, 2)                   \
-  CALL(4, 2)                   \
-  CALL(8, 2)                   \
-  CALL(8, 4)
 
 template <typename T, bool kAdd, int WPR, int NV>
 size_t ln_rows_smem(int D) {  // w (to a 16-byte boundary), then the teams' tree
@@ -685,12 +896,7 @@ int ln_bwd_info(int wpr, int nv, int D, int* out) {
 // memory
 bool ln_bwd_config_ok(int wpr, int nv, long long D, int itemsize) {
   if (wpr == 0) return 2 * D * static_cast<long long>(sizeof(float)) <= 232448;
-  const int vec = 16 / itemsize;
-  bool known = false;
-#define DS_LN_KNOWN(WPR, NV) known = known || (wpr == WPR && nv == NV);
-  DS_LN_ROWS_CASES(DS_LN_KNOWN)
-#undef DS_LN_KNOWN
-  return known && D % vec == 0 && D / vec <= 32LL * wpr * nv;
+  return rows_pair_ok(wpr, nv, D, itemsize);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -723,40 +929,45 @@ const char* ds_cuda_error_string(int err) {
 
 // x, y (and r when given): (R, D) of dtype; w, b: (D,) fp32; mean, rstd:
 // (R,) fp32. r == nullptr is LayerNorm of x, else LayerNorm of x + r.
+// wpr, nv: the rows route's warps a row and vectors a lane, threads and
+// blocks its launch (ops/fused_blocks.py's ln_fwd_plan), or wpr 0 for the
+// wide route (one block a row).
 int ds_ln_fwd(const void* x, const void* r, const void* w, const void* b, void* y,
-              void* mean, void* rstd, long long R, int D, float eps, int dtype,
-              void* stream) {
-  if (R <= 0 || R > 0x7fffffffLL || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(R));
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* mf = static_cast<float*>(mean);
-  float* rf = static_cast<float*>(rstd);
-  if (dtype == kDtypeF32) {
-    const float* xf = static_cast<const float*>(x);
-    const float* rr = static_cast<const float*>(r);
-    float* yf = static_cast<float*>(y);
-    if (r) {
-      ln_fwd_kernel<float, true><<<grid, kLnThreads, 0, s>>>(xf, rr, wf, bf, yf, mf, rf, D, eps);
-    } else {
-      ln_fwd_kernel<float, false><<<grid, kLnThreads, 0, s>>>(xf, rr, wf, bf, yf, mf, rf, D, eps);
-    }
-  } else if (dtype == kDtypeBF16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(r);
-    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-    if (r) {
-      ln_fwd_kernel<__nv_bfloat16, true><<<grid, kLnThreads, 0, s>>>(xb, rb, wf, bf, yb, mf, rf,
-                                                                     D, eps);
-    } else {
-      ln_fwd_kernel<__nv_bfloat16, false><<<grid, kLnThreads, 0, s>>>(xb, rb, wf, bf, yb, mf,
-                                                                      rf, D, eps);
-    }
-  } else {
+              void* mean, void* rstd, long long R, int D, float eps, int dtype, int wpr,
+              int nv, int threads, int blocks, void* stream) {
+  if (R <= 0 || R > 0x7fffffffLL || D <= 0 || (dtype != kDtypeF32 && dtype != kDtypeBF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (!ln_fwd_config_ok(wpr, nv, threads, D, dtype == kDtypeF32 ? 4 : 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (wpr != 0 && (blocks <= 0 || misaligned(x) || misaligned(y) ||
+                   (r != nullptr && misaligned(r)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DS_LN_FWD_CALL(T, ADD) \
+  launch_ln_fwd<T, ADD>(x, r, w, b, y, mean, rstd, R, D, eps, wpr, nv, threads, blocks, s)
+  if (dtype == kDtypeF32) return r ? DS_LN_FWD_CALL(float, true) : DS_LN_FWD_CALL(float, false);
+  return r ? DS_LN_FWD_CALL(__nv_bfloat16, true) : DS_LN_FWD_CALL(__nv_bfloat16, false);
+#undef DS_LN_FWD_CALL
+}
+
+// The kernel a ds_ln_fwd call with (wpr, nv) and ``threads`` at width D
+// launches (add != 0: add_ln_fwd's), at that launch configuration: out
+// gets 6 ints (registers, static smem, dynamic smem, local bytes a thread,
+// threads, blocks an SM).
+int ds_ln_fwd_kernel_info(int wpr, int nv, int threads, int D, int dtype, int add, int* out) {
+  if (D <= 0 || (dtype != kDtypeF32 && dtype != kDtypeBF16) ||
+      !ln_fwd_config_ok(wpr, nv, threads, D, dtype == kDtypeF32 ? 4 : 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == kDtypeF32) {
+    return add ? ln_fwd_info<float, true>(wpr, nv, threads, out)
+               : ln_fwd_info<float, false>(wpr, nv, threads, out);
+  }
+  return add ? ln_fwd_info<__nv_bfloat16, true>(wpr, nv, threads, out)
+             : ln_fwd_info<__nv_bfloat16, false>(wpr, nv, threads, out);
 }
 
 // x, y: n = R * F elements of x_dtype, row-major with F columns; b: (F,) of

@@ -40,19 +40,32 @@
 //    relaunch repeats bit for bit. delta = rowsum(dO * O) is a kernel of
 //    its own (sparse_bwd_delta), launched first.
 //
-// sparse_bwd, bf16 (the training path): mma.sync.m16n8k16 bf16 -> fp32 on
-// the tensor cores, as flash_attention.cu's backward, with the helpers of
-// tensor_core.cuh:
+// sparse_fwd and sparse_bwd, bf16 (the training path): mma.sync.m16n8k16
+// bf16 -> fp32 on the tensor cores, as flash_attention.cu's kernels, with
+// the helpers of tensor_core.cuh:
 //  * one warp per 16-row tile (block 16 is exactly m16), four warps a
 //    block. The host groups tiles whose block lists are identical, up to
 //    four to a group (ops/sparse_attention/kernels.py, build_groups), and
 //    the four warps of a group share every gathered tile. In the path's
 //    Fixed layout the four query blocks of a local window share their
 //    list, and so do the key blocks of a window that no global row sees,
-//    and the global key blocks of one head.
+//    and the global key blocks of one head. The forward walks the dQ
+//    groups: four query tiles against one gather of K and V.
 //  * each step gathers 64 rows of the other side through the group's list
-//    (kept in shared memory): 16-byte cp.async copies into swizzled bf16
-//    tiles, double-buffered, read by ldmatrix(.trans).
+//    (kept in shared memory), across block edges: 16-byte cp.async copies
+//    into swizzled bf16 tiles, double-buffered, read by ldmatrix(.trans).
+//  * the forward (sparse_fwd_mma): S = Q K^T with Q's fragments held in
+//    registers, scaled, plus a per-key bias that carries the key mask and
+//    -inf for a key that is not visible (past the list or hidden by the
+//    mask); inside a diagonal block a causal row masks element by element.
+//    The online softmax runs on the accumulator fragments in fp32 (max
+//    and row sum over the quad of lanes that share a row), P is rounded
+//    to bf16 and packed from the accumulators into the A operand of
+//    O += P V, and o and lse = m + log l are written once. What bounds it
+//    at the path shape is operations (~18 GFLOP): the tensor cores take
+//    them in place of fp32 FMAs, and each 64-key gather of bf16 K and V
+//    feeds four query tiles, where the CUDA-core kernel gathered fp32
+//    tiles for each 16-row query block alone.
 //  * dQ (sparse_bwd_dq_mma): S = Q K^T and dP = dO V^T, then dQ += dS K
 //    with dS rounded to bf16 and packed from the accumulators into the A
 //    operand. dK/dV (sparse_bwd_dkdv_mma) computes S^T = K Q^T and
@@ -64,10 +77,10 @@
 //    their list, so a global key block, which every query block sees,
 //    starts in the first wave and not in the last.
 //
-// sparse_fwd, and sparse_bwd in fp32, keep the first port's CUDA-core
-// design (fp32 FMAs over fp32 shared-memory tiles with row stride Dh + 1;
-// TF32 tensor cores would keep ~10 mantissa bits, short of the port's
-// fp32 tolerance):
+// fp32 keeps the first port's CUDA-core kernels, a route by dtype: fp32
+// FMAs over fp32 shared-memory tiles with row stride Dh + 1 (TF32 tensor
+// cores would keep ~10 mantissa bits, short of the port's fp32
+// tolerance):
 //  * one 256-thread block per (batch*head, T-row tile of a q-block row),
 //    T = min(block, 64): a 128 block is two 64-row tiles. The block walks
 //    its row's active k-blocks in steps of 64 keys, gathered through the
@@ -78,11 +91,6 @@
 //  * the fp32 dK/dV kernel is the mirror image: one block per T-key tile,
 //    walking the q-blocks that see it through the transposed table, 64
 //    queries a step.
-// What that design loses (sparse_fwd is next in line for the tensor
-// cores): a block-16 layout gives each thread block only 16 query rows
-// against 64-key steps, so each step's loads of K and V (64 x Dh each)
-// feed few FMAs; rows of one layout differ in length and nothing balances
-// them across SMs; tiles are fp32 in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -651,6 +659,222 @@ constexpr size_t bwd_mma_smem() {  // own rows of two tensors; two stages of two
   return 6 * kChunk * DH * sizeof(bf16) + 6 * kChunk * sizeof(float);
 }
 
+template <int DH>
+constexpr size_t fwd_mma_smem() {  // own Q rows; two stages of K and V, positions, biases
+  return 5 * kChunk * DH * sizeof(bf16) + 4 * kChunk * sizeof(float);
+}
+
+// o and lse for the query tiles of one group (warp w: its tile's 16 rows),
+// walking the group's key blocks 64 keys a step: S = Q K^T, scaled, plus
+// the key bias; the online softmax in fp32 registers; O += P V with P
+// rounded to bf16 and packed from the accumulators. Block x: group x / B
+// of batch x % B.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    sparse_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ mask,
+                          const int* __restrict__ groups, const int* __restrict__ ids,
+                          bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int S,
+                          int lb, float scale, bool causal) {
+  constexpr int KS = DH / 16;
+  constexpr int ND = DH / 8;
+  constexpr int NN = kChunk / 8;
+  const float kInf = __int_as_float(0x7f800000);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kChunk][DH], warp w: rows 16w..
+  bf16* ks = qs + kChunk * DH;                   // [2][kChunk][DH]
+  bf16* vs = ks + 2 * kChunk * DH;               // [2][kChunk][DH]
+  int* kpos_s = reinterpret_cast<int*>(vs + 2 * kChunk * DH);   // [2][kChunk]
+  float* kb_s = reinterpret_cast<float*>(kpos_s + 2 * kChunk);  // [2][kChunk]
+  int* ids_s = reinterpret_cast<int*>(kb_s + 2 * kChunk);       // [len <= S / block]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int* grp = groups + static_cast<long long>(blockIdx.x / B) * kGroupInts;
+  const long long b = blockIdx.x % B;
+  const int ntiles = S >> 4;
+  const int tile = grp[warp];
+  const int off = grp[kTcWarps];
+  const int len = grp[kTcWarps + 1];
+  const long long bh = b * H + grp[0] / ntiles;
+  const long long base = bh * S * DH;
+  const float* mrow = mask ? mask + b * S : nullptr;
+  const int n_keys = len << lb;
+  const int n_steps = (n_keys + kChunk - 1) / kChunk;
+
+  for (int i = tid; i < len; i += kTcThreads) ids_s[i] = ids[off + i];
+  own_rows_async<DH>(qs, q + base, grp, ntiles, tid);
+  __syncthreads();  // ids_s
+
+  // Thread tid < kChunk owns key tid of a step: its position (-1 past the
+  // list) and its bias, the key mask's value, or -inf where the key is not
+  // visible (past the list, or hidden by the mask), so that its p is 0.
+  // The mask is read into a register when the step's gathers are issued
+  // and published to shared memory once the step before it is done.
+  int pos_n = -1;
+  float bias_n = 0.f;
+  auto issue = [&](int ci, int st) {
+    gather_async<DH>(ks + st * kChunk * DH, k + base, ids_s, len, lb, ci, tid);
+    gather_async<DH>(vs + st * kChunk * DH, v + base, ids_s, len, lb, ci, tid);
+    if (tid < kChunk) {
+      pos_n = step_pos(ids_s, len, lb, ci, tid);
+      bias_n = mrow && pos_n >= 0 ? __ldg(mrow + pos_n) : 0.f;
+    }
+  };
+  auto publish = [&](int st) {
+    if (tid < kChunk) {
+      kpos_s[st * kChunk + tid] = pos_n;
+      kb_s[st * kChunk + tid] = pos_n >= 0 && bias_n > kHalfNegInf ? bias_n : -kInf;
+    }
+  };
+  if (n_steps > 0) {
+    issue(0, 0);
+    publish(0);
+  }
+  cp_async_commit();
+
+  // the thread's rows g and g + 8: running max (finite NEG_INF until a key
+  // is visible) and the thread's part of the row sum of the unrounded p
+  const int q0 = tile >= 0 ? (tile % ntiles) * 16 : 0;
+  int row_r[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_r[i] = q0 + g + 8 * i;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  uint32_t qf[KS][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int ci = 0; ci < n_steps; ++ci) {
+    const int st = ci & 1;
+    if (ci + 1 < n_steps) {
+      issue(ci + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage st's tiles, positions and biases
+    if (tile >= 0) {
+      if (ci == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) ldsm_x4(a_addr<DH>(qs, 16 * warp, kk, lane), qf[kk]);
+      }
+      const bf16* kst = ks + st * kChunk * DH;
+      const bf16* vst = vs + st * kChunk * DH;
+      const int* kp_s = kpos_s + st * kChunk;
+      const float* kbias_s = kb_s + st * kChunk;
+      // positions ascend along a list, so the step's last key is its
+      // latest: only a step that reaches past the warp's first row holds
+      // keys a causal row may not see (those of a diagonal block)
+      const int last = min(kChunk, n_keys - ci * kChunk) - 1;
+      const bool diag = causal && step_pos(ids_s, len, lb, ci, last) > q0;
+      float s[NN][4];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NN / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(b_addr<DH>(kst, 16 * np, kk, lane), bk);
+          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 kb = *reinterpret_cast<const float2*>(kbias_s + c);
+        int2 kp = make_int2(0, 0);
+        if (diag) kp = *reinterpret_cast<const int2*>(kp_s + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float val = s[j][e] * scale + ((e & 1) ? kb.y : kb.x);
+          if (diag && ((e & 1) ? kp.y : kp.x) > row_r[e >> 1]) val = -kInf;
+          s[j][e] = val;
+          mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        alpha[i] = fast_exp2((m[i] - mx[i]) * kLog2e);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2((s[j][e] - m[e >> 1]) * kLog2e);  // 0 at -inf
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+      }
+      // O += P V, P's bf16 A operand straight from the score accumulators,
+      // V read across its rows (.trans)
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t pa[4];
+        a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int d2 = 0; d2 < DH / 16; ++d2) {
+          uint32_t bv[4];
+          ldsm_x4_trans(a_addr<DH>(vst, 16 * kk, d2, lane), bv);
+          mma_bf16(acc[2 * d2], pa, bv[0], bv[1]);
+          mma_bf16(acc[2 * d2 + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    if (ci + 1 < n_steps) publish(st ^ 1);
+    __syncthreads();  // every warp is done with stage st before it refills
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every copy has landed (with no step, the own rows)
+  if (tile >= 0) {
+    // o = acc / l, and o = 0 with lse = NEG_INF for a row that saw no key;
+    // the warp's own rows of the Q tile (read only by this warp, and only
+    // into qf) stage o
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float li = l[e >> 1];
+        acc[j][e] = li > 0.f ? acc[j][e] / li : 0.f;
+      }
+    }
+    store_rows<DH>(qs, 16 * warp, acc, o + base, q0, S, DH, DH / 8, lane);
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse[bh * S + row_r[i]] = l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
+      }
+    }
+  }
+}
+
 // dQ for the query tiles of one group (warp w: its tile's 16 rows), walking
 // the group's key blocks 64 keys a step: S = Q K^T, dP = dO V^T, then
 // dQ += dS K. Block x: group x / B of batch x % B.
@@ -1034,11 +1258,33 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+int log2_block(int block) { return block == 16 ? 4 : block == 32 ? 5 : block == 64 ? 6 : 7; }
+
+// bf16 forward: o and lse over the query groups
+template <int DH>
+int launch_fwd_mma(const Args& a) {
+  const int B = a.BH / a.H;
+  const int lb = log2_block(a.block);
+  // a group's list in shared memory: at most S / block ids
+  const size_t smem = fwd_mma_smem<DH>() + (a.S >> lb) * sizeof(int);
+  cudaError_t err = allow_smem(sparse_fwd_mma_kernel<DH>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.n_q_groups > 0) {
+    sparse_fwd_mma_kernel<DH>
+        <<<static_cast<unsigned>(a.n_q_groups) * B, kTcThreads, smem, a.stream>>>(
+            static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+            static_cast<const bf16*>(a.v), a.mask, a.q_groups, a.ids,
+            static_cast<bf16*>(a.o), static_cast<float*>(a.lse), B, a.H, a.S, lb, a.scale,
+            a.causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bf16 backward: dQ over the query groups, then dK/dV over the key groups
 template <int DH>
 int launch_bwd_mma(const Args& a) {
   const int B = a.BH / a.H;
-  const int lb = a.block == 16 ? 4 : a.block == 32 ? 5 : a.block == 64 ? 6 : 7;
+  const int lb = log2_block(a.block);
   // a group's list in shared memory: at most S / block ids
   const size_t smem = bwd_mma_smem<DH>() + (a.S >> lb) * sizeof(int);
   cudaError_t err = allow_smem(sparse_bwd_dq_mma_kernel<DH>, smem);
@@ -1097,6 +1343,16 @@ int by_block(const Args& a) {
   }
 }
 
+// the forward: the tensor-core kernel (bf16) or the CUDA-core one (fp32)
+template <typename Tp, int DH>
+int launch_forward(const Args& a) {
+  if constexpr (sizeof(Tp) == 2) {
+    return launch_fwd_mma<DH>(a);
+  } else {
+    return by_block<Tp, DH, false>(a);
+  }
+}
+
 // the backward: delta, then the tensor-core kernels (bf16) or the
 // CUDA-core ones (fp32)
 template <typename Tp, int DH>
@@ -1121,9 +1377,9 @@ int by_head_dim(int dh, const Args& a) {
     }
   } else {
     switch (dh) {
-      case 64: return by_block<Tp, 64, false>(a);
-      case 96: return by_block<Tp, 96, false>(a);
-      case 128: return by_block<Tp, 128, false>(a);
+      case 64: return launch_forward<Tp, 64>(a);
+      case 96: return launch_forward<Tp, 96>(a);
+      case 128: return launch_forward<Tp, 128>(a);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -1136,7 +1392,7 @@ int dispatch(int dtype, int dh, const Args& a) {
       a.S % a.block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (BWD && dtype == kDtypeBF16 &&
+  if (dtype == kDtypeBF16 &&
       (a.n_q_groups < 0 || a.n_kv_groups < 0 ||
        static_cast<long long>(a.n_q_groups) * (a.BH / a.H) > 0x7fffffffLL ||
        static_cast<long long>(a.n_kv_groups) * (a.BH / a.H) > 0x7fffffffLL)) {
@@ -1148,13 +1404,18 @@ int dispatch(int dtype, int dh, const Args& a) {
 }
 
 template <int DH>
-int info_dh(int which, int* out) {
+int info_dh(int which, int list_len, int* out) {
+  const size_t list = static_cast<size_t>(list_len) * sizeof(int);
   switch (which) {
     case 0:
-      return kernel_info(sparse_bwd_dq_mma_kernel<DH>, bwd_mma_smem<DH>(), kTcThreads, out);
+      return kernel_info(sparse_bwd_dq_mma_kernel<DH>, bwd_mma_smem<DH>() + list, kTcThreads,
+                         out);
     case 1:
-      return kernel_info(sparse_bwd_dkdv_mma_kernel<DH>, bwd_mma_smem<DH>(), kTcThreads, out);
+      return kernel_info(sparse_bwd_dkdv_mma_kernel<DH>, bwd_mma_smem<DH>() + list,
+                         kTcThreads, out);
     case 2: return kernel_info(sparse_bwd_delta_kernel<bf16, DH>, 0, 256, out);
+    case 3:
+      return kernel_info(sparse_fwd_mma_kernel<DH>, fwd_mma_smem<DH>() + list, kTcThreads, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1169,11 +1430,14 @@ const char* ds_sparse_error_string(int err) {
 
 // q, k, v, o: (BH, S, Dh) of dtype, contiguous; lse: (BH, S) fp32; mask:
 // (BH / H, S) fp32 or null; row_offsets (H * S / block + 1,) and row_cols
-// int32, the CSR table of the causally filtered layout.
+// int32, the CSR table of the causally filtered layout (fp32 walks it);
+// for bf16 the query group table (n_q_groups rows of 6 int32: four tile
+// ids, the offset and the length of the group's list in row_cols,
+// heaviest first).
 int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* mask,
-                  const void* row_offsets, const void* row_cols, void* o, void* lse, int BH,
-                  int H, int S, int block, int Dh, float scale, int causal, int dtype,
-                  void* stream) {
+                  const void* row_offsets, const void* row_cols, const void* q_groups, void* o,
+                  void* lse, int BH, int H, int S, int block, int Dh, int n_q_groups,
+                  float scale, int causal, int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -1181,6 +1445,8 @@ int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* mask,
   a.mask = static_cast<const float*>(mask);
   a.offsets = static_cast<const int*>(row_offsets);
   a.ids = static_cast<const int*>(row_cols);
+  a.q_groups = static_cast<const int*>(q_groups);
+  a.n_q_groups = n_q_groups;
   a.o = o;
   a.lse = lse;
   a.BH = BH;
@@ -1235,15 +1501,17 @@ int ds_sparse_bwd(const void* q, const void* k, const void* v, const void* o,
   return dispatch<true>(dtype, Dh, a);
 }
 
-// which: 0 the bf16 dQ kernel, 1 the bf16 dK/dV kernel, 2 delta (bf16), at
-// head dim Dh and their launch configuration with an empty list. out: 6
-// ints (registers, static smem, dynamic smem, local bytes a thread,
-// threads, blocks an SM).
-int ds_sparse_kernel_info(int which, int Dh, int* out) {
+// which: 0 the bf16 dQ kernel, 1 the bf16 dK/dV kernel, 2 delta (bf16), 3
+// the bf16 forward, at head dim Dh and their launch configuration with a
+// block list of list_len ids (S / block) in shared memory. out: 6 ints
+// (registers, static smem, dynamic smem, local bytes a thread, threads,
+// blocks an SM).
+int ds_sparse_kernel_info(int which, int Dh, int list_len, int* out) {
+  if (list_len < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (Dh) {
-    case 64: return info_dh<64>(which, out);
-    case 96: return info_dh<96>(which, out);
-    case 128: return info_dh<128>(which, out);
+    case 64: return info_dh<64>(which, list_len, out);
+    case 96: return info_dh<96>(which, list_len, out);
+    case 128: return info_dh<128>(which, list_len, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,9 +27,10 @@ All six are bound by device-memory bytes: on an H100 SXM (3.35 TB/s)
 their least time is (bytes read + bytes written) / 3.35 TB/s, e.g.
 bias+GeLU on (512, 8192) bf16 moves ~16.8 MB, ~5.0 us. The source file
 says how each design keeps intermediates out of device memory and how the
-backwards reduce over rows without atomics. The LN backwards' launch
-(which route, how many warps a row, how many blocks and partial rows) is
-decided here, by ``ln_bwd_plan``, and handed to the kernel.
+backwards reduce over rows without atomics. The LN launches (which
+route, how many warps a row, how many threads and blocks, and the
+backwards' partial rows) are decided here, by ``ln_fwd_plan`` and
+``ln_bwd_plan``, and handed to the kernels.
 
 Beside each kernel wrapper sits its plain PyTorch version
 (``ln_fwd_plain``, ``ln_bwd_plain``, ``add_ln_fwd_plain``,
@@ -66,8 +67,10 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "ds_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "ds_ln_fwd": ([_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
+                   ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5 + [_P],
                   ctypes.c_int),
+    "ds_ln_fwd_kernel_info": ([ctypes.c_int] * 6
+                              + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
     "ds_bias_gelu_fwd": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
                          ctypes.c_int),
@@ -93,6 +96,10 @@ _LN_THREADS = 256
 # fewest warps that hold the row first
 _LN_ROWS_PAIRS = ((1, 2), (2, 2), (4, 2), (8, 2), (8, 4))
 _LN_REDUCE_COLS = 8  # columns of a block of the partial-row reduction
+# the LN forwards' rows route: the backward's pairs, blocks of at most 256
+# threads, two blocks an SM
+_LN_FWD_THREADS = 256
+_LN_FWD_BLOCKS_PER_SM = 2
 _INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
               "threads", "blocks_per_sm")
 
@@ -142,6 +149,61 @@ def ln_fwd_plain(x, w, b, eps):
     return y, mu[..., 0], rs[..., 0]
 
 
+def ln_fwd_plan(R, D, dtype, aligned=True, n_sm=H100_SMS) -> dict:
+    """How ``ln_fwd`` and ``add_ln_fwd`` run an (R, D) call of ``dtype``
+    (csrc/fused_blocks.cu says why):
+
+      route             "rows" where a row is whole 16-byte vectors
+                        (``aligned``: x, r and y start on a 16-byte
+                        boundary) of at most 1024 of them, else "wide"
+      warps_per_row     the rows route's team of warps a row, the fewest
+                        whose lanes hold the row in 2 vectors each, or 8
+                        warps of 4 (``ln_bwd_plan``'s pairs; 0: wide)
+      vectors_per_lane  16-byte vectors of x (and r) a lane holds (0: wide)
+      threads           threads a block: whole teams, at most 256 (the
+                        kernel's launch bound); 256 on the wide route
+      teams_per_block   rows a block works on at once: as many as fill
+                        ``_LN_FWD_BLOCKS_PER_SM`` blocks on every SM, and
+                        one when the rows are few, so that they spread
+                        over the SMs
+      blocks            blocks of the launch, persistent over the rows on
+                        the rows route; one a row on the wide one
+      smem_bytes        dynamic shared memory a block (none: the teams'
+                        warp sums sit in static shared memory)
+    """
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    pair = None
+    if aligned and D % vec == 0:
+        pair = next(((wpr, nv) for wpr, nv in _LN_ROWS_PAIRS
+                     if D // vec <= 32 * wpr * nv), None)
+    if pair is None:
+        return {"route": "wide", "warps_per_row": 0, "vectors_per_lane": 0,
+                "threads": _LN_THREADS, "teams_per_block": 1, "blocks": R,
+                "smem_bytes": 0}
+    wpr, nv = pair
+    most = _LN_FWD_THREADS // (32 * wpr)
+    slots = n_sm * _LN_FWD_BLOCKS_PER_SM
+    teams = min(most, -(-R // slots))
+    return {"route": "rows", "warps_per_row": wpr, "vectors_per_lane": nv,
+            "threads": 32 * wpr * teams, "teams_per_block": teams,
+            "blocks": min(-(-R // teams), slots), "smem_bytes": 0}
+
+
+def ln_fwd_kernel_info(D: int, dtype, add: bool = False,
+                       R: int = 8192) -> dict:
+    """The compiled kernel that an LN forward (``add``: the residual-add
+    one) of R aligned rows at width D of ``dtype`` launches, at its launch
+    configuration: registers, static and dynamic shared memory, local
+    memory a thread (spills), threads and blocks an SM. Builds the library
+    if needed."""
+    plan = ln_fwd_plan(R, D, dtype)
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_ln_fwd_kernel_info(
+        plan["warps_per_row"], plan["vectors_per_lane"], plan["threads"], D,
+        _DTYPE_CODES[dtype], int(add), out), "ln_fwd info")
+    return dict(zip(_INFO_KEYS, out))
+
+
 def _ln_fwd_launch(name, x, r, w, b, eps):
     """Checks and launches ds_ln_fwd on x (and r) (R, D); returns (y,
     mean, rstd)."""
@@ -159,6 +221,10 @@ def _ln_fwd_launch(name, x, r, w, b, eps):
     y = torch.empty_like(x)
     mean = torch.empty(R, dtype=torch.float32, device=x.device)
     rstd = torch.empty(R, dtype=torch.float32, device=x.device)
+    rows = (x, y) if r is None else (x, r, y)
+    plan = ln_fwd_plan(R, D, x.dtype,
+                       aligned=all(t.data_ptr() % 16 == 0 for t in rows),
+                       n_sm=_sm_count(x.device.index))
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.ds_ln_fwd(x.data_ptr(),
@@ -166,6 +232,8 @@ def _ln_fwd_launch(name, x, r, w, b, eps):
                             w.data_ptr(), b.data_ptr(), y.data_ptr(),
                             mean.data_ptr(), rstd.data_ptr(), R, D,
                             float(eps), _DTYPE_CODES[x.dtype],
+                            plan["warps_per_row"], plan["vectors_per_lane"],
+                            plan["threads"], plan["blocks"],
                             _stream(x.device))
     _raise_on(err, name)
     return y, mean, rstd

@@ -12,7 +12,9 @@ VMEM holds K and V. The port has one hand-written CUDA pair in
   ``sparse_fwd``  q, k, v (B, H, S, Dh), the CSR tables of a
                   ``kernels.SparseLut``, an optional (B, S) fp32 additive
                   key mask -> (o (B, H, S, Dh) in q's dtype, lse (B, H, S)
-                  fp32).
+                  fp32). bf16 runs on the tensor cores over the lut's
+                  query groups (as the backward's dQ, ``fwd_plan`` its
+                  launch); fp32 on the first port's CUDA-core kernel.
   ``sparse_bwd``  (q, k, v, o, lse, do, tables, mask) -> (dq, dk, dv):
                   delta = rowsum(dO * O) (a kernel of its own, where the
                   reference computes it outside its kernels), then dQ over
@@ -65,16 +67,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ds_sparse_error_string": ([_I], ctypes.c_char_p),
-    "ds_sparse_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _F, _I, _I, _P], _I),
+    "ds_sparse_fwd": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "ds_sparse_bwd": ([_P] * 17 + [_I] * 7 + [_F, _I, _I, _P], _I),
-    "ds_sparse_kernel_info": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "ds_sparse_kernel_info": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
 }
-# the bf16 backward's kernels ``kernel_info`` describes, by the index the
-# library takes
-KERNELS = ("sparse_bwd_dq", "sparse_bwd_dkdv", "sparse_bwd_delta")
+# the bf16 kernels ``kernel_info`` describes, by the index the library
+# takes: the backward's three, then the forward
+KERNELS = ("sparse_bwd_dq", "sparse_bwd_dkdv", "sparse_bwd_delta",
+           "sparse_fwd")
 _INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
               "threads", "blocks_per_sm")
+# the bf16 forward: four warps a thread block, one a 16-row tile; each
+# step gathers 64 keys
+FWD_THREADS = 128
+_STEP_KEYS = 64
+MAX_SMEM = 232448  # a thread block's shared memory on Hopper (227 KB)
 
 
 def _lib():
@@ -88,16 +95,33 @@ def _raise_on(err: int, name: str) -> None:
                            f"({msg})")
 
 
-def kernel_info(kernel: str, head_dim: int) -> dict:
-    """The compiled bf16 backward ``kernel`` (one of KERNELS) for
-    ``head_dim`` at its launch configuration (with an empty block list):
-    registers, static and dynamic shared memory, local memory a thread
-    (spills), threads and blocks an SM (the CUDA occupancy calculator).
-    Builds the library if needed."""
+def kernel_info(kernel: str, head_dim: int, list_len: int = 0) -> dict:
+    """The compiled bf16 ``kernel`` (one of KERNELS) for ``head_dim`` at
+    its launch configuration with a block list of ``list_len`` ids (S /
+    block) in shared memory: registers, static and dynamic shared memory,
+    local memory a thread (spills), threads and blocks an SM (the CUDA
+    occupancy calculator). Builds the library if needed."""
     out = (_I * len(_INFO_KEYS))()
     _raise_on(_lib().ds_sparse_kernel_info(KERNELS.index(kernel), head_dim,
-                                           out), f"{kernel} info")
+                                           list_len, out), f"{kernel} info")
     return dict(zip(_INFO_KEYS, out))
+
+
+def fwd_plan(S: int, block: int, head_dim: int) -> dict:
+    """How the bf16 ``sparse_fwd`` launches at sequence length S, sparsity
+    block ``block`` and ``head_dim`` (csrc/sparse_attention.cu says why):
+    ``threads`` a thread block (four warps, one a 16-row query tile of its
+    group), ``list_len`` the most block ids a group's list holds (S /
+    block, kept in shared memory), ``smem_bytes`` its dynamic shared memory
+    (the group's own Q rows, two stages of 64 gathered K and V rows, the
+    stages' key positions and biases, the list) and ``fits``, whether that
+    is within a block's 227 KB. A group table row (``kernels.build_groups``)
+    launches one block for each batch."""
+    list_len = S // block
+    tiles = (1 + 2 * 2) * _STEP_KEYS * head_dim * 2
+    smem = tiles + 4 * _STEP_KEYS * 4 + list_len * 4
+    return {"threads": FWD_THREADS, "list_len": list_len,
+            "smem_bytes": smem, "fits": smem <= MAX_SMEM}
 
 
 # ------------------------------------------------------------------ #
@@ -246,12 +270,27 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_groups(name, B, tables):
+    """Each (what, table) a contiguous (n, GROUP_TILES + 2) group table
+    whose n * B blocks fit the launch's grid."""
+    for what, t in tables:
+        if (t.dim() != 2 or t.shape[1] != GROUP_TILES + 2
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"(n, {GROUP_TILES + 2}) table")
+        if t.shape[0] * B > 0x7FFFFFFF:
+            raise ValueError(f"{name}: {t.shape[0]} groups x B = {B} "
+                             f"exceed the launch's grid")
+
+
 def sparse_fwd(q, k, v, lut: DeviceLut, sm_scale, causal,
                key_padding_mask=None):
     """Block-sparse forward kernel on contiguous (B, H, S, Dh) q, k, v of
     one dtype over ``lut`` (``kernels.SparseLut.on(device)``), with an
     optional contiguous (B, S) fp32 additive key mask: returns (o, lse
-    (B, H, S) fp32). A CPU tensor takes ``sparse_fwd_plain``."""
+    (B, H, S) fp32). bf16 runs on the tensor cores over the lut's query
+    groups; fp32 on the first port's CUDA-core kernel over the row table.
+    A CPU tensor takes ``sparse_fwd_plain``."""
     if q.device.type == "cpu":
         return sparse_fwd_plain(q, k, v, lut.layout, lut.block, sm_scale,
                                 causal, key_padding_mask)
@@ -259,15 +298,23 @@ def sparse_fwd(q, k, v, lut: DeviceLut, sm_scale, causal,
         raise ValueError(f"sparse_fwd takes a CPU or CUDA tensor, got "
                          f"{q.device}")
     B, H, S, Dh = _check("sparse_fwd", (q, k, v), q, lut, key_padding_mask)
+    if q.dtype == torch.bfloat16:
+        _check_groups("sparse_fwd", B, (("q_groups", lut.q_groups),))
+        if not fwd_plan(S, lut.block, Dh)["fits"]:
+            raise ValueError(f"sparse_fwd: a block list of S / block = "
+                             f"{S // lut.block} ids does not fit a thread "
+                             f"block's shared memory beside the tiles at "
+                             f"head_dim {Dh}")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.ds_sparse_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-            _ptr(lut.row_offsets), _ptr(lut.row_cols), o.data_ptr(),
-            lse.data_ptr(), B * H, H, S, lut.block, Dh, float(sm_scale),
-            int(bool(causal)), _DTYPE_CODES[q.dtype], _stream(q.device))
+            _ptr(lut.row_offsets), _ptr(lut.row_cols), _ptr(lut.q_groups),
+            o.data_ptr(), lse.data_ptr(), B * H, H, S, lut.block, Dh,
+            lut.q_groups.shape[0], float(sm_scale), int(bool(causal)),
+            _DTYPE_CODES[q.dtype], _stream(q.device))
     _raise_on(err, "sparse_fwd")
     sparse_fwd.launches += 1
     return o, lse
@@ -295,15 +342,8 @@ def sparse_bwd(q, k, v, o, lse, do, lut: DeviceLut, sm_scale, causal,
             or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
         raise ValueError(f"sparse_bwd takes a contiguous fp32 lse of shape "
                          f"{(B, H, S)} on {q.device}")
-    for what, t in (("q_groups", lut.q_groups),
-                    ("kv_groups", lut.kv_groups)):
-        if (t.dim() != 2 or t.shape[1] != GROUP_TILES + 2
-                or not t.is_contiguous()):
-            raise ValueError(f"sparse_bwd: {what} must be a contiguous "
-                             f"(n, {GROUP_TILES + 2}) table")
-        if t.shape[0] * B > 0x7FFFFFFF:
-            raise ValueError(f"sparse_bwd: {t.shape[0]} groups x B = {B} "
-                             f"exceed the launch's grid")
+    _check_groups("sparse_bwd", B, (("q_groups", lut.q_groups),
+                                    ("kv_groups", lut.kv_groups)))
     # scratch for delta, written by the first kernel
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

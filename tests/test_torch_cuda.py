@@ -718,3 +718,96 @@ def test_cuda_ln_backwards_match_plain_versions_and_relaunch():
         for a, p in zip(fb.ln_bwd(x, w, mean, rstd, g),
                         fb.ln_bwd_plain(x, w, mean, rstd, g)):
             _close(a, p, tol, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_fwd_tensor_cores_match_plain_version_and_relaunch():
+    """The bf16 sparse_fwd (tensor cores, over the query groups) against
+    its plain version at S 64, 128 and 4096, head dims 64, 96 and 128 and
+    blocks 16-128, causal and full, with and without a key mask (the last
+    quarter of the keys dropped, one key biased), over layouts with an
+    empty block row where there are two rows or more (o = 0 and lse =
+    NEG_INF there), at the reference's bf16 forward tolerance and the
+    relative L2 limit; a second launch gives the same bits."""
+    _needs_card()
+    from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    from deeperspeed_tpu_torch.ops.sparse_attention import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(64, 16, 64), (64, 32, 96), (64, 64, 128), (128, 16, 96),
+             (128, 32, 128), (128, 64, 64), (128, 128, 128),
+             (4096, 16, 64), (4096, 64, 96), (4096, 128, 128)]
+    for S, block, Dh in cases:
+        nb = S // block
+        layout = (_sparse_layout(3, nb, block) if nb >= 3
+                  else torch.ones(3, nb, nb, dtype=torch.int64).numpy())
+        B = 1 if S == 4096 else 2
+        for causal in (False, True):
+            for masked in (False, True):
+                lut = kernels.SparseLut(layout, block, causal).on("cuda")
+                q, k, v = (torch.randn(B, 3, S, Dh, generator=gen,
+                                       device="cuda").bfloat16()
+                           for _ in range(3))
+                kpm = None
+                if masked:
+                    kpm = torch.zeros(B, S, device="cuda")
+                    kpm[:, 3 * S // 4:] = kernels.NEG_INF
+                    kpm[0, 5] = -2.5
+                scale = Dh ** -0.5
+                before = bs.sparse_fwd.launches
+                o, lse = bs.sparse_fwd(q, k, v, lut, scale, causal, kpm)
+                assert bs.sparse_fwd.launches == before + 1
+                po, plse = bs.sparse_fwd_plain(q, k, v, lut.layout, block,
+                                               scale, causal, kpm)
+                alive = plse > kernels.NEG_INF / 2
+                assert bool((lse[~alive] == kernels.NEG_INF).all())
+                assert bool((o.float()[~alive] == 0).all())
+                _close(o, po, 2e-2, 1e-2)
+                _close(lse[alive], plse[alive], 2e-2, 1e-2)
+                if nb >= 3:   # layout row 1 is empty
+                    rows = slice(block, 2 * block)
+                    assert float(o[:, :, rows].abs().max()) == 0.0
+                again = bs.sparse_fwd(q, k, v, lut, scale, causal, kpm)
+                assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+
+
+@pytest.mark.cuda
+def test_cuda_ln_forwards_match_plain_versions_and_relaunch():
+    """ln_fwd and add_ln_fwd on both routes (rows: (8, 2048), (37, 768),
+    (1000, 1024), (333, 2048) and GPT-NeoX-20B's (48, 6144); wide: (37,
+    1001), whose rows are no whole 16-byte vectors, and rows that start
+    off a 16-byte boundary), bf16 and fp32, against their plain versions
+    at the reference's tolerances (mean and rstd within 2e-5) and the
+    relative L2 limit; a second launch gives the same bits."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for dtype, tol, rel in ((torch.bfloat16, 2e-2, 1e-2),
+                            (torch.float32, 2e-5, 1e-4)):
+        for R, D in ((8, 2048), (37, 768), (1000, 1024), (333, 2048),
+                     (48, 6144), (37, 1001)):
+            x, r = (torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            w = torch.randn(D, generator=gen, device="cuda") * 0.1 + 1
+            b = torch.randn(D, generator=gen, device="cuda") * 0.1
+            for add in (False, True):
+                args = (x, r, w, b, 1e-5) if add else (x, w, b, 1e-5)
+                kernel = fb.add_ln_fwd if add else fb.ln_fwd
+                plain = fb.add_ln_fwd_plain if add else fb.ln_fwd_plain
+                before = kernel.launches
+                got = kernel(*args)
+                assert kernel.launches == before + 1
+                want = plain(*args)
+                _close(got[0], want[0], tol, rel)
+                for a, p in zip(got[1:], want[1:]):
+                    _close(a, p, 2e-5, 1e-4)
+                again = kernel(*args)
+                assert all(torch.equal(a, c) for a, c in zip(got, again))
+        buf = torch.randn(65 * 1024 + 1, generator=gen,
+                          device="cuda").to(dtype)
+        x = buf[1:].view(65, 1024)
+        w = torch.ones(1024, device="cuda")
+        assert fb.ln_fwd_plan(65, 1024, dtype, aligned=False)["route"] == \
+            "wide"
+        for a, p in zip(fb.ln_fwd(x, w, w, 1e-5),
+                        fb.ln_fwd_plain(x, w, w, 1e-5)):
+            _close(a, p, tol, rel)

@@ -305,3 +305,66 @@ def test_ln_bwd_plan_at_the_model_widths():
     assert fb.ln_bwd_plan(2048, 2047, bf16)["route"] == "wide"
     assert fb.ln_bwd_plan(2048, 2048, torch.float32)["warps_per_row"] == 8
     assert fb.ln_bwd_plan(2048, 6144, torch.float32)["route"] == "wide"
+
+
+# ------------------------------------------------------------------ #
+# the LN forwards' launch rule
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_fwd_plan_covers_every_admitted_width(dtype):
+    """ln_fwd_plan for every width up to 9000 (the forwards take any D) at
+    1, 8, 37 and 8192 rows: the rows route exactly where a row is whole
+    16-byte vectors, at most 1024 of them, with the backward's pair (the
+    fewest warps whose lanes hold the row); whole teams of whole warps in
+    a block of at most 256 threads (the kernel's launch bound); no dynamic
+    shared memory; one team a block while the rows are fewer than two
+    blocks an SM (so few rows spread over the SMs), never more blocks than
+    two an SM or than the rows need, and every row in some team's stride;
+    the wide route one 256-thread block a row."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    slots = 2 * 132
+    for D in range(1, 9001):
+        for R in (1, 8, 37, 8192):
+            plan = fb.ln_fwd_plan(R, D, dtype)
+            nvec = D // vec
+            rows = D % vec == 0 and nvec <= 1024
+            assert plan["route"] == ("rows" if rows else "wide"), (D, plan)
+            assert plan["smem_bytes"] == 0
+            if not rows:
+                assert (plan["threads"], plan["blocks"],
+                        plan["warps_per_row"]) == (256, R, 0)
+                continue
+            wpr, nv = plan["warps_per_row"], plan["vectors_per_lane"]
+            assert (wpr, nv) == next(p for p in fb._LN_ROWS_PAIRS
+                                     if nvec <= 32 * p[0] * p[1])
+            teams = plan["teams_per_block"]
+            assert plan["threads"] == 32 * wpr * teams <= 256
+            assert teams == min(256 // (32 * wpr), -(-R // slots))
+            if R <= slots:
+                assert teams == 1 and plan["blocks"] == R
+            assert plan["blocks"] == min(-(-R // teams), slots)
+            assert plan["blocks"] * teams >= min(R, slots * teams)
+
+
+def test_ln_fwd_plan_at_the_model_widths():
+    """The widths the models run take the rows route, serving's 8 decode
+    rows one block each; rows off a 16-byte boundary, an odd width and
+    rows wider than 1024 vectors take the wide one; the SM count scales
+    the persistent grid."""
+    bf16 = torch.bfloat16
+    want = {768: (2, 2, 4), 1024: (2, 2, 4), 2048: (4, 2, 2), 6144: (8, 4, 1)}
+    for D, (wpr, nv, teams) in want.items():
+        plan = fb.ln_fwd_plan(8192, D, bf16)
+        assert (plan["route"], plan["warps_per_row"], plan["vectors_per_lane"],
+                plan["teams_per_block"], plan["blocks"]) == (
+                    "rows", wpr, nv, teams, 264)
+    decode = fb.ln_fwd_plan(8, 2048, bf16)
+    assert (decode["blocks"], decode["threads"]) == (8, 128)
+    assert fb.ln_fwd_plan(2048, 2048, bf16, n_sm=66)["blocks"] == 132
+    assert fb.ln_fwd_plan(2048, 2048, bf16, aligned=False)["route"] == "wide"
+    assert fb.ln_fwd_plan(2048, 2047, bf16)["route"] == "wide"
+    assert fb.ln_fwd_plan(7, 8200, bf16)["route"] == "wide"
+    assert fb.ln_fwd_plan(48, 6144, torch.float32)["route"] == "wide"
+    assert fb.ln_fwd_plan(48, 4096, torch.float32)["warps_per_row"] == 8

@@ -4,8 +4,10 @@ for every family of the port's sparsity configs at blocks 16-128, causal
 and not, the dQ groups (over the row table) and the dK/dV groups (over
 the transposed table) cover every (query, key) pair of the causally
 filtered layout exactly once, hold every 16-row tile exactly once, keep
-one head and one block list per group, and run longest list first. The
-kernels themselves are held to their plain versions on the card
+one head and one block list per group, and run longest list first; the
+bf16 forward walks the dQ groups, which cover every query tile once at
+each length phase 11 runs, and its shared memory fits. The kernels
+themselves are held to their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 11)."""
 
 import numpy as np
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from deeperspeed_tpu_torch.ops import sparse_attention as sa
-from deeperspeed_tpu_torch.ops.sparse_attention import kernels
+from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse, kernels
 
 torch.set_num_threads(1)
 
@@ -133,3 +135,61 @@ def test_device_lut_carries_the_groups():
     with pytest.raises(ValueError, match="multiple of 16"):
         kernels.build_groups(odd.layout, 8, *kernels.build_csr_lut(
             odd.layout, False)[:2])
+
+
+# the sparsity blocks and lengths chip_smoke.py's phase 11 runs the
+# forward at (the path's S 4096, S 8192, and its small cases' 512 and 1024)
+PHASE11_SEQS = (512, 1024, 4096, 8192)
+
+
+@pytest.mark.parametrize("S", PHASE11_SEQS)
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_forward_walk_covers_every_tile_once(block, S):
+    """The bf16 forward walks the query groups (``lut.groups[0]``, on the
+    card ``DeviceLut.q_groups``): at every block and S of phase 11, with
+    the path's 16 heads, every (head, 16-row tile) is in exactly one
+    group, and the group's list is each of its tiles' row of the CSR
+    table, so each output row is written once, by one warp."""
+    heads = 16
+    for family in ("fixed", "bigbird"):
+        lay = (sa.FixedSparsityConfig(num_heads=heads, block=block)
+               if family == "fixed" else
+               sa.BigBirdSparsityConfig(num_heads=heads, block=block))
+        lut = kernels.SparseLut(lay.make_layout(S), block, False)
+        row_offsets, row_cols, _, _ = kernels.build_csr_lut(lut.layout, False)
+        q_groups = lut.groups[0]
+        nb = S // block
+        ntiles = S // kernels.TILE_ROWS
+        tiles = q_groups[:, :kernels.GROUP_TILES]
+        seen = np.sort(tiles[tiles >= 0])
+        np.testing.assert_array_equal(seen, np.arange(heads * ntiles))
+        for row in q_groups:
+            off, n = int(row[-2]), int(row[-1])
+            for t in row[:kernels.GROUP_TILES]:
+                if t < 0:
+                    continue
+                h, r = divmod(int(t), ntiles)
+                qb = r * kernels.TILE_ROWS // block
+                lo, hi = row_offsets[h * nb + qb], row_offsets[h * nb + qb + 1]
+                np.testing.assert_array_equal(row_cols[lo:hi],
+                                              row_cols[off:off + n])
+
+
+def test_forward_shared_memory_fits_every_admitted_length():
+    """The bf16 forward's planned shared memory (its tiles and the
+    group's list of S / block ids) fits a thread block's 227 KB at every
+    block and head dim for S up to 65536, 8x phase 11's longest, and at
+    phase 11's lengths two blocks fit an SM's 228 KB (the kernel's launch
+    bound asks for two)."""
+    for block in block_sparse.BLOCKS:
+        for Dh in block_sparse.HEAD_DIMS:
+            tiles = 5 * 64 * Dh * 2 + 4 * 64 * 4
+            for S in range(block, 65536 + 1, block):
+                plan = block_sparse.fwd_plan(S, block, Dh)
+                assert plan["threads"] == 128
+                assert plan["list_len"] == S // block
+                assert plan["smem_bytes"] == tiles + 4 * (S // block)
+                assert plan["fits"] and plan["smem_bytes"] <= 232448
+            for S in PHASE11_SEQS:
+                smem = block_sparse.fwd_plan(S, block, Dh)["smem_bytes"]
+                assert 2 * (smem + 1024) <= 228 * 1024
