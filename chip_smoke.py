@@ -28,6 +28,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must not spill; so do the LN forwards' kernel (ln_fwd and add_ln_fwd
    at those widths, bf16 and fp32, for 8 and 2048 rows), whose dynamic
    shared memory and threads must be what fused_blocks.ln_fwd_plan says.
+   So do the bias+GeLU pair's (bias_gelu_fwd for 8 and 2048 rows and
+   bias_gelu_bwd's first kernel for 2048, at BG_WIDTHS 1024-24576, bf16
+   and fp32, b in x's dtype and in fp32, tanh and erf) and the backward's
+   reduction; a profile of the wrappers' own calls at those widths and
+   rows must show each launch with the grid, block and shared memory that
+   bias_gelu_fwd_plan and bias_gelu_bwd_plan give; and the row loop
+   of each of the 12 vector kernels is read from cuobjdump -sass: its
+   instructions and MUFU instructions a 16-byte vector, and the issue and
+   MUFU times they imply at (2048, 8192) and (8192, 4096) beside the byte
+   bound, are printed.
 2. Forward fused blocks against their plain PyTorch versions, bf16 and
    fp32: LayerNorm at (R, 2048), bias+GeLU (tanh and erf) at (R, 8192),
    for R in CHECK_ROWS (every row count the serving and training runs
@@ -37,15 +47,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    LN_FWD_CASES (GPT-NeoX-20B's (48, 6144), the other model widths at
    ragged rows, the widest row the rows route takes, and the wide
    route's widths 1001 and 8200) and on rows off a 16-byte boundary. At
-   the path shape (2048, 2048) bf16 two launches of ln_fwd on the same
-   inputs must give the same bits.
+   the path shapes (2048, 2048) and (2048, 8192) tanh bf16 two launches of
+   ln_fwd, and of bias_gelu_fwd, on the same inputs must give the same
+   bits.
 3. Backward fused blocks against their plain versions: ln_bwd at
    (R, 2048) and bias_gelu_bwd (tanh and erf) at (R, 8192), R in
    BWD_ROWS, and ln_bwd at GPT-NeoX-20B's width, LN_WIDE_CASE (48,
    6144), within 10x the forward tolerances (the reference's gradient
    tolerances, tests/test_fused_kernels.py). At the path shape (2048,
    2048) bf16 two launches of ln_bwd on the same inputs must give the
-   same bits.
+   same bits, and of bias_gelu_bwd at (2048, 8192) tanh (dx and db), whose
+   launches are also timed one by one from a profile. Then both bias+GeLU
+   kernels at BG_CASES: the data-parallel GPT-NeoX-125M FFN (16384, 3072),
+   timed, GPT-NeoX-20B's (48, 24576), widths whose last column strip is
+   partial on the vector route (1000, and 8188 in fp32), the scalar
+   route's width 1001 and rows off a 16-byte boundary; bf16 and fp32, b
+   in x's dtype and in fp32, tanh and erf, on inputs of scale 2 and
+   uniform in [-60, 60], where the sigmoid and erf saturate (finite
+   outputs, the plain version's values).
 4. Flash attention forward and backward against their plain versions at
    FLASH_SHAPES: the training shape (2, 16, 1024, 128), S = 2048 and 4096
    (beyond the reference's whole-S kernel), ragged S = 640 and 1000, head
@@ -111,10 +130,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bias+GeLU, forward and backward, at the BERT widths (D 1024, F 4096
    and the MLM head's (4096, 1024)), where two launches of add_ln_fwd,
    add_ln_bwd, ln_fwd and ln_bwd at (8192, 1024) bf16 must give the same
-   bits too. bf16 and
+   bits too, and those of bias_gelu_fwd and bias_gelu_bwd at (8192, 4096)
+   (bias_gelu_bwd's launches also timed from a profile). bf16 and
    fp32, with the tolerances and relative L2 limits of phases 2-4; each
    new kernel, and the four block kernels at the BERT shapes, timed at
-   its path shape as in phases 2-4. At the
+   its path shape as in phases 2-4 (bias+GeLU also at the head's (4096,
+   1024)). At the
    super-tile pair's path shape the flash pair, which GPT took below
    S = 256 before the super-tile route, is held against the same plain
    versions and timed beside it.
@@ -247,9 +268,11 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -328,6 +351,19 @@ LN_FWD_CASES = (LN_WIDE_CASE, (37, 768), (1000, 1024), (333, 2048),
 # widths the LN backwards' kernels are built for and recorded at (phase 1):
 # GPT-NeoX-125M, BERT-large, GPT-NeoX-1.3B, GPT-NeoX-20B
 LN_WIDTHS = (768, 1024, 2048, 6144)
+# FFN widths bias+GeLU runs at (phase 1 records its kernels there): BERT's
+# MLM head and GPT-NeoX-125M, GPT-NeoX-125M's and BERT-large's FFN,
+# GPT-NeoX-1.3B's and GPT-NeoX-20B's
+BG_WIDTHS = (1024, 3072, 4096, 8192, 24576)
+# bias+GeLU beside phases 2-3's (R, 8192): the data-parallel GPT-NeoX-125M
+# FFN (16384, 3072) bf16, timed there ("path": "dp"); GPT-NeoX-20B's width
+# at 48 rows; widths whose last column strip of 32 vectors is partial on
+# the vector route (1000; 8188 fp32, which bf16 takes on the scalar route);
+# the scalar route's width 1001 and rows off a 16-byte boundary
+BG_CASES = ((16384, 3072, True), (48, 24576, True), (37, 1000, True),
+            (37, 8188, True), (37, 1001, True), (65, 1024, False))
+# |x| of the inputs that saturate GeLU's sigmoid and erf
+BG_SATURATED = 60.0
 PATH_ROWS = 2048          # B * S of the training micro-batch
 # (B, H, S, Dh): the training shape first (timed), then S beyond the
 # reference's whole-S kernel, ragged S, and the other head dims
@@ -605,6 +641,10 @@ def kernel_phase(fb, gen):
                 row = {"shape": [R, Fd], "dtype": dname,
                        "approximate": approximate, "max_abs_err": err,
                        "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
+                if (R == PATH_ROWS and dtype == torch.bfloat16
+                        and approximate):
+                    row["bit_identical_relaunch"] = relaunch_same_bits(
+                        fb, "bias_gelu_fwd", (x, bias, approximate))
                 if R in TIMED_ROWS:
                     bufs = copies(lambda: (randn((R, Fd), dtype, 2.0), bias,
                                            approximate), R * Fd * isz)
@@ -718,6 +758,9 @@ def backward_phase(fb, gen):
                        "approximate": approximate, "max_abs_err": err,
                        "tol": tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
                 if timed and approximate:
+                    row["bit_identical_relaunch"] = relaunch_same_bits(
+                        fb, "bias_gelu_bwd", args)
+                    row["launch_ms"] = launch_profile(fb.bias_gelu_bwd, args)
                     bufs = copies(bg_case, 2 * R * Fd * isz)
                     row.update(timings(fb.bias_gelu_bwd,
                                        fb.bias_gelu_bwd_plain, bufs))
@@ -1045,11 +1088,296 @@ def ln_fwd_build_report(fb):
                             f"B and {plan['threads']}")
 
 
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sass_row_loops(library, nvcc, marker):
+    """{kernel function name: (instructions, MUFU instructions)} of the
+    longest loop (a backward branch and the instructions from its target)
+    in the SASS of each function of a built library whose name holds
+    ``marker``: the row loop of the bias+GeLU vector kernels, whose work
+    inside is unrolled."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = [] if marker in name else None
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name is not None and funcs[name] is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    loops = {}
+    for fn, code in funcs.items():
+        if code is None:
+            continue
+        best = []
+        for addr, ins in code:
+            br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)\s*$", ins)
+            if br and int(br.group(1), 16) <= addr:
+                body = [i for a, i in code if int(br.group(1), 16) <= a <= addr]
+                best = max(best, body, key=len)
+        loops[fn] = (len(best), sum("MUFU" in i for i in best))
+    return loops
+
+
+def bg_kernel_tag(mangled):
+    """(kind, x dtype, b dtype, form) of a bias+GeLU vector kernel's
+    mangled name, e.g. bias_gelu_fwd_vec_kernel<bf16, float, true>."""
+    m = re.search(r"bias_gelu_(fwd|bwd)_vec_kernelI(13__nv_bfloat16|f)"
+                  r"(S\d*_|f)Lb([01])E", mangled)
+    x = "bfloat16" if m.group(2) != "f" else "float32"
+    b = "float32" if m.group(3) == "f" else x
+    return m.group(1), x, b, "tanh" if m.group(4) == "1" else "erf"
+
+
+def traced_launches(calls, marker):
+    """[(kernel name, grid, block, shared memory bytes a block)] of each
+    kernel whose name holds ``marker`` that the callables ``calls``, run in
+    order, launch: the launches the card ran, in the order it ran them, as
+    torch.profiler's trace of them records them (shared memory is the
+    static and the dynamic together)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and marker in e.get("name", "")),
+                     key=lambda e: float(e["ts"]))
+    return [(e["name"], tuple(e["args"]["grid"]), tuple(e["args"]["block"]),
+             e["args"]["shared memory"]) for e in kernels]
+
+
+def bias_gelu_launch_check(fb, infos, sms):
+    """Fails unless the kernels bias_gelu_fwd (8 and PATH_ROWS rows) and
+    bias_gelu_bwd (PATH_ROWS rows) launch at BG_WIDTHS, bf16 and fp32, are
+    launched as bias_gelu_fwd_plan and bias_gelu_bwd_plan say: grid, block
+    and shared memory (the static of ``infos``, the records of phase 1's
+    kernel_info by (kind, F, dtype), and the plan's dynamic), read from a
+    profile of the wrappers' own calls."""
+    calls, want = [], []
+    for F in BG_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind, rows in (("fwd", (8, PATH_ROWS)), ("bwd", (PATH_ROWS,))):
+                for R in rows:
+                    plan = getattr(fb, f"bias_gelu_{kind}_plan")(
+                        R, F, dtype, n_sm=sms)
+                    grid = ((plan["strips"], plan["row_groups"], 1)
+                            if plan["route"] == "vector"
+                            else (plan["blocks"], 1, 1))
+                    want.append((f"bias_gelu_{kind}", R, F, dtype, grid,
+                                 (plan["threads"], 1, 1),
+                                 infos[kind, F, dtype]["static_smem"]
+                                 + plan.get("smem_bytes", 0)))
+                    if kind == "bwd":
+                        want.append(("bias_gelu_bwd_reduce", R, F, dtype,
+                                     (plan["reduce_blocks"], 1, 1),
+                                     (infos["reduce"]["threads"], 1, 1),
+                                     infos["reduce"]["static_smem"]))
+
+                    def call(R=R, F=F, dtype=dtype, kind=kind):
+                        x = torch.zeros(R, F, dtype=dtype, device="cuda")
+                        b = torch.zeros(F, dtype=dtype, device="cuda")
+                        if kind == "fwd":
+                            fb.bias_gelu_fwd(x, b, True)
+                        else:
+                            fb.bias_gelu_bwd(x, b, torch.zeros_like(x), True)
+                    calls.append(call)
+    got = traced_launches(calls, "bias_gelu_")
+    if len(got) != len(want):
+        raise AssertionError(f"bias_gelu: {len(want)} launches planned, the "
+                             f"profile holds {len(got)}: {got[:4]}")
+    for (kernel, R, F, dtype, grid, block, smem), (name, *seen) in zip(
+            want, got):
+        if (f"{kernel}_" not in name or
+                tuple(seen) != (grid, block, smem)):
+            raise AssertionError(
+                f"{kernel} F {F} R {R} {dtype_name(dtype)}: the plan says "
+                f"grid {grid}, block {block}, {smem} B of shared memory; "
+                f"the card ran {name[:80]} at grid {seen[0]}, block "
+                f"{seen[1]}, {seen[2]} B")
+    print(f"build: bias_gelu: {len(got)} launches of the wrappers at "
+          f"BG_WIDTHS ran with the plans' grid, block and shared memory",
+          flush=True)
+
+
+def bias_gelu_build_report(fb, op_builder):
+    """Phase 1's record of the kernels PERF.md's rows 5 and 6 run: the
+    kernel bias_gelu_fwd launches at BG_WIDTHS for 8 and PATH_ROWS rows and
+    bias_gelu_bwd's first kernel at PATH_ROWS, bf16 and fp32, b in x's
+    dtype and in fp32, tanh and erf, and the backward's reduction; fails on
+    any spill, and (bias_gelu_launch_check) unless the wrappers' launches
+    are the plans'. Then each vector kernel's row loop from its SASS:
+    instructions and special-function (MUFU) instructions a 16-byte
+    vector, and the issue time (4 warp-instructions a clock an SM) and
+    MUFU time (16 lanes a clock an SM) they imply at the path shapes
+    beside the byte bound. Returns those records."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    infos = {}
+    for F in BG_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for b_dtype in sorted({dtype, torch.float32}, key=str):
+                for approx in (True, False):
+                    form = "tanh" if approx else "erf"
+                    for kind, rows in (("fwd", (8, PATH_ROWS)),
+                                       ("bwd", (PATH_ROWS,))):
+                        for R in rows:
+                            plan = getattr(fb, f"bias_gelu_{kind}_plan")(
+                                R, F, dtype, n_sm=sms)
+                            info = getattr(
+                                fb, f"bias_gelu_{kind}_kernel_info")(
+                                R, F, dtype, b_dtype, approx)
+                            report_kernel(
+                                f"bias_gelu_{kind} F {F} R {R} "
+                                f"{dtype_name(dtype)} b {dtype_name(b_dtype)}"
+                                f" {form} ({plan['route']}, "
+                                f"{plan['warps_per_block']} warps a block, "
+                                f"{plan['blocks']} blocks)", info)
+                            if b_dtype == dtype and approx:
+                                infos[kind, F, dtype] = info
+    infos["reduce"] = fb.bias_gelu_bwd_reduce_info()
+    report_kernel("bias_gelu_bwd_reduce", infos["reduce"])
+    bias_gelu_launch_check(fb, infos, sms)
+    loops = sass_row_loops(op_builder.build_info["fused_blocks"]["path"],
+                           op_builder.find_nvcc(), "bias_gelu_")
+    vec_loops = {bg_kernel_tag(fn): v for fn, v in loops.items()
+                 if "_vec_kernel" in fn}
+    if len(vec_loops) != 12 or not all(n for n, _ in vec_loops.values()):
+        raise AssertionError(f"expected the row loops of 12 bias+GeLU vector "
+                             f"kernels in their SASS, got {vec_loops}")
+    clock = sm_clock_hz()
+    records = []
+    for (kind, x, b, form), (n, mufu) in sorted(vec_loops.items()):
+        rec = {"kernel": f"bias_gelu_{kind}", "x": x, "b": b, "form": form,
+               "instructions_a_vector": n, "mufu_a_vector": mufu}
+        isz = 2 if x == "bfloat16" else 4
+        for R, F in ((PATH_ROWS, 8192), (BERT_ROWS, 4096)):
+            vectors = R * F * isz // 16
+            moved = (2 if kind == "fwd" else 3) * R * F * isz
+            rec[f"{R}x{F}"] = {
+                "issue_ms": n * vectors / 32 / (4 * sms * clock) * 1e3,
+                "mufu_ms": mufu * vectors / (16 * sms * clock) * 1e3,
+                "bytes_ms": moved / HBM_BYTES_PER_S * 1e3}
+        print(f"build: SASS bias_gelu_{kind}_vec_kernel<{x}, {b}, {form}> "
+              f"row loop: " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def launch_profile(fn, args, calls=20):
+    """{kernel name: device ms a call} of the kernels ``calls`` calls of
+    ``fn(*args)`` launch, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0][:90]:
+            e.self_device_time_total / calls / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def bias_gelu_width_cases(fb, gen):
+    """bias_gelu_fwd and bias_gelu_bwd at BG_CASES, bf16 and fp32, b in
+    x's dtype and in fp32, tanh and erf, on inputs of scale 2 and inputs
+    uniform in [-BG_SATURATED, BG_SATURATED]: outputs finite and within
+    TOL (10x for gradients) and REL_L2 of the plain versions; each row
+    records the route. (16384, 3072) bf16 with b in x's dtype is timed
+    ("path": "dp", tanh, as GPT-NeoX-125M runs it)."""
+    results = {"bias_gelu_fwd": [], "bias_gelu_bwd": []}
+    for R, F, aligned in BG_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol, rel = TOL[dtype], REL_L2[dtype]
+            isz = torch.tensor([], dtype=dtype).element_size()
+            for b_dtype in sorted({dtype, torch.float32}, key=str):
+                for approx in (True, False):
+                    for scale in (2.0, BG_SATURATED):
+                        def case():
+                            n = R * F + (0 if aligned else 1)
+                            x = ((torch.rand(n, generator=gen, device="cuda")
+                                  * 2 - 1) * scale).to(dtype)
+                            return (x[n - R * F:].view(R, F),
+                                    randn_on(gen, (F,), b_dtype),
+                                    randn_on(gen, (R, F), dtype), approx)
+                        x, b, g, _ = args = case()
+                        tag = (f"{R}x{F} {dtype_name(dtype)} b "
+                               f"{dtype_name(b_dtype)} approx={approx} "
+                               f"|x|<={scale:g}"
+                               f"{'' if aligned else ' unaligned'}")
+                        y = fb.bias_gelu_fwd(x, b, approx)
+                        dx, db = fb.bias_gelu_bwd(*args)
+                        torch.cuda.synchronize()
+                        for name, t in (("y", y), ("dx", dx), ("db", db)):
+                            if not bool(torch.isfinite(t.float()).all()):
+                                raise AssertionError(f"bias_gelu {tag}: {name} "
+                                                     f"is not finite")
+                        err, rel_err = check_close(
+                            f"bias_gelu_fwd {tag}", y,
+                            fb.bias_gelu_fwd_plain(x, b, approx), tol, rel)
+                        route = fb.bias_gelu_fwd_plan(
+                            R, F, dtype, aligned=aligned)["route"]
+                        common = {"shape": [R, F], "dtype": dtype_name(dtype),
+                                  "b_dtype": dtype_name(b_dtype),
+                                  "approximate": approx, "scale": scale,
+                                  "aligned": aligned, "route": route}
+                        fwd = dict(common, max_abs_err=err, tol=tol,
+                                   rel_l2_err=rel_err, rel_l2_tol=rel)
+                        err, rel_err = check_outputs(
+                            f"bias_gelu_bwd {tag}", ("dx", "db"), (dx, db),
+                            fb.bias_gelu_bwd_plain(*args), 10 * tol, rel)
+                        bwd = dict(common, max_abs_err=err, tol=10 * tol,
+                                   rel_l2_err=rel_err, rel_l2_tol=rel)
+                        if ((R, F) == (16384, 3072) and b_dtype == dtype
+                                and dtype == torch.bfloat16 and approx
+                                and scale != BG_SATURATED):
+                            bufs = copies(case, 2 * R * F * isz)
+                            fwd.update(timings(fb.bias_gelu_fwd,
+                                               fb.bias_gelu_fwd_plain,
+                                               [a[:2] + (approx,)
+                                                for a in bufs]))
+                            fwd.update(path="dp", library=None, **bound(
+                                2 * R * F * isz + F * isz, 10 * R * F))
+                            bwd.update(timings(fb.bias_gelu_bwd,
+                                               fb.bias_gelu_bwd_plain, bufs))
+                            bwd.update(path="dp", library=None, **bound(
+                                3 * R * F * isz + F * (isz + 4), 20 * R * F))
+                            bwd["launch_ms"] = launch_profile(
+                                fb.bias_gelu_bwd, args)
+                            del bufs
+                        results["bias_gelu_fwd"].append(fwd)
+                        results["bias_gelu_bwd"].append(bwd)
+                        del x, b, g, args, y, dx, db
+        torch.cuda.empty_cache()
+    return results
+
+
 def relaunch_same_bits(fb, name, args):
     """Fails unless two launches of ``fb.<name>`` on ``args`` give the
-    same bits (every output: y, mean and rstd; dx, dw and db)."""
+    same bits (every output: y, mean and rstd; dx, dw and db; y; dx and
+    db)."""
     kernel = getattr(fb, name)
-    first, second = kernel(*args), kernel(*args)
+    first, second = (out if isinstance(out, tuple) else (out,)
+                     for out in (kernel(*args), kernel(*args)))
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError(f"{name} {tuple(args[0].shape)}: two launches on "
                              f"the same inputs differ")
@@ -1299,6 +1627,9 @@ def bert_kernel_phase(fb, fs, fa, gen):
 
             Fd = 4096 if timed else 1024
             rows_bg = R
+            # bias+GeLU is timed at the FFN's and the MLM head's shape
+            bg_timed = dtype == torch.bfloat16
+            bg_path = "bert" if timed else "bert-head"
 
             def bg_case():
                 return (randn_on(gen, (rows_bg, Fd), dtype, 2.0),
@@ -1316,11 +1647,14 @@ def bert_kernel_phase(fb, fs, fa, gen):
                    "approximate": False, "max_abs_err": err, "tol": tol,
                    "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed_here:
+                row["bit_identical_relaunch"] = relaunch_same_bits(
+                    fb, "bias_gelu_fwd", (h, hb, approx))
+            if bg_timed:
                 bufs = copies(lambda: bg_case()[:2] + (False,),
                               rows_bg * Fd * isz)
                 row.update(timings(fb.bias_gelu_fwd, fb.bias_gelu_fwd_plain,
                                    bufs))
-                row.update(path="bert", library=None, **bound(
+                row.update(path=bg_path, library=None, **bound(
                     2 * rows_bg * Fd * isz + Fd * isz, 10 * rows_bg * Fd))
                 del bufs
             results["bias_gelu_fwd"].append(row)
@@ -1333,10 +1667,15 @@ def bert_kernel_phase(fb, fs, fa, gen):
                    "approximate": False, "max_abs_err": err,
                    "tol": 10 * tol, "rel_l2_err": rel_err, "rel_l2_tol": rel}
             if timed_here:
+                row["bit_identical_relaunch"] = relaunch_same_bits(
+                    fb, "bias_gelu_bwd", (h, hb, hg, approx))
+                row["launch_ms"] = launch_profile(fb.bias_gelu_bwd,
+                                                  (h, hb, hg, approx))
+            if bg_timed:
                 bufs = copies(bg_case, 2 * rows_bg * Fd * isz)
                 row.update(timings(fb.bias_gelu_bwd, fb.bias_gelu_bwd_plain,
                                    bufs))
-                row.update(path="bert", library=None, **bound(
+                row.update(path=bg_path, library=None, **bound(
                     3 * rows_bg * Fd * isz + Fd * (isz + 4),
                     20 * rows_bg * Fd))
                 del bufs
@@ -1995,8 +2334,7 @@ KERNEL_FAMILIES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "flash_bwd_delta", "supertile_fwd", "supertile_bwd",
                    "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq",
                    "sparse_bwd_delta", "ln_fwd",
-                   "ln_bwd", "bias_gelu_fwd", "bias_gelu_bwd", "sum_partials",
-                   "fused_adam")
+                   "ln_bwd", "bias_gelu_fwd", "bias_gelu_bwd", "fused_adam")
 
 
 def kernel_family(name):
@@ -2823,8 +3161,6 @@ def dp_training_phase(card):
     of configs/gpt_125m_comm.json (int8 comm, ZeRO 1), then with fp32
     comm; see the module docstring. Returns the int8 run's launches (both
     ranks) and its launches per step per rank."""
-    import tempfile
-
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2985,10 +3321,13 @@ def main() -> int:
     tensor_core_build_report(bs, fs, op_builder)
     backward_build_report(fb, fs, op_builder)
     ln_fwd_build_report(fb)
+    bias_gelu_build_report(fb, op_builder)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)
     cases.update(backward_phase(fb, gen))
+    for name, rows in bias_gelu_width_cases(fb, gen).items():
+        cases[name].extend(rows)
     cases.update(flash_phase(fa, gen))
     for name, rows in bert_kernel_phase(fb, fs, fa, gen).items():
         cases.setdefault(name, []).extend(rows)

@@ -50,9 +50,8 @@
 //    three __syncthreads each and 2-byte loads, stays the wide route:
 //    widths that are no whole vectors, wider ones, and rows off a 16-byte
 //    boundary. Statistics are fp32 and biased, over the last axis.
-//  * bias_gelu_fwd is one grid-stride elementwise pass in fp32, cast once.
 // Ragged edges need no masking beyond the loop bounds: a team or a block
-// owns a whole row, and the grid-stride loop stops at n.
+// owns a whole row.
 //
 // The backwards read x, the cotangent g and (LN) the fp32 mean/rstd that
 // ln_fwd wrote, and write dx once. Their weight/bias gradients are sums over
@@ -88,13 +87,64 @@
 //    of each.
 //  * ln_bwd_reduce_kernel then sums the partial rows per column: 8 columns
 //    x 32 row groups a block, 2 * ceil(D / 8) blocks (512 at D 2048), the 32
-//    group sums added in a fixed tree. It replaces the two launches of
-//    sum_partials_kernel, whose D / 256 blocks each walked all partial rows
-//    in series (8 blocks at D 2048).
+//    group sums added in a fixed tree.
 // Other widths (unaligned rows, D not a multiple of the vector, or wider)
 // take the wide route: the first port's block-per-row kernel (ln_bwd_kernel,
 // partials in shared memory, x and g re-read from L1/L2 for dx) with the
-// same reduction. bias_gelu_bwd keeps sum_partials_kernel.
+// same reduction.
+//
+// bias_gelu_fwd (y = gelu(x + b) in fp32, cast once; replaces _bg_fwd_kernel)
+// and bias_gelu_bwd (dx = g * gelu'(x + b), cast once, and db = the fp32 sum
+// of dx over rows; replaces _bg_bwd_kernel) move 2 and 3 bytes of x's dtype
+// an element: at the GPT shape (2048, 8192) bf16 ~67 MB and ~101 MB, 20 and
+// 30 us at 3.35 TB/s, and twice that at BERT's (8192, 4096). They are also
+// near the card's instruction issue rate (4 warp-instructions a clock an
+// SM, ~3.3e13 lane-instructions a second): ~40 instructions an element (a
+// precise tanhf, a 64-bit i % F for the bias column, 2-byte loads) take
+// about as long as those bytes. The designs cut both:
+//  * the vector route, wherever a row is whole 16-byte vectors (F % 8
+//    bf16, F % 4 fp32) and x, g, dx, y start on a 16-byte boundary (every
+//    width the models use; no shared-memory cap on F): the grid is (column
+//    strips of 32 vectors, row groups). Lane l of a block of strip s owns
+//    the vector column 32 s + l of every row its warp walks, so b is read
+//    once into fp32 registers and no division or modulo runs in the row
+//    loop. A warp walks the rows blockIdx.y * warps + warp + k * gridDim.y
+//    * warps; the next row's 16-byte loads are in flight while this row is
+//    computed and stored, 16 bytes a store. The plans (ops/fused_blocks.py)
+//    give at most four blocks of 8 warps an SM, and one warp a block when
+//    the rows are few, so that serving's 8 decode rows still spread over
+//    the SMs. One vector a lane measured within a few per cent of two or
+//    four at every timed shape, and fastest on few rows.
+//  * the tanh form runs through 0.5 (1 + tanh(z)) = sigmoid(2 z), exact in
+//    real arithmetic: gelu(u) = u s and gelu'(u) = s + u s (1 - s) 2 z'
+//    with s = 1 / (1 + 2^(u (a + b u^2))), one ex2 and one reciprocal of
+//    the special function unit (a few ulps, far inside fp32's 2e-5) in
+//    place of tanhf; no fast-math build and no tanh.approx. At |u| beyond
+//    ~40 the exponential saturates to 0 or inf and s to 1 or 0, with no
+//    NaN. The erf form keeps erff (its gradient's e^(-u^2/2) is an ex2).
+//    chip_smoke.py prints each row loop's instructions: the tanh form's
+//    issue time is about a third of its byte bound, the erf form's erff
+//    brings it near the bound.
+//  * bias_gelu_bwd's db: each lane keeps fp32 partials of its columns in
+//    registers over its rows; at the end the block's warps add them in a
+//    fixed tree through shared memory and warp 0 writes the block's
+//    segment of its row group's partial row (part: [row groups][F], at
+//    most ~0.5 MB: 16 row groups at F 8192). bias_gelu_bwd_reduce_kernel
+//    then adds the partial rows per column in a fixed order
+//    (ln_bwd_reduce_kernel's body), a second launch of ~3 us. No atomics:
+//    a relaunch gives the same bits. A single launch whose clusters of row
+//    groups add the partials through distributed shared memory is slower
+//    at every training shape (at most 16 row groups a strip leave too few
+//    blocks), faster only on 8 rows.
+//  * where F / vector is no multiple of 32, the last strip's lanes past
+//    the row's end walk no rows: they join the block's tree with zero
+//    partials and write nothing.
+// Other widths (F no whole number of vectors, rows off a 16-byte boundary)
+// take the scalar route: a grid-stride forward whose bias column is a
+// counter (one 64-bit remainder a thread, none an element) and the first
+// port's backward, column partials in shared memory (F floats, so F <=
+// 58112 there), one partial row per block of min(R, 264), with the same
+// reduction.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,15 +159,10 @@ constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
 constexpr int kLnThreads = 256;
 constexpr int kEwThreads = 256;
-constexpr int kEwMaxBlocks = 132 * 32;  // 32 blocks per SM on the H100's 132
-constexpr int kBwdBlocks = 132 * 2;     // row-walking backward blocks
 constexpr int kSmemDefault = 48 * 1024;  // shared memory a block has without opt-in
-constexpr int kStaticSmemMax = 1152;     // the most static shared memory of a kernel here
-
-constexpr float kSqrt2OverPi = 0.7978845608028654f;
-constexpr float kGeluC = 0.044715f;
-constexpr float kInvSqrt2 = 0.7071067811865476f;
-constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+// the most static shared memory of a kernel here that takes dynamic shared
+// memory too
+constexpr int kStaticSmemMax = 1152;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -201,37 +246,6 @@ __global__ void __launch_bounds__(kLnThreads)
   }
 }
 
-__device__ __forceinline__ float gelu_f32(float u, bool approximate) {
-  if (approximate) {
-    const float inner = kSqrt2OverPi * (u + kGeluC * u * u * u);
-    return 0.5f * u * (1.f + tanhf(inner));
-  }
-  return 0.5f * u * (1.f + erff(u * kInvSqrt2));
-}
-
-template <typename T, typename B>
-__global__ void __launch_bounds__(kEwThreads)
-    bias_gelu_fwd_kernel(const T* __restrict__ x, const B* __restrict__ b,
-                         T* __restrict__ y, long long n, int F,
-                         bool approximate) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float u = to_f32(x[i]) + to_f32(b[i % F]);
-    y[i] = from_f32<T>(gelu_f32(u, approximate));
-  }
-}
-
-template <typename T, typename B>
-void launch_bias_gelu(const void* x, const void* b, void* y, long long n, int F,
-                      bool approximate, cudaStream_t stream) {
-  long long blocks = (n + kEwThreads - 1) / kEwThreads;
-  if (blocks > kEwMaxBlocks) blocks = kEwMaxBlocks;
-  bias_gelu_fwd_kernel<T, B><<<static_cast<unsigned>(blocks), kEwThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const B*>(b), static_cast<T*>(y), n, F,
-      approximate);
-}
-
 // dx = rs * (dy - mean(dy) - xhat * mean(dy * xhat)) with dy = g * w, as the
 // reference's _ln_dx; dw/db partials of sum(g * xhat) and sum(g) per block.
 // With kAdd the normalized input is s = x + r, recomputed here.
@@ -283,52 +297,6 @@ __global__ void __launch_bounds__(kLnThreads)
     dw_part[static_cast<long long>(blockIdx.x) * D + i] = dw_acc[i];
     db_part[static_cast<long long>(blockIdx.x) * D + i] = db_acc[i];
   }
-}
-
-__device__ __forceinline__ float gelu_grad_f32(float u, bool approximate) {
-  if (approximate) {
-    const float inner = kSqrt2OverPi * (u + kGeluC * u * u * u);
-    const float t = tanhf(inner);
-    const float dinner = kSqrt2OverPi * (1.f + 3.f * kGeluC * u * u);
-    return 0.5f * (1.f + t) + 0.5f * u * (1.f - t * t) * dinner;
-  }
-  const float phi = 0.5f * (1.f + erff(u * kInvSqrt2));
-  return phi + u * expf(-0.5f * u * u) * kInvSqrt2Pi;
-}
-
-// dx = g * gelu'(x + b) in fp32, cast once; db partials of sum(dx) per block.
-template <typename T, typename B>
-__global__ void __launch_bounds__(kEwThreads)
-    bias_gelu_bwd_kernel(const T* __restrict__ x, const B* __restrict__ b,
-                         const T* __restrict__ g, T* __restrict__ dx,
-                         float* __restrict__ db_part, long long R, int F,
-                         bool approximate) {
-  extern __shared__ float db_acc[];  // [F]
-  for (int i = threadIdx.x; i < F; i += blockDim.x) db_acc[i] = 0.f;
-  for (long long row = blockIdx.x; row < R; row += gridDim.x) {
-    const long long base = row * F;
-    for (int i = threadIdx.x; i < F; i += blockDim.x) {
-      const float u = to_f32(x[base + i]) + to_f32(b[i]);
-      const float d = to_f32(g[base + i]) * gelu_grad_f32(u, approximate);
-      dx[base + i] = from_f32<T>(d);
-      db_acc[i] += d;
-    }
-  }
-  for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    db_part[static_cast<long long>(blockIdx.x) * F + i] = db_acc[i];
-  }
-}
-
-// out[i] = sum over p of part[p, i], p in order: the second pass of
-// bias_gelu_bwd's reduction.
-__global__ void __launch_bounds__(kEwThreads)
-    sum_partials_kernel(const float* __restrict__ part, int nparts, int D,
-                        float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= D) return;
-  float s = 0.f;
-  for (int p = 0; p < nparts; ++p) s += part[static_cast<long long>(p) * D + i];
-  out[i] = s;
 }
 
 // ------------------------------------------------------------------ //
@@ -579,24 +547,20 @@ __global__ void __launch_bounds__(rows_threads(NV), 1)
 constexpr int kRedCols = 8;   // columns of an ln_bwd_reduce_kernel block
 constexpr int kRedGroups = kEwThreads / kRedCols;  // its row groups
 
-// dw (blockIdx.y 0) or db (1) of the LN backwards from part ([2][nparts][D]):
-// thread (group p, column c) adds partial rows p, p + 32, ... of its column,
-// then a fixed tree adds the 32 group sums, so the bits do not depend on
-// which block ran first. kAdd changes nothing but the name, so that a
-// profile counts add_ln_bwd's reduction apart from ln_bwd's.
-template <bool kAdd>
-__global__ void __launch_bounds__(kEwThreads)
-    ln_bwd_reduce_kernel(const float* __restrict__ part, int nparts, int D,
-                         float* __restrict__ dw, float* __restrict__ db) {
+// out[c] = the sum over p of part[p * D + c]: thread (group p0, column c)
+// adds partial rows p0, p0 + 32, ... of its column, then a fixed tree adds
+// the 32 group sums, so the bits do not depend on which block ran first.
+// kRedCols columns a block.
+__device__ __forceinline__ void reduce_partial_rows(const float* __restrict__ part, int nparts,
+                                                    int D, float* __restrict__ out) {
   __shared__ float red[kRedGroups][kRedCols + 1];
   const int c = threadIdx.x % kRedCols;
   const int p0 = threadIdx.x / kRedCols;
   const int col = blockIdx.x * kRedCols + c;
-  const float* src = part + static_cast<long long>(blockIdx.y) * nparts * D;
   float s = 0.f;
   if (col < D) {
 #pragma unroll 4
-    for (int p = p0; p < nparts; p += kRedGroups) s += src[static_cast<long long>(p) * D + col];
+    for (int p = p0; p < nparts; p += kRedGroups) s += part[static_cast<long long>(p) * D + col];
   }
   red[p0][c] = s;
   __syncthreads();
@@ -605,7 +569,18 @@ __global__ void __launch_bounds__(kEwThreads)
     if (p0 < half) red[p0][c] += red[p0 + half][c];
     __syncthreads();
   }
-  if (p0 == 0 && col < D) (blockIdx.y == 0 ? dw : db)[col] = red[0][c];
+  if (p0 == 0 && col < D) out[col] = red[0][c];
+}
+
+// dw (blockIdx.y 0) or db (1) of the LN backwards from part ([2][nparts][D]).
+// kAdd changes nothing but the name, so that a profile counts add_ln_bwd's
+// reduction apart from ln_bwd's.
+template <bool kAdd>
+__global__ void __launch_bounds__(kEwThreads)
+    ln_bwd_reduce_kernel(const float* __restrict__ part, int nparts, int D,
+                         float* __restrict__ dw, float* __restrict__ db) {
+  reduce_partial_rows(part + static_cast<long long>(blockIdx.y) * nparts * D, nparts, D,
+                      blockIdx.y == 0 ? dw : db);
 }
 
 // the rows routes' (warps a row, vectors a lane) pairs, forward and backward
@@ -807,8 +782,6 @@ int ln_fwd_info(int wpr, int nv, int threads, int* out) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int bwd_blocks(long long R) { return static_cast<int>(R < kBwdBlocks ? R : kBwdBlocks); }
-
 // Opts a kernel in to ``bytes`` of dynamic shared memory where the default
 // 48 KB might not hold them beside its static shared memory (at most 1152
 // bytes here), which counts against the same limit.
@@ -901,24 +874,322 @@ bool ln_bwd_config_ok(int wpr, int nv, long long D, int itemsize) {
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
-template <typename T, typename B>
-int launch_bias_gelu_bwd(const void* x, const void* b, const void* g, void* dx,
-                         void* db, void* part, long long R, int F, bool approximate,
-                         cudaStream_t s) {
-  const int nb = bwd_blocks(R);
-  const size_t smem = static_cast<size_t>(F) * sizeof(float);
-  cudaError_t err = allow_smem(bias_gelu_bwd_kernel<T, B>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bias_gelu_bwd_kernel<T, B><<<nb, kEwThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const B*>(b), static_cast<const T*>(g),
-      static_cast<T*>(dx), static_cast<float*>(part), R, F, approximate);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<(F + kEwThreads - 1) / kEwThreads, kEwThreads, 0, s>>>(
-      static_cast<const float*>(part), nb, F, static_cast<float*>(db));
+// ------------------------------------------------------------------ //
+// bias + GeLU
+// ------------------------------------------------------------------ //
+
+constexpr int kBgThreads = 256;  // the most threads a vector-route block takes
+
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+// the tanh form: e^(-2 z) = 2^(u (kSigA + kSigB u^2)) with z = k (u + c u^3),
+// k = sqrt(2 / pi), c = 0.044715; 2 dz/du = kDzA + kDzB u^2
+constexpr float kSigA = static_cast<float>(-2.0 * 0.7978845608028654 * 1.4426950408889634);
+constexpr float kSigB =
+    static_cast<float>(-2.0 * 0.7978845608028654 * 0.044715 * 1.4426950408889634);
+constexpr float kDzA = static_cast<float>(2.0 * 0.7978845608028654);
+constexpr float kDzB = static_cast<float>(6.0 * 0.7978845608028654 * 0.044715);
+// the erf form's e^(-u^2 / 2) = 2^(kNegHalfLog2e u^2)
+constexpr float kNegHalfLog2e = static_cast<float>(-0.5 * 1.4426950408889634);
+
+// 2^v and 1 / v on the special function unit (a few ulps); 2^v is 0 below
+// -126 and inf above 128, and 1 / inf is 0
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// sigmoid(2 z) = 0.5 (1 + tanh(z)) of the tanh form, u2 = u * u
+__device__ __forceinline__ float sigmoid_2z(float u, float u2) {
+  return rcp_approx(1.f + ex2_approx(u * fmaf(kSigB, u2, kSigA)));
+}
+
+// gelu(u) in fp32: tanh form (kApprox) as u sigmoid(2 z), else erf form
+template <bool kApprox>
+__device__ __forceinline__ float gelu_f32(float u) {
+  if constexpr (kApprox) {
+    return u * sigmoid_2z(u, u * u);
+  } else {
+    return 0.5f * u * (1.f + erff(u * kInvSqrt2));
+  }
+}
+
+// d gelu / du in fp32. The tanh form: s + u s (1 - s) 2 dz/du with s =
+// sigmoid(2 z), the reference's 0.5 (1 + t) + 0.5 u (1 - t^2) dz/du at t =
+// 2 s - 1; the erf form: Phi(u) + u phi(u), as the reference.
+template <bool kApprox>
+__device__ __forceinline__ float gelu_grad_f32(float u) {
+  if constexpr (kApprox) {
+    const float u2 = u * u;
+    const float s = sigmoid_2z(u, u2);
+    return fmaf(u * fmaf(kDzB, u2, kDzA), s * (1.f - s), s);
+  } else {
+    const float phi = 0.5f * (1.f + erff(u * kInvSqrt2));
+    return fmaf(u * kInvSqrt2Pi, ex2_approx(kNegHalfLog2e * u * u), phi);
+  }
+}
+
+// y = gelu(x + b), the vector route (see the file comment): lane l of a
+// block of strip blockIdx.x owns the 16-byte vector column 32 blockIdx.x +
+// l of the rows its warp walks, blockIdx.y * warps + warp strided by
+// gridDim.y * warps.
+template <typename T, typename B, bool kApprox>
+__global__ void __launch_bounds__(kBgThreads)
+    bias_gelu_fwd_vec_kernel(const T* __restrict__ x, const B* __restrict__ b,
+                             T* __restrict__ y, long long R, int F) {
+  using V = Vec<T>;
+  constexpr int VEC = V::N;
+  const int j = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (j >= F / VEC) return;  // a lane past the row (no barrier here)
+  const int warps = blockDim.x >> 5;
+  const long long stride = static_cast<long long>(gridDim.y) * warps;
+  long long row = static_cast<long long>(blockIdx.y) * warps + (threadIdx.x >> 5);
+  float bf[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) bf[e] = to_f32(b[j * VEC + e]);
+  uint4 xv;
+  if (row < R) xv = __ldg(reinterpret_cast<const uint4*>(x + row * F) + j);
+#pragma unroll 1
+  for (; row < R; row += stride) {
+    const uint4 xc = xv;
+    // the next row's load flies while this row is computed and stored
+    const long long next = row + stride;
+    if (next < R) xv = __ldg(reinterpret_cast<const uint4*>(x + next * F) + j);
+    float f[VEC];
+    V::unpack(xc, f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) f[e] = gelu_f32<kApprox>(f[e] + bf[e]);
+    reinterpret_cast<uint4*>(y + row * F)[j] = V::pack(f);
+  }
+}
+
+// y = gelu(x + b), the scalar route: a grid-stride pass whose bias column
+// is a counter (one 64-bit remainder a thread)
+template <typename T, typename B, bool kApprox>
+__global__ void __launch_bounds__(kEwThreads)
+    bias_gelu_fwd_kernel(const T* __restrict__ x, const B* __restrict__ b, T* __restrict__ y,
+                         long long n, int F) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int col = static_cast<int>(i % F);
+  const int step = static_cast<int>(stride % F);
+  for (; i < n; i += stride) {
+    y[i] = from_f32<T>(gelu_f32<kApprox>(to_f32(x[i]) + to_f32(b[col])));
+    col += step;
+    if (col >= F) col -= F;
+  }
+}
+
+// dx = g * gelu'(x + b) in fp32, cast once, on the vector route's layout,
+// and the block's column partials of dx: each lane sums its columns over
+// its rows in registers, the block's warps add theirs in a fixed tree
+// through shared memory, and warp 0 writes the block's segment of partial
+// row blockIdx.y (part: [gridDim.y][F]).
+template <typename T, typename B, bool kApprox>
+__global__ void __launch_bounds__(kBgThreads)
+    bias_gelu_bwd_vec_kernel(const T* __restrict__ x, const B* __restrict__ b,
+                             const T* __restrict__ g, T* __restrict__ dx,
+                             float* __restrict__ part, long long R, int F) {
+  using V = Vec<T>;
+  constexpr int VEC = V::N;
+  // the tree's slots: half the warps of a block at most, [word][lane] so a
+  // warp's 16-byte words are consecutive (no bank conflicts)
+  __shared__ float4 tree[kBgThreads / 64][VEC / 4][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  // a lane past the row walks no rows but joins the block's barriers
+  const bool live = j < F / VEC;
+  const long long stride = static_cast<long long>(gridDim.y) * warps;
+  long long row = live ? static_cast<long long>(blockIdx.y) * warps + warp : R;
+  float bf[VEC], acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    bf[e] = live ? to_f32(b[j * VEC + e]) : 0.f;
+    acc[e] = 0.f;
+  }
+  uint4 xv, gv;
+  if (row < R) {
+    xv = __ldg(reinterpret_cast<const uint4*>(x + row * F) + j);
+    gv = __ldg(reinterpret_cast<const uint4*>(g + row * F) + j);
+  }
+#pragma unroll 1
+  for (; row < R; row += stride) {
+    const uint4 xc = xv, gc = gv;
+    const long long next = row + stride;
+    if (next < R) {
+      xv = __ldg(reinterpret_cast<const uint4*>(x + next * F) + j);
+      gv = __ldg(reinterpret_cast<const uint4*>(g + next * F) + j);
+    }
+    float xf[VEC], gf[VEC];
+    V::unpack(xc, xf);
+    V::unpack(gc, gf);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      xf[e] = gf[e] * gelu_grad_f32<kApprox>(xf[e] + bf[e]);
+      acc[e] += xf[e];
+    }
+    reinterpret_cast<uint4*>(dx + row * F)[j] = V::pack(xf);
+  }
+  // the warps' partials in a fixed tree: of n warps, [half, n) hand theirs
+  // to [0, n - half), half = ceil(n / 2), until warp 0 holds the block's
+  for (int n = warps; n > 1;) {
+    const int half = (n + 1) / 2;
+    if (warp >= half && warp < n) {
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {
+        tree[warp - half][q][lane] =
+            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      }
+    }
+    __syncthreads();
+    if (warp < n - half) {
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {
+        const float4 t = tree[warp][q][lane];
+        acc[4 * q] += t.x;
+        acc[4 * q + 1] += t.y;
+        acc[4 * q + 2] += t.z;
+        acc[4 * q + 3] += t.w;
+      }
+    }
+    __syncthreads();
+    n = half;
+  }
+  if (warp == 0 && live) {
+    float4* seg = reinterpret_cast<float4*>(part + static_cast<long long>(blockIdx.y) * F + j * VEC);
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      seg[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
+  }
+}
+
+// dx and one partial row per block, the scalar route: each block walks rows
+// blockIdx.x + k gridDim.x with column partials in shared memory
+template <typename T, typename B, bool kApprox>
+__global__ void __launch_bounds__(kEwThreads)
+    bias_gelu_bwd_kernel(const T* __restrict__ x, const B* __restrict__ b,
+                         const T* __restrict__ g, T* __restrict__ dx,
+                         float* __restrict__ db_part, long long R, int F) {
+  extern __shared__ float db_acc[];  // [F]
+  for (int i = threadIdx.x; i < F; i += blockDim.x) db_acc[i] = 0.f;
+  for (long long row = blockIdx.x; row < R; row += gridDim.x) {
+    const long long base = row * F;
+    for (int i = threadIdx.x; i < F; i += blockDim.x) {
+      const float u = to_f32(x[base + i]) + to_f32(b[i]);
+      const float d = to_f32(g[base + i]) * gelu_grad_f32<kApprox>(u);
+      dx[base + i] = from_f32<T>(d);
+      db_acc[i] += d;
+    }
+  }
+  for (int i = threadIdx.x; i < F; i += blockDim.x) {
+    db_part[static_cast<long long>(blockIdx.x) * F + i] = db_acc[i];
+  }
+}
+
+// db from bias_gelu_bwd's partial rows ([nparts][F]): ln_bwd_reduce_kernel's
+// fixed order, under a name of its own so that a profile counts it as
+// bias_gelu_bwd's
+__global__ void __launch_bounds__(kEwThreads)
+    bias_gelu_bwd_reduce_kernel(const float* __restrict__ part, int nparts, int F,
+                                float* __restrict__ db) {
+  reduce_partial_rows(part, nparts, F, db);
+}
+
+// whether a vector-route launch of ``threads``-thread blocks on a
+// (strips, groups) grid covers every column of a row of F values of
+// itemsize bytes
+bool bg_vec_ok(int threads, int strips, int groups, long long F, int itemsize) {
+  const int vec = 16 / itemsize;
+  if (threads < 32 || threads > kBgThreads || threads % 32 != 0) return false;
+  if (strips < 1 || groups < 1 || groups > 65535) return false;
+  return F % vec == 0 && 32LL * strips >= F / vec;
+}
+
+// nv 1: the vector route on a (strips, groups) grid of ``threads``-thread
+// blocks; nv 0: the scalar route, ``groups`` blocks
+template <typename T, typename B, bool kApprox>
+int launch_bias_gelu_fwd(const void* x, const void* b, void* y, long long R, int F, int nv,
+                         int threads, int strips, int groups, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const B* bt = static_cast<const B*>(b);
+  T* yt = static_cast<T*>(y);
+  if (nv == 0) {
+    bias_gelu_fwd_kernel<T, B, kApprox><<<groups, kEwThreads, 0, s>>>(xt, bt, yt, R * F, F);
+  } else {
+    bias_gelu_fwd_vec_kernel<T, B, kApprox><<<dim3(strips, groups), threads, 0, s>>>(xt, bt, yt,
+                                                                                   R, F);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// nv 1: the vector route on a (strips, nparts) grid; nv 0: the scalar
+// route, nparts blocks; then the reduction of the nparts partial rows
+template <typename T, typename B, bool kApprox>
+int launch_bias_gelu_bwd(const void* x, const void* b, const void* g, void* dx, void* db,
+                         void* part, long long R, int F, int nv, int threads, int strips,
+                         int nparts, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const B* bt = static_cast<const B*>(b);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  float* pf = static_cast<float*>(part);
+  if (nv == 0) {
+    const size_t smem = static_cast<size_t>(F) * sizeof(float);
+    const cudaError_t err = allow_smem(bias_gelu_bwd_kernel<T, B, kApprox>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bias_gelu_bwd_kernel<T, B, kApprox><<<nparts, kEwThreads, smem, s>>>(xt, bt, gt, dxt, pf, R,
+                                                                         F);
+  } else {
+    bias_gelu_bwd_vec_kernel<T, B, kApprox><<<dim3(strips, nparts), threads, 0, s>>>(
+        xt, bt, gt, dxt, pf, R, F);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bias_gelu_bwd_reduce_kernel<<<(F + kRedCols - 1) / kRedCols, kEwThreads, 0, s>>>(
+      pf, nparts, F, static_cast<float*>(db));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename B, bool kApprox>
+int bg_fwd_info(int nv, int threads, int* out) {
+  if (nv == 0) return kernel_info(bias_gelu_fwd_kernel<T, B, kApprox>, 0, kEwThreads, out);
+  return kernel_info(bias_gelu_fwd_vec_kernel<T, B, kApprox>, 0, threads, out);
+}
+
+template <typename T, typename B, bool kApprox>
+int bg_bwd_info(int nv, int threads, int F, int* out) {
+  if (nv == 0) {
+    return kernel_info(bias_gelu_bwd_kernel<T, B, kApprox>, static_cast<size_t>(F) * sizeof(float),
+                       kEwThreads, out);
+  }
+  return kernel_info(bias_gelu_bwd_vec_kernel<T, B, kApprox>, 0, threads, out);
+}
+
+// returns FN<T, B, kApprox> ARGS for the call's x dtype, b dtype (fp32 or
+// x's) and GeLU form (approximate: tanh); any other pair is refused
+#define DS_BG_DISPATCH(FN, ARGS)                                                             \
+  if (x_dtype == kDtypeF32 && b_dtype == kDtypeF32) {                                        \
+    return approximate ? FN<float, float, true> ARGS : FN<float, float, false> ARGS;         \
+  }                                                                                          \
+  if (x_dtype == kDtypeBF16 && b_dtype == kDtypeBF16) {                                      \
+    return approximate ? FN<__nv_bfloat16, __nv_bfloat16, true> ARGS                         \
+                       : FN<__nv_bfloat16, __nv_bfloat16, false> ARGS;                       \
+  }                                                                                          \
+  if (x_dtype == kDtypeBF16 && b_dtype == kDtypeF32) {                                       \
+    return approximate ? FN<__nv_bfloat16, float, true> ARGS                                 \
+                       : FN<__nv_bfloat16, float, false> ARGS;                               \
+  }                                                                                          \
+  return static_cast<int>(cudaErrorInvalidValue);
 }  // namespace
 
 extern "C" {
@@ -970,29 +1241,6 @@ int ds_ln_fwd_kernel_info(int wpr, int nv, int threads, int D, int dtype, int ad
              : ln_fwd_info<__nv_bfloat16, false>(wpr, nv, threads, out);
 }
 
-// x, y: n = R * F elements of x_dtype, row-major with F columns; b: (F,) of
-// b_dtype (fp32 or x_dtype).
-int ds_bias_gelu_fwd(const void* x, const void* b, void* y, long long n, int F,
-                     int approximate, int x_dtype, int b_dtype, void* stream) {
-  if (n <= 0 || F <= 0 || n % F) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool approx = approximate != 0;
-  if (x_dtype == kDtypeF32 && b_dtype == kDtypeF32) {
-    launch_bias_gelu<float, float>(x, b, y, n, F, approx, s);
-  } else if (x_dtype == kDtypeBF16 && b_dtype == kDtypeBF16) {
-    launch_bias_gelu<__nv_bfloat16, __nv_bfloat16>(x, b, y, n, F, approx, s);
-  } else if (x_dtype == kDtypeBF16 && b_dtype == kDtypeF32) {
-    launch_bias_gelu<__nv_bfloat16, float>(x, b, y, n, F, approx, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Number of partial rows bias_gelu_bwd writes into its scratch: the
-// wrapper allocates ds_bwd_blocks(R) * F fp32 values.
-int ds_bwd_blocks(long long R) { return R > 0 ? bwd_blocks(R) : 0; }
-
 // x, g, dx (and r when given): (R, D) of dtype; w: (D,) fp32; mean, rstd:
 // (R,) fp32 from ds_ln_fwd; dw, db: (D,) fp32; part: 2 * nparts * D fp32
 // scratch. r == nullptr is the LayerNorm backward, else the residual-add
@@ -1042,26 +1290,70 @@ int ds_ln_bwd_reduce_info(int* out) {
   return kernel_info(ln_bwd_reduce_kernel<false>, 0, kEwThreads, out);
 }
 
-// x, g, dx: (R, F) of x_dtype; b: (F,) of b_dtype (fp32 or x_dtype);
-// db: (F,) fp32; part: ds_bwd_blocks(R) * F fp32 scratch.
-int ds_bias_gelu_bwd(const void* x, const void* b, const void* g, void* dx,
-                     void* db, void* part, long long R, int F, int approximate,
-                     int x_dtype, int b_dtype, void* stream) {
-  if (R <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// x, y: (R, F) of x_dtype, row-major; b: (F,) of b_dtype (fp32 or x_dtype);
+// approximate: the tanh form, else erf. nv 1: the vector route
+// (ops/fused_blocks.py's bias_gelu_fwd_plan), one 16-byte vector a lane,
+// ``threads`` a block, a (strips, groups) grid, x and y on 16-byte
+// boundaries; nv 0: the scalar route, ``groups`` blocks of 256 threads.
+int ds_bias_gelu_fwd(const void* x, const void* b, void* y, long long R, int F, int approximate,
+                     int x_dtype, int b_dtype, int nv, int threads, int strips, int groups,
+                     void* stream) {
+  if (R <= 0 || F <= 0 || groups < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int itemsize = x_dtype == kDtypeF32 ? 4 : 2;
+  const bool ok = nv == 0 ? threads == kEwThreads
+                          : nv == 1 && bg_vec_ok(threads, strips, groups, F, itemsize) &&
+                                !misaligned(x) && !misaligned(y);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool approx = approximate != 0;
-  if (x_dtype == kDtypeF32 && b_dtype == kDtypeF32) {
-    return launch_bias_gelu_bwd<float, float>(x, b, g, dx, db, part, R, F, approx, s);
+  DS_BG_DISPATCH(launch_bias_gelu_fwd, (x, b, y, R, F, nv, threads, strips, groups, s))
+}
+
+// The kernel a ds_bias_gelu_fwd call with nv and ``threads`` launches, at
+// that launch configuration: out gets ds_ln_fwd_kernel_info's 6 ints.
+int ds_bias_gelu_fwd_kernel_info(int nv, int threads, int x_dtype, int b_dtype, int approximate,
+                                 int* out) {
+  if (nv != 0 && (nv != 1 || threads < 32 || threads > kBgThreads || threads % 32 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (x_dtype == kDtypeBF16 && b_dtype == kDtypeBF16) {
-    return launch_bias_gelu_bwd<__nv_bfloat16, __nv_bfloat16>(x, b, g, dx, db, part, R,
-                                                              F, approx, s);
+  DS_BG_DISPATCH(bg_fwd_info, (nv, threads, out))
+}
+
+// x, g, dx: (R, F) of x_dtype; b: (F,) of b_dtype (fp32 or x_dtype); db:
+// (F,) fp32; part: nparts * F fp32 scratch. nv 1: the vector route
+// (bias_gelu_bwd_plan) on a (strips, nparts) grid of ``threads``-thread
+// blocks, x, g and dx on 16-byte boundaries; nv 0: the scalar route,
+// nparts blocks of 256 threads with F floats of shared memory. Each
+// writes nparts partial rows of db, which a second launch adds.
+int ds_bias_gelu_bwd(const void* x, const void* b, const void* g, void* dx, void* db, void* part,
+                     long long R, int F, int approximate, int x_dtype, int b_dtype, int nv,
+                     int threads, int strips, int nparts, void* stream) {
+  if (R <= 0 || F <= 0 || nparts < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int itemsize = x_dtype == kDtypeF32 ? 4 : 2;
+  const bool ok = nv == 0 ? threads == kEwThreads &&
+                                static_cast<long long>(F) * sizeof(float) <= 232448
+                          : nv == 1 && bg_vec_ok(threads, strips, nparts, F, itemsize) &&
+                                !misaligned(x) && !misaligned(g) && !misaligned(dx);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DS_BG_DISPATCH(launch_bias_gelu_bwd,
+                 (x, b, g, dx, db, part, R, F, nv, threads, strips, nparts, s))
+}
+
+// The first kernel a ds_bias_gelu_bwd call with nv and ``threads`` at width
+// F launches, at that launch configuration: out gets
+// ds_ln_fwd_kernel_info's 6 ints.
+int ds_bias_gelu_bwd_kernel_info(int nv, int threads, int F, int x_dtype, int b_dtype,
+                                 int approximate, int* out) {
+  if (F <= 0 || (nv != 0 && (nv != 1 || threads < 32 || threads > kBgThreads ||
+                             threads % 32 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (x_dtype == kDtypeBF16 && b_dtype == kDtypeF32) {
-    return launch_bias_gelu_bwd<__nv_bfloat16, float>(x, b, g, dx, db, part, R, F,
-                                                      approx, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  DS_BG_DISPATCH(bg_bwd_info, (nv, threads, F, out))
+}
+
+// bias_gelu_bwd_reduce_kernel's record, as ds_ln_bwd_kernel_info's
+int ds_bias_gelu_bwd_reduce_info(int* out) {
+  return kernel_info(bias_gelu_bwd_reduce_kernel, 0, kEwThreads, out);
 }
 
 }  // extern "C"

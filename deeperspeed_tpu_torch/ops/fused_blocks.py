@@ -26,11 +26,13 @@ kernels there become hand-written CUDA kernels for Hopper in
 All six are bound by device-memory bytes: on an H100 SXM (3.35 TB/s)
 their least time is (bytes read + bytes written) / 3.35 TB/s, e.g.
 bias+GeLU on (512, 8192) bf16 moves ~16.8 MB, ~5.0 us. The source file
-says how each design keeps intermediates out of device memory and how the
-backwards reduce over rows without atomics. The LN launches (which
-route, how many warps a row, how many threads and blocks, and the
-backwards' partial rows) are decided here, by ``ln_fwd_plan`` and
-``ln_bwd_plan``, and handed to the kernels.
+says how each design keeps intermediates out of device memory, how the
+backwards reduce over rows without atomics, and how bias+GeLU keeps its
+instructions below that bound. The launches (which route, how many warps
+a row or a block, how many threads and blocks, and the backwards'
+partial rows) are decided here, by ``ln_fwd_plan``, ``ln_bwd_plan``,
+``bias_gelu_fwd_plan`` and ``bias_gelu_bwd_plan``, and handed to the
+kernels.
 
 Beside each kernel wrapper sits its plain PyTorch version
 (``ln_fwd_plain``, ``ln_bwd_plain``, ``add_ln_fwd_plain``,
@@ -48,7 +50,9 @@ inside an autograd Function (forward and backward both kernels on CUDA;
 both plain versions on the CPU under mode ``fused``) or the plain math,
 whose gradient autograd derives. The reference's ``_row_block`` geometry
 gate is a TPU VMEM rule and has no counterpart: the CUDA kernels take
-every (R, D) up to the shared-memory limit of the backwards.
+every (R, D) up to the shared-memory limit of the backwards' wide and
+scalar routes (rows of whole 16-byte vectors take bias+GeLU's backward
+at any width).
 """
 
 import ctypes
@@ -71,10 +75,11 @@ _SIGNATURES = {
                   ctypes.c_int),
     "ds_ln_fwd_kernel_info": ([ctypes.c_int] * 6
                               + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
-    "ds_bias_gelu_fwd": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-                         ctypes.c_int),
-    "ds_bwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
+    "ds_bias_gelu_fwd": ([_P, _P, _P, ctypes.c_longlong]
+                         + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    "ds_bias_gelu_fwd_kernel_info": ([ctypes.c_int] * 5
+                                     + [ctypes.POINTER(ctypes.c_int)],
+                                     ctypes.c_int),
     "ds_ln_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
@@ -82,13 +87,17 @@ _SIGNATURES = {
     "ds_ln_bwd_kernel_info": ([ctypes.c_int] * 5
                               + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
     "ds_ln_bwd_reduce_info": ([ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
-    "ds_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, _P], ctypes.c_int),
+    "ds_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong]
+                         + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    "ds_bias_gelu_bwd_kernel_info": ([ctypes.c_int] * 6
+                                     + [ctypes.POINTER(ctypes.c_int)],
+                                     ctypes.c_int),
+    "ds_bias_gelu_bwd_reduce_info": ([ctypes.POINTER(ctypes.c_int)],
+                                     ctypes.c_int),
 }
-# bias+GeLU's backward and the LN backwards' wide route keep fp32 column
-# partials in shared memory (F floats; 2 * D floats) within a block's 227 KB
-# on Hopper
+# the scalar route of bias+GeLU's backward and the LN backwards' wide route
+# keep fp32 column partials in shared memory (F floats; 2 * D floats) within
+# a block's 227 KB on Hopper
 _SMEM_FLOATS = 232448 // 4
 H100_SMS = 132
 _LN_THREADS = 256
@@ -102,6 +111,18 @@ _LN_FWD_THREADS = 256
 _LN_FWD_BLOCKS_PER_SM = 2
 _INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
               "threads", "blocks_per_sm")
+# bias+GeLU's vector route: one 16-byte vector of each row a lane, at most
+# 8 warps (256 threads, the kernels' launch bound) a block and 4 blocks an
+# SM; the backward's partial rows hold at most _BG_PART_FLOATS fp32 values
+# (0.5 MB) wherever one row group a strip stays within them
+_BG_MAX_WARPS = 8
+_BG_BLOCKS_PER_SM = 4
+_BG_PART_FLOATS = 1 << 17
+# the scalar route: 256-thread blocks, the forward's at most 32 an SM, the
+# backward's (one partial row each) at most 2 an SM
+_EW_THREADS = 256
+_EW_BLOCKS_PER_SM = 32
+_BG_SCALAR_BWD_BLOCKS_PER_SM = 2
 
 
 def _lib():
@@ -467,29 +488,116 @@ def bias_gelu_fwd_plain(x, b, approximate):
                   ).to(x.dtype)
 
 
+def _bg_vector_plan(R, F, dtype, aligned, n_sm, most_groups=None):
+    """The vector route's launch of an (R, F) call (None where a row is no
+    whole number of 16-byte vectors or a row tensor is off a 16-byte
+    boundary): column strips of 32 lanes of one vector, row groups of
+    ``warps`` rows at a time, at most ``_BG_BLOCKS_PER_SM`` blocks an SM
+    (and ``most_groups`` row groups, where given); one warp a block while
+    the rows are no more than the row groups that many blocks allow, so
+    that few rows spread over the SMs."""
+    vec = 16 // dtype.itemsize
+    if not aligned or F % vec:
+        return None
+    strips = -(-(F // vec) // 32)
+    most = max(1, _BG_BLOCKS_PER_SM * n_sm // strips)
+    if most_groups is not None:
+        most = min(most, most_groups)
+    if R <= most:
+        warps, groups = 1, R
+    else:
+        warps = min(_BG_MAX_WARPS, -(-R // most))
+        groups = min(-(-R // warps), most)
+    return {"route": "vector", "vectors_per_lane": 1, "strips": strips,
+            "warps_per_block": warps, "threads": 32 * warps,
+            "row_groups": groups, "blocks": strips * groups}
+
+
+@functools.lru_cache(maxsize=1024)
+def bias_gelu_fwd_plan(R, F, dtype, aligned=True, n_sm=H100_SMS) -> dict:
+    """How ``bias_gelu_fwd`` runs an (R, F) call of x's ``dtype``
+    (csrc/fused_blocks.cu says why):
+
+      route             "vector" where a row is whole 16-byte vectors
+                        (``aligned``: x and y start on a 16-byte
+                        boundary), else "scalar"
+      vectors_per_lane  16-byte vectors of a row a lane owns: 1 (0: scalar)
+      strips            column strips of 32 lanes, 32 vectors: the grid's x
+                        (1: scalar)
+      warps_per_block   rows a block works on at once, one a warp
+      threads           threads a block: whole warps, at most 256 (256 on
+                        the scalar route)
+      row_groups        the grid's y: a warp walks rows row_group *
+                        warps_per_block + warp, strided by row_groups *
+                        warps_per_block (the scalar route's blocks)
+      blocks            strips x row_groups (at most 4 an SM; the scalar
+                        route's grid-stride blocks, at most 32 an SM)
+
+    Plans are cached on their arguments: a caller must not change one.
+    """
+    plan = _bg_vector_plan(R, F, dtype, aligned, n_sm)
+    if plan is None:
+        blocks = min(-(-R * F // _EW_THREADS), _EW_BLOCKS_PER_SM * n_sm)
+        plan = {"route": "scalar", "vectors_per_lane": 0, "strips": 1,
+                "warps_per_block": _EW_THREADS // 32,
+                "threads": _EW_THREADS, "row_groups": blocks,
+                "blocks": blocks}
+    return plan
+
+
+def bias_gelu_fwd_kernel_info(R: int, F: int, dtype, b_dtype,
+                              approximate=True) -> dict:
+    """The compiled kernel that ``bias_gelu_fwd`` on aligned (R, F) rows of
+    ``dtype`` and b of ``b_dtype`` (x's or fp32) launches, at its launch
+    configuration: registers, static and dynamic shared memory, local
+    memory a thread (spills), threads and blocks an SM. Builds the library
+    if needed."""
+    plan = bias_gelu_fwd_plan(R, F, dtype)
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_bias_gelu_fwd_kernel_info(
+        plan["vectors_per_lane"], plan["threads"], _DTYPE_CODES[dtype],
+        _DTYPE_CODES[b_dtype], int(bool(approximate)), out),
+        "bias_gelu_fwd info")
+    return dict(zip(_INFO_KEYS, out))
+
+
+def _bg_check(name, x, b, g=None):
+    """Raises unless x is a non-empty (R, F) CUDA tensor the bias+GeLU
+    kernels take, g (when given) of x's shape and dtype, and b (F,) of x's
+    dtype or fp32, all contiguous on x's device."""
+    if x.dim() != 2 or x.numel() == 0:
+        raise ValueError(f"{name} takes a non-empty (R, F) x, got "
+                         f"{tuple(x.shape)}")
+    _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
+    if g is not None:
+        _check_cuda(g, "g", x.device, tuple(x.shape), (x.dtype,))
+    _check_cuda(b, "b", x.device, (x.shape[1],), {x.dtype, torch.float32})
+
+
 def bias_gelu_fwd(x, b, approximate):
     """bias+GeLU forward kernel on x (R, F) fp32 or bf16 and b (F,) of x's
     dtype or fp32; returns y (R, F) in x's dtype. ``approximate`` picks
-    tanh (True) or erf (False) GeLU. A CPU tensor takes
-    ``bias_gelu_fwd_plain``."""
+    tanh (True) or erf (False) GeLU. The launch is ``bias_gelu_fwd_plan``'s:
+    16-byte vectors at fixed columns a lane where the rows allow, else a
+    scalar grid-stride pass. A CPU tensor takes ``bias_gelu_fwd_plain``."""
     if x.device.type == "cpu":
         return bias_gelu_fwd_plain(x, b, approximate)
     if x.device.type != "cuda":
-        raise ValueError(f"bias_gelu_fwd takes a CPU or CUDA tensor, got "
-                         f"{x.device}")
-    if x.dim() != 2 or x.numel() == 0:
-        raise ValueError(f"bias_gelu_fwd takes a non-empty (R, F) x, got "
-                         f"{tuple(x.shape)}")
+        raise _not_cuda("bias_gelu_fwd", x)
+    _bg_check("bias_gelu_fwd", x, b)
     R, Fd = x.shape
-    _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
-    _check_cuda(b, "b", x.device, (Fd,), {x.dtype, torch.float32})
     y = torch.empty_like(x)
+    plan = bias_gelu_fwd_plan(R, Fd, x.dtype,
+                              aligned=x.data_ptr() % 16 == 0
+                              and y.data_ptr() % 16 == 0,
+                              n_sm=_sm_count(x.device.index))
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.ds_bias_gelu_fwd(x.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                   x.numel(), Fd, int(bool(approximate)),
-                                   _DTYPE_CODES[x.dtype],
-                                   _DTYPE_CODES[b.dtype], _stream(x.device))
+        err = lib.ds_bias_gelu_fwd(
+            x.data_ptr(), b.data_ptr(), y.data_ptr(), R, Fd,
+            int(bool(approximate)), _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[b.dtype], plan["vectors_per_lane"], plan["threads"],
+            plan["strips"], plan["row_groups"], _stream(x.device))
     _raise_on(err, "bias_gelu_fwd")
     bias_gelu_fwd.launches += 1
     return y
@@ -522,36 +630,94 @@ def bias_gelu_bwd_plain(x, b, g, approximate):
     return dx.to(x.dtype), dx.sum(dim=0)
 
 
+@functools.lru_cache(maxsize=1024)
+def bias_gelu_bwd_plan(R, F, dtype, aligned=True, n_sm=H100_SMS) -> dict:
+    """How ``bias_gelu_bwd`` runs an (R, F) call of x's ``dtype``
+    (csrc/fused_blocks.cu says why): ``bias_gelu_fwd_plan``'s keys, the
+    row groups also held to ``_BG_PART_FLOATS // F`` (at least one), and
+
+      partial_rows      fp32 partial rows of db the first launch writes
+                        (one a row group; the scalar route's one a block,
+                        min(R, 2 an SM))
+      scratch_floats    partial_rows x F, the scratch the wrapper allocates
+      smem_bytes        the first launch's dynamic shared memory a block
+                        (the scalar route's F fp32 partials; none on the
+                        vector route, whose warps' tree is static)
+      reduce_blocks     blocks of the second launch, which adds the
+                        partial rows per column in a fixed order (8 columns
+                        a block)
+
+    Plans are cached on their arguments: a caller must not change one.
+    """
+    plan = _bg_vector_plan(R, F, dtype, aligned, n_sm,
+                           max(1, _BG_PART_FLOATS // F))
+    if plan is None:
+        blocks = min(R, _BG_SCALAR_BWD_BLOCKS_PER_SM * n_sm)
+        plan = {"route": "scalar", "vectors_per_lane": 0, "strips": 1,
+                "warps_per_block": _EW_THREADS // 32,
+                "threads": _EW_THREADS, "row_groups": blocks,
+                "blocks": blocks, "smem_bytes": 4 * F}
+    else:
+        plan["smem_bytes"] = 0
+    plan.update(partial_rows=plan["row_groups"],
+                scratch_floats=plan["row_groups"] * F,
+                reduce_blocks=-(-F // _LN_REDUCE_COLS))
+    return plan
+
+
+def bias_gelu_bwd_kernel_info(R: int, F: int, dtype, b_dtype,
+                              approximate=True) -> dict:
+    """``bias_gelu_fwd_kernel_info``'s record for the first kernel that
+    ``bias_gelu_bwd`` on aligned (R, F) rows launches."""
+    plan = bias_gelu_bwd_plan(R, F, dtype)
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_bias_gelu_bwd_kernel_info(
+        plan["vectors_per_lane"], plan["threads"], F,
+        _DTYPE_CODES[dtype], _DTYPE_CODES[b_dtype],
+        int(bool(approximate)), out), "bias_gelu_bwd info")
+    return dict(zip(_INFO_KEYS, out))
+
+
+def bias_gelu_bwd_reduce_info() -> dict:
+    """``bias_gelu_fwd_kernel_info``'s record for ``bias_gelu_bwd``'s
+    second launch, the reduction of the partial rows."""
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _raise_on(_lib().ds_bias_gelu_bwd_reduce_info(out),
+              "bias_gelu_bwd reduce info")
+    return dict(zip(_INFO_KEYS, out))
+
+
 def bias_gelu_bwd(x, b, g, approximate):
     """bias+GeLU backward kernel on x, g (R, F) fp32 or bf16 and b (F,) of
-    x's dtype or fp32: returns (dx (R, F) in x's dtype, db (F,) fp32). A
-    CPU tensor takes ``bias_gelu_bwd_plain``."""
+    x's dtype or fp32: returns (dx (R, F) in x's dtype, db (F,) fp32). The
+    launches are ``bias_gelu_bwd_plan``'s: dx and fp32 partial rows of db,
+    then their sum per column in a fixed order (no atomics: a relaunch
+    gives the same bits). A CPU tensor takes ``bias_gelu_bwd_plain``."""
     if x.device.type == "cpu":
         return bias_gelu_bwd_plain(x, b, g, approximate)
     if x.device.type != "cuda":
-        raise ValueError(f"bias_gelu_bwd takes a CPU or CUDA tensor, got "
-                         f"{x.device}")
-    if x.dim() != 2 or x.numel() == 0:
-        raise ValueError(f"bias_gelu_bwd takes a non-empty (R, F) x, got "
-                         f"{tuple(x.shape)}")
+        raise _not_cuda("bias_gelu_bwd", x)
+    _bg_check("bias_gelu_bwd", x, b, g)
     R, Fd = x.shape
-    if Fd > _SMEM_FLOATS:
-        raise ValueError(f"bias_gelu_bwd takes F <= {_SMEM_FLOATS}, got {Fd}")
-    _check_cuda(x, "x", x.device, dtypes=_DTYPE_CODES)
-    _check_cuda(g, "g", x.device, (R, Fd), (x.dtype,))
-    _check_cuda(b, "b", x.device, (Fd,), {x.dtype, torch.float32})
-    lib = _lib()
     dx = torch.empty_like(x)
+    plan = bias_gelu_bwd_plan(
+        R, Fd, x.dtype,
+        aligned=all(t.data_ptr() % 16 == 0 for t in (x, g, dx)),
+        n_sm=_sm_count(x.device.index))
+    if plan["route"] == "scalar" and Fd > _SMEM_FLOATS:
+        raise ValueError(f"bias_gelu_bwd takes F <= {_SMEM_FLOATS} on rows "
+                         f"that are no whole 16-byte vectors, got {Fd}")
     db = torch.empty(Fd, dtype=torch.float32, device=x.device)
-    part = torch.empty(lib.ds_bwd_blocks(R) * Fd, dtype=torch.float32,
+    part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
                        device=x.device)
+    lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.ds_bias_gelu_bwd(x.data_ptr(), b.data_ptr(), g.data_ptr(),
-                                   dx.data_ptr(), db.data_ptr(),
-                                   part.data_ptr(), R, Fd,
-                                   int(bool(approximate)),
-                                   _DTYPE_CODES[x.dtype],
-                                   _DTYPE_CODES[b.dtype], _stream(x.device))
+        err = lib.ds_bias_gelu_bwd(
+            x.data_ptr(), b.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            db.data_ptr(), part.data_ptr(), R, Fd, int(bool(approximate)),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[b.dtype],
+            plan["vectors_per_lane"], plan["threads"], plan["strips"],
+            plan["partial_rows"], _stream(x.device))
     _raise_on(err, "bias_gelu_bwd")
     bias_gelu_bwd.launches += 1
     return dx, db

@@ -811,3 +811,73 @@ def test_cuda_ln_forwards_match_plain_versions_and_relaunch():
         for a, p in zip(fb.ln_fwd(x, w, w, 1e-5),
                         fb.ln_fwd_plain(x, w, w, 1e-5)):
             _close(a, p, tol, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_bias_gelu_pair_matches_plain_versions_and_relaunches():
+    """bias_gelu_fwd and bias_gelu_bwd on the vector route ((1, 8192), (8,
+    8192), (37, 3072), (1000, 4096), (48, 24576), (4096, 1024); (37, 1000)
+    and fp32's (37, 8188), whose last column strip is partial) and the
+    scalar one (width 1001, bf16's 8188, rows off a 16-byte boundary),
+    bf16 and fp32, b in x's dtype and in fp32, tanh and erf, on inputs
+    with |x| up to 60 beside normal ones: no NaN, the reference's
+    tolerances (gradients 10x) and the relative L2 limit against the plain
+    versions; each call counts one launch, and a second launch gives the
+    same bits (y, dx and db)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = ((1, 8192), (8, 8192), (37, 3072), (1000, 4096), (48, 24576),
+              (4096, 1024), (37, 1000), (37, 8188), (37, 1001))
+    for dtype, tol, rel in ((torch.bfloat16, 2e-2, 1e-2),
+                            (torch.float32, 2e-5, 1e-4)):
+        vec = 16 // dtype.itemsize
+        for F in (1000, 8188):
+            if F % vec == 0:
+                plan = fb.bias_gelu_bwd_plan(37, F, dtype)
+                assert plan["route"] == "vector"
+                assert plan["strips"] * 32 > F // vec
+        for R, F in shapes:
+            for b_dtype in {dtype, torch.float32}:
+                for approximate in (True, False):
+                    for scale in (2.0, 60.0):
+                        x = ((torch.rand(R, F, generator=gen, device="cuda")
+                              * 2 - 1) * scale).to(dtype)
+                        b = torch.randn(F, generator=gen,
+                                        device="cuda").to(b_dtype)
+                        g = torch.randn(R, F, generator=gen,
+                                        device="cuda").to(dtype)
+                        before = _bias_gelu_launches()
+                        y = fb.bias_gelu_fwd(x, b, approximate)
+                        dx, db = fb.bias_gelu_bwd(x, b, g, approximate)
+                        assert _bias_gelu_launches() == (before[0] + 1,
+                                                        before[1] + 1)
+                        for t in (y, dx, db):
+                            assert bool(torch.isfinite(t.float()).all())
+                        _close(y, fb.bias_gelu_fwd_plain(x, b, approximate),
+                               tol, rel)
+                        for a, p in zip((dx, db), fb.bias_gelu_bwd_plain(
+                                x, b, g, approximate)):
+                            _close(a, p, 10 * tol, rel)
+                        assert torch.equal(fb.bias_gelu_fwd(x, b, approximate),
+                                           y)
+                        again = fb.bias_gelu_bwd(x, b, g, approximate)
+                        assert torch.equal(again[0], dx)
+                        assert torch.equal(again[1], db)
+        # rows that start off a 16-byte boundary take the scalar route
+        buf = torch.randn(65 * 1024 + 1, generator=gen,
+                          device="cuda").to(dtype)
+        x = buf[1:].view(65, 1024)
+        b = torch.randn(1024, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(65, 1024, generator=gen, device="cuda").to(dtype)
+        assert fb.bias_gelu_bwd_plan(65, 1024, dtype, aligned=False)[
+            "route"] == "scalar"
+        for approximate in (True, False):
+            _close(fb.bias_gelu_fwd(x, b, approximate),
+                   fb.bias_gelu_fwd_plain(x, b, approximate), tol, rel)
+            for a, p in zip(fb.bias_gelu_bwd(x, b, g, approximate),
+                            fb.bias_gelu_bwd_plain(x, b, g, approximate)):
+                _close(a, p, 10 * tol, rel)
+
+
+def _bias_gelu_launches():
+    return fb.bias_gelu_fwd.launches, fb.bias_gelu_bwd.launches
