@@ -95,7 +95,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bias+GeLU launches and 1 LayerNorm launch per forward. Every request
    must finish by length with 32 tokens. The first-token logits of two
    requests are recomputed with the kernels off and must agree with the
-   kernel path within 0.05 of the largest |logit|.
+   kernel path within 0.05 of the largest |logit|. The engine runs under
+   a "monitor" block (SERVING_MONITOR: a strict watchdog, the metrics
+   endpoint on an ephemeral port, the cost index) and the serving
+   config's "slo" block (SERVING_SLO): its trace must hold the
+   reference's serving/* spans and instants (SERVING_EVENTS) and pass
+   strict validation, the endpoint must serve the serving and SLO
+   metrics (SERVING_METRICS), the port's reqledger must build a ledger
+   of every request from the trace, every cost record must be free of
+   errors and the decode step's signature must never change. Then a
+   second, small engine under a monitor with near_oom_fraction 0.02 and
+   a 4 GiB live buffer trips the near-OOM post-mortem at its first
+   sample: its top-K live tensors go through the flight recorder, and
+   ``recover`` must read them back from flight.bin, the 4 GiB buffer
+   first.
 6. Training at full width: GPT-NeoX-1.3B (max_seq 1024, remat "matmuls",
    ce_chunk 0, bf16, random weights from a fixed seed) through
    deeperspeed_tpu_torch.initialize -> Engine.train_batch with the keys
@@ -105,18 +118,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launch over the 16 bf16 leaves) and a 100-step warmup (WARMUP_STEPS),
    on one 16 x 1025 batch of data/corpus_tokens.npy, for 6 steps; after
    step 3, outside the step timings, Engine.save_checkpoint writes
-   build/smoke_ckpt. First, on one
+   build/smoke_ckpt. The engine runs under configs/gpt_125m_obs.json's
+   "monitor" block (perf, memwatch, the flight recorder, a warning
+   watchdog) cut as PERF.md section 4 lists: obs_dir in a temporary
+   directory, metrics_port 0, tb_export_interval 3. First, on one
    micro-batch, the kernel path's loss and grads are held against the
    plain path's (kernels off, attn_impl "xla"): losses within 0.5 %, grad
    norms within 5 %, cosine of the grads >= 0.99 (bf16 limits: the two
-   paths round at different places). Then the counters are zeroed, the 6
-   steps run, and the counters are read: every kernel launched, at the
-   counts the remat policy implies. Losses must be finite and the last
-   below the first, no step skipped, every grad norm finite and > 0. The
-   final params and moments are copied to the host (with a sha256
-   digest). A seventh step then runs under torch.profiler: wall and
-   device time, the device's busy share, device time by kernel family
-   and the top kernels.
+   paths round at different places), and a cost index captures both
+   paths: they must count the same flops. Then the counters are zeroed,
+   the 6 steps run, and the counters are read: every kernel launched, at
+   the counts the remat policy implies. Losses must be finite and the
+   last below the first, no step skipped, every grad norm finite and >
+   0. The monitor's gates: every cost record free of errors, the
+   watchdog's counts after step 6 those after step 1 (and it never
+   fired), train_steps_total 6 read over HTTP from the endpoint, the
+   trace holding TRAIN_EVENTS; the step's MFU, the cost index's flops and
+   bytes and the analytic 6 N tokens are printed. The final params and
+   moments are copied to the host (with a sha256 digest). A seventh step
+   then runs under torch.profiler: wall and device time, the device's
+   busy share, device time by kernel family, the top kernels, and the
+   "other" family split by kernel name. Last, the monitor is shut down:
+   its trace and flight files must be under obs_dir and the trace must
+   pass strict validation.
 7. BERT kernels against their plain versions: the residual-add LayerNorm
    pair (add_ln_fwd/add_ln_bwd) at (R, 1024) for R in ADD_LN_ROWS (the
    BERT-large path's 8192 rows and ragged counts) and at (2048, 2048);
@@ -175,7 +199,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the final params and moments (torch.equal, and their digest), must
    equal phase 6's bit for bit, and the launches per step phase 6's. The
    checkpoint's bytes and the save and load seconds are printed, and the
-   directory is deleted.
+   directory is deleted. It runs without a monitor block: its equality
+   with phase 6 shows the monitor changed no number.
 11. Block-sparse attention kernels (run after phase 9) against their
    plain versions: sparse_fwd and sparse_bwd at the path shape
    (1, 16, 4096, 64) bf16 over SPARSE_LAYOUTS (the path's Fixed block-16
@@ -240,9 +265,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    initialize -> train_batch with the blocks of configs/gpt_125m_comm.json
    (ZeRO 1, bf16 with an fp32 master, Adam 6e-4 with weight decay 0.1,
    WarmupDecayLR, clipping 1.0, the int8 comm block with error feedback
-   and hierarchical "auto", which on one host is the flat schedule) cut
-   as PERF.md section 4 lists (no "monitor" block, 2 ranks x micro-batch
-   16 x 2 accumulation steps, warmup DP_WARMUP_STEPS) plus "kernels":
+   and hierarchical "auto", which on one host is the flat schedule, and
+   its "monitor" block as written) cut as PERF.md section 4 lists (2
+   ranks x micro-batch 16 x 2 accumulation steps, warmup
+   DP_WARMUP_STEPS) plus "kernels":
    {"mode": "auto"}: 6 steps, then 6 more from the same seed with
    "comm": {"mode": "fp32"}. Gates: on one micro-batch rank 0's kernel
    path agrees with the plain path (phase 6's limits); after every step
@@ -254,7 +280,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    this depth plus, per bucket, 2 quantize_rows, 1 dequant_sum_rows and
    1 dequant_rows under int8 and none of the three under fp32 comm;
    each rank's fp32 master and moments at most ZERO1_STATE_RATIO of a
-   ZeRO 0 engine's. It prints step time, tokens/s, peak memory per rank,
+   ZeRO 0 engine's; each rank's monitor counts n_buckets and the modeled
+   wire bytes per step for 6 steps (comm_buckets, comm_wire_bytes) and 6
+   train_steps_total; each rank saves its int8 run's trace under its own
+   role lane (trainer.h0, trainer.h1: two ranks never write one path),
+   and ``aggregate`` merges the two into one timeline that passes strict
+   validation and holds both ranks' comm/reduce spans. It prints step
+   time, tokens/s, peak memory per rank,
    the buckets, the modeled wire bytes and the bytes staged through host
    memory per step, and the reduction's share of the step. A rank that
    raises fails the run. Every source is built before the spawn.
@@ -421,6 +453,35 @@ ADAM_HYPER = ((True, 0.0, True), (True, 0.01, True), (False, 0.01, True),
               (True, 0.01, False))
 CKPT_DIR = ROOT / "build" / "smoke_ckpt"
 SAVE_AFTER_STEP = 3
+# the monitor (phases 5, 6 and 14): phase 6 takes configs/gpt_125m_obs.json's
+# "monitor" block with the cuts PERF.md section 4 lists (obs_dir in a
+# temporary directory, an ephemeral metrics port, the TB export every 3
+# steps); serving runs a strict watchdog, the endpoint and the cost index
+OBS_CONFIG = ROOT / "configs" / "gpt_125m_obs.json"
+OBS_TB_EXPORT_INTERVAL = 3
+SERVING_MONITOR = {"watchdog": "strict", "metrics_port": 0, "perf": True}
+# tail-latency targets of the serving run's "slo" block: they drive the
+# burn-rate gauges and slo/violation instants, they gate nothing
+SERVING_SLO = {"ttft_p99_ms": 1000.0, "tpot_p99_ms": 50.0,
+               "e2e_p99_ms": 5000.0}
+SERVING_EVENTS = {"serving/step", "serving/prefill", "serving/decode",
+                  "req/submit", "serving/admit", "serving/finish",
+                  "perf/compiled", "perf/step", "mem/watermark",
+                  "kernels/fused_layer_norm", "kernels/fused_bias_gelu"}
+SERVING_METRICS = ("serving_ttft_seconds_bucket",
+                   "serving_tokens_generated_total",
+                   "serving_decode_steps_total",
+                   "serving_requests_finished_total",
+                   "serving_finish_total", "slo_burn_rate",
+                   "mem_bytes_in_use", "perf_mfu", "perf_flops")
+TRAIN_EVENTS = {"run/start", "mesh/build", "engine/train_batch",
+                "perf/compiled", "perf/step", "mem/watermark",
+                "kernels/fused_layer_norm", "kernels/fused_bias_gelu",
+                "kernels/fused_adam"}
+# the near-OOM trip: a 4 GiB buffer (larger than any other live tensor
+# then) puts the allocator above 2 % of the card at the first sample
+NEAR_OOM_FRACTION = 0.02
+NEAR_OOM_BALLAST = 4 << 30
 # block-sparse attention (phases 11-12) at BERT-large's attention width
 SPARSE_HEADS, SPARSE_DH, SPARSE_D = 16, 64, 1024
 SPARSE_SEQ = 4096
@@ -2083,7 +2144,7 @@ def randomize_affine(params, gen):
                                       device=v.device))
 
 
-def serving_phase(fb, card):
+def serving_phase(fb, card, obs):
     from deeperspeed_tpu_torch.models.generation import init_cache
     from deeperspeed_tpu_torch.models.gpt import get_preset, init_params
     from deeperspeed_tpu_torch.ops import kernel_config
@@ -2094,14 +2155,16 @@ def serving_phase(fb, card):
     config = load_config(json.dumps({
         "kernels": {"mode": "auto"},
         "serving": {"num_slots": 8, "block_size": 16, "num_blocks": 1024,
-                    "max_seq_len": 1024},
+                    "max_seq_len": 1024, "slo": SERVING_SLO},
+        "monitor": dict(SERVING_MONITOR, obs_dir=str(obs)),
     }))
     kernel_config.configure(**kernel_config.validate(config["kernels"]))
     cfg = get_preset("neox-1.3b", dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
     randomize_affine(params, gen)
-    engine = ServingEngine(cfg, params, config["serving"])
+    engine = ServingEngine(cfg, params, config["serving"],
+                           monitor_config=config["monitor"])
 
     lens = [16, 40, 100, 220, 380, 550, 730, 900]
     host = torch.Generator().manual_seed(SEED)
@@ -2125,6 +2188,7 @@ def serving_phase(fb, card):
     wall_s = time.perf_counter() - t0
     launches = {"ln_fwd": fb.ln_fwd.launches,
                 "bias_gelu_fwd": fb.bias_gelu_fwd.launches}
+    telemetry = serving_telemetry(engine, rids)
 
     forwards = engine.metrics.prefills + engine.metrics.decode_steps
     for name, n in launches.items():
@@ -2177,12 +2241,103 @@ def serving_phase(fb, card):
         "decode_tokens_per_s": decode_tokens / decode_s,
         "decode_step_ms": decode_s / s["decode_steps"] * 1e3,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "first_token_logits": logit_errs,
+        "first_token_logits": logit_errs, "telemetry": telemetry,
     }
     print("serving: " + json.dumps(report), flush=True)
     print("decode profile: " + json.dumps(profile_decode(engine, prompts)),
           flush=True)
     return launches
+
+
+def serving_telemetry(engine, rids):
+    """The serving run's monitor, read after the main path: the
+    reference's serving/* spans and instants in a trace that passes strict
+    validation, the SLO and serving metrics in the registry (and over
+    HTTP), a request ledger with every request, the cost index's records
+    free of errors and the decode step's MFU, and a silent watchdog."""
+    import urllib.request
+
+    from deeperspeed_tpu_torch.monitor import reqledger, validate_events
+
+    mon = engine.telemetry
+    events = mon.tracer.to_dict()["traceEvents"]
+    names = {e["name"] for e in events}
+    missing = SERVING_EVENTS - names
+    problems = validate_events(events, strict=True)
+    if missing or problems:
+        raise AssertionError(f"serving trace: missing {sorted(missing)}, "
+                             f"problems {problems[:5]}")
+    with urllib.request.urlopen(mon.metrics_server.url, timeout=10) as r:
+        scraped = r.read().decode()
+    absent = [m for m in SERVING_METRICS if f"\n{m}" not in scraped]
+    if absent:
+        raise AssertionError(f"serving metrics {absent} not on the endpoint")
+    ledger = reqledger.build_ledger(events)
+    if sorted(ledger["requests"]) != sorted(rids) or \
+            ledger["ttft"]["count"] != len(rids):
+        raise AssertionError(f"request ledger covers "
+                             f"{sorted(ledger['requests'])}, expected "
+                             f"{sorted(rids)}")
+    records = mon.cost_index.records()
+    failed = {k: r.error for k, r in records.items() if r.error}
+    if failed or "serving/decode_step" not in records:
+        raise AssertionError(f"serving cost records: {sorted(records)}, "
+                             f"failed {failed}")
+    if mon.watchdog.fired:
+        raise AssertionError(f"the decode step met a new signature: "
+                             f"{mon.watchdog.fired}")
+    mfu = [e["args"]["mfu"] for e in events if e["name"] == "perf/step"]
+    dec = records["serving/decode_step"]
+    return {"events": len(events), "dropped": mon.tracer.dropped,
+            "watchdog_counts": mon.watchdog.counts(),
+            "decode_flops": dec.flops, "decode_bytes": dec.bytes_accessed,
+            "decode_peak_bytes": dec.peak_bytes,
+            "decode_mfu_median": statistics.median(mfu),
+            "cost_entries": sorted(records),
+            "slo": engine.metrics.slo_tracker.summary(),
+            "ledger_ttft": ledger["ttft"], "ledger_e2e": ledger["e2e"],
+            "ledger_p99_victim": ledger["p99_victim"]}
+
+
+def near_oom_phase(obs):
+    """A second, small serving engine whose monitor trips the near-OOM
+    post-mortem at its first sample (near_oom_fraction NEAR_OOM_FRACTION
+    of the card): its top-K live CUDA tensors go through the flight
+    recorder, and ``recover`` must read them back from flight.bin."""
+    from deeperspeed_tpu_torch.models.gpt import GPTConfig, init_params
+    from deeperspeed_tpu_torch.monitor import (get_monitor, shutdown_monitor)
+    from deeperspeed_tpu_torch.monitor.flight import recover
+    from deeperspeed_tpu_torch.serving import ServingEngine
+
+    cfg = GPTConfig(vocab_size=512, n_layer=2, n_head=4, d_model=256,
+                    max_seq=128, dtype=torch.bfloat16)
+    params = init_params(SEED, cfg, device="cuda", dtype=torch.bfloat16)
+    flight = str(Path(obs) / "near_oom.flight.bin")
+    engine = ServingEngine(
+        cfg, params, {"num_slots": 2, "block_size": 16, "num_blocks": 32,
+                      "max_seq_len": 128},
+        monitor_config={"flight_path": flight, "watchdog": "strict",
+                        "near_oom_fraction": NEAR_OOM_FRACTION})
+    # a live buffer the post-mortem must name
+    ballast = torch.empty(NEAR_OOM_BALLAST, dtype=torch.uint8, device="cuda")
+    engine.submit(list(range(1, 17)), max_new_tokens=4)
+    engine.run()
+    mw = get_monitor().memwatch
+    shutdown_monitor(save=False)
+    snap = recover(flight)
+    heads = [e for e in snap.events if e["name"] == "mem/postmortem"]
+    rows = [e["args"] for e in snap.events if e["name"] == "mem/buffer"]
+    top = max((r["nbytes"] for r in rows), default=0)
+    report = {"postmortems": mw.postmortems, "recovered": len(snap.events),
+              "torn": snap.torn, "buffers": rows[:3],
+              "reason": heads[0]["args"]["reason"] if heads else None}
+    print("near-oom: " + json.dumps(report), flush=True)
+    if not heads or not rows or mw.postmortems < 1 or \
+            top != ballast.untyped_storage().nbytes():
+        raise AssertionError(f"near-OOM post-mortem not recovered from "
+                             f"{flight}: {report}")
+    del engine, params, ballast
+    return report
 
 
 def profile_decode(engine, prompts, new=8, top=8):
@@ -2245,19 +2400,31 @@ def training_config():
     return config
 
 
-def compare_paths(engine, kernel_loss, plain_loss, batch, kernels_block):
+def compare_paths(engine, kernel_loss, plain_loss, batch, kernels_block,
+                  count=False):
     """Loss and grads of one micro-batch through the kernel path
     (``kernel_loss`` under ``kernels_block``) and the plain path
     (``plain_loss``, kernels off) from the engine's params: relative loss
-    difference, both grad norms, and the cosine of the flattened grads."""
+    difference, both grad norms, and the cosine of the flattened grads.
+    With ``count``, a cost index (of its own, emitting nothing) captures
+    each path's loss and grads: both must count the same flops."""
+    from contextlib import nullcontext
+
+    from deeperspeed_tpu_torch.monitor.perf import CompiledCostIndex
+    from deeperspeed_tpu_torch.monitor.watchdog import SignatureCache
     from deeperspeed_tpu_torch.ops import kernel_config
     from deeperspeed_tpu_torch.ops.adam import tree_leaves
 
     leaves = tree_leaves(engine.params)
+    index = CompiledCostIndex(emit=False)
     out = {}
     for name, loss_fn, block in (("kernels", kernel_loss, kernels_block),
                                  ("plain", plain_loss, {"mode": "off"})):
-        with kernel_config.override(**block):
+        sigs = SignatureCache()
+        sigs.record(engine.params, batch)
+        with kernel_config.override(**block), (
+                index.capture(name, sigs, engine.device) if count
+                else nullcontext()):
             loss = loss_fn(engine.params, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -2274,6 +2441,16 @@ def compare_paths(engine, kernel_loss, plain_loss, batch, kernels_block):
            "grad_norm_rel_diff": abs(nk - np_) / np_,
            "grad_cosine": dot / (nk * np_)}
     del out, gk, gp
+    if count:
+        recs = index.records()
+        res["cost"] = {k: {"flops": r.flops,
+                           "recompute_flops": r.recompute_flops,
+                           "bytes": r.bytes_accessed, "error": r.error}
+                       for k, r in recs.items()}
+        if any(r.error for r in recs.values()) or \
+                recs["kernels"].flops != recs["plain"].flops:
+            raise AssertionError(f"the cost index counts the kernel and "
+                                 f"plain paths apart: {res['cost']}")
     if not (res["loss_rel_diff"] <= LOSS_RTOL
             and res["grad_norm_rel_diff"] <= GNORM_RTOL
             and res["grad_cosine"] >= MIN_COSINE):
@@ -2353,11 +2530,13 @@ def kernel_family(name):
             else "other")
 
 
-def profile_training(engine, batch, top=10):
+def profile_training(engine, batch, top=10, other_top=12):
     """Where a training step's time goes, after the main run has been
     read: one more train_batch under torch.profiler. Reports wall time,
     device kernel time, the busy share, device time per kernel family
-    (the port's kernels by name, GEMMs, the rest) and the top kernels."""
+    (the port's kernels by name, GEMMs, the rest), the top kernels, and
+    the "other" family split by kernel name (its ``other_top`` largest,
+    with their calls and device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2376,6 +2555,7 @@ def profile_training(engine, batch, top=10):
         fam = kernel_family(e.key)
         families[fam] = families.get(fam, 0.0) + e.self_device_time_total
     device_us = sum(families.values())
+    other = [e for e in kernels if kernel_family(e.key) == "other"]
     return {
         "wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
         "device_busy_share": device_us / 1e6 / wall,
@@ -2384,10 +2564,25 @@ def profile_training(engine, batch, top=10):
         "top_kernels": [{"name": e.key[:80], "calls": e.count,
                          "device_ms": e.self_device_time_total / 1e3}
                         for e in kernels[:top]],
+        "other_kernels": len(other),
+        "other_top_kernels": [
+            {"name": e.key[:120], "calls": e.count,
+             "device_ms": e.self_device_time_total / 1e3}
+            for e in other[:other_top]],
     }
 
 
-def training_phase(card):
+def obs_monitor(obs):
+    """configs/gpt_125m_obs.json's "monitor" block, cut for this run:
+    obs_dir in ``obs``, an ephemeral metrics port, the TB export every
+    OBS_TB_EXPORT_INTERVAL steps."""
+    with open(OBS_CONFIG) as f:
+        block = json.load(f)["monitor"]
+    return dict(block, obs_dir=str(obs), metrics_port=0,
+                tb_export_interval=OBS_TB_EXPORT_INTERVAL)
+
+
+def training_phase(card, obs):
     """GPT-NeoX-1.3B through initialize -> train_batch; see the module
     docstring, phase 6. Returns the launch counts of the 6-step run and
     the launches per step."""
@@ -2399,8 +2594,10 @@ def training_phase(card):
     cfg = get_preset("neox-1.3b", max_seq=1024, remat_policy="matmuls",
                      ce_chunk=0, dtype=torch.bfloat16)
     config = training_config()
+    config["monitor"] = obs_monitor(obs)
     print(f"training: scheduler warmup_num_steps overridden 1000 -> "
-          f"{WARMUP_STEPS}", flush=True)
+          f"{WARMUP_STEPS}; monitor {json.dumps(config['monitor'])}",
+          flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
     randomize_affine(params, gen)
@@ -2417,19 +2614,25 @@ def training_phase(card):
         parity = compare_paths(
             engine, make_gpt(cfg)[2],
             make_gpt(dataclasses.replace(cfg, attn_impl="xla"))[2],
-            torch.from_numpy(batch[:micro]).cuda(), config["kernels"])
+            torch.from_numpy(batch[:micro]).cuda(), config["kernels"],
+            count=True)
         print("training parity: " + json.dumps(parity), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         saved = {}
+        watched = {}
 
-        def save(step):
+        def after_step(step):
+            if step == 1:
+                watched["after_step_1"] = engine.monitor.watchdog.counts()
             if step == SAVE_AFTER_STEP:
                 saved.update(save_checkpoint(engine, sched))
 
         run = run_steps(engine, batch, kernel_counters(), TRAIN_STEPS,
-                        after_step=save)
+                        after_step=after_step)
         final = host_state(engine)
+        telemetry = training_telemetry(engine, watched["after_step_1"],
+                                       rows * cfg.max_seq)
 
     gas = config["gradient_accumulation_steps"]
     expected = {"flash_fwd": cfg.n_layer * gas, "flash_bwd": cfg.n_layer * gas,
@@ -2459,13 +2662,15 @@ def training_phase(card):
         "launches_per_step": per_step, "parity": parity,
         "checkpoint": {k: v for k, v in saved.items()
                        if k != "scheduler"},
-        "final_digest": final["digest"],
+        "final_digest": final["digest"], "telemetry": telemetry,
     }
     print("training: " + json.dumps(report), flush=True)
     per_step = check_run(run, engine, expected, TRAIN_STEPS)
     with kernel_config.override(**config["kernels"]):
         print("training profile: " + json.dumps(profile_training(
             engine, batch)), flush=True)
+    print("training monitor files: " + json.dumps(close_monitor(obs)),
+          flush=True)
     del engine, sched
     gc.collect()
     torch.cuda.empty_cache()
@@ -2473,6 +2678,75 @@ def training_phase(card):
              "grad_norms": run["grad_norms"][SAVE_AFTER_STEP:],
              "final": final, "checkpoint": saved, "expected": expected}
     return run["launches"], per_step, after
+
+
+def training_telemetry(engine, after_step_1, tokens):
+    """Phase 6's monitor, read after the 6 steps: every cost record free of
+    errors, the watchdog's counts as after step 1 (and never fired), 6
+    optimizer steps read over HTTP from the endpoint, the trace's names;
+    and the step's MFU, the cost index's flops and bytes beside the
+    analytic 6 N tokens model flops."""
+    import urllib.request
+
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    mon = engine.monitor
+    model_flops = 6 * sum(p.numel() for p in tree_leaves(engine.params)) \
+        * tokens
+    records = mon.cost_index.records()
+    failed = {k: r.error for k, r in records.items() if r.error}
+    if failed or "engine/train_step" not in records:
+        raise AssertionError(f"cost records {sorted(records)}, failed "
+                             f"{failed}")
+    counts = mon.watchdog.counts()
+    if counts != after_step_1 or mon.watchdog.fired:
+        raise AssertionError(f"watchdog counts {after_step_1} after step 1, "
+                             f"{counts} after step {TRAIN_STEPS}; fired "
+                             f"{mon.watchdog.fired}")
+    with urllib.request.urlopen(mon.metrics_server.url, timeout=10) as r:
+        scraped = r.read().decode()
+    if f"\ntrain_steps_total {TRAIN_STEPS}\n" not in scraped:
+        raise AssertionError(f"train_steps_total over HTTP is not "
+                             f"{TRAIN_STEPS}: " + "".join(
+                                 l for l in scraped.splitlines(True)
+                                 if l.startswith("train_")))
+    events = mon.tracer.events()
+    missing = TRAIN_EVENTS - {e["name"] for e in events}
+    if missing:
+        raise AssertionError(f"training trace lacks {sorted(missing)}")
+    step = records["engine/train_step"]
+    mfu = [e["args"]["mfu"] for e in events if e["name"] == "perf/step"]
+    return {"mfu_per_step": mfu,
+            "verdicts": [e["args"]["verdict"] for e in events
+                         if e["name"] == "perf/step"],
+            "flops": step.flops, "recompute_flops": step.recompute_flops,
+            "bytes": step.bytes_accessed, "peak_bytes": step.peak_bytes,
+            "model_flops_6nt": model_flops,
+            "flops_over_6nt": step.flops / model_flops,
+            "watchdog_counts": counts, "events": len(events),
+            "dropped": mon.tracer.dropped,
+            "hbm_peak": max(e["args"].get("hbm_peak", 0) for e in events
+                            if e["name"] == "engine/train_batch")}
+
+
+def close_monitor(obs):
+    """Shut the installed monitor down (saving its trace), then require
+    its trace and flight files under ``obs`` and strict validation of the
+    trace. Returns the files and their bytes."""
+    from deeperspeed_tpu_torch.monitor import (shutdown_monitor,
+                                               validate_file)
+
+    shutdown_monitor(save=True)
+    files = {f.name: f.stat().st_size for f in Path(obs).iterdir()}
+    traces = [f for f in files if f.endswith(".trace.json")]
+    flights = [f for f in files if f.endswith(".flight.bin")]
+    if len(traces) != 1 or len(flights) != 1:
+        raise AssertionError(f"monitor files under {obs}: {files}")
+    problems = validate_file(str(Path(obs) / traces[0]), strict=True)
+    if problems:
+        raise AssertionError(f"{traces[0]} fails strict validation: "
+                             f"{problems[:5]}")
+    return files
 
 
 def save_checkpoint(engine, sched):
@@ -2567,7 +2841,9 @@ def resume_phase(card, after):
         "grad_norms": run["grad_norms"],
         "uninterrupted_grad_norms": after["grad_norms"],
         "digest": final["digest"], "bit_identical": same,
-        "launches": run["launches"],
+        "launches": run["launches"], "step_s": run["step_s"],
+        # steps 5-6: no monitor here; phase 6's steps ran under one
+        "step_ms_median_5_6": statistics.median(run["step_s"][1:]) * 1e3,
     }
     print("resume: " + json.dumps(report), flush=True)
     del engine, sched, final
@@ -3030,15 +3306,14 @@ def quant_phase(fq, gen):
 
 
 def dp_config(comm=None):
-    """configs/gpt_125m_comm.json as written, with the cuts PERF.md §4
-    lists: no "monitor" block (not ported), 2 ranks x micro-batch 16 x 2
-    accumulation steps (the file's 512 / 16 would be 16 steps a rank),
+    """configs/gpt_125m_comm.json as written, its "monitor" block
+    included, with the cuts PERF.md §4 lists: 2 ranks x micro-batch 16 x
+    2 accumulation steps (the file's 512 / 16 would be 16 steps a rank),
     a 100-step warmup (the file's 2000 keeps the LR below 21 % of its
     peak for 6 steps), and the kernels block. ``comm`` replaces the comm
     block."""
     with open(ROOT / "configs" / "gpt_125m_comm.json") as f:
         config = json.load(f)
-    del config["monitor"]
     config["train_batch_size"] = DP_RANKS * DP_MICRO * DP_GAS
     config["train_micro_batch_size_per_gpu"] = DP_MICRO
     config["scheduler"]["params"]["warmup_num_steps"] = DP_WARMUP_STEPS
@@ -3076,13 +3351,13 @@ def dp_rank(rank, tmp):
         report = {"rank": rank}
         for comm in ("int8", "fp32"):
             report[comm] = dp_run(rank, None if comm == "int8"
-                                  else {"mode": "fp32"})
+                                  else {"mode": "fp32"}, tmp)
         (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
 
 
-def dp_run(rank, comm):
+def dp_run(rank, comm, tmp):
     import deeperspeed_tpu_torch as ds
     from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
                                                   make_gpt)
@@ -3134,6 +3409,20 @@ def dp_run(rank, comm):
                         after_step=lambda i: digests.append(params_digest(
                             engine.params)))
         out.update(run)
+        # the monitor of configs/gpt_125m_comm.json: this rank's role lane,
+        # its trace (the int8 run's) and the reducer's counters
+        mon = engine.monitor
+        rc = mon.run_context
+        out["monitor"] = {
+            "role": rc.role,
+            "comm_buckets": mon.registry.counter("comm_buckets").value,
+            "comm_wire_bytes": mon.registry.counter(
+                "comm_wire_bytes").value,
+            "train_steps_total": mon.registry.counter(
+                "train_steps_total").value}
+        if comm is None:
+            out["monitor"]["trace"] = mon.save_trace(str(
+                Path(tmp) / f"{rc.role}.i{rc.incarnation}.trace.json"))
         out.update(
             digests=digests, reduce_s=reduce_s,
             skipped_steps=engine.skipped_steps,
@@ -3156,6 +3445,33 @@ def dp_run(rank, comm):
     return out
 
 
+def dp_merge_traces(monitors, tmp):
+    """Phase 14's two traces: each rank wrote its own (its role lane,
+    runctx.host_role), and ``aggregate`` merges them into one timeline
+    that passes strict validation and holds both ranks' comm/reduce
+    spans."""
+    from deeperspeed_tpu_torch.monitor import aggregate, validate_events
+
+    paths = [m["trace"] for m in monitors]
+    roles = [m["role"] for m in monitors]
+    if len(set(paths)) != len(paths) or len(set(roles)) != len(roles):
+        raise AssertionError(f"the ranks share a role or a trace file: "
+                             f"{roles}, {paths}")
+    doc, stats = aggregate.merge_files(paths, out=str(Path(tmp) /
+                                                      "merged.json"))
+    events = doc["traceEvents"]
+    problems = validate_events(events, strict=True)
+    reduce_pids = {e["pid"] for e in events if e.get("name") == "comm/reduce"}
+    if problems or len(reduce_pids) != len(paths):
+        raise AssertionError(f"merged trace: problems {problems[:5]}, "
+                             f"comm/reduce spans from {len(reduce_pids)} "
+                             f"of {len(paths)} ranks")
+    return {"roles": roles, "files": [Path(p_).name for p_ in paths],
+            "events": stats["events"], "sources": len(stats["sources"]),
+            "comm_reduce_spans": sum(1 for e in events
+                                     if e.get("name") == "comm/reduce")}
+
+
 def dp_training_phase(card):
     """Phase 14: 2 ranks on one card train GPT-NeoX-125M under the blocks
     of configs/gpt_125m_comm.json (int8 comm, ZeRO 1), then with fp32
@@ -3170,6 +3486,7 @@ def dp_training_phase(card):
         seconds = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(DP_RANKS)]
+        merged = dp_merge_traces([r["int8"]["monitor"] for r in ranks], tmp)
     int8 = [r["int8"] for r in ranks]
     fp32 = [r["fp32"] for r in ranks]
     first = int8[0]
@@ -3191,7 +3508,8 @@ def dp_training_phase(card):
     report = {"card": card, "ranks": DP_RANKS, "micro_batch": DP_MICRO,
               "grad_accum": gas, "steps": DP_STEPS,
               "warmup_num_steps": DP_WARMUP_STEPS, "spawn_s": seconds,
-              "parity": first["parity"]}
+              "parity": first["parity"], "merged_trace": merged,
+              "monitor": [r["monitor"] for r in int8]}
     for name, runs, want in (("int8", int8, expected),
                              ("fp32", fp32, expected_fp32)):
         for r, run in enumerate(runs):
@@ -3209,6 +3527,15 @@ def dp_training_phase(card):
                 raise AssertionError(f"{name} rank {r}: skipped "
                                      f"{run['skipped_steps']}; grad norms "
                                      f"{norms}")
+            counters = run["monitor"]
+            want_counters = {
+                "comm_buckets": run["n_buckets"] * DP_STEPS,
+                "comm_wire_bytes": run["wire_bytes_per_step"] * DP_STEPS,
+                "train_steps_total": DP_STEPS}
+            got = {k: counters[k] for k in want_counters}
+            if got != want_counters:
+                raise AssertionError(f"{name} rank {r}: monitor counters "
+                                     f"{got}, expected {want_counters}")
             ratio = run["state_bytes"] / run["zero0_state_bytes"]
             if not ratio <= ZERO1_STATE_RATIO:
                 raise AssertionError(f"{name} rank {r}: ZeRO 1 keeps "
@@ -3365,16 +3692,23 @@ def main() -> int:
                       f"{sum(r['elements_differing'] for r in sel)} of "
                       f"{sum(r['elements'] for r in sel)}", flush=True)
 
-    serving = serving_phase(fb, card)
+    obs = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    serving = serving_phase(fb, card, obs / "serving")
     gc.collect()
     torch.cuda.empty_cache()
-    training, per_step, after = training_phase(card)
+    near_oom_phase(obs / "near_oom")
+    gc.collect()
+    torch.cuda.empty_cache()
+    training, per_step, after = training_phase(card, obs / "training")
     resume = resume_phase(card, after)
     bert, bert_per_step = bert_training_phase(card)
     sparse, sparse_per_step = sparse_training_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
     dp, dp_per_step = dp_training_phase(card)
+    import shutil
+
+    shutil.rmtree(obs, ignore_errors=True)
 
     # each path's counts were set to 0 just before it and read just after
     # (phase 14's in each rank, summed over the ranks)

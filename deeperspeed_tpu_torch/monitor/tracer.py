@@ -2,22 +2,46 @@
 
 Counterpart of deeperspeed_tpu/monitor/tracer.py, in the standard library
 only, so the port's engines emit the same span, instant and counter names
-as the reference. Spans, counters and instant events land in a bounded
-ring buffer and serialize to the Chrome Trace Event JSON format (loadable
-in Perfetto or ``chrome://tracing``). Spans are ``"X"`` (complete) events,
-so ring eviction never orphans half a pair.
+as the reference.
+
+Spans, counters, and instant events land in a bounded ring buffer (a
+``deque(maxlen=ring_size)`` — memory stays fixed no matter how long the
+run) and serialize to the Chrome Trace Event JSON format, loadable in
+Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.
+
+Spans are emitted as ``"X"`` (complete) events rather than ``"B"``/``"E"``
+pairs so ring-buffer eviction can never orphan half a pair; the schema
+validator (``monitor/validate.py``) still checks B/E balance for traces
+that carry them (e.g. hand-merged ones).
 
 The hot-path contract: when no tracer is installed, ``trace_span`` returns
 a shared no-op context manager and ``trace_instant``/``trace_counter``
-return at once, so engines call the module-level helpers
+return immediately — observability off means a dict lookup and a branch,
+nothing else. Engines therefore call the module-level helpers
 unconditionally.
 
-Timestamps are ``time.perf_counter()`` microseconds; ``pid`` is the OS pid
-and ``tid`` is the real thread id or a named logical lane
-(``lane="serving"``), one Perfetto track per subsystem.
+Timestamps are ``time.perf_counter()`` microseconds (monotonic); ``pid``
+is the OS pid, ``tid`` is either the real thread id or a named logical
+lane (``lane="serving"``) so Perfetto renders one track per subsystem
+(engine / pipeline stages / offload / serving) instead of interleaving
+everything on the main thread's track.
 
-Not ported yet: the flight-recorder sink, run contexts and the dropped-
-event hook of the reference (they belong to the monitor slice).
+Two run-scoped extras feed the cross-process story (monitor/aggregate):
+
+  * every tracer snapshots a ``(wall, perf)`` clock anchor at
+    construction and stamps it — with the run context (run_id / role /
+    incarnation, see runctx.py) — into the saved trace's ``otherData``
+    and process metadata, so per-process traces can be rebased onto one
+    shared timeline and labeled per incarnation;
+  * an optional ``flight`` sink (monitor/flight.py) receives every
+    event inline as it is recorded, so a SIGKILLed process still
+    leaves its last events on disk.
+
+Ring eviction is no longer silent: the tracer counts drops, notifies an
+``on_drop`` hook (the Monitor wires it to the ``monitor_dropped_events``
+counter), and emits a rate-limited ``trace/dropped`` instant so the
+timeline itself shows where history was lost; the total also rides in
+the trace footer (``otherData.dropped_events``).
 """
 
 import json
@@ -25,7 +49,9 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
+
+from .runctx import RunContext, clock_anchor, current as current_run
 
 __all__ = [
     "Tracer",
@@ -71,7 +97,9 @@ class _Span:
         return self
 
     def note(self, **args):
-        """Attach args discovered mid-span; merged into the event at exit."""
+        """Attach args discovered mid-span (MFU, HBM watermarks — values
+        that only exist once the work ran); merged into the "X" event at
+        exit. Returns self so call sites can chain."""
         if self._args:
             self._args.update(args)
         else:
@@ -95,21 +123,66 @@ class _Span:
 class Tracer:
     """Thread-safe span/counter/instant recorder with bounded memory."""
 
-    def __init__(self, ring_size: int = 65536):
+    # at most one trace/dropped instant per this many seconds
+    DROP_NOTE_INTERVAL_S = 1.0
+
+    def __init__(self, ring_size: int = 65536, pid: Optional[int] = None,
+                 flight=None, run_context: Optional[RunContext] = None,
+                 on_drop: Optional[Callable[[int], None]] = None):
         if ring_size < 1:
             raise ValueError(f"ring_size must be >= 1, got {ring_size}")
         self.ring_size = ring_size
-        self.pid = os.getpid()
+        self.pid = os.getpid() if pid is None else pid
         self._events: deque = deque(maxlen=ring_size)
         self._lock = threading.Lock()
         self._lanes: Dict[str, int] = {}
         self.dropped = 0  # events evicted by the ring
+        self.flight = flight            # inline crash-proof sink
+        self.run_context = (run_context if run_context is not None
+                            else current_run())
+        self.on_drop = on_drop
+        self.clock = clock_anchor()     # (wall, perf) for trace merging
+        self._last_drop_note = float("-inf")
+        self._extra_meta: Dict[str, object] = {}
+
+    # -------------------------------------------------------------- #
+    # recording
+    # -------------------------------------------------------------- #
 
     def _append(self, ev: dict) -> None:
+        note = None
         with self._lock:
             if len(self._events) == self.ring_size:
-                self.dropped += 1
+                evicted = 1
+                now = time.perf_counter()
+                if now - self._last_drop_note >= self.DROP_NOTE_INTERVAL_S:
+                    self._last_drop_note = now
+                    evicted += 1  # the note itself evicts one more
+                self.dropped += evicted
+                if evicted == 2:
+                    note = {
+                        "name": "trace/dropped",
+                        "ph": "i",
+                        "s": "p",  # process-scoped: loss affects every lane
+                        "ts": now * 1e6,
+                        "pid": self.pid,
+                        "tid": 0,
+                        "args": {"dropped": self.dropped},
+                    }
+                    self._events.append(note)
+                if self.on_drop is not None:
+                    try:
+                        self.on_drop(evicted)
+                    except Exception:  # pragma: no cover - hook is advisory
+                        pass
             self._events.append(ev)
+        if note is not None and self.flight is not None:
+            self.flight.append(note)
+        if self.flight is not None:
+            # inline, outside the ring lock: the flight ring has its
+            # own; this is what makes the record survive a SIGKILL that
+            # lands one instruction later
+            self.flight.append(ev)
 
     def _tid(self, lane: Optional[str]) -> int:
         if lane is None:
@@ -150,6 +223,10 @@ class Tracer:
             "args": {k: float(v) for k, v in values.items()},
         })
 
+    # -------------------------------------------------------------- #
+    # export
+    # -------------------------------------------------------------- #
+
     def events(self) -> List[dict]:
         with self._lock:
             return list(self._events)
@@ -160,26 +237,52 @@ class Tracer:
             self.dropped = 0
 
     def _metadata(self) -> List[dict]:
-        """Perfetto display names for the process and the logical lanes."""
+        """Perfetto display names for the logical lanes."""
         with self._lock:
             lanes = dict(self._lanes)
-        meta = [{"name": "process_name", "ph": "M", "pid": self.pid,
-                 "tid": 0, "args": {"name": "deeperspeed_tpu_torch"}}]
+        rc = self.run_context
+        proc = "deeperspeed_tpu_torch"
+        if rc is not None and (rc.run_id or rc.role != "main"):
+            proc = f"deeperspeed_tpu_torch:{rc.role}#{rc.incarnation}"
+        meta = [{
+            "name": "process_name",
+            "ph": "M",
+            "pid": self.pid,
+            "tid": 0,
+            "args": {"name": proc},
+        }]
         for lane, tid in sorted(lanes.items(), key=lambda kv: kv[1]):
-            meta.append({"name": "thread_name", "ph": "M", "pid": self.pid,
-                         "tid": tid, "args": {"name": lane}})
+            meta.append({
+                "name": "thread_name",
+                "ph": "M",
+                "pid": self.pid,
+                "tid": tid,
+                "args": {"name": lane},
+            })
         return meta
 
+    def set_metadata(self, key: str, value) -> None:
+        """Stamp a JSON-ready blob into the saved trace's ``otherData``
+        (e.g. the perf layer's compiled-cost table); last write wins."""
+        with self._lock:
+            self._extra_meta[key] = value
+
     def to_dict(self) -> dict:
+        other = {"dropped_events": self.dropped, "clock": dict(self.clock)}
+        with self._lock:
+            other.update(self._extra_meta)
+        if self.run_context is not None:
+            other["run"] = self.run_context.as_args()
         return {
             "traceEvents": self._metadata() + self.events(),
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": self.dropped},
+            "otherData": other,
         }
 
     def save(self, path: str) -> str:
         """Write the Perfetto-loadable JSON; returns ``path``."""
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
         with open(path, "w") as f:
             json.dump(self.to_dict(), f)
             f.write("\n")

@@ -47,6 +47,7 @@ from typing import Tuple
 
 import torch
 
+from ..monitor.perf import declares, io_bytes
 from . import op_builder
 from .kernel_config import _is_hopper, routes_to_wrapper
 
@@ -173,10 +174,27 @@ def _check(name, tensors, like):
     return B, H, S, Dh
 
 
+def attention_work(out, q, *args, pairs=None, backward=False):
+    """The work an attention wrapper declares to the cost index
+    (monitor/perf.py), as torch.utils.flop_counter counts SDPA: 2 products
+    of 2 flops over every (query, key) pair of the score tiles the call
+    covers (``pairs``, default all B * H * S * S; a causal mask does not
+    halve it) per head dim forward; backward 4 products, plus the score
+    recomputation as recompute flops; bytes: each input and output once."""
+    B, H, S, Dh = q.shape
+    if pairs is None:
+        pairs = B * H * S * S
+    nbytes = io_bytes(out, q, *args)
+    if backward:
+        return 8 * pairs * Dh, nbytes, 2 * pairs * Dh
+    return 4 * pairs * Dh, nbytes
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@declares(lambda out, q, *a: attention_work(out, q, *a))
 def flash_fwd(q, k, v, sm_scale, causal):
     """Flash forward kernel on contiguous (B, H, S, Dh) q, k, v of one
     dtype (fp32 or bf16, Dh in HEAD_DIMS): returns (o, lse (B, H, S)
@@ -203,6 +221,8 @@ def flash_fwd(q, k, v, sm_scale, causal):
 flash_fwd.launches = 0
 
 
+@declares(lambda out, q, *a: attention_work(out, q, *a,
+                                              backward=True))
 def flash_bwd(q, k, v, o, lse, do, sm_scale, causal):
     """Flash backward kernels (delta = rowsum(dO * O), dK/dV, then dQ) on
     contiguous (B, H, S, Dh) tensors of one dtype and ``flash_fwd``'s fp32

@@ -51,7 +51,9 @@ from typing import Tuple
 import torch
 
 from . import op_builder
-from .flash_attention import flash_bwd_plain, flash_fwd_plain
+from ..monitor.perf import declares
+from .flash_attention import (attention_work, flash_bwd_plain,
+                              flash_fwd_plain)
 
 SUPERTILE_MAX_SEQ = 256  # exclusive: S < 256 takes the super-tile kernel
 MAX_HEAD_DIM = 128
@@ -193,6 +195,7 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@declares(lambda out, q, *a: attention_work(out, q, *a))
 def supertile_fwd(q, k, v, sm_scale, causal):
     """Super-tile forward kernel on contiguous (B, H, S, Dh) q, k, v of
     one dtype inside the gate: returns (o, lse (B, H, S) fp32). A CPU
@@ -219,6 +222,8 @@ def supertile_fwd(q, k, v, sm_scale, causal):
 supertile_fwd.launches = 0
 
 
+@declares(lambda out, q, *a: attention_work(out, q, *a,
+                                              backward=True))
 def supertile_bwd(q, k, v, o, lse, do, sm_scale, causal):
     """Super-tile backward kernel, one launch, on contiguous (B, H, S, Dh)
     tensors of one dtype and ``supertile_fwd``'s fp32 lse: returns (dq,

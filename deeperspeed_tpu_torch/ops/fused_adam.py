@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..monitor.perf import declares, io_bytes
 from . import op_builder
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -166,6 +167,14 @@ def _check(ps, gs, ms, vs, cs) -> torch.device:
     return device
 
 
+def _adam_work(out, ps, gs, ms, vs, cs, *args, **kwargs):
+    """The work the wrapper declares to the cost index (monitor/perf.py):
+    no matmul flops; p, g, m and v read, p, m, v and the casts written."""
+    return 0, io_bytes(None, ps, gs, ms, vs) + io_bytes(None, ps, ms, vs,
+                                                         cs or [])
+
+
+@declares(_adam_work)
 def fused_adam(ps: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                cs: Optional[Sequence[torch.Tensor]], lr, bc1, bc2, *,

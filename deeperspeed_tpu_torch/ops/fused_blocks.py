@@ -61,6 +61,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..monitor.perf import declares, io_bytes
 from ..monitor.tracer import trace_span
 from . import op_builder
 from .kernel_config import routes_to_wrapper
@@ -264,6 +265,13 @@ def _not_cuda(name, t):
     return ValueError(f"{name} takes a CPU or CUDA tensor, got {t.device}")
 
 
+def _elementwise_work(out, *args):
+    """The work a wrapper declares to the cost index (monitor/perf.py):
+    no matmul flops, each input read and each output written once."""
+    return 0, io_bytes(out, *args)
+
+
+@declares(_elementwise_work)
 def ln_fwd(x, w, b, eps):
     """LayerNorm forward kernel on x (R, D) fp32 or bf16, w/b (D,) fp32:
     returns (y (R, D) in x's dtype, mean (R,) fp32, rstd (R,) fp32).
@@ -404,6 +412,7 @@ def _ln_bwd_launch(name, x, r, w, mean, rstd, g):
     return dx, dw, db
 
 
+@declares(_elementwise_work)
 def ln_bwd(x, w, mean, rstd, g):
     """LayerNorm backward kernel on x, g (R, D) fp32 or bf16, w (D,) fp32
     and ln_fwd's fp32 mean, rstd (R,): returns (dx (R, D) in x's dtype,
@@ -433,6 +442,7 @@ def add_ln_fwd_plain(x, r, w, b, eps):
     return y.to(x.dtype), mean, rstd
 
 
+@declares(_elementwise_work)
 def add_ln_fwd(x, r, w, b, eps):
     """Residual-add LayerNorm forward kernel on x, r (R, D) of one dtype,
     fp32 or bf16, and w, b (D,) fp32: returns (y (R, D) in x's dtype, mean
@@ -459,6 +469,7 @@ def add_ln_bwd_plain(x, r, w, mean, rstd, g):
     return ds.to(x.dtype), dw, db
 
 
+@declares(_elementwise_work)
 def add_ln_bwd(x, r, w, mean, rstd, g):
     """Residual-add LayerNorm backward kernel on x, r, g (R, D) of one
     dtype, w (D,) fp32 and add_ln_fwd's fp32 mean, rstd (R,): returns
@@ -574,6 +585,7 @@ def _bg_check(name, x, b, g=None):
     _check_cuda(b, "b", x.device, (x.shape[1],), {x.dtype, torch.float32})
 
 
+@declares(_elementwise_work)
 def bias_gelu_fwd(x, b, approximate):
     """bias+GeLU forward kernel on x (R, F) fp32 or bf16 and b (F,) of x's
     dtype or fp32; returns y (R, F) in x's dtype. ``approximate`` picks
@@ -687,6 +699,7 @@ def bias_gelu_bwd_reduce_info() -> dict:
     return dict(zip(_INFO_KEYS, out))
 
 
+@declares(_elementwise_work)
 def bias_gelu_bwd(x, b, g, approximate):
     """bias+GeLU backward kernel on x, g (R, F) fp32 or bf16 and b (F,) of
     x's dtype or fp32: returns (dx (R, F) in x's dtype, db (F,) fp32). The

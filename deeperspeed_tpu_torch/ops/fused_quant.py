@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from ..monitor.perf import declares, io_bytes
 from . import op_builder
 from .kernel_config import routes_to_wrapper
 
@@ -120,6 +121,13 @@ def quantize_rows_plain(x: torch.Tensor, block: int,
     return q.reshape(R, C), s, r
 
 
+def _wire_work(out, *args, **kwargs):
+    """The work a wrapper declares to the cost index (monitor/perf.py): no
+    matmul flops, each input read and each output written once."""
+    return 0, io_bytes(out, *args, **kwargs)
+
+
+@declares(_wire_work)
 def quantize_rows(x: torch.Tensor, block: int, want_residual: bool = True):
     """Blockwise int8 quantization of ``(R, C)`` rows (``block | C``), fp32
     or bf16: ``(q, s, residual | None)`` as ``quantize_rows_plain``. CPU
@@ -176,6 +184,7 @@ def dequant_sum_rows_plain(q: torch.Tensor, s: torch.Tensor,
     return acc.reshape(C)
 
 
+@declares(_wire_work)
 def dequant_sum_rows(q: torch.Tensor, s: torch.Tensor,
                      block: int) -> torch.Tensor:
     """``sum_r dequant(q[r], s[r])`` -> (C,) fp32, q (R, C) int8 or fp16,
@@ -229,6 +238,7 @@ def dequant_rows_plain(q: torch.Tensor, s: torch.Tensor, block: int,
     return (vals / _scalar(divisor, q)).reshape(R, C)
 
 
+@declares(_wire_work)
 def dequant_rows(q: torch.Tensor, s: torch.Tensor, block: int,
                  divisor: float = 1.0) -> torch.Tensor:
     """``dequant(q, s) / divisor`` -> (R, C) fp32, q (R, C) int8, s (R,

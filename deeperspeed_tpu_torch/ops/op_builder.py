@@ -13,7 +13,9 @@ when a module is imported: the first kernel launch calls ``load``, and
 started together) ahead of the first launch.
 
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
-as ``/usr/local/cuda/bin/nvcc``.
+as ``/usr/local/cuda/bin/nvcc``. Each build is the port's backend compile
+for the monitor (``monitor.watchdog.note_compile``: the ``xla_compile``
+instant the goodput and request ledgers read).
 """
 
 import ctypes
@@ -27,6 +29,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+from ..monitor.watchdog import note_compile
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -103,6 +107,7 @@ def _build(name: str) -> Path:
     os.replace(tmp, out)
     build_info[name] = {"seconds": seconds, "ptxas": proc.stderr,
                         "path": str(out)}
+    note_compile(seconds, f"{name}.cu")
     return out
 
 

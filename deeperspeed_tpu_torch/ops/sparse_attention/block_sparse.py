@@ -52,7 +52,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...monitor.perf import declares
 from .. import op_builder
+from ..flash_attention import attention_work
 from .kernels import GROUP_TILES, NEG_INF, DeviceLut, dense_mask
 
 HEAD_DIMS = (64, 96, 128)
@@ -283,6 +285,16 @@ def _check_groups(name, B, tables):
                              f"exceed the launch's grid")
 
 
+def _sparse_work(out, q, k, v, *rest, backward=False):
+    """attention_work over the (query, key) pairs of the layout's blocks
+    (the lut follows q, k, v, and o, lse, do before it backward)."""
+    lut = next(a for a in rest if isinstance(a, DeviceLut))
+    pairs = q.shape[0] * int(lut.layout.sum()) * lut.block ** 2
+    return attention_work(out, q, k, v, *rest, pairs=pairs,
+                          backward=backward)
+
+
+@declares(_sparse_work)
 def sparse_fwd(q, k, v, lut: DeviceLut, sm_scale, causal,
                key_padding_mask=None):
     """Block-sparse forward kernel on contiguous (B, H, S, Dh) q, k, v of
@@ -323,6 +335,7 @@ def sparse_fwd(q, k, v, lut: DeviceLut, sm_scale, causal,
 sparse_fwd.launches = 0
 
 
+@declares(lambda *a, **k: _sparse_work(*a, **k, backward=True))
 def sparse_bwd(q, k, v, o, lse, do, lut: DeviceLut, sm_scale, causal,
                key_padding_mask=None):
     """Block-sparse backward kernels (delta = rowsum(dO * O), dQ over the

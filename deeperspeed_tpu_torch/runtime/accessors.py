@@ -1,11 +1,23 @@
 """Reference-API accessor surface of the training engine.
 
 Counterpart of deeperspeed_tpu/runtime/accessors.py
-(``ConfigAccessorsMixin``): the same accessors, read from the config and
-the optimizer. Requirements on the host class: ``_config``
+(``ConfigAccessorsMixin``, ``make_summary_writer``): the same accessors,
+read from the config and the optimizer. Requirements on the host class: ``_config``
 (TrainingConfig), ``optimizer``, ``lr_scheduler``, ``_client_lr`` and
 ``_lr_override`` (the set_lr pin, cleared when a scheduler steps).
 """
+
+
+def make_summary_writer(config, rank: int = 0):
+    """TensorBoard monitor for rank 0, or None (the reference's
+    ``make_summary_writer``: the writer lives on the first process
+    only)."""
+    if not getattr(config, "tensorboard_enabled", False) or rank != 0:
+        return None
+    from ..utils.tensorboard import TensorBoardMonitor
+
+    return TensorBoardMonitor(output_path=config.tensorboard_output_path,
+                              job_name=config.tensorboard_job_name)
 
 
 class ConfigAccessorsMixin:

@@ -37,7 +37,9 @@ the mesh gives, over :class:`.collectives.Transport` (gloo on a CUDA
 tensor goes through pinned host buffers).
 
 Each bucket is one eager dispatch inside a ``comm/reduce`` span of the
-port's tracer (the reference's ``reduce_dispatch``). Not ported: the
+port's tracer (the reference's ``reduce_dispatch``); with a metrics
+registry (the monitor's) each bucket bumps the reference's
+``comm_buckets`` and ``comm_wire_bytes`` counters. Not ported: the
 jitted whole-tree ``reduce_stacked``, the overlap schedule, the elastic
 canonical-slot mode and the pipeline's transform-only path.
 """
@@ -101,7 +103,7 @@ class GradReducer:
     (n,) fp32 tensors: this rank's row of the reference's (world, n)
     state)."""
 
-    def __init__(self, config: CommConfig, mesh):
+    def __init__(self, config: CommConfig, mesh, registry=None):
         self.cfg = config
         self.mesh = mesh
         axes = self.axes = rules.batch_axes(mesh)
@@ -119,6 +121,12 @@ class GradReducer:
                 [[ranks[i] for i in g] for g in intra]))
             self._inter = Transport(mesh.subgroups(
                 [[ranks[i] for i in g] for g in inter]))
+        self._c_buckets = self._c_wire = None
+        if registry is not None:
+            self._c_buckets = registry.counter(
+                "comm_buckets", "gradient buckets reduced")
+            self._c_wire = registry.counter(
+                "comm_wire_bytes", "modeled per-device bytes on the wire")
 
     # ------------------------------------------------------------------ #
     # setup
@@ -381,10 +389,13 @@ class GradReducer:
             wire = self.bucket_wire_bytes(b)
             with trace_span("comm/reduce", lane="comm", bucket=j,
                             mode=self.cfg.mode, elements=b.length,
-                            wire_bytes=wire):
+                            wire_bytes=wire, overlapped=False):
                 flat = bucketing.pack(b, [leaves[i] for i in b.leaf_ids])
                 red, nr = self._reduce_flat(flat, state[j])
             for i, leaf in zip(b.leaf_ids, bucketing.unpack(b, red)):
                 outs[i] = leaf
             new_state.append(nr)
+            if self._c_buckets is not None:
+                self._c_buckets.inc()
+                self._c_wire.inc(wire)
         return unflatten(outs), new_state

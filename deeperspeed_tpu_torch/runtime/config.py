@@ -12,7 +12,7 @@ turns one of them on raises ``ConfigError`` naming the ROADMAP.md item
 that ports it; nothing is ignored. The blocks the port runs: the batch
 triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``,
-``sparse_attention`` (read by ``get_sparse_attention``, as in the
+``monitor`` (``monitor_config``), ``tensorboard``, ``sparse_attention`` (read by ``get_sparse_attention``, as in the
 reference), ``zero_optimization`` stages 0-2 (``zero_config``), ``mesh``
 with dp and fsdp (``mesh_config``), ``comm`` (``comm_config``) and
 ``checkpoint`` (tag validation; ``sharded_io: true``, the orbax layout,
@@ -87,7 +87,6 @@ class TrainingConfig:
 
         presence = (
             (c.STREAMING, "Offload and ZeRO-Infinity"),
-            (c.MONITOR, "Monitor"),
             (c.DISTRIBUTED, "Resilience and multi-process runtime"),
             (c.RESILIENCE, "Resilience and multi-process runtime"),
             (c.LIFECYCLE, "Resilience and multi-process runtime"),
@@ -102,7 +101,6 @@ class TrainingConfig:
 
         flag_blocks = (
             (c.PROGRESSIVE_LAYER_DROP, c.PLD_ENABLED, "Tooling"),
-            (c.TENSORBOARD, c.TENSORBOARD_ENABLED, "Monitor"),
             (c.FLOPS_PROFILER, "enabled", "Tooling"),
             (c.ELASTICITY, "enabled", "Resilience and multi-process runtime"),
         )
@@ -273,6 +271,13 @@ class TrainingConfig:
 
         self.wall_clock_breakdown = pd.get(c.WALL_CLOCK_BREAKDOWN,
                                            c.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        tb = pd.get(c.TENSORBOARD, {})
+        self.tensorboard_enabled = tb.get(c.TENSORBOARD_ENABLED,
+                                          c.TENSORBOARD_ENABLED_DEFAULT)
+        self.tensorboard_output_path = tb.get(
+            c.TENSORBOARD_OUTPUT_PATH, c.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = tb.get(c.TENSORBOARD_JOB_NAME,
+                                           c.TENSORBOARD_JOB_NAME_DEFAULT)
         self.memory_breakdown = pd.get(c.MEMORY_BREAKDOWN,
                                        c.MEMORY_BREAKDOWN_DEFAULT)
 
@@ -308,6 +313,26 @@ class TrainingConfig:
             except ValueError as e:
                 raise ConfigError(f'invalid "serving" block: {e}') from e
 
+        # ---- unified telemetry ----
+        # A "monitor" block turns on step tracing / the recompile
+        # watchdog / the metrics endpoint (monitor/ package). Validated
+        # eagerly like "serving" so typos fail at load time.
+        self.monitor_params = pd.get(c.MONITOR, None)
+        if self.monitor_params is not None and not isinstance(
+                self.monitor_params, dict):
+            raise ConfigError('"monitor" must be a dict of MonitorConfig '
+                              'overrides (or {"enabled": false})')
+        self.monitor_enabled = _block_enabled(pd, c.MONITOR)
+        self._monitor_config = None
+        if self.monitor_enabled:
+            from ..monitor.config import MonitorConfig
+
+            try:
+                self._monitor_config = MonitorConfig.from_dict(
+                    dict(self.monitor_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(f'invalid "monitor" block: {e}') from e
+
         # ---- fused kernels ----
         # validated eagerly so typos fail at load; applied process-globally
         # at engine init (the consumers are free functions deep inside
@@ -329,6 +354,11 @@ class TrainingConfig:
         # read, not built: get_sparse_attention builds (and checks) it, as
         # the reference does
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
+
+    def monitor_config(self):
+        """The "monitor" block as a MonitorConfig (None when absent or
+        disabled), validated at parse time."""
+        return self._monitor_config
 
     def comm_config(self):
         """The "comm" block as a CommConfig (None when absent or

@@ -31,8 +31,9 @@ def load_config(config: Any) -> Dict:
         try:
             with open(config, "r") as f:
                 return json.load(f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
-        except FileNotFoundError:
-            # maybe an inline JSON string
+        except OSError:
+            # maybe an inline JSON string (one longer than a file name can
+            # be fails with ENAMETOOLONG, not FileNotFoundError)
             stripped = config.strip()
             if stripped.startswith("{"):
                 return json.loads(

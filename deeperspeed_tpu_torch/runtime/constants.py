@@ -123,6 +123,11 @@ MEMORY_BREAKDOWN_DEFAULT = False
 
 TENSORBOARD = "tensorboard"
 TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
 
 #############################################
 # Progressive layer drop

@@ -43,15 +43,31 @@ the Adam moments (runtime/zero/partition.py) as contiguous copies,
 update them (the fused Adam kernel over the shards), and all-gather the
 updated compute-dtype params.
 
+Telemetry, as in the reference: a ``"monitor"`` block builds and installs
+the process-global monitor (monitor/), else an installed one is adopted.
+Under data parallelism each rank first takes its own role lane
+(``<role>.h<rank>``, monitor/runctx.host_role), so two ranks never write
+one trace or flight file. The engine stamps ``run/start`` and
+``mesh/build``; ``train_batch`` runs in an ``engine/train_batch`` span
+(``forward``/``backward``/``step`` in ``engine/forward``,
+``engine/backward`` and ``engine/step`` spans), with the recompile
+watchdog on its argument signature, the cost index's capture and live
+MFU (``perf``) and memwatch's watermarks; every optimizer step bumps
+``train_steps_total`` and sets ``train_global_samples``, the registry is
+exported through the ``"tensorboard"`` block's writer every
+``tb_export_interval`` steps, and the writer gets the previous step's
+loss, LR and loss scale, as the reference writes them.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
 stage 3 and offload, tensor and pipeline parallelism, the comm overlap
-schedule, monitor hooks, the resilience manager, ``store_gradients``,
-the switch that turns on the layer-output capture (the models' taps are
-ported, utils/hooks.py) and the flops profiler.
+schedule, the resilience manager, ``store_gradients``, the switch that
+turns on the layer-output capture (the models' taps are ported,
+utils/hooks.py) and the flops profiler.
 """
 
 import inspect
 import os
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 import numpy as np
@@ -64,6 +80,10 @@ from ..checkpoint.serialization import (SHARDED_STATE_DIR, CheckpointEngine,
                                         validate_tag_across_processes,
                                         write_latest)
 from ..checkpoint.zero_to_fp32 import write_recovery_stub
+from ..monitor import get_monitor, init_monitor, runctx
+from ..monitor.perf import StepTimer
+from ..monitor.tracer import trace_instant, trace_span
+from ..monitor.watchdog import SignatureCache
 from ..ops.adam import FusedAdam, tree_leaves, tree_map
 from ..ops.lamb import FusedLamb
 from ..ops import kernel_config
@@ -73,7 +93,7 @@ from ..sharding import rules
 from ..utils.logging import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import lr_schedules
-from .accessors import ConfigAccessorsMixin
+from .accessors import ConfigAccessorsMixin, make_summary_writer
 from .comm.collectives import Transport
 from .comm.config import CommConfig
 from .comm.reducer import GradReducer
@@ -158,6 +178,18 @@ class Engine(ConfigAccessorsMixin):
             * config.gradient_accumulation_steps,
             num_workers=1, steps_per_output=config.steps_per_print)
 
+        # tensorboard writer (rank 0 only) and the unified telemetry (the
+        # "monitor" block's, else an installed one)
+        self.summary_writer = make_summary_writer(config, self.mesh.rank)
+        self._tb_pending = None
+        self.monitor = self._init_monitor(config)
+        # the argument signatures of the entry points: the watchdog's and
+        # the cost index's counterpart of the reference's jit caches
+        self._step_sigs = SignatureCache()
+        self._fwd_sigs = SignatureCache()
+        self._bwd_sigs = SignatureCache()
+        self._upd_sigs = SignatureCache()
+
         # the "kernels" block is process-global (the consumers are free
         # functions deep inside model code)
         if config.kernels_params:
@@ -171,6 +203,7 @@ class Engine(ConfigAccessorsMixin):
         self._grad_acc = None  # banked grads between backward() and step()
         self._acc_count = 0
         self._pending_metrics = None
+        self._last_micro_loss = None
         self._lr_override = None
         self._train_data_iter = None
 
@@ -229,8 +262,10 @@ class Engine(ConfigAccessorsMixin):
 
         # the gradient reduction at the accumulation boundary: the "comm"
         # block's wire, else the fp32 mean over the same buckets
-        self.comm = GradReducer(config.comm_config()
-                                or CommConfig(mode="fp32"), self.mesh)
+        self.comm = GradReducer(
+            config.comm_config() or CommConfig(mode="fp32"), self.mesh,
+            registry=(self.monitor.registry if self.monitor is not None
+                      else None))
         self.comm.build_plan(params)
         self._comm_state = self.comm.init_state(self.device)
         self.scaler_state = self._loss_scaler.init()
@@ -268,6 +303,41 @@ class Engine(ConfigAccessorsMixin):
         self._zero_index = (mesh.axis_index((zaxis,)) if zaxis is not None
                             else 0)
         self._zero = Transport(mesh.group((zaxis,)) if zaxis else None)
+
+    def _init_monitor(self, config):
+        """The monitor this engine reports to: the config's (built and
+        installed here) or an installed one, else None. A rank of a
+        multi-process run first takes its own role lane, as the
+        reference's distributed bootstrap gives every process one."""
+        mesh = self.mesh
+        if mesh.size > 1:
+            base = os.environ.get(runctx.ROLE_ENV, "trainer")
+            if not base.endswith(f".h{mesh.rank}"):
+                os.environ[runctx.ROLE_ENV] = runctx.host_role(
+                    base, mesh.rank, mesh.size)
+        monitor = (init_monitor(config.monitor_config())
+                   if config.monitor_config() is not None else get_monitor())
+        if monitor is not None:
+            # anchors the run's trace lane: run id + which incarnation
+            # this process is
+            rc = monitor.run_context
+            trace_instant("run/start", lane="run", run_id=rc.run_id or "",
+                          role=rc.role, incarnation=rc.incarnation)
+            trace_instant("mesh/build", lane="mesh",
+                          axes={k: int(v) for k, v in mesh.shape.items()},
+                          devices=int(mesh.size))
+        return monitor
+
+    def _capture(self, name, sigs, *args):
+        """The monitor's hook around one call of entry ``name``
+        (``Monitor.capture``); a no-op context without a monitor."""
+        if self.monitor is None:
+            return nullcontext()
+        return self.monitor.capture(name, sigs, self.device, *args)
+
+    def _annotate(self, span, phase):
+        if self.monitor is not None and self.monitor.memwatch is not None:
+            self.monitor.memwatch.annotate(span, phase)
 
     # ------------------------------------------------------------------ #
     # construction helpers
@@ -522,7 +592,12 @@ class Engine(ConfigAccessorsMixin):
         wall = self._config.wall_clock_breakdown
         if wall:
             self.timers(FORWARD_MICRO_TIMER).safe_start()
-        loss = self._call_loss(batch)
+        with trace_span("engine/forward", lane="engine",
+                        micro_step=self.micro_steps) as _sp:
+            with self._capture("engine/forward", self._fwd_sigs,
+                               self.params, batch):
+                loss = self._call_loss(batch)
+            self._annotate(_sp, "forward")
         if wall:
             self.timers(FORWARD_MICRO_TIMER).stop(sync_with=loss)
         self._stashed = loss
@@ -536,10 +611,16 @@ class Engine(ConfigAccessorsMixin):
         if self._stashed is None:
             raise RuntimeError("backward() requires a prior forward()")
         stashed, self._stashed = self._stashed, None
+        self._last_micro_loss = stashed.detach()  # for the TB scalars
         wall = self._config.wall_clock_breakdown
         if wall:
             self.timers(BACKWARD_MICRO_TIMER).safe_start()
-        self._bank(self._micro_grads(stashed))
+        with trace_span("engine/backward", lane="engine",
+                        micro_step=self.micro_steps) as _sp:
+            with self._capture("engine/backward", self._bwd_sigs,
+                               self.params, stashed):
+                self._bank(self._micro_grads(stashed))
+            self._annotate(_sp, "backward")
         if wall:
             self.timers(BACKWARD_MICRO_TIMER).stop(sync=True)
         return loss if loss is not None else stashed
@@ -552,9 +633,14 @@ class Engine(ConfigAccessorsMixin):
         if wall:
             self.timers(STEP_MICRO_TIMER).safe_start()
         if self._acc_count >= self.gradient_accumulation_steps():
-            metrics = self._apply_update(self._reduce_grads(self._grad_acc),
-                                         self._current_lr(),
-                                         float(self._acc_count))
+            with trace_span("engine/step", lane="engine",
+                            step=self.global_steps) as _sp:
+                with self._capture("engine/apply_update", self._upd_sigs,
+                                   self.params, self._grad_acc):
+                    metrics = self._apply_update(
+                        self._reduce_grads(self._grad_acc),
+                        self._current_lr(), float(self._acc_count))
+                self._annotate(_sp, "step")
             self._grad_acc = None
             self._acc_count = 0
             self._after_optimizer_step(metrics)
@@ -581,6 +667,41 @@ class Engine(ConfigAccessorsMixin):
             self.timers(TRAIN_BATCH_TIMER).safe_start()
         self.tput_timer.start()
         batch = self._place_batch(batch)
+        mon = self.monitor
+        wd = mon.watchdog if mon is not None else None
+        ci = mon.cost_index if mon is not None else None
+        with trace_span("engine/train_batch", lane="engine",
+                        step=self.global_steps) as _tb_sp:
+            if wd is not None:
+                # the step must keep one argument signature; a new one
+                # past the warm baseline means a shape/dtype is varying
+                wd.watch("engine/train_step", self._step_sigs)
+            # the device time of the span, for the live MFU (perf only)
+            timer = StepTimer(self.device) if ci is not None else None
+            with self._capture("engine/train_step", self._step_sigs,
+                               self.params, batch):
+                metrics = self._train_step(batch, gas)
+            if ci is not None:
+                stats = ci.note_step("engine/train_step", timer.seconds())
+                if stats is not None:
+                    _tb_sp.note(mfu=round(stats["mfu"], 6),
+                                tflops=round(stats["tflops"], 4),
+                                verdict=stats["verdict"])
+            self._annotate(_tb_sp, "train_batch")
+        if wd is not None:
+            wd.observe(step=self.global_steps)
+        self.micro_steps += gas
+        self._after_optimizer_step(metrics)
+        self.tput_timer.stop(global_step=True, sync_with=metrics["loss"])
+        if wall:
+            self.timers(TRAIN_BATCH_TIMER).stop(sync_with=metrics["loss"])
+            if self.global_steps % max(self._config.steps_per_print, 1) == 0:
+                self.timers.log([TRAIN_BATCH_TIMER], ranks=[0])
+        return metrics["loss"]
+
+    def _train_step(self, batch, gas):
+        """The micro-batch loop, the reduction and the update of one
+        ``train_batch``; returns the step's metrics."""
         loss_sum = None
         for i in range(gas):
             mb = _micro_batch(batch, i, gas)
@@ -594,14 +715,7 @@ class Engine(ConfigAccessorsMixin):
         self._grad_acc = None
         self._acc_count = 0
         metrics["loss"] = self._mean_loss(loss_sum / gas)
-        self.micro_steps += gas
-        self._after_optimizer_step(metrics)
-        self.tput_timer.stop(global_step=True, sync_with=metrics["loss"])
-        if wall:
-            self.timers(TRAIN_BATCH_TIMER).stop(sync_with=metrics["loss"])
-            if self.global_steps % max(self._config.steps_per_print, 1) == 0:
-                self.timers.log([TRAIN_BATCH_TIMER], ranks=[0])
-        return metrics["loss"]
+        return metrics
 
     def eval_batch(self, batch):
         with torch.no_grad():
@@ -613,6 +727,22 @@ class Engine(ConfigAccessorsMixin):
         dynamic loss scaler, as the reference does."""
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
+        if self.summary_writer is not None:
+            # the PREVIOUS step's scalars: its values have settled, so
+            # reading them does not stall this step
+            self._tb_write_pending()
+            self._tb_pending = (metrics, self._current_lr(),
+                                self.global_samples)
+        if self.monitor is not None:
+            self.monitor.registry.counter(
+                "train_steps_total", "optimizer steps taken").inc()
+            self.monitor.registry.gauge(
+                "train_global_samples", "samples consumed").set(
+                    self.global_samples)
+            ivl = self.monitor.config.tb_export_interval
+            if ivl and self.global_steps % ivl == 0:
+                self.monitor.export_tensorboard(self.summary_writer,
+                                                self.global_samples)
         self._pending_metrics = metrics
         if self._loss_scaler.dynamic and metrics["overflow"]:
             log_dist(f"OVERFLOW! skipping step; loss scale -> "
@@ -620,6 +750,24 @@ class Engine(ConfigAccessorsMixin):
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
             self._lr_override = None
+
+    def _tb_write_pending(self):
+        """Write the previous step's tensorboard scalars. Called on the
+        next boundary and before checkpoints."""
+        pending = self._tb_pending
+        if self.summary_writer is None or pending is None:
+            return
+        self._tb_pending = None
+        metrics, lr, samples = pending
+        scalars = {"Train/Samples/lr": lr}
+        loss = metrics.get("loss", self._last_micro_loss)
+        if loss is not None:
+            scalars["Train/Samples/train_loss"] = float(loss)
+        if self._loss_scaler.dynamic:
+            scalars["Train/Samples/loss_scale"] = float(
+                metrics["loss_scale"])
+        self.summary_writer.write_scalars(scalars, samples)
+        self.summary_writer.flush()
 
     def module_state_dict(self):
         """The params (compute dtype) as a tree of detached tensors."""
@@ -711,6 +859,7 @@ class Engine(ConfigAccessorsMixin):
             validate_tag_across_processes(
                 tag, self._config.checkpoint_tag_validation_fail)
         ck = CheckpointEngine(save_dir, tag)
+        self._tb_write_pending()
         with torch.no_grad():
             payload = self._host_checkpoint_payload(client_state)
             if self.mesh.rank == 0:

@@ -57,7 +57,7 @@ class SLOConfig:
     in milliseconds; None leaves that axis unpromised. Targets drive
     live burn-rate gauges and ``slo/violation`` trace instants
     (serving/metrics.SLOTracker) and the offline doctor's verdicts
-    (``python -m deeperspeed_tpu.monitor.slo``).
+    (``python -m deeperspeed_tpu_torch.monitor.slo``).
 
     ``burn_rate = violating_fraction / error_budget`` — at 1.0 the
     request stream is violating exactly as fast as a p99 target allows

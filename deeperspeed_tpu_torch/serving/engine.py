@@ -23,15 +23,27 @@ serving outputs token-identical to per-request ``make_generator`` calls.
 The KV pool is updated in place.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; with no CUDA
-device and no device asked for, it raises. Not ported yet (each raises
-or is absent): ``mesh=``, speculative decoding, ``PipelineServingBridge``,
-the monitor/watchdog hooks, the cost index, memwatch and the resilience
-manager hook.
+device and no device asked for, it raises.
+
+Telemetry, as in the reference: ``monitor_config`` (a ``"monitor"`` block)
+builds and installs the process-global monitor, else an installed one is
+adopted. Its registry feeds ``ServingMetrics`` (and the SLO tracker of the
+serving config's ``"slo"`` block); the decode step is watched by the
+recompile watchdog (its argument signature must never change); with
+``perf`` on, the cost index captures the decode step and each prefill
+bucket at a new signature and the decode span carries its MFU; memwatch
+stamps the prefill and decode spans with the allocator's watermarks.
+``monitor`` is a ``TensorBoardMonitor`` the metrics' summary is exported
+through every step.
+
+Not ported yet (each raises or is absent): ``mesh=``, speculative
+decoding, ``PipelineServingBridge`` and the resilience manager hook.
 """
 
 import itertools
 import time
 import zlib
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -41,7 +53,9 @@ from ..models.generation import (apply_with_cache, categorical, init_cache,
                                   prep_sampling_logits)
 from ..models.gpt import (GPTConfig, decoder_block, head_weight, layer_norm,
                           layer_slices)
+from ..monitor import get_monitor, init_monitor
 from ..monitor.tracer import trace_counter, trace_instant, trace_span
+from ..monitor.watchdog import SignatureCache
 from ..utils.logging import logger
 from .config import ServingConfig
 from .kv_cache import NULL_BLOCK, PagedKVCache, blocks_needed, paged_attend
@@ -177,7 +191,8 @@ class ServingEngine:
 
     def __init__(self, cfg: GPTConfig, params,
                  serving_config: Union[ServingConfig, dict, None] = None,
-                 clock=time.monotonic, device=None, mesh=None):
+                 clock=time.monotonic, device=None, mesh=None,
+                 monitor=None, monitor_config=None):
         scfg = (serving_config if isinstance(serving_config, ServingConfig)
                 else ServingConfig.from_dict(serving_config))
         if mesh is not None:
@@ -206,8 +221,27 @@ class ServingEngine:
         self.params = _params_to(params, self.device)
         self.kv = PagedKVCache(cfg, scfg, self.device)
         self.sched = Scheduler(scfg, self.kv.allocator, clock)
-        self.metrics = ServingMetrics(scfg.num_slots, clock)
+        # telemetry facade (monitor/ package): own it when a config is
+        # passed, else adopt a process-global one if installed
+        if monitor_config is not None:
+            self.telemetry = init_monitor(monitor_config)
+        else:
+            self.telemetry = get_monitor()
+        registry = (self.telemetry.registry
+                    if self.telemetry is not None else None)
+        self.metrics = ServingMetrics(scfg.num_slots, clock, monitor,
+                                      registry, slo=scfg.slo)
         self._decode_step = make_decode_step(cfg, scfg)
+        # argument signatures of the decode step and the prefills: the
+        # watchdog's and the cost index's counterpart of jit caches
+        self._decode_sigs = SignatureCache()
+        self._prefill_sigs = SignatureCache()
+        self._suffix_sigs = SignatureCache()
+        if self.telemetry is not None:
+            # decode must keep one signature forever; prefill meets one
+            # per length bucket, so it is deliberately unwatched
+            self.telemetry.watchdog.watch("serving/decode_step",
+                                          self._decode_sigs)
         self._rid_counter = itertools.count()
         self._requests: Dict[str, Request] = {}
         self._step_i = 0
@@ -291,6 +325,7 @@ class ServingEngine:
             if self._active_decodable():
                 self._decode_all()
         self._step_i += 1
+        self.metrics.export(self._step_i)
         return self.sched.finished[n_done:]
 
     def run(self, max_steps: Optional[int] = None) -> Dict[str, List[int]]:
@@ -342,6 +377,13 @@ class ServingEngine:
             top_k = None
         return _sample(logits_1d, req.temperature, top_k, req.seed,
                        len(req.generated))
+
+    def _capture(self, name, sigs, *args):
+        """The monitor's hook around one call of entry ``name``
+        (``Monitor.capture``); a no-op context without a monitor."""
+        if self.telemetry is None:
+            return nullcontext()
+        return self.telemetry.capture(name, sigs, self.device, *args)
 
     def _forward(self, toks: np.ndarray, cache, offset: int):
         return apply_with_cache(self.cfg, self.params,
@@ -436,19 +478,28 @@ class ServingEngine:
             else:
                 cm = trace_span("serving/prefill_chunk", lane="serving",
                                 rid=req.rid, chunk=c, tokens=hi - lo)
-            with cm:
+            with cm as _sp:
                 timer = self.metrics.timers(PREFILL_TIMER)
                 timer.safe_start()
                 toks = np.zeros((1, chunk), np.int64)
                 toks[0, :hi - lo] = suffix[lo:hi]
-                logits, _ = self._forward(
-                    toks, {"k": state["k"], "v": state["v"]},
-                    state["m"] + lo)
+                # one signature per (chunk len, staging len) pair; the
+                # offset is a Python int, so every chunk position shares it
+                with self._capture(
+                        f"serving/suffix_prefill[s{chunk}c"
+                        f"{state['cache_len']}]", self._suffix_sigs,
+                        self.params, toks, state["k"], state["v"]):
+                    logits, _ = self._forward(
+                        toks, {"k": state["k"], "v": state["v"]},
+                        state["m"] + lo)
                 if final:
                     self._finish_staged(req, state)
                     tok = self._pick_token(logits[0, hi - lo - 1], req)
                     req.generated.append(tok)
                 timer.stop(sync_with=self.kv.k)
+                tel = self.telemetry
+                if tel is not None and tel.memwatch is not None:
+                    tel.memwatch.annotate(_sp, "prefill")
             self._prefill_spent += hi - lo
             self.metrics.record_prefill_chunk(hi - lo)
             state["next"] += 1
@@ -496,13 +547,16 @@ class ServingEngine:
         L = len(ctx)
         bucket = self.scfg.bucket_for(L)
         with trace_span("serving/prefill", lane="serving", rid=req.rid,
-                        slot=slot, ctx_len=L, bucket=bucket):
+                        slot=slot, ctx_len=L, bucket=bucket) as _sp:
             timer = self.metrics.timers(PREFILL_TIMER)
             timer.safe_start()
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :L] = ctx
-            cache = init_cache(self.cfg, 1, bucket, self.device)
-            logits, cache = self._forward(toks, cache, 0)
+            # per bucket: the prefill meets one signature per length bucket
+            with self._capture(f"serving/prefill_step[b{bucket}]",
+                               self._prefill_sigs, self.params, toks):
+                cache = init_cache(self.cfg, 1, bucket, self.device)
+                logits, cache = self._forward(toks, cache, 0)
             # admission allocated headroom for the first decode write;
             # only the context's own pages carry prefill data
             data_blocks = blocks[:blocks_needed(L, self.scfg.block_size)]
@@ -510,6 +564,9 @@ class ServingEngine:
             tok = self._pick_token(logits[0, L - 1], req)
             req.generated.append(tok)
             timer.stop(sync_with=self.kv.k)
+            tel = self.telemetry
+            if tel is not None and tel.memwatch is not None:
+                tel.memwatch.annotate(_sp, "prefill")
         logger.debug("serving: admitted %s to slot %d (ctx=%d bucket=%d)",
                      req.rid, slot, L, bucket)
         self.metrics.record_reuse(0, L)
@@ -528,9 +585,11 @@ class ServingEngine:
     def _decode_all(self) -> None:
         """One decode step over the full slot array."""
         active = self._active_decodable()
+        tel = self.telemetry
         with trace_span("serving/decode", lane="serving",
                         n_active=len(active),
-                        rids=",".join(r.rid for _, r in active)):
+                        rids=",".join(r.rid for _, r in active)) as _sp:
+            _t0 = time.perf_counter()
             timer = self.metrics.timers(DECODE_TIMER)
             timer.safe_start()
             N = self.scfg.num_slots
@@ -548,12 +607,27 @@ class ServingEngine:
                 seeds[s] = req.seed
                 counts[s] = len(req.generated)
             dev = self.device
-            nxt = self._decode_step(
-                self.params, self.kv.k, self.kv.v,
-                torch.as_tensor(tables, device=dev),
-                torch.as_tensor(lengths, device=dev),
-                torch.as_tensor(tokens, device=dev), temps, seeds, counts)
+            dargs = (self.params, self.kv.k, self.kv.v,
+                     torch.as_tensor(tables, device=dev),
+                     torch.as_tensor(lengths, device=dev),
+                     torch.as_tensor(tokens, device=dev), temps, seeds,
+                     counts)
+            with self._capture("serving/decode_step", self._decode_sigs,
+                               *dargs):
+                nxt = self._decode_step(*dargs)
             timer.stop()   # nxt is on the host: the step has finished
+            ci = tel.cost_index if tel is not None else None
+            if ci is not None:
+                # nxt reached the host, so this wall time is real
+                _stats = ci.note_step("serving/decode_step",
+                                      time.perf_counter() - _t0)
+                if _stats is not None:
+                    _sp.note(mfu=round(_stats["mfu"], 6),
+                             verdict=_stats["verdict"])
+            if tel is not None and tel.memwatch is not None:
+                tel.memwatch.annotate(_sp, "decode")
+        if tel is not None:
+            tel.watchdog.observe("serving/decode_step", step=self._step_i)
         self.metrics.record_decode_step(len(active), len(self.sched.queue),
                                         self.clock())
         for s, req in active:

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing ``deeperspeed_tpu_torch``
 loads neither ``jax``, ``flax``, ``msgpack`` nor any module of
 ``deeperspeed_tpu`` (names are compared exactly, since the port's own
-name starts with ``deeperspeed_tpu``), no source file of the port, chip_smoke.py or
+name starts with ``deeperspeed_tpu``), the monitor's modules included, no
+source file of the port, chip_smoke.py or
 scripts/torch_first_step_probe.py imports them, and the serving and
 training entry points refuse to fall back to the CPU."""
 
@@ -60,6 +61,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "zero, deeperspeed_tpu_torch.runtime.comm\n"
         "import deeperspeed_tpu_torch.distributed, deeperspeed_tpu_torch.ops."
         "fused_quant\n"
+        "import deeperspeed_tpu_torch.monitor.aggregate, deeperspeed_tpu_"
+        "torch.monitor.goodput, deeperspeed_tpu_torch.monitor.reqledger\n"
+        "import deeperspeed_tpu_torch.monitor.slo, deeperspeed_tpu_torch."
+        "utils.tensorboard, deeperspeed_tpu_torch.serving.metrics\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -76,6 +81,13 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "runtime.comm.reducer", "runtime.comm.bucketing",
                  "runtime.comm.collectives", "runtime.comm.compressed",
                  "distributed.topology", "ops.fused_quant"):
+        assert f"deeperspeed_tpu_torch.{name}" in mods
+    for name in ("monitor", "monitor.tracer", "monitor.runctx",
+                 "monitor.flight", "monitor.metrics", "monitor.validate",
+                 "monitor.watchdog", "monitor.memwatch", "monitor.perf",
+                 "monitor.config", "monitor.aggregate", "monitor.goodput",
+                 "monitor.reqledger", "monitor.slo", "utils.tensorboard",
+                 "serving.metrics"):
         assert f"deeperspeed_tpu_torch.{name}" in mods
     for name in ("block_sparse", "kernels", "sparsity_config",
                  "sparse_self_attention", "sparse_attention_utils"):

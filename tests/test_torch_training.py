@@ -135,7 +135,7 @@ def test_config_fields_match_reference(cfg):
     ({"streaming": {}}, "Offload and ZeRO-Infinity"),
     ({"comm": {"overlap": "on"}}, "runtime/comm/"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "runtime/comm/"),
-    ({"monitor": {}}, "Monitor"),
+    ({"resilience": {}}, "Resilience and multi-process runtime"),
     ({"pipeline": {"stages": 2}}, "MoE, TP and pipeline"),
     ({"distributed": {}}, "Resilience and multi-process runtime"),
     ({"datapipe": {}}, "datapipe/"),

@@ -246,3 +246,39 @@ def _state_digests(eng):
             "exp_avg_sq": _digest(tree_leaves(eng.opt_state.exp_avg_sq)),
             "residuals": _digest([v for r in eng._comm_state
                                   for v in r.values()])}
+
+
+# ------------------------------------------------------------------ #
+# the monitor of a data-parallel run
+# ------------------------------------------------------------------ #
+
+
+def monitor_run(rank, world, tmp, model_kw, config, steps):
+    """Train a tiny GPT under ``config`` (configs/gpt_125m_comm.json's
+    blocks, its "monitor" block included) for ``steps`` steps; save this
+    rank's trace under its own role lane and write the reducer's plan and
+    the monitor's counters to ``monitor<rank>.json``."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig(**model_kw)
+    params = gpt.init_params(0, cfg, device="cpu")
+    eng, _, _, _ = ds.initialize(model=gpt.make_gpt(cfg)[2],
+                                 model_parameters=params, config=config,
+                                 device="cpu")
+    rows = config["train_batch_size"]
+    rs = np.random.RandomState(5)
+    for _ in range(steps):
+        eng.train_batch(rs.randint(0, cfg.vocab_size,
+                                   (rows, cfg.max_seq + 1)))
+    mon = eng.monitor
+    rc = mon.run_context
+    trace = mon.save_trace(os.path.join(
+        tmp, f"{rc.role}.i{rc.incarnation}.trace.json"))
+    out = {"role": rc.role, "trace": trace,
+           "n_buckets": eng.comm.n_buckets,
+           "wire_bytes_per_step": eng.comm.total_wire_bytes()}
+    for name in ("comm_buckets", "comm_wire_bytes", "train_steps_total"):
+        out[name] = mon.registry.counter(name).value
+    with open(os.path.join(tmp, f"monitor{rank}.json"), "w") as f:
+        json.dump(out, f)
