@@ -255,41 +255,73 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    is timed at the largest bucket, beside its byte bound (bytes over
    3.35 TB/s) and its plain version; no single PyTorch call computes any
    of the three.
-14. Data-parallel training on one card (run last): 2 ranks, spawned with
-   torch.multiprocessing, share cuda:0 and a gloo group through a
-   FileStore in a temporary directory (NCCL refuses two ranks on one
-   device, so the collectives cross host memory: the step time is no
+14. Data-parallel training on one card (run before phase 15): 2 ranks,
+   spawned with torch.multiprocessing, share cuda:0 and a gloo group
+   through a FileStore in a temporary directory (NCCL refuses two ranks on
+   one device, so the collectives cross host memory: the step time is no
    measure of a multi-GPU node). Each trains GPT-NeoX-125M at full width
    and depth (the neox-125m preset, max_seq 1024, remat "matmuls", bf16,
-   weights from a fixed seed) on data/corpus_tokens.npy through
-   initialize -> train_batch with the blocks of configs/gpt_125m_comm.json
-   (ZeRO 1, bf16 with an fp32 master, Adam 6e-4 with weight decay 0.1,
-   WarmupDecayLR, clipping 1.0, the int8 comm block with error feedback
-   and hierarchical "auto", which on one host is the flat schedule, and
-   its "monitor" block as written) cut as PERF.md section 4 lists (2
-   ranks x micro-batch 16 x 2 accumulation steps, warmup
-   DP_WARMUP_STEPS) plus "kernels":
-   {"mode": "auto"}: 6 steps, then 6 more from the same seed with
-   "comm": {"mode": "fp32"}. Gates: on one micro-batch rank 0's kernel
+   weights from a fixed seed) on data/corpus_tokens.npy through initialize
+   -> train_batch with the blocks of configs/gpt_125m_comm.json (ZeRO 1,
+   bf16 with an fp32 master, Adam 6e-4 with weight decay 0.1,
+   WarmupDecayLR, clipping 1.0, the int8 comm block with error feedback and
+   hierarchical "auto", which on one host is the flat schedule, and its
+   "monitor" block as written) cut as PERF.md section 4 lists (2 ranks x
+   micro-batch 16 x 2 accumulation steps, warmup DP_WARMUP_STEPS) plus
+   "kernels": {"mode": "auto"}: 6 steps, then 6 more from the same seed
+   with "comm": {"mode": "fp32"}. Gates: on one micro-batch rank 0's kernel
    path agrees with the plain path (phase 6's limits); after every step
    both ranks' params are bit-identical; losses finite and falling, no
    skipped step; the int8 losses within INT8_LOSS_RTOL of the fp32-comm
    ones, and the grad norms of the steps both runs take from the same
    params (the lr-0 warmup steps and the next) within INT8_GNORM_RTOL;
-   launches per step and rank exactly those of phase 6's model at
-   this depth plus, per bucket, 2 quantize_rows, 1 dequant_sum_rows and
-   1 dequant_rows under int8 and none of the three under fp32 comm;
-   each rank's fp32 master and moments at most ZERO1_STATE_RATIO of a
-   ZeRO 0 engine's; each rank's monitor counts n_buckets and the modeled
-   wire bytes per step for 6 steps (comm_buckets, comm_wire_bytes) and 6
+   launches per step and rank exactly those of phase 6's model at this
+   depth plus, per bucket, 2 quantize_rows, 1 dequant_sum_rows and 1
+   dequant_rows under int8 and none of the three under fp32 comm; each
+   rank's fp32 master and moments at most ZERO1_STATE_RATIO of a ZeRO 0
+   engine's; each rank's monitor counts n_buckets and the modeled wire
+   bytes per step for 6 steps (comm_buckets, comm_wire_bytes) and 6
    train_steps_total; each rank saves its int8 run's trace under its own
-   role lane (trainer.h0, trainer.h1: two ranks never write one path),
-   and ``aggregate`` merges the two into one timeline that passes strict
-   validation and holds both ranks' comm/reduce spans. It prints step
-   time, tokens/s, peak memory per rank,
-   the buckets, the modeled wire bytes and the bytes staged through host
-   memory per step, and the reduction's share of the step. A rank that
-   raises fails the run. Every source is built before the spawn.
+   role lane (trainer.h0, trainer.h1: two ranks never write one path), and
+   ``aggregate`` merges the two into one timeline that passes strict
+   validation and holds both ranks' comm/reduce spans. It prints step time,
+   tokens/s, peak memory per rank, the buckets, the modeled wire bytes and
+   the bytes staged through host memory per step, and the reduction's share
+   of the step. A rank that raises fails the run. Every source is built
+   before the spawn.
+15. ZeRO-Infinity (run last): the streamed offload engine
+   (runtime/offload/streaming.py) at GPT-NeoX-20B width (d_model 6144, 64
+   heads of 96, d_ff 24576, vocab 50432, untied), built by initialize from
+   a GPTConfig. First the host: its RAM (/proc/meminfo), the free disk at
+   the swap folder, the host library's build (csrc/host/ds_cpu_adam.cpp:
+   compiler, seconds, OpenMP, ds_adam_simd_width()). 15a: 1 layer, the
+   fp32 wire, bf16 residency, fp32 host state in RAM, kernels auto, lr 0:
+   the streamed grads (capture_grads) against make_gpt's autograd grads on
+   the card's params, per leaf cosine >= INFINITY_GRAD_COSINE and relative
+   L2 <= INFINITY_GRAD_REL_L2; the loss with the kernels off (eval_batch,
+   dense attention) and make_gpt's within INFINITY_LOSS_RTOL; the native
+   v1 pass against the numpy pass on the globals chunk (moments bit for
+   bit, masters within 1e-7, the shadow and the uplink codes differing in
+   at most INFINITY_V1_SHADOW_MAX and INFINITY_V1_CODES_MAX elements).
+   15b: configs/
+   neox_20b_infinity.json as written (stage 3, nvme offload, the
+   streaming block: int4 wire and residency, bf16 host state, exp_avg_sq
+   on the NVMe tier; its aio block, Adam 8e-6, WarmupLR 14) plus
+   "kernels": {"mode": "auto"}, cut as PERF.md section 4 lists (n_layer
+   44 -> INFINITY_LAYERS, nvme_path a temporary directory), fresh init,
+   INFINITY_STEPS steps on one corpus batch. Gates after every step: the
+   loss finite, every chunk's host shadow equal to the card's resident
+   bytes, the wire bytes moved equal to wire_bytes_per_step(), every host
+   pass on the native v2 route; the launches per step on steps 2 and 3
+   equal to infinity_expected_launches. It prints each step's time and
+   its four timings, the bytes in host RAM and on the NVMe tier, the
+   resident bytes and the peak device memory, and the wire bytes. 15c:
+   the config's profile at 1 layer: save after step 2, load into a fresh
+   engine (at step 0), and step 3 must give the
+   same loss and the same card bytes, bit for bit. The LN, bias+GeLU and
+   flash kernels are held against their plain versions and timed at this
+   step's shapes (INFINITY_LN, INFINITY_BG, INFINITY_FLASH) in the kernel
+   phases ("path": "infinity").
 
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -300,6 +332,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -401,14 +434,15 @@ PATH_ROWS = 2048          # B * S of the training micro-batch
 # reference's whole-S kernel, ragged S, and the other head dims
 FLASH_SHAPES = ((2, 16, 1024, 128), (1, 4, 2048, 128), (1, 2, 4096, 128),
                 (1, 4, 640, 128), (1, 4, 1000, 128), (2, 12, 1024, 64),
-                (1, 8, 1024, 96), (16, 12, 1024, 64))
+                (1, 8, 1024, 96), (16, 12, 1024, 64), (1, 64, 1024, 96))
 # S at the kernels' tile edges (the tiles are 16, 32 and 64 rows), every
 # head dim
 FLASH_EDGE_SHAPES = tuple((1, 2, S, Dh) for S in (1, 17, 63, 65, 127, 129)
                           for Dh in (64, 96, 128))
 # shapes timed (causal, bf16) and the path each is: GPT-NeoX-1.3B
 # training's micro-batch and phase 14's GPT-NeoX-125M one
-FLASH_TIMED = {(2, 16, 1024, 128): "gpt", (16, 12, 1024, 64): "dp"}
+FLASH_TIMED = {(2, 16, 1024, 128): "gpt", (16, 12, 1024, 64): "dp",
+               (1, 64, 1024, 96): "infinity"}
 # the training run's bf16 limits, kernel path against plain path
 LOSS_RTOL = 5e-3
 GNORM_RTOL = 5e-2
@@ -537,6 +571,30 @@ SPARSE_SMALL = (
 SPARSE_LAYERS = 24
 SPARSE_STEPS = 6
 SPARSE_LR = 1e-3
+# ZeRO-Infinity (phase 15): configs/neox_20b_infinity.json at GPT-NeoX-20B
+# width, cut to INFINITY_LAYERS of its 44 layers (15b; 1 layer in 15a and
+# 15c) with nvme_path in a temporary directory (PERF.md section 4)
+INFINITY_CONFIG = ROOT / "configs" / "neox_20b_infinity.json"
+INFINITY_LAYERS = 4
+INFINITY_SEQ = 1024
+INFINITY_STEPS = 3
+INFINITY_LR = 8e-6                  # the config's peak lr
+# 15a's limits: the streamed grads against make_gpt's, per leaf; the loss
+# of the kernel path against the plain one
+INFINITY_GRAD_COSINE = 0.99
+INFINITY_GRAD_REL_L2 = 1e-2
+INFINITY_LOSS_RTOL = 5e-3
+# 15a's native v1 pass against the numpy pass on the 620M-element globals
+# chunk: moments bit for bit, masters within 1e-7, and at most this many
+# shadow elements and uplink codes apart (the library's FMA against
+# numpy's two roundings; a reading of 1318 and 11, PERF.md section 6)
+INFINITY_V1_SHADOW_MAX = 5000
+INFINITY_V1_CODES_MAX = 100
+# the streamed step's kernel shapes: flash (B, H, S, Dh), the final layer
+# norm's rows and the FFN's
+INFINITY_FLASH = (1, 64, 1024, 96)
+INFINITY_LN = (1024, 6144)
+INFINITY_BG = (1024, 24576)
 
 
 def card_line() -> str:
@@ -3602,6 +3660,493 @@ def dp_training_phase(card):
     return launches, per_step
 
 
+# ------------------------------------------------------------------ #
+# phase 15: ZeRO-Infinity (the streamed offload engine)
+# ------------------------------------------------------------------ #
+
+
+def host_memory_line():
+    """The host's RAM as /proc/meminfo gives it (GiB)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable", "SwapTotal"):
+                info[key] = int(val.split()[0]) * 1024 / 2**30
+    return info
+
+
+def infinity_config(nvme_path):
+    """configs/neox_20b_infinity.json as written, plus "kernels": {"mode":
+    "auto"}, with its nvme_path cut to ``nvme_path`` (PERF.md section 4)."""
+    config = json.loads(INFINITY_CONFIG.read_text())
+    config.pop("_comment", None)
+    config["zero_optimization"]["offload_optimizer"]["nvme_path"] = str(
+        nvme_path)
+    config["kernels"] = {"mode": "auto"}
+    return config
+
+
+def infinity_batch(seed):
+    """One (1, 1025) batch of the corpus at a seeded offset."""
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    start = int(np.random.default_rng(seed).integers(
+        0, corpus.size - INFINITY_SEQ - 1))
+    return np.asarray(corpus[start: start + INFINITY_SEQ + 1],
+                      dtype=np.int64).reshape(1, INFINITY_SEQ + 1)
+
+
+def per_leaf(meta, flat):
+    return [flat[o: o + n] for o, n in zip(meta.offsets, meta.sizes)]
+
+
+def infinity_grads_phase(card, tmp):
+    """Phase 15a: GPT-NeoX-20B width at 1 layer, the fp32 wire, bf16
+    residency, fp32 host state in RAM, kernels auto, lr 0. The streamed
+    grads against make_gpt's autograd grads on the card's params; the
+    loss with the kernels off; the native v1 pass against the numpy pass
+    on the globals chunk."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import get_preset, make_gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam
+    from deeperspeed_tpu_torch.runtime.offload import streaming
+
+    cfg = get_preset("neox-20b", n_layer=1, max_seq=INFINITY_SEQ,
+                     dtype=torch.bfloat16)
+    config = infinity_config(tmp / "nvme_a")
+    config["zero_optimization"]["offload_optimizer"] = {"device": "none"}
+    config["streaming"].update(wire_bits=32, resident_bits=16,
+                               host_state="fp32", warmup_steps=0)
+    config["optimizer"]["params"]["lr"] = 0.0
+    batch = infinity_batch(SEED)
+    with kernel_config.override():
+        t0 = time.perf_counter()
+        engine, _, _, _ = ds.initialize(model=cfg, config=config)
+        init_s = time.perf_counter() - t0
+        engine.capture_grads = True
+        loss_on = engine.train_batch(batch)
+        grads = {c: g for c, g in engine.last_grads.items()}
+        engine.capture_grads = False
+        params = streaming.tree_map(
+            lambda a: torch.from_numpy(a).to("cuda", torch.bfloat16)
+            .requires_grad_(True), engine.device_params_tree())
+        ref_loss = make_gpt(cfg)[2](params, torch.from_numpy(batch).cuda())
+        ref_grads = torch.autograd.grad(
+            ref_loss, streaming.tree_leaves(params))
+        ref_loss = float(ref_loss.detach())
+        ref_tree = streaming.tree_unflatten(params, [
+            g.float().cpu().numpy() for g in ref_grads])
+        del params, ref_grads
+        _, ref_chunks = engine._chunk(ref_tree)
+        del ref_tree
+        leaves = {}
+        for c in engine.chunk_names:
+            meta = engine._meta[c]
+            names = [f"{c}.{i}" for i in range(len(meta.sizes))]
+            for name, a, b in zip(names, per_leaf(meta, grads[c]),
+                                  per_leaf(meta, ref_chunks[c])):
+                # in fp64 on the card
+                a64, b64 = (torch.from_numpy(x).cuda().double()
+                            for x in (a, b))
+                cos = float(a64 @ b64 / (a64.norm() * b64.norm())
+                            .clamp_min(1e-300))
+                rel = float((a64 - b64).norm() / b64.norm().clamp_min(1e-300))
+                leaves[name] = {"cosine": cos, "rel_l2": rel}
+                del a64, b64
+        bad = {k: v for k, v in leaves.items()
+               if not (v["cosine"] >= INFINITY_GRAD_COSINE
+                       and v["rel_l2"] <= INFINITY_GRAD_REL_L2)}
+        if bad:
+            raise AssertionError(f"infinity 15a: streamed grads disagree with "
+                                 f"make_gpt's: {bad}")
+        # the same params (lr 0) with the kernels off and dense attention
+        engine.cfg = dataclasses.replace(cfg, attn_impl="xla")
+        with kernel_config.override(mode="off"):
+            loss_off = engine.eval_batch(batch)
+        engine.cfg = cfg
+        loss_rel = abs(loss_on - loss_off) / abs(loss_off)
+        mono_rel = abs(loss_on - ref_loss) / abs(ref_loss)
+        if not (loss_rel <= INFINITY_LOSS_RTOL
+                and mono_rel <= INFINITY_LOSS_RTOL):
+            raise AssertionError(
+                f"infinity 15a: loss with kernels {loss_on}, without "
+                f"{loss_off}, make_gpt's {ref_loss}: above "
+                f"{INFINITY_LOSS_RTOL}")
+
+        v1 = native_v1_check(engine, grads["globals"], streaming,
+                             DeepSpeedCPUAdam)
+    report = {"card": card, "model": "neox-20b", "layers": 1,
+              "params": engine.n_params, "init_s": init_s,
+              "loss_kernels": loss_on, "loss_plain": loss_off,
+              "loss_make_gpt": ref_loss,
+              "loss_rel_diff": loss_rel, "loss_make_gpt_rel_diff": mono_rel,
+              "worst_cosine": min(leaves.items(),
+                                  key=lambda kv: kv[1]["cosine"]),
+              "worst_rel_l2": max(leaves.items(),
+                                  key=lambda kv: kv[1]["rel_l2"]),
+              "leaves": len(leaves), "native_v1": v1,
+              "timings": engine.timings}
+    print("infinity 15a: " + json.dumps(report), flush=True)
+    del engine, grads, ref_chunks, ref_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def native_v1_check(engine, g, streaming, cpu_adam):
+    """The native v1 pass (ds_stream_chunk_step) against the numpy pass
+    (the engine's numpy codec around the library's Adam) on the globals
+    chunk: its fp32 grads on an int8 wire, its params as masters, one
+    Adam step at the config's peak lr. Gates: moments bit for bit,
+    masters within 1e-7, the shadow and the uplink codes differing in at
+    most INFINITY_V1_SHADOW_MAX and INFINITY_V1_CODES_MAX elements (the
+    library's FMAs against numpy's two roundings)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    meta = engine._meta["globals"]
+    block = engine.scfg.wire_block
+    lr = INFINITY_LR
+    pool = ThreadPoolExecutor(max_workers=len(meta.sizes))
+    wires = list(pool.map(lambda x: streaming.host_quant(x, 8, block),
+                          per_leaf(meta, g)))
+    pk = np.concatenate([w[0] for w in wires])
+    sk = np.concatenate([w[1] for w in wires])
+    shadow = engine._shadow["globals"].copy()
+    opt = cpu_adam(lr=lr, betas=engine.scfg.betas, eps=engine.scfg.eps)
+    # native v1
+    master = streaming.bf16_bits_to_f32(shadow)
+    m, v = np.zeros_like(master), np.zeros_like(master)
+    sh_nat = shadow.copy()
+    out_p = np.empty(pk.size, np.uint8)
+    out_s = np.empty(sk.size, np.float32)
+    t0 = time.perf_counter()
+    if not opt.step_stream_chunk(1, pk, sk, master, m, v, sh_nat, out_p,
+                                 out_s, meta.sizes, [8] * len(meta.sizes),
+                                 block, lr=lr):
+        raise AssertionError("infinity 15a: the native v1 pass refused")
+    native_s = time.perf_counter() - t0
+    # the numpy pass
+    t0 = time.perf_counter()
+    # the numpy codec's per-leaf passes on threads (numpy drops the GIL)
+    g_np = np.empty(meta.total, np.float32)
+    spans = list(zip(meta.offsets, meta.sizes))
+    list(pool.map(lambda i: streaming.host_dequant(
+        *wires[i], spans[i][1], 8, block,
+        out=g_np[spans[i][0]: spans[i][0] + spans[i][1]]),
+        range(len(spans))))
+    master_np = streaming.bf16_bits_to_f32(shadow)
+    m_np, v_np = np.zeros_like(master_np), np.zeros_like(master_np)
+    opt.step_flat(1, master_np, g_np, m_np, v_np, lr=lr)
+    sh_f32 = streaming.bf16_bits_to_f32(shadow)
+    delta = master_np - sh_f32
+
+    def uplink(i):
+        o, n = spans[i]
+        p_, s_ = streaming.host_quant(delta[o: o + n], 8, block)
+        streaming.host_dequant(p_, s_, n, 8, block, out=delta[o: o + n])
+        return p_
+
+    ups = list(pool.map(uplink, range(len(spans))))
+    pool.shutdown()
+    sh_np = streaming.f32_to_bf16_bits(sh_f32 + delta)
+    numpy_s = time.perf_counter() - t0
+    up_np = np.concatenate(ups)
+    res = {"elements": int(meta.total),
+           "moments_equal": bool(np.array_equal(m, m_np)
+                                 and np.array_equal(v, v_np)),
+           "master_max_abs_diff": float(np.abs(master - master_np).max()),
+           "master_elements_differing": int((master != master_np).sum()),
+           "shadow_elements_differing": int((sh_nat != sh_np).sum()),
+           "codes_differing": int((out_p != up_np).sum()),
+           "native_s": native_s, "numpy_s": numpy_s}
+    if not (res["moments_equal"] and res["master_max_abs_diff"] <= 1e-7
+            and res["shadow_elements_differing"] <= INFINITY_V1_SHADOW_MAX
+            and res["codes_differing"] <= INFINITY_V1_CODES_MAX):
+        raise AssertionError(f"infinity 15a: native v1 against numpy: {res}")
+    return res
+
+
+def infinity_expected_launches(n_layer):
+    """Launches per streamed step the code gives: each layer's forward runs
+    twice (the no-grad group forward and the group backward's re-run under
+    autograd, whose backward launches each backward kernel once); the
+    final layer norm runs once forward and once backward in the head. The
+    NeoX block's two layer norms share one plain pass (layer_norm2)."""
+    expected = {name: 0 for name in SOURCES}
+    expected.update(flash_fwd=2 * n_layer, flash_bwd=n_layer,
+                    bias_gelu_fwd=2 * n_layer, bias_gelu_bwd=n_layer,
+                    ln_fwd=1, ln_bwd=1)
+    return expected
+
+
+def infinity_training_phase(card, tmp):
+    """Phase 15b: configs/neox_20b_infinity.json as written with its two
+    cuts (n_layer 44 -> 4, nvme_path a temporary directory), fresh init
+    from the config's seed, INFINITY_STEPS steps on one fixed batch.
+    Returns the launches of the run and the launches per step."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    cfg = get_preset("neox-20b", n_layer=INFINITY_LAYERS,
+                     max_seq=INFINITY_SEQ, dtype=torch.bfloat16)
+    nvme = tmp / "nvme_b"
+    config = infinity_config(nvme)
+    batch = infinity_batch(SEED + 1)
+    counters = kernel_counters()
+    with kernel_config.override():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine, _, _, _ = ds.initialize(model=cfg, config=config)
+        init_s = time.perf_counter() - t0
+        print(f"infinity 15b: initialize {init_s:.2f} s, {engine.n_params} "
+              f"params, scfg {json.dumps(dataclasses.asdict(engine.scfg))}",
+              flush=True)
+        expected = infinity_expected_launches(cfg.n_layer)
+        wire = engine.wire_bytes_per_step()
+        steps = []
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        total = {name: 0 for name in counters}
+        for step in range(1, INFINITY_STEPS + 1):
+            before = dict(engine.timings)
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            launches = {n: fn.launches - total[n]
+                        for n, fn in counters.items()}
+            total = {n: fn.launches for n, fn in counters.items()}
+            matches = engine.shadow_matches_device()
+            rec = {"step": step, "loss": loss, "step_s": step_s,
+                   **{k: engine.timings[k] - before.get(k, 0.0)
+                      for k in ("compute_s", "d2h_s", "h2d_s",
+                                "host_opt_s")},
+                   "wire_bytes": engine.wire_bytes_last_step,
+                   "routes": sorted(set(engine.host_routes.values())),
+                   "shadow_equals_device": all(matches.values()),
+                   "launches": launches, "lr": engine._lr()}
+            print("infinity 15b step: " + json.dumps(rec), flush=True)
+            if not math.isfinite(loss):
+                raise AssertionError(f"infinity 15b: loss {loss}")
+            if not rec["shadow_equals_device"]:
+                raise AssertionError(f"infinity 15b: shadow differs from the "
+                                     f"card in {matches}")
+            if rec["wire_bytes"] != wire:
+                raise AssertionError(f"infinity 15b: moved {rec['wire_bytes']}"
+                                     f" wire bytes, accounting says {wire}")
+            if rec["routes"] != ["native_v2"]:
+                raise AssertionError(f"infinity 15b: host passes "
+                                     f"{engine.host_routes}")
+            if step > 1 and launches != expected:
+                raise AssertionError(f"infinity 15b: launches {launches}, "
+                                     f"expected {expected}")
+            steps.append(rec)
+        run_launches = dict(total)
+        sizes = engine.host_state_bytes()
+        report = {
+            "card": card, "model": "neox-20b", "layers": cfg.n_layer,
+            "d_model": cfg.d_model, "seq": INFINITY_SEQ, "params":
+                engine.n_params, "init_s": init_s,
+            "initial_upload_s": engine.timings["initial_upload_s"],
+            "losses": [s["loss"] for s in steps],
+            "step_s": [s["step_s"] for s in steps],
+            "step_s_median_2_3": statistics.median(
+                [s["step_s"] for s in steps[1:]]),
+            "timings_median_2_3": {k: statistics.median(
+                [s[k] for s in steps[1:]]) for k in
+                ("compute_s", "d2h_s", "h2d_s", "host_opt_s")},
+            "host_ram_bytes": sizes["ram"], "nvme_bytes": sizes["nvme"],
+            "nvme_files": sorted(p.name for p in nvme.iterdir()),
+            "resident_bytes": engine.resident_bytes(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "wire_bytes_per_step": wire,
+            "launches_per_step": expected,
+            "simd": engine.opt.simd_width(),
+        }
+    print("infinity 15b: " + json.dumps(report), flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_launches, {k: v / INFINITY_STEPS
+                          for k, v in run_launches.items()}
+
+
+def infinity_resume_phase(card, tmp):
+    """Phase 15c: the config's own profile (int4 wire and residency, bf16
+    host state, exp_avg_sq on the NVMe tier) at 1 layer: save after step
+    2, load into a fresh engine (at step 0: zero moments, the initial
+    params), and step 3 must give the same loss and the same card bytes,
+    bit for bit."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    cfg = get_preset("neox-20b", n_layer=1, max_seq=INFINITY_SEQ,
+                     dtype=torch.bfloat16)
+    batches = [infinity_batch(SEED + 10 + i) for i in range(3)]
+    ckpt = tmp / "ckpt"
+    with kernel_config.override():
+        a, _, _, _ = ds.initialize(model=cfg,
+                                   config=infinity_config(tmp / "nvme_c1"))
+        losses = [a.train_batch(batches[i]) for i in range(2)]
+        t0 = time.perf_counter()
+        a.save_checkpoint(str(ckpt))
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*")
+                         if p.is_file())
+        loss3 = a.train_batch(batches[2])
+        shadow_a = {c: a.storage_bytes(c) for c in a.chunk_names}
+        del a
+        gc.collect()
+        b, _, _, _ = ds.initialize(model=cfg,
+                                   config=infinity_config(tmp / "nvme_c2"))
+        t0 = time.perf_counter()
+        b.load_checkpoint(str(ckpt))
+        load_s = time.perf_counter() - t0
+        loss3_b = b.train_batch(batches[2])
+        same_shadow = all(
+            np.array_equal(shadow_a[c][k], v)
+            for c in b.chunk_names for k, v in b.storage_bytes(c).items())
+        same_device = all(b.shadow_matches_device().values())
+    report = {"card": card, "layers": 1, "losses_1_2": losses,
+              "loss_3": loss3, "loss_3_resumed": loss3_b,
+              "same_loss": loss3 == loss3_b, "same_shadow": same_shadow,
+              "shadow_equals_device": same_device, "save_s": save_s,
+              "load_s": load_s, "checkpoint_bytes": ckpt_bytes}
+    print("infinity 15c: " + json.dumps(report), flush=True)
+    if not (report["same_loss"] and same_shadow and same_device):
+        raise AssertionError(f"infinity 15c: resume not bit for bit: {report}")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def infinity_phase(card):
+    """Phase 15 (ZeRO-Infinity): the host's RAM, the free disk at the swap
+    folder and the host library's build, then 15a-15c. Returns 15b's
+    launches and launches per step."""
+    import shutil
+
+    from deeperspeed_tpu_torch.ops import op_builder
+    from deeperspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_infinity_"))
+    try:
+        opt = DeepSpeedCPUAdam(lr=INFINITY_LR)
+        info = op_builder.build_info["ds_cpu_adam"]
+        disk = shutil.disk_usage(tmp)
+        print("infinity host: " + json.dumps({
+            "meminfo_gib": host_memory_line(),
+            "swap_folder": str(tmp), "disk_free_gib": disk.free / 2**30,
+            "disk_total_gib": disk.total / 2**30,
+            "cpu_count": os.cpu_count(),
+            "ds_cpu_adam_build_s": info["seconds"],
+            "ds_cpu_adam_library": info["path"],
+            "ds_cpu_adam_compiler": info["compiler"],
+            "ds_cpu_adam_openmp": info["openmp"],
+            "ds_adam_simd_width": opt.simd_width()}), flush=True)
+        del opt
+        infinity_grads_phase(card, tmp)
+        launches, per_step = infinity_training_phase(card, tmp)
+        infinity_resume_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, per_step
+
+
+def infinity_kernel_cases(fb, gen):
+    """The LN and bias+GeLU kernels at the streamed 20B step's shapes:
+    ln_fwd / ln_bwd at (1024, 6144) and bias_gelu_fwd / bias_gelu_bwd
+    (tanh) at (1024, 24576), bf16, against their plain versions (TOL; 10x
+    for gradients; REL_L2), timed beside the plain version, the library
+    call (F.layer_norm and its aten backward; none computes bias+GeLU in
+    one call) and the bound ("path": "infinity")."""
+    results = {}
+    dtype = torch.bfloat16
+    tol, rel, isz = TOL[dtype], REL_L2[dtype], 2
+    R, D = INFINITY_LN
+    w = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
+    b = randn_on(gen, (D,), torch.float32, 0.1)
+
+    def ln_fwd_case():
+        return randn_on(gen, (R, D), dtype, 2.0, 0.5), w, b, 1e-5
+
+    args = ln_fwd_case()
+    y, mu, rs = fb.ln_fwd(*args)
+    torch.cuda.synchronize()
+    py, pmu, prs = fb.ln_fwd_plain(*args)
+    err, rel_err = check_close(f"ln_fwd {R}x{D} bf16", y, py, tol, rel)
+    check_outputs(f"ln_fwd {R}x{D} stats", ("mean", "rstd"), (mu, rs),
+                  (pmu, prs), 2e-5, rel)
+    row = {"shape": [R, D], "dtype": "bfloat16", "path": "infinity",
+           "max_abs_err": err, "tol": tol, "rel_l2_err": rel_err,
+           "rel_l2_tol": rel, "library": "F.layer_norm"}
+    bufs = copies(ln_fwd_case, R * D * isz)
+    lib_bufs = [(a[0], (D,), w.to(dtype), b.to(dtype), 1e-5) for a in bufs]
+    row.update(timings(fb.ln_fwd, fb.ln_fwd_plain, bufs,
+                       torch.nn.functional.layer_norm, lib_bufs))
+    row.update(bound(2 * R * D * isz + 2 * D * 4 + 2 * R * 4, 8 * R * D))
+    results["ln_fwd"] = [row]
+    del bufs, lib_bufs
+
+    def ln_bwd_case():
+        x = randn_on(gen, (R, D), dtype, 2.0, 0.5)
+        _, mean, rstd = fb.ln_fwd_plain(x, w, b, 1e-5)
+        return x, w, mean, rstd, randn_on(gen, (R, D), dtype)
+
+    args = ln_bwd_case()
+    got = fb.ln_bwd(*args)
+    torch.cuda.synchronize()
+    err, rel_err = check_outputs(f"ln_bwd {R}x{D} bf16", ("dx", "dw", "db"),
+                                 got, fb.ln_bwd_plain(*args), 10 * tol, rel)
+    row = {"shape": [R, D], "dtype": "bfloat16", "path": "infinity",
+           "max_abs_err": err, "tol": 10 * tol, "rel_l2_err": rel_err,
+           "rel_l2_tol": rel, "library": "aten.native_layer_norm_backward"}
+    bufs = copies(ln_bwd_case, 2 * R * D * isz)
+    wl = w.to(dtype)
+    lib_bufs = [(g, xx, (D,), mu_[:, None], rs_[:, None], wl, wl,
+                 [True, True, True]) for xx, _, mu_, rs_, g in bufs]
+    row.update(timings(fb.ln_bwd, fb.ln_bwd_plain, bufs,
+                       torch.ops.aten.native_layer_norm_backward, lib_bufs))
+    row.update(bound(3 * R * D * isz + 8 * R + 12 * D, 13 * R * D))
+    results["ln_bwd"] = [row]
+    del bufs, lib_bufs
+
+    R, F = INFINITY_BG
+
+    def bg_case():
+        return (randn_on(gen, (R, F), dtype, 2.0), randn_on(gen, (F,), dtype),
+                randn_on(gen, (R, F), dtype), True)
+
+    args = bg_case()
+    y = fb.bias_gelu_fwd(*args[:2], True)
+    dx, db = fb.bias_gelu_bwd(*args)
+    torch.cuda.synchronize()
+    err, rel_err = check_close(f"bias_gelu_fwd {R}x{F} bf16", y,
+                               fb.bias_gelu_fwd_plain(*args[:2], True),
+                               tol, rel)
+    fwd = {"shape": [R, F], "dtype": "bfloat16", "approximate": True,
+           "path": "infinity", "max_abs_err": err, "tol": tol,
+           "rel_l2_err": rel_err, "rel_l2_tol": rel, "library": None}
+    err, rel_err = check_outputs(f"bias_gelu_bwd {R}x{F} bf16", ("dx", "db"),
+                                 (dx, db), fb.bias_gelu_bwd_plain(*args),
+                                 10 * tol, rel)
+    bwd = dict(fwd, max_abs_err=err, tol=10 * tol, rel_l2_err=rel_err)
+    bufs = copies(bg_case, 2 * R * F * isz)
+    fwd.update(timings(fb.bias_gelu_fwd, fb.bias_gelu_fwd_plain,
+                       [a[:2] + (True,) for a in bufs]))
+    fwd.update(bound(2 * R * F * isz + F * isz, 10 * R * F))
+    bwd.update(timings(fb.bias_gelu_bwd, fb.bias_gelu_bwd_plain, bufs))
+    bwd.update(bound(3 * R * F * isz + F * (isz + 4), 20 * R * F))
+    results["bias_gelu_fwd"] = [fwd]
+    results["bias_gelu_bwd"] = [bwd]
+    del bufs
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3667,6 +4212,8 @@ def main() -> int:
     cases.update(quant_phase(fq, gen))
     gc.collect()
     torch.cuda.empty_cache()
+    for name, rows in infinity_kernel_cases(fb, gen).items():
+        cases[name].extend(rows)
     for name, rows in cases.items():
         for r in rows:
             if "ms" in r:
@@ -3706,6 +4253,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dp, dp_per_step = dp_training_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    infinity, infinity_per_step = infinity_phase(card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -3714,7 +4264,8 @@ def main() -> int:
     # (phase 14's in each rank, summed over the ranks)
     paths = {"serving": serving, "gpt_training": training,
              "gpt_resume": resume, "bert_training": bert,
-             "sparse_training": sparse, "dp_training": dp}
+             "sparse_training": sparse, "dp_training": dp,
+             "infinity_training": infinity}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -3746,8 +4297,16 @@ def main() -> int:
                                   "bert_training": bert_per_step[name],
                                   "sparse_training": sparse_per_step[name],
                                   "dp_training_per_rank":
-                                      dp_per_step[name]},
+                                      dp_per_step[name],
+                                  "infinity_training":
+                                      infinity_per_step[name]},
         }
+        inf = next((r for r in rows if r.get("path") == "infinity"), None)
+        if inf is not None:
+            # the kernel at the streamed GPT-NeoX-20B step's shape
+            entry["infinity_path"] = {k: inf[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "fused_adam":

@@ -21,7 +21,9 @@ block-sparse attention (``csrc/sparse_attention.cu``), and data-parallel
 training over ``torch.distributed`` ranks: the ``"mesh"`` block
 (``sharding/``), ZeRO stages 1 and 2 (``runtime/zero/``) and the bucketed
 gradient reducer with its int8 wire-format kernels (``runtime/comm/``,
-``csrc/fused_quant.cu``).
+``csrc/fused_quant.cu``), and ZeRO-Infinity: the streamed offload engine
+(``runtime/offload/``; ``initialize`` builds it for a ``GPTConfig``) with
+its host Adam and NVMe I/O in C++ (``csrc/host/``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper takes its plain PyTorch version. This package
@@ -33,7 +35,10 @@ __version__ = "0.1.0"
 from .runtime import lr_schedules  # noqa: E402
 from .runtime.config import (ConfigError, DeepSpeedConfig,  # noqa: E402
                              TrainingConfig)
+from .ops.adam import DeepSpeedCPUAdam  # noqa: E402
 from .runtime.engine import Engine, initialize  # noqa: E402
+from .runtime.offload.streaming import (StreamConfig,  # noqa: E402
+                                        StreamedOffloadEngine)
 from .serving import ServingConfig, ServingEngine  # noqa: E402
 
 
@@ -57,6 +62,7 @@ def add_config_arguments(parser):
     return parser
 
 
-__all__ = ["ConfigError", "DeepSpeedConfig", "Engine", "ServingConfig",
-           "ServingEngine", "TrainingConfig", "__version__",
+__all__ = ["ConfigError", "DeepSpeedCPUAdam", "DeepSpeedConfig", "Engine",
+           "ServingConfig", "ServingEngine", "StreamConfig",
+           "StreamedOffloadEngine", "TrainingConfig", "__version__",
            "add_config_arguments", "initialize", "lr_schedules"]

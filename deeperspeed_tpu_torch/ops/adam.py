@@ -12,14 +12,21 @@ fused kernel (ops/fused_adam.py, PERF.md kernel row 13): one launch per
 dtype combination over all leaves on CUDA (mode ``fused``, or ``auto`` on
 Hopper), the wrapper's plain version on the CPU under mode ``fused``.
 Otherwise each leaf takes the plain update, which is the same math.
+
+``DeepSpeedCPUAdam`` is the host Adam of the offload engine
+(runtime/offload/streaming.py): the update and the fused wire codec over
+flat numpy buffers, in C++ (csrc/host/ds_cpu_adam.cpp) through ctypes.
 """
 
+import ctypes
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..monitor.tracer import trace_span
 from ..utils.logging import logger
+from . import op_builder
 from .fused_adam import adam_plain, adam_scalars, fused_adam, group_by_dtypes
 from .kernel_config import routes_to_wrapper
 
@@ -123,3 +130,213 @@ class FusedAdam:
         else:
             adam_plain(*lists, lr, bc1, bc2, **kw)
         return params, AdamState(step, state.exp_avg, state.exp_avg_sq)
+
+
+# ------------------------------------------------------------------ #
+# host Adam over numpy buffers (the offload engine's optimizer)
+# ------------------------------------------------------------------ #
+
+_c = ctypes
+_FP = _c.POINTER(_c.c_float)
+_U8P = _c.POINTER(_c.c_uint8)
+_U16P = _c.POINTER(_c.c_uint16)
+_CPU_ADAM_SIGNATURES = {
+    "ds_adam_create": ([_c.c_int] + [_c.c_float] * 5 + [_c.c_int, _c.c_int],
+                       _c.c_int),
+    "ds_adam_destroy": ([_c.c_int], _c.c_int),
+    "ds_adam_step": ([_c.c_int, _c.c_longlong] + [_c.c_float] * 5
+                     + [_FP, _FP, _FP, _FP, _c.c_longlong], _c.c_int),
+    "ds_adam_step_copy_bf16": ([_c.c_int, _c.c_longlong] + [_c.c_float] * 5
+                               + [_FP, _FP, _FP, _FP, _c.c_longlong, _U16P],
+                               _c.c_int),
+    "ds_adam_simd_width": ([], _c.c_char_p),
+    "ds_stream_chunk_step": ([
+        _c.c_int, _c.c_longlong, _c.c_float,
+        _U8P, _FP,                    # wire grads: packed + scales
+        _FP, _FP, _FP,                # master, exp_avg, exp_avg_sq
+        _U16P,                        # bf16 shadow bits
+        _U8P, _FP,                    # delta wire out: packed + scales
+        _c.POINTER(_c.c_longlong), _c.POINTER(_c.c_int),  # leaf geometry
+        _c.c_longlong, _c.c_int,      # n_leaves, block
+    ], _c.c_int),
+    "ds_stream_chunk_step2": ([
+        _c.c_int, _c.c_longlong, _c.c_float,
+        _U8P, _FP,                    # wire grads: packed + scales
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,  # state, bf16 flag
+        _U16P,                        # bf16 shadow bits (mode 0)
+        _U8P, _FP,                    # mode-0 delta wire out
+        _U8P, _FP, _U16P,             # mode-1 resident out: c/s/w
+        _c.POINTER(_c.c_longlong), _c.POINTER(_c.c_int),
+        _c.POINTER(_c.c_int),
+        _c.c_longlong, _c.c_int, _c.c_int,  # n_leaves, block, mode
+    ], _c.c_int),
+}
+
+
+def load_cpu_adam() -> ctypes.CDLL:
+    """The host Adam library (csrc/host/ds_cpu_adam.cpp), built at first
+    use; raises with the compiler's output when it cannot be built."""
+    return op_builder.load_host("ds_cpu_adam", _CPU_ADAM_SIGNATURES)
+
+
+def _ptr(a, t):
+    return None if a is None else a.ctypes.data_as(_c.POINTER(t))
+
+
+class DeepSpeedCPUAdam(FusedAdam):
+    """Host-side Adam for the offload engine: the reference's
+    ``DeepSpeedCPUAdam`` (ops/adam.py) over flat numpy buffers, through
+    the native library csrc/host/ds_cpu_adam.cpp (AVX-512 or AVX2 with
+    FMA, OpenMP over 64K-element chunks in ``step_flat``). As a device
+    optimizer it is ``FusedAdam``.
+
+    ``native=True`` (the default) builds and loads the library now and
+    raises if it cannot; ``native=False`` takes the numpy versions, the
+    same math in numpy's order of operations. Each instance registers its
+    hyperparameters under its own id in the library's registry and drops
+    them when collected, as the reference's create/destroy pair does."""
+
+    _next_id = 0
+
+    def __init__(self, *args, native: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._lib = None
+        self._opt_id = None
+        if native:
+            self._lib = load_cpu_adam()
+            DeepSpeedCPUAdam._next_id += 1
+            self._opt_id = DeepSpeedCPUAdam._next_id
+            self._lib.ds_adam_create(
+                self._opt_id, self.lr, self.betas[0], self.betas[1], self.eps,
+                self.weight_decay, int(self.adam_w_mode),
+                int(self.bias_correction))
+
+    def __del__(self):
+        lib, oid = getattr(self, "_lib", None), getattr(self, "_opt_id", None)
+        if lib is not None and oid is not None:
+            lib.ds_adam_destroy(oid)
+
+    @property
+    def has_native(self) -> bool:
+        return self._lib is not None
+
+    def simd_width(self) -> str:
+        """The library's vector path: "avx512", "avx2" or "scalar"."""
+        return self._lib.ds_adam_simd_width().decode()
+
+    def step_stream_chunk(self, step, g_packed, g_scales, master, exp_avg,
+                          exp_avg_sq, shadow_u16, out_packed, out_scales,
+                          leaf_sizes, leaf_bits, block, lr=None) -> bool:
+        """The fused wire step (``ds_stream_chunk_step``): dequantize the
+        int4/int8 wire grads, Adam the fp32 master chunk, quantize the
+        error-fed delta against the bf16 shadow and advance the shadow, in
+        one native pass. False when the library is not loaded or a leaf's
+        wire is not 4 or 8 bits (the numpy pass then runs)."""
+        if self._lib is None:
+            return False
+        lr = self.lr if lr is None else float(lr)
+        sizes = np.ascontiguousarray(leaf_sizes, np.int64)
+        bits = np.ascontiguousarray(leaf_bits, np.int32)
+        rc = self._lib.ds_stream_chunk_step(
+            self._opt_id, int(step), lr,
+            _ptr(g_packed, _c.c_uint8), _ptr(g_scales, _c.c_float),
+            _ptr(master, _c.c_float), _ptr(exp_avg, _c.c_float),
+            _ptr(exp_avg_sq, _c.c_float), _ptr(shadow_u16, _c.c_uint16),
+            _ptr(out_packed, _c.c_uint8), _ptr(out_scales, _c.c_float),
+            _ptr(sizes, _c.c_longlong), _ptr(bits, _c.c_int),
+            len(sizes), int(block))
+        if rc == -2:
+            return False
+        if rc != 0:
+            raise RuntimeError("native stream_chunk_step failed")
+        return True
+
+    def step_stream_chunk2(self, step, g_packed, g_scales, master, exp_avg,
+                           exp_avg_sq, shadow_u16, out_packed, out_scales,
+                           out_c, out_s, out_w, leaf_sizes, leaf_bits,
+                           res_bits, block, mode, lr=None) -> bool:
+        """The generalized wire step (``ds_stream_chunk_step2``): host
+        state as fp32 or bf16 bits (inferred from ``master.dtype``, all
+        three alike), uplink ``mode`` 0 the error-fed delta against the
+        shadow, 1 the new resident codes (``out_c``/``out_s``/``out_w``).
+        False, with nothing stepped, when the library is not loaded or a
+        leaf's precisions are not 4/8-bit wire and 4/8/16-bit resident.
+        ctypes drops the GIL for the call, so calls on disjoint leaves may
+        run on several threads."""
+        if self._lib is None:
+            return False
+        lr = self.lr if lr is None else float(lr)
+        state_bf16 = master.dtype == np.uint16
+        expect = np.uint16 if state_bf16 else np.float32
+        for a in (master, exp_avg, exp_avg_sq):
+            if a.dtype != expect or not a.flags["C_CONTIGUOUS"]:
+                raise ValueError(f"state buffers must be contiguous "
+                                 f"{np.dtype(expect)}, got {a.dtype}")
+        if any(b not in (4, 8) for b in leaf_bits) or (
+                mode == 1 and any(b not in (4, 8, 16) for b in res_bits)):
+            return False
+        sizes = np.ascontiguousarray(leaf_sizes, np.int64)
+        bits = np.ascontiguousarray(leaf_bits, np.int32)
+        rbits = np.ascontiguousarray(res_bits, np.int32)
+        vptr = lambda a: _c.c_void_p(a.ctypes.data)
+        rc = self._lib.ds_stream_chunk_step2(
+            self._opt_id, int(step), lr,
+            _ptr(g_packed, _c.c_uint8), _ptr(g_scales, _c.c_float),
+            vptr(master), vptr(exp_avg), vptr(exp_avg_sq), int(state_bf16),
+            _ptr(shadow_u16, _c.c_uint16),
+            _ptr(out_packed, _c.c_uint8), _ptr(out_scales, _c.c_float),
+            _ptr(out_c, _c.c_uint8), _ptr(out_s, _c.c_float),
+            _ptr(out_w, _c.c_uint16),
+            _ptr(sizes, _c.c_longlong), _ptr(bits, _c.c_int),
+            _ptr(rbits, _c.c_int), len(sizes), int(block), int(mode))
+        if rc != 0:
+            raise RuntimeError(f"native stream_chunk_step2 failed ({rc})")
+        return True
+
+    def step_flat(self, step, params, grads, exp_avg, exp_avg_sq, lr=None,
+                  bf16_out=None):
+        """In-place Adam step on flat fp32 numpy arrays; ``bf16_out``
+        (uint16) receives the round-to-nearest-even bf16 bits of the
+        updated params when given."""
+        lr = self.lr if lr is None else float(lr)
+        for a in (params, grads, exp_avg, exp_avg_sq):
+            if a.dtype != np.float32 or not a.flags["C_CONTIGUOUS"]:
+                raise ValueError("step_flat takes contiguous fp32 arrays")
+        if self._lib is not None:
+            fp = lambda x: _ptr(x, _c.c_float)
+            if bf16_out is not None:
+                rc = self._lib.ds_adam_step_copy_bf16(
+                    self._opt_id, int(step), lr, -1.0, -1.0, -1.0, -1.0,
+                    fp(params), fp(grads), fp(exp_avg), fp(exp_avg_sq),
+                    params.size, _ptr(bf16_out, _c.c_uint16))
+            else:
+                rc = self._lib.ds_adam_step(
+                    self._opt_id, int(step), lr, -1.0, -1.0, -1.0, -1.0,
+                    fp(params), fp(grads), fp(exp_avg), fp(exp_avg_sq),
+                    params.size)
+            if rc != 0:
+                raise RuntimeError("native cpu_adam step failed")
+            return
+        # numpy (the reference's fallback, FusedAdam's math)
+        b1, b2 = self.betas
+        g = grads
+        if self.weight_decay and not self.adam_w_mode:
+            g = g + self.weight_decay * params
+        exp_avg *= b1
+        exp_avg += (1.0 - b1) * g
+        exp_avg_sq *= b2
+        exp_avg_sq += (1.0 - b2) * g * g
+        if self.bias_correction:
+            bc1 = 1.0 - b1 ** step
+            bc2 = 1.0 - b2 ** step
+        else:
+            bc1 = bc2 = 1.0
+        denom = np.sqrt(exp_avg_sq / bc2) + self.eps
+        upd = (exp_avg / bc1) / denom
+        if self.weight_decay and self.adam_w_mode:
+            upd = upd + self.weight_decay * params
+        params -= lr * upd
+        if bf16_out is not None:
+            u = params.view(np.uint32)
+            bf16_out[:] = ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) >> 16
+                           ).astype(np.uint16)

@@ -12,11 +12,15 @@ turns one of them on raises ``ConfigError`` naming the ROADMAP.md item
 that ports it; nothing is ignored. The blocks the port runs: the batch
 triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``kernels``, ``serving``,
-``monitor`` (``monitor_config``), ``tensorboard``, ``sparse_attention`` (read by ``get_sparse_attention``, as in the
-reference), ``zero_optimization`` stages 0-2 (``zero_config``), ``mesh``
-with dp and fsdp (``mesh_config``), ``comm`` (``comm_config``) and
-``checkpoint`` (tag validation; ``sharded_io: true``, the orbax layout,
-raises until sharded checkpoints are ported).
+``monitor`` (``monitor_config``), ``tensorboard``, ``sparse_attention``
+(read by ``get_sparse_attention``, as in the reference),
+``zero_optimization`` (``zero_config``: stages 0-2 for ``Engine``; stage
+3 and the offload devices for the streamed engine, which ``Engine``
+refuses), ``streaming`` (``streaming_enabled``, ``streaming_params``),
+``aio`` (``aio_config``), ``mesh`` with dp and fsdp (``mesh_config``),
+``comm`` (``comm_config``) and ``checkpoint`` (tag validation;
+``sharded_io: true``, the orbax layout, raises until sharded checkpoints
+are ported).
 """
 
 import copy
@@ -26,6 +30,7 @@ from ..utils.logging import logger
 from . import constants as c
 from .comm.config import CommConfig
 from .config_utils import load_config
+from .offload.aio_config import AioConfig
 from .zero.config import ZeroConfig
 
 
@@ -73,20 +78,8 @@ class TrainingConfig:
         stage = zero.get(c.ZERO_STAGE, 0)
         if not (0 <= stage <= c.MAX_STAGE_ZERO_OPTIMIZATION):
             raise ValueError(f"ZeRO stage must be in [0, 3], got {stage}")
-        if stage == 3:
-            raise _unported("ZeRO stage 3", "Offload and ZeRO-Infinity")
-        for key in (c.ZERO_OFFLOAD_OPTIMIZER, c.ZERO_OFFLOAD_PARAM):
-            device = (zero.get(key) or {}).get(c.ZERO_OFFLOAD_DEVICE,
-                                               c.ZERO_OFFLOAD_DEVICE_NONE)
-            if device != c.ZERO_OFFLOAD_DEVICE_NONE:
-                raise _unported(f"zero_optimization.{key}",
-                                "Offload and ZeRO-Infinity")
-        if zero.get(c.ZERO_CPU_OFFLOAD):
-            raise _unported("zero_optimization.cpu_offload",
-                            "Offload and ZeRO-Infinity")
 
         presence = (
-            (c.STREAMING, "Offload and ZeRO-Infinity"),
             (c.DISTRIBUTED, "Resilience and multi-process runtime"),
             (c.RESILIENCE, "Resilience and multi-process runtime"),
             (c.LIFECYCLE, "Resilience and multi-process runtime"),
@@ -115,7 +108,6 @@ class TrainingConfig:
         present = (
             (c.PIPELINE, "MoE, TP and pipeline"),
             (c.ACTIVATION_CHECKPOINTING, "Tooling"),
-            (c.AIO, "Offload and ZeRO-Infinity"),
         )
         for key, item in present:
             if pd.get(key):
@@ -229,6 +221,23 @@ class TrainingConfig:
         self.zero_config = ZeroConfig(pd)
         self.zero_enabled = self.zero_config.enabled
         self.zero_optimization_stage = self.zero_config.stage
+        self.aio_config = AioConfig(pd)
+
+        # ---- streamed ZeRO-Infinity engine ----
+        # A "streaming" block opts in (and carries StreamConfig field
+        # overrides); ZeRO stage 3 with offload_param on cpu or nvme also
+        # routes initialize() with a model config to the streamed engine
+        self.streaming_params = pd.get(c.STREAMING, None)
+        if self.streaming_params is not None and not isinstance(
+                self.streaming_params, dict):
+            raise ConfigError('"streaming" must be a dict of StreamConfig '
+                              'overrides (or {"enabled": false})')
+        explicit = (self.streaming_params or {}).get(c.STREAMING_ENABLED)
+        self.streaming_enabled = (
+            explicit if explicit is not None else (
+                self.streaming_params is not None
+                or (self.zero_optimization_stage == 3
+                    and self.zero_config.offload_param.enabled)))
 
         # ---- comm (bucketed / quantized gradient collectives) ----
         self.comm_params = pd.get(c.COMM, None)

@@ -176,6 +176,7 @@ SPARSE_ATTENTION = "sparse_attention"
 # raises on every one the port does not run yet.
 #############################################
 STREAMING = "streaming"
+STREAMING_ENABLED = "enabled"
 
 SERVING = "serving"
 
@@ -219,7 +220,8 @@ MAX_STAGE_ZERO_OPTIMIZATION = 3
 
 #############################################
 # Other subsystems' blocks (reference: activation_checkpointing, aio,
-# flops_profiler, elasticity); the port runs none of them yet
+# flops_profiler, elasticity); of these the port runs "aio" (the
+# streamed engine's NVMe tier)
 #############################################
 ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 AIO = "aio"

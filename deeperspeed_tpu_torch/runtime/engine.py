@@ -80,6 +80,8 @@ from ..checkpoint.serialization import (SHARDED_STATE_DIR, CheckpointEngine,
                                         validate_tag_across_processes,
                                         write_latest)
 from ..checkpoint.zero_to_fp32 import write_recovery_stub
+from ..models.bert import BertConfig
+from ..models.gpt import GPTConfig
 from ..monitor import get_monitor, init_monitor, runctx
 from ..monitor.perf import StepTimer
 from ..monitor.tracer import trace_instant, trace_span
@@ -131,6 +133,33 @@ def tree_unflatten(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
+def _refuse_offload(config: TrainingConfig) -> None:
+    """Engine (a loss callable) runs ZeRO stages 0-2 without offload; stage
+    3 and the offload devices run only in the streamed engine, which
+    ``initialize`` builds for a model config."""
+    zc = config.zero_config
+    item = "ROADMAP.md queue 1, item 10 'Offload and ZeRO-Infinity'"
+    if zc.offload_optimizer.enabled:
+        raise NotImplementedError(
+            f"zero_optimization.offload_optimizer (device "
+            f"{zc.offload_optimizer.device!r}) for a loss callable, the "
+            f"reference's HostOffloadOptimizer, is not ported to the "
+            f"PyTorch package yet ({item}: HostOffloadOptimizer); pass "
+            f"initialize a GPTConfig to train on the streamed offload "
+            f"engine")
+    if config.zero_optimization_stage == 3 or zc.offload_param.enabled:
+        raise NotImplementedError(
+            f"ZeRO stage 3 and offload_param for a loss callable (the "
+            f"reference's stage-3 helpers) are not ported to the PyTorch "
+            f"package yet ({item}: the stage-3 helpers); pass initialize "
+            f"a GPTConfig to train on the streamed offload engine")
+    if config.streaming_enabled:
+        raise NotImplementedError(
+            f'the "streaming" block trains a model config on the streamed '
+            f"offload engine: pass initialize a GPTConfig. Engine, built "
+            f"for a loss callable, does not stream ({item})")
+
+
 class Engine(ConfigAccessorsMixin):
     def __init__(
         self,
@@ -144,6 +173,7 @@ class Engine(ConfigAccessorsMixin):
         device=None,
         rng: Optional[int] = None,
     ):
+        _refuse_offload(config)
         self._config = config
         self.loss_fn = model
         self.module = model  # reference-compatible alias
@@ -1097,7 +1127,12 @@ def initialize(
 
     Returns (engine, optimizer, training_dataloader, lr_scheduler).
     ``model`` is a loss callable ``loss_fn(params, batch[, rng])``;
-    ``model_parameters`` is the initial params tree. ``device`` defaults
+    ``model_parameters`` is the initial params tree. A model config
+    (``GPTConfig``) with a config that enables streaming builds the
+    streamed ZeRO-Infinity engine instead (runtime/offload/streaming.py;
+    ``model_parameters`` then optional, a fresh init from the streaming
+    seed without them) and returns ``(engine, engine.opt, None, None)``;
+    a ``BertConfig`` raises there. ``device`` defaults
     to CUDA. ``rng`` seeds the generators handed to a loss that takes one
     (default 0). Each process is one rank: the world size comes from an
     initialized ``torch.distributed`` group (1 without one), laid out by
@@ -1117,12 +1152,42 @@ def initialize(
         raise NotImplementedError(
             "mpu (tensor parallelism) is not ported to the PyTorch package "
             "yet (ROADMAP.md queue 1, item 'MoE, TP and pipeline')")
-    if not callable(model) or hasattr(model, "n_layer"):
+    if isinstance(model, (GPTConfig, BertConfig)):
+        # the streamed ZeRO-Infinity route: a model config plus a config
+        # that enables streaming (a "streaming" block, or ZeRO stage 3
+        # with offload_param on cpu or nvme), as the reference routes it
+        world = mesh_lib.world_size()
+        ds_config = (config if isinstance(config, TrainingConfig)
+                     else TrainingConfig(config, world_size=world))
+        if not ds_config.streaming_enabled:
+            raise ValueError(
+                "initialize() got a model config (GPTConfig/BertConfig) "
+                "but the ds_config does not enable the streaming engine — "
+                'add a "streaming" block or zero stage 3 with '
+                "offload_param.device cpu/nvme, or pass a loss callable "
+                "instead of a model config")
+        from .offload.streaming import build_streamed_engine
+
+        # the streamed engine runs one rank: a world of several ranks, or a
+        # "mesh" block with a data-parallel extent above 1, takes
+        # build_streamed_engine's refusal
+        mc = ds_config.mesh_config()
+        mesh = None
+        if world > 1 or (mc is not None and max(mc.dp, mc.fsdp) > 1):
+            mesh = mc if mc is not None else mesh_lib.default_mesh()
+        # the "kernels" block is process-global, as Engine applies it (a
+        # refused config leaves it untouched)
+        if ds_config.kernels_params and mesh is None:
+            kernel_config.configure(**ds_config.kernels_params)
+        engine = build_streamed_engine(model, ds_config,
+                                       host_params=model_parameters,
+                                       device=device, mesh=mesh)
+        return engine, engine.opt, None, None
+    if not callable(model):
         raise NotImplementedError(
-            "initialize() takes a loss callable in the PyTorch package; the "
-            "streaming engine for a model config and the PipelineModule "
-            "engine are not ported yet (ROADMAP.md queue 1, items "
-            "'Offload and ZeRO-Infinity' and 'MoE, TP and pipeline')")
+            "initialize() takes a loss callable or a model config in the "
+            "PyTorch package; the PipelineModule engine is not ported yet "
+            "(ROADMAP.md queue 1, item 'MoE, TP and pipeline')")
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
     ds_config = (config if isinstance(config, TrainingConfig)

@@ -9,9 +9,10 @@ each stage means in the port (runtime/zero/partition.py):
              ZeRO axis: each rank updates its shard, then the updated
              compute params are all-gathered
   stage 2 -- stage 1, and the reduced gradients cut to the same shards
-  stage 3 -- refused (ROADMAP.md queue 1, item 'Offload and ZeRO-Infinity')
-
-Offload is parsed and refused by runtime/config.py.
+  stage 3 -- with offload_param on cpu or nvme, the streamed offload
+             engine (runtime/offload/streaming.py), which initialize builds
+             for a model config; Engine refuses stage 3 and the offload
+             devices (ROADMAP.md queue 1, item 10)
 """
 
 from . import constants as zc

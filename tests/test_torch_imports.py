@@ -3,8 +3,8 @@ loads neither ``jax``, ``flax``, ``msgpack`` nor any module of
 ``deeperspeed_tpu`` (names are compared exactly, since the port's own
 name starts with ``deeperspeed_tpu``), the monitor's modules included, no
 source file of the port, chip_smoke.py or
-scripts/torch_first_step_probe.py imports them, and the serving and
-training entry points refuse to fall back to the CPU."""
+scripts/torch_first_step_probe.py imports them, and the serving, training
+and streamed-offload entry points refuse to fall back to the CPU."""
 
 import ast
 import json
@@ -65,6 +65,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "torch.monitor.goodput, deeperspeed_tpu_torch.monitor.reqledger\n"
         "import deeperspeed_tpu_torch.monitor.slo, deeperspeed_tpu_torch."
         "utils.tensorboard, deeperspeed_tpu_torch.serving.metrics\n"
+        "import deeperspeed_tpu_torch.runtime.offload.streaming, deeperspeed_"
+        "tpu_torch.runtime.offload.swapper, deeperspeed_tpu_torch.ops.aio\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -88,6 +90,10 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "monitor.config", "monitor.aggregate", "monitor.goodput",
                  "monitor.reqledger", "monitor.slo", "utils.tensorboard",
                  "serving.metrics"):
+        assert f"deeperspeed_tpu_torch.{name}" in mods
+    for name in ("runtime.offload", "runtime.offload.streaming",
+                 "runtime.offload.swapper", "runtime.offload.aio_config",
+                 "ops.aio", "ops.op_builder"):
         assert f"deeperspeed_tpu_torch.{name}" in mods
     for name in ("block_sparse", "kernels", "sparsity_config",
                  "sparse_self_attention", "sparse_attention_utils"):
@@ -151,6 +157,23 @@ def test_training_engine_without_device_refuses_the_cpu():
                                  model_parameters=params, config=cfg,
                                  device="cpu")
     assert eng.params["w"].device.type == "cpu"
+
+
+def test_streamed_engine_without_device_refuses_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the engine would take it")
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig(vocab_size=17, n_layer=1, n_head=2, d_model=8,
+                        max_seq=8, dtype=torch.float32, attn_impl="xla")
+    conf = {"train_batch_size": 1,
+            "streaming": {"wire_bits": 32, "use_native_host": False}}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ds.initialize(model=cfg, config=conf)
+    eng, _, _, _ = ds.initialize(model=cfg, config=conf, device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng._dev_globals.device.type == "cpu"
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():

@@ -144,9 +144,11 @@ def test_config_fields_match_reference(cfg):
 ])
 def test_unported_blocks_raise_naming_their_roadmap_item(block, item):
     cfg = dict({"train_batch_size": 4}, **block)
-    if "optimizer" in block:
+    if "optimizer" in block or item == "Offload and ZeRO-Infinity":
         # an optimizer the port does not have is refused when initialize
-        # builds it
+        # builds it; so are ZeRO 3, offload and streaming for a loss
+        # callable (only the streamed engine, built for a model config,
+        # runs them)
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             deeperspeed_tpu_torch.initialize(
                 model=lambda p, b: p["w"].sum(),

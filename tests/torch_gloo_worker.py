@@ -282,3 +282,25 @@ def monitor_run(rank, world, tmp, model_kw, config, steps):
         out[name] = mon.registry.counter(name).value
     with open(os.path.join(tmp, f"monitor{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+# ------------------------------------------------------------------ #
+# the streamed engine refuses a data-parallel world
+# ------------------------------------------------------------------ #
+
+
+def streaming_refusal(rank, world, tmp, model_kw, config):
+    """``initialize`` a GPTConfig under a streaming ``config`` on every
+    rank; write the NotImplementedError's text to ``refusal<rank>.txt``
+    (a rank that builds an engine raises)."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+
+    try:
+        ds.initialize(model=gpt.GPTConfig(**model_kw), config=config,
+                      device="cpu")
+    except NotImplementedError as e:
+        with open(os.path.join(tmp, f"refusal{rank}.txt"), "w") as f:
+            f.write(str(e))
+        return
+    raise AssertionError(f"rank {rank} built a streamed engine")
