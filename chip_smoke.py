@@ -322,6 +322,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flash kernels are held against their plain versions and timed at this
    step's shapes (INFINITY_LN, INFINITY_BG, INFINITY_FLASH) in the kernel
    phases ("path": "infinity").
+16. The input pipeline and the training follow-ups (run after phase 15).
+   16a: configs/gpt_125m_datapipe.json as written (bf16 with the fp32
+   master, ZeRO 1, Adam, WarmupDecayLR, clipping, the "datapipe" block
+   with prefetch and device staging and the seq-len curriculum, the
+   "monitor" block) plus "kernels": {"mode": "auto"}, cut as PERF.md
+   section 4 lists (source data/corpus_tokens.npy, micro-batch
+   DATAPIPE_MICRO x DATAPIPE_GAS at one rank, warmup DATAPIPE_WARMUP,
+   curriculum warmup DATAPIPE_CURRICULUM_STEPS: lengths 128/427/725/1024
+   from steps 0/3/5/8), on phase 14's GPT-NeoX-125M (remat "matmuls"),
+   trains DATAPIPE_STEPS steps through initialize -> train_batch() with no
+   batch passed, saving a checkpoint after step DATAPIPE_SAVE_AFTER with
+   the prefetch queue non-empty. Gates: every global batch the step read
+   (cloned on the consumer's stream after the staging wait) equal by
+   sha256 to a synchronous host-only pipe's batch of the same step; the
+   active lengths, read from the pad columns, the curriculum's; losses
+   and grad norms finite, no step skipped; the launches per step
+   datapipe_expected's; the datapipe metrics in the monitor's registry.
+   A fresh engine from other weights, its queue holding step 0's
+   batches, loads the checkpoint and runs the remaining steps: the same
+   DataState, batches (by hash) and losses, bit for bit. A run with the
+   producer thread off (DATAPIPE_OFF_STEPS steps) is held to the host
+   pipe too; the step time, tokens/s, median host stall, the busy share
+   of a profiled step and the peak memory are printed for both, not
+   gated. 16b: one micro-batch's loss and grads under each remat policy,
+   same weights and tokens: losses within REMAT_LOSS_RTOL and grad norms
+   within REMAT_NORM_RTOL of "full"'s, flash_fwd launched once a layer
+   under "flash" and "matmuls" and twice under "full", "dots" and
+   "dots_all", flash_bwd once; each policy's peak memory printed. 16c:
+   store_gradients on the 16a engine equal to the unfused backward's
+   grads (STORE_GRADS_ATOL), layer_outputs for all 12 layers, two SGD
+   steps (momentum, Nesterov) on the 125M leaves against the CPU
+   (SGD_ATOL), and FP16_Optimizer(FusedAdam) for 3 steps with a dynamic
+   scale: the step with an inf gradient skipped and the scale halved.
 
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -595,6 +628,31 @@ INFINITY_V1_CODES_MAX = 100
 INFINITY_FLASH = (1, 64, 1024, 96)
 INFINITY_LN = (1024, 6144)
 INFINITY_BG = (1024, 24576)
+
+
+# the input pipeline (phase 16): configs/gpt_125m_datapipe.json with the
+# cuts PERF.md section 4 lists, on phase 14's GPT-NeoX-125M
+DATAPIPE_CONFIG = ROOT / "configs" / "gpt_125m_datapipe.json"
+DATAPIPE_MICRO = 16
+DATAPIPE_GAS = 4
+DATAPIPE_STEPS = 12                 # crosses the curriculum's 4 stages
+DATAPIPE_SAVE_AFTER = 6
+DATAPIPE_OFF_STEPS = 6              # the run with the producer thread off
+DATAPIPE_WARMUP = 100               # the file's 2000
+DATAPIPE_CURRICULUM_STEPS = 8       # the file's 2000: stages at 0/3/5/8
+DATAPIPE_CKPT = ROOT / "build" / "smoke_datapipe_ckpt"
+# 16b: every remat policy's loss within fp32 rounding of "full"'s (the
+# same forward runs under every policy; a few ulps of the fp32 loss) and
+# its grad norm within 1e-3 relative
+REMAT_POLICIES = ("full", "flash", "matmuls", "dots", "dots_all")
+REMAT_LOSS_RTOL = 1e-6
+REMAT_NORM_RTOL = 1e-3
+# 16c: the stored grads against the unfused backward's, relative to the
+# largest gradient element (the same bf16 grads summed in fp32 in the
+# same order: equal unless a kernel is nondeterministic), and SGD on the
+# card against the CPU (the same fp32 elementwise ops)
+STORE_GRADS_ATOL = 1e-6
+SGD_ATOL = 1e-6
 
 
 def card_line() -> str:
@@ -4147,6 +4205,568 @@ def infinity_kernel_cases(fb, gen):
     return results
 
 
+# ------------------------------------------------------------------ #
+# phase 16: the input pipeline and the training follow-ups
+# ------------------------------------------------------------------ #
+
+
+def datapipe_config(obs, prefetch=True):
+    """configs/gpt_125m_datapipe.json as written, with the cuts PERF.md
+    section 4 lists: the bundled corpus for data/pile_tokens/, micro-batch
+    16 x 4 accumulation steps at one rank (the file's 512), the
+    scheduler's warmup and the curriculum's cut, the monitor's obs_dir in
+    ``obs`` with an ephemeral metrics port, and the kernels block.
+    ``prefetch`` False turns the producer thread off (the pipe then
+    collates and stages in the step loop)."""
+    with open(DATAPIPE_CONFIG) as f:
+        config = json.load(f)
+    config["train_batch_size"] = DATAPIPE_MICRO * DATAPIPE_GAS
+    config["train_micro_batch_size_per_gpu"] = DATAPIPE_MICRO
+    config["scheduler"]["params"]["warmup_num_steps"] = DATAPIPE_WARMUP
+    dp = config["datapipe"]
+    dp["source"] = str(ROOT / "data" / "corpus_tokens.npy")
+    dp["curriculum"]["warmup_steps"] = DATAPIPE_CURRICULUM_STEPS
+    dp["prefetch"] = prefetch
+    config["monitor"] = dict(config["monitor"], obs_dir=str(obs),
+                             metrics_port=0)
+    config["kernels"] = {"mode": "auto"}
+    return config
+
+
+def datapipe_model():
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+
+    return get_preset("neox-125m", max_seq=1024, remat_policy="matmuls",
+                      ce_chunk=0, dtype=torch.bfloat16)
+
+
+def datapipe_params(cfg, seed):
+    from deeperspeed_tpu_torch.models.gpt import init_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    randomize_affine(params, gen)
+    return params
+
+
+def sha(array) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(array, np.int64)).tobytes()).hexdigest()
+
+
+def active_seq(batch, pad_id):
+    """The active sequence length of a (rows, seq + 1) batch, read from
+    its pad columns: the index of the last column holding a token."""
+    live = (np.asarray(batch) != pad_id).any(axis=0).nonzero()[0]
+    return int(live.max())
+
+
+def host_stream(config, steps):
+    """The hashes and active lengths of a synchronous host-only pipe's
+    first ``steps`` global batches (prefetch and staging off), and the
+    batches."""
+    from deeperspeed_tpu_torch.datapipe import DataPipeConfig, build_datapipe
+
+    block = dict(config["datapipe"], prefetch=False, stage_to_device=False)
+    pipe = build_datapipe(DataPipeConfig.from_dict(block),
+                          global_rows=config["train_batch_size"],
+                          device="cpu")
+    batches = [pipe.next_global_batch()[0] for _ in range(steps)]
+    pad = block.get("pad_id", 0)
+    return {"hashes": [sha(b) for b in batches],
+            "active": [active_seq(b, pad) for b in batches],
+            "batches": batches}
+
+
+def watch_pipe(engine):
+    """Wrap the engine's pipe: every global batch it hands over is cloned
+    on the consumer's stream (after the staging wait, before the step
+    reads it; no host sync), with the step's host stall and the queue
+    depth it left."""
+    seen = {"batches": [], "stall_s": [], "queued": [], "placed": []}
+    pull = engine.datapipe.next_global_batch
+
+    def watched():
+        batch, placed = pull()
+        seen["batches"].append(batch.clone() if isinstance(
+            batch, torch.Tensor) else np.array(batch))
+        seen["stall_s"].append(engine.datapipe.last_stall_seconds)
+        seen["queued"].append(engine.datapipe.queued)
+        seen["placed"].append(placed)
+        return batch, placed
+
+    engine.datapipe.next_global_batch = watched
+    return seen
+
+
+def pipe_steps(engine, counters, steps, after_step=None):
+    """``steps`` train_batch() calls (the pipe supplies each batch) with
+    every launch counter set to 0 just before and read just after:
+    losses, grad norms, step times, launches and the peak memory."""
+    losses, norms, step_s = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine.train_batch()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+        if after_step is not None:
+            after_step(len(losses))
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "launches": {n: fn.launches for n, fn in counters.items()},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def datapipe_expected(cfg):
+    """Launches per step of the 125M step under remat "matmuls" at
+    DATAPIPE_GAS micro-batches (phase 14's plan at one rank)."""
+    L, gas = cfg.n_layer, DATAPIPE_GAS
+    return {"flash_fwd": L * gas, "flash_bwd": L * gas, "ln_fwd": gas,
+            "ln_bwd": gas, "bias_gelu_fwd": 2 * L * gas,
+            "bias_gelu_bwd": L * gas, "add_ln_fwd": 0, "add_ln_bwd": 0,
+            "supertile_fwd": 0, "supertile_bwd": 0,
+            # every leaf an fp32 master with a bf16 cast: one combination
+            "fused_adam": 1, "sparse_fwd": 0, "sparse_bwd": 0,
+            "quantize_rows": 0, "dequant_sum_rows": 0, "dequant_rows": 0}
+
+
+def check_stream(name, seen, host, first=0):
+    """Every batch the engine consumed, hashed on the host after the run,
+    equal to the host pipe's batch of the same step; its active length
+    the curriculum's."""
+    got = [sha(b.cpu().numpy() if isinstance(b, torch.Tensor) else b)
+           for b in seen["batches"]]
+    want = host["hashes"][first:first + len(got)]
+    if got != want:
+        bad = [first + i for i, (a, b) in enumerate(zip(got, want))
+               if a != b]
+        raise AssertionError(f"{name}: staged batches of steps {bad} differ "
+                             f"from the host pipe's")
+    if not all(seen["placed"]):
+        raise AssertionError(f"{name}: a batch was not staged: "
+                             f"{seen['placed']}")
+    return len(got)
+
+
+def pipe_report(run, seen, tokens, profile):
+    """Step time (the median of steps 2 to DATAPIPE_OFF_STEPS, the steps
+    both runs take before any checkpoint, and of every step after the
+    first), tokens/s at the former, the host stall, the queue depth, the
+    busy share of one profiled step and the peak memory."""
+    step_ms = statistics.median(run["step_s"][1:DATAPIPE_OFF_STEPS]) * 1e3
+    return {"step_ms_median_2_6": step_ms,
+            "step_ms_median_all": statistics.median(run["step_s"][1:]) * 1e3,
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "host_stall_ms_median": statistics.median(seen["stall_s"]) * 1e3,
+            "host_stall_ms_max": max(seen["stall_s"]) * 1e3,
+            "queue_depth_after_pull": seen["queued"],
+            "device_busy_share": profile["device_busy_share"],
+            "profile_wall_ms": profile["wall_ms"],
+            "profile_device_ms": profile["device_ms"],
+            "peak_mem_gib": run["peak_mem_gib"]}
+
+
+def datapipe_phase(card):
+    """Phase 16a: configs/gpt_125m_datapipe.json trains GPT-NeoX-125M
+    through initialize -> train_batch() with no batch passed; see the
+    module docstring. Returns the launches of its 12 steps and the
+    launches per step, and the engine (for 16c)."""
+    import shutil
+
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.datapipe import SeqLenCurriculum
+    from deeperspeed_tpu_torch.models.gpt import make_gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    obs = Path(tempfile.mkdtemp(prefix="chip_smoke_datapipe_"))
+    cfg = datapipe_model()
+    config = datapipe_config(obs / "a")
+    rows = config["train_batch_size"]
+    cur = config["datapipe"]["curriculum"]
+    schedule = SeqLenCurriculum(cfg.max_seq, cur["start_seq_len"],
+                                cur["warmup_steps"], cur["num_intervals"])
+    print(f"datapipe: configs/gpt_125m_datapipe.json, source "
+          f"data/pile_tokens/ -> data/corpus_tokens.npy, train_batch_size "
+          f"512 -> {rows} ({DATAPIPE_MICRO} x {DATAPIPE_GAS}, one rank), "
+          f"warmup_num_steps 2000 -> {DATAPIPE_WARMUP}, curriculum "
+          f"warmup_steps 2000 -> {DATAPIPE_CURRICULUM_STEPS} (stages "
+          f"{schedule.schedule}), monitor obs_dir temporary and "
+          f"metrics_port 0, kernels auto", flush=True)
+    t0 = time.perf_counter()
+    host = host_stream(config, DATAPIPE_STEPS)
+    host_s = time.perf_counter() - t0
+    want_active = [schedule.seq_len_at(i) for i in range(DATAPIPE_STEPS)]
+    if host["active"] != want_active:
+        raise AssertionError(f"active lengths {host['active']}, the "
+                             f"schedule {want_active}")
+    expected = datapipe_expected(cfg)
+    tokens = rows * cfg.max_seq
+    loss_fn = make_gpt(cfg)[2]
+    saved = {}
+
+    with kernel_config.override():
+        engine, _, loader, _ = ds.initialize(
+            model=loss_fn, model_parameters=datapipe_params(cfg, SEED),
+            config=config)
+        if loader is not None or engine.datapipe is None:
+            raise AssertionError("initialize built no datapipe")
+        seen = watch_pipe(engine)
+
+        def after_step(step):
+            if step == DATAPIPE_SAVE_AFTER:
+                torch.cuda.synchronize()
+                saved["queued_at_save"] = engine.datapipe.queued
+                shutil.rmtree(DATAPIPE_CKPT, ignore_errors=True)
+                t1 = time.perf_counter()
+                engine.save_checkpoint(str(DATAPIPE_CKPT))
+                saved["save_s"] = time.perf_counter() - t1
+                saved["data_state"] = engine.datapipe.state_dict()
+
+        run = pipe_steps(engine, kernel_counters(), DATAPIPE_STEPS,
+                         after_step=after_step)
+        per_step = check_run_pipe(run, engine, expected, DATAPIPE_STEPS)
+        check_stream("16a", seen, host)
+        snap = engine.monitor.registry.snapshot_scalars()
+        if snap.get("datapipe_batches_total") != DATAPIPE_STEPS or any(
+                n not in snap for n in (
+                    "datapipe_host_stall_seconds", "datapipe_queue_depth",
+                    "datapipe_epoch")):
+            raise AssertionError(f"datapipe metrics: {sorted(snap)}")
+        if "datapipe_host_stall_seconds_hist_bucket" not in \
+                engine.monitor.registry.render():
+            raise AssertionError("no datapipe_host_stall_seconds_hist")
+        profile_on = profile_training(engine, None)
+        on = pipe_report(run, seen, tokens, profile_on)
+        followups = store_and_capture(engine, loss_fn, host["batches"][0])
+        engine.datapipe.close()
+        files_a = close_monitor(obs / "a")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    resume = datapipe_resume(cfg, loss_fn, obs, host, run, saved)
+    off, off_run = datapipe_prefetch_off(cfg, loss_fn, obs, host, expected)
+    shutil.rmtree(obs, ignore_errors=True)
+    shutil.rmtree(DATAPIPE_CKPT, ignore_errors=True)
+    report = {
+        "model": "neox-125m", "card": card, "layers": cfg.n_layer,
+        "d_model": cfg.d_model, "seq": cfg.max_seq,
+        "remat_policy": cfg.remat_policy, "micro_batch": DATAPIPE_MICRO,
+        "grad_accum": DATAPIPE_GAS, "steps": DATAPIPE_STEPS,
+        "losses": run["losses"], "grad_norms": run["grad_norms"],
+        "step_s": run["step_s"], "active_seq": host["active"],
+        "host_pipe_s": host_s, "batches_hashed": DATAPIPE_STEPS,
+        "launches_per_step": per_step,
+        "checkpoint": {k: saved[k] for k in ("save_s", "queued_at_save",
+                                              "data_state")},
+        "resume": resume, "prefetch_on": on, "prefetch_off": off,
+        "prefetch_off_steps": off_run, "monitor_files": files_a,
+        "followups": followups}
+    print("datapipe 16a: " + json.dumps(report), flush=True)
+    return run["launches"], per_step
+
+
+def check_run_pipe(run, engine, expected, steps):
+    """16a's gates on a run: launches per step as planned, losses and
+    grad norms finite, no step skipped."""
+    per_step = {k: n / steps for k, n in run["launches"].items()}
+    if per_step != expected:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{expected}")
+    if not all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]):
+        raise AssertionError(f"losses {run['losses']}, grad norms "
+                             f"{run['grad_norms']}")
+    if engine.skipped_steps:
+        raise AssertionError(f"skipped {engine.skipped_steps} steps")
+    return per_step
+
+
+def datapipe_resume(cfg, loss_fn, obs, host, run, saved):
+    """A fresh engine from weights of another seed, its prefetch queue
+    already holding batches of step 0, loads the checkpoint of step
+    DATAPIPE_SAVE_AFTER and runs the remaining steps: batches and losses
+    bit-identical to the uninterrupted run's."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    config = datapipe_config(obs / "b")
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(
+            model=loss_fn, model_parameters=datapipe_params(cfg, SEED + 1),
+            config=config)
+        deadline = time.time() + 30
+        while engine.datapipe.queued == 0 and time.time() < deadline:
+            time.sleep(0.01)
+        queued = engine.datapipe.queued
+        if queued == 0 or saved["queued_at_save"] == 0:
+            raise AssertionError(f"prefetch queue empty at the save "
+                                 f"({saved['queued_at_save']}) or the "
+                                 f"resume ({queued})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.load_checkpoint(str(DATAPIPE_CKPT))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if engine.datapipe.state_dict() != saved["data_state"]:
+            raise AssertionError(f"restored DataState "
+                                 f"{engine.datapipe.state_dict()}, saved "
+                                 f"{saved['data_state']}")
+        seen = watch_pipe(engine)
+        steps = DATAPIPE_STEPS - DATAPIPE_SAVE_AFTER
+        res = pipe_steps(engine, kernel_counters(), steps)
+        check_stream("16a resume", seen, host, first=DATAPIPE_SAVE_AFTER)
+        engine.datapipe.close()
+        close_monitor(obs / "b")
+    want = run["losses"][DATAPIPE_SAVE_AFTER:]
+    if res["losses"] != want:
+        raise AssertionError(f"resumed losses {res['losses']}, "
+                             f"uninterrupted {want}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"queued_at_resume": queued, "load_s": load_s,
+            "losses": res["losses"], "bit_identical": True,
+            "batches_hashed": steps}
+
+
+def datapipe_prefetch_off(cfg, loss_fn, obs, host, expected):
+    """The same config with the producer thread off: the pipe collates
+    and stages in the step loop. Its batches are held to the host pipe's
+    too; its timings are printed beside the prefetched run's."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    config = datapipe_config(obs / "c", prefetch=False)
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(
+            model=loss_fn, model_parameters=datapipe_params(cfg, SEED),
+            config=config)
+        seen = watch_pipe(engine)
+        run = pipe_steps(engine, kernel_counters(), DATAPIPE_OFF_STEPS)
+        check_run_pipe(run, engine, expected, DATAPIPE_OFF_STEPS)
+        check_stream("16a prefetch off", seen, host)
+        profile = profile_training(engine, None)
+        engine.datapipe.close()
+        close_monitor(obs / "c")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = pipe_report(run, seen, DATAPIPE_MICRO * DATAPIPE_GAS
+                         * cfg.max_seq, profile)
+    return report, {"losses": run["losses"], "step_s": run["step_s"]}
+
+
+def store_and_capture(engine, loss_fn, batch):
+    """16c on the datapipe engine, after its run: one more step with
+    ``store_gradients`` and the layer-output hooks on. The stored grads
+    must equal the unfused backward's (the micro-batches' grads of the
+    pre-step params, summed in fp32 in order) within STORE_GRADS_ATOL of
+    the largest; the hooks must give one finite (rows, seq, d_model)
+    output for each of the 12 layers."""
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                      engine.params)
+    leaves = tree_leaves(params)
+    tokens = torch.from_numpy(np.asarray(batch, np.int64)).cuda()
+    m = tokens.shape[0] // DATAPIPE_GAS
+    want = None
+    for i in range(DATAPIPE_GAS):
+        loss = loss_fn(params, tokens[i * m:(i + 1) * m])
+        g = [x.float() for x in torch.autograd.grad(loss.float(), leaves)]
+        want = g if want is None else [a.add_(b) for a, b in zip(want, g)]
+        del loss, g
+    del params, leaves
+    engine.store_gradients = True
+    engine.register_forward_hook(layer_name_pattern="transformerlayer")
+    engine.train_batch(np.asarray(batch))
+    engine.store_gradients = False
+    stored = tree_leaves(engine.stored_gradients)
+    worst = max(float((a - b).abs().max()) for a, b in zip(stored, want))
+    scale = max(float(b.abs().max()) for b in want)
+    same = all(torch.equal(a, b) for a, b in zip(stored, want))
+    if worst > STORE_GRADS_ATOL * scale:
+        raise AssertionError(f"stored grads differ from the unfused "
+                             f"backward's by {worst} (largest grad "
+                             f"{scale})")
+    outs = engine.layer_outputs.get("transformerlayer", [])
+    shape = (batch.shape[0], batch.shape[1] - 1,
+             engine.params["embed"]["wte"].shape[1])
+    if len(outs) != datapipe_model().n_layer or not all(
+            o is not None and o.shape == shape and np.isfinite(o).all()
+            for o in outs):
+        raise AssertionError(f"layer outputs: {len(outs)} of shapes "
+                             f"{[getattr(o, 'shape', None) for o in outs]}")
+    engine.remove_forward_hooks()
+    engine.stored_gradients = None
+    del want, stored, outs
+    return {"store_gradients_max_abs_err": worst,
+            "store_gradients_largest": scale,
+            "store_gradients_bit_identical": same,
+            "layer_outputs": datapipe_model().n_layer,
+            "layer_output_shape": list(shape)}
+
+
+def remat_phase(card):
+    """Phase 16b: one micro-batch's loss and grads of the 125M model, the
+    same weights and tokens, under each remat policy. Returns the
+    launches of the five runs together."""
+    from deeperspeed_tpu_torch.models.gpt import make_gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    cfg = datapipe_model()
+    params = datapipe_params(cfg, SEED)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    tokens = torch.from_numpy(np.asarray(
+        corpus[:DATAPIPE_MICRO * (cfg.max_seq + 1)], np.int64).reshape(
+        DATAPIPE_MICRO, cfg.max_seq + 1)).cuda()
+    counters = kernel_counters()
+    total = {n: 0 for n in counters}
+    out = {}
+    L = cfg.n_layer
+    with kernel_config.override(mode="auto"):
+        for policy in REMAT_POLICIES:
+            loss_fn = make_gpt(dataclasses.replace(
+                cfg, remat_policy=policy))[2]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            loss = loss_fn(params, tokens)
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            for n, k in launches.items():
+                total[n] += k
+            norm = float(torch.sqrt(sum(g.float().square().sum()
+                                        for g in grads)))
+            out[policy] = {
+                "loss": loss.item(), "grad_norm": norm, "seconds": seconds,
+                "peak_activation_gib": (torch.cuda.max_memory_allocated()
+                                        - base) / 2**30,
+                "flash_fwd": launches["flash_fwd"],
+                "flash_bwd": launches["flash_bwd"]}
+            del loss, grads
+    full = out["full"]
+    for policy, r in out.items():
+        fwd = L * (1 if policy in ("flash", "matmuls") else 2)
+        if (r["flash_fwd"], r["flash_bwd"]) != (fwd, L):
+            raise AssertionError(f"remat {policy}: flash_fwd "
+                                 f"{r['flash_fwd']}, flash_bwd "
+                                 f"{r['flash_bwd']}; expected {fwd}, {L}")
+        if abs(r["loss"] - full["loss"]) > REMAT_LOSS_RTOL * abs(
+                full["loss"]) or not math.isfinite(r["loss"]):
+            raise AssertionError(f"remat {policy} loss {r['loss']}, full "
+                                 f"{full['loss']}")
+        if abs(r["grad_norm"] - full["grad_norm"]) > REMAT_NORM_RTOL * \
+                full["grad_norm"]:
+            raise AssertionError(f"remat {policy} grad norm "
+                                 f"{r['grad_norm']}, full "
+                                 f"{full['grad_norm']}")
+    print("datapipe 16b: " + json.dumps({
+        "card": card, "model": "neox-125m", "tokens": list(tokens.shape),
+        "loss_rtol": REMAT_LOSS_RTOL, "grad_norm_rtol": REMAT_NORM_RTOL,
+        "policies": out}), flush=True)
+    del params, leaves, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def optimizers_phase(card):
+    """Phase 16c's optimizers over the 125M leaves: two SGD steps
+    (momentum, Nesterov, weight decay) on the card against the same steps
+    on the CPU; FP16_Optimizer(FusedAdam) for 3 steps with a dynamic
+    scale, the second step's gradients holding an inf: skipped, the scale
+    halved, the fused Adam kernel launched on the other two."""
+    from deeperspeed_tpu_torch.ops import fused_adam as fad
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import FusedAdam, tree_map
+    from deeperspeed_tpu_torch.ops.sgd import SGD
+    from deeperspeed_tpu_torch.runtime.fp16 import FP16_Optimizer
+
+    cfg = datapipe_model()
+    params = tree_map(lambda p: p.float(), datapipe_params(cfg, SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    grads = [tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                            device="cuda") * 1e-3, params)
+             for _ in range(2)]
+    opt = SGD(lr=0.01, momentum=0.9, nesterov=True, weight_decay=1e-4)
+    cpu_p = tree_map(lambda p: p.cpu(), params)
+    card_p = tree_map(lambda p: p.clone(), params)
+    cpu_s, card_s = opt.init(cpu_p), opt.init(card_p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in grads:
+        card_p, card_s = opt.update(g, card_s, card_p)
+    torch.cuda.synchronize()
+    sgd_s = (time.perf_counter() - t0) / len(grads)
+    for g in grads:
+        cpu_p, cpu_s = opt.update(tree_map(lambda t: t.cpu(), g), cpu_s,
+                                  cpu_p)
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    sgd_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(card_p) + tree_leaves(card_s.momentum_buf),
+        tree_leaves(cpu_p) + tree_leaves(cpu_s.momentum_buf)))
+    if sgd_err > SGD_ATOL:
+        raise AssertionError(f"SGD on the card differs from the CPU by "
+                             f"{sgd_err}")
+    del cpu_p, cpu_s, card_p, card_s
+    scales, skipped = [], []
+    with kernel_config.override(mode="auto"):
+        fad.fused_adam.launches = 0
+        wrap = FP16_Optimizer(FusedAdam(lr=1e-4), params,
+                              dynamic_loss_scale=True,
+                              dynamic_loss_args={"init_scale": 2.0 ** 16},
+                              clip_grad=1.0, verbose=False)
+        before = tree_leaves(wrap.fp32_params)[0].clone()
+        for step in range(3):
+            g = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device="cuda") * 1e-3
+                         * wrap.cur_scale, params)
+            if step == 1:
+                tree_leaves(g)[3].view(-1)[7] = float("inf")
+            scales.append(wrap.cur_scale)
+            skipped.append(wrap.step(g))
+            if step == 0:
+                per_step = fad.fused_adam.launches
+        scales.append(wrap.cur_scale)
+        launches = fad.fused_adam.launches
+    moved = not torch.equal(before, tree_leaves(wrap.fp32_params)[0])
+    if skipped != [False, True, False] or scales[2] != scales[1] / 2 or \
+            per_step < 1 or launches != 2 * per_step or not moved:
+        raise AssertionError(f"FP16_Optimizer skipped {skipped}, scales "
+                             f"{scales}, fused_adam launches {launches}, "
+                             f"params moved {moved}")
+    report = {"card": card, "leaves": len(tree_leaves(params)),
+              "elements": sum(p.numel() for p in tree_leaves(params)),
+              "sgd_max_abs_err_vs_cpu": sgd_err, "sgd_step_ms": sgd_s * 1e3,
+              "fp16_optimizer": {"skipped": skipped, "scales": scales,
+                                 "fused_adam_launches": launches}}
+    print("datapipe 16c: " + json.dumps(report), flush=True)
+    del wrap, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4256,6 +4876,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     infinity, infinity_per_step = infinity_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    datapipe, datapipe_per_step = datapipe_phase(card)
+    remat = remat_phase(card)
+    optimizers_phase(card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -4265,7 +4890,8 @@ def main() -> int:
     paths = {"serving": serving, "gpt_training": training,
              "gpt_resume": resume, "bert_training": bert,
              "sparse_training": sparse, "dp_training": dp,
-             "infinity_training": infinity}
+             "infinity_training": infinity, "datapipe_training": datapipe,
+             "remat_policies": remat}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -4299,7 +4925,9 @@ def main() -> int:
                                   "dp_training_per_rank":
                                       dp_per_step[name],
                                   "infinity_training":
-                                      infinity_per_step[name]},
+                                      infinity_per_step[name],
+                                  "datapipe_training":
+                                      datapipe_per_step[name]},
         }
         inf = next((r for r in rows if r.get("path") == "infinity"), None)
         if inf is not None:

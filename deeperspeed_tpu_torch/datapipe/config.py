@@ -1,0 +1,111 @@
+"""The ``"datapipe"`` config block.
+
+Counterpart of deeperspeed_tpu/datapipe/config.py: the same keys,
+defaults and validation errors. Block presence enables the input pipeline
+unless ``{"enabled": false}``; without it the engine keeps its
+synchronous ``DeepSpeedDataLoader`` path.
+
+::
+
+    "datapipe": {
+        "source": "data/corpus_tokens.npy",  # .npy file or dir of shards
+        "seq_len": 1024,          # window length (tokens per sample - 1)
+        "seed": 0,                # epoch-shuffle seed
+        "shuffle": true,          # deterministic per-epoch permutation
+        "prefetch": true,         # producer thread, bounded queue
+        "prefetch_depth": 2,      # staged global batches
+        "stage_to_device": true,  # copy batches to the card off-thread
+        "pack_sequences": false,  # greedy packing of ragged documents
+        "pad_id": 0,
+        "eos_id": null,           # separator appended to packed docs
+        "curriculum": {           # optional seq-len warmup
+            "start_seq_len": 64,
+            "warmup_steps": 1000,
+            "num_intervals": 4
+        }
+    }
+
+Every knob that shapes the batch stream (seed, shuffle, packing,
+curriculum) is part of the checkpointable iteration contract: a resumed
+run with the same block replays the same remaining batches.
+"""
+
+import dataclasses
+from typing import Optional
+
+_KNOWN_KEYS = frozenset({
+    "enabled", "source", "seq_len", "seed", "shuffle", "prefetch",
+    "prefetch_depth", "stage_to_device", "pack_sequences", "pad_id",
+    "eos_id", "curriculum",
+})
+
+CURRICULUM_START_SEQ_LEN = "start_seq_len"
+CURRICULUM_WARMUP_STEPS = "warmup_steps"
+CURRICULUM_NUM_INTERVALS = "num_intervals"
+
+_CURRICULUM_KEYS = frozenset({
+    CURRICULUM_START_SEQ_LEN, CURRICULUM_WARMUP_STEPS,
+    CURRICULUM_NUM_INTERVALS,
+})
+
+
+@dataclasses.dataclass(frozen=True)
+class DataPipeConfig:
+    enabled: bool = True
+    # a .npy file of token ids or a directory of *.npy shards; None means
+    # the dataset comes from initialize()'s training_data
+    source: Optional[str] = None
+    # tokens per model input; each sample is seq_len + 1 tokens (inputs
+    # and shifted targets)
+    seq_len: int = 1024
+    # seed of the counter-based per-epoch permutation
+    seed: int = 0
+    shuffle: bool = True
+    # collate (and stage) on a producer thread
+    prefetch: bool = True
+    # bounded queue of finished global batches
+    prefetch_depth: int = 2
+    # copy each batch to the engine's device from the producer thread
+    stage_to_device: bool = True
+    # greedy in-order packing of ragged 1-D token documents
+    pack_sequences: bool = False
+    pad_id: int = 0
+    # separator token appended after each packed document (None = none)
+    eos_id: Optional[int] = None
+    # {"start_seq_len": S, "warmup_steps": N, "num_intervals": K}
+    curriculum: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.seq_len < 1:
+            raise ValueError(f"seq_len must be >= 1, got {self.seq_len}")
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.curriculum is not None:
+            if not isinstance(self.curriculum, dict):
+                raise ValueError('"curriculum" must be a dict '
+                                 '(start_seq_len/warmup_steps/num_intervals)'
+                                 ' or null')
+            unknown = set(self.curriculum) - _CURRICULUM_KEYS
+            if unknown:
+                raise ValueError(
+                    f"unknown curriculum keys {sorted(unknown)}; valid "
+                    f"keys: {sorted(_CURRICULUM_KEYS)}")
+            start = self.curriculum.get(CURRICULUM_START_SEQ_LEN,
+                                        self.seq_len)
+            if not (1 <= int(start) <= self.seq_len):
+                raise ValueError(
+                    f"curriculum.start_seq_len must be in 1..seq_len "
+                    f"({self.seq_len}), got {start}")
+            if int(self.curriculum.get(CURRICULUM_WARMUP_STEPS, 0)) < 0:
+                raise ValueError("curriculum.warmup_steps must be >= 0")
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "DataPipeConfig":
+        d = dict(d or {})
+        unknown = set(d) - _KNOWN_KEYS
+        if unknown:
+            raise ValueError(
+                f"unknown datapipe config keys {sorted(unknown)}; "
+                f"valid keys: {sorted(_KNOWN_KEYS)}")
+        return cls(**d)

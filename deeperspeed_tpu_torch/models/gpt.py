@@ -10,11 +10,11 @@ Supports GPT-2 (learned positions, serial residual) and GPT-NeoX (rotary,
 parallel attention+MLP residual) variants, with grouped-query attention.
 ``make_gpt`` gives the training loss (streaming or fused cross-entropy)
 with per-layer activation checkpointing: remat policy ``"full"``
-(``torch.utils.checkpoint``) or ``"matmuls"`` (selective checkpointing).
+(``torch.utils.checkpoint``), or ``"flash"``, ``"matmuls"``, ``"dots"``
+and ``"dots_all"`` (selective checkpointing, ``REMAT_SAVED``).
 Attention goes through the flash kernels (ops/flash_attention.py) or the
 plain dense computation, as ``attn_impl`` says (``causal_attention``).
-Not ported yet: the other remat policies, tensor/sequence parallelism and
-MoE (ROADMAP.md queue 1).
+Not ported yet: tensor/sequence parallelism and MoE (ROADMAP.md queue 1).
 """
 
 import dataclasses
@@ -439,42 +439,54 @@ def pick_ce_chunk(S: int, chunk: int) -> int:
     return chunk
 
 
-# ops whose outputs remat policy "matmuls" keeps: every projection (a 2-D
-# mm once matmul folds the batch) and the attention forward's o and lse
-# (the flash or the super-tile kernel's).
-# Eager recomputation replays a layer from its start, so an op upstream
-# of a kept tensor still runs unless it is kept too; keeping the
-# projections themselves (not only the reference's post-rotary q/k/v and
-# pre-GeLU activations) is what leaves only layer norm, rotary, bias+GeLU
-# and the residual adds to replay, as the reference's policy does.
-_MATMULS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                  FLASH_FWD_OP, SUPERTILE_FWD_OP)
+# the ops whose outputs each selective remat policy keeps (the reference's
+# table, models/gpt.py's jax.checkpoint policies):
+# - "flash": the attention kernel's o and lse (flash or super-tile), as
+#   save_only_these_names("flash_o", "flash_lse");
+# - "matmuls": those and every projection (a 2-D mm once matmul folds the
+#   batch). Eager recomputation replays a layer from its start, so an op
+#   upstream of a kept tensor still runs unless it is kept too; keeping
+#   the projections themselves (not only the reference's post-rotary
+#   q/k/v and pre-GeLU activations) leaves only layer norm, rotary,
+#   bias+GeLU and the residual adds to replay, as the reference's policy
+#   does;
+# - "dots": the products without batch dimensions, the projections
+#   (dots_with_no_batch_dims_saveable);
+# - "dots_all": every product, the batched ones of dense attention too
+#   (dots_saveable).
+# JAX's dots policies match dot_general, never a pallas_call: under "dots"
+# and "dots_all" the reference recomputes the flash forward in the
+# backward, and so does the port.
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+_ATTN = (FLASH_FWD_OP, SUPERTILE_FWD_OP)
+REMAT_SAVED = {
+    "flash": _ATTN,
+    "matmuls": _MM + _ATTN,
+    "dots": _MM,
+    "dots_all": _MM + _BMM,
+}
 
 
-def _matmuls_policy(ctx, op, *args, **kwargs):
-    if op in _MATMULS_SAVED:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-_REMAT_UNPORTED = ("flash", "dots", "dots_all")
+def _saving_policy(saved):
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 def _remat_step(cfg: GPTConfig, fn):
     """``fn(x, layer_params)`` wrapped as ``cfg.remat``/``remat_policy``
     say: per-layer ``torch.utils.checkpoint`` ("full") or selective
-    checkpointing that keeps the outputs of ``_MATMULS_SAVED``
-    ("matmuls")."""
+    checkpointing that keeps the outputs of the policy's ops in
+    ``REMAT_SAVED``."""
     if not cfg.remat:
         return fn
-    if cfg.remat_policy in _REMAT_UNPORTED:
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported to the PyTorch "
-            f"package yet (ROADMAP.md queue 1, item 'Training follow-ups'); "
-            f"use 'full' or 'matmuls'")
     if cfg.remat_policy == "full":
         return lambda x, lp: checkpoint(fn, x, lp, use_reentrant=False)
-    context = partial(create_selective_checkpoint_contexts, _matmuls_policy)
+    context = partial(create_selective_checkpoint_contexts,
+                      _saving_policy(REMAT_SAVED[cfg.remat_policy]))
     return lambda x, lp: checkpoint(fn, x, lp, use_reentrant=False,
                                     context_fn=context)
 
@@ -494,7 +506,6 @@ def make_gpt(cfg: GPTConfig):
     loss_fn(params, batch) -> mean next-token cross-entropy, fp32 scalar;
     batch = tokens (B, S+1) or (inputs, targets) (B, S) each.
     specs is None: the port has no tensor parallelism yet."""
-    _remat_step(cfg, None)  # raises now on a policy that is not ported
 
     def attend(q, k, v):
         k, v = expand_kv_heads(q, k, v)

@@ -306,7 +306,8 @@ def _backward(ctx, do, _dlse):
 
 _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
-# the op selective checkpointing keeps (models/gpt.py, remat "matmuls")
+# the op selective checkpointing keeps (models/gpt.py, remat "flash" and
+# "matmuls")
 FLASH_FWD_OP = torch.ops.deeperspeed_tpu_torch.flash_fwd.default
 
 

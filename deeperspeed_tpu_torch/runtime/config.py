@@ -18,7 +18,8 @@ triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 3 and the offload devices for the streamed engine, which ``Engine``
 refuses), ``streaming`` (``streaming_enabled``, ``streaming_params``),
 ``aio`` (``aio_config``), ``mesh`` with dp and fsdp (``mesh_config``),
-``comm`` (``comm_config``) and ``checkpoint`` (tag validation;
+``comm`` (``comm_config``), ``datapipe`` (``datapipe_config``),
+``batch_scheduler`` and ``checkpoint`` (tag validation;
 ``sharded_io: true``, the orbax layout, raises until sharded checkpoints
 are ported).
 """
@@ -83,7 +84,6 @@ class TrainingConfig:
             (c.DISTRIBUTED, "Resilience and multi-process runtime"),
             (c.RESILIENCE, "Resilience and multi-process runtime"),
             (c.LIFECYCLE, "Resilience and multi-process runtime"),
-            (c.DATAPIPE, "datapipe/"),
             (c.AUTOTUNE, "Tooling"),
         )
         for key, item in presence:
@@ -100,11 +100,6 @@ class TrainingConfig:
         for key, flag, item in flag_blocks:
             if (pd.get(key) or {}).get(flag, False):
                 raise _unported(f'the "{key}" block', item)
-        bs_sched = pd.get(c.BATCH_SCHEDULER, {})
-        if (bs_sched.get(c.BATCH_SCHEDULER_ENABLED, False)
-                if isinstance(bs_sched, dict) else bool(bs_sched)):
-            raise _unported('the "batch_scheduler" block', "Tooling")
-
         present = (
             (c.PIPELINE, "MoE, TP and pipeline"),
             (c.ACTIVATION_CHECKPOINTING, "Tooling"),
@@ -359,6 +354,39 @@ class TrainingConfig:
             self.kernels_mode = self.kernels_params.get(
                 c.KERNELS_MODE, c.KERNELS_MODE_DEFAULT)
 
+        # ---- datapipe (the streaming, prefetching input pipeline) ----
+        # A "datapipe" block turns on datapipe/: memory-mapped token
+        # shards, the prefetch thread with device staging, the
+        # checkpointable DataState, curriculum and packing. Validated
+        # eagerly like "serving"/"monitor".
+        self.datapipe_params = pd.get(c.DATAPIPE, None)
+        if self.datapipe_params is not None and not isinstance(
+                self.datapipe_params, dict):
+            raise ConfigError(
+                '"datapipe" must be a dict of DataPipeConfig '
+                'overrides (or {"enabled": false})')
+        self.datapipe_enabled = _block_enabled(pd, c.DATAPIPE,
+                                               c.DATAPIPE_ENABLED)
+        self._datapipe_config = None
+        if self.datapipe_enabled:
+            from ..datapipe.config import DataPipeConfig
+
+            try:
+                self._datapipe_config = DataPipeConfig.from_dict(
+                    dict(self.datapipe_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(f'invalid "datapipe" block: {e}') from e
+
+        # ---- batch-size warmup (runtime/bs_schedules.py) ----
+        bs_sched = pd.get(c.BATCH_SCHEDULER, {})
+        if isinstance(bs_sched, dict):
+            self.batch_scheduler_enabled = bs_sched.get(
+                c.BATCH_SCHEDULER_ENABLED, c.BATCH_SCHEDULER_ENABLED_DEFAULT)
+            self.batch_scheduler_params = bs_sched
+        else:
+            self.batch_scheduler_enabled = bool(bs_sched)
+            self.batch_scheduler_params = {}
+
         self.gradient_noise_scale = pd.get(c.GRADIENT_NOISE_SCALE, None)
         # read, not built: get_sparse_attention builds (and checks) it, as
         # the reference does
@@ -368,6 +396,11 @@ class TrainingConfig:
         """The "monitor" block as a MonitorConfig (None when absent or
         disabled), validated at parse time."""
         return self._monitor_config
+
+    def datapipe_config(self):
+        """The "datapipe" block as a DataPipeConfig (None when absent or
+        disabled), validated at parse time."""
+        return self._datapipe_config
 
     def comm_config(self):
         """The "comm" block as a CommConfig (None when absent or

@@ -159,6 +159,7 @@ LOAD_FROM_FP32_WEIGHTS = "zero_load_from_fp32_weights"
 #############################################
 BATCH_SCHEDULER = "batch_scheduler"
 BATCH_SCHEDULER_ENABLED = "enabled"
+BATCH_SCHEDULER_ENABLED_DEFAULT = False
 
 #############################################
 # Gradient noise scale (fork extra)
@@ -185,6 +186,7 @@ MONITOR = "monitor"
 RESILIENCE = "resilience"
 
 DATAPIPE = "datapipe"
+DATAPIPE_ENABLED = "enabled"
 
 COMM = "comm"
 

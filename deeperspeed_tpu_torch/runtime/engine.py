@@ -58,11 +58,29 @@ exported through the ``"tensorboard"`` block's writer every
 ``tb_export_interval`` steps, and the writer gets the previous step's
 loss, LR and loss scale, as the reference writes them.
 
+Input: a ``"datapipe"`` block builds the port's ``DataPipe``
+(datapipe/) at construction, over the block's ``source`` or
+``training_data``, with ``global_rows = micro * dp * gas`` and the
+``"batch_scheduler"`` block's static schedule; ``train_batch()`` with no
+batch takes its next global batch, which the pipe's producer thread has
+already copied to the card, and every checkpoint carries its
+``DataState`` under the reference's keys. The producer thread holds the
+pipe and, through its ``place_fn``, the engine: ``engine.datapipe.close()``
+stops it. Without the block the synchronous ``DeepSpeedDataLoader`` feeds
+``train_batch()``.
+
+The fork's extras: ``store_gradients`` (``store_gradients_cpu`` copies
+them to the host) keeps the summed gradients of each optimizer step,
+before unscaling and clipping, in ``stored_gradients``;
+``register_forward_hook`` turns on the models' layer-output taps
+(utils/hooks.py) and ``layer_outputs`` holds, after each ``train_batch``,
+the outputs of a forward of the step's batch under the updated params,
+as the reference replays it.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
-stage 3 and offload, tensor and pipeline parallelism, the comm overlap
-schedule, the resilience manager, ``store_gradients``, the switch that
-turns on the layer-output capture (the models' taps are ported,
-utils/hooks.py) and the flops profiler.
+stage 3 and offload for a loss callable, tensor and pipeline
+parallelism, the comm overlap schedule, the resilience manager and the
+flops profiler.
 """
 
 import inspect
@@ -88,10 +106,13 @@ from ..monitor.tracer import trace_instant, trace_span
 from ..monitor.watchdog import SignatureCache
 from ..ops.adam import FusedAdam, tree_leaves, tree_map
 from ..ops.lamb import FusedLamb
+from ..ops.sgd import SGD
 from ..ops import kernel_config
 from ..resilience.manifest import resolve_load_tag
+from ..resilience.reshard import remap_data_state
 from ..sharding import mesh as mesh_lib
 from ..sharding import rules
+from ..utils import hooks
 from ..utils.logging import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import lr_schedules
@@ -100,6 +121,7 @@ from .comm.collectives import Transport
 from .comm.config import CommConfig
 from .comm.reducer import GradReducer
 from .config import TrainingConfig
+from .bs_schedules import BatchSizeScheduler
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .zero import partition
@@ -112,9 +134,9 @@ TRAIN_BATCH_TIMER = "train_batch"
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 LAMB_OPTIMIZER = "lamb"
+SGD_OPTIMIZER = "sgd"
 # known to the reference, not ported yet: name -> ROADMAP.md queue 1 item
 _UNPORTED_OPTIMIZERS = {
-    "sgd": "Training follow-ups",
     "cpuadam": "Offload and ZeRO-Infinity",
     "onebitadam": "runtime/comm/",
     "onebitlamb": "runtime/comm/",
@@ -225,6 +247,34 @@ class Engine(ConfigAccessorsMixin):
         if config.kernels_params:
             kernel_config.configure(**config.kernels_params)
 
+        # batch-size warmup (the fork's bs_schedules.py): the engine
+        # tracks the schedule and exposes current_batch_size(); the
+        # datapipe masks the inactive rows, the shapes stay fixed
+        self.batch_size_scheduler = None
+        if config.batch_scheduler_enabled:
+            known = ("final_batch_size", "min_batch_size_multiplier",
+                     "warmup_num_steps", "num_intervals",
+                     "last_batch_iteration")
+            bs_params = {k: v for k, v in
+                         config.batch_scheduler_params.items() if k in known}
+            unknown = (set(config.batch_scheduler_params) - set(known)
+                       - {"enabled"})
+            if unknown:
+                raise ValueError(
+                    f"batch_scheduler config has unknown keys "
+                    f"{sorted(unknown)}; valid keys: {list(known)}")
+            bs_params.setdefault("final_batch_size", config.train_batch_size)
+            self.batch_size_scheduler = BatchSizeScheduler(**bs_params)
+            # a configured resume point; step 0 by default
+            self.batch_size_scheduler.step(
+                max(bs_params.get("last_batch_iteration", 0), 0))
+
+        # the fork's extras: gradient stashing and layer-output capture
+        self.store_gradients = False
+        self.store_gradients_cpu = False
+        self.stored_gradients = None
+        self._layer_collector = None
+
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -302,8 +352,27 @@ class Engine(ConfigAccessorsMixin):
         self.skipped = 0          # overflow-skipped optimizer steps
         self.optimizer_steps = 0  # applied optimizer steps
 
+        # the input pipeline: a "datapipe" block swaps the synchronous
+        # loader for datapipe/ (memory-mapped shards or training_data,
+        # the prefetch thread staging each batch on the device, the
+        # checkpointable DataState)
+        self.datapipe = None
+        if config.datapipe_config() is not None:
+            from ..datapipe import build_datapipe
+
+            self.datapipe = build_datapipe(
+                config.datapipe_config(), dataset=training_data,
+                global_rows=self._global_rows(),
+                place_fn=self._place_batch,
+                bs_schedule=(self.batch_size_scheduler.schedule
+                             if self.batch_size_scheduler is not None
+                             else None),
+                collate_fn=collate_fn, device=self.device)
+
+        # the synchronous loader (the datapipe owns the data when its
+        # block is configured)
         self.training_dataloader = None
-        if training_data is not None:
+        if training_data is not None and self.datapipe is None:
             self.training_dataloader = self.deepspeed_io(
                 training_data, collate_fn=collate_fn)
         log_dist(f"engine ready: precision={config.precision} "
@@ -403,6 +472,10 @@ class Engine(ConfigAccessorsMixin):
                 lr=lr, betas=betas, eps=eps, weight_decay=wd,
                 max_coeff=params.pop("max_coeff", 10.0),
                 min_coeff=params.pop("min_coeff", 0.01))
+        if name == SGD_OPTIMIZER:
+            return SGD(lr=lr, momentum=params.pop("momentum", 0.0),
+                       weight_decay=wd,
+                       nesterov=params.pop("nesterov", False))
         if name in _UNPORTED_OPTIMIZERS:
             raise NotImplementedError(
                 f"optimizer '{name}' is not ported to the PyTorch package "
@@ -420,6 +493,20 @@ class Engine(ConfigAccessorsMixin):
     # ------------------------------------------------------------------ #
     # reference-API accessors
     # ------------------------------------------------------------------ #
+
+    def current_batch_size(self):
+        """The scheduled global batch size (train_batch_size unless a
+        "batch_scheduler" block is configured)."""
+        if self.batch_size_scheduler is not None:
+            return self.batch_size_scheduler.current_batch_size
+        return self._config.train_batch_size
+
+    def _global_rows(self) -> int:
+        """Rows consumed per optimizer step, micro * dp * gas: the unit the
+        datapipe cursor advances by."""
+        return (self.train_micro_batch_size_per_gpu()
+                * self.data_parallel_size
+                * self.gradient_accumulation_steps())
 
     def get_global_grad_norm(self):
         if self._pending_metrics is None:
@@ -471,7 +558,9 @@ class Engine(ConfigAccessorsMixin):
         """This rank's rows of a global batch (numpy arrays or tensors, or
         tuples/lists/dicts of them; the leading dim split over the
         data-parallel ranks) on the engine's device; integer arrays
-        become int64."""
+        become int64. Host arrays bound for CUDA are pinned and copied
+        without blocking, on the caller's current stream (the datapipe's
+        staging stream when its producer calls this)."""
         return self._to_device(rules.place_batch(self.mesh, batch))
 
     def _to_device(self, batch):
@@ -484,7 +573,10 @@ class Engine(ConfigAccessorsMixin):
         a = np.asarray(batch)
         if a.dtype.kind in "ui":
             a = a.astype(np.int64)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _rng(self) -> torch.Generator:
         """This call's generator: seeded from (engine seed, call count), the
@@ -494,8 +586,17 @@ class Engine(ConfigAccessorsMixin):
         seed = (self._seed * 0x9E3779B97F4A7C15 + tick + 1) % (2 ** 63)
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _call_loss(self, batch):
-        out = (self.loss_fn(self.params, batch, self._rng())
+    def _replay_rng(self) -> torch.Generator:
+        """The generator of the layer-output replay: seeded from the
+        engine seed and the step, drawn outside the call count, so a
+        replay leaves the training stream's generators as they were."""
+        seed = (self._seed * 0x9E3779B97F4A7C15 + 2 ** 62
+                + self.global_steps) % (2 ** 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _call_loss(self, batch, rng=None):
+        out = (self.loss_fn(self.params, batch,
+                            self._rng() if rng is None else rng)
                if self._takes_rng else self.loss_fn(self.params, batch))
         loss = out[0] if isinstance(out, tuple) else out
         return loss
@@ -667,9 +768,12 @@ class Engine(ConfigAccessorsMixin):
                             step=self.global_steps) as _sp:
                 with self._capture("engine/apply_update", self._upd_sigs,
                                    self.params, self._grad_acc):
+                    grads = self._reduce_grads(self._grad_acc)
+                    if self.store_gradients:
+                        self._store_grads(grads)
                     metrics = self._apply_update(
-                        self._reduce_grads(self._grad_acc),
-                        self._current_lr(), float(self._acc_count))
+                        grads, self._current_lr(), float(self._acc_count))
+                    del grads
                 self._annotate(_sp, "step")
             self._grad_acc = None
             self._acc_count = 0
@@ -689,14 +793,26 @@ class Engine(ConfigAccessorsMixin):
         if self._grad_acc is not None:
             raise RuntimeError("train_batch() inside an unfinished "
                                "forward/backward/step accumulation cycle")
+        placed = False
         if batch is None:
-            it = data_iter or self._train_iter()
-            batch = _concat([next(it) for _ in range(gas)])
+            if self.datapipe is not None and data_iter is None:
+                # a whole global batch, usually already on the device
+                # (copied by the pipe's producer thread)
+                batch, placed = self.datapipe.next_global_batch()
+            else:
+                it = data_iter or self._train_iter()
+                batch = _concat([next(it) for _ in range(gas)])
         wall = self._config.wall_clock_breakdown
         if wall:
             self.timers(TRAIN_BATCH_TIMER).safe_start()
         self.tput_timer.start()
-        batch = self._place_batch(batch)
+        if not placed:
+            batch = self._place_batch(batch)
+        collector = self._layer_collector
+        if collector is not None:
+            # the taps stay quiet in the step; the replay below fills them
+            collector.clear()
+            hooks.set_active(None)
         mon = self.monitor
         wd = mon.watchdog if mon is not None else None
         ci = mon.cost_index if mon is not None else None
@@ -718,6 +834,13 @@ class Engine(ConfigAccessorsMixin):
                                 tflops=round(stats["tflops"], 4),
                                 verdict=stats["verdict"])
             self._annotate(_tb_sp, "train_batch")
+        if collector is not None:
+            # the layer outputs of the step's batch under the updated
+            # params, one forward with the taps on, as the reference
+            # replays its forward-only program after the step
+            hooks.set_active(collector)
+            with torch.no_grad():
+                self._call_loss(batch, self._replay_rng())
         if wd is not None:
             wd.observe(step=self.global_steps)
         self.micro_steps += gas
@@ -740,8 +863,11 @@ class Engine(ConfigAccessorsMixin):
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             del loss
-        metrics = self._apply_update(self._reduce_grads(self._grad_acc),
-                                     self._current_lr(), float(gas))
+        grads = self._reduce_grads(self._grad_acc)
+        if self.store_gradients:
+            self._store_grads(grads)
+        metrics = self._apply_update(grads, self._current_lr(), float(gas))
+        del grads
         self._grad_acc = None
         self._acc_count = 0
         metrics["loss"] = self._mean_loss(loss_sum / gas)
@@ -751,12 +877,49 @@ class Engine(ConfigAccessorsMixin):
         with torch.no_grad():
             return self._call_loss(self._place_batch(batch))
 
+    # ------------------------------------------------------------------ #
+    # the fork's extras: layer-output hooks and gradient stashing
+    # ------------------------------------------------------------------ #
+
+    def register_forward_hook(self, layers_to_hook="all",
+                              layer_name_pattern=None):
+        """Capture the outputs the models tap with
+        ``utils.hooks.record_layer_output`` (the reference's forward
+        hooks): after each ``train_batch``, ``layer_outputs`` holds those
+        of a forward of its batch under the updated params."""
+        self._layer_collector = hooks.LayerOutputCollector(
+            layers_to_hook, layer_name_pattern)
+        hooks.set_active(self._layer_collector)
+
+    def remove_forward_hooks(self):
+        hooks.set_active(None)
+        self._layer_collector = None
+
+    @property
+    def layer_outputs(self):
+        if self._layer_collector is None:
+            return {}
+        return self._layer_collector.layer_outputs
+
+    def _store_grads(self, grads):
+        """Keep a copy of one optimizer step's gradients (summed over the
+        micro-batches, scaled by the loss scale, reduced over the ranks),
+        as a tree like the params: on the device, or as host numpy arrays
+        with ``store_gradients_cpu`` (bf16 arrives as fp32)."""
+        with torch.no_grad():
+            copies = [g.to(self._grad_dtype, copy=True) for g in grads]
+        if self.store_gradients_cpu:
+            copies = [hooks._to_host(g) for g in copies]
+        self.stored_gradients = tree_unflatten(self.params, copies)
+
     def _after_optimizer_step(self, metrics):
         """Bookkeeping after an optimizer step (applied or skipped). An
         overflow-skipped step leaves the LR schedule where it was under a
         dynamic loss scaler, as the reference does."""
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
+        if self.batch_size_scheduler is not None:
+            self.batch_size_scheduler.step(self.global_steps)
         if self.summary_writer is not None:
             # the PREVIOUS step's scalars: its values have settled, so
             # reading them does not stall this step
@@ -841,14 +1004,14 @@ class Engine(ConfigAccessorsMixin):
             "micro_steps": self.micro_steps,
             "dp_world_size": self.data_parallel_size,
             "mp_world_size": 1,
-            # rows per optimizer step: micro * dp * gas
-            "global_rows": (self.train_micro_batch_size_per_gpu()
-                            * self.data_parallel_size
-                            * self.gradient_accumulation_steps()),
+            # rows per optimizer step, micro * dp * gas: a resume under
+            # another row count re-bases the datapipe's step schedules
+            "global_rows": self._global_rows(),
             "process_count": self.mesh.size,
             "lr_scheduler": (self.lr_scheduler.state_dict()
                              if self.lr_scheduler else {}),
-            "datapipe": {},
+            "datapipe": (self.datapipe.state_dict()
+                         if self.datapipe is not None else {}),
             "client_state": client_state or {},
         }
         optim_states = {
@@ -977,6 +1140,23 @@ class Engine(ConfigAccessorsMixin):
         self.global_steps = int(model_states.get("global_steps", 0))
         self.global_samples = int(model_states.get("global_samples", 0))
         self.micro_steps = int(model_states.get("micro_steps", 0))
+        if self.batch_size_scheduler is not None:
+            self.batch_size_scheduler.step(self.global_steps)
+        if self.datapipe is not None:
+            if model_states.get("datapipe"):
+                self.datapipe.load_state_dict(remap_data_state(
+                    model_states["datapipe"],
+                    model_states.get("global_rows"), self._global_rows()))
+            else:
+                logger.warning(
+                    "checkpoint %s carries no datapipe state (saved "
+                    "before the datapipe existed?): the input pipe "
+                    "restarts from epoch 0 and will NOT replay the "
+                    "original batch stream; seeding its curriculum step "
+                    "from global_steps=%d so the seq-len/batch-size "
+                    "schedules stay consistent", ck.ckpt_dir,
+                    self.global_steps)
+                self.datapipe.seed_step(self.global_steps)
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and model_states.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(model_states["lr_scheduler"])

@@ -9,8 +9,8 @@ make observable (models/gpt.py after each decoder layer, models/bert.py
 after each encoder layer and for the MLM head's dropped count). With no
 collector active the tap returns its value and does nothing else. With
 one active (``set_active``), it copies the value to the host, detached,
-into the collector (bf16 arrives as fp32, since numpy has no bf16). The
-engine-side switch that turns capture on is not ported yet (ROADMAP.md).
+into the collector (bf16 arrives as fp32, since numpy has no bf16).
+``Engine.register_forward_hook`` turns capture on (runtime/engine.py).
 
 The active collector is process-global, as in the reference: the taps sit
 deep inside model code.

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing ``deeperspeed_tpu_torch``
 loads neither ``jax``, ``flax``, ``msgpack`` nor any module of
 ``deeperspeed_tpu`` (names are compared exactly, since the port's own
-name starts with ``deeperspeed_tpu``), the monitor's modules included, no
-source file of the port, chip_smoke.py or
+name starts with ``deeperspeed_tpu``), the monitor's and the datapipe's
+modules included, no source file of the port, chip_smoke.py or
 scripts/torch_first_step_probe.py imports them, and the serving, training
 and streamed-offload entry points refuse to fall back to the CPU."""
 
@@ -98,6 +98,34 @@ def test_import_loads_no_jax_and_no_reference_module():
     for name in ("block_sparse", "kernels", "sparsity_config",
                  "sparse_self_attention", "sparse_attention_utils"):
         assert f"deeperspeed_tpu_torch.ops.sparse_attention.{name}" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def test_input_pipeline_and_follow_ups_load_no_jax():
+    """The datapipe, the batch-size scheduler, SGD, the FP16_Optimizer
+    wrappers, runtime/utils and resilience/reshard import torch and numpy
+    only."""
+    code = (
+        "import json, sys\n"
+        "import deeperspeed_tpu_torch.datapipe, deeperspeed_tpu_torch."
+        "datapipe.pipeline, deeperspeed_tpu_torch.datapipe.prefetcher\n"
+        "import deeperspeed_tpu_torch.runtime.bs_schedules, deeperspeed_tpu_"
+        "torch.ops.sgd, deeperspeed_tpu_torch.runtime.utils\n"
+        "import deeperspeed_tpu_torch.runtime.fp16.fused_optimizer, "
+        "deeperspeed_tpu_torch.resilience.reshard\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("datapipe", "datapipe.collator", "datapipe.config",
+                 "datapipe.curriculum", "datapipe.dataset",
+                 "datapipe.pipeline", "datapipe.prefetcher",
+                 "datapipe.state", "runtime.bs_schedules", "ops.sgd",
+                 "runtime.utils", "runtime.fp16.fused_optimizer",
+                 "resilience.reshard"):
+        assert f"deeperspeed_tpu_torch.{name}" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 

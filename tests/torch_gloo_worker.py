@@ -304,3 +304,37 @@ def streaming_refusal(rank, world, tmp, model_kw, config):
             f.write(str(e))
         return
     raise AssertionError(f"rank {rank} built a streamed engine")
+
+
+# ------------------------------------------------------------------ #
+# the datapipe under data parallelism
+# ------------------------------------------------------------------ #
+
+
+def datapipe_rows(rank, world, tmp, model_kw, config, steps):
+    """Train ``steps`` steps from the config's datapipe (no batch passed)
+    and save the rows this rank's step consumed, its losses and its
+    DataState."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+
+    params = torch.load(os.path.join(tmp, "params.pt"))
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32, attn_impl="xla")
+    eng, _, _, _ = ds.initialize(model=gpt.make_gpt(cfg)[2],
+                                 model_parameters=params, config=config,
+                                 device="cpu")
+    rows = []
+    pull = eng.datapipe.next_global_batch
+
+    def recording():
+        batch, placed = pull()
+        rows.append(np.asarray(batch))
+        return batch, placed
+
+    eng.datapipe.next_global_batch = recording
+    losses = [float(eng.train_batch()) for _ in range(steps)]
+    eng.datapipe.close()
+    np.save(os.path.join(tmp, f"rows{rank}.npy"), np.stack(rows))
+    with open(os.path.join(tmp, f"datapipe_rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses,
+                   "state": eng.datapipe.state_dict()}, f)
