@@ -356,6 +356,49 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (SGD_ATOL), and FP16_Optimizer(FusedAdam) for 3 steps with a dynamic
    scale: the step with an inf gradient skipped and the scale halved.
 
+17. Speculative decoding and the serving fleet (run after phase 16), on
+   GPT-NeoX-125M at full width and depth (12 layers, d_model 768), bf16,
+   random weights from SEED with random biases and layer-norm affines.
+   The kernel phases hold ln_fwd at (VERIFY_ROWS, 768) and bias_gelu_fwd
+   at (VERIFY_ROWS, 3072), the verify step's 8 x 5 rows, against their
+   plain versions and time them ("path": "spec"). 17a:
+   configs/gpt_125m_spec.json's "serving" block less its "fleet"
+   sub-block (a 3-layer truncated drafter, draft_k 4, a 128-block drafter
+   pool, prefix caching, chunked prefill), plus top_k SPEC_TOP_K, kernels
+   auto and a strict-watchdog monitor, serves 16 requests of SPEC_NEW
+   tokens (12 greedy, 4 sampled at SPEC_TEMPERATURE with fixed seeds;
+   prompts 16-900 tokens, two pairs sharing a 300-token prefix); the same
+   requests then run on a spec-off engine over the same params. Gates:
+   every request finishes by length with SPEC_NEW tokens; the outputs
+   equal the spec-off engine's, or differ first at a near tie (NEAR_TIE;
+   the differing requests are printed); drafts accepted; ln_fwd launched
+   once per target and drafter forward and bias_gelu_fwd once a layer
+   (12 x target + 3 x drafter forwards: the drafter shares the target's
+   final LN and head); one argument signature each for the decode, draft
+   and verify steps; the trace strict-valid and the request ledger
+   counting 64 tokens a request; the first-token logits of two requests
+   within LOGIT_TOL between the kernel and plain paths. Printed: the
+   accept rate, tokens per verify, draft and verify ms a round, the
+   fallback lanes, decode tokens/s and TTFT p50 with speculation on and
+   off, and the peak memory. 17b: configs/gpt_125m_fleet.json's "serving"
+   block (its "fleet" sub-block included; plus top_k SPEC_TOP_K), three
+   SubprocessReplicas of 17a's model (its params through a checkpoint
+   under build/smoke_fleet_ckpt, each child loading the kernels the
+   parent built: a child that ran nvcc fails the phase) sharing the card,
+   started side by side. A healthy run of FLEET_GREEDY greedy and
+   FLEET_SAMPLED sampled requests (prompts 16-FLEET_PROMPT_MAX, FLEET_NEW
+   tokens), then a burst of FLEET_SHED_BURST short requests against
+   max_queue_depth (every one past the cap shed with a retry_after_s,
+   serving_shed_total counting them), then the same requests on a new
+   fleet whose replica 1 is SIGKILLed and replica 2 wedged by
+   DS_TPU_FAULTS plans. Gates: every request finishes by length; tokens
+   equal one unkilled in-process engine's under the near-tie rule; one
+   "dead" and one "stalled" replica-down, a retry, restarts within
+   replica_max_restarts; the router's trace strict-valid. 17c:
+   configs/gpt_125m_spec.json's whole "serving" block (3 speculative
+   replicas), 17a's requests, replica 0 SIGKILLed mid-decode: every
+   request finishes, and its tokens equal 17a's speculative engine's
+   under the near-tie rule.
 The line before the last is the kernels JSON object, the one before it
 the card; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device the script exits non-zero before printing any result.
@@ -371,6 +414,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -434,9 +478,10 @@ LOGIT_TOL = 0.05
 SEED = 0
 L2_BYTES = 50 * 2**20
 # rows the runs give the forward kernels: 8 decode slots and every prefill
-# bucket (16 ... 1024) in serving, 2 x 1024 tokens in training, plus
-# ragged counts (6 slots, 48 rows)
-CHECK_ROWS = (6, 8, 16, 48, 64, 128, 256, 512, 1024, 2048)
+# bucket (16 ... 1024) in serving, the speculative verify step's 8 x 5
+# window (VERIFY_ROWS), 2 x 1024 tokens in training, plus ragged counts
+# (6 slots, 48 rows)
+CHECK_ROWS = (6, 8, 16, 40, 48, 64, 128, 256, 512, 1024, 2048)
 TIMED_ROWS = (8, 512, 2048)
 BWD_ROWS = (8, 48, 512, 2048)
 LN_WIDE_CASE = (48, 6144)  # GPT-NeoX-20B's width, the widest a model runs
@@ -653,6 +698,49 @@ REMAT_NORM_RTOL = 1e-3
 # card against the CPU (the same fp32 elementwise ops)
 STORE_GRADS_ATOL = 1e-6
 SGD_ATOL = 1e-6
+# speculative decoding and the fleet (phase 17) on GPT-NeoX-125M: 17a
+# configs/gpt_125m_spec.json's "serving" block less its "fleet" sub-block,
+# 17b configs/gpt_125m_fleet.json's, 17c the spec file's whole block; each
+# plus top_k SPEC_TOP_K for the sampled requests (PERF.md section 4)
+SPEC_CONFIG = ROOT / "configs" / "gpt_125m_spec.json"
+FLEET_CONFIG = ROOT / "configs" / "gpt_125m_fleet.json"
+SPEC_TOP_K = 40
+SPEC_TEMPERATURE = 0.8
+SPEC_NEW = 64
+# 16 prompts; the pairs SPEC_SHARED share their first SPEC_PREFIX tokens
+# (prefix-cache hits), and nine are longer than the 256-token prefill chunk
+SPEC_LENS = (16, 40, 64, 100, 150, 200, 240, 320, 330, 400, 480, 520, 600,
+             700, 800, 900)
+SPEC_SHARED = ((7, 8), (9, 10))
+SPEC_PREFIX = 300
+SPEC_SAMPLED = {1: 11, 6: 22, 11: 33, 14: 44}   # request index -> seed
+# a request whose spec-on and spec-off tokens differ passes only at a near
+# tie: at the first differing position, logits that move by NEAR_TIE times
+# the largest |logit| there can change the selection (near_tie: the top-1
+# / top-2 gap, and for sampled requests also the top-k filter's edge).
+# Phase 5's rule lets the kernel and plain paths' logits differ by
+# LOGIT_TOL times the largest |logit|: the margin is no larger.
+# (four bf16 ulps at the largest |logit|: the two paths' logits were seen
+# one ulp apart, and a tie flips when two of them move toward each other)
+NEAR_TIE = 0.02
+# 17b: 24 greedy and 4 sampled requests, prompts 16-512 tokens; replica 1
+# is SIGKILLed at its FLEET_KILL_AT-th decode step after its warm-up and
+# replica 2 wedged from its FLEET_STALL_AT-th (scripts/fleet_drill.py's
+# faults, one-shot flag files)
+FLEET_GREEDY = 24
+FLEET_SAMPLED = 4
+FLEET_NEW = 48
+FLEET_PROMPT_MAX = 512
+FLEET_KILL_AT = 12
+FLEET_STALL_AT = 20
+FLEET_SHED_BURST = 160
+FLEET_SHED_NEW = 8
+FLEET_CKPT = ROOT / "build" / "smoke_fleet_ckpt"
+FLEET_TAG = "smoke"
+FLEET_RUN_TIMEOUT_S = 240.0
+SPEC_FLEET_KILL_AT = 15
+# the verify step's rows: num_slots x (draft_k + 1) of the spec config
+VERIFY_ROWS = 40
 
 
 def card_line() -> str:
@@ -4767,6 +4855,628 @@ def optimizers_phase(card):
     torch.cuda.empty_cache()
 
 
+def spec_kernel_cases(fb, gen):
+    """ln_fwd at (VERIFY_ROWS, 768) and bias_gelu_fwd (tanh) at
+    (VERIFY_ROWS, 3072), bf16, the rows and widths GPT-NeoX-125M's verify
+    step gives them, against their plain versions (TOL, REL_L2) and timed
+    beside the plain version, F.layer_norm (none computes bias+GeLU in one
+    call) and the bound ("path": "spec")."""
+    dtype = torch.bfloat16
+    tol, rel, isz = TOL[dtype], REL_L2[dtype], 2
+    R, D, F = VERIFY_ROWS, 768, 3072
+    w = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
+    b = randn_on(gen, (D,), torch.float32, 0.1)
+
+    def ln_case():
+        return randn_on(gen, (R, D), dtype, 2.0, 0.5), w, b, 1e-5
+
+    args = ln_case()
+    y, mu, rs = fb.ln_fwd(*args)
+    torch.cuda.synchronize()
+    py, pmu, prs = fb.ln_fwd_plain(*args)
+    err, rel_err = check_close(f"ln_fwd {R}x{D} bf16", y, py, tol, rel)
+    check_outputs(f"ln_fwd {R}x{D} stats", ("mean", "rstd"), (mu, rs),
+                  (pmu, prs), 2e-5, rel)
+    ln = {"shape": [R, D], "dtype": "bfloat16", "path": "spec",
+          "max_abs_err": err, "tol": tol, "rel_l2_err": rel_err,
+          "rel_l2_tol": rel, "library": "F.layer_norm"}
+    bufs = copies(ln_case, R * D * isz)
+    lib_bufs = [(a[0], (D,), w.to(dtype), b.to(dtype), 1e-5) for a in bufs]
+    ln.update(timings(fb.ln_fwd, fb.ln_fwd_plain, bufs,
+                      torch.nn.functional.layer_norm, lib_bufs))
+    ln.update(bound(2 * R * D * isz + 2 * D * 4 + 2 * R * 4, 8 * R * D))
+    del bufs, lib_bufs
+
+    def bg_case():
+        return (randn_on(gen, (R, F), dtype, 2.0), randn_on(gen, (F,), dtype),
+                True)
+
+    args = bg_case()
+    y = fb.bias_gelu_fwd(*args)
+    torch.cuda.synchronize()
+    err, rel_err = check_close(f"bias_gelu_fwd {R}x{F} bf16", y,
+                               fb.bias_gelu_fwd_plain(*args), tol, rel)
+    bg = {"shape": [R, F], "dtype": "bfloat16", "approximate": True,
+          "path": "spec", "max_abs_err": err, "tol": tol,
+          "rel_l2_err": rel_err, "rel_l2_tol": rel, "library": None}
+    bufs = copies(bg_case, R * F * isz)
+    bg.update(timings(fb.bias_gelu_fwd, fb.bias_gelu_fwd_plain, bufs))
+    bg.update(bound(2 * R * F * isz + F * isz, 10 * R * F))
+    del bufs
+    return {"ln_fwd": [ln], "bias_gelu_fwd": [bg]}
+
+
+def spec_model():
+    """GPT-NeoX-125M at full width and depth, bf16, weights from SEED
+    with random biases and layer-norm affines."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset, init_params
+
+    cfg = get_preset("neox-125m", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    randomize_affine(params, gen)
+    return cfg, params
+
+
+def spec_requests(vocab):
+    """Phase 17a's 16 requests (and 17c's): rid, prompt, temperature and
+    seed; SPEC_SAMPLED's at SPEC_TEMPERATURE with their fixed seeds."""
+    host = torch.Generator().manual_seed(SEED + 17)
+    prompts = [torch.randint(0, vocab, (n,), generator=host).tolist()
+               for n in SPEC_LENS]
+    for a, b in SPEC_SHARED:
+        prompts[b][:SPEC_PREFIX] = prompts[a][:SPEC_PREFIX]
+    return [{"rid": f"spec-{i}", "prompt": p,
+             "temperature": SPEC_TEMPERATURE if i in SPEC_SAMPLED else 0.0,
+             "seed": SPEC_SAMPLED.get(i, 1000 + i)}
+            for i, p in enumerate(prompts)]
+
+
+def fleet_requests(vocab):
+    """Phase 17b's requests: FLEET_GREEDY greedy and FLEET_SAMPLED sampled,
+    prompts of 16 to FLEET_PROMPT_MAX tokens."""
+    host = torch.Generator().manual_seed(SEED + 170)
+    n = FLEET_GREEDY + FLEET_SAMPLED
+    lens = torch.randint(16, FLEET_PROMPT_MAX + 1, (n,), generator=host)
+    sampled = set(range(0, n, n // FLEET_SAMPLED))
+    return [{"rid": f"fleet-{i}",
+             "prompt": torch.randint(0, vocab, (int(L),),
+                                     generator=host).tolist(),
+             "temperature": SPEC_TEMPERATURE if i in sampled else 0.0,
+             "seed": 2000 + i} for i, L in enumerate(lens)]
+
+
+def serve_requests(engine, reqs, new):
+    """Submit every request at once and run the engine dry: ({rid:
+    tokens}, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r["prompt"], max_new_tokens=new,
+                      temperature=r["temperature"], request_id=r["rid"],
+                      seed=r["seed"])
+    outs = engine.run()
+    torch.cuda.synchronize()
+    return {r["rid"]: outs[r["rid"]] for r in reqs}, time.perf_counter() - t0
+
+
+def near_tie(cfg, params, req, want, got, top_k):
+    """None when ``got`` equals ``want``; else the record of the first
+    position they differ at, with ``ok`` true only at a near tie there:
+    where logits that move by ``delta`` (NEAR_TIE times the largest
+    |logit|) can turn the selection of one token into the other. The
+    logits are recomputed from the prompt and ``want``'s tokens before the
+    position by one dense forward. Greedy: the top-1 minus top-2 logit gap
+    is at most ``delta``. Sampled (the best of the top_k filtered logits
+    over the temperature plus the request key's Gumbel noise): both tokens
+    are within ``delta`` of the top-k (their logits at least the k-th's
+    less ``delta``), and either their scores are within ``delta`` over the
+    temperature or the better-scoring one sits at the filter's edge (its
+    logit within ``delta`` of the k-th's, so ``delta`` can take it out)."""
+    from deeperspeed_tpu_torch.models.generation import (apply_with_cache,
+                                                         init_cache)
+    from deeperspeed_tpu_torch.serving.engine import request_sample_key
+
+    if got == want:
+        return None
+    pos = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+               min(len(want), len(got)))
+    if pos >= min(len(want), len(got)):
+        return {"rid": req["rid"], "position": pos, "ok": False,
+                "lengths": [len(want), len(got)]}
+    dev = "cuda"
+    toks = torch.tensor([req["prompt"] + want[:pos]], device=dev)
+    cache = init_cache(cfg, 1, toks.shape[1], dev)
+    logits = apply_with_cache(cfg, params, toks, cache, 0)[0][0, -1].float()
+    delta = NEAR_TIE * float(logits.abs().max())
+    pair = (want[pos], got[pos])
+    rec = {"rid": req["rid"], "position": pos, "delta": delta,
+           "want": pair[0], "got": pair[1]}
+    if req["temperature"] <= 0:
+        top = torch.topk(logits, 2).values
+        rec["gap"] = float(top[0] - top[1])
+        rec["ok"] = rec["gap"] <= delta
+        return rec
+    temp = req["temperature"]
+    u = torch.rand(logits[None].shape, device=dev,
+                   generator=request_sample_key(req["seed"], pos, dev))
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)[0]
+    score = logits / temp - torch.log(-torch.log(u))
+    kth = float(torch.topk(logits, top_k).values[-1])
+    lw, lg = (float(logits[t]) for t in pair)
+    sw, sg = (float(score[t]) for t in pair)
+    edge = lw - kth if sw >= sg else lg - kth
+    rec.update(gap=abs(sw - sg), logits_minus_kth=[lw - kth, lg - kth])
+    rec["ok"] = (min(lw, lg) >= kth - delta
+                 and (abs(sw - sg) <= delta / temp or abs(edge) <= delta))
+    return rec
+
+
+def held_to(cfg, params, reqs, want, got, top_k, label):
+    """Every request of ``got`` equal to ``want`` or differing first at a
+    near tie; returns the differing requests' records."""
+    diffs = [d for d in (near_tie(cfg, params, r, want[r["rid"]],
+                                  got[r["rid"]], top_k) for r in reqs)
+             if d is not None]
+    bad = [d for d in diffs if not d["ok"]]
+    print(f"{label}: {len(diffs)} of {len(reqs)} requests differ, "
+          f"{len(bad)} not at a near tie: " + json.dumps(diffs), flush=True)
+    if bad:
+        raise AssertionError(f"{label}: tokens differ away from a near tie: "
+                             f"{bad}")
+    return diffs
+
+
+def counted(fn, calls, key):
+    """``fn`` counting its calls in ``calls[key]``."""
+    def call(*args, **kwargs):
+        calls[key] += 1
+        return fn(*args, **kwargs)
+    return call
+
+
+def spec_serving_phase(fb, card, cfg, params, obs):
+    """Phase 17a (module docstring). Returns the launch counts of the
+    speculative run and its tokens by rid."""
+    from deeperspeed_tpu_torch.models.generation import init_cache
+    from deeperspeed_tpu_torch.monitor import (reqledger, shutdown_monitor,
+                                               validate_events)
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.serving import FINISH_LENGTH, ServingEngine
+    from deeperspeed_tpu_torch.serving.metrics import DECODE_TIMER
+
+    raw = json.loads(SPEC_CONFIG.read_text())
+    block = {k: v for k, v in raw["serving"].items() if k != "fleet"}
+    block["top_k"] = SPEC_TOP_K
+    kernel_config.configure(**kernel_config.validate({"mode": "auto"}))
+    engine = ServingEngine(cfg, params, block, monitor_config={
+        **raw["monitor"], **SERVING_MONITOR, "obs_dir": str(obs)})
+    spec = engine._spec
+    K, draft_layers = spec.K, spec.dcfg.n_layer
+    calls = {"prefill": 0, "decode": 0, "draft": 0, "verify": 0}
+    engine._forward = counted(engine._forward, calls, "prefill")
+    engine._decode_step = counted(engine._decode_step, calls, "decode")
+    spec._draft_step = counted(spec._draft_step, calls, "draft")
+    spec._verify_step = counted(spec._verify_step, calls, "verify")
+    reqs = spec_requests(cfg.vocab_size)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.ln_fwd.launches = 0
+    fb.bias_gelu_fwd.launches = 0
+    outs, wall_s = serve_requests(engine, reqs, SPEC_NEW)
+    launches = {"ln_fwd": fb.ln_fwd.launches,
+                "bias_gelu_fwd": fb.bias_gelu_fwd.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    m = engine.metrics
+    target = calls["prefill"] + calls["decode"] + calls["verify"]
+    draft = (K + 1) * calls["draft"] + m.spec_drafter_prefills
+    want = {"ln_fwd": target + draft,
+            "bias_gelu_fwd": cfg.n_layer * target + draft_layers * draft}
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"launches {launches}, the forwards imply "
+                             f"{want} (calls {calls}, drafter prefills "
+                             f"{m.spec_drafter_prefills})")
+    for r in reqs:
+        req = engine.get(r["rid"])
+        if req.finish_reason != FINISH_LENGTH or \
+                len(outs[r["rid"]]) != SPEC_NEW:
+            raise AssertionError(f"{r['rid']}: {req.finish_reason}, "
+                                 f"{len(outs[r['rid']])} tokens")
+    if m.spec_rounds <= 0 or calls["verify"] <= 0 or m.spec_accepted <= 0:
+        raise AssertionError(f"no draft accepted: {m.summary()}")
+    sigs = {"decode": engine.decode_compile_count,
+            "draft": engine.draft_compile_count,
+            "verify": engine.verify_compile_count}
+    if sigs != {"decode": 1, "draft": 1, "verify": 1}:
+        raise AssertionError(f"decode-path signatures {sigs}, expected one "
+                             f"each (three)")
+
+    mon = engine.telemetry
+    events = mon.tracer.to_dict()["traceEvents"]
+    names = [e["name"] for e in events]
+    problems = validate_events(events, strict=True)
+    missing = {"spec/draft", "spec/verify", "spec/accept",
+               "serving/decode", "serving/prefill"} - set(names)
+    if problems or missing or mon.watchdog.fired or \
+            names.count("spec/verify") != calls["verify"]:
+        raise AssertionError(f"17a trace: problems {problems[:5]}, missing "
+                             f"{sorted(missing)}, watchdog "
+                             f"{mon.watchdog.fired}, "
+                             f"{names.count('spec/verify')} spec/verify "
+                             f"for {calls['verify']} verify steps")
+    ledger = reqledger.build_ledger(events)
+    short = {rid: row["cost"]["tokens_final"]
+             for rid, row in ledger["requests"].items()
+             if row["cost"]["tokens_final"] != SPEC_NEW}
+    if sorted(ledger["requests"]) != sorted(outs) or short:
+        raise AssertionError(f"17a ledger: {sorted(ledger['requests'])}, "
+                             f"token counts {short}")
+    s_on = m.summary()
+    decode_s = m.timers(DECODE_TIMER).elapsed(reset=False)
+    watchdog_counts = mon.watchdog.counts()
+    shutdown_monitor(save=True)
+
+    logit_errs = []
+    for r in (reqs[0], reqs[-1]):
+        L = len(r["prompt"])
+        toks = np.zeros((1, engine.scfg.bucket_for(L)), np.int64)
+        toks[0, :L] = r["prompt"]
+        rows = {}
+        for mode in ("auto", "off"):
+            with kernel_config.override(mode=mode):
+                cache = init_cache(cfg, 1, toks.shape[1], engine.device)
+                rows[mode] = engine._forward(toks, cache, 0)[0][0, L - 1] \
+                    .float()
+        if int(torch.argmax(rows["auto"])) != outs[r["rid"]][0]:
+            raise AssertionError(f"{r['rid']}: first token differs from the "
+                                 f"recomputed kernel-path logits")
+        err = float((rows["auto"] - rows["off"]).abs().max())
+        scale = float(rows["off"].abs().max())
+        if not math.isfinite(err) or err > LOGIT_TOL * scale:
+            raise AssertionError(
+                f"{r['rid']}: first-token logits differ by {err:.4f} between "
+                f"the kernel and plain paths (limit {LOGIT_TOL} x "
+                f"{scale:.3f})")
+        logit_errs.append({"rid": r["rid"], "prompt_len": L,
+                           "max_abs_err": err, "max_abs_logit": scale})
+    del engine, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same requests on a spec-off engine over the same params
+    off_block = {k: v for k, v in block.items() if k != "speculative"}
+    off = ServingEngine(cfg, params, off_block)
+    off_outs, off_wall_s = serve_requests(off, reqs, SPEC_NEW)
+    s_off = off.metrics.summary()
+    off_decode_s = off.metrics.timers(DECODE_TIMER).elapsed(reset=False)
+    diffs = held_to(cfg, params, reqs, off_outs, outs, SPEC_TOP_K,
+                    "spec 17a against spec off")
+    del off
+
+    sp = s_on["speculative"]
+    decode_tokens = s_on["tokens_generated"] - s_on["prefills"]
+    off_tokens = s_off["tokens_generated"] - s_off["prefills"]
+    report = {
+        "model": "neox-125m", "dtype": "bfloat16", "card": card,
+        "requests": len(reqs), "sampled": len(SPEC_SAMPLED),
+        "new_tokens": SPEC_NEW, "prompt_lens": list(SPEC_LENS),
+        "draft_k": K, "drafter_layers": draft_layers,
+        "launches": launches,
+        "forwards": {"target": target, "drafter": draft,
+                     "steps": calls},
+        "launches_per_request": {k: v / len(reqs)
+                                 for k, v in launches.items()},
+        "signatures": sigs, "watchdog_counts": watchdog_counts,
+        "accept_rate": sp["accept_rate"],
+        # a speculating lane's tokens a round (1 on plain decode), and all
+        # lanes' decode tokens over the target's decode-path forwards
+        "tokens_per_spec_lane_round": sp["emitted"] * K / sp["drafted"],
+        "decode_tokens_per_target_forward":
+            decode_tokens / (calls["verify"] + calls["decode"]),
+        "spec_rounds": sp["rounds"], "verify_steps": calls["verify"],
+        "fallback_decode_steps": calls["decode"],
+        "spec_fallback_lanes": sp["fallback_lanes"],
+        "drafter_prefills": sp["drafter_prefills"],
+        "draft_ms_per_round": sp["draft_time_s"] / calls["verify"] * 1e3,
+        "verify_ms_per_round": sp["verify_time_s"] / calls["verify"] * 1e3,
+        "prefix_reuse_hits": s_on["prefix_reuse"]["reuse_hits"],
+        "prefill_chunks": s_on["prefix_reuse"]["prefill_chunks"],
+        "preemptions": {"spec_on": s_on["preemptions"],
+                        "spec_off": s_off["preemptions"]},
+        "decode_tokens_per_s": {"spec_on": decode_tokens / decode_s,
+                                "spec_off": off_tokens / off_decode_s},
+        "ttft_p50_ms": {"spec_on": s_on["ttft_s"]["p50"] * 1e3,
+                        "spec_off": s_off["ttft_s"]["p50"] * 1e3},
+        "wall_s": {"spec_on": wall_s, "spec_off": off_wall_s},
+        "peak_mem_gib": peak_gib, "differing_requests": len(diffs),
+        "near_ties": diffs, "first_token_logits": logit_errs,
+    }
+    print("spec 17a: " + json.dumps(report), flush=True)
+    return launches, outs
+
+
+def replica_spec(cfg, block):
+    """A replica worker's spec for the phase-17 model: its config, the
+    checkpoint FLEET_CKPT holds, the card, kernels auto and ``block``."""
+    gpt_kw = {k: v for k, v in dataclasses.asdict(cfg).items()
+              if k != "dtype"}
+    gpt_kw["dtype"] = "bfloat16"
+    return {"gpt": gpt_kw, "init_seed": SEED, "device": "cuda",
+            "weights": {"load_dir": str(FLEET_CKPT), "tag": FLEET_TAG},
+            "kernels": {"mode": "auto"}, "serving": block,
+            "poll_interval_s": 0.002}
+
+
+def start_fleet(spec, n, faults, workdir):
+    """``n`` SubprocessReplicas of ``spec`` (``faults``: replica index ->
+    fault plan), started side by side; a replica that fails to start
+    fails the phase with its stderr, after every other one is stopped."""
+    from deeperspeed_tpu_torch.serving.fleet import SubprocessReplica
+
+    fleet = []
+    for i in range(n):
+        rspec = dict(spec)
+        if faults and i in faults:
+            rspec["faults"] = dict(faults[i])
+        fleet.append(SubprocessReplica(f"r{i}", rspec, workdir=workdir))
+    errors = []
+
+    def start(rep):
+        try:
+            rep.start()
+        except RuntimeError as e:
+            errors.append(f"{rep.name}: {e}")
+
+    threads = [threading.Thread(target=start, args=(r,)) for r in fleet]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        stop_fleet(fleet)
+        raise AssertionError("replicas failed to start:\n"
+                             + "\n".join(errors))
+    built = {r.name: r.ready_info.get("nvcc_s") for r in fleet}
+    if any(v != 0 for v in built.values()):
+        stop_fleet(fleet)
+        raise AssertionError(f"a replica ran nvcc: {built}")
+    return fleet
+
+
+def stop_fleet(fleet):
+    for rep in fleet:
+        rep.stop()
+        rep.kill()
+
+
+def drive_fleet(router, reqs, new):
+    """Submit every request to the router and run it until each is
+    terminal: (outcomes, {rid: tokens}, wall seconds)."""
+    t0 = time.perf_counter()
+    for r in reqs:
+        router.submit(r["prompt"], max_new_tokens=new,
+                      temperature=r["temperature"], request_id=r["rid"],
+                      seed=r["seed"])
+    outcomes = router.run_until_idle(timeout_s=FLEET_RUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    return outcomes, {r["rid"]: router.result(r["rid"]).tokens
+                      for r in reqs}, wall
+
+
+def fleet_outcomes_ok(label, rids, outcomes, router):
+    from deeperspeed_tpu_torch.serving import FINISH_LENGTH
+
+    bad = {rid: outcomes.get(rid) for rid in rids
+           if outcomes.get(rid) != FINISH_LENGTH}
+    if bad:
+        recs = {rid: {k: getattr(router.result(rid), k) for k in (
+            "attempts", "assigned", "submit_t", "first_t", "finish_t")}
+            for rid in bad}
+        raise AssertionError(f"{label}: requests not finished by length: "
+                             f"{bad} {recs}; router "
+                             f"{router.metrics.summary()}")
+
+
+def fleet_launches(fleet):
+    """The kernel launches the replicas reported in their last
+    heartbeats (since their warm-ups), summed."""
+    total = {"ln_fwd": 0, "bias_gelu_fwd": 0}
+    for rep in fleet:
+        for k in total:
+            total[k] += int(rep.launches.get(k, 0))
+    if min(total.values()) <= 0:
+        raise AssertionError(f"the replicas launched {total}")
+    return total
+
+
+def ttft_ms(summary):
+    return {k: v * 1e3 for k, v in summary["router_ttft_s"].items()}
+
+
+def fleet_phase(card, cfg, params, obs):
+    """Phase 17b (module docstring). Returns the replicas' launch
+    counts."""
+    import shutil
+
+    from deeperspeed_tpu_torch.checkpoint.serialization import (
+        model_state_filename, save_tree)
+    from deeperspeed_tpu_torch.monitor import (init_monitor,
+                                               shutdown_monitor,
+                                               validate_events)
+    from deeperspeed_tpu_torch.serving import (FleetRouter, RouterConfig,
+                                               ShedError)
+    from deeperspeed_tpu_torch.serving.replica_worker import build_engine
+
+    shutil.rmtree(FLEET_CKPT, ignore_errors=True)
+    save_tree(str(FLEET_CKPT / FLEET_TAG / model_state_filename()),
+              {"module": params})
+    raw = json.loads(FLEET_CONFIG.read_text())
+    block = dict(raw["serving"], top_k=SPEC_TOP_K)
+    rcfg = RouterConfig.from_dict(block["fleet"])
+    spec = replica_spec(cfg, block)
+    reqs = fleet_requests(cfg.vocab_size)
+    rids = [r["rid"] for r in reqs]
+
+    # the reference: one unkilled engine in this process, from the spec
+    ref_engine = build_engine(spec)
+    ref, _ = serve_requests(ref_engine, reqs, FLEET_NEW)
+    del ref_engine
+    gc.collect()
+
+    mon = init_monitor({"obs_dir": str(obs), "watchdog": "strict"})
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    runs = {}
+    fleet = start_fleet(spec, rcfg.num_replicas, None, workdir)
+    spawn = {"healthy": {r.name: r.spawn_to_ready_s for r in fleet}}
+    router = FleetRouter(fleet, rcfg)
+    try:
+        outcomes, got, wall = drive_fleet(router, reqs, FLEET_NEW)
+        fleet_outcomes_ok("17b healthy", rids, outcomes, router)
+        held_to(cfg, params, reqs, ref, got, SPEC_TOP_K,
+                "fleet 17b healthy against one engine")
+        runs["healthy"] = {"wall_s": wall,
+                           "router_ttft_ms": ttft_ms(
+                               router.metrics.summary()),
+                           "progress": {r.name: r.progress for r in fleet}}
+        # a burst of short requests against max_queue_depth
+        shed_c = mon.registry.counter("serving_shed_total", "")
+        shed0 = shed_c.value
+        accepted, hints = [], []
+        for i in range(FLEET_SHED_BURST):
+            try:
+                accepted.append(router.submit(
+                    reqs[i % len(reqs)]["prompt"][:16],
+                    max_new_tokens=FLEET_SHED_NEW,
+                    request_id=f"burst-{i}"))
+            except ShedError as e:
+                hints.append(e.retry_after_s)
+        want_shed = FLEET_SHED_BURST - rcfg.max_queue_depth
+        if len(hints) != want_shed or min(hints, default=0) <= 0 or \
+                shed_c.value - shed0 != want_shed:
+            raise AssertionError(
+                f"the burst shed {len(hints)} (hints {hints[:3]}), "
+                f"serving_shed_total rose {shed_c.value - shed0}; expected "
+                f"{want_shed}")
+        burst = router.run_until_idle(timeout_s=FLEET_RUN_TIMEOUT_S)
+        fleet_outcomes_ok("17b burst", accepted, burst, router)
+        runs["shed"] = {"burst": FLEET_SHED_BURST, "accepted": len(accepted),
+                        "shed": len(hints),
+                        "retry_after_s": [min(hints), max(hints)]}
+    finally:
+        router.shutdown()
+        stop_fleet(fleet)
+
+    flags = tempfile.mkdtemp(prefix="chip_smoke_flags_")
+    faults = {1: {"replica_sigkill_at_decode": FLEET_KILL_AT,
+                  "flag_file": os.path.join(flags, "kill")},
+              2: {"replica_stall_at_decode": FLEET_STALL_AT,
+                  "flag_file": os.path.join(flags, "stall")}}
+    fleet = start_fleet(spec, rcfg.num_replicas, faults, workdir)
+    spawn["faults"] = {r.name: r.spawn_to_ready_s for r in fleet}
+    router = FleetRouter(fleet, rcfg)
+    try:
+        outcomes, got, wall = drive_fleet(router, reqs, FLEET_NEW)
+        fleet_outcomes_ok("17b faults", rids, outcomes, router)
+        diffs = held_to(cfg, params, reqs, ref, got, SPEC_TOP_K,
+                        "fleet 17b faults against one engine")
+        s = router.metrics.summary()
+        causes = sorted(d["cause"] for d in s["replica_downs"])
+        restarts = {r.name: r.restarts for r in fleet}
+        if causes != ["dead", "stalled"] or s["retries"] < 1 or \
+                max(restarts.values()) > rcfg.replica_max_restarts:
+            raise AssertionError(f"17b: replica downs {s['replica_downs']}, "
+                                 f"retries {s['retries']}, restarts "
+                                 f"{restarts}")
+        launches = fleet_launches(fleet)
+        runs["faults"] = {
+            "wall_s": wall, "retries": s["retries"],
+            "replica_downs": s["replica_downs"], "restarts": restarts,
+            "router_ttft_ms": ttft_ms(s),
+            "progress": {r.name: r.progress for r in fleet},
+            "respawn_to_ready_s": {r.name: r.spawn_to_ready_s for r in fleet
+                                   if r.restarts},
+            "differing_requests": len(diffs), "launches": launches}
+    finally:
+        router.shutdown()
+        stop_fleet(fleet)
+    events = mon.tracer.to_dict()["traceEvents"]
+    problems = validate_events(events, strict=True)
+    names = {e["name"] for e in events}
+    need = {"serving/replica_down", "serving/retry", "serving/shed",
+            "serving/finish"}
+    shutdown_monitor(save=True)
+    if problems or need - names:
+        raise AssertionError(f"17b router trace: problems {problems[:5]}, "
+                             f"missing {sorted(need - names)}")
+    print("fleet 17b: " + json.dumps({
+        "card": card, "replicas": rcfg.num_replicas,
+        "requests": len(reqs), "sampled": FLEET_SAMPLED,
+        "new_tokens": FLEET_NEW, "spawn_to_ready_s": spawn,
+        "router_events": len(events), **runs}), flush=True)
+    return launches
+
+
+def spec_fleet_phase(card, cfg, params, spec_outs):
+    """Phase 17c (module docstring). Returns the replicas' launch
+    counts."""
+    from deeperspeed_tpu_torch.serving import FleetRouter, RouterConfig
+
+    raw = json.loads(SPEC_CONFIG.read_text())
+    block = dict(raw["serving"], top_k=SPEC_TOP_K)
+    rcfg = RouterConfig.from_dict(block["fleet"])
+    spec = replica_spec(cfg, block)
+    reqs = spec_requests(cfg.vocab_size)
+    flags = tempfile.mkdtemp(prefix="chip_smoke_flags_")
+    faults = {0: {"replica_sigkill_at_decode": SPEC_FLEET_KILL_AT,
+                  "flag_file": os.path.join(flags, "kill")}}
+    fleet = start_fleet(spec, rcfg.num_replicas, faults,
+                        tempfile.mkdtemp(prefix="chip_smoke_spec_fleet_"))
+    spawn = {r.name: r.spawn_to_ready_s for r in fleet}
+    router = FleetRouter(fleet, rcfg)
+    try:
+        outcomes, got, wall = drive_fleet(router, reqs, SPEC_NEW)
+        fleet_outcomes_ok("17c", [r["rid"] for r in reqs], outcomes,
+                          router)
+        diffs = held_to(cfg, params, reqs, spec_outs, got, SPEC_TOP_K,
+                        "spec fleet 17c against 17a's engine")
+        s = router.metrics.summary()
+        if not any(d["cause"] == "dead" for d in s["replica_downs"]) or \
+                s["retries"] < 1:
+            raise AssertionError(f"17c: no kill recorded: {s}")
+        launches = fleet_launches(fleet)
+        report = {"card": card, "replicas": rcfg.num_replicas,
+                  "requests": len(reqs), "wall_s": wall,
+                  "spawn_to_ready_s": spawn, "retries": s["retries"],
+                  "replica_downs": s["replica_downs"],
+                  "restarts": {r.name: r.restarts for r in fleet},
+                  "router_ttft_ms": ttft_ms(s),
+                  "progress": {r.name: r.progress for r in fleet},
+                  "differing_requests": len(diffs), "launches": launches}
+    finally:
+        router.shutdown()
+        stop_fleet(fleet)
+    print("spec fleet 17c: " + json.dumps(report), flush=True)
+    return launches
+
+
+def spec_and_fleet_phase(fb, card, obs):
+    """Phase 17: 17a, 17b and 17c on one GPT-NeoX-125M. Returns the
+    launch counts of each."""
+    cfg, params = spec_model()
+    t0 = time.perf_counter()
+    spec, spec_outs = spec_serving_phase(fb, card, cfg, params, obs / "spec")
+    t1 = time.perf_counter()
+    fleet = fleet_phase(card, cfg, params, obs / "fleet")
+    t2 = time.perf_counter()
+    spec_fleet = spec_fleet_phase(card, cfg, params, spec_outs)
+    t3 = time.perf_counter()
+    print(f"phase 17: 17a {t1 - t0:.1f} s, 17b {t2 - t1:.1f} s, 17c "
+          f"{t3 - t2:.1f} s", flush=True)
+    return spec, fleet, spec_fleet
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4834,6 +5544,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, rows in infinity_kernel_cases(fb, gen).items():
         cases[name].extend(rows)
+    for name, rows in spec_kernel_cases(fb, gen).items():
+        cases[name].extend(rows)
     for name, rows in cases.items():
         for r in rows:
             if "ms" in r:
@@ -4881,6 +5593,9 @@ def main() -> int:
     datapipe, datapipe_per_step = datapipe_phase(card)
     remat = remat_phase(card)
     optimizers_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec, fleet, spec_fleet = spec_and_fleet_phase(fb, card, obs / "spec")
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -4891,7 +5606,8 @@ def main() -> int:
              "gpt_resume": resume, "bert_training": bert,
              "sparse_training": sparse, "dp_training": dp,
              "infinity_training": infinity, "datapipe_training": datapipe,
-             "remat_policies": remat}
+             "remat_policies": remat, "spec_serving": spec,
+             "fleet_replicas": fleet, "spec_fleet_replicas": spec_fleet}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -4935,6 +5651,14 @@ def main() -> int:
             entry["infinity_path"] = {k: inf[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}
+        sp = next((r for r in rows if r.get("path") == "spec"), None)
+        if sp is not None:
+            # the kernel at GPT-NeoX-125M's verify step's rows
+            entry["spec_path"] = {k: sp[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
+            entry["spec_path"]["launches_per_request"] = \
+                spec[name] / len(SPEC_LENS)
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "fused_adam":

@@ -2,9 +2,13 @@
 
 Counterpart of deeperspeed_tpu/serving: ``ServingEngine`` turns
 concurrent requests into fixed-shape decode batches over a slot pool
-backed by a paged KV cache. Exports the names the reference's package
-exports for the modules ported so far; the pipeline bridge, the fleet
-router, its replicas and metrics, and ``SLOTracker`` are not ported yet.
+backed by a paged KV cache, with drafter-backed speculative decoding
+(``spec/``) under a ``"speculative"`` block. On top of single engines,
+the fleet layer (``FleetRouter`` over ``ThreadReplica`` /
+``SubprocessReplica`` workers) adds admission control, wall-clock
+deadlines, health-checked failover and rolling restarts. Exports the
+reference's names except ``PipelineServingBridge``, which waits for the
+pipeline slice (ROADMAP item 11).
 """
 
 from .config import RouterConfig, ServingConfig, SLOConfig, SpeculativeConfig
@@ -15,8 +19,16 @@ from .engine import (
     make_decode_step,
     request_sample_key,
 )
+from .fleet import (
+    ReplicaUnavailableError,
+    SubprocessReplica,
+    ThreadReplica,
+    build_subprocess_fleet,
+    build_thread_fleet,
+)
 from .kv_cache import BlockAllocator, PagedKVCache, PrefixCache, blocks_needed
-from .metrics import ServingMetrics
+from .metrics import FleetMetrics, ServingMetrics, SLOTracker
+from .router import FleetRouter, RouterRequest, ShedError
 from .scheduler import (
     FINISH_EOS,
     FINISH_FAILED,
@@ -32,6 +44,7 @@ __all__ = [
     "ServingConfig",
     "RouterConfig",
     "SLOConfig",
+    "SLOTracker",
     "SpeculativeConfig",
     "ServingEngine",
     "EngineDrainingError",
@@ -43,8 +56,17 @@ __all__ = [
     "PrefixCache",
     "blocks_needed",
     "ServingMetrics",
+    "FleetMetrics",
     "Scheduler",
     "Request",
+    "FleetRouter",
+    "RouterRequest",
+    "ShedError",
+    "ThreadReplica",
+    "SubprocessReplica",
+    "ReplicaUnavailableError",
+    "build_thread_fleet",
+    "build_subprocess_fleet",
     "FINISH_EOS",
     "FINISH_LENGTH",
     "FINISH_TIMEOUT",

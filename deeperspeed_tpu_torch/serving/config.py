@@ -17,8 +17,8 @@ Geometry:
     ``block_size``, doubling).
 
 The ``"fleet"``, ``"slo"`` and ``"speculative"`` sub-blocks parse as in the
-reference; the port's engine does not serve them yet (``speculative``
-raises ``NotImplementedError`` there).
+reference: the engine serves ``"slo"`` and ``"speculative"``, the fleet
+router (serving/router.py) ``"fleet"``.
 """
 
 import dataclasses

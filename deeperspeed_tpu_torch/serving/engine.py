@@ -36,8 +36,14 @@ stamps the prefill and decode spans with the allocator's watermarks.
 ``monitor`` is a ``TensorBoardMonitor`` the metrics' summary is exported
 through every step.
 
-Not ported yet (each raises or is absent): ``mesh=``, speculative
-decoding, ``PipelineServingBridge`` and the resilience manager hook.
+Speculative decoding: a ``"speculative"`` sub-block hands the decode phase
+to a ``spec.SpecRuntime`` (a drafter with its own paged pool, a draft
+step and a verify step); the plain decode step stays as the fallback for
+slots that cannot speculate a given round. The engine then meets exactly
+three decode-path signatures (decode, draft, verify), each watched.
+
+Not ported yet (each raises or is absent): ``mesh=``,
+``PipelineServingBridge`` and the resilience manager hook.
 """
 
 import itertools
@@ -53,6 +59,7 @@ from ..models.generation import (apply_with_cache, categorical, init_cache,
                                   prep_sampling_logits)
 from ..models.gpt import (GPTConfig, decoder_block, head_weight, layer_norm,
                           layer_slices)
+from ..models.speculative import engine_sample_key
 from ..monitor import get_monitor, init_monitor
 from ..monitor.tracer import trace_counter, trace_instant, trace_span
 from ..monitor.watchdog import SignatureCache
@@ -74,26 +81,12 @@ class EngineDrainingError(RuntimeError):
 # deterministic per-request sampling
 # ------------------------------------------------------------------ #
 
-_MASK64 = (1 << 64) - 1
-
-
 def derive_request_seed(base_seed: int, rid: str) -> int:
     """Stable per-request sampling seed: a pure function of the engine
     seed and the request id (crc32, NOT Python hash(), which is
     randomized per process), as in the reference."""
     return (zlib.crc32(rid.encode("utf-8")) ^ (base_seed * 0x9E3779B1)) \
         & 0x7FFFFFFF
-
-
-def sample_seed(seed: int, count: int) -> int:
-    """The 64-bit generator seed for a request's ``count``-th sampled
-    token: ``z = (seed * 0x9E3779B97F4A7C15 + count + 1) mod 2**64``, then
-    the splitmix64 finalizer ``z ^= z >> 30; z *= 0xBF58476D1CE4E5B9;
-    z ^= z >> 27; z *= 0x94D049BB133111EB; z ^= z >> 31`` (mod 2**64)."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(count) + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
 
 
 def request_sample_key(seed: int, count: int, device="cpu") -> torch.Generator:
@@ -103,15 +96,40 @@ def request_sample_key(seed: int, count: int, device="cpu") -> torch.Generator:
     engine-global stream, so a preempted or retried request replays its
     sampled tokens exactly. This is the port's own contract; JAX's PRNG
     cannot be reproduced in PyTorch, so sampled tokens differ from the
-    reference's (greedy tokens do not)."""
-    return torch.Generator(device=device).manual_seed(sample_seed(seed, count))
+    reference's (greedy tokens do not). Delegates to
+    models/speculative.engine_sample_key, the one definition of the key
+    contract that plain decode, the speculative draft and verify steps and
+    ``make_matched_speculative_generator`` share (its seed is
+    ``models.speculative.sample_seed(seed, count)``)."""
+    return engine_sample_key(seed, count, device)
+
+
+def _draw(logits_row, temperature: float, top_k, seed: int, count: int):
+    """One sampled token (a 0-d tensor on the logits' device) from logits
+    (V,) under the request's key."""
+    filtered = prep_sampling_logits(logits_row[None], temperature, top_k)
+    gen = request_sample_key(seed, count, logits_row.device)
+    return categorical(filtered, gen)[0]
 
 
 def _sample(logits_row, temperature: float, top_k, seed: int, count: int):
     """One sampled token from logits (V,) under the request's key."""
-    filtered = prep_sampling_logits(logits_row[None], temperature, top_k)
-    gen = request_sample_key(seed, count, logits_row.device)
-    return int(categorical(filtered, gen)[0])
+    return int(_draw(logits_row, temperature, top_k, seed, count))
+
+
+def choose_tokens(logits, temps, seeds, counts, top_k):
+    """The decode step's next-token selection over (N, V) logits: the raw
+    argmax for lanes with ``temps[i] <= 0``, else a draw at that
+    temperature under ``top_k`` keyed by ``request_sample_key(seeds[i],
+    counts[i])``. temps, seeds and counts are host sequences. Returns (N,)
+    int64 on the logits' device. The speculative draft and verify steps
+    select with this same function, so their per-position choices are the
+    ones plain decode would make on the same logits."""
+    nxt = torch.argmax(logits, dim=-1)
+    for i in np.flatnonzero(np.asarray(temps) > 0.0):
+        nxt[i] = _draw(logits[i], float(temps[i]), top_k, int(seeds[i]),
+                       int(counts[i]))
+    return nxt
 
 
 # ------------------------------------------------------------------ #
@@ -166,11 +184,7 @@ def make_decode_step(cfg: GPTConfig, scfg: ServingConfig):
         x = layer_norm(x, params["final_ln"]["scale"],
                        params["final_ln"]["bias"], cfg.layernorm_eps)
         logits = (x @ head_weight(cfg, params))[:, 0]           # (N, V)
-        nxt = torch.argmax(logits, dim=-1).cpu()
-        for i in np.flatnonzero(np.asarray(temps) > 0.0):
-            nxt[i] = _sample(logits[i], float(temps[i]), top_k,
-                             int(seeds[i]), int(counts[i]))
-        return nxt
+        return choose_tokens(logits, temps, seeds, counts, top_k).cpu()
 
     return decode_step
 
@@ -192,17 +206,13 @@ class ServingEngine:
     def __init__(self, cfg: GPTConfig, params,
                  serving_config: Union[ServingConfig, dict, None] = None,
                  clock=time.monotonic, device=None, mesh=None,
-                 monitor=None, monitor_config=None):
+                 monitor=None, monitor_config=None, drafter_params=None):
         scfg = (serving_config if isinstance(serving_config, ServingConfig)
                 else ServingConfig.from_dict(serving_config))
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (dp x tp serving) is not ported to the PyTorch "
                 "package yet")
-        if scfg.speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported to the PyTorch package "
-                "yet; drop the \"speculative\" block")
         if not cfg.rotary and scfg.max_seq_len > cfg.max_seq:
             raise ValueError(
                 f"serving max_seq_len ({scfg.max_seq_len}) exceeds the "
@@ -251,6 +261,53 @@ class ServingEngine:
         # slot -> in-flight chunked-prefill state (staging cache, cursor)
         self._chunking: Dict[int, dict] = {}
         self._prefill_spent = 0   # prompt tokens prefilled this step
+        # speculative decoding: a SpecRuntime owns the drafter (params,
+        # paged pool, draft and verify steps) and takes over the decode
+        # phase; the decode step above stays as the fallback for slots
+        # that cannot speculate a given round
+        self._spec = None
+        if scfg.speculative is not None:
+            from .spec.runtime import SpecRuntime
+
+            self._spec = SpecRuntime(self, scfg.speculative, drafter_params)
+
+    # -- signature counters (the reference's compile counters) --------- #
+
+    @property
+    def decode_compile_count(self) -> int:
+        return self._decode_sigs._cache_size()
+
+    @property
+    def prefill_compile_count(self) -> int:
+        return self._prefill_sigs._cache_size()
+
+    @property
+    def chunk_prefill_compile_count(self) -> int:
+        return self._suffix_sigs._cache_size()
+
+    @property
+    def draft_compile_count(self) -> int:
+        return self._spec.draft_compile_count if self._spec else -1
+
+    @property
+    def verify_compile_count(self) -> int:
+        return self._spec.verify_compile_count if self._spec else -1
+
+    def _decode_window(self) -> int:
+        """Tokens of KV headroom each active slot needs for the next
+        decode phase: 1 for plain decode, draft_k + 1 with speculation on
+        (a round's window of writes always has rows)."""
+        return self._spec.K + 1 if self._spec is not None else 1
+
+    def set_drafter_params(self, drafter_params) -> None:
+        """Swap the drafter's weights in place (same drafter config, so
+        the draft step keeps its one signature); every slot's drafter
+        cache resyncs lazily. Raises when speculative decoding is off."""
+        if self._spec is None:
+            raise RuntimeError(
+                "set_drafter_params: speculative decoding is not enabled "
+                "on this engine")
+        self._spec.set_drafter_params(drafter_params)
 
     # -- queue surface ------------------------------------------------ #
 
@@ -316,7 +373,8 @@ class ServingEngine:
             for req in self.sched.expire_timeouts(now):
                 self.metrics.record_finish(req, now)
             self._prefill_phase()
-            for _ in self.sched.ensure_decode_capacity(1):
+            for _ in self.sched.ensure_decode_capacity(
+                    self._decode_window()):
                 self.metrics.record_preemption()
             trace_counter("serving/load", {
                 "queued": len(self.sched.queue),
@@ -380,8 +438,10 @@ class ServingEngine:
 
     def _capture(self, name, sigs, *args):
         """The monitor's hook around one call of entry ``name``
-        (``Monitor.capture``); a no-op context without a monitor."""
+        (``Monitor.capture``); without a monitor it only records the
+        call's signature in ``sigs``."""
         if self.telemetry is None:
+            sigs.record(*args)
             return nullcontext()
         return self.telemetry.capture(name, sigs, self.device, *args)
 
@@ -582,8 +642,40 @@ class ServingEngine:
         return [(s, req) for s, req in enumerate(self.sched.slots)
                 if req is not None and s not in self._chunking]
 
+    def _dispatch_plain(self, active):
+        """Run the decode step with ``active`` lanes populated (the rest
+        idle); returns the next tokens (N,) on the host. Both the whole
+        decode phase (speculation off) and the fallback for slots that do
+        not speculate a round (speculation on)."""
+        N = self.scfg.num_slots
+        tables = np.zeros((N, self.scfg.blocks_per_slot), np.int64)
+        lengths = np.zeros(N, np.int64)
+        tokens = np.zeros(N, np.int64)
+        temps = np.zeros(N, np.float32)
+        seeds = np.zeros(N, np.int64)
+        counts = np.zeros(N, np.int64)
+        for s, req in active:
+            tables[s] = self.sched.slot_table_row(s)
+            lengths[s] = req.cached_len
+            tokens[s] = req.pending_token
+            temps[s] = req.temperature
+            seeds[s] = req.seed
+            counts[s] = len(req.generated)
+        dev = self.device
+        dargs = (self.params, self.kv.k, self.kv.v,
+                 torch.as_tensor(tables, device=dev),
+                 torch.as_tensor(lengths, device=dev),
+                 torch.as_tensor(tokens, device=dev), temps, seeds, counts)
+        with self._capture("serving/decode_step", self._decode_sigs,
+                           *dargs):
+            return self._decode_step(*dargs)
+
     def _decode_all(self) -> None:
-        """One decode step over the full slot array."""
+        """One decode phase over the full slot array: the speculative
+        round when enabled, else one plain decode step."""
+        if self._spec is not None:
+            self._spec.decode_round()
+            return
         active = self._active_decodable()
         tel = self.telemetry
         with trace_span("serving/decode", lane="serving",
@@ -592,29 +684,7 @@ class ServingEngine:
             _t0 = time.perf_counter()
             timer = self.metrics.timers(DECODE_TIMER)
             timer.safe_start()
-            N = self.scfg.num_slots
-            tables = np.zeros((N, self.scfg.blocks_per_slot), np.int64)
-            lengths = np.zeros(N, np.int64)
-            tokens = np.zeros(N, np.int64)
-            temps = np.zeros(N, np.float32)
-            seeds = np.zeros(N, np.int64)
-            counts = np.zeros(N, np.int64)
-            for s, req in active:
-                tables[s] = self.sched.slot_table_row(s)
-                lengths[s] = req.cached_len
-                tokens[s] = req.pending_token
-                temps[s] = req.temperature
-                seeds[s] = req.seed
-                counts[s] = len(req.generated)
-            dev = self.device
-            dargs = (self.params, self.kv.k, self.kv.v,
-                     torch.as_tensor(tables, device=dev),
-                     torch.as_tensor(lengths, device=dev),
-                     torch.as_tensor(tokens, device=dev), temps, seeds,
-                     counts)
-            with self._capture("serving/decode_step", self._decode_sigs,
-                               *dargs):
-                nxt = self._decode_step(*dargs)
+            nxt = self._dispatch_plain(active)
             timer.stop()   # nxt is on the host: the step has finished
             ci = tel.cost_index if tel is not None else None
             if ci is not None:

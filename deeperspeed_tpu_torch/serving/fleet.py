@@ -1,0 +1,595 @@
+"""Replica workers for the serving fleet: the layer the router drives.
+
+Counterpart of deeperspeed_tpu/serving/fleet.py: the same surface and
+worker protocol. A subprocess replica runs
+``python -m deeperspeed_tpu_torch.serving.replica_worker``; its engine
+runs on the spec's ``"device"`` (CUDA unless the spec says ``"cpu"``) and
+loads the kernels the parent built under ``build/kernels/``. A child that
+exits before it is ready fails ``start()`` with the tail of its stderr.
+
+Two interchangeable replica kinds share one duck-typed surface:
+
+  * ``ThreadReplica`` — a ``ServingEngine`` stepped by a daemon thread in
+    this process. Cheap enough that CPU tests run 2-4 of them; failure
+    modes (``kill()``, ``inject_stall()``) are simulated, so watchdog
+    logic is testable without subprocesses.
+  * ``SubprocessReplica`` — spawns ``serving.replica_worker`` and talks
+    the line-JSON protocol over its stdio. The real thing for kill
+    drills: ``kill()`` is an actual SIGKILL, and fault injection
+    (``resilience.faults``) fires inside the child.
+
+The shared surface the router (serving/router.py) relies on:
+
+  ``start() / stop() / kill() / restart() / drain(timeout_s)``
+  ``submit(spec) / cancel(rid, reason) / poll_events()``
+  ``alive`` (bool), ``heartbeat_t`` (router-clock stamp of the last sign
+  of life), ``progress`` (monotone decode-token counter), ``restarts``,
+  ``inflight_rids()``; a subprocess replica also mirrors its child's
+  kernel launch counts (``launches``, from the heartbeats).
+
+Events from ``poll_events()`` use the worker protocol's shapes:
+``{"ev": "first", "rid"}``, ``{"ev": "fin", "rid", "tokens", "reason"}``,
+``{"ev": "err", "rid", "error"}``.
+
+Submit specs are plain dicts — ``{"rid", "prompt", "max_new_tokens",
+"temperature", "seed"}`` — because they must survive a pipe; the router
+keeps the authoritative copy so a replica death never loses the request.
+"""
+
+import json
+import os
+import queue
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+from ..monitor.runctx import child_env, estimate_clock_offset
+
+__all__ = [
+    "ReplicaUnavailableError", "ThreadReplica", "SubprocessReplica",
+    "build_thread_fleet", "build_subprocess_fleet",
+]
+
+
+class ReplicaUnavailableError(RuntimeError):
+    """submit()/cancel() hit a replica that is dead, draining, or whose
+    pipe is gone. The router treats this as a dispatch failure and
+    retries elsewhere; it never reaches end users."""
+
+
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _submit_kwargs(spec: dict) -> dict:
+    return dict(
+        max_new_tokens=spec.get("max_new_tokens"),
+        temperature=spec.get("temperature", 0.0),
+        request_id=spec["rid"],
+        seed=spec.get("seed"),
+    )
+
+
+class ThreadReplica:
+    """In-process replica: one engine, one driver thread.
+
+    The engine is single-threaded by design, so ALL engine calls happen
+    on the driver thread; ``submit``/``cancel`` enqueue commands. Failure
+    simulation mirrors the subprocess worker: ``kill()`` makes the driver
+    thread exit abruptly (heartbeats stop, like a SIGKILL), and
+    ``inject_stall()`` keeps it heartbeating while never stepping the
+    engine (progress freezes, like a wedged accelerator).
+    """
+
+    def __init__(self, name: str, engine_factory: Callable[[], object],
+                 clock: Callable[[], float] = time.monotonic,
+                 poll_interval_s: float = 0.001):
+        self.name = name
+        self._factory = engine_factory
+        self._clock = clock
+        self._poll_s = poll_interval_s
+        self.restarts = 0
+        self.heartbeat_t = float("-inf")
+        self.progress = 0
+        # weight-version the engine factory builds; the router pins
+        # failover retries to this so retried requests never mix
+        # token streams from two published versions
+        self.version: Optional[int] = None
+        # live prefix-cache counters mirrored out of the engine each
+        # driver tick (read-only snapshot; the bench sums these across
+        # the fleet for its prefix_reuse block)
+        self.reuse_stats: Dict[str, int] = {}
+        # speculative-decoding counters, same mirror discipline: empty
+        # when the engine runs plain decode, else rounds/drafted/
+        # accepted/fallback_lanes — the bench and mixed-fleet routing
+        # checks read acceptance without touching the engine thread
+        self.spec_stats: Dict[str, float] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._events: "queue.Queue[dict]" = queue.Queue()
+        self._cmds: "queue.Queue[dict]" = queue.Queue()
+        self._stop_evt = threading.Event()
+        self._stall_evt = threading.Event()
+        self._die_evt = threading.Event()
+        self._ready_evt = threading.Event()
+        self._draining = False
+        self._lock = threading.Lock()
+        self._inflight: List[str] = []
+
+    # -- lifecycle ---------------------------------------------------
+
+    def start(self) -> None:
+        if self.alive:
+            raise RuntimeError(f"replica {self.name} already running")
+        self._stop_evt = threading.Event()
+        self._stall_evt = threading.Event()
+        self._die_evt = threading.Event()
+        self._ready_evt = threading.Event()
+        self._cmds = queue.Queue()
+        self._draining = False
+        with self._lock:
+            self._inflight = []
+        self.heartbeat_t = self._clock()
+        self._thread = threading.Thread(
+            target=self._loop, name=f"replica-{self.name}", daemon=True)
+        self._thread.start()
+
+    @property
+    def alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def wait_ready(self, timeout_s: float = 300.0) -> None:
+        """Block until the driver thread has built (and, if the factory
+        warms it, run) its engine: health timeouts should not have to
+        budget for engine start-up."""
+        if not self._ready_evt.wait(timeout_s):
+            raise RuntimeError(
+                f"replica {self.name} engine not ready within "
+                f"{timeout_s}s")
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        self._stop_evt.set()
+        if self._thread is not None:
+            self._thread.join(timeout_s)
+
+    def kill(self) -> None:
+        """Simulated SIGKILL: the driver thread exits without cleanup,
+        so heartbeats stop and queued commands are dropped on the floor
+        — exactly what the router's heartbeat watchdog must notice."""
+        self._die_evt.set()
+
+    def inject_stall(self) -> None:
+        """Simulated wedge: heartbeats continue, tokens do not."""
+        self._stall_evt.set()
+
+    def restart(self) -> None:
+        self.kill()
+        self.stop(timeout_s=2.0)
+        self._thread = None
+        self.restarts += 1
+        self.progress = 0
+        self.start()
+        self.wait_ready()
+
+    def set_weights(self, weights, version: int) -> None:
+        """Stage a weight push; takes effect at the next ``restart()``
+        (the driver thread rebuilds its engine from the factory). For
+        thread replicas ``weights`` is a replacement zero-arg engine
+        factory — in-process fleets share memory, so there is nothing
+        to serialize — or None to bump the version label only.
+
+        A (target, drafter) PAIR push is a dict ``{"factory": ...,
+        "drafter_params": ...}``: the target factory (optional) stages
+        for the next restart as before, while the drafter weights are
+        hot-swapped on the driver thread via
+        ``engine.set_drafter_params`` — same drafter config, so the
+        draft step keeps its signature."""
+        if isinstance(weights, dict) and (
+                "factory" in weights or "drafter_params" in weights):
+            if weights.get("factory") is not None:
+                self._factory = weights["factory"]
+            if weights.get("drafter_params") is not None and self.alive:
+                self._cmds.put({"op": "drafter",
+                                "params": weights["drafter_params"]})
+        elif weights is not None:
+            self._factory = weights
+        self.version = int(version)
+
+    def drain(self, timeout_s: float = 30.0) -> List[str]:
+        """Reject new submits, wait for in-flight work to finish.
+        Returns the rids still unfinished at timeout (router requeues
+        them)."""
+        self._draining = True
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if not self.alive or not self.inflight_rids():
+                break
+            time.sleep(self._poll_s)
+        return self.inflight_rids()
+
+    # -- work --------------------------------------------------------
+
+    def submit(self, spec: dict) -> None:
+        if not self.alive:
+            raise ReplicaUnavailableError(f"replica {self.name} is down")
+        if self._draining:
+            raise ReplicaUnavailableError(f"replica {self.name} draining")
+        self._cmds.put({"op": "submit", "spec": dict(spec)})
+
+    def cancel(self, rid: str, reason: str = "timeout") -> None:
+        if self.alive:
+            self._cmds.put({"op": "cancel", "rid": rid, "reason": reason})
+
+    def poll_events(self) -> List[dict]:
+        out = []
+        while True:
+            try:
+                out.append(self._events.get_nowait())
+            except queue.Empty:
+                return out
+
+    def inflight_rids(self) -> List[str]:
+        with self._lock:
+            return list(self._inflight)
+
+    # -- driver thread ----------------------------------------------
+
+    def _loop(self) -> None:
+        eng = self._factory()
+        self._ready_evt.set()
+        tracked: List[str] = []
+        first_sent: set = set()
+        reported: set = set()
+        while not self._stop_evt.is_set():
+            if self._die_evt.is_set():
+                return   # abrupt death: no final heartbeat, no cleanup
+            self.heartbeat_t = self._clock()
+            while True:
+                try:
+                    cmd = self._cmds.get_nowait()
+                except queue.Empty:
+                    break
+                if cmd["op"] == "submit":
+                    spec = cmd["spec"]
+                    try:
+                        eng.submit(spec["prompt"], **_submit_kwargs(spec))
+                        tracked.append(spec["rid"])
+                    except Exception as e:  # noqa: BLE001 - to router
+                        self._events.put(
+                            {"ev": "err", "rid": spec.get("rid"),
+                             "error": f"{type(e).__name__}: {e}"})
+                elif cmd["op"] == "cancel":
+                    eng.cancel(cmd["rid"], cmd["reason"])
+                elif cmd["op"] == "drafter":
+                    try:
+                        eng.set_drafter_params(cmd["params"])
+                    except Exception as e:  # noqa: BLE001 - to router
+                        self._events.put(
+                            {"ev": "err", "rid": None,
+                             "error": f"{type(e).__name__}: {e}"})
+            if eng.has_work() and not self._stall_evt.is_set():
+                eng.step()
+            else:
+                time.sleep(self._poll_s)
+            self.progress = int(eng.metrics.total_generated)
+            m = eng.metrics
+            if hasattr(m, "reuse_hits"):
+                self.reuse_stats = {
+                    "admissions": int(m.admissions),
+                    "reuse_hits": int(m.reuse_hits),
+                    "prefill_tokens": int(m.prefill_tokens),
+                    "tokens_saved": int(m.tokens_saved),
+                    "cow_splits": int(m.cow_splits),
+                    "prefill_chunks": int(m.prefill_chunks),
+                }
+            if getattr(m, "spec_rounds", 0):
+                self.spec_stats = {
+                    "rounds": int(m.spec_rounds),
+                    "drafted": int(m.spec_drafted),
+                    "accepted": int(m.spec_accepted),
+                    "emitted": int(m.spec_emitted),
+                    "fallback_lanes": int(m.spec_fallback_lanes),
+                    "accept_rate": (m.spec_accepted / m.spec_drafted
+                                    if m.spec_drafted else 0.0),
+                }
+            for rid in tracked:
+                req = eng.get(rid)
+                if rid not in first_sent and req.first_token_t is not None:
+                    first_sent.add(rid)
+                    self._events.put({"ev": "first", "rid": rid})
+                if rid not in reported and req.state == "finished":
+                    reported.add(rid)
+                    self._events.put(
+                        {"ev": "fin", "rid": rid, "tokens": req.output,
+                         "reason": req.finish_reason})
+            with self._lock:
+                self._inflight = [r for r in tracked if r not in reported]
+
+
+class SubprocessReplica:
+    """Out-of-process replica: spawns ``serving.replica_worker`` and
+    mirrors its stdout protocol into ``poll_events()``. ``kill()`` is a
+    real SIGKILL; fault injection runs in the child via the spec's
+    ``faults`` block (or the child's ``DS_TPU_FAULTS`` env)."""
+
+    def __init__(self, name: str, spec: dict,
+                 clock: Callable[[], float] = time.monotonic,
+                 env: Optional[Dict[str, str]] = None,
+                 ready_timeout_s: float = 300.0,
+                 workdir: Optional[str] = None):
+        self.name = name
+        self._spec = dict(spec)
+        self._clock = clock
+        self._env = dict(env or {})
+        self._ready_timeout_s = ready_timeout_s
+        self._workdir = workdir or tempfile.mkdtemp(
+            prefix=f"replica-{name}-")
+        self.restarts = 0
+        self.heartbeat_t = float("-inf")
+        self.progress = 0
+        # published WeightVersion this worker serves (spec-driven so a
+        # restart rebuilds the same engine); router pins retries to it
+        wv = self._spec.get("weights_version")
+        self.version: Optional[int] = int(wv) if wv is not None else None
+        # wall-clock skew measured by the post-ready handshake: how far
+        # the child's clock runs ahead of ours (seconds); feeds the
+        # trace aggregator's --offsets alignment
+        self.clock_offset_s: Optional[float] = None
+        self._proc: Optional[subprocess.Popen] = None
+        self._reader: Optional[threading.Thread] = None
+        self._events: "queue.Queue[dict]" = queue.Queue()
+        self._ready_evt = threading.Event()
+        self._stdin_lock = threading.Lock()
+        self._hb_lock = threading.Lock()
+        self._inflight: List[str] = []
+        self._draining = False
+        # the child's kernel launch counts since its warmup (name -> n),
+        # mirrored from its heartbeats
+        self.launches: Dict[str, int] = {}
+        # seconds from spawn to the child's ready event, last start()
+        self.spawn_to_ready_s: Optional[float] = None
+        # the child's ready event (run context, nvcc seconds)
+        self.ready_info: Dict[str, object] = {}
+
+    @property
+    def stderr_path(self) -> str:
+        return os.path.join(self._workdir, f"{self.name}.stderr.log")
+
+    def stderr_tail(self, max_bytes: int = 4000) -> str:
+        """The end of the child's stderr log (its traceback, when it
+        died)."""
+        try:
+            with open(self.stderr_path, "rb") as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - max_bytes))
+                return f.read().decode(errors="replace")
+        except OSError:
+            return ""
+
+    # -- lifecycle ---------------------------------------------------
+
+    def start(self) -> None:
+        if self.alive:
+            raise RuntimeError(f"replica {self.name} already running")
+        spec_path = os.path.join(self._workdir, f"{self.name}.spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(self._spec, f)
+        # run-scoped observability: the child's trace lane is labeled by
+        # role + incarnation, correlated to ours by the shared run id
+        env = child_env(f"replica-{self.name}", self.restarts)
+        # the child imports this checkout's package wherever it runs from
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_PKG_ROOT, env.get("PYTHONPATH")) if p)
+        env.update(self._env)
+        self._ready_evt = threading.Event()
+        self._draining = False
+        with self._hb_lock:
+            self._inflight = []
+        stderr = open(self.stderr_path, "ab")
+        t_spawn = time.monotonic()
+        try:
+            self._proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "deeperspeed_tpu_torch.serving.replica_worker",
+                 "--spec", spec_path],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=stderr, env=env, text=True)
+        finally:
+            stderr.close()
+        self._reader = threading.Thread(
+            target=self._read_stdout, args=(self._proc,),
+            name=f"replica-{self.name}-reader", daemon=True)
+        self._reader.start()
+        deadline = time.monotonic() + self._ready_timeout_s
+        while not self._ready_evt.is_set():
+            if self._proc.poll() is not None:
+                raise RuntimeError(
+                    f"replica {self.name} exited rc={self._proc.returncode} "
+                    f"before ready ({self.stderr_path}):\n"
+                    f"{self.stderr_tail()}")
+            if time.monotonic() > deadline:
+                self._proc.kill()
+                self._proc.wait(10.0)
+                raise RuntimeError(
+                    f"replica {self.name} not ready within "
+                    f"{self._ready_timeout_s}s ({self.stderr_path}):\n"
+                    f"{self.stderr_tail()}")
+            time.sleep(0.01)
+        self.spawn_to_ready_s = time.monotonic() - t_spawn
+        self.heartbeat_t = self._clock()
+        # NTP-style clock handshake: t0 here, t_child there, t1 here;
+        # the reply is matched in _read_stdout. Best-effort — a replica
+        # that dies mid-handshake just stays unaligned.
+        try:
+            self._send({"op": "clock", "t0": time.time()})
+        except ReplicaUnavailableError:
+            pass
+
+    @property
+    def alive(self) -> bool:
+        return self._proc is not None and self._proc.poll() is None
+
+    def stop(self, timeout_s: float = 10.0) -> None:
+        if self._proc is None:
+            return
+        if self.alive:
+            try:
+                self._send({"op": "stop"})
+            except ReplicaUnavailableError:
+                pass
+            try:
+                self._proc.wait(timeout_s)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait(5.0)
+
+    def kill(self) -> None:
+        """Real SIGKILL — no flushes, no goodbyes."""
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.kill()
+
+    def restart(self) -> None:
+        self.kill()
+        if self._proc is not None:
+            self._proc.wait(10.0)
+        self._proc = None
+        self.restarts += 1
+        self.progress = 0
+        self.start()
+
+    def set_weights(self, weights: Optional[dict], version: int) -> None:
+        """Stage a weight push; takes effect at the next ``restart()``
+        (``start()`` rewrites spec.json from ``self._spec``). ``weights``
+        is the worker's checkpoint pointer — ``{"load_dir", "tag"}``,
+        plus a ``drafter_tag`` entry when the published version pairs a
+        drafter with the target — or None to bump the version label
+        only."""
+        if weights is not None:
+            self._spec["weights"] = dict(weights)
+        self._spec["weights_version"] = int(version)
+        self.version = int(version)
+
+    def drain(self, timeout_s: float = 30.0) -> List[str]:
+        self._draining = True
+        try:
+            self._send({"op": "drain"})
+        except ReplicaUnavailableError:
+            return self.inflight_rids()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if not self.alive or not self.inflight_rids():
+                break
+            time.sleep(0.01)
+        return self.inflight_rids()
+
+    # -- work --------------------------------------------------------
+
+    def submit(self, spec: dict) -> None:
+        if self._draining:
+            raise ReplicaUnavailableError(f"replica {self.name} draining")
+        self._send({"op": "submit", **spec})
+
+    def cancel(self, rid: str, reason: str = "timeout") -> None:
+        try:
+            self._send({"op": "cancel", "rid": rid, "reason": reason})
+        except ReplicaUnavailableError:
+            pass   # a dead replica has no work to cancel
+
+    def poll_events(self) -> List[dict]:
+        out = []
+        while True:
+            try:
+                out.append(self._events.get_nowait())
+            except queue.Empty:
+                return out
+
+    def inflight_rids(self) -> List[str]:
+        with self._hb_lock:
+            return list(self._inflight)
+
+    # -- plumbing ----------------------------------------------------
+
+    def _send(self, op: dict) -> None:
+        if not self.alive:
+            raise ReplicaUnavailableError(f"replica {self.name} is down")
+        try:
+            with self._stdin_lock:
+                self._proc.stdin.write(json.dumps(op) + "\n")
+                self._proc.stdin.flush()
+        except (BrokenPipeError, OSError) as e:
+            raise ReplicaUnavailableError(
+                f"replica {self.name} pipe broken: {e}") from e
+
+    def _read_stdout(self, proc: subprocess.Popen) -> None:
+        for line in proc.stdout:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError:
+                continue   # not protocol (stray library print) — skip
+            kind = ev.get("ev")
+            if kind == "hb":
+                self.heartbeat_t = self._clock()
+                self.progress = int(ev.get("progress", self.progress))
+                self.launches = dict(ev.get("launches") or {})
+                with self._hb_lock:
+                    self._inflight = list(ev.get("inflight", []))
+            elif kind == "ready":
+                self.heartbeat_t = self._clock()
+                self.ready_info = ev
+                self._ready_evt.set()
+            elif kind == "clock":
+                t0 = ev.get("t0")
+                t_child = ev.get("t_child")
+                if isinstance(t0, (int, float)) and isinstance(
+                        t_child, (int, float)):
+                    self.clock_offset_s = estimate_clock_offset(
+                        t0, t_child, time.time())
+            elif kind == "bye":
+                pass
+            else:
+                self._events.put(ev)
+
+
+def build_thread_fleet(num_replicas: int,
+                       engine_factory: Callable[[], object],
+                       clock: Callable[[], float] = time.monotonic,
+                       poll_interval_s: float = 0.001,
+                       ) -> List[ThreadReplica]:
+    """N started in-process replicas over one engine factory. The
+    factory must build engines with IDENTICAL weights and config, or
+    failover retries will not be token-identical."""
+    fleet = [ThreadReplica(f"r{i}", engine_factory, clock=clock,
+                           poll_interval_s=poll_interval_s)
+             for i in range(num_replicas)]
+    for rep in fleet:
+        rep.start()
+    for rep in fleet:   # engines start concurrently; wait for all
+        rep.wait_ready()
+    return fleet
+
+
+def build_subprocess_fleet(num_replicas: int, spec: dict,
+                           faults: Optional[Dict[int, dict]] = None,
+                           env: Optional[Dict[str, str]] = None,
+                           clock: Callable[[], float] = time.monotonic,
+                           workdir: Optional[str] = None,
+                           ) -> List[SubprocessReplica]:
+    """N started subprocess replicas from one shared spec. ``faults``
+    maps replica index -> fault-plan dict injected into that replica
+    only (how a drill SIGKILLs replica 1 while replica 0 stays clean).
+    Replicas start sequentially, so their cold starts do not contend."""
+    fleet = []
+    for i in range(num_replicas):
+        rspec = dict(spec)
+        if faults and i in faults:
+            rspec["faults"] = dict(faults[i])
+        rep = SubprocessReplica(f"r{i}", rspec, clock=clock, env=env,
+                                workdir=workdir)
+        rep.start()
+        fleet.append(rep)
+    return fleet

@@ -317,14 +317,17 @@ class PagedKVCache:
 
     ``k``/``v`` are allocated once on ``device`` and written in place by
     the prefill writes and the decode step; this object owns them and the
-    block accounting.
+    block accounting. ``num_blocks`` overrides the config's pool size: the
+    speculative drafter's pool keeps the target's geometry (block_size,
+    table width) with its own block count and allocator.
     """
 
-    def __init__(self, cfg: GPTConfig, scfg: ServingConfig, device):
+    def __init__(self, cfg: GPTConfig, scfg: ServingConfig, device,
+                 num_blocks: Optional[int] = None):
         self.cfg = cfg
         self.scfg = scfg
         self.device = torch.device(device)
-        nb = scfg.num_blocks
+        nb = scfg.num_blocks if num_blocks is None else int(num_blocks)
         shape = (cfg.n_layer, nb, scfg.block_size,
                  cfg.kv_heads, cfg.head_dim)
         self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
@@ -377,6 +380,37 @@ class PagedKVCache:
         n = idx.shape[0]
         return (self.k[:, idx].reshape(L, 1, n * bs, Hkv, Dh),
                 self.v[:, idx].reshape(L, 1, n * bs, Hkv, Dh))
+
+
+def paged_attend_multi(k_pool_l, v_pool_l, q, k_new, v_new, tables,
+                       lengths, write_blocks, write_offs):
+    """One layer of T-token paged-cache attention for all slots: the
+    ``paged_attend`` math generalized from a single new token to a window
+    of T tokens per slot (the speculative verify step's attention core;
+    T = draft_k + 1).
+
+    q: (N, T, H, Dh); k_new/v_new: (N, T, Hkv, Dh), the window's
+    projections per slot. write_blocks/write_offs: (N, T) physical block
+    + in-block offset for each new row, written in place (idle lanes
+    target the null block; the last writer wins there). Token t of slot i
+    sits at logical position ``lengths[i] + t`` and attends causally: keys
+    at positions ``<= lengths[i] + t``. Returns ctx (N, T, H, Dh). Rows
+    written for tokens the verify step later rejects are stale but
+    invisible: the next round's length-derived mask hides them until they
+    are overwritten.
+    """
+    N, T = q.shape[0], q.shape[1]
+    cdt = k_pool_l.dtype
+    k_pool_l[write_blocks, write_offs] = k_new.to(cdt)
+    v_pool_l[write_blocks, write_offs] = v_new.to(cdt)
+    bs, Hkv, Dh = k_pool_l.shape[1], k_pool_l.shape[2], k_pool_l.shape[3]
+    view = tables.shape[1] * bs
+    k_c = k_pool_l[tables].reshape(N, view, Hkv, Dh)
+    v_c = v_pool_l[tables].reshape(N, view, Hkv, Dh)
+    key_pos = torch.arange(view, device=q.device)
+    q_pos = lengths[:, None] + torch.arange(T, device=q.device)[None, :]
+    valid = key_pos[None, None, :] <= q_pos[:, :, None]   # (N, T, view)
+    return grouped_attention(q, k_c, v_c, valid)
 
 
 def paged_attend(k_pool_l, v_pool_l, q, k_new, v_new, tables, lengths,

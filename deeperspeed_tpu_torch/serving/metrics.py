@@ -2,13 +2,15 @@
 tokens/s, and the SLO tracker.
 
 Counterpart of deeperspeed_tpu/serving/metrics.py (``SLOTracker``,
-``record_finish_outcome``, ``ServingMetrics``) with the reference's metric
-names. Collection is host-side and allocation-light (floats appended to
-lists); with a registry (the monitor's) every record_* hook also feeds the
+``record_finish_outcome``, ``ServingMetrics``, ``FleetMetrics``) with the
+reference's metric names. Collection is host-side and allocation-light
+(floats appended to lists); with a registry (the monitor's) every record_* hook also feeds the
 Prometheus counters, gauges and histograms, and ``export`` writes the
-running summary through a ``TensorBoardMonitor``. Not ported yet: the
-speculative-decoding accounting (with speculative decoding) and
-``FleetMetrics`` (with the fleet).
+running summary through a ``TensorBoardMonitor``. ``ServingMetrics`` also
+keeps the speculative-decoding accounting (rounds, drafted, accepted,
+fallback lanes, the draft/verify wall split); ``FleetMetrics`` is the
+router's (accepted, shed, retried, replica health, router-observed TTFT
+and end-to-end latency).
 """
 
 import time
@@ -160,6 +162,17 @@ class ServingMetrics:
         self.cow_splits = 0
         self.prefill_chunks = 0
         self.chunk_tokens = 0
+        # speculative decoding: per-round draft/accept accounting plus
+        # the draft-vs-verify wall split (spec/runtime.decode_round)
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_fallback_lanes = 0
+        self.spec_draft_s = 0.0
+        self.spec_verify_s = 0.0
+        self.spec_drafter_prefills = 0
+        self.spec_drafter_prefill_tokens = 0
         self.finished: Dict[str, int] = {}
         self._start_t: Optional[float] = None
         self._end_t: Optional[float] = None
@@ -270,6 +283,48 @@ class ServingMetrics:
         if self.registry is not None:
             self._c_preempt.inc()
 
+    def record_spec_round(self, n_spec: int, n_fallback: int,
+                          drafted: int, accepted: int, emitted: int,
+                          draft_s: float, verify_s: float) -> None:
+        """One speculative decode round. ``record_decode_step`` already
+        counted one token per active lane, so only the EXTRA tokens the
+        round emitted beyond that (accepted drafts past the first token
+        per speculating slot) are added here."""
+        self.spec_rounds += 1
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+        self.spec_fallback_lanes += n_fallback
+        self.spec_draft_s += draft_s
+        self.spec_verify_s += verify_s
+        extra = emitted - n_spec
+        self.total_generated += extra
+        if self.registry is not None:
+            if extra > 0:
+                self._c_tokens.inc(extra)
+            self.registry.counter(
+                "serving_spec_rounds_total",
+                "Speculative draft+verify decode rounds.").inc()
+            if drafted:
+                self.registry.counter(
+                    "serving_spec_drafted_total",
+                    "Draft tokens proposed to the verify step.",
+                ).inc(drafted)
+            if accepted:
+                self.registry.counter(
+                    "serving_spec_accepted_total",
+                    "Draft tokens accepted (emitted) by verification.",
+                ).inc(accepted)
+
+    def record_drafter_prefill(self, tokens: int) -> None:
+        """One drafter-pool suffix prefill (spec slot sync)."""
+        self.spec_drafter_prefills += 1
+        self.spec_drafter_prefill_tokens += tokens
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_spec_drafter_prefills_total",
+                "Drafter-cache suffix prefills (slot syncs).").inc()
+
     def record_finish(self, req, now: float) -> None:
         self.finished[req.finish_reason] = (
             self.finished.get(req.finish_reason, 0) + 1)
@@ -338,6 +393,22 @@ class ServingMetrics:
                 "prefill_chunks": int(self.prefill_chunks),
                 "chunk_tokens": int(self.chunk_tokens),
             },
+            "speculative": {
+                "rounds": int(self.spec_rounds),
+                "drafted": int(self.spec_drafted),
+                "accepted": int(self.spec_accepted),
+                "accept_rate": (self.spec_accepted / self.spec_drafted
+                                if self.spec_drafted else 0.0),
+                "emitted": int(self.spec_emitted),
+                "tokens_per_round": (self.spec_emitted / self.spec_rounds
+                                     if self.spec_rounds else 0.0),
+                "fallback_lanes": int(self.spec_fallback_lanes),
+                "draft_time_s": float(self.spec_draft_s),
+                "verify_time_s": float(self.spec_verify_s),
+                "drafter_prefills": int(self.spec_drafter_prefills),
+                "drafter_prefill_tokens": int(
+                    self.spec_drafter_prefill_tokens),
+            },
         }
 
     def export(self, step: int) -> None:
@@ -360,3 +431,139 @@ class ServingMetrics:
             },
             step,
         )
+
+
+class FleetMetrics:
+    """Router-side accounting: accepted/shed/retried counts, replica
+    health transitions, and router-observed TTFT/E2E latencies (clocked
+    from router accept to the event arriving back at the router, so a
+    retry's re-prefill time is IN the number — this is the latency a
+    client actually sees under failure).
+
+    Same split as ServingMetrics: host-side lists for ``summary()``,
+    plus registry counters/gauges when a monitor/ registry is present.
+    """
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic,
+                 registry: Optional[MetricsRegistry] = None,
+                 slo=None):
+        self.clock = clock
+        self.registry = registry
+        self.slo_tracker = SLOTracker(slo, registry)
+        self.accepted = 0
+        self.shed = 0
+        self.retries = 0
+        self.replica_downs: List[Dict] = []
+        self.outcomes: Dict[str, int] = {}
+        self.ttft_s: List[float] = []
+        self.e2e_s: List[float] = []
+        if registry is not None:
+            self._c_accepted = registry.counter(
+                "serving_router_accepted_total",
+                "Requests accepted by router admission control.")
+            self._c_shed = registry.counter(
+                "serving_shed_total",
+                "Requests rejected by admission control (overload).")
+            self._c_retry = registry.counter(
+                "serving_retries_total",
+                "Request re-dispatches after replica failures.")
+            self._h_ttft = registry.histogram(
+                "serving_router_ttft_seconds",
+                "Router-observed time to first token (includes retry "
+                "re-prefills).", buckets=DEFAULT_LATENCY_BUCKETS)
+            self._h_e2e = registry.histogram(
+                "serving_router_e2e_seconds",
+                "Router-observed accept-to-terminal latency.",
+                buckets=DEFAULT_LATENCY_BUCKETS)
+
+    # ------------------------------------------------------------ #
+
+    def record_accept(self) -> None:
+        self.accepted += 1
+        if self.registry is not None:
+            self._c_accepted.inc()
+
+    def record_shed(self) -> None:
+        self.shed += 1
+        if self.registry is not None:
+            self._c_shed.inc()
+        record_finish_outcome(self.registry, "shed")
+
+    def record_retry(self) -> None:
+        self.retries += 1
+        if self.registry is not None:
+            self._c_retry.inc()
+        record_finish_outcome(self.registry, "retried")
+
+    def record_replica_down(self, name: str, cause: str,
+                            inflight: int) -> None:
+        self.replica_downs.append(
+            {"replica": name, "cause": cause, "inflight": inflight,
+             "t": self.clock()})
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_replica_down_total",
+                "Replicas marked unhealthy, by cause.",
+                labels={"replica": name, "cause": cause},
+            ).inc()
+
+    def record_ttft(self, ttft: float) -> None:
+        self.ttft_s.append(ttft)
+        self.slo_tracker.observe("ttft", ttft)
+        if self.registry is not None:
+            self._h_ttft.observe(ttft)
+
+    def record_outcome(self, reason: str,
+                       e2e_s: Optional[float] = None) -> None:
+        """Terminal outcome for an ACCEPTED request (finish reasons plus
+        router-level timeout/failed); shed requests were never accepted
+        and are counted by record_shed."""
+        self.outcomes[reason] = self.outcomes.get(reason, 0) + 1
+        if e2e_s is not None:
+            self.e2e_s.append(e2e_s)
+            self.slo_tracker.observe("e2e", e2e_s)
+            if self.registry is not None:
+                self._h_e2e.observe(e2e_s)
+        record_finish_outcome(self.registry, reason)
+
+    def set_replica_gauges(self, name: str, healthy: bool,
+                           inflight: int) -> None:
+        if self.registry is None:
+            return
+        self.registry.gauge(
+            "serving_replica_healthy",
+            "1 while the replica passes both watchdogs, else 0.",
+            labels={"replica": name}).set(1.0 if healthy else 0.0)
+        self.registry.gauge(
+            "serving_replica_inflight",
+            "Requests currently dispatched to the replica.",
+            labels={"replica": name}).set(float(inflight))
+
+    def set_load_gauges(self, queue_depth: int,
+                        inflight_tokens: int) -> None:
+        if self.registry is None:
+            return
+        self.registry.gauge(
+            "serving_fleet_queue_depth",
+            "Accepted-but-unfinished requests at the router.",
+        ).set(float(queue_depth))
+        self.registry.gauge(
+            "serving_fleet_inflight_tokens",
+            "Token budget in flight (sum of prompt + max_new_tokens).",
+        ).set(float(inflight_tokens))
+
+    # ------------------------------------------------------------ #
+
+    def summary(self) -> Dict:
+        offered = self.accepted + self.shed
+        return {
+            "accepted": self.accepted,
+            "shed": self.shed,
+            "shed_rate": self.shed / offered if offered else 0.0,
+            "retries": self.retries,
+            "replica_downs": list(self.replica_downs),
+            "outcomes": dict(self.outcomes),
+            "router_ttft_s": _percentiles(self.ttft_s),
+            "router_e2e_s": _percentiles(self.e2e_s),
+            "slo": self.slo_tracker.summary(),
+        }

@@ -1,0 +1,431 @@
+"""SpecRuntime: the host side of drafter-backed speculative decoding.
+
+Counterpart of deeperspeed_tpu/serving/spec/runtime.py. Owns the drafter
+(config, params, and a small paged KV pool that rides the same
+``BlockAllocator`` refcount/reclaim machinery, and, when prefix caching
+is on, its own ``PrefixCache`` radix index) plus the two steps from
+``spec/steps.py``. The engine hands it the decode phase each step
+(``decode_round``); admission, prefill, scheduling and eviction stay the
+engine's.
+
+Drafter state is synced LAZILY per slot: the runtime tracks {rid, cached
+rows} per slot and, whenever a slot's occupant or length disagrees,
+rebuilds the drafter cache for that slot by prefilling the same context
+the target holds: the longest radix-cached prefix mapped read-only, the
+remainder forwarded through a staged gather -> one suffix forward ->
+scatter (the engine's own prefix-reuse machinery, against the drafter
+pool). One sync path covers fresh admissions, chunked-prefill
+completions, preemption re-admissions, failover re-submissions and
+rounds a slot spent on the fallback step.
+
+A slot speculates only when (a) its table can hold ``draft_k + 1`` more
+rows, (b) it has more than one token left to emit, and (c) the drafter
+sync and block allocation succeed; otherwise it decodes on the engine's
+plain decode step the same round (counted as a fallback lane). Both
+paths always run the full slot array, so mixed eligibility never changes
+a step's argument signature.
+"""
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ...models.generation import apply_with_cache
+from ...models.gpt import GPTConfig
+from ...monitor.tracer import trace_instant, trace_span
+from ...monitor.watchdog import SignatureCache
+from ...utils.logging import logger
+from ..config import ServingConfig, SpeculativeConfig
+from ..engine import _params_to
+from ..kv_cache import NULL_BLOCK, PagedKVCache, PrefixCache, blocks_needed
+from ..metrics import DECODE_TIMER
+from .steps import make_draft_step, make_verify_step
+
+
+def truncated_drafter(cfg: GPTConfig, params, n_layer: int):
+    """Derive a layer-truncated drafter from the target model: share the
+    embedding, final layer norm and head; keep the first ``n_layer``
+    stacked decoder layers. Returns (drafter_cfg, drafter_params) with the
+    params VIEWING the target's tensors (no copy, no extra memory); a
+    checkpointed or distilled drafter replaces this wholesale via
+    ``drafter_params``."""
+    if not (1 <= n_layer <= cfg.n_layer):
+        raise ValueError(
+            f"drafter n_layer must be in [1, {cfg.n_layer}], got {n_layer}")
+    dcfg = dataclasses.replace(cfg, n_layer=int(n_layer))
+
+    def head(tree):
+        return {k: head(v) if isinstance(v, dict) else v[:n_layer]
+                for k, v in tree.items()}
+
+    dparams = dict(params)
+    dparams["layers"] = head(params["layers"])
+    return dcfg, dparams
+
+
+def _is_torch_tree(tree) -> bool:
+    return all(_is_torch_tree(v) if isinstance(v, dict)
+               else isinstance(v, torch.Tensor) for v in tree.values())
+
+
+class SpecRuntime:
+    """Drafter engine + speculative decode round for a ServingEngine."""
+
+    def __init__(self, engine, spec_cfg: SpeculativeConfig,
+                 drafter_params=None):
+        self.eng = engine
+        self.spec_cfg = spec_cfg
+        self.K = spec_cfg.draft_k
+        cfg: GPTConfig = engine.cfg
+        scfg: ServingConfig = engine.scfg
+        if drafter_params is not None:
+            if spec_cfg.drafter is None:
+                raise ValueError(
+                    "speculative.drafter (a GPTConfig dict) is required "
+                    "when passing drafter_params")
+            # the drafter computes in the target's dtype unless its dict
+            # names one
+            self.dcfg = GPTConfig(**{"dtype": cfg.dtype,
+                                     **spec_cfg.drafter})
+            self.dparams = self._placed(drafter_params)
+        elif spec_cfg.drafter_checkpoint is not None:
+            raise ValueError(
+                "speculative.drafter_checkpoint requires the caller to "
+                "load the checkpoint and pass drafter_params")
+        else:
+            # no drafter given: derive a layer-truncated one from the
+            # target (cheap, deterministic, no extra parameter memory)
+            n = max(1, cfg.n_layer // 4)
+            if spec_cfg.drafter:
+                d = dict(spec_cfg.drafter)
+                n = int(d.pop("n_layer", n))
+                for key, val in d.items():
+                    if getattr(cfg, key, None) != val:
+                        raise ValueError(
+                            f"derived (layer-truncated) drafter can only "
+                            f"override n_layer; {key}={val!r} differs "
+                            f"from the target's {getattr(cfg, key, None)!r}"
+                            f" — pass drafter_params for a real drafter")
+            self.dcfg, self.dparams = truncated_drafter(cfg, engine.params,
+                                                        n)
+        if self.dcfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"drafter vocab_size ({self.dcfg.vocab_size}) must match "
+                f"the target's ({cfg.vocab_size}): draft tokens are "
+                f"verified by identity in the target's vocabulary")
+        # drafter pool: the target's geometry (block_size, table width),
+        # its own block count and allocator/radix instances
+        nb = (scfg.num_blocks if spec_cfg.num_blocks is None
+              else spec_cfg.num_blocks)
+        self.kv = PagedKVCache(self.dcfg, scfg, engine.device, num_blocks=nb)
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(self.kv.allocator, scfg.block_size)
+            if scfg.prefix_caching else None)
+        # per-slot drafter mirror: which rid's context the drafter pool
+        # holds for the slot, how many rows of it, in which blocks
+        n_slots = scfg.num_slots
+        self.slot_rid: List[Optional[str]] = [None] * n_slots
+        self.slot_len: List[int] = [0] * n_slots
+        self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
+        self._draft_step = make_draft_step(self.dcfg, scfg, self.K)
+        self._verify_step = make_verify_step(cfg, scfg, self.K)
+        self._draft_sigs = SignatureCache()
+        self._verify_sigs = SignatureCache()
+        if engine.telemetry is not None:
+            # all three decode-path steps are watched: one signature each
+            engine.telemetry.watchdog.watch("serving/draft_step",
+                                            self._draft_sigs)
+            engine.telemetry.watchdog.watch("serving/verify_step",
+                                            self._verify_sigs)
+
+    def _placed(self, tree):
+        """Drafter params on the engine's device: the port's tensors as
+        they are, or the reference's numpy layout through
+        models/convert (the same function that carries target weights)."""
+        if _is_torch_tree(tree):
+            return _params_to(tree, self.eng.device)
+        from ...models.convert import from_jax_params
+
+        return from_jax_params(tree, self.dcfg, self.eng.device)
+
+    # -- signature counters (tests assert one each) -------------------- #
+
+    @property
+    def draft_compile_count(self) -> int:
+        return self._draft_sigs._cache_size()
+
+    @property
+    def verify_compile_count(self) -> int:
+        return self._verify_sigs._cache_size()
+
+    def set_drafter_params(self, drafter_params) -> None:
+        """Swap drafter weights in place (a (target, drafter) version
+        rollout). Cached drafter KV becomes stale for the NEW weights, so
+        every slot's mirror is dropped and resyncs lazily, as after a
+        failover."""
+        self.dparams = self._placed(drafter_params)
+        for s in range(len(self.slot_rid)):
+            self._release(s)
+
+    # -- drafter slot sync --------------------------------------------- #
+
+    def _release(self, slot: int) -> None:
+        if self.slot_blocks[slot]:
+            self.kv.allocator.free(self.slot_blocks[slot])
+        self.slot_blocks[slot] = []
+        self.slot_rid[slot] = None
+        self.slot_len[slot] = 0
+
+    def _sweep(self) -> None:
+        """Release drafter state whose slot now runs a different rid. An
+        EMPTY slot keeps its state: a preempted request re-admitted to the
+        same slot resumes from its still-valid drafter prefix."""
+        for s, occ in enumerate(self.eng.sched.slots):
+            if self.slot_rid[s] is not None and occ is not None \
+                    and occ.rid != self.slot_rid[s]:
+                self._release(s)
+
+    def _ensure_blocks(self, slot: int, want_tokens: int) -> bool:
+        need = blocks_needed(want_tokens, self.eng.scfg.block_size) \
+            - len(self.slot_blocks[slot])
+        if need <= 0:
+            return True
+        got = self.kv.allocator.alloc(need)
+        if got is None:
+            return False
+        self.slot_blocks[slot].extend(got)
+        return True
+
+    def _sync_slot(self, slot: int, req) -> bool:
+        """Bring the drafter's cache for ``slot`` up to the target's
+        ``req.cached_len`` rows; returns False (the slot falls back to
+        plain decode this round) when the drafter pool cannot cover it."""
+        c = req.cached_len
+        if self.slot_rid[slot] != req.rid:
+            self._release(slot)
+            self.slot_rid[slot] = req.rid
+        if self.slot_len[slot] < c:
+            if not self._prefill_suffix(slot, req, c):
+                self._release(slot)
+                return False
+        # headroom for this round's K+1 drafter writes (rows c..c+K)
+        return self._ensure_blocks(slot, c + self.K + 1)
+
+    def _prefill_suffix(self, slot: int, req, c: int) -> bool:
+        """Forward ``req.context[start:c]`` into the drafter pool for this
+        slot (start = rows already held). Fresh slots first map the
+        longest radix-cached prefix read-only (whole blocks only: the
+        drafter skips the boundary copy-on-write), then the remainder runs
+        as ONE staged suffix forward (gather held pages, forward at the
+        offset, scatter private pages back)."""
+        eng = self.eng
+        scfg = eng.scfg
+        bs = scfg.block_size
+        start = self.slot_len[slot]
+        ctx = req.context[:c]
+        if start == 0 and not self.slot_blocks[slot] \
+                and self.prefix is not None:
+            matched, full, _partial = self.prefix.match(ctx)
+            m = min(matched, c - 1) // bs * bs   # whole blocks only
+            full = full[:m // bs]
+            for b in full:
+                self.kv.allocator.ref(b)
+            self.slot_blocks[slot] = list(full)
+            start = m
+        if not self._ensure_blocks(slot, c):
+            return False
+        n_pages = blocks_needed(c, bs)
+        if start < c:
+            suf = ctx[start:c]
+            pad = scfg.bucket_for(len(suf))
+            # the staging cache holds the padded window, within the
+            # largest bucket (and, for learned positions, the table)
+            cache_len = scfg.bucket_for(
+                min(max(c, start + pad), scfg.prefill_buckets[-1]))
+            pad = min(pad, cache_len - start)
+            if not self.dcfg.rotary:
+                pad = min(pad, self.dcfg.max_seq - start)
+            pages = cache_len // bs
+            gather_map = [NULL_BLOCK] * pages
+            for p in range(n_pages):
+                gather_map[p] = self.slot_blocks[slot][p]
+            k_stage, v_stage = self.kv.gather_pages(gather_map)
+            toks = np.zeros((1, pad), np.int64)
+            toks[0, :len(suf)] = suf
+            apply_with_cache(self.dcfg, self.dparams,
+                             torch.as_tensor(toks, device=eng.device),
+                             {"k": k_stage, "v": v_stage}, start)
+            scatter_map = [NULL_BLOCK] * pages
+            for p in range(start // bs, n_pages):
+                scatter_map[p] = self.slot_blocks[slot][p]
+            self.kv.write_pages(k_stage, v_stage, scatter_map)
+            eng.metrics.record_drafter_prefill(len(suf))
+        self.slot_len[slot] = c
+        if self.prefix is not None:
+            aligned = len(req.prompt) // bs * bs
+            if aligned > 0 and c >= aligned:
+                self.prefix.insert(req.prompt[:aligned],
+                                   self.slot_blocks[slot][:aligned // bs])
+        logger.debug("spec: drafter slot %d synced to %d rows for %s",
+                     slot, c, req.rid)
+        return True
+
+    # -- the speculative decode round ---------------------------------- #
+
+    def _lane_arrays(self, lanes):
+        """The decode step's per-slot host arrays for ``lanes``, other
+        lanes idle (token 0 / length 0)."""
+        N = self.eng.scfg.num_slots
+        lengths = np.zeros(N, np.int64)
+        tokens = np.zeros(N, np.int64)
+        temps = np.zeros(N, np.float32)
+        seeds = np.zeros(N, np.int64)
+        counts = np.zeros(N, np.int64)
+        for s, req in lanes:
+            lengths[s] = req.cached_len
+            tokens[s] = req.pending_token
+            temps[s] = req.temperature
+            seeds[s] = req.seed
+            counts[s] = len(req.generated)
+        return lengths, tokens, temps, seeds, counts
+
+    def _dispatch_draft(self, spec_lanes):
+        eng = self.eng
+        scfg = eng.scfg
+        dev = eng.device
+        tables = np.zeros((scfg.num_slots, scfg.blocks_per_slot), np.int64)
+        for s, _req in spec_lanes:
+            row = self.slot_blocks[s]
+            tables[s, :len(row)] = row
+        lengths, tokens, temps, seeds, counts = self._lane_arrays(spec_lanes)
+        args = (self.dparams, self.kv.k, self.kv.v,
+                torch.as_tensor(tables, device=dev),
+                torch.as_tensor(lengths, device=dev),
+                torch.as_tensor(tokens, device=dev), temps, seeds, counts)
+        with eng._capture("serving/draft_step", self._draft_sigs, *args):
+            return self._draft_step(*args)          # on the host: synced
+
+    def _dispatch_verify(self, spec_lanes, drafts):
+        eng = self.eng
+        scfg = eng.scfg
+        dev = eng.device
+        N = scfg.num_slots
+        tables = np.zeros((N, scfg.blocks_per_slot), np.int64)
+        vtokens = np.zeros((N, self.K + 1), np.int64)
+        for s, req in spec_lanes:
+            tables[s] = eng.sched.slot_table_row(s)
+            vtokens[s, 0] = req.pending_token
+            vtokens[s, 1:] = drafts[s].numpy()
+        lengths, _tokens, temps, seeds, counts = \
+            self._lane_arrays(spec_lanes)
+        args = (eng.params, eng.kv.k, eng.kv.v,
+                torch.as_tensor(tables, device=dev),
+                torch.as_tensor(lengths, device=dev),
+                torch.as_tensor(vtokens, device=dev), temps, seeds, counts)
+        with eng._capture("serving/verify_step", self._verify_sigs, *args):
+            return self._verify_step(*args)         # on the host: synced
+
+    def decode_round(self) -> None:
+        """The engine's decode phase with speculation: draft + verify for
+        eligible slots, the fallback plain step for the rest, all inside
+        ONE serving/decode span so the request ledger's decode
+        attribution joins as before."""
+        eng = self.eng
+        K = self.K
+        scfg = eng.scfg
+        bs = scfg.block_size
+        cap = scfg.blocks_per_slot * bs
+        active = eng._active_decodable()
+        if not active:
+            return
+        self._sweep()
+        spec_lanes, fallback = [], []
+        for s, req in active:
+            if (req.cached_len + K + 1 <= cap
+                    and req.remaining > 1
+                    and len(eng.sched.slot_blocks[s])
+                    >= blocks_needed(req.cached_len + K + 1, bs)
+                    and self._sync_slot(s, req)):
+                spec_lanes.append((s, req))
+            else:
+                fallback.append((s, req))
+        drafts = n_acc = bonus = nxt = None
+        draft_s = verify_s = 0.0
+        with trace_span("serving/decode", lane="serving",
+                        n_active=len(active),
+                        rids=",".join(r.rid for _, r in active)) as _sp:
+            timer = eng.metrics.timers(DECODE_TIMER)
+            timer.safe_start()
+            if spec_lanes:
+                _t0 = time.perf_counter()
+                drafts = self._dispatch_draft(spec_lanes)
+                _t1 = time.perf_counter()
+                draft_s = _t1 - _t0
+                trace_instant("spec/draft", lane="serving",
+                              n_active=len(spec_lanes), k=K,
+                              dur_us=round(draft_s * 1e6, 1))
+                n_acc, bonus = self._dispatch_verify(spec_lanes, drafts)
+                verify_s = time.perf_counter() - _t1
+                trace_instant("spec/verify", lane="serving",
+                              n_active=len(spec_lanes), k=K,
+                              dur_us=round(verify_s * 1e6, 1))
+            if fallback:
+                nxt = eng._dispatch_plain(fallback)
+            timer.stop()   # every result is on the host
+            tel = eng.telemetry
+            if tel is not None and tel.memwatch is not None:
+                tel.memwatch.annotate(_sp, "decode")
+        tel = eng.telemetry
+        if tel is not None:
+            if spec_lanes:
+                tel.watchdog.observe("serving/draft_step", step=eng._step_i)
+                tel.watchdog.observe("serving/verify_step",
+                                     step=eng._step_i)
+            if fallback:
+                tel.watchdog.observe("serving/decode_step", step=eng._step_i)
+        eng.metrics.record_decode_step(len(active), len(eng.sched.queue),
+                                       eng.clock())
+        emitted = 0
+        accepted = 0
+        eos = scfg.eos_token_id
+        for s, req in spec_lanes:
+            n = int(n_acc[s])
+            toks = [int(drafts[s, j]) for j in range(n)] + [int(bonus[s])]
+            # truncate exactly where plain decode would have stopped: at
+            # the request's token budget, and at the first EOS
+            toks = toks[:req.remaining]
+            if eos is not None and eos in toks:
+                toks = toks[:toks.index(eos) + 1]
+            acc = min(n, len(toks))
+            req.cached_len += len(toks)
+            req.generated.extend(toks)
+            self.slot_len[s] = req.cached_len
+            emitted += len(toks)
+            accepted += acc
+            trace_instant("spec/accept", lane="serving", rid=req.rid,
+                          accepted=acc, k=K, emitted=len(toks))
+            eng._record_emitted(req, prefill=False)
+        for s, req in fallback:
+            req.cached_len += 1
+            req.generated.append(int(nxt[s]))
+            eng._record_emitted(req, prefill=False)
+        eng.metrics.record_spec_round(
+            n_spec=len(spec_lanes), n_fallback=len(fallback),
+            drafted=K * len(spec_lanes), accepted=accepted,
+            emitted=emitted, draft_s=draft_s, verify_s=verify_s)
+
+    def stats(self) -> dict:
+        """Drafter-pool counters for fleet mirrors and benches (the
+        acceptance counters live in ServingMetrics.summary())."""
+        out = {
+            "draft_k": self.K,
+            "drafter_layers": self.dcfg.n_layer,
+            "drafter_blocks_free": self.kv.allocator.num_free,
+            "drafter_blocks_allocated": self.kv.allocator.num_allocated,
+        }
+        if self.prefix is not None:
+            out["drafter_prefix"] = self.prefix.stats()
+        return out

@@ -881,3 +881,55 @@ def test_cuda_bias_gelu_pair_matches_plain_versions_and_relaunches():
 
 def _bias_gelu_launches():
     return fb.bias_gelu_fwd.launches, fb.bias_gelu_bwd.launches
+
+
+# the near-tie margin of chip_smoke.py's phase 17 (its NEAR_TIE): tokens
+# of a speculative engine that differ from plain decode's must differ
+# first where the plain path's top-1 minus top-2 logit gap is at most
+# this fraction of the largest |logit|
+_NEAR_TIE = 0.02
+
+
+@pytest.mark.cuda
+def test_cuda_spec_engine_greedy_matches_plain_decode():
+    """A speculative engine on the card (bf16, kernels auto, a 1-layer
+    truncated drafter), greedy: its tokens equal a plain engine's, or
+    differ first at a near tie of the plain path's logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.models.generation import (apply_with_cache,
+                                                         init_cache)
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.serving import ServingEngine
+
+    cfg = gpt.GPTConfig(vocab_size=4096, n_layer=4, n_head=4, d_model=256,
+                        max_seq=512, dtype=torch.bfloat16)
+    params = gpt.init_params(0, cfg, device="cuda", dtype=torch.bfloat16)
+    block = {"num_slots": 4, "block_size": 16, "num_blocks": 128,
+             "max_seq_len": 512, "prefill_chunk": 64}
+    host = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, 4096, (n,), generator=host).tolist()
+               for n in (9, 70, 130, 200)]
+    outs = []
+    with kernel_config.override(mode="auto"):
+        for spec in (None, {"draft_k": 4, "drafter": {"n_layer": 1}}):
+            b = dict(block, speculative=spec) if spec else block
+            eng = ServingEngine(cfg, params, b)
+            rids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            out = eng.run()
+            outs.append([out[r] for r in rids])
+        assert eng.metrics.spec_rounds > 0
+        assert (eng.decode_compile_count, eng.draft_compile_count,
+                eng.verify_compile_count) in ((0, 1, 1), (1, 1, 1))
+        for p, plain, spec in zip(prompts, *outs):
+            if plain == spec:
+                continue
+            pos = next(i for i, (a, c) in enumerate(zip(plain, spec))
+                       if a != c)
+            toks = torch.tensor([p + plain[:pos]], device="cuda")
+            cache = init_cache(cfg, 1, toks.shape[1], "cuda")
+            logits = apply_with_cache(cfg, params, toks, cache, 0)[0][0, -1]
+            top = torch.topk(logits.float(), 2).values
+            assert float(top[0] - top[1]) <= \
+                _NEAR_TIE * float(logits.float().abs().max())

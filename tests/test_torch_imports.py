@@ -3,8 +3,9 @@ loads neither ``jax``, ``flax``, ``msgpack`` nor any module of
 ``deeperspeed_tpu`` (names are compared exactly, since the port's own
 name starts with ``deeperspeed_tpu``), the monitor's and the datapipe's
 modules included, no source file of the port, chip_smoke.py or
-scripts/torch_first_step_probe.py imports them, and the serving, training
-and streamed-offload entry points refuse to fall back to the CPU."""
+scripts/torch_first_step_probe.py imports them, and the serving, replica
+worker, training and streamed-offload entry points refuse to fall back to
+the CPU."""
 
 import ast
 import json
@@ -129,6 +130,34 @@ def test_input_pipeline_and_follow_ups_load_no_jax():
     assert [m for m in mods if _forbidden(m)] == []
 
 
+def test_speculative_decoding_and_fleet_load_no_jax():
+    """Speculative decoding, the fleet (router, replicas, the worker) and
+    the resilience copies (faults, compute_backoff) import no JAX and
+    nothing of the reference."""
+    code = (
+        "import json, sys\n"
+        "import deeperspeed_tpu_torch.models.speculative, deeperspeed_tpu_"
+        "torch.serving.spec\n"
+        "import deeperspeed_tpu_torch.serving.spec.runtime, deeperspeed_tpu_"
+        "torch.serving.spec.steps\n"
+        "import deeperspeed_tpu_torch.serving.router, deeperspeed_tpu_torch."
+        "serving.fleet, deeperspeed_tpu_torch.serving.replica_worker\n"
+        "import deeperspeed_tpu_torch.resilience.faults, deeperspeed_tpu_"
+        "torch.resilience.supervisor\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("models.speculative", "serving.spec",
+                 "serving.spec.runtime", "serving.spec.steps",
+                 "serving.router", "serving.fleet", "serving.replica_worker",
+                 "resilience.faults", "resilience.supervisor"):
+        assert f"deeperspeed_tpu_torch.{name}" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -169,6 +198,22 @@ def test_serving_engine_without_device_refuses_the_cpu():
     eng = ServingEngine(cfg, params, {"num_slots": 1, "num_blocks": 8,
                                       "max_seq_len": 16}, device="cpu")
     assert eng.device.type == "cpu" and eng.kv.k.device.type == "cpu"
+
+
+def test_replica_worker_without_device_refuses_the_cpu():
+    """A replica spec without "device" builds on CUDA: with no card it
+    raises, and the worker process would exit non-zero."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the worker would take it")
+    from deeperspeed_tpu_torch.serving.replica_worker import build_engine
+
+    spec = {"gpt": {"vocab_size": 17, "n_layer": 1, "n_head": 2,
+                    "d_model": 8, "max_seq": 16},
+            "serving": {"num_slots": 1, "num_blocks": 8, "max_seq_len": 16}}
+    with pytest.raises(RuntimeError):
+        build_engine(spec)
+    eng = build_engine(dict(spec, device="cpu"))
+    assert eng.device.type == "cpu"
 
 
 def test_training_engine_without_device_refuses_the_cpu():

@@ -221,9 +221,11 @@ def test_serving_config_round_trip_matches_reference():
 
 def test_engine_rejects_unported_paths(models):
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServingEngine(tcfg, tparams, {"speculative": {"draft_k": 2}},
-                      device="cpu")
+    # the "speculative" block is served now (tests/test_torch_serving_spec.py
+    # holds it to the reference): it builds a drafter instead of raising
+    eng = ServingEngine(tcfg, tparams, {"speculative": {"draft_k": 2}},
+                        device="cpu")
+    assert eng._spec is not None and eng._spec.K == 2
     with pytest.raises(NotImplementedError, match="mesh"):
         ServingEngine(tcfg, tparams, None, device="cpu", mesh=object())
 
