@@ -109,7 +109,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sample: its top-K live tensors go through the flight recorder, and
    ``recover`` must read them back from flight.bin, the 4 GiB buffer
    first.
-6. Training at full width: GPT-NeoX-1.3B (max_seq 1024, remat "matmuls",
+6. Training at full width: GPT-NeoX-1.3B cut to TRAIN_LAYERS of its 24
+   layers (max_seq 1024, remat "matmuls",
    ce_chunk 0, bf16, random weights from a fixed seed) through
    deeperspeed_tpu_torch.initialize -> Engine.train_batch with the keys
    of configs/neox_1.3b_single_chip.json (masterless bf16, Adam 2e-4
@@ -308,17 +309,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    streaming block: int4 wire and residency, bf16 host state, exp_avg_sq
    on the NVMe tier; its aio block, Adam 8e-6, WarmupLR 14) plus
    "kernels": {"mode": "auto"}, cut as PERF.md section 4 lists (n_layer
-   44 -> INFINITY_LAYERS, nvme_path a temporary directory), fresh init,
-   INFINITY_STEPS steps on one corpus batch. Gates after every step: the
+   44 -> INFINITY_LAYERS, 1, nvme_path a temporary directory), fresh init,
+   INFINITY_STEPS steps on one corpus batch, a checkpoint saved after step
+   2 (15c's). Gates after every step: the
    loss finite, every chunk's host shadow equal to the card's resident
    bytes, the wire bytes moved equal to wire_bytes_per_step(), every host
    pass on the native v2 route; the launches per step on steps 2 and 3
    equal to infinity_expected_launches. It prints each step's time and
    its four timings, the bytes in host RAM and on the NVMe tier, the
    resident bytes and the peak device memory, and the wire bytes. 15c:
-   the config's profile at 1 layer: save after step 2, load into a fresh
-   engine (at step 0), and step 3 must give the
-   same loss and the same card bytes, bit for bit. The LN, bias+GeLU and
+   15b's checkpoint of step 2 (the config's profile at 1 layer) loaded
+   into a fresh engine (at step 0): its step 3 on the same batch must give
+   15b's step-3 loss and card bytes, bit for bit. The LN, bias+GeLU and
    flash kernels are held against their plain versions and timed at this
    step's shapes (INFINITY_LN, INFINITY_BG, INFINITY_FLASH) in the kernel
    phases ("path": "infinity").
@@ -399,9 +401,61 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    replicas), 17a's requests, replica 0 SIGKILLed mid-decode: every
    request finishes, and its tokens equal 17a's speculative engine's
    under the near-tie rule.
-The line before the last is the kernels JSON object, the one before it
-the card; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device the script exits non-zero before printing any result.
+18. Resilience and the multi-process runtime (run after phase 17), on
+   phase 16's GPT-NeoX-125M (full width and depth, remat "matmuls", bf16,
+   weights from SEED), kernels auto. Its trainers are processes: this
+   script with ``--child resilience|multihost WORK`` (a trainer that logs
+   one JSON line a step and prints no contract line; its stdout and
+   stderr go to WORK/log.<name>), loading the kernels the parent built
+   (one that ran nvcc, or ran no step, fails the phase with its log), in
+   an environment with CUBLAS_WORKSPACE_CONFIG fixed. 18a:
+   configs/gpt_125m_obs.json cut as PERF.md section 4 lists
+   (train_batch_size 512 -> RES_ROWS, warmup -> RES_WARMUP,
+   save_interval_steps 500 -> RES_SAVE_INTERVAL, save_dir and obs_dir
+   temporary, metrics_port 0, the corpus as the datapipe's source) under
+   ``python -m deeperspeed_tpu_torch.resilience.supervisor``, to step
+   RES_STEPS: DS_TPU_FAULTS SIGKILLs the first incarnation while it
+   writes the first file of global_step4 (a one-shot flag file); the
+   restart resumes global_step2 (``latest`` never named the torn staging
+   directory) and, held after step RES_PREEMPT_AFTER, takes a SIGTERM:
+   an urgent save, exit 86, an immediate restart that finishes. Gates:
+   every step's loss bits, batch hash, grad norm bits and digest of the
+   params after the update equal an uninterrupted trainer's
+   (one process, no supervisor, saves off; it and 18b's world-1 trainer
+   run beside the first incarnation); the restart log one crash
+   with its backoff, one preemption without, then done; each restart's
+   resilience counters (restarts, resumes, the preemption; no fallback);
+   the committed tags 2, 4, 5, 6 verify their manifests; launches a
+   step as phase 16's; the merged trace of the incarnations (the killed
+   one's flight file) strict-valid. Printed: the async save's blocked
+   and writer seconds (its resilience/* spans), restart-to-first-step
+   seconds, checkpoint bytes, the step time of steps run alone on the
+   card.
+   18b: configs/gpt_125m_multihost.json cut as PERF.md section 4 lists
+   (max_train_batch_size 512 -> MH_MAX_BATCH: 48 rows, micro 8 at world
+   2; canonical_shards 32 -> MH_CANONICAL; save_interval_steps 500 ->
+   MH_SAVE_INTERVAL; warmup, save and obs dirs as 18a) under the
+   FleetSupervisor: two processes share the card over gloo through host
+   copies (not NCCL, not two hosts); host 1 is SIGKILLed after step
+   MH_KILL_AFTER, the barrier tears host 0 down and relaunches both from
+   the step-MH_KILL_AFTER tag; after step
+   MH_REMESH_AFTER the pool file goes 2 -> 1, a planned re-mesh (urgent
+   save, no crash counted), and one process resumes the world-2 tag and
+   runs the steps after it to MH_STEPS. Gates: every step's loss bits,
+   grad norm bits and params digest equal a world-1 trainer's (the
+   canonical-slot guarantee: the grad norm reads the restored residuals,
+   the params the restored Adam moments); the restart log host 1
+   crashed, host 0 fleet_restart, then pool_change for both, then done;
+   the tags each epoch loaded; rendezvous records and clock offsets; the
+   merged per-host, per-epoch trace strict-valid; launches a step and
+   rank: the model's kernels per local slot, quantize_rows and
+   dequant_rows once a bucket, dequant_sum_rows none. Printed: step
+   seconds at worlds 2 and 1, the slot-row reduction's share (its
+   comm/reduce spans), spawn to first step, peak memory a rank.
+A line before the kernels line gives each phase's wall seconds. The line
+before the last is the kernels JSON object, the one before it the card;
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device the script exits non-zero before printing any result.
 """
 
 import dataclasses
@@ -410,6 +464,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -526,6 +581,9 @@ LOSS_RTOL = 5e-3
 GNORM_RTOL = 5e-2
 MIN_COSINE = 0.99
 TRAIN_STEPS = 6
+# phases 6 and 6' train GPT-NeoX-1.3B at full width, cut to 10 of its 24
+# layers to give phase 18 time (PERF.md section 4); phase 5 serves all 24
+TRAIN_LAYERS = 10
 # overrides the config's 1000 so the LR moves within 6 steps. The
 # scheduler gives lr 0 on the first two steps; the first Adam step after
 # them moves every weight by about lr (Adam's first steps are sign-like),
@@ -650,10 +708,11 @@ SPARSE_LAYERS = 24
 SPARSE_STEPS = 6
 SPARSE_LR = 1e-3
 # ZeRO-Infinity (phase 15): configs/neox_20b_infinity.json at GPT-NeoX-20B
-# width, cut to INFINITY_LAYERS of its 44 layers (15b; 1 layer in 15a and
-# 15c) with nvme_path in a temporary directory (PERF.md section 4)
+# width, cut to INFINITY_LAYERS of its 44 layers (15b and 15c, which
+# resumes 15b's step-2 checkpoint; 1 layer in 15a too) with nvme_path in a
+# temporary directory (PERF.md section 4)
 INFINITY_CONFIG = ROOT / "configs" / "neox_20b_infinity.json"
-INFINITY_LAYERS = 4
+INFINITY_LAYERS = 1
 INFINITY_SEQ = 1024
 INFINITY_STEPS = 3
 INFINITY_LR = 8e-6                  # the config's peak lr
@@ -741,6 +800,26 @@ FLEET_RUN_TIMEOUT_S = 240.0
 SPEC_FLEET_KILL_AT = 15
 # the verify step's rows: num_slots x (draft_k + 1) of the spec config
 VERIFY_ROWS = 40
+# resilience and the multi-process runtime (phase 18) on GPT-NeoX-125M
+# (phase 16's model): 18a configs/gpt_125m_obs.json under the Supervisor,
+# 18b configs/gpt_125m_multihost.json under the FleetSupervisor, each cut
+# as PERF.md section 4 lists
+OBS_CONFIG = ROOT / "configs" / "gpt_125m_obs.json"
+MULTIHOST_CONFIG = ROOT / "configs" / "gpt_125m_multihost.json"
+RES_ROWS = 64                       # the file's 512 (phase 16's cut)
+RES_WARMUP = 100                    # the files' 2000
+RES_SAVE_INTERVAL = 2               # the files' 500
+RES_STEPS = 7
+RES_PREEMPT_AFTER = 5               # SIGTERM while held after this step
+RES_TAG_FILES = 2                   # payload files a tag (model, optim)
+MH_MAX_BATCH = 64                   # the file's 512
+MH_CANONICAL = 8                    # the file's 32
+MH_ROWS, MH_MICRO_W2, MH_WORLDS = 48, 8, [1, 2, 3, 4, 6, 12]
+MH_SAVE_INTERVAL = 4                # the file's 500: tags at 4 and 5 only
+MH_STEPS = 7                        # epoch 2 (world 1) runs steps 6 and 7
+MH_KILL_AFTER = 4                   # host 1 SIGKILLed after this step
+MH_REMESH_AFTER = 5                 # the pool file 2 -> 1 after this step
+PHASE18_CHILD_TIMEOUT_S = 600
 
 
 def card_line() -> str:
@@ -2795,8 +2874,8 @@ def training_phase(card, obs):
                                                   make_gpt)
     from deeperspeed_tpu_torch.ops import kernel_config
 
-    cfg = get_preset("neox-1.3b", max_seq=1024, remat_policy="matmuls",
-                     ce_chunk=0, dtype=torch.bfloat16)
+    cfg = get_preset("neox-1.3b", n_layer=TRAIN_LAYERS, max_seq=1024,
+                     remat_policy="matmuls", ce_chunk=0, dtype=torch.bfloat16)
     config = training_config()
     config["monitor"] = obs_monitor(obs)
     print(f"training: scheduler warmup_num_steps overridden 1000 -> "
@@ -2999,8 +3078,8 @@ def resume_phase(card, after):
                                                   make_gpt)
     from deeperspeed_tpu_torch.ops import kernel_config
 
-    cfg = get_preset("neox-1.3b", max_seq=1024, remat_policy="matmuls",
-                     ce_chunk=0, dtype=torch.bfloat16)
+    cfg = get_preset("neox-1.3b", n_layer=TRAIN_LAYERS, max_seq=1024,
+                     remat_policy="matmuls", ce_chunk=0, dtype=torch.bfloat16)
     config = training_config()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
@@ -4027,9 +4106,10 @@ def infinity_expected_launches(n_layer):
 
 def infinity_training_phase(card, tmp):
     """Phase 15b: configs/neox_20b_infinity.json as written with its two
-    cuts (n_layer 44 -> 4, nvme_path a temporary directory), fresh init
-    from the config's seed, INFINITY_STEPS steps on one fixed batch.
-    Returns the launches of the run and the launches per step."""
+    cuts (n_layer 44 -> INFINITY_LAYERS, nvme_path a temporary directory),
+    fresh init from the config's seed, INFINITY_STEPS steps on one fixed
+    batch, a checkpoint saved after step 2 for 15c. Returns the launches
+    of the run, the launches per step and what 15c holds its resume to."""
     import deeperspeed_tpu_torch as ds
     from deeperspeed_tpu_torch.models.gpt import get_preset
     from deeperspeed_tpu_torch.ops import kernel_config
@@ -4089,6 +4169,15 @@ def infinity_training_phase(card, tmp):
                 raise AssertionError(f"infinity 15b: launches {launches}, "
                                      f"expected {expected}")
             steps.append(rec)
+            if step == 2:
+                # 15c's checkpoint: this engine's state after step 2
+                t0 = time.perf_counter()
+                engine.save_checkpoint(str(tmp / "ckpt"))
+                resume = {"save_s": time.perf_counter() - t0}
+            if step == 3:
+                resume["loss_3"] = loss
+                resume["shadow_3"] = {c: engine.storage_bytes(c)
+                                      for c in engine.chunk_names}
         run_launches = dict(total)
         sizes = engine.host_state_bytes()
         report = {
@@ -4115,52 +4204,44 @@ def infinity_training_phase(card, tmp):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    resume["batch"] = batch
     return run_launches, {k: v / INFINITY_STEPS
-                          for k, v in run_launches.items()}
+                          for k, v in run_launches.items()}, resume
 
 
-def infinity_resume_phase(card, tmp):
-    """Phase 15c: the config's own profile (int4 wire and residency, bf16
-    host state, exp_avg_sq on the NVMe tier) at 1 layer: save after step
-    2, load into a fresh engine (at step 0: zero moments, the initial
-    params), and step 3 must give the same loss and the same card bytes,
-    bit for bit."""
+def infinity_resume_phase(card, tmp, saved):
+    """Phase 15c: 15b's checkpoint of step 2 (the config's own profile:
+    int4 wire and residency, bf16 host state, exp_avg_sq on the NVMe
+    tier, at INFINITY_LAYERS) loaded into a fresh engine (at step 0: zero
+    moments, the initial params): its step 3 on 15b's batch must give
+    15b's step-3 loss and card bytes, bit for bit."""
     import deeperspeed_tpu_torch as ds
     from deeperspeed_tpu_torch.models.gpt import get_preset
     from deeperspeed_tpu_torch.ops import kernel_config
 
-    cfg = get_preset("neox-20b", n_layer=1, max_seq=INFINITY_SEQ,
-                     dtype=torch.bfloat16)
-    batches = [infinity_batch(SEED + 10 + i) for i in range(3)]
+    cfg = get_preset("neox-20b", n_layer=INFINITY_LAYERS,
+                     max_seq=INFINITY_SEQ, dtype=torch.bfloat16)
     ckpt = tmp / "ckpt"
+    ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*")
+                     if p.is_file())
     with kernel_config.override():
-        a, _, _, _ = ds.initialize(model=cfg,
-                                   config=infinity_config(tmp / "nvme_c1"))
-        losses = [a.train_batch(batches[i]) for i in range(2)]
-        t0 = time.perf_counter()
-        a.save_checkpoint(str(ckpt))
-        save_s = time.perf_counter() - t0
-        ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*")
-                         if p.is_file())
-        loss3 = a.train_batch(batches[2])
-        shadow_a = {c: a.storage_bytes(c) for c in a.chunk_names}
-        del a
-        gc.collect()
         b, _, _, _ = ds.initialize(model=cfg,
-                                   config=infinity_config(tmp / "nvme_c2"))
+                                   config=infinity_config(tmp / "nvme_c"))
         t0 = time.perf_counter()
         b.load_checkpoint(str(ckpt))
         load_s = time.perf_counter() - t0
-        loss3_b = b.train_batch(batches[2])
+        loss3_b = b.train_batch(saved["batch"])
         same_shadow = all(
-            np.array_equal(shadow_a[c][k], v)
+            np.array_equal(saved["shadow_3"][c][k], v)
             for c in b.chunk_names for k, v in b.storage_bytes(c).items())
         same_device = all(b.shadow_matches_device().values())
-    report = {"card": card, "layers": 1, "losses_1_2": losses,
-              "loss_3": loss3, "loss_3_resumed": loss3_b,
-              "same_loss": loss3 == loss3_b, "same_shadow": same_shadow,
-              "shadow_equals_device": same_device, "save_s": save_s,
-              "load_s": load_s, "checkpoint_bytes": ckpt_bytes}
+    report = {"card": card, "layers": INFINITY_LAYERS,
+              "loss_3": saved["loss_3"], "loss_3_resumed": loss3_b,
+              "same_loss": saved["loss_3"] == loss3_b,
+              "same_shadow": same_shadow,
+              "shadow_equals_device": same_device,
+              "save_s": saved["save_s"], "load_s": load_s,
+              "checkpoint_bytes": ckpt_bytes}
     print("infinity 15c: " + json.dumps(report), flush=True)
     if not (report["same_loss"] and same_shadow and same_device):
         raise AssertionError(f"infinity 15c: resume not bit for bit: {report}")
@@ -4195,8 +4276,8 @@ def infinity_phase(card):
             "ds_adam_simd_width": opt.simd_width()}), flush=True)
         del opt
         infinity_grads_phase(card, tmp)
-        launches, per_step = infinity_training_phase(card, tmp)
-        infinity_resume_phase(card, tmp)
+        launches, per_step, saved = infinity_training_phase(card, tmp)
+        infinity_resume_phase(card, tmp, saved)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches, per_step
@@ -5477,6 +5558,738 @@ def spec_and_fleet_phase(fb, card, obs):
     return spec, fleet, spec_fleet
 
 
+# phase 18: resilience and the multi-process runtime
+# ------------------------------------------------------------------ #
+
+
+def phase18_child_env(extra=None):
+    """The environment of every phase-18 trainer process: the repo on the
+    path, one OpenMP thread, and cuBLAS's fixed workspace, so that every
+    process picks the same GEMM algorithms (the bit-identity gates)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env.update(OMP_NUM_THREADS="1", CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    for k in ("DS_TPU_FAULTS", "DS_TPU_RESUME_DIR", "DS_TPU_RESUME_TAG",
+              "DS_TPU_RESTART_COUNT", "DS_TPU_RESTART_REASON",
+              "DS_TPU_ROLE", "DS_TPU_INCARNATION", "DS_TPU_RUN_ID",
+              "DS_COORDINATOR_ADDRESS", "DS_NUM_PROCESSES",
+              "DS_PROCESS_ID", "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    env.update(extra or {})
+    return env
+
+
+def corpus_batch(step, rows, seq):
+    """18b's global batch of ``step``: ``rows`` windows of ``seq + 1``
+    tokens of data/corpus_tokens.npy at offsets drawn from the step."""
+    tokens = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    starts = np.random.RandomState(1000 + step).randint(
+        0, tokens.shape[0] - seq - 1, rows)
+    return np.stack([np.asarray(tokens[s:s + seq + 1], np.int64)
+                     for s in starts])
+
+
+def phase18_child(kind, work) -> int:
+    """A phase-18 trainer: ``chip_smoke.py --child resilience|multihost
+    WORK``. Trains GPT-NeoX-125M on the card under WORK/spec.json's config
+    to its target step (18a through the config's datapipe, 18b on corpus
+    batches keyed by the step), holding before every step the file
+    WORK/allow does not allow yet (a SIGTERM there takes the preemption
+    protocol). Resumes DS_TPU_RESUME_DIR when the supervisor exports one.
+    Logs one JSON line a step and writes a report at exit; its stdout and
+    stderr go to WORK/log.<name>. Prints no contract line."""
+    import atexit
+
+    work = Path(work)
+    epoch = os.environ.get("DS_TPU_FLEET_EPOCH")
+    name = (f"h{os.environ.get('DS_PROCESS_ID', '0')}.e{epoch}"
+            if epoch is not None else
+            f"i{os.environ.get('DS_TPU_RESTART_COUNT', '0')}")
+    log = open(work / f"log.{name}", "a")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    t_start = time.time()
+    if not torch.cuda.is_available():
+        print("phase 18 child: no CUDA device", file=sys.stderr)
+        return 2
+    (work / f"pid.{name}").write_text(str(os.getpid()))
+    spec = json.loads((work / "spec.json").read_text())
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import make_gpt
+    from deeperspeed_tpu_torch.ops import op_builder
+
+    cfg = datapipe_model()
+    engine, _, _, _ = ds.initialize(
+        model=make_gpt(cfg)[2], model_parameters=datapipe_params(cfg, SEED),
+        config=spec["config"])
+    mgr = engine._resilience
+    seen = watch_pipe(engine) if engine.datapipe is not None else None
+    loaded, load_s = None, None
+    if os.environ.get("DS_TPU_RESUME_DIR"):
+        t0 = time.perf_counter()
+        loaded, _ = engine.load_checkpoint(os.environ["DS_TPU_RESUME_DIR"])
+        load_s = time.perf_counter() - t0
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    steps_path = work / f"steps.{name}"
+    rank, world = engine.mesh.rank, engine.data_parallel_size
+    n_buckets = engine.comm.n_buckets
+
+    def report():
+        snap = (engine.monitor.registry.snapshot_scalars()
+                if engine.monitor is not None else {})
+        (work / f"report.{name}.json").write_text(json.dumps({
+            "loaded": loaded, "load_s": load_s, "t_start": t_start,
+            "rank": rank, "world": world,
+            "saves": save_seconds(engine.monitor.tracer.events()),
+            "registry": snap, "n_buckets": n_buckets,
+            "canonical_wire": (engine.comm.canonical_wire_launches()
+                               if engine.canonical_shards else None),
+            "global_steps": engine.global_steps}))
+
+    atexit.register(report)
+
+    def allowed():
+        return int((work / "allow").read_text())
+
+    while engine.global_steps < spec["steps"]:
+        while engine.global_steps >= allowed():
+            if mgr is not None and mgr.guard is not None \
+                    and mgr.guard.requested:
+                mgr.handle_preemption(engine)
+            time.sleep(0.02)
+        step = engine.global_steps
+        t0 = time.perf_counter()
+        if seen is not None:
+            loss = engine.train_batch()
+            batch_hash = sha(seen["batches"][-1].cpu().numpy())
+            seen["batches"].clear()
+        else:
+            batch = corpus_batch(step, engine._config.train_batch_size,
+                                 cfg.max_seq)
+            loss = engine.train_batch(batch)
+            batch_hash = sha(batch)
+        loss = float(loss)
+        step_s = time.perf_counter() - t0
+        t_end = time.time()
+        with open(steps_path, "a") as f:
+            f.write(json.dumps({
+                "step": engine.global_steps, "loss": loss.hex(),
+                "hash": batch_hash, "t": t_end, "step_s": step_s,
+                # what the step restored and updated shows here too: the
+                # norm of the reduced grads (residuals included) and the
+                # params after the update (the Adam moments included)
+                "gnorm": engine.get_global_grad_norm().hex(),
+                "params": params_digest(engine.params),
+                "wire_s": (reduce_seconds(engine.monitor.tracer.events())
+                           if engine.canonical_shards else 0.0),
+                "launches": {n: fn.launches for n, fn in counters.items()},
+                "nvcc_s": sum(i["seconds"]
+                              for i in op_builder.build_info.values()),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+                + "\n")
+    if mgr is not None:
+        mgr.wait_for_pending_saves()
+    if engine.datapipe is not None:
+        engine.datapipe.close()
+    return 0
+
+
+def reduce_seconds(events):
+    """Seconds in the comm/reduce spans inside this process's last
+    engine/train_batch span: the step just taken. A span also holds what
+    device work was still queued when its gather copied to the host."""
+    xs = [e for e in events if e.get("ph") == "X"]
+    tb = [e for e in xs if e["name"] == "engine/train_batch"][-1]
+    return sum(e["dur"] for e in xs if e["name"] == "comm/reduce"
+               and tb["ts"] <= e["ts"] <= tb["ts"] + tb["dur"]) / 1e6
+
+
+def save_seconds(events):
+    """Each resilience save of this process, from its spans: the
+    snapshot that blocks the step loop, and the writer's write plus
+    commit (the two run one after the other on the writer thread)."""
+    xs = [e for e in events if e.get("ph") == "X"]
+
+    def secs(name):
+        return [e["dur"] / 1e6 for e in xs if e["name"] == name]
+
+    return {"blocked_s": secs("resilience/snapshot"),
+            "writer_s": [w + c for w, c in zip(secs("resilience/write"),
+                                               secs("resilience/commit"))]}
+
+
+def child_lines(work, name):
+    path = Path(work) / f"steps.{name}"
+    if not path.exists():
+        return []
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def child_report(work, name):
+    path = Path(work) / f"report.{name}.json"
+    return json.loads(path.read_text()) if path.exists() else None
+
+
+def child_failure(work, names, why):
+    """An AssertionError naming ``why`` with the tail of each child's
+    log."""
+    tails = []
+    for n in names:
+        p = Path(work) / f"log.{n}"
+        if p.exists():
+            tails.append(f"--- {n} ---\n" + p.read_text()[-3000:])
+    return AssertionError(f"{why}\n" + "\n".join(tails))
+
+
+def wait_for(pred, timeout, what, work, names, proc=None):
+    t0 = time.monotonic()
+    while not pred():
+        if proc is not None and proc.poll() is not None:
+            raise child_failure(work, names, f"{what}: the supervisor "
+                                f"exited {proc.returncode}")
+        if time.monotonic() - t0 > timeout:
+            raise child_failure(work, names, f"{what}: timed out after "
+                                f"{timeout} s")
+        time.sleep(0.05)
+
+
+def start_references(runs):
+    """Start the uninterrupted runs: one trainer process each, no
+    supervisor, no fault, the same config and environment as the run
+    they are held against. ``runs``: kind -> (work, config, steps). They
+    run side by side, and beside 18a's first incarnation (their losses
+    and hashes, not their times, are what the gates read)."""
+    procs = {}
+    for kind, (work, config, steps) in runs.items():
+        work.mkdir(parents=True)
+        (work / "spec.json").write_text(json.dumps({"config": config,
+                                                    "steps": steps}))
+        (work / "allow").write_text(str(steps))
+        procs[kind] = (subprocess.Popen(child_command(kind, work),
+                                        env=phase18_child_env(),
+                                        cwd=str(ROOT)), work, steps)
+    return procs
+
+
+def collect_references(procs):
+    """Wait for the uninterrupted runs; kind -> step lines."""
+    out = {}
+    for kind, (proc, work, steps) in procs.items():
+        try:
+            rc = proc.wait(timeout=PHASE18_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        lines = child_lines(work, "i0")
+        if rc != 0 or [x["step"] for x in lines] != list(
+                range(1, steps + 1)):
+            raise child_failure(work, ["i0"], f"the {kind} reference run "
+                                f"exited {rc} after {len(lines)} steps")
+        out[kind] = lines
+    return out
+
+
+def tag_bytes(tag_dir):
+    return sum(f.stat().st_size for f in Path(tag_dir).rglob("*")
+               if f.is_file())
+
+
+def obs_run_config(save_dir, obs):
+    """configs/gpt_125m_obs.json as written, with the cuts PERF.md section
+    4 lists: train_batch_size 512 -> RES_ROWS (phase 16's), the warmup
+    -> RES_WARMUP, save_interval_steps 500 -> RES_SAVE_INTERVAL, save_dir
+    and obs_dir in a temporary directory, metrics_port 9400 -> 0, the
+    corpus as the datapipe's source, plus kernels auto."""
+    with open(OBS_CONFIG) as f:
+        config = json.load(f)
+    config["train_batch_size"] = RES_ROWS
+    config["scheduler"]["params"]["warmup_num_steps"] = RES_WARMUP
+    config["resilience"].update(save_dir=str(save_dir),
+                                save_interval_steps=RES_SAVE_INTERVAL)
+    config["monitor"].update(obs_dir=str(obs), metrics_port=0)
+    config["datapipe"]["source"] = str(ROOT / "data" / "corpus_tokens.npy")
+    config["kernels"] = {"mode": "auto"}
+    return config
+
+
+def merged_trace(obs, tmp):
+    """Every incarnation's trace (or, for a SIGKILLed one, its flight
+    file's tail) merged by ``aggregate`` and validated strict."""
+    from deeperspeed_tpu_torch.monitor import aggregate, validate_events
+
+    files = sorted(Path(obs).iterdir())
+    traces = [f for f in files if f.name.endswith(".trace.json")]
+    stems = {f.name[:-len(".trace.json")] for f in traces}
+    flights = [f for f in files if f.name.endswith(".flight.bin")
+               and f.name[:-len(".flight.bin")] not in stems]
+    paths = [str(f) for f in traces + flights]
+    doc, stats = aggregate.merge_files(paths, out=str(Path(tmp) /
+                                                      "merged.json"))
+    problems = validate_events(doc["traceEvents"], strict=True)
+    if problems:
+        raise AssertionError(f"merged trace of {paths}: {problems[:5]}")
+    return {"files": [Path(p_).name for p_ in paths],
+            "events": stats["events"], "sources": len(stats["sources"])}
+
+
+STITCHED_KEYS = ("loss", "hash", "gnorm", "params")
+
+
+def stitched(lines_by_name, ref, name):
+    """Every logged step of every incarnation equal to the reference's
+    step: loss bits, batch hash, grad norm bits and the digest of the
+    params after the update. Returns the steps covered."""
+    covered = {}
+    for inc, lines in lines_by_name.items():
+        for x in lines:
+            want = ref[x["step"] - 1]
+            differ = [k for k in STITCHED_KEYS if x[k] != want[k]]
+            if differ:
+                raise AssertionError(
+                    f"{name}: {inc} step {x['step']}: {differ} differ: "
+                    f"loss {float.fromhex(x['loss'])} grad norm "
+                    f"{float.fromhex(x['gnorm'])}, the uninterrupted run's "
+                    f"{float.fromhex(want['loss'])} "
+                    f"{float.fromhex(want['gnorm'])}")
+            covered.setdefault(x["step"], []).append(inc)
+    if sorted(covered) != list(range(1, len(ref) + 1)):
+        raise AssertionError(f"{name}: steps covered {sorted(covered)}")
+    return covered
+
+
+def per_step_launches(lines, first_step_before):
+    """The launches of the steps an incarnation ran, from its last line
+    (the counters were set to 0 after its resume), divided by them."""
+    last = lines[-1]
+    steps = last["step"] - first_step_before
+    return steps, {k: v / steps for k, v in last["launches"].items()}
+
+
+def check_launches(name, got, want):
+    if got != want:
+        raise AssertionError(f"{name}: launches per step {got}, expected "
+                             f"{want}")
+
+
+def child_command(kind, work):
+    """The command of a phase-18 trainer process."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--child", kind,
+            str(work)]
+
+
+def resilience_reference(base):
+    """18a's uninterrupted run: its work dir, config (saves off) and
+    steps."""
+    config = obs_run_config(base / "ref" / "ckpt", base / "ref" / "obs")
+    config["resilience"]["save_interval_steps"] = 0  # no saves
+    return base / "ref", config, RES_STEPS
+
+
+def resilience_phase(card, base, refs):
+    """Phase 18a: configs/gpt_125m_obs.json under the Supervisor; see the
+    module docstring. ``refs``: the started uninterrupted runs
+    (``start_references``). Returns the launches of every incarnation's
+    steps (summed), the per-step launches and every run's step lines."""
+    from deeperspeed_tpu_torch.checkpoint.serialization import read_latest
+    from deeperspeed_tpu_torch.resilience import (is_committed, tag_status,
+                                                  verify_manifest)
+
+    cfg = datapipe_model()
+    expected = datapipe_expected(cfg)
+    print(f"resilience 18a: configs/gpt_125m_obs.json, train_batch_size "
+          f"512 -> {RES_ROWS} (micro 16 x 4, one rank), warmup_num_steps "
+          f"2000 -> {RES_WARMUP}, save_interval_steps 500 -> "
+          f"{RES_SAVE_INTERVAL}, save_dir and obs_dir temporary, "
+          f"metrics_port 9400 -> 0, datapipe source data/corpus_tokens.npy,"
+          f" async_save true, plus kernels auto; {card}", flush=True)
+    work = base / "run"
+    work.mkdir()
+    save_dir, obs = work / "ckpt", work / "obs"
+    (work / "spec.json").write_text(json.dumps({
+        "config": obs_run_config(save_dir, obs), "steps": RES_STEPS}))
+    (work / "allow").write_text(str(RES_PREEMPT_AFTER))
+    faults = {"sigkill_mid_save": RES_TAG_FILES + 1,
+              "flag_file": str(work / "fault.flag")}
+    log = work / "restarts.jsonl"
+    cmd = [sys.executable, "-m", "deeperspeed_tpu_torch.resilience."
+           "supervisor", "--checkpoint-dir", str(save_dir), "--restart-log",
+           str(log), "--max-restarts", "3", "--"] + child_command(
+               "resilience", work)
+    names = ["i0", "i1", "i2"]
+    with open(work / "supervisor.log", "w") as out:
+        proc = subprocess.Popen(cmd, cwd=str(ROOT), stdout=out, stderr=out,
+                                env=phase18_child_env(
+                                    {"DS_TPU_FAULTS": json.dumps(faults)}))
+    try:
+        # incarnation 0 dies mid-save of global_step4; the restart is up
+        wait_for(lambda: (work / "pid.i1").exists(), PHASE18_CHILD_TIMEOUT_S,
+                 "18a: the restart after the mid-save kill", work, names,
+                 proc)
+        torn = {"latest": read_latest(str(save_dir)),
+                "global_step4": tag_status(str(save_dir / "global_step4")),
+                "staging": (save_dir / "global_step4.tmp").is_dir()}
+        if torn != {"latest": "global_step2", "global_step4": "missing",
+                    "staging": True}:
+            raise child_failure(work, names, f"18a: after the kill {torn}")
+        wait_for(lambda: any(x["step"] == RES_PREEMPT_AFTER
+                             for x in child_lines(work, "i1")),
+                 PHASE18_CHILD_TIMEOUT_S, "18a: incarnation 1 at step "
+                 f"{RES_PREEMPT_AFTER}", work, names, proc)
+        t_term = time.time()
+        os.kill(int((work / "pid.i1").read_text()), signal.SIGTERM)
+        wait_for(lambda: (work / "pid.i2").exists(), PHASE18_CHILD_TIMEOUT_S,
+                 "18a: the restart after the preemption", work, names, proc)
+        (work / "allow").write_text(str(RES_STEPS))
+        rc = proc.wait(timeout=PHASE18_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise child_failure(work, names, f"18a: the supervisor exited {rc}")
+    ref_lines = collect_references(refs)
+    ref = ref_lines["resilience"]
+    lines = {n: child_lines(work, n) for n in names}
+    reports = {n: child_report(work, n) for n in names}
+    covered = stitched(lines, ref, "18a")
+    # the restart log: one crash with its backoff, one preemption without
+    events = [json.loads(x) for x in log.read_text().splitlines()]
+    exits = [(e["reason"], e["code"], e.get("delay")) for e in events
+             if e["event"] == "exit"]
+    if (len(exits) != 3 or exits[0][0] != "crash" or exits[0][1] != -9
+            or not exits[0][2] or exits[1][:2] != ("preemption", 86)
+            or exits[1][2] != 0.0 or exits[2][:2] != ("done", 0)):
+        raise AssertionError(f"18a restart log: {events}")
+    launches_ev = [e for e in events if e["event"] == "launch"]
+    # what each restarted incarnation loaded and counted
+    want_loaded = {"i1": f"global_step{RES_SAVE_INTERVAL}",
+                   "i2": f"global_step{RES_PREEMPT_AFTER}"}
+    for n, tag in want_loaded.items():
+        rep = reports[n]
+        if rep is None or not (rep["loaded"] or "").endswith(tag):
+            raise child_failure(work, names, f"18a: {n} loaded "
+                                f"{rep and rep['loaded']}, expected {tag}")
+        reg = rep["registry"]
+        want = {"resilience_restarts": 1.0, "resilience_resume_total": 1.0}
+        if n == "i1":
+            want["resilience_preemption_total"] = 1.0
+        got = {k: reg.get(k) for k in want}
+        if got != want or reg.get("resilience_fallback_total") or \
+                reg.get("resilience_corrupt_tags"):
+            counters = {k: v for k, v in reg.items()
+                        if k.startswith("resilience")}
+            raise AssertionError(f"18a {n} resilience counters: {counters}")
+    # every committed tag verifies its manifest; the torn one was never
+    # loaded and is gone (incarnation 1 rewrote global_step4)
+    tags = sorted(p_.name for p_ in save_dir.iterdir() if p_.is_dir())
+    want_tags = sorted({f"global_step{s}" for s in range(
+        RES_SAVE_INTERVAL, RES_STEPS + 1, RES_SAVE_INTERVAL)}
+        | {f"global_step{RES_PREEMPT_AFTER}"})
+    if tags != sorted(want_tags):
+        raise AssertionError(f"18a tags {tags}, expected {want_tags}")
+    for t in tags:
+        ok, problems = verify_manifest(str(save_dir / t))
+        if not (ok and is_committed(str(save_dir / t))):
+            raise AssertionError(f"18a {t}: {problems}")
+    # launches: every incarnation's steps as phase 16's plan
+    launches = {}
+    first = {"i0": 0, "i1": RES_SAVE_INTERVAL, "i2": RES_PREEMPT_AFTER}
+    per_step = None
+    for n in names:
+        if not lines[n]:
+            continue
+        if any(x["nvcc_s"] for x in lines[n]):
+            raise child_failure(work, names, f"18a: {n} ran nvcc")
+        steps, ps = per_step_launches(lines[n], first[n])
+        check_launches(f"18a {n}", ps, expected)
+        per_step = ps
+        for k, v in lines[n][-1]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    trace = merged_trace(obs, work)
+    launch_t = [e["ts"] for e in launches_ev]
+    restart_s = {n: lines[n][0]["t"] - launch_t[i]
+                 for i, n in enumerate(names) if lines[n]}
+    # a step time only from a trainer alone on the card: steps that began
+    # after both uninterrupted runs' last step, saved nothing and were
+    # not their process's first
+    refs_end = max(ls[-1]["t"] for ls in ref_lines.values())
+    alone = [x["step_s"] for n in names for x in lines[n][1:]
+             if x["step"] % RES_SAVE_INTERVAL
+             and x["t"] - x["step_s"] > refs_end]
+    report = {
+        "card": card, "steps": RES_STEPS, "covered_by": covered,
+        "losses": [float.fromhex(x["loss"]) for x in ref],
+        "step_s_median_alone": (statistics.median(alone) if alone
+                                else None),
+        "steps_alone": len(alone),
+        "save_steps_s": [(n, x["step"], x["step_s"])
+                         for n in names for x in lines[n]
+                         if x["step"] % RES_SAVE_INTERVAL == 0],
+        "restart_log": [(e["event"], e.get("reason"), e.get("code"),
+                         e.get("delay")) for e in events],
+        "torn_after_kill": torn,
+        "sigterm_to_restart_s": (work / "pid.i2").stat().st_mtime
+        - t_term,
+        "restart_to_first_step_s": restart_s,
+        "i0_beside_the_uninterrupted_runs": True,
+        "load_s": {n: reports[n]["load_s"] for n in ("i1", "i2")},
+        "async_save_blocked_s": [b for n in ("i1", "i2")
+                                 for b in reports[n]["saves"]["blocked_s"]],
+        "writer_s": [w for n in ("i1", "i2")
+                     for w in reports[n]["saves"]["writer_s"]],
+        "checkpoint_bytes": tag_bytes(save_dir / tags[-1]),
+        "tags": tags, "trace": trace, "launches_per_step": per_step}
+    print("resilience 18a: " + json.dumps(report), flush=True)
+    return launches, per_step, ref_lines
+
+
+def multihost_run_config(save_dir, obs, resilience=True):
+    """configs/gpt_125m_multihost.json as written, with the cuts PERF.md
+    section 4 lists: elasticity.max_train_batch_size 512 -> MH_MAX_BATCH
+    (48 rows, micro 8 at world 2), canonical_shards 32 -> MH_CANONICAL,
+    the warmup -> RES_WARMUP, save_interval_steps 500 -> MH_SAVE_INTERVAL,
+    the save dir and the monitor's obs_dir in a temporary directory, plus
+    kernels auto. ``resilience`` False drops the block (the reference run
+    saves nothing)."""
+    with open(MULTIHOST_CONFIG) as f:
+        config = json.load(f)
+    config["elasticity"].update(max_train_batch_size=MH_MAX_BATCH,
+                                canonical_shards=MH_CANONICAL)
+    config["scheduler"]["params"]["warmup_num_steps"] = RES_WARMUP
+    if resilience:
+        config["resilience"].update(save_interval_steps=MH_SAVE_INTERVAL,
+                                    save_dir=str(save_dir))
+    else:
+        del config["resilience"]
+    config["monitor"] = dict(config["monitor"], obs_dir=str(obs))
+    config["kernels"] = {"mode": "auto"}
+    return config
+
+
+def multihost_reference(base):
+    """18b's uninterrupted world-1 run: its work dir, config (no
+    resilience block: no saves) and steps."""
+    return (base / "ref", multihost_run_config(None, base / "ref" / "obs",
+                                               resilience=False), MH_STEPS)
+
+
+def multihost_phase(card, base, ref):
+    """Phase 18b: configs/gpt_125m_multihost.json under the
+    FleetSupervisor, two processes sharing the card over gloo; see the
+    module docstring. ``ref``: the world-1 run's step lines. Returns the
+    launches of every process's steps (summed) and the per-step launches
+    of a world-2 rank."""
+    from deeperspeed_tpu_torch.distributed import fleet, rendezvous
+    from deeperspeed_tpu_torch.elasticity import compute_elastic_config
+
+    cfg = datapipe_model()
+    probe = multihost_run_config(base, base)
+    rows, worlds, micro = compute_elastic_config(probe, world_size=2)
+    if (rows, worlds, micro) != (MH_ROWS, MH_WORLDS, MH_MICRO_W2):
+        raise AssertionError(f"elastic config {(rows, worlds, micro)}")
+    print(f"multihost 18b: configs/gpt_125m_multihost.json, elasticity "
+          f"max_train_batch_size 512 -> {MH_MAX_BATCH} ({rows} rows, micro "
+          f"{micro} at world 2, admissible worlds {worlds}: the card's "
+          f"memory and the step time), canonical_shards 32 -> "
+          f"{MH_CANONICAL} (each slot gathers its fp32 rows; 32 slots would "
+          f"move ~10 GB over gloo a step), warmup_num_steps 2000 -> "
+          f"{RES_WARMUP}, save_interval_steps 500 -> {MH_SAVE_INTERVAL} "
+          f"(two 7.47 GB multi-process saves, not three), "
+          f"save dir and obs_dir temporary, plus kernels auto; two "
+          f"processes share one card over gloo through host copies (not "
+          f"NCCL, not two hosts); {card}", flush=True)
+    work = base / "run"
+    work.mkdir()
+    save_dir, obs = work / "ckpt", work / "obs"
+    (work / "spec.json").write_text(json.dumps({
+        "config": multihost_run_config(save_dir, obs), "steps": MH_STEPS}))
+    (work / "allow").write_text(str(MH_KILL_AFTER))
+    (work / "pool").write_text("2\n")
+    policy = fleet.FleetPolicy(
+        procs=2, checkpoint_dir=str(save_dir),
+        rendezvous_dir=str(work / "rdzv"),
+        restart_log=str(work / "restarts.jsonl"),
+        pool_file=str(work / "pool"), watch_pool=True, term_grace_s=30.0,
+        extra_env={k: v for k, v in phase18_child_env().items()
+                   if k in ("PYTHONPATH", "OMP_NUM_THREADS",
+                            "CUBLAS_WORKSPACE_CONFIG")})
+    sup = fleet.FleetSupervisor(child_command("multihost", work), policy)
+    names = ["h0.e0", "h1.e0", "h0.e1", "h1.e1", "h0.e2"]
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = sup.run()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            result["error"] = repr(e)
+
+    env_keep = {k: os.environ.pop(k) for k in (
+        "DS_TPU_ROLE", "DS_TPU_INCARNATION", "DS_TPU_RUN_ID")
+        if k in os.environ}
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def stepped(name, step):
+        return any(x["step"] == step for x in child_lines(work, name))
+
+    try:
+        wait_for(lambda: stepped("h0.e0", MH_KILL_AFTER)
+                 and stepped("h1.e0", MH_KILL_AFTER),
+                 PHASE18_CHILD_TIMEOUT_S, f"18b: epoch 0 at step "
+                 f"{MH_KILL_AFTER}", work, names)
+        os.kill(sup._children[1].pid, signal.SIGKILL)
+        wait_for(lambda: sup.epoch == 1, PHASE18_CHILD_TIMEOUT_S,
+                 "18b: the restart barrier", work, names)
+        (work / "allow").write_text(str(MH_REMESH_AFTER))
+        wait_for(lambda: stepped("h0.e1", MH_REMESH_AFTER)
+                 and stepped("h1.e1", MH_REMESH_AFTER),
+                 PHASE18_CHILD_TIMEOUT_S, f"18b: epoch 1 at step "
+                 f"{MH_REMESH_AFTER}", work, names)
+        (work / "pool").write_text("1\n")
+        wait_for(lambda: sup.epoch == 2, PHASE18_CHILD_TIMEOUT_S,
+                 "18b: the planned re-mesh", work, names)
+        (work / "allow").write_text(str(MH_STEPS))
+        th.join(timeout=PHASE18_CHILD_TIMEOUT_S)
+    finally:
+        for c in sup._children:
+            if c.poll() is None:
+                c.kill()
+        os.environ.update(env_keep)
+    if result.get("rc") != 0:
+        raise child_failure(work, names, f"18b: the fleet ended {result}")
+    lines = {n: child_lines(work, n) for n in names}
+    reports = {n: child_report(work, n) for n in names}
+    covered = stitched(lines, ref, "18b")
+    if sup.crashes != 1 or sup.remeshes != 1 or sup.procs != 1:
+        raise AssertionError(f"18b fleet: crashes {sup.crashes}, re-meshes "
+                             f"{sup.remeshes}, processes {sup.procs}")
+    events = [json.loads(x) for x in
+              (work / "restarts.jsonl").read_text().splitlines()]
+    exits = [(e["epoch"], e.get("host"), e["reason"]) for e in events
+             if e["event"] == "exit"]
+    want_exits = [(0, 1, "crashed"), (0, 0, "fleet_restart"),
+                  (1, 0, "pool_change"), (1, 1, "pool_change"),
+                  (2, 0, "done")]
+    if exits != want_exits or [e["reason"] for e in events
+                               if e["event"] == "launch"] != [
+                                   "start", "crashed", "pool_change"]:
+        raise AssertionError(f"18b restart log: {events}")
+    # what each incarnation loaded: the world-2 interval tag, then the
+    # world-2 urgent tag of the re-mesh at world 1 (its (C, n) residual
+    # rows restore verbatim: a canonical fingerprint has no world term)
+    kill_tag = MH_KILL_AFTER // MH_SAVE_INTERVAL * MH_SAVE_INTERVAL
+    for n, tag in (("h0.e1", f"global_step{kill_tag}"),
+                   ("h1.e1", f"global_step{kill_tag}"),
+                   ("h0.e2", f"global_step{MH_REMESH_AFTER}")):
+        rep = reports[n]
+        if rep is None or not (rep["loaded"] or "").endswith(tag):
+            raise child_failure(work, names, f"18b: {n} loaded "
+                                f"{rep and rep['loaded']}, expected {tag}")
+    if reports["h0.e2"]["world"] != 1 or reports["h0.e1"]["world"] != 2:
+        raise AssertionError("18b: the epochs' worlds")
+    # rendezvous records and clock offsets
+    recs = {r.host: r for r in rendezvous.read_records(str(work / "rdzv"))}
+    offsets = rendezvous.read_offsets(str(work / "rdzv"))
+    if sorted(recs) != [0, 1] or set(offsets) != {"trainer.h0",
+                                                  "trainer.h1"}:
+        raise AssertionError(f"18b rendezvous: {recs}, offsets {offsets}")
+    trace = merged_trace(obs, work)
+    # launches: the model's kernels per local slot, the int8 wire's
+    # quantize_rows and dequant_rows once a bucket a step, no
+    # dequant_sum_rows (canonical_wire_launches)
+    launches, per_rank = {}, {}
+    first = {"h0.e0": 0, "h1.e0": 0, "h0.e1": kill_tag, "h1.e1": kill_tag,
+             "h0.e2": MH_REMESH_AFTER}
+    for n in names:
+        if not lines[n] or any(x["nvcc_s"] for x in lines[n]):
+            raise child_failure(work, names, f"18b: {n} ran no step or ran "
+                                f"nvcc")
+        rep = reports[n] or reports["h0.e1"]
+        slots = MH_CANONICAL // (1 if n == "h0.e2" else 2)
+        steps, ps = per_step_launches(lines[n], first[n])
+        L = cfg.n_layer
+        want = {"flash_fwd": L * slots, "flash_bwd": L * slots,
+                "ln_fwd": slots, "ln_bwd": slots,
+                "bias_gelu_fwd": 2 * L * slots, "bias_gelu_bwd": L * slots,
+                **rep["canonical_wire"]}
+        check_launches(f"18b {n}", {k: ps.get(k) for k in want}, want)
+        per_rank[n] = ps
+        for k, v in lines[n][-1]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    launch_t = {e["epoch"]: e["wall"] for e in events
+                if e["event"] == "launch"}
+    # the steps that saved nothing and were not a process's first: at
+    # world 2 two trainers share the card, at world 1 epoch 2's trainer
+    # is alone on it
+    w2 = [x for n in ("h0.e0", "h0.e1") for x in lines[n][1:]
+          if x["step"] % MH_SAVE_INTERVAL]
+    w1 = [x for x in lines["h0.e2"][1:] if x["step"] % MH_SAVE_INTERVAL]
+    report = {
+        "card": card, "gloo_on_one_card": True, "steps": MH_STEPS,
+        "covered_by": covered,
+        "losses": [float.fromhex(x["loss"]) for x in ref],
+        "step_s_world2_median": statistics.median(x["step_s"] for x in w2),
+        "step_s_world1_median": statistics.median(x["step_s"] for x in w1),
+        "save_steps_s": [(n, x["step"], x["step_s"])
+                         for n in names for x in lines[n]
+                         if x["step"] % MH_SAVE_INTERVAL == 0],
+        "wire_share_world2": statistics.median(
+            x["wire_s"] / x["step_s"] for x in w2),
+        "wire_share_world1": statistics.median(
+            x["wire_s"] / x["step_s"] for x in w1),
+        "spawn_to_first_step_s": {
+            n: lines[n][0]["t"] - launch_t[int(n[-1])] for n in names},
+        "peak_mem_gib": {n: lines[n][-1]["peak_mem_gib"] for n in names},
+        "load_s": {n: reports[n]["load_s"] for n in ("h0.e1", "h1.e1",
+                                                     "h0.e2")},
+        "n_buckets": reports["h0.e2"]["n_buckets"],
+        "quant_launches_per_rank_step": {
+            n: {k: per_rank[n][k] for k in ("quantize_rows",
+                                            "dequant_sum_rows",
+                                            "dequant_rows")}
+            for n in names},
+        "restart_log": [(e["event"], e.get("host"), e.get("reason"))
+                        for e in events],
+        "checkpoint_bytes": tag_bytes(save_dir /
+                                      f"global_step{MH_REMESH_AFTER}"),
+        "trace": trace, "offsets": offsets}
+    print("multihost 18b: " + json.dumps(report), flush=True)
+    return launches, per_rank["h0.e1"]
+
+
+def phase18(card):
+    """Phase 18: 18a with the two uninterrupted runs started beside its
+    first incarnation, then 18b; prints the wall seconds of each half."""
+    import shutil
+
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_phase18_"))
+    t0 = time.perf_counter()
+    refs = start_references({
+        "resilience": resilience_reference(base / "18a"),
+        "multihost": multihost_reference(base / "18b")})
+    try:
+        res, res_per_step, ref_lines = resilience_phase(card, base / "18a",
+                                                        refs)
+    finally:
+        for proc, _, _ in refs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t1 = time.perf_counter()
+    mh, mh_per_step = multihost_phase(card, base / "18b",
+                                      ref_lines["multihost"])
+    t2 = time.perf_counter()
+    shutil.rmtree(base, ignore_errors=True)
+    print(f"phase 18: 18a (with the uninterrupted runs) {t1 - t0:.1f} s, "
+          f"18b {t2 - t1:.1f} s", flush=True)
+    return res, res_per_step, mh, mh_per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5493,6 +6306,8 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    t_main = time.perf_counter()
+    wall = {}
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
@@ -5508,8 +6323,9 @@ def main() -> int:
     fad._lib()
     bs._lib()
     fq._lib()
+    wall["build"] = time.perf_counter() - t0
     print(f"build: {', '.join(s_ + '.cu' for s_ in sources)} in "
-          f"{time.perf_counter() - t0:.2f} s, side by side", flush=True)
+          f"{wall['build']:.2f} s, side by side", flush=True)
     for name in sources:
         info = op_builder.build_info[name]
         print(f"build: {name}.cu nvcc {info['seconds']:.2f} s -> "
@@ -5525,6 +6341,8 @@ def main() -> int:
     ln_fwd_build_report(fb)
     bias_gelu_build_report(fb, op_builder)
 
+    wall["build_reports"] = time.perf_counter() - t0 - wall["build"]
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)
     cases.update(backward_phase(fb, gen))
@@ -5571,34 +6389,42 @@ def main() -> int:
                       f"{sum(r['elements_differing'] for r in sel)} of "
                       f"{sum(r['elements'] for r in sel)}", flush=True)
 
+    wall["kernels"] = time.perf_counter() - t0
+
+    def timed(phase, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall[phase] = time.perf_counter() - t1
+        return out
+
     obs = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
-    serving = serving_phase(fb, card, obs / "serving")
-    gc.collect()
-    torch.cuda.empty_cache()
-    near_oom_phase(obs / "near_oom")
-    gc.collect()
-    torch.cuda.empty_cache()
-    training, per_step, after = training_phase(card, obs / "training")
-    resume = resume_phase(card, after)
-    bert, bert_per_step = bert_training_phase(card)
-    sparse, sparse_per_step = sparse_training_phase(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dp, dp_per_step = dp_training_phase(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    infinity, infinity_per_step = infinity_phase(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    datapipe, datapipe_per_step = datapipe_phase(card)
-    remat = remat_phase(card)
-    optimizers_phase(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    spec, fleet, spec_fleet = spec_and_fleet_phase(fb, card, obs / "spec")
+    serving = timed("5 serving", serving_phase, fb, card, obs / "serving")
+    timed("5' near-oom", near_oom_phase, obs / "near_oom")
+    training, per_step, after = timed("6 training", training_phase, card,
+                                      obs / "training")
+    resume = timed("6' resume", resume_phase, card, after)
+    bert, bert_per_step = timed("8 bert", bert_training_phase, card)
+    sparse, sparse_per_step = timed("12 sparse training",
+                                    sparse_training_phase, card)
+    dp, dp_per_step = timed("14 data parallel", dp_training_phase, card)
+    infinity, infinity_per_step = timed("15 infinity", infinity_phase, card)
+    datapipe, datapipe_per_step = timed("16a datapipe", datapipe_phase, card)
+    remat = timed("16b remat", remat_phase, card)
+    timed("16c optimizers", optimizers_phase, card)
+    spec, fleet, spec_fleet = timed("17 spec and fleet",
+                                    spec_and_fleet_phase, fb, card,
+                                    obs / "spec")
+    res, res_per_step, mh, mh_per_step = timed("18 resilience and "
+                                               "multi-process", phase18,
+                                               card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
+    wall["total"] = time.perf_counter() - t_main
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in wall.items()}), flush=True)
 
     # each path's counts were set to 0 just before it and read just after
     # (phase 14's in each rank, summed over the ranks)
@@ -5607,7 +6433,8 @@ def main() -> int:
              "sparse_training": sparse, "dp_training": dp,
              "infinity_training": infinity, "datapipe_training": datapipe,
              "remat_policies": remat, "spec_serving": spec,
-             "fleet_replicas": fleet, "spec_fleet_replicas": spec_fleet}
+             "fleet_replicas": fleet, "spec_fleet_replicas": spec_fleet,
+             "resilience_training": res, "multihost_training": mh}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -5643,7 +6470,11 @@ def main() -> int:
                                   "infinity_training":
                                       infinity_per_step[name],
                                   "datapipe_training":
-                                      datapipe_per_step[name]},
+                                      datapipe_per_step[name],
+                                  "resilience_training":
+                                      res_per_step[name],
+                                  "multihost_training_per_rank":
+                                      mh_per_step[name]},
         }
         inf = next((r for r in rows if r.get("path") == "infinity"), None)
         if inf is not None:
@@ -5679,4 +6510,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(phase18_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

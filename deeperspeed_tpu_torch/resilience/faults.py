@@ -1,12 +1,13 @@
 """Deterministic fault injection for resilience drills and tests.
 
 Counterpart of deeperspeed_tpu/resilience/faults.py, whole: the same
-names, keys and ``DS_TPU_FAULTS`` spec parser. In the PyTorch package only
-``on_decode_step`` is wired so far (the serving replica worker calls it
-once per engine step); the training hooks (``on_step``,
-``on_save_file_written``, ``after_commit``) and ``SpotPoolSimulator`` are
-here for the resilience slice (ROADMAP item 9), which wires them into the
-engine, the checkpoint writer and the supervisor.
+names, keys and ``DS_TPU_FAULTS`` spec parser. The hooks are wired where
+the reference wires them: ``ResilienceManager.on_step_boundary`` calls
+``on_step`` after every optimizer step, its writer calls
+``on_save_file_written`` after each payload file of a save and
+``after_commit`` once the tag is committed, and the serving replica
+worker calls ``on_decode_step`` once per engine step.
+``SpotPoolSimulator`` drives a pool file for elastic drills.
 
 A ``FaultPlan`` names WHERE to hurt the process; the ``FaultInjector``
 holds the counters that decide WHEN. Faults come from the config block

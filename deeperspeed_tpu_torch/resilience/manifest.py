@@ -1,13 +1,12 @@
 """Checkpoint manifest, two-phase commit and valid-tag discovery.
 
 Counterpart of deeperspeed_tpu/resilience/manifest.py, the stdlib half of
-the reference's resilience subsystem that a load needs (the two-phase
-commit, the manager, the background writer and the supervisor come with
-ROADMAP.md queue 1, item 'Resilience and multi-process runtime'):
+the reference's resilience subsystem, whole:
 
-  * a committed save (the reference's resilience writer) leaves every
-    file of ``<tag>`` listed in a ``MANIFEST.json`` of per-file sizes and
-    sha256 checksums, and a ``COMMITTED`` marker;
+  * a committed save (``ResilienceManager``'s writer) fills ``<tag>.tmp``,
+    lists every file in a ``MANIFEST.json`` of per-file sizes and sha256
+    checksums, renames the directory into place and drops a
+    ``COMMITTED`` marker last (``commit_checkpoint``);
   * a load verifies the manifest (``verify_manifest``) and, when the
     requested tag is missing, partial or corrupt, falls back to the newest
     older tag that still verifies (``resolve_load_tag``).
@@ -44,9 +43,21 @@ VALID_STATES = ("committed", "legacy")
 _TAG_STEP_RE = re.compile(r"(\d+)\s*$")
 
 
+class CheckpointCorruption(RuntimeError):
+    """A committed checkpoint failed manifest verification."""
+
+
 # --------------------------------------------------------------------- #
 # fsync helpers
 # --------------------------------------------------------------------- #
+
+
+def fsync_file(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def fsync_dir(path: str) -> None:
@@ -142,6 +153,47 @@ def verify_manifest(ckpt_dir: str,
             if digest != want.get("sha256"):
                 problems.append(f"{rel}: sha256 mismatch")
     return not problems, problems
+
+
+# --------------------------------------------------------------------- #
+# two-phase commit
+# --------------------------------------------------------------------- #
+
+
+def staging_dir_for(save_dir: str, tag: str) -> str:
+    return os.path.join(save_dir, str(tag) + STAGING_SUFFIX)
+
+
+def commit_checkpoint(staging: str, final_dir: str) -> None:
+    """Atomically publish a fully-written staging dir: fsync every file
+    and the dir itself, rename into place, drop the COMMITTED marker,
+    fsync the parent. A crash at ANY instant leaves either the old tag,
+    no tag, or the complete new tag — never a readable partial one (the
+    marker is the last write, so a rename that landed without it is
+    still skipped by ``tag_status``)."""
+    for rel in _walk_files(staging):
+        fsync_file(os.path.join(staging, rel))
+    fsync_dir(staging)
+    parent = os.path.dirname(final_dir) or "."
+    if os.path.isdir(final_dir):
+        # re-save of an existing tag: move the old copy aside first so a
+        # crash mid-swap still leaves one complete directory on disk
+        import shutil
+
+        old = final_dir + ".old" + STAGING_SUFFIX
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(final_dir, old)
+        os.rename(staging, final_dir)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.rename(staging, final_dir)
+    marker = os.path.join(final_dir, COMMITTED_MARKER)
+    with open(marker, "w") as f:
+        f.write("ok\n")
+        f.flush()
+        os.fsync(f.fileno())
+    fsync_dir(final_dir)
+    fsync_dir(parent)
 
 
 def is_committed(ckpt_dir: str) -> bool:

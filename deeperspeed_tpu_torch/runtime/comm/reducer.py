@@ -39,9 +39,21 @@ tensor goes through pinned host buffers).
 Each bucket is one eager dispatch inside a ``comm/reduce`` span of the
 port's tracer (the reference's ``reduce_dispatch``); with a metrics
 registry (the monitor's) each bucket bumps the reference's
-``comm_buckets`` and ``comm_wire_bytes`` counters. Not ported: the
-jitted whole-tree ``reduce_stacked``, the overlap schedule, the elastic
-canonical-slot mode and the pipeline's transform-only path.
+``comm_buckets`` and ``comm_wire_bytes`` counters.
+
+The elastic **canonical-slot** mode (``canonical=C``,
+``elasticity.canonical_shards``) reduces C fixed slots instead of the
+ranks (:meth:`GradReducer.reduce_canonical`): each rank owns C/W slots,
+runs the wire math on each slot's row with per-slot error feedback
+(``quantize_rows`` and ``dequant_rows`` under int8), all-gathers the
+dequantized fp32 rows (exact bit transport on any wire) and sums them in
+the fixed pairwise tree locally, so the mean is bit-identical at every
+admissible world size, world 1 included. Residuals are (C, n), free of the
+world size; each rank keeps its rows. :func:`exact_slot_mean` is the same
+gather and tree without a wire.
+
+Not ported: the jitted whole-tree ``reduce_stacked``, the overlap schedule
+and the pipeline's transform-only path.
 """
 
 import logging
@@ -82,6 +94,18 @@ def pairwise_slot_sum(x: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
+def exact_slot_mean(rows: torch.Tensor, transport: Transport,
+                    canonical: int) -> torch.Tensor:
+    """Layout-invariant mean over the slot axis. ``rows`` are this rank's
+    consecutive slots ``(C/W, ...)`` of C; every rank's rows are
+    all-gathered (exact bit transport) and summed in the graph-fixed
+    pairwise tree locally, so the result is the same bits on any process
+    layout, world 1 included."""
+    gathered = transport.all_gather(rows)  # (W, C/W, ...)
+    full = gathered.reshape((canonical,) + tuple(rows.shape[1:]))
+    return _div(pairwise_slot_sum(full), canonical)
+
+
 def _to_byte_planes(x: torch.Tensor) -> torch.Tensor:
     """(L,) fp32 -> (4, L) int8 byte planes (each element's sign/exponent
     byte lands contiguous on the wire)."""
@@ -100,10 +124,11 @@ class GradReducer:
 
     Built once per engine; owns the :class:`~.bucketing.BucketPlan` and
     the rank's error-feedback residuals (a list over buckets of dicts of
-    (n,) fp32 tensors: this rank's row of the reference's (world, n)
-    state)."""
+    fp32 tensors: this rank's (n,) row of the reference's (world, n)
+    state, or in canonical mode its (C/W, n) rows of the (C, n) state)."""
 
-    def __init__(self, config: CommConfig, mesh, registry=None):
+    def __init__(self, config: CommConfig, mesh, registry=None,
+                 canonical: int = 0):
         self.cfg = config
         self.mesh = mesh
         axes = self.axes = rules.batch_axes(mesh)
@@ -111,7 +136,21 @@ class GradReducer:
         self.rank = mesh.axis_index(axes)
         self.transport = Transport(mesh.group(axes))
         self.plan: Optional[bucketing.BucketPlan] = None
+        # canonical-slot mode (elastic training): residuals and reduction
+        # math are keyed to C fixed slots instead of the world size, so
+        # checkpointed state is valid on any world size
+        self.canonical = int(canonical or 0)
+        if self.canonical and self.canonical % self.world:
+            raise ValueError(
+                f"canonical_shards={self.canonical} must be a multiple of "
+                f"the data-parallel size {self.world}")
         self.hier_k = self._resolve_hierarchy()
+        if self.canonical and self.hier_k:
+            logger.warning(
+                "comm: hierarchical schedule is incompatible with the "
+                "canonical-slot elastic mode (per-group residuals are "
+                "world-size-shaped); using the flat schedule")
+            self.hier_k = None
         self._intra = self._inter = None
         if self.hier_k:
             ranks = mesh.ranks_along(axes)
@@ -164,6 +203,12 @@ class GradReducer:
 
     def build_plan(self, tree) -> bucketing.BucketPlan:
         """Plan buckets from the parameter/grad tree."""
+        if self.canonical:
+            # world-free layout: bucket lengths (and so residual shapes and
+            # the plan fingerprint) must not change with the world size
+            self.plan = bucketing.build_plan(tree, self.cfg.bucket_bytes,
+                                             self.cfg.block)
+            return self.plan
         pad_to = self.cfg.block * (self.world if self.world > 1 else 1)
         self.plan = bucketing.build_plan(tree, self.cfg.bucket_bytes, pad_to)
         return self.plan
@@ -175,6 +220,11 @@ class GradReducer:
     def _residual_shapes(self, b: bucketing.Bucket) -> Dict[str, int]:
         """This rank's residual lengths for bucket ``b``."""
         L = b.padded
+        if self.canonical:
+            # per-SLOT single-phase residuals, C rows whatever the world
+            # size (world 1 included, so any tag restores at any world)
+            return ({} if self.cfg.mode in ("fp32", "lossless")
+                    else {"e": L})
         if self.world == 1 or self.cfg.mode in ("fp32", "lossless"):
             return {}  # lossless: exact transport, nothing to feed back
         if self.cfg.mode in ("bf16", "compressed"):
@@ -183,16 +233,30 @@ class GradReducer:
             return {"e1": L // self.hier_k, "e2": L // self.hier_k}
         return {"e": L, "e2": L // self.world}  # int8 flat two-phase
 
+    @property
+    def local_slots(self) -> int:
+        """Canonical slots this rank owns (C/W); 0 outside the mode."""
+        return self.canonical // self.world if self.canonical else 0
+
     def init_state(self, device) -> List[Dict[str, torch.Tensor]]:
-        """Zero residuals for this rank, one dict per bucket."""
-        return [{k: torch.zeros((n,), dtype=torch.float32, device=device)
+        """Zero residuals for this rank, one dict per bucket: (n,) rows,
+        or (C/W, n) in canonical mode."""
+        lead = (self.local_slots,) if self.canonical else ()
+        return [{k: torch.zeros(lead + (n,), dtype=torch.float32,
+                                device=device)
                  for k, n in self._residual_shapes(b).items()}
                 for b in self.plan.buckets]
 
     def state_fingerprint(self) -> Tuple:
         """Identity of (layout, mode, world): residuals restored from a
-        checkpoint with another fingerprint are dropped."""
-        return (self.cfg.mode, self.world, self.hier_k or 0, self.cfg.block,
+        checkpoint with another fingerprint are dropped (or, when only the
+        world size differs and a compatible plan rode along, resharded by
+        resilience/reshard.py). The canonical mode replaces the world
+        term with ``("canonical", C)`` so residuals match verbatim across
+        world sizes."""
+        world_term = (("canonical", self.canonical) if self.canonical
+                      else self.world)
+        return (self.cfg.mode, world_term, self.hier_k or 0, self.cfg.block,
                 self.plan.fingerprint())
 
     def plan_summary(self) -> Dict:
@@ -204,7 +268,7 @@ class GradReducer:
             "axes": list(self.axes),
             "block": self.cfg.block,
             "hier_k": self.hier_k or 0,
-            "canonical": 0,
+            "canonical": self.canonical,
             "error_feedback": bool(self.cfg.error_feedback),
             "bucket_lengths": [b.length for b in self.plan.buckets],
             "bucket_padded": [b.padded for b in self.plan.buckets],
@@ -392,6 +456,86 @@ class GradReducer:
                             wire_bytes=wire, overlapped=False):
                 flat = bucketing.pack(b, [leaves[i] for i in b.leaf_ids])
                 red, nr = self._reduce_flat(flat, state[j])
+            for i, leaf in zip(b.leaf_ids, bucketing.unpack(b, red)):
+                outs[i] = leaf
+            new_state.append(nr)
+            if self._c_buckets is not None:
+                self._c_buckets.inc()
+                self._c_wire.inc(wire)
+        return unflatten(outs), new_state
+
+    # ------------------------------------------------------------------ #
+    # canonical-slot reduction (elastic training)
+    # ------------------------------------------------------------------ #
+
+    def _canonical_wire_rows(self, v, res):
+        """Per-slot wire math: quantize->dequantize each (slot) row of
+        ``v`` ((C/W, L) fp32) with per-slot error feedback. Row-local, so
+        it gives the same bits whichever rank owns the slot."""
+        cfg = self.cfg
+        ef = cfg.error_feedback
+        if cfg.mode in ("fp32", "lossless"):
+            # lossless is exact transport: per slot it IS the fp32 math
+            return v, res
+        c = v + res["e"] if ef else v
+        if cfg.mode == "bf16":
+            out = c.to(torch.bfloat16).float()
+        elif cfg.mode == "compressed":
+            m, e = _compress_blocks(c.reshape(-1), cfg.block)
+            out = _decompress_blocks(m, e, c.numel()).reshape(c.shape)
+        else:  # int8
+            quant, _, deq = self._ops(v.device)
+            q, s, _ = quant(c, cfg.block, want_residual=False)
+            out = deq(q, s, cfg.block, 1.0)
+        new_res = {"e": c - out} if ef else res
+        return out, new_res
+
+    def canonical_wire_launches(self) -> Dict[str, int]:
+        """The fused_quant launches one :meth:`reduce_canonical` makes on
+        a routed device: one ``quantize_rows`` and one ``dequant_rows``
+        per bucket under int8 (all of the rank's slot rows in one call),
+        none otherwise."""
+        n = self.n_buckets if self.cfg.mode == "int8" else 0
+        return {"quantize_rows": n, "dequant_rows": n,
+                "dequant_sum_rows": 0}
+
+    def canonical_wire_bytes(self, b: bucketing.Bucket) -> int:
+        """Per-rank bytes of one bucket's slot-row gather: the fp32 rows
+        of the other ranks' slots."""
+        return int(4 * b.padded * (self.canonical - self.local_slots))
+
+    def reduce_canonical(self, slot_trees, state):
+        """Reduce this rank's per-slot grads (a list of C/W trees like the
+        params, its slots in order) to the tree of slot means over all C
+        slots, bucket by bucket, each in a ``comm/reduce`` span. Returns
+        ``(mean tree (fp32, the caller's key order), new_state)``; the
+        mean is bit-identical on every rank and at every world size."""
+        if not self.canonical:
+            raise ValueError("reduce_canonical requires canonical mode")
+        if len(slot_trees) != self.local_slots:
+            raise ValueError(
+                f"got {len(slot_trees)} slot trees, this rank owns "
+                f"{self.local_slots} of {self.canonical} slots")
+        flat = [bucketing.tree_flatten_sorted(t) for t in slot_trees]
+        unflatten = flat[0][1]
+        slot_leaves = [f[0] for f in flat]
+        if len(slot_leaves[0]) != self.plan.n_leaves:
+            raise ValueError(
+                f"grad tree has {len(slot_leaves[0])} leaves but the bucket "
+                f"plan was built for {self.plan.n_leaves}")
+        outs = [None] * self.plan.n_leaves
+        new_state = []
+        for j, b in enumerate(self.plan.buckets):
+            wire = self.canonical_wire_bytes(b)
+            with trace_span("comm/reduce", lane="comm", bucket=j,
+                            mode=self.cfg.mode, elements=b.length,
+                            wire_bytes=wire, overlapped=False,
+                            canonical=self.canonical):
+                rows = torch.stack([
+                    bucketing.pack(b, [ls[i] for i in b.leaf_ids])
+                    for ls in slot_leaves])  # (C/W, padded)
+                out, nr = self._canonical_wire_rows(rows, state[j])
+                red = exact_slot_mean(out, self.transport, self.canonical)
             for i, leaf in zip(b.leaf_ids, bucketing.unpack(b, red)):
                 outs[i] = leaf
             new_state.append(nr)

@@ -19,13 +19,18 @@ triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 refuses), ``streaming`` (``streaming_enabled``, ``streaming_params``),
 ``aio`` (``aio_config``), ``mesh`` with dp and fsdp (``mesh_config``),
 ``comm`` (``comm_config``), ``datapipe`` (``datapipe_config``),
-``batch_scheduler`` and ``checkpoint`` (tag validation;
-``sharded_io: true``, the orbax layout, raises until sharded checkpoints
-are ported).
+``batch_scheduler``, ``checkpoint`` (tag validation; ``sharded_io:
+true``, the orbax layout, raises until sharded checkpoints are ported),
+``resilience`` (``resilience_config``), ``distributed``
+(``distributed_config``) and ``elasticity`` (the batch rewrite and
+``elastic_canonical_shards``, as the reference's ``_handle_elasticity``).
 """
 
 import copy
 
+from ..elasticity import (compute_elastic_config,
+                          ensure_immutable_elastic_config)
+from ..elasticity import constants as ec
 from ..sharding.config import MeshConfig
 from ..utils.logging import logger
 from . import constants as c
@@ -64,7 +69,14 @@ class TrainingConfig:
         # deep-copy so nothing here ever mutates caller data
         self._param_dict = copy.deepcopy(load_config(config))
         self.world_size = world_size
+        self.elasticity_enabled = False
+        self.elastic_valid_world_sizes = None
+        # canonical reduction-slot count (0 = off): when set, the gradient
+        # reduction is restructured to be bit-identical across every
+        # admissible world size (Engine._train_step_canonical)
+        self.elastic_canonical_shards = 0
         self._refuse_unported(self._param_dict)
+        self._handle_elasticity()
         self._initialize_params(self._param_dict)
         self._set_batch_related_parameters()
         self._do_sanity_check()
@@ -81,9 +93,7 @@ class TrainingConfig:
             raise ValueError(f"ZeRO stage must be in [0, 3], got {stage}")
 
         presence = (
-            (c.DISTRIBUTED, "Resilience and multi-process runtime"),
-            (c.RESILIENCE, "Resilience and multi-process runtime"),
-            (c.LIFECYCLE, "Resilience and multi-process runtime"),
+            (c.LIFECYCLE, "9c, lifecycle/ (Resilience and multi-process runtime)"),
             (c.AUTOTUNE, "Tooling"),
         )
         for key, item in presence:
@@ -95,7 +105,6 @@ class TrainingConfig:
         flag_blocks = (
             (c.PROGRESSIVE_LAYER_DROP, c.PLD_ENABLED, "Tooling"),
             (c.FLOPS_PROFILER, "enabled", "Tooling"),
-            (c.ELASTICITY, "enabled", "Resilience and multi-process runtime"),
         )
         for key, flag, item in flag_blocks:
             if (pd.get(key) or {}).get(flag, False):
@@ -107,6 +116,44 @@ class TrainingConfig:
         for key, item in present:
             if pd.get(key):
                 raise _unported(f'the "{key}" block', item)
+
+    def _handle_elasticity(self):
+        """The reference's elasticity batch rewrite: an enabled
+        ``"elasticity"`` block picks the global batch and the micro batch
+        for this world size (``compute_elastic_config``) and rewrites the
+        batch triple; the batch keys must then be absent unless
+        ``ignore_non_elastic_batch_info``."""
+        pd = self._param_dict
+        elastic_dict = pd.get(ec.ELASTICITY, {})
+        if not elastic_dict.get(ec.ENABLED, ec.ENABLED_DEFAULT):
+            return
+        self.elasticity_enabled = True
+        ensure_immutable_elastic_config(elastic_dict)
+        final_batch_size, valid_gpus, micro_batch = compute_elastic_config(
+            pd, world_size=self.world_size)
+        self.elastic_valid_world_sizes = valid_gpus
+        self.elastic_canonical_shards = int(
+            elastic_dict.get(ec.CANONICAL_SHARDS,
+                             ec.CANONICAL_SHARDS_DEFAULT))
+        if self.elastic_canonical_shards < 0:
+            raise ConfigError(
+                "elasticity.canonical_shards must be >= 0, got "
+                f"{self.elastic_canonical_shards}")
+        ignore = elastic_dict.get(ec.IGNORE_NON_ELASTIC_BATCH_INFO,
+                                  ec.IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT)
+        batch_keys = (c.TRAIN_BATCH_SIZE, c.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                      c.GRADIENT_ACCUMULATION_STEPS)
+        if not ignore and any(k in pd for k in batch_keys):
+            raise ConfigError(
+                "elasticity is enabled — batch parameters "
+                f"{batch_keys} must not be set (or set "
+                f"elasticity.{ec.IGNORE_NON_ELASTIC_BATCH_INFO}: true)")
+        gas = final_batch_size // (micro_batch * self.world_size)
+        pd[c.TRAIN_BATCH_SIZE] = final_batch_size
+        pd[c.TRAIN_MICRO_BATCH_SIZE_PER_GPU] = micro_batch
+        pd[c.GRADIENT_ACCUMULATION_STEPS] = gas
+        logger.info("elasticity rewrote batch params: train=%d micro=%d "
+                    "gas=%d", final_batch_size, micro_batch, gas)
 
     def _initialize_params(self, pd):
         self.train_batch_size = pd.get(c.TRAIN_BATCH_SIZE,
@@ -337,6 +384,51 @@ class TrainingConfig:
             except ValueError as e:
                 raise ConfigError(f'invalid "monitor" block: {e}') from e
 
+        # ---- resilience (async checkpointing / preemption / resume) ----
+        # A "resilience" block turns on resilience/: async two-phase-commit
+        # saves, manifest verification at load, the preemption guard,
+        # fault injection. Validated eagerly like "serving"/"monitor".
+        self.resilience_params = pd.get(c.RESILIENCE, None)
+        if self.resilience_params is not None and not isinstance(
+                self.resilience_params, dict):
+            raise ConfigError('"resilience" must be a dict of '
+                              'ResilienceConfig overrides (or {"enabled": '
+                              'false})')
+        self.resilience_enabled = _block_enabled(pd, c.RESILIENCE)
+        self._resilience_config = None
+        if self.resilience_enabled:
+            from ..resilience.config import ResilienceConfig
+
+            try:
+                self._resilience_config = ResilienceConfig.from_dict(
+                    dict(self.resilience_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(f'invalid "resilience" block: {e}') from e
+
+        # ---- distributed (the multi-process runtime) ----
+        # A "distributed" block configures the process-group rendezvous:
+        # coordinator address and process shape (or environment
+        # discovery), init timeout with retry backoff, the host-tensor
+        # backend, the per-host rendezvous record directory. Validated
+        # eagerly so a typo'd coordinator address fails at load.
+        self.distributed_params = pd.get(c.DISTRIBUTED, None)
+        if self.distributed_params is not None and not isinstance(
+                self.distributed_params, dict):
+            raise ConfigError('"distributed" must be a dict of '
+                              'DistributedConfig overrides (or {"enabled": '
+                              'false})')
+        self.distributed_enabled = _block_enabled(pd, c.DISTRIBUTED)
+        self._distributed_config = None
+        if self.distributed_enabled:
+            from ..distributed.config import DistributedConfig
+
+            try:
+                self._distributed_config = DistributedConfig.from_dict(
+                    dict(self.distributed_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(
+                    f'invalid "distributed" block: {e}') from e
+
         # ---- fused kernels ----
         # validated eagerly so typos fail at load; applied process-globally
         # at engine init (the consumers are free functions deep inside
@@ -396,6 +488,16 @@ class TrainingConfig:
         """The "monitor" block as a MonitorConfig (None when absent or
         disabled), validated at parse time."""
         return self._monitor_config
+
+    def resilience_config(self):
+        """The "resilience" block as a ResilienceConfig (None when absent
+        or disabled)."""
+        return self._resilience_config
+
+    def distributed_config(self):
+        """The "distributed" block as a DistributedConfig (None when
+        absent or disabled)."""
+        return self._distributed_config
 
     def datapipe_config(self):
         """The "datapipe" block as a DataPipeConfig (None when absent or

@@ -77,9 +77,28 @@ before unscaling and clipping, in ``stored_gradients``;
 the outputs of a forward of the step's batch under the updated params,
 as the reference replays it.
 
+Resilience, as in the reference: a ``"resilience"`` block installs the
+process-global ``ResilienceManager`` (else an installed one is adopted);
+``save_checkpoint`` goes through its two-phase-commit writer (async: the
+step blocks only for the snapshot into pinned host memory) when it
+handles the save (one process), every optimizer step ends at its
+boundary hook (fault injection, the preemption protocol, interval
+autosaves), and a load honours ``verify_on_load`` and counts fallbacks
+and resumes. A ``"distributed"`` block joins the process group first
+(distributed/bootstrap.py; ``initialize`` does it before the batch triple
+reads the world size).
+
+Elasticity: with ``elasticity.canonical_shards`` C, ``train_batch``
+splits the global batch into C slots; each rank computes the loss and
+grads of the slots it owns, one forward and backward a slot with a
+generator keyed by the step and the slot index, and the reducer's
+canonical mode takes the slot means through gathered fp32 rows and the
+fixed pairwise tree (runtime/comm/reducer.py). Every step's loss is then
+bit-identical at every admissible world size, world 1 included.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
 stage 3 and offload for a loss callable, tensor and pipeline
-parallelism, the comm overlap schedule, the resilience manager and the
+parallelism, the comm overlap schedule, the lifecycle hooks and the
 flops profiler.
 """
 
@@ -119,7 +138,7 @@ from . import lr_schedules
 from .accessors import ConfigAccessorsMixin, make_summary_writer
 from .comm.collectives import Transport
 from .comm.config import CommConfig
-from .comm.reducer import GradReducer
+from .comm.reducer import GradReducer, exact_slot_mean
 from .config import TrainingConfig
 from .bs_schedules import BatchSizeScheduler
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -197,6 +216,13 @@ class Engine(ConfigAccessorsMixin):
     ):
         _refuse_offload(config)
         self._config = config
+        # a "distributed" block joins the process group before the mesh
+        # reads the world size (idempotent: initialize() or a launcher may
+        # have made the group already)
+        if config.distributed_config() is not None:
+            from ..distributed import bootstrap as _dist_bootstrap
+
+            _dist_bootstrap.bootstrap(config.distributed_config())
         self.loss_fn = model
         self.module = model  # reference-compatible alias
         self.device = torch.device("cuda" if device is None else device)
@@ -246,6 +272,19 @@ class Engine(ConfigAccessorsMixin):
         # functions deep inside model code)
         if config.kernels_params:
             kernel_config.configure(**config.kernels_params)
+
+        # resilience: a "resilience" block installs the process-global
+        # manager (async two-phase-commit saves, preemption guard, fault
+        # injection); without one an installed manager is adopted
+        from ..resilience import get_resilience_manager, init_resilience
+
+        if config.resilience_config() is not None:
+            self._resilience = init_resilience(config.resilience_config())
+        else:
+            self._resilience = get_resilience_manager()
+        if self._resilience is not None:
+            # a supervisor-restarted child: count it, record reason/world
+            self._resilience.note_restart_context()
 
         # batch-size warmup (the fork's bs_schedules.py): the engine
         # tracks the schedule and exposes current_batch_size(); the
@@ -340,12 +379,31 @@ class Engine(ConfigAccessorsMixin):
                                  if self._use_master else None)
         self.opt_state = self.optimizer.init(self._opt_target)
 
+        # canonical-slot reduction (elasticity.canonical_shards): C slots
+        # whose reduction is the same at every admissible world size;
+        # resolved before the reducer so its residuals take the (C, n)
+        # world-free layout
+        self.canonical_shards = 0
+        canon = int(config.elastic_canonical_shards or 0)
+        if canon:
+            rows = self._global_rows()
+            if rows % canon != 0:
+                raise ValueError(
+                    f"elasticity.canonical_shards={canon} must divide the "
+                    f"global batch rows ({rows})")
+            if canon % self.data_parallel_size != 0:
+                raise ValueError(
+                    f"elasticity.canonical_shards={canon} must be a "
+                    f"multiple of every admissible data-parallel size "
+                    f"(current: {self.data_parallel_size})")
+            self.canonical_shards = canon
+
         # the gradient reduction at the accumulation boundary: the "comm"
         # block's wire, else the fp32 mean over the same buckets
         self.comm = GradReducer(
             config.comm_config() or CommConfig(mode="fp32"), self.mesh,
             registry=(self.monitor.registry if self.monitor is not None
-                      else None))
+                      else None), canonical=self.canonical_shards)
         self.comm.build_plan(params)
         self._comm_state = self.comm.init_state(self.device)
         self.scaler_state = self._loss_scaler.init()
@@ -425,6 +483,10 @@ class Engine(ConfigAccessorsMixin):
             trace_instant("mesh/build", lane="mesh",
                           axes={k: int(v) for k, v in mesh.shape.items()},
                           devices=int(mesh.size))
+            if self._config.distributed_config() is not None:
+                from ..distributed.bootstrap import emit_init_span
+
+                emit_init_span()
         return monitor
 
     def _capture(self, name, sigs, *args):
@@ -647,6 +709,11 @@ class Engine(ConfigAccessorsMixin):
         """The mean over the data-parallel ranks of each rank's local
         (scaled, micro-batch-summed) grads, the same bits on every rank,
         bucket by bucket through the GradReducer. Identity on one rank."""
+        if self.canonical_shards:
+            raise NotImplementedError(
+                "the imperative backward()/step() path does not support "
+                "the canonical-slot elastic mode (residuals are per-slot, "
+                "not per-device); use the fused train_batch() API")
         if self.data_parallel_size == 1:
             return grads
         grads = [g.to(self._grad_dtype) for g in grads]
@@ -855,6 +922,8 @@ class Engine(ConfigAccessorsMixin):
     def _train_step(self, batch, gas):
         """The micro-batch loop, the reduction and the update of one
         ``train_batch``; returns the step's metrics."""
+        if self.canonical_shards:
+            return self._train_step_canonical(batch)
         loss_sum = None
         for i in range(gas):
             mb = _micro_batch(batch, i, gas)
@@ -871,6 +940,49 @@ class Engine(ConfigAccessorsMixin):
         self._grad_acc = None
         self._acc_count = 0
         metrics["loss"] = self._mean_loss(loss_sum / gas)
+        return metrics
+
+    def _slot_rng(self, tick: int, slot: int) -> torch.Generator:
+        """The generator of canonical slot ``slot`` in the step that drew
+        call count ``tick``: keyed by the slot, never by how the slots are
+        spread over ranks (the reference's ``fold_in(rng, slot)``)."""
+        seed = ((self._seed * 0x9E3779B97F4A7C15 + tick + 1)
+                * 0x100000001B3 + slot + 1) % (2 ** 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _train_step_canonical(self, batch):
+        """One ``train_batch`` in the canonical-slot mode. The global batch
+        is C slots of consecutive rows and this rank's rows are its C/W
+        slots (``rules.place_batch`` gives rank r the r-th block); each
+        slot's loss and scaled grads come from one forward and backward
+        with the slot's own generator, the reducer takes the slot means
+        through gathered fp32 rows and the pairwise tree (never an
+        all-reduce), and the update unscales with gas 1. The loss is the
+        same exact mean of the C slot losses."""
+        C = self.canonical_shards
+        local = self.comm.local_slots
+        first = self.comm.rank * local
+        tick = self._rng_tick
+        self._rng_tick += 1
+        losses, slot_grads = [], []
+        for k in range(local):
+            mb = _micro_batch(batch, k, local)
+            loss = self._call_loss(mb, self._slot_rng(tick, first + k))
+            grads = self._micro_grads(loss)
+            losses.append(loss.detach().float().reshape(1))
+            slot_grads.append(tree_unflatten(self.params, grads))
+            del loss, grads
+        mean, self._comm_state = self.comm.reduce_canonical(
+            slot_grads, self._comm_state)
+        del slot_grads
+        grads = [g.to(self._grad_dtype) for g in tree_leaves(mean)]
+        del mean
+        if self.store_gradients:
+            self._store_grads(grads)
+        metrics = self._apply_update(grads, self._current_lr(), 1.0)
+        del grads
+        metrics["loss"] = exact_slot_mean(torch.cat(losses),
+                                          self.comm.transport, C)
         return metrics
 
     def eval_batch(self, batch):
@@ -943,6 +1055,14 @@ class Engine(ConfigAccessorsMixin):
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
             self._lr_override = None
+        self._end_of_step_resilience()
+
+    def _end_of_step_resilience(self):
+        """The step-boundary resilience hook: fault injection, preemption
+        (urgent checkpoint + sentinel exit), interval autosaves. Shared by
+        ``train_batch`` and the imperative ``step()``."""
+        if self._resilience is not None:
+            self._resilience.on_step_boundary(self)
 
     def _tb_write_pending(self):
         """Write the previous step's tensorboard scalars. Called on the
@@ -1027,16 +1147,23 @@ class Engine(ConfigAccessorsMixin):
             "zero_stage": self.zero_stage,
         }
         if self._config.comm_config() is not None:
-            # error-feedback residuals: a quantized mode resumes bit for bit
-            # only with them
+            # error-feedback residuals, (world, n) per key or (C, n) in the
+            # canonical-slot mode: a quantized mode resumes bit for bit only
+            # with them
             optim_states["comm"] = [
-                {k: self.comm.transport.all_gather(v)
-                 for k, v in res.items()} for res in self._comm_state]
+                {k: self._gather_residual(v) for k, v in res.items()}
+                for res in self._comm_state]
             optim_states["comm_fingerprint"] = repr(
                 self.comm.state_fingerprint())
             optim_states["comm_plan"] = self.comm.plan_summary()
         return {model_state_filename(): model_states,
                 optim_state_filename(): optim_states}
+
+    def _gather_residual(self, v):
+        g = self.comm.transport.all_gather(v)
+        if self.canonical_shards:
+            return g.reshape((self.canonical_shards,) + tuple(v.shape[1:]))
+        return g
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
@@ -1051,8 +1178,14 @@ class Engine(ConfigAccessorsMixin):
         if self._config.checkpoint_tag_validation_enabled:
             validate_tag_across_processes(
                 tag, self._config.checkpoint_tag_validation_fail)
-        ck = CheckpointEngine(save_dir, tag)
         self._tb_write_pending()
+        if self._resilience is not None:
+            self._resilience.note_save_dir(save_dir)
+            if self._resilience.handles_save():
+                return self._resilience.save_checkpoint(
+                    self, save_dir, tag, client_state,
+                    save_latest=save_latest)
+        ck = CheckpointEngine(save_dir, tag)
         with torch.no_grad():
             payload = self._host_checkpoint_payload(client_state)
             if self.mesh.rank == 0:
@@ -1088,9 +1221,18 @@ class Engine(ConfigAccessorsMixin):
                 logger.warning("no 'latest' file in %s; nothing loaded",
                                load_dir)
                 return None, {}
-        tag, _ = resolve_load_tag(load_dir, str(tag))
+        # never load a torn/corrupt tag: committed tags verify against
+        # their manifest, and an unloadable requested tag falls back to
+        # the newest older valid one
+        verify = (self._resilience.cfg.verify_on_load
+                  if self._resilience is not None else True)
+        requested = str(tag)
+        tag, fell_back = resolve_load_tag(load_dir, requested,
+                                          verify_checksums=verify)
         if tag is None:
             return None, {}
+        if fell_back and self._resilience is not None:
+            self._resilience.note_fallback(skipped_tag=requested)
         ck = CheckpointEngine(load_dir, tag)
         if os.path.isdir(ck.path(SHARDED_STATE_DIR)):
             raise NotImplementedError(
@@ -1125,7 +1267,8 @@ class Engine(ConfigAccessorsMixin):
                 self.optimizer_steps = int(optim["step"])
                 if self._config.comm_config() is not None:
                     self._restore_comm_state(optim.get("comm"),
-                                             optim.get("comm_fingerprint"))
+                                             optim.get("comm_fingerprint"),
+                                             optim.get("comm_plan"))
             if self.master is not None and not master_loaded:
                 tree_map(lambda m, p, sp: m.copy_(partition.shard_of(
                     p.detach(), sp, self._zero_index)), self.master,
@@ -1161,31 +1304,74 @@ class Engine(ConfigAccessorsMixin):
                 and model_states.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(model_states["lr_scheduler"])
         log_dist(f"loaded checkpoint {ck.ckpt_dir}", ranks=[0])
+        if self._resilience is not None:
+            self._resilience.note_resumed(tag)
         return ck.ckpt_dir, model_states.get("client_state", {})
 
-    def _restore_comm_state(self, saved, fingerprint):
-        """This rank's row of checkpointed error-feedback residuals. Rows
-        saved under another bucket layout, mode or world are useless, and
+    def _my_rows(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a checkpointed (world, n) residual, or of a
+        (C, n) one in the canonical-slot mode."""
+        if self.canonical_shards:
+            n = self.comm.local_slots
+            return full[self.comm.rank * n:(self.comm.rank + 1) * n]
+        return full[self.comm.rank]
+
+    def _restore_comm_state(self, saved, fingerprint, comm_plan=None):
+        """This rank's rows of checkpointed error-feedback residuals. Rows
+        saved under another bucket layout or mode are useless, and
         misapplied they corrupt the gradients: on a fingerprint mismatch
-        (or none saved) the residuals stay zero."""
+        the residuals are resharded when only the world size differs and
+        a compatible plan rode along (resilience/reshard.py), else they
+        stay zero. Canonical-slot residuals carry no world term in their
+        fingerprint: they restore verbatim at any world size."""
         if saved is None:
             if any(self._comm_state):
                 logger.warning("checkpoint carries no comm residuals: error "
                                "feedback restarts from zero")
             return
+        if isinstance(saved, dict):  # msgpack keeps a list as index keys
+            saved = [saved[k] for k in sorted(saved, key=int)]
         if fingerprint != repr(self.comm.state_fingerprint()):
+            if self._reshard_comm_residuals(saved, comm_plan):
+                return
             logger.warning(
                 "checkpointed comm residuals were saved under a different "
                 "bucket layout/mode/world (fingerprint mismatch): error "
                 "feedback restarts from zero")
             return
-        if isinstance(saved, dict):  # msgpack keeps a list as index keys
-            saved = [saved[k] for k in sorted(saved, key=int)]
-        row = self.comm.rank
         for res, rows in zip(self._comm_state, saved):
             for k, t in res.items():
-                full = _host_tensor(rows[k])
-                t.copy_(full[row])
+                t.copy_(self._my_rows(_host_tensor(rows[k])))
+
+    def _reshard_comm_residuals(self, saved, saved_plan) -> bool:
+        """Residuals whose checkpointed shape bakes in another world size,
+        rebuilt for this one by ``reshard_comm_residuals``; True on
+        success (and a ``resilience/comm_reshard`` instant)."""
+        from ..resilience.reshard import reshard_comm_residuals
+
+        target = self.comm.plan_summary()
+        host = [{k: _host_tensor(v).numpy() for k, v in b.items()}
+                if isinstance(b, dict) else b for b in saved]
+        resharded = reshard_comm_residuals(host, saved_plan, target)
+        if resharded is None:
+            return False
+        if len(resharded) != len(self._comm_state) or any(
+                set(r) != set(w) for r, w in zip(resharded,
+                                                 self._comm_state)):
+            logger.warning(
+                "resharded comm residuals do not match the running "
+                "reducer's residual keys: error feedback restarts from zero")
+            return False
+        for r, w in zip(resharded, self._comm_state):
+            for k, t in w.items():
+                t.copy_(self._my_rows(torch.from_numpy(r[k])))
+        w_from = (saved_plan.get("world") if isinstance(saved_plan, dict)
+                  else None)
+        logger.info("comm residuals resharded for the new topology (world "
+                    "%s -> %s)", w_from, target["world"])
+        trace_instant("resilience/comm_reshard", lane="resilience",
+                      world_from=w_from, world_to=target["world"])
+        return True
 
 
 def _host_tensor(src) -> torch.Tensor:
@@ -1276,6 +1462,27 @@ def _loss_fn_takes_rng(fn) -> bool:
         return False
 
 
+def _bootstrap_from_raw_config(config) -> None:
+    """Join the process group a config's ``"distributed"`` block
+    describes, before ``TrainingConfig`` reads the world size for the
+    batch triple (the block lives inside the config, so the raw dict is
+    peeked here, as the reference peeks its ``"mesh"`` block)."""
+    if isinstance(config, TrainingConfig):
+        dc = config.distributed_config()
+    else:
+        from ..distributed.config import DistributedConfig
+        from .config_utils import load_config
+
+        block = load_config(config).get("distributed")
+        if not isinstance(block, dict) or block.get("enabled") is False:
+            return
+        dc = DistributedConfig.from_dict(dict(block, enabled=True))
+    if dc is not None:
+        from ..distributed import bootstrap as _dist_bootstrap
+
+        _dist_bootstrap.bootstrap(dc)
+
+
 def _optimizer_base_lr(opt, config):
     lr = getattr(opt, "lr", None)
     if lr is not None:
@@ -1319,7 +1526,8 @@ def initialize(
     the config's ``"mesh"`` block, else every rank on the legacy ``data``
     axis. The port refuses tensor and sequence parallelism, so every rank
     is a data-parallel rank and the batch triple is derived for the whole
-    world."""
+    world. A ``"distributed"`` block joins the process group first
+    (distributed/bootstrap.py)."""
     if model is None:
         raise ValueError("deepspeed.initialize requires a model")
     if config is None and config_params is not None:
@@ -1370,6 +1578,7 @@ def initialize(
             "(ROADMAP.md queue 1, item 'MoE, TP and pipeline')")
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
+    _bootstrap_from_raw_config(config)
     ds_config = (config if isinstance(config, TrainingConfig)
                  else TrainingConfig(config, world_size=mesh_lib.world_size()))
     engine = Engine(model=model, params=model_parameters, config=ds_config,

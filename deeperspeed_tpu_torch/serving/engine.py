@@ -258,6 +258,12 @@ class ServingEngine:
         # preemption drain: while set, step() admits nothing new and only
         # finishes the requests already holding slots
         self._draining = False
+        # the resilience manager drains live serving engines on preemption
+        from ..resilience import get_resilience_manager
+
+        mgr = get_resilience_manager()
+        if mgr is not None:
+            mgr.attach_serving(self)
         # slot -> in-flight chunked-prefill state (staging cache, cursor)
         self._chunking: Dict[int, dict] = {}
         self._prefill_spent = 0   # prompt tokens prefilled this step

@@ -6,7 +6,10 @@ policies, names, metrics and trace instants. The router is pure host
 Python; the replicas it drives hold the engines. One departure: a
 replica's decode-progress window opens when it is given work while idle
 (the reference also counts the idle time before, so a replica idle for
-``progress_timeout_s`` is marked stalled as soon as it gets a request).
+``progress_timeout_s`` is marked stalled as soon as it gets a request:
+after one replica wedges, the healthy idle replicas that take its
+requeued requests are marked stalled and restarted in turn, and
+requests run past their deadlines).
 
 The router is the layer that turns "a replica died" into "the client
 never noticed". Requests flow through four gates:

@@ -158,6 +158,47 @@ def test_speculative_decoding_and_fleet_load_no_jax():
     assert [m for m in mods if _forbidden(m)] == []
 
 
+_RUNTIME_MODULES = (
+    "resilience.config", "resilience.writer", "resilience.preemption",
+    "resilience.manager", "resilience.supervisor", "resilience.reshard",
+    "elasticity", "elasticity.constants", "elasticity.elasticity",
+    "distributed.config", "distributed.bootstrap",
+    "distributed.rendezvous", "distributed.fleet", "utils.distributed",
+    "launcher", "launcher.constants", "launcher.runner", "launcher.launch",
+    "launcher.multinode_runner")
+
+
+@pytest.fixture(scope="module")
+def runtime_imports():
+    """One fresh interpreter imports the slice's modules one by one and
+    records, after each, whether it loaded and which forbidden modules
+    sys.modules then holds."""
+    code = (
+        "import importlib, json, sys\n"
+        f"names = {list(_RUNTIME_MODULES)!r}\n"
+        "out = {}\n"
+        "for n in names:\n"
+        "    importlib.import_module('deeperspeed_tpu_torch.' + n)\n"
+        "    out[n] = sorted(sys.modules)\n"
+        "print(json.dumps(out))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", _RUNTIME_MODULES)
+def test_resilience_and_multiprocess_runtime_load_no_jax(runtime_imports,
+                                                         name):
+    """Each module of the resilience and multi-process runtime slice
+    imports with neither jax nor any module of the reference in
+    sys.modules."""
+    mods = runtime_imports[name]
+    assert f"deeperspeed_tpu_torch.{name}" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

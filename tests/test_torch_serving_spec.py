@@ -184,6 +184,25 @@ def test_greedy_spec_identical_to_plain_and_reference_cold(model):
     assert eng.metrics.spec_rounds > 0 and eng.metrics.spec_drafted > 0
 
 
+@pytest.mark.parametrize("draft_k,n_layer", [(3, 1), (2, 2)])
+def test_greedy_acceptance_counts_match_the_reference(model, draft_k,
+                                                      n_layer):
+    """Acceptance held against the reference: on the same fp32 weights,
+    with a truncated drafter, both packages' engines report the same
+    rounds, drafted and accepted counts, not only the same tokens."""
+    spec = {"draft_k": draft_k, "drafter": {"n_layer": n_layer}}
+    prompts = [_prompt(9, 21), _prompt(17, 22)]
+    counts = []
+    for eng in (_engine(model, spec=spec), _jax_engine(model, spec=spec)):
+        out = _serve(eng, prompts, 16)
+        m = eng.metrics
+        counts.append((out, m.spec_rounds, m.spec_drafted, m.spec_accepted))
+    assert counts[0] == counts[1]
+    assert counts[0][2] > 0
+    if n_layer == 2:  # the drafter is the whole target: all accepted
+        assert counts[0][3] == counts[0][2]
+
+
 def test_greedy_spec_cache_hit_identical_to_miss(model):
     """A spec request admitted over shared radix blocks (drafter synced
     from its own prefix index) emits the cold plain greedy stream."""

@@ -135,9 +135,9 @@ def test_config_fields_match_reference(cfg):
     ({"streaming": {}}, "Offload and ZeRO-Infinity"),
     ({"comm": {"overlap": "on"}}, "runtime/comm/"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "runtime/comm/"),
-    ({"resilience": {}}, "Resilience and multi-process runtime"),
+    ({"lifecycle": {"enabled": True}}, "9c, lifecycle/"),
     ({"pipeline": {"stages": 2}}, "MoE, TP and pipeline"),
-    ({"distributed": {}}, "Resilience and multi-process runtime"),
+    ({"autotune": {}}, "Tooling"),
     ({"lifecycle": {}}, "Resilience and multi-process runtime"),
     ({"progressive_layer_drop": {"enabled": True}}, "Tooling"),
     ({"flops_profiler": {"enabled": True}}, "Tooling"),

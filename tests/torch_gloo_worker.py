@@ -37,6 +37,21 @@ def spawn(name, world, tmp, *args):
                        nprocs=world, start_method="spawn", join=True)
 
 
+def _tcp_entry(rank, name, world, tmp, port, args):
+    torch.set_num_threads(1)
+    os.environ.update(DS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      DS_NUM_PROCESSES=str(world), DS_PROCESS_ID=str(rank))
+    globals()[name](rank, world, tmp, *args)
+
+
+def spawn_tcp(name, world, tmp, port, *args):
+    """Like ``spawn``, but the ranks join no group themselves: each gets
+    the launcher's rendezvous env (a coordinator on ``port``) and
+    ``<name>`` brings the group up."""
+    mp.start_processes(_tcp_entry, args=(name, world, str(tmp), port, args),
+                       nprocs=world, start_method="spawn", join=True)
+
+
 # ------------------------------------------------------------------ #
 # the reducer at W ranks
 # ------------------------------------------------------------------ #
@@ -338,3 +353,85 @@ def datapipe_rows(rank, world, tmp, model_kw, config, steps):
     with open(os.path.join(tmp, f"datapipe_rank{rank}.json"), "w") as f:
         json.dump({"losses": losses,
                    "state": eng.datapipe.state_dict()}, f)
+
+
+# ------------------------------------------------------------------ #
+# elasticity: the canonical-slot step and cross-world residuals
+# ------------------------------------------------------------------ #
+
+
+def elastic_run(rank, world, tmp, model_kw, config, steps, save_dir,
+                load_dir, tag, device="cpu"):
+    """Train ``steps`` steps of the tiny GPT under ``config`` (batches
+    keyed by the global step), after loading ``load_dir`` when given and
+    saving into ``save_dir`` at the end when given; write the losses (as
+    hex), the residual rows, what the load reported, and the monitor's
+    ``resilience/comm_reshard`` instants to ``<tag>_rank<r>.json``. On
+    ``device="cuda"`` every rank runs on the one card (gloo through host
+    copies)."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.monitor import (get_monitor, init_monitor,
+                                               shutdown_monitor)
+
+    init_monitor({})
+    params = torch.load(os.path.join(tmp, "params.pt"))
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32, attn_impl="xla")
+    eng, _, _, _ = ds.initialize(model=gpt.make_gpt(cfg)[2],
+                                 model_parameters=params, config=config,
+                                 device=device)
+    loaded = None
+    if load_dir is not None:
+        loaded, _ = eng.load_checkpoint(load_dir)
+    rows = eng._config.train_batch_size
+    res_after_load = [{k: v.cpu().tolist() for k, v in r.items()}
+                      for r in eng._comm_state]
+    losses = []
+    for _ in range(steps):
+        s = eng.global_steps
+        batch = np.random.RandomState(1000 + s).randint(
+            0, model_kw["vocab_size"], (rows, model_kw["max_seq"] + 1))
+        losses.append(float(eng.train_batch(batch)).hex())
+    if save_dir is not None:
+        eng.save_checkpoint(save_dir)
+    events = [e for e in get_monitor().tracer.events()
+              if e.get("name") == "resilience/comm_reshard"]
+    shutdown_monitor(save=False)
+    with open(os.path.join(tmp, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "loaded": loaded,
+                   "res_after_load": res_after_load,
+                   "reshard": [e["args"] for e in events],
+                   "canonical": eng.canonical_shards,
+                   "micro": eng._config.train_micro_batch_size_per_gpu,
+                   "gas": eng._config.gradient_accumulation_steps}, f)
+
+
+# ------------------------------------------------------------------ #
+# the distributed bootstrap
+# ------------------------------------------------------------------ #
+
+
+def bootstrap_run(rank, world, tmp):
+    """Join the group through ``bootstrap`` (TCPStore at the launcher's
+    coordinator), call it again (adopted), all-reduce once, and report."""
+    from deeperspeed_tpu_torch.distributed import bootstrap
+    from deeperspeed_tpu_torch.distributed.config import DistributedConfig
+    from deeperspeed_tpu_torch.monitor import (get_monitor, init_monitor,
+                                               shutdown_monitor)
+
+    os.environ["DS_TPU_RENDEZVOUS_DIR"] = os.path.join(tmp, "rdzv")
+    os.environ.pop("DS_TPU_ROLE", None)
+    init_monitor({})
+    topo = bootstrap.bootstrap(DistributedConfig(init_timeout_s=30.0))
+    again = bootstrap.bootstrap(DistributedConfig())
+    t = torch.full((1,), float(rank + 1))
+    dist.all_reduce(t)
+    spans = [e for e in get_monitor().tracer.events()
+             if e.get("name") == "dist/init"]
+    with open(os.path.join(tmp, f"boot{rank}.json"), "w") as f:
+        json.dump({"topology": topo.as_args(),
+                   "backend": topo.cpu_collectives,
+                   "again_same": again is topo, "sum": float(t),
+                   "dist_init_spans": len(spans)}, f)
+    shutdown_monitor(save=False)
+    bootstrap.shutdown()
