@@ -319,8 +319,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its four timings, the bytes in host RAM and on the NVMe tier, the
    resident bytes and the peak device memory, and the wire bytes. 15c:
    15b's checkpoint of step 2 (the config's profile at 1 layer) loaded
-   into a fresh engine (at step 0): its step 3 on the same batch must give
-   15b's step-3 loss and card bytes, bit for bit. The LN, bias+GeLU and
+   into 15b's engine after its step 3, its host shadow, masters and
+   moments (the NVMe tier's too), card storage, step count and host RNG
+   poisoned first: the load must give step count 2, and its step 3 again
+   on the same batch 15b's step-3 loss and card bytes, bit for bit. The LN, bias+GeLU and
    flash kernels are held against their plain versions and timed at this
    step's shapes (INFINITY_LN, INFINITY_BG, INFINITY_FLASH) in the kernel
    phases ("path": "infinity").
@@ -452,6 +454,54 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dequant_rows once a bucket, dequant_sum_rows none. Printed: step
    seconds at worlds 2 and 1, the slot-row reduction's share (its
    comm/reduce spans), spawn to first step, peak memory a rank.
+19. The lifecycle control plane: configs/gpt_125m_lifecycle.json on
+   GPT-NeoX-125M (phase 16's model, random weights from SEED), cut as
+   PERF.md section 4 lists (max_train_batch_size 512 -> LC_MAX_BATCH,
+   canonical_shards 32 -> LC_CANONICAL, save and publish intervals 500 ->
+   LC_SAVE_INTERVAL, save_dir, pool_file and obs_dir temporary, plus
+   kernels auto). The trainer is two processes sharing the card over
+   gloo under the FleetSupervisor with live_remesh; a RolloutDriver rolls
+   the serving block's three replicas (thread replicas in this process,
+   built from the checkpoint a version names) onto each published
+   version while a request every LC_ARRIVAL_S arrives (every other one
+   sampled). After step LC_REMESH_AFTER the pool file goes 2 -> 1: the
+   supervisor signals both trainers, they agree at the next step
+   boundary, host 1 retires (exit 0) and host 0 goes on at world 1. An
+   uninterrupted world-1 trainer runs beside them. Gates: every step's
+   loss bits, batch hash, grad norm bits and params digest equal the
+   uninterrupted run's; exactly one lifecycle/remesh span; one launch in
+   the restart log, no crash, host 1 retired and host 0 done; at least
+   LC_MIN_PUSHES weight versions rolled out; every accepted request
+   finished; every greedy request's tokens equal a plain ServingEngine's
+   loaded with the version it was pinned to, or differ first at a near
+   tie; the merged trainer trace strict-valid; launches a world-2 rank-step
+   as the model's path gives them. Printed: the re-mesh stall (its span),
+   commit -> publish -> fleet-version seconds, seconds a replica
+   rollout, TTFT p50/p99 of the requests submitted within
+   LC_ROLLOUT_WINDOW_S of a rollout's start.
+20. 1-bit Adam: configs/neox_6.7b_3d.json's blocks at GPT-NeoX-6.7B width
+   (d_model 4096, 32 heads, bf16, remat "matmuls", random weights from
+   SEED) cut to ONEBIT_LAYERS of 32 layers, ONEBIT_ROWS rows of
+   ONEBIT_SEQ tokens a step (the file's 1024 / micro 4), freeze_step
+   ONEBIT_FREEZE (the file's 20000) and warmup_num_steps ONEBIT_WARMUP
+   (the file's 3000), kernels auto, one process. Steps 1-4 run exact
+   Adam (the scheduler gives lr 0 on steps 1-2, so 3-4 move the
+   params), 5-6 the 1-bit compressed momentum. Gates: every loss and
+   grad norm finite; each step's loss within ONEBIT_LOSS_RTOL of a
+   kernels-off run on plain attention from the same weights and batch;
+   at the second compressed step (its incoming error non-zero), for the
+   smallest leaf and the largest of at most ONEBIT_CHECK_MAX elements,
+   the stored momentum is +-mean(|m + err|) by the sign of m + err and
+   the new error is fl((m + err) - quant), bit for bit; a save after step
+   ONEBIT_SAVE_AFTER, loaded back into the engine after its step 6 once
+   every tensor of its state is NaN and its step counts POISON_STEP,
+   restores the step counts and gives step 6's loss, grad norm and
+   params digest again, bit for bit; launches a step as the model's path
+   gives them. The LN and bias+GeLU kernels are held against their plain
+   versions and timed at this step's shapes (ONEBIT_LN, ONEBIT_BG) in
+   the kernel phases ("path": "onebit"). Printed: the warmup- and
+   compressed-phase step seconds, peak memory, save and load seconds,
+   each kernel's launches a step.
 A line before the kernels line gives each phase's wall seconds. The line
 before the last is the kernels JSON object, the one before it the card;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -459,6 +509,7 @@ device the script exits non-zero before printing any result.
 """
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -581,9 +632,10 @@ LOSS_RTOL = 5e-3
 GNORM_RTOL = 5e-2
 MIN_COSINE = 0.99
 TRAIN_STEPS = 6
-# phases 6 and 6' train GPT-NeoX-1.3B at full width, cut to 10 of its 24
-# layers to give phase 18 time (PERF.md section 4); phase 5 serves all 24
-TRAIN_LAYERS = 10
+# phases 6 and 6' train GPT-NeoX-1.3B at full width, cut to 6 of its 24
+# layers to give phases 18-20 time (PERF.md section 4); phase 5 serves all
+# 24
+TRAIN_LAYERS = 6
 # overrides the config's 1000 so the LR moves within 6 steps. The
 # scheduler gives lr 0 on the first two steps; the first Adam step after
 # them moves every weight by about lr (Adam's first steps are sign-like),
@@ -788,7 +840,7 @@ NEAR_TIE = 0.02
 # faults, one-shot flag files)
 FLEET_GREEDY = 24
 FLEET_SAMPLED = 4
-FLEET_NEW = 48
+FLEET_NEW = 32
 FLEET_PROMPT_MAX = 512
 FLEET_KILL_AT = 12
 FLEET_STALL_AT = 20
@@ -813,13 +865,74 @@ RES_STEPS = 7
 RES_PREEMPT_AFTER = 5               # SIGTERM while held after this step
 RES_TAG_FILES = 2                   # payload files a tag (model, optim)
 MH_MAX_BATCH = 64                   # the file's 512
-MH_CANONICAL = 8                    # the file's 32
+MH_CANONICAL = 4                    # the file's 32 (8 gathered twice the
+                                    # rows: the script's time, PERF.md)
 MH_ROWS, MH_MICRO_W2, MH_WORLDS = 48, 8, [1, 2, 3, 4, 6, 12]
 MH_SAVE_INTERVAL = 4                # the file's 500: tags at 4 and 5 only
 MH_STEPS = 7                        # epoch 2 (world 1) runs steps 6 and 7
 MH_KILL_AFTER = 4                   # host 1 SIGKILLed after this step
 MH_REMESH_AFTER = 5                 # the pool file 2 -> 1 after this step
 PHASE18_CHILD_TIMEOUT_S = 600
+# the lifecycle control plane (phase 19): configs/gpt_125m_lifecycle.json
+# on GPT-NeoX-125M (phase 16's model), cut as PERF.md section 4 lists
+LIFECYCLE_CONFIG = ROOT / "configs" / "gpt_125m_lifecycle.json"
+LC_MAX_BATCH = 64                   # the file's 512: 64 rows, micro 16
+LC_CANONICAL = 4                    # the file's 32: slots of 16 rows, 2 a
+                                    # rank at world 2, 4 at world 1
+LC_SAVE_INTERVAL = 2                # the file's 500 (saves and publishes)
+LC_STEPS = 6
+LC_REMESH_AFTER = 3                 # the pool file 2 -> 1 after this step
+LC_MIN_PUSHES = 2                   # weight versions the fleet must take
+LC_ARRIVAL_S = 1.0                  # one request every LC_ARRIVAL_S
+LC_MAX_REQUESTS = 400
+LC_TAIL = 8                         # requests after the last rollout
+LC_NEW = 16
+# TTFT near a rollout: the requests that arrive within this many seconds
+# of its start
+LC_ROLLOUT_WINDOW_S = 5.0
+# 1-bit Adam (phase 20): configs/neox_6.7b_3d.json at GPT-NeoX-6.7B width
+ONEBIT_CONFIG = ROOT / "configs" / "neox_6.7b_3d.json"
+ONEBIT_LAYERS = 4                   # of 32: the script's time
+ONEBIT_ROWS = 2                     # the file's 1024 (micro 4)
+ONEBIT_SEQ = 2048
+ONEBIT_WARMUP = 4                   # the file's 3000 (the scheduler's lr
+                                    # is 0 on steps 1-2 at any warmup)
+ONEBIT_FREEZE = 4                   # the file's 20000
+ONEBIT_STEPS = 6                    # steps 1-4 exact Adam, 5-6 compressed
+ONEBIT_SAVE_AFTER = 5               # the resume runs step 6 again
+ONEBIT_CHECK_MAX = 2 ** 28          # the largest leaf the identity copies
+# what a resume's load overwrites, before the load: a step count no run
+# reaches (and NaN in every tensor), so that what it fails to restore shows
+POISON_STEP = 10 ** 6
+# the step's kernel shapes: the final layer norm's rows and the FFN's
+ONEBIT_LN = (4096, 4096)
+ONEBIT_BG = (4096, 16384)
+# the kernel path's loss against the plain path's, each step: about 3x the
+# largest reading at this configuration (4 layers, warmup and freeze 4, 6
+# steps; NVIDIA H100 80GB HBM3, 700 W: 1.7e-5 at steps 1-3, 9.0e-5 at 4,
+# then 1.17e-4 and 1.71e-4 at the compressed steps 5 and 6). Both paths
+# are deterministic; they differ by the kernels' bf16 roundings, which
+# each update carries on, the compressed ones through the scale of every
+# leaf
+ONEBIT_LOSS_RTOL = 5e-4
+
+
+def share_bytecode_cache():
+    """Compiled bytecode shared by this process and every process it
+    starts: a temporary PYTHONPYCACHEPREFIX, with writing bytecode turned
+    on, so each trainer, rank and replica process loads the modules an
+    earlier one compiled (torch's lazily imported ones among them: a
+    child compiling them from source took ~10 s on the card's host).
+    Returns the directory when this call made it, None when a parent
+    process had."""
+    made = None
+    if not os.environ.get("PYTHONPYCACHEPREFIX"):
+        made = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+        os.environ["PYTHONPYCACHEPREFIX"] = made
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
+    return made
 
 
 def card_line() -> str:
@@ -1254,13 +1367,20 @@ def flash_phase(fa, gen):
     return results
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(library, nvcc):
+    """``cuobjdump -sass`` (beside ``nvcc``) of a built library, run once
+    for each library."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def sass_matrix_ops(library, nvcc):
     """{kernel function name: count of HMMA / HGMMA instructions} from
-    ``cuobjdump -sass`` (beside ``nvcc``) of a built library."""
-    tool = Path(nvcc).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(library)],
-                         capture_output=True, text=True, check=True,
-                         timeout=300).stdout
+    the SASS of a built library."""
+    out = sass_text(str(library), str(nvcc))
     counts, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
@@ -1446,10 +1566,7 @@ def sass_row_loops(library, nvcc, marker):
     in the SASS of each function of a built library whose name holds
     ``marker``: the row loop of the bias+GeLU vector kernels, whose work
     inside is unrolled."""
-    tool = Path(nvcc).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(library)],
-                         capture_output=True, text=True, check=True,
-                         timeout=300).stdout
+    out = sass_text(str(library), str(nvcc))
     funcs, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
@@ -4201,10 +4318,10 @@ def infinity_training_phase(card, tmp):
             "simd": engine.opt.simd_width(),
         }
     print("infinity 15b: " + json.dumps(report), flush=True)
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
     resume["batch"] = batch
+    # 15c reloads into this engine: a third fresh 20B-width init would
+    # cost 55-60 s of the script's limit
+    resume["engine"] = engine
     return run_launches, {k: v / INFINITY_STEPS
                           for k, v in run_launches.items()}, resume
 
@@ -4212,24 +4329,22 @@ def infinity_training_phase(card, tmp):
 def infinity_resume_phase(card, tmp, saved):
     """Phase 15c: 15b's checkpoint of step 2 (the config's own profile:
     int4 wire and residency, bf16 host state, exp_avg_sq on the NVMe
-    tier, at INFINITY_LAYERS) loaded into a fresh engine (at step 0: zero
-    moments, the initial params): its step 3 on 15b's batch must give
-    15b's step-3 loss and card bytes, bit for bit."""
-    import deeperspeed_tpu_torch as ds
-    from deeperspeed_tpu_torch.models.gpt import get_preset
+    tier, at INFINITY_LAYERS) loaded into 15b's engine after its step 3,
+    whose state was poisoned first (poison_streamed): the load must give
+    step count 2, and its step 3 again on 15b's batch 15b's step-3 loss
+    and card bytes, bit for bit."""
     from deeperspeed_tpu_torch.ops import kernel_config
 
-    cfg = get_preset("neox-20b", n_layer=INFINITY_LAYERS,
-                     max_seq=INFINITY_SEQ, dtype=torch.bfloat16)
     ckpt = tmp / "ckpt"
     ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*")
                      if p.is_file())
+    b = saved.pop("engine")
     with kernel_config.override():
-        b, _, _, _ = ds.initialize(model=cfg,
-                                   config=infinity_config(tmp / "nvme_c"))
+        poison_streamed(b)
         t0 = time.perf_counter()
         b.load_checkpoint(str(ckpt))
         load_s = time.perf_counter() - t0
+        loaded_step = b.step_count
         loss3_b = b.train_batch(saved["batch"])
         same_shadow = all(
             np.array_equal(saved["shadow_3"][c][k], v)
@@ -4238,12 +4353,14 @@ def infinity_resume_phase(card, tmp, saved):
     report = {"card": card, "layers": INFINITY_LAYERS,
               "loss_3": saved["loss_3"], "loss_3_resumed": loss3_b,
               "same_loss": saved["loss_3"] == loss3_b,
+              "step_after_load": loaded_step,
               "same_shadow": same_shadow,
               "shadow_equals_device": same_device,
               "save_s": saved["save_s"], "load_s": load_s,
               "checkpoint_bytes": ckpt_bytes}
     print("infinity 15c: " + json.dumps(report), flush=True)
-    if not (report["same_loss"] and same_shadow and same_device):
+    if not (report["same_loss"] and same_shadow and same_device
+            and loaded_step == 2):
         raise AssertionError(f"infinity 15c: resume not bit for bit: {report}")
     del b
     gc.collect()
@@ -4283,17 +4400,20 @@ def infinity_phase(card):
     return launches, per_step
 
 
-def infinity_kernel_cases(fb, gen):
-    """The LN and bias+GeLU kernels at the streamed 20B step's shapes:
-    ln_fwd / ln_bwd at (1024, 6144) and bias_gelu_fwd / bias_gelu_bwd
-    (tanh) at (1024, 24576), bf16, against their plain versions (TOL; 10x
-    for gradients; REL_L2), timed beside the plain version, the library
-    call (F.layer_norm and its aten backward; none computes bias+GeLU in
-    one call) and the bound ("path": "infinity")."""
+def ffn_kernel_cases(fb, gen, ln_shape, bg_shape, path):
+    """The LN and bias+GeLU kernels at a training path's shapes: ln_fwd /
+    ln_bwd at ``ln_shape`` (rows, d_model) and bias_gelu_fwd /
+    bias_gelu_bwd (tanh) at ``bg_shape`` (rows, d_ff), bf16, against
+    their plain versions (TOL; 10x for gradients; REL_L2), timed beside
+    the plain version, the library call (F.layer_norm and its aten
+    backward; none computes bias+GeLU in one call) and the bound, each
+    row tagged ``"path": path``. Phase 15's streamed 20B step
+    (INFINITY_LN, INFINITY_BG, "infinity") and phase 20's 6.7B-width step
+    (ONEBIT_LN, ONEBIT_BG, "onebit")."""
     results = {}
     dtype = torch.bfloat16
     tol, rel, isz = TOL[dtype], REL_L2[dtype], 2
-    R, D = INFINITY_LN
+    R, D = ln_shape
     w = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
     b = randn_on(gen, (D,), torch.float32, 0.1)
 
@@ -4307,7 +4427,7 @@ def infinity_kernel_cases(fb, gen):
     err, rel_err = check_close(f"ln_fwd {R}x{D} bf16", y, py, tol, rel)
     check_outputs(f"ln_fwd {R}x{D} stats", ("mean", "rstd"), (mu, rs),
                   (pmu, prs), 2e-5, rel)
-    row = {"shape": [R, D], "dtype": "bfloat16", "path": "infinity",
+    row = {"shape": [R, D], "dtype": "bfloat16", "path": path,
            "max_abs_err": err, "tol": tol, "rel_l2_err": rel_err,
            "rel_l2_tol": rel, "library": "F.layer_norm"}
     bufs = copies(ln_fwd_case, R * D * isz)
@@ -4328,7 +4448,7 @@ def infinity_kernel_cases(fb, gen):
     torch.cuda.synchronize()
     err, rel_err = check_outputs(f"ln_bwd {R}x{D} bf16", ("dx", "dw", "db"),
                                  got, fb.ln_bwd_plain(*args), 10 * tol, rel)
-    row = {"shape": [R, D], "dtype": "bfloat16", "path": "infinity",
+    row = {"shape": [R, D], "dtype": "bfloat16", "path": path,
            "max_abs_err": err, "tol": 10 * tol, "rel_l2_err": rel_err,
            "rel_l2_tol": rel, "library": "aten.native_layer_norm_backward"}
     bufs = copies(ln_bwd_case, 2 * R * D * isz)
@@ -4341,7 +4461,7 @@ def infinity_kernel_cases(fb, gen):
     results["ln_bwd"] = [row]
     del bufs, lib_bufs
 
-    R, F = INFINITY_BG
+    R, F = bg_shape
 
     def bg_case():
         return (randn_on(gen, (R, F), dtype, 2.0), randn_on(gen, (F,), dtype),
@@ -4355,7 +4475,7 @@ def infinity_kernel_cases(fb, gen):
                                fb.bias_gelu_fwd_plain(*args[:2], True),
                                tol, rel)
     fwd = {"shape": [R, F], "dtype": "bfloat16", "approximate": True,
-           "path": "infinity", "max_abs_err": err, "tol": tol,
+           "path": path, "max_abs_err": err, "tol": tol,
            "rel_l2_err": rel_err, "rel_l2_tol": rel, "library": None}
     err, rel_err = check_outputs(f"bias_gelu_bwd {R}x{F} bf16", ("dx", "db"),
                                  (dx, db), fb.bias_gelu_bwd_plain(*args),
@@ -6099,7 +6219,7 @@ def multihost_phase(card, base, ref):
           f"{MH_CANONICAL} (each slot gathers its fp32 rows; 32 slots would "
           f"move ~10 GB over gloo a step), warmup_num_steps 2000 -> "
           f"{RES_WARMUP}, save_interval_steps 500 -> {MH_SAVE_INTERVAL} "
-          f"(two 7.47 GB multi-process saves, not three), "
+          f"(two multi-process saves, not three), "
           f"save dir and obs_dir temporary, plus kernels auto; two "
           f"processes share one card over gloo through host copies (not "
           f"NCCL, not two hosts); {card}", flush=True)
@@ -6290,6 +6410,769 @@ def phase18(card):
     return res, res_per_step, mh, mh_per_step
 
 
+# ------------------------------------------------------------------ #
+# phase 19: the lifecycle control plane
+# ------------------------------------------------------------------ #
+
+
+def lifecycle_run_config(work, obs, resilience=True):
+    """configs/gpt_125m_lifecycle.json with the cuts PERF.md section 4
+    lists: elasticity.max_train_batch_size 512 -> LC_MAX_BATCH and
+    canonical_shards 32 -> LC_CANONICAL (the card's time: each slot ships
+    its fp32 grad rows over gloo), save_interval_steps and
+    publish_interval_steps 500 -> LC_SAVE_INTERVAL, save_dir and pool_file
+    in ``work`` and the monitor's obs_dir in ``obs``, plus kernels auto.
+    ``resilience`` False drops the resilience and lifecycle blocks (the
+    uninterrupted run saves and publishes nothing)."""
+    config = json.loads(LIFECYCLE_CONFIG.read_text())
+    config["elasticity"].update(max_train_batch_size=LC_MAX_BATCH,
+                                canonical_shards=LC_CANONICAL)
+    if resilience:
+        config["resilience"].update(save_interval_steps=LC_SAVE_INTERVAL,
+                                    save_dir=str(work / "ckpt"))
+        config["lifecycle"].update(publish_interval_steps=LC_SAVE_INTERVAL,
+                                   pool_file=str(work / "pool"))
+    else:
+        del config["resilience"], config["lifecycle"]
+    config["monitor"] = dict(config["monitor"], obs_dir=str(obs))
+    config["kernels"] = {"mode": "auto"}
+    return config
+
+
+def phase19_child(work) -> int:
+    """A phase-19 trainer: ``chip_smoke.py --child lifecycle WORK``. Joins
+    the process group the FleetSupervisor's environment describes (none
+    for the uninterrupted run), trains GPT-NeoX-125M under WORK/spec.json's
+    config on corpus batches keyed by the step, holding before every step
+    the file WORK/allow does not allow yet, and logs one JSON line a step.
+    A rank the live re-mesh retires exits 0 from inside its step."""
+    work = Path(work)
+    host = os.environ.get("DS_PROCESS_ID")
+    name = f"h{host}" if host is not None else "ref"
+    log = open(work / f"log.{name}", "a")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    if not torch.cuda.is_available():
+        print("phase 19 child: no CUDA device", file=sys.stderr)
+        return 2
+    spec = json.loads((work / "spec.json").read_text())
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.distributed import bootstrap
+    from deeperspeed_tpu_torch.models.gpt import make_gpt
+    from deeperspeed_tpu_torch.ops import op_builder
+
+    if host is not None:
+        bootstrap.bootstrap()
+    cfg = datapipe_model()
+    engine, _, _, _ = ds.initialize(
+        model=make_gpt(cfg)[2], model_parameters=datapipe_params(cfg, SEED),
+        config=spec["config"])
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    steps_path = work / f"steps.{name}"
+    rows = engine._config.train_batch_size
+
+    def allowed():
+        return int((work / "allow").read_text())
+
+    def line(extra):
+        with open(steps_path, "a") as f:
+            f.write(json.dumps(extra) + "\n")
+
+    try:
+        while engine.global_steps < spec["steps"]:
+            while engine.global_steps >= allowed():
+                time.sleep(0.02)
+            step = engine.global_steps
+            batch = corpus_batch(step, rows, cfg.max_seq)
+            t0 = time.perf_counter()
+            loss = float(engine.train_batch(batch))
+            line({"step": engine.global_steps, "loss": loss.hex(),
+                  "hash": sha(batch), "t": time.time(),
+                  "step_s": time.perf_counter() - t0,
+                  "gnorm": engine.get_global_grad_norm().hex(),
+                  "params": params_digest(engine.params),
+                  "world": engine.data_parallel_size,
+                  "launches": {n: fn.launches for n, fn in counters.items()},
+                  "nvcc_s": sum(i["seconds"]
+                                for i in op_builder.build_info.values()),
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    except SystemExit as e:
+        line({"retired": e.code, "after_step": engine.global_steps,
+              "launches": {n: fn.launches for n, fn in counters.items()}})
+        raise
+    if engine._resilience is not None:
+        engine._resilience.wait_for_pending_saves()
+    spans = [e for e in engine.monitor.tracer.events()
+             if e.get("name") == "lifecycle/remesh" and e.get("ph") == "X"]
+    (work / f"report.{name}.json").write_text(json.dumps({
+        "remesh_ms": [e["dur"] / 1e3 for e in spans],
+        "remesh_args": [e.get("args") for e in spans],
+        "saves": save_seconds(engine.monitor.tracer.events())}))
+    return 0
+
+
+def lifecycle_spec(cfg, block, pointer):
+    """A serving replica's spec for phase 19: the trainer's model in bf16
+    on the card, kernels auto, the config's serving block, and the weights
+    of the checkpoint ``pointer`` names."""
+    gpt_kw = {k: v for k, v in dataclasses.asdict(cfg).items()
+              if k != "dtype"}
+    gpt_kw["dtype"] = "bfloat16"
+    return {"gpt": gpt_kw, "init_seed": SEED, "device": "cuda",
+            "weights": dict(pointer), "kernels": {"mode": "auto"},
+            "serving": block}
+
+
+def lifecycle_request(vocab, i):
+    """Request ``i`` of the steady stream: every other one sampled, a
+    prompt of 16 to 128 tokens from a generator seeded by ``i``, LC_NEW
+    tokens."""
+    host = torch.Generator().manual_seed(SEED + 190_000 + i)
+    n = int(torch.randint(16, 129, (1,), generator=host))
+    return {"rid": f"lc-{i}",
+            "prompt": torch.randint(1, vocab, (n,), generator=host).tolist(),
+            "temperature": SPEC_TEMPERATURE if i % 2 else 0.0,
+            "seed": 3000 + i}
+
+
+def lifecycle_phase(card):
+    """Phase 19 (module docstring). Returns the launches of the trainers'
+    steps (summed over the processes), a world-2 rank's launches a step,
+    and the serving replicas' launches."""
+    import shutil
+
+    from deeperspeed_tpu_torch.checkpoint.serialization import (
+        model_state_filename, save_tree)
+    from deeperspeed_tpu_torch.distributed import fleet
+    from deeperspeed_tpu_torch.lifecycle import (LifecycleConfig,
+                                                 RolloutDriver,
+                                                 VersionRegistry)
+    from deeperspeed_tpu_torch.serving import (FleetRouter, RouterConfig,
+                                               ShedError)
+    from deeperspeed_tpu_torch.serving.fleet import ThreadReplica
+    from deeperspeed_tpu_torch.serving.replica_worker import build_engine
+
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_phase19_"))
+    work, ref_work = base / "run", base / "ref"
+    work.mkdir()
+    ref_work.mkdir()
+    cfg = datapipe_model()
+    config = lifecycle_run_config(work, work / "obs")
+    print(f"lifecycle 19: configs/gpt_125m_lifecycle.json, elasticity "
+          f"max_train_batch_size 512 -> {LC_MAX_BATCH}, canonical_shards "
+          f"32 -> {LC_CANONICAL} (the card's time: each slot's fp32 grad "
+          f"rows cross gloo through host copies), save_interval_steps and "
+          f"publish_interval_steps 500 -> {LC_SAVE_INTERVAL}, save_dir, "
+          f"pool_file and obs_dir temporary, plus kernels auto; the trainer "
+          f"two processes sharing the card over gloo under the "
+          f"FleetSupervisor, the serving block's fleet as thread replicas "
+          f"in this process; {card}", flush=True)
+    # the uninterrupted world-1 run, beside the live one
+    (ref_work / "spec.json").write_text(json.dumps({
+        "config": lifecycle_run_config(ref_work, ref_work / "obs",
+                                       resilience=False),
+        "steps": LC_STEPS}))
+    (ref_work / "allow").write_text(str(LC_STEPS))
+    ref_proc = subprocess.Popen(child_command("lifecycle", ref_work),
+                                env=phase18_child_env(), cwd=str(ROOT))
+    # version 0: the trainer's initial weights
+    params0 = datapipe_params(cfg, SEED)
+    save_tree(str(base / "v0" / "init" / model_state_filename()),
+              {"module": params0})
+    del params0
+    block = json.loads(LIFECYCLE_CONFIG.read_text())["serving"]
+    rcfg = RouterConfig.from_dict(block["fleet"])
+    ckpt = work / "ckpt"
+
+    def factory_for(pointer):
+        spec = lifecycle_spec(cfg, block, pointer)
+        return lambda: build_engine(spec)
+
+    v0 = {"load_dir": str(base / "v0"), "tag": "init"}
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    replicas = [ThreadReplica(f"r{i}", factory_for(v0),
+                              poll_interval_s=0.002)
+                for i in range(rcfg.num_replicas)]
+    for rep in replicas:
+        rep.start()
+    for rep in replicas:
+        rep.wait_ready()
+        rep.set_weights(None, 0)
+    router = FleetRouter(replicas, rcfg)
+    lcfg = LifecycleConfig.from_dict(json.loads(
+        LIFECYCLE_CONFIG.read_text())["lifecycle"])
+    registry = VersionRegistry(str(ckpt))
+    driver = RolloutDriver(
+        router, registry, lcfg,
+        weights_for=lambda rec: factory_for({"load_dir": str(ckpt),
+                                             "tag": rec.tag}))
+
+    (work / "spec.json").write_text(json.dumps({"config": config,
+                                                "steps": LC_STEPS}))
+    (work / "allow").write_text(str(LC_REMESH_AFTER))
+    (work / "pool").write_text("2\n")
+    policy = fleet.FleetPolicy(
+        procs=2, checkpoint_dir=str(ckpt), rendezvous_dir=str(work / "rdzv"),
+        restart_log=str(work / "restarts.jsonl"),
+        pool_file=str(work / "pool"), watch_pool=True, live_remesh=True,
+        term_grace_s=30.0, max_restarts=0,
+        extra_env={k: v for k, v in phase18_child_env().items()
+                   if k in ("PYTHONPATH", "OMP_NUM_THREADS",
+                            "CUBLAS_WORKSPACE_CONFIG")})
+    sup = fleet.FleetSupervisor(child_command("lifecycle", work), policy)
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = sup.run()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            result["error"] = repr(e)
+
+    env_keep = {k: os.environ.pop(k) for k in (
+        "DS_TPU_ROLE", "DS_TPU_INCARNATION", "DS_TPU_RUN_ID")
+        if k in os.environ}
+    th = threading.Thread(target=run, daemon=True)
+    names = ["h0", "h1"]
+    control_state = {}
+
+    def stepped(step):
+        return all(any(x.get("step") == step for x in child_lines(work, n))
+                   for n in names)
+
+    def control():
+        """The trainers' script, beside the serving loop (a rollout blocks
+        that loop): the pool 2 -> 1 once both ranks logged step
+        LC_REMESH_AFTER, the rest of the steps once the supervisor has
+        signalled them."""
+        try:
+            wait_for(lambda: stepped(LC_REMESH_AFTER) or not th.is_alive(),
+                     PHASE18_CHILD_TIMEOUT_S, f"19: step {LC_REMESH_AFTER}",
+                     work, names)
+            (work / "pool").write_text("1\n")
+            wait_for(lambda: sup.remesh_signals == 1 or not th.is_alive(),
+                     PHASE18_CHILD_TIMEOUT_S, "19: the re-mesh signal",
+                     work, names)
+            (work / "allow").write_text(str(LC_STEPS))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            control_state["error"] = e
+
+    reqs = []
+    accepted, shed, applied_t, rollouts = [], 0, {}, []
+    tail_from = None  # the stream's length when the last rollout ended
+    t_start = time.monotonic()
+    th.start()
+    ctl = threading.Thread(target=control, daemon=True)
+    ctl.start()
+    try:
+        while True:
+            now = time.monotonic() - t_start
+            if tail_from is None and not th.is_alive() and (
+                    driver.rollouts >= LC_MIN_PUSHES
+                    or (registry.latest() is not None
+                        and registry.latest().version == driver.applied)):
+                tail_from = len(reqs)
+            streaming = tail_from is None or len(reqs) < tail_from + LC_TAIL
+            while streaming and len(reqs) < LC_MAX_REQUESTS and \
+                    now >= len(reqs) * LC_ARRIVAL_S:
+                r = lifecycle_request(cfg.vocab_size, len(reqs))
+                reqs.append(r)
+                try:
+                    accepted.append(router.submit(
+                        r["prompt"], max_new_tokens=LC_NEW,
+                        temperature=r["temperature"], request_id=r["rid"],
+                        seed=r["seed"]))
+                except ShedError:
+                    shed += 1
+            router.step()
+            t0 = time.monotonic()
+            rec = driver.poll_once()
+            if rec is not None:
+                applied_t[rec.version] = time.time()
+                rollouts.append((rec.version, t0, time.monotonic()))
+            if "error" in control_state:
+                raise control_state["error"]
+            if time.monotonic() - t_start > PHASE18_CHILD_TIMEOUT_S:
+                raise child_failure(work, names, f"19: timed out {result}")
+            if not th.is_alive() and "rc" not in result:
+                raise child_failure(work, names, f"19: the supervisor "
+                                    f"ended {result}")
+            if (tail_from is not None and len(reqs) >= tail_from + LC_TAIL) \
+                    or len(reqs) >= LC_MAX_REQUESTS:
+                break
+            time.sleep(0.005)
+        outcomes = router.run_until_idle(timeout_s=FLEET_RUN_TIMEOUT_S)
+        ctl.join(timeout=PHASE18_CHILD_TIMEOUT_S)
+    finally:
+        router.shutdown()
+        for c in sup._children:
+            if c.poll() is None:
+                c.kill()
+        if ref_proc.poll() is None and "rc" not in result:
+            ref_proc.kill()
+        os.environ.update(env_keep)
+    rc = ref_proc.wait(timeout=PHASE18_CHILD_TIMEOUT_S)
+    ref = child_lines(ref_work, "ref")
+    if rc != 0 or [x["step"] for x in ref] != list(range(1, LC_STEPS + 1)):
+        raise child_failure(ref_work, ["ref"], f"19: the uninterrupted run "
+                            f"exited {rc} after {len(ref)} steps")
+    if result.get("rc") != 0:
+        raise child_failure(work, names, f"19: the fleet ended {result}")
+    lines = {n: [x for x in child_lines(work, n) if "step" in x]
+             for n in names}
+    retired = [x for x in child_lines(work, "h1") if "retired" in x]
+    covered = stitched(lines, ref, "19")
+    worlds = [x["world"] for x in lines["h0"]]
+    # the flip lands at the boundary of the first step after the signal:
+    # that step ran at world 2 and reports the world after it, 1
+    want_worlds = [2] * LC_REMESH_AFTER + [1] * (LC_STEPS - LC_REMESH_AFTER)
+    if worlds != want_worlds or [x["retired"] for x in retired] != [0] or \
+            retired[0]["after_step"] != LC_REMESH_AFTER + 1:
+        raise child_failure(work, names, f"19: worlds {worlds}, retired "
+                            f"{retired}")
+    events = [json.loads(x) for x in
+              (work / "restarts.jsonl").read_text().splitlines()]
+    launches_log = [e for e in events if e["event"] == "launch"]
+    exits = sorted((e.get("host"), e["reason"]) for e in events
+                   if e["event"] == "exit")
+    if len(launches_log) != 1 or sup.crashes or sup.remeshes or \
+            sup.remesh_signals != 1 or exits != [(0, "done"),
+                                                 (1, "retired")]:
+        raise AssertionError(f"19 supervisor: {events}")
+    trace = merged_trace(work / "obs", work)
+    spans = sum(1 for f in (work / "obs").glob("*.trace.json")
+                for e in json.loads(f.read_text())["traceEvents"]
+                if e.get("name") == "lifecycle/remesh" and e.get("ph") == "X")
+    rep0 = child_report(work, "h0")
+    if spans != 1 or rep0 is None or len(rep0["remesh_ms"]) != 1:
+        raise AssertionError(f"19: lifecycle/remesh spans {spans}, report "
+                             f"{rep0}")
+    # the fleet: every accepted request finished, each on one version
+    versions = registry.list()
+    lost = {rid: outcomes.get(rid) for rid in accepted
+            if outcomes.get(rid) not in ("length", "eos")}
+    pinned = {}
+    for rid in accepted:
+        pinned.setdefault(router.result(rid).version, []).append(rid)
+    if lost or driver.rollouts < LC_MIN_PUSHES or \
+            driver.applied not in pinned:
+        raise AssertionError(f"19: lost {lost}, pushes {driver.rollouts}, "
+                             f"versions {[v.to_dict() for v in versions]}, "
+                             f"pinned {sorted(pinned, key=str)}")
+    diffs = {}
+    for v, rids in sorted(pinned.items()):
+        greedy = [r for r in reqs if r["rid"] in rids
+                  and r["temperature"] == 0.0]
+        pointer = v0 if v == 0 else {"load_dir": str(ckpt),
+                                     "tag": registry.get(v).tag}
+        engine = build_engine(lifecycle_spec(cfg, block, pointer))
+        want, _ = serve_requests(engine, greedy, LC_NEW)
+        got = {r["rid"]: router.result(r["rid"]).tokens for r in greedy}
+        diffs[v] = len(held_to(cfg, engine.params, greedy, want, got,
+                               block.get("top_k", 0) or cfg.vocab_size,
+                               f"lifecycle 19 v{v} greedy against one "
+                               f"engine"))
+        del engine
+        gc.collect()
+    serving_launches = {k: fn.launches for k, fn in counters.items()}
+    if serving_launches["ln_fwd"] <= 0 or \
+            serving_launches["bias_gelu_fwd"] <= 0:
+        raise AssertionError(f"19: the replicas launched {serving_launches}")
+    # timings
+    commit_t = {}
+    for v in versions:
+        tag_dir = ckpt / v.tag
+        marker = tag_dir / "COMMITTED"
+        commit_t[v.version] = (marker.stat().st_mtime if marker.exists()
+                               else max(f.stat().st_mtime
+                                        for f in tag_dir.iterdir()))
+    latency = {v.version: {
+        "commit_to_publish_s": v.published_ts - commit_t[v.version],
+        "publish_to_fleet_s": (applied_t[v.version] - v.published_ts
+                               if v.version in applied_t else None)}
+        for v in versions}
+    # requests submitted within LC_ROLLOUT_WINDOW_S of a rollout's start
+    # (the router's clock is the monotonic one the rollouts were timed on;
+    # the rollout blocks the loop that submits, so most arrive after it)
+    during = [r for r in (router.result(rid) for rid in accepted)
+              if r.first_t is not None and any(
+                  a <= r.submit_t <= a + LC_ROLLOUT_WINDOW_S
+                  for _, a, _ in rollouts)]
+    ttft_roll = sorted((r.first_t - r.submit_t) * 1e3 for r in during
+                       if r.first_t is not None)
+    summary = router.metrics.summary()
+    # launches: the model's kernels per local slot, fused_adam once a step
+    L = cfg.n_layer
+    launches, per_rank = {}, None
+    for n in names:
+        steps_run = len(lines[n]) + (1 if n == "h1" and retired else 0)
+        last = retired[0]["launches"] if n == "h1" and retired else \
+            lines[n][-1]["launches"]
+        for k, v in last.items():
+            launches[k] = launches.get(k, 0) + v
+        if n == "h1":
+            per_rank = {k: v / steps_run for k, v in last.items()}
+    slots = LC_CANONICAL // 2
+    want = {"flash_fwd": L * slots, "flash_bwd": L * slots, "ln_fwd": slots,
+            "ln_bwd": slots, "bias_gelu_fwd": 2 * L * slots,
+            "bias_gelu_bwd": L * slots}
+    check_launches("19 a world-2 rank", {k: per_rank.get(k) for k in want},
+                   want)
+    if not per_rank.get("fused_adam"):
+        raise AssertionError(f"19: no fused_adam launch: {per_rank}")
+    w2 = [x["step_s"] for x in lines["h0"][1:LC_REMESH_AFTER]]
+    w1 = [x["step_s"] for x in lines["h0"][LC_REMESH_AFTER + 1:]]
+    report = {
+        "card": card, "steps": LC_STEPS, "covered_by": covered,
+        "remesh_stall_ms": rep0["remesh_ms"][0],
+        "remesh_args": rep0["remesh_args"][0],
+        "step_s_world2": w2, "step_s_world1": w1,
+        "versions": [v.to_dict() for v in versions],
+        "weight_pushes": driver.rollouts,
+        "commit_publish_fleet_s": latency,
+        "rollout_s": {v: b - a for v, a, b in rollouts},
+        "rollout_s_per_replica": {v: (b - a) / rcfg.num_replicas
+                                  for v, a, b in rollouts},
+        "requests": len(reqs), "accepted": len(accepted), "shed": shed,
+        "pinned": {v: len(r) for v, r in pinned.items()},
+        "greedy_differing_at_near_tie": diffs,
+        "ttft_ms_near_rollout": {
+            "n": len(ttft_roll),
+            "p50": ttft_roll[len(ttft_roll) // 2] if ttft_roll else None,
+            "p99": ttft_roll[min(len(ttft_roll) - 1,
+                                 int(0.99 * len(ttft_roll)))]
+            if ttft_roll else None},
+        "router_ttft_ms": ttft_ms(summary),
+        "restart_log": [(e["event"], e.get("host"), e.get("reason"))
+                        for e in events],
+        "saves": rep0["saves"], "trace": trace,
+        "serving_launches": serving_launches,
+        "peak_mem_gib": {n: lines[n][-1]["peak_mem_gib"] for n in names}}
+    print("lifecycle 19: " + json.dumps(report), flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, per_rank, serving_launches
+
+
+# ------------------------------------------------------------------ #
+# phase 20: 1-bit Adam at GPT-NeoX-6.7B width
+# ------------------------------------------------------------------ #
+
+
+def onebit_run_config(kernels):
+    """configs/neox_6.7b_3d.json's blocks with the cuts PERF.md section 4
+    lists: the batch triple 1024 / 4 -> ONEBIT_ROWS / ONEBIT_ROWS (gas 1),
+    OneBitAdam's freeze_step 20000 -> ONEBIT_FREEZE, the scheduler's
+    warmup_num_steps 3000 -> ONEBIT_WARMUP; plus the kernels block (auto,
+    or off for the plain run)."""
+    config = json.loads(ONEBIT_CONFIG.read_text())
+    config.update(train_batch_size=ONEBIT_ROWS,
+                  train_micro_batch_size_per_gpu=ONEBIT_ROWS)
+    config["optimizer"]["params"]["freeze_step"] = ONEBIT_FREEZE
+    config["scheduler"]["params"]["warmup_num_steps"] = ONEBIT_WARMUP
+    config["kernels"] = {"mode": "auto" if kernels else "off"}
+    return config
+
+
+def onebit_engine(kernels):
+    """GPT-NeoX-6.7B width at ONEBIT_LAYERS of its 32 layers (bf16, remat
+    "matmuls", random weights from SEED) through initialize; the plain
+    path (kernels off) on plain attention."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
+                                                  make_gpt)
+
+    cfg = get_preset("neox-6.7b", n_layer=ONEBIT_LAYERS, max_seq=ONEBIT_SEQ,
+                     remat_policy="matmuls", ce_chunk=0,
+                     dtype=torch.bfloat16)
+    if not kernels:
+        cfg = dataclasses.replace(cfg, attn_impl="xla")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    randomize_affine(params, gen)
+    engine, _, _, _ = ds.initialize(model=make_gpt(cfg)[2],
+                                    model_parameters=params,
+                                    config=onebit_run_config(kernels))
+    del params
+    return cfg, engine
+
+
+def onebit_step(engine, batch, digest=False):
+    """One train_batch: its loss, grad norm and seconds, and with
+    ``digest`` a digest of the params after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(engine.train_batch(batch))
+    torch.cuda.synchronize()
+    out = {"loss": loss, "gnorm": engine.get_global_grad_norm(),
+           "step_s": time.perf_counter() - t0}
+    if digest:
+        out["params"] = params_digest(engine.params)
+    return out
+
+
+def poison_engine(engine):
+    """NaN in every tensor a load_checkpoint of a 1-bit Adam engine must
+    restore (params, fp32 master, momentum, frozen variance, error) and
+    POISON_STEP in its step counts and the scheduler's, so a piece the
+    load misses shows in the step after it."""
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    with torch.no_grad():
+        for tree in (engine.params, engine.master, *engine.opt_state[1:]):
+            for t in (tree_leaves(tree) if tree is not None else ()):
+                t.fill_(float("nan"))
+    engine.opt_state = engine.opt_state._replace(step=POISON_STEP)
+    engine.global_steps = engine.optimizer_steps = POISON_STEP
+    engine.global_samples = engine.micro_steps = POISON_STEP
+    engine.lr_scheduler.last_batch_iteration = POISON_STEP
+
+
+def poisoned_copy(x):
+    """A copy of a tree of numpy arrays and tensors (dicts, lists,
+    tuples) in which no value is one a run produces: NaN in floats, the
+    bf16 NaN 0x7fc0 in 16-bit words, 0x5a in bytes."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: poisoned_copy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(poisoned_copy(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return torch.full_like(x, float("nan") if x.is_floating_point()
+                               else 0x7FC0 if x.dtype == torch.int16
+                               else 0x5A)
+    if x.dtype.kind == "f":
+        return np.full_like(x, np.nan)
+    return np.full_like(x, 0x7FC0 if x.dtype.itemsize == 2 else 0x5A)
+
+
+def poison_streamed(engine):
+    """Poison what a streamed engine's load_checkpoint must restore: each
+    chunk's host shadow, master and moments (exp_avg_sq on the NVMe tier
+    rewritten through the swapper), the card's storage, the step count
+    (POISON_STEP) and the host RNG (advanced)."""
+    if engine.swapper is not None:
+        engine.swapper.wait()
+    for c in engine.chunk_names:
+        engine._shadow[c] = poisoned_copy(engine._shadow[c])
+        if c in engine._ram:
+            engine._ram[c] = poisoned_copy(engine._ram[c])
+        if engine.swapper is not None:
+            buf = engine.swapper.swap_in(c, async_op=False)
+            engine.swapper.swap_out(c, poisoned_copy(
+                engine.swapper.unpack(c, buf)))
+            del buf
+    engine._dev_groups = [poisoned_copy(g) for g in engine._dev_groups]
+    engine._dev_globals = poisoned_copy(engine._dev_globals)
+    engine.step_count = POISON_STEP
+    engine._rng.random(7)
+
+
+def release():
+    """Return what a dropped engine held to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def capture_compression(engine, paths):
+    """Wrap the engine's OnebitAdam so that its second compressed step
+    (the first one given a non-zero error) keeps, for the leaves at
+    ``paths``, the momentum, error and grads it was given and the
+    momentum and error it left."""
+    opt = engine.optimizer
+    orig = opt.update
+    cap = {}
+
+    def update(grads, state, params, lr=None):
+        first = state.step == opt.freeze_step + 1 and not cap
+        if first:
+            cap["pre"] = {p: tuple(leaf_at(t, p).clone() for t in (
+                state.exp_avg, state.error, grads)) for p in paths}
+        out = orig(grads, state, params, lr)
+        if first:
+            cap["post"] = {p: tuple(leaf_at(t, p).clone() for t in (
+                out[1].exp_avg, out[1].error)) for p in paths}
+        return out
+
+    opt.update = update
+    return cap
+
+
+def onebit_leaves(engine):
+    """The paths of the smallest leaf of the params and of the largest one
+    of at most ONEBIT_CHECK_MAX elements (five copies of it are kept)."""
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    paths = []
+
+    def walk(tree, pre):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, pre + (k,))
+            else:
+                paths.append((v.numel(), pre + (k,)))
+
+    walk(engine.params, ())
+    paths.sort()
+    assert len(paths) == len(tree_leaves(engine.params))
+    return [paths[0][1],
+            max(p for p in paths if p[0] <= ONEBIT_CHECK_MAX)[1]]
+
+
+def check_error_feedback(cap, b1):
+    """The compressed step's identity on the card, per captured leaf:
+    corrected = (b1 m + (1 - b1) g) + err in fp32, with err the previous
+    compressed step's error (it must be non-zero); the stored momentum is
+    +-mean(|corrected|) by its sign, bit for bit, and the new error is
+    fl(corrected - quant), bit for bit. Reports how many elements also
+    give quant + new_error == corrected exactly (the subtraction rounds
+    where |corrected| and the scale are more than 2x apart) and the
+    largest miss in ulps of the new error."""
+    from deeperspeed_tpu_torch.runtime.comm.compressed import _l1_scale
+
+    if "post" not in cap:
+        raise AssertionError("20: no second compressed step was captured")
+    out = {}
+    for k, (m0, e0, g) in cap["pre"].items():
+        m1, e1 = cap["post"][k]
+        error_in = int(torch.count_nonzero(e0))
+        if not error_in:
+            raise AssertionError(f"20: the error fed to the second "
+                                 f"compressed step is 0 at {k}")
+        corrected = m0.mul(b1).add_(g.float(), alpha=1.0 - b1).add_(e0)
+        scale = _l1_scale(corrected)
+        quant = torch.where(corrected >= 0, scale, -scale)
+        if not (torch.equal(m1, quant)
+                and torch.equal(e1, corrected - quant)):
+            raise AssertionError(
+                f"20: the error-feedback identity fails at {k}: quant "
+                f"{torch.equal(m1, quant)}, error "
+                f"{torch.equal(e1, corrected - quant)}")
+        back = quant + e1
+        miss = (back - corrected).abs()
+        ulp = torch.nextafter(e1.abs(), torch.full_like(e1, float("inf"))) \
+            - e1.abs()
+        out["/".join(k)] = {
+            "elements": corrected.numel(), "error_in_nonzero": error_in,
+            "scale": float(scale),
+            "quant_plus_error_exact": int((miss == 0).sum()),
+            "max_miss_ulps": float((miss / ulp).max())}
+    return out
+
+
+def onebit_phase(card):
+    """Phase 20 (module docstring). Returns the launches of the
+    kernels-on run and its launches a step."""
+    import shutil
+
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_onebit_"))
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    batch = np.asarray(corpus[: ONEBIT_ROWS * (ONEBIT_SEQ + 1)],
+                       dtype=np.int64).reshape(ONEBIT_ROWS, ONEBIT_SEQ + 1)
+    print(f"onebit 20: configs/neox_6.7b_3d.json at GPT-NeoX-6.7B width "
+          f"(d_model 4096, 32 heads), n_layer 32 -> {ONEBIT_LAYERS} (the "
+          f"script's time: the save and load of ~18 bytes a parameter), "
+          f"train_batch_size 1024 / micro 4 -> "
+          f"{ONEBIT_ROWS} / {ONEBIT_ROWS} (gas 1) of {ONEBIT_SEQ} tokens, "
+          f"freeze_step 20000 -> {ONEBIT_FREEZE}, warmup_num_steps 3000 -> "
+          f"{ONEBIT_WARMUP}, plus kernels auto; {card}", flush=True)
+    counters = kernel_counters()
+    try:
+        with kernel_config.override():
+            t0 = time.perf_counter()
+            cfg, engine = onebit_engine(True)
+            init_s = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in tree_leaves(engine.params))
+            cap = capture_compression(engine, onebit_leaves(engine))
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            on = [onebit_step(engine, batch)
+                  for _ in range(ONEBIT_SAVE_AFTER)]
+            t0 = time.perf_counter()
+            engine.save_checkpoint(str(tmp / "ckpt"))
+            save_s = time.perf_counter() - t0
+            on.append(onebit_step(engine, batch, digest=True))
+            launches = {k: fn.launches for k, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            identity = check_error_feedback(cap, engine.optimizer.betas[0])
+            state_step = int(engine.opt_state.step)
+            # the resume: the step-ONEBIT_SAVE_AFTER tag loaded back into
+            # this engine after its last step, every tensor and step count
+            # of which was poisoned first, then that last step again
+            poison_engine(engine)
+            t0 = time.perf_counter()
+            loaded, _ = engine.load_checkpoint(str(tmp / "ckpt"))
+            load_s = time.perf_counter() - t0
+            loaded_steps = (int(engine.opt_state.step), engine.global_steps,
+                            engine.optimizer_steps)
+            resumed = onebit_step(engine, batch, digest=True)
+            del cap, engine
+            release()
+        shutil.rmtree(tmp / "ckpt", ignore_errors=True)
+        with kernel_config.override():
+            _, engine = onebit_engine(False)
+            off = [onebit_step(engine, batch) for _ in range(ONEBIT_STEPS)]
+            del engine
+            release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [x["loss"] for x in on]
+    if not all(math.isfinite(x["loss"]) and math.isfinite(x["gnorm"])
+               for x in on + off) or state_step != ONEBIT_STEPS:
+        raise AssertionError(f"20: losses {losses}, plain "
+                             f"{[x['loss'] for x in off]}, step {state_step}")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(on, off)]
+    if max(rel) > ONEBIT_LOSS_RTOL:
+        raise AssertionError(f"20: the kernel path's losses {losses} differ "
+                             f"from the plain path's "
+                             f"{[x['loss'] for x in off]} by {rel} (limit "
+                             f"{ONEBIT_LOSS_RTOL})")
+    last = on[ONEBIT_SAVE_AFTER]
+    if not (loaded and loaded_steps == (ONEBIT_SAVE_AFTER,) * 3
+            and resumed["loss"] == last["loss"]
+            and resumed["gnorm"] == last["gnorm"]
+            and resumed["params"] == last["params"]):
+        raise AssertionError(f"20: the resume from step "
+                             f"{ONEBIT_SAVE_AFTER} (steps after the load "
+                             f"{loaded_steps}) gave {resumed}, the run "
+                             f"{last}")
+    L = cfg.n_layer
+    want = {"flash_fwd": L, "flash_bwd": L, "ln_fwd": 1, "ln_bwd": 1,
+            "bias_gelu_fwd": 2 * L, "bias_gelu_bwd": L}
+    per_step = {k: v / len(on) for k, v in launches.items()}
+    check_launches("20", {k: per_step[k] for k in want}, want)
+    print("onebit 20: " + json.dumps({
+        "card": card, "n_layer": L, "params": n_params,
+        "rows": ONEBIT_ROWS, "seq": ONEBIT_SEQ,
+        "freeze_step": ONEBIT_FREEZE, "init_s": init_s,
+        "losses": losses, "plain_losses": [x["loss"] for x in off],
+        "loss_rel_diff": rel, "grad_norms": [x["gnorm"] for x in on],
+        "step_s_warmup": [x["step_s"] for x in on[:ONEBIT_FREEZE]],
+        "step_s_compressed": [x["step_s"] for x in on[ONEBIT_FREEZE:]],
+        "plain_step_s": [x["step_s"] for x in off],
+        "peak_mem_gib": peak, "save_s": save_s, "load_s": load_s,
+        "resumed_step": ONEBIT_SAVE_AFTER + 1,
+        "steps_after_load": loaded_steps,
+        "error_feedback": identity,
+        "launches_per_step": per_step}), flush=True)
+    return launches, per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6360,8 +7243,10 @@ def main() -> int:
     cases.update(quant_phase(fq, gen))
     gc.collect()
     torch.cuda.empty_cache()
-    for name, rows in infinity_kernel_cases(fb, gen).items():
-        cases[name].extend(rows)
+    for shapes in ((INFINITY_LN, INFINITY_BG, "infinity"),
+                   (ONEBIT_LN, ONEBIT_BG, "onebit")):
+        for name, rows in ffn_kernel_cases(fb, gen, *shapes).items():
+            cases[name].extend(rows)
     for name, rows in spec_kernel_cases(fb, gen).items():
         cases[name].extend(rows)
     for name, rows in cases.items():
@@ -6419,6 +7304,8 @@ def main() -> int:
     res, res_per_step, mh, mh_per_step = timed("18 resilience and "
                                                "multi-process", phase18,
                                                card)
+    lc, lc_per_rank, lc_serving = timed("19 lifecycle", lifecycle_phase, card)
+    onebit, onebit_per_step = timed("20 onebit", onebit_phase, card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -6434,7 +7321,9 @@ def main() -> int:
              "infinity_training": infinity, "datapipe_training": datapipe,
              "remat_policies": remat, "spec_serving": spec,
              "fleet_replicas": fleet, "spec_fleet_replicas": spec_fleet,
-             "resilience_training": res, "multihost_training": mh}
+             "resilience_training": res, "multihost_training": mh,
+             "lifecycle_training": lc, "lifecycle_serving": lc_serving,
+             "onebit_training": onebit}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -6474,14 +7363,19 @@ def main() -> int:
                                   "resilience_training":
                                       res_per_step[name],
                                   "multihost_training_per_rank":
-                                      mh_per_step[name]},
+                                      mh_per_step[name],
+                                  "lifecycle_training_per_rank":
+                                      lc_per_rank[name],
+                                  "onebit_training": onebit_per_step[name]},
         }
-        inf = next((r for r in rows if r.get("path") == "infinity"), None)
-        if inf is not None:
-            # the kernel at the streamed GPT-NeoX-20B step's shape
-            entry["infinity_path"] = {k: inf[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err")}
+        for path in ("infinity", "onebit"):
+            # the kernel at the streamed GPT-NeoX-20B step's shape, and at
+            # the GPT-NeoX-6.7B-width 1-bit step's
+            row = next((r for r in rows if r.get("path") == path), None)
+            if row is not None:
+                entry[f"{path}_path"] = {k: row[k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}
         sp = next((r for r in rows if r.get("path") == "spec"), None)
         if sp is not None:
             # the kernel at GPT-NeoX-125M's verify step's rows
@@ -6510,6 +7404,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--child"]:
-        sys.exit(phase18_child(sys.argv[2], sys.argv[3]))
-    sys.exit(main())
+    bytecode_cache = share_bytecode_cache()
+    try:
+        if sys.argv[1:2] == ["--child"]:
+            if sys.argv[2] == "lifecycle":
+                sys.exit(phase19_child(sys.argv[3]))
+            sys.exit(phase18_child(sys.argv[2], sys.argv[3]))
+        sys.exit(main())
+    finally:
+        if bytecode_cache:
+            import shutil
+
+            shutil.rmtree(bytecode_cache, ignore_errors=True)

@@ -31,6 +31,16 @@ strand the survivors at a collective. :class:`FleetSupervisor` owns that coordin
   fixed when it forms; the fleet supervisor grows the process count),
   and checkpoint resharding (:mod:`...resilience.reshard`) carries
   optimizer/residual state across the world-size change;
+* **live shrink** — with ``live_remesh`` a pool that shrinks below the
+  processes alive takes the lifecycle path instead of the restart: the
+  supervisor sends the lifecycle block's default ``remesh_signal``
+  (``LifecycleConfig().signal_number()``) to every running child, whose
+  ``lifecycle.RemeshHook`` flips the world at one step boundary; the
+  hosts the new world leaves out exit 0 and are logged ``retired`` (not
+  a crash, no barrier, no relaunch), and the fleet runs at the new
+  count from then on. Growth past it
+  (``lifecycle.remesh.cross_host_growth_needed``) keeps the coordinated
+  restart;
 * **clock offsets** — when a host's record flips ``launched``→``ready``
   the supervisor closes the NTP-style handshake
   (:func:`...monitor.runctx.estimate_clock_offset`) and persists
@@ -115,6 +125,9 @@ class FleetPolicy:
     watch_pool: bool = False
     pool_poll_interval_s: float = 0.25
     pool_debounce_s: float = 0.5
+    # live shrink: signal the running children (their lifecycle re-mesh
+    # hook) instead of a coordinated restart when the pool shrinks
+    live_remesh: bool = False
     term_grace_s: float = 10.0          # SIGTERM -> SIGKILL budget
     ready_timeout_s: float = 120.0      # barrier: fleet must re-arrive
     extra_env: Dict[str, str] = field(default_factory=dict)
@@ -140,6 +153,10 @@ class FleetSupervisor:
         self.crashes = 0          # crash barriers (drive backoff + cap)
         self.preemptions = 0
         self.remeshes = 0         # planned pool-change transitions
+        self.remesh_signals = 0   # live shrinks signalled to the children
+        # hosts a live shrink left out, until the next launch: they exit
+        # 0 on their own (``self.procs`` is already the new count)
+        self._retiring: set = set()
         self.history: List[Dict[int, int]] = []  # per-epoch exit codes
         self._incarnation = [0] * self.procs
         self._children: List[subprocess.Popen] = []
@@ -316,6 +333,34 @@ class FleetSupervisor:
     # the loop
     # ------------------------------------------------------------------ #
 
+    def _live_shrink(self, target: int) -> bool:
+        """With ``live_remesh``, a pool below the processes alive: signal
+        every running child for the live re-mesh, note the hosts it
+        retires and run at ``target`` from now on. False, the restart
+        path, for growth past the processes alive."""
+        from ..lifecycle.config import LifecycleConfig
+        from ..lifecycle.remesh import cross_host_growth_needed
+
+        alive = self.procs
+        if not self.policy.live_remesh or cross_host_growth_needed(target,
+                                                                   alive):
+            return False
+        signum = LifecycleConfig().signal_number()
+        for c in self._children:
+            if c.poll() is None:
+                try:
+                    c.send_signal(signum)
+                except ProcessLookupError:
+                    pass
+        self.remesh_signals += 1
+        self._retiring |= set(range(target, alive))
+        self.procs = target
+        self._log_event("remesh", reason="pool_change", procs_from=alive,
+                        procs_to=target, signal=int(signum))
+        logger.info("fleet: pool %d -> %d process(es); live re-mesh "
+                    "signalled (no restart)", alive, target)
+        return True
+
     def run(self) -> int:
         """Run the fleet to completion. Returns the final exit code (0
         when every host exits 0 within the crash cap)."""
@@ -325,6 +370,8 @@ class FleetSupervisor:
             self._harvest_offsets()
 
             target = self._poll_pool_change()
+            if target is not None and self._live_shrink(target):
+                continue
             if target is not None:
                 # planned cross-host re-mesh: coherent stop, relaunch at
                 # the new process count — zero crash-restarts
@@ -339,6 +386,7 @@ class FleetSupervisor:
                                      for h, c in enumerate(self._children)})
                 self.remeshes += 1
                 self.procs = target
+                self._retiring = set()
                 inc = max(self._incarnation) + 1
                 self._incarnation = [inc] * self.procs
                 self.epoch += 1
@@ -357,7 +405,8 @@ class FleetSupervisor:
                        (c.returncode for c in self._children)):
                     for h, c in enumerate(self._children):
                         self._log_event("exit", host=h, code=0,
-                                        reason="done")
+                                        reason=("retired" if h in
+                                                self._retiring else "done"))
                     self.history.append(
                         {h: c.returncode
                          for h, c in enumerate(self._children)})
@@ -404,6 +453,9 @@ class FleetSupervisor:
                     time.sleep(delay)
             else:
                 self.preemptions += 1
+            # a live shrink's retired hosts are not relaunched
+            self._incarnation = self._incarnation[:self.procs]
+            self._retiring = set()
             for h in range(self.procs):
                 self._incarnation[h] += 1
             self.epoch += 1

@@ -22,11 +22,10 @@ The manager does NOT own load-time validation: that lives in
 ``manifest.py`` and is wired into ``Engine.load_checkpoint``, so even runs
 without a resilience block never load a torn checkpoint.
 
-Not ported: the lifecycle hooks (``attach_lifecycle``'s consumers and
-``lifecycle.versions.live_tags``) come with ``lifecycle/`` (ROADMAP.md
-queue 1, item 9c). ``_prune`` treats the set of live tags as empty until
-then; no lifecycle hook can be attached in this package yet, so no
-result changes.
+Lifecycle (lifecycle/): ``attach_lifecycle`` registers the step-boundary
+hooks (the re-mesh hook, the version publisher) polled after every
+boundary's autosave, and ``_prune`` never deletes a tag published as a
+live weight version (``lifecycle.versions.live_tags``).
 """
 
 import os
@@ -231,19 +230,20 @@ class ResilienceManager:
     def _prune(self, save_dir: str, keep: int) -> None:
         """Retention: drop the oldest COMMITTED tags past ``keep``.
         Legacy/unknown directories are never touched, and neither is the
-        tag ``latest`` points at, the tag this run resumed from, nor the
+        tag ``latest`` points at, the tag this run resumed from, the
         newest committed tag (an async save racing the interval autosave
-        must never leave the directory empty of valid tags). The
-        reference also protects the tags published as live weight
-        versions (``lifecycle.versions.live_tags``); that module is not
-        ported yet, so the set of live tags is empty here."""
+        must never leave the directory empty of valid tags), nor any tag
+        published as a LIVE weight version (the serving fleet may still
+        be routing to, or rolling onto, it)."""
         from ..checkpoint.serialization import read_latest
+        from ..lifecycle.versions import live_tags
 
         committed = [t for t in list_tags(save_dir)
                      if is_committed(os.path.join(save_dir, t))]
         protected = {read_latest(save_dir), self._resumed_tag}
         if committed:
             protected.add(committed[0])  # newest committed
+        protected |= set(live_tags(save_dir))
         for tag in committed[keep:]:
             if tag in protected:
                 continue

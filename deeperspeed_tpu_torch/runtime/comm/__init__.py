@@ -1,15 +1,30 @@
 """``runtime/comm/``: bucketed, quantized gradient collectives.
 
-Counterpart of deeperspeed_tpu/runtime/comm/ for the data-parallel
-reducer: the ``"comm"`` block (config.py), the bucket plan
-(bucketing.py), the 24-bit compressed format (compressed.py), the
-collectives over a process group (collectives.py) and the ``GradReducer``
-(reducer.py). Not ported: overlap.py, wiremodel.py and the 1-bit
-optimizers (ROADMAP.md queue 1, item 'runtime/comm/')."""
+Counterpart of deeperspeed_tpu/runtime/comm/, with its exports: the
+``"comm"`` block (config.py), the bucket plan (bucketing.py), the
+compressed wire formats, 24-bit and 1-bit (compressed.py), the
+collectives over a process group (collectives.py), the ``GradReducer``
+(reducer.py), the 1-bit optimizers (onebit.py) and their two-phase wire
+path over a group (onebit_spmd.py). Not ported: overlap.py and
+wiremodel.py (ROADMAP.md queue 1, item 'runtime/comm/')."""
 
 from .bucketing import Bucket, BucketPlan, build_plan
+from .compressed import (
+    compress,
+    compressed_all_reduce,
+    compressed_all_reduce_tree,
+    decompose,
+    decompress,
+    onebit_all_reduce,
+    onebit_compress,
+    reconstruct,
+)
 from .config import CommConfig
+from .onebit import OnebitAdam, OnebitLamb
 from .reducer import GradReducer
 
 __all__ = ["Bucket", "BucketPlan", "CommConfig", "GradReducer",
-           "build_plan"]
+           "OnebitAdam", "OnebitLamb", "build_plan", "compress",
+           "compressed_all_reduce", "compressed_all_reduce_tree",
+           "decompose", "decompress", "onebit_all_reduce",
+           "onebit_compress", "reconstruct"]

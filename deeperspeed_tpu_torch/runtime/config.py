@@ -92,13 +92,8 @@ class TrainingConfig:
         if not (0 <= stage <= c.MAX_STAGE_ZERO_OPTIMIZATION):
             raise ValueError(f"ZeRO stage must be in [0, 3], got {stage}")
 
-        presence = (
-            (c.LIFECYCLE, "9c, lifecycle/ (Resilience and multi-process runtime)"),
-            (c.AUTOTUNE, "Tooling"),
-        )
-        for key, item in presence:
-            if _block_enabled(pd, key):
-                raise _unported(f'the "{key}" block', item)
+        if _block_enabled(pd, c.AUTOTUNE):
+            raise _unported(f'the "{c.AUTOTUNE}" block', "Tooling")
         if pd.get(c.PROVENANCE) is not None:
             raise _unported('the "provenance" block', "Tooling")
 
@@ -405,6 +400,29 @@ class TrainingConfig:
             except ValueError as e:
                 raise ConfigError(f'invalid "resilience" block: {e}') from e
 
+        # ---- lifecycle (the train->serve control plane) ----
+        # A "lifecycle" block arms the live re-mesh (pool-change signal ->
+        # a coordinated topology flip at a step boundary) and weight-
+        # version publishing (COMMITTED tags -> VERSIONS.json records the
+        # serving fleet rolls onto). Validated eagerly so a typo'd signal
+        # name fails at load time.
+        self.lifecycle_params = pd.get(c.LIFECYCLE, None)
+        if self.lifecycle_params is not None and not isinstance(
+                self.lifecycle_params, dict):
+            raise ConfigError('"lifecycle" must be a dict of '
+                              'LifecycleConfig overrides (or {"enabled": '
+                              'false})')
+        self.lifecycle_enabled = _block_enabled(pd, c.LIFECYCLE)
+        self._lifecycle_config = None
+        if self.lifecycle_enabled:
+            from ..lifecycle.config import LifecycleConfig
+
+            try:
+                self._lifecycle_config = LifecycleConfig.from_dict(
+                    dict(self.lifecycle_params, enabled=True))
+            except ValueError as e:
+                raise ConfigError(f'invalid "lifecycle" block: {e}') from e
+
         # ---- distributed (the multi-process runtime) ----
         # A "distributed" block configures the process-group rendezvous:
         # coordinator address and process shape (or environment
@@ -493,6 +511,11 @@ class TrainingConfig:
         """The "resilience" block as a ResilienceConfig (None when absent
         or disabled)."""
         return self._resilience_config
+
+    def lifecycle_config(self):
+        """The "lifecycle" block as a LifecycleConfig (None when absent or
+        disabled), validated at parse time."""
+        return self._lifecycle_config
 
     def distributed_config(self):
         """The "distributed" block as a DistributedConfig (None when

@@ -96,14 +96,33 @@ canonical mode takes the slot means through gathered fp32 rows and the
 fixed pairwise tree (runtime/comm/reducer.py). Every step's loss is then
 bit-identical at every admissible world size, world 1 included.
 
+Lifecycle, as in the reference: a ``"lifecycle"`` block attaches the
+``LifecycleController`` (the version publisher and the live re-mesh hook)
+to the resilience manager's step boundary when ``resilience.save_dir`` is
+set, else a bare ``RemeshHook``. ``remesh(w)`` is the live shrink: at one
+optimizer-step boundary every rank has agreed on ``w`` (the hook's one
+small all-gather a boundary); the ranks ``>= w`` retire (exit 0), the
+survivors form a new process group over the old group's store, re-solve
+the batch triple from the ``"elasticity"`` block (the global batch
+invariant), re-cut their ZeRO shards from the gathered master and
+moments, and rebuild the ``GradReducer`` with its residuals restored
+(canonical rows verbatim) or resharded (``resilience/reshard.py``).
+
+The 1-bit optimizers (``OneBitAdam``/``OneBitLamb``,
+runtime/comm/onebit.py) are built as the reference builds them
+(``freeze_step`` 100000 by default), and their state (step, moments,
+error feedback, LAMB's frozen ratios) rides in the checkpoint's
+``opt_state`` under the reference's field names.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
 stage 3 and offload for a loss callable, tensor and pipeline
-parallelism, the comm overlap schedule, the lifecycle hooks and the
-flops profiler.
+parallelism, the comm overlap schedule and the flops profiler.
 """
 
+import copy
 import inspect
 import os
+import time
 from contextlib import nullcontext
 from typing import Callable, Optional
 
@@ -138,6 +157,7 @@ from . import lr_schedules
 from .accessors import ConfigAccessorsMixin, make_summary_writer
 from .comm.collectives import Transport
 from .comm.config import CommConfig
+from .comm.onebit import OnebitAdam, OnebitLamb
 from .comm.reducer import GradReducer, exact_slot_mean
 from .config import TrainingConfig
 from .bs_schedules import BatchSizeScheduler
@@ -154,12 +174,15 @@ ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 LAMB_OPTIMIZER = "lamb"
 SGD_OPTIMIZER = "sgd"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
 # known to the reference, not ported yet: name -> ROADMAP.md queue 1 item
 _UNPORTED_OPTIMIZERS = {
     "cpuadam": "Offload and ZeRO-Infinity",
-    "onebitadam": "runtime/comm/",
-    "onebitlamb": "runtime/comm/",
 }
+# the exit code of a rank a live re-mesh retires: a clean exit, which the
+# supervisors count as done, not as a crash
+RETIRE_EXIT_CODE = 0
 
 
 def _dtype_of(precision: str) -> torch.dtype:
@@ -285,6 +308,7 @@ class Engine(ConfigAccessorsMixin):
         if self._resilience is not None:
             # a supervisor-restarted child: count it, record reason/world
             self._resilience.note_restart_context()
+        self._init_lifecycle(config)
 
         # batch-size warmup (the fork's bs_schedules.py): the engine
         # tracks the schedule and exposes current_batch_size(); the
@@ -345,8 +369,8 @@ class Engine(ConfigAccessorsMixin):
             raise NotImplementedError(
                 f"ZeRO stage {self.zero_stage} over {self._zero_size} ranks "
                 f"shards the optimizer state, which the port does only for "
-                f"Adam (LAMB's trust ratio needs whole-leaf norms); use stage "
-                f"0 or one rank")
+                f"Adam (LAMB's trust ratio and the 1-bit optimizers' scale "
+                f"need whole-leaf norms); use stage 0 or one rank")
 
         # the engine owns its state: copies, never aliases of the caller's
         with torch.no_grad():
@@ -461,6 +485,33 @@ class Engine(ConfigAccessorsMixin):
                             else 0)
         self._zero = Transport(mesh.group((zaxis,)) if zaxis else None)
 
+    def _init_lifecycle(self, config):
+        """A "lifecycle" block arms the live re-mesh signal handler and the
+        weight-version publisher as resilience step-boundary hooks; the
+        publisher needs a checkpoint dir, so without resilience.save_dir
+        only the re-mesh hook is wired (pool shrinks still work)."""
+        self._lifecycle = None
+        self._remesh_epoch = 0
+        lc_cfg = config.lifecycle_config()
+        if lc_cfg is None:
+            return
+        ckpt_dir = (self._resilience.save_dir
+                    if self._resilience is not None else None)
+        if ckpt_dir is not None:
+            from ..lifecycle.controller import LifecycleController
+
+            self._lifecycle = LifecycleController(
+                ckpt_dir, cfg=lc_cfg).attach(self)
+            return
+        from ..lifecycle.remesh import RemeshHook
+
+        hook = RemeshHook(lc_cfg)
+        if lc_cfg.remesh_enabled:
+            hook.install()
+        if self._resilience is not None:
+            self._resilience.attach_lifecycle(hook)
+        self._lifecycle = hook
+
     def _init_monitor(self, config):
         """The monitor this engine reports to: the config's (built and
         installed here) or an installed one, else None. A rank of a
@@ -534,6 +585,10 @@ class Engine(ConfigAccessorsMixin):
                 lr=lr, betas=betas, eps=eps, weight_decay=wd,
                 max_coeff=params.pop("max_coeff", 10.0),
                 min_coeff=params.pop("min_coeff", 0.01))
+        if name in (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER):
+            cls = OnebitAdam if name == ONEBIT_ADAM_OPTIMIZER else OnebitLamb
+            return cls(lr=lr, betas=betas, eps=eps, weight_decay=wd,
+                       freeze_step=params.pop("freeze_step", 100000))
         if name == SGD_OPTIMIZER:
             return SGD(lr=lr, momentum=params.pop("momentum", 0.0),
                        weight_decay=wd,
@@ -1372,6 +1427,231 @@ class Engine(ConfigAccessorsMixin):
         trace_instant("resilience/comm_reshard", lane="resilience",
                       world_from=w_from, world_to=target["world"])
         return True
+
+    # ------------------------------------------------------------------ #
+    # live re-mesh (lifecycle/)
+    # ------------------------------------------------------------------ #
+
+    def agree_remesh(self, ready: bool, pool: Optional[int]):
+        """The live re-mesh's agreement at a step boundary, collective over
+        the data-parallel ranks: each rank's (ready, pool read) gathered;
+        returns (any rank ready, the smallest pool a ready rank read, or
+        None), the same on every rank."""
+        dev = (self.device if self._dp.backend == "nccl"
+               else torch.device("cpu"))
+        mine = torch.tensor([int(bool(ready)), -1 if pool is None
+                             else int(pool)], dtype=torch.int64, device=dev)
+        rows = self._dp.all_gather(mine).cpu().tolist()
+        pools = [p for r, p in rows if r and p >= 0]
+        return any(r for r, _ in rows), (min(pools) if pools else None)
+
+    def remesh(self, world_size: int):
+        """Shrink the data-parallel world LIVE at a step boundary: the
+        counterpart of the supervisor's elastic relaunch without a
+        checkpoint round trip or a re-exec of the survivors.
+
+        Every rank calls it at the same optimizer-step boundary with the
+        same ``world_size`` (``RemeshHook.poll`` agrees on it). The ranks
+        ``>= world_size`` retire: they take part in the gathers of the
+        state, leave the process group and exit with ``RETIRE_EXIT_CODE``
+        (0), which the supervisors count as done. The survivors form a new
+        group over the old group's store, re-solve the batch triple from
+        the ``"elasticity"`` block at the new world (the global batch, and
+        so the datapipe's row stream, invariant), re-cut their ZeRO shards
+        of the master and the optimizer state from the gathered whole, and
+        rebuild the ``GradReducer`` plan with its error-feedback residuals
+        restored (canonical rows verbatim) or resharded
+        (``resilience/reshard.py``). With ``elasticity.canonical_shards``
+        the loss curve continues bit-identically, as a kill-restart resume
+        would. Returns the new data-parallel size. Growth past the
+        processes alive needs a relaunch (the fleet supervisor)."""
+        world_size = int(world_size)
+        if world_size == self.data_parallel_size:
+            return self.data_parallel_size
+        if self._config.zero_config.offload_optimizer.enabled:
+            raise RuntimeError(
+                "live re-mesh is not supported with optimizer offload "
+                "(host-side state is keyed to the old placement)")
+        if self._acc_count or self._stashed is not None:
+            raise RuntimeError(
+                "live re-mesh must happen at an optimizer-step boundary "
+                "(gradients are banked mid-accumulation)")
+        if not self._config.elasticity_enabled:
+            raise RuntimeError(
+                "live re-mesh needs an elasticity block: the batch "
+                "triple must re-solve at the new world size with the "
+                "global batch invariant")
+        valid = self._config.elastic_valid_world_sizes or []
+        if valid and world_size not in valid:
+            raise ValueError(
+                f"world_size {world_size} is not an admissible elastic "
+                f"world size (valid: {sorted(valid)})")
+        if world_size > self.data_parallel_size:
+            raise ValueError(
+                f"cannot re-mesh to {world_size} ranks live: only "
+                f"{self.data_parallel_size} processes exist (growth needs a "
+                f"relaunch)")
+        old_world = self.data_parallel_size
+        rank = self.mesh.rank
+        t0 = time.time()
+        # the span COVERS the survivors' stall: the goodput ledger's
+        # `remesh` bucket is carved from exactly this interval
+        span = (trace_span("lifecycle/remesh", lane="lifecycle",
+                           world_from=old_world, world_to=world_size)
+                if rank < world_size else nullcontext())
+        with span:
+            new_dp = self._remesh_apply(world_size)
+        if new_dp is None:
+            self._retire(old_world, world_size)
+        stall_ms = (time.time() - t0) * 1000.0
+        log_dist(f"live re-mesh: world {old_world} -> {new_dp} in "
+                 f"{stall_ms:.0f}ms (step {self.global_steps}, "
+                 f"mesh={self.mesh.shape})", ranks=[0])
+        return new_dp
+
+    def _remesh_config(self, world_size: int) -> TrainingConfig:
+        """The config re-solved at ``world_size``, checked before any rank
+        leaves the group: the same global rows, a data-parallel size of
+        ``world_size``, and canonical slots that still divide over it."""
+        raw = copy.deepcopy(self._config._param_dict)
+        # elasticity rewrote the batch triple at init; the re-parse
+        # re-derives micro/gas for the new world (the global batch is
+        # pinned by the elasticity block)
+        for key in ("train_batch_size", "train_micro_batch_size_per_gpu",
+                    "gradient_accumulation_steps"):
+            raw.pop(key, None)
+        cfg = TrainingConfig(raw, world_size=world_size)
+        mc = cfg.mesh_config()
+        new_dp = world_size
+        if mc is not None:
+            # every axis but tp/sp is a data-parallel (batch) axis
+            dims = mc.resolve(world_size)
+            new_dp //= dims[mesh_lib.TP_AXIS] * dims[mesh_lib.SP_AXIS]
+        if new_dp != world_size:
+            raise ValueError(
+                f"the new mesh resolves to data-parallel size {new_dp}, not "
+                f"the requested {world_size}: fix the mesh block's axis "
+                f"extents (use -1 to infer from the world size)")
+        rows = (cfg.train_micro_batch_size_per_gpu * world_size
+                * cfg.gradient_accumulation_steps)
+        if rows != self._global_rows():
+            raise RuntimeError(
+                f"elastic re-solve changed the global batch rows "
+                f"({self._global_rows()} -> {rows}); the datapipe stream "
+                f"would diverge: the elasticity block must pin one global "
+                f"batch across its world sizes")
+        if self.canonical_shards and self.canonical_shards % new_dp:
+            raise RuntimeError(
+                f"elasticity.canonical_shards={self.canonical_shards} is "
+                f"not a multiple of the new data-parallel size {new_dp}; "
+                f"bit-identical reduction cannot continue")
+        return cfg
+
+    def _remesh_apply(self, world_size: int):
+        """The flip itself; None on a rank the new world retires."""
+        new_config = self._remesh_config(world_size)
+        rank = self.mesh.rank
+        # ---- snapshots the new topology inherits (collective, old group)
+        with torch.no_grad():
+            full_master = (self._full(self.master)
+                           if self.master is not None else None)
+            st = self.opt_state
+            full_opt = [self._full(t) for t in st[1:]]
+            old_comm = [{k: self._gather_residual(v).cpu()
+                         for k, v in res.items()} for res in self._comm_state]
+        old_fp = repr(self.comm.state_fingerprint())
+        old_plan = self.comm.plan_summary()
+        self._rejoin_world(world_size)
+        if rank >= world_size:
+            return None
+
+        # ---- swap topology + config, re-cut the shards ----
+        self._config = new_config
+        self._init_mesh(new_config)
+        self.master_specs = rules.zero_tree_specs(self.params, None,
+                                                  self.zero_stage, self.mesh,
+                                                  "master")
+        self._specs = tree_leaves(self.master_specs)
+        idx = self._zero_index
+
+        def cut(full, sp):
+            return partition.shard_of(full, sp, idx).clone(
+                memory_format=torch.contiguous_format)
+
+        with torch.no_grad():
+            if self._use_master:
+                self.master = tree_map(cut, full_master, self.master_specs)
+                self._opt_target = self.master
+                self._cast_target = tree_map(
+                    lambda p, sp: p if not sp.sharded else torch.empty(
+                        cut(p.detach(), sp).shape, dtype=p.dtype,
+                        device=p.device), self.params, self.master_specs)
+            else:
+                self._opt_target = tree_map(
+                    lambda p, sp: partition.shard_of(p.detach(), sp, idx),
+                    self.params, self.master_specs)
+            self.opt_state = type(st)(st.step, *(
+                tree_map(cut, f, self.master_specs) for f in full_opt))
+        del full_master, full_opt
+
+        # ---- rebuild the reducer; restore or reshard its residuals ----
+        self.comm = GradReducer(
+            new_config.comm_config() or CommConfig(mode="fp32"), self.mesh,
+            registry=(self.monitor.registry if self.monitor is not None
+                      else None), canonical=self.canonical_shards)
+        self.comm.build_plan(self.params)
+        self._comm_state = self.comm.init_state(self.device)
+        with torch.no_grad():
+            self._restore_comm_state(old_comm, old_fp, old_plan)
+
+        # the new topology brings new argument signatures (this rank's
+        # rows): the watchdog's and the cost index's warmup starts over
+        self._step_sigs = SignatureCache()
+        self._fwd_sigs = SignatureCache()
+        self._bwd_sigs = SignatureCache()
+        self._upd_sigs = SignatureCache()
+
+        # ---- restart data production against the new mesh (the cursor
+        # is world-agnostic: the global rows a step are invariant) ----
+        if self.datapipe is not None:
+            self.datapipe.load_state_dict(self.datapipe.state_dict())
+        self.tput_timer = ThroughputTimer(
+            batch_size=new_config.train_micro_batch_size_per_gpu
+            * new_config.gradient_accumulation_steps,
+            num_workers=1, steps_per_output=new_config.steps_per_print)
+        return self.data_parallel_size
+
+    def _rejoin_world(self, world_size: int) -> None:
+        """Leave the default process group; ranks below ``world_size`` form
+        a new one over the old group's store (under a fresh prefix), with
+        the same backend. A world of one rank runs without a group."""
+        import torch.distributed as dist
+        from torch.distributed import distributed_c10d as c10d
+
+        if not dist.is_initialized():
+            return
+        backend = dist.get_backend()
+        rank = dist.get_rank()
+        # the store outlives the group: rank 0 (a survivor) may host it
+        self._remesh_store = c10d._get_default_store()
+        self._remesh_epoch += 1
+        dist.destroy_process_group()
+        if rank < world_size and world_size > 1:
+            dist.init_process_group(
+                backend, rank=rank, world_size=world_size,
+                store=dist.PrefixStore(f"ds_remesh/{self._remesh_epoch}",
+                                       self._remesh_store))
+
+    def _retire(self, old_world: int, world_size: int) -> None:
+        """A rank the live re-mesh leaves out: stop the input pipe, let
+        pending saves finish, exit with ``RETIRE_EXIT_CODE``."""
+        logger.info("live re-mesh: world %d -> %d at step %d; this rank "
+                    "retires", old_world, world_size, self.global_steps)
+        if self.datapipe is not None:
+            self.datapipe.close()
+        if self._resilience is not None:
+            self._resilience.wait_for_pending_saves()
+        raise SystemExit(RETIRE_EXIT_CODE)
 
 
 def _host_tensor(src) -> torch.Tensor:

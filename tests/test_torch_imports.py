@@ -199,6 +199,41 @@ def test_resilience_and_multiprocess_runtime_load_no_jax(runtime_imports,
     assert [m for m in mods if _forbidden(m)] == []
 
 
+_LIFECYCLE_MODULES = (
+    "lifecycle", "lifecycle.config", "lifecycle.versions",
+    "lifecycle.remesh", "lifecycle.controller", "lifecycle.__main__",
+    "runtime.comm", "runtime.comm.compressed", "runtime.comm.onebit",
+    "runtime.comm.onebit_spmd")
+
+
+@pytest.fixture(scope="module")
+def lifecycle_imports():
+    """As ``runtime_imports``, for the lifecycle and 1-bit slice."""
+    code = (
+        "import importlib, json, sys\n"
+        f"names = {list(_LIFECYCLE_MODULES)!r}\n"
+        "out = {}\n"
+        "for n in names:\n"
+        "    importlib.import_module('deeperspeed_tpu_torch.' + n)\n"
+        "    out[n] = sorted(sys.modules)\n"
+        "print(json.dumps(out))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", _LIFECYCLE_MODULES)
+def test_lifecycle_and_onebit_load_no_jax(lifecycle_imports, name):
+    """Each module of the lifecycle control plane and of the 1-bit wire
+    imports with neither jax nor any module of the reference in
+    sys.modules."""
+    mods = lifecycle_imports[name]
+    assert f"deeperspeed_tpu_torch.{name}" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

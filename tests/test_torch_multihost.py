@@ -190,6 +190,9 @@ def test_classify_exit_and_policy_match_the_reference():
                 jfleet.classify_exit(code, sentinel)
     p, j = vars(pfleet.FleetPolicy()), vars(jfleet.FleetPolicy())
     j.pop("simulate_cpu_devices")
+    # the port's live shrink (lifecycle/, ROADMAP.md section 3): off by
+    # default, which leaves the reference's restart path
+    assert p.pop("live_remesh") is False
     assert p == j
     assert 0 < pfleet.free_port() < 65536
     with pytest.raises(ValueError, match="one rank"):

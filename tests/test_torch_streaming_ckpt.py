@@ -68,6 +68,32 @@ def test_checkpoint_resume_nvme_tier(tmp_path):
     assert all(eng2.shadow_matches_device().values())
 
 
+@pytest.mark.parametrize("pipeline_swap", [False, True])
+def test_checkpoint_reloads_into_the_engine_that_ran_on(tmp_path,
+                                                        pipeline_swap):
+    """The 20B profile's tiers: a tag of step 2 loaded back into the
+    engine after its step 3 (state the load missed would keep step 3's
+    values) gives step 3's loss and card bytes again, bit for bit."""
+    sc = scfg(group_layers=1, wire_bits=4, warmup_steps=0, lr=2e-2,
+              resident_bits=4, host_state="bf16", state_device="nvme",
+              swap_states="exp_avg_sq", swap_folder=str(tmp_path / "s"),
+              pipeline_swap=pipeline_swap)
+    data = batch(seed=9, n=3)
+    eng = port_engine(tiny_cfg("bf16"), sc, params_np(dtype="bf16"))
+    eng.train_batch(data[0])
+    eng.train_batch(data[1])
+    eng.save_checkpoint(str(tmp_path / "ck"))
+    loss3 = eng.train_batch(data[2])
+    card3 = {c: eng.storage_bytes(c) for c in eng.chunk_names}
+    eng.load_checkpoint(str(tmp_path / "ck"))
+    assert eng.step_count == 2
+    assert eng.train_batch(data[2]) == loss3
+    for c in eng.chunk_names:
+        for k, v in eng.storage_bytes(c).items():
+            np.testing.assert_array_equal(v, card3[c][k])
+    assert all(eng.shadow_matches_device().values())
+
+
 def test_checkpoint_resume_all_states_swapped(tmp_path):
     sc = scfg(wire_bits=8, warmup_steps=0, state_device="nvme",
               swap_folder=str(tmp_path / "swap"), pipeline_swap=False)

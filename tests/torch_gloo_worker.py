@@ -10,6 +10,7 @@ the reference runs in the test process.
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -29,7 +30,9 @@ def _entry(rank, name, world, tmp, args):
     try:
         globals()[name](rank, world, tmp, *args)
     finally:
-        dist.destroy_process_group()
+        # a live re-mesh may have left (or replaced) the default group
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def spawn(name, world, tmp, *args):
@@ -435,3 +438,189 @@ def bootstrap_run(rank, world, tmp):
                    "dist_init_spans": len(spans)}, f)
     shutdown_monitor(save=False)
     bootstrap.shutdown()
+
+
+# ------------------------------------------------------------------ #
+# the live re-mesh (lifecycle/)
+# ------------------------------------------------------------------ #
+
+
+def remesh_run(rank, world, tmp, model_kw, config, steps, signal_before,
+               pool, tag, device="cpu"):
+    """Train ``steps`` steps of the tiny GPT under ``config`` (batches
+    keyed by the global step; ``config`` carries a "lifecycle" block whose
+    pool file is ``<tmp>/pool``). Before step ``signal_before`` rank 0
+    writes ``pool`` into the pool file and takes the re-mesh signal (the
+    other ranks only learn of it through the step boundary's agreement).
+    A rank the re-mesh retires exits 0. Writes the losses and grad norms
+    (hex), a digest of the params after each step, the world after each
+    step, the number of ``lifecycle/remesh`` spans and whether the rank
+    retired to ``<tag>_rank<r>.json``."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.monitor import (get_monitor, init_monitor,
+                                               shutdown_monitor)
+    from deeperspeed_tpu_torch.resilience import shutdown_resilience
+
+    init_monitor({})
+    params = torch.load(os.path.join(tmp, "params.pt"))
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32, attn_impl="xla")
+    eng, _, _, _ = ds.initialize(model=gpt.make_gpt(cfg)[2],
+                                 model_parameters=params, config=config,
+                                 device=device)
+    out = {"losses": [], "gnorms": [], "params": [], "worlds": [],
+           "retired": None}
+    rows = eng._config.train_batch_size
+    try:
+        for _ in range(steps):
+            s = eng.global_steps
+            if s == signal_before and rank == 0:
+                with open(os.path.join(tmp, "pool"), "w") as f:
+                    f.write(f"{pool}\n")
+                getattr(eng._lifecycle, "remesh", eng._lifecycle).request()
+            batch = np.random.RandomState(1000 + s).randint(
+                0, model_kw["vocab_size"], (rows, model_kw["max_seq"] + 1))
+            out["losses"].append(float(eng.train_batch(batch)).hex())
+            out["gnorms"].append(eng.get_global_grad_norm().hex())
+            out["params"].append(_digest(
+                [t.cpu() for t in _leaves(eng.params)]))
+            out["worlds"].append(eng.data_parallel_size)
+    except SystemExit as e:
+        out["retired"] = e.code
+    finally:
+        out["spans"] = sum(1 for e in get_monitor().tracer.events()
+                           if e.get("name") == "lifecycle/remesh")
+        out["micro_gas"] = [eng._config.train_micro_batch_size_per_gpu,
+                            eng._config.gradient_accumulation_steps]
+        shutdown_monitor(save=False)
+        shutdown_resilience()
+        with open(os.path.join(tmp, f"{tag}_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+# ------------------------------------------------------------------ #
+# the 1-bit wire (runtime/comm/onebit_spmd.py)
+# ------------------------------------------------------------------ #
+
+
+def onebit_problem(seed, W):
+    """A linear regression of W * 4 rows (numpy, from ``seed``): params,
+    batch (x, y)."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(W * 4, 8)).astype(np.float32)
+    y = r.normal(size=(W * 4, 2)).astype(np.float32)
+    params = {"w": (r.normal(size=(8, 2)) * 0.3).astype(np.float32),
+              "b": np.zeros((2,), np.float32)}
+    return params, (x, y)
+
+
+def onebit_linear_loss(p, batch):
+    x, y = batch
+    return torch.mean((x @ p["w"] + p["b"] - y) ** 2)
+
+
+def onebit_wire_run(rank, world, tmp, n, rounds, seed, lr, steps):
+    """The 1-bit and 24-bit wire at ``world`` ranks on per-rank inputs from
+    ``seed``: ``rounds`` calls each of ``compressed_all_reduce``,
+    ``onebit_all_reduce`` and ``onebit_all_reduce_2phase`` (threading the
+    error buffers), then ``steps`` steps (one warmup, the rest compressed)
+    of the 1-bit Adam and LAMB wire train steps on ``onebit_problem``.
+    Writes everything to ``wire_rank<r>.npz``."""
+    from deeperspeed_tpu_torch.runtime.comm import compressed as cp
+    from deeperspeed_tpu_torch.runtime.comm import onebit_spmd as osp
+    from deeperspeed_tpu_torch.runtime.comm.onebit import (OnebitAdam,
+                                                           OnebitLamb)
+
+    g = dist.group.WORLD
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((rounds, world, n)).astype(np.float32)
+    out = {}
+    out["ar24"] = np.stack([cp.compressed_all_reduce(
+        torch.from_numpy(xs[r, rank]), g).numpy() for r in range(rounds)])
+    err = None
+    means, errs = [], []
+    for r in range(rounds):
+        mean, err = cp.onebit_all_reduce(torch.from_numpy(xs[r, rank]), g,
+                                         err)
+        means.append(mean.numpy())
+        errs.append(err.numpy())
+    out["ob_mean"], out["ob_err"] = np.stack(means), np.stack(errs)
+    werr = torch.zeros(n)
+    serr = torch.zeros(osp._chunk_len(n, world))
+    means, werrs, serrs = [], [], []
+    for r in range(rounds):
+        mean, werr, serr = osp.onebit_all_reduce_2phase(
+            torch.from_numpy(xs[r, rank]), g, werr, serr, world)
+        means.append(mean.numpy())
+        werrs.append(werr.numpy())
+        serrs.append(serr.numpy())
+    out["tp_mean"], out["tp_werr"], out["tp_serr"] = (
+        np.stack(means), np.stack(werrs), np.stack(serrs))
+    params, (x, y) = onebit_problem(seed, world)
+    batch = (torch.from_numpy(x), torch.from_numpy(y))
+    for name, opt, make in (
+            ("adam", OnebitAdam(lr=lr, freeze_step=1),
+             osp.make_onebit_spmd_train_step),
+            ("lamb", OnebitLamb(lr=lr, freeze_step=1),
+             osp.make_onebit_lamb_spmd_train_step)):
+        p = {k: torch.from_numpy(v) for k, v in params.items()}
+        init, warm = make(onebit_linear_loss, opt, g, "warmup")
+        _, comp = make(onebit_linear_loss, opt, g, "compressed")
+        comm = init(p)
+        losses = []
+        for i in range(steps):
+            fn = warm if i == 0 else comp
+            p, comm, loss = fn(p, comm, batch, lr, i + 1)
+            losses.append(float(loss))
+        out[f"{name}_w"], out[f"{name}_b"] = p["w"].numpy(), p["b"].numpy()
+        out[f"{name}_loss"] = np.asarray(losses)
+        out[f"{name}_werr"] = comm.werr.numpy()
+    np.savez(os.path.join(tmp, f"wire_rank{rank}.npz"), **out)
+
+
+def fleet_trainer(work):
+    """A trainer process of a ``FleetSupervisor`` (``python -c`` entry):
+    joins the group its environment describes, trains the tiny GPT of
+    ``<work>/spec.json`` (model, config, steps) on batches keyed by the
+    step, holding before each step the count ``<work>/allow`` does not
+    allow yet, and logs one JSON line a step (or its retirement) to
+    ``<work>/steps.h<rank>``."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.distributed import bootstrap
+    from deeperspeed_tpu_torch.models import gpt
+
+    torch.set_num_threads(1)
+    bootstrap.bootstrap()
+    spec = json.load(open(os.path.join(work, "spec.json")))
+    model_kw = spec["model"]
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32, attn_impl="xla")
+    eng, _, _, _ = ds.initialize(
+        model=gpt.make_gpt(cfg)[2],
+        model_parameters=torch.load(os.path.join(work, "params.pt")),
+        config=spec["config"], device="cpu")
+    path = os.path.join(work, f"steps.h{os.environ['DS_PROCESS_ID']}")
+
+    def line(rec):
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    rows = eng._config.train_batch_size
+    try:
+        while eng.global_steps < spec["steps"]:
+            while eng.global_steps >= int(open(os.path.join(
+                    work, "allow")).read()):
+                time.sleep(0.01)
+            s = eng.global_steps
+            batch = np.random.RandomState(1000 + s).randint(
+                0, model_kw["vocab_size"], (rows, model_kw["max_seq"] + 1))
+            line({"step": s + 1, "loss": float(eng.train_batch(batch)).hex(),
+                  "world": eng.data_parallel_size})
+    except SystemExit as e:
+        line({"retired": e.code, "after_step": eng.global_steps})
+        raise
