@@ -288,16 +288,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    validation and holds both ranks' comm/reduce spans. It prints step time,
    tokens/s, peak memory per rank, the buckets, the modeled wire bytes and
    the bytes staged through host memory per step, and the reduction's share
-   of the step. A rank that raises fails the run. Every source is built
-   before the spawn.
-15. ZeRO-Infinity (run last): the streamed offload engine
+   of the step. Then 6 more steps from the same seed with the file's comm
+   block and "overlap": "on" (runtime/comm/overlap.py: each bucket leaves
+   from a hook as the last micro-batch's backward banks its grads and is
+   drained before the update). Gates: each rank's params after every step,
+   its losses, grad norms and skipped steps bit-identical to the int8
+   run's; every overlap comm/reduce span marked overlapped, one
+   comm/overlap_window a step and rank, at least one bucket launched while
+   the backward ran; launches as the int8 run's; the wire model's price of
+   the run's plan (wiremodel.plan_wire_bytes) exactly twice the reducer's
+   own total_wire_bytes (the reference's model counts both phases in the
+   bits and again in the ring factor). Printed beside the card: the
+   overlap_fraction of the two runs' merged traces. A rank that raises
+   fails the run. Every source is built before the spawn.
+15. ZeRO-Infinity (run after phase 14, with phase 18 on a thread beside
+   it): the streamed offload engine
    (runtime/offload/streaming.py) at GPT-NeoX-20B width (d_model 6144, 64
    heads of 96, d_ff 24576, vocab 50432, untied), built by initialize from
    a GPTConfig. First the host: its RAM (/proc/meminfo), the free disk at
    the swap folder, the host library's build (csrc/host/ds_cpu_adam.cpp:
    compiler, seconds, OpenMP, ds_adam_simd_width()). 15a: 1 layer, the
-   fp32 wire, bf16 residency, fp32 host state in RAM, kernels auto, lr 0:
-   the streamed grads (capture_grads) against make_gpt's autograd grads on
+   fp32 wire, bf16 residency, fp32 host state in RAM, kernels auto, lr 0,
+   weights drawn on the card (init_params) and handed to initialize: the
+   streamed grads (capture_grads) against make_gpt's autograd grads on
    the card's params, per leaf cosine >= INFINITY_GRAD_COSINE and relative
    L2 <= INFINITY_GRAD_REL_L2; the loss with the kernels off (eval_batch,
    dense attention) and make_gpt's within INFINITY_LOSS_RTOL; the native
@@ -309,7 +322,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    streaming block: int4 wire and residency, bf16 host state, exp_avg_sq
    on the NVMe tier; its aio block, Adam 8e-6, WarmupLR 14) plus
    "kernels": {"mode": "auto"}, cut as PERF.md section 4 lists (n_layer
-   44 -> INFINITY_LAYERS, 1, nvme_path a temporary directory), fresh init,
+   44 -> INFINITY_LAYERS, 1, nvme_path a temporary directory), weights
+   drawn on the card (the host's fresh init is held by the CPU tests),
    INFINITY_STEPS steps on one corpus batch, a checkpoint saved after step
    2 (15c's). Gates after every step: the
    loss finite, every chunk's host shadow equal to the card's resident
@@ -334,7 +348,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    section 4 lists (source data/corpus_tokens.npy, micro-batch
    DATAPIPE_MICRO x DATAPIPE_GAS at one rank, warmup DATAPIPE_WARMUP,
    curriculum warmup DATAPIPE_CURRICULUM_STEPS: lengths 128/427/725/1024
-   from steps 0/3/5/8), on phase 14's GPT-NeoX-125M (remat "matmuls"),
+   from steps 0/3/5/8), on GPT-NeoX-125M at full width and
+   DATAPIPE_LAYERS of its 12 layers (remat "matmuls"),
    trains DATAPIPE_STEPS steps through initialize -> train_batch() with no
    batch passed, saving a checkpoint after step DATAPIPE_SAVE_AFTER with
    the prefetch queue non-empty. Gates: every global batch the step read
@@ -355,7 +370,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    under "flash" and "matmuls" and twice under "full", "dots" and
    "dots_all", flash_bwd once; each policy's peak memory printed. 16c:
    store_gradients on the 16a engine equal to the unfused backward's
-   grads (STORE_GRADS_ATOL), layer_outputs for all 12 layers, two SGD
+   grads (STORE_GRADS_ATOL), layer_outputs for all its layers, two SGD
    steps (momentum, Nesterov) on the 125M leaves against the CPU
    (SGD_ATOL), and FP16_Optimizer(FusedAdam) for 3 steps with a dynamic
    scale: the step with an inf gradient skipped and the scale halved.
@@ -403,9 +418,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    replicas), 17a's requests, replica 0 SIGKILLed mid-decode: every
    request finishes, and its tokens equal 17a's speculative engine's
    under the near-tie rule.
-18. Resilience and the multi-process runtime (run after phase 17), on
-   phase 16's GPT-NeoX-125M (full width and depth, remat "matmuls", bf16,
-   weights from SEED), kernels auto. Its trainers are processes: this
+18. Resilience and the multi-process runtime (run on a thread beside
+   phase 15: its parent only drives processes, and 15 is host-bound;
+   the times of both are taken on a shared host), on
+   phase 16's GPT-NeoX-125M (full width, DATAPIPE_LAYERS layers, remat
+   "matmuls", bf16, weights from SEED), kernels auto. Its trainers are processes: this
    script with ``--child resilience|multihost WORK`` (a trainer that logs
    one JSON line a step and prints no contract line; its stdout and
    stderr go to WORK/log.<name>), loading the kernels the parent built
@@ -502,6 +519,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the kernel phases ("path": "onebit"). Printed: the warmup- and
    compressed-phase step seconds, peak memory, save and load seconds,
    each kernel's launches a step.
+21. Mixture-of-Experts, configs/moe_8e_ep.json (MOE_* constants). 21a:
+   GPT-NeoX-125M width (d_model 768, 12 heads, d_ff 3072, vocab 50304)
+   with 8 experts, top-2, the reference's MoE defaults (dispatch "auto":
+   dense), seq 1024, remat "matmuls", MOE_LAYERS layers, random weights
+   from SEED, the file's blocks as written (bf16 with an fp32 master, ZeRO
+   1, Adam 3e-4 betas 0.9/0.95, clip 1.0, micro-batch 8) plus kernels
+   auto, train_batch_size MOE_ROWS (the file's 256 is 32 accumulation
+   steps at world 1), one rank, MOE_STEPS steps on one batch, a save
+   after step MOE_SAVE_AFTER. Gates: the kernel path agrees with the plain
+   path on a micro-batch (phase 6's limits); losses finite and falling,
+   no skipped step; launches a step as the model's path gives them
+   (flash a layer, the final LN pair, one fused Adam); a fresh engine from
+   another seed loads the tag and gives steps 4-6's losses, grad norms and
+   params and moments bit for bit. Printed beside the card: each layer's
+   dropped_frac, aux and z losses before and after the steps (a
+   kernels-off forward), the step's wall and device ms and its top device
+   kernels (one more step under torch.profiler). 21b: 4 processes share
+   the card over gloo on the mesh {data: 2, expert: 2} (each rank 4 of the
+   8 experts, the batch split over data only), MOE_EP_LAYERS layers at
+   seq MOE_EP_SEQ, fp32, MOE_EP_STEPS steps of the dense dispatch, then of
+   dropless EP (buffer factor 2.0: no drops), each against a world-1 run
+   of the same global batches in this process (run while the ranks start
+   and train). Gates: every rank 4
+   experts at dp 2; the whole params after the last step the same bits
+   on every rank; each step's loss and each leaf after the last step
+   (its relative L2 difference) within MOE_EP_RTOL of world 1; every layer's dropped_frac of every step equal; launches a
+   rank-step as the model's path gives them. The file's expert axis of 8
+   would be 8 processes on the card (PERF.md section 4). 21c: a
+   ServingEngine over 21a's trained model serves MOE_SERVE_LENS greedy
+   requests of MOE_SERVE_NEW tokens with the kernels on, then off: every
+   request finishes by length, one ln_fwd launch a forward, and the
+   kernel path's tokens equal the plain path's or differ first at a near
+   tie (phase 17's rule).
 A line before the kernels line gives each phase's wall seconds. The line
 before the last is the kernels JSON object, the one before it the card;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -790,6 +840,9 @@ INFINITY_BG = (1024, 24576)
 # cuts PERF.md section 4 lists, on phase 14's GPT-NeoX-125M
 DATAPIPE_CONFIG = ROOT / "configs" / "gpt_125m_datapipe.json"
 DATAPIPE_MICRO = 16
+# GPT-NeoX-125M at 6 of its 12 layers in phases 16, 18 and 19: the
+# script's time (PERF.md section 4)
+DATAPIPE_LAYERS = 6
 DATAPIPE_GAS = 4
 DATAPIPE_STEPS = 12                 # crosses the curriculum's 4 stages
 DATAPIPE_SAVE_AFTER = 6
@@ -890,9 +943,35 @@ LC_NEW = 16
 # TTFT near a rollout: the requests that arrive within this many seconds
 # of its start
 LC_ROLLOUT_WINDOW_S = 5.0
+# Mixture-of-Experts (phase 21): configs/moe_8e_ep.json at GPT-NeoX-125M
+# width, 8 experts, top-2. 21a: one rank, train_batch_size cut to MOE_ROWS
+# (the file's 256 is 32 accumulation steps at world 1), MOE_LAYERS of 12
+# layers; 21b: 4 processes on the card over gloo at {data: 2, expert: 2},
+# MOE_EP_LAYERS layers at seq MOE_EP_SEQ, fp32, against world 1 within
+# MOE_EP_RTOL (each step's loss, and each leaf's relative L2 difference
+# after the last step: Adam moves an element whose grad is near 0 by about
+# lr whatever its sign, so an element-wise relative limit would read the
+# sum order's ulps as lr) with dropped_frac equal; 21c: 8 greedy requests
+# on 21a's model
+MOE_CONFIG = ROOT / "configs" / "moe_8e_ep.json"
+MOE_LAYERS = 6                      # of 12: the script's time
+MOE_SEQ = 1024
+MOE_ROWS = 8
+MOE_STEPS = 6
+MOE_SAVE_AFTER = 3
+MOE_CKPT = ROOT / "build" / "smoke_moe_ckpt"
+MOE_EP_DIMS = {"data": 2, "expert": 2}
+MOE_EP_LAYERS = 2
+MOE_EP_SEQ = 256
+MOE_EP_MICRO = 4                    # rows a data rank a step
+MOE_EP_STEPS = 3
+MOE_EP_IMPLS = ("dense", "dropless")
+MOE_EP_RTOL = 1e-4
+MOE_SERVE_LENS = (16, 40, 100, 180, 260, 340, 420, 500)
+MOE_SERVE_NEW = 32
 # 1-bit Adam (phase 20): configs/neox_6.7b_3d.json at GPT-NeoX-6.7B width
 ONEBIT_CONFIG = ROOT / "configs" / "neox_6.7b_3d.json"
-ONEBIT_LAYERS = 4                   # of 32: the script's time
+ONEBIT_LAYERS = 2                   # of 32: the script's time
 ONEBIT_ROWS = 2                     # the file's 1024 (micro 4)
 ONEBIT_SEQ = 2048
 ONEBIT_WARMUP = 4                   # the file's 3000 (the scheduler's lr
@@ -3524,6 +3603,9 @@ DP_RANKS = 2
 DP_MICRO = 16
 DP_GAS = 2
 DP_STEPS = 6
+# the runs of each rank: the file as written (int8), fp32 comm, and the
+# file's comm block with "overlap": "on"
+DP_RUNS = ("int8", "fp32", "overlap")
 DP_WARMUP_STEPS = 100
 # int8 against fp32 comm, 6 steps from one seed: the largest relative
 # loss difference allowed (error feedback keeps the int8 curve on the fp32
@@ -3749,20 +3831,24 @@ def dp_rank(rank, tmp):
                             world_size=DP_RANKS)
     try:
         report = {"rank": rank}
-        for comm in ("int8", "fp32"):
-            report[comm] = dp_run(rank, None if comm == "int8"
-                                  else {"mode": "fp32"}, tmp)
+        with open(ROOT / "configs" / "gpt_125m_comm.json") as f:
+            block = json.load(f)["comm"]
+        for run in DP_RUNS:
+            comm = {"int8": None, "fp32": {"mode": "fp32"},
+                    "overlap": dict(block, overlap="on")}[run]
+            report[run] = dp_run(rank, comm, tmp, run)
         (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
 
 
-def dp_run(rank, comm, tmp):
+def dp_run(rank, comm, tmp, label):
     import deeperspeed_tpu_torch as ds
     from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
                                                   make_gpt)
     from deeperspeed_tpu_torch.ops import kernel_config
     from deeperspeed_tpu_torch.ops.adam import tree_leaves
+    from deeperspeed_tpu_torch.runtime.comm import wiremodel
 
     cfg = get_preset("neox-125m", max_seq=1024, remat_policy="matmuls",
                      ce_chunk=0, dtype=torch.bfloat16)
@@ -3780,7 +3866,7 @@ def dp_run(rank, comm, tmp):
             model=make_gpt(cfg)[2], model_parameters=params, config=config)
         zero0 = sum(12 * p.numel() for p in tree_leaves(params))
         del params
-        if comm is None and rank == 0:
+        if label == "int8" and rank == 0:
             out["parity"] = compare_paths(
                 engine, make_gpt(cfg)[2],
                 make_gpt(dataclasses.replace(cfg, attn_impl="xla"))[2],
@@ -3820,9 +3906,10 @@ def dp_run(rank, comm, tmp):
                 "comm_wire_bytes").value,
             "train_steps_total": mon.registry.counter(
                 "train_steps_total").value}
-        if comm is None:
+        if label in ("int8", "overlap"):
             out["monitor"]["trace"] = mon.save_trace(str(
-                Path(tmp) / f"{rc.role}.i{rc.incarnation}.trace.json"))
+                Path(tmp) / f"{label}.{rc.role}.i{rc.incarnation}"
+                ".trace.json"))
         out.update(
             digests=digests, reduce_s=reduce_s,
             skipped_steps=engine.skipped_steps,
@@ -3830,6 +3917,10 @@ def dp_run(rank, comm, tmp):
             n_buckets=red.n_buckets,
             bucket_padded=[b.padded for b in red.plan.buckets],
             wire_bytes_per_step=red.total_wire_bytes(),
+            wiremodel_bytes=wiremodel.plan_wire_bytes(red.plan, red.cfg,
+                                                      red.world),
+            overlap=engine._comm_overlap is not None,
+            overlap_in_backward=engine.overlap_launched_in_backward,
             staged_bytes_per_step=(red.transport.staged_bytes - staged0)
             / DP_STEPS,
             state_bytes=sum(t.numel() * t.element_size() for t in state),
@@ -3845,11 +3936,11 @@ def dp_run(rank, comm, tmp):
     return out
 
 
-def dp_merge_traces(monitors, tmp):
-    """Phase 14's two traces: each rank wrote its own (its role lane,
-    runctx.host_role), and ``aggregate`` merges them into one timeline
-    that passes strict validation and holds both ranks' comm/reduce
-    spans."""
+def dp_merge_traces(monitors, tmp, name="merged"):
+    """Phase 14's two traces of one run: each rank wrote its own (its role
+    lane, runctx.host_role), and ``aggregate`` merges them into one
+    timeline that passes strict validation and holds both ranks'
+    comm/reduce spans."""
     from deeperspeed_tpu_torch.monitor import aggregate, validate_events
 
     paths = [m["trace"] for m in monitors]
@@ -3858,7 +3949,7 @@ def dp_merge_traces(monitors, tmp):
         raise AssertionError(f"the ranks share a role or a trace file: "
                              f"{roles}, {paths}")
     doc, stats = aggregate.merge_files(paths, out=str(Path(tmp) /
-                                                      "merged.json"))
+                                                      f"{name}.json"))
     events = doc["traceEvents"]
     problems = validate_events(events, strict=True)
     reduce_pids = {e["pid"] for e in events if e.get("name") == "comm/reduce"}
@@ -3869,7 +3960,8 @@ def dp_merge_traces(monitors, tmp):
     return {"roles": roles, "files": [Path(p_).name for p_ in paths],
             "events": stats["events"], "sources": len(stats["sources"]),
             "comm_reduce_spans": sum(1 for e in events
-                                     if e.get("name") == "comm/reduce")}
+                                     if e.get("name") == "comm/reduce"),
+            "trace": events}
 
 
 def dp_training_phase(card):
@@ -3887,6 +3979,10 @@ def dp_training_phase(card):
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(DP_RANKS)]
         merged = dp_merge_traces([r["int8"]["monitor"] for r in ranks], tmp)
+        merged_overlap = dp_merge_traces(
+            [r["overlap"]["monitor"] for r in ranks], tmp, "merged_overlap")
+    overlap_report = dp_overlap_report(ranks, merged, merged_overlap, card)
+    merged.pop("trace")
     int8 = [r["int8"] for r in ranks]
     fp32 = [r["fp32"] for r in ranks]
     first = int8[0]
@@ -3996,10 +4092,60 @@ def dp_training_phase(card):
                              f"{report['fp32']['grad_norms']} by {ngaps} on "
                              f"the first {shared} steps (limit "
                              f"{INT8_GNORM_RTOL})")
+    for r, run in enumerate(r_["overlap"] for r_ in ranks):
+        per_step = {k: n / DP_STEPS for k, n in run["launches"].items()}
+        if per_step != expected:
+            raise AssertionError(f"overlap rank {r}: launches per step "
+                                 f"{per_step}, expected {expected}")
+    print("dp overlap: " + json.dumps(overlap_report), flush=True)
     launches = {k: sum(r["launches"][k] for r in int8)
                 for k in int8[0]["launches"]}
     per_step = {k: n / DP_STEPS for k, n in int8[0]["launches"].items()}
     return launches, per_step
+
+
+def dp_overlap_report(ranks, merged, merged_overlap, card):
+    """Phase 14's overlap run against its int8 run (the same steps with
+    the comm block's ``overlap: on``): params after every step, losses,
+    grad norms and skipped steps the same bits on each rank; the merged
+    traces' overlap_fraction; the wire model's price of the run's plan
+    (runtime/comm/wiremodel.py) twice the reducer's own."""
+    from deeperspeed_tpu_torch.runtime.comm import overlap
+
+    for r, rank in enumerate(ranks):
+        a, b = rank["int8"], rank["overlap"]
+        for key in ("digests", "losses", "grad_norms", "skipped_steps"):
+            if a[key] != b[key]:
+                raise AssertionError(f"overlap rank {r}: {key} differ from "
+                                     f"the overlap-off run: {b[key]} / "
+                                     f"{a[key]}")
+        if not b["overlap"] or a["overlap"] or b["overlap_in_backward"] < 1:
+            raise AssertionError(f"overlap rank {r}: scheduler "
+                                 f"{a['overlap']}/{b['overlap']}, buckets "
+                                 f"launched in the backward "
+                                 f"{b['overlap_in_backward']}")
+        if a["wiremodel_bytes"] != 2 * a["wire_bytes_per_step"]:
+            raise AssertionError(f"rank {r}: wiremodel prices the plan at "
+                                 f"{a['wiremodel_bytes']} bytes, the reducer "
+                                 f"{a['wire_bytes_per_step']} (x2 expected)")
+    stats = overlap.reduce_span_stats(merged_overlap["trace"])
+    if stats["serial_spans"] or not stats["overlapped_spans"] or \
+            stats["windows"] != len(ranks) * DP_STEPS:
+        raise AssertionError(f"overlap trace: {stats}")
+    first = ranks[0]
+    return {"card": card,
+            "overlap_fraction": overlap.overlap_fraction(
+                merged["trace"], merged_overlap["trace"]),
+            "serial": overlap.reduce_span_stats(merged["trace"]),
+            "overlapped": stats,
+            "bit_identical_steps": DP_STEPS,
+            "buckets_in_backward": first["overlap"]["overlap_in_backward"],
+            "n_buckets": first["overlap"]["n_buckets"],
+            "step_ms_median_2_6": [
+                statistics.median(r_[k]["step_s"][1:]) * 1e3
+                for r_ in ranks for k in ("int8", "overlap")],
+            "wiremodel_bytes": first["int8"]["wiremodel_bytes"],
+            "reducer_wire_bytes": first["int8"]["wire_bytes_per_step"]}
 
 
 # ------------------------------------------------------------------ #
@@ -4044,12 +4190,15 @@ def per_leaf(meta, flat):
 
 def infinity_grads_phase(card, tmp):
     """Phase 15a: GPT-NeoX-20B width at 1 layer, the fp32 wire, bf16
-    residency, fp32 host state in RAM, kernels auto, lr 0. The streamed
+    residency, fp32 host state in RAM, kernels auto, lr 0, from weights
+    drawn on the card (not the host's fresh init: 15b runs that). The
+    streamed
     grads against make_gpt's autograd grads on the card's params; the
     loss with the kernels off; the native v1 pass against the numpy pass
     on the globals chunk."""
     import deeperspeed_tpu_torch as ds
-    from deeperspeed_tpu_torch.models.gpt import get_preset, make_gpt
+    from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
+                                                  make_gpt)
     from deeperspeed_tpu_torch.ops import kernel_config
     from deeperspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam
     from deeperspeed_tpu_torch.runtime.offload import streaming
@@ -4063,9 +4212,16 @@ def infinity_grads_phase(card, tmp):
     config["optimizer"]["params"]["lr"] = 0.0
     batch = infinity_batch(SEED)
     with kernel_config.override():
+        # weights drawn on the card (15b runs the host's fresh init from
+        # the config's seed; this one cost 36-62 s of the script's limit)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        weights = init_params(gen, cfg, device="cuda")
         t0 = time.perf_counter()
-        engine, _, _, _ = ds.initialize(model=cfg, config=config)
+        engine, _, _, _ = ds.initialize(model=cfg, config=config,
+                                        model_parameters=weights)
         init_s = time.perf_counter() - t0
+        del weights
+        torch.cuda.empty_cache()
         engine.capture_grads = True
         loss_on = engine.train_batch(batch)
         grads = {c: g for c, g in engine.last_grads.items()}
@@ -4149,6 +4305,37 @@ def native_v1_check(engine, g, streaming, cpu_adam):
     block = engine.scfg.wire_block
     lr = INFINITY_LR
     pool = ThreadPoolExecutor(max_workers=len(meta.sizes))
+    cores = ThreadPoolExecutor(max_workers=os.cpu_count() or 1)
+
+    def by_chunks(fn, n, *arrays):
+        """``fn`` element-wise over ``arrays`` (each of ``n`` elements) in
+        contiguous chunks on the cores (numpy and the library drop the
+        GIL): the same elements, the same results, in a fraction of the
+        single-threaded time."""
+        cut = [n * i // (os.cpu_count() or 1)
+               for i in range((os.cpu_count() or 1) + 1)]
+        return list(cores.map(lambda i: fn(*(a[cut[i]:cut[i + 1]]
+                                             for a in arrays)),
+                              range(len(cut) - 1)))
+
+    def to_f32(u16):
+        out = np.empty(u16.size, np.float32)
+
+        def conv(o, u):
+            o[:] = streaming.bf16_bits_to_f32(u)
+
+        by_chunks(conv, u16.size, out, u16)
+        return out
+
+    def to_bf16(f32):
+        out = np.empty(f32.size, np.uint16)
+
+        def conv(o, f):
+            o[:] = streaming.f32_to_bf16_bits(f)
+
+        by_chunks(conv, f32.size, out, f32)
+        return out
+
     wires = list(pool.map(lambda x: streaming.host_quant(x, 8, block),
                           per_leaf(meta, g)))
     pk = np.concatenate([w[0] for w in wires])
@@ -4156,7 +4343,7 @@ def native_v1_check(engine, g, streaming, cpu_adam):
     shadow = engine._shadow["globals"].copy()
     opt = cpu_adam(lr=lr, betas=engine.scfg.betas, eps=engine.scfg.eps)
     # native v1
-    master = streaming.bf16_bits_to_f32(shadow)
+    master = to_f32(shadow)
     m, v = np.zeros_like(master), np.zeros_like(master)
     sh_nat = shadow.copy()
     out_p = np.empty(pk.size, np.uint8)
@@ -4176,11 +4363,15 @@ def native_v1_check(engine, g, streaming, cpu_adam):
         *wires[i], spans[i][1], 8, block,
         out=g_np[spans[i][0]: spans[i][0] + spans[i][1]]),
         range(len(spans))))
-    master_np = streaming.bf16_bits_to_f32(shadow)
+    master_np = to_f32(shadow)
     m_np, v_np = np.zeros_like(master_np), np.zeros_like(master_np)
-    opt.step_flat(1, master_np, g_np, m_np, v_np, lr=lr)
-    sh_f32 = streaming.bf16_bits_to_f32(shadow)
-    delta = master_np - sh_f32
+    by_chunks(lambda p_, g_, m_, v_: opt.step_flat(1, p_, g_, m_, v_,
+                                                   lr=lr),
+              meta.total, master_np, g_np, m_np, v_np)
+    sh_f32 = to_f32(shadow)
+    delta = np.empty_like(sh_f32)
+    by_chunks(lambda d_, a_, b_: np.subtract(a_, b_, out=d_), meta.total,
+              delta, master_np, sh_f32)
 
     def uplink(i):
         o, n = spans[i]
@@ -4190,7 +4381,10 @@ def native_v1_check(engine, g, streaming, cpu_adam):
 
     ups = list(pool.map(uplink, range(len(spans))))
     pool.shutdown()
-    sh_np = streaming.f32_to_bf16_bits(sh_f32 + delta)
+    by_chunks(lambda a_, b_: np.add(a_, b_, out=a_), meta.total, sh_f32,
+              delta)
+    sh_np = to_bf16(sh_f32)
+    cores.shutdown()
     numpy_s = time.perf_counter() - t0
     up_np = np.concatenate(ups)
     res = {"elements": int(meta.total),
@@ -4224,11 +4418,11 @@ def infinity_expected_launches(n_layer):
 def infinity_training_phase(card, tmp):
     """Phase 15b: configs/neox_20b_infinity.json as written with its two
     cuts (n_layer 44 -> INFINITY_LAYERS, nvme_path a temporary directory),
-    fresh init from the config's seed, INFINITY_STEPS steps on one fixed
+    weights drawn on the card, INFINITY_STEPS steps on one fixed
     batch, a checkpoint saved after step 2 for 15c. Returns the launches
     of the run, the launches per step and what 15c holds its resume to."""
     import deeperspeed_tpu_torch as ds
-    from deeperspeed_tpu_torch.models.gpt import get_preset
+    from deeperspeed_tpu_torch.models.gpt import get_preset, init_params
     from deeperspeed_tpu_torch.ops import kernel_config
 
     cfg = get_preset("neox-20b", n_layer=INFINITY_LAYERS,
@@ -4238,10 +4432,17 @@ def infinity_training_phase(card, tmp):
     batch = infinity_batch(SEED + 1)
     counters = kernel_counters()
     with kernel_config.override():
+        # weights drawn on the card, not the host's fresh init (single
+        # threaded: 36-62 s of the script's limit at this width)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        weights = init_params(gen, cfg, device="cuda")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        engine, _, _, _ = ds.initialize(model=cfg, config=config)
+        engine, _, _, _ = ds.initialize(model=cfg, config=config,
+                                        model_parameters=weights)
         init_s = time.perf_counter() - t0
+        del weights
+        torch.cuda.empty_cache()
         print(f"infinity 15b: initialize {init_s:.2f} s, {engine.n_params} "
               f"params, scfg {json.dumps(dataclasses.asdict(engine.scfg))}",
               flush=True)
@@ -4319,7 +4520,7 @@ def infinity_training_phase(card, tmp):
         }
     print("infinity 15b: " + json.dumps(report), flush=True)
     resume["batch"] = batch
-    # 15c reloads into this engine: a third fresh 20B-width init would
+    # 15c reloads into this engine: a third 20B-width engine init would
     # cost 55-60 s of the script's limit
     resume["engine"] = engine
     return run_launches, {k: v / INFINITY_STEPS
@@ -4525,8 +4726,9 @@ def datapipe_config(obs, prefetch=True):
 def datapipe_model():
     from deeperspeed_tpu_torch.models.gpt import get_preset
 
-    return get_preset("neox-125m", max_seq=1024, remat_policy="matmuls",
-                      ce_chunk=0, dtype=torch.bfloat16)
+    return get_preset("neox-125m", n_layer=DATAPIPE_LAYERS, max_seq=1024,
+                      remat_policy="matmuls", ce_chunk=0,
+                      dtype=torch.bfloat16)
 
 
 def datapipe_params(cfg, seed):
@@ -7173,6 +7375,424 @@ def onebit_phase(card):
     return launches, per_step
 
 
+# ------------------------------------------------------------------ #
+# phase 21: Mixture-of-Experts (configs/moe_8e_ep.json)
+# ------------------------------------------------------------------ #
+
+
+def moe_model(**overrides):
+    """GPT-NeoX-125M width (d_model 768, 12 heads, d_ff 3072, vocab
+    50304) with the reference's MoE defaults at moe_num_experts 8, top-2
+    (dispatch "auto", i.e. dense), seq 1024, remat "matmuls", bf16, cut
+    to MOE_LAYERS layers."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+
+    kw = dict(n_layer=MOE_LAYERS, max_seq=MOE_SEQ, remat_policy="matmuls",
+              ce_chunk=0, dtype=torch.bfloat16, moe_num_experts=8,
+              moe_top_k=2)
+    kw.update(overrides)
+    return get_preset("neox-125m", **kw)
+
+
+def moe_config(rows=None, fp32=False):
+    """configs/moe_8e_ep.json's blocks as written (bf16, ZeRO 1, Adam 3e-4
+    with betas 0.9/0.95, clip 1.0, micro-batch 8) plus the kernels block,
+    train_batch_size cut to ``rows`` (MOE_ROWS: the file's 256 needs 32
+    accumulation steps at world 1); ``fp32`` turns bf16 off (21b)."""
+    config = json.loads(MOE_CONFIG.read_text())
+    config["train_batch_size"] = MOE_ROWS if rows is None else rows
+    config["kernels"] = {"mode": "auto"}
+    if fp32:
+        config["bf16"] = {"enabled": False}
+    return config
+
+
+def moe_batch(rows, seq, offset=0):
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    n = rows * (seq + 1)
+    return np.asarray(corpus[offset:offset + n],
+                      dtype=np.int64).reshape(rows, seq + 1)
+
+
+def moe_stats(cfg, params, batch, mesh=None):
+    """Each MoE layer's dropped_frac, aux and z losses over ``batch``'s
+    inputs: one forward with the kernels off and dense attention (no
+    launch counted)."""
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    with kernel_config.override(mode="off"):
+        return gpt.moe_stats(dataclasses.replace(cfg, attn_impl="xla"),
+                             params, torch.as_tensor(batch)[:, :-1].cuda(),
+                             mesh=mesh)
+
+
+def moe_expected(cfg, gas=1):
+    """Launches a step of the MoE GPT path: flash forward and backward a
+    layer (remat "matmuls" keeps o/lse), the final LN pair, one fused Adam
+    (every leaf one dtype combination); the NeoX block's two LNs share one
+    plain pass and the experts' GeLU is the plain tanh form, as in the
+    reference."""
+    base = {k: 0 for k in SOURCES}
+    base.update(flash_fwd=cfg.n_layer * gas, flash_bwd=cfg.n_layer * gas,
+                ln_fwd=gas, ln_bwd=gas, fused_adam=1)
+    return base
+
+
+def moe_phase(card):
+    """Phase 21a (module docstring). Returns (the 6-step run's launches,
+    launches a step, the trained model for 21c)."""
+    import shutil
+
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import init_params, make_gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    cfg = moe_model()
+    config = moe_config()
+    micro = config["train_micro_batch_size_per_gpu"]
+    batch = moe_batch(MOE_ROWS, cfg.max_seq)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    randomize_affine(params, gen)
+    saved = {}
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(
+            model=make_gpt(cfg)[2], model_parameters=params, config=config)
+        del params
+        parity = compare_paths(
+            engine, make_gpt(cfg)[2],
+            make_gpt(dataclasses.replace(cfg, attn_impl="xla"))[2],
+            torch.from_numpy(batch[:micro]).cuda(), config["kernels"])
+        stats_before = moe_stats(cfg, engine.params, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def after_step(step):
+            if step == MOE_SAVE_AFTER:
+                shutil.rmtree(MOE_CKPT, ignore_errors=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.save_checkpoint(str(MOE_CKPT))
+                saved["save_s"] = time.perf_counter() - t0
+
+        run = run_steps(engine, batch, kernel_counters(), MOE_STEPS,
+                        after_step=after_step)
+        final = host_state(engine)
+        stats_after = moe_stats(cfg, engine.params, batch)
+        expected = moe_expected(cfg)
+        per_step = check_run(run, engine, expected, MOE_STEPS)
+        trained = {k: v for k, v in engine.params.items()}
+        profile = profile_training(engine, batch)
+        # the resume: a fresh engine from another seed loads the step-3
+        # tag and runs steps 4-6
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        other = init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+        fresh, _, _, _ = ds.initialize(
+            model=make_gpt(cfg)[2], model_parameters=other, config=config)
+        del other
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(str(MOE_CKPT))
+        torch.cuda.synchronize()
+        saved["load_s"] = time.perf_counter() - t0
+        resumed = run_steps(fresh, batch, kernel_counters(),
+                            MOE_STEPS - MOE_SAVE_AFTER)
+        resumed_final = host_state(fresh)
+    same = {"losses": resumed["losses"] == run["losses"][MOE_SAVE_AFTER:],
+            "grad_norms": resumed["grad_norms"]
+            == run["grad_norms"][MOE_SAVE_AFTER:],
+            "digest": resumed_final["digest"] == final["digest"]}
+    step_ms = statistics.median(run["step_s"][1:]) * 1e3
+    n_params = sum(t.numel() for t in final["leaves"]) // 3
+    report = {
+        "model": "neox-125m-moe8", "card": card, "layers": cfg.n_layer,
+        "d_model": cfg.d_model, "experts": cfg.moe_num_experts,
+        "top_k": cfg.moe_top_k, "dispatch": cfg.moe.resolved_dispatch_impl(),
+        "seq": cfg.max_seq, "rows": MOE_ROWS, "params": n_params,
+        "steps": MOE_STEPS, **run, "step_ms_median_2_6": step_ms,
+        "tokens_per_s": MOE_ROWS * cfg.max_seq / (step_ms / 1e3),
+        "launches_per_step": per_step, "parity": parity,
+        "moe_before": stats_before, "moe_after": stats_after,
+        "checkpoint": saved, "resumed_losses": resumed["losses"],
+        "resume_bit_identical": same,
+        "profile": {k: profile[k] for k in ("wall_ms", "device_ms",
+                                             "device_busy_share",
+                                             "device_ms_by_family",
+                                             "top_kernels")}}
+    print("moe 21a: " + json.dumps(report), flush=True)
+    del engine, fresh, final, resumed_final
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MOE_CKPT, ignore_errors=True)
+    if not all(same.values()):
+        raise AssertionError(f"moe 21a: the resumed run differs from the "
+                             f"uninterrupted one: {same}")
+    drops = [l_["dropped_frac"] for l_ in stats_before + stats_after]
+    if not all(0.0 <= d < 1.0 for d in drops):
+        raise AssertionError(f"moe 21a: dropped_frac {drops}")
+    launches = dict(run["launches"])
+    for k, n in resumed["launches"].items():
+        launches[k] += n
+    return launches, per_step, (cfg, trained)
+
+
+def moe_ep_model(impl):
+    """21b's model: 125M width, MOE_EP_LAYERS layers, seq MOE_EP_SEQ,
+    fp32, the dispatch ``impl`` (dropless with buffer factor 2.0)."""
+    return moe_model(n_layer=MOE_EP_LAYERS, max_seq=MOE_EP_SEQ,
+                     dtype=torch.float32, moe_dispatch_impl=impl,
+                     moe_ep_buffer_factor=2.0)
+
+
+def moe_ep_run(impl, mesh=None):
+    """MOE_EP_STEPS train_batch calls of the 21b model at ``mesh`` (world
+    1 without): each step's loss, grad norm and per-layer dropped_frac
+    (before the step, over the step's global batch), the launches, the
+    step seconds and the whole params after the last step on the host."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    from deeperspeed_tpu_torch.models.gpt import init_params, make_gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    cfg = moe_ep_model(impl)
+    dp = mesh.shape["data"] if mesh is not None else 1
+    rows = MOE_EP_MICRO * 2
+    config = moe_config(rows=rows, fp32=True)
+    config["train_micro_batch_size_per_gpu"] = rows // dp
+    _, _, loss_fn, specs = make_gpt(cfg, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, cfg, device="cuda")
+    randomize_affine(params, gen)
+    batches = [moe_batch(rows, cfg.max_seq, i * rows * (cfg.max_seq + 1))
+               for i in range(MOE_EP_STEPS)]
+    counters = kernel_counters()
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(
+            model=loss_fn, model_parameters=params, config=config,
+            mesh=mesh, param_specs=specs)
+        del params
+        losses, norms, drops, step_s = [], [], [], []
+        launches = {k: 0 for k in counters}
+        for b in batches:
+            drops.append([l_["dropped_frac"] for l_ in moe_stats(
+                cfg, engine.params, engine._place_batch(b), mesh)])
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(b)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            norms.append(engine.get_global_grad_norm())
+            for k, fn in counters.items():
+                launches[k] += fn.launches
+        whole = engine._expert_whole(engine.params)
+        out = {"losses": losses, "grad_norms": norms, "dropped": drops,
+               "step_s": step_s, "launches": launches,
+               "local_experts": int(engine.params["layers"]["moe"]
+                                    ["experts"]["wi"].shape[1]),
+               "dp": engine.data_parallel_size,
+               "params": {k: t.detach().float().cpu().numpy()
+                          for k, t in _flatten(whole).items()}}
+    del engine, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_rank(rank, tmp):
+    """One rank of phase 21b (spawned): joins the gloo group of 4 ranks on
+    the one card, builds the {data: 2, expert: 2} mesh and runs both
+    dispatches; writes its report to ``tmp``."""
+    import hashlib
+    import pickle
+
+    import torch.distributed as dist
+
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    world = math.prod(MOE_EP_DIMS.values())
+    store = dist.FileStore(str(Path(tmp) / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh = build_mesh(MOE_EP_DIMS)
+        report = {impl: moe_ep_run(impl, mesh) for impl in MOE_EP_IMPLS}
+        for impl in MOE_EP_IMPLS:
+            # every rank holds the same whole params: rank 0 brings them
+            # back, the others their digest
+            run = report[impl]
+            h = hashlib.sha256()
+            for a in run["params"].values():
+                h.update(np.ascontiguousarray(a).view(np.uint8))
+            run["digest"] = h.hexdigest()
+            if rank:
+                del run["params"]
+        report["coords"] = mesh.coords()
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_ep_phase(card):
+    """Phase 21b (module docstring). Returns the 4 ranks' launches and the
+    launches a step of one rank."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    world = math.prod(MOE_EP_DIMS.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(moe_ep_rank, args=(tmp,), nprocs=world,
+                                 start_method="spawn", join=False)
+        # the world-1 runs while the ranks start and train
+        one = {impl: moe_ep_run(impl) for impl in MOE_EP_IMPLS}
+        world1_s = time.perf_counter() - t0
+        while not ctx.join():
+            pass
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    cfg = moe_ep_model("dense")
+    expected = moe_expected(cfg)
+    report = {"card": card, "mesh": MOE_EP_DIMS, "layers": cfg.n_layer,
+              "seq": cfg.max_seq, "rows": MOE_EP_MICRO * 2,
+              "steps": MOE_EP_STEPS, "spawn_s": spawn_s,
+              "world1_s": world1_s, "rtol": MOE_EP_RTOL}
+    for impl in MOE_EP_IMPLS:
+        ref = one[impl]
+        worst_loss = worst_param = worst_abs = 0.0
+        worst_leaf = None
+        for r, rank in enumerate(ranks):
+            got = rank[impl]
+            if got["local_experts"] != cfg.moe_num_experts // \
+                    MOE_EP_DIMS["expert"] or got["dp"] != \
+                    MOE_EP_DIMS["data"]:
+                raise AssertionError(f"moe 21b {impl} rank {r}: "
+                                     f"{got['local_experts']} experts, dp "
+                                     f"{got['dp']}")
+            if got["dropped"] != ref["dropped"]:
+                raise AssertionError(f"moe 21b {impl} rank {r}: dropped_frac "
+                                     f"{got['dropped']}, world 1 "
+                                     f"{ref['dropped']}")
+            if got["digest"] != ranks[0][impl]["digest"]:
+                raise AssertionError(f"moe 21b {impl} rank {r}: its params "
+                                     f"differ from rank 0's")
+            worst_loss = max(worst_loss, max(
+                abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                    ref["losses"])))
+            per_step = {k: n / MOE_EP_STEPS
+                        for k, n in got["launches"].items()}
+            if per_step != expected:
+                raise AssertionError(f"moe 21b {impl} rank {r}: launches a "
+                                     f"step {per_step}, expected {expected}")
+        # every rank's params are rank 0's (their digests): hold those
+        for k, a in ranks[0][impl]["params"].items():
+            b = ref["params"][k].astype(np.float64)
+            rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                    1e-30))
+            if rel > worst_param:
+                worst_param, worst_leaf = rel, k
+            worst_abs = max(worst_abs, float(np.abs(a - b).max()))
+        report[impl] = {
+            "losses": ranks[0][impl]["losses"], "world1_losses": ref["losses"],
+            "grad_norms": ranks[0][impl]["grad_norms"],
+            "world1_grad_norms": ref["grad_norms"],
+            "dropped_frac": ref["dropped"],
+            "loss_rel_max": worst_loss, "param_rel_l2_max": worst_param,
+            "param_rel_l2_max_leaf": worst_leaf,
+            "param_abs_max": worst_abs,
+            "step_s": [r_[impl]["step_s"] for r_ in ranks],
+            "world1_step_s": ref["step_s"]}
+        if not (worst_loss <= MOE_EP_RTOL and worst_param <= MOE_EP_RTOL):
+            raise AssertionError(f"moe 21b {impl}: losses {worst_loss:.3e}, "
+                                 f"params {worst_param:.3e} from world 1 "
+                                 f"(limit {MOE_EP_RTOL})")
+        if not all(math.isfinite(x) for x in ref["losses"]):
+            raise AssertionError(f"moe 21b {impl}: losses {ref['losses']}")
+    print("moe 21b: " + json.dumps(report), flush=True)
+    launches = {k: sum(rk[i]["launches"][k] for rk in ranks
+                       for i in MOE_EP_IMPLS) for k in SOURCES}
+    return launches, {k: n / MOE_EP_STEPS for k, n in
+                      ranks[0]["dense"]["launches"].items()}
+
+
+def moe_serving_phase(card, model):
+    """Phase 21c (module docstring). Returns the launch counts of the
+    kernel-path run."""
+    from deeperspeed_tpu_torch.ops import fused_blocks as fb
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.serving import FINISH_LENGTH, ServingEngine
+
+    cfg, params = model
+    host = torch.Generator().manual_seed(SEED + 21)
+    reqs = [{"rid": f"moe-{i}", "prompt": torch.randint(
+        0, cfg.vocab_size, (n,), generator=host).tolist(),
+             "temperature": 0.0, "seed": i}
+            for i, n in enumerate(MOE_SERVE_LENS)]
+    scfg = {"num_slots": 8, "block_size": 16, "num_blocks": 512,
+            "max_seq_len": cfg.max_seq}
+    outs, walls, launches, forwards = {}, {}, {}, 0
+    for mode in ("auto", "off"):
+        with kernel_config.override(mode=mode):
+            engine = ServingEngine(cfg, params, scfg)
+            fb.ln_fwd.launches = 0
+            outs[mode], walls[mode] = serve_requests(engine, reqs,
+                                                     MOE_SERVE_NEW)
+            if mode == "auto":
+                launches = {"ln_fwd": fb.ln_fwd.launches}
+                forwards = (engine.metrics.prefills
+                            + engine.metrics.decode_steps)
+            for r in reqs:
+                req = engine.get(r["rid"])
+                if req.finish_reason != FINISH_LENGTH or \
+                        len(outs[mode][r["rid"]]) != MOE_SERVE_NEW:
+                    raise AssertionError(f"moe 21c {mode} {r['rid']}: "
+                                         f"{req.finish_reason}")
+            del engine
+    if launches["ln_fwd"] != forwards or forwards <= 0:
+        raise AssertionError(f"moe 21c: launches {launches} for "
+                             f"{forwards} forwards")
+    diffs = held_to(cfg, params, reqs, outs["off"], outs["auto"], 1,
+                    "moe 21c kernels on against off")
+    print("moe 21c: " + json.dumps({
+        "card": card, "requests": len(reqs), "new_tokens": MOE_SERVE_NEW,
+        "prompt_lens": list(MOE_SERVE_LENS), "wall_s": walls,
+        "forwards": forwards, "launches": launches,
+        "differing_requests": len(diffs)}), flush=True)
+    return launches
+
+
+class Beside(threading.Thread):
+    """``fn(*args)`` on a thread of its own, started at once; ``join``
+    returns its result or raises its exception."""
+
+    def __init__(self, fn, *args):
+        super().__init__(name="beside", daemon=True)
+        self._fn, self._args = fn, args
+        self._out = self._err = None
+        self.start()
+
+    def run(self):
+        try:
+            self._out = self._fn(*self._args)
+        except BaseException as e:  # re-raised by join, on the caller
+            self._err = e
+
+    def join(self, timeout=None):
+        super().join(timeout)
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7294,18 +7914,27 @@ def main() -> int:
     sparse, sparse_per_step = timed("12 sparse training",
                                     sparse_training_phase, card)
     dp, dp_per_step = timed("14 data parallel", dp_training_phase, card)
+    # phase 18 beside phase 15: 18's parent only drives trainer processes
+    # (no CUDA, no kernels block here), 15 works the host's numpy and
+    # NVMe with the card mostly idle; their wall seconds overlap
+    t1 = time.perf_counter()
+    beside = Beside(timed, "18 resilience and multi-process", phase18, card)
     infinity, infinity_per_step = timed("15 infinity", infinity_phase, card)
+    res, res_per_step, mh, mh_per_step = beside.join()
+    wall["15 and 18 together"] = time.perf_counter() - t1
     datapipe, datapipe_per_step = timed("16a datapipe", datapipe_phase, card)
     remat = timed("16b remat", remat_phase, card)
     timed("16c optimizers", optimizers_phase, card)
     spec, fleet, spec_fleet = timed("17 spec and fleet",
                                     spec_and_fleet_phase, fb, card,
                                     obs / "spec")
-    res, res_per_step, mh, mh_per_step = timed("18 resilience and "
-                                               "multi-process", phase18,
-                                               card)
     lc, lc_per_rank, lc_serving = timed("19 lifecycle", lifecycle_phase, card)
     onebit, onebit_per_step = timed("20 onebit", onebit_phase, card)
+    moe, moe_per_step, moe_model_ = timed("21a moe", moe_phase, card)
+    moe_ep, moe_ep_per_step = timed("21b moe ep", moe_ep_phase, card)
+    moe_serving = timed("21c moe serving", moe_serving_phase, card,
+                        moe_model_)
+    del moe_model_
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -7323,7 +7952,8 @@ def main() -> int:
              "fleet_replicas": fleet, "spec_fleet_replicas": spec_fleet,
              "resilience_training": res, "multihost_training": mh,
              "lifecycle_training": lc, "lifecycle_serving": lc_serving,
-             "onebit_training": onebit}
+             "onebit_training": onebit, "moe_training": moe,
+             "moe_ep_training": moe_ep, "moe_serving": moe_serving}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -7366,7 +7996,10 @@ def main() -> int:
                                       mh_per_step[name],
                                   "lifecycle_training_per_rank":
                                       lc_per_rank[name],
-                                  "onebit_training": onebit_per_step[name]},
+                                  "onebit_training": onebit_per_step[name],
+                                  "moe_training": moe_per_step[name],
+                                  "moe_ep_training_per_rank":
+                                      moe_ep_per_step[name]},
         }
         for path in ("infinity", "onebit"):
             # the kernel at the streamed GPT-NeoX-20B step's shape, and at

@@ -59,7 +59,8 @@ def _cached_block(cfg: GPTConfig, x, layer_params, k_cache, v_cache,
     offset: an int (tokens already cached, shared) or a (B,) tensor of
     per-row offsets. Returns x_out. The layer math is gpt.decoder_block;
     only the attention core differs (cache update + absolute-position
-    masking)."""
+    masking). A Mixture-of-Experts layer (a ``moe`` subtree) takes
+    decoder_block's moe_ffn, the reference's mlp_fn."""
     cdt = cfg.dtype
     B_, S = x.shape[0], x.shape[1]
     vec = isinstance(offset, torch.Tensor)

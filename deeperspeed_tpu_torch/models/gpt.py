@@ -14,7 +14,10 @@ with per-layer activation checkpointing: remat policy ``"full"``
 and ``"dots_all"`` (selective checkpointing, ``REMAT_SAVED``).
 Attention goes through the flash kernels (ops/flash_attention.py) or the
 plain dense computation, as ``attn_impl`` says (``causal_attention``).
-Not ported yet: tensor/sequence parallelism and MoE (ROADMAP.md queue 1).
+With ``moe_num_experts`` each layer's FFN is a Mixture-of-Experts
+(models/moe.py, the ``layers/moe`` subtree in place of ``mlp``), its
+experts split over a mesh's ``expert`` axis (``make_gpt(cfg, mesh)``).
+Not ported yet: tensor/sequence parallelism (ROADMAP.md queue 1).
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ from ..ops import fused_blocks
 from ..ops.flash_attention import FLASH_FWD_OP, flash_attention
 from ..ops.flash_static import SUPERTILE_FWD_OP
 from ..ops.kernel_config import _is_hopper
+from ..sharding.mesh import active_mesh
 from ..utils import hooks
 from ..utils.init import normal_drawer
 
@@ -66,7 +70,8 @@ class GPTConfig:
     attn_impl: str = "auto"
     # streaming cross-entropy chunk (pick_ce_chunk); 0 = one fused pass
     ce_chunk: int = 128
-    # Mixture-of-Experts: not ported yet; non-zero moe_num_experts raises
+    # an expert-parallel MoE (models/moe.py) of this many experts, sharded
+    # over the mesh's 'expert' axis, replaces each layer's dense FFN
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -75,6 +80,23 @@ class GPTConfig:
     moe_dispatch_impl: str = "auto"
     moe_normalize_gates: bool = False
     moe_ep_buffer_factor: float = 2.0
+
+    @property
+    def moe(self):
+        if not self.moe_num_experts:
+            return None
+        from .moe import MoEConfig
+
+        return MoEConfig(
+            num_experts=self.moe_num_experts,
+            top_k=self.moe_top_k,
+            capacity_factor=self.moe_capacity_factor,
+            aux_loss_coef=self.moe_aux_coef,
+            z_loss_coef=self.moe_z_coef,
+            dispatch_impl=self.moe_dispatch_impl,
+            normalize_gates=self.moe_normalize_gates,
+            ep_buffer_factor=self.moe_ep_buffer_factor,
+        )
 
     def __post_init__(self):
         kv = self.n_kv_head or self.n_head
@@ -89,10 +111,6 @@ class GPTConfig:
                 f"remat_policy must be 'full', 'flash', 'matmuls', 'dots', "
                 f"or 'dots_all', got {self.remat_policy!r}"
             )
-        if self.moe_num_experts:
-            raise NotImplementedError(
-                "Mixture-of-Experts (moe_num_experts > 0) is not ported to "
-                "the PyTorch package yet")
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl {self.attn_impl!r} is not ported; the PyTorch "
@@ -163,11 +181,42 @@ def param_shapes(cfg: GPTConfig) -> Dict:
         },
         "final_ln": {"scale": (D,), "bias": (D,)},
     }
+    if cfg.moe_num_experts:
+        # the reference's layers/moe subtree (models/moe.py
+        # init_moe_params, stacked on the layer axis) replaces the mlp
+        E = cfg.moe_num_experts
+        shapes["layers"]["moe"] = {
+            "router": {"wg": (L, D, E)},
+            "experts": {"wi": (L, E, D, F), "bi": (L, E, F),
+                        "wo": (L, E, F, D), "bo": (L, E, D)},
+        }
+        del shapes["layers"]["mlp"]
     if not cfg.rotary:
         shapes["embed"]["wpe"] = (cfg.max_seq, D)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
+
+
+def param_specs(cfg: GPTConfig):
+    """The params tree with each leaf's placement spec (one entry a dim:
+    None or a mesh axis): the expert leaves of an MoE model sharded on the
+    ``expert`` axis (the reference's ``moe_param_specs`` with the layer
+    axis prepended), every other leaf replicated (None: the port has no
+    tensor parallelism). None for a dense model."""
+    if not cfg.moe_num_experts:
+        return None
+    from .moe import moe_param_specs
+
+    def walk(shapes, specs):
+        return {k: walk(v, (specs or {}).get(k)) if isinstance(v, dict)
+                else (None if specs is None else (None,) + specs[k])
+                for k, v in shapes.items()}
+
+    shapes = param_shapes(cfg)
+    out = walk(shapes, None)
+    out["layers"]["moe"] = walk(shapes["layers"]["moe"], moe_param_specs())
+    return out
 
 
 def init_params(seed, cfg: GPTConfig, device=None,
@@ -336,7 +385,10 @@ def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
 
     ``attend(q, k, v) -> (ctx, aux)`` supplies the attention core.
     ``mlp_fn(mlp_in) -> (mlp_out, aux2)`` overrides the dense FFN; with it,
-    aux is (attend_aux, aux2). Returns (x_out, aux)."""
+    aux is (attend_aux, aux2). A layer with a ``moe`` subtree and no
+    ``mlp_fn`` takes ``moe_ffn`` (models/moe.py) on the active mesh: the
+    decode paths' MoE FFN, as the reference's generation and serving steps
+    pass it. Returns (x_out, aux)."""
     cdt = cfg.dtype
     B, S, D = x.shape
     H, Dh = cfg.n_head, cfg.head_dim
@@ -375,6 +427,10 @@ def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
             x, layer_params["ln2_scale"], layer_params["ln2_bias"],
             cfg.layernorm_eps,
         )
+    if mlp_fn is None and "moe" in layer_params:
+        from .moe import moe_ffn
+
+        mlp_fn = partial(moe_ffn, layer_params["moe"], cfg=cfg.moe)
     if mlp_fn is not None:
         mlp_out, aux2 = mlp_fn(mlp_in)
         aux = (aux, aux2)
@@ -497,22 +553,44 @@ def _chunk_nll(xc, tc, w):
     return (torch.logsumexp(logits, dim=-1) - tgt).sum()
 
 
-def make_gpt(cfg: GPTConfig):
+def make_gpt(cfg: GPTConfig, mesh=None):
     """Returns (init_fn, apply_fn, loss_fn, specs), as the reference's
     ``make_gpt``.
 
     init_fn(seed, device=None, dtype=None) -> params (``init_params``)
     apply_fn(params, tokens) -> logits (B, S, V) (no grad)
-    loss_fn(params, batch) -> mean next-token cross-entropy, fp32 scalar;
+    loss_fn(params, batch) -> mean next-token cross-entropy, plus the MoE
+    layers' summed auxiliary loss (``moe_loss``), fp32 scalar;
     batch = tokens (B, S+1) or (inputs, targets) (B, S) each.
-    specs is None: the port has no tensor parallelism yet."""
+    specs: ``param_specs(cfg)``, the MoE expert leaves on the ``expert``
+    axis (hand them to ``initialize(..., mesh=, param_specs=)``), or None
+    for a dense model. ``mesh`` (a legacy ``{data, expert}`` mesh,
+    parallel/topology.build_mesh) gives the MoE layers their collectives;
+    without one they take the running engine's (``active_mesh``)."""
 
     def attend(q, k, v):
         k, v = expand_kv_heads(q, k, v)
         return causal_attention(q, k, v, cfg.attn_impl), None
 
-    def layer(x, layer_params, positions):
-        return decoder_block(cfg, x, layer_params, positions, attend)[0]
+    moe_cfg = cfg.moe
+    if moe_cfg is not None and mesh is not None:
+        from .moe import groups
+
+        groups(mesh)  # new_group is collective: every rank builds them here
+
+    def layer(x, layer_params, positions, layer_mesh=None):
+        """-> (x, this layer's scalar MoE auxiliary loss; 0 when dense)."""
+        if moe_cfg is None:
+            return decoder_block(cfg, x, layer_params, positions, attend)[0]
+        from .moe import moe_ffn, moe_loss
+
+        def mlp_fn(mlp_in):
+            return moe_ffn(layer_params["moe"], mlp_in, moe_cfg,
+                           mesh=layer_mesh)
+
+        x, (_, moe_aux) = decoder_block(cfg, x, layer_params, positions,
+                                        attend, mlp_fn=mlp_fn)
+        return x, moe_loss(moe_aux, moe_cfg)
 
     def hidden_fn(params, tokens):
         """tokens (B, S) int -> final-layernormed hidden states (B, S, D)."""
@@ -523,14 +601,23 @@ def make_gpt(cfg: GPTConfig):
         positions = torch.arange(S, device=tokens.device)
         if not cfg.rotary:
             x = x + params["embed"]["wpe"][:S].to(cdt)
-        step = _remat_step(cfg, partial(layer, positions=positions))
+        # the mesh is bound here: a remat replay in the backward runs
+        # outside the engine's use_mesh context
+        step = _remat_step(cfg, partial(
+            layer, positions=positions,
+            layer_mesh=mesh if mesh is not None else active_mesh()))
+        moe_aux = None
         for i, layer_params in enumerate(layer_slices(params, cfg.n_layer)):
             x = step(x, layer_params)
+            if moe_cfg is not None:
+                x, aux = x
+                moe_aux = aux if moe_aux is None else moe_aux + aux
             # the layer-output tap (utils/hooks.py): free unless a collector
             # is active
             x = hooks.record_layer_output("transformerlayer", x, i)
-        return layer_norm(x, params["final_ln"]["scale"],
-                          params["final_ln"]["bias"], cfg.layernorm_eps)
+        x = layer_norm(x, params["final_ln"]["scale"],
+                       params["final_ln"]["bias"], cfg.layernorm_eps)
+        return x, moe_aux
 
     def loss_fn(params, batch):
         if isinstance(batch, (tuple, list)):
@@ -538,7 +625,8 @@ def make_gpt(cfg: GPTConfig):
         else:
             inputs, targets = batch[:, :-1], batch[:, 1:]
         targets = targets.long()
-        x = hidden_fn(params, inputs)
+        x, moe_aux = hidden_fn(params, inputs)
+        extra = 0.0 if moe_aux is None else moe_aux
         w = head_weight(cfg, params)
         B, S, _ = x.shape
         chunk = pick_ce_chunk(S, cfg.ce_chunk)
@@ -551,10 +639,10 @@ def make_gpt(cfg: GPTConfig):
                 total = total + checkpoint(
                     _chunk_nll, x[:, c0:c0 + chunk],
                     targets[:, c0:c0 + chunk], w, use_reentrant=False)
-            return total / (B * S)
+            return total / (B * S) + extra
         logits = (x @ w).float()
         tgt = logits.gather(-1, targets[..., None])[..., 0]
-        return (torch.logsumexp(logits, dim=-1) - tgt).mean()
+        return (torch.logsumexp(logits, dim=-1) - tgt).mean() + extra
 
     def init_fn(seed, device=None, dtype=None):
         return init_params(seed, cfg, device=device, dtype=dtype)
@@ -562,7 +650,38 @@ def make_gpt(cfg: GPTConfig):
     def apply_fn(params, tokens):
         return apply(cfg, params, tokens)
 
-    return init_fn, apply_fn, loss_fn, None
+    return init_fn, apply_fn, loss_fn, param_specs(cfg)
+
+
+@torch.no_grad()
+def moe_stats(cfg: GPTConfig, params, tokens, mesh=None) -> List[Dict]:
+    """The MoE layers' auxiliary terms of one forward of ``tokens`` (B, S)
+    (no grad): a dict a layer with its ``aux_loss``, ``z_loss`` and
+    ``dropped_frac`` as floats, over the global batch when ``mesh`` (else
+    the active mesh) spans data ranks. Every rank of the mesh calls it."""
+    from .moe import moe_ffn
+
+    if cfg.moe is None:
+        raise ValueError("moe_stats needs a Mixture-of-Experts config")
+    cdt = cfg.dtype
+    tokens = tokens.long()
+    S = tokens.shape[1]
+    x = F.embedding(tokens, params["embed"]["wte"].to(cdt))
+    positions = torch.arange(S, device=tokens.device)
+    if not cfg.rotary:
+        x = x + params["embed"]["wpe"][:S].to(cdt)
+
+    def attend(q, k, v):
+        k, v = expand_kv_heads(q, k, v)
+        return causal_attention(q, k, v, cfg.attn_impl), None
+
+    out = []
+    for lp in layer_slices(params, cfg.n_layer):
+        x, (_, aux) = decoder_block(
+            cfg, x, lp, positions, attend,
+            mlp_fn=partial(moe_ffn, lp["moe"], cfg=cfg.moe, mesh=mesh))
+        out.append({k: float(v) for k, v in aux.items()})
+    return out
 
 
 # convenience presets ------------------------------------------------- #

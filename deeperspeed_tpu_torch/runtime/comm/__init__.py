@@ -5,8 +5,8 @@ Counterpart of deeperspeed_tpu/runtime/comm/, with its exports: the
 compressed wire formats, 24-bit and 1-bit (compressed.py), the
 collectives over a process group (collectives.py), the ``GradReducer``
 (reducer.py), the 1-bit optimizers (onebit.py) and their two-phase wire
-path over a group (onebit_spmd.py). Not ported: overlap.py and
-wiremodel.py (ROADMAP.md queue 1, item 'runtime/comm/')."""
+path over a group (onebit_spmd.py), the backward-overlap schedule
+(overlap.py) and the wire model (wiremodel.py)."""
 
 from .bucketing import Bucket, BucketPlan, build_plan
 from .compressed import (
@@ -21,10 +21,13 @@ from .compressed import (
 )
 from .config import CommConfig
 from .onebit import OnebitAdam, OnebitLamb
+from .overlap import OverlapScheduler, overlap_fraction, resolve_overlap
 from .reducer import GradReducer
 
 __all__ = ["Bucket", "BucketPlan", "CommConfig", "GradReducer",
-           "OnebitAdam", "OnebitLamb", "build_plan", "compress",
+           "OnebitAdam", "OnebitLamb", "OverlapScheduler", "build_plan",
+           "compress",
            "compressed_all_reduce", "compressed_all_reduce_tree",
            "decompose", "decompress", "onebit_all_reduce",
-           "onebit_compress", "reconstruct"]
+           "onebit_compress", "overlap_fraction", "reconstruct",
+           "resolve_overlap"]

@@ -15,7 +15,7 @@ wire with these defaults.
         "error_feedback": true,  # persistent residuals for lossy modes
         "hierarchical": "auto",  # off | auto | on  (two-level schedule)
         "intra_size": null,      # ranks per host group (null = detect)
-        "overlap": "off"         # off only: backward overlap is not ported
+        "overlap": "off"         # off | auto | on  (backward overlap)
     }
 
 ``mode`` picks the per-bucket wire format (runtime/comm/reducer.py):
@@ -28,8 +28,10 @@ fixed pairwise tree. Lossy modes keep per-rank error-feedback residuals
 (checkpointed), so the quantization error of one step is added back at
 the next.
 
-``overlap`` "on"/"auto" is refused by runtime/config.py: the backward
-overlap schedule (runtime/comm/overlap.py in the reference) is not ported.
+``overlap`` "on" launches each bucket's reduction on a comm thread as soon
+as its gradients are final and drains them at the accumulation boundary
+(runtime/comm/overlap.py), bit-identical to "off"; "auto" does so when
+there are several ranks and no canonical slots.
 """
 
 import dataclasses
@@ -69,8 +71,8 @@ class CommConfig:
     # ranks per intra group for the hierarchical schedule; None detects
     # LOCAL_WORLD_SIZE; must divide the data-parallel world size
     intra_size: Optional[int] = None
-    # backward-overlap collective scheduling: parsed with the reference's
-    # values; runtime/config.py refuses "on" and "auto" (not ported)
+    # backward-overlap collective scheduling (runtime/comm/overlap.py):
+    # "on" always, "auto" with several ranks and no canonical slots
     overlap: str = "off"
 
     def __post_init__(self):

@@ -37,7 +37,9 @@ the mesh gives, over :class:`.collectives.Transport` (gloo on a CUDA
 tensor goes through pinned host buffers).
 
 Each bucket is one eager dispatch inside a ``comm/reduce`` span of the
-port's tracer (the reference's ``reduce_dispatch``); with a metrics
+port's tracer (the reference's ``reduce_dispatch``), or, under the
+backward-overlap schedule (runtime/comm/overlap.py), a launch onto the
+scheduler's comm thread (``launch_bucket``); with a metrics
 registry (the monitor's) each bucket bumps the reference's
 ``comm_buckets`` and ``comm_wire_bytes`` counters.
 
@@ -52,8 +54,8 @@ admissible world size, world 1 included. Residuals are (C, n), free of the
 world size; each rank keeps its rows. :func:`exact_slot_mean` is the same
 gather and tree without a wire.
 
-Not ported: the jitted whole-tree ``reduce_stacked``, the overlap schedule
-and the pipeline's transform-only path.
+Not ported: the jitted whole-tree ``reduce_stacked`` and the pipeline's
+transform-only path.
 """
 
 import logging
@@ -437,16 +439,52 @@ class GradReducer:
     # per-bucket dispatch
     # ------------------------------------------------------------------ #
 
-    def reduce_dispatch(self, tree, state):
+    def _reduce_bucket(self, j, bucket_leaves, res):
+        """Bucket ``j``'s wire math on its leaves (the plan's order):
+        ``(reduced fp32 leaves, new residuals)``."""
+        b = self.plan.buckets[j]
+        red, nr = self._reduce_flat(bucketing.pack(b, bucket_leaves), res)
+        return bucketing.unpack(b, red), nr
+
+    def _count(self, wire):
+        if self._c_buckets is not None:
+            self._c_buckets.inc()
+            self._c_wire.inc(wire)
+
+    def launch_bucket(self, j, bucket_leaves, res, scheduler):
+        """Hand bucket ``j`` to the overlap ``scheduler``'s comm thread
+        (runtime/comm/overlap.py) and return its Future of ``(reduced
+        leaves, new residuals)``; the ``comm/reduce`` span records the
+        launch (``overlapped: true``)."""
+        b = self.plan.buckets[j]
+        wire = self.bucket_wire_bytes(b)
+        with trace_span("comm/reduce", lane="comm", bucket=j,
+                        mode=self.cfg.mode, elements=b.length,
+                        wire_bytes=wire, overlapped=True):
+            fut = scheduler.submit(self._reduce_bucket, j,
+                                   list(bucket_leaves), res)
+        scheduler.note(fut, 1)
+        self._count(wire)
+        return fut
+
+    def reduce_dispatch(self, tree, state, overlap=None):
         """Reduce this rank's local gradient tree bucket by bucket, each
         dispatch in a ``comm/reduce`` span. Returns ``(mean tree (fp32, the
         caller's key order), new_state)``; the mean is bit-identical on
-        every rank."""
+        every rank. With ``overlap`` (an ``OverlapScheduler``) every bucket
+        is launched on its comm thread first and the results are taken
+        after its drain: the same bits."""
         leaves, unflatten = bucketing.tree_flatten_sorted(tree)
         if len(leaves) != self.plan.n_leaves:
             raise ValueError(
                 f"grad tree has {len(leaves)} leaves but the bucket plan "
                 f"was built for {self.plan.n_leaves}")
+        if overlap is not None:
+            futs = [self.launch_bucket(j, [leaves[i] for i in b.leaf_ids],
+                                       state[j], overlap)
+                    for j, b in enumerate(self.plan.buckets)]
+            overlap.drain()
+            return self.collect(futs, unflatten)
         outs = [None] * self.plan.n_leaves
         new_state = []
         for j, b in enumerate(self.plan.buckets):
@@ -454,14 +492,24 @@ class GradReducer:
             with trace_span("comm/reduce", lane="comm", bucket=j,
                             mode=self.cfg.mode, elements=b.length,
                             wire_bytes=wire, overlapped=False):
-                flat = bucketing.pack(b, [leaves[i] for i in b.leaf_ids])
-                red, nr = self._reduce_flat(flat, state[j])
-            for i, leaf in zip(b.leaf_ids, bucketing.unpack(b, red)):
+                red, nr = self._reduce_bucket(
+                    j, [leaves[i] for i in b.leaf_ids], state[j])
+            for i, leaf in zip(b.leaf_ids, red):
                 outs[i] = leaf
             new_state.append(nr)
-            if self._c_buckets is not None:
-                self._c_buckets.inc()
-                self._c_wire.inc(wire)
+            self._count(wire)
+        return unflatten(outs), new_state
+
+    def collect(self, futures, unflatten):
+        """The mean tree and new residuals from the drained Futures of
+        :meth:`launch_bucket`, one a bucket in plan order."""
+        outs = [None] * self.plan.n_leaves
+        new_state = []
+        for b, fut in zip(self.plan.buckets, futures):
+            red, nr = fut.result()
+            for i, leaf in zip(b.leaf_ids, red):
+                outs[i] = leaf
+            new_state.append(nr)
         return unflatten(outs), new_state
 
     # ------------------------------------------------------------------ #
@@ -539,7 +587,5 @@ class GradReducer:
             for i, leaf in zip(b.leaf_ids, bucketing.unpack(b, red)):
                 outs[i] = leaf
             new_state.append(nr)
-            if self._c_buckets is not None:
-                self._c_buckets.inc()
-                self._c_wire.inc(wire)
+            self._count(wire)
         return unflatten(outs), new_state

@@ -290,10 +290,6 @@ class TrainingConfig:
                     dict(self.comm_params, enabled=True))
             except ValueError as e:
                 raise ConfigError(f'invalid "comm" block: {e}') from e
-            if self._comm_config.overlap != "off":
-                raise _unported(
-                    f'comm "overlap": "{self._comm_config.overlap}" (the '
-                    f'backward-overlap schedule)', "runtime/comm/")
 
         # ---- named mesh (dp x fsdp layout) ----
         self.mesh_params = pd.get(c.MESH, None)

@@ -114,9 +114,29 @@ runtime/comm/onebit.py) are built as the reference builds them
 error feedback, LAMB's frozen ratios) rides in the checkpoint's
 ``opt_state`` under the reference's field names.
 
+Mixture-of-Experts: ``initialize(..., mesh=build_mesh({"data": d,
+"expert": e}), param_specs=...)`` keeps on each rank its chunk of the
+expert leaves (``E/e`` experts a layer) and every other leaf whole; the
+batch splits over ``data`` only, the grads are reduced over the data
+group (the MoE layers' own collectives make the expert leaves' grads and
+the global-batch routing right, models/moe.py), ZeRO shards over the data
+group, the clip norm sums the expert leaves' squares over the expert
+axis, and a checkpoint gathers them whole (the reference's files) and a
+load cuts them again. The loss runs with the engine's mesh active
+(``sharding.mesh.use_mesh``). With a ``"comm"`` block over several data
+ranks an MoE model is refused: the reference's comm step computes the
+loss per shard.
+
+Backward overlap: with ``"comm": {"overlap": "on"|"auto"}``
+(runtime/comm/overlap.py) ``train_batch`` launches each bucket's
+reduction on the scheduler's comm thread as soon as the last micro-batch's
+backward has banked all of its leaves (a hook a param), and drains them
+before the update; ``backward()`` does the same at the accumulation
+boundary and ``step()`` drains. Bit-identical to ``overlap: off``.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
-stage 3 and offload for a loss callable, tensor and pipeline
-parallelism, the comm overlap schedule and the flops profiler.
+stage 3 and offload for a loss callable, tensor and pipeline parallelism
+and the flops profiler.
 """
 
 import copy
@@ -157,7 +177,9 @@ from . import lr_schedules
 from .accessors import ConfigAccessorsMixin, make_summary_writer
 from .comm.collectives import Transport
 from .comm.config import CommConfig
+from .comm import bucketing
 from .comm.onebit import OnebitAdam, OnebitLamb
+from .comm.overlap import OverlapScheduler, resolve_overlap
 from .comm.reducer import GradReducer, exact_slot_mean
 from .config import TrainingConfig
 from .bs_schedules import BatchSizeScheduler
@@ -236,6 +258,8 @@ class Engine(ConfigAccessorsMixin):
         collate_fn=None,
         device=None,
         rng: Optional[int] = None,
+        mesh=None,
+        param_specs=None,
     ):
         _refuse_offload(config)
         self._config = config
@@ -271,7 +295,8 @@ class Engine(ConfigAccessorsMixin):
             torch.float32 if gad in ("fp32", "float32")
             else torch.bfloat16 if gad in ("bf16", "bfloat16")
             else self._grad_dtype)
-        self._init_mesh(config)
+        self._init_mesh(config, mesh)
+        params = self._init_experts(params, param_specs)
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -430,6 +455,7 @@ class Engine(ConfigAccessorsMixin):
                       else None), canonical=self.canonical_shards)
         self.comm.build_plan(params)
         self._comm_state = self.comm.init_state(self.device)
+        self._init_overlap(config)
         self.scaler_state = self._loss_scaler.init()
         self.skipped = 0          # overflow-skipped optimizer steps
         self.optimizer_steps = 0  # applied optimizer steps
@@ -462,12 +488,32 @@ class Engine(ConfigAccessorsMixin):
                  f"zero_stage={self.zero_stage} mesh={self.mesh.shape} "
                  f"dp={self.data_parallel_size}", ranks=[0])
 
-    def _init_mesh(self, config):
-        """The mesh (the "mesh" block's, or every rank on the legacy data
-        axis), the data-parallel and ZeRO groups of this rank."""
+    def _init_overlap(self, config):
+        """The backward-overlap scheduler (runtime/comm/overlap.py) when
+        the comm block's ``overlap`` resolves on, else None; and the map
+        from the reducer's (sorted) leaf ids to this engine's leaf order."""
+        old = getattr(self, "_comm_overlap", None)
+        if old is not None:
+            old.close()
+        cc = config.comm_config()
+        self._comm_overlap = (
+            OverlapScheduler() if cc is not None and resolve_overlap(
+                cc, world=self.comm.world, canonical=self.canonical_shards)
+            else None)
+        self._overlap_futs = None
+        self.overlap_launched_in_backward = 0
+        ids = tree_unflatten(self.params, range(len(self._specs)))
+        self._sorted_leaf = tuple(bucketing.tree_flatten_sorted(ids)[0])
+
+    def _init_mesh(self, config, mesh=None):
+        """The mesh (``mesh``, else the "mesh" block's, else every rank on
+        the legacy data axis), the data-parallel and ZeRO groups of this
+        rank."""
         mc = config.mesh_config()
-        mesh = self.mesh = (mesh_lib.from_config(mc) if mc is not None
-                            else mesh_lib.default_mesh())
+        if mesh is None:
+            mesh = (mesh_lib.from_config(mc) if mc is not None
+                    else mesh_lib.default_mesh())
+        self.mesh = mesh
         self.batch_axes = rules.batch_axes(mesh)
         self.data_parallel_size = rules.data_parallel_size(mesh)
         self.dp_world_size = self.data_parallel_size
@@ -484,6 +530,75 @@ class Engine(ConfigAccessorsMixin):
         self._zero_index = (mesh.axis_index((zaxis,)) if zaxis is not None
                             else 0)
         self._zero = Transport(mesh.group((zaxis,)) if zaxis else None)
+        # the whole world (a save's barrier) and the expert axis
+        self._world = Transport(mesh.group(tuple(mesh.shape)))
+        self._ep = Transport(mesh.group((mesh_lib.EXPERT_AXIS,)))
+
+    def _init_experts(self, params, param_specs):
+        """This rank's part of the params: a leaf whose spec names the
+        ``expert`` axis (``make_gpt``'s specs) keeps this rank's chunk of
+        that dim, ``E/ep`` experts of each layer; every other leaf is
+        whole. ``_expert_dims`` (one entry a leaf, ``tree_leaves`` order)
+        holds the dim, for the clip norm and the checkpoint's gathers."""
+        dims = []
+
+        def leaf(p, spec):
+            dim = (spec.index(mesh_lib.EXPERT_AXIS)
+                   if spec is not None and mesh_lib.EXPERT_AXIS in spec
+                   else None)
+            if dim is None or self._ep.size == 1:
+                dims.append(None)
+                return p
+            n = p.shape[dim]
+            if n % self._ep.size:
+                raise ValueError(
+                    f"a leaf of shape {tuple(p.shape)} splits dim {dim} over "
+                    f"the expert axis ({self._ep.size} ranks): not divisible")
+            dims.append(dim)
+            m = n // self._ep.size
+            return torch.as_tensor(p).narrow(dim, self._ep.rank * m, m)
+
+        if param_specs is None:
+            local = params
+            dims = [None] * len(tree_leaves(params))
+        else:
+            local = tree_map(leaf, params, param_specs)
+        self._expert_dims = dims
+        self._has_experts = any(d is not None for d in dims)
+        moe = self._has_experts or _has_moe_layers(params)
+        if moe and self.data_parallel_size > 1:
+            cc = self._config.comm_config()
+            if cc is not None:
+                raise NotImplementedError(
+                    "a Mixture-of-Experts model with a \"comm\" block over "
+                    f"{self.data_parallel_size} data ranks: the reference's "
+                    "comm step runs the loss per shard (shard_map, per-shard "
+                    "capacity), the port's MoE computes the global batch's; "
+                    "drop the comm block (ROADMAP.md section 3)")
+        if self._ep.size > 1 and not self._has_experts:
+            raise ValueError(
+                f"the mesh {self.mesh.shape} has an expert axis but no param "
+                f"spec names it: pass initialize param_specs (make_gpt's)")
+        return local
+
+    def _expert_whole(self, tree):
+        """A tree like the params whose expert leaves are gathered whole
+        over the expert axis (collective: every rank calls it)."""
+        if not self._has_experts:
+            return tree
+        from ..models.moe import _gather
+
+        with torch.no_grad():
+            leaves = [t if d is None else _gather(t.detach(), self._ep, d)
+                      for t, d in zip(tree_leaves(tree), self._expert_dims)]
+        return tree_unflatten(tree, leaves)
+
+    def _expert_part(self, t, dim):
+        """This rank's chunk of a whole leaf along its expert dim."""
+        if dim is None:
+            return t
+        m = t.shape[dim] // self._ep.size
+        return t.narrow(dim, self._ep.rank * m, m)
 
     def _init_lifecycle(self, config):
         """A "lifecycle" block arms the live re-mesh signal handler and the
@@ -712,9 +827,12 @@ class Engine(ConfigAccessorsMixin):
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _call_loss(self, batch, rng=None):
-        out = (self.loss_fn(self.params, batch,
-                            self._rng() if rng is None else rng)
-               if self._takes_rng else self.loss_fn(self.params, batch))
+        # the active mesh gives a model built without one (make_gpt(cfg))
+        # its collectives
+        with mesh_lib.use_mesh(self.mesh):
+            out = (self.loss_fn(self.params, batch,
+                                self._rng() if rng is None else rng)
+                   if self._takes_rng else self.loss_fn(self.params, batch))
         loss = out[0] if isinstance(out, tuple) else out
         return loss
 
@@ -750,7 +868,16 @@ class Engine(ConfigAccessorsMixin):
         A non-finite norm means an inf/nan grad; the caller then skips the
         update, whatever the scaled grads hold."""
         inv = 1.0 / (self.scaler_state.loss_scale * gas)
-        raw_sq = torch.stack([g.float().square().sum() for g in grads]).sum()
+        sq = [g.float().square().sum() for g in grads]
+        raw_sq = torch.stack(sq).sum()
+        if self._has_experts:
+            # each expert shard counted once: the expert leaves' squares
+            # summed over the expert axis, every replicated leaf once
+            dense = [q for q, d in zip(sq, self._expert_dims) if d is None]
+            experts = torch.stack(
+                [q for q, d in zip(sq, self._expert_dims) if d is not None])
+            raw_sq = (torch.stack(dense).sum()
+                      + self._ep.all_reduce_sum(experts.sum().reshape(1))[0])
         gnorm = torch.sqrt(raw_sq) * inv  # norm of the UNSCALED grads
         coef = inv
         if clip > 0:
@@ -774,6 +901,77 @@ class Engine(ConfigAccessorsMixin):
         grads = [g.to(self._grad_dtype) for g in grads]
         mean, self._comm_state = self.comm.reduce_dispatch(
             tree_unflatten(self.params, grads), self._comm_state)
+        return tree_leaves(mean)
+
+    def _overlaps(self) -> bool:
+        return self._comm_overlap is not None and self.data_parallel_size > 1
+
+    def _bank_overlapped(self, loss):
+        """The accumulation boundary's backward under the overlap schedule:
+        the grads of ``loss * loss_scale`` banked as ``_bank`` banks them,
+        leaf by leaf from a hook on each param as autograd finishes it, and
+        each bucket launched onto the comm thread as soon as its last leaf
+        is banked (buckets whose leaves no grad reached go last, in plan
+        order, with zeros as ``_micro_grads`` gives them). The Futures wait
+        in ``_overlap_futs`` for ``_collect_overlapped``."""
+        leaves = tree_leaves(self.params)
+        plan = self.comm.plan
+        acc = self._grad_acc
+        final = [None] * len(leaves)
+        left = [len(b.leaf_ids) for b in plan.buckets]
+        bucket_of = {}
+        for j, b in enumerate(plan.buckets):
+            for sid in b.leaf_ids:
+                bucket_of[self._sorted_leaf[sid]] = j
+        futs = [None] * len(plan.buckets)
+
+        def launch(j):
+            b = plan.buckets[j]
+            futs[j] = self.comm.launch_bucket(
+                j, [final[self._sorted_leaf[sid]].to(self._grad_dtype)
+                    for sid in b.leaf_ids], self._comm_state[j],
+                self._comm_overlap)
+
+        def land(i, g):
+            g = g.to(self._grad_dtype)
+            if acc is None:
+                final[i] = torch.empty(g.shape, dtype=self._grad_accum_dtype,
+                                       device=g.device).copy_(g)
+            else:
+                final[i] = acc[i].add_(g.to(acc[i].dtype))
+            j = bucket_of[i]
+            left[j] -= 1
+            if left[j] == 0:
+                launch(j)
+
+        def hook(i):
+            def fn(g):
+                land(i, g)
+            return fn
+
+        handles = [p.register_hook(hook(i)) for i, p in enumerate(leaves)]
+        try:
+            torch.autograd.grad(loss.float() * self.scaler_state.loss_scale,
+                                leaves, allow_unused=True)
+        finally:
+            for h in handles:
+                h.remove()
+        # buckets on the wire before the backward returned
+        self.overlap_launched_in_backward = sum(f is not None for f in futs)
+        for i, p in enumerate(leaves):
+            if final[i] is None:  # a param the loss does not reach
+                land(i, torch.zeros_like(p, dtype=self._grad_dtype))
+        self._grad_acc = final
+        self._acc_count += 1
+        self._overlap_futs = futs
+
+    def _collect_overlapped(self):
+        """Drain the overlapped buckets (``comm/overlap_window``) and return
+        the reduced grads in this engine's leaf order."""
+        futs, self._overlap_futs = self._overlap_futs, None
+        self._comm_overlap.drain()
+        mean, self._comm_state = self.comm.collect(
+            futs, bucketing.tree_flatten_sorted(self.params)[1])
         return tree_leaves(mean)
 
     def _mean_loss(self, loss):
@@ -872,7 +1070,13 @@ class Engine(ConfigAccessorsMixin):
                         micro_step=self.micro_steps) as _sp:
             with self._capture("engine/backward", self._bwd_sigs,
                                self.params, stashed):
-                self._bank(self._micro_grads(stashed))
+                if (self._overlaps() and self._acc_count + 1
+                        >= self.gradient_accumulation_steps()):
+                    # the boundary's backward: buckets leave as their
+                    # grads land; step() drains them
+                    self._bank_overlapped(stashed)
+                else:
+                    self._bank(self._micro_grads(stashed))
             self._annotate(_sp, "backward")
         if wall:
             self.timers(BACKWARD_MICRO_TIMER).stop(sync=True)
@@ -890,7 +1094,9 @@ class Engine(ConfigAccessorsMixin):
                             step=self.global_steps) as _sp:
                 with self._capture("engine/apply_update", self._upd_sigs,
                                    self.params, self._grad_acc):
-                    grads = self._reduce_grads(self._grad_acc)
+                    grads = (self._collect_overlapped()
+                             if self._overlap_futs is not None
+                             else self._reduce_grads(self._grad_acc))
                     if self.store_gradients:
                         self._store_grads(grads)
                     metrics = self._apply_update(
@@ -980,14 +1186,19 @@ class Engine(ConfigAccessorsMixin):
         if self.canonical_shards:
             return self._train_step_canonical(batch)
         loss_sum = None
+        overlap = self._overlaps()
         for i in range(gas):
             mb = _micro_batch(batch, i, gas)
             loss = self._call_loss(mb)
-            self._bank(self._micro_grads(loss))
+            if overlap and i == gas - 1:
+                self._bank_overlapped(loss)
+            else:
+                self._bank(self._micro_grads(loss))
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             del loss
-        grads = self._reduce_grads(self._grad_acc)
+        grads = (self._collect_overlapped() if overlap
+                 else self._reduce_grads(self._grad_acc))
         if self.store_gradients:
             self._store_grads(grads)
         metrics = self._apply_update(grads, self._current_lr(), float(gas))
@@ -1172,7 +1383,7 @@ class Engine(ConfigAccessorsMixin):
         st = self.opt_state
         scaler = self.scaler_state
         model_states = {
-            "module": self.params,
+            "module": self._expert_whole(self.params),
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
             "skipped_steps": self.skipped_steps,
@@ -1189,11 +1400,12 @@ class Engine(ConfigAccessorsMixin):
                          if self.datapipe is not None else {}),
             "client_state": client_state or {},
         }
+        whole = lambda t: self._expert_whole(self._full(t))  # noqa: E731
         optim_states = {
-            "master": (self._full(self.master) if self.master is not None
+            "master": (whole(self.master) if self.master is not None
                        else {}),
             "opt_state": type(st)(np.asarray(st.step, np.int32),
-                                  *(self._full(t) for t in st[1:])),
+                                  *(whole(t) for t in st[1:])),
             "scaler": {
                 "loss_scale": np.asarray(scaler.loss_scale, np.float32),
                 "good_steps": np.asarray(scaler.good_steps, np.int32),
@@ -1250,7 +1462,7 @@ class Engine(ConfigAccessorsMixin):
                     write_latest(save_dir, tag)
                 write_recovery_stub(ck.ckpt_dir)
         del payload
-        self._dp.barrier()
+        self._world.barrier()
         log_dist(f"saved checkpoint {ck.ckpt_dir}", ranks=[0])
         return True
 
@@ -1299,9 +1511,15 @@ class Engine(ConfigAccessorsMixin):
             return None, {}
         model_states = ck.load(model_state_filename(), unchunk=False)
         master_loaded = False
-        shard = (self.master_specs, self._zero_index)
+        # whole leaves from the file: this rank's expert chunk, then its
+        # ZeRO shard
+        experts = (tree_unflatten(self.params, [
+            (lambda t, d=d: self._expert_part(t, d))
+            for d in self._expert_dims]) if self._has_experts else None)
+        shard = (self.master_specs, self._zero_index, experts)
         with torch.no_grad():
-            _copy_into(self.params, model_states["module"], "module")
+            _copy_into(self.params, model_states["module"], "module",
+                       None, 0, experts)
             if (not load_module_only and load_optimizer_states
                     and ck.exists(optim_state_filename())):
                 optim = ck.load(optim_state_filename(), unchunk=False)
@@ -1472,6 +1690,10 @@ class Engine(ConfigAccessorsMixin):
             raise RuntimeError(
                 "live re-mesh is not supported with optimizer offload "
                 "(host-side state is keyed to the old placement)")
+        if self._has_experts or self.mesh.size != self.data_parallel_size:
+            raise RuntimeError(
+                "live re-mesh re-forms a data-only world; a mesh with an "
+                "expert axis needs a relaunch")
         if self._acc_count or self._stashed is not None:
             raise RuntimeError(
                 "live re-mesh must happen at an optimizer-step boundary "
@@ -1601,6 +1823,7 @@ class Engine(ConfigAccessorsMixin):
                       else None), canonical=self.canonical_shards)
         self.comm.build_plan(self.params)
         self._comm_state = self.comm.init_state(self.device)
+        self._init_overlap(new_config)
         with torch.no_grad():
             self._restore_comm_state(old_comm, old_fp, old_plan)
 
@@ -1666,23 +1889,34 @@ def _host_tensor(src) -> torch.Tensor:
     return flat.reshape(shape)
 
 
-def _copy_into(dst, src, path, specs=None, index=0):
+def _copy_into(dst, src, path, specs=None, index=0, experts=None):
     """Copy a restored tree (numpy arrays, bf16 CPU tensors, or flax's
     chunked dicts) into the tensors of ``dst`` leaf by leaf, casting to
     each tensor's dtype; keys ``dst`` has and ``src`` lacks raise, keys
     only ``src`` has are ignored (as flax's ``from_state_dict``). With
+    ``experts`` (a tree like ``dst`` of functions, the whole leaf -> this
+    rank's expert chunk) the whole leaf in ``src`` is cut first; with
     ``specs`` (ZeRO shard specs like ``dst``), a sharded leaf of ``dst``
-    takes shard ``index`` of the whole leaf in ``src``."""
+    then takes shard ``index`` of it."""
     if isinstance(dst, dict):
         missing = [k for k in dst if k not in src]
         if missing:
             raise ValueError(f"checkpoint {path} lacks {missing}")
         for k, v in dst.items():
             _copy_into(v, src[k], f"{path}/{k}",
-                       None if specs is None else specs[k], index)
+                       None if specs is None else specs[k], index,
+                       None if experts is None else experts[k])
         return
-    shape = msgpack.leaf_shape(src) if isinstance(src, dict) else tuple(
-        np.shape(src))
+    if experts is not None:
+        whole = _host_tensor(src)
+        src = experts(whole)
+        if src.shape == whole.shape:
+            src = whole
+        else:
+            src = src.contiguous()
+    shape = (msgpack.leaf_shape(src) if isinstance(src, dict)
+             else tuple(src.shape) if isinstance(src, torch.Tensor)
+             else tuple(np.shape(src)))
     if specs is not None and specs.sharded:
         want = list(dst.shape)
         want[specs.dim] *= specs.size
@@ -1701,6 +1935,13 @@ def _copy_into(dst, src, path, specs=None, index=0):
             np.asarray(part))
         flat[start:start + t.numel()].copy_(t.reshape(-1))
         start += t.numel()
+
+
+def _has_moe_layers(params) -> bool:
+    """Whether a params tree holds GPT Mixture-of-Experts layers (the
+    ``layers/moe`` subtree of models/gpt.py)."""
+    layers = params.get("layers") if isinstance(params, dict) else None
+    return isinstance(layers, dict) and "moe" in layers
 
 
 def _concat(parts):
@@ -1789,6 +2030,8 @@ def initialize(
     config_params=None,
     device: Optional[str] = None,
     rng: Optional[int] = None,
+    mesh=None,
+    param_specs=None,
 ):
     """Build an Engine, as the reference's ``initialize``.
 
@@ -1803,10 +2046,14 @@ def initialize(
     to CUDA. ``rng`` seeds the generators handed to a loss that takes one
     (default 0). Each process is one rank: the world size comes from an
     initialized ``torch.distributed`` group (1 without one), laid out by
-    the config's ``"mesh"`` block, else every rank on the legacy ``data``
-    axis. The port refuses tensor and sequence parallelism, so every rank
-    is a data-parallel rank and the batch triple is derived for the whole
-    world. A ``"distributed"`` block joins the process group first
+    ``mesh`` (parallel/topology.build_mesh, e.g. a legacy ``{"data": d,
+    "expert": e}`` mesh), else the config's ``"mesh"`` block, else every
+    rank on the legacy ``data`` axis. The batch triple is derived for the
+    mesh's data-parallel size (the ``expert`` axis holds the same rows).
+    ``param_specs`` (``make_gpt``'s) mark the leaves split over the
+    ``expert`` axis: each rank keeps its chunk of the whole params it is
+    given. The port refuses tensor and sequence parallelism. A
+    ``"distributed"`` block joins the process group first
     (distributed/bootstrap.py)."""
     if model is None:
         raise ValueError("deepspeed.initialize requires a model")
@@ -1859,12 +2106,15 @@ def initialize(
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
     _bootstrap_from_raw_config(config)
+    world = (rules.data_parallel_size(mesh) if mesh is not None
+             else mesh_lib.world_size())
     ds_config = (config if isinstance(config, TrainingConfig)
-                 else TrainingConfig(config, world_size=mesh_lib.world_size()))
+                 else TrainingConfig(config, world_size=world))
     engine = Engine(model=model, params=model_parameters, config=ds_config,
                     optimizer=optimizer, lr_scheduler=lr_scheduler,
                     training_data=training_data, collate_fn=collate_fn,
-                    device=device, rng=rng)
+                    device=device, rng=rng, mesh=mesh,
+                    param_specs=param_specs)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

@@ -499,6 +499,9 @@ class StreamedOffloadEngine:
         if not isinstance(cfg, GPTConfig):
             raise _unported(f"streaming a {type(cfg).__name__} (the BERT "
                             f"family)", "BERT streaming")
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                "StreamedOffloadEngine supports dense GPT and BERT models")
         if cfg.n_layer % scfg.group_layers:
             raise ValueError("n_layer must be divisible by group_layers")
         if scfg.wire_bits not in (4, 8, 16, 32):

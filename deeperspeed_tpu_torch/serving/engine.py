@@ -141,7 +141,9 @@ def _paged_block(cfg: GPTConfig, x, layer_params, k_l, v_l, tables,
                  lengths, wblk, woff, positions):
     """One decoder layer over all slots' single new tokens, reading and
     writing the paged pool in place. The layer math is gpt.decoder_block
-    — only the attention core differs (mirrors generation._cached_block)."""
+    — only the attention core differs (mirrors generation._cached_block);
+    a Mixture-of-Experts layer runs decoder_block's moe_ffn on this rank,
+    as the reference's mlp_fn does."""
 
     def attend(q, k, v):
         return paged_attend(k_l, v_l, q, k, v, tables, lengths, wblk,

@@ -110,7 +110,9 @@ def _paged_block_multi(cfg: GPTConfig, x, layer_params, k_l, v_l, tables,
                        lengths, wblk, woff, positions):
     """One decoder layer over all slots' T-token windows: the multi-token
     twin of engine._paged_block (same decoder_block math, the attention
-    core swapped for paged_attend_multi)."""
+    core swapped for paged_attend_multi; a Mixture-of-Experts layer takes
+    decoder_block's moe_ffn over the T-token windows, as the reference's
+    mlp_fn)."""
 
     def attend(q, k, v):
         return paged_attend_multi(k_l, v_l, q, k, v, tables, lengths, wblk,
@@ -131,10 +133,6 @@ def make_verify_step(cfg: GPTConfig, scfg: ServingConfig, draft_k: int):
     choice at the first mismatch (position n_acc): the host emits
     ``drafts[:n_acc] + [bonus]``.
     """
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "speculative verify over a Mixture-of-Experts target is not "
-            "ported to the PyTorch package yet (ROADMAP item 11)")
     T = draft_k + 1
     top_k = _resolve_top_k(cfg, scfg)
     bs = scfg.block_size

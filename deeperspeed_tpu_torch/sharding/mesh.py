@@ -18,6 +18,9 @@ would refuse the shared-card layout; plain process groups take any.
   from the world size.
 * :func:`default_mesh` -- what an engine gets with no block: every rank on
   the legacy ``data`` axis.
+* a legacy ``{"data": d, "expert": e}`` mesh (parallel/topology.py's
+  ``build_mesh``): the batch splits over ``data``, each layer's experts
+  over ``expert`` (models/moe.py).
 
 Without an initialized process group the world is one rank; a mesh of any
 shape can still be built for planning (``zero_tree_specs``), and asking it
@@ -31,20 +34,49 @@ import torch.distributed as dist
 from .config import CANONICAL_AXES, MeshConfig
 
 __all__ = [
-    "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "DP_AXIS", "FSDP_AXIS",
-    "TP_AXIS", "SP_AXIS", "CANONICAL_AXES", "Mesh", "world_size",
-    "world_rank", "from_config", "default_mesh",
+    "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS", "DP_AXIS",
+    "FSDP_AXIS", "TP_AXIS", "SP_AXIS", "CANONICAL_AXES", "Mesh",
+    "world_size", "world_rank", "from_config", "default_mesh",
+    "active_mesh", "use_mesh",
 ]
 
 # the reference's legacy axis names (deeperspeed_tpu/parallel/topology.py)
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+# Mixture-of-Experts: the experts of each layer split over this axis
+# (parallel/topology.build_mesh({"data": d, "expert": e}))
+EXPERT_AXIS = "expert"
 # the canonical axes
 DP_AXIS = "dp"
 FSDP_AXIS = "fsdp"
 TP_AXIS = "tp"
 SP_AXIS = "sp"
+
+
+_ACTIVE = []
+
+
+def active_mesh():
+    """The mesh of the engine whose loss is running (``use_mesh``), else
+    None: a model built without a mesh (``make_gpt(cfg)``) takes its
+    collectives from it, as the reference's single jit sees the engine's
+    mesh."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+class use_mesh:
+    """Context that makes ``mesh`` the :func:`active_mesh`."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        _ACTIVE.append(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        _ACTIVE.pop()
 
 
 def world_size() -> int:

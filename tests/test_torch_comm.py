@@ -101,9 +101,13 @@ def test_comm_block_parses_as_reference():
     with pytest.raises(pt_config.ConfigError, match="invalid \"comm\""):
         pt_config.TrainingConfig({"train_batch_size": 4,
                                   "comm": {"mode": "int4"}})
-    with pytest.raises(pt_config.ConfigError, match="runtime/comm/"):
-        pt_config.TrainingConfig({"train_batch_size": 4,
-                                  "comm": {"overlap": "auto"}})
+    # the backward-overlap schedule is ported: its values parse as the
+    # reference's
+    for value in ("off", "auto", "on"):
+        assert pt_config.TrainingConfig(
+            {"train_batch_size": 4, "comm": {"overlap": value}}
+        ).comm_config().overlap == JaxCommConfig.from_dict(
+            {"overlap": value}).overlap == value
 
 
 def _meta_tree(shapes):

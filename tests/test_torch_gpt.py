@@ -86,8 +86,10 @@ def test_config_surface():
     c = gpt.get_preset("neox-1.3b")
     assert (c.n_layer, c.d_model, c.n_head, c.head_dim, c.ffn_dim,
             c.vocab_size) == (24, 2048, 16, 128, 8192, 50304)
-    with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
-        gpt.GPTConfig(moe_num_experts=4)
+    # Mixture-of-Experts is ported: the config builds the reference's
+    # MoEConfig
+    assert dataclasses.asdict(gpt.GPTConfig(moe_num_experts=4).moe) == \
+        dataclasses.asdict(jax_gpt.GPTConfig(moe_num_experts=4).moe)
     with pytest.raises(ValueError, match="not ported"):
         gpt.GPTConfig(attn_impl="ring")
     with pytest.raises(ValueError, match="multiple of n_kv_head"):

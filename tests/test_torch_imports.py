@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing ``deeperspeed_tpu_torch``
 loads neither ``jax``, ``flax``, ``msgpack`` nor any module of
 ``deeperspeed_tpu`` (names are compared exactly, since the port's own
-name starts with ``deeperspeed_tpu``), the monitor's and the datapipe's
-modules included, no source file of the port, chip_smoke.py or
+name starts with ``deeperspeed_tpu``), the monitor's, the datapipe's and
+the MoE slice's modules included, no source file of the port, chip_smoke.py or
 scripts/torch_first_step_probe.py imports them, and the serving, replica
 worker, training and streamed-offload entry points refuse to fall back to
 the CPU."""
@@ -230,6 +230,39 @@ def test_lifecycle_and_onebit_load_no_jax(lifecycle_imports, name):
     imports with neither jax nor any module of the reference in
     sys.modules."""
     mods = lifecycle_imports[name]
+    assert f"deeperspeed_tpu_torch.{name}" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+_MOE_MODULES = (
+    "parallel", "parallel.topology", "models.moe", "runtime.comm.overlap",
+    "runtime.comm.wiremodel")
+
+
+@pytest.fixture(scope="module")
+def moe_imports():
+    """As ``runtime_imports``, for the MoE and overlap slice."""
+    code = (
+        "import importlib, json, sys\n"
+        f"names = {list(_MOE_MODULES)!r}\n"
+        "out = {}\n"
+        "for n in names:\n"
+        "    importlib.import_module('deeperspeed_tpu_torch.' + n)\n"
+        "    out[n] = sorted(sys.modules)\n"
+        "print(json.dumps(out))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", _MOE_MODULES)
+def test_moe_and_overlap_load_no_jax(moe_imports, name):
+    """Each module of the MoE, expert-parallel and backward-overlap slice
+    imports with neither jax nor any module of the reference in
+    sys.modules."""
+    mods = moe_imports[name]
     assert f"deeperspeed_tpu_torch.{name}" in mods
     assert [m for m in mods if _forbidden(m)] == []
 

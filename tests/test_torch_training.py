@@ -133,10 +133,10 @@ def test_config_fields_match_reference(cfg):
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
      "Offload and ZeRO-Infinity"),
     ({"streaming": {}}, "Offload and ZeRO-Infinity"),
-    ({"comm": {"overlap": "on"}}, "runtime/comm/"),
+    ({"mesh": {"sp": 2}}, "MoE, TP and pipeline"),
     ({"optimizer": {"type": "CPUAdam", "params": {}}},
      "Offload and ZeRO-Infinity"),
-    ({"comm": {"overlap": "auto"}}, "runtime/comm/"),
+    ({"checkpoint": {"sharded_io": True}}, "Sharded checkpoints"),
     ({"pipeline": {"stages": 2}}, "MoE, TP and pipeline"),
     ({"autotune": {}}, "Tooling"),
     ({"autotune": {"enabled": True}}, "Tooling"),

@@ -10,6 +10,7 @@ the reference runs in the test process.
 
 import json
 import os
+import pickle
 import time
 
 import numpy as np
@@ -624,3 +625,208 @@ def fleet_trainer(work):
     except SystemExit as e:
         line({"retired": e.code, "after_step": eng.global_steps})
         raise
+
+
+# ------------------------------------------------------------------ #
+# Mixture-of-Experts over data x expert
+# ------------------------------------------------------------------ #
+
+MOE_STEPS = 3
+
+
+def _expert_chunk(t, spec, mesh):
+    """This rank's chunk of a whole leaf along its ``expert`` dim."""
+    if spec is None or "expert" not in spec:
+        return t
+    dim = spec.index("expert")
+    ep = mesh.shape["expert"]
+    m = t.shape[dim] // ep
+    return t.narrow(dim, mesh.coords()["expert"] * m, m)
+
+
+def moe_ffn_run(rank, world, tmp, dims, cases):
+    """``moe_ffn`` on this rank's rows (its data rank's block of the saved
+    global ``x``) and experts, for each (name, MoEConfig kwargs) of
+    ``cases``; the rank's loss is ``dp * sum(y * w) + aux + z`` (its share
+    of the global ``sum(y * w) + aux + z`` under the engine's mean over
+    the data ranks). Writes y, the aux terms and the grads of x and of
+    every param."""
+    from deeperspeed_tpu_torch.models import moe
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh(dims)
+    data = np.load(os.path.join(tmp, "moe_ffn.npz"))
+    specs = moe.moe_param_specs()
+    dp = mesh.shape.get("data", 1)
+    d = mesh.coords().get("data", 0)
+    rows = data["x"].shape[0] // dp
+    out = {}
+    for name, kw in cases:
+        cfg = moe.MoEConfig(**kw)
+        params = {
+            "router": {"wg": torch.tensor(data["wg"])},
+            "experts": {k: _expert_chunk(torch.tensor(data[k]),
+                                         specs["experts"][k], mesh)
+                        for k in ("wi", "bi", "wo", "bo")}}
+        leaves = [params["router"]["wg"]] + [params["experts"][k] for k in
+                                             ("wi", "bi", "wo", "bo")]
+        for t in leaves:
+            t.requires_grad_(True)
+        x = torch.tensor(data["x"][d * rows:(d + 1) * rows],
+                         requires_grad=True)
+        w = torch.tensor(data["w"][d * rows:(d + 1) * rows])
+        y, aux = moe.moe_ffn(params, x, cfg, mesh=mesh)
+        loss = dp * (y * w).sum() + aux["aux_loss"] + aux["z_loss"]
+        grads = torch.autograd.grad(loss, leaves + [x])
+        out[name] = {"y": y.detach().numpy(),
+                     "aux": {k: float(v) for k, v in aux.items()},
+                     "grads": [g.numpy() for g in grads]}
+    with open(os.path.join(tmp, f"moe_ffn_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def moe_dp_run(rank, world, tmp):
+    """The dense MoE GPT on the engine's default mesh (every rank on
+    ``data``) with a loss built without a mesh (``make_gpt(cfg)``): its
+    MoE layers take the engine's active mesh. Rank 0 writes the losses."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+
+    spec = json.load(open(os.path.join(tmp, "moe_train.json")))
+    batches = list(np.load(os.path.join(tmp, "moe_batches.npy")))
+    cfg = gpt.GPTConfig(**spec["model"], dtype=torch.float32)
+    eng, _, _, _ = ds.initialize(
+        model=gpt.make_gpt(cfg)[2],
+        model_parameters=torch.load(os.path.join(tmp, "moe_params.pt")),
+        config=moe_config(), device="cpu")
+    losses = [float(eng.train_batch(b)) for b in batches]
+    if rank == 0:
+        with open(os.path.join(tmp, "moe_dp.json"), "w") as f:
+            json.dump({"losses": losses, "dp": eng.data_parallel_size}, f)
+
+
+def moe_config():
+    """The MoE engine config: micro-batch 2 a data rank, fp32, Adam with
+    clipping, ZeRO 1."""
+    return {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "Adam",
+                          "params": {"lr": 3e-3, "betas": [0.9, 0.95]}},
+            "gradient_clipping": 0.5, "zero_optimization": {"stage": 1}}
+
+
+def moe_train_run(rank, world, tmp, dims):
+    """``initialize`` -> ``train_batch`` for the saved batches on the mesh
+    ``dims``, once a dispatch impl of ``moe_train.json``; rank 0 writes
+    the losses and the whole params after the last step (gathered over the
+    expert axis), and after the dense run every rank saves a checkpoint."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import convert, gpt
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    spec = json.load(open(os.path.join(tmp, "moe_train.json")))
+    batches = list(np.load(os.path.join(tmp, "moe_batches.npy")))
+    mesh = build_mesh(dims)
+    result = {}
+    for impl in spec["impls"]:
+        cfg = gpt.GPTConfig(**spec["model"], moe_dispatch_impl=impl,
+                            dtype=torch.float32)
+        _, _, loss_fn, specs = gpt.make_gpt(cfg, mesh)
+        eng, _, _, _ = ds.initialize(
+            model=loss_fn,
+            model_parameters=torch.load(os.path.join(tmp, "moe_params.pt")),
+            config=moe_config(), device="cpu", mesh=mesh,
+            param_specs=specs)
+        losses = [float(eng.train_batch(b)) for b in batches]
+        whole = eng._expert_whole(eng.params)
+        result[impl] = {
+            "losses": losses,
+            "params": {k: t.detach().numpy()
+                       for k, t in convert._flatten(whole).items()},
+            "local_experts": int(eng.params["layers"]["moe"]["experts"]
+                                 ["wi"].shape[1]),
+            "dp": eng.data_parallel_size}
+        if impl == "dense":
+            eng.save_checkpoint(os.path.join(tmp, "moe_ckpt"))
+    # a "comm" block over 2 data ranks is refused for an MoE model
+    try:
+        ds.initialize(model=loss_fn, model_parameters=torch.load(
+            os.path.join(tmp, "moe_params.pt")), config=dict(
+                moe_config(), comm={"mode": "fp32"}), device="cpu",
+            mesh=mesh, param_specs=specs)
+        result["comm_refusal"] = None
+    except NotImplementedError as e:
+        result["comm_refusal"] = str(e)
+    if rank == 0:
+        with open(os.path.join(tmp, "moe_train.pkl"), "wb") as f:
+            pickle.dump(result, f)
+
+
+# ------------------------------------------------------------------ #
+# the backward-overlap schedule
+# ------------------------------------------------------------------ #
+
+
+def overlap_run(rank, world, tmp, model_kw, steps):
+    """The tiny GPT at 2 accumulation steps under each comm wire (fp32,
+    int8) with overlap off and on, through ``train_batch`` and through
+    ``forward``/``backward``/``step``: each step's params digest and loss,
+    the residuals, and the overlap runs' span counts."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    params = torch.load(os.path.join(tmp, "params.pt"))
+    batches = list(np.load(os.path.join(tmp, "batches.npy")))[:steps]
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32, attn_impl="xla")
+    result = {}
+    for mode in ("fp32", "int8"):
+        for overlap in ("off", "on"):
+            for path in ("train_batch", "imperative"):
+                config = train_config(1, {"mode": mode, "overlap": overlap})
+                eng, _, _, _ = ds.initialize(
+                    model=gpt.make_gpt(cfg)[2], model_parameters=params,
+                    config=config, device="cpu")
+                gas = eng.gradient_accumulation_steps()
+                losses, digests = [], []
+                for b in batches:
+                    if path == "train_batch":
+                        losses.append(float(eng.train_batch(b)).hex())
+                    else:
+                        half = len(b) // gas
+                        for i in range(gas):
+                            loss = eng.forward(b[i * half:(i + 1) * half])
+                            eng.backward(loss)
+                            eng.step()
+                        losses.append(float(loss).hex())
+                    digests.append(_digest(tree_leaves(eng.params)))
+                sched = eng._comm_overlap
+                result[f"{mode}/{overlap}/{path}"] = {
+                    "losses": losses, "digests": digests,
+                    "residuals": _digest([v for r in eng._comm_state
+                                          for v in r.values()]),
+                    "scheduler": sched is not None,
+                    "pending": sched.pending_buckets if sched else 0,
+                    "in_backward": eng.overlap_launched_in_backward,
+                    "buckets": eng.comm.n_buckets}
+    # the reducer's own async dispatch: the same bits as its serial one
+    from deeperspeed_tpu_torch.runtime.comm.overlap import OverlapScheduler
+
+    red = eng.comm
+    grads = _randomized(params, torch.Generator().manual_seed(rank))
+    state = red.init_state("cpu")
+    serial, s1 = red.reduce_dispatch(grads, state)
+    sched = OverlapScheduler()
+    launched, s2 = red.reduce_dispatch(grads, state, overlap=sched)
+    sched.close()
+    result["reduce_dispatch_overlap_equal"] = (
+        _digest(tree_leaves(serial)) == _digest(tree_leaves(launched))
+        and _digest([v for r in s1 for v in r.values()])
+        == _digest([v for r in s2 for v in r.values()]))
+    with open(os.path.join(tmp, f"overlap_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _randomized(tree, gen):
+    if isinstance(tree, dict):
+        return {k: _randomized(v, gen) for k, v in tree.items()}
+    return 0.01 * torch.randn(tree.shape, generator=gen)
