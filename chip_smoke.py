@@ -552,6 +552,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    request finishes by length, one ln_fwd launch a forward, and the
    kernel path's tokens equal the plain path's or differ first at a near
    tie (phase 17's rule).
+22. Tensor and sequence parallelism (TP_*, SP_*, TPS_* constants). 22a:
+   configs/neox_6.7b_3d.json's blocks (bf16 with an fp32 master, ZeRO 1,
+   OneBitAdam, clip 1.0) at GPT-NeoX-6.7B width (d_model 4096, 32 heads,
+   Dh 128, d_ff 16384, vocab 50304), TP_LAYERS of 32 layers, remat
+   "full", kernels auto, on the file's model: 4, the mesh {data: 1,
+   model: 4}: 4 processes share the card over gloo, each holding its 8
+   heads and d_ff / 4 columns; one micro-batch of TP_SEQ tokens a
+   rank-step, phase 20's warmup cut, freeze_step TP_FREEZE (the steps
+   after it run the compressed update, its scale summed over the tp
+   axis), TP_STEPS steps, a save after step TP_SAVE_AFTER (the error
+   feedback live); against a world-1 run of the same weights and batches
+   in this process (run while the ranks start). Gates: each step's loss
+   within TP_LOSS_RTOL and grad norm within TP_NORM_RTOL of world 1;
+   after step TP_FREEZE, the last exact one, every leaf of the master (a
+   tp-cut leaf's parts summed over the ranks) within TP_PARAM_RTOL
+   relative L2 of world 1's (after a compressed step an element whose
+   corrected momentum is near 0 may take the other sign, and a
+   zero-initialized bias is all such moves); after the last step, each
+   leaf's compressed momentum +- one magnitude on every rank (its scale
+   summed over the tp axis) within TP_SCALE_RTOL of world 1's, a live
+   error feedback, and every replicated leaf the same bits on the 4
+   ranks; a fresh world-1 engine loading the
+   tp save holds, in every leaf of its params, master, moments and error
+   feedback cut as the ranks cut it, the bits each rank saved, and gives
+   step TP_SAVE_AFTER + 1's loss within TP_LOSS_RTOL; launches a
+   rank-step as the path gives them. 22b: GPT-NeoX-1.3B width, SP_LAYERS
+   layers at seq SP_SEQ, bf16 with Adam, on {data: 1, seq: 2} (2
+   processes): ring attention, then Ulysses, SP_STEPS steps each, against
+   world 1 on the flash kernel. Gates: 22a's loss and grad-norm limits,
+   every leaf of the master within SP_PARAM_RTOL of world 1's after the
+   last step, the replicated leaves' bits on both ranks, Ulysses'
+   flash_fwd/flash_bwd launches on each rank at (1, 8, SP_SEQ, 128). 22c:
+   a ServingEngine on {model: 2} (2 processes) over 22a's model shape
+   from seeded weights serves TPS_LENS greedy requests of TPS_NEW
+   tokens: every rank's tokens equal, equal to the meshless engine's or
+   differing first at a near tie (phase 17's rule), one ln_fwd launch a
+   forward. Each sub-phase prints its rank-step seconds, the share of the
+   step spent in the tp/sp collectives (their Transports' clocked
+   seconds) and the peak memory a rank beside the card.
 A line before the kernels line gives each phase's wall seconds. The line
 before the last is the kernels JSON object, the one before it the card;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -561,6 +600,7 @@ device the script exits non-zero before printing any result.
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
@@ -668,7 +708,8 @@ PATH_ROWS = 2048          # B * S of the training micro-batch
 # reference's whole-S kernel, ragged S, and the other head dims
 FLASH_SHAPES = ((2, 16, 1024, 128), (1, 4, 2048, 128), (1, 2, 4096, 128),
                 (1, 4, 640, 128), (1, 4, 1000, 128), (2, 12, 1024, 64),
-                (1, 8, 1024, 96), (16, 12, 1024, 64), (1, 64, 1024, 96))
+                (1, 8, 1024, 96), (16, 12, 1024, 64), (1, 64, 1024, 96),
+                (1, 8, 2048, 128), (1, 8, 4096, 128))
 # S at the kernels' tile edges (the tiles are 16, 32 and 64 rows), every
 # head dim
 FLASH_EDGE_SHAPES = tuple((1, 2, S, Dh) for S in (1, 17, 63, 65, 127, 129)
@@ -676,7 +717,10 @@ FLASH_EDGE_SHAPES = tuple((1, 2, S, Dh) for S in (1, 17, 63, 65, 127, 129)
 # shapes timed (causal, bf16) and the path each is: GPT-NeoX-1.3B
 # training's micro-batch and phase 14's GPT-NeoX-125M one
 FLASH_TIMED = {(2, 16, 1024, 128): "gpt", (16, 12, 1024, 64): "dp",
-               (1, 64, 1024, 96): "infinity"}
+               (1, 64, 1024, 96): "infinity",
+               # phase 22: a tp rank's 8 heads of 6.7B at S 2048, and a
+               # Ulysses rank's 8 heads of 1.3B over the whole S 4096
+               (1, 8, 2048, 128): "tp", (1, 8, 4096, 128): "tp"}
 # the training run's bf16 limits, kernel path against plain path
 LOSS_RTOL = 5e-3
 GNORM_RTOL = 5e-2
@@ -969,6 +1013,41 @@ MOE_EP_IMPLS = ("dense", "dropless")
 MOE_EP_RTOL = 1e-4
 MOE_SERVE_LENS = (16, 40, 100, 180, 260, 340, 420, 500)
 MOE_SERVE_NEW = 32
+# tensor and sequence parallelism (phase 22, the module docstring): 22a at
+# configs/neox_6.7b_3d.json's model: 4, 22b at seq 4096 over 2 ranks,
+# 22c serving over 2 ranks
+TP_DIMS = {"data": 1, "model": 4}
+TP_LAYERS = 2                       # of 32: the script's time
+TP_SEQ = 2048                       # tokens a rank-step (one micro-batch)
+TP_STEPS = 5
+TP_FREEZE = 3                       # steps 1-3 exact Adam, 4-5 compressed
+TP_SAVE_AFTER = 4                   # after a compressed step: error live
+TP_CKPT = ROOT / "build" / "smoke_tp_ckpt"
+# against world 1, a few times the largest readings (PERF.md section 6):
+# each step's loss, each step's grad norm (which Adam's update hides a
+# constant scale of), every leaf of the master (relative L2) after the
+# last exact step
+TP_LOSS_RTOL = 1e-4
+TP_NORM_RTOL = 5e-4
+TP_PARAM_RTOL = 1.5e-4
+# the 1-bit scale of each leaf after the compressed steps (a mean over
+# the leaf, to world 1's)
+TP_SCALE_RTOL = 1e-3
+# the FFN's rows x d_ff / 4 columns of a 22a rank; the final LN's rows
+TP_LN = (TP_SEQ, 4096)
+TP_BG = (TP_SEQ, 16384 // 4)
+SP_DIMS = {"data": 1, "seq": 2}
+SP_LAYERS = 2                       # of 24
+SP_SEQ = 4096
+SP_STEPS = 3
+SP_IMPLS = ("ring", "ulysses")
+# every leaf of the master after the last step (relative L2; Adam, whose
+# first steps move an element by +-lr whatever its grad's size)
+SP_PARAM_RTOL = 1e-3
+TPS_DIMS = {"model": 2}
+TPS_LENS = (16, 40, 100, 180, 260, 340, 420, 500)
+TPS_NEW = 16
+TP_CHILD_TIMEOUT_S = 600
 # 1-bit Adam (phase 20): configs/neox_6.7b_3d.json at GPT-NeoX-6.7B width
 ONEBIT_CONFIG = ROOT / "configs" / "neox_6.7b_3d.json"
 ONEBIT_LAYERS = 2                   # of 32: the script's time
@@ -7586,7 +7665,7 @@ def moe_ep_run(impl, mesh=None):
             norms.append(engine.get_global_grad_norm())
             for k, fn in counters.items():
                 launches[k] += fn.launches
-        whole = engine._expert_whole(engine.params)
+        whole = engine._model_whole(engine.params)
         out = {"losses": losses, "grad_norms": norms, "dropped": drops,
                "step_s": step_s, "launches": launches,
                "local_experts": int(engine.params["layers"]["moe"]
@@ -7770,6 +7849,711 @@ def moe_serving_phase(card, model):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# phase 22: tensor and sequence parallelism
+# ------------------------------------------------------------------ #
+
+
+def tp_model():
+    """22a's and 22c's model: GPT-NeoX-6.7B width, TP_LAYERS layers at
+    seq TP_SEQ, remat "full", the fused cross-entropy, bf16."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+
+    return get_preset("neox-6.7b", n_layer=TP_LAYERS, max_seq=TP_SEQ,
+                      ce_chunk=0, dtype=torch.bfloat16)
+
+
+def sp_model(impl):
+    """22b's model: GPT-NeoX-1.3B width, SP_LAYERS layers at seq SP_SEQ,
+    bf16, attention ``impl``."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+
+    return get_preset("neox-1.3b", n_layer=SP_LAYERS, max_seq=SP_SEQ,
+                      ce_chunk=0, attn_impl=impl, dtype=torch.bfloat16)
+
+
+def tp_run_config():
+    """configs/neox_6.7b_3d.json's blocks with phase 20's warmup cut,
+    freeze_step 20000 -> TP_FREEZE (the later steps compressed) and one
+    micro-batch a step (train_batch_size 1024 -> 1: the file's data axis
+    is N, here 1)."""
+    config = onebit_run_config(kernels=True)
+    config.update(train_batch_size=1, train_micro_batch_size_per_gpu=1)
+    config["optimizer"]["params"]["freeze_step"] = TP_FREEZE
+    return config
+
+
+def sp_run_config():
+    """22b's: bf16 with an fp32 master, Adam 1e-4 (betas 0.9/0.95), clip
+    1.0, ZeRO 1, one micro-batch of SP_SEQ tokens, kernels auto."""
+    return {"train_batch_size": 1, "train_micro_batch_size_per_gpu": 1,
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+            "optimizer": {"type": "Adam",
+                          "params": {"lr": 1e-4, "betas": [0.9, 0.95]}},
+            "gradient_clipping": 1.0, "kernels": {"mode": "auto"}}
+
+
+def tp_expected(cfg, adam):
+    """Launches a rank-step of the remat "full" path: flash forward twice a
+    layer (the backward replays it) and its backward once, bias+GeLU the
+    same, the final layer norm's pair once (the NeoX block's two LNs share
+    one plain pass), one fused Adam launch with Adam, none with 1-bit
+    Adam; ring attention launches no flash kernel."""
+    L = cfg.n_layer
+    flash = cfg.attn_impl != "ring"
+    want = {k: 0 for k in SOURCES}
+    want.update(flash_fwd=2 * L if flash else 0, flash_bwd=L if flash else 0,
+                bias_gelu_fwd=2 * L, bias_gelu_bwd=L, ln_fwd=1, ln_bwd=1,
+                fused_adam=1 if adam else 0)
+    return want
+
+
+def tp_batches(vocab, seq, steps, salt):
+    gen = torch.Generator().manual_seed(SEED + salt)
+    return [torch.randint(0, vocab, (1, seq + 1), generator=gen).numpy()
+            for _ in range(steps)]
+
+
+def tp_transports(mesh):
+    """The Transports of a run's tp and sp collectives, one an axis
+    (``Mesh.transport``), shared by the model (the f/g pairs, the
+    embedding's gather, the head, ring and Ulysses) and the engine (the
+    grads' sum over sp, the clip norm's sums over the cut axes, the 1-bit
+    scale's)."""
+    from deeperspeed_tpu_torch.parallel.tp import sp_transport, tp_transport
+
+    if mesh is None:
+        return []
+    return [t for t in (tp_transport(mesh), sp_transport(mesh))
+            if t is not None]
+
+
+def tp_train_steps(engine, mesh, batches, counters, after_step=None):
+    """train_batch over ``batches``: each step's loss, grad norm, seconds,
+    seconds in the tp/sp collectives and launches; the peak memory."""
+    transports = tp_transports(mesh)
+    out = {"losses": [], "grad_norms": [], "step_s": [], "comm_s": [],
+           "launches": []}
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        for fn in counters.values():
+            fn.launches = 0
+        for t in transports:
+            t.seconds = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(b))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["comm_s"].append(sum(t.seconds for t in transports))
+        out["losses"].append(loss)
+        out["grad_norms"].append(engine.get_global_grad_norm())
+        out["launches"].append({k: fn.launches
+                                for k, fn in counters.items()})
+        if after_step is not None:
+            after_step(i + 1)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def tp_engine(cfg, config, mesh, seed_salt, device="cuda"):
+    """initialize over ``mesh`` (world 1 without) from the whole weights
+    drawn from SEED (the same on every rank); returns the engine."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.gpt import init_params, make_gpt
+
+    _, _, loss_fn, specs = make_gpt(cfg, mesh)
+    gen = torch.Generator(device=device).manual_seed(SEED + seed_salt)
+    params = init_params(gen, cfg, device=device, dtype=cfg.dtype)
+    randomize_affine(params, gen)
+    engine, _, _, _ = ds.initialize(model=loss_fn, model_parameters=params,
+                                    config=config, mesh=mesh,
+                                    param_specs=specs, device=device)
+    del params
+    return engine
+
+
+def tensor_digest(t, chunk=1 << 26):
+    """An exact fingerprint of a tensor's bits, taken on its device: its
+    16-bit words, each times an odd multiple of its index plus one,
+    summed modulo 2^64, beside their plain sum (two tensors whose bits
+    differ anywhere, or whose words trade places, disagree)."""
+    words = t.detach().contiguous().reshape(-1).view(torch.int16)
+    weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+    plain = torch.zeros((), dtype=torch.int64, device=t.device)
+    for start in range(0, words.numel(), chunk):
+        x = words[start:start + chunk].long()
+        at = torch.arange(start, start + x.numel(), dtype=torch.int64,
+                          device=t.device)
+        weighted += (x * (at * 2654435761 + 1)).sum()
+        plain += x.sum()
+    return f"{tuple(t.shape)}:{int(weighted)}:{int(plain)}"
+
+
+def state_trees(engine):
+    """The engine's state by name: the params, the master and each field
+    of the optimizer state (trees like the params)."""
+    st = engine.opt_state
+    trees = {"module": engine.params, "master": engine.master}
+    trees.update({f: getattr(st, f) for f in st._fields[1:]})
+    return trees
+
+
+def state_digests(engine):
+    """``tensor_digest`` of every leaf of ``state_trees`` as this rank
+    holds it, by "<tree>/<leaf>"."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    return {f"{name}/{n}": tensor_digest(t)
+            for name, tree in state_trees(engine).items()
+            for n, t in _flatten(tree).items()}
+
+
+def save_world1_master(engine, tmp, name):
+    """World 1's master to ``tmp/name`` for the ranks, then its flag."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    torch.save({n: t.detach().cpu() for n, t in
+                _flatten(engine.master).items()}, Path(tmp) / name)
+    (Path(tmp) / f"{name}.ready").touch()
+
+
+def replicated_digest(engine):
+    """A digest of the params no model axis cuts (their bits must agree on
+    every rank)."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    digest = hashlib.sha256()
+    for (n, p), cut in zip(_flatten(engine.params).items(), engine._cuts):
+        if cut is None:
+            digest.update(n.encode())
+            digest.update(tensor_digest(p).encode())
+    return digest.hexdigest()
+
+
+def against_world1(engine, mesh, tmp, name):
+    """Once world 1's master is in ``tmp/name``: for every leaf, the
+    squared L2 of this rank's part (the whole leaf where no model axis
+    cuts it) less world 1's, of world 1's part, and whether it is cut."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    t0 = time.perf_counter()
+    while not (Path(tmp) / f"{name}.ready").exists():
+        if time.perf_counter() - t0 > TP_CHILD_TIMEOUT_S:
+            raise AssertionError(f"{name}: world 1's master never came")
+        time.sleep(0.5)
+    ref = torch.load(Path(tmp) / name, mmap=True)
+    coords = mesh.coords()
+    leaves = {}
+    for (n, t), cut in zip(_flatten(engine.master).items(), engine._cuts):
+        want = ref[n] if cut is None else cut.part(ref[n], coords[cut.axis])
+        want = want.to(t.device, torch.float32)
+        leaves[n] = (float((t.float() - want).square().sum()),
+                     float(want.square().sum()), cut is not None)
+    del ref
+    return leaves
+
+
+def worst_leaf(ranks, key):
+    """(relative L2, leaf) of the leaf farthest from world 1: a cut
+    leaf's squares summed over the ranks' parts, a whole leaf's from rank
+    0 (every rank holds its bits)."""
+    worst = (0.0, None)
+    for n, (_, _, cut) in ranks[0][key].items():
+        rows = ranks if cut else ranks[:1]
+        d2 = sum(r[key][n][0] for r in rows)
+        w2 = sum(r[key][n][1] for r in rows)
+        e = math.sqrt(d2 / max(w2, 1e-30))
+        if worst[1] is None or e > worst[0]:
+            worst = (e, n)
+    return worst
+
+
+def onebit_magnitudes(engine):
+    """(min, max) of |momentum| of each leaf as this rank holds it: after
+    a compressed step every element is +- the whole leaf's scale."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    return {n: (float(m.abs().min()), float(m.abs().max()))
+            for n, m in _flatten(engine.opt_state.exp_avg).items()}
+
+
+def worst_scale(ranks, one):
+    """Over the leaves: whether every rank's compressed momentum is +-
+    one magnitude, the same on every rank (the whole leaf's scale); and
+    the largest relative difference of that scale from world 1's, with
+    its leaf."""
+    single, worst = True, (0.0, None)
+    for n, (lo, hi) in one["magnitudes"].items():
+        got = {v for r in ranks for v in r["magnitudes"][n]}
+        single = single and len(got) == 1 and lo == hi
+        e = max(rel(v, hi) for v in got)
+        if worst[1] is None or e > worst[0]:
+            worst = (e, n)
+    return single, worst
+
+
+def tp_train_run(mesh, tmp):
+    """22a's run at ``mesh`` (world 1 without): TP_STEPS steps; the save
+    after TP_SAVE_AFTER with the digests of the state it saved (tp only).
+    After step TP_FREEZE, the last exact one, world 1 writes its master
+    for the ranks (``w1_master.pt``) and a rank reports
+    ``against_world1``; after the last, the compressed momentum's
+    magnitudes and the error feedback's L1."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    cfg = tp_model()
+    batches = tp_batches(cfg.vocab_size, TP_SEQ, TP_STEPS, 22)
+    counters = kernel_counters()
+    with kernel_config.override():
+        engine = tp_engine(cfg, tp_run_config(), mesh, 0)
+        saves = {}
+
+        def after(step):
+            if step == TP_FREEZE:
+                if mesh is None:
+                    save_world1_master(engine, tmp, "w1_master.pt")
+                else:
+                    saves["leaves"] = against_world1(engine, mesh, tmp,
+                                                     "w1_master.pt")
+            if mesh is not None and step == TP_SAVE_AFTER:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.save_checkpoint(str(TP_CKPT))
+                saves["save_s"] = time.perf_counter() - t0
+                saves["saved_digests"] = state_digests(engine)
+
+        out = tp_train_steps(engine, mesh, batches, counters, after)
+        out.update(saves)
+        out["opt_step"] = int(engine.opt_state.step)
+        out["freeze_step"] = engine.optimizer.freeze_step
+        out["magnitudes"] = onebit_magnitudes(engine)
+        # the compressed steps ran: the error feedback is live
+        out["error_l1"] = sum(float(e.abs().sum()) for e in _flatten(
+            engine.opt_state.error).values())
+        if mesh is not None:
+            out["replicated_digest"] = replicated_digest(engine)
+            out["cuts"] = list(engine._cuts)
+        out["dp"] = engine.data_parallel_size
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_train_run(mesh, tmp):
+    """22b's runs at ``mesh`` (world 1 on flash without): each impl's
+    SP_STEPS steps; every attention call records the (B, H, S, Dh) shape
+    the flash pair gets. World 1 writes its master for the ranks
+    (``w1_master_sp.pt``); a rank reports ``against_world1`` for each
+    impl."""
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    out = {}
+    counters = kernel_counters()
+    impls = SP_IMPLS if mesh is not None else ("auto",)
+    for impl in impls:
+        cfg = sp_model(impl)
+        batches = tp_batches(cfg.vocab_size, SP_SEQ, SP_STEPS, 23)
+        shapes = set()
+        real = gpt.flash_attention
+
+        def attention(q, *a, **kw):
+            B, S, H, Dh = q.shape
+            shapes.add((B, H, S, Dh))
+            return real(q, *a, **kw)
+
+        gpt.flash_attention = attention
+        try:
+            with kernel_config.override():
+                engine = tp_engine(cfg, sp_run_config(), mesh, 1)
+                out[impl] = tp_train_steps(engine, mesh, batches, counters)
+                out[impl]["dp"] = engine.data_parallel_size
+        finally:
+            gpt.flash_attention = real
+        out[impl]["flash_shapes"] = sorted(shapes)
+        if mesh is None:
+            save_world1_master(engine, tmp, "w1_master_sp.pt")
+        else:
+            out[impl]["leaves"] = against_world1(engine, mesh, tmp,
+                                                 "w1_master_sp.pt")
+            out[impl]["replicated_digest"] = replicated_digest(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serving_requests(vocab):
+    host = torch.Generator().manual_seed(SEED + 24)
+    return [{"rid": f"tp-{i}", "prompt": torch.randint(
+        0, vocab, (n,), generator=host).tolist(), "temperature": 0.0,
+             "seed": i} for i, n in enumerate(TPS_LENS)]
+
+
+def tp_serving_params(cfg, device="cuda"):
+    from deeperspeed_tpu_torch.models.gpt import init_params
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    params = init_params(gen, cfg, device=device, dtype=cfg.dtype)
+    randomize_affine(params, gen)
+    return params
+
+
+def tp_serve_run(mesh, tmp):
+    """22c at ``mesh`` (meshless without): the requests' tokens, the wall,
+    the ln_fwd launches and forwards, the seconds in the tp collectives
+    and the peak memory."""
+    from deeperspeed_tpu_torch.ops import fused_blocks as fb
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.parallel.tp import tp_transport
+    from deeperspeed_tpu_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(tp_model(), max_seq=1024)
+    reqs = tp_serving_requests(cfg.vocab_size)
+    scfg = {"num_slots": 8, "block_size": 16, "num_blocks": 512,
+            "max_seq_len": cfg.max_seq}
+    with kernel_config.override(mode="auto"):
+        params = tp_serving_params(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServingEngine(cfg, params, scfg, mesh=mesh)
+        del params
+        tp = tp_transport(mesh)
+        if tp is not None:
+            tp.seconds = 0.0
+        fb.ln_fwd.launches = 0
+        outs, wall = serve_requests(engine, reqs, TPS_NEW)
+        out = {"outs": outs, "wall_s": wall,
+               "ln_fwd": fb.ln_fwd.launches,
+               "forwards": engine.metrics.prefills
+               + engine.metrics.decode_steps,
+               "comm_s": tp.seconds if tp is not None else 0.0,
+               "kv_heads": int(engine.kv.k.shape[3]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+TP_RUNS = {"tp": (TP_DIMS, tp_train_run), "sp": (SP_DIMS, sp_train_run),
+           "serve": (TPS_DIMS, tp_serve_run)}
+
+
+def tp_rank(rank, kind, tmp):
+    """One rank of phase 22 (spawned): joins the gloo group on the one
+    card, builds the sub-phase's mesh and runs it; writes its report to
+    ``tmp``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dims, run = TP_RUNS[kind]
+    world = math.prod(dims.values())
+    store = dist.FileStore(str(Path(tmp) / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh = build_mesh(dims)
+        report = run(mesh, tmp)
+        report["coords"] = mesh.coords()
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_spawn(kind, beside):
+    """The sub-phase's ranks, with ``beside(tmp)`` run in this process
+    while they start and work: (their reports, beside's result, seconds
+    from spawn to the last rank's exit)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    dims = TP_RUNS[kind][0]
+    world = math.prod(dims.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tp_rank, args=(kind, tmp), nprocs=world,
+                                 start_method="spawn", join=False)
+        try:
+            mine = beside(tmp)
+        except BaseException:
+            for p in ctx.processes:
+                p.kill()
+            raise
+        while not ctx.join():
+            pass
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    return ranks, mine, spawn_s
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def step_readings(runs, ref):
+    """The largest relative differences of a step's loss and of its grad
+    norm of ``runs`` (one a rank) from world 1's ``ref``."""
+    loss = max(rel(a, b) for r in runs
+               for a, b in zip(r["losses"], ref["losses"]))
+    norm = max(rel(a, b) for r in runs
+               for a, b in zip(r["grad_norms"], ref["grad_norms"]))
+    return loss, norm
+
+
+def launches_per_rank_step(runs):
+    """Each kernel's launches a rank-step: the mean over the ranks and
+    their steps, as counted."""
+    n = sum(len(r["launches"]) for r in runs)
+    return {k: sum(s[k] for r in runs for s in r["launches"]) / n
+            for k in SOURCES}
+
+
+def tp_failures(label, runs, ref, expected, readings, leaf_rtol):
+    """What 22a's or 22b's gates find wrong in ``runs`` (one a rank):
+    finite losses; each step's loss, each step's grad norm and every leaf
+    of the master against world 1's ``ref`` (``readings``: the worst of
+    each); the launches of every step as the path gives them; the leaves
+    no axis cuts the same bits on every rank."""
+    loss, norm, (leaf, leaf_name) = readings
+    out = []
+    if not all(math.isfinite(x) for r in list(runs) + [ref]
+               for x in r["losses"] + r["grad_norms"]):
+        out.append(f"{label}: losses {[r['losses'] for r in runs]}, world 1 "
+                   f"{ref['losses']}")
+    if loss > TP_LOSS_RTOL:
+        out.append(f"{label}: a step's loss {loss:.3e} from world 1's "
+                   f"(limit {TP_LOSS_RTOL})")
+    if norm > TP_NORM_RTOL:
+        out.append(f"{label}: a step's grad norm {norm:.3e} from world 1's "
+                   f"(limit {TP_NORM_RTOL})")
+    if leaf > leaf_rtol:
+        out.append(f"{label}: leaf {leaf_name} {leaf:.3e} from world 1 "
+                   f"(relative L2, limit {leaf_rtol})")
+    for i, r in enumerate(runs):
+        for j, n in enumerate(r["launches"]):
+            if n != expected:
+                out.append(f"{label} rank {i}: launches at step {j + 1} "
+                           f"{n}, expected {expected}")
+    if len({r["replicated_digest"] for r in runs}) != 1:
+        out.append(f"{label}: the leaves no axis cuts differ across the "
+                   f"ranks")
+    return out
+
+
+def step_report(got):
+    steps = got["step_s"]
+    return {"rank_step_s": steps, "comm_s": got["comm_s"],
+            "comm_share": [c / s for c, s in zip(got["comm_s"], steps)],
+            "peak_gib": got["peak_gib"]}
+
+
+def tp_resume(cfg, ranks):
+    """A fresh world-1 engine (the reference's layout) loads 22a's tp
+    save. Every leaf of its state (params, master, moments, error
+    feedback), cut as the ranks cut it, is held to the digest of the bits
+    each rank saved; then it takes step TP_SAVE_AFTER + 1."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    batches = tp_batches(cfg.vocab_size, TP_SEQ, TP_STEPS, 22)
+    cuts = ranks[0]["cuts"]
+    with kernel_config.override():
+        fresh = tp_engine(cfg, tp_run_config(), None, 7)
+        t0 = time.perf_counter()
+        tag, _ = fresh.load_checkpoint(str(TP_CKPT))
+        out = {"tag": tag, "load_s": time.perf_counter() - t0,
+               "global_steps": fresh.global_steps,
+               "opt_step": int(fresh.opt_state.step)}
+        t0 = time.perf_counter()
+        mismatched, compared = set(), 0
+        for name, tree in state_trees(fresh).items():
+            for (n, t), cut in zip(_flatten(tree).items(), cuts):
+                key = f"{name}/{n}"
+                for r in (ranks if cut is not None else ranks[:1]):
+                    part = (t if cut is None
+                            else cut.part(t, r["coords"][cut.axis]))
+                    compared += 1
+                    if tensor_digest(part) != r["saved_digests"][key]:
+                        mismatched.add(key)
+        out.update(mismatched=sorted(mismatched), compared=compared,
+                   digest_s=time.perf_counter() - t0)
+        out["loss"] = float(fresh.train_batch(batches[TP_SAVE_AFTER]))
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_training_phase(card):
+    """Phase 22a (module docstring). Returns (launches of the 4 ranks'
+    run, launches a rank-step)."""
+    import shutil
+
+    shutil.rmtree(TP_CKPT, ignore_errors=True)
+    ranks, one, spawn_s = tp_spawn("tp", lambda tmp: tp_train_run(None, tmp))
+    cfg = tp_model()
+    readings = (*step_readings(ranks, one), worst_leaf(ranks, "leaves"))
+    fails = tp_failures("tp 22a", ranks, one,
+                        tp_expected(cfg, adam=False), readings,
+                        TP_PARAM_RTOL)
+    for i, r in enumerate(ranks):
+        if r["dp"] != 1:
+            fails.append(f"tp 22a rank {i}: data-parallel size {r['dp']}")
+        if not (r["opt_step"] == TP_STEPS and r["freeze_step"] == TP_FREEZE
+                and r["error_l1"] > 0):
+            fails.append(f"tp 22a rank {i}: optimizer step {r['opt_step']}, "
+                         f"freeze_step {r['freeze_step']}, error feedback "
+                         f"L1 {r['error_l1']}: no compressed step ran")
+    single, scale = worst_scale(ranks, one)
+    if not single:
+        fails.append("tp 22a: a leaf's compressed momentum is not +- one "
+                     "magnitude on every rank (the whole leaf's scale)")
+    if scale[0] > TP_SCALE_RTOL:
+        fails.append(f"tp 22a: leaf {scale[1]}'s 1-bit scale {scale[0]:.3e} "
+                     f"from world 1's (limit {TP_SCALE_RTOL})")
+    resume = tp_resume(cfg, ranks)
+    shutil.rmtree(TP_CKPT, ignore_errors=True)
+    resumed_rel = rel(resume["loss"], ranks[0]["losses"][TP_SAVE_AFTER])
+    if not (resume["tag"] is not None
+            and resume["global_steps"] == resume["opt_step"] == TP_SAVE_AFTER
+            and not resume["mismatched"]):
+        fails.append(f"tp 22a: the world-1 load of the tp save: tag "
+                     f"{resume['tag']} at step {resume['global_steps']} "
+                     f"(optimizer {resume['opt_step']}); leaves not the "
+                     f"bits the ranks saved: {resume['mismatched']}")
+    if resumed_rel > TP_LOSS_RTOL:
+        fails.append(f"tp 22a: the world-1 resume's step {TP_SAVE_AFTER + 1} "
+                     f"loss {resume['loss']}, the tp run's "
+                     f"{ranks[0]['losses'][TP_SAVE_AFTER]} ({resumed_rel:.3e},"
+                     f" limit {TP_LOSS_RTOL})")
+    per_step = launches_per_rank_step(ranks)
+    report = {"card": card, "mesh": TP_DIMS, "layers": cfg.n_layer,
+              "seq": TP_SEQ, "steps": TP_STEPS, "freeze_step": TP_FREEZE,
+              "spawn_s": spawn_s,
+              "losses": ranks[0]["losses"], "world1_losses": one["losses"],
+              "grad_norms": ranks[0]["grad_norms"],
+              "world1_grad_norms": one["grad_norms"],
+              "loss_rel_max": readings[0], "grad_norm_rel_max": readings[1],
+              "leaf_rel_l2_max": readings[2][0],
+              "leaf_rel_l2_max_leaf": readings[2][1],
+              "leaves_at_step": TP_FREEZE,
+              "onebit_one_magnitude": single,
+              "onebit_scale_rel_max": scale[0],
+              "onebit_scale_rel_max_leaf": scale[1],
+              "error_feedback_l1": [r["error_l1"] for r in ranks],
+              "replicated_leaves_same_bits": len(
+                  {r["replicated_digest"] for r in ranks}) == 1,
+              "resume": {k: resume[k] for k in (
+                  "loss", "load_s", "digest_s", "compared", "mismatched")},
+              "resumed_loss_rel": resumed_rel,
+              "save_s": ranks[0]["save_s"],
+              "launches_per_rank_step": per_step,
+              "ranks": [step_report(r) for r in ranks],
+              "world1": step_report(one)}
+    print("tp 22a: " + json.dumps(report), flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return ({k: sum(n[k] for r in ranks for n in r["launches"])
+             for k in SOURCES}, per_step)
+
+
+def sp_training_phase(card):
+    """Phase 22b (module docstring). Returns (launches of both ranks'
+    runs, launches a rank-step of each impl)."""
+    ranks, one, spawn_s = tp_spawn("sp", lambda tmp: sp_train_run(None,
+                                                                    tmp))
+    report = {"card": card, "mesh": SP_DIMS, "layers": SP_LAYERS,
+              "seq": SP_SEQ, "steps": SP_STEPS, "spawn_s": spawn_s,
+              "world1": dict(step_report(one["auto"]),
+                             losses=one["auto"]["losses"],
+                             grad_norms=one["auto"]["grad_norms"])}
+    per_step, fails = {}, []
+    want_shape = (1, sp_model("auto").n_head // SP_DIMS["seq"], SP_SEQ,
+                  sp_model("auto").head_dim)
+    for impl in SP_IMPLS:
+        runs = [r[impl] for r in ranks]
+        readings = (*step_readings(runs, one["auto"]),
+                    worst_leaf(runs, "leaves"))
+        fails += tp_failures(f"sp 22b {impl}", runs, one["auto"],
+                             tp_expected(sp_model(impl), adam=True),
+                             readings, SP_PARAM_RTOL)
+        if impl == "ulysses":
+            for i, r in enumerate(runs):
+                if r["flash_shapes"] != [want_shape]:
+                    fails.append(
+                        f"sp 22b ulysses rank {i}: flash at "
+                        f"{r['flash_shapes']}, expected {want_shape}")
+        per_step[impl] = launches_per_rank_step(runs)
+        report[impl] = {"losses": runs[0]["losses"],
+                        "grad_norms": runs[0]["grad_norms"],
+                        "loss_rel_max": readings[0],
+                        "grad_norm_rel_max": readings[1],
+                        "leaf_rel_l2_max": readings[2][0],
+                        "leaf_rel_l2_max_leaf": readings[2][1],
+                        "flash_shapes": runs[0]["flash_shapes"],
+                        "launches_per_rank_step": per_step[impl],
+                        "ranks": [step_report(r) for r in runs]}
+    print("sp 22b: " + json.dumps(report), flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return ({k: sum(n[k] for r in ranks for impl in SP_IMPLS
+                    for n in r[impl]["launches"]) for k in SOURCES},
+            per_step)
+
+
+def tp_serving_phase(card):
+    """Phase 22c (module docstring). Returns the ranks' launches."""
+    ranks, one, spawn_s = tp_spawn("serve", lambda tmp: tp_serve_run(None,
+                                                                      tmp))
+    cfg = dataclasses.replace(tp_model(), max_seq=1024)
+    reqs = tp_serving_requests(cfg.vocab_size)
+    for i, r in enumerate(ranks):
+        if r["outs"] != ranks[0]["outs"]:
+            raise AssertionError(f"tp 22c: rank {i}'s tokens differ from "
+                                 f"rank 0's")
+        if r["ln_fwd"] != r["forwards"] or r["forwards"] <= 0:
+            raise AssertionError(f"tp 22c rank {i}: {r['ln_fwd']} ln_fwd "
+                                 f"launches for {r['forwards']} forwards")
+        if r["kv_heads"] != cfg.kv_heads // TPS_DIMS["model"]:
+            raise AssertionError(f"tp 22c rank {i}: {r['kv_heads']} K/V "
+                                 f"heads in its pools")
+        if any(len(t) != TPS_NEW for t in r["outs"].values()):
+            raise AssertionError(f"tp 22c rank {i}: short outputs")
+    with torch.no_grad():
+        params = tp_serving_params(cfg)
+        diffs = held_to(cfg, params, reqs, one["outs"], ranks[0]["outs"], 1,
+                        "tp 22c tp ranks against the meshless engine")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("tp 22c: " + json.dumps({
+        "card": card, "mesh": TPS_DIMS, "requests": len(reqs),
+        "new_tokens": TPS_NEW, "prompt_lens": list(TPS_LENS),
+        "spawn_s": spawn_s, "wall_s": [r["wall_s"] for r in ranks],
+        "meshless_wall_s": one["wall_s"],
+        "comm_s": [r["comm_s"] for r in ranks],
+        "comm_share": [r["comm_s"] / r["wall_s"] for r in ranks],
+        "forwards": ranks[0]["forwards"],
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "meshless_peak_gib": one["peak_gib"],
+        "differing_requests": len(diffs)}), flush=True)
+    return {"ln_fwd": sum(r["ln_fwd"] for r in ranks)}
+
+
 class Beside(threading.Thread):
     """``fn(*args)`` on a thread of its own, started at once; ``join``
     returns its result or raises its exception."""
@@ -7864,7 +8648,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for shapes in ((INFINITY_LN, INFINITY_BG, "infinity"),
-                   (ONEBIT_LN, ONEBIT_BG, "onebit")):
+                   (ONEBIT_LN, ONEBIT_BG, "onebit"), (TP_LN, TP_BG, "tp")):
         for name, rows in ffn_kernel_cases(fb, gen, *shapes).items():
             cases[name].extend(rows)
     for name, rows in spec_kernel_cases(fb, gen).items():
@@ -7935,6 +8719,9 @@ def main() -> int:
     moe_serving = timed("21c moe serving", moe_serving_phase, card,
                         moe_model_)
     del moe_model_
+    tp, tp_per_step = timed("22a tp", tp_training_phase, card)
+    sp, sp_per_step = timed("22b sp", sp_training_phase, card)
+    tp_serving = timed("22c tp serving", tp_serving_phase, card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -7953,7 +8740,9 @@ def main() -> int:
              "resilience_training": res, "multihost_training": mh,
              "lifecycle_training": lc, "lifecycle_serving": lc_serving,
              "onebit_training": onebit, "moe_training": moe,
-             "moe_ep_training": moe_ep, "moe_serving": moe_serving}
+             "moe_ep_training": moe_ep, "moe_serving": moe_serving,
+             "tp_training": tp, "sp_training": sp,
+             "tp_serving": tp_serving}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -7999,7 +8788,12 @@ def main() -> int:
                                   "onebit_training": onebit_per_step[name],
                                   "moe_training": moe_per_step[name],
                                   "moe_ep_training_per_rank":
-                                      moe_ep_per_step[name]},
+                                      moe_ep_per_step[name],
+                                  "tp_training_per_rank": tp_per_step[name],
+                                  "sp_ring_training_per_rank":
+                                      sp_per_step["ring"][name],
+                                  "sp_ulysses_training_per_rank":
+                                      sp_per_step["ulysses"][name]},
         }
         for path in ("infinity", "onebit"):
             # the kernel at the streamed GPT-NeoX-20B step's shape, and at
@@ -8009,14 +8803,21 @@ def main() -> int:
                 entry[f"{path}_path"] = {k: row[k] for k in (
                     "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")}
-        sp = next((r for r in rows if r.get("path") == "spec"), None)
-        if sp is not None:
+        sp_row = next((r for r in rows if r.get("path") == "spec"), None)
+        if sp_row is not None:
             # the kernel at GPT-NeoX-125M's verify step's rows
-            entry["spec_path"] = {k: sp[k] for k in (
+            entry["spec_path"] = {k: sp_row[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}
             entry["spec_path"]["launches_per_request"] = \
                 spec[name] / len(SPEC_LENS)
+        tp_rows = [r for r in rows if r.get("path") == "tp"]
+        if tp_rows:
+            # the kernel at phase 22's shapes: a tp rank's FFN columns and
+            # heads, a Ulysses rank's heads over the whole sequence
+            entry["tp_path"] = [{k: r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for r in tp_rows]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "fused_adam":

@@ -23,7 +23,11 @@ training over ``torch.distributed`` ranks: the ``"mesh"`` block
 gradient reducer with its int8 wire-format kernels (``runtime/comm/``,
 ``csrc/fused_quant.cu``), and ZeRO-Infinity: the streamed offload engine
 (``runtime/offload/``; ``initialize`` builds it for a ``GPTConfig``) with
-its host Adam and NVMe I/O in C++ (``csrc/host/``).
+its host Adam and NVMe I/O in C++ (``csrc/host/``), and tensor and
+sequence parallelism: Megatron's column/row splits over the mesh's
+``model``/``tp`` axis (``parallel/tp.py``; ``models/gpt.py`` trains and
+``ServingEngine`` serves on it) and ring and Ulysses attention over its
+``seq``/``sp`` axis (``ops/ring_attention.py``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper takes its plain PyTorch version. This package
@@ -39,6 +43,10 @@ from .ops.adam import DeepSpeedCPUAdam  # noqa: E402
 from .runtime.engine import Engine, initialize  # noqa: E402
 from .runtime.offload.streaming import (StreamConfig,  # noqa: E402
                                         StreamedOffloadEngine)
+from .parallel.topology import (PipeDataParallelTopology,  # noqa: E402
+                                PipeModelDataParallelTopology,
+                                PipelineParallelGrid, ProcessTopology,
+                                build_mesh)
 from .serving import ServingConfig, ServingEngine  # noqa: E402
 
 
@@ -63,6 +71,8 @@ def add_config_arguments(parser):
 
 
 __all__ = ["ConfigError", "DeepSpeedCPUAdam", "DeepSpeedConfig", "Engine",
-           "ServingConfig", "ServingEngine", "StreamConfig",
-           "StreamedOffloadEngine", "TrainingConfig", "__version__",
-           "add_config_arguments", "initialize", "lr_schedules"]
+           "PipeDataParallelTopology", "PipeModelDataParallelTopology",
+           "PipelineParallelGrid", "ProcessTopology", "ServingConfig",
+           "ServingEngine", "StreamConfig", "StreamedOffloadEngine",
+           "TrainingConfig", "__version__", "add_config_arguments",
+           "build_mesh", "initialize", "lr_schedules"]

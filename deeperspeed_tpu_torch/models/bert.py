@@ -18,8 +18,8 @@ recomputed in the backward, and with ``mlm_gather_frac`` runs the
 vocabulary-wide head only on scored positions.
 
 Not ported: importing a Hugging Face checkpoint (``params_from_hf``) and
-tensor parallelism (``param_specs`` gives the reference's axis names, and
-no mesh uses them yet; ROADMAP.md).
+BERT's tensor parallelism (``param_specs`` gives the reference's axis
+names, and no mesh uses them yet; the GPT model's is ported; ROADMAP.md).
 """
 
 import dataclasses
@@ -173,7 +173,7 @@ def init_params(seed, cfg: BertConfig, device=None):
 def param_specs(cfg: BertConfig):
     """The reference's tensor-parallel layout over the 'model' axis, one
     tuple of axis names (None = replicated) per leaf. No mesh consumes it
-    yet: tensor parallelism is not ported (ROADMAP.md)."""
+    yet: BERT's tensor parallelism is not ported (ROADMAP.md)."""
     M = MODEL_AXIS
     return {
         "embed": {"word": (None, M), "pos": (), "type": (), "ln_w": (),

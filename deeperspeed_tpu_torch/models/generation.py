@@ -21,12 +21,14 @@ from typing import Optional
 
 import torch
 
-from .gpt import GPTConfig, decoder_block, head_weight, layer_norm, layer_slices
+from .gpt import (GPTConfig, decoder_block, embed, layer_norm, layer_slices,
+                  logits_of)
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int, device):
     """Stacked per-layer KV cache: (L, B, max_len, Hkv, Dh) — GQA/MQA
-    models cache only their n_kv_head heads."""
+    models cache only their n_kv_head heads (a tensor-parallel rank's
+    ``cfg`` names its own heads: ServingEngine's ``_local_kv_cfg``)."""
     shape = (cfg.n_layer, batch, max_len, cfg.kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -52,7 +54,7 @@ def grouped_attention(q, k_c, v_c, valid):
 
 
 def _cached_block(cfg: GPTConfig, x, layer_params, k_cache, v_cache,
-                  offset, positions):
+                  offset, positions, tp=None):
     """One decoder layer over S new tokens with a KV cache.
 
     x: (B, S, D); k/v_cache: (B, max_len, Hkv, Dh), written in place;
@@ -60,7 +62,8 @@ def _cached_block(cfg: GPTConfig, x, layer_params, k_cache, v_cache,
     per-row offsets. Returns x_out. The layer math is gpt.decoder_block;
     only the attention core differs (cache update + absolute-position
     masking). A Mixture-of-Experts layer (a ``moe`` subtree) takes
-    decoder_block's moe_ffn, the reference's mlp_fn."""
+    decoder_block's moe_ffn, the reference's mlp_fn. ``tp``: as
+    ``decoder_block`` takes it (the cache holds this rank's heads)."""
     cdt = cfg.dtype
     B_, S = x.shape[0], x.shape[1]
     vec = isinstance(offset, torch.Tensor)
@@ -82,16 +85,18 @@ def _cached_block(cfg: GPTConfig, x, layer_params, k_cache, v_cache,
         valid = key_pos[None, None, :] <= q_pos[:, :, None]  # (B|1, S, T)
         return grouped_attention(q, k_cache, v_cache, valid), None
 
-    x, _ = decoder_block(cfg, x, layer_params, positions, attend)
+    x, _ = decoder_block(cfg, x, layer_params, positions, attend, tp=tp)
     return x
 
 
 @torch.no_grad()
-def apply_with_cache(cfg: GPTConfig, params, tokens, cache, offset):
+def apply_with_cache(cfg: GPTConfig, params, tokens, cache, offset,
+                     tp=None):
     """Process S tokens given ``offset`` already-cached ones. Returns
     (logits (B, S, V), cache), the cache updated in place. ``offset`` is
-    an int, or a (B,) int tensor of PER-ROW offsets."""
-    cdt = cfg.dtype
+    an int, or a (B,) int tensor of PER-ROW offsets. With ``tp`` (a
+    tensor-parallel Transport) ``params`` and the cache are this rank's
+    part and every rank gets the whole logits."""
     B, S = tokens.shape
     if isinstance(offset, torch.Tensor) and offset.dim() == 0:
         offset = int(offset)
@@ -102,21 +107,18 @@ def apply_with_cache(cfg: GPTConfig, params, tokens, cache, offset):
             f"({cfg.max_seq}): the learned-position table cannot extrapolate"
         )
     tokens = tokens.long()
-    x = params["embed"]["wte"][tokens].to(cdt)
     steps = torch.arange(S, device=tokens.device)
     if isinstance(offset, torch.Tensor):
         positions = offset[:, None] + steps[None]
     else:
         positions = offset + steps
-    if not cfg.rotary:
-        x = x + params["embed"]["wpe"][positions].to(cdt).reshape(
-            (-1, S, cfg.d_model))
+    x = embed(cfg, params, tokens, positions, tp, rows_first=True)
     for i, layer_params in enumerate(layer_slices(params, cfg.n_layer)):
         x = _cached_block(cfg, x, layer_params, cache["k"][i],
-                          cache["v"][i], offset, positions)
+                          cache["v"][i], offset, positions, tp)
     x = layer_norm(x, params["final_ln"]["scale"], params["final_ln"]["bias"],
                    cfg.layernorm_eps)
-    return x @ head_weight(cfg, params), cache
+    return logits_of(cfg, params, x, tp), cache
 
 
 def prep_sampling_logits(logits, temperature, top_k):

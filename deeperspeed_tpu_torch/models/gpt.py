@@ -17,7 +17,23 @@ plain dense computation, as ``attn_impl`` says (``causal_attention``).
 With ``moe_num_experts`` each layer's FFN is a Mixture-of-Experts
 (models/moe.py, the ``layers/moe`` subtree in place of ``mlp``), its
 experts split over a mesh's ``expert`` axis (``make_gpt(cfg, mesh)``).
-Not ported yet: tensor/sequence parallelism (ROADMAP.md queue 1).
+
+Tensor and sequence parallelism (``make_gpt(cfg, mesh)`` on a mesh with a
+live ``model``/``tp`` or ``seq``/``sp`` axis): each rank holds its part of
+the leaves ``param_specs`` splits over the tensor-parallel axis
+(``shard_params``; the fused qkv projection by heads of q, k and v, a
+``rules.SectionSpec``), and the forward places Megatron's f and g
+(parallel/tp.py) where GSPMD places the reference's collectives: f on the
+input of each column-parallel matmul (qkv, FFN in, the untied head), one
+g on the row-parallel outputs of a layer (attention out plus FFN out
+under the parallel residual, one each under the serial one), the
+embedding's columns all-gathered, and the untied head's cross-entropy
+vocab-parallel (each rank's logsumexp gathered, the target logit summed;
+``_VocabParallelNLL``). Under sequence parallelism each rank takes its
+``S/sp`` tokens of every row (rotary positions offset to match), attends
+with ring or Ulysses attention (ops/ring_attention.py, ``attn_impl``
+"ring"/"ulysses"), and the loss is the mean over the global tokens (its
+per-rank shares summed over the axis by a g).
 """
 
 import dataclasses
@@ -34,7 +50,11 @@ from ..ops import fused_blocks
 from ..ops.flash_attention import FLASH_FWD_OP, flash_attention
 from ..ops.flash_static import SUPERTILE_FWD_OP
 from ..ops.kernel_config import _is_hopper
-from ..sharding.mesh import active_mesh
+from ..parallel.tp import (copy_to_tp_region, gather_from_tp_region,
+                           reduce_from_tp_region, scatter_to_tp_region,
+                           shard_tree, sp_transport, tp_transport)
+from ..sharding import rules
+from ..sharding.mesh import MODEL_AXIS, active_mesh
 from ..utils import hooks
 from ..utils.init import normal_drawer
 
@@ -66,7 +86,9 @@ class GPTConfig:
     # 'auto' (flash kernel on a Hopper CUDA tensor, raising on a head dim or
     # dtype it does not take; else dense) | 'pallas'
     # (always the flash path) | 'pallas_interpret' (the flash path's plain
-    # version, CPU tensors) | 'xla' (dense); see causal_attention
+    # version, CPU tensors) | 'xla' (dense); see causal_attention |
+    # 'ring' | 'ulysses' (the context-parallel paths over the mesh's
+    # sequence axis; make_gpt wires them)
     attn_impl: str = "auto"
     # streaming cross-entropy chunk (pick_ce_chunk); 0 = one fused pass
     ce_chunk: int = 128
@@ -139,7 +161,8 @@ class GPTConfig:
         return (self.n_head + 2 * self.kv_heads) * self.head_dim
 
 
-_ATTN_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
+_ATTN_IMPLS = ("auto", "pallas", "pallas_interpret", "xla", "ring",
+               "ulysses")
 
 
 # ------------------------------------------------------------------ #
@@ -200,23 +223,85 @@ def param_shapes(cfg: GPTConfig) -> Dict:
 
 def param_specs(cfg: GPTConfig):
     """The params tree with each leaf's placement spec (one entry a dim:
-    None or a mesh axis): the expert leaves of an MoE model sharded on the
-    ``expert`` axis (the reference's ``moe_param_specs`` with the layer
-    axis prepended), every other leaf replicated (None: the port has no
-    tensor parallelism). None for a dense model."""
-    if not cfg.moe_num_experts:
-        return None
-    from .moe import moe_param_specs
+    None or a mesh axis), the reference's: Megatron's column/row split
+    over the ``model`` axis (qkv and FFN-in column-parallel, attention-out
+    and FFN-out row-parallel, ``wte`` split over d_model, the untied head
+    over the vocabulary), the expert leaves of an MoE model on the
+    ``expert`` axis. The fused qkv leaves are ``rules.SectionSpec``s: a
+    rank's part is its heads of q, of k and of v."""
+    M = MODEL_AXIS
+    Dh = cfg.head_dim
+    qkv = (cfg.n_head * Dh, cfg.kv_heads * Dh, cfg.kv_heads * Dh)
+    specs = {
+        "embed": {"wte": (None, M)},
+        "layers": {
+            "ln1_scale": (None, None),
+            "ln1_bias": (None, None),
+            "ln2_scale": (None, None),
+            "ln2_bias": (None, None),
+            "attn": {
+                "wqkv": rules.SectionSpec((None, None, M), qkv),
+                "bqkv": rules.SectionSpec((None, M), qkv),
+                "wo": (None, M, None),
+                "bo": (None, None),
+            },
+            "mlp": {
+                "wi": (None, None, M),
+                "bi": (None, M),
+                "wo": (None, M, None),
+                "bo": (None, None),
+            },
+        },
+        "final_ln": {"scale": (None,), "bias": (None,)},
+    }
+    if cfg.moe_num_experts:
+        from .moe import moe_param_specs
 
-    def walk(shapes, specs):
-        return {k: walk(v, (specs or {}).get(k)) if isinstance(v, dict)
-                else (None if specs is None else (None,) + specs[k])
-                for k, v in shapes.items()}
+        # the stacked layer axis prepended to every expert/router spec
+        specs["layers"]["moe"] = {
+            group: {k: (None,) + spec for k, spec in leaves.items()}
+            for group, leaves in moe_param_specs().items()}
+        del specs["layers"]["mlp"]
+    if not cfg.rotary:
+        specs["embed"]["wpe"] = (None, None)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, M)
+    return specs
 
-    shapes = param_shapes(cfg)
-    out = walk(shapes, None)
-    out["layers"]["moe"] = walk(shapes["layers"]["moe"], moe_param_specs())
-    return out
+
+def shard_params(cfg: GPTConfig, params: Dict, mesh) -> Dict:
+    """This rank's part of WHOLE params (the reference's layout) on
+    ``mesh``: each leaf that ``param_specs`` splits over a live model axis
+    cut by ``rules.model_cut``, the rule the engine's checkpoint load
+    uses; every other leaf as it is."""
+    check_tp_shapes(cfg, mesh)
+    return shard_tree(params, param_specs(cfg), mesh)
+
+
+def check_tp_shapes(cfg: GPTConfig, mesh) -> int:
+    """The mesh's tensor-parallel size, after refusing a model whose
+    shapes it does not divide (the reference's GSPMD shapes would fail
+    there too), naming the reason."""
+    tp = rules.tp_size(mesh)
+    if tp <= 1:
+        return 1
+    why = None
+    if cfg.n_head % tp:
+        why = f"n_head ({cfg.n_head}) is not a multiple of it"
+    elif cfg.kv_heads % tp:
+        why = (f"the K/V heads ({cfg.kv_heads}) are fewer than, or not a "
+               f"multiple of, its ranks: each rank needs whole K/V heads")
+    elif cfg.ffn_dim % tp:
+        why = f"d_ff ({cfg.ffn_dim}) is not a multiple of it"
+    elif not cfg.tie_embeddings and cfg.vocab_size % tp:
+        why = (f"the untied head's vocabulary ({cfg.vocab_size}) is not a "
+               f"multiple of it")
+    elif cfg.moe_num_experts:
+        why = ("a Mixture-of-Experts model does not take tensor "
+               "parallelism in the port (ROADMAP.md section 1, item 11)")
+    if why is not None:
+        raise ValueError(f"tensor parallelism over {tp} ranks: {why}")
+    return tp
 
 
 def init_params(seed, cfg: GPTConfig, device=None,
@@ -351,6 +436,11 @@ def causal_attention(q, k, v, impl="auto"):
     if impl not in _ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r}; the PyTorch package "
                          f"takes {_ATTN_IMPLS}")
+    if impl in ("ring", "ulysses"):
+        raise ValueError(
+            f"attn_impl {impl!r} is context-parallel and needs a mesh; use "
+            "ops.ring_attention.make_context_parallel_attention (make_gpt "
+            "wires it when given a mesh)")
     if impl == "pallas_interpret" and q.device.type != "cpu":
         raise ValueError("attn_impl 'pallas_interpret' is the CPU test path; "
                          "use 'pallas' or 'auto' on a CUDA tensor")
@@ -378,7 +468,7 @@ def expand_kv_heads(q, k, v):
 
 
 def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
-                  mlp_fn=None):
+                  mlp_fn=None, tp=None):
     """One decoder layer shared by the full forward (``apply``), KV-cache
     decoding (models/generation.py) and serving (serving/engine.py):
     qkv projection, rotary, residual/MLP wiring.
@@ -388,10 +478,18 @@ def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
     aux is (attend_aux, aux2). A layer with a ``moe`` subtree and no
     ``mlp_fn`` takes ``moe_ffn`` (models/moe.py) on the active mesh: the
     decode paths' MoE FFN, as the reference's generation and serving steps
-    pass it. Returns (x_out, aux)."""
+    pass it. ``tp`` (the tensor-parallel axis's Transport; None: one
+    rank) means ``layer_params`` hold this rank's part, the reference's
+    GSPMD placement of ``param_specs`` written out: its ``n_head / tp``
+    heads and ``d_ff / tp`` FFN columns, f on the inputs of the
+    column-parallel matmuls (qkv, FFN in), g on the row-parallel outputs
+    (attention out, FFN out: under the parallel residual one g on their
+    sum, g being linear), each bias added once, after g. Returns
+    (x_out, aux)."""
     cdt = cfg.dtype
     B, S, D = x.shape
-    H, Dh = cfg.n_head, cfg.head_dim
+    n = tp.size if tp is not None else 1
+    H, Hkv, Dh = cfg.n_head // n, cfg.kv_heads // n, cfg.head_dim
     mlp_in_shared = None
     if cfg.parallel_residual:
         # ln1(x) and ln2(x) normalize the SAME x — share the mean/var pass
@@ -406,8 +504,8 @@ def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
             cfg.layernorm_eps,
         )
     attn_p = layer_params["attn"]
-    qkv = attn_in @ attn_p["wqkv"].to(cdt) + attn_p["bqkv"].to(cdt)
-    Hkv = cfg.kv_heads
+    qkv = (copy_to_tp_region(attn_in, tp) @ attn_p["wqkv"].to(cdt)
+           + attn_p["bqkv"].to(cdt))
     q = qkv[..., : H * Dh].reshape(B, S, H, Dh)
     k = qkv[..., H * Dh: (H + Hkv) * Dh].reshape(B, S, Hkv, Dh)
     v = qkv[..., (H + Hkv) * Dh:].reshape(B, S, Hkv, Dh)
@@ -416,13 +514,12 @@ def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
         q = rotary_embedding(q, positions, rd)
         k = rotary_embedding(k, positions, rd)
     ctx, aux = attend(q, k, v)
-    attn = ctx.reshape(B, S, D)
-    attn_out = attn @ attn_p["wo"].to(cdt) + attn_p["bo"].to(cdt)
+    attn_part = ctx.reshape(B, S, H * Dh) @ attn_p["wo"].to(cdt)
 
     if cfg.parallel_residual:
         mlp_in = mlp_in_shared
     else:
-        x = x + attn_out
+        x = x + (reduce_from_tp_region(attn_part, tp) + attn_p["bo"].to(cdt))
         mlp_in = layer_norm(
             x, layer_params["ln2_scale"], layer_params["ln2_bias"],
             cfg.layernorm_eps,
@@ -434,17 +531,51 @@ def decoder_block(cfg: GPTConfig, x, layer_params, positions, attend,
     if mlp_fn is not None:
         mlp_out, aux2 = mlp_fn(mlp_in)
         aux = (aux, aux2)
-    else:
-        mlp_p = layer_params["mlp"]
-        h = mlp_in @ mlp_p["wi"].to(cdt)
-        h = fused_blocks.bias_gelu(h, mlp_p["bi"].to(cdt), approximate=True)
-        mlp_out = h @ mlp_p["wo"].to(cdt) + mlp_p["bo"].to(cdt)
-
+        if cfg.parallel_residual:
+            return x + (attn_part + attn_p["bo"].to(cdt)) + mlp_out, aux
+        return x + mlp_out, aux
+    mlp_p = layer_params["mlp"]
+    h = copy_to_tp_region(mlp_in, tp) @ mlp_p["wi"].to(cdt)
+    h = fused_blocks.bias_gelu(h, mlp_p["bi"].to(cdt), approximate=True)
+    mlp_part = h @ mlp_p["wo"].to(cdt)
+    if cfg.parallel_residual and n > 1:
+        out = reduce_from_tp_region(attn_part + mlp_part, tp)
+        return x + (out + attn_p["bo"].to(cdt) + mlp_p["bo"].to(cdt)), aux
+    mlp_out = reduce_from_tp_region(mlp_part, tp) + mlp_p["bo"].to(cdt)
     if cfg.parallel_residual:
-        x = x + attn_out + mlp_out
-    else:
-        x = x + mlp_out
-    return x, aux
+        return x + (attn_part + attn_p["bo"].to(cdt)) + mlp_out, aux
+    return x + mlp_out, aux
+
+
+def embed(cfg: GPTConfig, params, tokens, positions, tp=None,
+          rows_first: bool = False):
+    """The token (and learned-position) embeddings of ``tokens`` in the
+    compute dtype; with ``tp``, ``wte`` holds this rank's d_model columns
+    and the columns are all-gathered (split in the backward).
+    ``rows_first`` gathers the rows and then casts them (the decode paths:
+    no cast of the whole table a call)."""
+    cdt = cfg.dtype
+    wte = params["embed"]["wte"]
+    x = (wte[tokens.long()].to(cdt) if rows_first
+         else F.embedding(tokens.long(), wte.to(cdt)))
+    x = gather_from_tp_region(x, tp)
+    if not cfg.rotary:
+        x = x + params["embed"]["wpe"][positions].to(cdt).reshape(
+            (-1,) + tuple(x.shape[1:]))
+    return x
+
+
+def logits_of(cfg: GPTConfig, params, x, tp=None):
+    """The head's logits (..., V) of hidden states ``x``; with ``tp`` each
+    rank's part is combined: the untied head's vocabulary columns
+    all-gathered, the tied head's d_model partial products summed."""
+    if tp is None or tp.size <= 1:
+        return x @ head_weight(cfg, params)
+    if cfg.tie_embeddings:
+        part = scatter_to_tp_region(x, tp) @ head_weight(cfg, params)
+        return reduce_from_tp_region(part, tp)
+    return gather_from_tp_region(
+        copy_to_tp_region(x, tp) @ head_weight(cfg, params), tp)
 
 
 def head_weight(cfg: GPTConfig, params):
@@ -454,26 +585,26 @@ def head_weight(cfg: GPTConfig, params):
 
 
 @torch.no_grad()
-def apply(cfg: GPTConfig, params, tokens):
+def apply(cfg: GPTConfig, params, tokens, mesh=None):
     """tokens (B, S) int -> logits (B, S, V): the reference's
-    ``make_gpt(cfg)[1]``."""
-    cdt = cfg.dtype
+    ``make_gpt(cfg)[1]``. On a ``mesh`` with a live tensor-parallel axis
+    ``params`` are this rank's part and every rank gets the whole
+    logits."""
+    tp = tp_transport(mesh)
     S = tokens.shape[1]
     tokens = tokens.long()
-    x = params["embed"]["wte"][tokens].to(cdt)  # (B, S, D)
     positions = torch.arange(S, device=tokens.device)
-    if not cfg.rotary:
-        x = x + params["embed"]["wpe"][:S].to(cdt)
+    x = embed(cfg, params, tokens, positions, tp, rows_first=True)
 
     def attend(q, k, v):
         k, v = expand_kv_heads(q, k, v)
         return causal_attention(q, k, v, cfg.attn_impl), None
 
     for layer_params in layer_slices(params, cfg.n_layer):
-        x, _ = decoder_block(cfg, x, layer_params, positions, attend)
+        x, _ = decoder_block(cfg, x, layer_params, positions, attend, tp=tp)
     x = layer_norm(x, params["final_ln"]["scale"], params["final_ln"]["bias"],
                    cfg.layernorm_eps)
-    return x @ head_weight(cfg, params)
+    return logits_of(cfg, params, x, tp)
 
 
 # ------------------------------------------------------------------ #
@@ -553,6 +684,89 @@ def _chunk_nll(xc, tc, w):
     return (torch.logsumexp(logits, dim=-1) - tgt).sum()
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """The summed next-token NLL of hidden states ``xc`` (B, c, D) under
+    the untied head's vocabulary columns ``w`` (D, V/tp) of this rank
+    (the ones from ``v0``): each rank's logsumexp over its columns is
+    all-gathered and combined, and the target logits (on the rank whose
+    columns hold them) summed over the group, so every rank gets the
+    reference's loss without the whole logits. The backward recomputes
+    this rank's logits (as the chunked loss's checkpoint does), takes
+    softmax minus the one-hot of its columns, and gives this rank's share
+    of ``xc``'s grad (the f before the head sums the shares) and its
+    columns' grad; it needs no collective."""
+
+    @staticmethod
+    def forward(ctx, xc, w, tc, group, v0):
+        logits = (xc @ w).float()
+        lse_parts = group.all_gather(torch.logsumexp(logits, dim=-1))
+        lse = torch.logsumexp(lse_parts, dim=0)
+        local = tc - v0
+        mine = (local >= 0) & (local < w.shape[1])
+        idx = local.clamp(0, w.shape[1] - 1)
+        tgt = logits.gather(-1, idx[..., None])[..., 0] * mine
+        tgt = group.all_reduce_sum(tgt)
+        ctx.save_for_backward(xc, w, lse, idx, mine)
+        return (lse - tgt).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, w, lse, idx, mine = ctx.saved_tensors
+        p = torch.exp((xc @ w).float() - lse[..., None])
+        p.scatter_add_(-1, idx[..., None], -mine[..., None].to(p.dtype))
+        d = (p * g).to(xc.dtype)
+        dx = d @ w.transpose(0, 1)
+        dw = xc.reshape(-1, xc.shape[-1]).transpose(0, 1) @ d.reshape(
+            -1, d.shape[-1])
+        return dx, dw, None, None, None
+
+
+class _Parallel:
+    """What one mesh gives the model: the tensor-parallel group, the
+    sequence-parallel group with this rank's place on it, and the
+    attention core (context-parallel over ``sp`` when ``attn_impl`` asks
+    for it). The groups are the mesh's own (``Mesh.transport``), made on
+    first use: ``new_group`` is collective, so every rank first builds
+    this in the same order."""
+
+    def __init__(self, cfg: GPTConfig, mesh):
+        check_tp_shapes(cfg, mesh)
+        self.tp = tp_transport(mesh)
+        self.sp = sp_transport(mesh)
+        self.sp_size = self.sp.size if self.sp is not None else 1
+        self.sp_rank = self.sp.rank if self.sp is not None else 0
+        cp = None
+        if cfg.attn_impl in ("ring", "ulysses"):
+            from ..ops.ring_attention import make_context_parallel_attention
+
+            # raises without a live sequence axis: never quietly dense
+            cp = make_context_parallel_attention(mesh, cfg.attn_impl)
+        elif self.sp_size > 1:
+            raise ValueError(
+                f"the mesh {mesh.shape} splits the sequence over "
+                f"{self.sp_size} ranks: set attn_impl 'ring' or 'ulysses' "
+                f"(attention over a split sequence is context-parallel)")
+
+        def attend(q, k, v):
+            k, v = expand_kv_heads(q, k, v)
+            if cp is not None:
+                return cp(q, k, v), None
+            return causal_attention(q, k, v, cfg.attn_impl), None
+
+        self.attend = attend
+
+    def local_tokens(self, t):
+        """This rank's chunk of the sequence dim of ``t`` (B, S)."""
+        if self.sp_size == 1:
+            return t
+        S = t.shape[1]
+        if S % self.sp_size:
+            raise ValueError(f"a sequence of {S} tokens does not split over "
+                             f"{self.sp_size} sequence-parallel ranks")
+        n = S // self.sp_size
+        return t[:, self.sp_rank * n:(self.sp_rank + 1) * n]
+
+
 def make_gpt(cfg: GPTConfig, mesh=None):
     """Returns (init_fn, apply_fn, loss_fn, specs), as the reference's
     ``make_gpt``.
@@ -562,26 +776,32 @@ def make_gpt(cfg: GPTConfig, mesh=None):
     loss_fn(params, batch) -> mean next-token cross-entropy, plus the MoE
     layers' summed auxiliary loss (``moe_loss``), fp32 scalar;
     batch = tokens (B, S+1) or (inputs, targets) (B, S) each.
-    specs: ``param_specs(cfg)``, the MoE expert leaves on the ``expert``
-    axis (hand them to ``initialize(..., mesh=, param_specs=)``), or None
-    for a dense model. ``mesh`` (a legacy ``{data, expert}`` mesh,
-    parallel/topology.build_mesh) gives the MoE layers their collectives;
-    without one they take the running engine's (``active_mesh``)."""
-
-    def attend(q, k, v):
-        k, v = expand_kv_heads(q, k, v)
-        return causal_attention(q, k, v, cfg.attn_impl), None
-
+    specs: ``param_specs(cfg)`` (hand them to ``initialize(..., mesh=,
+    param_specs=)``). ``mesh`` (parallel/topology.build_mesh, or the
+    engine's) gives the layers their collectives: with a live ``model``
+    (tp) axis ``params`` are this rank's part (``shard_params``; the
+    engine cuts them itself), with a live ``seq`` (sp) axis each rank
+    computes its chunk of every row's tokens and the loss is the global
+    mean, with an ``expert`` axis each rank runs its experts. Without one
+    the layers take the running engine's (``active_mesh``). attn_impl
+    "ring"/"ulysses" needs ``mesh``."""
+    if cfg.attn_impl in ("ring", "ulysses") and mesh is None:
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} is a context-parallel strategy "
+            "and needs a mesh with a 'seq' axis; pass mesh= to make_gpt")
     moe_cfg = cfg.moe
-    if moe_cfg is not None and mesh is not None:
+    # new_group is collective: every rank builds the groups here
+    fixed = _Parallel(cfg, mesh) if mesh is not None else None
+    if mesh is not None and moe_cfg is not None:
         from .moe import groups
 
-        groups(mesh)  # new_group is collective: every rank builds them here
+        groups(mesh)
 
-    def layer(x, layer_params, positions, layer_mesh=None):
+    def layer(x, layer_params, positions, par, layer_mesh=None):
         """-> (x, this layer's scalar MoE auxiliary loss; 0 when dense)."""
         if moe_cfg is None:
-            return decoder_block(cfg, x, layer_params, positions, attend)[0]
+            return decoder_block(cfg, x, layer_params, positions,
+                                 par.attend, tp=par.tp)[0]
         from .moe import moe_ffn, moe_loss
 
         def mlp_fn(mlp_in):
@@ -589,23 +809,20 @@ def make_gpt(cfg: GPTConfig, mesh=None):
                            mesh=layer_mesh)
 
         x, (_, moe_aux) = decoder_block(cfg, x, layer_params, positions,
-                                        attend, mlp_fn=mlp_fn)
+                                        par.attend, mlp_fn=mlp_fn)
         return x, moe_loss(moe_aux, moe_cfg)
 
-    def hidden_fn(params, tokens):
-        """tokens (B, S) int -> final-layernormed hidden states (B, S, D)."""
-        cdt = cfg.dtype
+    def hidden_fn(params, tokens, layer_mesh, par):
+        """tokens (B, S_local) int -> final-layernormed hidden states."""
         tokens = tokens.long()
         S = tokens.shape[1]
-        x = F.embedding(tokens, params["embed"]["wte"].to(cdt))
-        positions = torch.arange(S, device=tokens.device)
-        if not cfg.rotary:
-            x = x + params["embed"]["wpe"][:S].to(cdt)
+        positions = (torch.arange(S, device=tokens.device)
+                     + par.sp_rank * S)
+        x = embed(cfg, params, tokens, positions, par.tp)
         # the mesh is bound here: a remat replay in the backward runs
         # outside the engine's use_mesh context
         step = _remat_step(cfg, partial(
-            layer, positions=positions,
-            layer_mesh=mesh if mesh is not None else active_mesh()))
+            layer, positions=positions, par=par, layer_mesh=layer_mesh))
         moe_aux = None
         for i, layer_params in enumerate(layer_slices(params, cfg.n_layer)):
             x = step(x, layer_params)
@@ -619,38 +836,83 @@ def make_gpt(cfg: GPTConfig, mesh=None):
                        params["final_ln"]["bias"], cfg.layernorm_eps)
         return x, moe_aux
 
+    def resolve():
+        if fixed is not None:
+            return mesh, fixed
+        m = active_mesh()
+        return m, _Parallel(cfg, m)
+
     def loss_fn(params, batch):
+        layer_mesh, par = resolve()
         if isinstance(batch, (tuple, list)):
             inputs, targets = batch
         else:
             inputs, targets = batch[:, :-1], batch[:, 1:]
-        targets = targets.long()
-        x, moe_aux = hidden_fn(params, inputs)
+        S_global = inputs.shape[1]
+        inputs = par.local_tokens(inputs)
+        targets = par.local_tokens(targets).long()
+        x, moe_aux = hidden_fn(params, inputs, layer_mesh, par)
         extra = 0.0 if moe_aux is None else moe_aux
         w = head_weight(cfg, params)
         B, S, _ = x.shape
+        vocab_parallel = (par.tp is not None and par.tp.size > 1
+                          and not cfg.tie_embeddings)
+        if vocab_parallel:
+            x = copy_to_tp_region(x, par.tp)
+            v0 = par.tp.rank * w.shape[1]
+        elif par.tp is not None and par.tp.size > 1:
+            # the tied head: this rank's d_model columns of x against its
+            # columns of wte, the partial logits summed
+            x = scatter_to_tp_region(x, par.tp)
         chunk = pick_ce_chunk(S, cfg.ce_chunk)
-        if chunk:
-            # stream the cross-entropy over sequence chunks: the (B, S, V)
-            # logits never exist at once; each chunk's logits are
-            # recomputed in the backward
-            total = x.new_zeros((), dtype=torch.float32)
-            for c0 in range(0, S, chunk):
-                total = total + checkpoint(
-                    _chunk_nll, x[:, c0:c0 + chunk],
-                    targets[:, c0:c0 + chunk], w, use_reentrant=False)
-            return total / (B * S) + extra
-        logits = (x @ w).float()
-        tgt = logits.gather(-1, targets[..., None])[..., 0]
-        return (torch.logsumexp(logits, dim=-1) - tgt).mean() + extra
+        parallel = par.tp is not None and par.tp.size > 1
+        if not chunk and not parallel and par.sp_size == 1:
+            logits = (x @ w).float()
+            tgt = logits.gather(-1, targets[..., None])[..., 0]
+            return (torch.logsumexp(logits, dim=-1) - tgt).mean() + extra
+        # stream the cross-entropy over sequence chunks: the (B, S, V)
+        # logits never exist at once; each chunk's logits are recomputed
+        # in the backward
+        total = x.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, S, chunk or S):
+            xc = x[:, c0:c0 + (chunk or S)]
+            tc = targets[:, c0:c0 + (chunk or S)]
+            if vocab_parallel:
+                nll = _VocabParallelNLL.apply(xc, w, tc, par.tp, v0)
+            elif parallel:
+                nll = checkpoint(_tied_tp_chunk_nll, xc, tc, w, par.tp,
+                                 use_reentrant=False)
+            else:
+                nll = checkpoint(_chunk_nll, xc, tc, w, use_reentrant=False)
+            total = total + nll
+        if par.sp_size > 1:
+            # this rank's share of the mean over the global tokens, summed
+            # over the sequence axis (identity backward: the engine sums
+            # the grads over the axis)
+            return reduce_from_tp_region(total / (B * S_global),
+                                         par.sp) + extra
+        return total / (B * S) + extra
 
     def init_fn(seed, device=None, dtype=None):
         return init_params(seed, cfg, device=device, dtype=dtype)
 
+    @torch.no_grad()
     def apply_fn(params, tokens):
-        return apply(cfg, params, tokens)
+        layer_mesh, par = resolve()
+        if par.sp_size == 1:
+            return apply(cfg, params, tokens, layer_mesh)
+        x, _ = hidden_fn(params, par.local_tokens(tokens), layer_mesh, par)
+        logits = logits_of(cfg, params, x, par.tp)
+        parts = par.sp.all_gather(logits.contiguous())
+        return torch.cat(parts.unbind(0), dim=1)
 
     return init_fn, apply_fn, loss_fn, param_specs(cfg)
+
+
+def _tied_tp_chunk_nll(xc, tc, w, tp):
+    logits = reduce_from_tp_region(xc @ w, tp).float()
+    tgt = logits.gather(-1, tc[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - tgt).sum()
 
 
 @torch.no_grad()

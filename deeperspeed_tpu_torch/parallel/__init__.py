@@ -1,9 +1,12 @@
-"""``parallel/``: mesh axes over ``torch.distributed`` ranks.
+"""``parallel/``: mesh axes over ``torch.distributed`` ranks and tensor
+parallelism.
 
-Counterpart of the part of deeperspeed_tpu/parallel/ that expert
-parallelism uses (topology.py: the axis names, ``build_mesh``,
-``filter_spec``). Tensor parallelism (the reference's tp.py) and the
-pipeline topology are not ported yet (ROADMAP.md queue 1)."""
+Counterpart of deeperspeed_tpu/parallel/: topology.py (the axis names,
+the process-topology coordinate math, ``build_mesh``, ``filter_spec``)
+and tp.py (Megatron's column/row layers and their f/g collectives over
+the mesh's tensor-parallel group, the mpu facade). The pipeline axis of
+``build_mesh`` waits for the pipeline engine (ROADMAP.md queue 1,
+item 11)."""
 
 from .topology import (
     DATA_AXIS,
@@ -19,9 +22,29 @@ from .topology import (
     filter_spec,
     single_device_mesh,
 )
+from .tp import (
+    ColumnParallelLinear,
+    ModelParallelUnit,
+    ParallelMLP,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+    column_parallel_spec,
+    copy_to_model_parallel_region,
+    gather_from_model_parallel_region,
+    reduce_from_model_parallel_region,
+    row_parallel_spec,
+    scatter_to_model_parallel_region,
+    vocab_parallel_spec,
+)
 
 __all__ = ["DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "PIPE_AXIS",
            "SEQ_AXIS", "PipeDataParallelTopology",
            "PipeModelDataParallelTopology", "PipelineParallelGrid",
            "ProcessTopology", "build_mesh", "filter_spec",
-           "single_device_mesh"]
+           "single_device_mesh", "ColumnParallelLinear",
+           "ModelParallelUnit", "ParallelMLP", "RowParallelLinear",
+           "VocabParallelEmbedding", "column_parallel_spec",
+           "copy_to_model_parallel_region",
+           "gather_from_model_parallel_region",
+           "reduce_from_model_parallel_region", "row_parallel_spec",
+           "scatter_to_model_parallel_region", "vocab_parallel_spec"]

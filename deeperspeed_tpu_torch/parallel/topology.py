@@ -1,20 +1,25 @@
-"""Mesh axes over ``torch.distributed`` ranks: the part MoE needs.
+"""Process and mesh topology over ``torch.distributed`` ranks.
 
-Counterpart of deeperspeed_tpu/parallel/topology.py for expert
-parallelism: the axis names, :func:`build_mesh` over the ranks of the
-world the caller initialized (the reference builds a ``jax.sharding.Mesh``
-of devices; here it is the port's :class:`~..sharding.mesh.Mesh`, ranks
+Counterpart of deeperspeed_tpu/parallel/topology.py: the axis names, the
+pure coordinate math that the pipeline engine, tensor parallelism and
+checkpoint naming use (``ProcessTopology``, ``PipeDataParallelTopology``,
+``PipeModelDataParallelTopology``, ``PipelineParallelGrid``, as the
+reference keeps them), :func:`build_mesh` over the ranks of the world the
+caller initialized (the reference builds a ``jax.sharding.Mesh`` of
+devices; here it is the port's :class:`~..sharding.mesh.Mesh`, ranks
 row-major over the axes, as the reference reshapes its devices), and
 :func:`filter_spec`. A spec is a tuple with one entry per dim: ``None``,
 an axis name or a tuple of names.
 
-``ProcessTopology``, ``PipeDataParallelTopology``,
-``PipeModelDataParallelTopology`` and ``PipelineParallelGrid`` serve the
-pipeline engine and tensor parallelism, which are not ported yet: they
-raise, naming ROADMAP.md's item.
+``build_mesh`` takes the ``data``, ``model`` (tensor parallelism,
+parallel/tp.py), ``seq`` (sequence parallelism, ops/ring_attention.py)
+and ``expert`` axes; a ``pipe`` extent above 1 raises: the pipeline
+engine is not ported yet.
 """
 
-from typing import Dict, Optional, Sequence
+from collections import namedtuple
+from itertools import product
+from typing import Dict, List, Optional, Sequence
 
 from ..sharding import mesh as mesh_lib
 
@@ -25,24 +30,185 @@ MODEL_AXIS = mesh_lib.MODEL_AXIS
 SEQ_AXIS = mesh_lib.SEQ_AXIS
 EXPERT_AXIS = mesh_lib.EXPERT_AXIS
 
-_ITEM = "ROADMAP.md queue 1, item 'MoE, TP and pipeline'"
+_PIPE_ITEM = ("ROADMAP.md queue 1, item 11: the pipeline engine, "
+              "runtime/pipe/ and pipe/")
 
 
-def _unported(name):
-    class Unported:
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} (the pipeline and tensor-parallel topology) is not "
-                f"ported to the PyTorch package yet ({_ITEM})")
+class ProcessTopology:
+    """Cartesian rank <-> coordinate mapping over named axes.
 
-    Unported.__name__ = Unported.__qualname__ = name
-    return Unported
+    Axes are ordered major to minor: the last axis has stride 1.
+    """
+
+    def __init__(self, axes: Sequence[str], dims: Sequence[int]):
+        assert len(axes) == len(dims)
+        self.axes = list(axes)
+        self.dims = list(dims)
+        self.ProcessCoord = namedtuple("ProcessCoord", self.axes)
+        self.mapping = {}
+        ranges = [range(d) for d in self.dims]
+        for global_rank, coord in enumerate(product(*ranges)):
+            key = dict(zip(self.axes, coord))
+            self.mapping[self.ProcessCoord(**key)] = global_rank
+
+    def get_rank(self, **coord_kwargs) -> int:
+        if len(coord_kwargs) != len(self.axes):
+            raise ValueError(f"get_rank() needs all axes {self.axes}")
+        return self.mapping[self.ProcessCoord(**coord_kwargs)]
+
+    def get_axis_names(self) -> List[str]:
+        return self.axes
+
+    def get_rank_repr(self, rank, omit_axes=("data", "pipe"), inner_sep="_",
+                      outer_sep="-"):
+        omit_axes = list(omit_axes)
+        axes = [a for a in self.axes if a not in omit_axes]
+        names = []
+        for ax in axes:
+            ax_rank = getattr(self.get_coord(rank=rank), ax)
+            names.append(f"{ax}{inner_sep}{ax_rank:02d}")
+        return outer_sep.join(names)
+
+    def get_dim(self, axis: str) -> int:
+        if axis not in self.axes:
+            return 0
+        return self.dims[self.axes.index(axis)]
+
+    def get_coord(self, rank: int):
+        for coord, idx in self.mapping.items():
+            if idx == rank:
+                return coord
+        raise ValueError(f"rank {rank} not found in topology")
+
+    def get_axis_comm_lists(self, axis: str) -> List[List[int]]:
+        """Groups of ranks that communicate along `axis` (all other coords
+        equal)."""
+        if axis not in self.axes:
+            return []
+        other_axes = [a for a in self.axes if a != axis]
+        lists = []
+        ranges = [range(self.get_dim(a)) for a in other_axes]
+        for other in product(*ranges):
+            other_keys = dict(zip(other_axes, other))
+            group = [
+                self.get_rank(**{axis: ax_idx, **other_keys})
+                for ax_idx in range(self.get_dim(axis))
+            ]
+            lists.append(group)
+        return lists
+
+    def filter_match(self, **filter_kwargs) -> List[int]:
+        def criterion(x):
+            for key, val in filter_kwargs.items():
+                if getattr(x, key) != val:
+                    return False
+            return True
+
+        return sorted(idx for coord, idx in self.mapping.items()
+                      if criterion(coord))
+
+    def get_axis_list(self, axis: str, idx: int) -> List[int]:
+        return sorted(rank for coord, rank in self.mapping.items()
+                      if getattr(coord, axis) == idx)
+
+    def world_size(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= int(d)
+        return n
+
+    def __str__(self):
+        return str(self.mapping)
 
 
-ProcessTopology = _unported("ProcessTopology")
-PipeDataParallelTopology = _unported("PipeDataParallelTopology")
-PipeModelDataParallelTopology = _unported("PipeModelDataParallelTopology")
-PipelineParallelGrid = _unported("PipelineParallelGrid")
+class PipeDataParallelTopology(ProcessTopology):
+    """Pipeline-major hybrid PP+DP (reference topology.py:238)."""
+
+    def __init__(self, num_pp, num_dp):
+        super().__init__(axes=[PIPE_AXIS, DATA_AXIS], dims=[num_pp, num_dp])
+
+
+class PipeModelDataParallelTopology(ProcessTopology):
+    """3D PP x DP x TP (reference topology.py:250)."""
+
+    def __init__(self, num_pp, num_mp, num_dp):
+        super().__init__(axes=[PIPE_AXIS, DATA_AXIS, MODEL_AXIS],
+                         dims=[num_pp, num_dp, num_mp])
+
+
+class PipelineParallelGrid:
+    """Axis-rank bookkeeping for a topology (reference topology.py:257):
+    "who am I on each axis" for the pipeline engine, checkpoint naming and
+    mpu-compatible callers. The process groups themselves come from the
+    port's :class:`~..sharding.mesh.Mesh`."""
+
+    def __init__(self, topology: ProcessTopology, global_rank: int = 0):
+        self._topo = topology
+        self.global_rank = global_rank
+        self.world_size = topology.world_size()
+        self.data_parallel_size = max(1, topology.get_dim(DATA_AXIS))
+        self.pipe_parallel_size = max(1, topology.get_dim(PIPE_AXIS))
+        self.model_parallel_size = max(1, topology.get_dim(MODEL_AXIS))
+        self.seq_parallel_size = max(1, topology.get_dim(SEQ_AXIS))
+        self.expert_parallel_size = max(1, topology.get_dim(EXPERT_AXIS))
+        coord = topology.get_coord(global_rank)
+        self.stage_id = (getattr(coord, PIPE_AXIS, 0)
+                         if PIPE_AXIS in topology.axes else 0)
+        self.data_parallel_id = (getattr(coord, DATA_AXIS, 0)
+                                 if DATA_AXIS in topology.axes else 0)
+        self.model_parallel_id = (getattr(coord, MODEL_AXIS, 0)
+                                  if MODEL_AXIS in topology.axes else 0)
+        # p2p neighbours on the pipe axis
+        self.stage_to_global = {}
+        if PIPE_AXIS in topology.axes:
+            kwargs = {a: getattr(coord, a) for a in topology.axes
+                      if a != PIPE_AXIS}
+            for s in range(self.pipe_parallel_size):
+                self.stage_to_global[s] = topology.get_rank(
+                    **{PIPE_AXIS: s, **kwargs})
+
+    def get_stage_id(self):
+        return self.stage_id
+
+    def get_data_parallel_id(self):
+        return self.data_parallel_id
+
+    def get_model_parallel_id(self):
+        return self.model_parallel_id
+
+    def get_pipe_parallel_rank(self):
+        return self.stage_id
+
+    def get_pipe_parallel_world_size(self):
+        return self.pipe_parallel_size
+
+    def get_data_parallel_rank(self):
+        return self.data_parallel_id
+
+    def get_data_parallel_world_size(self):
+        return self.data_parallel_size
+
+    def get_model_parallel_rank(self):
+        return self.model_parallel_id
+
+    def get_model_parallel_world_size(self):
+        return self.model_parallel_size
+
+    def get_global_rank(self):
+        return self.global_rank
+
+    def is_first_stage(self):
+        return self.stage_id == 0
+
+    def is_last_stage(self):
+        return self.stage_id == self.pipe_parallel_size - 1
+
+    def stage_to_global_rank(self, stage_id):
+        return self.stage_to_global[stage_id]
+
+    @property
+    def topology(self):
+        return self._topo
 
 
 def build_mesh(axis_dims: Dict[str, int], world: Optional[int] = None):
@@ -50,8 +216,8 @@ def build_mesh(axis_dims: Dict[str, int], world: Optional[int] = None):
     ``{axis: dim}`` dict over the initialized world (``world`` ranks for a
     mesh built only to plan). Axis order follows the dict; one dim of -1
     (or None) is inferred. The legacy names (``data``, ``expert``, ...)
-    are kept as given. A ``pipe``, ``model`` or ``seq`` extent above 1
-    raises: those axes are not ported."""
+    are kept as given. A ``pipe`` extent above 1 raises: the pipeline
+    engine is not ported."""
     n = mesh_lib.world_size() if world is None else int(world)
     dims = dict(axis_dims)
     unknown = [a for a, d in dims.items() if d in (-1, None)]
@@ -71,11 +237,10 @@ def build_mesh(axis_dims: Dict[str, int], world: Optional[int] = None):
     if total != n:
         raise ValueError(
             f"mesh dims {dims} require {total} devices but {n} are available")
-    for axis in (PIPE_AXIS, MODEL_AXIS, SEQ_AXIS):
-        if int(dims.get(axis, 1)) > 1:
-            raise NotImplementedError(
-                f"mesh {dims}: the {axis!r} axis is not ported to the "
-                f"PyTorch package yet ({_ITEM})")
+    if int(dims.get(PIPE_AXIS, 1)) > 1:
+        raise NotImplementedError(
+            f"mesh {dims}: the 'pipe' axis (pipeline parallelism) is not "
+            f"ported to the PyTorch package yet ({_PIPE_ITEM})")
     return mesh_lib.Mesh({a: int(d) for a, d in dims.items()},
                          rank=None if world is None else 0)
 

@@ -1,4 +1,4 @@
-"""The collectives of data parallelism over one process group.
+"""The collectives of the mesh's axes over one process group.
 
 The reference's collectives run inside ``shard_map`` over a mesh axis;
 the port calls ``torch.distributed`` on the group the mesh gives, with the
@@ -13,15 +13,38 @@ blocking, so each pinned buffer, kept per shape and dtype, can be reused
 at once.
 
 Every function takes and returns tensors on the caller's device; with no
-group (a world of one rank) each is the identity.
+group (a world of one rank) each is the identity. Besides the data
+axes' collectives, tensor parallelism (parallel/tp.py) uses the sum and
+the gather, and ring attention (ops/ring_attention.py) the point-to-point
+``ring_shift``.
 """
 
+import functools
+import time
 from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Transport"]
+
+
+def _clocked(fn):
+    """Count the collective's wall seconds in ``Transport.seconds``. A
+    host-staged collective first waits for the card's stream (its copy
+    would wait there anyway), so the seconds are the transfer's own."""
+    @functools.wraps(fn)
+    def call(self, t, *args, **kwargs):
+        if self.group is None:
+            return fn(self, t, *args, **kwargs)
+        if self._stages(t):
+            torch.cuda.current_stream(t.device).synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(self, t, *args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+    return call
 
 
 class Transport:
@@ -35,8 +58,9 @@ class Transport:
                         else None)
         self._pinned: Dict[Tuple, torch.Tensor] = {}
         # bytes staged through host memory, both ways (read by the engine's
-        # step breakdown)
+        # step breakdown), and the collectives' wall seconds
         self.staged_bytes = 0
+        self.seconds = 0.0
 
     def _stages(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type == "cuda"
@@ -70,6 +94,7 @@ class Transport:
 
     # ------------------------------------------------------------------ #
 
+    @_clocked
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise sum over the group, the same bits on every
         rank (a new tensor)."""
@@ -81,6 +106,7 @@ class Transport:
         dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
         return host.to(t.device, copy=True)
 
+    @_clocked
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """(size, n) rows in: row j goes to rank j. Out: (size, n), row j
         the row rank j sent here."""
@@ -91,6 +117,7 @@ class Transport:
         dist.all_to_all_single(out, host, group=self.group)
         return self._back(out, t.device)
 
+    @_clocked
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked: (size, *t.shape), rank order."""
         if self.group is None:
@@ -100,6 +127,23 @@ class Transport:
         dist.all_gather_into_tensor(out, host, group=self.group)
         return self._back(out, t.device).reshape((self.size,) + t.shape)
 
+    @_clocked
+    def gather(self, t: torch.Tensor, dst: int = 0):
+        """Every rank's ``t`` stacked on group rank ``dst``: (size,
+        *t.shape), rank order; None on the other ranks."""
+        if self.group is None:
+            return t[None].clone()
+        host = self._to_host(t, "g_in")
+        outs = ([torch.empty_like(host) for _ in range(self.size)]
+                if self.rank == dst else None)
+        dist.gather(host, gather_list=outs,
+                    dst=dist.get_global_rank(self.group, dst),
+                    group=self.group)
+        if outs is None:
+            return None
+        return self._back(torch.stack(outs), t.device)
+
+    @_clocked
     def reduce_scatter_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the group of the flat ``t``, chunk ``rank`` of
         ``size`` equal chunks."""
@@ -109,6 +153,25 @@ class Transport:
         out = self._out(t, (t.numel() // self.size,), "rs_out")
         dist.reduce_scatter_tensor(out, host, op=dist.ReduceOp.SUM,
                                    group=self.group)
+        return self._back(out, t.device)
+
+    @_clocked
+    def ring_shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """Send ``t`` to the rank ``step`` places on along the group and
+        receive from the rank ``step`` places back: the ring rotation of
+        ring attention (``step`` -1 turns it the other way). Both go out
+        together (``batch_isend_irecv``), so a ring of two ranks that
+        send to each other cannot deadlock."""
+        if self.group is None:
+            return t.clone()
+        host = self._to_host(t, "ring_in")
+        out = self._out(t, t.shape, "ring_out")
+        dst = dist.get_global_rank(self.group, (self.rank + step) % self.size)
+        src = dist.get_global_rank(self.group, (self.rank - step) % self.size)
+        ops = [dist.P2POp(dist.isend, host, dst, group=self.group),
+               dist.P2POp(dist.irecv, out, src, group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
         return self._back(out, t.device)
 
     def barrier(self):

@@ -32,12 +32,20 @@ __all__ = ["OnebitAdam", "OnebitAdamState", "OnebitLamb",
            "OnebitLambState"]
 
 
-def _compress_with_error_feedback(m: torch.Tensor, err: torch.Tensor):
+def _compress_with_error_feedback(m: torch.Tensor, err: torch.Tensor,
+                                  group=None):
     """In place: ``err`` <- m + err - quant and ``m`` <- quant, where quant
-    is +-mean(|m + err|) by the sign of m + err (zero as +). Returns the
-    scale."""
+    is +-mean(|m + err|) by the sign of m + err (zero as +). With
+    ``group`` (a Transport) ``m`` is this rank's part of a leaf split in
+    equal parts over the group, and the mean is the whole leaf's. Returns
+    the scale."""
     err.add_(m)                      # the corrected momentum
-    scale = _l1_scale(err)
+    if group is None:
+        scale = _l1_scale(err)
+    else:
+        l1 = torch.linalg.vector_norm(err, 1, dtype=torch.float32)
+        scale = group.all_reduce_sum(l1.reshape(1))[0] / max(
+            err.numel() * group.size, 1)
     m.copy_(err.ge(0))               # 1.0 / 0.0
     m.mul_(2.0 * scale).sub_(scale)  # +scale / -scale, exactly
     err.sub_(m)
@@ -55,7 +63,7 @@ def _zeros(p):
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
-def _moments(p, g, m, v, e, b1, b2, warm):
+def _moments(p, g, m, v, e, b1, b2, warm, group=None):
     """Advance the leaf's momentum, variance and error one step in place;
     returns the leaf's params in fp32."""
     g32 = g.float()
@@ -66,7 +74,7 @@ def _moments(p, g, m, v, e, b1, b2, warm):
         # the variance is frozen; the momentum goes through the 1-bit
         # error-compensated channel, and what is stored is the quantized
         # (server-synchronized) momentum
-        _compress_with_error_feedback(m, e)
+        _compress_with_error_feedback(m, e, group)
     return p.float()
 
 
@@ -87,6 +95,11 @@ class OnebitAdam:
         self.eps = eps
         self.weight_decay = weight_decay
         self.freeze_step = int(freeze_step)
+        # a tree like the params of Transports (None: a whole leaf): the
+        # group a leaf's parts lie over, whose whole leaf the scale is
+        # taken over (set by the engine where a rank keeps part of a leaf:
+        # cut over a model axis, a ZeRO shard, or both)
+        self.scale_groups = None
 
     def init(self, params) -> OnebitAdamState:
         return OnebitAdamState(step=0, exp_avg=tree_map(_zeros, params),
@@ -102,14 +115,16 @@ class OnebitAdam:
         step = state.step + 1
         warm = step <= self.freeze_step
 
-        def leaf(p, g, m, v, e):
-            p32 = _moments(p, g, m, v, e, b1, b2, warm)
+        def leaf(p, g, m, v, e, group=None):
+            p32 = _moments(p, g, m, v, e, b1, b2, warm, group)
             upd = _direction(m, v, self.eps, self.weight_decay, p32)
             upd.mul_(lr)
             p.copy_(torch.sub(p32, upd, out=upd))
 
-        tree_map(leaf, params, grads, state.exp_avg, state.exp_avg_sq,
-                 state.error)
+        trees = (params, grads, state.exp_avg, state.exp_avg_sq, state.error)
+        if self.scale_groups is not None:
+            trees += (self.scale_groups,)
+        tree_map(leaf, *trees)
         return params, OnebitAdamState(step, state.exp_avg, state.exp_avg_sq,
                                        state.error)
 

@@ -291,7 +291,7 @@ class TrainingConfig:
             except ValueError as e:
                 raise ConfigError(f'invalid "comm" block: {e}') from e
 
-        # ---- named mesh (dp x fsdp layout) ----
+        # ---- named mesh (dp x fsdp x tp x sp layout) ----
         self.mesh_params = pd.get(c.MESH, None)
         if self.mesh_params is not None and not isinstance(
                 self.mesh_params, dict):
@@ -305,11 +305,6 @@ class TrainingConfig:
                     dict(self.mesh_params, enabled=True))
             except ValueError as e:
                 raise ConfigError(f'invalid "mesh" block: {e}') from e
-            if self._mesh_config.tp != 1 or self._mesh_config.sp != 1:
-                raise _unported(
-                    f'mesh "tp": {self._mesh_config.tp}, "sp": '
-                    f'{self._mesh_config.sp} (tensor and sequence '
-                    f'parallelism)', "MoE, TP and pipeline")
 
         self.wall_clock_breakdown = pd.get(c.WALL_CLOCK_BREAKDOWN,
                                            c.WALL_CLOCK_BREAKDOWN_DEFAULT)

@@ -114,18 +114,24 @@ runtime/comm/onebit.py) are built as the reference builds them
 error feedback, LAMB's frozen ratios) rides in the checkpoint's
 ``opt_state`` under the reference's field names.
 
-Mixture-of-Experts: ``initialize(..., mesh=build_mesh({"data": d,
-"expert": e}), param_specs=...)`` keeps on each rank its chunk of the
-expert leaves (``E/e`` experts a layer) and every other leaf whole; the
-batch splits over ``data`` only, the grads are reduced over the data
-group (the MoE layers' own collectives make the expert leaves' grads and
-the global-batch routing right, models/moe.py), ZeRO shards over the data
-group, the clip norm sums the expert leaves' squares over the expert
-axis, and a checkpoint gathers them whole (the reference's files) and a
-load cuts them again. The loss runs with the engine's mesh active
-(``sharding.mesh.use_mesh``). With a ``"comm"`` block over several data
-ranks an MoE model is refused: the reference's comm step computes the
-loss per shard.
+Model-sharded leaves: ``initialize(..., mesh=build_mesh({"data": d,
+"model": t, "seq": s, "expert": e}), param_specs=...)`` (or a ``"mesh"``
+block's ``tp``/``sp``) keeps on each rank its part of every leaf whose
+spec names a live model axis (``rules.model_cut``: the tensor-parallel
+axis's heads and FFN columns, parallel/tp.py, or ``E/e`` experts a layer,
+models/moe.py) and every other leaf whole; one mechanism for all of them
+(``_cuts``): a checkpoint gathers them whole (the reference's files) and
+a load cuts them again, the clip norm sums their squares over their
+axis, ZeRO shards each rank's part over the data group, and the 1-bit
+Adam's scale is taken over the whole leaf. The batch splits over the
+data axes only; the ranks of the tp and sp axes hold the same rows (sp
+ranks each compute their chunk of the sequence, models/gpt.py). The
+grads are summed over the sp axis (each rank's loss is its share of the
+global mean), then reduced over the data group. The loss runs with the
+engine's mesh active (``sharding.mesh.use_mesh``). With a ``"comm"``
+block over several data ranks an MoE model is refused: the reference's
+comm step computes the loss per shard. ``initialize(mpu=)`` is kept as
+``engine.mpu``, as the reference keeps it.
 
 Backward overlap: with ``"comm": {"overlap": "on"|"auto"}``
 (runtime/comm/overlap.py) ``train_batch`` launches each bucket's
@@ -135,8 +141,8 @@ before the update; ``backward()`` does the same at the accumulation
 boundary and ``step()`` drains. Bit-identical to ``overlap: off``.
 
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
-stage 3 and offload for a loss callable, tensor and pipeline parallelism
-and the flops profiler.
+stage 3 and offload for a loss callable, pipeline parallelism and the
+flops profiler.
 """
 
 import copy
@@ -260,9 +266,12 @@ class Engine(ConfigAccessorsMixin):
         rng: Optional[int] = None,
         mesh=None,
         param_specs=None,
+        mpu=None,
     ):
         _refuse_offload(config)
         self._config = config
+        # the Megatron-style mpu facade, kept as the reference keeps it
+        self.mpu = mpu
         # a "distributed" block joins the process group before the mesh
         # reads the world size (idempotent: initialize() or a launcher may
         # have made the group already)
@@ -296,7 +305,7 @@ class Engine(ConfigAccessorsMixin):
             else torch.bfloat16 if gad in ("bf16", "bfloat16")
             else self._grad_dtype)
         self._init_mesh(config, mesh)
-        params = self._init_experts(params, param_specs)
+        params = self._init_model_cuts(params, param_specs)
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -385,17 +394,20 @@ class Engine(ConfigAccessorsMixin):
         # ZeRO: the shard of each leaf this rank keeps of the fp32 master
         # and the moments (replicated below stage 1, or where no dim
         # divides the ZeRO size)
-        self.master_specs = rules.zero_tree_specs(params, None,
+        self.master_specs = rules.zero_tree_specs(params, param_specs,
                                                   self.zero_stage, self.mesh,
                                                   "master")
         self._specs = tree_leaves(self.master_specs)
+        self._init_optimizer_cuts(params)
         if (any(sp.sharded for sp in self._specs)
-                and not isinstance(self.optimizer, FusedAdam)):
+                and not isinstance(self.optimizer,
+                                   (FusedAdam, SGD, OnebitAdam))):
             raise NotImplementedError(
                 f"ZeRO stage {self.zero_stage} over {self._zero_size} ranks "
                 f"shards the optimizer state, which the port does only for "
-                f"Adam (LAMB's trust ratio and the 1-bit optimizers' scale "
-                f"need whole-leaf norms); use stage 0 or one rank")
+                f"Adam, SGD and 1-bit Adam (elementwise updates, the 1-bit "
+                f"scale summed over the shards); LAMB's trust ratio needs "
+                f"whole-leaf norms: use stage 0 or one rank")
 
         # the engine owns its state: copies, never aliases of the caller's
         with torch.no_grad():
@@ -440,6 +452,11 @@ class Engine(ConfigAccessorsMixin):
                 raise ValueError(
                     f"elasticity.canonical_shards={canon} must divide the "
                     f"global batch rows ({rows})")
+            if self.mesh.size != self.data_parallel_size:
+                raise NotImplementedError(
+                    f"elasticity.canonical_shards on the mesh "
+                    f"{self.mesh.shape}: the canonical-slot reduction runs "
+                    f"over a data-only world")
             if canon % self.data_parallel_size != 0:
                 raise ValueError(
                     f"elasticity.canonical_shards={canon} must be a "
@@ -530,42 +547,48 @@ class Engine(ConfigAccessorsMixin):
         self._zero_index = (mesh.axis_index((zaxis,)) if zaxis is not None
                             else 0)
         self._zero = Transport(mesh.group((zaxis,)) if zaxis else None)
-        # the whole world (a save's barrier) and the expert axis
+        # the whole world (a save's barrier) and the sequence-parallel axis
+        # (the grads' sum); the model axes' groups come with the cut leaves
         self._world = Transport(mesh.group(tuple(mesh.shape)))
-        self._ep = Transport(mesh.group((mesh_lib.EXPERT_AXIS,)))
+        sp = rules.sp_axis(mesh)
+        self._sp = mesh.transport((sp,) if sp else ())
 
-    def _init_experts(self, params, param_specs):
-        """This rank's part of the params: a leaf whose spec names the
-        ``expert`` axis (``make_gpt``'s specs) keeps this rank's chunk of
-        that dim, ``E/ep`` experts of each layer; every other leaf is
-        whole. ``_expert_dims`` (one entry a leaf, ``tree_leaves`` order)
-        holds the dim, for the clip norm and the checkpoint's gathers."""
-        dims = []
+    def _init_model_cuts(self, params, param_specs):
+        """This rank's part of the params: a leaf whose spec names a live
+        model axis (``make_gpt``'s specs: the tensor-parallel axis, the
+        expert axis) keeps this rank's part of it (``rules.model_cut``);
+        every other leaf is whole. ``_cuts`` (one entry a leaf,
+        ``tree_leaves`` order: the ``ModelCut`` or None) serves the clip
+        norm, the checkpoint's gathers and cuts and the optimizers."""
+        mesh = self.mesh
+        coords = mesh.coords()
+        cuts = []
 
         def leaf(p, spec):
-            dim = (spec.index(mesh_lib.EXPERT_AXIS)
-                   if spec is not None and mesh_lib.EXPERT_AXIS in spec
-                   else None)
-            if dim is None or self._ep.size == 1:
-                dims.append(None)
+            cut = rules.model_cut(spec, tuple(p.shape), mesh)
+            cuts.append(cut)
+            if cut is None:
                 return p
-            n = p.shape[dim]
-            if n % self._ep.size:
-                raise ValueError(
-                    f"a leaf of shape {tuple(p.shape)} splits dim {dim} over "
-                    f"the expert axis ({self._ep.size} ranks): not divisible")
-            dims.append(dim)
-            m = n // self._ep.size
-            return torch.as_tensor(p).narrow(dim, self._ep.rank * m, m)
+            return cut.part(torch.as_tensor(p), coords[cut.axis])
 
         if param_specs is None:
             local = params
-            dims = [None] * len(tree_leaves(params))
+            cuts = [None] * len(tree_leaves(params))
         else:
             local = tree_map(leaf, params, param_specs)
-        self._expert_dims = dims
-        self._has_experts = any(d is not None for d in dims)
-        moe = self._has_experts or _has_moe_layers(params)
+        self._cuts = cuts
+        self._has_cuts = any(c is not None for c in cuts)
+        self._cut_groups = {c.axis: mesh.transport((c.axis,))
+                            for c in cuts if c is not None}
+        cut_axes = set(self._cut_groups)
+        for axis in rules.model_axes(mesh):
+            if axis not in cut_axes:
+                raise ValueError(
+                    f"the mesh {mesh.shape} has a live {axis!r} axis but no "
+                    f"param spec names it: pass initialize param_specs "
+                    f"(make_gpt's)")
+        moe = (mesh_lib.EXPERT_AXIS in cut_axes
+               or _has_moe_layers(params))
         if moe and self.data_parallel_size > 1:
             cc = self._config.comm_config()
             if cc is not None:
@@ -575,30 +598,74 @@ class Engine(ConfigAccessorsMixin):
                     "comm step runs the loss per shard (shard_map, per-shard "
                     "capacity), the port's MoE computes the global batch's; "
                     "drop the comm block (ROADMAP.md section 3)")
-        if self._ep.size > 1 and not self._has_experts:
-            raise ValueError(
-                f"the mesh {self.mesh.shape} has an expert axis but no param "
-                f"spec names it: pass initialize param_specs (make_gpt's)")
         return local
 
-    def _expert_whole(self, tree):
-        """A tree like the params whose expert leaves are gathered whole
-        over the expert axis (collective: every rank calls it)."""
-        if not self._has_experts:
+    def _init_optimizer_cuts(self, params):
+        """The optimizers that need a whole leaf's statistic where a rank
+        keeps part of a leaf (cut over a model axis, a ZeRO shard over the
+        data group, or both): the 1-bit Adam's scale (mean |m + e|) is
+        taken over the whole leaf, its sum over the leaf's axes; LAMB's
+        trust ratio would need whole-leaf norms and is refused on cut
+        leaves (on ZeRO shards by ``__init__``)."""
+        if self._has_cuts and isinstance(self.optimizer,
+                                         (FusedLamb, OnebitLamb)):
+            raise NotImplementedError(
+                f"{type(self.optimizer).__name__} on leaves cut over the "
+                f"mesh's model axes: its trust ratio needs whole-leaf norms "
+                f"(ROADMAP.md section 1, item 11); use Adam, 1-bit Adam or "
+                f"SGD")
+        if not isinstance(self.optimizer, OnebitAdam):
+            return
+        zaxis = rules.zero_axis(self.mesh)
+
+        def group(cut, spec):
+            axes = (((cut.axis,) if cut is not None else ())
+                    + ((zaxis,) if spec.sharded else ()))
+            if not axes:
+                return None
+            return self.mesh.transport(
+                tuple(a for a in self.mesh.axis_names if a in axes))
+
+        groups = [group(c, sp) for c, sp in zip(self._cuts, self._specs)]
+        self.optimizer.scale_groups = (
+            tree_unflatten(params, groups)
+            if any(g is not None for g in groups) else None)
+
+    def _model_whole(self, tree, keep=True, host=False):
+        """A tree like the params whose cut leaves are gathered whole over
+        their model axis (collective: every rank calls it). A rank that
+        does not ``keep`` them gets its own parts back (a save's ranks
+        other than the writer); ``host`` moves each whole leaf to the host
+        as soon as it is joined, so a save never holds every whole leaf
+        on the card."""
+        if not self._has_cuts:
             return tree
-        from ..models.moe import _gather
+
+        def whole(t, c):
+            group = self._cut_groups[c.axis]
+            if host and group.backend == "gloo":
+                # gloo gathers host tensors to the group's first rank (the
+                # writer's): no staging buffer, no copy of the whole leaf
+                # to the card and back, no whole leaf on the other ranks
+                parts = group.gather(t.detach().cpu(), 0)
+            else:
+                parts = group.all_gather(t.detach())
+            if not keep:
+                return t
+            out = c.join(parts.unbind(0))
+            del parts
+            return out.cpu() if host else out
 
         with torch.no_grad():
-            leaves = [t if d is None else _gather(t.detach(), self._ep, d)
-                      for t, d in zip(tree_leaves(tree), self._expert_dims)]
+            leaves = [t if c is None else whole(t, c)
+                      for t, c in zip(tree_leaves(tree), self._cuts)]
         return tree_unflatten(tree, leaves)
 
-    def _expert_part(self, t, dim):
-        """This rank's chunk of a whole leaf along its expert dim."""
-        if dim is None:
+    def _model_part(self, t, cut):
+        """This rank's part of a whole leaf over its model axis."""
+        if cut is None:
             return t
-        m = t.shape[dim] // self._ep.size
-        return t.narrow(dim, self._ep.rank * m, m)
+        return cut.part(t, self.mesh.coords()[cut.axis])
 
     def _init_lifecycle(self, config):
         """A "lifecycle" block arms the live re-mesh signal handler and the
@@ -870,14 +937,17 @@ class Engine(ConfigAccessorsMixin):
         inv = 1.0 / (self.scaler_state.loss_scale * gas)
         sq = [g.float().square().sum() for g in grads]
         raw_sq = torch.stack(sq).sum()
-        if self._has_experts:
-            # each expert shard counted once: the expert leaves' squares
-            # summed over the expert axis, every replicated leaf once
-            dense = [q for q, d in zip(sq, self._expert_dims) if d is None]
-            experts = torch.stack(
-                [q for q, d in zip(sq, self._expert_dims) if d is not None])
-            raw_sq = (torch.stack(dense).sum()
-                      + self._ep.all_reduce_sum(experts.sum().reshape(1))[0])
+        if self._has_cuts:
+            # each part counted once: a cut leaf's squares summed over its
+            # model axis, every whole leaf once
+            raw_sq = torch.stack([q for q, c in zip(sq, self._cuts)
+                                  if c is None] or [sq[0].new_zeros(())]
+                                 ).sum()
+            for axis, group in self._cut_groups.items():
+                part = torch.stack([q for q, c in zip(sq, self._cuts)
+                                    if c is not None and c.axis == axis])
+                raw_sq = raw_sq + group.all_reduce_sum(
+                    part.sum().reshape(1))[0]
         gnorm = torch.sqrt(raw_sq) * inv  # norm of the UNSCALED grads
         coef = inv
         if clip > 0:
@@ -896,6 +966,7 @@ class Engine(ConfigAccessorsMixin):
                 "the imperative backward()/step() path does not support "
                 "the canonical-slot elastic mode (residuals are per-slot, "
                 "not per-device); use the fused train_batch() API")
+        grads = self._sum_over_sp(grads)
         if self.data_parallel_size == 1:
             return grads
         grads = [g.to(self._grad_dtype) for g in grads]
@@ -903,8 +974,30 @@ class Engine(ConfigAccessorsMixin):
             tree_unflatten(self.params, grads), self._comm_state)
         return tree_leaves(mean)
 
+    def _sum_over_sp(self, grads):
+        """The grads summed over the sequence-parallel axis (each rank's
+        loss is its share of the global mean, so the sum is the
+        reference's grad): one flat all-reduce a dtype. Identity without a
+        live sp axis."""
+        if self._sp.size == 1:
+            return grads
+        out = list(grads)
+        with torch.no_grad():
+            for dt in {g.dtype for g in grads}:
+                idx = [i for i, g in enumerate(grads) if g.dtype == dt]
+                flat = torch.cat([grads[i].reshape(-1) for i in idx])
+                flat = self._sp.all_reduce_sum(flat)
+                start = 0
+                for i in idx:
+                    n = grads[i].numel()
+                    out[i] = flat[start:start + n].view_as(grads[i])
+                    start += n
+        return out
+
     def _overlaps(self) -> bool:
-        return self._comm_overlap is not None and self.data_parallel_size > 1
+        # the overlapped buckets leave before the sum over the sp axis
+        return (self._comm_overlap is not None and self.data_parallel_size > 1
+                and self._sp.size == 1)
 
     def _bank_overlapped(self, loss):
         """The accumulation boundary's backward under the overlap schedule:
@@ -1382,14 +1475,19 @@ class Engine(ConfigAccessorsMixin):
         ``save_tree`` copies each to the host as it writes it."""
         st = self.opt_state
         scaler = self.scaler_state
+        # the whole leaves cut over a model axis go to the host of the rank
+        # that writes (rank 0) as they are gathered
+        writer = self.mesh.rank == 0
         model_states = {
-            "module": self._expert_whole(self.params),
+            "module": self._model_whole(self.params, writer, True),
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
             "skipped_steps": self.skipped_steps,
             "micro_steps": self.micro_steps,
             "dp_world_size": self.data_parallel_size,
-            "mp_world_size": 1,
+            # the reference's field: the legacy ``model`` axis's extent
+            "mp_world_size": int(self.mesh.shape.get(mesh_lib.MODEL_AXIS,
+                                                     1)),
             # rows per optimizer step, micro * dp * gas: a resume under
             # another row count re-bases the datapipe's step schedules
             "global_rows": self._global_rows(),
@@ -1400,7 +1498,8 @@ class Engine(ConfigAccessorsMixin):
                          if self.datapipe is not None else {}),
             "client_state": client_state or {},
         }
-        whole = lambda t: self._expert_whole(self._full(t))  # noqa: E731
+        whole = lambda t: self._model_whole(  # noqa: E731
+            self._full(t), writer, True)
         optim_states = {
             "master": (whole(self.master) if self.master is not None
                        else {}),
@@ -1511,15 +1610,15 @@ class Engine(ConfigAccessorsMixin):
             return None, {}
         model_states = ck.load(model_state_filename(), unchunk=False)
         master_loaded = False
-        # whole leaves from the file: this rank's expert chunk, then its
-        # ZeRO shard
-        experts = (tree_unflatten(self.params, [
-            (lambda t, d=d: self._expert_part(t, d))
-            for d in self._expert_dims]) if self._has_experts else None)
-        shard = (self.master_specs, self._zero_index, experts)
+        # whole leaves from the file: this rank's part over its model axis,
+        # then its ZeRO shard
+        cuts = (tree_unflatten(self.params, [
+            (lambda t, c=c: self._model_part(t, c))
+            for c in self._cuts]) if self._has_cuts else None)
+        shard = (self.master_specs, self._zero_index, cuts)
         with torch.no_grad():
             _copy_into(self.params, model_states["module"], "module",
-                       None, 0, experts)
+                       None, 0, cuts)
             if (not load_module_only and load_optimizer_states
                     and ck.exists(optim_state_filename())):
                 optim = ck.load(optim_state_filename(), unchunk=False)
@@ -1690,10 +1789,10 @@ class Engine(ConfigAccessorsMixin):
             raise RuntimeError(
                 "live re-mesh is not supported with optimizer offload "
                 "(host-side state is keyed to the old placement)")
-        if self._has_experts or self.mesh.size != self.data_parallel_size:
+        if self._has_cuts or self.mesh.size != self.data_parallel_size:
             raise RuntimeError(
                 "live re-mesh re-forms a data-only world; a mesh with an "
-                "expert axis needs a relaunch")
+                "expert, tensor- or sequence-parallel axis needs a relaunch")
         if self._acc_count or self._stashed is not None:
             raise RuntimeError(
                 "live re-mesh must happen at an optimizer-step boundary "
@@ -1794,6 +1893,7 @@ class Engine(ConfigAccessorsMixin):
                                                   self.zero_stage, self.mesh,
                                                   "master")
         self._specs = tree_leaves(self.master_specs)
+        self._init_optimizer_cuts(self.params)
         idx = self._zero_index
 
         def cut(full, sp):
@@ -1889,13 +1989,14 @@ def _host_tensor(src) -> torch.Tensor:
     return flat.reshape(shape)
 
 
-def _copy_into(dst, src, path, specs=None, index=0, experts=None):
+def _copy_into(dst, src, path, specs=None, index=0, cuts=None):
     """Copy a restored tree (numpy arrays, bf16 CPU tensors, or flax's
     chunked dicts) into the tensors of ``dst`` leaf by leaf, casting to
     each tensor's dtype; keys ``dst`` has and ``src`` lacks raise, keys
     only ``src`` has are ignored (as flax's ``from_state_dict``). With
-    ``experts`` (a tree like ``dst`` of functions, the whole leaf -> this
-    rank's expert chunk) the whole leaf in ``src`` is cut first; with
+    ``cuts`` (a tree like ``dst`` of functions, the whole leaf -> this
+    rank's part over its model axis) the whole leaf in ``src`` is cut
+    first; with
     ``specs`` (ZeRO shard specs like ``dst``), a sharded leaf of ``dst``
     then takes shard ``index`` of it."""
     if isinstance(dst, dict):
@@ -1905,11 +2006,11 @@ def _copy_into(dst, src, path, specs=None, index=0, experts=None):
         for k, v in dst.items():
             _copy_into(v, src[k], f"{path}/{k}",
                        None if specs is None else specs[k], index,
-                       None if experts is None else experts[k])
+                       None if cuts is None else cuts[k])
         return
-    if experts is not None:
+    if cuts is not None:
         whole = _host_tensor(src)
-        src = experts(whole)
+        src = cuts(whole)
         if src.shape == whole.shape:
             src = whole
         else:
@@ -2004,6 +2105,21 @@ def _bootstrap_from_raw_config(config) -> None:
         _dist_bootstrap.bootstrap(dc)
 
 
+def _mesh_from_raw_config(config):
+    """The mesh a config's ``"mesh"`` block lays out over the world, or
+    None without one (the raw dict is peeked, as the reference peeks it
+    before its ``TrainingConfig``)."""
+    if isinstance(config, TrainingConfig):
+        mc = config.mesh_config()
+        return mesh_lib.from_config(mc) if mc is not None else None
+    from .config_utils import load_config
+
+    block = load_config(config).get("mesh")
+    if not isinstance(block, dict) or block.get("enabled") is False:
+        return None
+    return mesh_lib.from_config(dict(block, enabled=True))
+
+
 def _optimizer_base_lr(opt, config):
     lr = getattr(opt, "lr", None)
     if lr is not None:
@@ -2049,10 +2165,12 @@ def initialize(
     ``mesh`` (parallel/topology.build_mesh, e.g. a legacy ``{"data": d,
     "expert": e}`` mesh), else the config's ``"mesh"`` block, else every
     rank on the legacy ``data`` axis. The batch triple is derived for the
-    mesh's data-parallel size (the ``expert`` axis holds the same rows).
+    mesh's data-parallel size (the ``expert``, tensor- and
+    sequence-parallel axes hold the same rows).
     ``param_specs`` (``make_gpt``'s) mark the leaves split over the
-    ``expert`` axis: each rank keeps its chunk of the whole params it is
-    given. The port refuses tensor and sequence parallelism. A
+    mesh's model axes (``model``/``tp``, ``expert``): each rank keeps its
+    part of the whole params it is given. ``mpu`` (e.g.
+    ``parallel.tp.ModelParallelUnit``) is kept as ``engine.mpu``. A
     ``"distributed"`` block joins the process group first
     (distributed/bootstrap.py)."""
     if model is None:
@@ -2063,10 +2181,6 @@ def initialize(
         config = getattr(args, "deepspeed_config", None)
     if config is None:
         raise ValueError("a config (dict or json path) is required")
-    if mpu is not None:
-        raise NotImplementedError(
-            "mpu (tensor parallelism) is not ported to the PyTorch package "
-            "yet (ROADMAP.md queue 1, item 'MoE, TP and pipeline')")
     if isinstance(model, (GPTConfig, BertConfig)):
         # the streamed ZeRO-Infinity route: a model config plus a config
         # that enables streaming (a "streaming" block, or ZeRO stage 3
@@ -2106,6 +2220,10 @@ def initialize(
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
     _bootstrap_from_raw_config(config)
+    if mesh is None:
+        # a "mesh" block lays out the world before the batch triple reads
+        # its data-parallel size (tp and sp ranks hold the same rows)
+        mesh = _mesh_from_raw_config(config)
     world = (rules.data_parallel_size(mesh) if mesh is not None
              else mesh_lib.world_size())
     ds_config = (config if isinstance(config, TrainingConfig)
@@ -2114,7 +2232,7 @@ def initialize(
                     optimizer=optimizer, lr_scheduler=lr_scheduler,
                     training_data=training_data, collate_fn=collate_fn,
                     device=device, rng=rng, mesh=mesh,
-                    param_specs=param_specs)
+                    param_specs=param_specs, mpu=mpu)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

@@ -42,10 +42,24 @@ step and a verify step); the plain decode step stays as the fallback for
 slots that cannot speculate a given round. The engine then meets exactly
 three decode-path signatures (decode, draft, verify), each watched.
 
-Not ported yet (each raises or is absent): ``mesh=``,
-``PipelineServingBridge`` and the resilience manager hook.
+Tensor-parallel serving: ``ServingEngine(cfg, params, ..., mesh=)`` on a
+mesh whose only live axis is the tensor-parallel one (``model``/``tp``)
+runs one engine a rank, each given the same WHOLE params and the same
+submissions: each rank keeps its part of the params (``param_specs``,
+``rules.model_cut``) and its ``Hkv / tp`` heads in its KV pools (the
+reference's ``_place_kv_pools``), the forwards place Megatron's f and g
+(models/gpt.py), the logits are gathered whole, and every rank runs the
+same scheduler and so emits the same tokens. The reference also splits
+the slots over the data axes (``_place_slot_array``); in the port that
+needs one scheduler shared by processes, so a mesh with a data axis above
+1 raises (ROADMAP.md section 1, item 11), as do a live sequence axis and
+a ``"speculative"`` block with a mesh.
+
+Not ported yet (each raises or is absent): ``PipelineServingBridge`` and
+the resilience manager hook.
 """
 
+import dataclasses
 import itertools
 import time
 import zlib
@@ -57,12 +71,15 @@ import torch
 
 from ..models.generation import (apply_with_cache, categorical, init_cache,
                                   prep_sampling_logits)
-from ..models.gpt import (GPTConfig, decoder_block, head_weight, layer_norm,
-                          layer_slices)
+from ..models.gpt import (GPTConfig, check_tp_shapes, decoder_block, embed,
+                          layer_norm, layer_slices, logits_of)
+from ..models.gpt import param_specs as gpt_param_specs
 from ..models.speculative import engine_sample_key
 from ..monitor import get_monitor, init_monitor
 from ..monitor.tracer import trace_counter, trace_instant, trace_span
 from ..monitor.watchdog import SignatureCache
+from ..parallel.tp import shard_tree, tp_transport
+from ..sharding import rules
 from ..utils.logging import logger
 from .config import ServingConfig
 from .kv_cache import NULL_BLOCK, PagedKVCache, blocks_needed, paged_attend
@@ -138,7 +155,7 @@ def choose_tokens(logits, temps, seeds, counts, top_k):
 
 
 def _paged_block(cfg: GPTConfig, x, layer_params, k_l, v_l, tables,
-                 lengths, wblk, woff, positions):
+                 lengths, wblk, woff, positions, tp=None):
     """One decoder layer over all slots' single new tokens, reading and
     writing the paged pool in place. The layer math is gpt.decoder_block
     — only the attention core differs (mirrors generation._cached_block);
@@ -149,11 +166,11 @@ def _paged_block(cfg: GPTConfig, x, layer_params, k_l, v_l, tables,
         return paged_attend(k_l, v_l, q, k, v, tables, lengths, wblk,
                             woff), None
 
-    x, _ = decoder_block(cfg, x, layer_params, positions, attend)
+    x, _ = decoder_block(cfg, x, layer_params, positions, attend, tp=tp)
     return x
 
 
-def make_decode_step(cfg: GPTConfig, scfg: ServingConfig):
+def make_decode_step(cfg: GPTConfig, scfg: ServingConfig, tp=None):
     """Build the all-slots decode step.
 
     decode_step(params, k_pool, v_pool, tables, lengths, tokens, temps,
@@ -162,7 +179,9 @@ def make_decode_step(cfg: GPTConfig, scfg: ServingConfig):
     counts are host sequences. The pools are written in place.
     temps[i] <= 0 selects greedy argmax for slot i; > 0 samples at that
     temperature under the config's top_k with
-    ``request_sample_key(seeds[i], counts[i])``.
+    ``request_sample_key(seeds[i], counts[i])``. ``tp``: the
+    tensor-parallel Transport when ``params`` and the pools are this
+    rank's part (the logits come back whole on every rank).
     """
     top_k = scfg.top_k
     if top_k is not None and top_k >= cfg.vocab_size:
@@ -172,20 +191,18 @@ def make_decode_step(cfg: GPTConfig, scfg: ServingConfig):
     @torch.no_grad()
     def decode_step(params, k_pool, v_pool, tables, lengths, tokens, temps,
                     seeds, counts):
-        cdt = cfg.dtype
         N = tokens.shape[0]
-        x = params["embed"]["wte"][tokens].to(cdt)[:, None, :]  # (N, 1, D)
         positions = lengths[:, None]                            # (N, 1)
-        if not cfg.rotary:
-            x = x + params["embed"]["wpe"][positions].to(cdt)
+        x = embed(cfg, params, tokens[:, None], positions, tp,
+                  rows_first=True)                              # (N, 1, D)
         wblk = tables[torch.arange(N, device=tables.device), lengths // bs]
         woff = lengths % bs
         for i, layer_params in enumerate(layer_slices(params, cfg.n_layer)):
             x = _paged_block(cfg, x, layer_params, k_pool[i], v_pool[i],
-                             tables, lengths, wblk, woff, positions)
+                             tables, lengths, wblk, woff, positions, tp)
         x = layer_norm(x, params["final_ln"]["scale"],
                        params["final_ln"]["bias"], cfg.layernorm_eps)
-        logits = (x @ head_weight(cfg, params))[:, 0]           # (N, V)
+        logits = logits_of(cfg, params, x, tp)[:, 0]           # (N, V)
         return choose_tokens(logits, temps, seeds, counts, top_k).cpu()
 
     return decode_step
@@ -208,13 +225,12 @@ class ServingEngine:
     def __init__(self, cfg: GPTConfig, params,
                  serving_config: Union[ServingConfig, dict, None] = None,
                  clock=time.monotonic, device=None, mesh=None,
-                 monitor=None, monitor_config=None, drafter_params=None):
+                 monitor=None, monitor_config=None, drafter_params=None,
+                 param_specs=None):
         scfg = (serving_config if isinstance(serving_config, ServingConfig)
                 else ServingConfig.from_dict(serving_config))
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (dp x tp serving) is not ported to the PyTorch "
-                "package yet")
+        self.mesh = mesh
+        self._tp = self._check_mesh(cfg, scfg, mesh)
         if not cfg.rotary and scfg.max_seq_len > cfg.max_seq:
             raise ValueError(
                 f"serving max_seq_len ({scfg.max_seq_len}) exceeds the "
@@ -230,8 +246,14 @@ class ServingEngine:
         self.cfg = cfg
         self.scfg = scfg
         self.clock = clock
+        if self._tp is not None:
+            # this rank's part of the whole params (its heads and FFN
+            # columns); its pools hold its Hkv / tp heads
+            params = shard_tree(params, param_specs or
+                                gpt_param_specs(cfg), mesh)
         self.params = _params_to(params, self.device)
-        self.kv = PagedKVCache(cfg, scfg, self.device)
+        self._kv_cfg = self._local_kv_cfg(cfg)
+        self.kv = PagedKVCache(self._kv_cfg, scfg, self.device)
         self.sched = Scheduler(scfg, self.kv.allocator, clock)
         # telemetry facade (monitor/ package): own it when a config is
         # passed, else adopt a process-global one if installed
@@ -243,7 +265,7 @@ class ServingEngine:
                     if self.telemetry is not None else None)
         self.metrics = ServingMetrics(scfg.num_slots, clock, monitor,
                                       registry, slo=scfg.slo)
-        self._decode_step = make_decode_step(cfg, scfg)
+        self._decode_step = make_decode_step(cfg, scfg, self._tp)
         # argument signatures of the decode step and the prefills: the
         # watchdog's and the cost index's counterpart of jit caches
         self._decode_sigs = SignatureCache()
@@ -278,6 +300,42 @@ class ServingEngine:
             from .spec.runtime import SpecRuntime
 
             self._spec = SpecRuntime(self, scfg.speculative, drafter_params)
+
+    @staticmethod
+    def _check_mesh(cfg: GPTConfig, scfg: ServingConfig, mesh):
+        """The tensor-parallel Transport of ``mesh`` (None without a live
+        tp axis), after refusing what tp serving does not run."""
+        if mesh is None:
+            return None
+        if rules.data_parallel_size(mesh) > 1:
+            raise NotImplementedError(
+                f"ServingEngine on the mesh {mesh.shape}: splitting the slots "
+                f"over data-parallel ranks needs one scheduler shared by "
+                f"processes, which the PyTorch package does not have yet "
+                f"(ROADMAP.md section 1, item 11); serve over the model "
+                f"(tp) axis only, or run one engine a replica (serving/"
+                f"fleet.py)")
+        if rules.sp_size(mesh) > 1:
+            raise NotImplementedError(
+                f"ServingEngine on the mesh {mesh.shape}: serving does not "
+                f"split the sequence (the reference's neither)")
+        if scfg.speculative is not None and rules.tp_size(mesh) > 1:
+            raise NotImplementedError(
+                "a \"speculative\" block with a tensor-parallel mesh: the "
+                "drafter's steps are not tensor-parallel in the port "
+                "(ROADMAP.md section 1, item 11)")
+        check_tp_shapes(cfg, mesh)
+        return tp_transport(mesh)
+
+    def _local_kv_cfg(self, cfg: GPTConfig) -> GPTConfig:
+        """The config this rank's caches are shaped by: its ``n_head / tp``
+        heads and ``kv_heads / tp`` K/V heads, the head dim kept."""
+        if self._tp is None:
+            return cfg
+        n = self._tp.size
+        return dataclasses.replace(cfg, n_head=cfg.n_head // n,
+                                   n_kv_head=cfg.kv_heads // n,
+                                   d_model=cfg.d_model // n)
 
     # -- signature counters (the reference's compile counters) --------- #
 
@@ -456,7 +514,7 @@ class ServingEngine:
     def _forward(self, toks: np.ndarray, cache, offset: int):
         return apply_with_cache(self.cfg, self.params,
                                 torch.as_tensor(toks, device=self.device),
-                                cache, offset)
+                                cache, offset, self._tp)
 
     # -- admission: full, suffix, and chunked prefill ------------------ #
 
@@ -623,7 +681,7 @@ class ServingEngine:
             # per bucket: the prefill meets one signature per length bucket
             with self._capture(f"serving/prefill_step[b{bucket}]",
                                self._prefill_sigs, self.params, toks):
-                cache = init_cache(self.cfg, 1, bucket, self.device)
+                cache = init_cache(self._kv_cfg, 1, bucket, self.device)
                 logits, cache = self._forward(toks, cache, 0)
             # admission allocated headroom for the first decode write;
             # only the context's own pages carry prefill data

@@ -12,9 +12,9 @@ block maps onto the canonical named mesh ``dp x fsdp x tp x sp`` that
 * ``dp``    -- pure data parallelism: params replicated, batch sharded.
 * ``fsdp``  -- the ZeRO axis: batch sharded and (per ``zero_optimization
   .stage``) the fp32 master and optimizer moments sharded over it.
-* ``tp``, ``sp`` -- tensor and sequence parallelism. The port runs neither
-  yet: an extent above 1 is refused by ``runtime/config.py`` and
-  :func:`.mesh.from_config`.
+* ``tp``, ``sp`` -- tensor parallelism (Megatron column/row splits,
+  parallel/tp.py) and sequence parallelism (ring or Ulysses attention,
+  ops/ring_attention.py); their ranks hold the same rows of the batch.
 
 Exactly one axis may be ``-1`` (inferred from the world size). A ``rules``
 sub-dict overrides logical-axis rules, validated as in the reference.

@@ -18,8 +18,10 @@ would refuse the shared-card layout; plain process groups take any.
   from the world size.
 * :func:`default_mesh` -- what an engine gets with no block: every rank on
   the legacy ``data`` axis.
-* a legacy ``{"data": d, "expert": e}`` mesh (parallel/topology.py's
-  ``build_mesh``): the batch splits over ``data``, each layer's experts
+* a legacy mesh of ``data``, ``model``, ``seq`` and ``expert`` axes
+  (parallel/topology.py's ``build_mesh``): the batch splits over
+  ``data``, the heads and FFN columns over ``model`` (parallel/tp.py),
+  the sequence over ``seq`` (ops/ring_attention.py), each layer's experts
   over ``expert`` (models/moe.py).
 
 Without an initialized process group the world is one rank; a mesh of any
@@ -102,6 +104,7 @@ class Mesh:
             raise ValueError(f"mesh {self.shape} has {self.size} ranks, the "
                              f"world {world_size()}")
         self._groups: Dict[Tuple[str, ...], object] = {}
+        self._transports: Dict[Tuple[str, ...], object] = {}
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -178,6 +181,18 @@ class Mesh:
                 self._groups[axes] = mine
         return self._groups[axes]
 
+    def transport(self, axes: Sequence[str]):
+        """The collectives over ``axes`` (runtime/comm/collectives.py's
+        ``Transport`` on ``group(axes)``): one a set of axes, so every
+        user of an axis shares its staging buffers and its clock. Built on
+        first use, as ``group``."""
+        from ..runtime.comm.collectives import Transport
+
+        axes = tuple(a for a in axes if a in self.shape)
+        if axes not in self._transports:
+            self._transports[axes] = Transport(self.group(axes))
+        return self._transports[axes]
+
     def subgroups(self, partition: Sequence[Sequence[int]]):
         """The group of this rank among ``partition`` (lists of world ranks
         covering the world; every rank passes the same partition)."""
@@ -192,16 +207,12 @@ class Mesh:
 def from_config(cfg, world: Optional[int] = None) -> Mesh:
     """``"mesh"`` block (dict or :class:`MeshConfig`) -> canonical Mesh over
     the world (``world`` ranks, default the initialized world's size).
-    Keeps all four named axes, size-1 ones too. tp or sp above 1 raises:
-    neither is ported."""
+    Keeps all four named axes, size-1 ones too; ranks lie row-major over
+    ``dp x fsdp x tp x sp``, so the ranks of one tp (or sp) group are
+    consecutive."""
     if not isinstance(cfg, MeshConfig):
         cfg = MeshConfig.from_dict(cfg)
     dims = cfg.resolve(world_size() if world is None else world)
-    if dims[TP_AXIS] > 1 or dims[SP_AXIS] > 1:
-        raise NotImplementedError(
-            f"mesh {dims}: tensor and sequence parallelism are not ported to "
-            f"the PyTorch package yet (ROADMAP.md queue 1, item 'MoE, TP "
-            f"and pipeline')")
     return Mesh(dims, rank=None if world is None else 0)
 
 

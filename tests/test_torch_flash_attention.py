@@ -129,6 +129,9 @@ def test_model_dispatch_matches_dense_attention(impl):
     out = gpt.causal_attention(q, k, v, impl)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="unknown attn_impl"):
+        gpt.causal_attention(q, k, v, "splash")
+    # the context-parallel impls are known and need make_gpt's mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
         gpt.causal_attention(q, k, v, "ring")
 
 

@@ -91,7 +91,10 @@ def test_config_surface():
     assert dataclasses.asdict(gpt.GPTConfig(moe_num_experts=4).moe) == \
         dataclasses.asdict(jax_gpt.GPTConfig(moe_num_experts=4).moe)
     with pytest.raises(ValueError, match="not ported"):
-        gpt.GPTConfig(attn_impl="ring")
+        gpt.GPTConfig(attn_impl="splash")
+    # the context-parallel impls are ported; they need a mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
+        gpt.make_gpt(gpt.GPTConfig(attn_impl="ring"))
     with pytest.raises(ValueError, match="multiple of n_kv_head"):
         gpt.GPTConfig(n_head=4, n_kv_head=3)
     with pytest.raises(ValueError, match="remat_policy"):

@@ -68,9 +68,11 @@ def test_moe_gpt_loss_and_grads_match_reference(impl, remat):
     assert "mlp" not in tparams["layers"]
     assert specs["layers"]["moe"]["experts"]["wo"] == (None, "expert",
                                                        None, None)
-    assert specs["layers"]["attn"]["wqkv"] is None
-    assert gpt.make_gpt(gpt.GPTConfig(**dict(KW, moe_num_experts=0)))[3] \
-        is None
+    # the tensor-parallel specs are the reference's (the qkv leaves also
+    # carry their q/k/v sections)
+    assert specs["layers"]["attn"]["wqkv"] == (None, None, "model")
+    dense = gpt.make_gpt(gpt.GPTConfig(**dict(KW, moe_num_experts=0)))[3]
+    assert dense["layers"]["mlp"]["wi"] == (None, None, "model")
     back = convert.to_numpy_params(tparams)
     for n, a in convert._flatten(back).items():
         np.testing.assert_array_equal(a, convert._flatten(

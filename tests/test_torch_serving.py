@@ -226,8 +226,13 @@ def test_engine_rejects_unported_paths(models):
     eng = ServingEngine(tcfg, tparams, {"speculative": {"draft_k": 2}},
                         device="cpu")
     assert eng._spec is not None and eng._spec.K == 2
+    # tensor-parallel serving is ported (tests/test_torch_tp_serving.py);
+    # splitting the slots over data ranks is not
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
     with pytest.raises(NotImplementedError, match="mesh"):
-        ServingEngine(tcfg, tparams, None, device="cpu", mesh=object())
+        ServingEngine(tcfg, tparams, None, device="cpu",
+                      mesh=build_mesh({"data": 2}, world=2))
 
 
 def _alloc_ops(alloc_cls, cache_cls, errors):

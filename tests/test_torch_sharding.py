@@ -75,14 +75,16 @@ def test_mesh_block_through_the_training_config():
                                    world_size=8)
     assert cfg.mesh_config().axis_dims() == {"dp": 2, "fsdp": -1, "tp": 1,
                                              "sp": 1}
-    for block, item in (({"tp": 2}, "MoE, TP and pipeline"),
-                        ({"dp": 1, "sp": -1}, "MoE, TP and pipeline")):
-        with pytest.raises(pt_config.ConfigError, match=item):
-            pt_config.TrainingConfig({"train_batch_size": 8, "mesh": block})
+    # tensor and sequence parallelism are ported: the blocks parse
+    for block in ({"tp": 2}, {"dp": 1, "sp": -1}):
+        cfg = pt_config.TrainingConfig({"train_batch_size": 8,
+                                        "mesh": block})
+        assert cfg.mesh_config().axis_dims() == dict(
+            {"dp": -1, "fsdp": 1, "tp": 1, "sp": 1}, **block)
     with pytest.raises(pt_config.ConfigError, match="invalid \"mesh\""):
         pt_config.TrainingConfig({"train_batch_size": 8, "mesh": {"x": 1}})
-    with pytest.raises(NotImplementedError, match="MoE, TP and pipeline"):
-        pt_mesh.from_config({"dp": 2, "tp": 2}, world=4)
+    assert pt_mesh.from_config({"dp": 2, "tp": 2}, world=4).shape == {
+        "dp": 2, "fsdp": 1, "tp": 2, "sp": 1}
 
 
 def test_mesh_axes_coordinates_and_sizes():

@@ -129,11 +129,15 @@ def test_config_fields_match_reference(cfg):
 
 @pytest.mark.parametrize("block,item", [
     ({"zero_optimization": {"stage": 3}}, "Offload and ZeRO-Infinity"),
-    ({"mesh": {"tp": 2}}, "MoE, TP and pipeline"),
+    # the mesh block's tp and sp run now (tests/test_torch_tp_engine.py);
+    # the pipeline stays refused
+    ({"pipeline": {"stages": 4, "partition_method": "uniform"}},
+     "MoE, TP and pipeline"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
      "Offload and ZeRO-Infinity"),
     ({"streaming": {}}, "Offload and ZeRO-Infinity"),
-    ({"mesh": {"sp": 2}}, "MoE, TP and pipeline"),
+    ({"pipeline": {"stages": 2, "activation_checkpoint_interval": 1}},
+     "MoE, TP and pipeline"),
     ({"optimizer": {"type": "CPUAdam", "params": {}}},
      "Offload and ZeRO-Infinity"),
     ({"checkpoint": {"sharded_io": True}}, "Sharded checkpoints"),

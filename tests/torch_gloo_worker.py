@@ -737,7 +737,7 @@ def moe_train_run(rank, world, tmp, dims):
             config=moe_config(), device="cpu", mesh=mesh,
             param_specs=specs)
         losses = [float(eng.train_batch(b)) for b in batches]
-        whole = eng._expert_whole(eng.params)
+        whole = eng._model_whole(eng.params)
         result[impl] = {
             "losses": losses,
             "params": {k: t.detach().numpy()
@@ -830,3 +830,350 @@ def _randomized(tree, gen):
     if isinstance(tree, dict):
         return {k: _randomized(v, gen) for k, v in tree.items()}
     return 0.01 * torch.randn(tree.shape, generator=gen)
+
+
+# ------------------------------------------------------------------ #
+# tensor and sequence parallelism
+# ------------------------------------------------------------------ #
+
+
+def _tree_leaves(tree):
+    """Leaves in insertion order (the engine's ``tree_leaves``)."""
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _tp_rank_data(mesh, batch):
+    """This rank's rows of a global batch (its data rank's block)."""
+    from deeperspeed_tpu_torch.sharding import rules
+
+    return rules.place_batch(mesh, batch)
+
+
+def tp_layers_run(rank, world, tmp, dims):
+    """The TP layers of parallel/tp.py on this rank's part of the saved
+    whole params: each layer's output and the grads of its input and of
+    every param (gathered whole), for ``sum(out * w)``; plus the column ->
+    row pair with a plain differentiable all-reduce in place of g and
+    with no f, whose grads must then be wrong."""
+    from deeperspeed_tpu_torch.parallel import build_mesh
+    from deeperspeed_tpu_torch.parallel import tp
+
+    mesh = build_mesh(dims)
+    data = np.load(os.path.join(tmp, "tp_layers.npz"))
+    D, F, V = 16, 32, 50
+    col = tp.ColumnParallelLinear(D, F, mesh=mesh)
+    row = tp.RowParallelLinear(F, D, mesh=mesh)
+    mlp = tp.ParallelMLP(D, F, mesh=mesh)
+    emb = tp.VocabParallelEmbedding(V, D, mesh=mesh)
+    gather_col = tp.ColumnParallelLinear(D, F, gather_output=True,
+                                         mesh=mesh)
+    row_scatter = tp.RowParallelLinear(F, D, input_is_parallel=False,
+                                       mesh=mesh)
+    whole = {"col": {"w": data["col_w"], "b": data["col_b"]},
+             "row": {"w": data["row_w"], "b": data["row_b"]},
+             "emb": {"w": data["emb_w"]}}
+    whole = {k: {n: torch.tensor(a) for n, a in v.items()}
+             for k, v in whole.items()}
+    out = {}
+
+    def run(name, fn, params, x, w, specs):
+        leaves = [t.requires_grad_(True) for t in _tree_leaves(params)]
+        if x.is_floating_point():
+            x = x.clone().requires_grad_(True)
+        y = fn(params, x)
+        loss = (y * w).sum()
+        grads = torch.autograd.grad(loss, leaves + ([x] if x.requires_grad
+                                                    else []))
+        from deeperspeed_tpu_torch.runtime.engine import tree_unflatten
+
+        g_whole = tp.gather_tree(tree_unflatten(params, list(
+            grads[:len(leaves)])), specs, mesh)
+        out[name] = {"y": y.detach().numpy(),
+                     "grads": {k: v.numpy() for k, v in
+                               _flat(g_whole).items()},
+                     "x_grad": (grads[-1].numpy() if x.requires_grad
+                                else None)}
+
+    x = torch.tensor(data["x"])
+    pc, pr = col.shard(whole["col"]), row.shard(whole["row"])
+    pair = {"col": pc, "row": pr}
+    pair_specs = {"col": col.specs, "row": row.specs}
+    run("pair", lambda p, x: row.apply(p["row"], col.apply(p["col"], x)),
+        {k: {n: t.clone() for n, t in v.items()} for k, v in pair.items()},
+        x, torch.tensor(data["w_out"]), pair_specs)
+    run("mlp", lambda p, x: mlp.apply(p, x),
+        mlp.shard({"up": whole["col"], "down": whole["row"]}), x,
+        torch.tensor(data["w_out"]), mlp.specs)
+    run("gather_col", lambda p, x: gather_col.apply(p, x),
+        gather_col.shard(whole["col"]), x, torch.tensor(data["w_col"]),
+        gather_col.specs)
+    run("row_scatter", lambda p, x: row_scatter.apply(p, x),
+        row_scatter.shard(whole["row"]), torch.tensor(data["h"]),
+        torch.tensor(data["w_out"]), row_scatter.specs)
+    run("emb", lambda p, x: emb.apply(p, x), emb.shard(whole["emb"]),
+        torch.tensor(data["tok"]), torch.tensor(data["w_emb"]), emb.specs)
+    # the double count: a plain differentiable all-reduce (its backward
+    # all-reduces too, as torch.distributed.nn's does) in place of g, and
+    # the under-count: no f on the column's input
+    group = tp.tp_transport(mesh)
+
+    class PlainAllReduce(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return group.all_reduce_sum(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return group.all_reduce_sum(g)
+
+    def plain_g(p, x):
+        h = col.apply(p["col"], x)
+        return PlainAllReduce.apply(h @ p["row"]["w"]) + p["row"]["b"]
+
+    def no_f(p, x):
+        h = x @ p["col"]["w"] + p["col"]["b"]
+        return row.apply(p["row"], h)
+
+    for name, fn in (("plain_g", plain_g), ("no_f", no_f)):
+        run(name, fn, {k: {n: t.clone().detach() for n, t in v.items()}
+                       for k, v in pair.items()},
+            x, torch.tensor(data["w_out"]), pair_specs)
+    mpu = tp.ModelParallelUnit(mesh)
+    out["mpu"] = {
+        "mp_rank": mpu.get_model_parallel_rank(),
+        "mp_size": mpu.get_model_parallel_world_size(),
+        "dp_rank": mpu.get_data_parallel_rank(),
+        "dp_size": mpu.get_data_parallel_world_size(),
+        "mp_group_ranks": dist.get_process_group_ranks(
+            mpu.get_model_parallel_group())}
+    with open(os.path.join(tmp, f"tp_layers_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def ring_run(rank, world, tmp, dims):
+    """Ring and Ulysses attention, causal and not, on this rank's chunks
+    of the saved global q, k, v (B, S, H, Dh): the output chunk and the
+    grads of the chunks for ``sum(out * w)``."""
+    from deeperspeed_tpu_torch.ops.ring_attention import \
+        make_context_parallel_attention
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh(dims)
+    data = np.load(os.path.join(tmp, "ring.npz"))
+    sp = mesh.shape["seq"]
+    i = mesh.coords()["seq"]
+    n = data["q"].shape[1] // sp
+    out = {}
+    for strategy in ("ring", "ulysses"):
+        for causal in (True, False):
+            fn = make_context_parallel_attention(mesh, strategy, causal)
+            qkv = [torch.tensor(data[k][:, i * n:(i + 1) * n])
+                   .requires_grad_(True) for k in ("q", "k", "v")]
+            y = fn(*qkv)
+            w = torch.tensor(data["w"][:, i * n:(i + 1) * n])
+            grads = torch.autograd.grad((y * w).sum(), qkv)
+            out[(strategy, causal)] = {
+                "y": y.detach().numpy(),
+                "grads": [g.numpy() for g in grads]}
+    with open(os.path.join(tmp, f"ring_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def tp_config(zero=1, **extra):
+    """The TP/SP engine config: micro-batch 2 a data rank, fp32, SGD (a
+    scaled gradient shifts an SGD trajectory, where Adam would hide it),
+    ZeRO ``zero``."""
+    return dict({"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+                 "optimizer": {"type": "SGD", "params": {"lr": 0.1}},
+                 "zero_optimization": {"stage": zero}}, **extra)
+
+
+def tp_gpt_run(rank, world, tmp, dims, model_kw, steps, ckpt,
+               block=False):
+    """The tiny GPT at ``dims``: the loss and every leaf's grad of the
+    saved batch on the saved whole params (each rank on its part, its
+    rows and its sequence chunk; the grads summed over ``seq``, averaged
+    over ``data`` and gathered whole), then ``steps`` engine steps (SGD,
+    ZeRO 1, the mesh from ``initialize(mesh=, param_specs=)``) with the
+    losses, grad norms and whole params, a checkpoint of the port, and a
+    fresh engine loading the reference's checkpoint (when the test wrote
+    one) and taking one more step. With ``block`` the engine's mesh comes
+    from the config's ``"mesh"`` block and its loss is built without a
+    mesh (the engine's active mesh). Rank 0 writes the report."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.parallel import build_mesh
+    from deeperspeed_tpu_torch.parallel.tp import (gather_tree,
+                                                   sp_transport)
+    from deeperspeed_tpu_torch.runtime.comm.collectives import Transport
+    from deeperspeed_tpu_torch.runtime.engine import tree_unflatten
+    from deeperspeed_tpu_torch.sharding import rules
+
+    mesh = build_mesh(dims)
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32)
+    whole = torch.load(os.path.join(tmp, "tp_params.pt"))
+    batches = np.load(os.path.join(tmp, "tp_batches.npy"))
+    _, apply_fn, loss_fn, specs = gpt.make_gpt(cfg, mesh)
+    local = gpt.shard_params(cfg, whole, mesh)
+    leaves = [t.clone().requires_grad_(True) for t in _tree_leaves(local)]
+    local = tree_unflatten(local, leaves)
+    mine = _tp_rank_data(mesh, torch.tensor(batches[0]).long())
+    loss = loss_fn(local, mine)
+    grads = list(torch.autograd.grad(loss, leaves))
+    sp = sp_transport(mesh)
+    if sp is not None:
+        grads = [sp.all_reduce_sum(g) for g in grads]
+    data = Transport(mesh.group(rules.batch_axes(mesh)))
+    if data.size > 1:
+        grads = [data.all_reduce_sum(g) / data.size for g in grads]
+        loss = data.all_reduce_sum(loss.detach().reshape(1))[0] / data.size
+    g_whole = gather_tree(tree_unflatten(local, grads), specs, mesh)
+    logits = apply_fn(local, mine[:, :-1])
+    report = {"loss": float(loss), "grads": {
+        k: v.numpy() for k, v in _flat(g_whole).items()},
+        "local_shapes": {k: tuple(v.shape) for k, v in _flat(local).items()},
+        "logits": logits.numpy()}
+    config, engine_mesh, engine_loss = tp_config(), mesh, loss_fn
+    if block:
+        config = tp_config(mesh={a: n for a, n in dims.items()})
+        engine_mesh, engine_loss = None, gpt.make_gpt(cfg)[2]
+    eng, _, _, _ = ds.initialize(model=engine_loss, model_parameters=whole,
+                                 config=config, device="cpu",
+                                 mesh=engine_mesh, param_specs=specs)
+    losses, norms = [], []
+    for b in batches[:steps]:
+        losses.append(float(eng.train_batch(b)))
+        norms.append(eng.get_global_grad_norm())
+    report.update(losses=losses, grad_norms=norms,
+                  dp=eng.data_parallel_size, params={
+                      k: v.detach().numpy().copy() for k, v in
+                      _flat(eng._model_whole(eng.params)).items()},
+                  same_replicated=_replicated_equal(eng, mesh))
+    eng.save_checkpoint(os.path.join(tmp, "pt_ckpt"))
+    if ckpt and os.path.isdir(os.path.join(tmp, ckpt)):
+        fresh, _, _, _ = ds.initialize(
+            model=engine_loss, model_parameters=whole, config=config,
+            device="cpu", mesh=engine_mesh, param_specs=specs)
+        fresh.load_checkpoint(os.path.join(tmp, ckpt))
+        report["loaded"] = {
+            "global_steps": fresh.global_steps,
+            "params": {k: v.detach().numpy().copy() for k, v in _flat(
+                fresh._model_whole(fresh.params)).items()},
+            "next_loss": float(fresh.train_batch(batches[steps]))}
+    if rank == 0:
+        with open(os.path.join(tmp, "tp_gpt.pkl"), "wb") as f:
+            pickle.dump(report, f)
+
+
+TP_ONEBIT_FREEZE = 2
+
+
+def tp_onebit_config(zero=1):
+    """1-bit Adam as configs/neox_6.7b_3d.json names it (betas 0.9/0.95,
+    clip 1.0, ZeRO ``zero``), its freeze_step cut to TP_ONEBIT_FREEZE so
+    that the later steps run the compressed update; fp32, the lr 1e-3."""
+    return tp_config(zero, optimizer={
+        "type": "OneBitAdam",
+        "params": {"lr": 1e-3, "betas": [0.9, 0.95], "weight_decay": 0.01,
+                   "freeze_step": TP_ONEBIT_FREEZE}},
+        gradient_clipping=1.0)
+
+
+def tp_onebit_run(rank, world, tmp, dims, model_kw, steps, zero):
+    """``steps`` engine steps of the tiny GPT at ``dims`` under 1-bit Adam
+    (``tp_onebit_config``) from the saved whole params and batches: the
+    losses, grad norms, whole params and the whole moments and error
+    feedback (gathered over ZeRO and the model axes), the group sizes the
+    1-bit scale sums over, and whether the replicated leaves agree on
+    every rank. Rank 0 writes the report."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh(dims)
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32)
+    whole = torch.load(os.path.join(tmp, "tp_params.pt"))
+    batches = np.load(os.path.join(tmp, "tp_batches.npy"))
+    _, _, loss_fn, specs = gpt.make_gpt(cfg, mesh)
+    eng, opt, _, _ = ds.initialize(model=loss_fn, model_parameters=whole,
+                                   config=tp_onebit_config(zero),
+                                   device="cpu", mesh=mesh,
+                                   param_specs=specs)
+    losses, norms = [], []
+    for b in batches[:steps]:
+        losses.append(float(eng.train_batch(b)))
+        norms.append(eng.get_global_grad_norm())
+    st = eng.opt_state
+    report = {
+        "losses": losses, "grad_norms": norms, "step": int(st.step),
+        "params": {k: v.detach().numpy().copy() for k, v in
+                   _flat(eng._model_whole(eng.params)).items()},
+        "scale_group_sizes": sorted({
+            g.size for g in _tree_leaves(opt.scale_groups or {})
+            if g is not None}),
+        "zero_sharded": sum(sp.sharded for sp in eng._specs),
+        "same_replicated": _replicated_equal(eng, mesh)}
+    for field in st._fields[1:]:
+        tree = eng._model_whole(eng._full(getattr(st, field)))
+        report[field] = {k: v.numpy().copy()
+                         for k, v in _flat(tree).items()}
+    if rank == 0:
+        with open(os.path.join(tmp, "tp_onebit.pkl"), "wb") as f:
+            pickle.dump(report, f)
+
+
+def tp_gpt_runs(rank, world, tmp, cases):
+    """For each case (its directory, the worker's name, then its
+    arguments) that worker in turn, in one set of ranks: one process
+    start for several meshes of the same world."""
+    for case_tmp, fn, *args in cases:
+        globals()[fn](rank, world, case_tmp, *args)
+
+
+def _replicated_equal(eng, mesh):
+    """Whether every leaf no model axis cuts holds the same bits on every
+    rank (Megatron's invariant)."""
+    from deeperspeed_tpu_torch.runtime.comm.collectives import Transport
+
+    world = Transport(mesh.group(tuple(mesh.shape)))
+    ok = True
+    for t, cut in zip(_tree_leaves(eng.params), eng._cuts):
+        if cut is None:
+            every = world.all_gather(t.detach())
+            ok = ok and all(torch.equal(every[0], e) for e in every)
+    return ok
+
+
+def tp_serving_run(rank, world, tmp, dims, model_kw, reqs, new):
+    """A ServingEngine on ``dims`` from the saved whole params serving
+    ``reqs`` greedily; each rank writes its tokens and its pools' head
+    count."""
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.parallel import build_mesh
+    from deeperspeed_tpu_torch.serving import ServingEngine
+
+    mesh = build_mesh(dims)
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32)
+    whole = torch.load(os.path.join(tmp, "tp_params.pt"))
+    eng = ServingEngine(cfg, whole, {"num_slots": 4, "block_size": 8,
+                                     "num_blocks": 64, "max_seq_len": 64},
+                        device="cpu", mesh=mesh)
+    for r in reqs:
+        eng.submit(r["prompt"], max_new_tokens=new, request_id=r["rid"])
+    outs = eng.run()
+    with open(os.path.join(tmp, f"tp_serving_rank{rank}.json"), "w") as f:
+        json.dump({"outs": outs, "kv_heads": int(eng.kv.k.shape[3]),
+                   "wqkv": list(eng.params["layers"]["attn"]["wqkv"].shape)},
+                  f)
