@@ -591,6 +591,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward. Each sub-phase prints its rank-step seconds, the share of the
    step spent in the tp/sp collectives (their Transports' clocked
    seconds) and the peak memory a rank beside the card.
+23. The pipeline engine (PIPE_*, PIPE3D_* constants). 23a: a
+   PipelineModule at BERT-large width and depth (the tied embedding,
+   PIPE_LAYERS post-LN DeepSpeedTransformerLayers at d_model 1024, 16
+   heads, ffn 4096, S 128, dropout 0, the tied head: the transposed
+   embedding), bf16 with an fp32 master, Adam, clip 1.0, kernels auto,
+   token cross-entropy on data/corpus_tokens.npy, M = PIPE_GAS
+   micro-batches of PIPE_MICRO rows, PIPE_STEPS steps, weights drawn on
+   the card from SEED; over {pipe: 2} (2 processes sharing the card over
+   gloo, 12 layers a stage) against one {pipe: 1} process in this one
+   (built while the ranks start, stepped after they exit). Gates: every step's loss and grad norm
+   the same on both ranks and within PIPE_LOSS_RTOL / PIPE_NORM_RTOL of
+   {pipe: 1}; each stage-step's launches of rows 3-6, 11, 12 and 13 as
+   the stage's layers give them, and the last step under torch.profiler
+   tracing at least one kernel a launch; a save after PIPE_SAVE_AFTER,
+   loaded into the same engines with their params and moments poisoned,
+   gives the steps after it and the final params bit for bit; the
+   {pipe: 1} engine loads the 2-stage save with every leaf as saved and
+   its next step within PIPE_LOSS_RTOL; a PipelineServingBridge over
+   the 2-stage engine (at the saved state) serves PIPE_SERVE_LENS greedy
+   requests of PIPE_SERVE_NEW tokens, every rank's tokens equal and
+   equal to the {pipe: 1} bridge's. The stage-step's fwd / bwd / comms /
+   step seconds come from the engine's synchronized phase timers. 23b:
+   configs/neox_6.7b_3d.json's blocks (bf16 with an fp32 master, ZeRO 1,
+   OneBitAdam, WarmupDecayLR, clip 1.0; phase 20's warmup cut,
+   freeze_step PIPE3D_FREEZE) at GPT-NeoX-6.7B width over {pipe: 2,
+   data: 1, model: 2} (4 processes; the file's model: 4 would be 8 on
+   the card): the vocab-parallel embedding and a ParallelMLP a stage, MSE
+   against seeded targets, PIPE3D_GAS micro-batches of PIPE3D_SEQ
+   tokens, PIPE3D_STEPS steps (the exact ones, then compressed) against
+   one {pipe: 1} process (run after the ranks exit). Gates: 22a's loss
+   and grad-norm limits, the ranks' readings equal, a live error
+   feedback, no kernel launched (plain GeLU, 1-bit Adam).
 A line before the kernels line gives each phase's wall seconds. The line
 before the last is the kernels JSON object, the one before it the card;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1073,6 +1105,38 @@ ONEBIT_BG = (4096, 16384)
 # each update carries on, the compressed ones through the scale of every
 # leaf
 ONEBIT_LOSS_RTOL = 5e-4
+
+# the pipeline engine (phase 23, the module docstring): 23a at BERT-large
+# width and depth over {pipe: 2}, 23b at configs/neox_6.7b_3d.json's
+# {pipe: 2, model: 2} (the file's model: 4 would be 8 processes on the
+# card; PERF.md section 4)
+PIPE_DIMS = {"pipe": 2}
+PIPE_LAYERS = 24
+PIPE_D, PIPE_HEADS, PIPE_FFN, PIPE_VOCAB = 1024, 16, 4096, 30528
+PIPE_SEQ = 128
+PIPE_MICRO = 16                     # rows a micro-batch
+PIPE_GAS = 4                        # micro-batches a step (M)
+PIPE_STEPS = 4
+PIPE_SAVE_AFTER = 2
+PIPE_LR = 1e-4
+# {pipe: 2} against {pipe: 1} on the same weights and batches: the same
+# kernels on the same shapes, except that {pipe: 1} sums the tied
+# embedding's two grads in bf16 inside autograd and {pipe: 2} in fp32
+# over the tied group, which each Adam step carries on. A few times the
+# largest readings at this configuration (NVIDIA H100 80GB HBM3, 700 W,
+# two runs equal to the bit: loss 9.75e-6, grad norm 1.79e-4; {pipe: 1}'s
+# step from the 2-stage save 0)
+PIPE_LOSS_RTOL = 5e-5
+PIPE_NORM_RTOL = 1e-3
+PIPE_SERVE_LENS = (8, 16, 24, 32, 40, 48, 56, 64)
+PIPE_SERVE_NEW = 16
+PIPE_CKPT = ROOT / "build" / "smoke_pipe_ckpt"
+PIPE3D_DIMS = {"pipe": 2, "data": 1, "model": 2}
+PIPE3D_VOCAB, PIPE3D_D, PIPE3D_FFN = 50432, 4096, 16384
+PIPE3D_SEQ = 1024
+PIPE3D_GAS = 2
+PIPE3D_FREEZE = 2                   # steps 1-2 exact Adam, 3-4 compressed
+PIPE3D_STEPS = 4
 
 
 def share_bytecode_cache():
@@ -8554,6 +8618,567 @@ def tp_serving_phase(card):
     return {"ln_fwd": sum(r["ln_fwd"] for r in ranks)}
 
 
+# ---------------------------------------------------------------------- #
+# phase 23: the pipeline engine
+# ---------------------------------------------------------------------- #
+
+
+def pipe_head(p, x):
+    """23a's LM head: the tied embedding, transposed."""
+    return x @ p["w"].T
+
+
+def pipe_xent(logits, labels):
+    """23a's token cross-entropy (fp32)."""
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.long().reshape(-1))
+
+
+def pipe_module(stages):
+    """23a's PipelineModule: the tied embedding, PIPE_LAYERS post-LN
+    DeepSpeedTransformerLayers at BERT-large width (bf16, dropout 0), the
+    tied head; partitioned by parameters (12 layers a stage at 2)."""
+    from deeperspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    from deeperspeed_tpu_torch.runtime.pipe import (Embedding, LayerSpec,
+                                                    PipelineModule,
+                                                    TiedLayerSpec)
+
+    conf = DeepSpeedTransformerConfig(
+        batch_size=PIPE_MICRO, max_seq_length=PIPE_SEQ, hidden_size=PIPE_D,
+        heads=PIPE_HEADS, intermediate_size=PIPE_FFN, attn_dropout_ratio=0.0,
+        hidden_dropout_ratio=0.0, num_hidden_layers=PIPE_LAYERS,
+        initializer_range=0.02, fp16=True, pre_layer_norm=False)
+    layers = ([TiedLayerSpec("embed", Embedding, PIPE_VOCAB, PIPE_D)]
+              + [LayerSpec(DeepSpeedTransformerLayer, conf)
+                 for _ in range(PIPE_LAYERS)]
+              + [TiedLayerSpec("embed", Embedding, PIPE_VOCAB, PIPE_D,
+                               forward_fn=pipe_head)])
+    return PipelineModule(layers, num_stages=stages, loss_fn=pipe_xent,
+                          partition_method="parameters")
+
+
+def pipe_run_config():
+    """23a's config: M = PIPE_GAS micro-batches of PIPE_MICRO rows, bf16
+    with an fp32 master, Adam, clip 1.0, kernels auto; the engine's phase
+    timers on (a stage-step's fwd / bwd / comms / step seconds)."""
+    return {"train_batch_size": PIPE_MICRO * PIPE_GAS,
+            "train_micro_batch_size_per_gpu": PIPE_MICRO,
+            "gradient_accumulation_steps": PIPE_GAS,
+            "bf16": {"enabled": True},
+            "optimizer": {"type": "Adam",
+                          "params": {"lr": PIPE_LR, "weight_decay": 0.01}},
+            "gradient_clipping": 1.0, "steps_per_print": 100,
+            "wall_clock_breakdown": True, "kernels": {"mode": "auto"}}
+
+
+def pipe_batches(steps):
+    """``steps`` global batches of PIPE_GAS micro-batches: PIPE_MICRO rows
+    of PIPE_SEQ ids from data/corpus_tokens.npy, labelled with the next
+    id."""
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    n = PIPE_MICRO * (PIPE_SEQ + 1)
+    out = []
+    for s in range(steps):
+        mbs = []
+        for m in range(PIPE_GAS):
+            start = (s * PIPE_GAS + m) * n
+            a = np.asarray(corpus[start:start + n], np.int64).reshape(
+                PIPE_MICRO, PIPE_SEQ + 1)
+            mbs.append((a[:, :-1], a[:, 1:]))
+        out.append(mbs)
+    return out
+
+
+def pipe_requests():
+    """23a's serving prompts: PIPE_SERVE_LENS slices of the corpus."""
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    return [np.asarray(corpus[10 ** 6 + 1000 * i:10 ** 6 + 1000 * i + n],
+                       np.int64).tolist()
+            for i, n in enumerate(PIPE_SERVE_LENS)]
+
+
+def pipe_engine(stages, mesh=None):
+    """23a's engine (weights drawn on the card from SEED, each layer from
+    its own seed: the same values at any stage count)."""
+    import deeperspeed_tpu_torch as ds
+
+    engine, _, _, _ = ds.initialize(model=pipe_module(stages),
+                                    config=pipe_run_config(), mesh=mesh,
+                                    rng=SEED)
+    return engine
+
+
+def pipe_expected(engine):
+    """Launches a stage-step: each micro-batch's forward runs twice (the
+    ForwardPass, then the BackwardPass's replay) and its backward once; a
+    post-LN layer launches the add-LN pair twice, bias+GeLU and the
+    super-tile attention once; one fused Adam launch a 64 leaves."""
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+    from deeperspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
+
+    L = sum(isinstance(engine.module.layer(i), DeepSpeedTransformerLayer)
+            for i in engine.module.stage_layer_indices(engine.stage_id))
+    M = PIPE_GAS
+    want = {k: 0 for k in SOURCES}
+    want.update(add_ln_fwd=2 * 2 * M * L, add_ln_bwd=2 * M * L,
+                supertile_fwd=2 * M * L, supertile_bwd=M * L,
+                bias_gelu_fwd=2 * M * L, bias_gelu_bwd=M * L,
+                fused_adam=-(-len(tree_leaves(engine.params)) // 64))
+    return L, want
+
+
+def pipe_digests(engine):
+    """``tensor_digest`` of every leaf of the engine's fp32 params, by
+    "<layers|tied>/<key>/<leaf>" (the same paths at any stage count)."""
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    return {n: tensor_digest(t) for n, t in _flatten(engine.master).items()}
+
+
+def pipe_poison(engine):
+    """NaN in the params, the master and the moments, POISON_STEP in the
+    step counts: what a load must restore."""
+    from deeperspeed_tpu_torch.ops.adam import tree_leaves
+
+    with torch.no_grad():
+        for tree in (engine.params, engine.master, *engine.opt_state[1:]):
+            for t in tree_leaves(tree):
+                t.fill_(float("nan"))
+    engine.opt_state = engine.opt_state._replace(step=POISON_STEP)
+    engine.global_steps = engine.global_samples = POISON_STEP
+
+
+def pipe_step(engine, mbs, counters, profile=False):
+    """One train_batch: its loss, grad norm, seconds and launches; with
+    ``profile`` the CUDA kernels torch.profiler traced, by family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced = None
+    if profile:
+        with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+            loss = float(engine.train_batch(iter(mbs)))
+            torch.cuda.synchronize()
+        traced = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                fam = kernel_family(e.key)
+                traced[fam] = traced.get(fam, 0) + e.count
+    else:
+        loss = float(engine.train_batch(iter(mbs)))
+    torch.cuda.synchronize()
+    out = {"loss": loss, "grad_norm": engine.get_global_grad_norm(),
+           "step_s": time.perf_counter() - t0,
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "phase_s": engine.phase_seconds()}
+    if traced is not None:
+        out["traced"] = traced
+    return out
+
+
+def pipe_serve(engine, counters):
+    """The PipelineServingBridge over ``engine``: PIPE_SERVE_NEW greedy
+    tokens for each prompt of ``pipe_requests``; (tokens, seconds,
+    inference_batch calls)."""
+    from deeperspeed_tpu_torch.serving import (PipelineServingBridge,
+                                               ServingConfig)
+
+    bs = 16
+    scfg = ServingConfig(num_slots=len(PIPE_SERVE_LENS), block_size=bs,
+                         max_seq_len=PIPE_SEQ,
+                         num_blocks=len(PIPE_SERVE_LENS) * PIPE_SEQ // bs
+                         + 1)
+    calls = [0]
+    fn = engine.serving_logits_fn()
+
+    def logits(ctx):
+        calls[0] += 1
+        return fn(ctx)
+
+    for f in counters.values():
+        f.launches = 0
+    bridge = PipelineServingBridge(logits, scfg)
+    rids = [bridge.submit(p, max_new_tokens=PIPE_SERVE_NEW)
+            for p in pipe_requests()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = bridge.run()
+    torch.cuda.synchronize()
+    return {"tokens": [list(outs[r]) for r in rids],
+            "serve_s": time.perf_counter() - t0, "calls": calls[0],
+            "launches": {k: f.launches for k, f in counters.items()}}
+
+
+def pipe_train_run(mesh, tmp):
+    """23a on one rank of {pipe: 2}: PIPE_STEPS steps (the last under
+    torch.profiler), the save after PIPE_SAVE_AFTER; then the params
+    poisoned, the save loaded, the bridge served, and the steps after the
+    save run again."""
+    import shutil
+
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    counters = kernel_counters()
+    batches = pipe_batches(PIPE_STEPS)
+    with kernel_config.override():
+        engine = pipe_engine(PIPE_DIMS["pipe"], mesh)
+        layers, expected = pipe_expected(engine)
+        out = {"stage": engine.stage_id, "layers": layers,
+               "expected": expected, "steps": [], "resumed": []}
+        if engine.stage_id == 0:
+            shutil.rmtree(PIPE_CKPT, ignore_errors=True)
+        torch.cuda.reset_peak_memory_stats()
+        for i, mbs in enumerate(batches):
+            out["steps"].append(pipe_step(engine, mbs, counters,
+                                          profile=i == PIPE_STEPS - 1))
+            if i + 1 == PIPE_SAVE_AFTER:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.save_checkpoint(str(PIPE_CKPT))
+                out["save_s"] = time.perf_counter() - t0
+                out["saved"] = pipe_digests(engine)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["final"] = pipe_digests(engine)
+        pipe_poison(engine)
+        t0 = time.perf_counter()
+        tag, _ = engine.load_checkpoint(str(PIPE_CKPT))
+        out["load_s"] = time.perf_counter() - t0
+        out["tag"] = tag
+        out["global_steps"] = engine.global_steps
+        out["opt_step"] = int(engine.opt_state.step)
+        out["loaded"] = pipe_digests(engine)
+        out["serve"] = pipe_serve(engine, counters)
+        for mbs in batches[PIPE_SAVE_AFTER:]:
+            out["resumed"].append(pipe_step(engine, mbs, counters))
+        out["resumed_final"] = pipe_digests(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_world1(box):
+    """23a's {pipe: 1} engine, built in this process while the ranks start
+    and train, into ``box``; its steps run after the ranks exit, on a card
+    it has to itself."""
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    with kernel_config.override():
+        box["engine"] = pipe_engine(1)
+
+
+def pipe_failures(ranks, one, after):
+    """What 23a's gates find wrong."""
+    out = []
+    by_stage = sorted(ranks, key=lambda r: r["stage"])
+    for key in ("loss", "grad_norm"):
+        for j in range(PIPE_STEPS):
+            vals = {r["steps"][j][key] for r in ranks}
+            if len(vals) != 1:
+                out.append(f"pipe 23a: step {j + 1}'s {key} differs across "
+                           f"the ranks: {sorted(vals)}")
+    loss = max(rel(r["steps"][j]["loss"], one["steps"][j]["loss"])
+               for r in ranks for j in range(PIPE_STEPS))
+    norm = max(rel(r["steps"][j]["grad_norm"], one["steps"][j]["grad_norm"])
+               for r in ranks for j in range(PIPE_STEPS))
+    if not all(math.isfinite(s["loss"]) for r in ranks for s in r["steps"]):
+        out.append("pipe 23a: a non-finite loss")
+    if loss > PIPE_LOSS_RTOL:
+        out.append(f"pipe 23a: a step's loss {loss:.3e} from {{pipe: 1}}'s "
+                   f"(limit {PIPE_LOSS_RTOL})")
+    if norm > PIPE_NORM_RTOL:
+        out.append(f"pipe 23a: a step's grad norm {norm:.3e} from "
+                   f"{{pipe: 1}}'s (limit {PIPE_NORM_RTOL})")
+    for r in by_stage:
+        s = r["stage"]
+        if r["layers"] != PIPE_LAYERS // PIPE_DIMS["pipe"]:
+            out.append(f"pipe 23a stage {s}: {r['layers']} layers")
+        for j, st in enumerate(r["steps"] + r["resumed"]):
+            if st["launches"] != r["expected"]:
+                out.append(f"pipe 23a stage {s}: launches of step {j + 1} "
+                           f"{st['launches']}, expected {r['expected']}")
+        traced = r["steps"][-1]["traced"]
+        for k, n in r["expected"].items():
+            if n and traced.get(k, 0) < n:
+                out.append(f"pipe 23a stage {s}: the profiled step traced "
+                           f"{traced.get(k, 0)} {k} kernels, its wrapper "
+                           f"launched {n}")
+        if not (r["tag"] is not None and r["global_steps"] == r["opt_step"]
+                == PIPE_SAVE_AFTER and r["loaded"] == r["saved"]):
+            out.append(f"pipe 23a stage {s}: the load of the save: tag "
+                       f"{r['tag']}, step {r['global_steps']}, optimizer "
+                       f"{r['opt_step']}, params "
+                       f"{'as saved' if r['loaded'] == r['saved'] else 'not as saved'}")
+        resumed = [(x["loss"], x["grad_norm"]) for x in r["resumed"]]
+        first = [(x["loss"], x["grad_norm"])
+                 for x in r["steps"][PIPE_SAVE_AFTER:]]
+        if resumed != first or r["resumed_final"] != r["final"]:
+            out.append(f"pipe 23a stage {s}: the resumed steps {resumed}, "
+                       f"the first run's {first}; final params "
+                       f"{'equal' if r['resumed_final'] == r['final'] else 'differ'}")
+        if r["serve"]["tokens"] != by_stage[0]["serve"]["tokens"]:
+            out.append(f"pipe 23a stage {s}: its served tokens differ from "
+                       f"stage 0's")
+    tied = {r["saved"]["tied/embed/w"] for r in ranks}
+    if len(tied) != 1:
+        out.append("pipe 23a: the tied embedding's copies differ across "
+                   "the stages")
+    saved = {}
+    for r in ranks:
+        saved.update(r["saved"])
+    if after["loaded"] != saved:
+        bad = sorted(k for k in saved if after["loaded"].get(k) != saved[k])
+        out.append(f"pipe 23a: {{pipe: 1}} loaded the 2-stage save with "
+                   f"leaves not as saved: {bad[:5]}")
+    if after["serve"]["tokens"] != by_stage[0]["serve"]["tokens"]:
+        out.append("pipe 23a: the {pipe: 2} bridge's tokens differ from the "
+                   "{pipe: 1} bridge's")
+    if any(len(t) != PIPE_SERVE_NEW for t in after["serve"]["tokens"]):
+        out.append("pipe 23a: short outputs")
+    step = rel(after["loss"], ranks[0]["steps"][PIPE_SAVE_AFTER]["loss"])
+    if step > PIPE_LOSS_RTOL:
+        out.append(f"pipe 23a: {{pipe: 1}}'s step {PIPE_SAVE_AFTER + 1} from "
+                   f"the 2-stage save {after['loss']}, the ranks' "
+                   f"{ranks[0]['steps'][PIPE_SAVE_AFTER]['loss']} "
+                   f"({step:.3e}, limit {PIPE_LOSS_RTOL})")
+    return out, loss, norm
+
+
+def pipe_training_phase(card):
+    """Phase 23a (module docstring). Returns (launches of both ranks'
+    training, launches a stage-step (mean of the stages), launches of the
+    {pipe: 2} bridge's serving)."""
+    import shutil
+
+    from deeperspeed_tpu_torch.ops import kernel_config
+
+    box = {}
+    ranks, _, spawn_s = tp_spawn("pipe", lambda tmp: pipe_world1(box))
+    engine = box.pop("engine")
+    counters = kernel_counters()
+    with kernel_config.override(**pipe_run_config()["kernels"]):
+        one = {"steps": [pipe_step(engine, mbs, counters)
+                         for mbs in pipe_batches(PIPE_STEPS)]}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            tag, _ = engine.load_checkpoint(str(PIPE_CKPT))
+            after = {"tag": tag, "load_s": time.perf_counter() - t0,
+                     "loaded": pipe_digests(engine)}
+        after["serve"] = pipe_serve(engine, counters)
+        after["loss"] = pipe_step(
+            engine, pipe_batches(PIPE_SAVE_AFTER + 1)[-1], counters)["loss"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(PIPE_CKPT, ignore_errors=True)
+    fails, loss, norm = pipe_failures(ranks, one, after)
+    by_stage = sorted(ranks, key=lambda r: r["stage"])
+    stage_steps = [{k: sum(s["launches"][k] for s in r["steps"])
+                    / len(r["steps"]) for k in SOURCES} for r in by_stage]
+    per_stage = {k: sum(s[k] for s in stage_steps) / len(stage_steps)
+                 for k in SOURCES}
+    tokens = PIPE_MICRO * PIPE_GAS * PIPE_SEQ
+    report = {
+        "card": card, "mesh": PIPE_DIMS, "layers": PIPE_LAYERS,
+        "d_model": PIPE_D, "heads": PIPE_HEADS, "ffn": PIPE_FFN,
+        "vocab": PIPE_VOCAB, "seq": PIPE_SEQ, "micro_batch": PIPE_MICRO,
+        "micro_batches": PIPE_GAS, "steps": PIPE_STEPS, "spawn_s": spawn_s,
+        "losses": [s["loss"] for s in by_stage[0]["steps"]],
+        "pipe1_losses": [s["loss"] for s in one["steps"]],
+        "grad_norms": [s["grad_norm"] for s in by_stage[0]["steps"]],
+        "pipe1_grad_norms": [s["grad_norm"] for s in one["steps"]],
+        "loss_rel_max": loss, "grad_norm_rel_max": norm,
+        "stage_step_s": [[s["step_s"] for s in r["steps"]]
+                         for r in by_stage],
+        "pipe1_step_s": [s["step_s"] for s in one["steps"]],
+        "stage_phase_s": [[s["phase_s"] for s in r["steps"]]
+                          for r in by_stage],
+        "pipe1_phase_s": [s["phase_s"] for s in one["steps"]],
+        "tokens_per_step": tokens,
+        "launches_per_stage_step": stage_steps,
+        "traced_last_step": [r["steps"][-1]["traced"] for r in by_stage],
+        "peak_gib": [r["peak_gib"] for r in by_stage],
+        "save_s": [r["save_s"] for r in by_stage],
+        "load_s": [r["load_s"] for r in by_stage],
+        "pipe1_load_s": after["load_s"],
+        "resumed_losses": [s["loss"] for s in by_stage[0]["resumed"]],
+        "pipe1_step_from_save": after["loss"],
+        "serve_s": [r["serve"]["serve_s"] for r in by_stage],
+        "pipe1_serve_s": after["serve"]["serve_s"],
+        "serve_calls": by_stage[0]["serve"]["calls"],
+        "requests": len(PIPE_SERVE_LENS), "new_tokens": PIPE_SERVE_NEW,
+    }
+    print("pipe 23a: " + json.dumps(report), flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    launches = {k: sum(s["launches"][k] for r in ranks for s in r["steps"])
+                for k in SOURCES}
+    serving = {k: sum(r["serve"]["launches"][k] for r in ranks)
+               for k in SOURCES}
+    return launches, per_stage, serving
+
+
+def pipe3d_mse(y, t):
+    return ((y.float() - t.float()) ** 2).mean()
+
+
+def pipe3d_module(mesh):
+    """23b's PipelineModule at GPT-NeoX-6.7B width: the vocab-parallel
+    embedding and two ParallelMLPs (one a stage), MSE against seeded
+    targets; whole layers without a mesh."""
+    from deeperspeed_tpu_torch.parallel import (ParallelMLP,
+                                                VocabParallelEmbedding)
+    from deeperspeed_tpu_torch.runtime.pipe import LayerSpec, PipelineModule
+
+    layers = [LayerSpec(VocabParallelEmbedding, PIPE3D_VOCAB, PIPE3D_D,
+                        mesh=mesh)]
+    layers += [LayerSpec(ParallelMLP, PIPE3D_D, PIPE3D_FFN, mesh=mesh)
+               for _ in range(2)]
+    return PipelineModule(layers, num_stages=PIPE3D_DIMS["pipe"]
+                          if mesh is not None else 1, loss_fn=pipe3d_mse,
+                          partition_method="type:ParallelMLP")
+
+
+def pipe3d_config():
+    """configs/neox_6.7b_3d.json's blocks with phase 20's cuts (warmup
+    ONEBIT_WARMUP), freeze_step PIPE3D_FREEZE and PIPE3D_GAS micro-batches
+    of one row a step (the file's 1024 / micro 4 over its data axis)."""
+    config = onebit_run_config(kernels=True)
+    config.update(train_batch_size=PIPE3D_GAS,
+                  train_micro_batch_size_per_gpu=1,
+                  gradient_accumulation_steps=PIPE3D_GAS)
+    config["optimizer"]["params"]["freeze_step"] = PIPE3D_FREEZE
+    return config
+
+
+def pipe3d_batches():
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    rng = np.random.default_rng(SEED + 23)
+    out = []
+    for s in range(PIPE3D_STEPS):
+        mbs = []
+        for m in range(PIPE3D_GAS):
+            start = (s * PIPE3D_GAS + m) * PIPE3D_SEQ
+            ids = np.asarray(corpus[start:start + PIPE3D_SEQ],
+                             np.int64)[None]
+            mbs.append((ids, rng.standard_normal(
+                (1, PIPE3D_SEQ, PIPE3D_D)).astype(np.float32)))
+        out.append(mbs)
+    return out
+
+
+def pipe3d_run(mesh, tmp=None):
+    """23b at ``mesh`` ({pipe: 1} in this process without one):
+    PIPE3D_STEPS steps; each step's loss, grad norm, seconds, seconds in
+    the model axis's collectives and kernel launches."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.parallel.tp import tp_transport
+
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(model=pipe3d_module(mesh),
+                                        config=pipe3d_config(), mesh=mesh,
+                                        rng=SEED)
+        tr = tp_transport(mesh) if mesh is not None else None
+        counters = kernel_counters()
+        out = {"losses": [], "grad_norms": [], "step_s": [], "comm_s": [],
+               "launches": []}
+        torch.cuda.reset_peak_memory_stats()
+        for mbs in pipe3d_batches():
+            if tr is not None:
+                tr.seconds = 0.0
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["losses"].append(float(engine.train_batch(iter(mbs))))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["comm_s"].append(tr.seconds if tr is not None else 0.0)
+            out["launches"].append({k: fn.launches
+                                    for k, fn in counters.items()})
+            out["grad_norms"].append(engine.get_global_grad_norm())
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["opt_step"] = int(engine.opt_state.step)
+        out["error_l1"] = sum(float(e.abs().sum()) for e in _flatten(
+            engine.opt_state.error).values())
+        out["stage"] = engine.stage_id
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe3d_phase(card):
+    """Phase 23b (module docstring): the {pipe: 1} engine runs after the
+    ranks exit. Returns the ranks' launches and their launches a
+    rank-step; the path (plain GeLU, 1-bit Adam) launches no kernel."""
+    ranks, _, spawn_s = tp_spawn("pipe3d", lambda tmp: None)
+    one = pipe3d_run(None)
+    fails = []
+    for key in ("losses", "grad_norms"):
+        if len({tuple(r[key]) for r in ranks}) != 1:
+            fails.append(f"pipe 23b: the ranks' {key} differ")
+    loss = max(rel(a, b) for r in ranks
+               for a, b in zip(r["losses"], one["losses"]))
+    norm = max(rel(a, b) for r in ranks
+               for a, b in zip(r["grad_norms"], one["grad_norms"]))
+    if not all(math.isfinite(x) for r in ranks + [one]
+               for x in r["losses"] + r["grad_norms"]):
+        fails.append("pipe 23b: a non-finite loss or grad norm")
+    if loss > TP_LOSS_RTOL:
+        fails.append(f"pipe 23b: a step's loss {loss:.3e} from {{pipe: 1}}'s "
+                     f"(limit {TP_LOSS_RTOL})")
+    if norm > TP_NORM_RTOL:
+        fails.append(f"pipe 23b: a step's grad norm {norm:.3e} from "
+                     f"{{pipe: 1}}'s (limit {TP_NORM_RTOL})")
+    for i, r in enumerate(ranks):
+        if not (r["opt_step"] == PIPE3D_STEPS and r["error_l1"] > 0):
+            fails.append(f"pipe 23b rank {i}: optimizer step "
+                         f"{r['opt_step']}, error feedback L1 "
+                         f"{r['error_l1']}: no compressed step ran")
+        for j, st in enumerate(r["launches"]):
+            hit = {k: n for k, n in st.items() if n}
+            if hit:
+                fails.append(f"pipe 23b rank {i}: step {j + 1} launched "
+                             f"{hit}, expected no kernel")
+    print("pipe 23b: " + json.dumps({
+        "card": card, "mesh": PIPE3D_DIMS, "d_model": PIPE3D_D,
+        "ffn": PIPE3D_FFN, "vocab": PIPE3D_VOCAB, "seq": PIPE3D_SEQ,
+        "micro_batches": PIPE3D_GAS, "steps": PIPE3D_STEPS,
+        "freeze_step": PIPE3D_FREEZE, "spawn_s": spawn_s,
+        "losses": ranks[0]["losses"], "pipe1_losses": one["losses"],
+        "grad_norms": ranks[0]["grad_norms"],
+        "pipe1_grad_norms": one["grad_norms"],
+        "loss_rel_max": loss, "grad_norm_rel_max": norm,
+        "rank_step_s": [r["step_s"] for r in ranks],
+        "model_axis_comm_s": [r["comm_s"] for r in ranks],
+        "pipe1_step_s": one["step_s"],
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "pipe1_peak_gib": one["peak_gib"],
+        "error_feedback_l1": [r["error_l1"] for r in ranks],
+        "launches_per_rank_step": launches_per_rank_step(ranks)}),
+        flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    launches = {k: sum(s[k] for r in ranks for s in r["launches"])
+                for k in SOURCES}
+    return launches, launches_per_rank_step(ranks)
+
+
+TP_RUNS.update(pipe=(PIPE_DIMS, pipe_train_run),
+               pipe3d=(PIPE3D_DIMS, pipe3d_run))
+
+
 class Beside(threading.Thread):
     """``fn(*args)`` on a thread of its own, started at once; ``join``
     returns its result or raises its exception."""
@@ -8722,6 +9347,9 @@ def main() -> int:
     tp, tp_per_step = timed("22a tp", tp_training_phase, card)
     sp, sp_per_step = timed("22b sp", sp_training_phase, card)
     tp_serving = timed("22c tp serving", tp_serving_phase, card)
+    pipe, pipe_per_step, pipe_serving = timed("23a pipe",
+                                              pipe_training_phase, card)
+    pipe3d, pipe3d_per_step = timed("23b pipe 3d", pipe3d_phase, card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -8742,7 +9370,8 @@ def main() -> int:
              "onebit_training": onebit, "moe_training": moe,
              "moe_ep_training": moe_ep, "moe_serving": moe_serving,
              "tp_training": tp, "sp_training": sp,
-             "tp_serving": tp_serving}
+             "tp_serving": tp_serving, "pipe_training": pipe,
+             "pipe_serving": pipe_serving, "pipe_3d_training": pipe3d}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -8793,7 +9422,11 @@ def main() -> int:
                                   "sp_ring_training_per_rank":
                                       sp_per_step["ring"][name],
                                   "sp_ulysses_training_per_rank":
-                                      sp_per_step["ulysses"][name]},
+                                      sp_per_step["ulysses"][name],
+                                  "pipe_training_per_stage":
+                                      pipe_per_step[name],
+                                  "pipe_3d_training_per_rank":
+                                      pipe3d_per_step[name]},
         }
         for path in ("infinity", "onebit"):
             # the kernel at the streamed GPT-NeoX-20B step's shape, and at

@@ -27,7 +27,11 @@ its host Adam and NVMe I/O in C++ (``csrc/host/``), and tensor and
 sequence parallelism: Megatron's column/row splits over the mesh's
 ``model``/``tp`` axis (``parallel/tp.py``; ``models/gpt.py`` trains and
 ``ServingEngine`` serves on it) and ring and Ulysses attention over its
-``seq``/``sp`` axis (``ops/ring_attention.py``).
+``seq``/``sp`` axis (``ops/ring_attention.py``), and pipeline
+parallelism: ``PipelineModule`` and ``PipelineEngine`` over the mesh's
+``pipe`` axis, one process a stage (``runtime/pipe/``, ``pipe/``;
+``initialize`` builds the engine for a ``PipelineModule``), served
+through ``serving.PipelineServingBridge``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper takes its plain PyTorch version. This package
@@ -47,7 +51,10 @@ from .parallel.topology import (PipeDataParallelTopology,  # noqa: E402
                                 PipeModelDataParallelTopology,
                                 PipelineParallelGrid, ProcessTopology,
                                 build_mesh)
-from .serving import ServingConfig, ServingEngine  # noqa: E402
+from .runtime.pipe.engine import PipelineEngine  # noqa: E402
+from .pipe import LayerSpec, PipelineModule, TiedLayerSpec  # noqa: E402
+from .serving import (PipelineServingBridge, ServingConfig,  # noqa: E402
+                      ServingEngine)
 
 
 def add_config_arguments(parser):
@@ -71,8 +78,10 @@ def add_config_arguments(parser):
 
 
 __all__ = ["ConfigError", "DeepSpeedCPUAdam", "DeepSpeedConfig", "Engine",
-           "PipeDataParallelTopology", "PipeModelDataParallelTopology",
-           "PipelineParallelGrid", "ProcessTopology", "ServingConfig",
-           "ServingEngine", "StreamConfig", "StreamedOffloadEngine",
+           "LayerSpec", "PipeDataParallelTopology",
+           "PipeModelDataParallelTopology", "PipelineEngine",
+           "PipelineModule", "PipelineParallelGrid",
+           "PipelineServingBridge", "ProcessTopology", "ServingConfig",
+           "ServingEngine", "TiedLayerSpec", "StreamConfig", "StreamedOffloadEngine",
            "TrainingConfig", "__version__", "add_config_arguments",
            "build_mesh", "initialize", "lr_schedules"]

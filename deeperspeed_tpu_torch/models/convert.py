@@ -7,7 +7,9 @@ matrices (in, out). So the conversion is a copy, leaf for leaf; nothing
 is transposed, and a transposition bug has nowhere to hide. The
 reference's ``AdamState`` and ``LambState`` (step, exp_avg tree,
 exp_avg_sq tree) carry across the same way, so an optimizer step can be
-held against the reference from the same state.
+held against the reference from the same state. A ``PipelineModule``'s
+params (``from_jax_pipeline_params``) carry across layer by layer, a
+tensor-parallel layer's cut to a rank.
 """
 
 from typing import Dict, Optional
@@ -148,3 +150,30 @@ def from_jax_sparse_attention_params(tree_of_numpy: Dict, hidden_size: int,
 
 
 to_numpy_sparse_attention_params = to_numpy_params
+
+
+def from_jax_pipeline_params(params_all: Dict, module, device="cpu",
+                             mesh=None) -> Dict:
+    """The reference's ``PipelineModule`` params ``{"layers": [dict | None],
+    "tied": {key: dict}}`` (numpy leaves) as the port's, on ``device``:
+    each layer's leaves checked against the port layer's shapes (its
+    ``init`` on the meta device). With ``mesh``, a layer carrying
+    ``specs`` (the tensor-parallel layers) keeps this rank's part of each
+    leaf (``parallel.tp.shard_tree``); every other leaf stays whole."""
+    from ..parallel.tp import shard_tree
+
+    def layer(idx, tree):
+        if tree is None:
+            return None
+        shapes = module.layer(idx).init(0, device="meta")
+        out = _copy_tree(tree, tree_map(lambda t: tuple(t.shape), shapes),
+                         device)
+        specs = getattr(module.layer(idx), "specs", None)
+        if mesh is not None and specs is not None:
+            out = shard_tree(out, specs, mesh)
+        return out
+
+    layers = [layer(i, p) for i, p in enumerate(params_all["layers"])]
+    tied = {k: layer(module.tied_specs[k][0], v)
+            for k, v in params_all["tied"].items()}
+    return {"layers": layers, "tied": tied}

@@ -4,9 +4,8 @@ parallelism.
 Counterpart of deeperspeed_tpu/parallel/: topology.py (the axis names,
 the process-topology coordinate math, ``build_mesh``, ``filter_spec``)
 and tp.py (Megatron's column/row layers and their f/g collectives over
-the mesh's tensor-parallel group, the mpu facade). The pipeline axis of
-``build_mesh`` waits for the pipeline engine (ROADMAP.md queue 1,
-item 11)."""
+the mesh's tensor-parallel group, the mpu facade). ``build_mesh``'s
+``pipe`` axis is the pipeline engine's (runtime/pipe/engine.py)."""
 
 from .topology import (
     DATA_AXIS,

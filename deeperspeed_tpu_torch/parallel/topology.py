@@ -11,10 +11,15 @@ row-major over the axes, as the reference reshapes its devices), and
 :func:`filter_spec`. A spec is a tuple with one entry per dim: ``None``,
 an axis name or a tuple of names.
 
-``build_mesh`` takes the ``data``, ``model`` (tensor parallelism,
-parallel/tp.py), ``seq`` (sequence parallelism, ops/ring_attention.py)
-and ``expert`` axes; a ``pipe`` extent above 1 raises: the pipeline
-engine is not ported yet.
+``build_mesh`` takes the ``pipe`` (pipeline stages, runtime/pipe/),
+``data``, ``model`` (tensor parallelism, parallel/tp.py), ``seq``
+(sequence parallelism, ops/ring_attention.py) and ``expert`` axes. Every
+axis is a process axis: the process at (pipe=s, data=d, model=m) runs
+stage s's instruction stream. ``PipelineParallelGrid.from_mesh`` gives
+the pipeline engine its coordinates and, through ``make_groups``, the
+process groups it needs (the pipe axis, each pipe edge, the stage's data
+and model groups, one group per tied key), made once, on every rank, in
+the same order.
 """
 
 from collections import namedtuple
@@ -29,9 +34,6 @@ DATA_AXIS = mesh_lib.DATA_AXIS
 MODEL_AXIS = mesh_lib.MODEL_AXIS
 SEQ_AXIS = mesh_lib.SEQ_AXIS
 EXPERT_AXIS = mesh_lib.EXPERT_AXIS
-
-_PIPE_ITEM = ("ROADMAP.md queue 1, item 11: the pipeline engine, "
-              "runtime/pipe/ and pipe/")
 
 
 class ProcessTopology:
@@ -210,14 +212,67 @@ class PipelineParallelGrid:
     def topology(self):
         return self._topo
 
+    # -------------------------------------------------------------- #
+    # over a mesh of processes
+    # -------------------------------------------------------------- #
+
+    @classmethod
+    def from_mesh(cls, mesh):
+        """The grid of a port :class:`~..sharding.mesh.Mesh` (axes in its
+        order, this process's rank), holding the mesh for
+        :meth:`make_groups`."""
+        grid = cls(ProcessTopology(list(mesh.axis_names),
+                                   [mesh.shape[a] for a in mesh.axis_names]),
+                   mesh.rank)
+        grid.mesh = mesh
+        grid.pipe_group = grid.data_group = grid.model_group = None
+        grid._edges = {}
+        grid._tied = {}
+        return grid
+
+    def make_groups(self, tied_stages: Optional[Dict[str, List[int]]] = None):
+        """Every process group the pipeline engine uses, made at once
+        (``new_group`` is collective: each rank makes every group, in the
+        same order): the pipe axis, the data axes (``rules.batch_axes``),
+        the tensor-parallel axis, each pipe edge (stage s and s + 1 at the
+        same other coordinates) and, per tied key of ``tied_stages`` (key
+        -> its stages), the ranks of those stages at the same other
+        coordinates. A group of one rank is None."""
+        from ..sharding import rules
+
+        mesh = self.mesh
+        self.pipe_group = mesh.transport((PIPE_AXIS,))
+        self.data_group = mesh.transport(rules.batch_axes(mesh))
+        tp = rules.tp_axis(mesh)
+        self.model_group = mesh.transport((tp,) if tp else ())
+        pipes = sorted({tuple(mesh.ranks_along((PIPE_AXIS,), r))
+                        for r in range(mesh.size)})
+        for s in range(self.pipe_parallel_size - 1):
+            self._edges[s] = mesh.subgroups([[p[s], p[s + 1]]
+                                             for p in pipes])
+        for key, stages in sorted((tied_stages or {}).items()):
+            self._tied[key] = (mesh.subgroups([[p[s] for s in stages]
+                                               for p in pipes])
+                               if len(stages) > 1 else None)
+        return self
+
+    def edge_group(self, stage_a: int, stage_b: int):
+        """The group of this rank's pipe edge between two adjacent
+        stages."""
+        return self._edges[min(stage_a, stage_b)]
+
+    def tied_group(self, key: str):
+        """The group of the stages sharing tied ``key`` at this rank's
+        other coordinates (None where one stage holds it)."""
+        return self._tied.get(key)
+
 
 def build_mesh(axis_dims: Dict[str, int], world: Optional[int] = None):
     """A :class:`~..sharding.mesh.Mesh` with named axes from an
     ``{axis: dim}`` dict over the initialized world (``world`` ranks for a
     mesh built only to plan). Axis order follows the dict; one dim of -1
     (or None) is inferred. The legacy names (``data``, ``expert``, ...)
-    are kept as given. A ``pipe`` extent above 1 raises: the pipeline
-    engine is not ported."""
+    are kept as given."""
     n = mesh_lib.world_size() if world is None else int(world)
     dims = dict(axis_dims)
     unknown = [a for a, d in dims.items() if d in (-1, None)]
@@ -237,10 +292,6 @@ def build_mesh(axis_dims: Dict[str, int], world: Optional[int] = None):
     if total != n:
         raise ValueError(
             f"mesh dims {dims} require {total} devices but {n} are available")
-    if int(dims.get(PIPE_AXIS, 1)) > 1:
-        raise NotImplementedError(
-            f"mesh {dims}: the 'pipe' axis (pipeline parallelism) is not "
-            f"ported to the PyTorch package yet ({_PIPE_ITEM})")
     return mesh_lib.Mesh({a: int(d) for a, d in dims.items()},
                          rank=None if world is None else 0)
 

@@ -380,7 +380,8 @@ class ParallelMLP(_TPLayerBase):
 
     def init(self, seed, device="cpu"):
         gen = seed
-        if not isinstance(gen, torch.Generator):
+        if (not isinstance(gen, torch.Generator)
+                and torch.device(device).type != "meta"):
             gen = torch.Generator(device=device).manual_seed(int(seed))
         return {"up": self.up.init(gen, device),
                 "down": self.down.init(gen, device)}
@@ -443,6 +444,9 @@ class ModelParallelUnit:
 
     def get_pipe_parallel_world_size(self) -> int:
         return int(self.mesh.shape.get(PIPE_AXIS, 1))
+
+    def get_pipe_parallel_group(self):
+        return self._group((PIPE_AXIS,))
 
     def get_sequence_parallel_world_size(self) -> int:
         return int(self.mesh.shape.get(self._sp, 1))

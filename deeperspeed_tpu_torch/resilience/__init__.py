@@ -2,9 +2,7 @@
 fault injection, and auto-resume.
 
 Counterpart of deeperspeed_tpu/resilience/, with the reference's export
-list less ``reshard_transform_residuals`` (the pipeline engine's, ROADMAP.md
-queue 1, item 'MoE, TP and pipeline'). Long runs must survive being
-killed at any instant:
+list. Long runs must survive being killed at any instant:
 
   * ``manager.ResilienceManager`` — engine-facing composition: async
     (or sync) two-phase-commit saves, interval autosaves, the
@@ -60,6 +58,7 @@ from .reshard import (
     plans_reshardable,
     remap_data_state,
     reshard_comm_residuals,
+    reshard_transform_residuals,
 )
 from .supervisor import Supervisor, SupervisorPolicy, compute_backoff
 from .writer import AsyncCheckpointWriter, CheckpointWriteError
@@ -93,6 +92,7 @@ __all__ = [
     "plans_reshardable",
     "remap_data_state",
     "reshard_comm_residuals",
+    "reshard_transform_residuals",
     "resolve_load_tag",
     "shutdown_resilience",
     "tag_status",

@@ -1,9 +1,8 @@
 """Checkpoint remapping across world sizes.
 
-Counterpart of deeperspeed_tpu/resilience/reshard.py, less
-``reshard_transform_residuals``, which belongs to the pipeline engine
-(ROADMAP.md queue 1, item 'MoE, TP and pipeline'). A checkpoint written
-at world size W must be loadable at any admissible W'. What needs help:
+Counterpart of deeperspeed_tpu/resilience/reshard.py. A checkpoint
+written at world size W must be loadable at any admissible W'. What
+needs help:
 
 * **comm error-feedback residuals** in the classic (non-canonical)
   layout are ``(W, n)`` stacks, one row per rank, so their shape bakes in
@@ -178,6 +177,51 @@ def reshard_comm_residuals(saved_buckets, saved_plan: dict,
         out.append(new_res)
     return out
 
+
+def reshard_transform_residuals(saved_buckets, saved_plan: Optional[dict],
+                                target_plan: dict
+                                ) -> Optional[List[Dict[str, np.ndarray]]]:
+    """The pipeline engine's transform-only residuals (one ``(padded,)``
+    vector a bucket) on a new plan. Past each bucket's unpadded length a
+    residual is zero, and the padding is the only part of the layout
+    that depends on the world size, so the remap is exact: each vector
+    cut or zero-extended to the target's padded length (the identity
+    when the world size did not change). None when the bucket layout
+    itself differs (the caller keeps zeros)."""
+    saved_plan = _normalize_plan(saved_plan)
+    if saved_plan is None:
+        logger.warning("comm transform residuals predate plan metadata; "
+                       "resetting to zero")
+        return None
+    for k in ("mode", "block", "error_feedback", "bucket_lengths"):
+        if saved_plan.get(k) != target_plan.get(k):
+            logger.warning(
+                "comm transform residuals cannot be reshaped (%s changed: "
+                "%r -> %r); resetting to zero",
+                k, saved_plan.get(k), target_plan.get(k))
+            return None
+    buckets = _normalize_buckets(saved_buckets)
+    if buckets is None:
+        logger.warning("comm transform residuals have an unrecognized "
+                       "container layout; resetting to zero")
+        return None
+    padded_new = [int(n) for n in target_plan["bucket_padded"]]
+    if len(buckets) != len(padded_new):
+        logger.warning(
+            "comm transform residuals carry %d buckets but the plan has "
+            "%d; resetting to zero", len(buckets), len(padded_new))
+        return None
+    out: List[Dict[str, np.ndarray]] = []
+    for j, res in enumerate(buckets):
+        ln = padded_new[j]
+        new_res: Dict[str, np.ndarray] = {}
+        for key, arr in res.items():
+            flat = np.asarray(arr, np.float32).reshape(-1)
+            if flat.shape[0] < ln:
+                flat = np.pad(flat, (0, ln - flat.shape[0]))
+            new_res[key] = flat[:ln]
+        out.append(new_res)
+    return out
 
 
 def remap_data_state(state_dict: Optional[dict], saved_rows: Optional[int],

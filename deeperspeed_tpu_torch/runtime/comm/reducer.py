@@ -54,8 +54,16 @@ admissible world size, world 1 included. Residuals are (C, n), free of the
 world size; each rank keeps its rows. :func:`exact_slot_mean` is the same
 gather and tree without a wire.
 
-Not ported: the jitted whole-tree ``reduce_stacked`` and the pipeline's
-transform-only path.
+The **transform-only** path (``init_transform_state``,
+``transform_dispatch``) runs a bucket's wire format without a
+collective: quantize -> dequantize with error feedback on a grad tree
+that is already reduced. The pipeline engine (runtime/pipe/engine.py)
+takes a stage's data-parallel mean in fp32 and then routes it through
+this path under a ``"comm"`` block, as the reference does after its
+GSPMD mean, so every data rank of a stage applies the same transform and
+keeps the same residuals.
+
+Not ported: the jitted whole-tree ``reduce_stacked``.
 """
 
 import logging
@@ -510,6 +518,65 @@ class GradReducer:
             for i, leaf in zip(b.leaf_ids, red):
                 outs[i] = leaf
             new_state.append(nr)
+        return unflatten(outs), new_state
+
+    # ------------------------------------------------------------------ #
+    # transform-only path (the pipeline engine's stage grads)
+    # ------------------------------------------------------------------ #
+
+    def _transform_flat(self, v, res):
+        """One bucket's wire format on an already reduced (L,) fp32 flat,
+        no collective: quantize -> dequantize, the error fed back."""
+        cfg = self.cfg
+        ef = cfg.error_feedback
+        if cfg.mode in ("fp32", "lossless"):
+            return v, res  # exact wire formats: the identity
+        c = v + res["e"] if ef else v
+        if cfg.mode == "bf16":
+            out = c.to(torch.bfloat16).float()
+        elif cfg.mode == "compressed":
+            m, e = _compress_blocks(c, cfg.block)
+            out = _decompress_blocks(m, e, v.shape[0])
+        else:  # int8
+            quant, _, deq = self._ops(v.device)
+            q, sc, _ = quant(c.reshape(1, -1), cfg.block,
+                             want_residual=False)
+            out = deq(q, sc, cfg.block, 1.0).reshape(-1)
+        return out, {"e": c - out if ef else res["e"]}
+
+    def init_transform_state(self, device) -> List[Dict[str, torch.Tensor]]:
+        """Zero residuals of the transform-only path: one (padded,) fp32
+        row a bucket (none for the exact modes), the same on every data
+        rank."""
+        if self.cfg.mode in ("fp32", "lossless"):
+            return [{} for _ in self.plan.buckets]
+        return [{"e": torch.zeros(b.padded, dtype=torch.float32,
+                                  device=device)}
+                for b in self.plan.buckets]
+
+    def transform_dispatch(self, tree, state):
+        """The wire format of every bucket applied to a whole (already
+        reduced) grad tree, one ``comm/reduce`` span a bucket
+        (``transform_only``). Returns ``(tree (fp32, the caller's key
+        order), new_state)``."""
+        leaves, unflatten = bucketing.tree_flatten_sorted(tree)
+        if len(leaves) != self.plan.n_leaves:
+            raise ValueError(
+                f"grad tree has {len(leaves)} leaves but the bucket plan "
+                f"was built for {self.plan.n_leaves}")
+        outs = [None] * self.plan.n_leaves
+        new_state = []
+        for j, b in enumerate(self.plan.buckets):
+            with trace_span("comm/reduce", lane="comm", bucket=j,
+                            mode=self.cfg.mode, elements=b.length,
+                            transform_only=True):
+                flat = bucketing.pack(b, [leaves[i] for i in b.leaf_ids])
+                out, nr = self._transform_flat(flat, state[j])
+            for i, leaf in zip(b.leaf_ids, bucketing.unpack(b, out)):
+                outs[i] = leaf
+            new_state.append(nr)
+            if self._c_buckets is not None:
+                self._c_buckets.inc()
         return unflatten(outs), new_state
 
     # ------------------------------------------------------------------ #

@@ -18,6 +18,7 @@ triple, precision, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 3 and the offload devices for the streamed engine, which ``Engine``
 refuses), ``streaming`` (``streaming_enabled``, ``streaming_params``),
 ``aio`` (``aio_config``), ``mesh`` with dp and fsdp (``mesh_config``),
+``pipeline`` (stored as ``pipeline``, as the reference stores it),
 ``comm`` (``comm_config``), ``datapipe`` (``datapipe_config``),
 ``batch_scheduler``, ``checkpoint`` (tag validation; ``sharded_io:
 true``, the orbax layout, raises until sharded checkpoints are ported),
@@ -104,13 +105,9 @@ class TrainingConfig:
         for key, flag, item in flag_blocks:
             if (pd.get(key) or {}).get(flag, False):
                 raise _unported(f'the "{key}" block', item)
-        present = (
-            (c.PIPELINE, "MoE, TP and pipeline"),
-            (c.ACTIVATION_CHECKPOINTING, "Tooling"),
-        )
-        for key, item in present:
-            if pd.get(key):
-                raise _unported(f'the "{key}" block', item)
+        if pd.get(c.ACTIVATION_CHECKPOINTING):
+            raise _unported(f'the "{c.ACTIVATION_CHECKPOINTING}" block',
+                            "Tooling")
 
     def _handle_elasticity(self):
         """The reference's elasticity batch rewrite: an enabled
@@ -491,6 +488,9 @@ class TrainingConfig:
         self.gradient_noise_scale = pd.get(c.GRADIENT_NOISE_SCALE, None)
         # read, not built: get_sparse_attention builds (and checks) it, as
         # the reference does
+        # stored as the reference stores it; the pipeline engine takes
+        # its layout from the PipelineModule and the mesh
+        self.pipeline = pd.get(c.PIPELINE, {})
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
 
     def monitor_config(self):

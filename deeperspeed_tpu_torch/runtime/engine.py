@@ -140,9 +140,12 @@ backward has banked all of its leaves (a hook a param), and drains them
 before the update; ``backward()`` does the same at the accumulation
 boundary and ``step()`` drains. Bit-identical to ``overlap: off``.
 
+Pipeline parallelism: ``initialize(model=PipelineModule, ...)`` builds
+runtime/pipe/engine.py's ``PipelineEngine`` instead.
+
 Not ported yet (ROADMAP.md): the orbax sharded checkpoint layout, ZeRO
-stage 3 and offload for a loss callable, pipeline parallelism and the
-flops profiler.
+stage 3 and offload for a loss callable, the single-program SPMD
+pipeline and the flops profiler.
 """
 
 import copy
@@ -2153,7 +2156,11 @@ def initialize(
 
     Returns (engine, optimizer, training_dataloader, lr_scheduler).
     ``model`` is a loss callable ``loss_fn(params, batch[, rng])``;
-    ``model_parameters`` is the initial params tree. A model config
+    ``model_parameters`` is the initial params tree. A ``PipelineModule``
+    builds a ``PipelineEngine`` (runtime/pipe/engine.py) over ``mesh``
+    (``build_mesh({"pipe": P, ...})``, else the ``"mesh"`` block, else
+    ``{"pipe": num_stages, "data": -1}``), its params drawn from ``rng``
+    on each stage. A model config
     (``GPTConfig``) with a config that enables streaming builds the
     streamed ZeRO-Infinity engine instead (runtime/offload/streaming.py;
     ``model_parameters`` then optional, a fresh init from the streaming
@@ -2212,11 +2219,35 @@ def initialize(
                                        host_params=model_parameters,
                                        device=device, mesh=mesh)
         return engine, engine.opt, None, None
+    from .pipe.module import PipelineModule
+
+    if isinstance(model, PipelineModule):
+        # the reference builds a PipelineEngine for a PipelineModule; its
+        # batch triple counts the data axes only (pipe and model ranks
+        # hold the same rows)
+        from .pipe.engine import PipelineEngine
+
+        _bootstrap_from_raw_config(config)
+        if mesh is None:
+            mesh = _mesh_from_raw_config(config)
+        if mesh is None:
+            from ..parallel.topology import PIPE_AXIS, build_mesh
+
+            mesh = build_mesh({PIPE_AXIS: model.num_stages, "data": -1})
+        ds_config = (config if isinstance(config, TrainingConfig)
+                     else TrainingConfig(
+                         config, world_size=rules.data_parallel_size(mesh)))
+        engine = PipelineEngine(module=model, config=ds_config, mesh=mesh,
+                                optimizer=optimizer,
+                                lr_scheduler=lr_scheduler,
+                                training_data=training_data, rng=rng,
+                                device=device)
+        return (engine, engine.optimizer, engine.training_dataloader,
+                engine.lr_scheduler)
     if not callable(model):
-        raise NotImplementedError(
-            "initialize() takes a loss callable or a model config in the "
-            "PyTorch package; the PipelineModule engine is not ported yet "
-            "(ROADMAP.md queue 1, item 'MoE, TP and pipeline')")
+        raise TypeError(
+            "initialize() takes a loss callable, a PipelineModule or a "
+            "model config")
     if model_parameters is None:
         raise ValueError("model_parameters (params pytree) required")
     _bootstrap_from_raw_config(config)

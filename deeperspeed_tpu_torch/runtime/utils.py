@@ -9,8 +9,8 @@ and the memory readers ``memory_status``, ``see_memory_usage`` and
 ``mem_status`` on the CUDA caching allocator's statistics.
 
 Not ported yet (ROADMAP.md queue 1, item 'Training follow-ups'):
-``GradientNoiseScale``; ``PartitionedTensor`` waits for the pipeline
-engine (item 'MoE, TP and pipeline').
+``GradientNoiseScale``; ``PartitionedTensor``, which nothing calls yet
+(the pipeline engine included).
 """
 
 from typing import Dict, List, Optional, Sequence

@@ -6,14 +6,15 @@ backed by a paged KV cache, with drafter-backed speculative decoding
 (``spec/``) under a ``"speculative"`` block. On top of single engines,
 the fleet layer (``FleetRouter`` over ``ThreadReplica`` /
 ``SubprocessReplica`` workers) adds admission control, wall-clock
-deadlines, health-checked failover and rolling restarts. Exports the
-reference's names except ``PipelineServingBridge``, which waits for the
-pipeline slice (ROADMAP item 11).
+deadlines, health-checked failover and rolling restarts;
+``PipelineServingBridge`` serves a pipelined model (a ``PipelineEngine``).
+Exports the reference's names.
 """
 
 from .config import RouterConfig, ServingConfig, SLOConfig, SpeculativeConfig
 from .engine import (
     EngineDrainingError,
+    PipelineServingBridge,
     ServingEngine,
     derive_request_seed,
     make_decode_step,
@@ -47,6 +48,7 @@ __all__ = [
     "SLOTracker",
     "SpeculativeConfig",
     "ServingEngine",
+    "PipelineServingBridge",
     "EngineDrainingError",
     "make_decode_step",
     "derive_request_seed",

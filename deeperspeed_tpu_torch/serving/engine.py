@@ -55,8 +55,10 @@ needs one scheduler shared by processes, so a mesh with a data axis above
 1 raises (ROADMAP.md section 1, item 11), as do a live sequence axis and
 a ``"speculative"`` block with a mesh.
 
-Not ported yet (each raises or is absent): ``PipelineServingBridge`` and
-the resilience manager hook.
+``PipelineServingBridge`` serves a model through a full-prefix logits
+function, a ``PipelineEngine``'s ``inference_batch`` in particular
+(``from_pipeline_engine``), behind the same submit/step/run surface
+(``_ServingBase``).
 """
 
 import dataclasses
@@ -218,7 +220,173 @@ def _params_to(tree, device):
             for k, v in tree.items()}
 
 
-class ServingEngine:
+class _ServingBase:
+    """submit/step/run/metrics shared by ServingEngine and the pipeline
+    bridge; subclasses implement ``_admit_one`` (prefill) and
+    ``_decode_all``."""
+
+    def __init__(self, scfg: ServingConfig, scheduler: Scheduler, clock,
+                 monitor, monitor_config=None):
+        self.scfg = scfg
+        self.sched = scheduler
+        self.clock = clock
+        # telemetry facade (monitor/ package): own it when a config is
+        # passed, else adopt a process-global one if installed
+        if monitor_config is not None:
+            self.telemetry = init_monitor(monitor_config)
+        else:
+            self.telemetry = get_monitor()
+        registry = (self.telemetry.registry
+                    if self.telemetry is not None else None)
+        self.metrics = ServingMetrics(scfg.num_slots, clock, monitor,
+                                      registry, slo=scfg.slo)
+        self._rid_counter = itertools.count()
+        self._requests: Dict[str, Request] = {}
+        self._step_i = 0
+        # preemption drain: while set, step() admits nothing new and only
+        # finishes the requests already holding slots
+        self._draining = False
+        # the resilience manager drains live serving engines on preemption
+        from ..resilience import get_resilience_manager
+
+        mgr = get_resilience_manager()
+        if mgr is not None:
+            mgr.attach_serving(self)
+
+    # -- queue surface ------------------------------------------------ #
+
+    def submit(self, prompt: Union[Sequence[int], np.ndarray],
+               max_new_tokens: Optional[int] = None,
+               temperature: float = 0.0,
+               request_id: Optional[str] = None,
+               arrival_t: Optional[float] = None,
+               seed: Optional[int] = None) -> str:
+        """Queue one request; returns its id. Raises when the request
+        could never fit (context cap / pool footprint) or while the
+        engine is draining (``EngineDrainingError``)."""
+        if self._draining:
+            raise EngineDrainingError(
+                "engine is draining (preemption/restart in progress); "
+                "admits nothing new — resubmit on another replica")
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        rid = request_id if request_id is not None else \
+            f"req-{next(self._rid_counter)}"
+        if rid in self._requests:
+            raise ValueError(f"duplicate request id {rid!r}")
+        req = Request(
+            rid=rid,
+            prompt=prompt,
+            max_new_tokens=(self.scfg.max_new_tokens
+                            if max_new_tokens is None else max_new_tokens),
+            temperature=float(temperature),
+            arrival_t=self.clock() if arrival_t is None else arrival_t,
+            seed=(derive_request_seed(self.scfg.seed, rid)
+                  if seed is None else int(seed)),
+        )
+        self.sched.submit(req)
+        self._requests[rid] = req
+        trace_instant("req/submit", lane="serving", rid=rid,
+                      prompt_len=len(prompt),
+                      max_new=req.max_new_tokens)
+        return rid
+
+    def get(self, rid: str) -> Request:
+        return self._requests[rid]
+
+    def has_work(self) -> bool:
+        return self.sched.has_work()
+
+    def cancel(self, rid: str, reason: str = "timeout") -> bool:
+        """Terminate one request wherever it is (queued or active),
+        releasing its slot/blocks; partial output is kept. Returns False
+        when the rid is unknown or already finished."""
+        req = self._requests.get(rid)
+        if req is None or req.state == "finished":
+            return False
+        self.sched.finish(req, reason)
+        self.metrics.record_finish(req, self.clock())
+        return True
+
+    # -- the scheduler loop ------------------------------------------- #
+
+    def step(self) -> List[Request]:
+        """One scheduler iteration; returns requests finished by it."""
+        n_done = len(self.sched.finished)
+        with trace_span("serving/step", lane="serving", step=self._step_i):
+            now = self.clock()
+            for req in self.sched.expire_timeouts(now):
+                self.metrics.record_finish(req, now)
+            self._prefill_phase()
+            for _ in self.sched.ensure_decode_capacity(
+                    self._decode_window()):
+                self.metrics.record_preemption()
+            trace_counter("serving/load", {
+                "queued": len(self.sched.queue),
+                "active": self.sched.num_active,
+            }, lane="serving")
+            if self._has_decodable():
+                self._decode_all()
+        self._step_i += 1
+        self.metrics.export(self._step_i)
+        return self.sched.finished[n_done:]
+
+    def run(self, max_steps: Optional[int] = None) -> Dict[str, List[int]]:
+        """Drive step() until idle (or max_steps); returns {rid: tokens}
+        for every finished request."""
+        steps = 0
+        while self.has_work():
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return {r.rid: r.output for r in self.sched.finished}
+
+    def drain(self, max_steps: Optional[int] = None) -> List[str]:
+        """Preemption drain: stop admitting, run decode until every
+        in-flight (slot-holding) request finishes, and return the rids
+        left queued for the caller to re-submit elsewhere."""
+        self._draining = True
+        steps = 0
+        while self.sched.num_active:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return [r.rid for r in self.sched.queue]
+
+    # -- helpers ------------------------------------------------------ #
+
+    def _record_emitted(self, req: Request, prefill: bool) -> None:
+        now = self.clock()
+        req.last_token_t = now    # progress clock for expire_timeouts
+        if prefill:
+            ttft = None
+            if req.first_token_t is None:
+                req.first_token_t = now
+                ttft = now - req.arrival_t
+            self.metrics.record_prefill(now, ttft)
+        if self.sched.check_finished(req, now):
+            self.metrics.record_finish(req, now)
+
+    def _prefill_phase(self) -> None:
+        """Admit and prefill queued requests into free slots (the engine
+        overrides it with its chunk-aware phase)."""
+        if self._draining:
+            return
+        while (adm := self.sched.pop_admissible()) is not None:
+            self._admit_one(*adm)
+
+    def _has_decodable(self) -> bool:
+        """Whether a slot has a pending token to decode this step."""
+        return self.sched.num_active > 0
+
+    def _decode_window(self) -> int:
+        """Tokens of KV headroom each active slot needs for the next
+        decode phase."""
+        return 1
+
+
+class ServingEngine(_ServingBase):
     """Continuous batching with the slot-based paged KV cache (module
     docstring has the architecture)."""
 
@@ -244,8 +412,6 @@ class ServingEngine:
             device = "cuda"
         self.device = torch.device(device)
         self.cfg = cfg
-        self.scfg = scfg
-        self.clock = clock
         if self._tp is not None:
             # this rank's part of the whole params (its heads and FFN
             # columns); its pools hold its Hkv / tp heads
@@ -254,17 +420,8 @@ class ServingEngine:
         self.params = _params_to(params, self.device)
         self._kv_cfg = self._local_kv_cfg(cfg)
         self.kv = PagedKVCache(self._kv_cfg, scfg, self.device)
-        self.sched = Scheduler(scfg, self.kv.allocator, clock)
-        # telemetry facade (monitor/ package): own it when a config is
-        # passed, else adopt a process-global one if installed
-        if monitor_config is not None:
-            self.telemetry = init_monitor(monitor_config)
-        else:
-            self.telemetry = get_monitor()
-        registry = (self.telemetry.registry
-                    if self.telemetry is not None else None)
-        self.metrics = ServingMetrics(scfg.num_slots, clock, monitor,
-                                      registry, slo=scfg.slo)
+        super().__init__(scfg, Scheduler(scfg, self.kv.allocator, clock),
+                         clock, monitor, monitor_config)
         self._decode_step = make_decode_step(cfg, scfg, self._tp)
         # argument signatures of the decode step and the prefills: the
         # watchdog's and the cost index's counterpart of jit caches
@@ -276,18 +433,6 @@ class ServingEngine:
             # per length bucket, so it is deliberately unwatched
             self.telemetry.watchdog.watch("serving/decode_step",
                                           self._decode_sigs)
-        self._rid_counter = itertools.count()
-        self._requests: Dict[str, Request] = {}
-        self._step_i = 0
-        # preemption drain: while set, step() admits nothing new and only
-        # finishes the requests already holding slots
-        self._draining = False
-        # the resilience manager drains live serving engines on preemption
-        from ..resilience import get_resilience_manager
-
-        mgr = get_resilience_manager()
-        if mgr is not None:
-            mgr.attach_serving(self)
         # slot -> in-flight chunked-prefill state (staging cache, cursor)
         self._chunking: Dict[int, dict] = {}
         self._prefill_spent = 0   # prompt tokens prefilled this step
@@ -374,121 +519,6 @@ class ServingEngine:
                 "set_drafter_params: speculative decoding is not enabled "
                 "on this engine")
         self._spec.set_drafter_params(drafter_params)
-
-    # -- queue surface ------------------------------------------------ #
-
-    def submit(self, prompt: Union[Sequence[int], np.ndarray],
-               max_new_tokens: Optional[int] = None,
-               temperature: float = 0.0,
-               request_id: Optional[str] = None,
-               arrival_t: Optional[float] = None,
-               seed: Optional[int] = None) -> str:
-        """Queue one request; returns its id. Raises when the request
-        could never fit (context cap / pool footprint) or while the
-        engine is draining (``EngineDrainingError``)."""
-        if self._draining:
-            raise EngineDrainingError(
-                "engine is draining (preemption/restart in progress); "
-                "admits nothing new — resubmit on another replica")
-        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
-        rid = request_id if request_id is not None else \
-            f"req-{next(self._rid_counter)}"
-        if rid in self._requests:
-            raise ValueError(f"duplicate request id {rid!r}")
-        req = Request(
-            rid=rid,
-            prompt=prompt,
-            max_new_tokens=(self.scfg.max_new_tokens
-                            if max_new_tokens is None else max_new_tokens),
-            temperature=float(temperature),
-            arrival_t=self.clock() if arrival_t is None else arrival_t,
-            seed=(derive_request_seed(self.scfg.seed, rid)
-                  if seed is None else int(seed)),
-        )
-        self.sched.submit(req)
-        self._requests[rid] = req
-        trace_instant("req/submit", lane="serving", rid=rid,
-                      prompt_len=len(prompt),
-                      max_new=req.max_new_tokens)
-        return rid
-
-    def get(self, rid: str) -> Request:
-        return self._requests[rid]
-
-    def has_work(self) -> bool:
-        return self.sched.has_work()
-
-    def cancel(self, rid: str, reason: str = "timeout") -> bool:
-        """Terminate one request wherever it is (queued or active),
-        releasing its slot/blocks; partial output is kept. Returns False
-        when the rid is unknown or already finished."""
-        req = self._requests.get(rid)
-        if req is None or req.state == "finished":
-            return False
-        self.sched.finish(req, reason)
-        self.metrics.record_finish(req, self.clock())
-        return True
-
-    # -- the scheduler loop ------------------------------------------- #
-
-    def step(self) -> List[Request]:
-        """One scheduler iteration; returns requests finished by it."""
-        n_done = len(self.sched.finished)
-        with trace_span("serving/step", lane="serving", step=self._step_i):
-            now = self.clock()
-            for req in self.sched.expire_timeouts(now):
-                self.metrics.record_finish(req, now)
-            self._prefill_phase()
-            for _ in self.sched.ensure_decode_capacity(
-                    self._decode_window()):
-                self.metrics.record_preemption()
-            trace_counter("serving/load", {
-                "queued": len(self.sched.queue),
-                "active": self.sched.num_active,
-            }, lane="serving")
-            if self._active_decodable():
-                self._decode_all()
-        self._step_i += 1
-        self.metrics.export(self._step_i)
-        return self.sched.finished[n_done:]
-
-    def run(self, max_steps: Optional[int] = None) -> Dict[str, List[int]]:
-        """Drive step() until idle (or max_steps); returns {rid: tokens}
-        for every finished request."""
-        steps = 0
-        while self.has_work():
-            self.step()
-            steps += 1
-            if max_steps is not None and steps >= max_steps:
-                break
-        return {r.rid: r.output for r in self.sched.finished}
-
-    def drain(self, max_steps: Optional[int] = None) -> List[str]:
-        """Preemption drain: stop admitting, run decode until every
-        in-flight (slot-holding) request finishes, and return the rids
-        left queued for the caller to re-submit elsewhere."""
-        self._draining = True
-        steps = 0
-        while self.sched.num_active:
-            self.step()
-            steps += 1
-            if max_steps is not None and steps >= max_steps:
-                break
-        return [r.rid for r in self.sched.queue]
-
-    # -- helpers ------------------------------------------------------ #
-
-    def _record_emitted(self, req: Request, prefill: bool) -> None:
-        now = self.clock()
-        req.last_token_t = now    # progress clock for expire_timeouts
-        if prefill:
-            ttft = None
-            if req.first_token_t is None:
-                req.first_token_t = now
-                ttft = now - req.arrival_t
-            self.metrics.record_prefill(now, ttft)
-        if self.sched.check_finished(req, now):
-            self.metrics.record_finish(req, now)
 
     def _pick_token(self, logits_1d, req: Request) -> int:
         """Prefill-time next-token selection (one request). Greedy is the
@@ -701,6 +731,9 @@ class ServingEngine:
 
     # -- decode ------------------------------------------------------- #
 
+    def _has_decodable(self) -> bool:
+        return bool(self._active_decodable())
+
     def _active_decodable(self):
         """(slot, request) pairs with a pending token this step.
         Chunk-prefilling slots have none yet: their lane stays idle
@@ -770,3 +803,82 @@ class ServingEngine:
             req.cached_len += 1
             req.generated.append(int(nxt[s]))
             self._record_emitted(req, prefill=False)
+
+
+# ------------------------------------------------------------------ #
+# pipelined-model bridge
+# ------------------------------------------------------------------ #
+
+
+class PipelineServingBridge(_ServingBase):
+    """The same submit/step/run surface for a model served through a
+    full-prefix logits function, in particular a pipelined model's
+    ``PipelineEngine.inference_batch`` (the reference's per-token
+    recompute serving mode).
+
+    ``logits_fn(tokens (1, S) int64) -> logits (1, S, V)`` runs once per
+    active request per step (pipelined stages do not batch mixed-length
+    prefixes without an attention mask), so this path is for
+    compatibility, not throughput. Over a pipeline of several stages every
+    rank runs the same bridge on the same submissions, as tensor-parallel
+    serving does: each call of ``inference_batch`` is collective, and its
+    broadcast gives every rank the last stage's logits, so every rank
+    picks the same tokens. Sampling follows the port's per-request
+    generator contract (``request_sample_key``)."""
+
+    def __init__(self, logits_fn,
+                 serving_config: Union[ServingConfig, dict, None] = None,
+                 clock=time.monotonic, monitor=None, monitor_config=None):
+        scfg = (serving_config if isinstance(serving_config, ServingConfig)
+                else ServingConfig.from_dict(serving_config))
+        self.logits_fn = logits_fn
+        # no KV pool: an allocator sized so block accounting never
+        # backpressures; slots are the only admission limit here
+        from .kv_cache import BlockAllocator
+
+        alloc = BlockAllocator(1 + scfg.num_slots * scfg.blocks_per_slot)
+        super().__init__(scfg, Scheduler(scfg, alloc, clock), clock,
+                         monitor, monitor_config)
+
+    @classmethod
+    def from_pipeline_engine(cls, engine, serving_config=None, **kw):
+        """Serve a PipelineEngine (runtime/pipe/engine.py
+        ``serving_logits_fn``)."""
+        return cls(engine.serving_logits_fn(), serving_config, **kw)
+
+    def _pick(self, logits_1d, req: Request) -> int:
+        if req.temperature <= 0.0:
+            return int(torch.argmax(logits_1d))
+        top_k = self.scfg.top_k
+        if top_k is not None and top_k >= logits_1d.shape[-1]:
+            top_k = None
+        return _sample(logits_1d.float(), req.temperature, top_k, req.seed,
+                       len(req.generated))
+
+    def _emit_next(self, req: Request, prefill: bool) -> None:
+        ctx = np.asarray(req.context, np.int64)[None]
+        logits = self.logits_fn(ctx)
+        req.generated.append(self._pick(torch.as_tensor(logits)[0, -1], req))
+        req.cached_len = ctx.shape[1]   # bookkeeping only (no real cache)
+        self._record_emitted(req, prefill=prefill)
+
+    def _admit_one(self, slot: int, req: Request, blocks) -> None:
+        with trace_span("serving/prefill", lane="serving", rid=req.rid,
+                        slot=slot, ctx_len=len(req.context)):
+            timer = self.metrics.timers(PREFILL_TIMER)
+            timer.safe_start()
+            self._emit_next(req, prefill=True)
+            timer.stop()
+
+    def _decode_all(self) -> None:
+        active = list(self.sched.active)
+        with trace_span("serving/decode", lane="serving",
+                        n_active=len(active),
+                        rids=",".join(r.rid for r in active)):
+            timer = self.metrics.timers(DECODE_TIMER)
+            timer.safe_start()
+            for req in active:
+                self._emit_next(req, prefill=False)
+            timer.stop()
+        self.metrics.record_decode_step(len(active), len(self.sched.queue),
+                                        self.clock())

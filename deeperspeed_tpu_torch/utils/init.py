@@ -10,7 +10,12 @@ def normal_drawer(seed, device):
     ``seed``: an int (seeds a ``torch.Generator`` on ``device``), a
     ``torch.Generator`` on ``device`` (its stream continues from call to
     call), or a numpy ``Generator`` / ``RandomState`` (draws on the host,
-    then copies)."""
+    then copies). On the ``meta`` device it draws nothing: the tensors
+    have shapes and no storage."""
+    if torch.device(device).type == "meta":
+        # shapes only (PipelineModule counts a layer's params this way)
+        return lambda shape, s: torch.empty(shape, dtype=torch.float32,
+                                            device="meta")
     if isinstance(seed, (np.random.Generator, np.random.RandomState)):
         def norm(shape, s):
             a = seed.standard_normal(shape).astype(np.float32) * np.float32(s)

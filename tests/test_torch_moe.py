@@ -194,8 +194,8 @@ def test_expert_mesh_axes_as_reference():
     only and ZeRO shards over it, as the reference's rules say;
     ``build_mesh`` infers a -1 extent and lays the ranks out row-major
     (the reference's device order on a CPU mesh); ``filter_spec`` drops
-    the axes a mesh lacks or holds at size 1; the pipeline axis refuses,
-    naming its item."""
+    the axes a mesh lacks or holds at size 1; the pipeline axis is laid
+    out as the reference's."""
     from jax.sharding import PartitionSpec as P
 
     from deeperspeed_tpu.parallel import topology as jax_topology
@@ -220,8 +220,13 @@ def test_expert_mesh_axes_as_reference():
                      ("model", "data")):
             want = jax_topology.filter_spec(P(*spec), jmesh)
             assert topology.filter_spec(spec, mesh) == tuple(want)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        topology.build_mesh({"pipe": 2, "data": 2}, world=4)
+    # the pipeline axis is ported (the pipeline engine): laid out as the
+    # reference lays it out
+    mesh = topology.build_mesh({"pipe": 2, "data": 2}, world=4)
+    jmesh = jax_topology.build_mesh({"pipe": 2, "data": 2},
+                                    devices=jax.devices()[:4])
+    assert mesh.shape == dict(jmesh.shape)
+    assert rules.data_parallel_size(mesh) == 2
     # the tensor axis is ported (tests/test_torch_topology.py)
     assert topology.build_mesh({"model": 2, "data": 2},
                                world=4).shape == {"model": 2, "data": 2}

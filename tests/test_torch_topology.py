@@ -5,8 +5,8 @@ sharding/rules.py) against the JAX reference's:
   ``PipeModelDataParallelTopology`` and ``PipelineParallelGrid`` on the
   reference's tests/test_topology.py cases, answer for answer;
 * ``build_mesh`` with the ``model`` and ``seq`` axes (the shape, the
-  row-major rank layout of the reference's CPU device mesh), a ``pipe``
-  axis refused naming the pipeline slice;
+  row-major rank layout of the reference's CPU device mesh), the ``pipe``
+  axis laid out as the reference's;
 * ``translate_spec``, ``tp_axis``/``sp_axis``/``tp_size``/``sp_size``,
   ``logical_spec`` and the rule table on legacy and canonical meshes;
 * ``zero_tree_specs`` with the model's tensor-parallel specs: the zero
@@ -112,8 +112,15 @@ def test_build_mesh_model_and_seq_axes_as_reference(dims):
 
 
 def test_build_mesh_refusals():
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        topology.build_mesh({"pipe": 2, "data": 2}, world=4)
+    # the pipe axis is a process axis now (the pipeline engine), laid out
+    # row-major as the reference's device mesh
+    mesh = topology.build_mesh({"pipe": 2, "data": 2}, world=4)
+    jmesh = jax_topology.build_mesh({"pipe": 2, "data": 2},
+                                    devices=jax.devices()[:4])
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+    for r in range(4):
+        c = mesh.coords(r)
+        assert ids[tuple(c[a] for a in mesh.axis_names)] == r
     with pytest.raises(ValueError):
         topology.build_mesh({"data": 3, "model": 5}, world=4)
     with pytest.raises(ValueError, match="at most one"):

@@ -129,8 +129,9 @@ def test_config_fields_match_reference(cfg):
 
 @pytest.mark.parametrize("block,item", [
     ({"zero_optimization": {"stage": 3}}, "Offload and ZeRO-Infinity"),
-    # the mesh block's tp and sp run now (tests/test_torch_tp_engine.py);
-    # the pipeline stays refused
+    # the mesh block's tp and sp run now (tests/test_torch_tp_engine.py),
+    # and so does the pipeline (tests/test_torch_pipe_engine.py): its
+    # block is stored as the reference stores it
     ({"pipeline": {"stages": 4, "partition_method": "uniform"}},
      "MoE, TP and pipeline"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
@@ -149,6 +150,13 @@ def test_config_fields_match_reference(cfg):
 ])
 def test_unported_blocks_raise_naming_their_roadmap_item(block, item):
     cfg = dict({"train_batch_size": 4}, **block)
+    if item == "MoE, TP and pipeline":
+        # ported: the "pipeline" block is accepted and stored as the
+        # reference's TrainingConfig stores it
+        want = deeperspeed_tpu.runtime.config.TrainingConfig(cfg).pipeline
+        assert pt_config.TrainingConfig(cfg).pipeline == want
+        assert want == block["pipeline"]
+        return
     if "optimizer" in block or item == "Offload and ZeRO-Infinity":
         # an optimizer the port does not have is refused when initialize
         # builds it; so are ZeRO 3, offload and streaming for a loss

@@ -6,8 +6,18 @@ workers running side by side cannot collide), runs ``<name>(rank, world,
 tmp, *args)`` of this module and writes its results under ``tmp``. A rank
 that raises fails the spawn. This module imports torch and the port only:
 the reference runs in the test process.
+
+The rendezvous (``_rendezvous``) binds gloo to the loopback device
+(``GLOO_SOCKET_IFNAME=lo``: the ranks share one host, and an interface
+the hostname resolves to may refuse connections), gives it an explicit
+timeout, checks the new group with one all-reduce, and has every rank
+report its outcome in a file: when any rank failed to connect (a
+connection refused while many ranks start at once on a loaded host), all
+of them tear the group down and meet again on a fresh store. Only the
+rendezvous is retried, never a rank's work.
 """
 
+import datetime
 import json
 import os
 import pickle
@@ -23,11 +33,60 @@ import torch.multiprocessing as mp
 # ------------------------------------------------------------------ #
 
 
+RENDEZVOUS_ATTEMPTS = 4
+RENDEZVOUS_TIMEOUT_S = 120
+
+
+def _verdicts(tmp, attempt, rank, world, ok):
+    """Write this rank's outcome of rendezvous ``attempt`` and wait for
+    every rank's; True when all of them connected."""
+    with open(os.path.join(tmp, f"rendezvous.{attempt}.{rank}"), "w") as f:
+        f.write("ok" if ok else "fail")
+    deadline = time.monotonic() + 2 * RENDEZVOUS_TIMEOUT_S
+    got = {}
+    while len(got) < world:
+        for r in range(world):
+            path = os.path.join(tmp, f"rendezvous.{attempt}.{r}")
+            if r not in got and os.path.exists(path):
+                with open(path) as f:
+                    text = f.read()
+                if text:
+                    got[r] = text
+        if len(got) < world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"rank {rank}: no rendezvous verdict from "
+                                   f"ranks {sorted(set(range(world)) - set(got))}")
+            time.sleep(0.05)
+    return all(v == "ok" for v in got.values())
+
+
+def _rendezvous(rank, world, tmp):
+    """Join the gloo group of ``world`` ranks (module docstring)."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    timeout = datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S)
+    err = None
+    for attempt in range(RENDEZVOUS_ATTEMPTS):
+        store = dist.FileStore(os.path.join(tmp, f"store.{attempt}"), world)
+        ok = True
+        try:
+            dist.init_process_group("gloo", store=store, rank=rank,
+                                    world_size=world, timeout=timeout)
+            probe = torch.ones(1)
+            dist.all_reduce(probe)
+            ok = float(probe[0]) == world
+        except RuntimeError as e:  # a refused or timed-out connection
+            ok, err = False, e
+        if _verdicts(tmp, attempt, rank, world, ok):
+            return
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    raise RuntimeError(f"rank {rank}: gloo rendezvous failed "
+                       f"{RENDEZVOUS_ATTEMPTS} times") from err
+
+
 def _entry(rank, name, world, tmp, args):
     torch.set_num_threads(1)
-    store = dist.FileStore(os.path.join(tmp, "store"), world)
-    dist.init_process_group("gloo", store=store, rank=rank,
-                            world_size=world)
+    _rendezvous(rank, world, tmp)
     try:
         globals()[name](rank, world, tmp, *args)
     finally:
@@ -1177,3 +1236,176 @@ def tp_serving_run(rank, world, tmp, dims, model_kw, reqs, new):
         json.dump({"outs": outs, "kv_heads": int(eng.kv.k.shape[3]),
                    "wqkv": list(eng.params["layers"]["attn"]["wqkv"].shape)},
                   f)
+
+
+# ------------------------------------------------------------------ #
+# the pipeline engine at 2 and 4 ranks
+# ------------------------------------------------------------------ #
+
+PIPE_V, PIPE_D, PIPE_S = 32, 16, 8       # the transformer case's sizes
+
+
+def pipe_batches(kind, steps, gas, rows, seed=0):
+    """``steps`` global batches of ``gas`` micro-batches, each an (inputs,
+    labels) pair of ``rows`` rows (numpy, from a seed)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        mbs = []
+        for _ in range(gas):
+            if kind == "bert":
+                x = rng.integers(0, PIPE_V, size=(rows, PIPE_S))
+                y = rng.integers(0, PIPE_V, size=(rows, PIPE_S))
+                mbs.append((x.astype(np.int32), y.astype(np.int32)))
+            else:
+                d, o = (16, 16) if kind == "tp" else (8, 4)
+                x = rng.normal(size=(rows, d)).astype(np.float32)
+                w = np.linspace(-1, 1, d * o).reshape(d, o) / np.sqrt(d)
+                mbs.append((x, (x @ w).astype(np.float32)))
+        out.append(mbs)
+    return out
+
+
+def pipe_transformer_config(pt):
+    """The transformer case's layer config (the same fields in both
+    packages)."""
+    return dict(batch_size=4, hidden_size=PIPE_D, heads=2,
+                intermediate_size=4 * PIPE_D, attn_dropout_ratio=0.0,
+                hidden_dropout_ratio=0.0, num_hidden_layers=4,
+                pre_layer_norm=False, attn_impl="auto" if pt else "xla")
+
+
+def pipe_module(kind, stages, mesh=None, explode=False):
+    """The port's PipelineModule of a case: an MLP, tied embedding + 4
+    transformer layers + tied head ("bert"), or two ParallelMLPs
+    ("tp")."""
+    import torch.nn.functional as F
+
+    from deeperspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    from deeperspeed_tpu_torch.parallel import ParallelMLP
+    from deeperspeed_tpu_torch.runtime.pipe import (Embedding, LayerSpec,
+                                                    Linear, PipelineModule,
+                                                    TiedLayerSpec)
+
+    def mse(y, t):
+        loss = ((y.float() - t.float()) ** 2).mean()
+        return loss * 1e30 if explode else loss
+
+    if kind == "bert":
+        conf = DeepSpeedTransformerConfig(**pipe_transformer_config(True))
+
+        def xent(logits, labels):
+            return F.cross_entropy(logits.float().reshape(-1, PIPE_V),
+                                   labels.long().reshape(-1))
+
+        layers = ([TiedLayerSpec("embed", Embedding, PIPE_V, PIPE_D)]
+                  + [LayerSpec(DeepSpeedTransformerLayer, conf)
+                     for _ in range(4)]
+                  + [TiedLayerSpec("embed", Embedding, PIPE_V, PIPE_D,
+                                   forward_fn=lambda p, x: x @ p["w"].T)])
+        return PipelineModule(layers, num_stages=stages, loss_fn=xent,
+                              partition_method="uniform")
+    if kind == "tp":
+        layers = [LayerSpec(ParallelMLP, 16, 32, mesh=mesh)
+                  for _ in range(2)]
+        return PipelineModule(layers, num_stages=stages, loss_fn=mse,
+                              partition_method="uniform")
+    layers = [LayerSpec(Linear, 8, 16), torch.relu, LayerSpec(Linear, 16, 16),
+              torch.relu, LayerSpec(Linear, 16, 4)]
+    return PipelineModule(layers, num_stages=stages, loss_fn=mse,
+                          seed_layers=True, partition_method="uniform")
+
+
+def pipe_engine(case, mesh, init):
+    """The port's engine of ``case`` on ``mesh``, its params the
+    reference's ``init`` (``{"layers", "tied"}`` of numpy)."""
+    import deeperspeed_tpu_torch as pt
+    from deeperspeed_tpu_torch.models.convert import from_jax_pipeline_params
+
+    stages = int(case["dims"].get("pipe", 1)) if mesh is not None else 1
+    mod = pipe_module(case["kind"], stages, mesh,
+                      explode=case.get("explode", False))
+    eng, _, _, _ = pt.initialize(model=mod, config=case["config"], mesh=mesh,
+                                 device="cpu")
+    eng.load_module_params(from_jax_pipeline_params(init, mod))
+    return eng
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    return None if tree is None else np.asarray(tree.detach().cpu())
+
+
+def pipe_case_run(case, mesh, tmp):
+    """One case on this rank: losses, grad norms and loss scales of every
+    step, this stage's final params (whole leaves), and for the cases
+    that ask for them eval/inference outputs and a save."""
+    with open(os.path.join(tmp, f"{case['name']}_init.pkl"), "rb") as f:
+        init = pickle.load(f)
+    eng = pipe_engine(case, mesh, init)
+    rows = (case["config"]["train_micro_batch_size_per_gpu"]
+            * eng.data_parallel_size)
+    gas = case["config"].get("gradient_accumulation_steps", 1)
+    out = {"losses": [], "grad_norms": [], "scales": [],
+           "stage": eng.stage_id, "coords": mesh.coords()}
+    for mbs in pipe_batches(case["kind"], case["steps"], gas, rows):
+        out["losses"].append(float(eng.train_batch(iter(mbs))))
+        out["grad_norms"].append(eng.get_global_grad_norm())
+        out["scales"].append(eng.loss_scale())
+    out["skipped"] = eng.skipped_steps
+    out["params"] = _host_tree(eng._params_all(eng._whole(eng._opt_target)))
+    if case.get("eval"):
+        mbs = pipe_batches(case["kind"], 1, gas, rows, seed=7)[0]
+        out["eval"] = float(eng.eval_batch(iter(mbs)))
+        out["inference"] = np.asarray(eng.inference_batch(mbs[0][0]))
+    if case.get("save"):
+        eng.save_checkpoint(os.path.join(tmp, f"{case['name']}_ckpt"))
+        eng.save_fp16_model(os.path.join(tmp, f"{case['name']}_fp16"))
+    if case.get("reload"):
+        # a fresh engine of the same layout resumes the comm residuals
+        eng.save_checkpoint(os.path.join(tmp, f"{case['name']}_ckpt"))
+        back = pipe_engine(case, mesh, init)
+        back.load_checkpoint(os.path.join(tmp, f"{case['name']}_ckpt"))
+        out["residuals_restored"] = [
+            bool(torch.equal(a[k], b[k]))
+            for a, b in zip(eng._comm_state, back._comm_state) for k in a]
+        out["residual_l1"] = sum(float(a[k].abs().sum())
+                                 for a in eng._comm_state for k in a)
+    return out
+
+
+def pipe_runs(rank, world, tmp, cases):
+    """Each case of ``cases`` in turn on its own mesh over this world."""
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    out = {}
+    for case in cases:
+        out[case["name"]] = pipe_case_run(case, build_mesh(case["dims"]), tmp)
+    with open(os.path.join(tmp, f"pipe_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def pipe_serving_run(rank, world, tmp, case, prompts, news):
+    """The PipelineServingBridge over this rank's stage of the engine:
+    greedy tokens of every request."""
+    from deeperspeed_tpu_torch.parallel import build_mesh
+    from deeperspeed_tpu_torch.serving import (PipelineServingBridge,
+                                               ServingConfig)
+
+    with open(os.path.join(tmp, f"{case['name']}_init.pkl"), "rb") as f:
+        init = pickle.load(f)
+    eng = pipe_engine(case, build_mesh(case["dims"]), init)
+    bridge = PipelineServingBridge.from_pipeline_engine(
+        eng, ServingConfig(num_slots=2, block_size=8, num_blocks=16,
+                           max_seq_len=32))
+    rids = [bridge.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    outs = bridge.run()
+    with open(os.path.join(tmp, f"serve_rank{rank}.pkl"), "wb") as f:
+        pickle.dump({"outs": [outs[r] for r in rids],
+                     "finished": bridge.metrics.summary()[
+                         "requests_finished"]}, f)
+
