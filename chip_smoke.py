@@ -623,6 +623,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    one {pipe: 1} process (run after the ranks exit). Gates: 22a's loss
    and grad-norm limits, the ranks' readings equal, a live error
    feedback, no kernel launched (plain GeLU, 1-bit Adam).
+24. The single-program SPMD pipeline (SPMD_* constants; runtime/pipe/
+   spmd.py), in 23b's four processes after 23b: one GPT-NeoX-6.7B-width
+   decoder layer a stage (models/gpt.py decoder_block, the sequential
+   residual, flash attention, kernels auto, bf16 compute over fp32
+   params) on {pipe: 2, data: 1, model: 2}, SPMD_M micro-batches of 1 x
+   SPMD_SEQ seeded hidden states, MSE against seeded targets, the
+   functional FusedAdam, SPMD_STEPS steps under "1f1b" and under
+   "gpipe", then one step of each at SPMD_M_BIG. Gates, after a world-1
+   run of the two layers in sequence in this process (after the ranks
+   exit): each schedule's losses within SPMD_LOSS_RTOL and the leaves
+   (the ranks' parts joined) within SPMD_LEAF_RTOL relative L2 of world
+   1's, and of each other; each rank's launches of rows 1, 2, 5-10 and
+   13 above 0; a step's peak memory above what it starts with flat from
+   SPMD_M to SPMD_M_BIG under 1f1b (within SPMD_MEM_FLAT) and growing
+   under gpipe.
+Phase 14 also trains configs/bert_large_zero2.json's model and blocks
+(ZeRO 2, Lamb) on its two ranks (DP_LAMB_* constants), held to a world-1
+engine of the same global batch after the ranks exit (losses, the whole
+fp32 masters' leaves, the launches a step), and configs/
+gpt_125m_autotuned.json at fsdp DP_AUTOTUNED_FSDP for DP_AUTOTUNED_STEPS
+steps (finite, equal on both ranks, ZeRO over fsdp, the int8 wire).
+The spawned ranks of phases 14 and 21-24 start from a fork server that
+imported torch once (start_ranks); phase 18's 18b runs beside 18a once
+the uninterrupted runs have exited; the build's SASS reads, the bias+GeLU report and the host
+libraries' g++ run beside the nvcc builds.
 A line before the kernels line gives each phase's wall seconds. The line
 before the last is the kernels JSON object, the one before it the card;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -630,7 +655,6 @@ device the script exits non-zero before printing any result.
 """
 
 import dataclasses
-import functools
 import gc
 import hashlib
 import json
@@ -644,6 +668,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -741,7 +766,7 @@ PATH_ROWS = 2048          # B * S of the training micro-batch
 FLASH_SHAPES = ((2, 16, 1024, 128), (1, 4, 2048, 128), (1, 2, 4096, 128),
                 (1, 4, 640, 128), (1, 4, 1000, 128), (2, 12, 1024, 64),
                 (1, 8, 1024, 96), (16, 12, 1024, 64), (1, 64, 1024, 96),
-                (1, 8, 2048, 128), (1, 8, 4096, 128))
+                (1, 8, 2048, 128), (1, 8, 4096, 128), (1, 16, 2048, 128))
 # S at the kernels' tile edges (the tiles are 16, 32 and 64 rows), every
 # head dim
 FLASH_EDGE_SHAPES = tuple((1, 2, S, Dh) for S in (1, 17, 63, 65, 127, 129)
@@ -752,7 +777,9 @@ FLASH_TIMED = {(2, 16, 1024, 128): "gpt", (16, 12, 1024, 64): "dp",
                (1, 64, 1024, 96): "infinity",
                # phase 22: a tp rank's 8 heads of 6.7B at S 2048, and a
                # Ulysses rank's 8 heads of 1.3B over the whole S 4096
-               (1, 8, 2048, 128): "tp", (1, 8, 4096, 128): "tp"}
+               (1, 8, 2048, 128): "tp", (1, 8, 4096, 128): "tp",
+               # phase 24: a tp rank's 16 heads of the 6.7B-width layer
+               (1, 16, 2048, 128): "spmd"}
 # the training run's bf16 limits, kernel path against plain path
 LOSS_RTOL = 5e-3
 GNORM_RTOL = 5e-2
@@ -1068,6 +1095,9 @@ TP_SCALE_RTOL = 1e-3
 # the FFN's rows x d_ff / 4 columns of a 22a rank; the final LN's rows
 TP_LN = (TP_SEQ, 4096)
 TP_BG = (TP_SEQ, 16384 // 4)
+# phase 24's LN rows and a tp rank's FFN columns ({model: 2})
+SPMD_LN = (2048, 4096)
+SPMD_BG = (2048, 16384 // 2)
 SP_DIMS = {"data": 1, "seq": 2}
 SP_LAYERS = 2                       # of 24
 SP_SEQ = 4096
@@ -1137,6 +1167,34 @@ PIPE3D_SEQ = 1024
 PIPE3D_GAS = 2
 PIPE3D_FREEZE = 2                   # steps 1-2 exact Adam, 3-4 compressed
 PIPE3D_STEPS = 4
+
+# the single-program SPMD pipeline (phase 24, inside 23b's four
+# processes): one GPT-NeoX-6.7B-width decoder layer a stage on {pipe: 2,
+# data: 1, model: 2} (16 of its 32 heads and 8192 of its 16384 FFN
+# columns a tp rank), the sequential residual (the preset's parallel
+# residual shares one plain LN pass and launches no LN kernel), bf16
+# compute over fp32 params, SPMD_M micro-batches of 1 x SPMD_SEQ tokens,
+# MSE against seeded targets, the functional FusedAdam; SPMD_STEPS steps
+# under "1f1b" and under "gpipe" (without remat: its saved graphs grow
+# with M), then one step of each at SPMD_M_BIG for the memory gate
+SPMD_SEQ = 2048
+SPMD_M = 4
+SPMD_M_BIG = 8
+SPMD_STEPS = 3
+SPMD_LR = 1e-4
+# each run's losses and leaves against the world-1 run of the two layers
+# in sequence, and 1f1b's against gpipe's: a few times the largest
+# readings (NVIDIA H100 80GB HBM3, 700 W: losses 8.13e-6 from world 1,
+# 1.17e-7 between the schedules; leaves 3.35e-4 (attn/wqkv) from world
+# 1, 0 between the schedules); PERF.md section 2
+SPMD_LOSS_RTOL = 5e-5
+SPMD_LEAF_RTOL = 1e-3
+# a step's peak memory above what it starts with (its params, Adam state
+# and the caller's inputs) at SPMD_M_BIG: within this share of SPMD_M's
+# under 1f1b, above it under gpipe
+SPMD_MEM_FLAT = 0.05
+SPMD_ROWS = ("ln_fwd", "ln_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+             "flash_fwd", "flash_bwd")
 
 
 def share_bytecode_cache():
@@ -1589,14 +1647,47 @@ def flash_phase(fa, gen):
     return results
 
 
-@functools.lru_cache(maxsize=None)
-def sass_text(library, nvcc):
-    """``cuobjdump -sass`` (beside ``nvcc``) of a built library, run once
-    for each library."""
+# library path -> its SASS text, or the Future of the cuobjdump run that
+# build_and_disassemble started as soon as the library was built
+SASS = {}
+
+
+def disassemble(library, nvcc):
+    """``cuobjdump -sass`` (beside ``nvcc``) of a built library."""
     tool = Path(nvcc).with_name("cuobjdump")
     return subprocess.run([str(tool), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
+
+
+def sass_text(library, nvcc):
+    """The SASS of a built library: cuobjdump runs once for each
+    library."""
+    got = SASS.get(str(library))
+    if got is None:
+        got = SASS[str(library)] = disassemble(library, nvcc)
+    return got.result() if isinstance(got, Future) else got
+
+
+def build_and_disassemble(op_builder, sources, pool, first, then):
+    """Build every source (one nvcc each, side by side); as each library
+    is built, start its cuobjdump on ``pool``; once ``first`` is built,
+    start ``then()`` on a thread of its own beside the other builds.
+    Returns that thread (``Beside``)."""
+    nvcc = op_builder.find_nvcc()
+
+    def build(name):
+        op_builder.build_all([name])
+        path = op_builder.build_info[name]["path"]
+        SASS[path] = pool.submit(disassemble, path, nvcc)
+
+    with ThreadPoolExecutor(max_workers=len(sources)) as builds:
+        futs = {n: builds.submit(build, n) for n in sources}
+        futs[first].result()
+        beside = Beside(then)
+        for f in futs.values():
+            f.result()
+    return beside
 
 
 def sass_matrix_ops(library, nvcc):
@@ -3542,6 +3633,23 @@ def bert_batch(rows, seq):
             np.where(scored, ids, -100))
 
 
+def bert_expected_launches(cfg, micro_batches=1):
+    """BERT's launches a step with remat "full", which replays each layer
+    (and each checkpointed CE chunk) in the backward: two forwards per
+    layer and chunk, one backward; Lamb runs no fused Adam."""
+    L = cfg.n_layer
+    n_chunks = cfg.max_seq // cfg.ce_chunk
+    a_mb = {"add_ln_fwd": 2 * 2 * L, "add_ln_bwd": 2 * L,
+            "supertile_fwd": 2 * L, "supertile_bwd": L,
+            "bias_gelu_fwd": 2 * L + 2 * n_chunks,
+            "bias_gelu_bwd": L + n_chunks,
+            "ln_fwd": 1 + 2 * n_chunks, "ln_bwd": 1 + n_chunks,
+            "flash_fwd": 0, "flash_bwd": 0, "fused_adam": 0,
+            "sparse_fwd": 0, "sparse_bwd": 0, "quantize_rows": 0,
+            "dequant_sum_rows": 0, "dequant_rows": 0}
+    return {k: n * micro_batches for k, n in a_mb.items()}
+
+
 def bert_training_phase(card):
     """BERT-large through initialize -> train_batch; see the module
     docstring, phase 8. Returns the launch counts of the 6-step run and
@@ -3579,17 +3687,7 @@ def bert_training_phase(card):
         run = run_steps(engine, batch, kernel_counters(), BERT_STEPS)
 
     L = cfg.n_layer
-    n_chunks = cfg.max_seq // cfg.ce_chunk
-    # remat "full" replays each layer (and each checkpointed CE chunk) in
-    # the backward: two forwards per layer and chunk, one backward
-    expected = {"add_ln_fwd": 2 * 2 * L, "add_ln_bwd": 2 * L,
-                "supertile_fwd": 2 * L, "supertile_bwd": L,
-                "bias_gelu_fwd": 2 * L + 2 * n_chunks,
-                "bias_gelu_bwd": L + n_chunks,
-                "ln_fwd": 1 + 2 * n_chunks, "ln_bwd": 1 + n_chunks,
-                "flash_fwd": 0, "flash_bwd": 0, "fused_adam": 0,
-                "sparse_fwd": 0, "sparse_bwd": 0, "quantize_rows": 0,
-                "dequant_sum_rows": 0, "dequant_rows": 0}
+    expected = bert_expected_launches(cfg)
     per_step = {k: n / BERT_STEPS for k, n in run["launches"].items()}
     step_ms = statistics.median(run["step_s"][1:]) * 1e3
     tokens = ids.size
@@ -3761,6 +3859,23 @@ INT8_GNORM_RTOL = 1e-3
 # each rank's fp32 master + Adam moments against a ZeRO 0 engine's: about
 # half under ZeRO 1 on 2 ranks (leaves with no even dim stay replicated)
 ZERO1_STATE_RATIO = 0.55
+# phase 14's LAMB run: configs/bert_large_zero2.json's model and blocks
+# (ZeRO 2, LAMB) at BERT-large width on the two ranks, micro-batch
+# DP_LAMB_MICRO a rank, DP_LAMB_STEPS steps, against a world-1 engine of
+# the same global batch (two accumulation steps) stepped after the ranks
+# exit: losses within DP_LAMB_LOSS_RTOL, the whole fp32 masters' leaves
+# within DP_LAMB_LEAF_RTOL relative L2
+DP_LAMB_MICRO = 16
+DP_LAMB_STEPS = 3
+DP_LAMB_LOSS_RTOL = 1e-4
+DP_LAMB_LEAF_RTOL = 1e-3
+# the key bias, reported beside the gate (split_key_bias)
+DP_KEY_BIAS = "layers/attn_qkvb[k]"
+# configs/gpt_125m_autotuned.json at GPT-NeoX-125M, its fsdp 8 cut to the
+# two ranks (and its train_batch_size 8 to 2: micro-batch 1, no
+# accumulation, as written), DP_AUTOTUNED_STEPS steps
+DP_AUTOTUNED_FSDP = 2
+DP_AUTOTUNED_STEPS = 2
 
 
 def bits_differing(got, want):
@@ -3980,6 +4095,11 @@ def dp_rank(rank, tmp):
             comm = {"int8": None, "fp32": {"mode": "fp32"},
                     "overlap": dict(block, overlap="on")}[run]
             report[run] = dp_run(rank, comm, tmp, run)
+        # once the GPT runs' engines are freed
+        t0 = time.perf_counter()
+        report["lamb"] = dp_lamb_run(rank, DP_RANKS, tmp)
+        report["autotuned"] = dp_autotuned_run(rank)
+        report["new_runs_s"] = time.perf_counter() - t0
         (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
@@ -4079,6 +4199,211 @@ def dp_run(rank, comm, tmp, label):
     return out
 
 
+def dp_lamb_model():
+    """BERT-large as phase 8 trains it (remat "full", bf16)."""
+    from deeperspeed_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(vocab_size=30528, n_layer=24, n_head=16, d_model=1024,
+                      max_seq=128, dtype=torch.bfloat16, remat=True,
+                      remat_policy="full", ce_chunk=64, mlm_gather_frac=0.0)
+
+
+def dp_lamb_run(rank, world, tmp):
+    """configs/bert_large_zero2.json's blocks (phase 8's bert_config: ZeRO
+    2, Lamb, bf16; no scheduler: the lr 2e-3 throughout) over ``world``
+    ranks: the global batch
+    of DP_RANKS x DP_LAMB_MICRO rows, DP_LAMB_STEPS steps (world 1: two
+    accumulation steps). Each step's loss, the launches, the groups the
+    trust ratio sums over, the sharded leaves; rank 0 saves the whole
+    fp32 master (gathered over the ZeRO group) under ``tmp``."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models.bert import init_params, make_bert
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.lamb import FusedLamb
+
+    cfg = dp_lamb_model()
+    config = bert_config()
+    config.update(train_batch_size=DP_RANKS * DP_LAMB_MICRO,
+                  train_micro_batch_size_per_gpu=DP_LAMB_MICRO,
+                  gradient_accumulation_steps=DP_RANKS // world)
+    # the file's peak lr from the first step: its scheduler (a warmup of
+    # 10000 steps, cut to 4 in phase 8) leaves the lr at 0 on the first
+    # two steps
+    config.pop("scheduler")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    params = init_params(gen, cfg, device="cuda")
+    batch = bert_batch(config["train_batch_size"], cfg.max_seq)
+    with kernel_config.override():
+        engine, opt, _, _ = ds.initialize(
+            model=make_bert(cfg)[2], model_parameters=params, config=config)
+        del params
+        if not isinstance(opt, FusedLamb):
+            raise AssertionError(f"the Lamb config built {type(opt)}")
+        groups = sorted({g.size for g in _flatten(
+            opt.norm_groups or {}).values() if g is not None})
+        run = run_steps(engine, batch, kernel_counters(), DP_LAMB_STEPS)
+        master = engine._full(engine.master)
+        if rank == 0:
+            torch.save({k: v.detach().cpu() for k, v in
+                        _flatten(master).items()},
+                       Path(tmp) / f"lamb_master_world{world}.pt")
+        out = {"losses": run["losses"], "grad_norms": run["grad_norms"],
+               "step_s": run["step_s"], "launches": run["launches"],
+               "norm_group_sizes": groups,
+               "zero_sharded": sum(sp.sharded for sp in engine._specs),
+               "leaves": len(engine._specs)}
+    del engine, master, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_autotuned_config():
+    """configs/gpt_125m_autotuned.json with its "mesh" block's fsdp cut to
+    DP_AUTOTUNED_FSDP and train_batch_size to match (the file's 8 ranks x
+    micro-batch 1)."""
+    with open(ROOT / "configs" / "gpt_125m_autotuned.json") as f:
+        config = json.load(f)
+    config["mesh"] = dict(config["mesh"], fsdp=DP_AUTOTUNED_FSDP)
+    config["train_batch_size"] = (DP_AUTOTUNED_FSDP
+                                  * config["train_micro_batch_size_per_gpu"]
+                                  * config["gradient_accumulation_steps"])
+    return config
+
+
+def dp_autotuned_run(rank):
+    """DP_AUTOTUNED_STEPS steps of GPT-NeoX-125M under
+    dp_autotuned_config (its mesh from the "mesh" block, the loss built
+    without one): losses, grad norms, launches, the mesh, the ZeRO axis
+    and sharded leaves, the comm mode."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.autotune.provenance import verify_provenance
+    from deeperspeed_tpu_torch.models.gpt import (get_preset, init_params,
+                                                  make_gpt)
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.sharding import rules
+
+    config = dp_autotuned_config()
+    cfg = get_preset("neox-125m", max_seq=1024)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    params = init_params(gen, cfg, device="cuda")
+    corpus = np.load(ROOT / "data" / "corpus_tokens.npy", mmap_mode="r")
+    rows = config["train_batch_size"]
+    batch = np.asarray(corpus[: rows * (cfg.max_seq + 1)],
+                       dtype=np.int64).reshape(rows, cfg.max_seq + 1)
+    with kernel_config.override():
+        engine, _, _, _ = ds.initialize(
+            model=make_gpt(cfg)[2], model_parameters=params, config=config)
+        del params
+        run = run_steps(engine, batch, kernel_counters(),
+                        DP_AUTOTUNED_STEPS)
+        out = {"losses": run["losses"], "grad_norms": run["grad_norms"],
+               "step_s": run["step_s"], "launches": run["launches"],
+               "mesh": dict(engine.mesh.shape),
+               "zero_axis": rules.zero_axis(engine.mesh),
+               "zero_sharded": sum(sp.sharded for sp in engine._specs),
+               "comm_mode": engine.comm.cfg.mode,
+               "provenance_as_written": verify_provenance(json.loads(
+                   (ROOT / "configs" / "gpt_125m_autotuned.json")
+                   .read_text()))[0]}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_key_bias(master):
+    """BERT's fused qkv bias ``layers/attn_qkvb`` ([q | k | v] on its last
+    dim) as three leaves: the key bias's gradient is 0 in exact
+    arithmetic (a query's scores all shift by q . b_k, which the softmax
+    ignores), so its LAMB update is rounding noise that the trust ratio
+    scales to the leaf's norm, and two runs equal in exact arithmetic
+    differ there by ~lr (PERF.md). The gate reads the q and v
+    biases and every other leaf; the report gives the key bias too."""
+    out = dict(master)
+    qkv = out.pop("layers/attn_qkvb")
+    q, k, v = qkv.chunk(3, dim=-1)
+    out.update({"layers/attn_qkvb[q]": q, DP_KEY_BIAS: k,
+                "layers/attn_qkvb[v]": v})
+    return out
+
+
+def dp_lamb_report(card, ranks, tmp):
+    """Phase 14's LAMB gate, after the ranks exit: the world-1 engine of
+    the same global batch, then the ranks' losses and rank 0's whole
+    master against its (every leaf but the key bias, split_key_bias)."""
+    runs = [r["lamb"] for r in ranks]
+    t0 = time.perf_counter()
+    one = dp_lamb_run(0, 1, tmp)
+    world1_s = time.perf_counter() - t0
+    got, want = (split_key_bias(torch.load(Path(tmp) / f"lamb_master_world"
+                                           f"{w}.pt"))
+                 for w in (DP_RANKS, 1))
+    by_leaf = {k: float((got[k].double() - want[k].double()).norm()
+                        / want[k].double().norm().clamp_min(1e-300))
+               for k in want}
+    leaf = max((v, k) for k, v in by_leaf.items() if k != DP_KEY_BIAS)
+    loss = max(rel(a, b) for r in runs
+               for a, b in zip(r["losses"], one["losses"]))
+    report = {"card": card, "config": "configs/bert_large_zero2.json",
+              "ranks": DP_RANKS, "micro_batch": DP_LAMB_MICRO,
+              "steps": DP_LAMB_STEPS, "losses": runs[0]["losses"],
+              "world1_losses": one["losses"], "loss_rel_max": loss,
+              "leaf_rel_l2_max": leaf,
+              "key_bias_rel_l2": by_leaf[DP_KEY_BIAS],
+              "leaf_rel_l2": by_leaf,
+              "norm_group_sizes": runs[0]["norm_group_sizes"],
+              "zero_sharded": runs[0]["zero_sharded"],
+              "leaves": runs[0]["leaves"],
+              "rank_step_s": [r["step_s"] for r in runs],
+              "world1_step_s": one["step_s"], "world1_s": world1_s}
+    print("dp lamb: " + json.dumps(report), flush=True)
+    if runs[0]["losses"] != runs[1]["losses"]:
+        raise AssertionError("dp lamb: the ranks' losses differ")
+    if not runs[0]["losses"][-1] < runs[0]["losses"][0]:
+        raise AssertionError(f"dp lamb: the loss did not fall: "
+                             f"{runs[0]['losses']}")
+    if runs[0]["norm_group_sizes"] != [DP_RANKS] or not runs[0][
+            "zero_sharded"]:
+        raise AssertionError(f"dp lamb: no leaf sharded over the ZeRO group "
+                             f"with its norm group: {report}")
+    if not all(math.isfinite(x) for x in runs[0]["losses"]):
+        raise AssertionError(f"dp lamb: losses {runs[0]['losses']}")
+    want = bert_expected_launches(dp_lamb_model())
+    for i, r in enumerate(runs):
+        per_step = {k: n / DP_LAMB_STEPS for k, n in r["launches"].items()}
+        if per_step != want:
+            raise AssertionError(f"dp lamb rank {i}: launches a step "
+                                 f"{per_step}, expected {want}")
+    if loss > DP_LAMB_LOSS_RTOL or leaf[0] > DP_LAMB_LEAF_RTOL:
+        raise AssertionError(f"dp lamb: losses {loss:.3e} (limit "
+                             f"{DP_LAMB_LOSS_RTOL}), leaves {leaf} (limit "
+                             f"{DP_LAMB_LEAF_RTOL}) from world 1's")
+    return {k: sum(r["launches"][k] for r in runs) for k in SOURCES}
+
+
+def dp_autotuned_report(card, ranks):
+    runs = [r["autotuned"] for r in ranks]
+    report = {"card": card, "config": "configs/gpt_125m_autotuned.json",
+              "model": "neox-125m", "cut": {"mesh.fsdp": [8, DP_AUTOTUNED_FSDP],
+                                            "train_batch_size": [8, 2]},
+              **{k: runs[0][k] for k in ("losses", "grad_norms", "mesh",
+                                         "zero_axis", "zero_sharded",
+                                         "comm_mode",
+                                         "provenance_as_written")},
+              "rank_step_s": [r["step_s"] for r in runs]}
+    print("dp autotuned: " + json.dumps(report), flush=True)
+    if runs[0]["losses"] != runs[1]["losses"] or not all(
+            math.isfinite(x) for x in runs[0]["losses"]):
+        raise AssertionError(f"dp autotuned: losses {[r['losses'] for r in runs]}")
+    if not (runs[0]["zero_axis"] == "fsdp" and runs[0]["zero_sharded"]
+            and runs[0]["comm_mode"] == "int8"
+            and runs[0]["provenance_as_written"]):
+        raise AssertionError(f"dp autotuned: {report}")
+    return {k: sum(r["launches"][k] for r in runs) for k in SOURCES}
+
+
 def dp_merge_traces(monitors, tmp, name="merged"):
     """Phase 14's two traces of one run: each rank wrote its own (its role
     lane, runctx.host_role), and ``aggregate`` merges them into one
@@ -4110,20 +4435,37 @@ def dp_merge_traces(monitors, tmp, name="merged"):
 def dp_training_phase(card):
     """Phase 14: 2 ranks on one card train GPT-NeoX-125M under the blocks
     of configs/gpt_125m_comm.json (int8 comm, ZeRO 1), then with fp32
-    comm; see the module docstring. Returns the int8 run's launches (both
-    ranks) and its launches per step per rank."""
-    import torch.multiprocessing as mp
-
+    comm; see the module docstring; then the LAMB run of
+    configs/bert_large_zero2.json against world 1 and 2 steps of
+    configs/gpt_125m_autotuned.json. Returns the int8 run's launches (both
+    ranks), its launches per step per rank, the launches of the LAMB
+    and autotuned runs (both ranks) by path and the seconds those runs
+    add to the phase."""
+    print(f"dp 14: configs/gpt_125m_comm.json on {DP_RANKS} ranks "
+          f"(train_batch_size 512 -> {DP_RANKS * DP_MICRO * DP_GAS}); then "
+          f"configs/bert_large_zero2.json's model and blocks (ZeRO 2, "
+          f"Lamb), train_batch_size 4096 -> {DP_RANKS * DP_LAMB_MICRO} "
+          f"(micro-batch 48 -> {DP_LAMB_MICRO} a rank), its scheduler "
+          f"dropped (lr 2e-3 from the first step); and "
+          f"configs/gpt_125m_autotuned."
+          f"json at GPT-NeoX-125M, mesh fsdp 8 -> {DP_AUTOTUNED_FSDP}, "
+          f"train_batch_size 8 -> {DP_AUTOTUNED_FSDP}; {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        mp.start_processes(dp_rank, args=(tmp,), nprocs=DP_RANKS,
-                           start_method="spawn", join=True)
+        start_ranks(dp_rank, (tmp,), DP_RANKS, join=True)
         seconds = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(DP_RANKS)]
         merged = dp_merge_traces([r["int8"]["monitor"] for r in ranks], tmp)
         merged_overlap = dp_merge_traces(
             [r["overlap"]["monitor"] for r in ranks], tmp, "merged_overlap")
+        t0 = time.perf_counter()
+        extra = {"dp_lamb_training": dp_lamb_report(card, ranks, tmp),
+                 "autotuned_training": dp_autotuned_report(card, ranks)}
+        # the seconds the LAMB and autotuned runs add to the phase: the
+        # ranks' (side by side) and the world-1 run and reports here
+        new_s = (max(r["new_runs_s"] for r in ranks)
+                 + time.perf_counter() - t0)
     overlap_report = dp_overlap_report(ranks, merged, merged_overlap, card)
     merged.pop("trace")
     int8 = [r["int8"] for r in ranks]
@@ -4244,7 +4586,7 @@ def dp_training_phase(card):
     launches = {k: sum(r["launches"][k] for r in int8)
                 for k in int8[0]["launches"]}
     per_step = {k: n / DP_STEPS for k, n in int8[0]["launches"].items()}
-    return launches, per_step
+    return launches, per_step, extra, new_s
 
 
 def dp_overlap_report(ranks, merged, merged_overlap, card):
@@ -4683,7 +5025,10 @@ def infinity_resume_phase(card, tmp, saved):
     ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*")
                      if p.is_file())
     b = saved.pop("engine")
-    with kernel_config.override():
+    # the config's own kernels block, as 15b's initialize set it inside
+    # its scope: 15c's step 3 must take the path 15b's took
+    with kernel_config.override(
+            **infinity_config(tmp / "nvme_b")["kernels"]):
         poison_streamed(b)
         t0 = time.perf_counter()
         b.load_checkpoint(str(ckpt))
@@ -5792,9 +6137,17 @@ def start_fleet(spec, n, faults, workdir):
 
 
 def stop_fleet(fleet):
-    for rep in fleet:
+    """Stop every replica, side by side (each waits for its process to
+    exit)."""
+    def stop(rep):
         rep.stop()
         rep.kill()
+
+    threads = [threading.Thread(target=stop, args=(r,)) for r in fleet]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
 
 
 def drive_fleet(router, reqs, new):
@@ -6479,9 +6832,10 @@ def resilience_phase(card, base, refs):
     launch_t = [e["ts"] for e in launches_ev]
     restart_s = {n: lines[n][0]["t"] - launch_t[i]
                  for i, n in enumerate(names) if lines[n]}
-    # a step time only from a trainer alone on the card: steps that began
-    # after both uninterrupted runs' last step, saved nothing and were
-    # not their process's first
+    # a step time only from a trainer beside no run of its own phase:
+    # steps that began after both uninterrupted runs' last step, saved
+    # nothing and were not their process's first (18b's processes may
+    # still share the card, phase18)
     refs_end = max(ls[-1]["t"] for ls in ref_lines.values())
     alone = [x["step_s"] for n in names for x in lines[n][1:]
              if x["step"] % RES_SAVE_INTERVAL
@@ -6546,7 +6900,8 @@ def multihost_reference(base):
 def multihost_phase(card, base, ref):
     """Phase 18b: configs/gpt_125m_multihost.json under the
     FleetSupervisor, two processes sharing the card over gloo; see the
-    module docstring. ``ref``: the world-1 run's step lines. Returns the
+    module docstring. ``ref``: a function that waits for the world-1
+    run and returns its step lines. Returns the
     launches of every process's steps (summed) and the per-step launches
     of a world-2 rank."""
     from deeperspeed_tpu_torch.distributed import fleet, rendezvous
@@ -6629,6 +6984,7 @@ def multihost_phase(card, base, ref):
         raise child_failure(work, names, f"18b: the fleet ended {result}")
     lines = {n: child_lines(work, n) for n in names}
     reports = {n: child_report(work, n) for n in names}
+    ref = ref()
     covered = stitched(lines, ref, "18b")
     if sup.crashes != 1 or sup.remeshes != 1 or sup.procs != 1:
         raise AssertionError(f"18b fleet: crashes {sup.crashes}, re-meshes "
@@ -6729,7 +7085,10 @@ def multihost_phase(card, base, ref):
 
 def phase18(card):
     """Phase 18: 18a with the two uninterrupted runs started beside its
-    first incarnation, then 18b; prints the wall seconds of each half."""
+    first incarnation, and 18b beside the rest of 18a once those runs have
+    exited (the card holds 18a's trainer, 18b's two ranks and phase 15,
+    not the two runs too; the gates read losses, hashes, tags and restart
+    logs, not times); prints the wall seconds of each."""
     import shutil
 
     base = Path(tempfile.mkdtemp(prefix="chip_smoke_phase18_"))
@@ -6737,21 +7096,35 @@ def phase18(card):
     refs = start_references({
         "resilience": resilience_reference(base / "18a"),
         "multihost": multihost_reference(base / "18b")})
-    try:
-        res, res_per_step, ref_lines = resilience_phase(card, base / "18a",
-                                                        refs)
-    finally:
+    walls = {}
+
+    def run_18b():
         for proc, _, _ in refs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    t1 = time.perf_counter()
-    mh, mh_per_step = multihost_phase(card, base / "18b",
-                                      ref_lines["multihost"])
-    t2 = time.perf_counter()
+            proc.wait(timeout=PHASE18_CHILD_TIMEOUT_S)
+        walls["18b start"] = time.perf_counter() - t0
+        out = multihost_phase(card, base / "18b", lambda: collect_references(
+            {"multihost": refs["multihost"]})["multihost"])
+        walls["18b"] = time.perf_counter() - t0
+        return out
+
+    mh_box = Beside(run_18b)
+    try:
+        res, res_per_step, _ = resilience_phase(card, base / "18a", refs)
+        walls["18a"] = time.perf_counter() - t0
+    finally:
+        # 18b runs to its end (or its own failure) before anything is
+        # killed: its processes are its own to stop
+        try:
+            mh, mh_per_step = mh_box.join()
+        finally:
+            for proc, _, _ in refs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     shutil.rmtree(base, ignore_errors=True)
-    print(f"phase 18: 18a (with the uninterrupted runs) {t1 - t0:.1f} s, "
-          f"18b {t2 - t1:.1f} s", flush=True)
+    print(f"phase 18: 18a (with the uninterrupted runs) {walls['18a']:.1f}"
+          f" s; 18b from {walls['18b start']:.1f} s to {walls['18b']:.1f} "
+          f"s, beside 18a", flush=True)
     return res, res_per_step, mh, mh_per_step
 
 
@@ -7786,13 +8159,10 @@ def moe_ep_phase(card):
     launches a step of one rank."""
     import pickle
 
-    import torch.multiprocessing as mp
-
     world = math.prod(MOE_EP_DIMS.values())
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = mp.start_processes(moe_ep_rank, args=(tmp,), nprocs=world,
-                                 start_method="spawn", join=False)
+        ctx = start_ranks(moe_ep_rank, (tmp,), world, join=False)
         # the world-1 runs while the ranks start and train
         one = {impl: moe_ep_run(impl) for impl in MOE_EP_IMPLS}
         world1_s = time.perf_counter() - t0
@@ -8334,20 +8704,44 @@ def tp_rank(rank, kind, tmp):
         dist.destroy_process_group()
 
 
+# what the ranks' fork server imports once: torch (5-6 s of a process
+# start on the card's host), torch._dynamo (which the first non-reentrant
+# torch.utils.checkpoint call of a training step imports, with sympy and
+# torch.fx: most of a rank's 10-20 s first forward) and the package's
+# training modules (scripts/torch_start_probe.py). None of them
+# initializes CUDA (cuInit), so the forked ranks can.
+RANK_PRELOAD = ["torch", "torch._dynamo", "deeperspeed_tpu_torch",
+                "deeperspeed_tpu_torch.models.gpt",
+                "deeperspeed_tpu_torch.models.bert",
+                "deeperspeed_tpu_torch.ops.transformer",
+                "deeperspeed_tpu_torch.runtime.pipe.engine"]
+
+
+def start_ranks(fn, args, nprocs, join):
+    """Start ``nprocs`` processes of ``fn(rank, *args)`` from a fork
+    server that imported RANK_PRELOAD once (multiprocessing's
+    "forkserver"); a rank then imports this script and makes its own CUDA
+    context."""
+    import multiprocessing
+
+    import torch.multiprocessing as mp
+
+    multiprocessing.set_forkserver_preload(RANK_PRELOAD)
+    return mp.start_processes(fn, args=args, nprocs=nprocs,
+                              start_method="forkserver", join=join)
+
+
 def tp_spawn(kind, beside):
     """The sub-phase's ranks, with ``beside(tmp)`` run in this process
     while they start and work: (their reports, beside's result, seconds
     from spawn to the last rank's exit)."""
     import pickle
 
-    import torch.multiprocessing as mp
-
     dims = TP_RUNS[kind][0]
     world = math.prod(dims.values())
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = mp.start_processes(tp_rank, args=(kind, tmp), nprocs=world,
-                                 start_method="spawn", join=False)
+        ctx = start_ranks(tp_rank, (kind, tmp), world, join=False)
         try:
             mine = beside(tmp)
         except BaseException:
@@ -9120,8 +9514,11 @@ def pipe3d_run(mesh, tmp=None):
 
 def pipe3d_phase(card):
     """Phase 23b (module docstring): the {pipe: 1} engine runs after the
-    ranks exit. Returns the ranks' launches and their launches a
-    rank-step; the path (plain GeLU, 1-bit Adam) launches no kernel."""
+    ranks exit; then phase 24, which the same ranks ran after 23b
+    (spmd_rank_run), is held to its world-1 run (spmd_report). Returns the
+    ranks' 23b launches and their launches a rank-step (the path, plain
+    GeLU and 1-bit Adam, launches no kernel), phase 24's and its seconds
+    (the ranks' and the report's)."""
     ranks, _, spawn_s = tp_spawn("pipe3d", lambda tmp: None)
     one = pipe3d_run(None)
     fails = []
@@ -9172,11 +9569,314 @@ def pipe3d_phase(card):
         raise AssertionError("; ".join(fails))
     launches = {k: sum(s[k] for r in ranks for s in r["launches"])
                 for k in SOURCES}
-    return launches, launches_per_rank_step(ranks)
+    t0 = time.perf_counter()
+    spmd_launches, spmd_per_step = spmd_report(card, ranks, spawn_s)
+    spmd_s = (max(r["spmd"]["seconds"] for r in ranks)
+              + time.perf_counter() - t0)
+    return (launches, launches_per_rank_step(ranks), spmd_launches,
+            spmd_per_step, spmd_s)
+
+
+# ------------------------------------------------------------------ #
+# phase 24: the single-program SPMD pipeline (runtime/pipe/spmd.py)
+# ------------------------------------------------------------------ #
+
+
+def spmd_model():
+    """Phase 24's decoder layer: GPT-NeoX-6.7B width, the sequential
+    residual, bf16 compute."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+
+    return get_preset("neox-6.7b", n_layer=PIPE3D_DIMS["pipe"],
+                      max_seq=SPMD_SEQ, dtype=torch.bfloat16,
+                      parallel_residual=False)
+
+
+def spmd_whole(cfg):
+    """The two layers' fp32 params, stacked (the stage axis leads), with
+    random biases and LN affines, drawn on the card from a seed: the same
+    values on every rank and in the world-1 run."""
+    from deeperspeed_tpu_torch.models.gpt import init_params
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    layers = init_params(gen, cfg, device="cuda")["layers"]
+    with torch.no_grad():
+        randomize_affine(layers, gen)
+    return layers
+
+
+def spmd_specs(cfg):
+    """models/gpt.py's layer specs with the stage axis ("pipe") in place
+    of the layer axis."""
+    from deeperspeed_tpu_torch.models.gpt import param_specs
+    from deeperspeed_tpu_torch.ops.adam import tree_map
+    from deeperspeed_tpu_torch.sharding.rules import SectionSpec
+
+    def pipe(spec):
+        entries = ("pipe",) + tuple(spec)[1:]
+        sections = getattr(spec, "sections", None)
+        return SectionSpec(entries, sections) if sections else entries
+
+    return tree_map(pipe, param_specs(cfg)["layers"])
+
+
+def spmd_data(M, salt=0):
+    """M micro-batches of 1 x SPMD_SEQ hidden states (bf16) and their
+    fp32 targets, drawn on the card from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 240 + salt)
+    D = PIPE3D_D
+    x = torch.randn((M, 1, SPMD_SEQ, D), generator=gen, device="cuda")
+    t = torch.randn((M, 1, SPMD_SEQ, D), generator=gen, device="cuda")
+    return x.to(torch.bfloat16), t
+
+
+def spmd_stage(cfg, mesh):
+    """The stage: one decoder layer (models/gpt.py decoder_block, flash
+    attention causal, the fused LN and bias+GeLU kernels under "auto") on
+    this rank's part, f/g over the mesh's model axis; the fp32 params and
+    the input cast to bf16 inside, so the grads come back fp32."""
+    from deeperspeed_tpu_torch.models.gpt import (causal_attention,
+                                                  decoder_block,
+                                                  expand_kv_heads)
+    from deeperspeed_tpu_torch.ops.adam import tree_map
+    from deeperspeed_tpu_torch.parallel.tp import tp_transport
+
+    tp = tp_transport(mesh) if mesh is not None else None
+    positions = torch.arange(SPMD_SEQ, device="cuda")
+
+    def attend(q, k, v):
+        k, v = expand_kv_heads(q, k, v)
+        return causal_attention(q, k, v, cfg.attn_impl), None
+
+    def stage(p, x):
+        pb = tree_map(lambda t: t.to(torch.bfloat16), p)
+        y, _ = decoder_block(cfg, x.to(torch.bfloat16), pb, positions,
+                             attend, tp=tp)
+        return y
+
+    return stage
+
+
+def spmd_leaves(tree):
+    from deeperspeed_tpu_torch.models.convert import _flatten
+
+    return _flatten(tree)
+
+
+def spmd_rank_run(mesh):
+    """Phase 24 on this rank: SPMD_STEPS steps under "1f1b", the same
+    under "gpipe" from the same weights, then one step of each at
+    SPMD_M_BIG; each step's loss and seconds, the launches, the peaks,
+    1f1b's final parts (fp32, on the host) and their distance to
+    gpipe's."""
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import FusedAdam
+    from deeperspeed_tpu_torch.runtime.pipe import spmd
+
+    cfg = spmd_model()
+    specs = spmd_specs(cfg)
+    stage = spmd_stage(cfg, mesh)
+    S = mesh.shape["pipe"]
+    counters = kernel_counters()
+    out = {"coords": mesh.coords()}
+
+    def run(schedule, M, steps):
+        whole = spmd_whole(cfg)
+        part = spmd.stage_part(whole, mesh, specs)
+        del whole
+        opt = FusedAdam(lr=SPMD_LR)
+        state = opt.init(part)
+        step = spmd.make_spmd_pipeline_train_step(
+            stage, pipe3d_mse, opt, S, M, mesh, remat=False,
+            param_specs=specs, schedule=schedule)
+        x, t = spmd_data(M)
+        losses, secs = [], []
+        torch.cuda.synchronize()
+        # the step's own memory: its peak above what it starts with (the
+        # params, the Adam state and the caller's (M, 1, S, D) inputs)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        for i in range(steps):
+            t0 = time.perf_counter()
+            (part, state), loss = step(part, state, x, t, SPMD_LR)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        return part, {"losses": losses, "step_s": secs, "peak": peak,
+                      "base": base, "launches": launches, **step.stats}
+
+    with kernel_config.override(mode="auto"):
+        t0 = time.perf_counter()
+        a, out["1f1b"] = run("1f1b", SPMD_M, SPMD_STEPS)
+        a = {k: v.detach().float().cpu() for k, v in spmd_leaves(a).items()}
+        b, out["gpipe"] = run("gpipe", SPMD_M, SPMD_STEPS)
+        b = {k: v.detach().float().cpu() for k, v in spmd_leaves(b).items()}
+        out["gap"] = {k: (float((a[k] - b[k]).double().square().sum()),
+                          float(b[k].double().square().sum())) for k in a}
+        del b
+        for sched in ("1f1b", "gpipe"):
+            _, big = run(sched, SPMD_M_BIG, 1)
+            out[sched]["peak_big"] = big["peak"]
+            out[sched]["base_big"] = big["base"]
+    out["parts"] = a
+    out["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe3d_spmd_run(mesh, tmp=None):
+    """A rank of 23b's spawn: 23b's run, then phase 24's."""
+    out = pipe3d_run(mesh, tmp)
+    out["spmd"] = spmd_rank_run(mesh)
+    return out
+
+
+def spmd_world1():
+    """The two layers in sequence in this process (no mesh: whole heads
+    and columns), the same weights, micro-batches and Adam: SPMD_STEPS
+    steps of the mean over the micro-batches, each micro-batch's backward
+    on its own, the grads summed in fp32. Returns the losses and the
+    final whole params."""
+    from deeperspeed_tpu_torch.ops import kernel_config
+    from deeperspeed_tpu_torch.ops.adam import FusedAdam, tree_leaves, \
+        tree_map
+
+    cfg = spmd_model()
+    stage = spmd_stage(cfg, None)
+    whole = spmd_whole(cfg)
+    opt = FusedAdam(lr=SPMD_LR)
+    state = opt.init(whole)
+    x, t = spmd_data(SPMD_M)
+    losses = []
+    with kernel_config.override(mode="auto"):
+        for _ in range(SPMD_STEPS):
+            grads, total = None, 0.0
+            for m in range(SPMD_M):
+                p = tree_map(lambda v: v.detach().requires_grad_(True),
+                             whole)
+                y = x[m]
+                for st in range(PIPE3D_DIMS["pipe"]):
+                    y = stage(tree_map(lambda v, st=st: v[st], p), y)
+                loss = pipe3d_mse(y[None], t[m][None]) / SPMD_M
+                gs = torch.autograd.grad(loss, tree_leaves(p))
+                grads = ([g.float() for g in gs] if grads is None
+                         else [a.add_(g.float()) for a, g in zip(grads, gs)])
+                total += float(loss)
+                del p, y, loss, gs
+            it = iter(grads)
+            whole, state = opt.update(tree_map(lambda v: next(it), whole),
+                                      state, whole, lr=SPMD_LR)
+            losses.append(total)
+    return losses, whole
+
+
+def spmd_report(card, ranks, spawn_s):
+    """Phase 24's gates, after the ranks exit: every rank's losses
+    against the world-1 run's and 1f1b's against gpipe's, the leaves (the
+    ranks' parts joined) likewise, the launches of rows 1, 2 and 5-10 on
+    every rank, 1f1b's peak memory flat in M and gpipe's growing. Returns
+    the launches of the ranks' 1f1b runs and their launches a
+    rank-step."""
+    from deeperspeed_tpu_torch.parallel import build_mesh
+    from deeperspeed_tpu_torch.runtime.pipe import spmd
+
+    t0 = time.perf_counter()
+    one, whole = spmd_world1()
+    world1_s = time.perf_counter() - t0
+    cfg = spmd_model()
+    mesh = build_mesh(PIPE3D_DIMS, world=math.prod(PIPE3D_DIMS.values()))
+    specs = spmd_specs(cfg)
+    runs = [r["spmd"] for r in ranks]
+    diff, norm, gap, gnorm = {}, {}, {}, {}
+    for r in runs:
+        mesh.rank = mesh._rank_of(r["coords"])
+        want = spmd_leaves(spmd.stage_part(whole, mesh, specs))
+        for k, v in r["parts"].items():
+            w = want[k].detach().float().cpu().double()
+            diff[k] = diff.get(k, 0.0) + float((v.double() - w).square()
+                                               .sum())
+            norm[k] = norm.get(k, 0.0) + float(w.square().sum())
+            g2, n2 = r["gap"][k]
+            gap[k] = gap.get(k, 0.0) + g2
+            gnorm[k] = gnorm.get(k, 0.0) + n2
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaf = max((math.sqrt(diff[k] / max(norm[k], 1e-300)), k) for k in diff)
+    leaf_gap = max((math.sqrt(gap[k] / max(gnorm[k], 1e-300)), k)
+                   for k in gap)
+    loss = {sched: max(rel(a, b) for r in runs
+                       for a, b in zip(r[sched]["losses"], one))
+            for sched in ("1f1b", "gpipe")}
+    sched_loss = max(rel(a, b) for r in runs
+                     for a, b in zip(r["1f1b"]["losses"],
+                                     r["gpipe"]["losses"]))
+    mem = {sched: [(r[sched]["peak_big"] - r[sched]["base_big"])
+                   / (r[sched]["peak"] - r[sched]["base"]) - 1.0
+                   for r in runs] for sched in ("1f1b", "gpipe")}
+    per_step = {k: sum(r["1f1b"]["launches"][k] for r in runs)
+                / (len(runs) * SPMD_STEPS) for k in SOURCES}
+    report = {
+        "card": card, "mesh": PIPE3D_DIMS, "d_model": PIPE3D_D,
+        "heads": 32, "ffn": PIPE3D_FFN, "seq": SPMD_SEQ,
+        "micro_batches": SPMD_M, "steps": SPMD_STEPS, "spawn_s": spawn_s,
+        "world1_losses": one, "world1_s": world1_s,
+        "losses": {s: runs[0][s]["losses"] for s in ("1f1b", "gpipe")},
+        "loss_rel_max": loss, "schedules_loss_rel_max": sched_loss,
+        "leaf_rel_l2_max": leaf, "schedules_leaf_rel_l2_max": leaf_gap,
+        "rank_step_s": {s: [r[s]["step_s"] for r in runs]
+                        for s in ("1f1b", "gpipe")},
+        "peak_gib": {s: [[r[s]["peak"] / 2 ** 30,
+                          r[s]["peak_big"] / 2 ** 30] for r in runs]
+                     for s in ("1f1b", "gpipe")},
+        "step_peak_above_start_gib": {
+            s: [[(r[s]["peak"] - r[s]["base"]) / 2 ** 30,
+                 (r[s]["peak_big"] - r[s]["base_big"]) / 2 ** 30]
+                for r in runs] for s in ("1f1b", "gpipe")},
+        "step_peak_growth_m4_to_m8": mem,
+        "ring_bytes": [r["1f1b"].get("ring_bytes") for r in runs],
+        "gpipe_saved_bytes": [r["gpipe"].get("saved_bytes") for r in runs],
+        "launches_per_rank_step": per_step}
+    print("spmd 24: " + json.dumps(report), flush=True)
+    fails = []
+    for sched in ("1f1b", "gpipe"):
+        if not all(math.isfinite(x) for r in runs for x in r[sched]["losses"]):
+            fails.append(f"spmd 24: a non-finite {sched} loss")
+        if loss[sched] > SPMD_LOSS_RTOL:
+            fails.append(f"spmd 24: {sched}'s loss {loss[sched]:.3e} from "
+                         f"world 1's (limit {SPMD_LOSS_RTOL})")
+    if sched_loss > SPMD_LOSS_RTOL:
+        fails.append(f"spmd 24: 1f1b's loss {sched_loss:.3e} from gpipe's "
+                     f"(limit {SPMD_LOSS_RTOL})")
+    if leaf[0] > SPMD_LEAF_RTOL or leaf_gap[0] > SPMD_LEAF_RTOL:
+        fails.append(f"spmd 24: leaves {leaf} from world 1's, {leaf_gap} "
+                     f"from gpipe's (limit {SPMD_LEAF_RTOL})")
+    if max(mem["1f1b"]) > SPMD_MEM_FLAT:
+        fails.append(f"spmd 24: 1f1b's step peak grew {mem['1f1b']} from M "
+                     f"{SPMD_M} to {SPMD_M_BIG} (limit {SPMD_MEM_FLAT})")
+    if min(mem["gpipe"]) <= SPMD_MEM_FLAT:
+        fails.append(f"spmd 24: gpipe's step peak grew only {mem['gpipe']} "
+                     f"from M {SPMD_M} to {SPMD_M_BIG}")
+    for i, r in enumerate(runs):
+        missing = [k for k in SPMD_ROWS + ("fused_adam",)
+                   if not r["1f1b"]["launches"][k]]
+        if missing:
+            fails.append(f"spmd 24 rank {i}: no launch of {missing}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    launches = {k: sum(r["1f1b"]["launches"][k] for r in runs)
+                for k in SOURCES}
+    return launches, per_step
 
 
 TP_RUNS.update(pipe=(PIPE_DIMS, pipe_train_run),
-               pipe3d=(PIPE3D_DIMS, pipe3d_run))
+               pipe3d=(PIPE3D_DIMS, pipe3d_spmd_run))
 
 
 class Beside(threading.Thread):
@@ -9202,33 +9902,33 @@ class Beside(threading.Thread):
         return self._out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def build_phase(wall):
+    """Phase 1: build the six sources and the host libraries, and the
+    build reports; their wall seconds into ``wall``."""
     from deeperspeed_tpu_torch.ops import flash_attention as fa
     from deeperspeed_tpu_torch.ops import flash_static as fs
     from deeperspeed_tpu_torch.ops import fused_adam as fad
     from deeperspeed_tpu_torch.ops import fused_blocks as fb
     from deeperspeed_tpu_torch.ops import fused_quant as fq
     from deeperspeed_tpu_torch.ops import op_builder
+    from deeperspeed_tpu_torch.ops.adam import load_cpu_adam
+    from deeperspeed_tpu_torch.ops.aio import load_aio
     from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
 
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    t_main = time.perf_counter()
-    wall = {}
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} "
-          f"capability {torch.cuda.get_device_capability(0)}", flush=True)
     t0 = time.perf_counter()
     # every source is built here, before phase 14 spawns its ranks, so the
     # ranks load the libraries and never race on build/kernels/
     sources = ("fused_blocks", "flash_attention", "supertile_attention",
                "fused_adam", "sparse_attention", "fused_quant")
-    op_builder.build_all(sources)
+    # the libraries' SASS is read as each is built, and the bias+GeLU
+    # report (its launch profile on the card) runs while the other
+    # sources compile
+    sass_pool = ThreadPoolExecutor(max_workers=len(sources))
+    # phase 15's host libraries (g++) build beside the nvcc builds
+    host_libs = Beside(lambda: (load_cpu_adam(), load_aio()))
+    bg_report = build_and_disassemble(
+        op_builder, sources, sass_pool, "fused_blocks",
+        lambda: bias_gelu_build_report(fb, op_builder))
     fb._lib()
     fa._lib()
     fs._lib()
@@ -9251,9 +9951,34 @@ def main() -> int:
     tensor_core_build_report(bs, fs, op_builder)
     backward_build_report(fb, fs, op_builder)
     ln_fwd_build_report(fb)
-    bias_gelu_build_report(fb, op_builder)
+    bg_report.join()
+    host_libs.join()
+    sass_pool.shutdown()
 
     wall["build_reports"] = time.perf_counter() - t0 - wall["build"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deeperspeed_tpu_torch.ops import flash_attention as fa
+    from deeperspeed_tpu_torch.ops import flash_static as fs
+    from deeperspeed_tpu_torch.ops import fused_adam as fad
+    from deeperspeed_tpu_torch.ops import fused_blocks as fb
+    from deeperspeed_tpu_torch.ops import fused_quant as fq
+    from deeperspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t_main = time.perf_counter()
+    wall = {}
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"capability {torch.cuda.get_device_capability(0)}", flush=True)
+    build_phase(wall)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = kernel_phase(fb, gen)
@@ -9273,7 +9998,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for shapes in ((INFINITY_LN, INFINITY_BG, "infinity"),
-                   (ONEBIT_LN, ONEBIT_BG, "onebit"), (TP_LN, TP_BG, "tp")):
+                   (ONEBIT_LN, ONEBIT_BG, "onebit"), (TP_LN, TP_BG, "tp"),
+                   (SPMD_LN, SPMD_BG, "spmd")):
         for name, rows in ffn_kernel_cases(fb, gen, *shapes).items():
             cases[name].extend(rows)
     for name, rows in spec_kernel_cases(fb, gen).items():
@@ -9322,7 +10048,9 @@ def main() -> int:
     bert, bert_per_step = timed("8 bert", bert_training_phase, card)
     sparse, sparse_per_step = timed("12 sparse training",
                                     sparse_training_phase, card)
-    dp, dp_per_step = timed("14 data parallel", dp_training_phase, card)
+    dp, dp_per_step, dp_extra, dp_new_s = timed("14 data parallel",
+                                                dp_training_phase, card)
+    wall["14's LAMB and autotuned runs (inside 14)"] = dp_new_s
     # phase 18 beside phase 15: 18's parent only drives trainer processes
     # (no CUDA, no kernels block here), 15 works the host's numpy and
     # NVMe with the card mostly idle; their wall seconds overlap
@@ -9349,7 +10077,9 @@ def main() -> int:
     tp_serving = timed("22c tp serving", tp_serving_phase, card)
     pipe, pipe_per_step, pipe_serving = timed("23a pipe",
                                               pipe_training_phase, card)
-    pipe3d, pipe3d_per_step = timed("23b pipe 3d", pipe3d_phase, card)
+    pipe3d, pipe3d_per_step, spmd, spmd_per_step, spmd_s = timed(
+        "23b pipe 3d and 24 spmd", pipe3d_phase, card)
+    wall["24 spmd (inside 23b)"] = spmd_s
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -9371,7 +10101,8 @@ def main() -> int:
              "moe_ep_training": moe_ep, "moe_serving": moe_serving,
              "tp_training": tp, "sp_training": sp,
              "tp_serving": tp_serving, "pipe_training": pipe,
-             "pipe_serving": pipe_serving, "pipe_3d_training": pipe3d}
+             "pipe_serving": pipe_serving, "pipe_3d_training": pipe3d,
+             "spmd_pipeline_training": spmd, **dp_extra}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -9426,7 +10157,9 @@ def main() -> int:
                                   "pipe_training_per_stage":
                                       pipe_per_step[name],
                                   "pipe_3d_training_per_rank":
-                                      pipe3d_per_step[name]},
+                                      pipe3d_per_step[name],
+                                  "spmd_pipeline_training_per_rank":
+                                      spmd_per_step[name]},
         }
         for path in ("infinity", "onebit"):
             # the kernel at the streamed GPT-NeoX-20B step's shape, and at
@@ -9444,6 +10177,13 @@ def main() -> int:
                 "library_ms", "max_abs_err")}
             entry["spec_path"]["launches_per_request"] = \
                 spec[name] / len(SPEC_LENS)
+        spmd_rows = [r for r in rows if r.get("path") == "spmd"]
+        if spmd_rows:
+            # the kernel at phase 24's shapes (a tp rank of the SPMD
+            # pipeline's 6.7B-width layer)
+            entry["spmd_path"] = [{k: r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for r in spmd_rows]
         tp_rows = [r for r in rows if r.get("path") == "tp"]
         if tp_rows:
             # the kernel at phase 22's shapes: a tp rank's FFN columns and

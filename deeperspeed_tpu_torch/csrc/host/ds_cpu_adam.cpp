@@ -370,13 +370,18 @@ inline float quant_block(const float* x, int64_t e0, int64_t count,
     return s;
 }
 
+// The generalized pass (ds_stream_chunk_step2). ds_stream_blocks_step2
+// runs it over one leaf's wire blocks [b_begin, b_end) with the uplink
+// left as the caller zeroed it: one code, so the same instructions and
+// the same bytes whether a leaf is stepped whole or in pieces.
 int stream_chunk_step2_impl(
     int optimizer_id, int64_t step, float lr, const unsigned char* g_packed,
     const float* g_scales, void* master, void* exp_avg, void* exp_avg_sq,
     int state_bf16, uint16_t* shadow, unsigned char* out_packed,
     float* out_scales, unsigned char* out_c, float* out_s, uint16_t* out_w,
     const int64_t* leaf_sizes, const int* leaf_bits, const int* res_bits,
-    int64_t n_leaves, int block, int mode) {
+    int64_t n_leaves, int block, int mode, int64_t b_begin = 0,
+    int64_t b_end = -1, bool zero_uplink = true) {
     AdamConfig c;
     {
         std::lock_guard<std::mutex> g(g_mu);
@@ -424,14 +429,16 @@ int stream_chunk_step2_impl(
             up_codes = out_packed + g_byte_off;  // wire-shaped delta uplink
             up_scales = out_scales + g_scale_off;
             up_bits = bits;
-            memset(up_codes, 0, (size_t)g_leaf_bytes);
+            if (zero_uplink) memset(up_codes, 0, (size_t)g_leaf_bytes);
         } else if (rb < 16) {
             up_codes = out_c + c_byte_off;
             up_scales = out_s + c_scale_off;
             up_bits = rb;
-            memset(up_codes, 0, (size_t)(rb == 4 ? padded / 2 : padded));
+            if (zero_uplink)
+                memset(up_codes, 0, (size_t)(rb == 4 ? padded / 2 : padded));
         }
-        for (int64_t b = 0; b < nb; ++b) {
+        const int64_t b1 = b_end < 0 ? nb : b_end;
+        for (int64_t b = b_begin; b < b1; ++b) {
             const int64_t e0 = b * block;
             const int64_t count = (e0 + block <= n) ? block : (n - e0);
             if (count <= 0) {  // pure padding block: zero codes, unit scale
@@ -580,6 +587,32 @@ int ds_stream_chunk_step2(int optimizer_id, long long step, float lr,
         exp_avg_sq, state_bf16, (uint16_t*)shadow, out_packed, out_scales,
         out_c, out_s, (uint16_t*)out_w, (const int64_t*)leaf_sizes,
         leaf_bits, res_bits, n_leaves, block, mode);
+}
+
+// Blocks [b_begin, b_end) of ONE leaf of ds_stream_chunk_step2's pass,
+// every pointer at that leaf's base (its wire, scales, state, shadow and
+// uplink). The uplink codes are NOT zeroed here: the caller zeroes them
+// once, and may then run disjoint block ranges on several threads, except
+// that under a 4-bit uplink a block of the leaf's lower half and one of
+// its upper half share bytes (streaming.py runs the halves one after the
+// other). The bytes are those of ds_stream_chunk_step2 over the whole
+// leaf. Returns 0; -1 unknown optimizer id; -2 unsupported precisions.
+int ds_stream_blocks_step2(int optimizer_id, long long step, float lr,
+                           const unsigned char* g_packed,
+                           const float* g_scales, void* master,
+                           void* exp_avg, void* exp_avg_sq, int state_bf16,
+                           unsigned short* shadow, unsigned char* up_codes,
+                           float* up_scales, unsigned short* out_w,
+                           long long n, int bits, int res_bits, int block,
+                           int mode, long long b_begin, long long b_end) {
+    const int64_t size = n;
+    // one leaf: its uplink is the wire-shaped delta (mode 0) or the
+    // resident codes / words (mode 1) at the leaf's base
+    return stream_chunk_step2_impl(
+        optimizer_id, step, lr, g_packed, g_scales, master, exp_avg,
+        exp_avg_sq, state_bf16, (uint16_t*)shadow, up_codes, up_scales,
+        up_codes, up_scales, (uint16_t*)out_w, &size, &bits, &res_bits, 1,
+        block, mode, b_begin, b_end, false);
 }
 
 // Introspection for ds_report.

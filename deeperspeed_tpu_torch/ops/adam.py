@@ -170,6 +170,16 @@ _CPU_ADAM_SIGNATURES = {
         _c.POINTER(_c.c_int),
         _c.c_longlong, _c.c_int, _c.c_int,  # n_leaves, block, mode
     ], _c.c_int),
+    "ds_stream_blocks_step2": ([
+        _c.c_int, _c.c_longlong, _c.c_float,
+        _U8P, _FP,                    # the leaf's wire grads and scales
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,  # state, bf16 flag
+        _U16P,                        # the leaf's bf16 shadow (mode 0)
+        _U8P, _FP, _U16P,             # the leaf's uplink codes/scales/words
+        _c.c_longlong, _c.c_int, _c.c_int,  # n, wire bits, resident bits
+        _c.c_int, _c.c_int,           # block, mode
+        _c.c_longlong, _c.c_longlong,  # the block range
+    ], _c.c_int),
 }
 
 
@@ -291,6 +301,36 @@ class DeepSpeedCPUAdam(FusedAdam):
             _ptr(rbits, _c.c_int), len(sizes), int(block), int(mode))
         if rc != 0:
             raise RuntimeError(f"native stream_chunk_step2 failed ({rc})")
+        return True
+
+    def step_stream_blocks2(self, step, g_packed, g_scales, master, exp_avg,
+                            exp_avg_sq, shadow_u16, up_codes, up_scales,
+                            out_w, n, bits, res_bits, block, mode, b_begin,
+                            b_end, lr=None) -> bool:
+        """Wire blocks [b_begin, b_end) of ONE leaf of
+        ``step_stream_chunk2`` (``ds_stream_blocks_step2``): each array is
+        the leaf's own (its wire, scales, state, shadow, uplink), the
+        uplink codes zeroed by the caller beforehand. Disjoint ranges may
+        run on several threads, except the two halves of a leaf with a
+        4-bit uplink, whose blocks share bytes. False when the library is
+        not loaded or the precisions are not 4/8-bit wire and 4/8/16-bit
+        resident."""
+        if self._lib is None:
+            return False
+        if bits not in (4, 8) or (mode == 1 and res_bits not in (4, 8, 16)):
+            return False
+        lr = self.lr if lr is None else float(lr)
+        vptr = lambda a: _c.c_void_p(a.ctypes.data)
+        rc = self._lib.ds_stream_blocks_step2(
+            self._opt_id, int(step), lr,
+            _ptr(g_packed, _c.c_uint8), _ptr(g_scales, _c.c_float),
+            vptr(master), vptr(exp_avg), vptr(exp_avg_sq),
+            int(master.dtype == np.uint16), _ptr(shadow_u16, _c.c_uint16),
+            _ptr(up_codes, _c.c_uint8), _ptr(up_scales, _c.c_float),
+            _ptr(out_w, _c.c_uint16), int(n), int(bits), int(res_bits),
+            int(block), int(mode), int(b_begin), int(b_end))
+        if rc != 0:
+            raise RuntimeError(f"native stream_blocks_step2 failed ({rc})")
         return True
 
     def step_flat(self, step, params, grads, exp_avg, exp_avg_sq, lr=None,

@@ -18,6 +18,12 @@ Like ops/adam.py and ops/lamb.py, ``update`` writes the params and the
 state IN PLACE and returns them, and keeps its temporaries to one
 fp32 buffer and one byte mask a leaf. The reference has no kernel for
 either optimizer; neither has the port.
+
+Where a rank keeps part of a leaf (a tp cut, a ZeRO shard, or both),
+``scale_groups`` (set by the engines) names the group its parts lie
+over: the 1-bit scale is the whole leaf's mean, and 1-bit LAMB's warmup
+ratios take the whole leaf's norms (ops/lamb.py ``whole_norms``); the
+frozen ratios stay as they are.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ...ops.adam import tree_leaves, tree_map
+from ...ops.lamb import trust_ratio, whole_norms
 from .compressed import _l1_scale
 
 __all__ = ["OnebitAdam", "OnebitAdamState", "OnebitLamb",
@@ -148,6 +155,9 @@ class OnebitLamb:
         self.freeze_step = int(freeze_step)
         self.max_coeff = max_coeff
         self.min_coeff = min_coeff
+        # as OnebitAdam's: the group a leaf's parts lie over, for the
+        # 1-bit scale and the warmup's whole-leaf norms (ops/lamb.py)
+        self.scale_groups = None
 
     def init(self, params) -> OnebitLambState:
         def one(p):
@@ -167,25 +177,40 @@ class OnebitLamb:
         step = state.step + 1
         warm = step <= self.freeze_step
 
-        def leaf(p, g, m, v, e, fr):
-            p32 = _moments(p, g, m, v, e, b1, b2, warm)
+        # one tuple a leaf, in the params' key order
+        trees = (params, grads, state.exp_avg, state.exp_avg_sq, state.error,
+                 state.frozen_ratio)
+        if self.scale_groups is not None:
+            trees += (self.scale_groups,)
+        rows = [r + (None,) * (7 - len(r))
+                for r in tree_leaves(tree_map(lambda *x: x, *trees))]
+        for p, g, m, v, e, _, gr in rows:
+            _moments(p, g, m, v, e, b1, b2, warm, gr)
+        groups = [r[6] for r in rows]
+        norms = [None] * len(groups)
+        if warm:
+            # the partial leaves' norms over their groups first, the
+            # direction computed again below (the same bits)
+            norms = whole_norms(
+                [None if gr is None else torch.stack([
+                    p.float().square().sum(), _direction(
+                        m, v, self.eps, self.weight_decay, p.float())
+                    .square().sum()])
+                 for p, _, m, v, _, _, gr in rows],
+                groups)
+        for (p, _, m, v, _, fr, _), nm in zip(rows, norms):
+            p32 = p.float()
             upd = _direction(m, v, self.eps, self.weight_decay, p32)
             if warm:
-                w_norm = torch.linalg.vector_norm(p32)
-                u_norm = torch.linalg.vector_norm(upd)
-                live = torch.where(
-                    (w_norm > 0) & (u_norm > 0),
-                    torch.clamp(w_norm / u_norm, self.min_coeff,
-                                self.max_coeff),
-                    torch.ones_like(w_norm))
+                if nm is None:
+                    nm = (torch.linalg.vector_norm(p32),
+                          torch.linalg.vector_norm(upd))
                 # warmup tracks the live ratio; the one of the freeze step
                 # stays (the reference's frozen lamb coefficients)
-                fr.copy_(live)
+                fr.copy_(trust_ratio(nm[0], nm[1], self.min_coeff,
+                                     self.max_coeff))
             upd.mul_(lr * fr)
             p.copy_(torch.sub(p32, upd, out=upd))
-
-        tree_map(leaf, params, grads, state.exp_avg, state.exp_avg_sq,
-                 state.error, state.frozen_ratio)
         return params, OnebitLambState(step, state.exp_avg,
                                        state.exp_avg_sq, state.error,
                                        state.frozen_ratio)

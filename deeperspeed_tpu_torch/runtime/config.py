@@ -77,6 +77,23 @@ class TrainingConfig:
         # admissible world size (Engine._train_step_canonical)
         self.elastic_canonical_shards = 0
         self._refuse_unported(self._param_dict)
+        # the autotuner's record: only its keys are checked here, as the
+        # reference does (its config.py); the knob hash is
+        # autotune.provenance.verify_provenance's
+        self.provenance_params = self._param_dict.get(c.PROVENANCE, None)
+        if self.provenance_params is not None:
+            from ..autotune.provenance import PROVENANCE_REQUIRED_KEYS
+
+            if not isinstance(self.provenance_params, dict):
+                raise ConfigError(
+                    '"provenance" must be the record emitted by '
+                    'deeperspeed_tpu.autotune (a dict)')
+            missing = [k for k in PROVENANCE_REQUIRED_KEYS
+                       if k not in self.provenance_params]
+            if missing:
+                raise ConfigError(
+                    f'"provenance" record is missing keys {missing} — '
+                    f"re-run the autotuner or drop the block")
         self._handle_elasticity()
         self._initialize_params(self._param_dict)
         self._set_batch_related_parameters()
@@ -95,8 +112,6 @@ class TrainingConfig:
 
         if _block_enabled(pd, c.AUTOTUNE):
             raise _unported(f'the "{c.AUTOTUNE}" block', "Tooling")
-        if pd.get(c.PROVENANCE) is not None:
-            raise _unported('the "provenance" block', "Tooling")
 
         flag_blocks = (
             (c.PROGRESSIVE_LAYER_DROP, c.PLD_ENABLED, "Tooling"),

@@ -255,6 +255,20 @@ def _refuse_offload(config: TrainingConfig) -> None:
             f"for a loss callable, does not stream ({item})")
 
 
+def part_groups_attr(optimizer):
+    """The attribute through which ``optimizer`` takes, per leaf, the
+    group a rank's part of the leaf lies over (a tree of Transports; None
+    for a whole leaf), where its update needs a whole-leaf statistic:
+    LAMB's trust-ratio norms (``norm_groups``), the 1-bit scale and the
+    1-bit LAMB's warmup norms (``scale_groups``); None for an elementwise
+    optimizer."""
+    if isinstance(optimizer, FusedLamb):
+        return "norm_groups"
+    if isinstance(optimizer, (OnebitAdam, OnebitLamb)):
+        return "scale_groups"
+    return None
+
+
 class Engine(ConfigAccessorsMixin):
     def __init__(
         self,
@@ -404,13 +418,14 @@ class Engine(ConfigAccessorsMixin):
         self._init_optimizer_cuts(params)
         if (any(sp.sharded for sp in self._specs)
                 and not isinstance(self.optimizer,
-                                   (FusedAdam, SGD, OnebitAdam))):
+                                   (FusedAdam, SGD, OnebitAdam, FusedLamb,
+                                    OnebitLamb))):
             raise NotImplementedError(
                 f"ZeRO stage {self.zero_stage} over {self._zero_size} ranks "
-                f"shards the optimizer state, which the port does only for "
-                f"Adam, SGD and 1-bit Adam (elementwise updates, the 1-bit "
-                f"scale summed over the shards); LAMB's trust ratio needs "
-                f"whole-leaf norms: use stage 0 or one rank")
+                f"shards the optimizer state, which the port does for "
+                f"Adam, SGD, LAMB and the 1-bit optimizers (their "
+                f"whole-leaf statistics summed over the shards), not for "
+                f"{type(self.optimizer).__name__}: use stage 0 or one rank")
 
         # the engine owns its state: copies, never aliases of the caller's
         with torch.no_grad():
@@ -606,18 +621,12 @@ class Engine(ConfigAccessorsMixin):
     def _init_optimizer_cuts(self, params):
         """The optimizers that need a whole leaf's statistic where a rank
         keeps part of a leaf (cut over a model axis, a ZeRO shard over the
-        data group, or both): the 1-bit Adam's scale (mean |m + e|) is
-        taken over the whole leaf, its sum over the leaf's axes; LAMB's
-        trust ratio would need whole-leaf norms and is refused on cut
-        leaves (on ZeRO shards by ``__init__``)."""
-        if self._has_cuts and isinstance(self.optimizer,
-                                         (FusedLamb, OnebitLamb)):
-            raise NotImplementedError(
-                f"{type(self.optimizer).__name__} on leaves cut over the "
-                f"mesh's model axes: its trust ratio needs whole-leaf norms "
-                f"(ROADMAP.md section 1, item 11); use Adam, 1-bit Adam or "
-                f"SGD")
-        if not isinstance(self.optimizer, OnebitAdam):
+        data group, or both) get the group of each such leaf: the 1-bit
+        optimizers' scale (mean |m + e|) and LAMB's trust-ratio norms
+        (FusedLamb's ``norm_groups``, 1-bit LAMB's ``scale_groups``) are
+        summed over the leaf's axes."""
+        attr = part_groups_attr(self.optimizer)
+        if attr is None:
             return
         zaxis = rules.zero_axis(self.mesh)
 
@@ -630,9 +639,9 @@ class Engine(ConfigAccessorsMixin):
                 tuple(a for a in self.mesh.axis_names if a in axes))
 
         groups = [group(c, sp) for c, sp in zip(self._cuts, self._specs)]
-        self.optimizer.scale_groups = (
-            tree_unflatten(params, groups)
-            if any(g is not None for g in groups) else None)
+        setattr(self.optimizer, attr,
+                tree_unflatten(params, groups)
+                if any(g is not None for g in groups) else None)
 
     def _model_whole(self, tree, keep=True, host=False):
         """A tree like the params whose cut leaves are gathered whole over

@@ -127,15 +127,76 @@ def _host_array(x) -> np.ndarray:
 # --------------------------------------------------------------------- #
 
 
+# the host passes below split a large vector into contiguous pieces on
+# torch's intra-op threads (numpy drops the GIL in its loops); every
+# element (every block, for the codecs) is computed alone, so the bytes
+# are those of one pass. Vectors under PAR_MIN elements take one pass.
+PAR_MIN = 1 << 20
+
+
+def par_ranges(n: int, align: int = 1, threads: Optional[int] = None,
+               unit: int = 1):
+    """[(start, stop)] covering range(n) (items of ``unit`` elements) in
+    about two pieces a thread, each start a multiple of ``align``; one
+    range for a small vector or one thread."""
+    threads = max(1, torch.get_num_threads() if threads is None
+                  else int(threads))
+    if threads == 1 or n * unit < PAR_MIN:
+        return [(0, n)]
+    step = -(-n // (2 * threads))
+    step = -(-step // align) * align
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def par_run(fn, n: int, align: int = 1, threads: Optional[int] = None,
+            unit: int = 1):
+    """``fn(start, stop)`` over ``par_ranges(n, align, threads, unit)``,
+    on threads when there are several ranges."""
+    ranges = par_ranges(n, align, threads, unit)
+    if len(ranges) == 1:
+        fn(*ranges[0])
+        return
+    with ThreadPoolExecutor(max_workers=len(ranges)) as pool:
+        list(pool.map(lambda r: fn(*r), ranges))
+
+
+def _concat(flats) -> np.ndarray:
+    """``np.concatenate`` of 1-D fp32 arrays, each copied in pieces."""
+    out = np.empty(sum(a.size for a in flats), np.float32)
+    o = 0
+    for a in flats:
+        dst = out[o: o + a.size]
+        par_run(lambda i, j, a=a, dst=dst: np.copyto(dst[i:j], a[i:j]),
+                a.size)
+        o += a.size
+    return out
+
+
 def bf16_bits_to_f32(u16: np.ndarray) -> np.ndarray:
-    return (u16.astype(np.uint32) << 16).view(np.float32)
+    u16 = np.asarray(u16)
+    out = np.empty(u16.shape, np.float32)
+    src, dst = u16.reshape(-1), out.reshape(-1).view(np.uint32)
+
+    def piece(a, b):
+        np.left_shift(src[a:b], 16, out=dst[a:b], dtype=np.uint32)
+
+    par_run(piece, src.size)
+    return out
 
 
 def f32_to_bf16_bits(f32: np.ndarray) -> np.ndarray:
     """Round-to-nearest-even fp32 -> bf16 bit pattern (uint16)."""
     u = np.ascontiguousarray(f32, np.float32).view(np.uint32)
-    rounded = u + np.uint32(0x7FFF) + ((u >> 16) & 1)
-    return (rounded >> 16).astype(np.uint16)
+    out = np.empty(u.shape, np.uint16)
+    src, dst = u.reshape(-1), out.reshape(-1)
+
+    def piece(a, b):
+        x = src[a:b]
+        rounded = x + np.uint32(0x7FFF) + ((x >> 16) & 1)
+        dst[a:b] = rounded >> 16
+
+    par_run(piece, src.size)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -160,18 +221,39 @@ def host_dequant(packed: np.ndarray, scales: np.ndarray, n: int,
     elif bits == 16:
         res = bf16_bits_to_f32(packed.view(np.uint16)[:n])
     else:
-        if bits == 8:
-            q = packed.view(np.int8).astype(np.float32)
-        else:  # 4: half-split nibbles
-            lo = (packed & 0x0F).astype(np.int8)
-            hi = (packed >> 4).astype(np.int8)
-            lo[lo >= 8] -= 16
-            hi[hi >= 8] -= 16
-            q = np.concatenate([lo, hi]).astype(np.float32)
-        nb = -(-n // block)
-        q = q[: nb * block].reshape(nb, block)
-        q *= scales.astype(np.float32)[:, None]
-        res = q.reshape(-1)[:n]
+        # block by block (in pieces, ``par_run``), into the output
+        res = np.empty(n, np.float32) if out is None else out
+        dst = res.reshape(-1)
+        sc = scales.astype(np.float32)
+        half = packed.size  # int4: the elements of the lower half
+        codes = packed.view(np.int8) if bits == 8 else packed
+
+        def nibbles(x):
+            q = x.astype(np.int8)
+            q[q >= 8] -= 16
+            return q
+
+        def piece(b0, b1):
+            e0, e1 = b0 * block, min(b1 * block, n)
+            if bits == 8:
+                q = codes[e0:e1].astype(np.float32)
+            else:  # 4: half-split nibbles
+                q = np.empty(e1 - e0, np.float32)
+                lo_end, hi_start = min(e1, half), max(e0, half)
+                if lo_end > e0:
+                    q[:lo_end - e0] = nibbles(codes[e0:lo_end] & 0x0F)
+                if e1 > hi_start:
+                    q[hi_start - e0:] = nibbles(
+                        codes[hi_start - half: e1 - half] >> 4)
+            full = (e1 - e0) // block
+            q[:full * block].reshape(full, block)[...] *= \
+                sc[b0: b0 + full, None]
+            if full * block < e1 - e0:
+                q[full * block:] *= sc[b0 + full]
+            dst[e0:e1] = q
+
+        par_run(piece, -(-n // block), unit=block)
+        return res
     if out is not None:
         np.copyto(out, res)
         return out
@@ -182,16 +264,27 @@ def _block_codes(x: np.ndarray, bits: int, block: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """fp32[n] -> (int8 codes of the block-padded vector, fp32 per-block
     absmax scales), rounding to nearest. Each block's codes depend on that
-    block alone."""
+    block alone (so the blocks may be coded in pieces, ``par_run``)."""
+    x = x.reshape(-1)
     n = x.size
     nb = -(-n // block)
-    pad = nb * block - n
-    xb = np.pad(x.astype(np.float32, copy=False), (0, pad)).reshape(nb, block)
     qm = _qmax(bits)
-    s = np.abs(xb).max(axis=1) / qm
-    s[s == 0] = 1.0
-    q = np.clip(np.rint(xb / s[:, None]), -qm - 1, qm).astype(np.int8)
-    return q.reshape(-1), s.astype(np.float32)
+    q_out = np.empty(nb * block, np.int8)
+    s_out = np.empty(nb, np.float32)
+
+    def piece(b0, b1):
+        xa = x[b0 * block: min(b1 * block, n)]
+        pad = (b1 - b0) * block - xa.size
+        xb = np.pad(xa.astype(np.float32, copy=False), (0, pad)).reshape(
+            b1 - b0, block)
+        s = np.abs(xb).max(axis=1) / qm
+        s[s == 0] = 1.0
+        q_out[b0 * block: b1 * block] = np.clip(
+            np.rint(xb / s[:, None]), -qm - 1, qm).astype(np.int8).reshape(-1)
+        s_out[b0:b1] = s
+
+    par_run(piece, nb, unit=block)
+    return q_out, s_out
 
 
 def _pack_codes(q: np.ndarray, bits: int) -> np.ndarray:
@@ -200,7 +293,13 @@ def _pack_codes(q: np.ndarray, bits: int) -> np.ndarray:
     if bits == 8:
         return q.view(np.uint8)
     half = q.size // 2
-    return ((q[:half] & 0x0F) | ((q[half:] & 0x0F) << 4)).astype(np.uint8)
+    out = np.empty(half, np.uint8)
+
+    def piece(a, b):
+        out[a:b] = (q[a:b] & 0x0F) | ((q[half + a: half + b] & 0x0F) << 4)
+
+    par_run(piece, half)
+    return out
 
 
 def host_quant(x: np.ndarray, bits: int, block: int
@@ -347,6 +446,11 @@ def _dev_dequant(packed: torch.Tensor, scales: torch.Tensor, n: int,
     nb = -(-n // block)
     q = q[: nb * block].view(nb, block) * scales[:, None]
     return q.view(-1)[:n]
+
+
+# pieces of whole wire blocks a host thread takes in the native pass: a
+# few, so that the threads finish together
+PIECES_PER_THREAD = 4
 
 
 def _host_map(fn, items, threads: int) -> list:
@@ -544,7 +648,7 @@ class StreamedOffloadEngine:
         self.host_routes: Dict[str, str] = {}
         self.wire_bytes_last_step = 0
         self._rng = np.random.default_rng(scfg.seed)
-        # host threads of the native pass (one library call a leaf):
+        # host threads of the native pass (pieces of whole wire blocks):
         # torch's intra-op thread count
         self.host_threads = max(1, torch.get_num_threads())
         self.opt = DeepSpeedCPUAdam(
@@ -759,11 +863,11 @@ class StreamedOffloadEngine:
         for g in range(self.n_groups):
             sl = tree_map(lambda a: _host_array(a[g * G:(g + 1) * G]), lay)
             templates[f"g{g}"] = _shapes(sl)
-            chunks[f"g{g}"] = np.concatenate(
+            chunks[f"g{g}"] = _concat(
                 [leaf.reshape(-1) for leaf in tree_leaves(sl)])
         gl = {k: v for k, v in params.items() if k != "layers"}
         templates["globals"] = _shapes(gl)
-        chunks["globals"] = np.concatenate(
+        chunks["globals"] = _concat(
             [_host_array(leaf).reshape(-1) for leaf in tree_leaves(gl)])
         return templates, chunks
 
@@ -1033,18 +1137,42 @@ class StreamedOffloadEngine:
 
     def _native_pass(self, meta: _ChunkMeta, pk, sk, states, shadow, outs,
                      mode: int):
-        """``ds_stream_chunk_step2`` over a chunk: one library call a leaf,
-        the leaves on ``host_threads`` threads, largest first (ctypes drops
-        the GIL for each call; the leaves share no byte, so the bytes are
-        those of one call over the whole chunk). ``outs`` pairs each
-        output buffer with its per-leaf offsets from the chunk's geometry:
-        (delta codes, scales) in mode 0, (codes, scales, bf16 words) in
-        mode 1."""
+        """``ds_stream_chunk_step2``'s pass over a chunk, cut into pieces
+        of whole wire blocks (``ds_stream_blocks_step2``, about
+        ``PIECES_PER_THREAD`` a thread) on ``host_threads`` threads
+        (ctypes drops the GIL for each call). Every block is computed
+        alone, so the bytes are those of one call over the whole chunk,
+        as the reference makes it. The uplink codes are zeroed first; a
+        leaf with a 4-bit uplink packs element e and e + half into one
+        byte, so its lower-half blocks run in one round, its upper-half
+        blocks in the next and the block that straddles the half (an odd
+        block count) in a third: within a round no two pieces share a
+        byte. ``outs`` pairs each output buffer with its per-leaf offsets
+        from the chunk's geometry: (delta codes, scales) in mode 0,
+        (codes, scales, bf16 words) in mode 1."""
         block = self.scfg.wire_block
         _, poff, _, soff = meta.wire_geometry(block)
         lr = self._lr()
+        outs[0][0].fill(0)
+        nbs = [-(-n // block) for n in meta.sizes]
+        size = max(1, sum(nbs) // max(1, PIECES_PER_THREAD
+                                      * self.host_threads))
+        rounds = [[], [], []]
+        for i, nb in enumerate(nbs):
+            up = meta.bits[i] if mode == 0 else meta.res_bits[i]
+            if up != 4:
+                spans = [(0, 0, nb)]
+            else:
+                half = nb * block // 2
+                lo, hi = half // block, -(-half // block)
+                spans = [(0, 0, lo), (1, hi, nb), (2, lo, hi)]
+            for r, b0, b1 in spans:
+                rounds[r] += [(i, b, min(b + size, b1))
+                              for b in range(b0, b1, size)]
 
-        def leaf(i):
+        def piece(work):
+            i, b0, b1 = work
+
             def cut(a, off):
                 return a[int(off[i]): int(off[i + 1])]
 
@@ -1054,20 +1182,17 @@ class StreamedOffloadEngine:
                 shadow)]
             out = [cut(a, off) for a, off in outs]
             if mode == 0:
-                out += [None, None, None]
-            else:
-                out = [None, None] + out
-            if not self.opt.step_stream_chunk2(
+                out.append(None)
+            if not self.opt.step_stream_blocks2(
                     self.step_count, cut(pk, poff), cut(sk, soff), *elems,
-                    *out, [n], [meta.bits[i]], [meta.res_bits[i]], block,
-                    mode=mode, lr=lr):
+                    *out, n, meta.bits[i], meta.res_bits[i], block, mode,
+                    b0, b1, lr=lr):
                 raise RuntimeError(
                     f"the native host pass refused leaf {i} (wire "
                     f"{meta.bits[i]} bits, resident {meta.res_bits[i]})")
 
-        _host_map(leaf, sorted(range(len(meta.sizes)),
-                               key=lambda i: -meta.sizes[i]),
-                  self.host_threads)
+        for works in rounds:
+            _host_map(piece, works, self.host_threads)
 
     def _host_chunk_step(self, cname: str, packed, scales):
         """Dequantize the wire grads, Adam the flat master, then quantize
@@ -1140,8 +1265,12 @@ class StreamedOffloadEngine:
             master = self._st_load(states["master"])
             m = self._st_load(states["exp_avg"])
             v = self._st_load(states["exp_avg_sq"])
-            self.opt.step_flat(self.step_count, master, g, m, v,
-                               lr=self._lr())
+            lr = self._lr()
+            # in pieces of whole 64K-element chunks, the library's own
+            # OpenMP split: the same elements take its vector loop
+            par_run(lambda a, b: self.opt.step_flat(
+                self.step_count, master[a:b], g[a:b], m[a:b], v[a:b],
+                lr=lr), meta.total, align=1 << 16)
             self._st_writeback(states["master"], master)
             self._st_writeback(states["exp_avg"], m)
             self._st_writeback(states["exp_avg_sq"], v)
@@ -1153,7 +1282,9 @@ class StreamedOffloadEngine:
                                                                   master)
                 return self._shadow_payload(cname), None
             shadow_f32 = self._shadow_f32(cname)
-            delta = master - shadow_f32
+            delta = np.empty_like(master)
+            par_run(lambda a, b: np.subtract(master[a:b], shadow_f32[a:b],
+                                             out=delta[a:b]), meta.total)
             ups, ups_s = [], []
             for i in range(len(meta.sizes)):
                 o, n = int(meta.offsets[i]), meta.sizes[i]
@@ -1163,7 +1294,9 @@ class StreamedOffloadEngine:
                 # replay the card's add exactly: shadow += dequant(delta)
                 host_dequant(p, s, n, meta.bits[i], block,
                              out=delta[o: o + n])
-            self._shadow[cname] = f32_to_bf16_bits(shadow_f32 + delta)
+            par_run(lambda a, b: np.add(shadow_f32[a:b], delta[a:b],
+                                        out=shadow_f32[a:b]), meta.total)
+            self._shadow[cname] = f32_to_bf16_bits(shadow_f32)
             if meta.concat:
                 return (np.concatenate([u.view(np.uint8) for u in ups]),
                         np.concatenate(ups_s))

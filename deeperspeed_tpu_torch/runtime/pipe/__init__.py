@@ -1,8 +1,9 @@
 """Pipeline parallelism: the layer protocol and ``PipelineModule``
 (module.py), the instruction schedules (schedule.py), the messages
-between stages (p2p.py) and ``PipelineEngine`` (engine.py, imported
-lazily, as the reference's). The single-program SPMD pipeline
-(``make_spmd_pipeline``) is not ported yet (ROADMAP.md queue 1)."""
+between stages (p2p.py), ``PipelineEngine`` (engine.py) and the
+single-program SPMD pipeline (spmd.py: ``make_spmd_pipeline``,
+``make_spmd_pipeline_train_step``), the last two imported lazily, as the
+reference's."""
 
 from .module import (
     Embedding,
@@ -55,6 +56,8 @@ __all__ = [
     "SendGrad",
     "RecvGrad",
     "PipelineEngine",
+    "make_spmd_pipeline",
+    "make_spmd_pipeline_train_step",
 ]
 
 
@@ -65,4 +68,8 @@ def __getattr__(name):
         from .engine import PipelineEngine
 
         return PipelineEngine
+    if name in ("make_spmd_pipeline", "make_spmd_pipeline_train_step"):
+        from . import spmd
+
+        return getattr(spmd, name)
     raise AttributeError(name)

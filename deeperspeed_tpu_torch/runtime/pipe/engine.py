@@ -62,7 +62,6 @@ from ...checkpoint.serialization import (CheckpointEngine, read_latest,
 from ...monitor.tracer import trace_span
 from ...ops import kernel_config
 from ...ops.adam import FusedAdam, tree_leaves, tree_map
-from ...ops.lamb import FusedLamb
 from ...parallel.topology import PIPE_AXIS, PipelineParallelGrid, build_mesh
 from ...sharding import mesh as mesh_lib
 from ...sharding import rules
@@ -72,7 +71,6 @@ from .. import lr_schedules
 from ..accessors import ConfigAccessorsMixin, make_summary_writer
 from ..comm.collectives import Transport
 from ..comm.config import CommConfig
-from ..comm.onebit import OnebitAdam, OnebitLamb
 from ..comm.reducer import GradReducer
 from ..config import TrainingConfig
 from ..dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -328,17 +326,16 @@ class PipelineEngine(ConfigAccessorsMixin):
                     part)
         del part
         self._opt_target = self.master if self._use_master else self.params
-        if self._has_cuts and isinstance(self.optimizer,
-                                         (FusedLamb, OnebitLamb)):
-            raise NotImplementedError(
-                f"{type(self.optimizer).__name__} on leaves cut over the "
-                f"mesh's model axis: its trust ratio needs whole-leaf norms; "
-                f"use Adam, 1-bit Adam or SGD")
-        if self._has_cuts and isinstance(self.optimizer, OnebitAdam):
+        from ..engine import part_groups_attr
+
+        attr = part_groups_attr(self.optimizer)
+        if self._has_cuts and attr is not None:
+            # a cut leaf's whole-leaf statistics (the 1-bit scale, LAMB's
+            # trust-ratio norms) are summed over the model axis
             group = self._cut_group
-            self.optimizer.scale_groups = _unflatten(
+            setattr(self.optimizer, attr, _unflatten(
                 self._opt_target, [group if c is not None else None
-                                   for c in self._cuts])
+                                   for c in self._cuts]))
         self.opt_state = self.optimizer.init(self._opt_target)
         self._acc = None
         self._tied_transports = {

@@ -48,6 +48,7 @@ budget. Nothing is silently lost.
 """
 
 import dataclasses
+import threading
 import time
 import zlib
 from collections import deque
@@ -313,11 +314,20 @@ class FleetRouter:
             ).set(float(version))
 
     def shutdown(self) -> None:
-        for st in self._states:
+        """Stop every replica, side by side: a subprocess replica waits
+        for its process to exit."""
+        def stop(replica):
             try:
-                st.replica.stop()
+                replica.stop()
             except Exception:  # noqa: BLE001 - teardown is best-effort
                 pass
+
+        threads = [threading.Thread(target=stop, args=(st.replica,))
+                   for st in self._states]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
 
     # -- internals ---------------------------------------------------
 

@@ -10,8 +10,8 @@ default 4, nvme_path in a temporary directory) takes one warm-up step on
 one fixed corpus batch, then steps in the order N 1 1 N, ``rounds`` times
 (default 1): N is torch's thread count, the engine's default
 ``host_threads``, and 1 is one thread. ``host_threads`` is how many
-threads the native v2 pass spreads a chunk's leaves over (one library
-call a leaf); nothing else of the step changes with it.
+threads the native v2 pass spreads a chunk's pieces of whole wire blocks
+over; nothing else of the step changes with it.
 
 Each step is timed on the host clock, ending in a synchronize. Prints the
 card and the host's CPU count, then one JSON line: every step's seconds

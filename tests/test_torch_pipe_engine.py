@@ -3,10 +3,13 @@ stage (tests/torch_gloo_worker.py), against the JAX reference's engine on
 a CPU device mesh of the same shape, from the same fp32 weights carried
 across (models/convert.from_jax_pipeline_params):
 
-* ``{pipe: 2}`` with an MLP and with a tied embedding, 4 small
-  ``DeepSpeedTransformerLayer``s and the tied head; ``{pipe: 2, data: 2}``
-  plain and with a ``"comm"`` int8 block; ``{pipe: 2, model: 2}`` with
-  ``ParallelMLP``: every step's loss within LOSS_RTOL of the reference's
+* ``{pipe: 2}`` and ``{pipe: 4}`` (two interior stages, each receiving
+  and sending activations and grads) with an MLP and with a tied
+  embedding, 4 small ``DeepSpeedTransformerLayer``s and the tied head;
+  ``{pipe: 2, data: 2}`` plain and with a ``"comm"`` int8 block;
+  ``{pipe: 2, model: 2}`` with ``ParallelMLP`` under Adam and under LAMB
+  (its trust ratio over each cut leaf's whole norms): every step's loss
+  within LOSS_RTOL of the reference's
   on every rank, every leaf within LEAF_RTOL relative L2 after STEPS
   steps;
 * the fp16 dynamic scaler under a loss that overflows skips the same
@@ -42,12 +45,13 @@ LOSS_RTOL = 1e-5
 LEAF_RTOL = 1e-4
 STEPS = 3
 ADAM = {"type": "Adam", "params": {"lr": 1e-2}}
+LAMB = {"type": "Lamb", "params": {"lr": 1e-2, "weight_decay": 0.01}}
 
 
-def _config(micro=4, gas=2, **extra):
+def _config(micro=4, gas=2, optimizer=ADAM, **extra):
     return dict({"train_micro_batch_size_per_gpu": micro,
                  "gradient_accumulation_steps": gas, "steps_per_print": 1000,
-                 "optimizer": ADAM, "zero_optimization": {"stage": 0}},
+                 "optimizer": optimizer, "zero_optimization": {"stage": 0}},
                 **extra)
 
 
@@ -70,6 +74,13 @@ CASES = {
              config=_config(comm={"mode": "int8", "bucket_mb": 0.0001}),
              steps=STEPS, reload=True),
         dict(name="tp", kind="tp", dims={"pipe": 2, "data": 1, "model": 2},
+             config=_config(micro=2), steps=STEPS),
+        dict(name="tp_lamb", kind="tp",
+             dims={"pipe": 2, "data": 1, "model": 2},
+             config=_config(micro=2, optimizer=LAMB), steps=STEPS),
+        dict(name="mlp_pipe4", kind="mlp", dims={"pipe": 4},
+             config=_config(), steps=STEPS),
+        dict(name="bert_pipe4", kind="bert", dims={"pipe": 4},
              config=_config(micro=2), steps=STEPS)],
 }
 ALL = [c for cases in CASES.values() for c in cases]

@@ -145,14 +145,36 @@ def test_nvme_state_tier_all_states(tmp_path):
     assert eng._ram == {}
 
 
+def _whole_chunk_pass(eng):
+    """The engine's native pass as one library call over each whole chunk
+    (``ds_stream_chunk_step2``): the bytes the block pieces must give."""
+    def native_pass(meta, pk, sk, states, shadow, outs, mode):
+        out = [a for a, _ in outs]
+        out = out + [None] * 3 if mode == 0 else [None, None] + out
+        assert eng.opt.step_stream_chunk2(
+            eng.step_count, pk, sk, states["master"], states["exp_avg"],
+            states["exp_avg_sq"], shadow, *out, meta.sizes, meta.bits,
+            meta.res_bits, eng.scfg.wire_block, mode=mode, lr=eng._lr())
+
+    eng._native_pass = native_pass
+
+
 @pytest.mark.parametrize("res,state", [(16, "fp32"), (4, "bf16"),
                                        (8, "fp32")])
-def test_host_threads_give_the_same_bytes(res, state):
-    """The native host pass on several threads (one library call a
-    leaf) gives one thread's bytes."""
+def test_host_threads_give_the_same_bytes(res, state, monkeypatch):
+    """The native host pass in pieces of whole wire blocks on 4 threads,
+    a leaf split over several pieces (the pieces made small here), gives
+    the bytes of one library call over each whole chunk on one thread,
+    the halves of a 4-bit uplink and the block that straddles them
+    included; the host codecs and conversions run in pieces too (their
+    threshold lowered here)."""
     import torch
 
-    engines = []
+    from deeperspeed_tpu_torch.runtime.offload import streaming
+
+    monkeypatch.setattr(streaming, "PIECES_PER_THREAD", 16)
+    monkeypatch.setattr(streaming, "PAR_MIN", 256)
+    engines, pieces = [], []
     for threads in (1, 4):
         prev = torch.get_num_threads()
         torch.set_num_threads(threads)
@@ -163,12 +185,68 @@ def test_host_threads_give_the_same_bytes(res, state):
         finally:
             torch.set_num_threads(prev)
         assert eng.host_threads == threads
+        if threads == 1:
+            _whole_chunk_pass(eng)
+        else:
+            call = eng.opt.step_stream_blocks2
+
+            def logged(*a, **kw):
+                pieces.append((a[10], a[13], a[15], a[16]))  # n, block, b0, b1
+                return call(*a, **kw)
+
+            eng.opt.step_stream_blocks2 = logged
         eng.losses = [eng.train_batch(t) for t in batch(seed=5, n=2)]
+        engines.append(eng)
+    one, four = engines
+    # leaves cut into several pieces, and blocks that straddle a 4-bit
+    # uplink's half (a leaf of an odd block count)
+    by_leaf = {}
+    for n, _, b0, b1 in pieces:
+        by_leaf.setdefault(n, set()).add((b0, b1))
+    assert max(len(v) for v in by_leaf.values()) > 2
+    if res != 8:  # a 4-bit uplink (the delta wire, or 4-bit residency)
+        assert any(b1 - b0 == 1 and b0 == -(-n // blk) // 2
+                   and -(-n // blk) % 2 for n, blk, b0, b1 in pieces)
+    assert one.losses == four.losses
+    for c in one.chunk_names:
+        a, b = one.storage_bytes(c), four.storage_bytes(c)
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+        for k in ("master", "exp_avg", "exp_avg_sq"):
+            np.testing.assert_array_equal(one._ram[c][k], four._ram[c][k])
+
+
+@pytest.mark.parametrize("wire,res,state", [(32, 16, "fp32"),
+                                            (4, 16, "bf16"), (8, 8, "fp32")])
+def test_numpy_route_threads_give_the_same_bytes(wire, res, state,
+                                                 monkeypatch):
+    """The numpy host pass (taken while grads are captured) in pieces on 4
+    threads (the library's Adam over 64K-element chunks, the codecs over
+    whole blocks, the conversions over elements; the threshold lowered
+    here) gives one thread's bytes."""
+    import torch
+
+    from deeperspeed_tpu_torch.runtime.offload import streaming
+
+    monkeypatch.setattr(streaming, "PAR_MIN", 256)
+    engines = []
+    for threads in (1, 4):
+        prev = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            eng = port_engine(tiny_cfg("bf16"), scfg(
+                wire_bits=wire, resident_bits=res, host_state=state,
+                warmup_steps=0, lr=1e-3))
+            eng.capture_grads = True
+            eng.losses = [eng.train_batch(t) for t in batch(seed=5, n=2)]
+        finally:
+            torch.set_num_threads(prev)
+        assert set(eng.host_routes.values()) == {"numpy"}
         engines.append(eng)
     one, four = engines
     assert one.losses == four.losses
     for c in one.chunk_names:
         a, b = one.storage_bytes(c), four.storage_bytes(c)
         assert all(np.array_equal(a[k], b[k]) for k in a)
+        np.testing.assert_array_equal(one.last_grads[c], four.last_grads[c])
         for k in ("master", "exp_avg", "exp_avg_sq"):
             np.testing.assert_array_equal(one._ram[c][k], four._ram[c][k])

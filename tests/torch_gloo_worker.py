@@ -1409,3 +1409,194 @@ def pipe_serving_run(rank, world, tmp, case, prompts, news):
                      "finished": bridge.metrics.summary()[
                          "requests_finished"]}, f)
 
+
+
+# ------------------------------------------------------------------ #
+# the single-program SPMD pipeline (runtime/pipe/spmd.py)
+# ------------------------------------------------------------------ #
+
+SPMD_3D_SPECS = {"wi": ("pipe", None, "model"), "bi": ("pipe", "model"),
+                 "wo": ("pipe", "model", None), "bo": ("pipe", None)}
+
+
+def spmd_tanh_stage(p, x):
+    """tests/test_pipe_spmd.py's stage: linear + tanh."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def spmd_tp_stage(mesh):
+    """tests/test_3d_composition.py's stage: column-parallel in,
+    row-parallel out, through parallel/tp.py's f and g over the mesh's
+    model axis."""
+    from deeperspeed_tpu_torch.parallel.tp import (copy_to_tp_region,
+                                                   reduce_from_tp_region,
+                                                   tp_transport)
+
+    tp = tp_transport(mesh)
+
+    def stage(p, x):
+        xin = copy_to_tp_region(x, tp)
+        h = torch.tanh(xin @ p["wi"] + p["bi"])
+        y = reduce_from_tp_region(h @ p["wo"], tp)
+        return x + y + p["bo"]
+
+    return stage
+
+
+def spmd_dense_stage(p, x):
+    h = torch.tanh(x @ p["wi"] + p["bi"])
+    return x + h @ p["wo"] + p["bo"]
+
+
+def spmd_mse(outputs, labels):
+    return ((outputs - labels) ** 2).mean()
+
+
+def _spmd_optimizer(name, lr):
+    from deeperspeed_tpu_torch.ops.adam import FusedAdam
+    from deeperspeed_tpu_torch.ops.sgd import SGD
+
+    return FusedAdam(lr=lr) if name == "adam" else SGD(lr=lr)
+
+
+def spmd_case_run(case, mesh):
+    """One case on this rank: ``fwd`` (the forward's outputs), ``train``
+    (each step's loss, the gathered params and first moments) or
+    ``memory`` (the ring's bytes at each M, 1f1b and gpipe)."""
+    from deeperspeed_tpu_torch.runtime.pipe import spmd
+
+    S = mesh.shape["pipe"]
+    specs = case.get("specs")
+    fn = {"tanh": spmd_tanh_stage, "dense": spmd_dense_stage}.get(
+        case["stage"]) or spmd_tp_stage(mesh)
+    params = {k: torch.from_numpy(v) for k, v in case["params"].items()}
+    mbs = torch.from_numpy(case["mbs"])
+    if case.get("bf16"):
+        mbs = mbs.to(torch.bfloat16)
+    labels = torch.from_numpy(case["labels"])
+    local = spmd.stage_part(params, mesh, specs)
+    if case["mode"] == "fwd":
+        fwd = spmd.make_spmd_pipeline(fn, S, case["M"], mesh, device="cpu")
+        out = fwd(local, mbs)
+        return {"dtype": str(out.dtype), "out": out.float().numpy()}
+    if case["mode"] == "memory":
+        got = {}
+        for sched in ("1f1b", "gpipe"):
+            for m in (4, 32):
+                opt = _spmd_optimizer("adam", 1e-2)
+                part = spmd.stage_part(params, mesh, specs)
+                step = spmd.make_spmd_pipeline_train_step(
+                    fn, spmd_mse, opt, S, m, mesh, schedule=sched,
+                    device="cpu")
+                zeros = torch.zeros((m,) + tuple(mbs.shape[1:]))
+                step(part, opt.init(part), zeros, zeros, 1e-2)
+                got[f"{sched}/{m}"] = dict(step.stats)
+        return got
+    opt = _spmd_optimizer(case["opt"], case["lr"])
+    state = opt.init(local)
+    step = spmd.make_spmd_pipeline_train_step(
+        fn, spmd_mse, opt, S, case["M"], mesh, remat=case.get("remat", True),
+        param_specs=specs, schedule=case["schedule"], device="cpu")
+    losses = []
+    for _ in range(case["steps"]):
+        (local, state), loss = step(local, state, mbs, labels, case["lr"])
+        losses.append(float(loss))
+    out = {"losses": losses, "params": {
+        k: v.numpy() for k, v in spmd.gather_stages(local, mesh,
+                                                    specs).items()}}
+    if case["opt"] == "adam":
+        out["exp_avg"] = {k: v.numpy() for k, v in spmd.gather_stages(
+            state.exp_avg, mesh, specs).items()}
+    return out
+
+
+def spmd_runs(rank, world, tmp, cases):
+    """Each case of ``cases`` in turn on its own mesh over this world;
+    rank 0 writes the results (every rank gathers the same)."""
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    out = {}
+    for case in cases:
+        out[case["name"]] = spmd_case_run(case, build_mesh(case["dims"]))
+    with open(os.path.join(tmp, f"spmd_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+# ------------------------------------------------------------------ #
+# LAMB over partial leaves: ZeRO shards and model-axis cuts
+# ------------------------------------------------------------------ #
+
+
+def lamb_config(zero, optimizer):
+    """``tp_config``'s batch (micro-batch 2 a data rank, 4 rows a step),
+    fp32, ZeRO ``zero``, the optimizer block ``optimizer``."""
+    return tp_config(zero, optimizer=optimizer)
+
+
+def lamb_runs(rank, world, tmp, model_kw, cases):
+    """Each case (name, mesh dims, ZeRO stage, optimizer block, whether
+    the norms are left shard-local) in turn: the tiny GPT from the saved
+    whole params, ``steps`` engine steps on the saved batches; the losses
+    and the whole params. A shard-local case drops the groups the engine
+    gave the optimizer (``norm_groups`` / ``scale_groups``), so each rank
+    takes LAMB's norms over its own part: the fault the groups fix. Rank 0
+    writes the report."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.parallel import build_mesh
+
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32)
+    whole = torch.load(os.path.join(tmp, "tp_params.pt"))
+    batches = np.load(os.path.join(tmp, "tp_batches.npy"))
+    report = {}
+    for name, dims, zero, opt_block, local, steps in cases:
+        mesh = build_mesh(dims)
+        _, _, loss_fn, specs = gpt.make_gpt(cfg, mesh)
+        eng, opt, _, _ = ds.initialize(
+            model=loss_fn, model_parameters=whole,
+            config=lamb_config(zero, opt_block), device="cpu", mesh=mesh,
+            param_specs=specs)
+        attr = ("norm_groups" if hasattr(opt, "norm_groups")
+                else "scale_groups")
+        groups = [g for g in _tree_leaves(getattr(opt, attr) or {})
+                  if g is not None]
+        if local:
+            setattr(opt, attr, None)
+        losses = [float(eng.train_batch(b)) for b in batches[:steps]]
+        report[name] = {
+            "losses": losses,
+            "group_sizes": sorted({g.size for g in groups}),
+            "zero_sharded": sum(sp.sharded for sp in eng._specs),
+            "params": {k: v.detach().numpy().copy() for k, v in
+                       _flat(eng._model_whole(eng.params)).items()}}
+    if rank == 0:
+        with open(os.path.join(tmp, "lamb.pkl"), "wb") as f:
+            pickle.dump(report, f)
+
+
+def config_run(rank, world, tmp, model_kw, config, steps):
+    """``steps`` engine steps of the tiny GPT under ``config`` (its mesh
+    from the config's ``"mesh"`` block) from the saved params and
+    batches: each rank writes its losses, grad norms, the ZeRO axis and
+    how many leaves it shards, and the comm block's mode."""
+    import deeperspeed_tpu_torch as ds
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.sharding import rules
+
+    cfg = gpt.GPTConfig(**model_kw, dtype=torch.float32, attn_impl="xla")
+    params = torch.load(os.path.join(tmp, "params.pt"))
+    batches = list(np.load(os.path.join(tmp, "batches.npy")))
+    eng, _, _, _ = ds.initialize(model=gpt.make_gpt(cfg)[2],
+                                 model_parameters=params, config=config,
+                                 device="cpu")
+    losses, norms = [], []
+    for b in batches[:steps]:
+        losses.append(float(eng.train_batch(b)))
+        norms.append(eng.get_global_grad_norm())
+    out = {"losses": losses, "grad_norms": norms,
+           "mesh": dict(eng.mesh.shape),
+           "zero_axis": rules.zero_axis(eng.mesh),
+           "zero_sharded": sum(sp.sharded for sp in eng._specs),
+           "comm_mode": eng._config.comm_config().mode}
+    with open(os.path.join(tmp, f"config_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
