@@ -638,6 +638,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    13 above 0; a step's peak memory above what it starts with flat from
    SPMD_M to SPMD_M_BIG under 1f1b (within SPMD_MEM_FLAT) and growing
    under gpipe.
+25. The autotuner's search (AUTOTUNE_* constants; deeperspeed_tpu_torch/
+   autotune/), after phase 24: first two ranks sharing the card time
+   gloo all-reduces of one element and of GLOO_PROBE_BYTES through the
+   Transport (the per-collective overhead and wire rate that
+   autotune/costmodel.TRANSPORTS["gloo"] holds; printed). Then
+   ``run_search`` for ``--devices 2`` at GPT-NeoX-125M's width (the 6
+   layouts dp2, fsdp2 at ZeRO 1-3, tp2, sp2; every comm variant, kernel
+   route and serving bucket) prices each candidate by a capture of its
+   step on the meta device in this process, confirms a spread of the
+   layout ranking in 2 rank processes each (from the fork server), and
+   emits a config, which 2 more ranks train AUTOTUNE_TUNED_STEPS steps.
+   Gates: every price finite, every infeasible candidate with a reason
+   (fsdp2_zero3 with the engine's ZeRO-3 refusal); no confirm run
+   failed; their first-step losses within AUTOTUNE_LOSS_RTOL of each
+   other; on each rank of each confirm run, the first step's cost as the
+   monitor's live cost index recorded it on the card equal in flops to
+   that rank's planning capture (rank 0's priced the candidate) and
+   within AUTOTUNE_BYTES_RTOL of its bytes; the audits (dp2's params unsharded, fsdp2_zero2's moments
+   mostly sharded, tp2's MLP and attention leaves cut over tp); this
+   process's allocated card bytes and launch counters unchanged across
+   the search; the emitted config loads in TrainingConfig, verifies in
+   verify_provenance and trains with finite losses equal on both ranks;
+   launches above 0 of rows 1, 2, 5-10 and 13 over the phase's ranks.
+   Printed: each confirmed candidate's predicted and measured step time
+   and peak bytes, the Spearman, the phase's seconds. The kernel phases
+   (2-4) also hold and time the LN, bias+GeLU and flash kernels at the
+   candidates' fp32 shapes (AUTOTUNE_LN, AUTOTUNE_BG, AUTOTUNE_FLASH).
 Phase 14 also trains configs/bert_large_zero2.json's model and blocks
 (ZeRO 2, Lamb) on its two ranks (DP_LAMB_* constants), held to a world-1
 engine of the same global batch after the ranks exit (losses, the whole
@@ -1196,6 +1223,40 @@ SPMD_MEM_FLAT = 0.05
 SPMD_ROWS = ("ln_fwd", "ln_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
              "flash_fwd", "flash_bwd")
 
+# the autotuner's search (phase 25): `python -m deeperspeed_tpu_torch.
+# autotune` for 2 ranks sharing the card at GPT-NeoX-125M's width, seq
+# AUTOTUNE_SEQ; the candidate engines compute in fp32, micro-batch 2 a
+# data rank (the tuner's default), AUTOTUNE_TOP_K of the ranking's spread
+# confirmed (plus its predicted-worst) with AUTOTUNE_STEPS timed steps
+# after AUTOTUNE_WARMUP, then the emitted config trains
+# AUTOTUNE_TUNED_STEPS steps
+AUTOTUNE_SEQ = 2048
+AUTOTUNE_TOP_K = 3
+AUTOTUNE_STEPS = 3
+AUTOTUNE_WARMUP = 1
+AUTOTUNE_TUNED_STEPS = 2
+# the confirmed candidates' first-step losses apart (same seed and data,
+# fp32)
+# (NVIDIA H100 80GB HBM3, 700 W: the four candidates' first losses equal
+# to the bit; PERF.md section 2)
+AUTOTUNE_LOSS_RTOL = 1e-5
+# a planning capture's bytes against the live cost index's on the card
+AUTOTUNE_BYTES_RTOL = 0.01
+# rows 1, 2, 5-10 and 13 of PERF.md's kernel table
+AUTOTUNE_ROWS = SPMD_ROWS + ("fused_adam",)
+# the leaves a tp2 candidate must keep cut over tp
+AUTOTUNE_TP_CUT = ("['layers']['attn']['wqkv']", "['layers']['attn']['wo']",
+                   "['layers']['mlp']['wi']", "['layers']['mlp']['wo']")
+# the kernels at a candidate's shapes: a data rank's micro-batch of 2 x
+# AUTOTUNE_SEQ rows at d_model 768 and d_ff 3072, its 12 heads of 64
+AUTOTUNE_LN = (2 * AUTOTUNE_SEQ, 768)
+AUTOTUNE_BG = (2 * AUTOTUNE_SEQ, 3072)
+AUTOTUNE_FLASH = (2, 12, AUTOTUNE_SEQ, 64)
+# the gloo probe: an fp32 all-reduce of this many bytes, and of one
+# element, GLOO_PROBE_REPS times each
+GLOO_PROBE_BYTES = 64 << 20
+GLOO_PROBE_REPS = 5
+
 
 def share_bytecode_cache():
     """Compiled bytecode shared by this process and every process it
@@ -1556,6 +1617,23 @@ def sdpa_backward(*args):
         *args[:-1], scale=args[-1])
 
 
+def sdpa_efficient_backward_args(q, k, v, do, scale, causal):
+    """Arguments of aten's memory-efficient attention backward (the
+    backward of F.scaled_dot_product_attention on fp32 tensors on the
+    card, which aten's flash kernels do not take) for one case, from its
+    own forward."""
+    out, lse, seed, offset = \
+        torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, 0.0, causal, scale=scale)
+    return (do, q, k, v, None, out, lse, seed, offset, 0.0,
+            [True, True, True, False], causal, scale)
+
+
+def sdpa_efficient_backward(*args):
+    return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+        *args[:-1], scale=args[-1])
+
+
 def flash_case(fa, gen, shape, dtype, causal):
     """flash_fwd and flash_bwd against their plain versions at one case:
     (forward row, backward row)."""
@@ -1590,11 +1668,13 @@ def flash_case(fa, gen, shape, dtype, causal):
     return fwd, bwd
 
 
-def time_flash(fa, gen, shape, fwd, bwd):
-    """Times the bf16 causal pair at ``shape`` (kernel, plain version, SDPA
-    and its backward) into the rows, adds the bound, and requires two
-    launches of each kernel on the same inputs to give the same bits."""
-    dtype = torch.bfloat16
+def time_flash(fa, gen, shape, fwd, bwd, dtype=torch.bfloat16):
+    """Times the causal pair at ``shape`` in ``dtype`` (kernel, plain
+    version, SDPA and its backward: aten's flash backward in bf16, its
+    memory-efficient backward in fp32, which the flash one does not take)
+    into the rows, adds the bound, and requires two launches of each
+    kernel on the same inputs to give the same bits."""
+    ops_per_s = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     scale = 1.0 / math.sqrt(shape[-1])
 
     def case():
@@ -1618,13 +1698,22 @@ def time_flash(fa, gen, shape, fwd, bwd):
                        lambda a, b, c, *_: sdpa(a, b, c, is_causal=True),
                        fwd_bufs, iters=10, replays=3))
     fwd["library"] = "F.scaled_dot_product_attention"
-    fwd.update(bound(*flash_work(shape, True, dtype, False), BF16_OPS_PER_S))
-    lib_bufs = [sdpa_backward_args(a[0], a[1], a[2], a[5], scale, True)
-                for a in bufs]
-    bwd.update(timings(fa.flash_bwd, fa.flash_bwd_plain, bwd_bufs,
-                       sdpa_backward, lib_bufs, iters=10, replays=3))
-    bwd["library"] = "aten._scaled_dot_product_flash_attention_backward"
-    bwd.update(bound(*flash_work(shape, True, dtype, True), BF16_OPS_PER_S))
+    fwd.update(bound(*flash_work(shape, True, dtype, False), ops_per_s))
+    if dtype == torch.bfloat16:
+        lib_bufs = [sdpa_backward_args(a[0], a[1], a[2], a[5], scale, True)
+                    for a in bufs]
+        bwd.update(timings(fa.flash_bwd, fa.flash_bwd_plain, bwd_bufs,
+                           sdpa_backward, lib_bufs, iters=10, replays=3))
+        bwd["library"] = "aten._scaled_dot_product_flash_attention_backward"
+    else:
+        lib_bufs = [sdpa_efficient_backward_args(a[0], a[1], a[2], a[5],
+                                                 scale, True) for a in bufs]
+        bwd.update(timings(fa.flash_bwd, fa.flash_bwd_plain, bwd_bufs,
+                           sdpa_efficient_backward, lib_bufs, iters=10,
+                           replays=3))
+        bwd["library"] = ("aten._scaled_dot_product_efficient_attention_"
+                          "backward")
+    bwd.update(bound(*flash_work(shape, True, dtype, True), ops_per_s))
 
 
 def flash_phase(fa, gen):
@@ -5089,19 +5178,22 @@ def infinity_phase(card):
     return launches, per_step
 
 
-def ffn_kernel_cases(fb, gen, ln_shape, bg_shape, path):
+def ffn_kernel_cases(fb, gen, ln_shape, bg_shape, path,
+                     dtype=torch.bfloat16):
     """The LN and bias+GeLU kernels at a training path's shapes: ln_fwd /
     ln_bwd at ``ln_shape`` (rows, d_model) and bias_gelu_fwd /
-    bias_gelu_bwd (tanh) at ``bg_shape`` (rows, d_ff), bf16, against
+    bias_gelu_bwd (tanh) at ``bg_shape`` (rows, d_ff), in ``dtype``, against
     their plain versions (TOL; 10x for gradients; REL_L2), timed beside
     the plain version, the library call (F.layer_norm and its aten
     backward; none computes bias+GeLU in one call) and the bound, each
     row tagged ``"path": path``. Phase 15's streamed 20B step
     (INFINITY_LN, INFINITY_BG, "infinity") and phase 20's 6.7B-width step
-    (ONEBIT_LN, ONEBIT_BG, "onebit")."""
+    (ONEBIT_LN, ONEBIT_BG, "onebit"); phase 25's fp32 candidate steps
+    (AUTOTUNE_LN, AUTOTUNE_BG, "autotune", fp32)."""
     results = {}
-    dtype = torch.bfloat16
-    tol, rel, isz = TOL[dtype], REL_L2[dtype], 2
+    dname = dtype_name(dtype)
+    tol, rel = TOL[dtype], REL_L2[dtype]
+    isz = torch.tensor([], dtype=dtype).element_size()
     R, D = ln_shape
     w = randn_on(gen, (D,), torch.float32, 0.1, 1.0)
     b = randn_on(gen, (D,), torch.float32, 0.1)
@@ -5113,10 +5205,10 @@ def ffn_kernel_cases(fb, gen, ln_shape, bg_shape, path):
     y, mu, rs = fb.ln_fwd(*args)
     torch.cuda.synchronize()
     py, pmu, prs = fb.ln_fwd_plain(*args)
-    err, rel_err = check_close(f"ln_fwd {R}x{D} bf16", y, py, tol, rel)
+    err, rel_err = check_close(f"ln_fwd {R}x{D} {dname}", y, py, tol, rel)
     check_outputs(f"ln_fwd {R}x{D} stats", ("mean", "rstd"), (mu, rs),
                   (pmu, prs), 2e-5, rel)
-    row = {"shape": [R, D], "dtype": "bfloat16", "path": path,
+    row = {"shape": [R, D], "dtype": dname, "path": path,
            "max_abs_err": err, "tol": tol, "rel_l2_err": rel_err,
            "rel_l2_tol": rel, "library": "F.layer_norm"}
     bufs = copies(ln_fwd_case, R * D * isz)
@@ -5135,9 +5227,9 @@ def ffn_kernel_cases(fb, gen, ln_shape, bg_shape, path):
     args = ln_bwd_case()
     got = fb.ln_bwd(*args)
     torch.cuda.synchronize()
-    err, rel_err = check_outputs(f"ln_bwd {R}x{D} bf16", ("dx", "dw", "db"),
+    err, rel_err = check_outputs(f"ln_bwd {R}x{D} {dname}", ("dx", "dw", "db"),
                                  got, fb.ln_bwd_plain(*args), 10 * tol, rel)
-    row = {"shape": [R, D], "dtype": "bfloat16", "path": path,
+    row = {"shape": [R, D], "dtype": dname, "path": path,
            "max_abs_err": err, "tol": 10 * tol, "rel_l2_err": rel_err,
            "rel_l2_tol": rel, "library": "aten.native_layer_norm_backward"}
     bufs = copies(ln_bwd_case, 2 * R * D * isz)
@@ -5160,13 +5252,13 @@ def ffn_kernel_cases(fb, gen, ln_shape, bg_shape, path):
     y = fb.bias_gelu_fwd(*args[:2], True)
     dx, db = fb.bias_gelu_bwd(*args)
     torch.cuda.synchronize()
-    err, rel_err = check_close(f"bias_gelu_fwd {R}x{F} bf16", y,
+    err, rel_err = check_close(f"bias_gelu_fwd {R}x{F} {dname}", y,
                                fb.bias_gelu_fwd_plain(*args[:2], True),
                                tol, rel)
-    fwd = {"shape": [R, F], "dtype": "bfloat16", "approximate": True,
+    fwd = {"shape": [R, F], "dtype": dname, "approximate": True,
            "path": path, "max_abs_err": err, "tol": tol,
            "rel_l2_err": rel_err, "rel_l2_tol": rel, "library": None}
-    err, rel_err = check_outputs(f"bias_gelu_bwd {R}x{F} bf16", ("dx", "db"),
+    err, rel_err = check_outputs(f"bias_gelu_bwd {R}x{F} {dname}", ("dx", "db"),
                                  (dx, db), fb.bias_gelu_bwd_plain(*args),
                                  10 * tol, rel)
     bwd = dict(fwd, max_abs_err=err, tol=10 * tol, rel_l2_err=rel_err)
@@ -9879,6 +9971,312 @@ TP_RUNS.update(pipe=(PIPE_DIMS, pipe_train_run),
                pipe3d=(PIPE3D_DIMS, pipe3d_spmd_run))
 
 
+# ------------------------------------------------------------------ #
+# phase 25: the autotuner's search
+# ------------------------------------------------------------------ #
+
+
+def autotune_kernel_cases(fb, fa, gen):
+    """The kernels at phase 25's candidate shapes (fp32): ln_fwd/ln_bwd
+    at AUTOTUNE_LN, bias_gelu_fwd/bwd at AUTOTUNE_BG, the causal flash
+    pair at AUTOTUNE_FLASH, against their plain versions, timed, rows
+    tagged ``"path": "autotune"``."""
+    out = ffn_kernel_cases(fb, gen, AUTOTUNE_LN, AUTOTUNE_BG, "autotune",
+                           torch.float32)
+    fwd, bwd = flash_case(fa, gen, AUTOTUNE_FLASH, torch.float32, True)
+    time_flash(fa, gen, AUTOTUNE_FLASH, fwd, bwd, torch.float32)
+    fwd["path"] = bwd["path"] = "autotune"
+    out["flash_fwd"], out["flash_bwd"] = [fwd], [bwd]
+    torch.cuda.empty_cache()
+    return out
+
+
+def autotune_argv():
+    """The search of phase 25: ``--devices 2`` (two ranks sharing the
+    card, over gloo) at GPT-NeoX-125M's width (the neox-125m preset's
+    facts, its vocab, seq AUTOTUNE_SEQ); every layout, comm variant,
+    kernel route and serving bucket priced, a spread of AUTOTUNE_TOP_K
+    confirmed with AUTOTUNE_STEPS timed steps after AUTOTUNE_WARMUP."""
+    from deeperspeed_tpu_torch.models.gpt import get_preset
+
+    cfg = get_preset("neox-125m")
+    return ["--devices", "2", "--top-k", str(AUTOTUNE_TOP_K),
+            "--steps", str(AUTOTUNE_STEPS), "--warmup", str(AUTOTUNE_WARMUP),
+            "--vocab", str(cfg.vocab_size), "--n-layer", str(cfg.n_layer),
+            "--n-head", str(cfg.n_head), "--d-model", str(cfg.d_model),
+            "--seq", str(AUTOTUNE_SEQ)]
+
+
+def gloo_probe_rank(rank, tmp):
+    """One of phase 25's two probe ranks on the card: the median seconds
+    of Transport.all_reduce_sum (gloo, staged through pinned host memory)
+    of one fp32 element and of GLOO_PROBE_BYTES."""
+    import torch.distributed as dist
+
+    from deeperspeed_tpu_torch.runtime.comm.collectives import Transport
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(tmp) / "store"), 2)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    try:
+        tr = Transport(dist.group.WORLD)
+        out = {}
+        for label, n in (("one", 1), ("big", GLOO_PROBE_BYTES // 4)):
+            t = torch.ones(n, device="cuda")
+            tr.all_reduce_sum(t)  # its pinned buffers
+            seconds = []
+            for _ in range(GLOO_PROBE_REPS):
+                tr.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.all_reduce_sum(t)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            out[label] = statistics.median(seconds)
+        with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_probe():
+    """The per-collective overhead (an all-reduce of one element) and the
+    wire rate (the ring-model bytes of a GLOO_PROBE_BYTES fp32 all-reduce,
+    wiremodel.dense_wire_bytes, over its seconds) of two ranks sharing
+    the card over gloo: what autotune/costmodel.TRANSPORTS["gloo"]
+    holds."""
+    from deeperspeed_tpu_torch.runtime.comm import wiremodel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        start_ranks(gloo_probe_rank, (tmp,), 2, join=True)
+        ranks = []
+        for r in range(2):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+    one = max(r["one"] for r in ranks)
+    big = max(r["big"] for r in ranks)
+    ring = wiremodel.dense_wire_bytes(GLOO_PROBE_BYTES // 4, 2)
+    return {"launch_overhead_s": one, "wire_gbps": ring / big / 1e9,
+            "payload_bytes": GLOO_PROBE_BYTES, "payload_s": big,
+            "reps": GLOO_PROBE_REPS}
+
+
+def autotune_tuned_rank(rank, tmp, config, facts):
+    """One of the two ranks that train the tuner's emitted config
+    AUTOTUNE_TUNED_STEPS steps on the card (gloo, the card shared): its
+    model is the search's (autotune.costmodel.gpt_config), its layout the
+    config's "mesh" block; writes the losses and the kernel launches."""
+    import torch.distributed as dist
+
+    from deeperspeed_tpu_torch import initialize
+    from deeperspeed_tpu_torch.autotune import confirm, costmodel
+    from deeperspeed_tpu_torch.autotune.capture import kernel_launches
+    from deeperspeed_tpu_torch.autotune.space import (LayoutCandidate,
+                                                      ModelSpec,
+                                                      resolve_block)
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.sharding import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(tmp) / "store"), 2)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    try:
+        model = ModelSpec(**facts)
+        layout = LayoutCandidate("tuned", tuple(
+            resolve_block(config["mesh"], 2).items()))
+        gcfg = costmodel.gpt_config(model, layout)
+        mesh = mesh_lib.from_config(config["mesh"])
+        _, _, loss, specs = gpt.make_gpt(gcfg, mesh)
+        eng, _, _, _ = initialize(
+            model=loss, model_parameters=gpt.init_params(
+                0, gcfg, device="cuda", dtype=torch.float32),
+            config=config, mesh=mesh, param_specs=specs)
+        rows = (eng.train_micro_batch_size_per_gpu()
+                * eng.gradient_accumulation_steps() * eng.data_parallel_size)
+        data = confirm._token_stream(model, rows, AUTOTUNE_TUNED_STEPS, 1)
+        before = kernel_launches()
+        losses = [float(eng.train_batch(data[i * rows:(i + 1) * rows]))
+                  for i in range(AUTOTUNE_TUNED_STEPS)]
+        after = kernel_launches()
+        with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+            json.dump({"losses": losses,
+                       "launches": {k: after[k] - before[k] for k in after},
+                       "mesh": dict(eng.mesh.shape)}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def autotune_gates(report, tuned, card_before, card_after):
+    """Phase 25's failures (module docstring)."""
+    fails = []
+    prices = (report["ranking"] + report["comm_ranking"]
+              + report["kernel_ranking"] + report["serving_ranking"])
+    for p in prices:
+        if not math.isfinite(p["predicted_step_s"]):
+            fails.append(f"autotune 25: {p['name']} priced "
+                         f"{p['predicted_step_s']}")
+    for p in report["pruned"]:
+        if not p["reason"]:
+            fails.append(f"autotune 25: {p['name']} pruned with no reason")
+    zero3 = [p for p in report["pruned"] if p["name"] == "fsdp2_zero3"]
+    if not (zero3 and "ZeRO stage 3" in zero3[0]["reason"]):
+        fails.append(f"autotune 25: fsdp2_zero3 not reported infeasible "
+                     f"with the engine's refusal: {zero3}")
+    entries = report["confirm"]["entries"]
+    for e in entries:
+        if "error" in e:
+            fails.append(f"autotune 25: confirm {e['name']}: {e['error']}")
+    ran = [e for e in entries if "error" not in e]
+    firsts = [e["first_loss"] for e in ran]
+    if firsts and (max(firsts) - min(firsts)) / abs(min(firsts)) \
+            > AUTOTUNE_LOSS_RTOL:
+        fails.append(f"autotune 25: first-step losses {firsts} apart by "
+                     f"more than {AUTOTUNE_LOSS_RTOL}")
+    for e in ran:
+        for r, (live, want) in enumerate(zip(e["live_cost"],
+                                             e["captured_cost"])):
+            if (live["error"] is not None or live["flops"] != want["flops"]
+                    or abs(live["bytes"] - want["bytes"])
+                    > AUTOTUNE_BYTES_RTOL * want["bytes"]):
+                fails.append(f"autotune 25: {e['name']} rank {r}: the live "
+                             f"cost {live} against the planned {want}")
+        audit = e["audit"]
+        if e["name"] == "dp2" and audit["params"]["sharded_frac"] != 0.0:
+            fails.append(f"autotune 25: dp2 params sharded "
+                         f"{audit['params']['sharded_frac']}")
+        if e["name"] == "fsdp2_zero2":
+            for key in ("master", "exp_avg", "exp_avg_sq"):
+                if key in audit and audit[key]["sharded_frac"] <= 0.5:
+                    fails.append(f"autotune 25: fsdp2_zero2 {key} sharded "
+                                 f"{audit[key]['sharded_frac']}")
+        if e["name"] == "tp2":
+            specs = audit["param_specs"]
+            for leaf in AUTOTUNE_TP_CUT:
+                if "'tp'" not in specs[leaf]:
+                    fails.append(f"autotune 25: tp2 leaf {leaf} is "
+                                 f"{specs[leaf]}, not cut over tp")
+    if card_after != card_before:
+        fails.append(f"autotune 25: the search changed the card's allocated "
+                     f"bytes or the launch counters in this process: "
+                     f"{card_before} -> {card_after}")
+    losses = [r["losses"] for r in tuned]
+    if not (all(math.isfinite(x) for x in losses[0])
+            and losses[0] == losses[1]
+            and len(losses[0]) == AUTOTUNE_TUNED_STEPS):
+        fails.append(f"autotune 25: the emitted config's losses {losses}")
+    launches = autotune_launches(report, tuned)
+    for name in AUTOTUNE_ROWS:
+        if not launches.get(name):
+            fails.append(f"autotune 25: {name} never launched")
+    return fails
+
+
+def autotune_launches(report, tuned):
+    """Kernel launches of phase 25's ranks: the confirm runs' (summed over
+    their ranks) and the emitted config's."""
+    out = {k: 0 for k in SOURCES}
+    for e in report["confirm"]["entries"]:
+        for k, n in e.get("launches", {}).items():
+            out[k] += n
+    for r in tuned:
+        for k, n in r["launches"].items():
+            out[k] += n
+    return out
+
+
+def autotune_phase(card):
+    """Phase 25 (module docstring). Returns the kernel launches of its
+    ranks."""
+    import multiprocessing
+
+    from deeperspeed_tpu_torch.autotune import __main__ as tuner
+    from deeperspeed_tpu_torch.autotune import costmodel, verify_provenance
+    from deeperspeed_tpu_torch.autotune.capture import kernel_launches
+    from deeperspeed_tpu_torch.runtime.config import TrainingConfig
+
+    t0 = time.perf_counter()
+    probe = gloo_probe()
+    probe_s = time.perf_counter() - t0
+    multiprocessing.set_forkserver_preload(RANK_PRELOAD)
+    args = tuner._parse_args(autotune_argv())
+    log = []
+    card_before = (torch.cuda.memory_allocated(), kernel_launches())
+    t1 = time.perf_counter()
+    report = tuner.run_search(args, log=log.append,
+                              start_method="forkserver")
+    search_s = time.perf_counter() - t1
+    card_after = (torch.cuda.memory_allocated(), kernel_launches())
+    config = report["best"]["config"]
+    dp = config["train_batch_size"] // config["train_micro_batch_size_per_gpu"]
+    TrainingConfig(config, world_size=dp)
+    ok, why = verify_provenance(config)
+    if not ok:
+        raise AssertionError(f"autotune 25: the emitted config fails "
+                             f"verify_provenance: {why}")
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        start_ranks(autotune_tuned_rank, (tmp, config, report["model"]), 2,
+                    join=True)
+        tuned = []
+        for r in range(2):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                tuned.append(json.load(f))
+    tuned_s = time.perf_counter() - t2
+    predicted = {p["name"]: p for p in report["ranking"]}
+    budget = costmodel.platform_budget(world=2)
+    confirmed = []
+    for e in report["confirm"]["entries"]:
+        p = predicted[e["name"]]
+        confirmed.append({
+            "name": e["name"], "predicted_ms": p["predicted_step_s"] * 1e3,
+            "measured_ms": e.get("step_ms"),
+            "predicted_peak_gib": p["peak_hbm_bytes"] / 2**30,
+            "measured_peak_gib": (e["peak_bytes"] / 2**30
+                                  if e.get("peak_bytes") else None),
+            "first_loss": e.get("first_loss"),
+            "planned_cost": e.get("captured_cost"),
+            "live_cost": e.get("live_cost"),
+            "components": p["components"], "error": e.get("error")})
+    line = {
+        "card": card, "argv": autotune_argv(), "gloo_probe": probe,
+        "budget": {k: budget[k] for k in (
+            "source", "peak_flops", "peak_bw", "ici_bw", "hbm_bytes",
+            "launch_overhead_s", "transport", "transport_source",
+            "ranks_per_card")},
+        "space_hash": report["space_hash"],
+        "space_sizes": report["space_sizes"],
+        "layouts": [{"name": p["name"],
+                     "predicted_ms": p["predicted_step_s"] * 1e3,
+                     "peak_gib": p["peak_hbm_bytes"] / 2**30}
+                    for p in report["ranking"]],
+        "comm": [{"name": p["name"],
+                  "predicted_ms": p["predicted_step_s"] * 1e3}
+                 for p in report["comm_ranking"]],
+        "kernel_routes": [{"name": p["name"],
+                           "predicted_ms": p["predicted_step_s"] * 1e3,
+                           "bytes": p["bytes_accessed"]}
+                          for p in report["kernel_ranking"]],
+        "servings_feasible": len(report["serving_ranking"]),
+        "pruned": report["pruned"],
+        "confirmed": confirmed,
+        "spearman": report["confirm"]["rank_correlation"],
+        "best": {k: report["best"][k] for k in (
+            "name", "predicted_step_s", "measured_step_ms")},
+        "emitted": {k: config[k] for k in (
+            "mesh", "zero_optimization", "kernels",
+            "train_micro_batch_size_per_gpu") if k in config}
+        | {"comm": config.get("comm")},
+        "tuned_losses": [r["losses"] for r in tuned],
+        "seconds": {"probe": probe_s, "search": search_s,
+                    "tuned": tuned_s, "phase": time.perf_counter() - t0},
+        "log": log}
+    print("autotune 25: " + json.dumps(line), flush=True)
+    fails = autotune_gates(report, tuned, card_before, card_after)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return autotune_launches(report, tuned)
+
+
 class Beside(threading.Thread):
     """``fn(*args)`` on a thread of its own, started at once; ``join``
     returns its result or raises its exception."""
@@ -10004,6 +10402,8 @@ def main() -> int:
             cases[name].extend(rows)
     for name, rows in spec_kernel_cases(fb, gen).items():
         cases[name].extend(rows)
+    for name, rows in autotune_kernel_cases(fb, fa, gen).items():
+        cases[name].extend(rows)
     for name, rows in cases.items():
         for r in rows:
             if "ms" in r:
@@ -10080,6 +10480,7 @@ def main() -> int:
     pipe3d, pipe3d_per_step, spmd, spmd_per_step, spmd_s = timed(
         "23b pipe 3d and 24 spmd", pipe3d_phase, card)
     wall["24 spmd (inside 23b)"] = spmd_s
+    autotune = timed("25 autotune", autotune_phase, card)
     import shutil
 
     shutil.rmtree(obs, ignore_errors=True)
@@ -10102,7 +10503,8 @@ def main() -> int:
              "tp_training": tp, "sp_training": sp,
              "tp_serving": tp_serving, "pipe_training": pipe,
              "pipe_serving": pipe_serving, "pipe_3d_training": pipe3d,
-             "spmd_pipeline_training": spmd, **dp_extra}
+             "spmd_pipeline_training": spmd, "autotune_search": autotune,
+             **dp_extra}
     kernels = []
     for name, rows in cases.items():
         # the timed row of the path the kernel was ported for: BERT's for
@@ -10191,6 +10593,12 @@ def main() -> int:
             entry["tp_path"] = [{k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")} for r in tp_rows]
+        at_rows = [r for r in rows if r.get("path") == "autotune"]
+        if at_rows:
+            # the kernel at phase 25's fp32 candidate step's shapes
+            entry["autotune_path"] = [{k: r[k] for k in (
+                "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for r in at_rows]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "fused_adam":

@@ -53,8 +53,9 @@
 //
 // The fp32 route keeps the first port's CUDA-core kernels (fp32 FMAs over
 // fp32 tiles with a row stride of Dh + 1): TF32 tensor cores keep ~10
-// mantissa bits, short of the fp32 tolerance the port holds. fp32 is not
-// on the training path.
+// mantissa bits, short of the fp32 tolerance the port holds. An fp32
+// model on Hopper trains through it (the autotuner's candidate engines
+// are fp32), and it is not redesigned: PERF.md times it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -49,7 +49,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops import fused_blocks
 from ..ops.flash_attention import FLASH_FWD_OP, flash_attention
 from ..ops.flash_static import SUPERTILE_FWD_OP
-from ..ops.kernel_config import _is_hopper
+from ..ops.kernel_config import on_hopper
 from ..parallel.tp import (copy_to_tp_region, gather_from_tp_region,
                            reduce_from_tp_region, scatter_to_tp_region,
                            shard_tree, sp_transport, tp_transport)
@@ -414,7 +414,7 @@ def dense_causal_attention(q, k, v):
 
 
 def _auto_takes_flash(device: torch.device) -> bool:
-    return device.type == "cuda" and _is_hopper(device)
+    return on_hopper(device)
 
 
 def causal_attention(q, k, v, impl="auto"):

@@ -11,7 +11,10 @@ call pays one comparison). A capture counts three things:
     flops by ``torch.utils.flop_counter``'s formulas (matmuls,
     convolutions, SDPA; elementwise ops count none, by that module's
     convention), bytes as the nbytes of each op's tensor inputs and
-    outputs (views and ``empty`` allocations move none);
+    outputs (views and ``empty`` allocations move none); a collective's
+    ops (the mesh's ``Transport``, its staging copies included) count
+    nothing: its payload is the wire's, which the autotuner's wire model
+    prices (:func:`uncounted`);
   * **the port's own kernels' declared work.** A ctypes launch is
     invisible to a dispatch mode, so each kernel wrapper declares its
     flops and bytes (:func:`declares`), and the aten ops of its plain
@@ -31,13 +34,24 @@ call pays one comparison). A capture counts three things:
 same ``flops`` whichever ops the remat policy replays. MFU is ``flops``
 over the span's time against the peak, as in the reference.
 
+A **planning capture** (:meth:`CompiledCostIndex.plan`, the autotuner's
+counterpart of the reference's AOT lowering) runs a call whose tensors lie
+on the ``meta`` device: shapes only, nothing computed. It counts the same
+flops and bytes; every scalar the call reads on the host reads as one
+(True for a flag: the step takes its finite path); an op on a CUDA tensor
+is an error (the call ran on the card); and ``peak_bytes`` is the
+arguments' bytes plus the most bytes that the call's new tensors held at
+once, from the storages the dispatch mode saw created (weak references:
+a storage counts until it is freed), since no allocator reads meta.
+
 The peak table has one row for the card, the published peaks of the
-NVIDIA H100 80GB HBM3 (SXM): 989 TFLOP/s dense bf16 on the tensor cores,
-3.35 TB/s of HBM3 and 80 GiB; and the reference's nominal ``cpu`` row, so
-MFU numbers exist on the CPU (and exercise the plumbing) without
-pretending to mean anything.
+NVIDIA H100 80GB HBM3 (SXM): 989 TFLOP/s dense bf16 on the tensor cores
+(67 TFLOP/s fp32 outside them), 3.35 TB/s of HBM3 and 80 GiB; and the
+reference's nominal ``cpu`` row, so MFU numbers exist on the CPU (and
+exercise the plumbing) without pretending to mean anything.
 """
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -65,11 +79,11 @@ __all__ = [
 PLATFORM_PEAKS: Dict[str, Dict[str, Any]] = {
     # spec values of the NVIDIA H100 80GB HBM3 (SXM5): 989 TFLOP/s dense
     # bf16, 3.35 TB/s HBM3, NVLink 4 at 900 GB/s both ways
-    "h100": {"peak_tflops": 989.0, "peak_gbps": 3350.0,
-             "hbm_gib": 80.0, "ici_gbps": 450.0,
+    "h100": {"peak_tflops": 989.0, "peak_tflops_fp32": 67.0,
+             "peak_gbps": 3350.0, "hbm_gib": 80.0, "ici_gbps": 450.0,
              "label": "spec values of the NVIDIA H100 80GB HBM3"},
     # nominal: keeps CPU MFU numbers finite and the plumbing testable
-    "cpu": {"peak_tflops": 0.5, "peak_gbps": 50.0,
+    "cpu": {"peak_tflops": 0.5, "peak_tflops_fp32": 0.5, "peak_gbps": 50.0,
             "hbm_gib": 1.0, "ici_gbps": 10.0, "label": "nominal"},
 }
 
@@ -96,12 +110,30 @@ def platform_peaks(device=None) -> Dict[str, Any]:
 # the capture: a dispatch mode plus the kernels' declarations
 # ------------------------------------------------------------------ #
 
+# a planning capture's error when one of its ops took a CUDA tensor
+RAN_ON_THE_CARD = "ran on the card in a planning capture"
 # open captures, innermost last (each one a _Tally)
 _ACTIVE: List["_Tally"] = []
+# this thread's depth inside ``uncounted`` regions
+_LOCAL = threading.local()
 # > 0 while a declaring kernel wrapper runs: its plain version's aten ops
 # are not counted again
 _SUSPENDED = [0]
 _PORT_NAMESPACE = "deeperspeed_tpu_torch"
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The ops this thread runs inside are not counted as flops or bytes:
+    a collective's work (runtime/comm/collectives.py), whose payload the
+    wire model prices; a planning capture still tracks the tensors they
+    leave alive."""
+    depth = getattr(_LOCAL, "depth", 0)
+    _LOCAL.depth = depth + 1
+    try:
+        yield
+    finally:
+        _LOCAL.depth = depth
 
 
 def _recomputing() -> bool:
@@ -117,11 +149,13 @@ def _recomputing() -> bool:
 
 
 class _Tally:
-    def __init__(self):
+    def __init__(self, planning: bool = False):
         self.flops = 0.0
         self.recompute_flops = 0.0
         self.bytes = 0.0
         self.error: Optional[str] = None
+        # a planning capture's live-storage bytes (None otherwise)
+        self.live = _LiveBytes() if planning else None
 
     def add(self, flops: float, nbytes: float, recompute: bool) -> None:
         if recompute:
@@ -129,6 +163,61 @@ class _Tally:
         else:
             self.flops += flops
         self.bytes += nbytes
+
+
+class _LiveBytes:
+    """The bytes of the storages a planning capture saw created and that
+    are still alive, and their most at once. Storages are held by weak
+    reference (freed ones drop out on the next sweep); ``resident`` ones
+    (the call's arguments) count nothing here."""
+
+    def __init__(self):
+        self._refs: Dict[int, tuple] = {}
+        self.current = 0
+        self.peak = 0
+
+    def resident(self, tree) -> None:
+        from torch.multiprocessing.reductions import StorageWeakRef
+
+        for t in _tensor_leaves(tree):
+            st = t.untyped_storage()
+            self._refs[st._cdata] = (StorageWeakRef(st), 0)
+
+    def track(self, tree) -> None:
+        from torch.multiprocessing.reductions import StorageWeakRef
+
+        new = {}
+        for t in _tensor_leaves(tree):
+            st = t.untyped_storage()
+            ref = self._refs.get(st._cdata)
+            if ref is None or ref[0].expired():
+                new[st._cdata] = (StorageWeakRef(st), st.nbytes())
+        if not new:
+            return
+        for key in [k for k, (r, _) in self._refs.items() if r.expired()]:
+            self.current -= self._refs.pop(key)[1]
+        self._refs.update(new)
+        self.current += sum(n for _, n in new.values())
+        self.peak = max(self.peak, self.current)
+
+
+def _tensor_leaves(tree) -> list:
+    """Every tensor in ``tree``: dicts, lists, tuples (named ones too) and
+    dataclasses, walked."""
+    import torch
+
+    out, todo = [], [tree]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, dict):
+            todo.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            todo.extend(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            todo.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+    return out
 
 
 def declares(work):
@@ -150,6 +239,8 @@ def declares(work):
                 _SUSPENDED[0] -= 1
             recompute = _recomputing()
             for t in _ACTIVE:
+                if t.live is not None:
+                    t.live.track(out)
                 try:
                     flops, nbytes, *extra = work(out, *args, **kwargs)
                     t.add(float(flops), float(nbytes), recompute)
@@ -184,11 +275,30 @@ def _counting_mode(tally: _Tally):
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
 
+    import torch
+
+    aten = torch.ops.aten
+    planning = tally.live is not None
+
     class _Counting(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            if planning:
+                if func is aten._local_scalar_dense.default:
+                    # the host reads a value a meta tensor does not have
+                    return True if args[0].dtype == torch.bool else 1
+                if func is aten.is_nonzero.default:
+                    return True
+                if tally.error is None and any(
+                        t.device.type == "cuda"
+                        for t in _tensor_leaves((args, kwargs))):
+                    tally.error = f"{func} {RAN_ON_THE_CARD}"
             out = func(*args, **kwargs)
-            if (_SUSPENDED[0] or func.namespace == _PORT_NAMESPACE
+            if (planning and not _SUSPENDED[0]
+                    and not func._schema.is_mutable):
+                tally.live.track(out)
+            if (_SUSPENDED[0] or getattr(_LOCAL, "depth", 0)
+                    or func.namespace == _PORT_NAMESPACE
                     or func.is_view
                     or func.__name__.startswith(("empty", "detach"))):
                 # the port's custom ops run declaring wrappers
@@ -213,7 +323,11 @@ class _Capture:
     def __init__(self, index, name, size, device, args):
         self.index, self.name, self.size = index, name, size
         self.device, self.args = device, args
-        self.tally = _Tally()
+        self.planning = (device is not None
+                         and _device_type(device) == "meta")
+        self.tally = _Tally(planning=self.planning)
+        if self.planning:
+            self.tally.live.resident(args)
 
     def __enter__(self):
         import torch
@@ -242,6 +356,10 @@ class _Capture:
                          error=self.tally.error)
         if exc is not None:
             rec.error = f"the captured call raised {exc_type.__name__}: {exc}"
+        if self.planning:
+            rec.peak_bytes = rec.argument_bytes + float(self.tally.live.peak)
+            rec.temp_bytes = float(self.tally.live.peak)
+            rec.output_bytes = float(self.tally.live.current)
         if self.cuda:
             peak = torch.cuda.max_memory_allocated(self.device)
             after = torch.cuda.memory_allocated(self.device)
@@ -250,6 +368,12 @@ class _Capture:
             rec.output_bytes = float(max(0, after - self.before))
         self.index._store(rec)
         return False
+
+
+def _device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
 
 
 class _NullCapture:
@@ -354,6 +478,19 @@ class CompiledCostIndex:
         if rec is not None and rec.error is None and rec.cache_size == size:
             return _NULL
         return _Capture(self, name, size, device, args)
+
+    def plan(self, name: str, fn, args=(), kwargs=None) -> "CostRecord":
+        """A planning capture (module docstring) of ``fn(*args,
+        **kwargs)``, whose tensors lie on the meta device; ``args`` and
+        ``kwargs`` are the call's resident inputs (their bytes make
+        ``argument_bytes``). Records and returns the entry's CostRecord; a
+        call that raised or touched the card leaves its ``error``."""
+        try:
+            with _Capture(self, name, None, "meta", (args, kwargs or {})):
+                fn(*args, **(kwargs or {}))
+        except Exception:  # noqa: BLE001 - the record carries the error
+            pass
+        return self.get(name)
 
     def _store(self, rec: CostRecord) -> None:
         peaks = self.peaks

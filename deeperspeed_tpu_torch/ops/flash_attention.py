@@ -49,7 +49,7 @@ import torch
 
 from ..monitor.perf import declares, io_bytes
 from . import op_builder
-from .kernel_config import _is_hopper, routes_to_wrapper
+from .kernel_config import on_hopper, routes_to_wrapper, takes_plain
 
 NEG_INF = -1e30  # the reference's masked score: finite, so no NaN appears
 HEAD_DIMS = (64, 96, 128)
@@ -199,7 +199,7 @@ def flash_fwd(q, k, v, sm_scale, causal):
     """Flash forward kernel on contiguous (B, H, S, Dh) q, k, v of one
     dtype (fp32 or bf16, Dh in HEAD_DIMS): returns (o, lse (B, H, S)
     fp32). A CPU tensor takes ``flash_fwd_plain``."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return flash_fwd_plain(q, k, v, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes a CPU or CUDA tensor, got "
@@ -227,7 +227,7 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale, causal):
     """Flash backward kernels (delta = rowsum(dO * O), dK/dV, then dQ) on
     contiguous (B, H, S, Dh) tensors of one dtype and ``flash_fwd``'s fp32
     lse: returns (dq, dk, dv). A CPU tensor takes ``flash_bwd_plain``."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return flash_bwd_plain(q, k, v, o, lse, do, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd takes a CPU or CUDA tensor, got "
@@ -273,6 +273,10 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_fwd_op.register_fake
 def _(q, k, v, sm_scale, causal):
+    if q.device.type == "meta" and takes_plain(q.device):
+        # a planning capture (autotune/capture.py): the wrapper declares
+        # the kernel's work (a FakeTensor keeps its fake device)
+        return flash_fwd(q, k, v, sm_scale, causal)
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
@@ -286,6 +290,8 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_bwd_op.register_fake
 def _(q, k, v, o, lse, do, sm_scale, causal):
+    if q.device.type == "meta" and takes_plain(q.device):
+        return flash_bwd(q, k, v, o, lse, do, sm_scale, causal)
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -329,7 +335,7 @@ def attention_dispatch(shape, dtype, device) -> str:
     if (routes_to_wrapper("supertile", device)
             and supertile_geometry_ok(*shape, dtype)):
         return "supertile"
-    if device.type == "cuda" and _is_hopper(device):
+    if on_hopper(device):
         return "flash"
     return "xla"
 

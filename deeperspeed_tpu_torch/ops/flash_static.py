@@ -51,6 +51,7 @@ from typing import Tuple
 import torch
 
 from . import op_builder
+from .kernel_config import takes_plain
 from ..monitor.perf import declares
 from .flash_attention import (attention_work, flash_bwd_plain,
                               flash_fwd_plain)
@@ -200,7 +201,7 @@ def supertile_fwd(q, k, v, sm_scale, causal):
     """Super-tile forward kernel on contiguous (B, H, S, Dh) q, k, v of
     one dtype inside the gate: returns (o, lse (B, H, S) fp32). A CPU
     tensor takes ``supertile_fwd_plain``."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return supertile_fwd_plain(q, k, v, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"supertile_fwd takes a CPU or CUDA tensor, got "
@@ -230,7 +231,7 @@ def supertile_bwd(q, k, v, o, lse, do, sm_scale, causal):
     dk, dv). delta = rowsum(dO * O) is computed on the card (in the bf16
     kernel's blocks; by a kernel of its own before the fp32 one). A CPU
     tensor takes ``supertile_bwd_plain``."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return supertile_bwd_plain(q, k, v, o, lse, do, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"supertile_bwd takes a CPU or CUDA tensor, got "
@@ -277,6 +278,10 @@ def _supertile_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_supertile_fwd_op.register_fake
 def _(q, k, v, sm_scale, causal):
+    if q.device.type == "meta" and takes_plain(q.device):
+        # a planning capture (autotune/capture.py): the wrapper declares
+        # the kernel's work (a FakeTensor keeps its fake device)
+        return supertile_fwd(q, k, v, sm_scale, causal)
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
@@ -291,6 +296,8 @@ def _supertile_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_supertile_bwd_op.register_fake
 def _(q, k, v, o, lse, do, sm_scale, causal):
+    if q.device.type == "meta" and takes_plain(q.device):
+        return supertile_bwd(q, k, v, o, lse, do, sm_scale, causal)
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 

@@ -39,6 +39,7 @@ import torch
 
 from ..monitor.perf import declares, io_bytes
 from . import op_builder
+from .kernel_config import takes_plain
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NO_CAST = -1
@@ -187,7 +188,7 @@ def fused_adam(ps: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
     launch per 64 leaves) or raise."""
     if not ps:
         return
-    if all(t.device.type == "cpu" for t in ps):
+    if all(takes_plain(t.device) for t in ps):
         return adam_plain(ps, gs, ms, vs, cs, lr, bc1, bc2, b1=b1, b2=b2,
                           eps=eps, wd=wd, adam_w=adam_w)
     if ps[0].device.type != "cuda":

@@ -64,7 +64,7 @@ import torch.nn.functional as F
 from ..monitor.perf import declares, io_bytes
 from ..monitor.tracer import trace_span
 from . import op_builder
-from .kernel_config import routes_to_wrapper
+from .kernel_config import routes_to_wrapper, takes_plain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -276,7 +276,7 @@ def ln_fwd(x, w, b, eps):
     """LayerNorm forward kernel on x (R, D) fp32 or bf16, w/b (D,) fp32:
     returns (y (R, D) in x's dtype, mean (R,) fp32, rstd (R,) fp32).
     A CPU tensor takes ``ln_fwd_plain``."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return ln_fwd_plain(x, w, b, eps)
     if x.device.type != "cuda":
         raise _not_cuda("ln_fwd", x)
@@ -417,7 +417,7 @@ def ln_bwd(x, w, mean, rstd, g):
     """LayerNorm backward kernel on x, g (R, D) fp32 or bf16, w (D,) fp32
     and ln_fwd's fp32 mean, rstd (R,): returns (dx (R, D) in x's dtype,
     dw (D,) fp32, db (D,) fp32). A CPU tensor takes ``ln_bwd_plain``."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return ln_bwd_plain(x, w, mean, rstd, g)
     if x.device.type != "cuda":
         raise _not_cuda("ln_bwd", x)
@@ -448,7 +448,7 @@ def add_ln_fwd(x, r, w, b, eps):
     fp32 or bf16, and w, b (D,) fp32: returns (y (R, D) in x's dtype, mean
     and rstd (R,) fp32 of x + r). A CPU tensor takes
     ``add_ln_fwd_plain``."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return add_ln_fwd_plain(x, r, w, b, eps)
     if x.device.type != "cuda":
         raise _not_cuda("add_ln_fwd", x)
@@ -475,7 +475,7 @@ def add_ln_bwd(x, r, w, mean, rstd, g):
     dtype, w (D,) fp32 and add_ln_fwd's fp32 mean, rstd (R,): returns
     (ds (R, D) in x's dtype, dw (D,) fp32, db (D,) fp32). A CPU tensor
     takes ``add_ln_bwd_plain``."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return add_ln_bwd_plain(x, r, w, mean, rstd, g)
     if x.device.type != "cuda":
         raise _not_cuda("add_ln_bwd", x)
@@ -592,7 +592,7 @@ def bias_gelu_fwd(x, b, approximate):
     tanh (True) or erf (False) GeLU. The launch is ``bias_gelu_fwd_plan``'s:
     16-byte vectors at fixed columns a lane where the rows allow, else a
     scalar grid-stride pass. A CPU tensor takes ``bias_gelu_fwd_plain``."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return bias_gelu_fwd_plain(x, b, approximate)
     if x.device.type != "cuda":
         raise _not_cuda("bias_gelu_fwd", x)
@@ -706,7 +706,7 @@ def bias_gelu_bwd(x, b, g, approximate):
     launches are ``bias_gelu_bwd_plan``'s: dx and fp32 partial rows of db,
     then their sum per column in a fixed order (no atomics: a relaunch
     gives the same bits). A CPU tensor takes ``bias_gelu_bwd_plain``."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return bias_gelu_bwd_plain(x, b, g, approximate)
     if x.device.type != "cuda":
         raise _not_cuda("bias_gelu_bwd", x)

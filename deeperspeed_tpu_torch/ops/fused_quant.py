@@ -51,7 +51,7 @@ import torch
 
 from ..monitor.perf import declares, io_bytes
 from . import op_builder
-from .kernel_config import routes_to_wrapper
+from .kernel_config import routes_to_wrapper, takes_plain
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _Q_CODES = {torch.int8: 0, torch.float16: 1}
@@ -133,7 +133,7 @@ def quantize_rows(x: torch.Tensor, block: int, want_residual: bool = True):
     or bf16: ``(q, s, residual | None)`` as ``quantize_rows_plain``. CPU
     tensors take the plain version; CUDA tensors launch
     ``ds_quantize_rows`` or raise."""
-    if x.device.type == "cpu":
+    if takes_plain(x.device):
         return quantize_rows_plain(x, block, want_residual)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows takes CPU or CUDA tensors, got "
@@ -190,7 +190,7 @@ def dequant_sum_rows(q: torch.Tensor, s: torch.Tensor,
     """``sum_r dequant(q[r], s[r])`` -> (C,) fp32, q (R, C) int8 or fp16,
     s (R, C // block) fp32. CPU tensors take the plain version; CUDA
     tensors launch ``ds_dequant_sum_rows`` or raise."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return dequant_sum_rows_plain(q, s, block)
     if q.device.type != "cuda" or s.device != q.device:
         raise ValueError(f"dequant_sum_rows takes CPU or CUDA tensors on one "
@@ -244,7 +244,7 @@ def dequant_rows(q: torch.Tensor, s: torch.Tensor, block: int,
     """``dequant(q, s) / divisor`` -> (R, C) fp32, q (R, C) int8, s (R,
     C // block) fp32. CPU tensors take the plain version; CUDA tensors
     launch ``ds_dequant_rows`` or raise."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return dequant_rows_plain(q, s, block, divisor)
     if q.device.type != "cuda" or s.device != q.device:
         raise ValueError(f"dequant_rows takes CPU or CUDA tensors on one "

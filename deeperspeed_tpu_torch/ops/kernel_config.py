@@ -27,6 +27,15 @@ there is no interpret mode for a CUDA kernel, and True raises.
 The state is process-global (like the monitor tracer) because the
 consumers are free functions deep inside model code. Engines configure it
 once from the config; tests use ``override()``.
+
+Planning: a tensor on the ``meta`` device has shapes and no data. The
+autotuner runs a candidate's step on it (autotune/capture.py) and says
+with ``planning(device_type, capability)`` which device those tensors
+stand for: the routing then answers as it would there, and each kernel
+wrapper, given a meta tensor (``takes_plain``), computes its outputs'
+shapes through its plain version while declaring its kernel's work to
+the cost index. Outside a planning block a meta tensor takes the plain
+path of a dispatcher, and a wrapper refuses it.
 """
 
 import contextlib
@@ -51,6 +60,9 @@ class KernelsConfig:
 
 _LOCK = threading.Lock()
 _STATE = KernelsConfig()
+# what a meta tensor stands for (``planning``): None, or (device type,
+# compute capability or None)
+_PLANNED = None
 
 
 def get() -> KernelsConfig:
@@ -103,8 +115,54 @@ def override(**kwargs):
             _STATE = prev
 
 
+@contextlib.contextmanager
+def planning(device_type: str, capability=None):
+    """Route meta tensors as tensors on a ``device_type`` device (of
+    compute capability ``capability``, a CUDA card's (major, minor)) until
+    the block ends."""
+    global _PLANNED
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"planning targets 'cuda' or 'cpu', got "
+                         f"{device_type!r}")
+    hopper = capability is not None and tuple(capability) == (9, 0)
+    with _LOCK:
+        prev, _PLANNED = _PLANNED, (device_type, hopper)
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _PLANNED = prev
+
+
 def _is_hopper(device: torch.device) -> bool:
     return torch.cuda.get_device_capability(device) == (9, 0)
+
+
+def on_hopper(device) -> bool:
+    """Whether a tensor on ``device`` is on a Hopper card (compute
+    capability 9.0), or is a meta tensor that a ``planning`` block says
+    stands for one."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return (_PLANNED is not None and _PLANNED[0] == "cuda"
+                and _PLANNED[1])
+    return device.type == "cuda" and _is_hopper(device)
+
+
+def takes_plain(device) -> bool:
+    """Whether a kernel wrapper hands a tensor on ``device`` to its plain
+    version: a CPU tensor (no CUDA kernel runs there), or a meta tensor
+    inside a ``planning`` block (shapes only)."""
+    device = torch.device(device)
+    return device.type == "cpu" or (device.type == "meta"
+                                    and _PLANNED is not None)
+
+
+def _kind(device: torch.device) -> str:
+    """The device type a tensor on ``device`` is routed as."""
+    if device.type == "meta" and _PLANNED is not None:
+        return _PLANNED[0]
+    return device.type
 
 
 def resolve(surface: str, device) -> bool:
@@ -120,11 +178,12 @@ def resolve(surface: str, device) -> bool:
     if surface not in SURFACES:
         raise ValueError(f"unknown kernel surface {surface!r}")
     device = torch.device(device)
-    if st.mode == "off" or not getattr(st, surface) or device.type != "cuda":
+    if (st.mode == "off" or not getattr(st, surface)
+            or _kind(device) != "cuda"):
         return False
     if st.mode == "fused":
         return True
-    return _is_hopper(device)
+    return on_hopper(device)
 
 
 def routes_to_wrapper(surface: str, device) -> bool:
@@ -137,5 +196,5 @@ def routes_to_wrapper(surface: str, device) -> bool:
     if resolve(surface, device):
         return True
     st = _STATE
-    return (torch.device(device).type == "cpu" and st.mode == "fused"
+    return (_kind(torch.device(device)) == "cpu" and st.mode == "fused"
             and getattr(st, surface))

@@ -54,6 +54,7 @@ import torch
 
 from ...monitor.perf import declares
 from .. import op_builder
+from ..kernel_config import takes_plain
 from ..flash_attention import attention_work
 from .kernels import GROUP_TILES, NEG_INF, DeviceLut, dense_mask
 
@@ -303,7 +304,7 @@ def sparse_fwd(q, k, v, lut: DeviceLut, sm_scale, causal,
     (B, H, S) fp32). bf16 runs on the tensor cores over the lut's query
     groups; fp32 on the first port's CUDA-core kernel over the row table.
     A CPU tensor takes ``sparse_fwd_plain``."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return sparse_fwd_plain(q, k, v, lut.layout, lut.block, sm_scale,
                                 causal, key_padding_mask)
     if q.device.type != "cuda":
@@ -343,7 +344,7 @@ def sparse_bwd(q, k, v, o, lse, do, lut: DeviceLut, sm_scale, causal,
     groups) on contiguous (B, H, S, Dh) tensors of one dtype and
     ``sparse_fwd``'s fp32 lse: returns (dq, dk, dv). A CPU tensor takes
     ``sparse_bwd_plain``."""
-    if q.device.type == "cpu":
+    if takes_plain(q.device):
         return sparse_bwd_plain(q, k, v, o, lse, do, lut.layout, lut.block,
                                 sm_scale, causal, key_padding_mask)
     if q.device.type != "cuda":

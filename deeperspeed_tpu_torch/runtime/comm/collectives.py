@@ -17,6 +17,12 @@ group (a world of one rank) each is the identity. Besides the data
 axes' collectives, tensor parallelism (parallel/tp.py) uses the sum and
 the gather, and ring attention (ops/ring_attention.py) the point-to-point
 ``ring_shift``.
+
+A :class:`PlanningGroup` (sharding.mesh.PlanningMesh's groups, the
+autotuner's capture on the ``meta`` device) moves nothing: each
+collective returns a tensor of the shape the group's real collective
+would, through the same copies as the unstaged path, so one rank's step
+runs and is counted while the wire model prices the collectives.
 """
 
 import functools
@@ -26,13 +32,28 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["Transport"]
+from ...monitor.perf import uncounted
+
+__all__ = ["PlanningGroup", "Transport"]
+
+
+class PlanningGroup:
+    """A group of ``size`` ranks that exists only to be planned for: this
+    process is rank ``rank`` of it and no collective leaves the process."""
+
+    def __init__(self, size: int, rank: int = 0):
+        self.size, self.rank = int(size), int(rank)
+
+    def __repr__(self):
+        return f"PlanningGroup(size={self.size}, rank={self.rank})"
 
 
 def _clocked(fn):
     """Count the collective's wall seconds in ``Transport.seconds``. A
     host-staged collective first waits for the card's stream (its copy
-    would wait there anyway), so the seconds are the transfer's own."""
+    would wait there anyway), so the seconds are the transfer's own. Its
+    ops, staging copies included, are the wire's: a cost capture does not
+    count them (monitor/perf.uncounted; the wire model prices them)."""
     @functools.wraps(fn)
     def call(self, t, *args, **kwargs):
         if self.group is None:
@@ -41,7 +62,8 @@ def _clocked(fn):
             torch.cuda.current_stream(t.device).synchronize()
         t0 = time.perf_counter()
         try:
-            return fn(self, t, *args, **kwargs)
+            with uncounted():
+                return fn(self, t, *args, **kwargs)
         finally:
             self.seconds += time.perf_counter() - t0
     return call
@@ -52,15 +74,23 @@ class Transport:
 
     def __init__(self, group=None):
         self.group = group
-        self.size = dist.get_world_size(group) if group is not None else 1
-        self.rank = dist.get_rank(group) if group is not None else 0
-        self.backend = (dist.get_backend(group) if group is not None
-                        else None)
+        if isinstance(group, PlanningGroup):
+            self.size, self.rank, self.backend = (group.size, group.rank,
+                                                  "planning")
+        else:
+            self.size = (dist.get_world_size(group) if group is not None
+                         else 1)
+            self.rank = dist.get_rank(group) if group is not None else 0
+            self.backend = (dist.get_backend(group) if group is not None
+                            else None)
         self._pinned: Dict[Tuple, torch.Tensor] = {}
         # bytes staged through host memory, both ways (read by the engine's
         # step breakdown), and the collectives' wall seconds
         self.staged_bytes = 0
         self.seconds = 0.0
+
+    def _plans(self) -> bool:
+        return self.backend == "planning"
 
     def _stages(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type == "cuda"
@@ -103,7 +133,8 @@ class Transport:
         host = self._to_host(t, "ar")
         if host is t:
             host = t.clone()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
+        if not self._plans():
+            dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
         return host.to(t.device, copy=True)
 
     @_clocked
@@ -114,7 +145,8 @@ class Transport:
             return t.clone()
         host = self._to_host(t, "a2a_in")
         out = self._out(t, t.shape, "a2a_out")
-        dist.all_to_all_single(out, host, group=self.group)
+        if not self._plans():
+            dist.all_to_all_single(out, host, group=self.group)
         return self._back(out, t.device)
 
     @_clocked
@@ -124,7 +156,8 @@ class Transport:
             return t[None].clone()
         host = self._to_host(t.reshape(-1), "ag_in")
         out = self._out(t, (self.size * t.numel(),), "ag_out")
-        dist.all_gather_into_tensor(out, host, group=self.group)
+        if not self._plans():
+            dist.all_gather_into_tensor(out, host, group=self.group)
         return self._back(out, t.device).reshape((self.size,) + t.shape)
 
     @_clocked
@@ -136,6 +169,9 @@ class Transport:
         host = self._to_host(t, "g_in")
         outs = ([torch.empty_like(host) for _ in range(self.size)]
                 if self.rank == dst else None)
+        if self._plans():
+            return (None if outs is None
+                    else self._back(torch.stack(outs), t.device))
         dist.gather(host, gather_list=outs,
                     dst=dist.get_global_rank(self.group, dst),
                     group=self.group)
@@ -151,8 +187,9 @@ class Transport:
             return t.clone()
         host = self._to_host(t.reshape(-1), "rs_in")
         out = self._out(t, (t.numel() // self.size,), "rs_out")
-        dist.reduce_scatter_tensor(out, host, op=dist.ReduceOp.SUM,
-                                   group=self.group)
+        if not self._plans():
+            dist.reduce_scatter_tensor(out, host, op=dist.ReduceOp.SUM,
+                                       group=self.group)
         return self._back(out, t.device)
 
     @_clocked
@@ -166,6 +203,8 @@ class Transport:
             return t.clone()
         host = self._to_host(t, "ring_in")
         out = self._out(t, t.shape, "ring_out")
+        if self._plans():
+            return self._back(out, t.device)
         dst = dist.get_global_rank(self.group, (self.rank + step) % self.size)
         src = dist.get_global_rank(self.group, (self.rank - step) % self.size)
         ops = [dist.P2POp(dist.isend, host, dst, group=self.group),
@@ -175,5 +214,5 @@ class Transport:
         return self._back(out, t.device)
 
     def barrier(self):
-        if self.group is not None:
+        if self.group is not None and not self._plans():
             dist.barrier(group=self.group)

@@ -77,6 +77,16 @@ class TrainingConfig:
         # admissible world size (Engine._train_step_canonical)
         self.elastic_canonical_shards = 0
         self._refuse_unported(self._param_dict)
+        # the tuner's search preferences, validated as the reference does
+        self.autotune_params = self._param_dict.get(c.AUTOTUNE, None)
+        if self.autotune_params is not None and not isinstance(
+                self.autotune_params, dict):
+            raise ConfigError(
+                '"autotune" must be a dict of search preferences '
+                '(or {"enabled": false})')
+        self.autotune_enabled = bool(
+            (self.autotune_params or {}).get(
+                c.AUTOTUNE_ENABLED, self.autotune_params is not None))
         # the autotuner's record: only its keys are checked here, as the
         # reference does (its config.py); the knob hash is
         # autotune.provenance.verify_provenance's
@@ -109,9 +119,6 @@ class TrainingConfig:
         stage = zero.get(c.ZERO_STAGE, 0)
         if not (0 <= stage <= c.MAX_STAGE_ZERO_OPTIMIZATION):
             raise ValueError(f"ZeRO stage must be in [0, 3], got {stage}")
-
-        if _block_enabled(pd, c.AUTOTUNE):
-            raise _unported(f'the "{c.AUTOTUNE}" block', "Tooling")
 
         flag_blocks = (
             (c.PROGRESSIVE_LAYER_DROP, c.PLD_ENABLED, "Tooling"),

@@ -196,7 +196,12 @@ LIFECYCLE = "lifecycle"
 
 DISTRIBUTED = "distributed"
 
+# an "autotune" block records search preferences for `python -m
+# deeperspeed_tpu_torch.autotune`; a "provenance" block is the record the
+# tuner emits beside the knobs it chose
 AUTOTUNE = "autotune"
+AUTOTUNE_ENABLED = "enabled"
+AUTOTUNE_ENABLED_DEFAULT = False
 
 PROVENANCE = "provenance"
 

@@ -303,6 +303,10 @@ class Engine(ConfigAccessorsMixin):
             raise RuntimeError(
                 "Engine runs on CUDA unless given device='cpu', and no CUDA "
                 "device is available")
+        # the meta device is the autotuner's planning run (autotune/
+        # capture.py): such an engine reports to no monitor and adopts no
+        # process-global resilience manager
+        self._planning = self.device.type == "meta"
         self._takes_rng = _loss_fn_takes_rng(model)
         self._seed = int(rng or 0)
         self._rng_tick = 0
@@ -343,8 +347,9 @@ class Engine(ConfigAccessorsMixin):
         self._upd_sigs = SignatureCache()
 
         # the "kernels" block is process-global (the consumers are free
-        # functions deep inside model code)
-        if config.kernels_params:
+        # functions deep inside model code); a planning engine leaves it to
+        # its capture (autotune/capture.py)
+        if config.kernels_params and not self._planning:
             kernel_config.configure(**config.kernels_params)
 
         # resilience: a "resilience" block installs the process-global
@@ -352,7 +357,9 @@ class Engine(ConfigAccessorsMixin):
         # injection); without one an installed manager is adopted
         from ..resilience import get_resilience_manager, init_resilience
 
-        if config.resilience_config() is not None:
+        if self._planning:
+            self._resilience = None
+        elif config.resilience_config() is not None:
             self._resilience = init_resilience(config.resilience_config())
         else:
             self._resilience = get_resilience_manager()
@@ -711,6 +718,8 @@ class Engine(ConfigAccessorsMixin):
         installed here) or an installed one, else None. A rank of a
         multi-process run first takes its own role lane, as the
         reference's distributed bootstrap gives every process one."""
+        if self._planning:
+            return None
         mesh = self.mesh
         if mesh.size > 1:
             base = os.environ.get(runctx.ROLE_ENV, "trainer")

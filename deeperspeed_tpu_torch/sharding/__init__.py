@@ -3,10 +3,12 @@
 
 Counterpart of deeperspeed_tpu/sharding/: the dp and fsdp axes (data
 parallelism and ZeRO), tp (tensor parallelism, parallel/tp.py) and sp
-(sequence parallelism, ops/ring_attention.py), and the rule table that
-maps logical dims onto them.
+(sequence parallelism, ops/ring_attention.py), the rule table that
+maps logical dims onto them, and the placement audit (audit.py).
 """
 
+from .audit import (Placement, audit_tree, placements, spec_digest,
+                    tree_digest)
 from .config import CANONICAL_AXES, MeshConfig, resolve_extents
 from .mesh import (DATA_AXIS, DP_AXIS, FSDP_AXIS, SP_AXIS, TP_AXIS, Mesh,
                    default_mesh, from_config)
@@ -25,4 +27,5 @@ __all__ = [
     "data_parallel_size", "zero_size", "tp_size", "sp_size",
     "batch_index", "place_batch", "choose_shard_dim", "add_zero_axis",
     "zero_tree_specs",
+    "audit_tree", "spec_digest", "tree_digest", "placements", "Placement",
 ]

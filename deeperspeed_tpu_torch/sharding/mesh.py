@@ -26,7 +26,11 @@ would refuse the shared-card layout; plain process groups take any.
 
 Without an initialized process group the world is one rank; a mesh of any
 shape can still be built for planning (``zero_tree_specs``), and asking it
-for a group wider than one rank raises.
+for a group wider than one rank raises. A :class:`PlanningMesh` is one
+rank of a mesh that does not exist: its groups are
+``collectives.PlanningGroup``s, which move nothing, so one rank's step of
+any layout runs in this process (the autotuner's capture on the ``meta``
+device).
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -39,7 +43,7 @@ __all__ = [
     "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS", "DP_AXIS",
     "FSDP_AXIS", "TP_AXIS", "SP_AXIS", "CANONICAL_AXES", "Mesh",
     "world_size", "world_rank", "from_config", "default_mesh",
-    "active_mesh", "use_mesh",
+    "active_mesh", "use_mesh", "PlanningMesh",
 ]
 
 # the reference's legacy axis names (deeperspeed_tpu/parallel/topology.py)
@@ -202,6 +206,42 @@ class Mesh:
             if self.rank in ranks:
                 mine = g
         return mine
+
+
+class PlanningMesh(Mesh):
+    """Rank ``rank`` of a mesh of ``shape`` planned in this process,
+    whatever the world: every group wider than one rank is a
+    ``PlanningGroup`` of its size and this rank's position in it."""
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0):
+        # not Mesh.__init__: no initialized world holds this mesh's ranks
+        self.shape = {str(a): int(n) for a, n in shape.items()}
+        self.axis_names = tuple(self.shape)
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+        self.rank = int(rank)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._transports: Dict[Tuple[str, ...], object] = {}
+
+    def group(self, axes: Sequence[str]):
+        from ..runtime.comm.collectives import PlanningGroup
+
+        axes = tuple(a for a in axes if a in self.shape)
+        n = self.axis_size(axes)
+        if n <= 1:
+            return None
+        if axes not in self._groups:
+            self._groups[axes] = PlanningGroup(n, self.axis_index(axes))
+        return self._groups[axes]
+
+    def subgroups(self, partition: Sequence[Sequence[int]]):
+        from ..runtime.comm.collectives import PlanningGroup
+
+        for ranks in partition:
+            if self.rank in ranks and len(ranks) > 1:
+                return PlanningGroup(len(ranks), list(ranks).index(self.rank))
+        return None
 
 
 def from_config(cfg, world: Optional[int] = None) -> Mesh:

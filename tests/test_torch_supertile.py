@@ -130,7 +130,6 @@ def test_attention_dispatch_routing(monkeypatch):
     with kc.override(mode="auto"):
         assert fa.attention_dispatch(shape, bf16, "cpu") == "xla"
     monkeypatch.setattr(kc, "_is_hopper", lambda device: True)
-    monkeypatch.setattr(fa, "_is_hopper", lambda device: True)
     with kc.override(mode="auto"):
         assert fa.attention_dispatch(shape, bf16, "cuda") == "supertile"
         assert fa.attention_dispatch(long, bf16, "cuda") == "flash"

@@ -157,6 +157,14 @@ def test_unported_blocks_raise_naming_their_roadmap_item(block, item):
         assert pt_config.TrainingConfig(cfg).pipeline == want
         assert want == block["pipeline"]
         return
+    if "autotune" in block:
+        # ported: the "autotune" block is accepted as the reference
+        # accepts it (tests/test_torch_autotune.py)
+        want = deeperspeed_tpu.runtime.config.TrainingConfig(cfg)
+        got = pt_config.TrainingConfig(cfg)
+        assert (got.autotune_params, got.autotune_enabled) == \
+            (want.autotune_params, want.autotune_enabled)
+        return
     if "optimizer" in block or item == "Offload and ZeRO-Infinity":
         # an optimizer the port does not have is refused when initialize
         # builds it; so are ZeRO 3, offload and streaming for a loss

@@ -84,7 +84,32 @@ def _rendezvous(rank, world, tmp):
                        f"{RENDEZVOUS_ATTEMPTS} times") from err
 
 
-def _entry(rank, name, world, tmp, args):
+# what the ranks' fork server imports once (multiprocessing's
+# "forkserver"): a spawned process pays ~3 s of CPU importing torch and the
+# port, a forked one none. The server is one single-threaded process a
+# test process, started at its first spawn; each rank then takes the
+# environment the test process has at that spawn (``_start``), as a
+# spawned one would.
+RANK_PRELOAD = ["torch", "torch._dynamo", "deeperspeed_tpu_torch",
+                "deeperspeed_tpu_torch.runtime.engine",
+                "deeperspeed_tpu_torch.models.gpt", "tests.torch_gloo_worker"]
+
+
+def _start(entry, args, world):
+    import multiprocessing
+
+    multiprocessing.set_forkserver_preload(RANK_PRELOAD)
+    mp.start_processes(entry, args=args + (dict(os.environ),),
+                       nprocs=world, start_method="forkserver", join=True)
+
+
+def _take_env(env):
+    os.environ.clear()
+    os.environ.update(env)
+
+
+def _entry(rank, name, world, tmp, args, env):
+    _take_env(env)
     torch.set_num_threads(1)
     _rendezvous(rank, world, tmp)
     try:
@@ -96,11 +121,11 @@ def _entry(rank, name, world, tmp, args):
 
 
 def spawn(name, world, tmp, *args):
-    mp.start_processes(_entry, args=(name, world, str(tmp), args),
-                       nprocs=world, start_method="spawn", join=True)
+    _start(_entry, (name, world, str(tmp), args), world)
 
 
-def _tcp_entry(rank, name, world, tmp, port, args):
+def _tcp_entry(rank, name, world, tmp, port, args, env):
+    _take_env(env)
     torch.set_num_threads(1)
     os.environ.update(DS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                       DS_NUM_PROCESSES=str(world), DS_PROCESS_ID=str(rank))
@@ -111,8 +136,7 @@ def spawn_tcp(name, world, tmp, port, *args):
     """Like ``spawn``, but the ranks join no group themselves: each gets
     the launcher's rendezvous env (a coordinator on ``port``) and
     ``<name>`` brings the group up."""
-    mp.start_processes(_tcp_entry, args=(name, world, str(tmp), port, args),
-                       nprocs=world, start_method="spawn", join=True)
+    _start(_tcp_entry, (name, world, str(tmp), port, args), world)
 
 
 # ------------------------------------------------------------------ #
@@ -1599,4 +1623,57 @@ def config_run(rank, world, tmp, model_kw, config, steps):
            "zero_sharded": sum(sp.sharded for sp in eng._specs),
            "comm_mode": eng._config.comm_config().mode}
     with open(os.path.join(tmp, f"config_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+# ------------------------------------------------------------------ #
+# the autotuner (tests/test_torch_autotune.py)
+# ------------------------------------------------------------------ #
+
+
+def autotune_run(rank, world, tmp, layouts, kernels, tuned):
+    """One real CPU step of each candidate layout (``(name, axes, zero)``
+    triples) through the engine ``autotune.costmodel`` builds, each under
+    a fresh monitor whose cost index records the step, then 2 steps of the
+    tuner's emitted config ``tuned`` on its tiny GPT: each rank writes the
+    recorded flops and bytes and the tuned run's losses."""
+    from deeperspeed_tpu_torch.autotune import confirm, costmodel
+    from deeperspeed_tpu_torch.autotune.space import (LayoutCandidate,
+                                                      ModelSpec)
+    from deeperspeed_tpu_torch.models import gpt
+    from deeperspeed_tpu_torch.monitor import init_monitor, shutdown_monitor
+    from deeperspeed_tpu_torch.monitor.config import MonitorConfig
+    from deeperspeed_tpu_torch.runtime.engine import initialize
+
+    model = ModelSpec()
+    out = {"live": {}}
+    for name, axes, zero in layouts:
+        layout = LayoutCandidate(name, tuple(map(tuple, axes)), zero)
+        mon = init_monitor(MonitorConfig(perf=True))
+        try:
+            eng = costmodel.build_candidate_engine(
+                model, layout, world, kernels=kernels, device="cpu")
+            rows = (eng.train_micro_batch_size_per_gpu()
+                    * eng.data_parallel_size)
+            eng.train_batch(confirm._token_stream(model, rows, 1))
+            rec = mon.cost_index.get("engine/train_step")
+            out["live"][name] = {"flops": rec.flops,
+                                 "bytes": rec.bytes_accessed,
+                                 "error": rec.error}
+        finally:
+            shutdown_monitor(save=False)
+    # the tuned config's model: the tuner's, with no sp axis
+    gcfg = costmodel.gpt_config(model, LayoutCandidate(
+        "tuned", (("dp", world), ("fsdp", 1), ("tp", 1), ("sp", 1))))
+    eng, _, _, _ = initialize(
+        model=gpt.make_gpt(gcfg)[2],
+        model_parameters=gpt.init_params(0, gcfg, device="cpu"),
+        config=tuned, device="cpu")
+    rows = eng.train_micro_batch_size_per_gpu() * eng.data_parallel_size
+    data = confirm._token_stream(model, rows, 2, seed=1)
+    out["tuned"] = {"losses": [float(eng.train_batch(data[i * rows:
+                                                          (i + 1) * rows]))
+                               for i in range(2)],
+                    "mesh": dict(eng.mesh.shape)}
+    with open(os.path.join(tmp, f"autotune_rank{rank}.json"), "w") as f:
         json.dump(out, f)
